@@ -11,8 +11,15 @@ is the causal flash kernel with ``attention="flash"``) and
 attention is the decode kernel).  Where the reference donated the cache to
 a jitted step, :func:`forward_decode` updates the cache IN PLACE.
 
-Pipeline parallelism, the int8 paths, paged decode, chunked prefill,
-speculative verify and the losses wait for later slices.
+Training entry points: :func:`forward` with ``remat`` (each layer under
+``torch.utils.checkpoint``), :func:`per_token_loss` (optionally chunked
+over the sequence so the full logits never exist) and
+:func:`next_token_loss`.  With ``attention="flash"`` the gradient runs the
+flash backward kernels.  The reference's ``unroll`` (an XLA scan-unroll
+compile hint) has no eager counterpart and is not taken.
+
+Pipeline parallelism, sequence-parallel attention, the int8 paths, paged
+decode, chunked prefill and speculative verify wait for later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from distributeddeeplearning_tpu_torch._device import DeviceLike, resolve_device
 from distributeddeeplearning_tpu_torch.ops import flash_attention as _fa
@@ -141,12 +149,33 @@ def _embed(params, tokens):
     return params["embed"][tokens.long()] + params["pos"][: tokens.shape[1]][None]
 
 
-def forward(params, tokens, *, num_heads: int, attention: str = "dense"):
-    """Next-token logits [b, s, vocab] for int tokens [b, s]."""
-    x = _embed(params, tokens)
-    for i in range(params["blocks"]["qkv"].shape[0]):
-        x = block_apply(_layer(params["blocks"], i), x, num_heads=num_heads,
-                        attention=attention)
+def _stack(blocks: Params, x, *, num_heads: int, attention: str = "dense",
+           remat: bool = False):
+    """The layer loop (the reference's ``_stack_scan``).
+
+    ``remat=True`` runs each layer under ``torch.utils.checkpoint``, so
+    backward recomputes the layer from its input instead of keeping its
+    activations: activation memory O(1) in depth, at the price of a second
+    forward per layer (the flash forward kernel then launches twice per
+    layer and step)."""
+    for i in range(blocks["qkv"].shape[0]):
+        p = _layer(blocks, i)
+        if remat:
+            x = checkpoint(block_apply, p, x, num_heads=num_heads,
+                           attention=attention, use_reentrant=False)
+        else:
+            x = block_apply(p, x, num_heads=num_heads, attention=attention)
+    return x
+
+
+def forward(params, tokens, *, num_heads: int, attention: str = "dense",
+            remat: bool = False):
+    """Next-token logits [b, s, vocab] for int tokens [b, s].
+
+    ``remat=True`` rematerializes each layer in backward (see
+    :func:`_stack`)."""
+    x = _stack(params["blocks"], _embed(params, tokens), num_heads=num_heads,
+               attention=attention, remat=remat)
     return x @ params["head"]
 
 
@@ -210,3 +239,52 @@ def forward_decode(params, token, cache, pos, *, num_heads: int,
             pos, num_heads=num_heads, kernel=kernel,
         )
     return x @ params["head"], cache
+
+
+def per_token_loss(params, tokens, *, num_heads: int, attention: str = "dense",
+                   remat: bool = False, loss_chunk: Optional[int] = None):
+    """Per-position next-token cross-entropy [b, s-1], f32.
+
+    Same math as ``next_token_loss(forward(...), tokens)`` per position.
+    ``loss_chunk`` fuses the head matmul into the loss over sequence chunks
+    of that size (it must divide s-1): each chunk's logits, log-sum-exp and
+    target gather run under ``torch.utils.checkpoint``, so backward
+    recomputes the chunk's logits instead of keeping them and the full
+    [b, s, vocab] logits never exist.  ``None`` (or a chunk >= s-1) is the
+    one-shot head matmul."""
+    s = tokens.shape[1]
+    if s < 2:
+        raise ValueError(f"next-token loss needs sequence length >= 2, got {s}")
+    x = _stack(params["blocks"], _embed(params, tokens), num_heads=num_heads,
+               attention=attention, remat=remat)
+    h = x[:, :-1]  # position t predicts token t+1
+    labels = tokens[:, 1:].long()
+    n = s - 1
+    head = params["head"]
+
+    def chunk_ce(hc, lc):
+        logits = (hc @ head).float()
+        tgt = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return torch.logsumexp(logits, dim=-1) - tgt
+
+    if loss_chunk is None or loss_chunk >= n:
+        return chunk_ce(h, labels)
+    if n % loss_chunk:
+        raise ValueError(f"loss_chunk {loss_chunk} must divide seq_len-1 = {n}")
+    return torch.cat([
+        checkpoint(chunk_ce, h[:, i:i + loss_chunk], labels[:, i:i + loss_chunk],
+                   use_reentrant=False)
+        for i in range(0, n, loss_chunk)
+    ], dim=1)
+
+
+def next_token_loss(logits, tokens):
+    """Causal LM loss: predict token t+1 from positions <= t, through the
+    port's one cross-entropy (``train.step.cross_entropy_loss``) on the
+    shifted (strided, uncopied) logits."""
+    from distributeddeeplearning_tpu_torch.train.step import cross_entropy_loss
+
+    s = tokens.shape[1]
+    if s < 2:
+        raise ValueError(f"next-token loss needs sequence length >= 2, got {s}")
+    return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])

@@ -1,25 +1,34 @@
-"""Flash attention forward — the port of ``ops/flash_attention.py``.
+"""Flash attention, forward and backward — the port of ``ops/flash_attention.py``.
 
-On a CUDA tensor :func:`flash_attention_core` launches the hand-written
-kernel ``csrc/flash_attention_fwd.cu`` (the counterpart of the Pallas
-``_kernel`` launched by ``_flash_fwd_pallas``): causal or not, f32, head
-dim 64, any sequence length.  On a CPU tensor it runs the kernel's plain
-version, :func:`_dense_attention`, which is the reference's
-``_dense_attention`` extended to return the log-sum-exp in nats.  There
-is no fallback between the two and no switch: the tensor's device decides,
-and a CUDA tensor the kernel cannot take raises.
+On CUDA tensors :func:`flash_attention_core` launches hand-written kernels:
+``csrc/flash_attention_fwd.cu`` for the forward (the counterpart of the
+Pallas ``_kernel`` launched by ``_flash_fwd_pallas``) and, when a gradient
+is taken, ``csrc/flash_attention_bwd.cu`` for the backward (the dQ pass and
+the dK/dV pass, counterparts of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
+launched by ``_flash_bwd_pallas``).  Causal or not, f32, head dim 64, any
+sequence length.  On CPU tensors the same code runs the kernels' plain
+versions: :func:`_dense_attention` (the reference's ``_dense_attention``
+extended to return the log-sum-exp in nats) and :func:`_dense_attention_bwd`
+(the backward recomputed from the saved lse, with the kernels' arithmetic).
+There is no fallback between the two and no switch: the tensor's device
+decides, and a CUDA tensor the kernels cannot take raises.
+
+The glue is :class:`_FlashAttention`, a ``torch.autograd.Function`` (the
+reference's ``custom_vjp`` in ``_make_core``): forward runs K1 and saves
+``(q, k, v, o, lse)``; backward computes delta = rowsum(dO * O) in PyTorch,
+outside the kernels, as the reference does in XLA, then runs the dQ pass
+and the dK/dV pass.  Gradients come back as contiguous [B, S, H, D]
+tensors; autograd concatenates them into the qkv projection's gradient.
 
 The TPU wrapper's dense fallback for small auto-selected blocks is not
-carried over: it worked around the TPU grid, and the CUDA kernel masks
-its own ragged last tile, so every prompt bucket (192, 576, ...) runs the
-kernel.  The key-padding mask is supported by the plain version only; on
-the card it raises until BERT, its consumer, is ported.
+carried over: it worked around the TPU grid, and the CUDA kernels mask
+their own ragged last tile, so every sequence length runs the kernels.  The
+key-padding mask is supported by the plain version only; on the card it
+raises until BERT, its consumer, is ported.
 
-Forward only: the backward kernels (TPU ``_bwd_dq_kernel`` /
-``_bwd_dkv_kernel``) come with training.
-
-``launches`` counts kernel launches (never plain-version calls), so a run
-can show that it went through the kernel.
+``launches``, ``launches_dq`` and ``launches_dkv`` count kernel launches
+(never plain-version calls), so a run can show that it went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -32,26 +41,39 @@ import torch
 from distributeddeeplearning_tpu_torch.ops import _build
 
 NEG_BIG = -1e30  # finite mask fill; -inf poisons the online-softmax max
-HEAD_DIM = 64  # the kernel's head dim
+HEAD_DIM = 64  # the kernels' head dim
 
-#: kernel launches since the counter was last reset
+#: forward (K1) kernel launches since the counter was last reset
 launches = 0
+#: backward dQ-pass (K2) kernel launches
+launches_dq = 0
+#: backward dK/dV-pass (K3) kernel launches
+launches_dkv = 0
 
-_fn = None
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# entry point -> (library, argtypes); every one returns a cudaError_t
+_SIGNATURES = {
+    "flash_attention_fwd_f32": (
+        "flash_attention_fwd",
+        [_P] * 3 + [_LL] * 9 + [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P]),
+    "flash_attention_bwd_dq_f32": (
+        "flash_attention_bwd", [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P]),
+    "flash_attention_bwd_dkv_f32": (
+        "flash_attention_bwd", [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P]),
+}
+_fns = {}
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = _build.load("flash_attention_fwd").flash_attention_fwd_f32
-        fn.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 9
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
+def _kernel_fn(name: str):
+    """The ctypes entry point ``name``, its library built at first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        lib, argtypes = _SIGNATURES[name]
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _dense_attention(q, k, v, mask, *, causal: bool):
@@ -73,6 +95,26 @@ def _dense_attention(q, k, v, mask, *, causal: bool):
     return torch.einsum("bhqk,bkhd->bqhd", attn, v), lse
 
 
+def _dense_attention_bwd(q, k, v, do, lse, delta, *, causal: bool):
+    """Plain backward with K2/K3's exact semantics, [B, S, H, D] in and
+    out: P is recomputed from the saved ``lse`` ([B, H, S], nats), masked
+    entries are exactly 0, dS = P * (dO V^T - delta) * scale with ``delta``
+    = rowsum(dO * O) [B, H, S]; returns ``(dq, dk, dv)``."""
+    s, d = q.shape[1], q.shape[3]
+    scale = 1.0 / d ** 0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    p = torch.exp(scores - lse[..., None])
+    if causal:
+        tril = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        p = torch.where(tril, p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v).float()
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype), k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype), q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype), do)
+    return dq, dk, dv
+
+
 def _check_operand(name: str, t: torch.Tensor, shape) -> None:
     if t.dtype != torch.float32:
         raise TypeError(
@@ -90,27 +132,29 @@ def _check_operand(name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
 
 
-def _launch(q, k, v, *, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the CUDA kernel on [B, S, H, 64] f32 views (strided in place)."""
-    global launches
+def _check_inputs(**named) -> None:
+    """Shape, type, layout and device checks shared by the three kernels."""
+    q = named["q"]
     b, s, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(
             f"flash_attention: the CUDA kernel takes head dim {HEAD_DIM}, "
             f"got {d}"
         )
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in named.items():
         _check_operand(name, t, (b, s, h, d))
         if t.device != q.device:
-            raise ValueError("flash_attention: q, k, v on different devices")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only; the backward kernels "
-            "come with training (port slice 5)"
-        )
+            raise ValueError("flash_attention: operands on different devices")
+
+
+def _launch(q, k, v, *, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run K1 on [B, S, H, 64] f32 views (strided in place)."""
+    global launches
+    _check_inputs(q=q, k=k, v=v)
+    b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    fn = _kernel_fn()
+    fn = _kernel_fn("flash_attention_fwd_f32")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(
@@ -126,14 +170,99 @@ def _launch(q, k, v, *, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     return o, lse
 
 
-def flash_attention_core(q, k, v, *, causal: bool = False):
-    """``(o [B, S, H, D], lse [B, H, S] nats)`` for [B, S, H, D] inputs —
-    the CUDA kernel on a CUDA tensor, its plain version on a CPU one."""
+def _bwd_launch(name, q, k, v, do, lse, delta, outs, *, causal: bool):
+    """Check the backward's operands and launch entry point ``name``
+    writing ``outs``."""
+    _check_inputs(q=q, k=k, v=v, do=do)
+    b, s, h, d = q.shape
+    for label, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s) or (
+            not t.is_contiguous() or t.device != q.device
+        ):
+            raise ValueError(
+                f"flash_attention: {label} must be contiguous f32 [{b}, {h}, "
+                f"{s}] on {q.device}"
+            )
+    strides = (ctypes.c_longlong * 12)(
+        *(x.stride(i) for x in (q, k, v, do) for i in range(3))
+    )
+    with torch.cuda.device(q.device):
+        code = _kernel_fn(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), ctypes.addressof(strides),
+            *(t.data_ptr() for t in outs), b, h, s, int(causal),
+            1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(code, name)
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool) -> torch.Tensor:
+    """K2, the dQ pass, on [B, S, H, 64] f32 views; ``lse`` and ``delta``
+    contiguous [B, H, S] f32.  Returns dQ [B, S, H, 64] contiguous."""
+    global launches_dq
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch("flash_attention_bwd_dq_f32", q, k, v, do, lse, delta, (dq,),
+                causal=causal)
+    launches_dq += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool):
+    """K3, the dK/dV pass, same operands; returns ``(dK, dV)``."""
+    global launches_dkv
+    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    _bwd_launch("flash_attention_bwd_dkv_f32", q, k, v, do, lse, delta,
+                (dk, dv), causal=causal)
+    launches_dkv += 1
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, do, lse, delta, *, causal: bool):
+    """K2 then K3: ``(dq, dk, dv)``."""
+    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    return (dq, *_launch_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+
+
+def _forward(q, k, v, *, causal: bool):
     if q.device.type == "cuda":
         return _launch(q, k, v, causal=causal)
     if q.device.type == "cpu":
         return _dense_attention(q, k, v, None, causal=causal)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2/K3 backward (plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = _forward(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()  # e.g. the stride-0 gradient of a plain sum
+        # delta = rowsum(dO * O), [B, H, S], outside the kernels (the
+        # reference computes it in XLA); one O(S*D) elementwise reduce
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        if q.device.type == "cuda":
+            dq, dk, dv = _launch_bwd(q, k, v, do, lse, delta, causal=ctx.causal)
+        else:
+            dq, dk, dv = _dense_attention_bwd(q, k, v, do, lse, delta,
+                                              causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_core(q, k, v, *, causal: bool = False):
+    """``(o [B, S, H, D], lse [B, H, S] nats)`` for [B, S, H, D] inputs —
+    the CUDA kernels on CUDA tensors, their plain versions on CPU ones.
+    Differentiable in q, k and v (lse carries no gradient)."""
+    return _FlashAttention.apply(q, k, v, causal)
 
 
 def flash_attention(
@@ -148,8 +277,9 @@ def flash_attention(
     ``flash_attention`` without its TPU block arguments).
 
     ``mask``: bool key padding, broadcastable to [B, 1, 1, S] — plain
-    version only for now.  ``causal=True`` applies the autoregressive
-    triangle inside the kernel, skipping the tiles above the diagonal."""
+    version only for now (differentiated by autograd).  ``causal=True``
+    applies the autoregressive triangle inside the kernels, skipping the
+    tiles above the diagonal in the forward and in both backward passes."""
     if mask is not None:
         if q.device.type == "cuda":
             raise NotImplementedError(

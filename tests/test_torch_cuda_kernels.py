@@ -13,7 +13,9 @@ Tolerances: both sides are float32 with TF32 off; the kernels sum in
 another order than cuBLAS and use natural-base online softmax, so they
 differ from the plain version by rounding only — 1e-4 absolute on
 outputs of magnitude ~1 leaves a margin of ~100x over the f32 error of
-sums over <= 576 terms.
+sums over <= 576 terms.  The backward's gradients reach ~10 at these
+shapes and sum up to S terms twice (dP, then dQ/dK), so they are held to
+1e-4 of their largest magnitude.
 """
 
 from __future__ import annotations
@@ -70,6 +72,49 @@ def test_flash_attention_kernel_rejects_what_it_cannot_take(cuda):
                                                device="cuda"), causal=True)
     with pytest.raises(TypeError, match="float32"):
         fa.flash_attention_core(q.double(), k.double(), v.double())
+
+
+@pytest.mark.parametrize("s", [1, 37, 64, 128, 576])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_kernels_match_plain(cuda, s, causal):
+    """K2 (dQ) and K3 (dK, dV) against the plain backward on strided qkv
+    views at B=2, H=12, D=64, with the forward's own lse and a random dO;
+    each kernel launches once."""
+    q, k, v = _qkv_views(s, b=2, seed=s)
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal)
+    do = torch.randn(o.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(7), device="cuda")
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    before = (fa.launches_dq, fa.launches_dkv)
+    got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1, before[1] + 1)
+    want = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4 * max(w.abs().max().item(), 1.0)
+
+
+def test_gradients_through_the_function_match_dense_autograd(cuda):
+    """torch.autograd.grad through flash_attention (K1 + K2/K3) == autograd
+    through the plain dense attention, on views of one qkv leaf."""
+    b, s, h, d = 2, 200, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda",
+                      requires_grad=True)
+
+    def loss(attn):
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+        return (attn(q, k, v) ** 2).sum()
+
+    before = fa.launches_dq
+    (g_flash,) = torch.autograd.grad(
+        loss(lambda q, k, v: fa.flash_attention(q, k, v, None, causal=True)), qkv)
+    assert fa.launches_dq == before + 1
+    (g_dense,) = torch.autograd.grad(
+        loss(lambda q, k, v: fa._dense_attention(q, k, v, None, causal=True)[0]),
+        qkv)
+    assert (g_flash - g_dense).abs().max().item() <= 1e-4 * g_dense.abs().max().item()
 
 
 def test_flash_decode_kernel_on_strided_cache_view(cuda):

@@ -46,7 +46,7 @@ def _port_modules():
 
 def test_every_port_module_and_the_smoke_script_import_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 12, modules
+    assert len(modules) >= 19, modules
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -62,7 +62,9 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert not bad, f"the port pulled in {bad[:10]}"
-    assert "distributeddeeplearning_tpu_torch.serve.scheduler" in loaded
+    for name in ("serve.scheduler", "train.schedule", "train.state",
+                 "train.step", "train.loop", "workloads.transformer"):
+        assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
