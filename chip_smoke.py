@@ -7,29 +7,46 @@ Run from a checkout of the repository (the port's package sits beside this
 script); it needs one CUDA card, the CUDA toolkit (``nvcc``) and PyTorch
 built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
 
-1. build: compile every CUDA kernel of the serving path from ``csrc/``
-   (one ``nvcc`` per source, all at once) and print the build time;
+1. build: compile every CUDA kernel from ``csrc/`` (one ``nvcc`` per
+   source, all at once) and print the build time;
 2. K1, the causal flash-attention forward, against its plain PyTorch
    version at the prefill shapes B=1, H=12, D=64, S in {128, 512, 576}
    (576 is a ragged tile), inputs as the model's strided qkv split;
 3. K4(a), decode attention, against its plain version at b=8, h=12,
    hd=64, S=576 on the strided layer views of a real [8, 12, 576, 12, 64]
    cache, with unequal positions including 0 and S-1;
-4. serving end to end: the 12-layer causal LM at full width (d_model
+4. K4(b), the same kernel with 64 queries: one chunk of chunked prefill
+   (b=1, nq=64) through a scrambled 9-page table on the strided layer
+   views of a [73, 12, 64, 12, 64] f32 pool, at offsets 0, 200 and 512;
+5. K4(c), its int8 variant on a quantize_kv pool: decode with the own-token
+   overlay (b=8, nq=1, K4(a)'s positions) and a chunk without it (nq=64);
+   a NaN scale at a visible position must make its slot NaN and no other;
+6. dense serving end to end: the 12-layer causal LM at full width (d_model
    768, 12 heads, d_ff 3072, vocab 32768; random weights from seed 0 with
    the tied 4x embedding head) served by ``InferenceEngine`` (8 slots,
    max_seq 576) under ``ContinuousBatchingScheduler(max_new_tokens=32)``
    over 16 synthetic requests of 64..512 tokens.  The kernels' launch
-   counters are zeroed just before the run and must have risen after it;
-   the greedy tokens of the two shortest requests must equal a naive
-   oracle that recomputes the full dense forward each step;
-5. K2 and K3, the flash-attention backward (dQ pass, dK/dV pass), against
+   counters are zeroed just before the run and read just after; the
+   greedy tokens of the two shortest requests must equal a naive oracle
+   that recomputes the full dense forward each step;
+7. paged serving end to end: 16 requests with a shared 128-token prefix
+   (64..384 more tokens each) on ``PagedInferenceEngine`` (page 64, chunk
+   64, the default 72-page pool) four times — f32, int8, f32 without the
+   prefix cache, and int8 through the plain read (``decode_kernel=
+   "gather"``) — each with the counters zeroed just before and read just
+   after: K4 must launch 12 times per chunk and per decode step (int8
+   runs: every launch int8; the gather run: none), K1 never.  Paged f32
+   tokens must equal the dense engine's on the same requests, the prefix
+   hit run the cold run's, int8 kernel tokens the int8 plain-read
+   tokens, and a teacher-forced check holds chunked prefill + paged
+   decode to the dense forward;
+8. K2 and K3, the flash-attention backward (dQ pass, dK/dV pass), against
    their plain version at the training shape B=8, H=12, D=64, S=2048,
    causal, and at S in {37, 576} (ragged tiles), inputs as strided qkv
    views with a random dO;
-6. gradient parity at full width: one loss and gradient of the 12-layer
+9. gradient parity at full width: one loss and gradient of the 12-layer
    LM at batch 1, seq 2048, flash (K1 + K2/K3) against dense attention;
-7. training end to end: the port's ``workloads.transformer.main`` at the
+10. training end to end: the port's ``workloads.transformer.main`` at the
    reference configuration (12 layers, d 768, 12 heads, ff 3072, vocab
    32768, seq 2048, batch 8, flash attention, f32), 8 epochs of one step
    on one repeated batch.  The counters are zeroed just before it; K1 must
@@ -49,9 +66,13 @@ larger of the bytes moved (inputs read once, outputs written once) over
 3.35 TB/s and the flops over 67 TFLOP/s (the H100's f32 peak on CUDA
 cores, which is what the f32 kernels use).  ``library_ms`` times
 one ``scaled_dot_product_attention`` call on the same inputs (for K2/K3,
-``torch.autograd.grad`` through it, graph built once), a yardstick the
-port never calls.  ``launches`` is the count in this slice's own path
-(training for K1, K2, K3; serving for K4); K1's row also gives both.
+``torch.autograd.grad`` through it, graph built once; for K4(b), on the
+history gathered beforehand, since it cannot follow block tables), a
+yardstick the port never calls; K4(c) has none (no single PyTorch call
+takes int8 K/V).  The int8 bound counts 2*(hd + 4) bytes per visible
+position and head.  ``launches`` is the count in the path that runs the
+kernel: training for K1, K2, K3; dense serving for K4(a); the f32 paged
+run's chunks for K4(b) and the int8 paged run for K4(c).
 
 Output: progress lines, then one JSON line with a row per kernel, the line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
@@ -89,6 +110,8 @@ TRAIN_EPOCHS = 8  # one step each: every epoch end is a timed sync point
 SERVE = dict(num_layers=12, d_model=768, num_heads=12, d_ff=3072,
              vocab_size=32768)
 SLOTS, MAX_SEQ, REQUESTS, NEW_TOKENS = 8, 576, 16, 32
+PAGE, CHUNK = 64, 64  # the CLI's defaults (cli/main.py:379, :386)
+POOL_PAGES = SLOTS * MAX_SEQ // PAGE  # the paged engine's default pool, 72
 
 
 def log(msg: str) -> None:
@@ -232,6 +255,156 @@ def phase_k4(torch, F, fd, card):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms, max_abs_err=worst,
                 shape="b=8 h=12 hd=64 S=576 nq=1 f32, pos 0..575")
+
+
+def _paged_pool(torch, dtype, seed):
+    """A [POOL_PAGES + 1, 12, 64, 12, 64] pool of random K/V (int8: through
+    the port's quantize_kv, with its scale pools) and scrambled block
+    tables over pages 1..POOL_PAGES for 8 slots of 9 pages."""
+    from distributeddeeplearning_tpu_torch.quant.qtensor import quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    layers, h, hd = SERVE["num_layers"], SERVE["num_heads"], 64
+    pool = {}
+    for name in ("k", "v"):
+        x = torch.randn((POOL_PAGES + 1, layers, PAGE, h, hd), generator=g,
+                        device="cuda")
+        if dtype == "int8":
+            pool[name], pool[f"{name}_scale"] = quantize_kv(x)
+        else:
+            pool[name] = x
+        del x
+    perm = torch.randperm(POOL_PAGES, generator=torch.Generator().manual_seed(seed))
+    tables = (perm + 1).reshape(SLOTS, MAX_SEQ // PAGE).to(torch.int32).cuda()
+    return pool, tables
+
+
+def _layer_views(pool, layer):
+    """Layer ``layer``'s strided views (k, v, k_scale, v_scale) of a pool;
+    the scales are None on an f32 pool."""
+    return tuple(pool[n][:, layer] if n in pool else None
+                 for n in ("k", "v", "k_scale", "v_scale"))
+
+
+def phase_k4b(torch, F, fd, card):
+    """K4(b): one 64-token chunk of a sequence (b=1, nq=64) against its
+    plain version, through a scrambled 9-page table, on the strided layer
+    views of a 73-page f32 pool; timed with the history 576 (offset 512)."""
+    pool, tables = _paged_pool(torch, "float32", seed=6)
+    layers, h, hd, C = SERVE["num_layers"], SERVE["num_heads"], 64, CHUNK
+    table = tables[0]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn((C, 3, h, hd), generator=g, device="cuda")[:, 0]  # strided
+    worst = 0.0
+    for offset in (0, 200, 512):
+        posns = offset + torch.arange(C, device="cuda")
+        for layer in (0, layers - 1):
+            k_l, v_l, _, _ = _layer_views(pool, layer)
+            assert not k_l.is_contiguous()
+            out = fd.chunk_attention(q, k_l, v_l, None, None, table, posns)
+            ref = fd._gather_chunk(q, k_l, v_l, None, None, table, posns)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            worst = max(worst, err)
+            if not bool(torch.isfinite(out).all()) or err > K4_TOL:
+                raise AssertionError(f"K4(b) disagrees at offset {offset}: {err}")
+    log(f"[k4b] b=1 nq=64 chunk, scrambled table, offsets 0/200/512: max|dout|="
+        f"{worst:.3e} (tolerance {K4_TOL:g})")
+    posns = 512 + torch.arange(C, device="cuda")
+    views = [_layer_views(pool, i)[:2] for i in range(layers)]
+    run = lambda i: fd.chunk_attention(q, *views[i % layers], None, None,  # noqa: E731
+                                       table, posns)
+    ms = device_ms(torch, run, iters=120)
+    plain_ms = device_ms(torch, lambda i: fd._gather_chunk(
+        q, *views[i % layers], None, None, table, posns), iters=60)
+    # the library call gets the history already gathered (it cannot follow
+    # block tables) and a boolean mask of the visible positions
+    s = MAX_SEQ
+    hist = [tuple(t[table.long()].reshape(1, s, h, hd).transpose(1, 2)
+                  for t in v) for v in views]
+    qt = q[None].transpose(1, 2)
+    mask = torch.arange(s, device="cuda")[None, :] <= posns[:, None]
+    lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qt, *hist[i % layers], attn_mask=mask), iters=60)
+    pairs = float((posns.long() + 1).sum().item())  # visible (query, key)
+    nbytes = 4.0 * (2 * C * h * hd + 2 * s * h * hd) + 4.0 * (C + table.numel())
+    flops = 4.0 * pairs * h * hd
+    bms, by = bound_ms(nbytes, flops)
+    log(f"[k4b] history 576, nq=64: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa (pre-gathered history, bool mask) {lib_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}); device times, on {card}")
+    del pool, views, hist
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, max_abs_err=worst,
+                shape="b=1 nq=64 h=12 hd=64 page 64, history 576 (offset 512), "
+                      "f32, scrambled table, strided pool view")
+
+
+def phase_k4c(torch, fd, card):
+    """K4(c): int8 decode with the own-token overlay (b=8, nq=1) and an
+    int8 chunk without it (b=1, nq=64), against their plain versions on a
+    real quantize_kv pool; a NaN scale must poison its slot only."""
+    pool, tables = _paged_pool(torch, "int8", seed=8)
+    layers, h, hd = SERVE["num_layers"], SERVE["num_heads"], 64
+    pos = torch.tensor([0, 575, 17, 300, 64, 511, 128, 450], dtype=torch.int32,
+                       device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    qkv = torch.randn((SLOTS, 3, h, hd), generator=g, device="cuda")
+    q3, k_t, v_t = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # strided, as the model's
+    q_c = torch.randn((CHUNK, 3, h, hd), generator=g, device="cuda")[:, 0]
+    posns = 512 + torch.arange(CHUNK, device="cuda")
+    worst = 0.0
+    for layer in (0, layers - 1):
+        views = _layer_views(pool, layer)
+        out = fd.decode_attention_paged(q3, *views, k_t, v_t, pos, tables)
+        ref = fd._gather_decode_paged(q3, *views, k_t, v_t, pos, tables)
+        out_c = fd.chunk_attention(q_c, *views, tables[1], posns)
+        ref_c = fd._gather_chunk(q_c, *views, tables[1], posns)
+        torch.cuda.synchronize()
+        for what, o, r in (("decode+overlay", out, ref), ("chunk", out_c, ref_c)):
+            err = (o - r).abs().max().item()
+            worst = max(worst, err)
+            log(f"[k4c] layer {layer} int8 {what}: max|dout|={err:.3e} "
+                f"(tolerance {K4_TOL:g})")
+            if not bool(torch.isfinite(o).all()) or err > K4_TOL:
+                raise AssertionError(f"K4(c) {what} disagrees with its plain version")
+    # the int8 quarantine signal: a NaN K scale at a visible position of
+    # slot 3 (pos 300) makes slot 3's output NaN and leaves the rest finite
+    views = _layer_views(pool, 0)
+    page, row = tables[3, 2].item(), 10  # position 138
+    saved = pool["k_scale"][page, 0, row].clone()
+    pool["k_scale"][page, 0, row] = float("nan")
+    out = fd.decode_attention_paged(q3, *views, k_t, v_t, pos, tables)
+    others = torch.cat([out[:3], out[4:]])
+    confined = bool(torch.isnan(out[3]).all()) and bool(torch.isfinite(others).all())
+    pool["k_scale"][page, 0, row] = saved
+    log(f"[k4c] NaN scale at slot 3, position 138: slot 3 all NaN and the other "
+        f"7 slots finite: {confined}")
+    if not confined:
+        raise AssertionError("a NaN scale escaped its slot (or was not read)")
+    allv = [_layer_views(pool, i) for i in range(layers)]
+    run = lambda i: fd.decode_attention_paged(  # noqa: E731
+        q3, *allv[i % layers], k_t, v_t, pos, tables)
+    ms = device_ms(torch, run, iters=120)
+    plain_ms = device_ms(torch, lambda i: fd._gather_decode_paged(
+        q3, *allv[i % layers], k_t, v_t, pos, tables), iters=60)
+    chunk_ms = device_ms(torch, lambda i: fd.chunk_attention(
+        q_c, *allv[i % layers], tables[1], posns), iters=120)
+    hist = float((pos.long() + 1).sum().item())
+    nbytes = (2 * hist * h * (hd + 4) + 4.0 * 4 * SLOTS * h * hd
+              + 4.0 * (2 * SLOTS + tables.numel()))  # q, own K/V, out; pos, tables
+    bms, by = bound_ms(nbytes, 4.0 * hist * h * hd)
+    log(f"[k4c] int8 decode b=8 S=576 with overlay: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); int8 chunk nq=64 "
+        f"history 576: kernel {chunk_ms:.4f} ms; no single PyTorch call takes "
+        f"int8 K/V; device times, on {card}")
+    del pool, allv
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, max_abs_err=worst, chunk_ms=chunk_ms,
+                shape="b=8 nq=1 h=12 hd=64 page 64, pos 0..575, int8 + f32 "
+                      "scales, own-token overlay, scrambled tables")
 
 
 def naive_greedy(torch, forward, params, prompt, n):
@@ -397,7 +570,193 @@ def phase_serve(torch, np, fa, fd, card):
         log(f"[profile] {name}: host wall {wall:.3f} ms, kernel time {share} on {card}")
         for key, ms in top[:6]:
             log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
-    return launches
+    return launches, engine
+
+
+def teacher_forced_paged_error(torch, params, tokens, prompt_len):
+    """Max |logit difference| between the paged serving path (the prompt in
+    64-token chunks through forward_prefill_chunk, then one paged decode
+    step per token, f32 pool, reversed block table) and one full dense
+    forward over the same tokens, and the largest |logit|."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        forward, forward_decode_paged, forward_prefill_chunk,
+    )
+    from distributeddeeplearning_tpu_torch.serve import init_paged_cache
+
+    heads, nb = SERVE["num_heads"], MAX_SEQ // PAGE
+    cache = init_paged_cache(num_pages=nb, num_layers=SERVE["num_layers"],
+                             page_size=PAGE, num_heads=heads, head_dim=64,
+                             device="cuda")
+    table = torch.arange(nb, 0, -1, dtype=torch.int32, device="cuda")
+    toks = torch.tensor([tokens], device="cuda")
+    got = []
+    with torch.inference_mode():
+        full = forward(params, toks, num_heads=heads, attention="dense")[0]
+        for off in range(0, prompt_len, CHUNK):
+            real = min(CHUNK, prompt_len - off)
+            logits, _ = forward_prefill_chunk(
+                params, toks[:, off:off + real], cache, table, off, num_heads=heads)
+            got.append(logits[0, :real])
+        for pos in range(prompt_len, len(tokens) - 1):
+            step, _ = forward_decode_paged(
+                params, toks[:, pos], cache,
+                torch.tensor([pos], dtype=torch.int32, device="cuda"),
+                table[None], num_heads=heads)
+            got.append(step)
+        want = full[:len(tokens) - 1]
+        err = (torch.cat(got) - want).abs().max().item()
+    return err, want.abs().max().item()
+
+
+PAGED_RUNS = (  # name, engine options
+    ("f32", {}),
+    ("int8", {"cache_dtype": "int8"}),
+    ("f32_cold", {"prefix_cache": False}),
+    ("int8_gather", {"cache_dtype": "int8", "decode_kernel": "gather"}),
+)
+
+
+def phase_serve_paged(torch, np, fa, fd, card, dense_engine):
+    """The paged engine at the serving geometry (page 64, chunk 64, the
+    default 72-page pool) on shared-prefix traffic: four engines, each run
+    with the launch counters zeroed just before it and read just after."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        forward_prefill_chunk,
+    )
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, PagedInferenceEngine, Request,
+        synthetic_requests,
+    )
+
+    params = dense_engine.params
+    layers, vocab = SERVE["num_layers"], SERVE["vocab_size"]
+    requests = synthetic_requests(REQUESTS, vocab_size=vocab, max_prompt=384,
+                                  min_prompt=64, shared_prefix_len=128,
+                                  rng=np.random.default_rng(0))
+    dense_res, _ = ContinuousBatchingScheduler(
+        dense_engine, max_new_tokens=NEW_TOKENS).run(requests)
+    dense_tokens = {r.uid: r.tokens for r in dense_res}
+    rng = np.random.default_rng(3)
+    warm = [Request(uid=f"warm{n}", prompt=rng.integers(1, vocab, n).tolist())
+            for n in (72, 200)]
+    runs = {}
+    for name, kw in PAGED_RUNS:
+        engine = PagedInferenceEngine(
+            params, num_heads=SERVE["num_heads"], batch_slots=SLOTS,
+            max_seq=MAX_SEQ, page_size=PAGE, prefill_chunk=CHUNK, **kw)
+        ContinuousBatchingScheduler(engine, max_new_tokens=2).run(warm)
+        engine.reset_stats()
+        engine.clear_prefix_cache()
+        final = {}  # prompt -> the final chunk's logits row (first token)
+
+        def capture(task, step=engine.prefill_step, engine=engine, final=final):
+            tok = step(task)
+            if tok is not None:
+                final[tuple(task.prompt)] = engine.last_prefill_logits.clone()
+            return tok
+
+        engine.prefill_step = capture
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        fd.launches = fd.launches_int8 = fd.launches_multi_query = 0
+        torch.cuda.synchronize()
+        results, report = ContinuousBatchingScheduler(
+            engine, max_new_tokens=NEW_TOKENS).run(requests)
+        torch.cuda.synchronize()
+        counts = {"flash_attention_fwd": fa.launches, "flash_decode": fd.launches,
+                  "int8": fd.launches_int8, "multi_query": fd.launches_multi_query}
+        chunks, steps = engine.chunks_run, report.decode_steps
+        kernel = 0 if name.endswith("gather") else layers
+        want = {"flash_attention_fwd": 0,
+                "flash_decode": kernel * (chunks + steps),
+                "int8": kernel * (chunks + steps) if "int8" in name else 0,
+                "multi_query": kernel * chunks}
+        log(f"[paged] {name}: launches {counts} (expected {want}: {kernel} per "
+            f"chunk and per decode step; {chunks} chunks, {steps} decode steps)")
+        if counts != want:
+            raise AssertionError(f"{name}: unexpected launch counts {counts}")
+        if report.finish_reasons != {"length": REQUESTS}:
+            raise AssertionError(f"{name}: finish reasons {report.finish_reasons}")
+        for r in results:
+            if len(r.tokens) != NEW_TOKENS or not all(0 <= t < vocab for t in r.tokens):
+                raise AssertionError(f"{name} {r.uid}: bad token stream {r.tokens}")
+        engine.allocator.check()
+        if engine.allocator.pages_in_use:
+            raise AssertionError(f"{name}: pages leaked")
+        log(f"[paged] {name}: tokens/s {report.tokens_per_sec} | TTFT p50 "
+            f"{report.ttft_s['p50'] * 1e3:.2f} ms p99 {report.ttft_s['p99'] * 1e3:.2f} ms"
+            f" | decode step p50 {report.decode_step_s['p50'] * 1e3:.3f} ms | "
+            f"kv_bytes_peak {report.kv_bytes_peak} of kv_bytes {report.kv_bytes} | "
+            f"prefix hit rate {report.prefix_hit_rate} on {card}")
+        log(f"[paged] {name} report " + json.dumps(report.to_dict()))
+        runs[name] = dict(tokens={r.uid: r.tokens for r in results},
+                          report=report, counts=counts, final=final,
+                          engine=engine)
+
+    f32, int8, cold, gather = (runs[n] for n, _ in PAGED_RUNS)
+    for name in ("f32", "int8"):
+        if not runs[name]["report"].prefix_hit_rate > 0:
+            raise AssertionError(f"{name}: no prefix hit")
+    if cold["report"].prefix_hit_rate != 0:
+        raise AssertionError("prefix_cache=False hit the prefix cache")
+    checks = (("f32 paged tokens == dense engine tokens", f32["tokens"], dense_tokens),
+              ("f32 prefix hit == cold run tokens", f32["tokens"], cold["tokens"]),
+              ("int8 flash tokens == int8 gather tokens", int8["tokens"],
+               gather["tokens"]))
+    for what, got, want in checks:
+        log(f"[paged] {what}: {got == want}")
+        if got != want:
+            raise AssertionError(what)
+    hit_diff = max((f32["final"][p] - cold["final"][p]).abs().max().item()
+                   for p in cold["final"])
+    log(f"[paged] prefix hit vs cold run: largest final-chunk logit difference "
+        f"{hit_diff:.3e} over {len(cold['final'])} prompts, "
+        f"{f32['engine'].prefix_hit_tokens} prompt tokens served from shared "
+        f"pages (page 64 and chunk 64 put every hit on a chunk boundary)")
+    same = sum(a == b for uid in f32["tokens"]
+               for a, b in zip(f32["tokens"][uid], int8["tokens"][uid]))
+    log(f"[paged] int8 vs f32 greedy token agreement: "
+        f"{same / (REQUESTS * NEW_TOKENS):.4f}")
+    shortest = min(requests, key=lambda r: len(r.prompt))
+    err, scale = teacher_forced_paged_error(
+        torch, params, list(shortest.prompt) + f32["tokens"][shortest.uid],
+        len(shortest.prompt))
+    log(f"[paged] {shortest.uid} (prompt {len(shortest.prompt)}): teacher-forced "
+        f"logits, chunked prefill + paged decode vs dense forward: max|d|="
+        f"{err:.3e} (largest |logit| {scale:.3f}, tolerance {LOGIT_RTOL:g} of it)")
+    if not err <= LOGIT_RTOL * scale:
+        raise AssertionError(f"paged serving logits drift {err}")
+
+    # where a paged step's time goes (f32 engine): 8 slots at pos 300, and
+    # one 64-token chunk at offset 256
+    engine = f32["engine"]
+    for slot in range(SLOTS):
+        engine.prefill(slot, rng.integers(1, vocab, 300).tolist(), NEW_TOKENS)
+    pos = np.full(SLOTS, 300, np.int32)
+    toks = np.arange(1, SLOTS + 1, dtype=np.int32)
+    table = torch.from_numpy(engine.block_tables[0].copy()).cuda()
+    chunk = torch.from_numpy(rng.integers(1, vocab, (1, CHUNK))).cuda()
+
+    def one_chunk():
+        with torch.inference_mode():
+            forward_prefill_chunk(engine.params, chunk, engine.cache, table, 256,
+                                  num_heads=SERVE["num_heads"])
+
+    for what, fn, n in (("paged decode step (8 slots, pos 300)",
+                         lambda: engine.decode(toks, pos), 10),
+                        ("prefill chunk (64 tokens at offset 256)", one_chunk, 10)):
+        wall, busy, top = profile_share(torch, fn, n)
+        share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
+        log(f"[profile] {what}: host wall {wall:.3f} ms, kernel time {share} on {card}")
+        for key, ms in top[:6]:
+            log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
+    for slot in range(SLOTS):
+        engine.release(slot)
+    out = {"decode_f32": f32["counts"]["flash_decode"] - f32["counts"]["multi_query"],
+           "chunk_f32": f32["counts"]["multi_query"],
+           "int8": int8["counts"]["int8"]}
+    del runs, f32, int8, cold, gather, engine
+    torch.cuda.empty_cache()
+    return out
 
 
 def _causal_pairs(s: int) -> int:
@@ -642,7 +1001,11 @@ def main() -> int:
                     log(f"[build] {name}: {line.strip()}")
         k1 = phase_k1(torch, F, fa, card)
         k4 = phase_k4(torch, F, fd, card)
-        served = phase_serve(torch, np, fa, fd, card)
+        k4b = phase_k4b(torch, F, fd, card)
+        k4c = phase_k4c(torch, fd, card)
+        served, dense_engine = phase_serve(torch, np, fa, fd, card)
+        paged = phase_serve_paged(torch, np, fa, fd, card, dense_engine)
+        del dense_engine
         torch.cuda.empty_cache()
         bwd = phase_bwd(torch, F, fa, card)
         phase_grad_parity(torch, np)
@@ -660,7 +1023,17 @@ def main() -> int:
         dict(name="flash_decode", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
-             launches=served["flash_decode"], **k4),
+             launches=served["flash_decode"],
+             launches_by_path={"serve_dense": served["flash_decode"],
+                               "serve_paged_f32": paged["decode_f32"]}, **k4),
+        dict(name="flash_decode_chunk", route="cuda",
+             source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
+             replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
+             launches=paged["chunk_f32"], **k4b),
+        dict(name="flash_decode_int8", route="cuda",
+             source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
+             replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
+             launches=paged["int8"], **k4c),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_attention.py:335",

@@ -6,10 +6,13 @@ mapping (:func:`params_from_numpy`).  Blocks are plain functions on
 tensors; a Python loop over layers takes the place of ``lax.scan``.
 
 Serving entry points: :func:`forward_prefill` (prompt pass; its attention
-is the causal flash kernel with ``attention="flash"``) and
-:func:`forward_decode` (one token per slot against the KV cache; its
-attention is the decode kernel).  Where the reference donated the cache to
-a jitted step, :func:`forward_decode` updates the cache IN PLACE.
+is the causal flash kernel with ``attention="flash"``),
+:func:`forward_decode` (one token per slot against the dense KV cache),
+:func:`forward_decode_paged` (the same against the page pool) and
+:func:`forward_prefill_chunk` (one prompt chunk against the page pool);
+the last three attend through the decode kernel, on f32 or int8 caches.
+Where the reference donated the cache to a jitted step, they update the
+cache IN PLACE.
 
 Training entry points: :func:`forward` with ``remat`` (each layer under
 ``torch.utils.checkpoint``), :func:`per_token_loss` (optionally chunked
@@ -18,8 +21,8 @@ over the sequence so the full logits never exist) and
 flash backward kernels.  The reference's ``unroll`` (an XLA scan-unroll
 compile hint) has no eager counterpart and is not taken.
 
-Pipeline parallelism, sequence-parallel attention, the int8 paths, paged
-decode, chunked prefill and speculative verify wait for later slices.
+Pipeline parallelism, sequence-parallel attention, int8 weights and
+speculative verify wait for later slices.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ from torch.utils.checkpoint import checkpoint
 from distributeddeeplearning_tpu_torch._device import DeviceLike, resolve_device
 from distributeddeeplearning_tpu_torch.ops import flash_attention as _fa
 from distributeddeeplearning_tpu_torch.ops import flash_decode as _fd
+from distributeddeeplearning_tpu_torch.quant.qtensor import (
+    quantize_kv,
+    quantized_cache,
+)
 
 Params = Dict[str, Any]
 
@@ -194,27 +201,57 @@ def forward_prefill(params, tokens, *, num_heads: int, attention: str = "dense")
     return x @ params["head"], torch.stack(ks, dim=1), torch.stack(vs, dim=1)
 
 
-def _block_decode(p, x, k_l, v_l, pos, *, num_heads: int, kernel: str = "auto"):
+def _write_kv(k_l, v_l, k_s, v_s, idx, k_new, v_new) -> None:
+    """Write new K/V rows into a cache layer at the advanced index ``idx``,
+    IN PLACE (the counterpart of the reference's ``.at[idx].set``); an
+    int8 cache (``k_s``/``v_s`` given) quantizes each row with its own
+    scale.  Duplicate targets occur only at the paged pool's scratch page
+    (inactive decode lanes, chunk padding past the table): there the last
+    write wins and nothing ever reads it."""
+    if k_s is not None:
+        for vals, scales, new in ((k_l, k_s, k_new), (v_l, v_s, v_new)):
+            q, s = quantize_kv(new)
+            vals.index_put_(idx, q)
+            scales.index_put_(idx, s)
+    else:
+        k_l.index_put_(idx, k_new.to(k_l.dtype))
+        v_l.index_put_(idx, v_new.to(v_l.dtype))
+
+
+def _layer_cache(cache, i: int):
+    """Layer ``i``'s views ``(k, v, k_scale, v_scale)`` of a dense cache or
+    a page pool (scales None on an f32 cache); nothing is copied."""
+    if quantized_cache(cache):
+        return (cache["k"][:, i], cache["v"][:, i], cache["k_scale"][:, i],
+                cache["v_scale"][:, i])
+    return cache["k"][:, i], cache["v"][:, i], None, None
+
+
+def _qkv_rows(p, x, num_heads: int):
+    """Pre-LN qkv projection of ``x`` [n, d]: q, k, v each [n, h, hd]
+    (strided views of one projection)."""
+    n, d = x.shape
+    h = _layer_norm(x, p["ln1"])
+    q, k, v = (h @ p["qkv"]).split(d, dim=-1)
+    return tuple(t.reshape(n, num_heads, d // num_heads) for t in (q, k, v))
+
+
+def _block_decode(p, x, k_l, v_l, pos, *, num_heads: int, k_s=None, v_s=None,
+                  kernel: str = "auto"):
     """One block's single-token decode against its cache layer.
 
     ``x``: [B, d] residual stream; ``k_l``/``v_l``: [B, S, h, hd] views of
-    this layer of the cache; ``pos``: [B] the position each slot's token
-    occupies.  The new token's K/V are written into the cache at ``pos``
-    IN PLACE (``index_put_``, the counterpart of the reference's donated
-    scatter) before attention, which sees positions ``<= pos``."""
+    this layer of the cache (``k_s``/``v_s`` [B, S, h] f32 scales on an
+    int8 cache); ``pos``: [B] the position each slot's token occupies.  The
+    new token's K/V are written into the cache at ``pos`` IN PLACE
+    (quantized on int8) before attention, which sees positions ``<= pos``
+    — on int8 with the exact f32 current token overlaid."""
     b, d = x.shape
-    hd = d // num_heads
-    h = _layer_norm(x, p["ln1"])
-    q, k_t, v_t = (h @ p["qkv"]).split(d, dim=-1)
-    q = q.reshape(b, num_heads, hd)
-    k_t = k_t.reshape(b, num_heads, hd)
-    v_t = v_t.reshape(b, num_heads, hd)
+    q, k_t, v_t = _qkv_rows(p, x, num_heads)
     rows = torch.arange(b, device=x.device)
-    idx = (rows, pos.long())
-    k_l.index_put_(idx, k_t.to(k_l.dtype))
-    v_l.index_put_(idx, v_t.to(v_l.dtype))
+    _write_kv(k_l, v_l, k_s, v_s, (rows, pos.long()), k_t, v_t)
     ctx = _fd.decode_attention_dense(
-        q, k_l, v_l, None, None, k_t, v_t, pos, kernel=kernel
+        q, k_l, v_l, k_s, v_s, k_t, v_t, pos, kernel=kernel
     ).reshape(b, d).to(x.dtype)
     return _mlp(p, x + ctx @ p["proj"])
 
@@ -224,21 +261,115 @@ def forward_decode(params, token, cache, pos, *, num_heads: int,
     """Single-token decode step: next-token logits from the KV cache.
 
     ``token``/``pos``: [B] int — each slot's current token and the position
-    it occupies; ``cache``: ``{"k", "v"}`` each [B, L, S, h, hd]
+    it occupies; ``cache``: ``{"k", "v"}`` each [B, L, S, h, hd], plus
+    ``{"k_scale", "v_scale"}`` [B, L, S, h] under the int8 layout
     (:mod:`..serve.kv_cache`).  The token's K/V are written into ``cache``
     at ``pos`` in every layer, in place; positions ``> pos`` are masked, so
     stale K/V of a previous occupant never reach attention.
 
     Returns ``(logits [B, vocab], cache)`` — the same, updated, cache."""
-    if "k_scale" in cache:
-        raise NotImplementedError("int8 KV cache is port slice 3")
     x = params["embed"][token.long()] + params["pos"][pos.long()]
     for i in range(params["blocks"]["qkv"].shape[0]):
+        k_l, v_l, k_s, v_s = _layer_cache(cache, i)
         x = _block_decode(
-            _layer(params["blocks"], i), x, cache["k"][:, i], cache["v"][:, i],
-            pos, num_heads=num_heads, kernel=kernel,
+            _layer(params["blocks"], i), x, k_l, v_l, pos,
+            num_heads=num_heads, k_s=k_s, v_s=v_s, kernel=kernel,
         )
     return x @ params["head"], cache
+
+
+def _block_decode_paged(p, x, k_l, v_l, pos, block_tables, *, num_heads: int,
+                        k_s=None, v_s=None, kernel: str = "auto"):
+    """One block's single-token decode against a PAGED cache layer.
+
+    ``k_l``/``v_l``: [pages, page_size, h, hd] — this layer's view of the
+    pool (``k_s``/``v_s`` [pages, page_size, h] on int8); ``block_tables``:
+    [B, nb] int32 mapping each slot's logical pages to physical ones.  Same
+    write-then-attend order as :func:`_block_decode`: the token's K/V go to
+    ``(table[pos // ps], pos % ps)``, then attention runs over the slot's
+    pages with positions ``<= pos`` visible.  Released and mid-prefill
+    slots point every table entry at the scratch page and sit at pos 0,
+    so their writes land there and never touch a live page."""
+    b, d = x.shape
+    page_size = k_l.shape[1]
+    q, k_t, v_t = _qkv_rows(p, x, num_heads)
+    rows = torch.arange(b, device=x.device)
+    pos_l = pos.long()
+    page = block_tables.long()[rows, pos_l // page_size]  # [b] physical
+    _write_kv(k_l, v_l, k_s, v_s, (page, pos_l % page_size), k_t, v_t)
+    ctx = _fd.decode_attention_paged(
+        q, k_l, v_l, k_s, v_s, k_t, v_t, pos, block_tables, kernel=kernel,
+    ).reshape(b, d).to(x.dtype)
+    return _mlp(p, x + ctx @ p["proj"])
+
+
+def forward_decode_paged(params, token, cache, pos, block_tables, *,
+                         num_heads: int, kernel: str = "auto"):
+    """Single-token decode step over the PAGED cache layout.
+
+    Same contract as :func:`forward_decode`, but ``cache`` is the page
+    pool ``{"k", "v"}`` each [pages, L, page_size, h, hd] (plus int8 scale
+    pools) and ``block_tables`` ([B, nb] int32) maps each slot's logical
+    pages to physical ones.  The gathered page view is the dense key
+    sequence, padded with masked positions up to ``nb * page_size``, so
+    the math is the dense path's.  Returns ``(logits [B, vocab], cache)``,
+    the pool updated in place."""
+    x = params["embed"][token.long()] + params["pos"][pos.long()]
+    for i in range(params["blocks"]["qkv"].shape[0]):
+        k_l, v_l, k_s, v_s = _layer_cache(cache, i)
+        x = _block_decode_paged(
+            _layer(params["blocks"], i), x, k_l, v_l, pos, block_tables,
+            num_heads=num_heads, k_s=k_s, v_s=v_s, kernel=kernel,
+        )
+    return x @ params["head"], cache
+
+
+def forward_prefill_chunk(params, tokens, cache, block_table, offset: int, *,
+                          num_heads: int, kernel: str = "auto"):
+    """One CHUNK of a prompt prefilled against the paged cache.
+
+    ``tokens`` [1, C] occupy logical positions ``[offset, offset + C)`` of
+    ONE sequence whose physical pages are ``block_table`` ([nb] int32).
+    Each layer writes the chunk's K/V into the pages first (quantized on
+    an int8 pool), then attends over the page view: chunk token ``i`` sees
+    every cached position ``<= offset + i`` — the earlier chunks, shared
+    prefix pages and the causal part of its own chunk.  On int8 the own
+    chunk is read back quantized too (no overlay), so the logits do not
+    depend on where the chunk boundaries fell: a prefix hit, which shifts
+    the offset, computes what a cold run computes.
+
+    Positions past the block table (final-chunk padding) go to the scratch
+    page and the position index is clamped to the table; their outputs
+    are garbage that the caller ignores.  Returns ``(logits [1, C, vocab],
+    cache)``, the pool updated in place."""
+    b, C = tokens.shape
+    if b != 1:
+        raise ValueError(f"chunked prefill is per-sequence, got batch {b}")
+    nb = block_table.shape[0]
+    page_size = cache["k"].shape[2]
+    dev = tokens.device
+    posns = offset + torch.arange(C, device=dev)  # [C] logical positions
+    page_idx = posns // page_size
+    pages = torch.where(
+        page_idx < nb,
+        block_table.long()[page_idx.clamp(max=nb - 1)],
+        0,  # the pool's scratch page (serve.kv_cache.SCRATCH_PAGE)
+    )
+    idx = (pages, posns % page_size)
+    max_len = params["pos"].shape[0]
+    x = (params["embed"][tokens[0].long()]
+         + params["pos"][posns.clamp(max=max_len - 1)])  # [C, d]
+    d = x.shape[-1]
+    for i in range(params["blocks"]["qkv"].shape[0]):
+        p = _layer(params["blocks"], i)
+        k_l, v_l, k_s, v_s = _layer_cache(cache, i)
+        q, k_c, v_c = _qkv_rows(p, x, num_heads)
+        _write_kv(k_l, v_l, k_s, v_s, idx, k_c, v_c)
+        ctx = _fd.chunk_attention(
+            q, k_l, v_l, k_s, v_s, block_table, posns, kernel=kernel,
+        ).reshape(C, d).to(x.dtype)
+        x = _mlp(p, x + ctx @ p["proj"])
+    return (x @ params["head"])[None], cache
 
 
 def per_token_loss(params, tokens, *, num_heads: int, attention: str = "dense",

@@ -1,39 +1,50 @@
-"""Decode attention over the KV cache — the port of ``ops/flash_decode.py``.
+"""Attention over the KV cache — the port of ``ops/flash_decode.py``.
 
 :func:`paged_attention` is the wrapper of the hand-written kernel
 ``csrc/flash_decode.cu`` (the counterpart of the Pallas ``_kernel``
 launched by ``_pallas_attention``).  It keeps the TPU kernel's contract —
 queries ``[b, nq, h, hd]``, a page pool addressed through block tables,
-per-query visibility ``posmat [b, nq]`` — so the paged cache, chunked
-prefill and speculative verify extend the same kernel later.  This slice
-launches it with ``nq = 1`` over the dense cache (variant (a): f32, no
-int8, no own-token overlay).
+per-query visibility ``posmat [b, nq]`` — in three variants:
 
-The dense layout reaches the kernel the way ``_dense_as_pages`` did on the
-TPU, with zero data movement: the per-layer cache view ``[slots, S, h,
-hd]`` is not contiguous (its slot stride is ``L*S*h*hd``), so instead of a
-reshape each slot's row is ONE page of ``S`` positions, read in place
-through its strides with identity block tables.  A ``.contiguous()`` here
-would copy the whole cache once per generated token.
+- (a) f32 pages, ``nq = 1``: decode (:func:`decode_attention_dense`,
+  :func:`decode_attention_paged`);
+- (b) f32 pages, ``nq = C``: the chunked-prefill history
+  (:func:`chunk_attention`, ``b = 1``);
+- (c) int8 pages with f32 scales per (position, head), dequantized in the
+  tile; decode also overlays the slot's exact in-flight f32 K/V at its own
+  position (``nq = 1`` only, as the reference); chunked prefill attends
+  the cache-roundtripped values of its own chunk too, with no overlay, so
+  quantized prefill does not depend on where chunk boundaries fall.
 
-On a CPU tensor the wrapper runs the kernel's plain version (for the dense
-path that is :func:`_gather_decode_dense`, the reference's legacy read);
-on a CUDA tensor it launches the kernel or raises.  ``launches`` counts
-kernel launches only.
+Every pool is read in place through its strides.  The paged pool's
+per-layer view ``cache["k"][:, layer]`` is [P, ps, h, hd] with page stride
+``L*ps*h*hd``; the dense layout's per-layer view [slots, S, h, hd] is read
+as ONE page of ``S`` positions per slot with identity block tables (the
+TPU's ``_dense_as_pages``, with zero data movement).  A ``.contiguous()``
+on either would copy the whole cache once per layer per step.
 
-Positions past a slot's ``pos`` are masked in both versions, never judged
-by content: the dense engine leaves a previous occupant's stale K/V (and a
+On a CPU tensor each wrapper runs the kernel's plain version
+(:func:`_paged_attention_plain`, and :func:`_gather_decode_dense` for the
+dense layout); on a CUDA tensor it launches the kernel or raises.
+``kernel="gather"`` forces the plain version on either device (the
+reference's legacy read, ``--decode-kernel gather``).  ``launches`` counts
+kernel launches only; ``launches_int8`` and ``launches_multi_query`` count
+the int8 and the ``nq > 1`` launches among them.
+
+Positions past a query's ``posmat`` are masked in both versions, never
+judged by content: an engine leaves a previous occupant's stale K/V (and a
 quarantined slot's NaN) behind that mask.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from distributeddeeplearning_tpu_torch.ops import _build
+from distributeddeeplearning_tpu_torch.quant.qtensor import dequantize_kv
 
 NEG_BIG = -1e30  # finite mask fill, matching the gather reference
 HEAD_DIM = 64  # the kernel's head dim
@@ -44,10 +55,25 @@ HEAD_DIM = 64  # the kernel's head dim
 #: does not have.
 KERNELS = ("auto", "flash", "gather")
 
-#: kernel launches since the counter was last reset
+#: kernel launches since the counter was last reset (every variant)
 launches = 0
+#: of those, launches of the int8 variant (c)
+launches_int8 = 0
+#: of those, launches with more than one query per slot (variant (b))
+launches_multi_query = 0
 
-_fn = None
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = {
+    "flash_decode_f32": (
+        [_P] + [_L] * 3 + [_P] * 2 + [_L] * 3
+        + [_P, _I, _I] + [_P] * 2 + [_I] * 3 + [_P]
+    ),
+    "flash_decode_int8": (
+        [_P] + [_L] * 3 + [_P] * 2 + [_L] * 3 + [_P] * 2 + [_L] * 3
+        + [_P] * 2 + [_L] * 2 + [_P, _I, _I] + [_P] * 2 + [_I] * 3 + [_P]
+    ),
+}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
 _identity_tables: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
 
@@ -60,19 +86,14 @@ def resolve_kernel(kernel: str) -> str:
     return "flash" if kernel == "auto" else kernel
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = _build.load("flash_decode").flash_decode_f32
-        fn.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_longlong] * 3
-            + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
-            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        )
+def _kernel_fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("flash_decode"), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _sqrt_dim(hd: int, device) -> torch.Tensor:
@@ -80,16 +101,18 @@ def _sqrt_dim(hd: int, device) -> torch.Tensor:
     return torch.sqrt(torch.tensor(float(hd), dtype=torch.float32, device=device))
 
 
-def _check_f32(name: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"paged_attention: {name} is {t.dtype}; f32 only")
+def _check_rows(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    """The kernel reads 2 head dims a lane: the head dim contiguous, every
+    other stride even and the base aligned to two elements."""
+    if t.dtype != dtype:
+        raise TypeError(f"paged_attention: {name} is {t.dtype}, needs {dtype}")
     if t.stride(-1) != 1 or any(st % 2 for st in t.stride()[:-1]):
         raise ValueError(
             f"paged_attention: {name} needs a contiguous head dim and even "
             f"strides (got {t.stride()})"
         )
-    if t.data_ptr() % 8:
-        raise ValueError(f"paged_attention: {name} is not 8-byte aligned")
+    if t.data_ptr() % (2 * t.element_size()):
+        raise ValueError(f"paged_attention: {name} is not aligned to 2 elements")
 
 
 def _check_index(name: str, t: torch.Tensor, shape) -> None:
@@ -101,52 +124,81 @@ def _check_index(name: str, t: torch.Tensor, shape) -> None:
         )
 
 
-def _launch(q4, k_pages, v_pages, tables, posmat) -> torch.Tensor:
-    global launches
+def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor, shape) -> None:
+    if tuple(a.shape) != tuple(shape) or a.shape != b.shape \
+            or a.stride() != b.stride():
+        raise ValueError(
+            f"paged_attention: {name} shapes {tuple(a.shape)}/{tuple(b.shape)} "
+            f"or strides differ, expected {tuple(shape)} for both"
+        )
+
+
+def _launch(q4, k_pages, v_pages, tables, posmat, k_scale, v_scale, k_own,
+            v_own) -> torch.Tensor:
+    global launches, launches_int8, launches_multi_query
     b, nq, h, hd = q4.shape
     if hd != HEAD_DIM:
         raise ValueError(
             f"paged_attention: the CUDA kernel takes head dim {HEAD_DIM}, "
             f"got {hd}"
         )
-    if k_pages.shape != v_pages.shape or k_pages.stride() != v_pages.stride():
-        raise ValueError("paged_attention: K and V pools differ in layout")
     if k_pages.dim() != 4 or tuple(k_pages.shape[2:]) != (h, hd):
         raise ValueError(
             f"paged_attention: pool shape {tuple(k_pages.shape)} is not "
             f"[P, page_size, {h}, {hd}]"
         )
-    for name, t in (("q", q4), ("k_pages", k_pages), ("v_pages", v_pages)):
-        _check_f32(name, t)
+    _check_pair("K/V pools", k_pages, v_pages, k_pages.shape)
+    int8 = k_scale is not None
+    _check_rows("q", q4, torch.float32)
+    pool_dtype = torch.int8 if int8 else torch.float32
+    _check_rows("k_pages", k_pages, pool_dtype)
+    _check_rows("v_pages", v_pages, pool_dtype)
     nb = tables.shape[1] if tables.dim() == 2 else -1
     _check_index("tables", tables, (b, nb))
     _check_index("posmat", posmat, (b, nq))
-    for t in (k_pages, v_pages, tables, posmat):
-        if t.device != q4.device:
-            raise ValueError("paged_attention: operands on different devices")
+    operands = [k_pages, v_pages, tables, posmat]
+    if int8:
+        _check_pair("scale pools", k_scale, v_scale, k_pages.shape[:3])
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise TypeError("paged_attention: scale pools must be float32")
+        operands += [k_scale, v_scale]
+        if k_own is not None:
+            _check_pair("k_own/v_own", k_own, v_own, (b, h, hd))
+            _check_rows("k_own", k_own, torch.float32)
+            _check_rows("v_own", v_own, torch.float32)
+            operands += [k_own, v_own]
+    if any(t.device != q4.device for t in operands):
+        raise ValueError("paged_attention: operands on different devices")
     out = torch.empty((b, nq, h, hd), dtype=torch.float32, device=q4.device)
-    fn = _kernel_fn()
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
-        code = fn(
-            q4.data_ptr(), q4.stride(0), q4.stride(1), q4.stride(2),
-            k_pages.data_ptr(), v_pages.data_ptr(),
-            k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-            tables.data_ptr(), nb, k_pages.shape[1],
-            posmat.data_ptr(), out.data_ptr(), b, nq, h, stream,
-        )
-    _build.check(code, "flash_decode_f32")
+        head = (q4.data_ptr(), *q4.stride()[:3], k_pages.data_ptr(),
+                v_pages.data_ptr(), *k_pages.stride()[:3])
+        tail = (tables.data_ptr(), nb, k_pages.shape[1], posmat.data_ptr(),
+                out.data_ptr(), b, nq, h, stream)
+        if int8:
+            own = ((k_own.data_ptr(), v_own.data_ptr(), *k_own.stride()[:2])
+                   if k_own is not None else (None, None, 0, 0))
+            name = "flash_decode_int8"
+            code = _kernel_fn(name)(
+                *head, k_scale.data_ptr(), v_scale.data_ptr(),
+                *k_scale.stride(), *own, *tail)
+        else:
+            name = "flash_decode_f32"
+            code = _kernel_fn(name)(*head, *tail)
+    _build.check(code, name)
     launches += 1
+    launches_int8 += int8
+    launches_multi_query += nq > 1
     return out
 
 
-def _paged_attention_plain(q4, k_pages, v_pages, tables, posmat):
-    """The kernel's plain version: gather the pages into the dense
-    [b, nb*page_size, h, hd] history, then masked softmax attention."""
-    b, nq, h, hd = q4.shape
-    s = tables.shape[1] * k_pages.shape[1]
-    k_seq = k_pages[tables.long()].reshape(b, s, h, hd)
-    v_seq = v_pages[tables.long()].reshape(b, s, h, hd)
+def _attend(q4, k_seq, v_seq, posmat):
+    """Masked softmax attention of ``q4`` [b, nq, h, hd] over the dense
+    history [b, s, h, hd]: query ``(b, i)`` sees positions ``<=
+    posmat[b, i]`` — the math every plain version shares."""
+    hd = q4.shape[-1]
+    s = k_seq.shape[1]
     scores = torch.einsum("bqhd,bshd->bqhs", q4, k_seq) / _sqrt_dim(hd, q4.device)
     cols = torch.arange(s, device=q4.device)
     visible = cols[None, None, :] <= posmat[:, :, None]
@@ -155,16 +207,67 @@ def _paged_attention_plain(q4, k_pages, v_pages, tables, posmat):
     return torch.einsum("bqhs,bshd->bqhd", attn, v_seq)
 
 
-def paged_attention(q4, k_pages, v_pages, tables, posmat) -> torch.Tensor:
+def _overlay(seq, own, posmat):
+    """``seq`` [b, s, h, hd] with each slot's row at its own position
+    (``posmat[:, 0]``) replaced by ``own`` [b, h, hd]."""
+    cols = torch.arange(seq.shape[1], device=seq.device)
+    at = (cols[None, :] == posmat[:, :1])[..., None, None]
+    return torch.where(at, own[:, None], seq)
+
+
+def _paged_attention_plain(q4, k_pages, v_pages, tables, posmat,
+                           k_scale=None, v_scale=None, k_own=None, v_own=None):
+    """The kernel's plain version: gather the pages into the dense
+    [b, nb*page_size, h, hd] history (dequantized on an int8 pool, with the
+    own token overlaid when given), then masked softmax attention."""
+    b, nq, h, hd = q4.shape
+    s = tables.shape[1] * k_pages.shape[1]
+    idx = tables.long()
+    if k_scale is not None:
+        k_seq = dequantize_kv(k_pages[idx], k_scale[idx]).reshape(b, s, h, hd)
+        v_seq = dequantize_kv(v_pages[idx], v_scale[idx]).reshape(b, s, h, hd)
+    else:
+        k_seq = k_pages[idx].reshape(b, s, h, hd)
+        v_seq = v_pages[idx].reshape(b, s, h, hd)
+    if k_own is not None:
+        k_seq = _overlay(k_seq, k_own, posmat)
+        v_seq = _overlay(v_seq, v_own, posmat)
+    return _attend(q4, k_seq, v_seq, posmat)
+
+
+def paged_attention(q4, k_pages, v_pages, tables, posmat, k_scale=None,
+                    v_scale=None, k_own=None, v_own=None) -> torch.Tensor:
     """Attention of ``q4`` [b, nq, h, hd] over pool pages ``k_pages``/
     ``v_pages`` [P, page_size, h, hd] (strided views allowed) addressed
     through ``tables`` [b, nb] int32; query ``(b, i)`` sees positions
-    ``<= posmat[b, i]`` (int32, >= 0).  Returns [b, nq, h, hd] f32 — the
-    CUDA kernel on a CUDA tensor, its plain version on a CPU one."""
+    ``<= posmat[b, i]`` (int32, >= 0).
+
+    int8 pools come with f32 scale pools ``k_scale``/``v_scale`` [P,
+    page_size, h]; ``k_own``/``v_own`` [b, h, hd] f32 then overlay each
+    slot's exact in-flight K/V at ``posmat[:, 0]`` (``nq == 1`` only).
+    Returns [b, nq, h, hd] f32 — the CUDA kernel on a CUDA tensor, its
+    plain version on a CPU one."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_attention: pass both scale pools or neither")
+    if (k_own is None) != (v_own is None):
+        raise ValueError("paged_attention: pass both own K and V or neither")
+    if k_own is not None:
+        if k_scale is None:
+            raise ValueError(
+                "paged_attention: the own-token overlay belongs to int8 pools")
+        if q4.shape[1] != 1:
+            # the overlay sits at query 0's position: a multi-query
+            # overlay would put every row's own token at the wrong place
+            raise ValueError(
+                "own-token overlay supports single-query decode only "
+                f"(nq={q4.shape[1]})"
+            )
     if q4.device.type == "cuda":
-        return _launch(q4, k_pages, v_pages, tables, posmat)
+        return _launch(q4, k_pages, v_pages, tables, posmat, k_scale,
+                       v_scale, k_own, v_own)
     if q4.device.type == "cpu":
-        return _paged_attention_plain(q4, k_pages, v_pages, tables, posmat)
+        return _paged_attention_plain(q4, k_pages, v_pages, tables, posmat,
+                                      k_scale, v_scale, k_own, v_own)
     raise ValueError(f"paged_attention: unsupported device {q4.device}")
 
 
@@ -182,36 +285,87 @@ def _dense_as_pages(k_l: torch.Tensor) -> torch.Tensor:
     return tables
 
 
+def _own(k_s, k_t, v_t):
+    """The decode overlay's operands: the in-flight K/V on int8 caches."""
+    return (k_t, v_t) if k_s is not None else (None, None)
+
+
 def decode_attention_dense(
     q3, k_l, v_l, k_s, v_s, k_t, v_t, pos, *, kernel: str = "auto",
 ):
     """Single-token decode attention over the dense [b, S, h, hd] cache
     layer (the reference's contract: ``q3``/``k_t``/``v_t`` [b, h, hd],
     ``pos`` [b] int32; ``k_l``/``v_l`` already hold the current token at
-    ``pos``).  Returns ctx [b, h, hd].
+    ``pos``; ``k_s``/``v_s`` [b, S, h] f32 scales of an int8 cache, else
+    None).  Returns ctx [b, h, hd].
 
     ``kernel``: ``"auto"``/``"flash"`` run :func:`paged_attention` over the
     zero-copy page view; ``"gather"`` the legacy read."""
-    if k_s is not None or v_s is not None:
-        raise NotImplementedError(
-            "int8 KV cache is port slice 3; this slice serves f32 caches"
-        )
     if resolve_kernel(kernel) == "gather" or q3.device.type == "cpu":
-        return _gather_decode_dense(q3, k_l, v_l, None, None, k_t, v_t, pos)
+        return _gather_decode_dense(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos)
     posmat = pos.to(torch.int32).reshape(-1, 1)
-    out = paged_attention(q3[:, None], k_l, v_l, _dense_as_pages(k_l), posmat)
+    out = paged_attention(q3[:, None], k_l, v_l, _dense_as_pages(k_l), posmat,
+                          k_s, v_s, *_own(k_s, k_t, v_t))
     return out[:, 0]
 
 
 def _gather_decode_dense(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos):
-    """Legacy dense decode attention (the reference's f32 branch): the
-    kernel's plain version on the dense layout."""
+    """Legacy dense decode attention (the reference's ``_gather_decode_
+    dense``): the kernel's plain version on the dense layout — on an int8
+    cache, dequantize the history and overlay the exact current token."""
+    posmat = pos.reshape(-1, 1)
     if k_s is not None:
-        raise NotImplementedError("int8 KV cache is port slice 3")
-    b, num_heads, hd = q3.shape
-    s = k_l.shape[1]
-    scores = torch.einsum("bhd,bshd->bhs", q3, k_l) / _sqrt_dim(hd, q3.device)
-    visible = torch.arange(s, device=q3.device)[None, :] <= pos[:, None]
-    scores = torch.where(visible[:, None, :], scores, NEG_BIG)
-    attn = torch.softmax(scores, dim=-1).to(v_l.dtype)
-    return torch.einsum("bhs,bshd->bhd", attn, v_l)
+        k_seq = _overlay(dequantize_kv(k_l, k_s), k_t, posmat)
+        v_seq = _overlay(dequantize_kv(v_l, v_s), v_t, posmat)
+    else:
+        k_seq, v_seq = k_l, v_l
+    return _attend(q3[:, None], k_seq, v_seq, posmat)[:, 0]
+
+
+def decode_attention_paged(
+    q3, k_l, v_l, k_s, v_s, k_t, v_t, pos, block_tables, *,
+    kernel: str = "auto",
+):
+    """Single-token decode attention over the paged pool.
+
+    ``q3``/``k_t``/``v_t``: [b, h, hd] (query and the exact in-flight
+    token); ``k_l``/``v_l``: [P, ps, h, hd] this layer's pool view, already
+    holding the current token's write; ``k_s``/``v_s``: [P, ps, h] f32 or
+    None; ``pos``: [b]; ``block_tables``: [b, nb] int32.  Returns ctx
+    [b, h, hd]."""
+    if resolve_kernel(kernel) == "gather":
+        return _gather_decode_paged(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos,
+                                    block_tables)
+    posmat = pos.to(torch.int32).reshape(-1, 1)
+    out = paged_attention(q3[:, None], k_l, v_l, block_tables, posmat,
+                          k_s, v_s, *_own(k_s, k_t, v_t))
+    return out[:, 0]
+
+
+def _gather_decode_paged(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos, block_tables):
+    """Legacy paged decode attention (the reference's ``_gather_decode_
+    paged``): block-table gather, dequant and own-token select at history
+    granularity — the plain version on either device."""
+    return _paged_attention_plain(
+        q3[:, None], k_l, v_l, block_tables, pos.reshape(-1, 1), k_s, v_s,
+        *_own(k_s, k_t, v_t),
+    )[:, 0]
+
+
+def chunk_attention(q_c, k_l, v_l, k_s, v_s, block_table, posns, *,
+                    kernel: str = "auto"):
+    """Chunked-prefill history attention: ``q_c`` [C, h, hd] at logical
+    positions ``posns`` [C] against ONE sequence's pages (``block_table``
+    [nb] int32).  No own-token overlay on int8 pools: prefill attends the
+    cache-roundtripped values, so quantized prefill does not depend on
+    where the chunk boundaries fall.  Returns ctx [C, h, hd]."""
+    if resolve_kernel(kernel) == "gather":
+        return _gather_chunk(q_c, k_l, v_l, k_s, v_s, block_table, posns)
+    return paged_attention(q_c[None], k_l, v_l, block_table[None],
+                           posns.to(torch.int32)[None], k_s, v_s)[0]
+
+
+def _gather_chunk(q_c, k_l, v_l, k_s, v_s, block_table, posns):
+    """Legacy chunk attention (the reference's ``_gather_chunk``)."""
+    return _paged_attention_plain(q_c[None], k_l, v_l, block_table[None],
+                                  posns[None], k_s, v_s)[0]

@@ -1,22 +1,34 @@
-"""Prefill/decode engine over the stacked-transformer LM (``serve/engine.py``).
+"""Prefill/decode engines over the stacked-transformer LM (``serve/engine.py``).
 
-Prompts run once through :func:`forward_prefill` (the causal flash-
-attention kernel by default) on a power-of-two padded bucket, and their
-K/V are copied into the slot's cache lines; every generated token then
-runs one :func:`forward_decode` step for ALL slots at their own positions
-(the decode-attention kernel), updating the cache in place.
+:class:`InferenceEngine` (dense cache): prompts run once through
+:func:`forward_prefill` (the causal flash-attention kernel by default) on a
+power-of-two padded bucket, and their K/V are copied into the slot's cache
+lines; every generated token then runs one :func:`forward_decode` step for
+ALL slots at their own positions (the decode-attention kernel), updating
+the cache in place.
 
-PyTorch runs eagerly, so there are no compiled programs; ``prefill_compiles``
-still counts the distinct prompt buckets a run meets, as the reference's
-report does.
+:class:`PagedInferenceEngine` (page pool): HBM by actual tokens, prefix
+pages shared between requests, and chunked prefill — the scheduler runs
+one :func:`forward_prefill_chunk` between decode steps, whose history
+attention is the decode kernel's many-query variant.  Decode is
+:func:`forward_decode_paged`.
+
+Both take ``cache_dtype`` float32 (default) or int8: K/V quantize on write
+with one scale per position and head, and attention dequantizes in the
+kernel's tile.
+
+PyTorch runs eagerly, so there are no compiled programs;
+``prefill_compiles`` still counts the distinct prompt buckets (dense) or
+chunk widths (paged) a run meets, as the reference's report does.
 
 Sampling: greedy is argmax with ties to the lowest index (``jnp.argmax``'s
 rule).  Temperature sampling draws from a ``torch.Generator`` seeded from
 ``(seed, step)``, so a run is reproducible from the seed and request order
 within the port; ``jax.random``'s streams are not reproduced.
 
-Not in this slice: meshes and tensor parallelism, the HBM ledger and
-compile tracking, live weight reload, the paged engine.
+Not in this slice: meshes and tensor parallelism, int8 weights, the HBM
+ledger and compile tracking, live weight reload, the host page tier and
+the logit-capture probe.
 """
 
 from __future__ import annotations
@@ -30,13 +42,21 @@ from distributeddeeplearning_tpu_torch._device import DeviceLike, resolve_device
 from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
     ATTENTIONS,
     forward_decode,
+    forward_decode_paged,
     forward_prefill,
+    forward_prefill_chunk,
 )
 from distributeddeeplearning_tpu_torch.ops.flash_decode import resolve_kernel
 from distributeddeeplearning_tpu_torch.serve.kv_cache import (
+    SCRATCH_PAGE,
+    OutOfPages,
+    PageAllocator,
     cache_bytes,
     init_cache,
+    init_paged_cache,
     insert_sequence,
+    page_bytes,
+    pages_for,
 )
 
 NEG_BIG = -1e30
@@ -107,19 +127,113 @@ def _to_device(tree, device: torch.device):
     return tree.to(device)
 
 
-class InferenceEngine:
-    """KV-cached generation over a ``pipelined_transformer`` param dict.
+_KV_DTYPES = {"float32": torch.float32, "int8": torch.int8}
 
-    The engine owns the device state (params + dense cache) and exposes the
-    verbs the continuous-batching scheduler needs: ``prefill(slot, prompt)
-    -> first token`` and ``decode(tokens, pos) -> next tokens`` for all
-    slots, plus ``release`` / ``can_admit`` / ``admit_bytes`` and the
-    quarantine hooks ``scrub_slot`` / ``poison_slot``.
+
+def _kv_dtype(cache_dtype) -> torch.dtype:
+    """The cache dtype an engine asks for: float32 (default, the weights'
+    dtype) or int8, as a ``torch.dtype`` or its name."""
+    if cache_dtype is None:
+        return torch.float32
+    dtype = _KV_DTYPES.get(cache_dtype, cache_dtype)
+    if dtype not in _KV_DTYPES.values():
+        raise ValueError(
+            f"cache_dtype {cache_dtype!r}: one of {sorted(_KV_DTYPES)}"
+        )
+    return dtype
+
+
+class _EngineCore:
+    """What both cache layouts share: device, weights, sampling and the
+    decode step's one host readback."""
+
+    def _setup(self, params, *, num_heads: int, batch_slots: int,
+               max_seq: int, temperature: float, top_k, seed: int,
+               pad_id: int, decode_kernel: str, cache_dtype, device):
+        """Validate and store the common state; returns ``(num_layers,
+        head_dim, cache dtype)``."""
+        self.device = resolve_device(device)
+        self.decode_kernel = resolve_kernel(decode_kernel)
+        _, num_layers, head_dim = _validate_model_dims(
+            params, num_heads=num_heads, max_seq=max_seq, top_k=top_k
+        )
+        if params["embed"].dtype != torch.float32:
+            raise NotImplementedError(
+                "the port serves f32 weights (int8 weights are a later "
+                "serving slice)"
+            )
+        dtype = _kv_dtype(cache_dtype)
+        self.params = _to_device(params, self.device)
+        self.num_heads = num_heads
+        self.batch_slots = batch_slots
+        self.max_seq = max_seq
+        self.pad_id = pad_id
+        self.vocab_size = params["head"].shape[1]
+        self.temperature = float(temperature)
+        self.top_k = top_k
+        self.seed = seed
+        self.kv_dtype = str(dtype).replace("torch.", "")
+        self.weights_dtype = "float32"
+        self.prefill_compiles = 0
+        self._sample_step = 0
+        # per-slot logit-finiteness verdict of the LAST decode step; read
+        # back in the same host copy as the tokens (the NaN quarantine
+        # signal costs no extra sync)
+        self.last_finite: Optional[np.ndarray] = None
+        return num_layers, head_dim, dtype
+
+    @property
+    def cache(self):
+        return self._cache
+
+    def kv_bytes(self) -> int:
+        """Total KV bytes the layout reserves, scale leaves included."""
+        return cache_bytes(self._cache)
+
+    def _next_step(self) -> int:
+        step = self._sample_step
+        self._sample_step += 1
+        return step
+
+    def _sample(self, logits: torch.Tensor, step: int) -> torch.Tensor:
+        gen = None
+        if self.temperature > 0.0:
+            gen = torch.Generator(device=logits.device)
+            gen.manual_seed((self.seed * _SEED_MIX + step) % (1 << 63))
+        return sample_logits(logits, gen, temperature=self.temperature,
+                             top_k=self.top_k)
+
+    def _sample_first(self, logits: torch.Tensor) -> int:
+        """The first token of a prefilled prompt from its [1, vocab]
+        logits."""
+        return int(self._sample(logits, self._next_step())[0])
+
+    def _readback(self, logits: torch.Tensor) -> np.ndarray:
+        """Sample every slot and bring tokens and the per-slot finiteness
+        verdict to the host in ONE copy — the decode step's one sync."""
+        finite = torch.isfinite(logits).all(dim=-1)
+        out = torch.stack(
+            [self._sample(logits, self._next_step()), finite.to(torch.int32)]
+        ).cpu().numpy()
+        self.last_finite = out[1].astype(bool)
+        return out[0]
+
+
+class InferenceEngine(_EngineCore):
+    """KV-cached generation over a ``pipelined_transformer`` param dict,
+    dense cache layout.
+
+    The engine owns the device state (params + cache) and exposes the verbs
+    the continuous-batching scheduler needs: ``prefill(slot, prompt) ->
+    first token`` and ``decode(tokens, pos) -> next tokens`` for all slots,
+    plus ``release`` / ``can_admit`` / ``admit_bytes`` and the quarantine
+    hooks ``scrub_slot`` / ``poison_slot``.
 
     ``device`` defaults to ``cuda`` (raising without a card); params are
     moved there.  ``prefill_attention="flash"`` (default) runs the prompt
     pass through the causal flash kernel; ``decode_kernel="auto"`` runs
-    decode attention through the decode kernel.
+    decode attention through the decode kernel; ``cache_dtype="int8"``
+    (or ``torch.int8``) stores K/V quantized.
     """
 
     def __init__(
@@ -132,6 +246,7 @@ class InferenceEngine:
         prefill_attention: str = "flash",
         temperature: float = 0.0,
         top_k: Optional[int] = None,
+        cache_dtype=None,
         seed: int = 0,
         pad_id: int = 0,
         decode_kernel: str = "auto",
@@ -142,47 +257,21 @@ class InferenceEngine:
                 f"unknown prefill attention {prefill_attention!r} "
                 f"(choices: {ATTENTIONS})"
             )
-        self.device = resolve_device(device)
+        num_layers, head_dim, dtype = self._setup(
+            params, num_heads=num_heads, batch_slots=batch_slots,
+            max_seq=max_seq, temperature=temperature, top_k=top_k, seed=seed,
+            pad_id=pad_id, decode_kernel=decode_kernel,
+            cache_dtype=cache_dtype, device=device,
+        )
         self.kv_layout = "dense"
         self.chunked_prefill = False
-        self.decode_kernel = resolve_kernel(decode_kernel)
         self.prefill_attention = prefill_attention
-        self.prefill_compiles = 0
         self._seen_buckets: set = set()
-        _, num_layers, head_dim = _validate_model_dims(
-            params, num_heads=num_heads, max_seq=max_seq, top_k=top_k
-        )
-        self.params = _to_device(params, self.device)
-        self.num_heads = num_heads
-        self.batch_slots = batch_slots
-        self.max_seq = max_seq
-        self.pad_id = pad_id
-        self.vocab_size = params["head"].shape[1]
-        self.temperature = float(temperature)
-        self.top_k = top_k
-        self.seed = seed
-        if self.params["embed"].dtype != torch.float32:
-            raise NotImplementedError(
-                "this slice serves f32 weights and cache (int8 is port slice 3)"
-            )
-        self.kv_dtype = self.weights_dtype = "float32"
-        self._sample_step = 0
-        # per-slot logit-finiteness verdict of the LAST decode step; read
-        # back in the same host copy as the tokens (the NaN quarantine
-        # signal costs no extra sync)
-        self.last_finite: Optional[np.ndarray] = None
         self._cache = init_cache(
             batch_slots=batch_slots, num_layers=num_layers, max_seq=max_seq,
-            num_heads=num_heads, head_dim=head_dim, device=self.device,
+            num_heads=num_heads, head_dim=head_dim, dtype=dtype,
+            device=self.device,
         )
-
-    @property
-    def cache(self):
-        return self._cache
-
-    def kv_bytes(self) -> int:
-        """Total KV bytes (what the dense layout reserves)."""
-        return cache_bytes(self._cache)
 
     def kv_bytes_peak(self) -> int:
         """Dense slots commit their whole reservation up front."""
@@ -199,19 +288,6 @@ class InferenceEngine:
     def release(self, slot: int) -> None:
         """Nothing to reclaim: stale K/V stay masked behind the next
         occupant's positions."""
-
-    def _next_step(self) -> int:
-        step = self._sample_step
-        self._sample_step += 1
-        return step
-
-    def _sample(self, logits: torch.Tensor, step: int) -> torch.Tensor:
-        gen = None
-        if self.temperature > 0.0:
-            gen = torch.Generator(device=logits.device)
-            gen.manual_seed((self.seed * _SEED_MIX + step) % (1 << 63))
-        return sample_logits(logits, gen, temperature=self.temperature,
-                             top_k=self.top_k)
 
     @torch.inference_mode()
     def prefill(self, slot: int, prompt: Sequence[int]) -> int:
@@ -240,8 +316,7 @@ class InferenceEngine:
         )
         insert_sequence(self._cache, k, v, slot)
         # the last REAL position, not the padding
-        tok = self._sample(logits[:, length - 1], self._next_step())
-        return int(tok[0])
+        return self._sample_first(logits[:, length - 1])
 
     @torch.inference_mode()
     def decode(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
@@ -256,23 +331,373 @@ class InferenceEngine:
             self.params, tok, self._cache, p, num_heads=self.num_heads,
             kernel=self.decode_kernel,
         )
-        finite = torch.isfinite(logits).all(dim=-1)
-        out = torch.stack(
-            [self._sample(logits, self._next_step()), finite.to(torch.int32)]
-        ).cpu().numpy()
-        self.last_finite = out[1].astype(bool)
-        return out[0]
+        return self._readback(logits)
 
     # -- fault injection / quarantine hooks --------------------------------
     def poison_slot(self, slot: int, pos: int) -> None:
         """Set ``slot``'s K history at ``pos`` to NaN, every layer (chaos
-        tests).  K only: a NaN key makes the victim's own scores NaN while
-        a future occupant masks the position; a NaN value would leak
-        through masking (0 weight x NaN = NaN)."""
-        self._cache["k"][slot, :, pos] = float("nan")
+        tests) — on an int8 cache its K scales, since int8 holds no NaN.
+        K only: a NaN key makes the victim's own scores NaN while a future
+        occupant masks the position; a NaN value would leak through
+        masking (0 weight x NaN = NaN)."""
+        name = "k_scale" if "k_scale" in self._cache else "k"
+        self._cache[name][slot, :, pos] = float("nan")
 
     def scrub_slot(self, slot: int, from_pos: int = 0) -> None:
-        """Zero the slot's cache row from position ``from_pos`` on, in
-        place; positions below it are untouched."""
+        """Zero the slot's cache row (every leaf) from position
+        ``from_pos`` on, in place; positions below it are untouched."""
         for leaf in self._cache.values():
             leaf[slot, :, from_pos:] = 0
+
+
+class PrefillTask:
+    """In-flight chunked prefill of one request: the scheduler advances it
+    one chunk at a time (:meth:`PagedInferenceEngine.prefill_step`) between
+    decode steps, so a long prompt never stalls running requests for its
+    whole pass."""
+
+    __slots__ = ("slot", "prompt", "pages", "offset", "shared_tokens")
+
+    def __init__(self, slot, prompt, pages, offset, shared_tokens):
+        self.slot = slot
+        self.prompt = list(prompt)
+        self.pages = pages  # this sequence's block table (physical ids)
+        self.offset = offset  # tokens already in cache (shared + chunked)
+        self.shared_tokens = shared_tokens  # prefix-cache hit length
+
+    @property
+    def done(self) -> bool:
+        return self.offset >= len(self.prompt)
+
+
+class PagedInferenceEngine(_EngineCore):
+    """Paged-KV-cache generation: HBM by actual tokens, not ``max_seq``.
+
+    The dense engine's scheduler verbs plus the paged ones:
+
+    - ``fits`` / ``can_admit(prompt_len, budget)`` — could the pool ever
+      hold the request / are enough pages free now (admission is bounded
+      by the POOL, with the worst case reserved up front);
+    - ``prefill_begin(slot, prompt, budget) -> PrefillTask`` — allocate
+      the sequence's pages, mapping prefix-cache hits (leading full pages
+      whose token ids match skip prefill), capped at ``len - 1`` tokens so
+      the last prompt token always runs and seeds the first sample;
+    - ``prefill_step(task) -> first token | None`` — run ONE prompt chunk
+      (:func:`forward_prefill_chunk`); the first sampled token comes once
+      the last chunk lands;
+    - ``decode(tokens, pos)`` — one step for all slots
+      (:func:`forward_decode_paged`);
+    - ``release(slot)`` — decref the slot's pages; full prompt pages stay
+      in the prefix table (reclaimable) for future hits.
+
+    The page view is the dense key sequence, so decode is the dense
+    engine's math; with the kernel the sums run in the same order too.
+    ``device`` defaults to ``cuda``; ``cache_dtype="int8"`` (or
+    ``torch.int8``) makes the pool int8 with f32 scale pools.
+    """
+
+    def __init__(
+        self,
+        params,
+        *,
+        num_heads: int,
+        batch_slots: int,
+        max_seq: int,
+        page_size: int = 64,
+        num_pages: Optional[int] = None,
+        prefill_chunk: int = 64,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        cache_dtype=None,
+        seed: int = 0,
+        pad_id: int = 0,
+        prefix_cache: bool = True,
+        decode_kernel: str = "auto",
+        device: DeviceLike = None,
+    ):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        num_layers, head_dim, dtype = self._setup(
+            params, num_heads=num_heads, batch_slots=batch_slots,
+            max_seq=max_seq, temperature=temperature, top_k=top_k, seed=seed,
+            pad_id=pad_id, decode_kernel=decode_kernel,
+            cache_dtype=cache_dtype, device=device,
+        )
+        self.kv_layout = "paged"
+        self.chunked_prefill = True
+        self.page_size = page_size
+        self.prefill_chunk = prefill_chunk
+        # pages each slot can address — the block-table width
+        self.blocks_per_slot = pages_for(max_seq, page_size)
+        if num_pages is None:
+            # capacity parity with the dense layout; a deployment sets it
+            # lower (the HBM win) and lets admission backpressure
+            num_pages = batch_slots * self.blocks_per_slot
+        self.num_pages = num_pages
+        self.allocator = PageAllocator(num_pages)
+        self._prefix_enabled = prefix_cache
+        self._cache = init_paged_cache(
+            num_pages=num_pages, num_layers=num_layers, page_size=page_size,
+            num_heads=num_heads, head_dim=head_dim, dtype=dtype,
+            device=self.device,
+        )
+        self._page_bytes = page_bytes(self._cache)
+        # host-side block tables, one row per slot; scratch-filled rows
+        # make released, empty and mid-prefill slots write into page 0
+        self._block_tables = np.full(
+            (batch_slots, self.blocks_per_slot), SCRATCH_PAGE, np.int32
+        )
+        self._slot_pages: dict = {}
+        self._seen_chunk_shapes: set = set()
+        self.prefix_hit_tokens = 0
+        self.prompt_tokens_seen = 0
+        self.pages_peak = 0
+        self.chunks_run = 0
+        # the final chunk's logits row the last first token was sampled
+        # from (on the device, no copy)
+        self.last_prefill_logits: Optional[torch.Tensor] = None
+
+    # -- accounting --------------------------------------------------------
+    @property
+    def block_tables(self) -> np.ndarray:
+        return self._block_tables
+
+    def kv_bytes_peak(self) -> int:
+        """Peak bytes of LIVE pages — HBM actually committed to sequences
+        (the pay-per-token number the paged layout is for)."""
+        return self.pages_peak * self._page_bytes
+
+    def prefix_hit_rate(self) -> float:
+        if not self.prompt_tokens_seen:
+            return 0.0
+        return self.prefix_hit_tokens / self.prompt_tokens_seen
+
+    def reset_stats(self) -> None:
+        """Zero the run counters (warm-up hygiene); the prefix TABLE
+        survives — ``clear_prefix_cache`` drops that too."""
+        self.prefill_compiles = 0
+        self.prefix_hit_tokens = 0
+        self.prompt_tokens_seen = 0
+        self.pages_peak = 0
+        self.chunks_run = 0
+
+    def clear_prefix_cache(self) -> None:
+        self.allocator.clear_prefix()
+
+    def _chunk_width(self, rem: int) -> int:
+        # full chunks, then a power-of-two bucket for the remainder
+        if rem >= self.prefill_chunk:
+            return self.prefill_chunk
+        return prompt_bucket(rem, self.prefill_chunk)
+
+    def chunk_shapes(self, prompt_len: int) -> set:
+        """The chunk widths a prompt of ``prompt_len`` runs (as
+        ``prefill_step`` chunks it, from offset 0)."""
+        shapes = set()
+        off = 0
+        while off < prompt_len:
+            C = self._chunk_width(prompt_len - off)
+            shapes.add(C)
+            off += min(prompt_len - off, C)
+        return shapes
+
+    def required_pages(self, prompt_len: int, max_new_tokens: int) -> int:
+        """Pages a request needs end to end: prompt plus token budget,
+        capped at the per-slot addressable window."""
+        return pages_for(min(prompt_len + max_new_tokens, self.max_seq),
+                         self.page_size)
+
+    def can_admit(self, prompt_len: int, max_new_tokens: int) -> bool:
+        """Admission backpressure: pages are reserved for the WORST case
+        (prompt + full budget) at admission, so decode never strands a
+        sequence out of memory.  Conservative: a prefix hit needs fewer."""
+        return (self.required_pages(prompt_len, max_new_tokens)
+                <= self.allocator.available)
+
+    def fits(self, prompt_len: int, max_new_tokens: int) -> bool:
+        """False when the request exceeds the POOL itself — waiting can
+        never admit it."""
+        return self.required_pages(prompt_len, max_new_tokens) <= self.num_pages
+
+    def admit_bytes(self, prompt_len: int, max_new_tokens: int) -> int:
+        """Worst-case committed bytes of a request: its full page
+        reservation times the page's bytes, scales included."""
+        return self.required_pages(prompt_len, max_new_tokens) * self._page_bytes
+
+    # -- prefill -----------------------------------------------------------
+    def _prefix_key(self, prompt, n_pages: int):
+        # the full token history through the end of page n: a hit holds
+        # exactly prefill's K/V for those tokens
+        return tuple(prompt[: n_pages * self.page_size])
+
+    def prefill_begin(self, slot: int, prompt: Sequence[int],
+                      max_new_tokens: int) -> PrefillTask:
+        """Allocate the sequence's pages (prefix-cache hits first) and
+        return the chunking task.  Raises :class:`OutOfPages`, holding no
+        page, when the pool cannot take the request now."""
+        length = len(prompt)
+        if not length:
+            raise ValueError("empty prompt")
+        if length >= self.max_seq:
+            raise ValueError(
+                f"prompt length {length} leaves no room to generate "
+                f"(max_seq {self.max_seq})"
+            )
+        if not 0 <= slot < self.batch_slots:
+            raise ValueError(f"slot {slot} out of range [0, {self.batch_slots})")
+        if slot in self._slot_pages:
+            raise ValueError(f"slot {slot} still holds pages — release first")
+        ps = self.page_size
+        n_total = self.required_pages(length, max_new_tokens)
+        # prefix reuse: walk the chain of FULL prompt pages, capped at
+        # length-1 tokens so the last prompt token always runs through
+        # prefill — its logits seed the first sampled token
+        shared: list = []
+        if self._prefix_enabled:
+            for i in range((length - 1) // ps):
+                page = self.allocator.lookup_prefix(self._prefix_key(prompt, i + 1))
+                if page is None:
+                    break
+                shared.append(page)
+        for p in shared:
+            self.allocator.incref(p)
+        try:
+            fresh = self.allocator.alloc(n_total - len(shared))
+        except OutOfPages:
+            for p in shared:  # roll the hit refs back before backpressure
+                self.allocator.decref(p)
+            raise
+        pages = shared + fresh
+        self._slot_pages[slot] = pages
+        # The slot's decode row stays SCRATCH until the final chunk lands
+        # (prefill_step installs it): decode steps run WHILE this slot is
+        # mid-prefill and every decode lane writes unconditionally, so with
+        # the real row installed the stale lane's write (at pos 0) would
+        # corrupt the prompt's K/V or a SHARED prefix page.  The chunks
+        # read a task-local table instead.
+        self.pages_peak = max(self.pages_peak, self.allocator.pages_in_use)
+        offset = len(shared) * ps
+        self.prompt_tokens_seen += length
+        self.prefix_hit_tokens += offset
+        return PrefillTask(slot, prompt, pages, offset, offset)
+
+    @torch.inference_mode()
+    def prefill_step(self, task: PrefillTask) -> Optional[int]:
+        """Run ONE chunk of ``task``'s prompt; returns the first sampled
+        token when the final chunk completes, else None."""
+        if task.done:
+            raise ValueError("prefill task already complete")
+        length = len(task.prompt)
+        rem = length - task.offset
+        C = self._chunk_width(rem)
+        real = min(rem, C)
+        if C not in self._seen_chunk_shapes:
+            self._seen_chunk_shapes.add(C)
+            self.prefill_compiles += 1
+        tokens = np.full((1, C), self.pad_id, np.int64)
+        tokens[0, :real] = np.asarray(
+            task.prompt[task.offset: task.offset + real], np.int64)
+        # the task-local block table (see prefill_begin)
+        table = np.full(self.blocks_per_slot, SCRATCH_PAGE, np.int32)
+        table[: len(task.pages)] = task.pages
+        logits, _ = forward_prefill_chunk(
+            self.params, torch.from_numpy(tokens).to(self.device),
+            self._cache, torch.from_numpy(table).to(self.device), task.offset,
+            num_heads=self.num_heads, kernel=self.decode_kernel,
+        )
+        self.chunks_run += 1
+        chunk_start = task.offset
+        task.offset += real
+        # publish the freshly completed FULL prompt pages at once, so
+        # requests of the same wave that share the prefix hit too
+        if self._prefix_enabled:
+            for i in range(chunk_start // self.page_size,
+                           min(task.offset, length) // self.page_size):
+                self.allocator.register_prefix(
+                    self._prefix_key(task.prompt, i + 1), task.pages[i])
+        if not task.done:
+            return None
+        # prompt fully written: NOW the slot's decode row may see the pages
+        self._block_tables[task.slot] = SCRATCH_PAGE
+        self._block_tables[task.slot, : len(task.pages)] = task.pages
+        # the last REAL position of the final chunk
+        self.last_prefill_logits = logits[0, real - 1]
+        return self._sample_first(logits[:, real - 1])
+
+    def prefill(self, slot: int, prompt: Sequence[int],
+                max_new_tokens: Optional[int] = None) -> int:
+        """Every chunk back to back (the dense engine's verb, for tests
+        and direct use; the scheduler interleaves ``prefill_step`` with
+        decode instead).  Without a budget the slot reserves through
+        ``max_seq``."""
+        if max_new_tokens is None:
+            max_new_tokens = self.max_seq - len(prompt)
+        task = self.prefill_begin(slot, prompt, max_new_tokens)
+        while True:
+            tok = self.prefill_step(task)
+            if tok is not None:
+                return tok
+
+    # -- decode / release --------------------------------------------------
+    @torch.inference_mode()
+    def decode(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """One decode step for every slot through the block tables; the
+        dense engine's contract.  Released and mid-prefill slots' rows
+        point at the scratch page, so their (ignored) writes are
+        harmless."""
+        tok = torch.from_numpy(np.asarray(tokens, np.int32)).to(self.device)
+        p = torch.from_numpy(np.asarray(pos, np.int32)).to(self.device)
+        tables = torch.from_numpy(self._block_tables).to(self.device)
+        logits, _ = forward_decode_paged(
+            self.params, tok, self._cache, p, tables,
+            num_heads=self.num_heads, kernel=self.decode_kernel,
+        )
+        return self._readback(logits)
+
+    # -- fault injection / quarantine hooks --------------------------------
+    def poison_slot(self, slot: int, pos: int) -> None:
+        """Set ``slot``'s K history at logical position ``pos`` to NaN (on
+        int8: its K scales), every layer.  K only — see the dense engine.
+        ``pos`` must be decode-written (>= the prompt length): such pages
+        are never in the prefix table, so the poison stays private."""
+        pages = self._slot_pages.get(slot)
+        if not pages:
+            raise ValueError(f"slot {slot} holds no pages to poison")
+        name = "k_scale" if "k_scale" in self._cache else "k"
+        page = pages[pos // self.page_size]
+        self._cache[name][page, :, pos % self.page_size] = float("nan")
+
+    def scrub_slot(self, slot: int, from_pos: int = 0) -> None:
+        """Zero the slot's cache from logical position ``from_pos`` on,
+        position-granular (within the boundary page only offsets ``>=
+        from_pos % page_size``), so positions below it survive bit-exact.
+
+        Prefix-SHARED pages are never written: every touched page must be
+        private to this slot; a call that would write a shared page raises
+        instead of corrupting another slot's history."""
+        pages = self._slot_pages.get(slot, [])
+        ps = self.page_size
+        start = from_pos // ps
+        if start >= len(pages):
+            return
+        shared = [p for p in pages[start:] if self.allocator.is_shared(p)]
+        if shared:
+            raise ValueError(
+                f"scrub_slot(slot={slot}, from_pos={from_pos}) would write "
+                f"prefix-shared page(s) {shared} — shared pages are "
+                "immutable; scrub only from the private region on"
+            )
+        for idx in range(start, len(pages)):
+            off = max(0, from_pos - idx * ps)
+            for leaf in self._cache.values():
+                leaf[pages[idx], :, off:] = 0
+
+    def release(self, slot: int) -> None:
+        """Return the slot's pages to the pool: prefix-registered pages
+        drop to the reclaimable LRU (future hits resurrect them), private
+        pages go back to the free list."""
+        for page in self._slot_pages.pop(slot, []):
+            self.allocator.decref(page)
+        self._block_tables[slot] = SCRATCH_PAGE

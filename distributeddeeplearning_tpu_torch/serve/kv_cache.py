@@ -1,24 +1,55 @@
-"""Preallocated, slot-indexed dense KV cache (``serve/kv_cache.py``).
+"""KV caches of the serving engines (``serve/kv_cache.py``): the dense
+slot-indexed cache, the paged pool and its host-side allocator.
 
-Layout: ``k, v: [batch_slots, n_layers, max_seq, n_heads, head_dim]``,
-slot-major, allocated once and updated IN PLACE — where the reference
-donated the buffers to each jitted touch, the port writes into them.
-Sequence lengths are not device state: the scheduler owns per-slot
+Dense layout: ``k, v: [batch_slots, n_layers, max_seq, n_heads,
+head_dim]``, slot-major, allocated once and updated IN PLACE — where the
+reference donated the buffers to each jitted touch, the port writes into
+them.  Sequence lengths are not device state: the scheduler owns per-slot
 positions and passes them into every decode step.
 
-This slice has the f32 dense layout only; the int8 layout is slice 3 and
-the paged pool slice 2.
+Paged layout: one pool ``k, v: [num_pages + 1, n_layers, page_size,
+n_heads, head_dim]`` with page 0 a scratch page (:data:`SCRATCH_PAGE`), and
+per slot a host-side block table of page ids: logical position ``j`` of a
+slot lives at ``(table[j // page_size], j % page_size)``.  HBM is paid per
+token, not per ``max_seq``, and identical prompt prefixes share pages
+(:class:`PageAllocator`).
+
+Both layouts take ``dtype=torch.int8``: values int8 plus f32 scale leaves
+``{"k_scale", "v_scale"}`` of the values' shape without the head dim — one
+scale per stored K/V vector (:mod:`..quant.qtensor`), so every write
+quantizes on its own and nothing is ever requantized.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from distributeddeeplearning_tpu_torch._device import DeviceLike, resolve_device
+from distributeddeeplearning_tpu_torch.quant.qtensor import (
+    quantize_kv,
+    quantized_cache,
+)
 
 Cache = Dict[str, torch.Tensor]
+
+#: Page id 0 is a reserved scratch page: released, inactive and mid-prefill
+#: decode lanes and out-of-range block-table entries point at it, so their
+#: (masked, ignored) K/V writes never touch a live sequence's pages.
+SCRATCH_PAGE = 0
+
+
+def _zeros(shape, dtype: torch.dtype, dev: torch.device) -> Cache:
+    if dtype not in (torch.float32, torch.int8):
+        raise ValueError(f"KV cache dtype {dtype}: float32 or int8")
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if dtype == torch.int8:
+        cache["k_scale"] = torch.zeros(shape[:-1], device=dev)
+        cache["v_scale"] = torch.zeros(shape[:-1], device=dev)
+    return cache
 
 
 def init_cache(
@@ -28,15 +59,16 @@ def init_cache(
     max_seq: int,
     num_heads: int,
     head_dim: int,
+    dtype: torch.dtype = torch.float32,
     device: DeviceLike = None,
 ) -> Cache:
-    """Zero-filled f32 ``{"k", "v"}``, each [slots, L, S, h, hd].  Zeros
-    are never read: the decode position mask hides every position above a
-    slot's length, and admission overwrites from 0."""
+    """Zero-filled dense cache ``{"k", "v"}``, each [slots, L, S, h, hd]
+    (plus ``{"k_scale", "v_scale"}`` [slots, L, S, h] f32 for int8).
+    Zeros are never read: the decode position mask hides every position
+    above a slot's length, and admission overwrites from 0."""
     dev = resolve_device(device)
-    shape = (batch_slots, num_layers, max_seq, num_heads, head_dim)
-    return {"k": torch.zeros(shape, device=dev),
-            "v": torch.zeros(shape, device=dev)}
+    return _zeros((batch_slots, num_layers, max_seq, num_heads, head_dim),
+                  dtype, dev)
 
 
 def insert_sequence(cache: Cache, k: torch.Tensor, v: torch.Tensor,
@@ -44,15 +76,236 @@ def insert_sequence(cache: Cache, k: torch.Tensor, v: torch.Tensor,
     """Write one prefilled prompt's K/V into ``slot``, positions [0, P),
     in place.  ``k``/``v``: [1, L, P, h, hd] (or [L, P, h, hd]) from
     ``forward_prefill``; P may be the padded prompt bucket — the padding
-    lands above the slot's length and stays masked.  Returns ``cache``."""
+    lands above the slot's length and stays masked.  An int8 cache
+    quantizes here (the prefill pass itself stays f32).  Returns
+    ``cache``."""
     if k.dim() == 5:
         k, v = k[0], v[0]
     p = k.shape[1]
+    if quantized_cache(cache):
+        for name, x in (("k", k), ("v", v)):
+            q, s = quantize_kv(x)
+            cache[name][slot, :, :p].copy_(q)
+            cache[f"{name}_scale"][slot, :, :p].copy_(s)
+        return cache
     cache["k"][slot, :, :p].copy_(k)
     cache["v"][slot, :, :p].copy_(v)
     return cache
 
 
 def cache_bytes(cache: Cache) -> int:
-    """Total cache footprint in bytes, over every leaf."""
+    """Total cache footprint in bytes, over every leaf (scales included)."""
     return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def init_paged_cache(
+    *,
+    num_pages: int,
+    num_layers: int,
+    page_size: int,
+    num_heads: int,
+    head_dim: int,
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = None,
+) -> Cache:
+    """Zero-filled page pool ``{"k", "v"}``, each [pages, L, page_size, h,
+    hd] (plus ``{"k_scale", "v_scale"}`` [pages, L, page_size, h] f32 for
+    int8).  ``num_pages`` counts USABLE pages; the scratch page (id 0) is
+    prepended.  Page-major, so a page is one leading-dim slice."""
+    if num_pages < 1:
+        raise ValueError(f"num_pages must be >= 1, got {num_pages}")
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    dev = resolve_device(device)
+    return _zeros((num_pages + 1, num_layers, page_size, num_heads, head_dim),
+                  dtype, dev)
+
+
+def page_bytes(cache: Cache) -> int:
+    """Bytes of ONE page over every pool leaf and layer — the granule the
+    allocator hands out (``cache_bytes == (num_pages + 1) * page_bytes``);
+    an int8 page is charged its scales too."""
+    return sum(t.numel() // t.shape[0] * t.element_size()
+               for t in cache.values())
+
+
+def pages_for(tokens: int, page_size: int) -> int:
+    """Pages covering ``tokens`` positions (ceil division)."""
+    return -(-tokens // page_size)
+
+
+class OutOfPages(RuntimeError):
+    """Page pool exhausted — the admission-backpressure signal: the
+    scheduler waits for completions to free pages, unless the request can
+    never fit the pool."""
+
+
+class PageAllocator:
+    """Host-side bookkeeping of the page pool: free list, refcounts and a
+    prefix table of reusable immutable pages.
+
+    A page is **free** (on the free list, contents meaningless), **live**
+    (refcount >= 1, in one or more block tables; a page shared through the
+    prefix table is live in several) or **reclaimable** (refcount 0 but
+    still named by the prefix table, kept in LRU order: a lookup
+    resurrects it, allocation pressure evicts it).
+
+    A prefix key names the FULL token history through the end of its page
+    (the engine uses ``tuple(prompt[: (i + 1) * page_size])``), so a hit
+    holds exactly the K/V prefill would compute for those tokens.
+
+    The same sequence of calls hands out the same page ids as the
+    reference's allocator.
+    """
+
+    def __init__(self, num_pages: int):
+        if num_pages < 1:
+            raise ValueError(f"num_pages must be >= 1, got {num_pages}")
+        self.num_pages = num_pages
+        # page ids 1..num_pages (0 is the scratch page, never allocated)
+        self._free: List[int] = list(range(num_pages, 0, -1))
+        self._rc: Dict[int, int] = {}
+        self._prefix: Dict[Any, int] = {}
+        self._page_key: Dict[int, Any] = {}
+        self._reclaim: "OrderedDict[int, None]" = OrderedDict()
+
+    @property
+    def available(self) -> int:
+        """Pages an ``alloc`` could hand out now (free + evictable)."""
+        return len(self._free) + len(self._reclaim)
+
+    @property
+    def pages_in_use(self) -> int:
+        """Live pages (refcount >= 1)."""
+        return self.num_pages - self.available
+
+    def alloc(self, n: int) -> List[int]:
+        """Hand out ``n`` pages at refcount 1, evicting LRU reclaimable
+        prefix pages as needed.  Raises :class:`OutOfPages`, allocating
+        nothing, when fewer than ``n`` are available."""
+        if n < 0:
+            raise ValueError(f"cannot alloc {n} pages")
+        if n > self.available:
+            raise OutOfPages(
+                f"need {n} pages, {self.available} available "
+                f"({self.pages_in_use}/{self.num_pages} live)"
+            )
+        out: List[int] = []
+        for _ in range(n):
+            if self._free:
+                page = self._free.pop()
+            else:  # evict the least recently used cached prefix page
+                page, _ = self._reclaim.popitem(last=False)
+                del self._prefix[self._page_key.pop(page)]
+            self._rc[page] = 1
+            out.append(page)
+        return out
+
+    def incref(self, page: int) -> None:
+        rc = self._rc.get(page, 0)
+        if rc == 0:
+            if page not in self._reclaim:
+                raise ValueError(f"incref on non-live page {page}")
+            del self._reclaim[page]  # resurrected from the prefix table
+        self._rc[page] = rc + 1
+
+    def decref(self, page: int) -> None:
+        rc = self._rc.get(page, 0)
+        if rc < 1:
+            raise ValueError(f"decref on non-live page {page}")
+        if rc > 1:
+            self._rc[page] = rc - 1
+            return
+        del self._rc[page]
+        if page in self._page_key:
+            # still named by the prefix table: its contents stay for
+            # future hits until allocation pressure evicts it
+            self._reclaim[page] = None
+        else:
+            self._free.append(page)
+
+    def refcount(self, page: int) -> int:
+        return self._rc.get(page, 0)
+
+    def is_shared(self, page: int) -> bool:
+        """True when writing this page could corrupt state beyond one slot:
+        more than one block table maps it, or the prefix table publishes
+        it.  Shared pages are immutable; scrub refuses them."""
+        return self._rc.get(page, 0) > 1 or page in self._page_key
+
+    def lookup_prefix(self, key) -> Optional[int]:
+        """Page holding ``key``'s chunk, or None.  Does NOT incref (the
+        caller takes the reference) but marks the page recently used."""
+        page = self._prefix.get(key)
+        if page is not None and page in self._reclaim:
+            self._reclaim.move_to_end(page)
+        return page
+
+    def register_prefix(self, key, page: int) -> None:
+        """Publish a live, fully written page for reuse.  The first writer
+        of a key wins: both copies hold the same K/V, so dropping the
+        second registration only forgoes a dedup."""
+        if self._rc.get(page, 0) < 1:
+            raise ValueError(f"cannot register non-live page {page}")
+        if key in self._prefix or page in self._page_key:
+            return
+        self._prefix[key] = page
+        self._page_key[page] = key
+
+    def clear_prefix(self) -> None:
+        """Drop every prefix entry; reclaimable pages return to the free
+        list (a warm-up must not seed a timed run)."""
+        for page in list(self._reclaim):
+            del self._prefix[self._page_key.pop(page)]
+            self._free.append(page)
+        self._reclaim.clear()
+        for page in list(self._page_key):  # live pages: unregister only
+            del self._prefix[self._page_key.pop(page)]
+
+    @property
+    def prefix_entries(self) -> int:
+        return len(self._prefix)
+
+    def check(self) -> None:
+        """Assert the allocator's invariants (a test hook)."""
+        live = set(self._rc)
+        free = set(self._free)
+        reclaim = set(self._reclaim)
+        assert not (live & free), "page both live and free"
+        assert not (live & reclaim), "page both live and reclaimable"
+        assert not (free & reclaim), "page both free and reclaimable"
+        assert len(free) == len(self._free), "duplicate free-list entry"
+        assert live | free | reclaim == set(range(1, self.num_pages + 1)), \
+            "page leaked (not live, free, or reclaimable)"
+        assert all(rc >= 1 for rc in self._rc.values())
+        assert reclaim <= set(self._page_key), "reclaimable page unnamed"
+        for key, page in self._prefix.items():
+            assert self._page_key.get(page) == key, "prefix maps diverged"
+        # a prefix entry must name a page that still holds its bytes
+        prefix_pages = set(self._page_key)
+        assert not (prefix_pages & free), "prefix entry names a freed page"
+        assert prefix_pages <= live | reclaim, \
+            "prefix entry names an untracked page"
+
+
+def insert_pages(cache: Cache, k: torch.Tensor, v: torch.Tensor,
+                 page_ids: torch.Tensor, *, page_size: int) -> Cache:
+    """Write a prefilled prompt's K/V ([L, P, h, hd], P a multiple of
+    ``page_size``; or [1, L, P, h, hd]) into the pool pages ``page_ids``,
+    in place — the paged counterpart of :func:`insert_sequence` for
+    one-shot inserts (the engine's chunked prefill writes its pages inside
+    the chunk pass instead).  An int8 pool quantizes on the way in."""
+    if k.dim() == 5:
+        k, v = k[0], v[0]
+    L, P, h, hd = k.shape
+    n = P // page_size
+    idx = page_ids.to(device=cache["k"].device, dtype=torch.long)
+    for name, x in (("k", k), ("v", v)):
+        paged = x.reshape(L, n, page_size, h, hd).transpose(0, 1)
+        if quantized_cache(cache):
+            q, s = quantize_kv(paged)
+            cache[name][idx] = q
+            cache[f"{name}_scale"][idx] = s
+        else:
+            cache[name][idx] = paged.to(cache[name].dtype)
+    return cache

@@ -7,6 +7,13 @@ the other slots decode on.  The loop is host-side and synchronous: one
 decode step per iteration, admission between steps, and the engine's
 decode readback the one designed sync per step.
 
+With a paged engine (``engine.chunked_prefill``) admission is gated on
+pages: a request that could never fit the pool fails, one that does not
+fit now waits while anything is decoding or prefilling (and fails loudly
+when nothing is), and an admitted prompt is prefilled ONE chunk per loop
+iteration, before that iteration's decode step, so running requests stall
+at most one chunk per step.
+
 Every request ends in one terminal state (``FINISH_REASONS``); failures are
 scoped to the request: a prefill exception, a passed deadline, a cancel, or
 non-finite logits (the NaN quarantine: the slot is scrubbed and fails
@@ -16,10 +23,10 @@ What it records: per-request TTFT (arrival -> first token) and queue wait
 (arrival -> admission), TPOT (time per output token after the first), the
 per-decode-step wall, mean slot occupancy and generated tokens/s.
 
-Not in this slice: priority classes, preemption and shedding, chunked
-prefill and the host page tier (paged engine), speculative decoding, live
-reload, the watchdog, decode-exception requeue, fault injection and the
-obs tracer/registry.
+Not in this slice: priority classes, preemption and shedding, the HBM
+ledger, the host page tier, speculative decoding, live reload, the
+watchdog, decode-exception requeue, fault injection and the obs
+tracer/registry.
 """
 
 from __future__ import annotations
@@ -100,6 +107,8 @@ class ServeReport:
     # generated tokens over the summed wall of the decode steps alone
     # (prefill and admission excluded)
     decode_tokens_per_sec: float = 0.0
+    # prompt tokens served from shared prefix pages (paged engines)
+    prefix_hit_rate: float = 0.0
 
     def to_dict(self):
         return dataclasses.asdict(self)
@@ -111,18 +120,27 @@ def synthetic_requests(
     vocab_size: int,
     max_prompt: int,
     min_prompt: int = 2,
+    shared_prefix_len: int = 0,
     rng: Optional[np.random.Generator] = None,
 ) -> List[Request]:
     """``n`` random-token requests with lengths in [min_prompt, max_prompt]
-    (the reference's generator: the same ``rng`` gives the same requests)."""
+    (the reference's generator: the same ``rng`` gives the same requests).
+
+    ``shared_prefix_len > 0`` puts the SAME random prefix in front of
+    every prompt — the system-prompt workload the paged engine's prefix
+    cache is for."""
     if n < 1:
         raise ValueError(f"need at least 1 request, got {n}")
     rng = np.random.default_rng(0) if rng is None else rng
     hi = max(min_prompt, max_prompt)
+    prefix: List[int] = (
+        rng.integers(1, vocab_size, shared_prefix_len).tolist()
+        if shared_prefix_len > 0 else []
+    )
     return [
         Request(
             uid=f"req{i}",
-            prompt=rng.integers(
+            prompt=prefix + rng.integers(
                 1, vocab_size, rng.integers(min_prompt, hi + 1)
             ).tolist(),
         )
@@ -178,10 +196,14 @@ class ContinuousBatchingScheduler:
         ``(results in completion order, ServeReport)``."""
         engine = self.engine
         slots = engine.batch_slots
+        chunked = getattr(engine, "chunked_prefill", False)
         t_start = time.perf_counter()
         active: Dict[int, _SlotState] = {}
         free = list(range(slots))
         pending: deque = deque()
+        # in-flight chunked prefills: (task, req, budget, queue_wait,
+        # deadline_at)
+        prefilling: deque = deque()
         results: List[CompletedRequest] = []
         tokens_buf = np.zeros(slots, np.int32)
         pos_buf = np.zeros(slots, np.int32)
@@ -214,6 +236,22 @@ class ContinuousBatchingScheduler:
                    queue_wait=st.queue_wait_s, error=error)
             engine.release(slot)
             free.append(slot)
+
+        def activate(slot: int, req: Request, budget: int, first: int,
+                     queue_wait: float, deadline_at: Optional[float]) -> None:
+            """The first token of a freshly prefilled request landed (one-
+            shot or final chunk): the slot starts decoding, or completes
+            at once on EOS out of prefill."""
+            st = _SlotState(
+                req=req, budget=budget, generated=[first],
+                next_pos=len(req.prompt),
+                ttft_s=round(time.perf_counter() - arrivals[req.uid], 6),
+                queue_wait_s=queue_wait, deadline_at=deadline_at,
+            )
+            active[slot] = st
+            reason = self._finished(st)
+            if reason is not None:
+                complete(slot, reason)
 
         def intake(req: Request) -> None:
             """Validate at intake: a malformed request finishes "error"
@@ -253,7 +291,7 @@ class ContinuousBatchingScheduler:
             return None if d is None else arrivals[req.uid] + d
 
         capped = False
-        while pending or active:
+        while pending or active or prefilling:
             # cancellation / deadline sweep over the active slots
             if self._cancelled or any(
                 st.deadline_at is not None for st in active.values()
@@ -267,37 +305,78 @@ class ContinuousBatchingScheduler:
 
             # admit queued prompts into free slots between decode steps
             while pending and free:
-                req = pending.popleft()
+                req = pending[0]
                 deadline_at = deadline_of(req)
                 if req.uid in self._cancelled:
-                    finish(req, [], "cancelled")
+                    finish(pending.popleft(), [], "cancelled")
                     continue
                 if deadline_at is not None and time.perf_counter() > deadline_at:
-                    finish(req, [], "deadline")
+                    finish(pending.popleft(), [], "deadline")
                     continue
+                budget = (req.max_new_tokens if req.max_new_tokens is not None
+                          else self.max_new_tokens)
+                if chunked:
+                    if not engine.fits(len(req.prompt), budget):
+                        # larger than the POOL: waiting can never admit it
+                        finish(pending.popleft(), [], "error", error=(
+                            f"request needs "
+                            f"{engine.required_pages(len(req.prompt), budget)}"
+                            f" pages, pool holds {engine.num_pages}"))
+                        continue
+                    if not engine.can_admit(len(req.prompt), budget):
+                        if active or prefilling:
+                            break  # completions will free pages
+                        # nothing in flight can free pages: fail loudly
+                        # instead of spinning forever
+                        finish(pending.popleft(), [], "error", error=(
+                            "page pool exhausted with no requests in "
+                            "flight (pages leaked?)"))
+                        continue
+                pending.popleft()
                 slot = free.pop()
-                arrival = arrivals[req.uid]
-                queue_wait = round(time.perf_counter() - arrival, 6)
+                queue_wait = round(time.perf_counter() - arrivals[req.uid], 6)
                 try:
-                    first = engine.prefill(slot, req.prompt)
+                    if chunked:
+                        task = engine.prefill_begin(slot, req.prompt, budget)
+                    else:
+                        first = engine.prefill(slot, req.prompt)
                 except Exception as exc:  # noqa: BLE001 — isolate per request
+                    engine.release(slot)
                     free.append(slot)
                     finish(req, [], "error", queue_wait=queue_wait,
                            error=f"{type(exc).__name__}: {exc}")
                     continue
-                st = _SlotState(
-                    req=req,
-                    budget=(req.max_new_tokens if req.max_new_tokens is not None
-                            else self.max_new_tokens),
-                    generated=[first], next_pos=len(req.prompt),
-                    ttft_s=round(time.perf_counter() - arrival, 6),
-                    queue_wait_s=queue_wait,
-                    deadline_at=deadline_at,
-                )
-                active[slot] = st
-                reason = self._finished(st)
-                if reason is not None:  # EOS straight out of prefill
-                    complete(slot, reason)
+                if chunked:
+                    prefilling.append((task, req, budget, queue_wait,
+                                       deadline_at))
+                else:
+                    activate(slot, req, budget, first, queue_wait, deadline_at)
+
+            # advance ONE chunk of the oldest in-flight prefill, then fall
+            # through to the decode step: the chunked-prefill interleave
+            if prefilling:
+                task, req, budget, queue_wait, deadline_at = prefilling[0]
+                expired = (deadline_at is not None
+                           and time.perf_counter() > deadline_at)
+                first = reason = error = None
+                if expired or req.uid in self._cancelled:
+                    reason = "deadline" if expired else "cancelled"
+                else:
+                    try:
+                        first = engine.prefill_step(task)
+                    except Exception as exc:  # noqa: BLE001 — per request
+                        reason, error = "error", f"{type(exc).__name__}: {exc}"
+                if reason is not None:
+                    # abandoned mid-prefill: nothing streamed yet, the
+                    # pages go back through the normal release
+                    prefilling.popleft()
+                    engine.release(task.slot)
+                    free.append(task.slot)
+                    finish(req, [], reason, queue_wait=queue_wait, error=error)
+                elif first is not None:  # the final chunk landed
+                    prefilling.popleft()
+                    activate(task.slot, req, budget, first, queue_wait,
+                             deadline_at)
 
             if not active:
                 continue
@@ -337,6 +416,11 @@ class ContinuousBatchingScheduler:
         if capped:
             for slot in list(active):
                 complete(slot, "step_cap")
+            while prefilling:
+                task, req, _, queue_wait, _ = prefilling.popleft()
+                engine.release(task.slot)
+                free.append(task.slot)
+                finish(req, [], "cancelled", queue_wait=queue_wait)
             while pending:
                 finish(pending.popleft(), [], "cancelled")
 
@@ -378,6 +462,10 @@ class ContinuousBatchingScheduler:
             quarantined=quarantined,
             decode_tokens_per_sec=(
                 round(decode_tokens / decode_wall, 2) if decode_wall > 0 else 0.0
+            ),
+            prefix_hit_rate=(
+                round(engine.prefix_hit_rate(), 4)
+                if hasattr(engine, "prefix_hit_rate") else 0.0
             ),
         )
         return results, report

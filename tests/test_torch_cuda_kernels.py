@@ -171,3 +171,126 @@ def test_paged_kernel_with_multi_query_posmat(cuda):
     out = fd.paged_attention(q4, kp, vp, tables, posmat)
     ref = fd._paged_attention_plain(q4, kp, vp, tables, posmat)
     assert (out - ref).abs().max().item() <= ATOL
+
+
+def _int8_pool(layers, pages, ps, h=12, hd=64, seed=0):
+    """A real int8 pool: f32 K/V [pages+1, L, ps, h, hd] through the port's
+    quantize_kv, as {"k", "v", "k_scale", "v_scale"}."""
+    from distributeddeeplearning_tpu_torch.quant.qtensor import quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cache = {}
+    for name in ("k", "v"):
+        x = torch.randn((pages + 1, layers, ps, h, hd), generator=g, device="cuda")
+        cache[name], cache[f"{name}_scale"] = quantize_kv(x)
+    return cache
+
+
+def _scrambled_tables(b, nb, pages, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(pages, generator=g)[: b * nb] + 1  # never page 0
+    return perm.reshape(b, nb).to(torch.int32).cuda()
+
+
+@pytest.mark.parametrize("offset", [0, 37, 512])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_chunk_kernel_on_strided_scrambled_pool(cuda, offset, int8):
+    """K4(b) (and K4(c) without overlay): b=1, nq=64 chunk queries at
+    ``offset + arange(64)`` over a scrambled table, read through the
+    strided layer view of a [73, L, 64, 12, 64] pool."""
+    layers, pages, ps, h, hd, C = 2, 72, 64, 12, 64, 64
+    if int8:
+        cache = _int8_pool(layers, pages, ps, seed=offset)
+    else:
+        g = torch.Generator(device="cuda").manual_seed(offset)
+        cache = {n: torch.randn((pages + 1, layers, ps, h, hd), generator=g,
+                                device="cuda") for n in ("k", "v")}
+    views = {n: t[:, 1] for n, t in cache.items()}
+    assert not views["k"].is_contiguous()
+    table = _scrambled_tables(1, 9, pages, seed=offset)[0]
+    q = torch.randn((C, 3, h, hd), device="cuda")[:, 0]  # strided like qkv
+    posns = offset + torch.arange(C, device="cuda")
+    before = (fd.launches, fd.launches_int8, fd.launches_multi_query)
+    out = fd.chunk_attention(q, views["k"], views["v"], views.get("k_scale"),
+                             views.get("v_scale"), table, posns)
+    torch.cuda.synchronize()
+    assert (fd.launches, fd.launches_int8, fd.launches_multi_query) == (
+        before[0] + 1, before[1] + int8, before[2] + 1)
+    ref = fd._gather_chunk(q, views["k"], views["v"], views.get("k_scale"),
+                           views.get("v_scale"), table, posns)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= ATOL
+
+
+def test_int8_decode_kernel_with_overlay(cuda):
+    """K4(c) decode: b=8, nq=1 over scrambled int8 pages with the exact
+    in-flight K/V overlaid at each slot's position, positions 0..575."""
+    layers, pages, h, hd = 2, 72, 12, 64
+    cache = _int8_pool(layers, pages, 64, seed=3)
+    views = [t[:, 0] for t in (cache["k"], cache["v"], cache["k_scale"],
+                               cache["v_scale"])]
+    tables = _scrambled_tables(8, 9, pages, seed=3)
+    pos = torch.tensor([0, 575, 17, 300, 64, 511, 128, 450], dtype=torch.int32,
+                       device="cuda")
+    qkv = torch.randn((8, 3, h, hd), device="cuda")
+    q3, k_t, v_t = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    before = fd.launches_int8
+    out = fd.decode_attention_paged(q3, *views, k_t, v_t, pos, tables)
+    torch.cuda.synchronize()
+    assert fd.launches_int8 == before + 1
+    ref = fd._gather_decode_paged(q3, *views, k_t, v_t, pos, tables)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= ATOL
+    # the overlay really is read: another own token changes the output
+    other = fd.decode_attention_paged(q3, *views, k_t + 1.0, v_t.contiguous(),
+                                      pos, tables)
+    assert (other - out).abs().max().item() > 1e-3
+
+
+def test_int8_nan_scale_is_confined_to_its_slot(cuda):
+    layers, pages, h, hd = 1, 18, 12, 64
+    cache = _int8_pool(layers, pages, 64, seed=4)
+    tables = _scrambled_tables(2, 9, pages, seed=4)
+    cache["k_scale"][tables[0, 2].item(), 0, 5, 3] = float("nan")
+    views = [t[:, 0] for t in (cache["k"], cache["v"], cache["k_scale"],
+                               cache["v_scale"])]
+    pos = torch.tensor([300, 300], dtype=torch.int32, device="cuda")
+    q3, k_t, v_t = torch.randn((3, 2, h, hd), device="cuda").unbind(0)
+    out = fd.decode_attention_paged(q3, *views, k_t, v_t, pos, tables)
+    assert torch.isnan(out[0, 3]).all()
+    assert torch.isfinite(out[1]).all()
+    assert torch.isfinite(out[0, :3]).all() and torch.isfinite(out[0, 4:]).all()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_paged_decode_equals_dense_decode_bitwise(cuda, int8):
+    """The kernel's sums run in an order set by the absolute position
+    alone, so the same K/V read as 64-position pages through a scrambled
+    table and as one dense row give the same bits."""
+    b, s, h, hd, ps = 4, 576, 12, 64, 64
+    nb = s // ps
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dense = {n: torch.randn((b, 2, s, h, hd), generator=g, device="cuda")
+             for n in ("k", "v")}
+    if int8:
+        from distributeddeeplearning_tpu_torch.quant.qtensor import quantize_kv
+
+        for n in ("k", "v"):
+            dense[n], dense[f"{n}_scale"] = quantize_kv(dense[n])
+    tables = _scrambled_tables(b, nb, b * nb, seed=5)
+    pool = {n: torch.zeros((b * nb + 1, 2, ps) + t.shape[3:], dtype=t.dtype,
+                           device="cuda") for n, t in dense.items()}
+    for n, t in dense.items():
+        for bi in range(b):
+            for j in range(nb):
+                pool[n][tables[bi, j]] = t[bi, :, j * ps:(j + 1) * ps]
+    pos = torch.tensor([0, 63, 64, 575], dtype=torch.int32, device="cuda")
+    qkv = torch.randn((b, 3, h, hd), generator=g, device="cuda")
+    scales = lambda c: (c.get("k_scale"), c.get("v_scale"))  # noqa: E731
+    dv = [t[:, 1] if t is not None else None
+          for t in (dense["k"], dense["v"], *scales(dense))]
+    pv = [t[:, 1] if t is not None else None
+          for t in (pool["k"], pool["v"], *scales(pool))]
+    a = fd.decode_attention_dense(qkv[:, 0], *dv, qkv[:, 1], qkv[:, 2], pos)
+    p = fd.decode_attention_paged(qkv[:, 0], *pv, qkv[:, 1], qkv[:, 2], pos, tables)
+    assert torch.equal(a, p)

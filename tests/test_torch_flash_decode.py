@@ -15,6 +15,9 @@ read (the same einsum/softmax program, differing only in library
 reduction order).  Outputs are ~1-3 in magnitude (one f32 ulp <= 2.4e-7);
 the observed gap is a few ulp, and the margin keeps the tests independent
 of the thread count's summation order.
+
+The paged pool, chunked-prefill and int8 cases (the kernel's variants (b)
+and (c)) are held to the JAX package's own bound, stated beside them.
 """
 
 from __future__ import annotations
@@ -130,15 +133,143 @@ def test_resolve_kernel_contract():
         tfd.resolve_kernel("pallas")
 
 
-def test_int8_cache_is_a_later_slice():
-    q3, k, v = (torch.from_numpy(x) for x in _case(stale=False))
-    scales = torch.ones((B, S, H))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tfd.decode_attention_dense(q3, k, v, scales, scales, None, None,
-                                   torch.from_numpy(POS))
+# -- paged pools, chunked prefill and int8 (K4 variants (b) and (c)) --------
+#
+# Identical pools go to both sides: int8 codes and f32 scales are made
+# with numpy, so only the attention's arithmetic differs.  Tolerance
+# atol 2e-6 + rtol 1e-5, the JAX package's own bound between its Pallas
+# kernel and its gather read (tests/test_flash_decode.py:196-198): outputs
+# are ~1e-1..1, and the Pallas side sums in 8-position tiles.
+
+PS, NB = 8, 4  # page 8 >= the reference's Pallas block floor
+POOL = B * NB + 2
+
+
+def _pools(rng, int8):
+    """K/V pools [POOL, PS, H, HD] (int8 codes + f32 scales [POOL, PS, H],
+    or f32), and scrambled block tables [B, NB] that never use page 0."""
+    if int8:
+        k, v = (rng.integers(-127, 128, size=(POOL, PS, H, HD), dtype=np.int8)
+                for _ in range(2))
+        ks, vs = (rng.uniform(0.01, 0.1, size=(POOL, PS, H)).astype(np.float32)
+                  for _ in range(2))
+    else:
+        k, v = (rng.normal(size=(POOL, PS, H, HD)).astype(np.float32)
+                for _ in range(2))
+        ks = vs = None
+    tables = (rng.permutation(POOL - 1)[: B * NB] + 1).reshape(B, NB)
+    return k, v, ks, vs, tables.astype(np.int32)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+ATOL, RTOL = 2e-6, 1e-5
+
+
+@pytest.mark.parametrize("jax_kernel", ["pallas", "gather"])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_paged_decode_plain_matches_jax(jax_kernel, int8):
+    """decode_attention_paged through scrambled tables, unequal positions
+    (0, mid-page, the table's last position); on int8 with the exact
+    in-flight token overlaid at each slot's position."""
+    rng = np.random.default_rng(11)
+    k, v, ks, vs, tables = _pools(rng, int8)
+    q3, k_t, v_t = (rng.normal(size=(B, H, HD)).astype(np.float32)
+                    for _ in range(3))
+    pos = np.array([0, 13, NB * PS - 1], np.int32)
+    want = np.asarray(jfd.decode_attention_paged(
+        *map(_j, (q3, k, v, ks, vs, k_t, v_t, pos, tables)),
+        page_size=PS, kernel=jax_kernel))
+    got = tfd.decode_attention_paged(
+        *map(_t, (q3, k, v, ks, vs, k_t, v_t, pos, tables))).numpy()
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    gather = tfd.decode_attention_paged(
+        *map(_t, (q3, k, v, ks, vs, k_t, v_t, pos, tables)), kernel="gather")
+    np.testing.assert_array_equal(got, gather.numpy())
+
+
+@pytest.mark.parametrize("jax_kernel", ["pallas", "gather"])
+def test_int8_dense_decode_plain_matches_jax(jax_kernel):
+    """The dense layout's int8 branch (dequantized history, own token
+    overlaid), through the reference's dense page view."""
+    rng = np.random.default_rng(12)
+    k, v = (rng.integers(-127, 128, size=(B, S, H, HD), dtype=np.int8)
+            for _ in range(2))
+    ks, vs = (rng.uniform(0.01, 0.1, size=(B, S, H)).astype(np.float32)
+              for _ in range(2))
+    q3, k_t, v_t = (rng.normal(size=(B, H, HD)).astype(np.float32)
+                    for _ in range(3))
+    want = np.asarray(jfd.decode_attention_dense(
+        *map(_j, (q3, k, v, ks, vs, k_t, v_t, POS)), kernel=jax_kernel))
+    got = tfd.decode_attention_dense(
+        *map(_t, (q3, k, v, ks, vs, k_t, v_t, POS))).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("jax_kernel", ["pallas", "gather"])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("offset", [0, 12])
+def test_chunk_attention_plain_matches_jax(jax_kernel, int8, offset):
+    """chunk_attention at b=1, nq=C over one scrambled table, at offset 0
+    and at 12 (mid-page, the prefix-hit shape); no overlay on int8."""
+    rng = np.random.default_rng(13 + offset)
+    k, v, ks, vs, tables = _pools(rng, int8)
+    C = 16
+    q_c = rng.normal(size=(C, H, HD)).astype(np.float32)
+    posns = (offset + np.arange(C)).astype(np.int32)
+    want = np.asarray(jfd.chunk_attention(
+        *map(_j, (q_c, k, v, ks, vs, tables[1], posns)),
+        page_size=PS, kernel=jax_kernel))
+    got = tfd.chunk_attention(*map(_t, (q_c, k, v, ks, vs, tables[1], posns)))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_int8_nan_scale_fails_only_its_slot_and_only_when_visible():
+    """A NaN scale is the int8 quarantine signal: at a visible position it
+    makes that slot's output NaN and no other; past the slot's position it
+    is never read."""
+    rng = np.random.default_rng(14)
+    k, v, ks, vs, tables = _pools(rng, True)
+    q3, k_t, v_t = (torch.from_numpy(rng.normal(size=(B, H, HD)).astype(np.float32))
+                    for _ in range(3))
+    pos = torch.tensor([20, 20, 20], dtype=torch.int32)
+    ks_t = torch.from_numpy(ks)
+    ks_t[tables[0, 1], 3] = float("nan")  # slot 0, position 11: visible
+    ks_t[tables[1, 3], 0] = float("nan")  # slot 1, position 24: past pos
+    out = tfd.decode_attention_paged(
+        q3, _t(k), _t(v), ks_t, _t(vs), k_t, v_t, pos, _t(tables))
+    assert torch.isnan(out[0]).all()
+    assert torch.isfinite(out[1:]).all()
+
+
+def test_overlay_needs_one_query_and_an_int8_pool():
+    rng = np.random.default_rng(15)
+    k, v, ks, vs, tables = _pools(rng, True)
+    own = torch.zeros((B, H, HD))
+    q4 = torch.zeros((B, 2, H, HD))
+    posmat = torch.zeros((B, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="single-query"):
+        tfd.paged_attention(q4, _t(k), _t(v), _t(tables), posmat, _t(ks),
+                            _t(vs), own, own)
+    kf = torch.zeros((POOL, PS, H, HD))
+    with pytest.raises(ValueError, match="int8"):
+        tfd.paged_attention(q4[:, :1], kf, kf, _t(tables), posmat[:, :1],
+                            None, None, own, own)
 
 
 def test_cpu_tensor_never_launches_the_kernel():
-    before = tfd.launches
+    before = (tfd.launches, tfd.launches_int8, tfd.launches_multi_query)
     _port(*_case())
-    assert tfd.launches == before
+    rng = np.random.default_rng(16)
+    k, v, ks, vs, tables = _pools(rng, True)
+    q_c = torch.zeros((8, H, HD))
+    tfd.chunk_attention(q_c, _t(k), _t(v), _t(ks), _t(vs), _t(tables[0]),
+                        torch.arange(8))
+    assert (tfd.launches, tfd.launches_int8, tfd.launches_multi_query) == before

@@ -28,6 +28,7 @@ from distributeddeeplearning_tpu_torch.ops import flash_decode as fd
 from distributeddeeplearning_tpu_torch.serve import (
     ContinuousBatchingScheduler,
     InferenceEngine,
+    PagedInferenceEngine,
     Request,
 )
 
@@ -62,7 +63,8 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert not bad, f"the port pulled in {bad[:10]}"
-    for name in ("serve.scheduler", "train.schedule", "train.state",
+    for name in ("serve.scheduler", "serve.kv_cache", "quant.qtensor",
+                 "train.schedule", "train.state",
                  "train.step", "train.loop", "workloads.transformer"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
@@ -88,14 +90,19 @@ def test_cpu_serving_leaves_the_launch_counters_at_zero():
     params = tpt.init_params(device="cpu", **cfg)
     engine = InferenceEngine(params, num_heads=2, batch_slots=2, max_seq=16,
                              device="cpu")
+    paged = PagedInferenceEngine(params, num_heads=2, batch_slots=2,
+                                 max_seq=16, page_size=4, prefill_chunk=4,
+                                 cache_dtype="int8", device="cpu")
     fa.launches = 0
-    fd.launches = 0
+    fd.launches = fd.launches_int8 = fd.launches_multi_query = 0
     rng = np.random.default_rng(0)
-    results, _ = ContinuousBatchingScheduler(engine, max_new_tokens=3).run(
-        [Request(uid=str(i), prompt=rng.integers(1, 23, 5).tolist())
-         for i in range(3)])
-    assert [len(r.tokens) for r in results] == [3, 3, 3]
-    assert (fa.launches, fd.launches) == (0, 0)
+    for eng in (engine, paged):
+        results, _ = ContinuousBatchingScheduler(eng, max_new_tokens=3).run(
+            [Request(uid=str(i), prompt=rng.integers(1, 23, 5).tolist())
+             for i in range(3)])
+        assert [len(r.tokens) for r in results] == [3, 3, 3]
+    assert (fa.launches, fd.launches, fd.launches_int8,
+            fd.launches_multi_query) == (0, 0, 0, 0)
 
 
 def test_smoke_script_fails_without_a_card_or_without_the_repo(tmp_path):

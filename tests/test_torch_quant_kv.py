@@ -1,0 +1,223 @@
+"""The port's int8 KV cache on the CPU (``quant/qtensor.py``'s KV part and
+the int8 branches of the caches, model and engines) against the JAX
+package.
+
+Tolerances.  ``quantize_kv``/``dequantize_kv`` on identical inputs:
+BITWISE (the same op order with a true division; round half to even on
+both sides).  Inside a model the port's K/V differ from JAX's by ~1e-9, so
+a value on a rounding edge may quantize one step apart; codes are compared
+bitwise only on identical inputs, and int8 walks are held to the logit
+tolerance of the f32 ones (``atol 5e-5, rtol 1e-5``, equal argmax) and to
+equal greedy streams.  No code flip was seen at these sizes; the pool
+comparison in ``tests/test_torch_paged.py`` allows one step.
+
+The reference's own claim that int8 greedy agrees with f32 on >= 99% of
+tokens (``tests/test_quant.py::test_int8_dense_cache_matches_f32_greedy``)
+is red in the reference at take-up; the port is held to the JAX package's
+int8 OUTPUTS instead.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributeddeeplearning_tpu.models import pipelined_transformer as jpt
+from distributeddeeplearning_tpu.quant import qtensor as jqt
+from distributeddeeplearning_tpu.serve import (
+    ContinuousBatchingScheduler as JaxScheduler,
+    InferenceEngine as JaxEngine,
+    Request as JaxRequest,
+    cache_bytes as jax_cache_bytes,
+    init_cache as jax_init_cache,
+    init_paged_cache as jax_init_paged_cache,
+    insert_pages as jax_insert_pages,
+    insert_sequence as jax_insert_sequence,
+    page_bytes as jax_page_bytes,
+)
+from distributeddeeplearning_tpu_torch.models import pipelined_transformer as tpt
+from distributeddeeplearning_tpu_torch.quant import qtensor as tqt
+from distributeddeeplearning_tpu_torch.serve import (
+    ContinuousBatchingScheduler,
+    InferenceEngine,
+    PagedInferenceEngine,
+    Request,
+    cache_bytes,
+    init_cache,
+    init_paged_cache,
+    insert_pages,
+    insert_sequence,
+    page_bytes,
+    synthetic_requests,
+)
+
+torch.set_num_threads(2)  # T5: the suite runs six workers on eight cores
+
+CFG = dict(num_layers=3, d_model=32, num_heads=4, d_ff=64, vocab_size=61,
+           max_len=64)
+HEADS = CFG["num_heads"]
+HD = CFG["d_model"] // HEADS
+L = CFG["num_layers"]
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return jpt.init_params(jax.random.key(0), **CFG)
+
+
+@pytest.fixture(scope="module")
+def params(jparams):
+    return tpt.params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+def _kv_inputs(seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(5, 9, 4, 16)) * rng.uniform(0, 4, size=(5, 9, 4, 1))
+    x = x.astype(np.float32)
+    x[0, 0, 0] = 0.0  # an all-zero vector: scale EPS, codes 0
+    x[0, 1, 1] = np.float32(0.5)  # constant rows: every code +-127
+    # amax 127 makes the scale exactly 1: these codes are exact ties,
+    # rounded half to even on both sides
+    x[1, 2, 3] = np.array(
+        [127.0] + [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5] * 2 + [0.0],
+        np.float32)
+    return x
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_quantize_kv_bitwise_equals_jax(seed):
+    x = _kv_inputs(seed)
+    jv, js = jqt.quantize_kv(jnp.asarray(x))
+    tv, ts = tqt.quantize_kv(torch.from_numpy(x))
+    assert tv.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tqt.dequantize_kv(tv, ts).numpy(),
+        np.asarray(jqt.dequantize_kv(jv, js)))
+    assert tv.abs().max() <= 127 and (tv[0, 0, 0] == 0).all()
+    assert tv[1, 2, 3, 1:8].tolist() == [0, 2, 2, 0, -2, -2, 4]
+
+
+def test_int8_layouts_and_byte_accounting_match_jax():
+    kw = dict(num_layers=L, num_heads=HEADS, head_dim=HD)
+    dense = init_cache(batch_slots=2, max_seq=16, dtype=torch.int8,
+                       device="cpu", **kw)
+    jdense = jax_init_cache(batch_slots=2, max_seq=16, dtype=jnp.int8, **kw)
+    pool = init_paged_cache(num_pages=5, page_size=4, dtype=torch.int8,
+                            device="cpu", **kw)
+    jpool = jax_init_paged_cache(num_pages=5, page_size=4, dtype=jnp.int8, **kw)
+    assert tqt.quantized_cache(dense) and tqt.quantized_cache(pool)
+    for ours, ref in ((dense, jdense), (pool, jpool)):
+        assert {k: tuple(v.shape) for k, v in ours.items()} == {
+            k: tuple(v.shape) for k, v in ref.items()}
+    assert cache_bytes(dense) == jax_cache_bytes(jdense)
+    assert page_bytes(pool) == jax_page_bytes(jpool)
+    assert page_bytes(pool) * 6 == cache_bytes(pool)
+    with pytest.raises(ValueError, match="float32 or int8"):
+        init_cache(batch_slots=1, max_seq=4, dtype=torch.float16, device="cpu",
+                   **kw)
+
+
+def test_int8_inserts_write_the_reference_codes(jparams, params):
+    """insert_sequence and insert_pages on identical K/V: the same int8
+    codes and scales, bitwise."""
+    rng = np.random.default_rng(2)
+    k, v = (rng.normal(size=(1, L, 8, HEADS, HD)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(num_layers=L, num_heads=HEADS, head_dim=HD)
+    dense = insert_sequence(
+        init_cache(batch_slots=2, max_seq=16, dtype=torch.int8, device="cpu",
+                   **kw), torch.from_numpy(k), torch.from_numpy(v), 1)
+    jdense = jax_insert_sequence(
+        jax_init_cache(batch_slots=2, max_seq=16, dtype=jnp.int8, **kw),
+        jnp.asarray(k), jnp.asarray(v), 1)
+    pool = insert_pages(
+        init_paged_cache(num_pages=4, page_size=4, dtype=torch.int8,
+                         device="cpu", **kw),
+        torch.from_numpy(k), torch.from_numpy(v), torch.tensor([3, 1]),
+        page_size=4)
+    jpool = jax_insert_pages(
+        jax_init_paged_cache(num_pages=4, page_size=4, dtype=jnp.int8, **kw),
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray([3, 1], jnp.int32),
+        page_size=4)
+    for ours, ref in ((dense, jdense), (pool, jpool)):
+        for key in ref:
+            np.testing.assert_array_equal(ours[key].numpy(), np.asarray(ref[key]))
+
+
+def test_int8_dense_decode_walk_matches_jax(jparams, params):
+    """Teacher-forced decode from an empty int8 dense cache, positions
+    0..15: logits against JAX ``forward_decode`` (gather read)."""
+    kw = dict(batch_slots=2, num_layers=L, max_seq=16, num_heads=HEADS,
+              head_dim=HD)
+    jcache = jax_init_cache(dtype=jnp.int8, **kw)
+    cache = init_cache(dtype=torch.int8, device="cpu", **kw)
+    toks = np.random.default_rng(5).integers(0, CFG["vocab_size"], (16, 2)).astype(np.int32)
+    for i in range(16):
+        pos = np.full(2, i, np.int32)
+        want, jcache = jpt.forward_decode(
+            jparams, jnp.asarray(toks[i]), jcache, jnp.asarray(pos),
+            num_heads=HEADS, kernel="gather")
+        got, _ = tpt.forward_decode(params, torch.from_numpy(toks[i]), cache,
+                                    torch.from_numpy(pos), num_heads=HEADS)
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=1e-5)
+        np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
+
+
+def test_int8_dense_engine_matches_jax_engine(jparams, params):
+    """The same traffic through the JAX int8 dense engine and the port's:
+    identical greedy streams; an int8 cache is ~(1 + 4/hd)/4 of f32."""
+    reqs = synthetic_requests(8, vocab_size=CFG["vocab_size"], max_prompt=12,
+                              min_prompt=4, rng=np.random.default_rng(0))
+    kw = dict(num_heads=HEADS, batch_slots=2, max_seq=32,
+              prefill_attention="dense")
+    jres, jrep = JaxScheduler(JaxEngine(jparams, cache_dtype=jnp.int8, **kw),
+                              max_new_tokens=8).run(
+        [JaxRequest(uid=r.uid, prompt=r.prompt) for r in reqs])
+    eng = InferenceEngine(params, cache_dtype="int8", device="cpu", **kw)
+    res, rep = ContinuousBatchingScheduler(eng, max_new_tokens=8).run(reqs)
+    assert {r.uid: r.tokens for r in res} == {r.uid: r.tokens for r in jres}
+    assert rep.kv_dtype == jrep.kv_dtype == "int8"
+    assert rep.kv_bytes == jrep.kv_bytes
+    f32 = InferenceEngine(params, device="cpu", **kw)
+    assert rep.kv_bytes / f32.kv_bytes() == pytest.approx((1 + 4 / HD) / 4)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_int8_nan_quarantine_fails_only_its_slot(params, layout):
+    """A NaN K scale in one slot's decode-written history (int8 holds no
+    NaN) makes only that slot's logits non-finite: it is scrubbed and
+    fails alone; the other requests match an unpoisoned run."""
+    prompts = {"victim": [4, 9, 2], "other": [7, 7, 1, 3], "later": [5, 6]}
+    kw = dict(num_heads=HEADS, batch_slots=2, max_seq=24, cache_dtype="int8",
+              device="cpu")
+    make = (lambda: InferenceEngine(params, **kw)) if layout == "dense" else (
+        lambda: PagedInferenceEngine(params, page_size=4, prefill_chunk=8, **kw))
+    clean, _ = ContinuousBatchingScheduler(make(), max_new_tokens=5).run(
+        [Request(uid=u, prompt=p) for u, p in prompts.items()])
+    engine = make()
+    decode = engine.decode
+    steps = {"n": 0}
+
+    def poisoned_decode(tokens, pos):
+        steps["n"] += 1
+        if steps["n"] == 3:
+            engine.poison_slot(1, int(pos[1]) - 1)  # the victim's slot
+        return decode(tokens, pos)
+
+    engine.decode = poisoned_decode
+    results, report = ContinuousBatchingScheduler(engine, max_new_tokens=5).run(
+        [Request(uid=u, prompt=p) for u, p in prompts.items()])
+    by = {r.uid: r for r in results}
+    want = {r.uid: r.tokens for r in clean}
+    assert by["victim"].finish_reason == "error"
+    assert "non-finite" in by["victim"].error
+    assert report.quarantined == 1 and report.errors == 1
+    for uid in ("other", "later"):
+        assert by[uid].finish_reason == "length" and by[uid].tokens == want[uid]
+    assert torch.isfinite(engine.cache["k_scale"]).all()  # scrubbed

@@ -259,8 +259,10 @@ def test_engine_validates_inputs(params):
         _engine(params, max_seq=CFG["max_len"] + 1)
     with pytest.raises(ValueError, match="top_k"):
         _engine(params, temperature=1.0, top_k=0)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="f32 weights"):
         _engine({**params, "embed": params["embed"].double()})
+    with pytest.raises(ValueError, match="cache_dtype"):
+        _engine(params, cache_dtype="bfloat16")
 
 
 def test_synthetic_requests_match_the_reference():
