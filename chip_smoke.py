@@ -21,6 +21,13 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
 5. K4(c), its int8 variant on a quantize_kv pool: decode with the own-token
    overlay (b=8, nq=1, K4(a)'s positions) and a chunk without it (nq=64);
    a NaN scale at a visible position must make its slot NaN and no other;
+5a. K4 at nq = K+1 = 5 through the speculative-verify wrapper (b=8 slots,
+   ``posmat = pos + arange(5)``, pos over 0..571) on the scrambled f32
+   pool; every column must equal an nq=1 launch at pos+j bitwise;
+5b. the int8 weight product (``torch._int_mm``, rows padded to its
+   minimum) at the model's weight shapes and the head, 8 and 40 rows: the
+   int32 accumulator equals a float64 product exactly, qdot's rescale is
+   within 1e-6 relative;
 6. dense serving end to end: the 12-layer causal LM at full width (d_model
    768, 12 heads, d_ff 3072, vocab 32768; random weights from seed 0 with
    the tied 4x embedding head) served by ``InferenceEngine`` (8 slots,
@@ -40,6 +47,16 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    hit run the cold run's, int8 kernel tokens the int8 plain-read
    tokens, and a teacher-forced check holds chunked prefill + paged
    decode to the dense forward;
+7a. speculative serving (K = 4): the paged f32 engine with the truncated
+   drafter (the first 2 layers), the int8-weight drafter and a
+   forced-rejection drafter (first 4 requests), and the dense engine with
+   the truncated drafter, on the paged and dense runs' requests; each run
+   with the counters zeroed just before and read just after: verify
+   launches = 12 a spec step, draft launches = K x M a step, chunks 12
+   each; tokens must equal the non-speculative run's, the rejection run's
+   acceptance be 0 and its pool equal a never-drafted twin's, and one
+   verify pass hold to five sequential decode steps (logits within 1e-5
+   of the largest); a spec step is profiled beside a decode step;
 8. K2 and K3, the flash-attention backward (dQ pass, dK/dV pass), against
    their plain version at the training shape B=8, H=12, D=64, S=2048,
    causal, and at S in {37, 576} (ragged tiles), inputs as strided qkv
@@ -72,7 +89,9 @@ yardstick the port never calls; K4(c) has none (no single PyTorch call
 takes int8 K/V).  The int8 bound counts 2*(hd + 4) bytes per visible
 position and head.  ``launches`` is the count in the path that runs the
 kernel: training for K1, K2, K3; dense serving for K4(a); the f32 paged
-run's chunks for K4(b) and the int8 paged run for K4(c).
+run's chunks for K4(b), the int8 paged run for K4(c) and the four
+speculative runs for the verify row.  The verify row's bound counts each
+(slot, head)'s visible history once for all K+1 queries.
 
 Output: progress lines, then one JSON line with a row per kernel, the line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
@@ -112,6 +131,17 @@ SERVE = dict(num_layers=12, d_model=768, num_heads=12, d_ff=3072,
 SLOTS, MAX_SEQ, REQUESTS, NEW_TOKENS = 8, 576, 16, 32
 PAGE, CHUNK = 64, 64  # the CLI's defaults (cli/main.py:379, :386)
 POOL_PAGES = SLOTS * MAX_SEQ // PAGE  # the paged engine's default pool, 72
+# speculative decoding: K drafts a step; the truncated drafter's depth is
+# L // 6, as bench.py's spec run sets it (bench.py:1676-1680)
+SPEC_K = 4
+DRAFT_LAYERS = SERVE["num_layers"] // 6
+SPEC_POS = (0, 571, 17, 300, 64, 507, 128, 450)  # pos + K stays <= 575
+INT_MM_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768), (768, 32768))
+QDOT_RTOL = 1e-6  # three f32 roundings (acc, x a_scale, x w_scale) of a f64 value
+# verify vs sequential decode, of the largest |logit| (or |K/V|): the same
+# f32 math with the GEMMs at 8 x 5 rows instead of 8, where cuBLAS may
+# pick another kernel and sum in another order
+VERIFY_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -407,6 +437,106 @@ def phase_k4c(torch, fd, card):
                       "scales, own-token overlay, scrambled tables")
 
 
+def phase_k4v(torch, F, fd, card):
+    """K4 at nq = K+1 through the verify wrapper (b=8 slots, 5 queries
+    each at ``pos + arange(5)``) on the scrambled 73-page f32 pool, against
+    its plain version; each column must equal an nq = 1 launch bitwise."""
+    pool, tables = _paged_pool(torch, "float32", seed=12)
+    layers, h, hd, k1 = SERVE["num_layers"], SERVE["num_heads"], 64, SPEC_K + 1
+    pos = torch.tensor(SPEC_POS, dtype=torch.int32, device="cuda")
+    posmat = (pos[:, None] + torch.arange(k1, device="cuda")).to(torch.int32)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    # the model's strided q: the first third of a [b, K1, 3*h*hd] projection
+    qkv = torch.randn((SLOTS, k1, 3 * h * hd), generator=g, device="cuda")
+    q4 = qkv[..., : h * hd].reshape(SLOTS, k1, h, hd)
+    worst, bitwise = 0.0, True
+    for layer in (0, layers - 1):
+        k_l, v_l, _, _ = _layer_views(pool, layer)
+        out = fd.verify_attention_paged(q4, k_l, v_l, tables, posmat)
+        ref = fd.verify_attention_paged(q4, k_l, v_l, tables, posmat, kernel="gather")
+        for j in range(k1):
+            one = fd.paged_attention(q4[:, j:j + 1], k_l, v_l, tables,
+                                     posmat[:, j:j + 1].contiguous())
+            bitwise = bitwise and torch.equal(out[:, j:j + 1], one)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        if not bool(torch.isfinite(out).all()) or err > K4_TOL:
+            raise AssertionError(f"K4 verify disagrees with its plain version: {err}")
+    log(f"[k4v] b=8 nq=5 verify, scrambled table, pos {list(SPEC_POS)}: "
+        f"max|dout|={worst:.3e} (tolerance {K4_TOL:g}); every column equals "
+        f"an nq=1 launch at pos+j bitwise: {bitwise}")
+    if not bitwise:
+        raise AssertionError("a verify column differs from its nq=1 launch")
+    views = [_layer_views(pool, i)[:2] for i in range(layers)]
+    run = lambda i: fd.verify_attention_paged(  # noqa: E731
+        q4, *views[i % layers], tables, posmat)
+    ms = device_ms(torch, run, iters=120)
+    plain_ms = device_ms(torch, lambda i: fd.verify_attention_paged(
+        q4, *views[i % layers], tables, posmat, kernel="gather"), iters=60)
+    hist = [tuple(t[tables.long()].reshape(SLOTS, MAX_SEQ, h, hd).transpose(1, 2)
+                  for t in v) for v in views]
+    qt = q4.transpose(1, 2)
+    mask = (torch.arange(MAX_SEQ, device="cuda")[None, None, :]
+            <= posmat[:, :, None])[:, None]
+    lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qt, *hist[i % layers], attn_mask=mask), iters=60)
+    # each (slot, head)'s visible history read once for all K+1 queries
+    visible = float((pos.long() + k1).sum().item())
+    pairs = float((posmat.long() + 1).sum().item())
+    nbytes = (4.0 * (2 * visible * h * hd + 2 * SLOTS * k1 * h * hd)
+              + 4.0 * (posmat.numel() + tables.numel()))
+    bms, by = bound_ms(nbytes, 4.0 * pairs * h * hd)
+    log(f"[k4v] verify b=8 nq=5: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa (pre-gathered history, bool mask) {lib_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}); device times, on {card}")
+    del pool, views, hist
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, max_abs_err=worst,
+                shape="b=8 nq=5 h=12 hd=64 page 64, pos 0..571 (+0..4), f32, "
+                      "scrambled table, strided pool view")
+
+
+def phase_int_mm(torch, card):
+    """qdot's int8 x int8 product at the model's weight shapes and the
+    head, for 8 rows (a decode step) and 40 (a verify pass of 8 slots x
+    5): the int32 accumulator equals a float64 product exactly, and the
+    rescaled output is within QDOT_RTOL of a float64 rescale."""
+    from distributeddeeplearning_tpu_torch.quant import qtensor as qt
+
+    worst = 0.0
+    times = []
+    for rows in (SLOTS, SLOTS * (SPEC_K + 1)):
+        for k, n in INT_MM_SHAPES:
+            g = torch.Generator(device="cuda").manual_seed(rows * 7 + k + n)
+            x = torch.randn((rows, k), generator=g, device="cuda")
+            w = qt.quantize(torch.randn((k, n), generator=g, device="cuda") * 0.02)
+            a_scale = torch.clamp(x.abs().amax(-1, keepdim=True), min=qt.EPS) / qt.QMAX
+            xq = torch.clamp(torch.round(x / a_scale), -qt.QMAX, qt.QMAX).to(torch.int8)
+            acc = qt.int8_matmul(xq, w.values)
+            exact = torch.equal(acc.double(), xq.double() @ w.values.double())
+            f64 = acc.double() * a_scale.double() * w.scales.double()
+            rel = ((qt.qdot(x, w).double() - f64).abs()
+                   / f64.abs().clamp(min=1e-300)).max().item()
+            worst = max(worst, rel)
+            if not exact or not rel <= QDOT_RTOL:
+                raise AssertionError(
+                    f"int8 product at {rows}x{k}->{n}: exact {exact}, rel {rel:.2e}")
+            if n == 32768:
+                wf = qt.dequantize(w)
+                times.append((rows, device_ms(torch, lambda i: qt.qdot(x, w)),
+                              device_ms(torch, lambda i: x @ wf)))
+    log(f"[int8] torch._int_mm at {[f'{k}->{n}' for k, n in INT_MM_SHAPES]} x "
+        f"rows 8/40 (padded to {qt.INT_MM_MIN_ROWS} where fewer): int32 "
+        f"accumulators equal float64 exactly; qdot within {worst:.2e} relative "
+        f"of a float64 rescale (tolerance {QDOT_RTOL:g})")
+    for rows, q_ms, f_ms in times:
+        log(f"[int8] head 768->32768, {rows} rows: qdot {q_ms:.4f} ms (quantize "
+            f"+ int8 GEMM + rescale), f32 matmul {f_ms:.4f} ms; device times, on {card}")
+    return worst
+
+
 def naive_greedy(torch, forward, params, prompt, n):
     """Oracle: greedy generation by a full dense forward every step."""
     toks = list(prompt)
@@ -556,6 +686,8 @@ def phase_serve(torch, np, fa, fd, card):
             f"tolerance {LOGIT_RTOL:g} of it)")
         if not err <= LOGIT_RTOL * scale:
             raise AssertionError(f"{req.uid}: serving logits drift {err}")
+    served = {"requests": requests, "tokens": {r.uid: r.tokens for r in results},
+              "report": report}
 
     # where a step's time goes: host wall vs CUDA kernel time (profiler)
     pos = np.full(SLOTS, 300, np.int32)
@@ -570,7 +702,7 @@ def phase_serve(torch, np, fa, fd, card):
         log(f"[profile] {name}: host wall {wall:.3f} ms, kernel time {share} on {card}")
         for key, ms in top[:6]:
             log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
-    return launches, engine
+    return launches, engine, served
 
 
 def teacher_forced_paged_error(torch, params, tokens, prompt_len):
@@ -741,10 +873,12 @@ def phase_serve_paged(torch, np, fa, fd, card, dense_engine):
             forward_prefill_chunk(engine.params, chunk, engine.cache, table, 256,
                                   num_heads=SERVE["num_heads"])
 
+    decode_wall = None
     for what, fn, n in (("paged decode step (8 slots, pos 300)",
                          lambda: engine.decode(toks, pos), 10),
                         ("prefill chunk (64 tokens at offset 256)", one_chunk, 10)):
         wall, busy, top = profile_share(torch, fn, n)
+        decode_wall = wall if decode_wall is None else decode_wall
         share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
         log(f"[profile] {what}: host wall {wall:.3f} ms, kernel time {share} on {card}")
         for key, ms in top[:6]:
@@ -753,9 +887,246 @@ def phase_serve_paged(torch, np, fa, fd, card, dense_engine):
         engine.release(slot)
     out = {"decode_f32": f32["counts"]["flash_decode"] - f32["counts"]["multi_query"],
            "chunk_f32": f32["counts"]["multi_query"],
-           "int8": int8["counts"]["int8"]}
+           "int8": int8["counts"]["int8"],
+           "requests": requests, "f32_tokens": f32["tokens"],
+           "f32_report": f32["report"], "f32_chunks": f32["counts"]["multi_query"] // layers,
+           "decode_profile_ms": decode_wall}
     del runs, f32, int8, cold, gather, engine
     torch.cuda.empty_cache()
+    return out
+
+
+def _garbage_drafter(torch, Drafter, TruncatedDrafter, token):
+    """The forced-rejection adversary: writes real truncated K/V at every
+    draft position and proposes ``token`` (one the baseline never emits),
+    so every draft is rejected and the rollback must erase every write."""
+
+    class Garbage(Drafter):
+        name = "garbage"
+
+        def bind(self, engine):
+            self.inner = TruncatedDrafter(DRAFT_LAYERS)
+            self.inner.bind(engine)
+
+        def propose(self, cache, tokens, pos):
+            _, cache = self.inner.propose(cache, tokens, pos)
+            return torch.full_like(tokens, token), cache
+
+    return Garbage()
+
+
+def verify_vs_decode(torch, np, engine):
+    """One verify pass (8 slots x K+1 columns) against K+1 sequential decode
+    steps on the same prefilled cache: ``(logits bitwise, max |d| of the
+    logits, largest |logit|, argmax equal, cache writes bitwise, max |d|
+    of the cache)``.  The verify GEMMs run at 8 x 5 rows, decode's at 8."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        forward_decode, forward_decode_paged, forward_verify, forward_verify_paged,
+    )
+
+    paged = engine.kv_layout == "paged"
+    heads, k1 = SERVE["num_heads"], SPEC_K + 1
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, SERVE["vocab_size"], 150 + 37 * s).tolist()
+               for s in range(SLOTS)]
+    first = [engine.prefill(s, p, NEW_TOKENS) if paged else engine.prefill(s, p)
+             for s, p in enumerate(prompts)]
+    pos0 = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
+    tok0 = torch.tensor(first, dtype=torch.int32, device="cuda")
+    cache = engine.cache
+    saved = {k: v.clone() for k, v in cache.items()}
+    tables = engine.device_tables() if paged else None
+    with torch.inference_mode():
+        walk, toks, pos = [], tok0, pos0
+        for _ in range(k1):
+            if paged:
+                lg, _ = forward_decode_paged(engine.params, toks, cache, pos, tables,
+                                             num_heads=heads)
+            else:
+                lg, _ = forward_decode(engine.params, toks, cache, pos, num_heads=heads)
+            walk.append(lg)
+            toks, pos = torch.argmax(lg, -1).to(torch.int32), pos + 1
+        walk = torch.stack(walk, dim=1)
+        walked = {k: v.clone() for k, v in cache.items()}
+        for k, v in cache.items():
+            v.copy_(saved[k])
+        mat = torch.cat([tok0[:, None], torch.argmax(walk[:, :-1], -1).to(torch.int32)], 1)
+        dlen = torch.full((SLOTS,), SPEC_K, dtype=torch.int32, device="cuda")
+        if paged:
+            got, _ = forward_verify_paged(engine.params, mat, cache, pos0, dlen, tables,
+                                          num_heads=heads)
+        else:
+            got, _ = forward_verify(engine.params, mat, cache, pos0, dlen, num_heads=heads)
+    out = (torch.equal(got, walk), (got - walk).abs().max().item(),
+           walk.abs().max().item(),
+           torch.equal(torch.argmax(got, -1), torch.argmax(walk, -1)),
+           all(torch.equal(cache[k], walked[k]) for k in cache),
+           max((cache[k] - walked[k]).abs().max().item() for k in cache))
+    for s in range(SLOTS):
+        engine.release(s)
+    del saved, walked
+    return out
+
+
+def phase_serve_spec(torch, np, fa, fd, card, params, dense_engine, dense, paged):
+    """Speculative greedy serving at full width: the paged f32 engine (page
+    64, chunk 64, 8 slots) with the truncated (M = 2), int8-weight and
+    forced-rejection drafters on the paged cell's traffic, and the dense
+    engine with the truncated drafter on the dense cell's; K = 4.  Each run
+    with the counters zeroed just before it and read just after; tokens
+    equal the non-speculative run's exactly."""
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, PagedInferenceEngine, Request,
+    )
+    from distributeddeeplearning_tpu_torch.spec import (
+        Drafter, SpeculativeDecoder, TruncatedDrafter,
+    )
+
+    layers, vocab = SERVE["num_layers"], SERVE["vocab_size"]
+    first4 = paged["requests"][:4]
+    seen = {t for r in first4 for t in paged["f32_tokens"][r.uid]}
+    garbage = min(set(range(vocab)) - seen)
+    runs = (  # name, layout, drafter, draft depth, requests, baseline tokens
+        ("spec_truncated", "paged", lambda: TruncatedDrafter(DRAFT_LAYERS),
+         DRAFT_LAYERS, paged["requests"], paged["f32_tokens"]),
+        ("spec_int8", "paged", lambda: "int8", layers, paged["requests"],
+         paged["f32_tokens"]),
+        ("spec_reject", "paged",
+         lambda: _garbage_drafter(torch, Drafter, TruncatedDrafter, garbage),
+         DRAFT_LAYERS, first4, {r.uid: paged["f32_tokens"][r.uid] for r in first4}),
+        ("spec_dense", "dense", lambda: TruncatedDrafter(DRAFT_LAYERS),
+         DRAFT_LAYERS, dense["requests"], dense["tokens"]),
+    )
+    rng = np.random.default_rng(5)
+    warm = [Request(uid=f"warm{n}", prompt=rng.integers(1, vocab, n).tolist())
+            for n in (72, 200)]
+    out = {}
+    for name, layout, make, depth, requests, base_tokens in runs:
+        if layout == "paged":
+            engine = PagedInferenceEngine(
+                params, num_heads=SERVE["num_heads"], batch_slots=SLOTS,
+                max_seq=MAX_SEQ, page_size=PAGE, prefill_chunk=CHUNK)
+        else:
+            engine = dense_engine
+        sd = SpeculativeDecoder(engine, drafter=make(), draft_tokens=SPEC_K)
+        ContinuousBatchingScheduler(engine, max_new_tokens=2 * SPEC_K + 2,
+                                    spec_decoder=sd).run(warm)
+        if layout == "paged":
+            engine.reset_stats()
+            engine.clear_prefix_cache()
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        fd.launches = fd.launches_int8 = fd.launches_multi_query = 0
+        fd.launches_verify = 0
+        torch.cuda.synchronize()
+        results, report = ContinuousBatchingScheduler(
+            engine, max_new_tokens=NEW_TOKENS, spec_decoder=sd).run(
+            [Request(uid=r.uid, prompt=list(r.prompt)) for r in requests])
+        torch.cuda.synchronize()
+        counts = {"flash_attention_fwd": fa.launches, "flash_decode": fd.launches,
+                  "int8": fd.launches_int8, "multi_query": fd.launches_multi_query,
+                  "verify": fd.launches_verify}
+        steps = report.decode_steps
+        chunks = engine.chunks_run if layout == "paged" else 0
+        prefills = len(requests) * layers if layout == "dense" else 0
+        draft = steps * SPEC_K * depth
+        want = {"flash_attention_fwd": prefills,
+                "flash_decode": layers * (chunks + steps) + draft, "int8": 0,
+                "multi_query": layers * (chunks + steps), "verify": layers * steps}
+        log(f"[spec] {name}: launches {counts} (expected {want}: {layers} a "
+            f"chunk and a verify pass, {SPEC_K} x {depth} draft launches a "
+            f"step; {chunks} chunks, {steps} spec steps)")
+        if counts != want:
+            raise AssertionError(f"{name}: unexpected launch counts {counts}")
+        if layout == "paged" and name != "spec_reject" and chunks != paged["f32_chunks"]:
+            raise AssertionError(f"{name}: {chunks} chunks, the f32 run had "
+                                 f"{paged['f32_chunks']}")
+        tokens = {r.uid: r.tokens for r in results}
+        same = tokens == base_tokens
+        log(f"[spec] {name}: tokens == the non-speculative {layout} run's: {same}")
+        if not same:
+            raise AssertionError(f"{name}: speculative tokens differ")
+        if report.finish_reasons != {"length": len(requests)}:
+            raise AssertionError(f"{name}: finish reasons {report.finish_reasons}")
+        if name == "spec_reject" and (report.acceptance_rate != 0.0
+                                      or report.tokens_per_verify != 1.0):
+            raise AssertionError(f"{name}: acceptance {report.acceptance_rate}, "
+                                 f"tokens/verify {report.tokens_per_verify}")
+        if layout == "paged":
+            engine.allocator.check()
+            if engine.allocator.pages_in_use:
+                raise AssertionError(f"{name}: pages leaked")
+        base = paged["f32_report"] if layout == "paged" else dense["report"]
+        log(f"[spec] {name} ({sd.drafter_name}"
+            f"{f', token {garbage}' if name == 'spec_reject' else ''}): tokens/s "
+            f"{report.tokens_per_sec} | decode tokens/s {report.decode_tokens_per_sec}"
+            f" (non-spec {layout} run {base.decode_tokens_per_sec}) | TTFT p50 "
+            f"{report.ttft_s['p50'] * 1e3:.2f} ms p99 {report.ttft_s['p99'] * 1e3:.2f} ms"
+            f" | acceptance {report.acceptance_rate} | tokens/verify "
+            f"{report.tokens_per_verify} | draft p50 "
+            f"{report.draft_step_s['p50'] * 1e3:.3f} ms | verify p50 "
+            f"{report.verify_step_s['p50'] * 1e3:.3f} ms | {steps} spec steps on {card}")
+        log(f"[spec] {name} report " + json.dumps(report.to_dict()))
+        out[name] = dict(counts=counts, draft=draft)
+        if name == "spec_reject":
+            # the never-drafted twin: the same engine, warm-up and requests
+            # without speculation (a rejection step commits one token a
+            # slot, as a decode step does, so pages go out in the same
+            # order); every position past a kept prefix is zero in both,
+            # kept positions hold verify's writes there, decode's here
+            ref = PagedInferenceEngine(
+                params, num_heads=SERVE["num_heads"], batch_slots=SLOTS,
+                max_seq=MAX_SEQ, page_size=PAGE, prefill_chunk=CHUNK)
+            ContinuousBatchingScheduler(ref, max_new_tokens=2 * SPEC_K + 2).run(warm)
+            ref.reset_stats()
+            ref.clear_prefix_cache()
+            ContinuousBatchingScheduler(ref, max_new_tokens=NEW_TOKENS).run(
+                [Request(uid=r.uid, prompt=list(r.prompt)) for r in requests])
+            zeros_same = all(torch.equal(engine.cache[k][1:] == 0, ref.cache[k][1:] == 0)
+                             for k in ("k", "v"))
+            bitwise = all(torch.equal(engine.cache[k][1:], ref.cache[k][1:])
+                          for k in ("k", "v"))
+            diff = max((engine.cache[k][1:] - ref.cache[k][1:]).abs().max().item()
+                       for k in ("k", "v"))
+            scale = max(ref.cache[k][1:].abs().max().item() for k in ("k", "v"))
+            log(f"[spec] {name}: pool after the run vs the never-drafted run's "
+                f"(scratch page excluded): zero positions identical {zeros_same}, "
+                f"bitwise {bitwise}, max|d| {diff:.3e} (largest |K/V| {scale:.3f}, "
+                f"tolerance {VERIFY_RTOL:g} of it)")
+            if not zeros_same or not diff <= VERIFY_RTOL * scale:
+                raise AssertionError(f"{name}: rollback left rejected-draft residue")
+            del ref
+        if name in ("spec_truncated", "spec_dense"):
+            same, err, scale, argmax_same, cache_same, cache_err = verify_vs_decode(
+                torch, np, engine)
+            log(f"[spec] {layout} verify (8 slots x 5 columns) vs 5 sequential "
+                f"decode steps: logits bitwise {same}, max|d| {err:.3e} (largest "
+                f"|logit| {scale:.3f}, tolerance {VERIFY_RTOL:g} of it), argmax "
+                f"equal {argmax_same}; cache writes bitwise {cache_same}, max|d| "
+                f"{cache_err:.3e}")
+            if not (argmax_same and err <= VERIFY_RTOL * scale):
+                raise AssertionError(f"{layout} verify drifts from decode: {err}")
+        if name == "spec_truncated":
+            # one spec step (8 slots at pos 300, K = 4, every draft real)
+            # under the profiler, beside the paged decode step's wall
+            for slot in range(SLOTS):
+                engine.prefill(slot, rng.integers(1, vocab, 300).tolist(), NEW_TOKENS)
+            pos = np.full(SLOTS, 300, np.int32)
+            toks = np.arange(1, SLOTS + 1, dtype=np.int32)
+            dlen = np.full(SLOTS, SPEC_K, np.int32)
+            wall, busy, top = profile_share(torch, lambda: sd.step(toks, pos, dlen), 10)
+            share = ("not measured" if busy is None
+                     else f"{busy:.3f} ms ({busy / wall:.1%} busy)")
+            log(f"[profile] spec step (8 slots, pos 300, K=4, M=2): host wall "
+                f"{wall:.3f} ms, kernel time {share} on {card}; the paged decode "
+                f"step's host wall was {paged['decode_profile_ms']:.3f} ms")
+            for key, ms in top[:8]:
+                log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
+            for slot in range(SLOTS):
+                engine.release(slot)
+        del sd
+        if layout == "paged":
+            del engine
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1003,8 +1374,12 @@ def main() -> int:
         k4 = phase_k4(torch, F, fd, card)
         k4b = phase_k4b(torch, F, fd, card)
         k4c = phase_k4c(torch, fd, card)
-        served, dense_engine = phase_serve(torch, np, fa, fd, card)
+        k4v = phase_k4v(torch, F, fd, card)
+        phase_int_mm(torch, card)
+        served, dense_engine, dense = phase_serve(torch, np, fa, fd, card)
         paged = phase_serve_paged(torch, np, fa, fd, card, dense_engine)
+        spec = phase_serve_spec(torch, np, fa, fd, card, dense_engine.params,
+                                dense_engine, dense, paged)
         del dense_engine
         torch.cuda.empty_cache()
         bwd = phase_bwd(torch, F, fa, card)
@@ -1025,7 +1400,9 @@ def main() -> int:
              replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
              launches=served["flash_decode"],
              launches_by_path={"serve_dense": served["flash_decode"],
-                               "serve_paged_f32": paged["decode_f32"]}, **k4),
+                               "serve_paged_f32": paged["decode_f32"],
+                               **{f"{name}_draft": run["draft"]
+                                  for name, run in spec.items()}}, **k4),
         dict(name="flash_decode_chunk", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
@@ -1034,6 +1411,12 @@ def main() -> int:
              source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
              launches=paged["int8"], **k4c),
+        dict(name="flash_decode_verify", route="cuda",
+             source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
+             replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
+             launches=sum(run["counts"]["verify"] for run in spec.values()),
+             launches_by_path={name: run["counts"]["verify"]
+                               for name, run in spec.items()}, **k4v),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_attention.py:335",

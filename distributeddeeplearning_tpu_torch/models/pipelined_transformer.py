@@ -38,6 +38,8 @@ from distributeddeeplearning_tpu_torch._device import DeviceLike, resolve_device
 from distributeddeeplearning_tpu_torch.ops import flash_attention as _fa
 from distributeddeeplearning_tpu_torch.ops import flash_decode as _fd
 from distributeddeeplearning_tpu_torch.quant.qtensor import (
+    QTensor,
+    qmatmul as _mm,
     quantize_kv,
     quantized_cache,
 )
@@ -90,10 +92,17 @@ def init_params(
 
 def params_from_numpy(tree, device: DeviceLike = None) -> Params:
     """The JAX package's parameters (``jax.tree.map(np.asarray, params)``)
-    as the port's, key for key.  Arrays are copied to ``device``."""
+    as the port's, key for key.  Arrays are copied to ``device``; an int8
+    weight (the reference's ``QTensor`` with numpy leaves) becomes the
+    port's :class:`QTensor` with the same values, scales, axis and
+    block."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    if all(hasattr(tree, a) for a in ("values", "scales", "axis", "block")):
+        return QTensor(params_from_numpy(tree.values, dev),
+                       params_from_numpy(tree.scales, dev), tree.axis,
+                       tree.block)
     return torch.from_numpy(np.array(tree, copy=True)).to(dev)
 
 
@@ -104,12 +113,14 @@ def _layer_norm(x, scale):
 
 
 def _layer(blocks: Params, i: int) -> Params:
+    """Layer ``i`` of the stacked blocks (a QTensor indexes its values and
+    scales together)."""
     return {k: v[i] for k, v in blocks.items()}
 
 
 def _mlp(p, x):
     h = _layer_norm(x, p["ln2"])
-    return x + F.gelu(h @ p["w_in"], approximate="none") @ p["w_out"]
+    return x + _mm(F.gelu(_mm(h, p["w_in"]), approximate="none"), p["w_out"])
 
 
 def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
@@ -123,7 +134,7 @@ def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
     b, s, d = x.shape
     hd = d // num_heads
     h = _layer_norm(x, p["ln1"])
-    q, k, v = (h @ p["qkv"]).split(d, dim=-1)  # strided [b, s, d] views
+    q, k, v = _mm(h, p["qkv"]).split(d, dim=-1)  # strided [b, s, d] views
     split4 = lambda t: t.reshape(b, s, num_heads, hd)  # noqa: E731
     if attention == "flash":
         ctx = _fa.flash_attention(
@@ -141,7 +152,7 @@ def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
         ctx = ctx.transpose(1, 2).reshape(b, s, d).to(x.dtype)
     else:
         raise ValueError(f"unknown attention {attention!r} (choices: {ATTENTIONS})")
-    x = _mlp(p, x + ctx @ p["proj"])
+    x = _mlp(p, x + _mm(ctx, p["proj"]))
     if return_kv:
         return x, (split4(k), split4(v))
     return x
@@ -183,7 +194,7 @@ def forward(params, tokens, *, num_heads: int, attention: str = "dense",
     :func:`_stack`)."""
     x = _stack(params["blocks"], _embed(params, tokens), num_heads=num_heads,
                attention=attention, remat=remat)
-    return x @ params["head"]
+    return _mm(x, params["head"])
 
 
 def forward_prefill(params, tokens, *, num_heads: int, attention: str = "dense"):
@@ -198,7 +209,7 @@ def forward_prefill(params, tokens, *, num_heads: int, attention: str = "dense")
                                 return_kv=True)
         ks.append(k)
         vs.append(v)
-    return x @ params["head"], torch.stack(ks, dim=1), torch.stack(vs, dim=1)
+    return _mm(x, params["head"]), torch.stack(ks, dim=1), torch.stack(vs, dim=1)
 
 
 def _write_kv(k_l, v_l, k_s, v_s, idx, k_new, v_new) -> None:
@@ -232,7 +243,7 @@ def _qkv_rows(p, x, num_heads: int):
     (strided views of one projection)."""
     n, d = x.shape
     h = _layer_norm(x, p["ln1"])
-    q, k, v = (h @ p["qkv"]).split(d, dim=-1)
+    q, k, v = _mm(h, p["qkv"]).split(d, dim=-1)
     return tuple(t.reshape(n, num_heads, d // num_heads) for t in (q, k, v))
 
 
@@ -253,7 +264,7 @@ def _block_decode(p, x, k_l, v_l, pos, *, num_heads: int, k_s=None, v_s=None,
     ctx = _fd.decode_attention_dense(
         q, k_l, v_l, k_s, v_s, k_t, v_t, pos, kernel=kernel
     ).reshape(b, d).to(x.dtype)
-    return _mlp(p, x + ctx @ p["proj"])
+    return _mlp(p, x + _mm(ctx, p["proj"]))
 
 
 def forward_decode(params, token, cache, pos, *, num_heads: int,
@@ -275,7 +286,7 @@ def forward_decode(params, token, cache, pos, *, num_heads: int,
             _layer(params["blocks"], i), x, k_l, v_l, pos,
             num_heads=num_heads, k_s=k_s, v_s=v_s, kernel=kernel,
         )
-    return x @ params["head"], cache
+    return _mm(x, params["head"]), cache
 
 
 def _block_decode_paged(p, x, k_l, v_l, pos, block_tables, *, num_heads: int,
@@ -300,7 +311,7 @@ def _block_decode_paged(p, x, k_l, v_l, pos, block_tables, *, num_heads: int,
     ctx = _fd.decode_attention_paged(
         q, k_l, v_l, k_s, v_s, k_t, v_t, pos, block_tables, kernel=kernel,
     ).reshape(b, d).to(x.dtype)
-    return _mlp(p, x + ctx @ p["proj"])
+    return _mlp(p, x + _mm(ctx, p["proj"]))
 
 
 def forward_decode_paged(params, token, cache, pos, block_tables, *,
@@ -321,7 +332,7 @@ def forward_decode_paged(params, token, cache, pos, block_tables, *,
             _layer(params["blocks"], i), x, k_l, v_l, pos, block_tables,
             num_heads=num_heads, k_s=k_s, v_s=v_s, kernel=kernel,
         )
-    return x @ params["head"], cache
+    return _mm(x, params["head"]), cache
 
 
 def forward_prefill_chunk(params, tokens, cache, block_table, offset: int, *,
@@ -368,8 +379,124 @@ def forward_prefill_chunk(params, tokens, cache, block_table, offset: int, *,
         ctx = _fd.chunk_attention(
             q, k_l, v_l, k_s, v_s, block_table, posns, kernel=kernel,
         ).reshape(C, d).to(x.dtype)
-        x = _mlp(p, x + ctx @ p["proj"])
-    return (x @ params["head"])[None], cache
+        x = _mlp(p, x + _mm(ctx, p["proj"]))
+    return _mm(x, params["head"])[None], cache
+
+
+_F32_ONLY = (
+    "speculative verification supports the f32 cache layout only (the "
+    "acceptance rule extends the decode==full-forward bit-exactness pin, "
+    "which the int8 grid breaks)"
+)
+
+
+def _verify_inputs(params, tokens, pos, draft_len):
+    """What both verify layouts share: ``posmat`` [B, K1] (long), the
+    valid-column mask ``j <= draft_len`` and the embedded inputs, the
+    position embedding clamped at ``max_len - 1``."""
+    K1 = tokens.shape[1]
+    cols = torch.arange(K1, device=tokens.device)
+    posmat = pos.long()[:, None] + cols[None]
+    valid = cols[None] <= draft_len.long()[:, None]
+    max_len = params["pos"].shape[0]
+    x = (params["embed"][tokens.long()]
+         + params["pos"][posmat.clamp(max=max_len - 1)])  # [B, K1, d]
+    return posmat, valid, x
+
+
+def _block_verify(p, x, k_l, v_l, write, attend, num_heads: int):
+    """One block of the verify pass: qkv, write the K/V (``write``), attend
+    (``attend``), then the residual MLP — on [B, K1, d] rows."""
+    b, K1, d = x.shape
+    q, k_c, v_c = _qkv_rows(p, x.reshape(b * K1, d), num_heads)
+    split = lambda t: t.reshape(b, K1, num_heads, d // num_heads)  # noqa: E731
+    write(k_l, v_l, split(k_c), split(v_c))
+    ctx = attend(split(q), k_l, v_l).reshape(b, K1, d).to(x.dtype)
+    return _mlp(p, x + _mm(ctx, p["proj"]))
+
+
+def forward_verify(params, tokens, cache, pos, draft_len, *, num_heads: int,
+                   kernel: str = "auto"):
+    """Batched K+1-token verification against the DENSE cache — the
+    verifier half of speculative decoding (``spec/``).
+
+    ``tokens`` [B, K1]: column 0 is each slot's pending token, columns
+    1..K its drafts; ``pos`` [B]: the position column 0 occupies;
+    ``draft_len`` [B] in [0, K1-1]: how many drafts are real (0 is exactly
+    a decode step).  Write-then-attend, as a prefill chunk: each layer
+    writes the K/V of every VALID column (``j <= draft_len``) at ``pos +
+    j``, IN PLACE, then query ``j`` attends over positions ``<= pos + j``
+    (the decode kernel at ``nq = K1``), so column ``j`` sees exactly the
+    history a sequential decode walk would have.
+
+    Invalid columns write nothing: their targets wrap to ``(pos + j) % S``
+    (K1 consecutive positions are distinct modulo S, so no target repeats
+    and none leaves the row) and they write back what is there — the
+    reference drops them as out-of-bounds scatters.  Their logits are
+    garbage the caller masks.  Returns ``(logits [B, K1, vocab], cache)``;
+    the caller rolls back positions past the accepted prefix.  f32 cache
+    only."""
+    if quantized_cache(cache):
+        raise ValueError(_F32_ONLY)
+    b, K1 = tokens.shape
+    S = cache["k"].shape[2]
+    posmat, valid, x = _verify_inputs(params, tokens, pos, draft_len)
+    rows = torch.arange(b, device=tokens.device)[:, None]
+    idx = (rows, posmat % S)
+    keep = valid[..., None, None]
+    posmat32 = posmat.to(torch.int32)
+
+    def write(k_l, v_l, k_c, v_c):
+        for leaf, new in ((k_l, k_c), (v_l, v_c)):
+            leaf.index_put_(idx, torch.where(keep, new.to(leaf.dtype), leaf[idx]))
+
+    def attend(q, k_l, v_l):
+        return _fd.verify_attention_dense(q, k_l, v_l, posmat32, kernel=kernel)
+
+    for i in range(params["blocks"]["qkv"].shape[0]):
+        k_l, v_l, _, _ = _layer_cache(cache, i)
+        x = _block_verify(_layer(params["blocks"], i), x, k_l, v_l, write,
+                          attend, num_heads)
+    return _mm(x, params["head"]), cache
+
+
+def forward_verify_paged(params, tokens, cache, pos, draft_len, block_tables,
+                         *, num_heads: int, kernel: str = "auto"):
+    """Batched K+1-token verification over the PAGED pool.
+
+    :func:`forward_verify`'s contract with the key space routed through
+    ``block_tables`` [B, nb] int32: valid columns write to
+    ``(table[(pos+j) // page_size], (pos+j) % page_size)``; invalid or
+    out-of-table columns go to scratch page 0, row 0 (decode's dustbin —
+    the only target that may repeat); attention runs through the tables
+    masked to ``<= pos + j`` per query.  Returns ``(logits [B, K1,
+    vocab], cache)``, the pool updated in place.  f32 pool only."""
+    if quantized_cache(cache):
+        raise ValueError(_F32_ONLY)
+    b, K1 = tokens.shape
+    nb = block_tables.shape[1]
+    page_size = cache["k"].shape[2]
+    posmat, valid, x = _verify_inputs(params, tokens, pos, draft_len)
+    rows = torch.arange(b, device=tokens.device)[:, None]
+    page_idx = posmat // page_size
+    in_range = valid & (page_idx < nb)
+    pages = torch.where(
+        in_range, block_tables.long()[rows, page_idx.clamp(max=nb - 1)], 0)
+    offs = torch.where(in_range, posmat % page_size, 0)
+    posmat32 = posmat.to(torch.int32)
+
+    def write(k_l, v_l, k_c, v_c):
+        _write_kv(k_l, v_l, None, None, (pages, offs), k_c, v_c)
+
+    def attend(q, k_l, v_l):
+        return _fd.verify_attention_paged(q, k_l, v_l, block_tables, posmat32,
+                                          kernel=kernel)
+
+    for i in range(params["blocks"]["qkv"].shape[0]):
+        k_l, v_l, _, _ = _layer_cache(cache, i)
+        x = _block_verify(_layer(params["blocks"], i), x, k_l, v_l, write,
+                          attend, num_heads)
+    return _mm(x, params["head"]), cache
 
 
 def per_token_loss(params, tokens, *, num_heads: int, attention: str = "dense",

@@ -8,8 +8,10 @@ per-query visibility ``posmat [b, nq]`` — in three variants:
 
 - (a) f32 pages, ``nq = 1``: decode (:func:`decode_attention_dense`,
   :func:`decode_attention_paged`);
-- (b) f32 pages, ``nq = C``: the chunked-prefill history
-  (:func:`chunk_attention`, ``b = 1``);
+- (b) f32 pages, ``nq > 1``: the chunked-prefill history
+  (:func:`chunk_attention`, ``b = 1``, ``nq = C``) and speculative verify
+  (:func:`verify_attention_paged`, :func:`verify_attention_dense`,
+  ``b`` slots, ``nq = K + 1``);
 - (c) int8 pages with f32 scales per (position, head), dequantized in the
   tile; decode also overlays the slot's exact in-flight f32 K/V at its own
   position (``nq = 1`` only, as the reference); chunked prefill attends
@@ -29,7 +31,8 @@ dense layout); on a CUDA tensor it launches the kernel or raises.
 ``kernel="gather"`` forces the plain version on either device (the
 reference's legacy read, ``--decode-kernel gather``).  ``launches`` counts
 kernel launches only; ``launches_int8`` and ``launches_multi_query`` count
-the int8 and the ``nq > 1`` launches among them.
+the int8 and the ``nq > 1`` launches among them, ``launches_verify`` the
+verify wrappers' launches.
 
 Positions past a query's ``posmat`` are masked in both versions, never
 judged by content: an engine leaves a previous occupant's stale K/V (and a
@@ -61,6 +64,8 @@ launches = 0
 launches_int8 = 0
 #: of those, launches with more than one query per slot (variant (b))
 launches_multi_query = 0
+#: of those, launches made by the speculative-verify wrappers (nq = K+1)
+launches_verify = 0
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
@@ -215,20 +220,27 @@ def _overlay(seq, own, posmat):
     return torch.where(at, own[:, None], seq)
 
 
+def _gather_pages(k_pages, v_pages, tables, k_scale=None, v_scale=None):
+    """The dense [b, nb*page_size, h, hd] histories the block tables
+    address (dequantized on an int8 pool)."""
+    b = tables.shape[0]
+    s = tables.shape[1] * k_pages.shape[1]
+    idx = tables.long()
+    if k_scale is not None:
+        k_seq = dequantize_kv(k_pages[idx], k_scale[idx])
+        v_seq = dequantize_kv(v_pages[idx], v_scale[idx])
+    else:
+        k_seq, v_seq = k_pages[idx], v_pages[idx]
+    return (k_seq.reshape(b, s, *k_pages.shape[2:]),
+            v_seq.reshape(b, s, *v_pages.shape[2:]))
+
+
 def _paged_attention_plain(q4, k_pages, v_pages, tables, posmat,
                            k_scale=None, v_scale=None, k_own=None, v_own=None):
     """The kernel's plain version: gather the pages into the dense
     [b, nb*page_size, h, hd] history (dequantized on an int8 pool, with the
     own token overlaid when given), then masked softmax attention."""
-    b, nq, h, hd = q4.shape
-    s = tables.shape[1] * k_pages.shape[1]
-    idx = tables.long()
-    if k_scale is not None:
-        k_seq = dequantize_kv(k_pages[idx], k_scale[idx]).reshape(b, s, h, hd)
-        v_seq = dequantize_kv(v_pages[idx], v_scale[idx]).reshape(b, s, h, hd)
-    else:
-        k_seq = k_pages[idx].reshape(b, s, h, hd)
-        v_seq = v_pages[idx].reshape(b, s, h, hd)
+    k_seq, v_seq = _gather_pages(k_pages, v_pages, tables, k_scale, v_scale)
     if k_own is not None:
         k_seq = _overlay(k_seq, k_own, posmat)
         v_seq = _overlay(v_seq, v_own, posmat)
@@ -369,3 +381,48 @@ def _gather_chunk(q_c, k_l, v_l, k_s, v_s, block_table, posns):
     """Legacy chunk attention (the reference's ``_gather_chunk``)."""
     return _paged_attention_plain(q_c[None], k_l, v_l, block_table[None],
                                   posns[None], k_s, v_s)[0]
+
+
+def verify_attention_paged(q4, k_l, v_l, block_tables, posmat, *,
+                           kernel: str = "auto"):
+    """Speculative-verify attention over the paged pool: ``q4`` [b, K1, h,
+    hd] with per-query positions ``posmat`` [b, K1] int32 through
+    ``block_tables`` [b, nb] — the kernel at ``nq = K1``, one block per
+    (head, slot, query), so column ``j`` is computed exactly as an
+    ``nq = 1`` launch at ``posmat[:, j]`` would compute it.  f32 pools
+    only (the verify pass refuses int8 upstream).  Returns ctx [b, K1, h,
+    hd]; ``kernel="gather"`` or a CPU tensor runs the plain version."""
+    global launches_verify
+    if resolve_kernel(kernel) == "gather" or q4.device.type == "cpu":
+        return _verify_dense_math(q4, *_gather_pages(k_l, v_l, block_tables),
+                                  posmat)
+    out = paged_attention(q4, k_l, v_l, block_tables, posmat)
+    launches_verify += 1
+    return out
+
+
+def verify_attention_dense(q4, k_l, v_l, posmat, *, kernel: str = "auto"):
+    """Speculative-verify attention over the dense cache layer ``k_l``/
+    ``v_l`` [b, S, h, hd] (f32), through the zero-copy page view on the
+    card; a query whose ``posmat`` passes ``S - 1`` sees the whole row, as
+    in the plain version.  Returns ctx [b, K1, h, hd]."""
+    global launches_verify
+    if resolve_kernel(kernel) == "gather" or q4.device.type == "cpu":
+        return _verify_dense_math(q4, k_l, v_l, posmat)
+    out = paged_attention(q4, k_l, v_l, _dense_as_pages(k_l), posmat)
+    launches_verify += 1
+    return out
+
+
+
+def _verify_dense_math(q4, k_seq, v_seq, posmat):
+    """The verify pass's plain math over dense histories [b, s, h, hd]:
+    the masked attention of :func:`_attend`, one query column at a time.
+    Column ``j`` is then computed exactly as a decode step's ``nq = 1``
+    attention at ``posmat[:, j]`` — the per-query independence the kernel
+    has by design — so on the CPU too a verify pass reproduces a
+    sequential decode walk bitwise.  (A single einsum over all K1 columns
+    takes another BLAS path than the decode's one-row product and rounds
+    differently.)"""
+    return torch.cat([_attend(q4[:, j:j + 1], k_seq, v_seq, posmat[:, j:j + 1])
+                      for j in range(q4.shape[1])], dim=1)

@@ -1,1 +1,2 @@
-"""int8 quantization of the port: the KV-cache part of ``quant/qtensor.py``."""
+"""int8 quantization of the port: int8 weights and KV pages
+(``qtensor``) and post-training weight quantization (``calibrate``)."""

@@ -1,23 +1,35 @@
-"""KV-cache quantization — the KV part of ``quant/qtensor.py``.
+"""int8 tensors for the port: weights (``QTensor``, ``qdot``) and KV pages.
 
-Symmetric int8 with one f32 scale per stored K/V vector (per position and
-head, over the head dim): ``x ≈ values * scale`` with ``values`` in
-[-127, 127].  KV pages are written one token (decode) or one chunk
-(prefill) at a time, so the scale granularity is at most one write: a
-page-wide scale would have to requantize the page on every append.
-
-The op order is the reference's — ``amax``, ``max(amax, EPS) / QMAX``,
+Symmetric int8 throughout: ``x ≈ values * scales`` with ``values`` in
+[-127, 127] (-128 stays unused, so ``|dequant| <= amax`` exactly).  The
+op order is the reference's — ``amax``, ``max(amax, EPS) / QMAX``,
 ``round(x / scale)`` (half to even in both frameworks), clip — with a true
 division, never a multiply by a reciprocal, so codes and scales match the
-JAX function bitwise on the same inputs.
+JAX functions bitwise on the same inputs.
 
-The weight side (``QTensor``, ``quantize``, ``qdot``, ``qmatmul``) waits
-for a later slice.
+Weights.  A :class:`QTensor` holds int8 ``values`` and f32 keepdims
+``scales``; the quantized (contraction) axis is addressed NEGATIVELY
+(``axis=-2`` for a ``[..., K, N]`` weight), so a stacked ``[L, K, N]``
+leaf indexed by layer (``qt[i]``) or cut to its first layers
+(``qt[:M]``) is still a valid QTensor with the same metadata.
+:func:`qdot` is the int8 product: activations quantize per row (absmax
+over K), the product runs int8 x int8 with int32 accumulation
+(``torch._int_mm``: cuBLASLt on the card), and the accumulator is
+rescaled once by ``a_scale ⊗ w_scale``.  Block-quantized, non-2-D or
+other-axis weights take the dequantize-then-matmul path, under exactly
+the reference's condition; a failed int8 product raises, it never falls
+back.
+
+KV pages.  One f32 scale per stored K/V vector (per position and head,
+over the head dim).  KV pages are written one token (decode) or one chunk
+(prefill) at a time, so the scale granularity is at most one write: a
+page-wide scale would have to requantize the page on every append.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+import dataclasses
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -25,6 +37,146 @@ import torch
 QMAX = 127.0
 #: Floor on scales so an all-zero vector divides cleanly to zeros.
 EPS = 1e-12
+#: ``torch._int_mm`` on CUDA refuses ``M <= 16`` rows (PyTorch 2.11 on the
+#: H100: "self.size(0) needs to be greater than 16"); rows of an integer
+#: product do not interact, so fewer rows are zero-padded to this many.
+INT_MM_MIN_ROWS = 17
+
+
+@dataclasses.dataclass(frozen=True)
+class QTensor:
+    """Quantized tensor: ``dequant = values.float() * scales``.
+
+    ``values``: int8; ``scales``: f32, keepdims (broadcastable against
+    ``values``, or against its block split); ``axis``: the NEGATIVE index
+    of the reduced (contraction) dim; ``block``: elements per scale block
+    along ``axis`` (None = one scale per output channel)."""
+
+    values: torch.Tensor
+    scales: torch.Tensor
+    axis: int = -2
+    block: Optional[int] = None
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.values.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.values.dim()
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    def __getitem__(self, idx) -> "QTensor":
+        """Index the leading (layer) dims of values and scales together:
+        ``qt[i]`` is layer ``i``, ``qt[:M]`` the first ``M`` layers."""
+        return QTensor(self.values[idx], self.scales[idx], self.axis, self.block)
+
+    def to(self, device) -> "QTensor":
+        return QTensor(self.values.to(device), self.scales.to(device),
+                       self.axis, self.block)
+
+    def __repr__(self) -> str:
+        return (f"QTensor(int8{list(self.values.shape)}, "
+                f"scales{list(self.scales.shape)}, axis={self.axis}, "
+                f"block={self.block})")
+
+
+def _block_split(x: torch.Tensor, axis: int, block: int) -> torch.Tensor:
+    """``[..., K, ...] -> [..., K // block, block, ...]``: the block dim
+    lands at the same negative index ``axis`` pointed at."""
+    split = x.dim() + axis
+    K = x.shape[axis]
+    return x.reshape(*x.shape[:split], K // block, block, *x.shape[split + 1:])
+
+
+def quantize(x: torch.Tensor, *, axis: int = -2, block: Optional[int] = None,
+             observer=None) -> QTensor:
+    """Quantize ``x`` to int8 with per-channel (or per-block) f32 scales.
+
+    ``axis`` is the reduced dim, addressed negatively (default -2: the
+    contraction dim of a ``[..., K, N]`` weight, so one scale per output
+    channel); ``block`` splits that dim into groups with one scale each.
+    ``observer(x, axis)`` replaces the absmax reduction
+    (:class:`~.calibrate.PercentileObserver` clips the outlier tail)."""
+    if axis >= 0:
+        axis -= x.dim()
+    x = x.to(torch.float32)
+    if block is not None:
+        K = x.shape[axis]
+        if K % block:
+            raise ValueError(f"block {block} must divide dim {K} (axis {axis})")
+        xb = _block_split(x, axis, block)
+        amax = (observer(xb, axis) if observer is not None
+                else xb.abs().amax(dim=axis, keepdim=True))
+        scales = torch.clamp(amax, min=EPS) / QMAX
+        values = torch.clamp(torch.round(xb / scales), -QMAX, QMAX)
+        return QTensor(values.reshape(x.shape).to(torch.int8), scales, axis,
+                       block)
+    amax = (observer(x, axis) if observer is not None
+            else x.abs().amax(dim=axis, keepdim=True))
+    scales = torch.clamp(amax, min=EPS) / QMAX
+    values = torch.clamp(torch.round(x / scales), -QMAX, QMAX).to(torch.int8)
+    return QTensor(values, scales, axis, None)
+
+
+def dequantize(qt: QTensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``values * scales`` back to ``dtype`` (exact for the stored grid)."""
+    v = qt.values.to(torch.float32)
+    if qt.block is not None:
+        vb = _block_split(v, qt.axis, qt.block)
+        return (vb * qt.scales).reshape(v.shape).to(dtype)
+    return (v * qt.scales).to(dtype)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] int8 @ b [K, N] int8 -> [M, N] int32``, exact.
+
+    ``torch._int_mm`` (cuBLASLt on the card); on CUDA fewer than
+    :data:`INT_MM_MIN_ROWS` rows are zero-padded to that many and the
+    padding rows dropped.  Raises on shapes the product does not take;
+    there is no dequantized fallback."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_matmul: operands are {a.dtype} and {b.dtype}")
+    M = a.shape[0]
+    if a.device.type == "cuda":
+        if a.shape[1] % 8 or b.shape[1] % 8:
+            raise ValueError(
+                f"int8_matmul: K {a.shape[1]} and N {b.shape[1]} must be "
+                "multiples of 8 on CUDA")
+        if M < INT_MM_MIN_ROWS:
+            a = torch.cat([a, a.new_zeros((INT_MM_MIN_ROWS - M, a.shape[1]))])
+    return torch._int_mm(a.contiguous(), b)[:M]
+
+
+def qdot(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """``x [..., K] @ qt [K, N] -> [..., N]`` with int8 compute.
+
+    Per-row activation scales (absmax over K), an int8 x int8 product
+    accumulated in int32, then ``(acc * a_scale) * w_scale`` in f32.
+    Non-2-D, block-quantized or other-axis weights take the dequantize
+    path — the reference's condition, and its only one."""
+    if qt.values.dim() != 2 or qt.axis != -2 or qt.block is not None:
+        return x @ dequantize(qt, x.dtype)
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    a_scale = torch.clamp(amax, min=EPS) / QMAX  # [..., 1]
+    xq = torch.clamp(torch.round(xf / a_scale), -QMAX, QMAX).to(torch.int8)
+    K, N = qt.values.shape
+    acc = int8_matmul(xq.reshape(-1, K), qt.values).reshape(*x.shape[:-1], N)
+    w_scale = qt.scales.reshape(-1)  # [N] (keepdims [1, N] flattened)
+    return (acc.to(torch.float32) * a_scale * w_scale).to(x.dtype)
+
+
+def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
+    """The model's one matmul dispatch: :func:`qdot` for a QTensor weight,
+    plain ``@`` otherwise — so f32 and int8 parameter trees run the same
+    code."""
+    if isinstance(w, QTensor):
+        return qdot(x, w)
+    return x @ w
 
 
 def quantized_cache(cache: Mapping[str, torch.Tensor]) -> bool:

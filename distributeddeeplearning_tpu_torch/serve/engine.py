@@ -15,7 +15,9 @@ attention is the decode kernel's many-query variant.  Decode is
 
 Both take ``cache_dtype`` float32 (default) or int8: K/V quantize on write
 with one scale per position and head, and attention dequantizes in the
-kernel's tile.
+kernel's tile.  Both serve f32 or int8-weight parameter trees (the
+matmul weights as :class:`~..quant.qtensor.QTensor` leaves, from
+``quant.calibrate.quantize_params``); ``weights_dtype`` says which.
 
 PyTorch runs eagerly, so there are no compiled programs;
 ``prefill_compiles`` still counts the distinct prompt buckets (dense) or
@@ -26,9 +28,9 @@ rule).  Temperature sampling draws from a ``torch.Generator`` seeded from
 ``(seed, step)``, so a run is reproducible from the seed and request order
 within the port; ``jax.random``'s streams are not reproduced.
 
-Not in this slice: meshes and tensor parallelism, int8 weights, the HBM
-ledger and compile tracking, live weight reload, the host page tier and
-the logit-capture probe.
+Not in this slice: meshes and tensor parallelism, the HBM ledger and
+compile tracking, live weight reload, the host page tier and the
+logit-capture probe.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
     forward_prefill_chunk,
 )
 from distributeddeeplearning_tpu_torch.ops.flash_decode import resolve_kernel
+from distributeddeeplearning_tpu_torch.quant.calibrate import params_dtype
 from distributeddeeplearning_tpu_torch.serve.kv_cache import (
     SCRATCH_PAGE,
     OutOfPages,
@@ -122,6 +125,7 @@ def _validate_model_dims(params, *, num_heads: int, max_seq: int, top_k):
 
 
 def _to_device(tree, device: torch.device):
+    """Every leaf on ``device``; a QTensor moves its values and scales."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
@@ -159,8 +163,8 @@ class _EngineCore:
         )
         if params["embed"].dtype != torch.float32:
             raise NotImplementedError(
-                "the port serves f32 weights (int8 weights are a later "
-                "serving slice)"
+                "the port serves f32 weights, with int8 matmul weights as "
+                "QTensor leaves (quant.calibrate.quantize_params)"
             )
         dtype = _kv_dtype(cache_dtype)
         self.params = _to_device(params, self.device)
@@ -173,7 +177,7 @@ class _EngineCore:
         self.top_k = top_k
         self.seed = seed
         self.kv_dtype = str(dtype).replace("torch.", "")
-        self.weights_dtype = "float32"
+        self.weights_dtype = params_dtype(params)
         self.prefill_compiles = 0
         self._sample_step = 0
         # per-slot logit-finiteness verdict of the LAST decode step; read
@@ -449,6 +453,8 @@ class PagedInferenceEngine(_EngineCore):
         self._block_tables = np.full(
             (batch_slots, self.blocks_per_slot), SCRATCH_PAGE, np.int32
         )
+        # their device copy, uploaded again only after a row changed
+        self._tables_dev: Optional[torch.Tensor] = None
         self._slot_pages: dict = {}
         self._seen_chunk_shapes: set = set()
         self.prefix_hit_tokens = 0
@@ -463,6 +469,14 @@ class PagedInferenceEngine(_EngineCore):
     @property
     def block_tables(self) -> np.ndarray:
         return self._block_tables
+
+    def device_tables(self) -> torch.Tensor:
+        """The block tables on the engine's device.  Rows change only when
+        a final prefill chunk lands or a slot is released, so the copy is
+        made once per change, not once per decode or draft step."""
+        if self._tables_dev is None:
+            self._tables_dev = torch.from_numpy(self._block_tables).to(self.device)
+        return self._tables_dev
 
     def kv_bytes_peak(self) -> int:
         """Peak bytes of LIVE pages — HBM actually committed to sequences
@@ -622,6 +636,7 @@ class PagedInferenceEngine(_EngineCore):
         # prompt fully written: NOW the slot's decode row may see the pages
         self._block_tables[task.slot] = SCRATCH_PAGE
         self._block_tables[task.slot, : len(task.pages)] = task.pages
+        self._tables_dev = None
         # the last REAL position of the final chunk
         self.last_prefill_logits = logits[0, real - 1]
         return self._sample_first(logits[:, real - 1])
@@ -649,9 +664,8 @@ class PagedInferenceEngine(_EngineCore):
         harmless."""
         tok = torch.from_numpy(np.asarray(tokens, np.int32)).to(self.device)
         p = torch.from_numpy(np.asarray(pos, np.int32)).to(self.device)
-        tables = torch.from_numpy(self._block_tables).to(self.device)
         logits, _ = forward_decode_paged(
-            self.params, tok, self._cache, p, tables,
+            self.params, tok, self._cache, p, self.device_tables(),
             num_heads=self.num_heads, kernel=self.decode_kernel,
         )
         return self._readback(logits)
@@ -701,3 +715,4 @@ class PagedInferenceEngine(_EngineCore):
         for page in self._slot_pages.pop(slot, []):
             self.allocator.decref(page)
         self._block_tables[slot] = SCRATCH_PAGE
+        self._tables_dev = None

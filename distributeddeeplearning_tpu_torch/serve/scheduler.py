@@ -19,14 +19,24 @@ scoped to the request: a prefill exception, a passed deadline, a cancel, or
 non-finite logits (the NaN quarantine: the slot is scrubbed and fails
 alone while the batch decodes on).
 
+With a ``spec_decoder`` (:class:`~..spec.SpeculativeDecoder` over the same
+engine) each decode step is a speculative step: every slot drafts up to K
+tokens and commits 1..K+1 of them after one batched verify.  Per-slot
+draft caps keep the verify writes inside the budget, the page reservation
+and ``max_seq``; EOS and the budget cut inside the committed run; the
+rejected tails are rolled back in one scatter BEFORE completions release
+their slots (a released paged slot's table row is scratch, so a later
+rollback would miss its pages).
+
 What it records: per-request TTFT (arrival -> first token) and queue wait
 (arrival -> admission), TPOT (time per output token after the first), the
-per-decode-step wall, mean slot occupancy and generated tokens/s.
+per-decode-step wall, mean slot occupancy and generated tokens/s; in spec
+mode also the acceptance rate, tokens per verify and the draft/verify
+walls.
 
 Not in this slice: priority classes, preemption and shedding, the HBM
-ledger, the host page tier, speculative decoding, live reload, the
-watchdog, decode-exception requeue, fault injection and the obs
-tracer/registry.
+ledger, the host page tier, live reload, the watchdog, decode-exception
+requeue, fault injection and the obs tracer/registry.
 """
 
 from __future__ import annotations
@@ -109,6 +119,16 @@ class ServeReport:
     decode_tokens_per_sec: float = 0.0
     # prompt tokens served from shared prefix pages (paged engines)
     prefix_hit_rate: float = 0.0
+    # speculative decoding: accepted over proposed drafts, and tokens
+    # committed per slot per verify (>= 1: what a spec step amortizes)
+    speculative: bool = False
+    drafter: Optional[str] = None
+    draft_tokens: int = 0
+    acceptance_rate: Optional[float] = None
+    tokens_per_verify: Optional[float] = None
+    # host wall of the draft chain / verify + readback, per spec step
+    draft_step_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+    verify_step_s: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def to_dict(self):
         return dataclasses.asdict(self)
@@ -159,6 +179,7 @@ class ContinuousBatchingScheduler:
         max_new_tokens: int = 32,
         step_cap: Optional[int] = None,
         request_deadline_s: Optional[float] = None,
+        spec_decoder=None,
     ):
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
@@ -175,6 +196,11 @@ class ContinuousBatchingScheduler:
         # "step_cap", unstarted requests as "cancelled"
         self.step_cap = step_cap
         self.request_deadline_s = request_deadline_s
+        if spec_decoder is not None and spec_decoder.engine is not engine:
+            raise ValueError(
+                "spec_decoder was built over a different engine than the "
+                "scheduler drives — their caches would diverge silently")
+        self.spec_decoder = spec_decoder
         self._cancelled: set = set()
 
     def request_cancel(self, uid: str) -> None:
@@ -207,7 +233,15 @@ class ContinuousBatchingScheduler:
         results: List[CompletedRequest] = []
         tokens_buf = np.zeros(slots, np.int32)
         pos_buf = np.zeros(slots, np.int32)
+        # spec mode: per-slot draft caps going in, kept token counts out
+        # (keep == K+1: no rejected tail)
+        spec = self.spec_decoder
+        dlen_buf = np.zeros(slots, np.int32)
+        keep_buf = np.zeros(slots, np.int32)
         step_hist = Histogram("serve.decode_step_s")
+        draft_hist = Histogram("serve.draft_step_s")
+        verify_hist = Histogram("serve.verify_step_s")
+        spec_drafted = spec_accepted = spec_committed = spec_slot_steps = 0
         occ_sum = 0.0
         n_steps = 0
         prompt_tokens = 0
@@ -381,34 +415,80 @@ class ContinuousBatchingScheduler:
             if not active:
                 continue
 
+            if spec is not None:
+                dlen_buf[:] = 0  # stale lanes must not draft
             for slot, st in active.items():
                 tokens_buf[slot] = st.generated[-1]
                 pos_buf[slot] = st.next_pos
+                if spec is not None:
+                    # emitted tokens (accepted + bonus) never pass the
+                    # budget, so verify writes stay inside the page
+                    # reservation and the position table; 0 = a plain
+                    # decode step through the verify pass
+                    dlen_buf[slot] = max(0, min(
+                        spec.draft_tokens,
+                        st.budget - len(st.generated) - 1,
+                        engine.max_seq - 1 - st.next_pos,
+                    ))
             occ_sum += len(active) / slots
             t0 = time.perf_counter()
-            out = engine.decode(tokens_buf, pos_buf)
+            if spec is not None:
+                # observability slice: the spec-step span, and the
+                # acceptance / tokens-per-verify gauges, go here
+                res = spec.step(tokens_buf, pos_buf, dlen_buf)
+            else:
+                out = engine.decode(tokens_buf, pos_buf)
             step_wall = time.perf_counter() - t0
             step_hist.record(step_wall)
             decode_wall += step_wall
             n_steps += 1
-            finite = engine.last_finite
+            if spec is not None:
+                draft_hist.record(res.draft_s)
+                verify_hist.record(res.verify_s)
+                keep_buf[:] = spec.draft_tokens + 1
+                finite = res.finite
+            else:
+                finite = engine.last_finite
+            # completions wait until after the rollback (see the module
+            # docstring)
+            finished = []
             for slot, st in list(active.items()):
                 if finite is not None and not finite[slot]:
                     # NaN quarantine: zero the slot's decode-written region
-                    # so the NaN cannot reach the next occupant through a
-                    # 0-weight x NaN-value product, and fail it alone
+                    # (in spec mode the whole step's write horizon, so the
+                    # rollback skips the slot) so the NaN cannot reach the
+                    # next occupant through a 0-weight x NaN-value product,
+                    # and fail it alone
                     quarantined += 1
                     engine.scrub_slot(slot, len(st.req.prompt))
-                    complete(slot, "error", error=(
+                    finished.append((slot, "error", (
                         f"non-finite logits (quarantined at decode step "
-                        f"{n_steps})"))
+                        f"{n_steps})")))
                     continue
-                st.generated.append(int(out[slot]))
-                st.next_pos += 1
-                decode_tokens += 1
+                if spec is None:
+                    toks = [int(out[slot])]
+                else:
+                    # accepted drafts + the bonus token, cut at EOS (past
+                    # an accepted EOS the drafts continued a finished
+                    # sequence)
+                    toks = res.tokens[slot, : int(res.accepted[slot]) + 1].tolist()
+                    if self.eos_id is not None and self.eos_id in toks:
+                        toks = toks[: toks.index(self.eos_id) + 1]
+                    spec_drafted += int(dlen_buf[slot])
+                    spec_accepted += int(res.accepted[slot])
+                    spec_committed += len(toks)
+                    spec_slot_steps += 1
+                    keep_buf[slot] = len(toks)
+                st.generated.extend(toks)
+                st.next_pos += len(toks)
+                decode_tokens += len(toks)
                 reason = self._finished(st)
                 if reason is not None:
-                    complete(slot, reason)
+                    finished.append((slot, reason, None))
+            if spec is not None and (keep_buf <= spec.draft_tokens).any():
+                spec.rollback(pos_buf, keep_buf)
+            for slot, reason, error in finished:
+                complete(slot, reason, error)
             if self.step_cap is not None and n_steps >= self.step_cap:
                 capped = True
                 break
@@ -467,5 +547,17 @@ class ContinuousBatchingScheduler:
                 round(engine.prefix_hit_rate(), 4)
                 if hasattr(engine, "prefix_hit_rate") else 0.0
             ),
+            speculative=spec is not None,
+            drafter=spec.drafter_name if spec is not None else None,
+            draft_tokens=spec.draft_tokens if spec is not None else 0,
+            acceptance_rate=(
+                round(spec_accepted / spec_drafted, 4) if spec_drafted else None
+            ),
+            tokens_per_verify=(
+                round(spec_committed / spec_slot_steps, 4)
+                if spec_slot_steps else None
+            ),
+            draft_step_s=draft_hist.summary(),
+            verify_step_s=verify_hist.summary(),
         )
         return results, report

@@ -294,3 +294,73 @@ def test_paged_decode_equals_dense_decode_bitwise(cuda, int8):
     a = fd.decode_attention_dense(qkv[:, 0], *dv, qkv[:, 1], qkv[:, 2], pos)
     p = fd.decode_attention_paged(qkv[:, 0], *pv, qkv[:, 1], qkv[:, 2], pos, tables)
     assert torch.equal(a, p)
+
+
+def _verify_inputs(b=8, k1=5, layers=2, pages=73, ps=64, h=12, hd=64, seed=11):
+    """A [pages, L, ps, h, hd] f32 pool with scrambled tables, queries as
+    the model's strided qkv split [b, K1, h, hd], and ``posmat = pos +
+    arange(K1)`` with ``pos`` spread over the 9-page window."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pool = {n: torch.randn((pages, layers, ps, h, hd), generator=g, device="cuda")
+            for n in ("k", "v")}
+    tables = _scrambled_tables(b, 9, pages - 1, seed=seed)
+    qkv = torch.randn((b, k1, 3 * h * hd), generator=g, device="cuda")
+    q4 = qkv[..., : h * hd].reshape(b, k1, h, hd)
+    pos = torch.tensor([0, 571, 17, 300, 64, 507, 128, 450][:b], dtype=torch.int32,
+                       device="cuda")
+    posmat = (pos[:, None] + torch.arange(k1, device="cuda")).to(torch.int32)
+    return pool, tables, q4, posmat
+
+
+def test_verify_kernel_matches_plain_on_both_layouts(cuda):
+    """K4 at nq = K+1 = 5 through the verify wrappers: the paged pool's
+    strided layer view and the dense layer view (identity tables), against
+    the plain version; each launch counts once."""
+    pool, tables, q4, posmat = _verify_inputs()
+    k_l, v_l = pool["k"][:, 1], pool["v"][:, 1]
+    before = (fd.launches_verify, fd.launches_multi_query)
+    out = fd.verify_attention_paged(q4, k_l, v_l, tables, posmat)
+    ref = fd.verify_attention_paged(q4, k_l, v_l, tables, posmat, kernel="gather")
+    assert (out - ref).abs().max().item() <= ATOL
+    dense_k, dense_v = (t[:8, 1] for t in (pool["k"], pool["v"]))  # [8, 64, 12, 64]
+    dpos = posmat % 60
+    out_d = fd.verify_attention_dense(q4, dense_k, dense_v, dpos)
+    ref_d = fd._verify_dense_math(q4, dense_k, dense_v, dpos)
+    assert (out_d - ref_d).abs().max().item() <= ATOL
+    assert (fd.launches_verify - before[0], fd.launches_multi_query - before[1]) == (2, 2)
+
+
+def test_verify_column_equals_single_query_launch_bitwise(cuda):
+    """Column j of the nq = 5 launch is, bit for bit, an nq = 1 launch of
+    the same query row at ``pos + j`` — the property that makes a verify
+    pass reproduce a sequential decode walk's attention."""
+    pool, tables, q4, posmat = _verify_inputs()
+    k_l, v_l = pool["k"][:, 0], pool["v"][:, 0]
+    out = fd.verify_attention_paged(q4, k_l, v_l, tables, posmat)
+    for j in range(q4.shape[1]):
+        one = fd.paged_attention(q4[:, j:j + 1], k_l, v_l, tables,
+                                 posmat[:, j:j + 1].contiguous())
+        assert torch.equal(out[:, j:j + 1], one), j
+
+
+@pytest.mark.parametrize("rows", [8, 40])
+@pytest.mark.parametrize("k,n", [(768, 2304), (768, 768), (768, 3072), (3072, 768),
+                                 (768, 32768)])
+def test_int8_matmul_exact_and_qdot_rescale(cuda, rows, k, n):
+    """The int8 x int8 product on the card (``torch._int_mm``, rows padded
+    to its minimum) equals a float64 product of the same codes exactly
+    (|acc| < 2^53), and qdot's output is within 1e-6 relative of a float64
+    rescale of that accumulator."""
+    from distributeddeeplearning_tpu_torch.quant import qtensor as qt
+
+    g = torch.Generator(device="cuda").manual_seed(rows + k + n)
+    x = torch.randn((rows, k), generator=g, device="cuda")
+    w = qt.quantize(torch.randn((k, n), generator=g, device="cuda") * 0.02)
+    a_scale = torch.clamp(x.abs().amax(-1, keepdim=True), min=qt.EPS) / qt.QMAX
+    xq = torch.clamp(torch.round(x / a_scale), -qt.QMAX, qt.QMAX).to(torch.int8)
+    acc = qt.int8_matmul(xq, w.values)
+    assert acc.dtype == torch.int32 and acc.shape == (rows, n)
+    assert torch.equal(acc.double(), xq.double() @ w.values.double())
+    f64 = acc.double() * a_scale.double() * w.scales.double()
+    got = qt.qdot(x, w).double()
+    assert ((got - f64).abs() <= 1e-6 * f64.abs()).all()

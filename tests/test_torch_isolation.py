@@ -31,6 +31,7 @@ from distributeddeeplearning_tpu_torch.serve import (
     PagedInferenceEngine,
     Request,
 )
+from distributeddeeplearning_tpu_torch.spec import SpeculativeDecoder
 
 torch.set_num_threads(2)  # T5: the suite runs six workers on eight cores
 
@@ -47,7 +48,7 @@ def _port_modules():
 
 def test_every_port_module_and_the_smoke_script_import_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 19, modules
+    assert len(modules) >= 23, modules
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -64,6 +65,7 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert not bad, f"the port pulled in {bad[:10]}"
     for name in ("serve.scheduler", "serve.kv_cache", "quant.qtensor",
+                 "quant.calibrate", "spec", "spec.drafter", "spec.decode",
                  "train.schedule", "train.state",
                  "train.step", "train.loop", "workloads.transformer"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
@@ -93,16 +95,27 @@ def test_cpu_serving_leaves_the_launch_counters_at_zero():
     paged = PagedInferenceEngine(params, num_heads=2, batch_slots=2,
                                  max_seq=16, page_size=4, prefill_chunk=4,
                                  cache_dtype="int8", device="cpu")
+    spec_dense = InferenceEngine(params, num_heads=2, batch_slots=2,
+                                 max_seq=16, device="cpu")
+    spec_paged = PagedInferenceEngine(params, num_heads=2, batch_slots=2,
+                                      max_seq=16, page_size=4, prefill_chunk=4,
+                                      device="cpu")
     fa.launches = 0
     fd.launches = fd.launches_int8 = fd.launches_multi_query = 0
+    fd.launches_verify = 0
     rng = np.random.default_rng(0)
-    for eng in (engine, paged):
-        results, _ = ContinuousBatchingScheduler(eng, max_new_tokens=3).run(
+    for eng, drafter in ((engine, None), (paged, None), (spec_dense, "truncated"),
+                         (spec_paged, "int8")):
+        sd = (SpeculativeDecoder(eng, drafter=drafter, draft_tokens=2,
+                                 draft_layers=1) if drafter else None)
+        results, rep = ContinuousBatchingScheduler(
+            eng, max_new_tokens=3, spec_decoder=sd).run(
             [Request(uid=str(i), prompt=rng.integers(1, 23, 5).tolist())
              for i in range(3)])
         assert [len(r.tokens) for r in results] == [3, 3, 3]
+        assert rep.speculative == (sd is not None)
     assert (fa.launches, fd.launches, fd.launches_int8,
-            fd.launches_multi_query) == (0, 0, 0, 0)
+            fd.launches_multi_query, fd.launches_verify) == (0, 0, 0, 0, 0)
 
 
 def test_smoke_script_fails_without_a_card_or_without_the_repo(tmp_path):
