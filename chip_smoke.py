@@ -12,6 +12,12 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
 2. K1, the causal flash-attention forward, against its plain PyTorch
    version at the prefill shapes B=1, H=12, D=64, S in {128, 512, 576}
    (576 is a ragged tile), inputs as the model's strided qkv split;
+2a. bf16 K1 (tensor cores) at S in {1, 37, 576, 2048} (B=8 at 2048, else
+   2), causal and not, on strided bf16 qkv views: held against its bf16
+   plain version and, with it, against the f32 result of the same bf16
+   inputs (the kernel's error there at most twice the plain version's
+   plus one bf16 ulp of max |o|; lse within 1e-4 of the plain one); timed
+   at B=1 S=512 (serving) and B=8 S=2048 (training);
 3. K4(a), decode attention, against its plain version at b=8, h=12,
    hd=64, S=576 on the strided layer views of a real [8, 12, 576, 12, 64]
    cache, with unequal positions including 0 and S-1;
@@ -61,8 +67,16 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    their plain version at the training shape B=8, H=12, D=64, S=2048,
    causal, and at S in {37, 576} (ragged tiles), inputs as strided qkv
    views with a random dO;
+8a. bf16 K2 and K3 the same way at S in {37, 576, 2048}, causal and not,
+   with a random bf16 dO, against the bf16 plain backward and the f32
+   backward of the same inputs; timed at the training shape, with
+   autograd through bf16 SDPA as the yardstick;
 9. gradient parity at full width: one loss and gradient of the 12-layer
    LM at batch 1, seq 2048, flash (K1 + K2/K3) against dense attention;
+9a. the same in bf16 (f32 params cast inside the loss): flash through the
+   bf16 kernels against dense bf16 — loss within 1e-2 relative, every
+   leaf's gradient within 5e-2 of its largest |gradient| — with the f32
+   dense gradients logged beside them;
 10. training end to end: the port's ``workloads.transformer.main`` at the
    reference configuration (12 layers, d 768, 12 heads, ff 3072, vocab
    32768, seq 2048, batch 8, flash attention, f32), 8 epochs of one step
@@ -71,7 +85,12 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    loss must fall and every metric be finite.  It prints the step time
    p50, tokens/s, model-FLOPs utilisation of the f32 peak (``mfu``, with
    ``bench.py``'s convention 6NT + causal attention) and peak memory, and
-   a profiler breakdown of one train step.
+   a profiler breakdown of one train step;
+11. the same training run at the reference's default, ``compute_dtype``
+   left to bf16: the bf16 counters must count as K1-K3 did in f32 and
+   the f32 counters 0; each step's loss must lie within 1e-2 relative of
+   the f32 run's (same seed, same batch); mfu is over 989.4 TFLOP/s, the
+   spec-sheet dense bf16 peak.
 
 Kernel, plain and library times are device times: torch.profiler's sum
 of the CUDA work each call runs, averaged over many calls after warm-up
@@ -81,7 +100,8 @@ decode kernel cycles through the cache's 12 layers so its history is not
 served from L2.  ``bound_ms`` is the least time the card could take: the
 larger of the bytes moved (inputs read once, outputs written once) over
 3.35 TB/s and the flops over 67 TFLOP/s (the H100's f32 peak on CUDA
-cores, which is what the f32 kernels use).  ``library_ms`` times
+cores, which is what the f32 kernels use) or, for the bf16 kernels, over
+989.4 TFLOP/s (dense bf16 on the tensor cores).  ``library_ms`` times
 one ``scaled_dot_product_attention`` call on the same inputs (for K2/K3,
 ``torch.autograd.grad`` through it, graph built once; for K4(b), on the
 history gathered beforehand, since it cannot follow block tables), a
@@ -103,6 +123,7 @@ beside it, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -111,6 +132,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 on CUDA cores
+BF16_FLOPS_PER_S = 989.4e12  # H100 SXM spec sheet, dense bf16 tensor cores
 
 K1_TOL = 1e-4  # f32 rounding: sums over <= 576 terms in another order
 K4_TOL = 1e-4
@@ -121,6 +143,17 @@ BWD_RTOL = 1e-4
 # full-width gradient parity, of each leaf's largest |gradient|: f32
 # rounding of two attention paths carried back through 12 layers
 GRAD_RTOL = 1e-3
+
+LSE_TOL = 1e-4  # lse is f32 in every dtype: f32 sums in another order
+# full-width bf16 gradient parity, flash vs dense, of each leaf's largest
+# |gradient|: the two paths round attention differently (dense rounds the
+# Q K^T product and P V's output to bf16, flash keeps S in f32 and rounds P
+# against a running max), a bf16 ulp here and there carried through 12
+# layers; and the relative loss difference
+GRAD_RTOL_BF16 = 5e-2
+LOSS_RTOL_BF16 = 1e-2
+# bf16 training vs the f32 run, same seed and batch, relative, every step
+TRAIN_LOSS_RTOL_BF16 = 1e-2
 
 TRAIN = dict(num_layers=12, d_model=768, num_heads=12, d_ff=3072,
              vocab_size=32768, seq_len=2048, batch_size=8)
@@ -192,10 +225,39 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return total / 1e3 / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulp(x) -> float:
+    """One bf16 ulp (8 significant bits) at the largest |x|."""
+    top = x.abs().max().item()
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def hold_bf16(got, plain, ref, what: str):
+    """A bf16 kernel output against the f32 reference ``ref`` from the same
+    bf16 inputs: its error may be at most twice the bf16 plain version's
+    plus one bf16 ulp of max |ref|.  Returns (error, plain error, limit)."""
+    err = (got.float() - ref).abs().max().item()
+    plain_err = (plain.float() - ref).abs().max().item()
+    limit = 2 * plain_err + bf16_ulp(ref)
+    if got.dtype != plain.dtype or not bool(got.float().isfinite().all()) or err > limit:
+        raise AssertionError(f"{what}: error {err:.3e} against the f32 "
+                             f"reference over the limit {limit:.3e} (plain "
+                             f"{plain_err:.3e}, dtype {got.dtype})")
+    return err, plain_err, limit
+
+
+def bf16_qkv(torch, b, s, h=12, d=64, seed=0):
+    """bf16 q, k, v as strided [b, s, h, d] views of one [b, s, 3*h*d]
+    bf16 tensor (row stride 3*768 elements), as the model's qkv split
+    makes them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda").bfloat16()
+    return tuple(t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
 
 
 def phase_k1(torch, F, fa, card):
@@ -236,6 +298,64 @@ def phase_k1(torch, F, fa, card):
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=lib_ms, shape=f"B=1 H=12 S=512 D=64 causal f32")
     row["max_abs_err"] = max(worst_o, worst_lse)
+    return row
+
+
+def phase_k1_bf16(torch, F, fa, card):
+    """bf16 K1 against its bf16 plain version and both against the f32
+    reference from the same bf16 inputs, causal and not, on strided qkv
+    views; returns the JSON row (timed at the training shape, with the
+    serving shape B=1 S=512 logged beside it)."""
+    h, d = 12, 64
+    worst = 0.0
+    for s in (1, 37, 576, 2048):
+        b = 8 if s == 2048 else 2
+        for causal in (True, False):
+            q, k, v = bf16_qkv(torch, b, s, seed=s + causal)
+            before = (fa.launches, fa.launches_bf16)
+            o, lse = fa.flash_attention_core(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if (fa.launches, fa.launches_bf16) != (before[0], before[1] + 1):
+                raise AssertionError("a bf16 K1 call did not launch the bf16 kernel once")
+            o_plain, lse_plain = fa._dense_attention(q, k, v, None, causal=causal)
+            o_ref, _ = fa._dense_attention(q.float(), k.float(), v.float(), None,
+                                           causal=causal)
+            err, plain_err, limit = hold_bf16(o, o_plain, o_ref, f"bf16 K1 S={s}")
+            err_lse = (lse - lse_plain).abs().max().item()
+            worst = max(worst, (o.float() - o_plain.float()).abs().max().item(),
+                        err_lse)
+            log(f"[k1-bf16] B={b} S={s} causal={causal}: vs f32 reference "
+                f"kernel {err:.3e}, plain {plain_err:.3e} (limit 2x plain + 1 "
+                f"ulp = {limit:.3e}, max|o| {o_ref.abs().max().item():.3f}); "
+                f"max|dlse| vs plain {err_lse:.3e} (tolerance {LSE_TOL:g})")
+            if err_lse > LSE_TOL:
+                raise AssertionError(f"bf16 K1 lse disagrees at S={s}")
+            del o_plain, lse_plain, o_ref
+
+    def timed(b, s):
+        q, k, v = bf16_qkv(torch, b, s, seed=99)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = device_ms(torch, lambda i: fa.flash_attention_core(q, k, v, causal=True),
+                       iters=20)
+        plain_ms = device_ms(torch, lambda i: fa._dense_attention(
+            q, k, v, None, causal=True), iters=3, warmup=1)
+        lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=20)
+        flops = 4.0 * b * h * d * _causal_pairs(s)
+        nbytes = 2.0 * 4 * b * s * h * d + 4.0 * b * h * s  # q, k, v, o; lse
+        bms, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"[k1-bf16] B={b} H=12 S={s} D=64 causal: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa bf16 {lib_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}, bf16 tensor-core peak); kernel at "
+            f"{flops / ms / 1e9:.1f} TFLOP/s; device times, on {card}")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms,
+                    shape=f"B={b} H=12 S={s} D=64 causal bf16 (strided qkv views)")
+
+    timed(1, 512)
+    row = timed(8, 2048)
+    row["max_abs_err"] = worst
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1208,6 +1328,80 @@ def phase_bwd(torch, F, fa, card):
     return rows
 
 
+def phase_bwd_bf16(torch, F, fa, card):
+    """bf16 K2 and K3 against the bf16 plain backward and both against the
+    f32 backward from the same bf16 inputs, lse and delta, causal and not,
+    on strided qkv views with a random bf16 dO; returns their JSON rows
+    (timed at the training shape)."""
+    h, d = 12, 64
+    worst = {"dq": 0.0, "dkv": 0.0}
+    rows = {}
+    for s in (37, 576, 2048):
+        b = 8 if s == 2048 else 2
+        for causal in (True, False):
+            q, k, v = bf16_qkv(torch, b, s, seed=s + 10 * causal)
+            o, lse = fa.flash_attention_core(q, k, v, causal=causal)
+            g = torch.Generator(device="cuda").manual_seed(s)
+            do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+            before = (fa.launches_dq, fa.launches_dkv, fa.launches_dq_bf16,
+                      fa.launches_dkv_bf16)
+            got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal)
+            torch.cuda.synchronize()
+            if (fa.launches_dq, fa.launches_dkv, fa.launches_dq_bf16,
+                    fa.launches_dkv_bf16) != (before[0], before[1],
+                                              before[2] + 1, before[3] + 1):
+                raise AssertionError("a bf16 backward did not launch K2 and K3 bf16 once")
+            plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+            ref = fa._dense_attention_bwd(q.float(), k.float(), v.float(),
+                                          do.float(), lse, delta, causal=causal)
+            parts = []
+            for name, kern, gt, pl, rf in zip(("dQ", "dK", "dV"), ("dq", "dkv", "dkv"),
+                                              got, plain, ref):
+                err, plain_err, limit = hold_bf16(gt, pl, rf, f"bf16 {name} S={s}")
+                worst[kern] = max(worst[kern],
+                                  (gt.float() - pl.float()).abs().max().item())
+                parts.append(f"{name} {err:.3e} (plain {plain_err:.3e}, limit "
+                             f"{limit:.3e}, max {rf.abs().max().item():.3f})")
+            log(f"[bwd-bf16] B={b} S={s} causal={causal}: vs f32 reference "
+                + "; ".join(parts))
+            del plain, ref, got
+        if s != 2048:
+            continue
+        ms_dq = device_ms(torch, lambda i: fa._launch_bwd_dq(
+            q, k, v, do, lse, delta, causal=True), iters=10)
+        ms_dkv = device_ms(torch, lambda i: fa._launch_bwd_dkv(
+            q, k, v, do, lse, delta, causal=True), iters=10)
+        plain_ms = device_ms(torch, lambda i: fa._dense_attention_bwd(
+            q, k, v, do, lse, delta, causal=True), iters=3, warmup=1)
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+        lib_ms = device_ms(torch, lambda i: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), iters=5, warmup=2)
+        pairs = b * h * _causal_pairs(s)
+        head = 2.0 * b * s * h * d  # one [B, S, H, D] bf16 tensor
+        rows_in = 4 * head + 2 * 4.0 * b * h * s  # q, k, v, dO; lse, delta
+        b_dq = bound_ms(rows_in + head, 6.0 * d * pairs, BF16_FLOPS_PER_S)
+        b_dkv = bound_ms(rows_in + 2 * head, 8.0 * d * pairs, BF16_FLOPS_PER_S)
+        log(f"[bwd-bf16] S=2048 B=8 H=12 D=64 causal: K2 {ms_dq:.4f} ms (bound "
+            f"{b_dq[0]:.4f} ms, {b_dq[1]}, {6.0 * d * pairs / ms_dq / 1e9:.1f} "
+            f"TFLOP/s), K3 {ms_dkv:.4f} ms (bound {b_dkv[0]:.4f} ms, {b_dkv[1]}, "
+            f"{8.0 * d * pairs / ms_dkv / 1e9:.1f} TFLOP/s), plain backward "
+            f"{plain_ms:.4f} ms, sdpa bf16 backward {lib_ms:.4f} ms on {card}")
+        shape = "B=8 H=12 S=2048 D=64 causal bf16 (strided qkv views)"
+        rows["dq"] = dict(ms=ms_dq, plain_ms=plain_ms, bound_ms=b_dq[0],
+                          bound_by=b_dq[1], library_ms=lib_ms, shape=shape)
+        rows["dkv"] = dict(ms=ms_dkv, plain_ms=plain_ms, bound_ms=b_dkv[0],
+                           bound_by=b_dkv[1], library_ms=lib_ms, shape=shape)
+        del out, qt, kt, vt
+    for kern in rows:
+        rows[kern]["max_abs_err"] = worst[kern]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_grad_parity(torch, np):
     """Loss and every parameter gradient of the full-width LM at batch 1,
     seq 2048: flash attention (K1, K2, K3) against dense."""
@@ -1248,9 +1442,82 @@ def phase_grad_parity(torch, np):
     torch.cuda.empty_cache()
 
 
-def phase_train(torch, np, fa, card):
-    """The port's LM workload at the reference configuration; returns the
-    launch counts of the run."""
+def phase_grad_parity_bf16(torch, np, fa):
+    """Loss and every parameter gradient of the full-width LM at batch 1,
+    seq 2048 in bf16 (f32 params cast inside the loss, as the workload's
+    apply_fn does): flash attention (bf16 K1, K2, K3) against dense.  The
+    f32 dense run on the same weights is logged beside them as a yardstick
+    of what bf16 costs either path."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        forward, init_params, next_token_loss,
+    )
+    from distributeddeeplearning_tpu_torch.train.state import tree_leaves, tree_map
+
+    cfg = {k: v for k, v in TRAIN.items() if k not in ("seq_len", "batch_size")}
+    s = TRAIN["seq_len"]
+    params = init_params(torch.Generator().manual_seed(1), max_len=s,
+                         device="cuda", **cfg)
+    names = ["embed", "pos", *(f"blocks.{k}" for k in params["blocks"]), "head"]
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg["vocab_size"], (1, s))).cuda()
+    out = {}
+    for attention, dtype in (("flash", torch.bfloat16), ("dense", torch.bfloat16),
+                             ("dense", torch.float32)):
+        before = _fa_counts(fa)
+        p = tree_map(lambda a: a.to(dtype), params)
+        logits = forward(p, toks, num_heads=cfg["num_heads"], attention=attention)
+        loss = next_token_loss(logits.float(), toks)
+        out[(attention, dtype)] = (loss.item(), torch.autograd.grad(loss, leaves))
+        n = cfg["num_layers"]
+        if attention == "flash" and _fa_counts(fa) != {
+                **before, "launches_bf16": before["launches_bf16"] + n,
+                "launches_dq_bf16": before["launches_dq_bf16"] + n,
+                "launches_dkv_bf16": before["launches_dkv_bf16"] + n}:
+            raise AssertionError(f"bf16 flash gradient launches {_fa_counts(fa)} "
+                                 f"(before {before})")
+        del p, logits, loss
+    (lf, gf) = out[("flash", torch.bfloat16)]
+    (ld, gd) = out[("dense", torch.bfloat16)]
+    (l32, g32) = out[("dense", torch.float32)]
+    log(f"[grad-bf16] full width, batch 1, seq 2048: loss flash bf16 {lf:.7f} "
+        f"dense bf16 {ld:.7f} (rel |d| {abs(lf - ld) / abs(ld):.2e}, tolerance "
+        f"{LOSS_RTOL_BF16:g}); dense f32 {l32:.7f}")
+    if abs(lf - ld) > LOSS_RTOL_BF16 * abs(ld):
+        raise AssertionError("bf16 flash and dense losses disagree")
+    worst = worst_f = worst_d = 0.0
+    for name, a, r, x in zip(names, gf, gd, g32):
+        top = max(r.abs().max().item(), 1e-30)
+        share = (a - r).abs().max().item() / top
+        worst = max(worst, share)
+        top32 = max(x.abs().max().item(), 1e-30)
+        worst_f = max(worst_f, (a - x).abs().max().item() / top32)
+        worst_d = max(worst_d, (r - x).abs().max().item() / top32)
+        if not share <= GRAD_RTOL_BF16:
+            raise AssertionError(f"bf16 gradient of {name} disagrees: {share:.2e}")
+    log(f"[grad-bf16] flash vs dense, every leaf's max|dg| within {worst:.2e} "
+        f"of its max|g| (tolerance {GRAD_RTOL_BF16:g}) over {len(names)} "
+        f"leaves; against the f32 dense gradients: flash bf16 {worst_f:.2e}, "
+        f"dense bf16 {worst_d:.2e}")
+    del out, gf, gd, g32, params, leaves
+    torch.cuda.empty_cache()
+
+
+def _fa_counts(fa):
+    return {c: getattr(fa, c) for c in FA_COUNTERS}
+
+
+FA_COUNTERS = ("launches", "launches_dq", "launches_dkv", "launches_bf16",
+               "launches_dq_bf16", "launches_dkv_bf16")
+
+
+def phase_train(torch, np, fa, card, dtype="float32", f32_losses=None):
+    """The port's LM workload at the reference configuration, in f32 or
+    (``dtype="bfloat16"``) at ``compute_dtype`` left to its default, bf16;
+    returns ``(launch counts of the run, per-step losses)``.  A bf16 run's
+    losses are held to ``f32_losses`` step by step."""
     import tempfile
 
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
@@ -1259,32 +1526,41 @@ def phase_train(torch, np, fa, card):
     from distributeddeeplearning_tpu_torch.train.step import build_train_step
     from distributeddeeplearning_tpu_torch.workloads import transformer
 
+    bf16 = dtype == "bfloat16"
+    tag = "train-bf16" if bf16 else "train"
+    sfx = "_bf16" if bf16 else ""
+    # the reference's default; the f32 run asks for f32 explicitly
+    dtype_kw = {} if bf16 else {"compute_dtype": "float32"}
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "metrics.jsonl")
-        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        for counter in FA_COUNTERS:
+            setattr(fa, counter, 0)
         torch.cuda.synchronize()
         state, result = transformer.main(
             epochs=TRAIN_EPOCHS, steps_per_epoch=1,
             train_examples=TRAIN["batch_size"], attention="flash",
-            compute_dtype="float32", device="cuda", metrics_path=path, **TRAIN)
+            device="cuda", metrics_path=path, **dtype_kw, **TRAIN)
         torch.cuda.synchronize()
-        launches = {"flash_attention_fwd": fa.launches,
-                    "flash_attention_bwd_dq": fa.launches_dq,
-                    "flash_attention_bwd_dkv": fa.launches_dkv}
+        counts = _fa_counts(fa)
         with open(path) as f:
             rows = [json.loads(line) for line in f]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     layers, steps = TRAIN["num_layers"], TRAIN_EPOCHS
-    want = {"flash_attention_fwd": layers * (steps + TRAIN_EPOCHS),
-            "flash_attention_bwd_dq": layers * steps,
-            "flash_attention_bwd_dkv": layers * steps}
-    log(f"[train] launches during the run: {launches} (expected {want}: 12 "
+    want = {c: 0 for c in FA_COUNTERS}
+    want.update({f"launches{sfx}": layers * (steps + TRAIN_EPOCHS),
+                 f"launches_dq{sfx}": layers * steps,
+                 f"launches_dkv{sfx}": layers * steps})
+    log(f"[{tag}] launches during the run: {counts} (expected {want}: 12 "
         f"per forward, {steps} train steps and {TRAIN_EPOCHS} eval passes)")
-    if launches != want:
-        raise AssertionError(f"unexpected launch counts {launches}")
+    if counts != want:
+        raise AssertionError(f"unexpected launch counts {counts}")
+    launches = {"flash_attention_fwd": counts[f"launches{sfx}"],
+                "flash_attention_bwd_dq": counts[f"launches_dq{sfx}"],
+                "flash_attention_bwd_dkv": counts[f"launches_dkv{sfx}"]}
     losses = [r["train_loss"] for r in rows]
-    log(f"[train] loss by step: {[round(x, 5) for x in losses]}; final "
+    log(f"[{tag}] loss by step: {[round(x, 5) for x in losses]}; final "
         f"train {result.final_train_metrics}, eval {result.final_eval_metrics}")
     if not losses[-1] < losses[0]:
         raise AssertionError("the loss did not fall on the repeated batch")
@@ -1292,6 +1568,12 @@ def phase_train(torch, np, fa, card):
         bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
         if bad:
             raise AssertionError(f"non-finite metrics {bad} in epoch {r['epoch']}")
+    if f32_losses is not None:
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, f32_losses)]
+        log(f"[{tag}] |loss - f32 loss| / f32 loss by step: "
+            f"{[f'{x:.2e}' for x in rel]} (tolerance {TRAIN_LOSS_RTOL_BF16:g})")
+        if len(rel) != len(losses) or max(rel) > TRAIN_LOSS_RTOL_BF16:
+            raise AssertionError("the bf16 losses left the f32 run's")
     tokens = TRAIN["batch_size"] * TRAIN["seq_len"]
     step_s = sorted(TRAIN["batch_size"] / r["images_per_second"] for r in rows[1:])
     p50 = float(np.median(step_s))
@@ -1300,33 +1582,37 @@ def phase_train(torch, np, fa, card):
                                        *state.params["blocks"].values()))
     b, s, d = TRAIN["batch_size"], TRAIN["seq_len"], TRAIN["d_model"]
     flops = 6 * n_params * tokens + 3 * (2 * b * s * s * d) * layers
-    mfu = flops / p50 / F32_FLOPS_PER_S
-    log(f"[train] {n_params / 1e6:.1f} M params; step p50 {p50 * 1e3:.1f} ms "
+    peak, peak_name = ((BF16_FLOPS_PER_S, "989.4 TFLOP/s, the spec-sheet dense bf16 peak")
+                       if bf16 else (F32_FLOPS_PER_S, "67 TFLOP/s f32"))
+    mfu = flops / p50 / peak
+    log(f"[{tag}] {n_params / 1e6:.1f} M params; step p50 {p50 * 1e3:.1f} ms "
         f"(steps 2..{steps}: {[round(x * 1e3, 1) for x in step_s]} ms), "
-        f"tokens/s {tokens / p50:.1f}, mfu {mfu:.4f} of 67 TFLOP/s f32 "
+        f"tokens/s {tokens / p50:.1f}, mfu {mfu:.4f} of {peak_name} "
         f"({flops / 1e12:.2f} TFLOP a step), first step "
         f"{TRAIN['batch_size'] / rows[0]['images_per_second']:.2f} s, peak "
         f"memory {peak_gb:.2f} GB on {card}")
 
     step = build_train_step(
-        state, compute_dtype=torch.float32,
+        state, compute_dtype=getattr(torch, dtype),
         loss_fn=lambda lg, lb, label_smoothing=0.0: next_token_loss(lg, lb),
         metrics_fn=lambda lg, lb, loss: {"loss": loss})
     batch = next(transformer._token_batches(b, s, TRAIN["vocab_size"], 42,
                                             b, repeat=False))
     wall, busy, top = profile_share(torch, lambda: step(state, batch), 2)
     share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
-    log(f"[profile] train step (B=8, S=2048, f32, flash): host wall "
+    log(f"[profile] train step (B=8, S=2048, {dtype}, flash): host wall "
         f"{wall:.3f} ms, kernel time {share} on {card}")
-    groups = {"f32 GEMMs (cuBLAS/CUTLASS)": 0.0, "K1 flash_fwd_kernel": 0.0,
-              "K2 flash_bwd_dq_kernel": 0.0, "K3 flash_bwd_dkv_kernel": 0.0,
-              "everything else": 0.0}
+    gemms = f"{'bf16' if bf16 else 'f32'} GEMMs (cuBLAS/CUTLASS)"
+    kernels = {f"K1 flash_fwd{sfx}_kernel": f"flash_fwd{sfx}_kernel",
+               f"K2 flash_bwd_dq{sfx}_kernel": f"flash_bwd_dq{sfx}_kernel",
+               f"K3 flash_bwd_dkv{sfx}_kernel": f"flash_bwd_dkv{sfx}_kernel"}
+    groups = {gemms: 0.0, **{g: 0.0 for g in kernels}, "everything else": 0.0}
     for key, ms in top:
-        group = ("f32 GEMMs (cuBLAS/CUTLASS)" if "gemm" in key.lower() else
-                 "K1 flash_fwd_kernel" if "flash_fwd_kernel" in key else
-                 "K2 flash_bwd_dq_kernel" if "flash_bwd_dq_kernel" in key else
-                 "K3 flash_bwd_dkv_kernel" if "flash_bwd_dkv_kernel" in key else
-                 "everything else")
+        low = key.lower()
+        group = next((g for g, name in kernels.items() if name in key), None)
+        if group is None:
+            group = gemms if ("gemm" in low or "nvjet" in low or "cutlass" in low
+                              or "xmma" in low) else "everything else"
         groups[group] += ms
     for group, ms in groups.items():
         log(f"[profile]   {ms:9.3f} ms  {ms / max(busy or 1e-9, 1e-9):6.1%}  {group}")
@@ -1334,7 +1620,7 @@ def phase_train(torch, np, fa, card):
         log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
     del state, step
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
 def main() -> int:
@@ -1371,6 +1657,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"[build] {name}: {line.strip()}")
         k1 = phase_k1(torch, F, fa, card)
+        k1_bf16 = phase_k1_bf16(torch, F, fa, card)
         k4 = phase_k4(torch, F, fd, card)
         k4b = phase_k4b(torch, F, fd, card)
         k4c = phase_k4c(torch, fd, card)
@@ -1383,8 +1670,12 @@ def main() -> int:
         del dense_engine
         torch.cuda.empty_cache()
         bwd = phase_bwd(torch, F, fa, card)
+        bwd_bf16 = phase_bwd_bf16(torch, F, fa, card)
         phase_grad_parity(torch, np)
-        trained = phase_train(torch, np, fa, card)
+        phase_grad_parity_bf16(torch, np, fa)
+        trained, f32_losses = phase_train(torch, np, fa, card)
+        trained_bf16, _ = phase_train(torch, np, fa, card, dtype="bfloat16",
+                                      f32_losses=f32_losses)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -1425,6 +1716,18 @@ def main() -> int:
              source="distributeddeeplearning_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_attention.py:355",
              launches=trained["flash_attention_bwd_dkv"], **bwd["dkv"]),
+        dict(name="flash_attention_fwd_bf16", route="cuda",
+             source="distributeddeeplearning_tpu_torch/csrc/flash_attention_fwd.cu",
+             replaces="distributeddeeplearning_tpu/ops/flash_attention.py:160",
+             launches=trained_bf16["flash_attention_fwd"], **k1_bf16),
+        dict(name="flash_attention_bwd_dq_bf16", route="cuda",
+             source="distributeddeeplearning_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="distributeddeeplearning_tpu/ops/flash_attention.py:335",
+             launches=trained_bf16["flash_attention_bwd_dq"], **bwd_bf16["dq"]),
+        dict(name="flash_attention_bwd_dkv_bf16", route="cuda",
+             source="distributeddeeplearning_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="distributeddeeplearning_tpu/ops/flash_attention.py:355",
+             launches=trained_bf16["flash_attention_bwd_dkv"], **bwd_bf16["dkv"]),
     ]
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -20,7 +20,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     ``torch.backends.cuda.matmul.allow_tf32 = False`` and
     ``torch.backends.cudnn.allow_tf32 = False``.  TF32 keeps about three
     decimal digits, and the port's parity contract with the JAX reference
-    is f32.
+    is f32.  For bf16 it sets
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+    False``: cuBLAS may otherwise reduce split-K partial sums of a bf16
+    GEMM in bf16, where XLA accumulates bf16 dots in f32 and rounds once.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -31,6 +34,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev

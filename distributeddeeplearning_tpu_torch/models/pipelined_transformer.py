@@ -142,7 +142,10 @@ def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
         ).reshape(b, s, d)
     elif attention == "dense":
         qh, kh, vh = (split4(t).transpose(1, 2) for t in (q, k, v))
-        scores = torch.einsum("bhqd,bhkd->bhqk", qh, kh) / torch.sqrt(
+        # the product in the stream dtype, then promoted to f32 by the f32
+        # scale as in the reference (a 0-d tensor would not promote a bf16
+        # one); the softmax runs in f32 and casts back to the stream dtype
+        scores = torch.einsum("bhqd,bhkd->bhqk", qh, kh).float() / torch.sqrt(
             torch.tensor(float(hd), device=x.device)
         )
         causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``_build/<name>-<digest>.so`` (``_build/`` is listed in ``.gitignore``).
-The digest covers the source and the flags, so an edited kernel never
-loads a stale library.  Nothing is fetched: only the repository's sources
+The digest covers the source, the shared headers ``csrc/*.cuh`` it may
+include, and the flags, so an edited kernel never loads a stale library.  Nothing is fetched: only the repository's sources
 and the CUDA toolkit are used.
 
 Libraries build at first use, so any wrapper call builds what it needs;
@@ -62,8 +62,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -16,9 +16,19 @@ outputs of magnitude ~1 leaves a margin of ~100x over the f32 error of
 sums over <= 576 terms.  The backward's gradients reach ~10 at these
 shapes and sum up to S terms twice (dP, then dQ/dK), so they are held to
 1e-4 of their largest magnitude.
+
+The bf16 kernels round where their plain version rounds (P and dS to bf16
+as product operands, outputs to bf16 once), so the two differ by the
+order of f32 sums, which can move a rounded P or dS by one bf16 ulp and
+an output by one.  Each output is held against an f32 reference from the
+same bf16 inputs with no bf16 rounding: the kernel's error there may be
+at most twice the plain version's plus one bf16 ulp of the largest
+|output|.  lse is f32 on both sides and stays within 1e-4.
 """
 
 from __future__ import annotations
+
+import math
 
 import pytest
 import torch
@@ -70,8 +80,20 @@ def test_flash_attention_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(NotImplementedError, match="mask"):
         fa.flash_attention(q, k, v, torch.ones(1, 16, dtype=torch.bool,
                                                device="cuda"), causal=True)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_core(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_core(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.flash_attention_core(q.bfloat16(), k, v)
+    before = fa.launches_bf16
+    o, _ = fa.flash_attention_core(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert o.dtype == torch.bfloat16 and fa.launches_bf16 == before + 1
+    # a bf16 row stride of 4 elements is 8 bytes: cp.async needs 16
+    odd = torch.zeros((1, 16, 12 * 64 + 4), dtype=torch.bfloat16, device="cuda")
+    view = odd[..., :768].reshape(1, 16, 12, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention_core(view, view, view)
 
 
 @pytest.mark.parametrize("s", [1, 37, 64, 128, 576])
@@ -115,6 +137,99 @@ def test_gradients_through_the_function_match_dense_autograd(cuda):
         loss(lambda q, k, v: fa._dense_attention(q, k, v, None, causal=True)[0]),
         qkv)
     assert (g_flash - g_dense).abs().max().item() <= 1e-4 * g_dense.abs().max().item()
+
+
+def _bf16_ulp(x: torch.Tensor) -> float:
+    """One bf16 ulp at the largest |x| (8 significant bits)."""
+    top = x.abs().max().item()
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def _hold_bf16(got, plain, ref, what):
+    """``got`` (kernel, bf16) within twice the plain version's error
+    against the f32 ``ref`` plus one bf16 ulp of max |ref|."""
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all(), what
+    err = (got.float() - ref).abs().max().item()
+    plain_err = (plain.float() - ref).abs().max().item()
+    assert err <= 2 * plain_err + _bf16_ulp(ref), (what, err, plain_err)
+
+
+def _bf16_qkv(s, b=2, h=12, d=64, seed=0):
+    """bf16 q, k, v as strided [b, s, h, d] views of one [b, s, 3*h*d]
+    bf16 tensor (row stride 3*768 elements), as the model makes them."""
+    q, k, v = _qkv_views(s, h=h, d=d, b=b, seed=seed)
+    qkv = torch.cat([q, k, v], dim=2).reshape(b, s, 3 * h * d).bfloat16()
+    q, k, v = qkv.split(h * d, dim=-1)
+    return tuple(t.reshape(b, s, h, d) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("s", [1, 37, 64, 576, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_forward_kernel_matches_plain(cuda, s, causal):
+    """bf16 K1 on strided qkv views against its plain version and the f32
+    reference from the same bf16 inputs; one bf16 launch, no f32 one."""
+    q, k, v = _bf16_qkv(s, seed=s)
+    before = (fa.launches, fa.launches_bf16)
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_bf16) == (before[0], before[1] + 1)
+    o_plain, lse_plain = fa._dense_attention(q, k, v, None, causal=causal)
+    o_ref, lse_ref = fa._dense_attention(q.float(), k.float(), v.float(), None,
+                                         causal=causal)
+    _hold_bf16(o, o_plain, o_ref, "o")
+    assert lse.dtype == torch.float32
+    assert (lse - lse_plain).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("s", [37, 64, 576, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_backward_kernels_match_plain(cuda, s, causal):
+    """bf16 K2 (dQ) and K3 (dK, dV) on strided views with the bf16
+    forward's lse and a random bf16 dO, against the bf16 plain backward
+    and the f32 backward from the same inputs and lse."""
+    q, k, v = _bf16_qkv(s, seed=s + 1)
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal)
+    do = torch.randn(o.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(7), device="cuda").bfloat16()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    before = (fa.launches_dq, fa.launches_dkv, fa.launches_dq_bf16,
+              fa.launches_dkv_bf16)
+    got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv, fa.launches_dq_bf16,
+            fa.launches_dkv_bf16) == (before[0], before[1], before[2] + 1,
+                                      before[3] + 1)
+    plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+    ref = fa._dense_attention_bwd(q.float(), k.float(), v.float(), do.float(),
+                                  lse, delta, causal=causal)
+    for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        _hold_bf16(g, p, r, name)
+
+
+def test_bf16_gradients_through_the_function(cuda):
+    """autograd through flash_attention on a bf16 qkv leaf runs the bf16
+    K1, K2, K3 once each and returns a bf16 gradient held like the
+    kernels' outputs against autograd through the f32 plain attention."""
+    b, s, h, d = 2, 200, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(3)
+    base = torch.randn((b, s, 3 * h * d), generator=g, device="cuda").bfloat16()
+
+    def grad(attn, dtype):
+        leaf = base.to(dtype).requires_grad_(True)
+        q, k, v = (t.reshape(b, s, h, d) for t in leaf.split(h * d, dim=-1))
+        (out,) = torch.autograd.grad((attn(q, k, v).float() ** 2).sum(), leaf)
+        return out
+
+    before = (fa.launches_bf16, fa.launches_dq_bf16, fa.launches_dkv_bf16)
+    got = grad(lambda q, k, v: fa.flash_attention(q, k, v, None, causal=True),
+               torch.bfloat16)
+    assert (fa.launches_bf16, fa.launches_dq_bf16, fa.launches_dkv_bf16) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    plain = grad(lambda q, k, v: fa._dense_attention(q, k, v, None, causal=True)[0],
+                 torch.bfloat16)
+    ref = grad(lambda q, k, v: fa._dense_attention(q, k, v, None, causal=True)[0],
+               torch.float32)
+    _hold_bf16(got, plain, ref, "dqkv")
 
 
 def test_flash_decode_kernel_on_strided_cache_view(cuda):
