@@ -90,7 +90,36 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    left to bf16: the bf16 counters must count as K1-K3 did in f32 and
    the f32 counters 0; each step's loss must lie within 1e-2 relative of
    the f32 run's (same seed, same batch); mfu is over 989.4 TFLOP/s, the
-   spec-sheet dense bf16 peak.
+   spec-sheet dense bf16 peak;
+12. ``phase_k4_bf16`` (after 5a): K4 on bf16 pages under bf16 queries at
+   the decode shape (b=8, nq=1, hd=64, S=576) and the chunk shape (nq=64),
+   and on int8 pages under bf16 queries with the bf16 overlay, each held
+   to its plain version (1e-4), to the f32 result of the same bf16 inputs
+   (the bf16 kernels' rule, ``hold_bf16``) and, bitwise, to the f32 launch
+   on widened copies; timed
+   beside SDPA on the pre-gathered bf16 history with a boolean mask;
+13. ``phase_serve_bf16`` (after 7a): the full-width serve model with bf16
+   weights (the f32 cells' weights cast) on a dense bf16 cache (the dense
+   cell's requests, and the paged cell's), bf16 pages with the 128-token
+   shared prefix and a cold twin, and int8 pages under bf16 weights; exact
+   launch counts (bf16 K1 and bf16 K4 counters take every launch, every
+   f32 counter 0), hit == cold tokens, paged == dense (one bf16 prompt
+   pass in both layouts, then 32 decode steps on each, logits bitwise
+   equal; the two engines' streams, whose prompt passes round apart, are
+   compared and their agreement logged), bf16 kv_bytes_peak exactly half
+   the f32 paged run's, greedy tokens equal a bf16 dense full-forward
+   oracle and teacher-forced logits within 5e-2 of the largest; decode
+   steps profiled;
+14. ``phase_headdim``: every kernel (K1, K2, K3 in f32 and bf16; K4 a, b,
+   c, verify and bf16 pages) at head dims 16 and 32 against its plain
+   version under the head-dim-64 tolerances, timed at one shape each;
+15. ``phase_default_geometries``: the dense and paged engines at `ddlt
+   serve`'s geometry (2 layers, d 64, 4 heads: head dim 16, vocab 257)
+   with their default flash prefill and decode kernel, f32 and int8
+   weights (N = 257 through the padded int8 product), greedy streams
+   equal to a dense oracle; then ``workloads.transformer.main(attention=
+   "flash")`` at its own defaults (head dim 32, vocab 1031) in f32 and
+   bf16, the loss falling; exact launch counts in every run.
 
 Kernel, plain and library times are device times: torch.profiler's sum
 of the CUDA work each call runs, averaged over many calls after warm-up
@@ -112,6 +141,10 @@ kernel: training for K1, K2, K3; dense serving for K4(a); the f32 paged
 run's chunks for K4(b), the int8 paged run for K4(c) and the four
 speculative runs for the verify row.  The verify row's bound counts each
 (slot, head)'s visible history once for all K+1 queries.
+
+Each row of the kernels line carries ``head_dims``: the phase-14 entry
+of the kernel at head dims 16 and 32, with the launches of the phase-15
+main path that runs it there (0 where none does).
 
 Output: progress lines, then one JSON line with a row per kernel, the line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
@@ -203,26 +236,40 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: profiler windows that recorded no device time, timed by CUDA events
+#: instead (the run's last lines say how many)
+EVENT_TIMED = []
+
+
 def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time per call of ``fn``: every kernel, copy and set it
     ran, summed by torch.profiler over ``iters`` calls after warm-up.
     Unlike a CUDA-event span around a launch loop (:func:`cuda_ms`), it
     leaves out the gaps in which the card waits for the host to prepare
-    the next launch, which dominate at the serving shapes."""
+    the next launch, which dominate at the serving shapes.  The profiler
+    now and then records no device time for a window (seen once in ~200
+    windows of one run on the H100); the window is then profiled once
+    more and, failing that, timed by a CUDA-event span (which counts the
+    launch gaps too) and recorded in :data:`EVENT_TIMED`."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total / 1e3 / iters
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    ms = cuda_ms(torch, fn, iters=iters, warmup=0)
+    EVENT_TIMED.append(ms)
+    log(f"[timer] torch.profiler recorded no device time twice; a CUDA-event "
+        f"span gives {ms:.4f} ms a call (launch gaps included)")
+    return ms
 
 
 def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
@@ -408,9 +455,10 @@ def phase_k4(torch, F, fd, card):
 
 
 def _paged_pool(torch, dtype, seed):
-    """A [POOL_PAGES + 1, 12, 64, 12, 64] pool of random K/V (int8: through
-    the port's quantize_kv, with its scale pools) and scrambled block
-    tables over pages 1..POOL_PAGES for 8 slots of 9 pages."""
+    """A [POOL_PAGES + 1, 12, 64, 12, 64] pool of random K/V in ``dtype``
+    ("float32", "bfloat16", or "int8": through the port's quantize_kv, with
+    its scale pools) and scrambled block tables over pages 1..POOL_PAGES
+    for 8 slots of 9 pages."""
     from distributeddeeplearning_tpu_torch.quant.qtensor import quantize_kv
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -422,7 +470,7 @@ def _paged_pool(torch, dtype, seed):
         if dtype == "int8":
             pool[name], pool[f"{name}_scale"] = quantize_kv(x)
         else:
-            pool[name] = x
+            pool[name] = x.to(getattr(torch, dtype))
         del x
     perm = torch.randperm(POOL_PAGES, generator=torch.Generator().manual_seed(seed))
     tables = (perm + 1).reshape(SLOTS, MAX_SEQ // PAGE).to(torch.int32).cuda()
@@ -657,23 +705,24 @@ def phase_int_mm(torch, card):
     return worst
 
 
-def naive_greedy(torch, forward, params, prompt, n):
+def naive_greedy(torch, forward, params, prompt, n, heads=None):
     """Oracle: greedy generation by a full dense forward every step."""
+    heads = heads or SERVE["num_heads"]
     toks = list(prompt)
     with torch.inference_mode():
         for _ in range(n):
             logits = forward(params, torch.tensor([toks], device="cuda"),
-                             num_heads=SERVE["num_heads"], attention="dense")
+                             num_heads=heads, attention="dense")
             toks.append(int(torch.argmax(logits[0, -1])))
     return toks[len(prompt):]
 
 
 def teacher_forced_error(torch, params, tokens, prompt_len):
     """Max |logit difference| between the serving path (flash prefill of
-    the prompt, then one kernel decode step per token) and one full dense
-    forward over the same tokens, and the largest |logit| for scale.  The
-    margin profile makes greedy streams insensitive to attention; these
-    logits are not."""
+    the prompt, then one kernel decode step per token, on a cache of the
+    weights' dtype) and one full dense forward over the same tokens, and
+    the largest |logit| for scale.  The margin profile makes greedy
+    streams insensitive to attention; these logits are not."""
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
         forward, forward_decode, forward_prefill,
     )
@@ -687,7 +736,8 @@ def teacher_forced_error(torch, params, tokens, prompt_len):
                                        num_heads=heads, attention="flash")
         cache = init_cache(batch_slots=1, num_layers=SERVE["num_layers"],
                            max_seq=MAX_SEQ, num_heads=heads,
-                           head_dim=SERVE["d_model"] // heads, device="cuda")
+                           head_dim=SERVE["d_model"] // heads,
+                           dtype=params["embed"].dtype, device="cuda")
         insert_sequence(cache, k, v, 0)
         got = [logits[0, prompt_len - 1]]
         for pos in range(prompt_len, len(tokens) - 1):
@@ -698,8 +748,8 @@ def teacher_forced_error(torch, params, tokens, prompt_len):
             )
             got.append(step[0])
         want = full[prompt_len - 1:len(tokens) - 1]
-        err = (torch.stack(got) - want).abs().max().item()
-    return err, want.abs().max().item()
+        err = (torch.stack(got) - want).float().abs().max().item()
+    return err, want.float().abs().max().item()
 
 
 def profile_share(torch, fn, steps):
@@ -1623,6 +1673,709 @@ def phase_train(torch, np, fa, card, dtype="float32", f32_losses=None):
     return launches, losses
 
 
+# ---- head dims 16 and 32 (the reference's serve and trainer geometries) ----
+
+#: head dim -> (heads, batch, sequence) at which every flash kernel is held
+#: and timed: `ddlt serve`'s d 64 over 4 heads with 4 slots of a 512-token
+#: prompt bucket, and the LM trainer's d 256 over 8 heads at its batch 8,
+#: seq 128 (workloads/transformer.py defaults)
+HEADDIM_GEOMETRY = {16: (4, 4, 512), 32: (8, 8, 128)}
+
+
+def qkv_views(torch, b, s, h, d, dtype, seed):
+    """q, k, v as strided [b, s, h, d] views of one [b, s, 3*h*d] tensor in
+    ``dtype``, as the model's qkv split makes them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda").to(dtype)
+    return tuple(t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+
+
+def _flash_at(torch, F, fa, d, h, b, s, dtype, card):
+    """K1, K2, K3 in ``dtype`` at head dim ``d``: held against the plain
+    versions (f32: K1_TOL, BWD_RTOL; bf16: against the f32 result of the
+    same inputs, hold_bf16) at S in {37, s}, causal and not; timed at
+    (b, s) causal.  Returns {kernel: entry}."""
+    bf = dtype == torch.bfloat16
+    peak = BF16_FLOPS_PER_S if bf else F32_FLOPS_PER_S
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for ss in (37, s):
+        for causal in (True, False):
+            q, k, v = qkv_views(torch, b, ss, h, d, dtype, seed=ss + d + causal)
+            o, lse = fa.flash_attention_core(q, k, v, causal=causal)
+            o_p, lse_p = fa._dense_attention(q, k, v, None, causal=causal)
+            g = torch.Generator(device="cuda").manual_seed(ss)
+            do = torch.randn(o.shape, generator=g, device="cuda").to(dtype)
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+            got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal)
+            plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+            torch.cuda.synchronize()
+            err_lse = (lse - lse_p).abs().max().item()
+            if err_lse > (LSE_TOL if bf else K1_TOL):
+                raise AssertionError(f"K1 lse at D={d} S={ss}: {err_lse}")
+            if bf:
+                qf, kf, vf = q.float(), k.float(), v.float()
+                hold_bf16(o, o_p, fa._dense_attention(qf, kf, vf, None,
+                                                      causal=causal)[0],
+                          f"bf16 K1 D={d} S={ss}")
+                ref = fa._dense_attention_bwd(qf, kf, vf, do.float(), lse, delta,
+                                              causal=causal)
+                for name, gt, pl, rf in zip(("dQ", "dK", "dV"), got, plain, ref):
+                    hold_bf16(gt, pl, rf, f"bf16 {name} D={d} S={ss}")
+            else:
+                err = (o - o_p).abs().max().item()
+                if not bool(torch.isfinite(o).all()) or err > K1_TOL:
+                    raise AssertionError(f"K1 at D={d} S={ss}: {err}")
+                for name, gt, pl in zip(("dQ", "dK", "dV"), got, plain):
+                    e = (gt - pl).abs().max().item()
+                    if not bool(torch.isfinite(gt).all()) or (
+                            e > BWD_RTOL * max(pl.abs().max().item(), 1.0)):
+                        raise AssertionError(f"{name} at D={d} S={ss}: {e}")
+            worst["fwd"] = max(worst["fwd"], (o.float() - o_p.float()).abs().max().item(),
+                               err_lse)
+            worst["dq"] = max(worst["dq"], (got[0].float() - plain[0].float())
+                              .abs().max().item())
+            worst["dkv"] = max(worst["dkv"], *((gt.float() - pl.float()).abs().max().item()
+                                               for gt, pl in zip(got[1:], plain[1:])))
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    fwd_ms = device_ms(torch, lambda i: fa.flash_attention_core(q, k, v, causal=True))
+    fwd_plain = device_ms(torch, lambda i: fa._dense_attention(q, k, v, None, causal=True),
+                          iters=5, warmup=1)
+    fwd_lib = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    dq_ms = device_ms(torch, lambda i: fa._launch_bwd_dq(q, k, v, do, lse, delta,
+                                                         causal=True))
+    dkv_ms = device_ms(torch, lambda i: fa._launch_bwd_dkv(q, k, v, do, lse, delta,
+                                                           causal=True))
+    bwd_plain = device_ms(torch, lambda i: fa._dense_attention_bwd(
+        q, k, v, do, lse, delta, causal=True), iters=5, warmup=1)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    bwd_lib = device_ms(torch, lambda i: torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=5, warmup=2)
+    es = 2.0 if bf else 4.0
+    pairs = b * h * _causal_pairs(s)
+    head = es * b * s * h * d
+    rows_in = 4 * head + 2 * 4.0 * b * h * s
+    shape = f"B={b} H={h} S={s} D={d} causal {'bf16' if bf else 'f32'} (strided qkv views)"
+    entries = {
+        "fwd": (fwd_ms, fwd_plain, fwd_lib,
+                bound_ms(4 * head + 4.0 * b * h * s, 4.0 * d * pairs, peak)),
+        "dq": (dq_ms, bwd_plain, bwd_lib, bound_ms(rows_in + head, 6.0 * d * pairs, peak)),
+        "dkv": (dkv_ms, bwd_plain, bwd_lib,
+                bound_ms(rows_in + 2 * head, 8.0 * d * pairs, peak)),
+    }
+    result = {}
+    for kern, (ms, plain_ms, lib_ms, (bms, by)) in entries.items():
+        result[kern] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            library_ms=lib_ms, max_abs_err=worst[kern], shape=shape)
+    log(f"[headdim] D={d} {'bf16' if bf else 'f32'} B={b} H={h} S={s} causal: K1 "
+        f"{fwd_ms:.4f} ms (plain {fwd_plain:.4f}, sdpa {fwd_lib:.4f}, bound "
+        f"{entries['fwd'][3][0]:.4f} {entries['fwd'][3][1]}), K2 {dq_ms:.4f} ms "
+        f"(bound {entries['dq'][3][0]:.4f}), K3 {dkv_ms:.4f} ms (bound "
+        f"{entries['dkv'][3][0]:.4f}), plain backward {bwd_plain:.4f} ms, sdpa "
+        f"backward {bwd_lib:.4f} ms; held at S=37 and {s}, causal and not "
+        f"(max |kernel - plain| K1 {worst['fwd']:.3e}, K2 {worst['dq']:.3e}, K3 "
+        f"{worst['dkv']:.3e}); device times, on {card}")
+    del out, qt, kt, vt
+    return result
+
+
+def _decode_at(torch, F, fd, d, h, card):
+    """K4 at head dim ``d`` with ``h`` heads over a [73, 2, 64, h, d] pool
+    and an [8, 2, 576, h, d] dense cache: (a) dense decode, (b) a 64-query
+    chunk, (c) int8 decode with the overlay, verify at nq = 5 (each column
+    bitwise an nq = 1 launch) and bf16 pages under bf16 queries (bitwise
+    the f32 launch on the widened values), each against its plain version
+    (K4_TOL) and timed.  Returns {variant: entry}."""
+    from distributeddeeplearning_tpu_torch.quant.qtensor import quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(d)
+    pages, layers, ps = POOL_PAGES, 2, PAGE
+    pool = {n: torch.randn((pages + 1, layers, ps, h, d), generator=g, device="cuda")
+            for n in ("k", "v")}
+    ipool = {}
+    for n in ("k", "v"):
+        ipool[n], ipool[f"{n}_scale"] = quantize_kv(pool[n])
+    bpool = {n: t.bfloat16() for n, t in pool.items()}
+    dense = {n: torch.randn((SLOTS, layers, MAX_SEQ, h, d), generator=g, device="cuda")
+             for n in ("k", "v")}
+    perm = torch.randperm(pages, generator=torch.Generator().manual_seed(d))
+    tables = (perm + 1).reshape(SLOTS, MAX_SEQ // ps).to(torch.int32).cuda()
+    pos = torch.tensor([0, 575, 17, 300, 64, 511, 128, 450], dtype=torch.int32,
+                       device="cuda")
+    qkv = torch.randn((SLOTS, 3, h, d), generator=g, device="cuda")
+    q3, k_t, v_t = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    q_c = torch.randn((CHUNK, 3, h, d), generator=g, device="cuda")[:, 0]
+    posns = 512 + torch.arange(CHUNK, device="cuda")
+    k1 = SPEC_K + 1
+    vpos = torch.tensor(SPEC_POS, dtype=torch.int32, device="cuda")
+    posmat = (vpos[:, None] + torch.arange(k1, device="cuda")).to(torch.int32)
+    q4 = torch.randn((SLOTS, k1, 3 * h * d), generator=g, device="cuda")[..., : h * d]
+    q4 = q4.reshape(SLOTS, k1, h, d)
+    lv = lambda c: tuple(c[n][:, 1] if n in c else None  # noqa: E731
+                         for n in ("k", "v", "k_scale", "v_scale"))
+    kf, vf, _, _ = lv(pool)
+    ki, vi, ksi, vsi = lv(ipool)
+    kb, vb, _, _ = lv(bpool)
+    kd, vd = dense["k"][:, 1], dense["v"][:, 1]
+    qb = q3.bfloat16()
+    variants = {
+        "decode": (lambda: fd.decode_attention_dense(q3, kd, vd, None, None, None, None, pos),
+                   lambda: fd._gather_decode_dense(q3, kd, vd, None, None, None, None, pos)),
+        "chunk": (lambda: fd.chunk_attention(q_c, kf, vf, None, None, tables[1], posns),
+                  lambda: fd._gather_chunk(q_c, kf, vf, None, None, tables[1], posns)),
+        "int8": (lambda: fd.decode_attention_paged(q3, ki, vi, ksi, vsi, k_t, v_t, pos,
+                                                   tables),
+                 lambda: fd._gather_decode_paged(q3, ki, vi, ksi, vsi, k_t, v_t, pos,
+                                                 tables)),
+        "verify": (lambda: fd.verify_attention_paged(q4, kf, vf, tables, posmat),
+                   lambda: fd.verify_attention_paged(q4, kf, vf, tables, posmat,
+                                                     kernel="gather")),
+        "bf16": (lambda: fd.decode_attention_paged(qb, kb, vb, None, None, None, None,
+                                                   pos, tables),
+                 lambda: fd._paged_attention_plain(qb[:, None], kb, vb, tables,
+                                                   pos[:, None])[:, 0]),
+    }
+    hist = float((pos.long() + 1).sum().item())
+    chunk_pairs = float((posns + 1).sum().item())
+    vis = float((vpos.long() + k1).sum().item())
+    vpairs = float((posmat.long() + 1).sum().item())
+    qo = 4.0 * 2 * SLOTS * h * d  # f32 q in, out
+    bounds = {
+        "decode": bound_ms(4.0 * 2 * hist * h * d + qo, 4.0 * hist * h * d),
+        "chunk": bound_ms(4.0 * (2 * CHUNK * h * d + 2 * MAX_SEQ * h * d),
+                          4.0 * chunk_pairs * h * d),
+        "int8": bound_ms(2 * hist * h * (d + 4) + qo + 4.0 * 2 * SLOTS * h * d,
+                         4.0 * hist * h * d),
+        "verify": bound_ms(4.0 * (2 * vis * h * d + 2 * SLOTS * k1 * h * d),
+                           4.0 * vpairs * h * d),
+        "bf16": bound_ms(2.0 * 2 * hist * h * d + 2.0 * SLOTS * h * d
+                         + 4.0 * SLOTS * h * d, 4.0 * hist * h * d),
+    }
+    # the library call: SDPA on the history gathered beforehand, bool mask
+    s = MAX_SEQ
+    mask = (torch.arange(s, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+    gath = lambda t: t[tables.long()].reshape(SLOTS, s, h, d).transpose(1, 2)  # noqa: E731
+    hk, hv = gath(kf), gath(vf)
+    hkb, hvb = gath(kb), gath(vb)
+    cmask = torch.arange(s, device="cuda")[None, :] <= posns[:, None]
+    ck, cv = (t[tables[1].long()].reshape(1, s, h, d).transpose(1, 2) for t in (kf, vf))
+    vmask = (torch.arange(s, device="cuda")[None, None, :] <= posmat[:, :, None])[:, None]
+    libs = {
+        "decode": lambda i: F.scaled_dot_product_attention(
+            q3[:, :, None], kd.permute(0, 2, 1, 3), vd.permute(0, 2, 1, 3),
+            attn_mask=mask),
+        "chunk": lambda i: F.scaled_dot_product_attention(
+            q_c[None].transpose(1, 2), ck, cv, attn_mask=cmask),
+        "int8": None,
+        "verify": lambda i: F.scaled_dot_product_attention(
+            q4.transpose(1, 2), hk, hv, attn_mask=vmask),
+        "bf16": lambda i: F.scaled_dot_product_attention(
+            qb[:, :, None], hkb, hvb, attn_mask=mask),
+    }
+    result = {}
+    for name, (kern, plain) in variants.items():
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = (out - ref.float()).abs().max().item()
+        if not bool(torch.isfinite(out).all()) or err > K4_TOL:
+            raise AssertionError(f"K4 {name} at D={d} disagrees: {err}")
+        ms = device_ms(torch, lambda i: kern(), iters=30)
+        plain_ms = device_ms(torch, lambda i: plain(), iters=10)
+        lib_ms = device_ms(torch, libs[name], iters=30) if libs[name] else None
+        bms, by = bounds[name]
+        result[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            library_ms=lib_ms, max_abs_err=err)
+    for j in range(k1):
+        one = fd.paged_attention(q4[:, j:j + 1], kf, vf, tables,
+                                 posmat[:, j:j + 1].contiguous())
+        if not torch.equal(variants["verify"][0]()[:, j:j + 1], one):
+            raise AssertionError(f"a verify column at D={d} differs from nq=1")
+    widened = fd.decode_attention_paged(qb.float(), kb.float(), vb.float(), None, None,
+                                        None, None, pos, tables)
+    if not torch.equal(variants["bf16"][0](), widened):
+        raise AssertionError(f"bf16 pages at D={d} differ from the f32 launch")
+    log(f"[headdim] D={d} K4 (h={h}, b=8, S=576): " + "; ".join(
+        f"{n} {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, "
+        f"{'sdpa %.4f' % e['library_ms'] if e['library_ms'] else 'no library call'}, "
+        f"bound {e['bound_ms']:.4f} {e['bound_by']}, max|d| {e['max_abs_err']:.2e})"
+        for n, e in result.items())
+        + f"; verify columns == nq=1 launches and bf16 pages == the f32 launch "
+          f"on widened values, bitwise; device times, on {card}")
+    return result
+
+
+def phase_headdim(torch, F, fa, fd, card):
+    """Every kernel at head dims 16 and 32 against its plain version under
+    the head-dim-64 tolerances, timed at one shape each.  Returns
+    {row name: {d: entry}}."""
+    out = {}
+    for d, (h, b, s) in HEADDIM_GEOMETRY.items():
+        for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            res = _flash_at(torch, F, fa, d, h, b, s, dtype, card)
+            for kern, name in (("fwd", "flash_attention_fwd"),
+                               ("dq", "flash_attention_bwd_dq"),
+                               ("dkv", "flash_attention_bwd_dkv")):
+                out.setdefault(name + sfx, {})[d] = res[kern]
+        res = _decode_at(torch, F, fd, d, h, card)
+        for var, name in (("decode", "flash_decode"), ("chunk", "flash_decode_chunk"),
+                          ("int8", "flash_decode_int8"), ("verify", "flash_decode_verify"),
+                          ("bf16", "flash_decode_bf16")):
+            res[var]["shape"] = f"b=8 h={h} hd={d} S=576 ({var})"
+            out.setdefault(name, {})[d] = res[var]
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---- K4 on bf16 pages at the serving geometry ----------------------------
+
+def phase_k4_bf16(torch, F, fd, card):
+    """K4 on bf16 pages under bf16 queries at the decode shape (b=8, nq=1,
+    hd=64, S=576) and the chunk shape (nq=64), and on int8 pages under bf16
+    queries with the bf16 own-token overlay, on the strided layer views of
+    73-page pools through scrambled tables.  Each is held against its plain
+    version (K4_TOL) and against the f32 result of the same bf16 inputs
+    (hold_bf16, the bf16 kernels' rule; the kernel widens in registers,
+    so it must also equal the f32 launch on widened copies bitwise).
+    Returns the two JSON rows."""
+    pool, tables = _paged_pool(torch, "bfloat16", seed=21)
+    ipool, _ = _paged_pool(torch, "int8", seed=22)
+    layers, h, hd = SERVE["num_layers"], SERVE["num_heads"], 64
+    pos = torch.tensor([0, 575, 17, 300, 64, 511, 128, 450], dtype=torch.int32,
+                       device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    qkv = torch.randn((SLOTS, 3, h, hd), generator=g, device="cuda").bfloat16()
+    q3, k_t, v_t = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # strided, as the model's
+    q_c = torch.randn((CHUNK, 3, h, hd), generator=g, device="cuda").bfloat16()[:, 0]
+    posns = 512 + torch.arange(CHUNK, device="cuda")
+    w = lambda t: t.float() if t is not None and t.dtype == torch.bfloat16 else t  # noqa: E731
+    worst = {"bf16": 0.0, "int8": 0.0}
+    for layer in (0, layers - 1):
+        kb, vb, _, _ = _layer_views(pool, layer)
+        ki, vi, ksi, vsi = _layer_views(ipool, layer)
+        cases = (
+            ("bf16", "decode",
+             lambda q, k, v: fd.decode_attention_paged(q, k, v, None, None, None, None,
+                                                       pos, tables), q3, kb, vb,
+             lambda: fd._paged_attention_plain(q3[:, None], kb, vb, tables,
+                                               pos[:, None])[:, 0]),
+            ("bf16", "chunk",
+             lambda q, k, v: fd.chunk_attention(q, k, v, None, None, tables[1], posns),
+             q_c, kb, vb,
+             lambda: fd._paged_attention_plain(q_c[None], kb, vb, tables[1][None],
+                                               posns.to(torch.int32)[None])[0]),
+            ("int8", "decode+overlay",
+             lambda q, k, v: fd.decode_attention_paged(
+                 q, k, v, ksi, vsi, k_t if q.dtype == torch.bfloat16 else w(k_t),
+                 v_t if q.dtype == torch.bfloat16 else w(v_t), pos, tables), q3, ki, vi,
+             lambda: fd._paged_attention_plain(q3[:, None], ki, vi, tables, pos[:, None],
+                                               ksi, vsi, k_t, v_t)[:, 0]),
+        )
+        for row, what, kern, q, k, v, plain in cases:
+            before = (fd.launches, fd.launches_bf16, fd.launches_int8)
+            out = kern(q, k, v)
+            torch.cuda.synchronize()
+            if (fd.launches, fd.launches_bf16, fd.launches_int8) != (
+                    before[0] + 1, before[1] + 1, before[2] + (row == "int8")):
+                raise AssertionError(f"bf16 K4 {what}: not one bf16 launch")
+            ref_plain = plain()
+            f32 = kern(w(q), w(k), w(v))  # the f32 launch on the widened values
+            err = (out - ref_plain).abs().max().item()
+            worst[row] = max(worst[row], err)
+            e, pe, limit = hold_bf16(out, ref_plain, ref_plain.float(),
+                                     f"bf16 K4 {what}")
+            log(f"[k4-bf16] layer {layer} {row} {what}: max|kernel - plain| {err:.3e} "
+                f"(tolerance {K4_TOL:g}); vs the f32 result of the same bf16 inputs "
+                f"{e:.3e} (limit {limit:.3e}); == the f32 launch on widened copies: "
+                f"{torch.equal(out, f32)}")
+            if not bool(torch.isfinite(out).all()) or err > K4_TOL or not torch.equal(
+                    out, f32):
+                raise AssertionError(f"bf16 K4 {what} disagrees")
+    views = [_layer_views(pool, i)[:2] for i in range(layers)]
+    iviews = [_layer_views(ipool, i) for i in range(layers)]
+    dec = lambda i: fd.decode_attention_paged(  # noqa: E731
+        q3, *views[i % layers], None, None, None, None, pos, tables)
+    ms = device_ms(torch, dec, iters=120)
+    plain_ms = device_ms(torch, lambda i: fd._paged_attention_plain(
+        q3[:, None], *views[i % layers], tables, pos[:, None]), iters=30)
+    s = MAX_SEQ
+    hist = [tuple(t[tables.long()].reshape(SLOTS, s, h, hd).transpose(1, 2) for t in v)
+            for v in views]
+    mask = (torch.arange(s, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+    lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q3[:, :, None], *hist[i % layers], attn_mask=mask), iters=60)
+    chunk_ms = device_ms(torch, lambda i: fd.chunk_attention(
+        q_c, *views[i % layers], None, None, tables[1], posns), iters=120)
+    chist = [tuple(t[tables[1].long()].reshape(1, s, h, hd).transpose(1, 2) for t in v)
+             for v in views]
+    cmask = torch.arange(s, device="cuda")[None, :] <= posns[:, None]
+    chunk_lib = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q_c[None].transpose(1, 2), *chist[i % layers], attn_mask=cmask), iters=60)
+    int8_ms = device_ms(torch, lambda i: fd.decode_attention_paged(
+        q3, *iviews[i % layers], k_t, v_t, pos, tables), iters=120)
+    int8_plain = device_ms(torch, lambda i: fd._paged_attention_plain(
+        q3[:, None], *iviews[i % layers][:2], tables, pos[:, None],
+        *iviews[i % layers][2:], k_t, v_t), iters=30)
+    vis = float((pos.long() + 1).sum().item())
+    qo = 2.0 * SLOTS * h * hd + 4.0 * SLOTS * h * hd + 4.0 * (SLOTS + tables.numel())
+    bms, by = bound_ms(2.0 * 2 * vis * h * hd + qo, 4.0 * vis * h * hd)
+    ibms, iby = bound_ms(2 * vis * h * (hd + 4) + qo + 2.0 * 2 * SLOTS * h * hd,
+                         4.0 * vis * h * hd)
+    cbms, cby = bound_ms(2.0 * (2 * CHUNK * h * hd + 2 * s * h * hd)
+                         + 2.0 * CHUNK * h * hd, 4.0 * float((posns + 1).sum()) * h * hd)
+    log(f"[k4-bf16] bf16 pages, bf16 q, b=8 S=576: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa bf16 (pre-gathered history, bool mask) {lib_ms:.4f} "
+        f"ms, bound {bms:.4f} ms ({by}, 2*hd*2 bytes a visible position and head); "
+        f"chunk nq=64 history 576: kernel {chunk_ms:.4f} ms, sdpa {chunk_lib:.4f} ms, "
+        f"bound {cbms:.4f} ms ({cby}); int8 pages, bf16 q and overlay: kernel "
+        f"{int8_ms:.4f} ms, plain {int8_plain:.4f} ms, bound {ibms:.4f} ms ({iby}); "
+        f"device times, on {card}")
+    del pool, ipool, views, iviews, hist, chist
+    torch.cuda.empty_cache()
+    return (dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                 max_abs_err=worst["bf16"], chunk_ms=chunk_ms, chunk_library_ms=chunk_lib,
+                 chunk_bound_ms=cbms,
+                 shape="b=8 nq=1 h=12 hd=64 page 64, pos 0..575, bf16 pages and q, "
+                       "scrambled tables, strided pool view"),
+            dict(ms=int8_ms, plain_ms=int8_plain, bound_ms=ibms, bound_by=iby,
+                 library_ms=None, max_abs_err=worst["int8"],
+                 shape="b=8 nq=1 h=12 hd=64 page 64, pos 0..575, int8 pages + f32 "
+                       "scales, bf16 q and own-token overlay, scrambled tables"))
+
+
+# ---- the reference's own default geometries ------------------------------
+
+#: `ddlt serve`'s defaults (ref cli/main.py:346-356, 505-511): 2 layers,
+#: d 64, 4 heads (head dim 16), ff 128, vocab 257; 12 synthetic requests of
+#: up to 16 prompt tokens, 4 slots, 32 new tokens, max_seq 16 + 32
+CLI_SERVE = dict(num_layers=2, d_model=64, num_heads=4, d_ff=128, vocab_size=257)
+CLI_REQUESTS, CLI_PROMPT, CLI_SLOTS, CLI_NEW = 12, 16, 4, 32
+#: `workloads.transformer.main`'s defaults (ref workloads/transformer.py:
+#: 63-66): 8 layers, d 256, 8 heads (head dim 32), ff 1024, vocab 1031,
+#: batch 8, seq 128; one batch repeated, one step an epoch
+LM_LAYERS, LM_EPOCHS = 8, 6
+
+
+def phase_default_geometries(torch, np, fa, fd, card):
+    """An InferenceEngine and a PagedInferenceEngine at `ddlt serve`'s
+    geometry (head dim 16) with their default flash prefill and decode
+    kernel, f32 and int8 weights (the head's N = 257 through the padded
+    int8 product), greedy streams held to a dense oracle; then the LM
+    workload at its own defaults (head dim 32) with flash attention, f32
+    and bf16, the loss falling.  Each run with the counters zeroed just
+    before it and read just after.  Returns the launches by head dim."""
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        forward, init_params,
+    )
+    from distributeddeeplearning_tpu_torch.quant.calibrate import quantize_params
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, InferenceEngine, PagedInferenceEngine,
+        synthetic_requests,
+    )
+    from distributeddeeplearning_tpu_torch.workloads import transformer
+
+    layers, heads = CLI_SERVE["num_layers"], CLI_SERVE["num_heads"]
+    max_seq = CLI_PROMPT + CLI_NEW
+    params = init_params(torch.Generator().manual_seed(0), max_len=max_seq,
+                         device="cuda", **CLI_SERVE)
+    params["embed"] *= 4.0  # the tied 4x head: greedy measures the kernels
+    params["head"] = params["embed"].T.contiguous()
+    trees = {"f32": params, "int8w": quantize_params(params)}
+    requests = synthetic_requests(CLI_REQUESTS, vocab_size=CLI_SERVE["vocab_size"],
+                                  max_prompt=CLI_PROMPT, rng=np.random.default_rng(0))
+    launches = {16: {}, 32: {}}
+    for weights, tree in trees.items():
+        oracle = {r.uid: naive_greedy(torch, forward, tree, r.prompt, CLI_NEW,
+                                      heads=heads) for r in requests}
+        for layout in ("dense", "paged"):
+            if layout == "dense":
+                engine = InferenceEngine(tree, num_heads=heads, batch_slots=CLI_SLOTS,
+                                         max_seq=max_seq)
+            else:
+                engine = PagedInferenceEngine(tree, num_heads=heads,
+                                              batch_slots=CLI_SLOTS, max_seq=max_seq)
+            _zero_counters(fa, fd)
+            torch.cuda.synchronize()
+            results, report = ContinuousBatchingScheduler(
+                engine, max_new_tokens=CLI_NEW).run(requests)
+            torch.cuda.synchronize()
+            counts = {**_fa_counts(fa), **_fd_counts(fd)}
+            steps = report.decode_steps
+            chunks = engine.chunks_run if layout == "paged" else 0
+            want = {c: 0 for c in counts}
+            want.update({"launches": layers * CLI_REQUESTS if layout == "dense" else 0,
+                         "fd_launches": layers * (chunks + steps),
+                         "launches_multi_query": layers * chunks})
+            tokens = {r.uid: r.tokens for r in results}
+            log(f"[default] ddlt serve geometry (D=16), {weights} weights, {layout}: "
+                f"launches {counts} (expected {want}); {steps} decode steps, "
+                f"{chunks} chunks; tokens == the dense oracle: {tokens == oracle}; "
+                f"tokens/s {report.tokens_per_sec}, kv_dtype {report.kv_dtype}, "
+                f"weights_dtype {report.weights_dtype} on {card}")
+            if counts != want or tokens != oracle:
+                raise AssertionError(f"ddlt serve geometry {weights} {layout} failed")
+            if report.weights_dtype != ("int8" if weights == "int8w" else "float32"):
+                raise AssertionError(f"weights_dtype {report.weights_dtype}")
+            for key, n in (("flash_attention_fwd", counts["launches"]),
+                           ("flash_decode", counts["fd_launches"]
+                            - counts["launches_multi_query"]),
+                           ("flash_decode_chunk", counts["launches_multi_query"])):
+                launches[16][key] = launches[16].get(key, 0) + n
+            del engine
+    for dtype in ("float32", "bfloat16"):
+        sfx = "_bf16" if dtype == "bfloat16" else ""
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "metrics.jsonl")
+            for c in FA_COUNTERS:
+                setattr(fa, c, 0)
+            torch.cuda.synchronize()
+            _, result = transformer.main(
+                epochs=LM_EPOCHS, steps_per_epoch=1, train_examples=8,
+                attention="flash", device="cuda", metrics_path=path,
+                compute_dtype=dtype)
+            torch.cuda.synchronize()
+            counts = _fa_counts(fa)
+            with open(path) as f:
+                losses = [json.loads(line)["train_loss"] for line in f]
+        want = {c: 0 for c in FA_COUNTERS}
+        # one train step and one eval batch an epoch
+        want.update({f"launches{sfx}": LM_LAYERS * 2 * LM_EPOCHS,
+                     f"launches_dq{sfx}": LM_LAYERS * LM_EPOCHS,
+                     f"launches_dkv{sfx}": LM_LAYERS * LM_EPOCHS})
+        log(f"[default] LM workload defaults (8 layers, d 256, 8 heads: D=32, vocab "
+            f"1031, batch 8, seq 128), {dtype}, flash: launches {counts} (expected "
+            f"{want}); loss by step {[round(x, 5) for x in losses]} on {card}")
+        if counts != want or not losses[-1] < losses[0] or not all(
+                np.isfinite(losses)):
+            raise AssertionError(f"LM workload defaults {dtype} failed")
+        for key, c in (("flash_attention_fwd", "launches"),
+                       ("flash_attention_bwd_dq", "launches_dq"),
+                       ("flash_attention_bwd_dkv", "launches_dkv")):
+            launches[32][key + sfx] = counts[c + sfx]
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---- bf16 serving at full width ------------------------------------------
+
+#: teacher-forced logits of the bf16 serving path (bf16 K1 prefill, K4 on
+#: bf16 pages) against one dense bf16 forward, of the largest |logit|: the
+#: two paths round attention differently (the dense forward rounds Q K^T
+#: and P V's output to bf16, the kernels keep S in f32 and round P against
+#: a running max), a few bf16 ulps (2^-8 relative) carried through 12 layers
+LOGIT_RTOL_BF16 = 5e-2
+
+BF16_RUNS = (  # name, layout, engine options, requests ("dense" or "paged" cell's)
+    ("dense", "dense", {}, "dense"),
+    ("dense_on_paged", "dense", {}, "paged"),
+    ("paged", "paged", {}, "paged"),
+    ("paged_cold", "paged", {"prefix_cache": False}, "paged"),
+    ("paged_int8", "paged", {"cache_dtype": "int8"}, "paged"),
+)
+
+
+def phase_serve_bf16(torch, np, fa, fd, card, params, dense, paged):
+    """The full-width serve model with bf16 weights (the f32 cells' weights
+    cast) on the dense and paged cells' requests: a dense bf16 cache, bf16
+    pages with the shared prefix (and a cold twin), and int8 pages under
+    bf16 weights.  Each run with the counters zeroed just before it and
+    read just after."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import forward
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, InferenceEngine, PagedInferenceEngine, Request,
+    )
+    from distributeddeeplearning_tpu_torch.train.state import tree_map
+
+    layers, vocab = SERVE["num_layers"], SERVE["vocab_size"]
+    bparams = tree_map(lambda t: t.bfloat16(), params)
+    rng = np.random.default_rng(4)
+    warm = [Request(uid=f"warm{n}", prompt=rng.integers(1, vocab, n).tolist())
+            for n in (64, 72, 200, 512)]
+    cells = {"dense": dense["requests"], "paged": paged["requests"]}
+    runs = {}
+    for name, layout, kw, cell in BF16_RUNS:
+        if layout == "dense":
+            engine = InferenceEngine(bparams, num_heads=SERVE["num_heads"],
+                                     batch_slots=SLOTS, max_seq=MAX_SEQ, **kw)
+        else:
+            engine = PagedInferenceEngine(bparams, num_heads=SERVE["num_heads"],
+                                          batch_slots=SLOTS, max_seq=MAX_SEQ,
+                                          page_size=PAGE, prefill_chunk=CHUNK, **kw)
+        ContinuousBatchingScheduler(engine, max_new_tokens=2).run(warm)
+        if layout == "paged":
+            engine.reset_stats()
+            engine.clear_prefix_cache()
+        _zero_counters(fa, fd)
+        torch.cuda.synchronize()
+        results, report = ContinuousBatchingScheduler(
+            engine, max_new_tokens=NEW_TOKENS).run(
+            [Request(uid=r.uid, prompt=list(r.prompt)) for r in cells[cell]])
+        torch.cuda.synchronize()
+        counts = {**_fa_counts(fa), **_fd_counts(fd)}
+        steps = report.decode_steps
+        chunks = engine.chunks_run if layout == "paged" else 0
+        k4 = layers * (chunks + steps)
+        want = {c: 0 for c in counts}
+        want.update({"launches_bf16": layers * len(cells[cell]) if layout == "dense" else 0,
+                     "fd_launches": k4, "launches_bf16_fd": k4,
+                     "launches_multi_query": layers * chunks,
+                     "launches_int8": k4 if "int8" in name else 0})
+        kv = "int8" if "int8" in name else "bfloat16"
+        log(f"[serve-bf16] {name}: launches {counts} (expected {want}: bf16 K1 "
+            f"{layers} a prompt on the dense layout, bf16 K4 {layers} a chunk and a "
+            f"decode step, every f32 counter 0; {chunks} chunks, {steps} decode steps)")
+        if counts != want:
+            raise AssertionError(f"bf16 {name}: unexpected launch counts {counts}")
+        if (report.kv_dtype, report.weights_dtype) != (kv, "bfloat16"):
+            raise AssertionError(f"bf16 {name}: {report.kv_dtype}/{report.weights_dtype}")
+        if report.finish_reasons != {"length": len(cells[cell])}:
+            raise AssertionError(f"bf16 {name}: finish {report.finish_reasons}")
+        if layout == "paged":
+            engine.allocator.check()
+            if engine.allocator.pages_in_use:
+                raise AssertionError(f"bf16 {name}: pages leaked")
+        log(f"[serve-bf16] {name}: tokens/s {report.tokens_per_sec} | TTFT p50 "
+            f"{report.ttft_s['p50'] * 1e3:.2f} ms p99 {report.ttft_s['p99'] * 1e3:.2f} ms"
+            f" | decode step p50 {report.decode_step_s['p50'] * 1e3:.3f} ms | decode "
+            f"tokens/s {report.decode_tokens_per_sec} | kv_bytes_peak "
+            f"{report.kv_bytes_peak} of kv_bytes {report.kv_bytes} | prefix hit rate "
+            f"{report.prefix_hit_rate} on {card}")
+        log(f"[serve-bf16] {name} report " + json.dumps(report.to_dict()))
+        runs[name] = dict(tokens={r.uid: r.tokens for r in results}, report=report,
+                          counts=counts, engine=engine)
+    f32_peak = paged["f32_report"].kv_bytes_peak
+    bf16_peak = runs["paged"]["report"].kv_bytes_peak
+    same = runs["paged"]["tokens"] == runs["paged_cold"]["tokens"]
+    log(f"[serve-bf16] bf16 prefix hit == cold run tokens: {same}")
+    if not same:
+        raise AssertionError("bf16 prefix hit != cold run tokens")
+    if not runs["paged"]["report"].prefix_hit_rate > 0:
+        raise AssertionError("bf16 paged: no prefix hit")
+    # paged == dense: the same bf16 K/V in both layouts decode to the same
+    # bits.  The two ENGINES prefill through different kernels (bf16 K1
+    # rounds P to bf16 before P V; the paged chunk path keeps it f32), so
+    # their caches differ by bf16 rounding and their streams may part at a
+    # near-tie: that agreement is measured, not pinned
+    for req in sorted(cells["paged"], key=lambda r: len(r.prompt))[:2]:
+        same, steps = layouts_decode_bitwise(torch, bparams, req.prompt, NEW_TOKENS)
+        log(f"[serve-bf16] {req.uid} (prompt {len(req.prompt)}): one bf16 prompt "
+            f"pass in a dense bf16 cache and in scrambled bf16 pages, then {steps} "
+            f"greedy decode steps on each: logits bitwise equal at every step: {same}")
+        if not same:
+            raise AssertionError("bf16 paged decode != dense decode on the same K/V")
+    agree = sum(a == b for uid, toks in runs["paged"]["tokens"].items()
+                for a, b in zip(toks, runs["dense_on_paged"]["tokens"][uid]))
+    log(f"[serve-bf16] bf16 paged engine vs bf16 dense engine on the paged "
+        f"cell's requests, free-running greedy agreement: "
+        f"{agree / (REQUESTS * NEW_TOKENS):.4f} (the prompt passes round apart)")
+    log(f"[serve-bf16] kv_bytes_peak: bf16 pages {bf16_peak}, f32 pages {f32_peak} "
+        f"(ratio {bf16_peak / f32_peak}); int8 pages under bf16 weights "
+        f"{runs['paged_int8']['report'].kv_bytes_peak}")
+    if 2 * bf16_peak != f32_peak:
+        raise AssertionError("bf16 kv_bytes_peak is not half the f32 run's")
+    same = sum(a == b for uid, toks in runs["paged"]["tokens"].items()
+               for a, b in zip(toks, paged["f32_tokens"][uid]))
+    log(f"[serve-bf16] bf16 vs f32 paged greedy token agreement (free-running): "
+        f"{same / (REQUESTS * NEW_TOKENS):.4f}")
+    reqs = sorted(dense["requests"], key=lambda r: len(r.prompt))[:2]
+    for req in reqs:
+        want = naive_greedy(torch, forward, bparams, req.prompt, NEW_TOKENS)
+        got = runs["dense"]["tokens"][req.uid]
+        log(f"[serve-bf16] {req.uid} (prompt {len(req.prompt)}): greedy tokens equal "
+            f"the bf16 dense full-forward oracle: {got == want}")
+        if got != want:
+            raise AssertionError(f"{req.uid}: bf16 engine {got} != oracle {want}")
+        err, scale = teacher_forced_error(torch, bparams, list(req.prompt) + got,
+                                          len(req.prompt))
+        log(f"[serve-bf16] {req.uid}: teacher-forced logits, bf16 kernel path vs "
+            f"bf16 dense forward: max|d|={err:.3e} (largest |logit| {scale:.3f}, "
+            f"tolerance {LOGIT_RTOL_BF16:g} of it)")
+        if not err <= LOGIT_RTOL_BF16 * scale:
+            raise AssertionError(f"{req.uid}: bf16 serving logits drift {err}")
+    pos = np.full(SLOTS, 300, np.int32)
+    toks = np.arange(1, SLOTS + 1, dtype=np.int32)
+    for name in ("dense", "paged"):
+        engine = runs[name]["engine"]
+        for slot in range(SLOTS):
+            prompt = rng.integers(1, vocab, 300).tolist()
+            if name == "paged":
+                engine.prefill(slot, prompt, NEW_TOKENS)
+            else:
+                engine.prefill(slot, prompt)
+        wall, busy, top = profile_share(torch, lambda: engine.decode(toks, pos), 10)
+        share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
+        log(f"[profile] bf16 {name} decode step (8 slots, pos 300): host wall "
+            f"{wall:.3f} ms, kernel time {share} on {card}")
+        for key, ms in top[:6]:
+            log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
+        for slot in range(SLOTS):
+            engine.release(slot)
+    out = {"decode_bf16": {n: runs[n]["counts"]["launches_bf16_fd"]
+                           for n in ("dense", "paged")},
+           "k1_bf16": runs["dense"]["counts"]["launches_bf16"],
+           "int8_bf16q": runs["paged_int8"]["counts"]["launches_bf16_fd"]}
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def layouts_decode_bitwise(torch, params, prompt, n):
+    """One flash prompt pass of ``prompt`` whose K/V go into a dense cache
+    and into scrambled pages of the weights' dtype, then ``n`` greedy
+    decode steps on each layout: (logits bitwise equal at every step,
+    steps)."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        forward_decode, forward_decode_paged, forward_prefill,
+    )
+    from distributeddeeplearning_tpu_torch.serve import (
+        init_cache, init_paged_cache, insert_pages, insert_sequence, pages_for,
+    )
+
+    heads, layers = SERVE["num_heads"], SERVE["num_layers"]
+    hd, nb, dtype = SERVE["d_model"] // heads, MAX_SEQ // PAGE, params["embed"].dtype
+    p = len(prompt)
+    with torch.inference_mode():
+        logits, k, v = forward_prefill(params, torch.tensor([prompt], device="cuda"),
+                                       num_heads=heads, attention="flash")
+        dense = init_cache(batch_slots=1, num_layers=layers, max_seq=MAX_SEQ,
+                           num_heads=heads, head_dim=hd, dtype=dtype, device="cuda")
+        insert_sequence(dense, k, v, 0)
+        pool = init_paged_cache(num_pages=nb, num_layers=layers, page_size=PAGE,
+                                num_heads=heads, head_dim=hd, dtype=dtype, device="cuda")
+        table = (torch.randperm(nb, generator=torch.Generator().manual_seed(p)) + 1
+                 ).to(torch.int32).cuda()
+        used = pages_for(p, PAGE)
+        pad = lambda t: torch.nn.functional.pad(  # noqa: E731
+            t[0], (0, 0, 0, 0, 0, used * PAGE - p))
+        insert_pages(pool, pad(k), pad(v), table[:used], page_size=PAGE)
+        tok = torch.argmax(logits[0, -1:].float(), -1).to(torch.int32)
+        same = True
+        for i in range(n):
+            pos = torch.tensor([p + i], dtype=torch.int32, device="cuda")
+            a, _ = forward_decode(params, tok, dense, pos, num_heads=heads)
+            b, _ = forward_decode_paged(params, tok, pool, pos, table[None],
+                                        num_heads=heads)
+            same = same and torch.equal(a, b)
+            tok = torch.argmax(a.float(), -1).to(torch.int32)
+    return same, n
+
+
+def _fd_counts(fd):
+    """The decode kernel's counters, named apart from the flash ones."""
+    return {"fd_launches": fd.launches, "launches_bf16_fd": fd.launches_bf16,
+            "launches_int8": fd.launches_int8,
+            "launches_multi_query": fd.launches_multi_query,
+            "launches_verify": fd.launches_verify}
+
+
+def _zero_counters(fa, fd):
+    for c in FA_COUNTERS:
+        setattr(fa, c, 0)
+    fd.launches = fd.launches_bf16 = fd.launches_int8 = 0
+    fd.launches_multi_query = fd.launches_verify = 0
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1662,13 +2415,18 @@ def main() -> int:
         k4b = phase_k4b(torch, F, fd, card)
         k4c = phase_k4c(torch, fd, card)
         k4v = phase_k4v(torch, F, fd, card)
+        k4_bf16, k4_int8_bf16q = phase_k4_bf16(torch, F, fd, card)
         phase_int_mm(torch, card)
         served, dense_engine, dense = phase_serve(torch, np, fa, fd, card)
         paged = phase_serve_paged(torch, np, fa, fd, card, dense_engine)
         spec = phase_serve_spec(torch, np, fa, fd, card, dense_engine.params,
                                 dense_engine, dense, paged)
+        served_bf16 = phase_serve_bf16(torch, np, fa, fd, card, dense_engine.params,
+                                       dense, paged)
         del dense_engine
         torch.cuda.empty_cache()
+        headdim = phase_headdim(torch, F, fa, fd, card)
+        defaults = phase_default_geometries(torch, np, fa, fd, card)
         bwd = phase_bwd(torch, F, fa, card)
         bwd_bf16 = phase_bwd_bf16(torch, F, fa, card)
         phase_grad_parity(torch, np)
@@ -1719,7 +2477,9 @@ def main() -> int:
         dict(name="flash_attention_fwd_bf16", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_attention.py:160",
-             launches=trained_bf16["flash_attention_fwd"], **k1_bf16),
+             launches=trained_bf16["flash_attention_fwd"],
+             launches_by_path={"train": trained_bf16["flash_attention_fwd"],
+                               "serve_bf16": served_bf16["k1_bf16"]}, **k1_bf16),
         dict(name="flash_attention_bwd_dq_bf16", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_attention.py:335",
@@ -1728,7 +2488,27 @@ def main() -> int:
              source="distributeddeeplearning_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_attention.py:355",
              launches=trained_bf16["flash_attention_bwd_dkv"], **bwd_bf16["dkv"]),
+        dict(name="flash_decode_bf16", route="cuda",
+             source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
+             replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
+             launches=sum(served_bf16["decode_bf16"].values()),
+             launches_by_path={f"serve_bf16_{n}": c
+                               for n, c in served_bf16["decode_bf16"].items()},
+             **k4_bf16),
+        dict(name="flash_decode_int8_bf16q", route="cuda",
+             source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
+             replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
+             launches=served_bf16["int8_bf16q"], **k4_int8_bf16q),
     ]
+    # each kernel at head dims 16 and 32: held and timed in phase_headdim,
+    # launched on the main paths of the reference's default geometries
+    # (`ddlt serve` at 16, the LM workload at 32) where one runs it
+    for row in rows:
+        row["head_dims"] = {
+            str(d): {**entry, "launches": defaults[d].get(row["name"], 0)}
+            for d, entry in headdim.get(row["name"], {}).items()}
+    log(f"[timer] windows timed by CUDA events for want of profiler device "
+        f"time: {len(EVENT_TIMED)}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,12 @@
 // row's values sit in the four lanes of one quad, and a C tile rounded to
 // bf16 is, pair for pair, the A operand of the next product.
 //
-// Tiles are staged in shared memory as rows of D = 64 bf16 padded to
-// LDS = 72 (144 bytes): the eight 16-byte rows one ldmatrix phase reads
-// then fall on eight different groups of four banks, and every row start
-// stays 16-byte aligned for cp.async and ldmatrix.
+// Tiles are staged in shared memory as rows of D bf16 (the head dim: 16,
+// 32 or 64, a multiple of the 16-deep k-step) padded to LDS = D + 8
+// elements (48, 80 or 144 bytes): the eight 16-byte rows one ldmatrix
+// phase reads then fall on eight different groups of four banks (row r
+// starts at bank 4 * (r * (D / 8 + 1) mod 8), and D / 8 + 1 is odd), and
+// every row start stays 16-byte aligned for cp.async and ldmatrix.
 
 #pragma once
 
@@ -24,8 +26,11 @@
 
 namespace bf16mma {
 
-constexpr int D = 64;        // head dim
-constexpr int LDS = D + 8;   // padded shared-memory row, in elements
+// the padded shared-memory row of a head-dim-D tile, in elements
+template <int D>
+struct Tile {
+  static constexpr int LDS = D + 8;
+};
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -53,11 +58,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows [r0, r0 + ROWS) of a strided [S, D] head slice into a [ROWS][LDS]
-// tile, 16 bytes a copy; rows past S are zero.  Needs a 16-byte aligned
-// base and a row stride that is a multiple of 8 elements (the wrapper
-// checks both).
-template <int ROWS, int THREADS>
+// Rows [r0, r0 + ROWS) of a strided [S, D] head slice into a
+// [ROWS][Tile<D>::LDS] tile, 16 bytes a copy; rows past S are zero.  Needs a
+// 16-byte aligned base and a row stride that is a multiple of 8 elements
+// (the wrapper checks both).
+template <int ROWS, int THREADS, int D>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
                                                 long long stride, int r0,
                                                 int S, int tid) {
@@ -67,7 +72,7 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
     const int c = (f % (D / 8)) * 8;
     const bool ok = r0 + r < S;
     const bf16* g = ok ? src + (long long)(r0 + r) * stride + c : src;
-    cp_async16(dst + r * LDS + c, g, ok);
+    cp_async16(dst + r * Tile<D>::LDS + c, g, ok);
   }
 }
 
@@ -120,6 +125,7 @@ __device__ __forceinline__ void a_from_c(uint32_t (&a)[4],
 // Address of this lane's row for an A-operand ldmatrix.x4 (16 rows from
 // row0, 16 columns from col0) of a [*][LDS] tile: matrices (rows 0-7,
 // cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) = a0..a3.
+template <int LDS>
 __device__ __forceinline__ const bf16* a_addr(const bf16* tile, int row0,
                                               int col0, int lane) {
   return tile + (row0 + (lane & 15)) * LDS + col0 + (lane >> 4) * 8;
@@ -128,6 +134,7 @@ __device__ __forceinline__ const bf16* a_addr(const bf16* tile, int row0,
 // Address for a B-operand ldmatrix.x4 when the tile stores B^T row-major
 // ([n][k], e.g. K for S = Q K^T): two n-tiles (n0, n0+8) of one k-step
 // (16 columns from k0); returns b0, b1 of n-tile n0 then of n0+8.
+template <int LDS>
 __device__ __forceinline__ const bf16* bt_addr(const bf16* tile, int n0,
                                                int k0, int lane) {
   return tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDS + k0 +
@@ -137,6 +144,7 @@ __device__ __forceinline__ const bf16* bt_addr(const bf16* tile, int n0,
 // Address for a B-operand ldmatrix.x4.trans when the tile stores B
 // row-major ([k][n], e.g. V for O = P V): k-step rows k0..k0+15, two
 // n-tiles (n0, n0+8); returns b0, b1 of n-tile n0 then of n0+8.
+template <int LDS>
 __device__ __forceinline__ const bf16* b_addr_t(const bf16* tile, int k0,
                                                 int n0, int lane) {
   return tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + n0 +

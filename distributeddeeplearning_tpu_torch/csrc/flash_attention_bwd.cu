@@ -22,6 +22,13 @@
 // both passes recompute S = Q K^T and dP = dO V^T: 14 D operations per
 // visible (query, key) pair instead of the 10 D of the five products.
 //
+// Head dim.  Every kernel here is a template on the head dim D, built for
+// D in {16, 32, 64}; the entry points take D and refuse any other value
+// with cudaErrorInvalidValue.  A thread of the f32 kernels owns the D/16
+// columns tx + 16 j of its rows; the bf16 kernels run D/16 k-steps over
+// the head dim and keep D/8 n-tiles of each gradient.  At D = 64 the
+// arithmetic is the one the kernels had before they took D.
+//
 // Layout.  q, k and v arrive as the strided [B, S, H, D] views of the
 // model's qkv projection (batch, seq and head strides, last dim
 // contiguous), dO likewise; they are read in place.  dQ, dK and dV are
@@ -33,8 +40,8 @@
 // flops (14 D per visible pair): they are bound by operations.  They use
 // plain FMA on CUDA cores (67 TFLOP/s f32 peak), not TF32 mma, to keep the
 // f32 parity the port is held to; the tiles live in (dynamic) shared memory
-// and each thread keeps a 4 x 4 register block of each accumulator and a
-// 4 x 2 block of each score tile.  wgmma, TMA pipelining and bf16 are
+// and each thread keeps a 4 x D/16 register block of each accumulator and
+// a 4 x 2 block of each score tile.  wgmma, TMA pipelining and bf16 are
 // later work.
 
 #include <cuda_runtime.h>
@@ -44,15 +51,15 @@
 
 namespace {
 
-constexpr int D = 64;          // head dim (the wrapper rejects others)
 constexpr int BR = 64;         // rows owned by a block (queries or keys)
 constexpr int BC = 32;         // rows of the streamed tile
 constexpr int THREADS = 256;   // 16 row groups x 16 lanes
-constexpr int LD = D + 1;      // padded row: conflict-free column reads
 constexpr int LDP = BC + 1;
 
-// Load rows [r0, r0 + rows) of a strided [S, D] head slice into smem with
-// float4 reads; rows past S are zero.
+// Load rows [r0, r0 + rows) of a strided [S, D] head slice into smem rows
+// of D + 1 floats (padded: conflict-free column reads) with float4 reads;
+// rows past S are zero.
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long stride, int r0, int rows,
                                           int S, int tid) {
@@ -63,7 +70,7 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     if (r0 + r < S) {
       x = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * stride + c);
     }
-    float* row = dst + r * LD + c;
+    float* row = dst + r * (D + 1) + c;
     row[0] = x.x; row[1] = x.y; row[2] = x.z; row[3] = x.w;
   }
 }
@@ -76,12 +83,15 @@ struct Strides {
 };
 
 // dQ pass: one block per (b*h, 64-query tile); loop over 32-key tiles.
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     Strides st, float* __restrict__ dq, int H, int S,
                     int causal, float scale) {
+  constexpr int LD = D + 1;
+  constexpr int DJ = D / 16;  // output columns a thread owns
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BR][LD]
   float* dOs = Qs + BR * LD;        // [BR][LD]
@@ -101,17 +111,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * st.k_sb + h * st.k_sh;
   const float* vb = v + b * st.v_sb + h * st.v_sh;
   const float* dob = dout + b * st.do_sb + h * st.do_sh;
-  load_tile(Qs, qb, st.q_ss, q0, BR, S, tid);
-  load_tile(dOs, dob, st.do_ss, q0, BR, S, tid);
+  load_tile<D>(Qs, qb, st.q_ss, q0, BR, S, tid);
+  load_tile<D>(dOs, dob, st.do_ss, q0, BR, S, tid);
 
-  float row_lse[4], row_delta[4], acc[4][4];
+  float row_lse[4], row_delta[4], acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     row_lse[i] = r < S ? lse[(long long)bh * S + r] : 0.f;
     row_delta[i] = r < S ? delta[(long long)bh * S + r] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
 
   const int kend = causal ? min(S, q0 + BR) : S;
@@ -119,8 +129,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < ntiles; ++kt) {
     const int k0 = kt * BC;
     __syncthreads();  // previous tile consumed (and Q, dO staged)
-    load_tile(Ks, kb, st.k_ss, k0, BC, S, tid);
-    load_tile(Vs, vb, st.v_ss, k0, BC, S, tid);
+    load_tile<D>(Ks, kb, st.k_ss, k0, BC, S, tid);
+    load_tile<D>(Vs, vb, st.v_ss, k0, BC, S, tid);
     __syncthreads();
 
     float s[4][2], dp[4][2];
@@ -161,15 +171,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll 4
     for (int c = 0; c < BC; ++c) {
-      float ds[4], kv[4];
+      float ds[4], kv[DJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty * 4 + i) * LDP + c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[c * LD + tx + 16 * j];
+      for (int j = 0; j < DJ; ++j) kv[j] = Ks[c * LD + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ds[i], kv[j], acc[i][j]);
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(ds[i], kv[j], acc[i][j]);
     }
   }
 
@@ -179,18 +189,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (r >= S) continue;
     float* row = dq + (((long long)b * S + r) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) row[tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = acc[i][j];
   }
 }
 
 // dK/dV pass: one block per (b*h, 64-key tile); loop over 32-query tiles,
 // working on transposed [key, query] score tiles.
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      Strides st, float* __restrict__ dk, float* __restrict__ dv,
                      int H, int S, int causal, float scale) {
+  constexpr int LD = D + 1;
+  constexpr int DJ = D / 16;  // output columns a thread owns
   extern __shared__ float smem[];
   float* Ks = smem;                 // [BR][LD]
   float* Vs = Ks + BR * LD;         // [BR][LD]
@@ -213,14 +226,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * st.k_sb + h * st.k_sh;
   const float* vb = v + b * st.v_sb + h * st.v_sh;
   const float* dob = dout + b * st.do_sb + h * st.do_sh;
-  load_tile(Ks, kb, st.k_ss, k0, BR, S, tid);
-  load_tile(Vs, vb, st.v_ss, k0, BR, S, tid);
+  load_tile<D>(Ks, kb, st.k_ss, k0, BR, S, tid);
+  load_tile<D>(Vs, vb, st.v_ss, k0, BR, S, tid);
 
-  float dk_acc[4][4], dv_acc[4][4];
+  float dk_acc[4][DJ], dv_acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) { dk_acc[i][j] = 0.f; dv_acc[i][j] = 0.f; }
+    for (int j = 0; j < DJ; ++j) { dk_acc[i][j] = 0.f; dv_acc[i][j] = 0.f; }
 
   // causal: query tiles that end before the block's first key see none of it
   const int qstart = causal ? k0 / BC : 0;
@@ -228,8 +241,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int qt = qstart; qt < ntiles; ++qt) {
     const int q0 = qt * BC;
     __syncthreads();  // previous tile consumed (and K, V staged)
-    load_tile(Qs, qb, st.q_ss, q0, BC, S, tid);
-    load_tile(dOs, dob, st.do_ss, q0, BC, S, tid);
+    load_tile<D>(Qs, qb, st.q_ss, q0, BC, S, tid);
+    load_tile<D>(dOs, dob, st.do_ss, q0, BC, S, tid);
     if (tid < BC) {
       const int r = q0 + tid;
       Ls[tid] = r < S ? lse[(long long)bh * S + r] : 0.f;
@@ -277,21 +290,21 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll 4
     for (int c = 0; c < BC; ++c) {
-      float pv[4], dsv[4], gv[4], qv[4];
+      float pv[4], dsv[4], gv[DJ], qv[DJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         pv[i] = Ps[(ty * 4 + i) * LDP + c];
         dsv[i] = dSs[(ty * 4 + i) * LDP + c];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < DJ; ++j) {
         gv[j] = dOs[c * LD + tx + 16 * j];
         qv[j] = Qs[c * LD + tx + 16 * j];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < DJ; ++j) {
           dv_acc[i][j] = fmaf(pv[i], gv[j], dv_acc[i][j]);
           dk_acc[i][j] = fmaf(dsv[i], qv[j], dk_acc[i][j]);
         }
@@ -304,20 +317,59 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (c >= S) continue;
     const long long off = (((long long)b * S + c) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < DJ; ++j) {
       dk[off + tx + 16 * j] = dk_acc[i][j];
       dv[off + tx + 16 * j] = dv_acc[i][j];
     }
   }
 }
 
-constexpr size_t DQ_SMEM = sizeof(float) * (2 * BR * LD + 2 * BC * LD + BR * LDP);
-constexpr size_t DKV_SMEM =
-    sizeof(float) * (2 * BR * LD + 2 * BC * LD + 2 * BR * LDP + 2 * BC);
+template <int D>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (2 * BR * (D + 1) + 2 * BC * (D + 1) + BR * LDP);
+}
+template <int D>
+constexpr size_t dkv_smem() {
+  return sizeof(float) *
+         (2 * BR * (D + 1) + 2 * BC * (D + 1) + 2 * BR * LDP + 2 * BC);
+}
 
 Strides make_strides(const long long* s) {
   return Strides{s[0], s[1], s[2], s[3], s[4], s[5],
                  s[6], s[7], s[8], s[9], s[10], s[11]};
+}
+
+template <int D>
+int launch_dq_f32(const float* q, const float* k, const float* v,
+                  const float* dout, const float* lse, const float* delta,
+                  const Strides& st, float* dq, int B, int H, int S,
+                  int causal, float scale, cudaStream_t stream) {
+  // above 48 KB a block's shared memory must be asked for explicitly
+  constexpr size_t smem = dq_smem<D>();
+  const cudaError_t set = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid((S + BR - 1) / BR, B * H);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
+      q, k, v, dout, lse, delta, st, dq, H, S, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_f32(const float* q, const float* k, const float* v,
+                   const float* dout, const float* lse, const float* delta,
+                   const Strides& st, float* dk, float* dv, int B, int H,
+                   int S, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem<D>();
+  const cudaError_t set = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid((S + BR - 1) / BR, B * H);
+  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
+      q, k, v, dout, lse, delta, st, dk, dv, H, S, causal, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -326,30 +378,45 @@ Strides make_strides(const long long* s) {
 extern "C" int flash_attention_bwd_dq_f32(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* delta, const long long* strides,
-    float* dq, int B, int H, int S, int causal, float scale, void* stream) {
-  // above 48 KB a block's shared memory must be asked for explicitly
-  const cudaError_t set = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid((S + BR - 1) / BR, B * H);
-  flash_bwd_dq_kernel<<<grid, THREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, dout, lse, delta, make_strides(strides), dq, H, S, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+    float* dq, int B, int H, int S, int D, int causal, float scale,
+    void* stream) {
+  const Strides st = make_strides(strides);
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_dq_f32<16>(q, k, v, dout, lse, delta, st, dq, B, H, S,
+                               causal, scale, cs);
+    case 32:
+      return launch_dq_f32<32>(q, k, v, dout, lse, delta, st, dq, B, H, S,
+                               causal, scale, cs);
+    case 64:
+      return launch_dq_f32<64>(q, k, v, dout, lse, delta, st, dq, B, H, S,
+                               causal, scale, cs);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int flash_attention_bwd_dkv_f32(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* delta, const long long* strides,
-    float* dk, float* dv, int B, int H, int S, int causal, float scale,
+    float* dk, float* dv, int B, int H, int S, int D, int causal, float scale,
     void* stream) {
-  // above 48 KB a block's shared memory must be asked for explicitly
-  const cudaError_t set = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid((S + BR - 1) / BR, B * H);
-  flash_bwd_dkv_kernel<<<grid, THREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, dout, lse, delta, make_strides(strides), dk, dv, H, S, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const Strides st = make_strides(strides);
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_dkv_f32<16>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
+                                S, causal, scale, cs);
+    case 32:
+      return launch_dkv_f32<32>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
+                                S, causal, scale, cs);
+    case 64:
+      return launch_dkv_f32<64>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
+                                S, causal, scale, cs);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -386,13 +453,13 @@ extern "C" int flash_attention_bwd_dkv_f32(
 namespace {
 
 using bf16mma::bf16;
-using bf16mma::LDS;
 
 constexpr int BR16 = 64;        // rows a block owns (queries or keys)
 constexpr int BKQ16 = 64;       // keys a tile of the dQ pass
 constexpr int BQK16 = 32;       // queries a tile of the dK/dV pass
 constexpr int THREADS16 = 128;  // 4 warps, 16 owned rows each
 
+template <int D>
 __global__ void __launch_bounds__(THREADS16)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -402,6 +469,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          bf16* __restrict__ dq, int H, int S, int causal,
                          float scale) {
   namespace m = bf16mma;
+  constexpr int LDS = m::Tile<D>::LDS;
+  constexpr int KD = D / 16;  // k-steps over the head dim
   __shared__ __align__(16) bf16 Qs[BR16 * LDS];
   __shared__ __align__(16) bf16 dOs[BR16 * LDS];
   __shared__ __align__(16) bf16 Ks[BKQ16 * LDS];
@@ -423,8 +492,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * st.k_sb + h * st.k_sh;
   const bf16* vb = v + b * st.v_sb + h * st.v_sh;
   const bf16* dob = dout + b * st.do_sb + h * st.do_sh;
-  m::load_tile_async<BR16, THREADS16>(Qs, qb, st.q_ss, q0, S, tid);
-  m::load_tile_async<BR16, THREADS16>(dOs, dob, st.do_ss, q0, S, tid);
+  m::load_tile_async<BR16, THREADS16, D>(Qs, qb, st.q_ss, q0, S, tid);
+  m::load_tile_async<BR16, THREADS16, D>(dOs, dob, st.do_ss, q0, S, tid);
   m::cp_async_commit();
 
   float row_lse[2], row_delta[2];  // lse in base 2
@@ -436,16 +505,16 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   m::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[4][4], gf[4][4];
+  uint32_t qf[KD][4], gf[KD][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    m::ldsm_x4(qf[kk], m::a_addr(Qs, warp * 16, kk * 16, lane));
-    m::ldsm_x4(gf[kk], m::a_addr(dOs, warp * 16, kk * 16, lane));
+  for (int kk = 0; kk < KD; ++kk) {
+    m::ldsm_x4(qf[kk], m::a_addr<LDS>(Qs, warp * 16, kk * 16, lane));
+    m::ldsm_x4(gf[kk], m::a_addr<LDS>(dOs, warp * 16, kk * 16, lane));
   }
 
-  float acc[8][4];
+  float acc[2 * KD][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < 2 * KD; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -454,8 +523,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kt = 0; kt < ntiles; ++kt) {
     const int k0 = kt * BKQ16;
     __syncthreads();  // every warp is done with the previous K and V
-    m::load_tile_async<BKQ16, THREADS16>(Ks, kb, st.k_ss, k0, S, tid);
-    m::load_tile_async<BKQ16, THREADS16>(Vs, vb, st.v_ss, k0, S, tid);
+    m::load_tile_async<BKQ16, THREADS16, D>(Ks, kb, st.k_ss, k0, S, tid);
+    m::load_tile_async<BKQ16, THREADS16, D>(Vs, vb, st.v_ss, k0, S, tid);
     m::cp_async_commit();
     m::cp_async_wait<0>();
     __syncthreads();
@@ -467,12 +536,12 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) { s[n][e] = 0.f; dp[n][e] = 0.f; }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4], bv[4];
-        m::ldsm_x4(bk, m::bt_addr(Ks, np * 16, kk * 16, lane));
-        m::ldsm_x4(bv, m::bt_addr(Vs, np * 16, kk * 16, lane));
+        m::ldsm_x4(bk, m::bt_addr<LDS>(Ks, np * 16, kk * 16, lane));
+        m::ldsm_x4(bv, m::bt_addr<LDS>(Vs, np * 16, kk * 16, lane));
         m::mma(s[2 * np], qf[kk], bk[0], bk[1]);
         m::mma(s[2 * np + 1], qf[kk], bk[2], bk[3]);
         m::mma(dp[2 * np], gf[kk], bv[0], bv[1]);
@@ -497,9 +566,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t da[4];
       m::a_from_c(da, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int dp2 = 0; dp2 < 4; ++dp2) {
+      for (int dp2 = 0; dp2 < KD; ++dp2) {
         uint32_t bk[4];
-        m::ldsm_x4_t(bk, m::b_addr_t(Ks, kk * 16, dp2 * 16, lane));
+        m::ldsm_x4_t(bk, m::b_addr_t<LDS>(Ks, kk * 16, dp2 * 16, lane));
         m::mma(acc[2 * dp2], da, bk[0], bk[1]);
         m::mma(acc[2 * dp2 + 1], da, bk[2], bk[3]);
       }
@@ -510,15 +579,16 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int r = wrow + g + i * 8;
     if (r >= S) continue;
-    bf16* row = dq + (((long long)b * S + r) * H + h) * m::D;
+    bf16* row = dq + (((long long)b * S + r) * H + h) * D;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < 2 * KD; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * t) =
           __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
     }
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(THREADS16)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
@@ -528,6 +598,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
                           int S, int causal, float scale) {
   namespace m = bf16mma;
+  constexpr int LDS = m::Tile<D>::LDS;
+  constexpr int KD = D / 16;  // k-steps over the head dim
   __shared__ __align__(16) bf16 Ks[BR16 * LDS];
   __shared__ __align__(16) bf16 Vs[BR16 * LDS];
   __shared__ __align__(16) bf16 Qs[BQK16 * LDS];
@@ -551,21 +623,21 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const bf16* kb = k + b * st.k_sb + h * st.k_sh;
   const bf16* vb = v + b * st.v_sb + h * st.v_sh;
   const bf16* dob = dout + b * st.do_sb + h * st.do_sh;
-  m::load_tile_async<BR16, THREADS16>(Ks, kb, st.k_ss, k0, S, tid);
-  m::load_tile_async<BR16, THREADS16>(Vs, vb, st.v_ss, k0, S, tid);
+  m::load_tile_async<BR16, THREADS16, D>(Ks, kb, st.k_ss, k0, S, tid);
+  m::load_tile_async<BR16, THREADS16, D>(Vs, vb, st.v_ss, k0, S, tid);
   m::cp_async_commit();
   m::cp_async_wait<0>();
   __syncthreads();
-  uint32_t kf[4][4], vf[4][4];
+  uint32_t kf[KD][4], vf[KD][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    m::ldsm_x4(kf[kk], m::a_addr(Ks, warp * 16, kk * 16, lane));
-    m::ldsm_x4(vf[kk], m::a_addr(Vs, warp * 16, kk * 16, lane));
+  for (int kk = 0; kk < KD; ++kk) {
+    m::ldsm_x4(kf[kk], m::a_addr<LDS>(Ks, warp * 16, kk * 16, lane));
+    m::ldsm_x4(vf[kk], m::a_addr<LDS>(Vs, warp * 16, kk * 16, lane));
   }
 
-  float dk_acc[8][4], dv_acc[8][4];
+  float dk_acc[2 * KD][4], dv_acc[2 * KD][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < 2 * KD; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) { dk_acc[n][e] = 0.f; dv_acc[n][e] = 0.f; }
 
@@ -575,8 +647,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int qt = qstart; qt < ntiles; ++qt) {
     const int q0 = qt * BQK16;
     __syncthreads();  // every warp is done with the previous Q, dO, Ls, Es
-    m::load_tile_async<BQK16, THREADS16>(Qs, qb, st.q_ss, q0, S, tid);
-    m::load_tile_async<BQK16, THREADS16>(dOs, dob, st.do_ss, q0, S, tid);
+    m::load_tile_async<BQK16, THREADS16, D>(Qs, qb, st.q_ss, q0, S, tid);
+    m::load_tile_async<BQK16, THREADS16, D>(dOs, dob, st.do_ss, q0, S, tid);
     m::cp_async_commit();
     if (tid < BQK16) {
       const int r = q0 + tid;
@@ -593,12 +665,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int e = 0; e < 4; ++e) { sp[n][e] = 0.f; dsp[n][e] = 0.f; }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
       for (int np = 0; np < 2; ++np) {
         uint32_t bq[4], bg[4];
-        m::ldsm_x4(bq, m::bt_addr(Qs, np * 16, kk * 16, lane));
-        m::ldsm_x4(bg, m::bt_addr(dOs, np * 16, kk * 16, lane));
+        m::ldsm_x4(bq, m::bt_addr<LDS>(Qs, np * 16, kk * 16, lane));
+        m::ldsm_x4(bg, m::bt_addr<LDS>(dOs, np * 16, kk * 16, lane));
         m::mma(sp[2 * np], kf[kk], bq[0], bq[1]);
         m::mma(sp[2 * np + 1], kf[kk], bq[2], bq[3]);
         m::mma(dsp[2 * np], vf[kk], bg[0], bg[1]);
@@ -624,10 +696,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       m::a_from_c(pa, sp[2 * kk], sp[2 * kk + 1]);
       m::a_from_c(da, dsp[2 * kk], dsp[2 * kk + 1]);
 #pragma unroll
-      for (int dp2 = 0; dp2 < 4; ++dp2) {
+      for (int dp2 = 0; dp2 < KD; ++dp2) {
         uint32_t bg[4], bq[4];
-        m::ldsm_x4_t(bg, m::b_addr_t(dOs, kk * 16, dp2 * 16, lane));
-        m::ldsm_x4_t(bq, m::b_addr_t(Qs, kk * 16, dp2 * 16, lane));
+        m::ldsm_x4_t(bg, m::b_addr_t<LDS>(dOs, kk * 16, dp2 * 16, lane));
+        m::ldsm_x4_t(bq, m::b_addr_t<LDS>(Qs, kk * 16, dp2 * 16, lane));
         m::mma(dv_acc[2 * dp2], pa, bg[0], bg[1]);
         m::mma(dv_acc[2 * dp2 + 1], pa, bg[2], bg[3]);
         m::mma(dk_acc[2 * dp2], da, bq[0], bq[1]);
@@ -640,9 +712,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int i = 0; i < 2; ++i) {
     const int key = wkey + g + i * 8;
     if (key >= S) continue;
-    const long long off = (((long long)b * S + key) * H + h) * m::D;
+    const long long off = (((long long)b * S + key) * H + h) * D;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < 2 * KD; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + 2 * t) =
           __floats2bfloat162_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + 2 * t) =
@@ -651,33 +723,76 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
+template <int D>
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   const Strides& st, void* dq, int B, int H, int S,
+                   int causal, float scale, cudaStream_t stream) {
+  const dim3 grid((S + BR16 - 1) / BR16, B * H);
+  flash_bwd_dq_bf16_kernel<D><<<grid, THREADS16, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      st, static_cast<bf16*>(dq), H, S, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    const Strides& st, void* dk, void* dv, int B, int H,
+                    int S, int causal, float scale, cudaStream_t stream) {
+  const dim3 grid((S + BR16 - 1) / BR16, B * H);
+  flash_bwd_dkv_bf16_kernel<D><<<grid, THREADS16, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      st, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, causal,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // strides: 12 values, (batch, seq, head) for q, k, v and dO in that order.
 extern "C" int flash_attention_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const long long* strides,
-    void* dq, int B, int H, int S, int causal, float scale, void* stream) {
-  const dim3 grid((S + BR16 - 1) / BR16, B * H);
-  flash_bwd_dq_bf16_kernel<<<grid, THREADS16, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      make_strides(strides), static_cast<bf16*>(dq), H, S, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+    void* dq, int B, int H, int S, int D, int causal, float scale,
+    void* stream) {
+  const Strides st = make_strides(strides);
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_dq_bf16<16>(q, k, v, dout, lse, delta, st, dq, B, H, S,
+                                causal, scale, cs);
+    case 32:
+      return launch_dq_bf16<32>(q, k, v, dout, lse, delta, st, dq, B, H, S,
+                                causal, scale, cs);
+    case 64:
+      return launch_dq_bf16<64>(q, k, v, dout, lse, delta, st, dq, B, H, S,
+                                causal, scale, cs);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int flash_attention_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const long long* strides,
-    void* dk, void* dv, int B, int H, int S, int causal, float scale,
+    void* dk, void* dv, int B, int H, int S, int D, int causal, float scale,
     void* stream) {
-  const dim3 grid((S + BR16 - 1) / BR16, B * H);
-  flash_bwd_dkv_bf16_kernel<<<grid, THREADS16, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      make_strides(strides), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      H, S, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const Strides st = make_strides(strides);
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_dkv_bf16<16>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
+                                 S, causal, scale, cs);
+    case 32:
+      return launch_dkv_bf16<32>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
+                                 S, causal, scale, cs);
+    case 64:
+      return launch_dkv_bf16<64>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
+                                 S, causal, scale, cs);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

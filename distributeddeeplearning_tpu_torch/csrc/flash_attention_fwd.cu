@@ -12,11 +12,20 @@
 // dimension must be contiguous.  O is written [B, S, H, D] contiguous (the
 // model reshapes it to [B, S, H*D] for free); lse is [B, H, S].
 //
+// Head dim.  Every kernel here is a template on the head dim D, built for
+// D in {16, 32, 64} (the reference's defaults: `ddlt serve`'s d 64 over 4
+// heads, the LM trainer's d 256 over 8, the serve and train benchmarks'
+// d 768 over 12); the entry points take D and refuse any other value with
+// cudaErrorInvalidValue, as the wrapper refuses it first.  At D = 64 the
+// arithmetic is the one the kernels had before they took D, operation for
+// operation.
+//
 // Design.  One thread block per (b*h, 64-row query tile); a loop over
 // 32-key tiles inside the block takes the place of the TPU grid's
 // sequential k axis.  Q, K and V tiles are staged in shared memory, the
 // running (m, l, acc) live in registers (each of the 256 threads owns 4
-// query rows x 4 output columns, and 4 x 2 scores of each tile).  With
+// query rows x D/16 output columns -- columns tx + 16 j -- and 4 x 2
+// scores of each tile).  With
 // causal masking the loop stops at the tile holding the block's last
 // query row (the whole-tile skip above the diagonal); the tiles it does
 // visit are masked elementwise with the finite -1e30 fill, never -inf, as
@@ -39,12 +48,12 @@
 
 namespace {
 
-constexpr int D = 64;          // head dim (the wrapper rejects others)
 constexpr int BQ = 64;         // query rows per block
 constexpr int BK = 32;         // keys per inner tile
 constexpr int THREADS = 256;   // 16 row groups x 16 lanes
 constexpr float NEG_BIG = -1e30f;
 
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
@@ -53,6 +62,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  long long v_sb, long long v_ss, long long v_sh,
                  float* __restrict__ o, float* __restrict__ lse,
                  int H, int S, int causal, float scale) {
+  constexpr int DJ = D / 16;  // output columns a thread owns
   __shared__ float Qs[BQ][D + 1];
   __shared__ float Ks[BK][D + 1];
   __shared__ __align__(16) float Vs[BK][D];
@@ -80,13 +90,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     Qs[r][c] = x.x; Qs[r][c + 1] = x.y; Qs[r][c + 2] = x.z; Qs[r][c + 3] = x.w;
   }
 
-  float m[4], l[4], acc[4][4];
+  float m[4], l[4], acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
 
   // causal: keys past the block's last query row are never visible
@@ -149,7 +159,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
       l[i] = l[i] * corr + rs;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
       m[i] = m_new;
       Ps[ty * 4 + i][tx] = p0;
       Ps[ty * 4 + i][tx + 16] = p1;
@@ -158,15 +168,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
-      float pv[4], vv[4];
+      float pv[4], vv[DJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[ty * 4 + i][c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[c][tx + 16 * j];
+      for (int j = 0; j < DJ; ++j) vv[j] = Vs[c][tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
 
@@ -177,9 +187,23 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float ll = fmaxf(l[i], 1e-30f);  // fully-masked rows stay finite
     float* orow = o + (((long long)b * S + r) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) orow[tx + 16 * j] = acc[i][j] / ll;
+    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[i][j] / ll;
     if (tx == 0) lse[((long long)b * H + h) * S + r] = m[i] + logf(ll);
   }
+}
+
+template <int D>
+int launch_fwd_f32(const float* q, const float* k, const float* v,
+                   long long q_sb, long long q_ss, long long q_sh,
+                   long long k_sb, long long k_ss, long long k_sh,
+                   long long v_sb, long long v_ss, long long v_sh, float* o,
+                   float* lse, int B, int H, int S, int causal, float scale,
+                   cudaStream_t stream) {
+  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  flash_fwd_kernel<D><<<grid, THREADS, 0, stream>>>(
+      q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o, lse,
+      H, S, causal, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -189,13 +213,25 @@ extern "C" int flash_attention_fwd_f32(
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    float* o, float* lse, int B, int H, int S, int causal, float scale,
+    float* o, float* lse, int B, int H, int S, int D, int causal, float scale,
     void* stream) {
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o, lse,
-      H, S, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_fwd_f32<16>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
+                                scale, st);
+    case 32:
+      return launch_fwd_f32<32>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
+                                scale, st);
+    case 64:
+      return launch_fwd_f32<64>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
+                                scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -207,11 +243,12 @@ extern "C" int flash_attention_fwd_f32(
 // (exp2 of scores pre-scaled by log2 e), as the Pallas kernel does.
 //
 // Design.  One block of 4 warps per (b*h, 64-row query tile); each warp owns
-// 16 query rows and keeps its Q fragments, its 16 x 64 f32 output tile and
-// its rows' (m, l) in registers.  A loop over 64-key tiles stages K and V in
+// 16 query rows and keeps its Q fragments (D/16 k-steps), its 16 x D f32
+// output tile (D/8 n-tiles of 8 columns) and its rows' (m, l) in registers.  A loop over 64-key tiles stages K and V in
 // shared memory with cp.async (V's copy overlaps the S product); S = Q K^T
 // and O += P V are mma.sync m16n8k16 bf16 products, B operands read with
-// ldmatrix (.trans for V).  S's accumulator is rounded in registers into
+// ldmatrix (.trans for V); at D = 16, Q K^T is a single k-step and P V two
+// n-tiles.  S's accumulator is rounded in registers into
 // P's A operand, so P never touches shared memory.  Row max and row sum
 // reduce over the four lanes of a quad.  With causal masking the loop stops
 // at the block's diagonal tile, a warp skips tiles wholly above its own
@@ -227,12 +264,12 @@ extern "C" int flash_attention_fwd_f32(
 namespace {
 
 using bf16mma::bf16;
-using bf16mma::LDS;
 
 constexpr int BQ16 = 64;        // query rows a block (16 a warp)
 constexpr int BK16 = 64;        // keys a tile
 constexpr int THREADS16 = 128;  // 4 warps
 
+template <int D>
 __global__ void __launch_bounds__(THREADS16)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -242,6 +279,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       bf16* __restrict__ o, float* __restrict__ lse,
                       int H, int S, int causal, float scale_log2) {
   namespace m = bf16mma;
+  constexpr int LDS = m::Tile<D>::LDS;
+  constexpr int KD = D / 16;  // k-steps of Q K^T, n-tile pairs of P V
   __shared__ __align__(16) bf16 Qs[BQ16 * LDS];
   __shared__ __align__(16) bf16 Ks[BK16 * LDS];
   __shared__ __align__(16) bf16 Vs[BK16 * LDS];
@@ -261,17 +300,18 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * k_sb + h * k_sh;
   const bf16* vb = v + b * v_sb + h * v_sh;
 
-  m::load_tile_async<BQ16, THREADS16>(Qs, qb, q_ss, q0, S, tid);
+  m::load_tile_async<BQ16, THREADS16, D>(Qs, qb, q_ss, q0, S, tid);
   m::cp_async_commit();
   m::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[4][4];
+  uint32_t qf[KD][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) m::ldsm_x4(qf[kk], m::a_addr(Qs, warp * 16, kk * 16, lane));
+  for (int kk = 0; kk < KD; ++kk)
+    m::ldsm_x4(qf[kk], m::a_addr<LDS>(Qs, warp * 16, kk * 16, lane));
 
-  float acc[8][4];
+  float acc[2 * KD][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < 2 * KD; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float mrow[2] = {-INFINITY, -INFINITY};
@@ -282,9 +322,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kt = 0; kt < ntiles; ++kt) {
     const int k0 = kt * BK16;
     __syncthreads();  // every warp is done with the previous K and V
-    m::load_tile_async<BK16, THREADS16>(Ks, kb, k_ss, k0, S, tid);
+    m::load_tile_async<BK16, THREADS16, D>(Ks, kb, k_ss, k0, S, tid);
     m::cp_async_commit();
-    m::load_tile_async<BK16, THREADS16>(Vs, vb, v_ss, k0, S, tid);
+    m::load_tile_async<BK16, THREADS16, D>(Vs, vb, v_ss, k0, S, tid);
     m::cp_async_commit();
     m::cp_async_wait<1>();  // K has landed; V may still be in flight
     __syncthreads();
@@ -297,11 +337,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t bk[4];
-          m::ldsm_x4(bk, m::bt_addr(Ks, np * 16, kk * 16, lane));
+          m::ldsm_x4(bk, m::bt_addr<LDS>(Ks, np * 16, kk * 16, lane));
           m::mma(s[2 * np], qf[kk], bk[0], bk[1]);
           m::mma(s[2 * np + 1], qf[kk], bk[2], bk[3]);
         }
@@ -334,9 +374,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           s[n][e] = exp2f(s[n][e] - mrow[e >> 1]);
           lrow[e >> 1] += s[n][e];
-          acc[n][e] *= corr[e >> 1];
         }
       }
+#pragma unroll
+      for (int n = 0; n < 2 * KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
     }
     m::cp_async_wait<0>();
     __syncthreads();  // V has landed
@@ -346,9 +389,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t pa[4];
         m::a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-        for (int dp = 0; dp < 4; ++dp) {
+        for (int dp = 0; dp < KD; ++dp) {
           uint32_t bv[4];
-          m::ldsm_x4_t(bv, m::b_addr_t(Vs, kk * 16, dp * 16, lane));
+          m::ldsm_x4_t(bv, m::b_addr_t<LDS>(Vs, kk * 16, dp * 16, lane));
           m::mma(acc[2 * dp], pa, bv[0], bv[1]);
           m::mma(acc[2 * dp + 1], pa, bv[2], bv[3]);
         }
@@ -363,9 +406,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = wrow + g + i * 8;
     if (r >= S) continue;
     const float ll = fmaxf(lrow[i], 1e-30f);  // fully-masked rows stay finite
-    bf16* orow = o + (((long long)b * S + r) * H + h) * bf16mma::D;
+    bf16* orow = o + (((long long)b * S + r) * H + h) * D;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < 2 * KD; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
           __floats2bfloat162_rn(acc[n][2 * i] / ll, acc[n][2 * i + 1] / ll);
     }
@@ -376,6 +419,22 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D>
+int launch_fwd_bf16(const void* q, const void* k, const void* v,
+                    long long q_sb, long long q_ss, long long q_sh,
+                    long long k_sb, long long k_ss, long long k_sh,
+                    long long v_sb, long long v_ss, long long v_sh, void* o,
+                    float* lse, int B, int H, int S, int causal, float scale,
+                    cudaStream_t stream) {
+  const dim3 grid((S + BQ16 - 1) / BQ16, B * H);
+  flash_fwd_bf16_kernel<D><<<grid, THREADS16, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+      v_ss, v_sh, static_cast<bf16*>(o), lse, H, S, causal,
+      scale * bf16mma::LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int flash_attention_fwd_bf16(
@@ -383,14 +442,23 @@ extern "C" int flash_attention_fwd_bf16(
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    void* o, float* lse, int B, int H, int S, int causal, float scale,
+    void* o, float* lse, int B, int H, int S, int D, int causal, float scale,
     void* stream) {
-  const dim3 grid((S + BQ16 - 1) / BQ16, B * H);
-  flash_fwd_bf16_kernel<<<grid, THREADS16, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-      v_ss, v_sh, static_cast<bf16*>(o), lse, H, S, causal,
-      scale * bf16mma::LOG2E);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_fwd_bf16<16>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                 v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
+                                 scale, st);
+    case 32:
+      return launch_fwd_bf16<32>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                 v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
+                                 scale, st);
+    case 64:
+      return launch_fwd_bf16<64>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                 v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
+                                 scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -10,7 +10,9 @@ is the causal flash kernel with ``attention="flash"``),
 :func:`forward_decode` (one token per slot against the dense KV cache),
 :func:`forward_decode_paged` (the same against the page pool) and
 :func:`forward_prefill_chunk` (one prompt chunk against the page pool);
-the last three attend through the decode kernel, on f32 or int8 caches.
+the last three attend through the decode kernel, on f32, bf16 or int8
+caches, and run in the weights' dtype (f32 or bf16): K/V are written in the
+cache's dtype and attention comes back cast to the stream's.
 Where the reference donated the cache to a jitted step, they update the
 cache IN PLACE.
 
@@ -21,8 +23,8 @@ over the sequence so the full logits never exist) and
 flash backward kernels.  The reference's ``unroll`` (an XLA scan-unroll
 compile hint) has no eager counterpart and is not taken.
 
-Pipeline parallelism, sequence-parallel attention, int8 weights and
-speculative verify wait for later slices.
+Pipeline parallelism and sequence-parallel attention wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -95,7 +97,9 @@ def params_from_numpy(tree, device: DeviceLike = None) -> Params:
     as the port's, key for key.  Arrays are copied to ``device``; an int8
     weight (the reference's ``QTensor`` with numpy leaves) becomes the
     port's :class:`QTensor` with the same values, scales, axis and
-    block."""
+    block.  A bf16 leaf (numpy's view of a JAX bf16 array has the
+    ``bfloat16`` extension dtype, which ``torch.from_numpy`` refuses)
+    carries over bit for bit through its 16-bit pattern."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
@@ -103,7 +107,10 @@ def params_from_numpy(tree, device: DeviceLike = None) -> Params:
         return QTensor(params_from_numpy(tree.values, dev),
                        params_from_numpy(tree.scales, dev), tree.axis,
                        tree.block)
-    return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+    arr = np.array(tree, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
 
 
 def _layer_norm(x, scale):

@@ -5,8 +5,10 @@ On CUDA tensors :func:`flash_attention_core` launches hand-written kernels:
 Pallas ``_kernel`` launched by ``_flash_fwd_pallas``) and, when a gradient
 is taken, ``csrc/flash_attention_bwd.cu`` for the backward (the dQ pass and
 the dK/dV pass, counterparts of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
-launched by ``_flash_bwd_pallas``).  Causal or not, head dim 64, any
-sequence length, in either of the two dtypes the Pallas kernels run:
+launched by ``_flash_bwd_pallas``).  Causal or not, head dim 16, 32 or 64
+(:data:`HEAD_DIMS`: the reference's serve, trainer and benchmark
+geometries), any sequence length, in either of the two dtypes the Pallas
+kernels run:
 float32 (SIMT kernels, full f32 arithmetic) or bfloat16 (tensor-core
 kernels, bf16 operands with f32 accumulation).  The dtype picks the entry
 point; all operands share it.  On CPU tensors the same code runs the
@@ -48,7 +50,9 @@ import torch
 from distributeddeeplearning_tpu_torch.ops import _build
 
 NEG_BIG = -1e30  # finite mask fill; -inf poisons the online-softmax max
-HEAD_DIM = 64  # the kernels' head dim
+#: head dims the kernels are built for (bf16 mma.sync takes a head dim
+#: that is a multiple of its 16-deep k-step)
+HEAD_DIMS = (16, 32, 64)
 
 #: f32 forward (K1) kernel launches since the counter was last reset
 launches = 0
@@ -64,9 +68,9 @@ launches_dq_bf16 = 0
 launches_dkv_bf16 = 0
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FWD_ARGS = [_P] * 3 + [_LL] * 9 + [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P]
-_DQ_ARGS = [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P]
-_DKV_ARGS = [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P]
+_FWD_ARGS = [_P] * 3 + [_LL] * 9 + [_P] * 2 + [_I] * 5 + [ctypes.c_float, _P]
+_DQ_ARGS = [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]
+_DKV_ARGS = [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]
 # (pass, dtype) -> (entry point, library, argtypes, launch counter); every
 # entry point returns a cudaError_t
 _ENTRY = {
@@ -189,9 +193,9 @@ def _check_inputs(**named) -> None:
     """Shape, type, layout and device checks shared by the kernels."""
     q = named["q"]
     b, s, h, d = q.shape
-    if d != HEAD_DIM:
+    if d not in HEAD_DIMS:
         raise ValueError(
-            f"flash_attention: the CUDA kernel takes head dim {HEAD_DIM}, "
+            f"flash_attention: the CUDA kernels take head dims {HEAD_DIMS}, "
             f"got {d}"
         )
     for name, t in named.items():
@@ -201,8 +205,8 @@ def _check_inputs(**named) -> None:
 
 
 def _launch(q, k, v, *, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run K1 (f32 or bf16, q's dtype) on [B, S, H, 64] views (strided in
-    place): ``(o [B, S, H, 64] in q's dtype, lse [B, H, S] f32)``."""
+    """Run K1 (f32 or bf16, q's dtype) on [B, S, H, D] views (strided in
+    place): ``(o [B, S, H, D] in q's dtype, lse [B, H, S] f32)``."""
     _check_inputs(q=q, k=k, v=v)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -215,7 +219,7 @@ def _launch(q, k, v, *, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            o.data_ptr(), lse.data_ptr(), b, h, s, int(causal),
+            o.data_ptr(), lse.data_ptr(), b, h, s, d, int(causal),
             1.0 / d ** 0.5, stream,
         )
     _build.check(code, name)
@@ -244,7 +248,7 @@ def _bwd_launch(kind, q, k, v, do, lse, delta, outs, *, causal: bool):
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), ctypes.addressof(strides),
-            *(t.data_ptr() for t in outs), b, h, s, int(causal),
+            *(t.data_ptr() for t in outs), b, h, s, d, int(causal),
             1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(code, name)
@@ -252,9 +256,9 @@ def _bwd_launch(kind, q, k, v, do, lse, delta, outs, *, causal: bool):
 
 
 def _launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool) -> torch.Tensor:
-    """K2, the dQ pass, on [B, S, H, 64] views in one dtype (f32 or bf16);
+    """K2, the dQ pass, on [B, S, H, D] views in one dtype (f32 or bf16);
     ``lse`` and ``delta`` contiguous [B, H, S] f32.  Returns dQ [B, S, H,
-    64] contiguous in q's dtype."""
+    D] contiguous in q's dtype."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), causal=causal)
     return dq

@@ -4,19 +4,25 @@
 ``csrc/flash_decode.cu`` (the counterpart of the Pallas ``_kernel``
 launched by ``_pallas_attention``).  It keeps the TPU kernel's contract —
 queries ``[b, nq, h, hd]``, a page pool addressed through block tables,
-per-query visibility ``posmat [b, nq]`` — in three variants:
+per-query visibility ``posmat [b, nq]`` — in these variants:
 
-- (a) f32 pages, ``nq = 1``: decode (:func:`decode_attention_dense`,
+- (a) ``nq = 1``: decode (:func:`decode_attention_dense`,
   :func:`decode_attention_paged`);
-- (b) f32 pages, ``nq > 1``: the chunked-prefill history
-  (:func:`chunk_attention`, ``b = 1``, ``nq = C``) and speculative verify
+- (b) ``nq > 1``: the chunked-prefill history (:func:`chunk_attention`,
+  ``b = 1``, ``nq = C``) and speculative verify
   (:func:`verify_attention_paged`, :func:`verify_attention_dense`,
   ``b`` slots, ``nq = K + 1``);
 - (c) int8 pages with f32 scales per (position, head), dequantized in the
-  tile; decode also overlays the slot's exact in-flight f32 K/V at its own
+  tile; decode also overlays the slot's exact in-flight K/V at its own
   position (``nq = 1`` only, as the reference); chunked prefill attends
   the cache-roundtripped values of its own chunk too, with no overlay, so
   quantized prefill does not depend on where chunk boundaries fall.
+
+Queries (and the overlay's K/V) are f32 or bf16, pages f32, bf16 or int8,
+in every pairing (the engines serve f32 or bf16 weights over f32, bf16 or
+int8 caches), and the head dim is 16, 32 or 64 (:data:`HEAD_DIMS`).  The
+kernel widens every bf16 value to f32 and computes in f32, as the Pallas
+kernel does; the output is f32.
 
 Every pool is read in place through its strides.  The paged pool's
 per-layer view ``cache["k"][:, layer]`` is [P, ps, h, hd] with page stride
@@ -26,13 +32,17 @@ TPU's ``_dense_as_pages``, with zero data movement).  A ``.contiguous()``
 on either would copy the whole cache once per layer per step.
 
 On a CPU tensor each wrapper runs the kernel's plain version
-(:func:`_paged_attention_plain`, and :func:`_gather_decode_dense` for the
-dense layout); on a CUDA tensor it launches the kernel or raises.
-``kernel="gather"`` forces the plain version on either device (the
-reference's legacy read, ``--decode-kernel gather``).  ``launches`` counts
-kernel launches only; ``launches_int8`` and ``launches_multi_query`` count
-the int8 and the ``nq > 1`` launches among them, ``launches_verify`` the
-verify wrappers' launches.
+(:func:`_paged_attention_plain`, which follows the kernel's arithmetic:
+every operand widened to f32); on a CUDA tensor it launches the kernel or
+raises.  ``kernel="gather"`` runs the reference's legacy read
+(``--decode-kernel gather``, its ``_gather_decode_*``) on either device:
+the same math in f32, and in bf16 the reference's rounding — scores from
+a bf16 product, softmax in f32, probabilities cast to the value dtype, a
+bf16 product.  ``launches`` counts kernel launches only;
+``launches_int8``, ``launches_bf16`` and ``launches_multi_query`` count
+the launches over int8 pages, those with a bf16 query or bf16 pages, and
+those with ``nq > 1`` among them; ``launches_verify`` the verify
+wrappers' launches.
 
 Positions past a query's ``posmat`` are masked in both versions, never
 judged by content: an engine leaves a previous occupant's stale K/V (and a
@@ -50,7 +60,11 @@ from distributeddeeplearning_tpu_torch.ops import _build
 from distributeddeeplearning_tpu_torch.quant.qtensor import dequantize_kv
 
 NEG_BIG = -1e30  # finite mask fill, matching the gather reference
-HEAD_DIM = 64  # the kernel's head dim
+#: head dims the kernel is built for
+HEAD_DIMS = (16, 32, 64)
+#: the kernel's query (and overlay) dtypes, and its page dtypes by code
+QUERY_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: ``--decode-kernel`` choices: "auto" resolves to "flash" (the CUDA
 #: kernel; its plain version on the CPU), "gather" forces the legacy read.
@@ -62,23 +76,19 @@ KERNELS = ("auto", "flash", "gather")
 launches = 0
 #: of those, launches of the int8 variant (c)
 launches_int8 = 0
+#: of those, launches with a bf16 query or bf16 pages
+launches_bf16 = 0
 #: of those, launches with more than one query per slot (variant (b))
 launches_multi_query = 0
 #: of those, launches made by the speculative-verify wrappers (nq = K+1)
 launches_verify = 0
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = {
-    "flash_decode_f32": (
-        [_P] + [_L] * 3 + [_P] * 2 + [_L] * 3
-        + [_P, _I, _I] + [_P] * 2 + [_I] * 3 + [_P]
-    ),
-    "flash_decode_int8": (
-        [_P] + [_L] * 3 + [_P] * 2 + [_L] * 3 + [_P] * 2 + [_L] * 3
-        + [_P] * 2 + [_L] * 2 + [_P, _I, _I] + [_P] * 2 + [_I] * 3 + [_P]
-    ),
-}
-_fns: Dict[str, ctypes._CFuncPtr] = {}
+_ARGTYPES = (
+    [_P, _I] + [_L] * 3 + [_P] * 2 + [_I] + [_L] * 3 + [_P] * 2 + [_L] * 3
+    + [_P] * 2 + [_L] * 2 + [_P, _I, _I] + [_P] * 2 + [_I] * 4 + [_P]
+)
+_fn: Optional[ctypes._CFuncPtr] = None
 _identity_tables: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
 
@@ -91,14 +101,14 @@ def resolve_kernel(kernel: str) -> str:
     return "flash" if kernel == "auto" else kernel
 
 
-def _kernel_fn(name: str):
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(_build.load("flash_decode"), name)
-        fn.argtypes = _ARGTYPES[name]
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        fn = _build.load("flash_decode").flash_decode
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+        _fn = fn
+    return _fn
 
 
 def _sqrt_dim(hd: int, device) -> torch.Tensor:
@@ -106,18 +116,22 @@ def _sqrt_dim(hd: int, device) -> torch.Tensor:
     return torch.sqrt(torch.tensor(float(hd), dtype=torch.float32, device=device))
 
 
-def _check_rows(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
-    """The kernel reads 2 head dims a lane: the head dim contiguous, every
-    other stride even and the base aligned to two elements."""
-    if t.dtype != dtype:
-        raise TypeError(f"paged_attention: {name} is {t.dtype}, needs {dtype}")
-    if t.stride(-1) != 1 or any(st % 2 for st in t.stride()[:-1]):
+def _check_rows(name: str, t: torch.Tensor, dtypes, el: int) -> None:
+    """The kernel reads ``el`` consecutive head dims a lane (2 at head dim
+    64, else 1): the head dim contiguous, every other stride a multiple of
+    ``el`` and the base aligned to ``el`` elements."""
+    if t.dtype not in dtypes:
+        raise TypeError(
+            f"paged_attention: {name} is {t.dtype}, needs one of "
+            f"{[str(d).replace('torch.', '') for d in dtypes]}")
+    if t.stride(-1) != 1 or any(st % el for st in t.stride()[:-1]):
         raise ValueError(
-            f"paged_attention: {name} needs a contiguous head dim and even "
-            f"strides (got {t.stride()})"
+            f"paged_attention: {name} needs a contiguous head dim and "
+            f"strides that are multiples of {el} (got {t.stride()})"
         )
-    if t.data_ptr() % (2 * t.element_size()):
-        raise ValueError(f"paged_attention: {name} is not aligned to 2 elements")
+    if t.data_ptr() % (el * t.element_size()):
+        raise ValueError(
+            f"paged_attention: {name} is not aligned to {el} elements")
 
 
 def _check_index(name: str, t: torch.Tensor, shape) -> None:
@@ -140,11 +154,11 @@ def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor, shape) -> None:
 
 def _launch(q4, k_pages, v_pages, tables, posmat, k_scale, v_scale, k_own,
             v_own) -> torch.Tensor:
-    global launches, launches_int8, launches_multi_query
+    global launches, launches_int8, launches_bf16, launches_multi_query
     b, nq, h, hd = q4.shape
-    if hd != HEAD_DIM:
+    if hd not in HEAD_DIMS:
         raise ValueError(
-            f"paged_attention: the CUDA kernel takes head dim {HEAD_DIM}, "
+            f"paged_attention: the CUDA kernel takes head dims {HEAD_DIMS}, "
             f"got {hd}"
         )
     if k_pages.dim() != 4 or tuple(k_pages.shape[2:]) != (h, hd):
@@ -154,46 +168,44 @@ def _launch(q4, k_pages, v_pages, tables, posmat, k_scale, v_scale, k_own,
         )
     _check_pair("K/V pools", k_pages, v_pages, k_pages.shape)
     int8 = k_scale is not None
-    _check_rows("q", q4, torch.float32)
-    pool_dtype = torch.int8 if int8 else torch.float32
-    _check_rows("k_pages", k_pages, pool_dtype)
-    _check_rows("v_pages", v_pages, pool_dtype)
+    el = 2 if hd == 64 else 1
+    _check_rows("q", q4, QUERY_DTYPES, el)
+    pool_dtypes = (torch.int8,) if int8 else (torch.float32, torch.bfloat16)
+    _check_rows("k_pages", k_pages, pool_dtypes, el)
+    _check_rows("v_pages", v_pages, pool_dtypes, el)
     nb = tables.shape[1] if tables.dim() == 2 else -1
     _check_index("tables", tables, (b, nb))
     _check_index("posmat", posmat, (b, nq))
     operands = [k_pages, v_pages, tables, posmat]
+    own = (None, None, 0, 0)
+    scales = (None, None, 0, 0, 0)
     if int8:
         _check_pair("scale pools", k_scale, v_scale, k_pages.shape[:3])
         if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
             raise TypeError("paged_attention: scale pools must be float32")
         operands += [k_scale, v_scale]
+        scales = (k_scale.data_ptr(), v_scale.data_ptr(), *k_scale.stride())
         if k_own is not None:
             _check_pair("k_own/v_own", k_own, v_own, (b, h, hd))
-            _check_rows("k_own", k_own, torch.float32)
-            _check_rows("v_own", v_own, torch.float32)
+            _check_rows("k_own", k_own, (q4.dtype,), el)
+            _check_rows("v_own", v_own, (q4.dtype,), el)
             operands += [k_own, v_own]
+            own = (k_own.data_ptr(), v_own.data_ptr(), *k_own.stride()[:2])
     if any(t.device != q4.device for t in operands):
         raise ValueError("paged_attention: operands on different devices")
     out = torch.empty((b, nq, h, hd), dtype=torch.float32, device=q4.device)
     with torch.cuda.device(q4.device):
-        stream = torch.cuda.current_stream(q4.device).cuda_stream
-        head = (q4.data_ptr(), *q4.stride()[:3], k_pages.data_ptr(),
-                v_pages.data_ptr(), *k_pages.stride()[:3])
-        tail = (tables.data_ptr(), nb, k_pages.shape[1], posmat.data_ptr(),
-                out.data_ptr(), b, nq, h, stream)
-        if int8:
-            own = ((k_own.data_ptr(), v_own.data_ptr(), *k_own.stride()[:2])
-                   if k_own is not None else (None, None, 0, 0))
-            name = "flash_decode_int8"
-            code = _kernel_fn(name)(
-                *head, k_scale.data_ptr(), v_scale.data_ptr(),
-                *k_scale.stride(), *own, *tail)
-        else:
-            name = "flash_decode_f32"
-            code = _kernel_fn(name)(*head, *tail)
-    _build.check(code, name)
+        code = _kernel_fn()(
+            q4.data_ptr(), QUERY_DTYPES[q4.dtype], *q4.stride()[:3],
+            k_pages.data_ptr(), v_pages.data_ptr(),
+            PAGE_DTYPES[k_pages.dtype], *k_pages.stride()[:3], *scales, *own,
+            tables.data_ptr(), nb, k_pages.shape[1], posmat.data_ptr(),
+            out.data_ptr(), b, nq, h, hd,
+            torch.cuda.current_stream(q4.device).cuda_stream)
+    _build.check(code, "flash_decode")
     launches += 1
     launches_int8 += int8
+    launches_bf16 += torch.bfloat16 in (q4.dtype, k_pages.dtype)
     launches_multi_query += nq > 1
     return out
 
@@ -201,15 +213,29 @@ def _launch(q4, k_pages, v_pages, tables, posmat, k_scale, v_scale, k_own,
 def _attend(q4, k_seq, v_seq, posmat):
     """Masked softmax attention of ``q4`` [b, nq, h, hd] over the dense
     history [b, s, h, hd]: query ``(b, i)`` sees positions ``<=
-    posmat[b, i]`` — the math every plain version shares."""
+    posmat[b, i]``, in the reference's gather arithmetic: the scores'
+    product in the operands' promoted dtype, promoted to f32 before the
+    division by ``sqrt(hd)`` (``jnp`` promotes a bf16 array divided by an
+    f32 one; torch keeps a 0-d f32 divisor's bf16 operand bf16, hence the
+    explicit cast), the softmax in f32, the probabilities cast to the
+    value dtype, and their product in it.  In f32 every cast is the
+    identity."""
     hd = q4.shape[-1]
     s = k_seq.shape[1]
-    scores = torch.einsum("bqhd,bshd->bqhs", q4, k_seq) / _sqrt_dim(hd, q4.device)
+    dt = torch.promote_types(q4.dtype, k_seq.dtype)
+    scores = torch.einsum("bqhd,bshd->bqhs", q4.to(dt), k_seq.to(dt)).float()
+    scores = scores / _sqrt_dim(hd, q4.device)
     cols = torch.arange(s, device=q4.device)
     visible = cols[None, None, :] <= posmat[:, :, None]
     scores = torch.where(visible[:, :, None, :], scores, NEG_BIG)
     attn = torch.softmax(scores, dim=-1).to(v_seq.dtype)
     return torch.einsum("bqhs,bshd->bqhd", attn, v_seq)
+
+
+def _attend_f32(q4, k_seq, v_seq, posmat):
+    """The kernel's arithmetic: every operand widened to f32 (the Pallas
+    kernel's ``astype(f32)``), then :func:`_attend`; returns f32."""
+    return _attend(q4.float(), k_seq.float(), v_seq.float(), posmat)
 
 
 def _overlay(seq, own, posmat):
@@ -235,16 +261,25 @@ def _gather_pages(k_pages, v_pages, tables, k_scale=None, v_scale=None):
             v_seq.reshape(b, s, *v_pages.shape[2:]))
 
 
-def _paged_attention_plain(q4, k_pages, v_pages, tables, posmat,
-                           k_scale=None, v_scale=None, k_own=None, v_own=None):
-    """The kernel's plain version: gather the pages into the dense
-    [b, nb*page_size, h, hd] history (dequantized on an int8 pool, with the
-    own token overlaid when given), then masked softmax attention."""
+def _paged_history(k_pages, v_pages, tables, posmat, k_scale=None,
+                   v_scale=None, k_own=None, v_own=None):
+    """The dense [b, nb*page_size, h, hd] K/V histories the block tables
+    address: dequantized on an int8 pool, with the own token overlaid when
+    given."""
     k_seq, v_seq = _gather_pages(k_pages, v_pages, tables, k_scale, v_scale)
     if k_own is not None:
         k_seq = _overlay(k_seq, k_own, posmat)
         v_seq = _overlay(v_seq, v_own, posmat)
-    return _attend(q4, k_seq, v_seq, posmat)
+    return k_seq, v_seq
+
+
+def _paged_attention_plain(q4, k_pages, v_pages, tables, posmat,
+                           k_scale=None, v_scale=None, k_own=None, v_own=None):
+    """The kernel's plain version: the histories of :func:`_paged_history`,
+    then masked softmax attention in the kernel's f32 arithmetic."""
+    return _attend_f32(q4, *_paged_history(k_pages, v_pages, tables, posmat,
+                                           k_scale, v_scale, k_own, v_own),
+                       posmat)
 
 
 def paged_attention(q4, k_pages, v_pages, tables, posmat, k_scale=None,
@@ -255,8 +290,9 @@ def paged_attention(q4, k_pages, v_pages, tables, posmat, k_scale=None,
     ``<= posmat[b, i]`` (int32, >= 0).
 
     int8 pools come with f32 scale pools ``k_scale``/``v_scale`` [P,
-    page_size, h]; ``k_own``/``v_own`` [b, h, hd] f32 then overlay each
-    slot's exact in-flight K/V at ``posmat[:, 0]`` (``nq == 1`` only).
+    page_size, h]; ``k_own``/``v_own`` [b, h, hd] in q's dtype then
+    overlay each slot's exact in-flight K/V at ``posmat[:, 0]`` (``nq ==
+    1`` only).  ``q4`` is f32 or bf16, the pools f32, bf16 or int8.
     Returns [b, nq, h, hd] f32 — the CUDA kernel on a CUDA tensor, its
     plain version on a CPU one."""
     if (k_scale is None) != (v_scale is None):
@@ -309,29 +345,39 @@ def decode_attention_dense(
     layer (the reference's contract: ``q3``/``k_t``/``v_t`` [b, h, hd],
     ``pos`` [b] int32; ``k_l``/``v_l`` already hold the current token at
     ``pos``; ``k_s``/``v_s`` [b, S, h] f32 scales of an int8 cache, else
-    None).  Returns ctx [b, h, hd].
+    None).  Returns ctx [b, h, hd]: f32 from the kernel and its plain
+    version, the value dtype from the gather read.
 
     ``kernel``: ``"auto"``/``"flash"`` run :func:`paged_attention` over the
-    zero-copy page view; ``"gather"`` the legacy read."""
-    if resolve_kernel(kernel) == "gather" or q3.device.type == "cpu":
+    zero-copy page view (its plain version on the dense layout on the
+    CPU); ``"gather"`` the legacy read."""
+    if resolve_kernel(kernel) == "gather":
         return _gather_decode_dense(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos)
+    if q3.device.type == "cpu":
+        posmat = pos.reshape(-1, 1)
+        return _attend_f32(q3[:, None], *_dense_history(
+            k_l, v_l, k_s, v_s, k_t, v_t, posmat), posmat)[:, 0]
     posmat = pos.to(torch.int32).reshape(-1, 1)
     out = paged_attention(q3[:, None], k_l, v_l, _dense_as_pages(k_l), posmat,
                           k_s, v_s, *_own(k_s, k_t, v_t))
     return out[:, 0]
 
 
+def _dense_history(k_l, v_l, k_s, v_s, k_t, v_t, posmat):
+    """The dense layer's K/V histories as attention reads them: on an int8
+    cache dequantized, with the exact current token overlaid."""
+    if k_s is None:
+        return k_l, v_l
+    return (_overlay(dequantize_kv(k_l, k_s), k_t, posmat),
+            _overlay(dequantize_kv(v_l, v_s), v_t, posmat))
+
+
 def _gather_decode_dense(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos):
     """Legacy dense decode attention (the reference's ``_gather_decode_
-    dense``): the kernel's plain version on the dense layout — on an int8
-    cache, dequantize the history and overlay the exact current token."""
+    dense``), in its rounding (:func:`_attend`)."""
     posmat = pos.reshape(-1, 1)
-    if k_s is not None:
-        k_seq = _overlay(dequantize_kv(k_l, k_s), k_t, posmat)
-        v_seq = _overlay(dequantize_kv(v_l, v_s), v_t, posmat)
-    else:
-        k_seq, v_seq = k_l, v_l
-    return _attend(q3[:, None], k_seq, v_seq, posmat)[:, 0]
+    return _attend(q3[:, None], *_dense_history(k_l, v_l, k_s, v_s, k_t, v_t,
+                                                posmat), posmat)[:, 0]
 
 
 def decode_attention_paged(
@@ -357,11 +403,11 @@ def decode_attention_paged(
 def _gather_decode_paged(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos, block_tables):
     """Legacy paged decode attention (the reference's ``_gather_decode_
     paged``): block-table gather, dequant and own-token select at history
-    granularity — the plain version on either device."""
-    return _paged_attention_plain(
-        q3[:, None], k_l, v_l, block_tables, pos.reshape(-1, 1), k_s, v_s,
-        *_own(k_s, k_t, v_t),
-    )[:, 0]
+    granularity, in the reference's rounding (:func:`_attend`)."""
+    posmat = pos.reshape(-1, 1)
+    return _attend(q3[:, None], *_paged_history(
+        k_l, v_l, block_tables, posmat, k_s, v_s, *_own(k_s, k_t, v_t)),
+        posmat)[:, 0]
 
 
 def chunk_attention(q_c, k_l, v_l, k_s, v_s, block_table, posns, *,
@@ -379,8 +425,9 @@ def chunk_attention(q_c, k_l, v_l, k_s, v_s, block_table, posns, *,
 
 def _gather_chunk(q_c, k_l, v_l, k_s, v_s, block_table, posns):
     """Legacy chunk attention (the reference's ``_gather_chunk``)."""
-    return _paged_attention_plain(q_c[None], k_l, v_l, block_table[None],
-                                  posns[None], k_s, v_s)[0]
+    posmat = posns[None]
+    return _attend(q_c[None], *_paged_history(
+        k_l, v_l, block_table[None], posmat, k_s, v_s), posmat)[0]
 
 
 def verify_attention_paged(q4, k_l, v_l, block_tables, posmat, *,

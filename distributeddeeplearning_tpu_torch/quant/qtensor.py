@@ -41,6 +41,16 @@ EPS = 1e-12
 #: H100: "self.size(0) needs to be greater than 16"); rows of an integer
 #: product do not interact, so fewer rows are zero-padded to this many.
 INT_MM_MIN_ROWS = 17
+#: ... and K and N that are not multiples of this ("size(1) needs to be a
+#: multiple of 8") ...
+INT_MM_MULTIPLE = 8
+#: ... and K below this: probed on the H100 (PyTorch 2.11, CUDA 12.8) at
+#: M in {17, 40} and N from 192 to 2304, cuBLASLt returned
+#: CUBLAS_STATUS_NOT_SUPPORTED at every K <= 96 and ran K in {128, 264,
+#: 768}.  Zero columns of ``a`` against zero rows of ``b`` add exactly 0 to
+#: an int32 sum and extra output columns are dropped, so K and N are
+#: zero-padded to shapes it takes.
+INT_MM_MIN_K = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,24 +141,43 @@ def dequantize(qt: QTensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return (v * qt.scales).to(dtype)
 
 
+def _zero_pad(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``t`` [r, c] in the top-left corner of a zero [rows, cols] tensor
+    (``t`` itself when nothing is added)."""
+    if tuple(t.shape) == (rows, cols):
+        return t
+    out = t.new_zeros((rows, cols))
+    out[: t.shape[0], : t.shape[1]] = t
+    return out
+
+
+def _padded_int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch._int_mm`` of ``a`` [M, K] and ``b`` [K, N] with M raised to
+    :data:`INT_MM_MIN_ROWS`, K to a multiple of :data:`INT_MM_MULTIPLE` of
+    at least :data:`INT_MM_MIN_K` and N to a multiple of
+    :data:`INT_MM_MULTIPLE` by zero padding, the result cut back to
+    [M, N]: the same int32 values, exactly."""
+    (M, K), N = a.shape, b.shape[1]
+    up = lambda n: -(-n // INT_MM_MULTIPLE) * INT_MM_MULTIPLE  # noqa: E731
+    kp = max(up(K), INT_MM_MIN_K)
+    a = _zero_pad(a, max(M, INT_MM_MIN_ROWS), kp)
+    b = _zero_pad(b, kp, up(N))
+    return torch._int_mm(a.contiguous(), b)[:M, :N]
+
+
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a [M, K] int8 @ b [K, N] int8 -> [M, N] int32``, exact.
 
-    ``torch._int_mm`` (cuBLASLt on the card); on CUDA fewer than
-    :data:`INT_MM_MIN_ROWS` rows are zero-padded to that many and the
-    padding rows dropped.  Raises on shapes the product does not take;
-    there is no dequantized fallback."""
+    ``torch._int_mm`` (cuBLASLt on the card), which on CUDA takes neither
+    ``M <= 16``, nor K or N that are not multiples of 8, nor a small K:
+    there the operands are zero-padded to shapes it takes and the result
+    cut back (:func:`_padded_int_mm`), which leaves every int32 sum as it
+    was.  There is no dequantized fallback."""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"int8_matmul: operands are {a.dtype} and {b.dtype}")
-    M = a.shape[0]
     if a.device.type == "cuda":
-        if a.shape[1] % 8 or b.shape[1] % 8:
-            raise ValueError(
-                f"int8_matmul: K {a.shape[1]} and N {b.shape[1]} must be "
-                "multiples of 8 on CUDA")
-        if M < INT_MM_MIN_ROWS:
-            a = torch.cat([a, a.new_zeros((INT_MM_MIN_ROWS - M, a.shape[1]))])
-    return torch._int_mm(a.contiguous(), b)[:M]
+        return _padded_int_mm(a, b)
+    return torch._int_mm(a.contiguous(), b)
 
 
 def qdot(x: torch.Tensor, qt: QTensor) -> torch.Tensor:

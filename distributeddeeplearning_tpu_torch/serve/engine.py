@@ -13,11 +13,14 @@ one :func:`forward_prefill_chunk` between decode steps, whose history
 attention is the decode kernel's many-query variant.  Decode is
 :func:`forward_decode_paged`.
 
-Both take ``cache_dtype`` float32 (default) or int8: K/V quantize on write
-with one scale per position and head, and attention dequantizes in the
-kernel's tile.  Both serve f32 or int8-weight parameter trees (the
-matmul weights as :class:`~..quant.qtensor.QTensor` leaves, from
-``quant.calibrate.quantize_params``); ``weights_dtype`` says which.
+Both serve f32, bf16 or int8-weight parameter trees (the matmul weights
+as :class:`~..quant.qtensor.QTensor` leaves, from
+``quant.calibrate.quantize_params``); ``weights_dtype`` says which.  The
+model runs in the embedding's dtype.  Both take ``cache_dtype`` float32,
+bfloat16 or int8, by default the embedding's dtype (the reference's
+rule): K/V are cast to the cache's dtype on write, or quantize on write
+to int8 with one scale per position and head, and the decode kernel
+widens bf16 pages and dequantizes int8 ones in its tile.
 
 PyTorch runs eagerly, so there are no compiled programs;
 ``prefill_compiles`` still counts the distinct prompt buckets (dense) or
@@ -51,6 +54,7 @@ from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
 from distributeddeeplearning_tpu_torch.ops.flash_decode import resolve_kernel
 from distributeddeeplearning_tpu_torch.quant.calibrate import params_dtype
 from distributeddeeplearning_tpu_torch.serve.kv_cache import (
+    CACHE_DTYPES,
     SCRATCH_PAGE,
     OutOfPages,
     PageAllocator,
@@ -131,14 +135,18 @@ def _to_device(tree, device: torch.device):
     return tree.to(device)
 
 
-_KV_DTYPES = {"float32": torch.float32, "int8": torch.int8}
+_KV_DTYPES = {str(d).replace("torch.", ""): d for d in CACHE_DTYPES}
+#: the weight dtypes the engines serve (int8 weights ride as QTensor
+#: leaves beside an embedding in one of these)
+WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _kv_dtype(cache_dtype) -> torch.dtype:
-    """The cache dtype an engine asks for: float32 (default, the weights'
-    dtype) or int8, as a ``torch.dtype`` or its name."""
+def _kv_dtype(cache_dtype, weights: torch.dtype) -> torch.dtype:
+    """The cache dtype an engine asks for, as a ``torch.dtype`` or its
+    name: float32, bfloat16 or int8; None is the embedding's dtype
+    ``weights``, as in the reference."""
     if cache_dtype is None:
-        return torch.float32
+        return weights
     dtype = _KV_DTYPES.get(cache_dtype, cache_dtype)
     if dtype not in _KV_DTYPES.values():
         raise ValueError(
@@ -161,12 +169,13 @@ class _EngineCore:
         _, num_layers, head_dim = _validate_model_dims(
             params, num_heads=num_heads, max_seq=max_seq, top_k=top_k
         )
-        if params["embed"].dtype != torch.float32:
+        if params["embed"].dtype not in WEIGHT_DTYPES:
             raise NotImplementedError(
-                "the port serves f32 weights, with int8 matmul weights as "
-                "QTensor leaves (quant.calibrate.quantize_params)"
+                "the port serves f32 or bf16 weights, with int8 matmul "
+                "weights as QTensor leaves (quant.calibrate.quantize_params),"
+                f" not {params['embed'].dtype}"
             )
-        dtype = _kv_dtype(cache_dtype)
+        dtype = _kv_dtype(cache_dtype, params["embed"].dtype)
         self.params = _to_device(params, self.device)
         self.num_heads = num_heads
         self.batch_slots = batch_slots
@@ -236,8 +245,9 @@ class InferenceEngine(_EngineCore):
     ``device`` defaults to ``cuda`` (raising without a card); params are
     moved there.  ``prefill_attention="flash"`` (default) runs the prompt
     pass through the causal flash kernel; ``decode_kernel="auto"`` runs
-    decode attention through the decode kernel; ``cache_dtype="int8"``
-    (or ``torch.int8``) stores K/V quantized.
+    decode attention through the decode kernel; ``cache_dtype`` (a
+    ``torch.dtype`` or its name) defaults to the embedding's dtype, and
+    ``"int8"`` stores K/V quantized.
     """
 
     def __init__(
@@ -396,8 +406,9 @@ class PagedInferenceEngine(_EngineCore):
 
     The page view is the dense key sequence, so decode is the dense
     engine's math; with the kernel the sums run in the same order too.
-    ``device`` defaults to ``cuda``; ``cache_dtype="int8"`` (or
-    ``torch.int8``) makes the pool int8 with f32 scale pools.
+    ``device`` defaults to ``cuda``; ``cache_dtype`` defaults to the
+    embedding's dtype, and ``"int8"`` (or ``torch.int8``) makes the pool
+    int8 with f32 scale pools.
     """
 
     def __init__(

@@ -14,10 +14,13 @@ slot lives at ``(table[j // page_size], j % page_size)``.  HBM is paid per
 token, not per ``max_seq``, and identical prompt prefixes share pages
 (:class:`PageAllocator`).
 
-Both layouts take ``dtype=torch.int8``: values int8 plus f32 scale leaves
-``{"k_scale", "v_scale"}`` of the values' shape without the head dim — one
-scale per stored K/V vector (:mod:`..quant.qtensor`), so every write
-quantizes on its own and nothing is ever requantized.
+Both layouts hold float32, bfloat16 (the engines' default under bf16
+weights: half the bytes, no quantization error beyond the weights' own
+dtype) or int8: values int8 plus f32 scale leaves ``{"k_scale",
+"v_scale"}`` of the values' shape without the head dim — one scale per
+stored K/V vector (:mod:`..quant.qtensor`), so every write quantizes on
+its own and nothing is ever requantized.  Writes cast to the cache's
+dtype.
 """
 
 from __future__ import annotations
@@ -41,9 +44,14 @@ Cache = Dict[str, torch.Tensor]
 SCRATCH_PAGE = 0
 
 
+#: the KV cache dtypes both layouts take
+CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
 def _zeros(shape, dtype: torch.dtype, dev: torch.device) -> Cache:
-    if dtype not in (torch.float32, torch.int8):
-        raise ValueError(f"KV cache dtype {dtype}: float32 or int8")
+    if dtype not in CACHE_DTYPES:
+        raise ValueError(
+            f"KV cache dtype {dtype}: float32, bfloat16 or int8")
     cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
              "v": torch.zeros(shape, dtype=dtype, device=dev)}
     if dtype == torch.int8:
@@ -63,7 +71,8 @@ def init_cache(
     device: DeviceLike = None,
 ) -> Cache:
     """Zero-filled dense cache ``{"k", "v"}``, each [slots, L, S, h, hd]
-    (plus ``{"k_scale", "v_scale"}`` [slots, L, S, h] f32 for int8).
+    in ``dtype`` (plus ``{"k_scale", "v_scale"}`` [slots, L, S, h] f32 for
+    int8).
     Zeros are never read: the decode position mask hides every position
     above a slot's length, and admission overwrites from 0."""
     dev = resolve_device(device)
@@ -77,8 +86,8 @@ def insert_sequence(cache: Cache, k: torch.Tensor, v: torch.Tensor,
     in place.  ``k``/``v``: [1, L, P, h, hd] (or [L, P, h, hd]) from
     ``forward_prefill``; P may be the padded prompt bucket — the padding
     lands above the slot's length and stays masked.  An int8 cache
-    quantizes here (the prefill pass itself stays f32).  Returns
-    ``cache``."""
+    quantizes here (the prefill pass itself runs in the weights' dtype);
+    the others take the values cast to their dtype.  Returns ``cache``."""
     if k.dim() == 5:
         k, v = k[0], v[0]
     p = k.shape[1]
@@ -109,8 +118,8 @@ def init_paged_cache(
     device: DeviceLike = None,
 ) -> Cache:
     """Zero-filled page pool ``{"k", "v"}``, each [pages, L, page_size, h,
-    hd] (plus ``{"k_scale", "v_scale"}`` [pages, L, page_size, h] f32 for
-    int8).  ``num_pages`` counts USABLE pages; the scratch page (id 0) is
+    hd] in ``dtype`` (plus ``{"k_scale", "v_scale"}`` [pages, L, page_size,
+    h] f32 for int8).  ``num_pages`` counts USABLE pages; the scratch page (id 0) is
     prepended.  Page-major, so a page is one leading-dim slice."""
     if num_pages < 1:
         raise ValueError(f"num_pages must be >= 1, got {num_pages}")

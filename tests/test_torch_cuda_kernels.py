@@ -24,6 +24,12 @@ an output by one.  Each output is held against an f32 reference from the
 same bf16 inputs with no bf16 rounding: the kernel's error there may be
 at most twice the plain version's plus one bf16 ulp of the largest
 |output|.  lse is f32 on both sides and stays within 1e-4.
+
+Every kernel takes head dims 16, 32 and 64; the cases at 16 and 32 run
+at the same tolerances.  The decode kernel on bf16 pages (and bf16
+queries) widens every value to f32 in registers, so it is held BITWISE to
+the same kernel on f32 copies of the same values, and to its plain
+version at 1e-4.
 """
 
 from __future__ import annotations
@@ -73,9 +79,21 @@ def test_flash_attention_kernel_matches_plain(cuda, s, causal):
 
 
 def test_flash_attention_kernel_rejects_what_it_cannot_take(cuda):
+    # head dim 32 runs (against its plain version); 40 is no multiple of
+    # the bf16 product's 16-deep k-step and is refused in either dtype
     q, k, v = _qkv_views(16, h=2, d=32)
+    before = fa.launches
+    o, lse = fa.flash_attention_core(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    o_ref, lse_ref = fa._dense_attention(q, k, v, None, causal=True)
+    assert (o - o_ref).abs().max().item() <= ATOL
+    assert (lse - lse_ref).abs().max().item() <= ATOL
+    q, k, v = _qkv_views(16, h=2, d=40)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_core(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_core(q.bfloat16(), k.bfloat16(), v.bfloat16())
     q, k, v = _qkv_views(16)
     with pytest.raises(NotImplementedError, match="mask"):
         fa.flash_attention(q, k, v, torch.ones(1, 16, dtype=torch.bool,
@@ -288,17 +306,21 @@ def test_paged_kernel_with_multi_query_posmat(cuda):
     assert (out - ref).abs().max().item() <= ATOL
 
 
-def _int8_pool(layers, pages, ps, h=12, hd=64, seed=0):
-    """A real int8 pool: f32 K/V [pages+1, L, ps, h, hd] through the port's
-    quantize_kv, as {"k", "v", "k_scale", "v_scale"}."""
+def _pool(layers, pages, ps, h, hd, dtype, seed):
+    """A [pages + 1, L, ps, h, hd] K/V pool of random values in ``dtype``
+    (int8: through the port's quantize_kv, as {"k", "v", "k_scale",
+    "v_scale"})."""
     from distributeddeeplearning_tpu_torch.quant.qtensor import quantize_kv
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    cache = {}
+    pool = {}
     for name in ("k", "v"):
         x = torch.randn((pages + 1, layers, ps, h, hd), generator=g, device="cuda")
-        cache[name], cache[f"{name}_scale"] = quantize_kv(x)
-    return cache
+        if dtype == torch.int8:
+            pool[name], pool[f"{name}_scale"] = quantize_kv(x)
+        else:
+            pool[name] = x.to(dtype)
+    return pool
 
 
 def _scrambled_tables(b, nb, pages, seed=0):
@@ -315,7 +337,7 @@ def test_chunk_kernel_on_strided_scrambled_pool(cuda, offset, int8):
     strided layer view of a [73, L, 64, 12, 64] pool."""
     layers, pages, ps, h, hd, C = 2, 72, 64, 12, 64, 64
     if int8:
-        cache = _int8_pool(layers, pages, ps, seed=offset)
+        cache = _pool(layers, pages, ps, 12, 64, torch.int8, seed=offset)
     else:
         g = torch.Generator(device="cuda").manual_seed(offset)
         cache = {n: torch.randn((pages + 1, layers, ps, h, hd), generator=g,
@@ -341,7 +363,7 @@ def test_int8_decode_kernel_with_overlay(cuda):
     """K4(c) decode: b=8, nq=1 over scrambled int8 pages with the exact
     in-flight K/V overlaid at each slot's position, positions 0..575."""
     layers, pages, h, hd = 2, 72, 12, 64
-    cache = _int8_pool(layers, pages, 64, seed=3)
+    cache = _pool(layers, pages, 64, 12, 64, torch.int8, seed=3)
     views = [t[:, 0] for t in (cache["k"], cache["v"], cache["k_scale"],
                                cache["v_scale"])]
     tables = _scrambled_tables(8, 9, pages, seed=3)
@@ -364,7 +386,7 @@ def test_int8_decode_kernel_with_overlay(cuda):
 
 def test_int8_nan_scale_is_confined_to_its_slot(cuda):
     layers, pages, h, hd = 1, 18, 12, 64
-    cache = _int8_pool(layers, pages, 64, seed=4)
+    cache = _pool(layers, pages, 64, 12, 64, torch.int8, seed=4)
     tables = _scrambled_tables(2, 9, pages, seed=4)
     cache["k_scale"][tables[0, 2].item(), 0, 5, 3] = float("nan")
     views = [t[:, 0] for t in (cache["k"], cache["v"], cache["k_scale"],
@@ -479,3 +501,180 @@ def test_int8_matmul_exact_and_qdot_rescale(cuda, rows, k, n):
     f64 = acc.double() * a_scale.double() * w.scales.double()
     got = qt.qdot(x, w).double()
     assert ((got - f64).abs() <= 1e-6 * f64.abs()).all()
+
+
+# ---- head dims 16 and 32 -------------------------------------------------
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("s", [37, 576])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_kernels_at_small_head_dims(cuda, d, s, causal):
+    """f32 K1, K2, K3 at head dims 16 and 32 on strided qkv views (the
+    reference's serve and trainer geometries: 4 and 8 heads)."""
+    h = 64 // d * 2
+    q, k, v = _qkv_views(s, h=h, d=d, b=2, seed=s + d)
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal)
+    o_ref, lse_ref = fa._dense_attention(q, k, v, None, causal=causal)
+    assert (o - o_ref).abs().max().item() <= ATOL
+    assert (lse - lse_ref).abs().max().item() <= ATOL
+    do = torch.randn(o.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(d), device="cuda")
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    before = (fa.launches_dq, fa.launches_dkv)
+    got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1, before[1] + 1)
+    want = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4 * max(w.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("s", [37, 576])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernels_at_small_head_dims(cuda, d, s, causal):
+    """bf16 K1, K2, K3 at head dims 16 and 32: bf16 rows of 32 and 64
+    bytes, read with cp.async and ldmatrix from a qkv row of 3*h*d."""
+    h = 64 // d * 2
+    q, k, v = _bf16_qkv(s, h=h, d=d, seed=s + d)
+    before = fa.launches_bf16
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches_bf16 == before + 1
+    o_plain, lse_plain = fa._dense_attention(q, k, v, None, causal=causal)
+    o_ref, _ = fa._dense_attention(q.float(), k.float(), v.float(), None,
+                                   causal=causal)
+    _hold_bf16(o, o_plain, o_ref, "o")
+    assert (lse - lse_plain).abs().max().item() <= ATOL
+    do = torch.randn(o.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(d), device="cuda").bfloat16()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal)
+    plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+    ref = fa._dense_attention_bwd(q.float(), k.float(), v.float(), do.float(),
+                                  lse, delta, causal=causal)
+    for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        _hold_bf16(g, p, r, name)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("query", ["float32", "bfloat16"])
+def test_decode_kernel_every_query_page_pair(cuda, hd, pages, query):
+    """K4 decode (b=8, nq=1; int8 with the own-token overlay) and a 64-query
+    chunk over scrambled pages, for every query/page dtype pair and head
+    dim, against the plain version; the bf16 query and pages widen to the
+    bits an f32 launch on the same values gives."""
+    qdt, pdt = getattr(torch, query), getattr(torch, pages)
+    h = 768 // 64 if hd == 64 else 4
+    pool = _pool(2, 72, 64, h, hd, pdt, seed=hd)
+    views = [pool[n][:, 1] if n in pool else None
+             for n in ("k", "v", "k_scale", "v_scale")]
+    tables = _scrambled_tables(8, 9, 72, seed=hd)
+    pos = torch.tensor([0, 575, 17, 300, 64, 511, 128, 450], dtype=torch.int32,
+                       device="cuda")
+    qkv = torch.randn((8, 3, h, hd), device="cuda").to(qdt)
+    q3, k_t, v_t = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    q_c = torch.randn((64, 3, h, hd), device="cuda").to(qdt)[:, 0]
+    posns = 500 + torch.arange(64, device="cuda")
+    before = (fd.launches, fd.launches_bf16, fd.launches_int8)
+    out = fd.decode_attention_paged(q3, *views, k_t, v_t, pos, tables)
+    out_c = fd.chunk_attention(q_c, *views, tables[1], posns)
+    torch.cuda.synchronize()
+    bf16 = torch.bfloat16 in (qdt, pdt)
+    assert (fd.launches, fd.launches_bf16, fd.launches_int8) == (
+        before[0] + 2, before[1] + 2 * bf16, before[2] + 2 * (pdt == torch.int8))
+    assert out.dtype == out_c.dtype == torch.float32
+    own = (k_t, v_t) if pdt == torch.int8 else (None, None)
+    ref = fd._paged_attention_plain(q3[:, None], *views[:2], tables, pos[:, None],
+                                    *views[2:], *own)[:, 0]
+    ref_c = fd._paged_attention_plain(q_c[None], *views[:2], tables[1][None],
+                                      posns.to(torch.int32)[None], *views[2:])[0]
+    for o, r in ((out, ref), (out_c, ref_c)):
+        assert torch.isfinite(o).all()
+        assert (o - r).abs().max().item() <= ATOL
+    if bf16:
+        widen = lambda t: t.float() if t is not None and t.dtype == torch.bfloat16 else t  # noqa: E731
+        f32 = fd.decode_attention_paged(widen(q3), *map(widen, views), widen(k_t),
+                                        widen(v_t), pos, tables)
+        f32_c = fd.chunk_attention(widen(q_c), *map(widen, views), tables[1], posns)
+        assert torch.equal(out, f32) and torch.equal(out_c, f32_c)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_paged_equals_dense_and_verify_column_bitwise_every_head_dim(cuda, hd, dtype):
+    """At every head dim and page dtype: the same K/V read as 64-position
+    pages through a scrambled table and as one dense row give the same
+    bits, and (f32 and bf16 pools) a verify column at nq = 5 is an nq = 1
+    launch at pos + j."""
+    from distributeddeeplearning_tpu_torch.quant.qtensor import quantize_kv
+
+    pdt = getattr(torch, dtype)
+    b, s, h, ps = 4, 576, 4, 64
+    nb = s // ps
+    g = torch.Generator(device="cuda").manual_seed(hd)
+    dense = {n: torch.randn((b, 2, s, h, hd), generator=g, device="cuda")
+             for n in ("k", "v")}
+    for n in ("k", "v"):
+        if pdt == torch.int8:
+            dense[n], dense[f"{n}_scale"] = quantize_kv(dense[n])
+        else:
+            dense[n] = dense[n].to(pdt)
+    tables = _scrambled_tables(b, nb, b * nb, seed=hd)
+    pool = {n: torch.zeros((b * nb + 1, 2, ps) + t.shape[3:], dtype=t.dtype,
+                           device="cuda") for n, t in dense.items()}
+    for n, t in dense.items():
+        for bi in range(b):
+            for j in range(nb):
+                pool[n][tables[bi, j]] = t[bi, :, j * ps:(j + 1) * ps]
+    pos = torch.tensor([0, 63, 64, 570], dtype=torch.int32, device="cuda")
+    qdt = torch.float32 if pdt == torch.float32 else torch.bfloat16
+    qkv = torch.randn((b, 3, h, hd), generator=g, device="cuda").to(qdt)
+    dv = [dense[n][:, 1] if n in dense else None
+          for n in ("k", "v", "k_scale", "v_scale")]
+    pv = [pool[n][:, 1] if n in pool else None
+          for n in ("k", "v", "k_scale", "v_scale")]
+    a = fd.decode_attention_dense(qkv[:, 0], *dv, qkv[:, 1], qkv[:, 2], pos)
+    p = fd.decode_attention_paged(qkv[:, 0], *pv, qkv[:, 1], qkv[:, 2], pos, tables)
+    assert torch.equal(a, p)
+    if pdt == torch.int8:
+        return
+    q4 = torch.randn((b, 5, h, hd), generator=g, device="cuda").to(qdt)
+    posmat = (pos[:, None] + torch.arange(5, device="cuda")).to(torch.int32)
+    out = fd.verify_attention_paged(q4, pv[0], pv[1], tables, posmat)
+    for j in range(5):
+        one = fd.paged_attention(q4[:, j:j + 1], pv[0], pv[1], tables,
+                                 posmat[:, j:j + 1].contiguous())
+        assert torch.equal(out[:, j:j + 1], one), j
+
+
+def test_decode_kernel_refuses_other_head_dims_and_dtypes(cuda):
+    pool = _pool(1, 4, 8, 2, 48, torch.float32, seed=0)
+    tables = _scrambled_tables(1, 2, 4, seed=0)
+    pos = torch.tensor([9], dtype=torch.int32, device="cuda")
+    q = torch.randn((1, 1, 2, 48), device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        fd.paged_attention(q, pool["k"][:, 0], pool["v"][:, 0], tables, pos[:, None])
+    pool = _pool(1, 4, 8, 2, 32, torch.float16, seed=0)
+    with pytest.raises(TypeError, match="k_pages"):
+        fd.paged_attention(torch.randn((1, 1, 2, 32), device="cuda"),
+                           pool["k"][:, 0], pool["v"][:, 0], tables, pos[:, None])
+
+
+def test_int8_matmul_pads_k_and_n_on_the_card(cuda):
+    """``torch._int_mm`` on the card takes K and N only in multiples of 8,
+    and no K <= 96: the head of the reference's ``ddlt serve`` geometry
+    (K = 64, N = 257), the trainer's vocabulary (1031) and odd K go
+    through the zero-padded product and equal the CPU result."""
+    from distributeddeeplearning_tpu_torch.quant import qtensor as qt
+
+    g = torch.Generator().manual_seed(0)
+    for m, k, n in ((8, 68, 257), (40, 64, 257), (3, 68, 1031), (17, 128, 192),
+                    (8, 256, 1031), (17, 100, 264)):
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+        got = qt.int8_matmul(a.cuda(), b.cuda())
+        assert got.shape == (m, n)
+        assert torch.equal(got.cpu(), qt.int8_matmul(a, b))

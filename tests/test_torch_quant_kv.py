@@ -117,7 +117,7 @@ def test_int8_layouts_and_byte_accounting_match_jax():
     assert cache_bytes(dense) == jax_cache_bytes(jdense)
     assert page_bytes(pool) == jax_page_bytes(jpool)
     assert page_bytes(pool) * 6 == cache_bytes(pool)
-    with pytest.raises(ValueError, match="float32 or int8"):
+    with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
         init_cache(batch_slots=1, max_seq=4, dtype=torch.float16, device="cpu",
                    **kw)
 

@@ -259,10 +259,18 @@ def test_engine_validates_inputs(params):
         _engine(params, max_seq=CFG["max_len"] + 1)
     with pytest.raises(ValueError, match="top_k"):
         _engine(params, temperature=1.0, top_k=0)
-    with pytest.raises(NotImplementedError, match="f32 weights"):
+    with pytest.raises(NotImplementedError, match="f32 or bf16 weights"):
         _engine({**params, "embed": params["embed"].double()})
+    with pytest.raises(NotImplementedError, match="f32 or bf16 weights"):
+        _engine({**params, "embed": params["embed"].half()})
+    # bf16 weights serve, on a bf16 cache by default (the reference's rule)
+    bf16 = _engine({k: ({n: w.bfloat16() for n, w in v.items()}
+                        if isinstance(v, dict) else v.bfloat16())
+                    for k, v in params.items()})
+    assert (bf16.kv_dtype, bf16.weights_dtype) == ("bfloat16", "bfloat16")
+    assert _engine(params, cache_dtype="bfloat16").kv_dtype == "bfloat16"
     with pytest.raises(ValueError, match="cache_dtype"):
-        _engine(params, cache_dtype="bfloat16")
+        _engine(params, cache_dtype="float16")
 
 
 def test_synthetic_requests_match_the_reference():
