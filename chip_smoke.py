@@ -119,7 +119,31 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    weights (N = 257 through the padded int8 product), greedy streams
    equal to a dense oracle; then ``workloads.transformer.main(attention=
    "flash")`` at its own defaults (head dim 32, vocab 1031) in f32 and
-   bf16, the loss falling; exact launch counts in every run.
+   bf16, the loss falling; exact launch counts in every run;
+16. ``phase_bias``: K1, K2, K3 built with the key-padding bias
+   (``HAS_BIAS``) against their plain versions, f32 and bf16, head dims 16,
+   32, 64, causal and not, S in {1, 37, 128, 512}, the masks synthetic-text
+   lengths plus a length-1 row, a full row and an all-masked row (its lse,
+   -1e30 * ln 2, bitwise equal to the plain version's); masked keys of
+   every other row get dK = dV = 0 exactly; the same at bert-base's own
+   B=8, H=12, D=64, S 128 and 512, non-causal; then held and timed at
+   bert-base's shape (B=8, H=12, S=512, D=64, non-causal, a synthetic-text
+   mask) beside the plain versions and SDPA with the same boolean
+   ``attn_mask``;
+17. ``phase_bert``: ``workloads.bert.main`` at bert-base's full width
+   (109.5 M params), one epoch of 8 steps and one eval pass, at its
+   defaults (bf16, batch 8, seq 128), at seq 512 and in f32 at seq 128:
+   flash and the default attention at dropout 0 with the same seed
+   (per-step losses within 1e-2 relative in bf16, 1e-5 in f32), and at
+   the defaults flash at dropout 0.1 (finite); the flash runs launch
+   exactly the bias kernels of their dtype (12 K1 a forward, 12 K2 and 12
+   K3 a train step), every other counter 0, and call no plain version.
+   Step time p50 (CUDA-event spans from one step's launch to the next),
+   tokens/s (padded positions counted), mfu (6NT + 3 x the
+   non-causal 4 B H S^2 D attention term) and peak memory; a profiled
+   step's breakdown beside a CUDA-event span of the same steps (more than
+   10% apart marks it untrusted; ``phase_train``'s breakdown says the
+   same).
 
 Kernel, plain and library times are device times: torch.profiler's sum
 of the CUDA work each call runs, averaged over many calls after warm-up
@@ -141,6 +165,12 @@ kernel: training for K1, K2, K3; dense serving for K4(a); the f32 paged
 run's chunks for K4(b), the int8 paged run for K4(c) and the four
 speculative runs for the verify row.  The verify row's bound counts each
 (slot, head)'s visible history once for all K+1 queries.
+
+The six bias rows (``flash_attention_fwd_bias``, ``..._bwd_dq_bias``,
+``..._bwd_dkv_bias``, each in f32 and ``_bf16``) take their launches from
+``phase_bert``'s flash runs at dropout 0 (``bert_flash``: seq 128 in the
+row's dtype; ``bert_flash_seq512`` beside it for bf16), and their bound
+counts the (query, key) pairs the run's mask leaves visible.
 
 Each row of the kernels line carries ``head_dims``: the phase-14 entry
 of the kernel at head dims 16 and 32, with the launches of the phase-15
@@ -270,6 +300,14 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     log(f"[timer] torch.profiler recorded no device time twice; a CUDA-event "
         f"span gives {ms:.4f} ms a call (launch gaps included)")
     return ms
+
+
+def timed(phase, *args, **kwargs):
+    """``phase(*args, **kwargs)``, logging its wall seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
@@ -753,16 +791,22 @@ def teacher_forced_error(torch, params, tokens, prompt_len):
 
 
 def profile_share(torch, fn, steps):
-    """(host wall ms per step, CUDA kernel ms per step, top kernels) from
-    torch.profiler over ``steps`` calls of ``fn``; kernel ms is None when
-    the profiler records no device time."""
+    """(host wall ms per step, CUDA kernel ms per step, top kernels, CUDA-event
+    span ms per step) from torch.profiler over ``steps`` calls of ``fn``;
+    kernel ms is None when the profiler records no device time.  The span
+    covers the same calls on the device (first launch to last, idle gaps
+    included)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         for _ in range(steps):
             fn()
+        end.record()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [
@@ -773,7 +817,7 @@ def profile_share(torch, fn, steps):
     ]
     total = sum(ms for _, ms in kernels)
     top = sorted(kernels, key=lambda kv: -kv[1])
-    return wall, (total if kernels else None), top
+    return wall, (total if kernels else None), top, start.elapsed_time(end) / steps
 
 
 def phase_serve(torch, np, fa, fd, card):
@@ -867,7 +911,7 @@ def phase_serve(torch, np, fa, fd, card):
         ("decode step (8 slots, pos 300)", lambda: engine.decode(toks, pos), 10),
         ("prefill (512 tokens)", lambda: engine.prefill(0, prompt), 3),
     ):
-        wall, busy, top = profile_share(torch, fn, steps)
+        wall, busy, top, _ = profile_share(torch, fn, steps)
         share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
         log(f"[profile] {name}: host wall {wall:.3f} ms, kernel time {share} on {card}")
         for key, ms in top[:6]:
@@ -1047,7 +1091,7 @@ def phase_serve_paged(torch, np, fa, fd, card, dense_engine):
     for what, fn, n in (("paged decode step (8 slots, pos 300)",
                          lambda: engine.decode(toks, pos), 10),
                         ("prefill chunk (64 tokens at offset 256)", one_chunk, 10)):
-        wall, busy, top = profile_share(torch, fn, n)
+        wall, busy, top, _ = profile_share(torch, fn, n)
         decode_wall = wall if decode_wall is None else decode_wall
         share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
         log(f"[profile] {what}: host wall {wall:.3f} ms, kernel time {share} on {card}")
@@ -1283,7 +1327,7 @@ def phase_serve_spec(torch, np, fa, fd, card, params, dense_engine, dense, paged
             pos = np.full(SLOTS, 300, np.int32)
             toks = np.arange(1, SLOTS + 1, dtype=np.int32)
             dlen = np.full(SLOTS, SPEC_K, np.int32)
-            wall, busy, top = profile_share(torch, lambda: sd.step(toks, pos, dlen), 10)
+            wall, busy, top, _ = profile_share(torch, lambda: sd.step(toks, pos, dlen), 10)
             share = ("not measured" if busy is None
                      else f"{busy:.3f} ms ({busy / wall:.1%} busy)")
             log(f"[profile] spec step (8 slots, pos 300, K=4, M=2): host wall "
@@ -1559,8 +1603,12 @@ def _fa_counts(fa):
     return {c: getattr(fa, c) for c in FA_COUNTERS}
 
 
+# every flash counter: the unbiased kernels', then the key-padding-bias
+# variants' (which every path but BERT's must leave at 0)
 FA_COUNTERS = ("launches", "launches_dq", "launches_dkv", "launches_bf16",
-               "launches_dq_bf16", "launches_dkv_bf16")
+               "launches_dq_bf16", "launches_dkv_bf16", "launches_bias",
+               "launches_dq_bias", "launches_dkv_bias", "launches_bias_bf16",
+               "launches_dq_bias_bf16", "launches_dkv_bias_bf16")
 
 
 def phase_train(torch, np, fa, card, dtype="float32", f32_losses=None):
@@ -1648,26 +1696,15 @@ def phase_train(torch, np, fa, card, dtype="float32", f32_losses=None):
         metrics_fn=lambda lg, lb, loss: {"loss": loss})
     batch = next(transformer._token_batches(b, s, TRAIN["vocab_size"], 42,
                                             b, repeat=False))
-    wall, busy, top = profile_share(torch, lambda: step(state, batch), 2)
+    wall, busy, top, event_ms = profile_share(torch, lambda: step(state, batch), 2)
     share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
     log(f"[profile] train step (B=8, S=2048, {dtype}, flash): host wall "
-        f"{wall:.3f} ms, kernel time {share} on {card}")
+        f"{wall:.3f} ms, kernel time {share}; {trust_note(busy, event_ms)} on {card}")
     gemms = f"{'bf16' if bf16 else 'f32'} GEMMs (cuBLAS/CUTLASS)"
     kernels = {f"K1 flash_fwd{sfx}_kernel": f"flash_fwd{sfx}_kernel",
                f"K2 flash_bwd_dq{sfx}_kernel": f"flash_bwd_dq{sfx}_kernel",
                f"K3 flash_bwd_dkv{sfx}_kernel": f"flash_bwd_dkv{sfx}_kernel"}
-    groups = {gemms: 0.0, **{g: 0.0 for g in kernels}, "everything else": 0.0}
-    for key, ms in top:
-        low = key.lower()
-        group = next((g for g, name in kernels.items() if name in key), None)
-        if group is None:
-            group = gemms if ("gemm" in low or "nvjet" in low or "cutlass" in low
-                              or "xmma" in low) else "everything else"
-        groups[group] += ms
-    for group, ms in groups.items():
-        log(f"[profile]   {ms:9.3f} ms  {ms / max(busy or 1e-9, 1e-9):6.1%}  {group}")
-    for key, ms in top[:10]:
-        log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
+    log_groups(top, busy, gemms, kernels)
     del state, step
     torch.cuda.empty_cache()
     return launches, losses
@@ -1690,6 +1727,86 @@ def qkv_views(torch, b, s, h, d, dtype, seed):
     return tuple(t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
 
 
+def _hold_flash(torch, fa, q, k, v, causal, seed, what, bias=None):
+    """K1, K2, K3 on (q, k, v) -- with the key-padding ``bias`` when given --
+    against their plain versions on the same inputs: f32 within K1_TOL
+    (K1) and BWD_RTOL of the largest |plain| (K2, K3); bf16 by hold_bf16
+    against the f32 result of the same inputs; lse within LSE_TOL (bf16)
+    or K1_TOL.  dO is drawn from ``seed``.  Returns (worst |kernel - plain|
+    per kernel, (lse, lse_plain, do, delta, kernel grads))."""
+    bf = q.dtype == torch.bfloat16
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias)
+    o_p, lse_p = fa._dense_attention(q, k, v, bias, causal=causal)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(o.shape, generator=g, device="cuda").to(q.dtype)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal, bias=bias)
+    plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal, bias=bias)
+    torch.cuda.synchronize()
+    err_lse = (lse - lse_p).abs().max().item()
+    if err_lse > (LSE_TOL if bf else K1_TOL):
+        raise AssertionError(f"K1 lse at {what}: {err_lse}")
+    if bf:
+        qf, kf, vf = q.float(), k.float(), v.float()
+        hold_bf16(o, o_p, fa._dense_attention(qf, kf, vf, bias, causal=causal)[0],
+                  f"bf16 K1 {what}")
+        ref = fa._dense_attention_bwd(qf, kf, vf, do.float(), lse, delta,
+                                      causal=causal, bias=bias)
+        for name, gt, pl, rf in zip(("dQ", "dK", "dV"), got, plain, ref):
+            if q.shape[1] == 1 and name != "dV":
+                # one key: P = 1, dS = dP - delta is 0 but for the f32
+                # rounding of two D-term sums; hold both sides near 0
+                if max(gt.abs().max().item(), pl.abs().max().item()) > 1e-5:
+                    raise AssertionError(f"bf16 {name} {what} not ~0")
+                continue
+            hold_bf16(gt, pl, rf, f"bf16 {name} {what}")
+    else:
+        err = (o - o_p).abs().max().item()
+        if not bool(torch.isfinite(o).all()) or err > K1_TOL:
+            raise AssertionError(f"K1 at {what}: {err}")
+        for name, gt, pl in zip(("dQ", "dK", "dV"), got, plain):
+            e = (gt - pl).abs().max().item()
+            if not bool(torch.isfinite(gt).all()) or (
+                    e > BWD_RTOL * max(pl.abs().max().item(), 1.0)):
+                raise AssertionError(f"{name} at {what}: {e}")
+    worst = {"fwd": max((o.float() - o_p.float()).abs().max().item(), err_lse),
+             "dq": (got[0].float() - plain[0].float()).abs().max().item(),
+             "dkv": max((gt.float() - pl.float()).abs().max().item()
+                        for gt, pl in zip(got[1:], plain[1:]))}
+    return worst, (lse, lse_p, do, delta, got)
+
+
+def _time_flash(torch, F, fa, q, k, v, do, lse, delta, causal, bias=None,
+                keep=None):
+    """Device ms of K1, K2, K3, their plain versions and SDPA (its forward,
+    and autograd through it), all on the same inputs; SDPA gets ``keep``
+    ([B, S] bool) as its boolean attn_mask.  Returns (fwd, fwd plain, fwd
+    SDPA, K2, K3, plain backward, SDPA backward)."""
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    mask = None if keep is None else keep[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=causal)
+
+    fwd_ms = device_ms(torch, lambda i: fa.flash_attention_core(
+        q, k, v, causal=causal, bias=bias))
+    fwd_plain = device_ms(torch, lambda i: fa._dense_attention(q, k, v, bias,
+                                                               causal=causal),
+                          iters=5, warmup=1)
+    fwd_lib = device_ms(torch, lambda i: sdpa())
+    dq_ms = device_ms(torch, lambda i: fa._launch_bwd_dq(q, k, v, do, lse, delta,
+                                                         causal=causal, bias=bias))
+    dkv_ms = device_ms(torch, lambda i: fa._launch_bwd_dkv(q, k, v, do, lse, delta,
+                                                           causal=causal, bias=bias))
+    bwd_plain = device_ms(torch, lambda i: fa._dense_attention_bwd(
+        q, k, v, do, lse, delta, causal=causal, bias=bias), iters=5, warmup=1)
+    out = sdpa()
+    bwd_lib = device_ms(torch, lambda i: torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=5, warmup=2)
+    return fwd_ms, fwd_plain, fwd_lib, dq_ms, dkv_ms, bwd_plain, bwd_lib
+
+
 def _flash_at(torch, F, fa, d, h, b, s, dtype, card):
     """K1, K2, K3 in ``dtype`` at head dim ``d``: held against the plain
     versions (f32: K1_TOL, BWD_RTOL; bf16: against the f32 result of the
@@ -1701,56 +1818,11 @@ def _flash_at(torch, F, fa, d, h, b, s, dtype, card):
     for ss in (37, s):
         for causal in (True, False):
             q, k, v = qkv_views(torch, b, ss, h, d, dtype, seed=ss + d + causal)
-            o, lse = fa.flash_attention_core(q, k, v, causal=causal)
-            o_p, lse_p = fa._dense_attention(q, k, v, None, causal=causal)
-            g = torch.Generator(device="cuda").manual_seed(ss)
-            do = torch.randn(o.shape, generator=g, device="cuda").to(dtype)
-            delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-            got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal)
-            plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal)
-            torch.cuda.synchronize()
-            err_lse = (lse - lse_p).abs().max().item()
-            if err_lse > (LSE_TOL if bf else K1_TOL):
-                raise AssertionError(f"K1 lse at D={d} S={ss}: {err_lse}")
-            if bf:
-                qf, kf, vf = q.float(), k.float(), v.float()
-                hold_bf16(o, o_p, fa._dense_attention(qf, kf, vf, None,
-                                                      causal=causal)[0],
-                          f"bf16 K1 D={d} S={ss}")
-                ref = fa._dense_attention_bwd(qf, kf, vf, do.float(), lse, delta,
-                                              causal=causal)
-                for name, gt, pl, rf in zip(("dQ", "dK", "dV"), got, plain, ref):
-                    hold_bf16(gt, pl, rf, f"bf16 {name} D={d} S={ss}")
-            else:
-                err = (o - o_p).abs().max().item()
-                if not bool(torch.isfinite(o).all()) or err > K1_TOL:
-                    raise AssertionError(f"K1 at D={d} S={ss}: {err}")
-                for name, gt, pl in zip(("dQ", "dK", "dV"), got, plain):
-                    e = (gt - pl).abs().max().item()
-                    if not bool(torch.isfinite(gt).all()) or (
-                            e > BWD_RTOL * max(pl.abs().max().item(), 1.0)):
-                        raise AssertionError(f"{name} at D={d} S={ss}: {e}")
-            worst["fwd"] = max(worst["fwd"], (o.float() - o_p.float()).abs().max().item(),
-                               err_lse)
-            worst["dq"] = max(worst["dq"], (got[0].float() - plain[0].float())
-                              .abs().max().item())
-            worst["dkv"] = max(worst["dkv"], *((gt.float() - pl.float()).abs().max().item()
-                                               for gt, pl in zip(got[1:], plain[1:])))
-    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
-    fwd_ms = device_ms(torch, lambda i: fa.flash_attention_core(q, k, v, causal=True))
-    fwd_plain = device_ms(torch, lambda i: fa._dense_attention(q, k, v, None, causal=True),
-                          iters=5, warmup=1)
-    fwd_lib = device_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    dq_ms = device_ms(torch, lambda i: fa._launch_bwd_dq(q, k, v, do, lse, delta,
-                                                         causal=True))
-    dkv_ms = device_ms(torch, lambda i: fa._launch_bwd_dkv(q, k, v, do, lse, delta,
-                                                           causal=True))
-    bwd_plain = device_ms(torch, lambda i: fa._dense_attention_bwd(
-        q, k, v, do, lse, delta, causal=True), iters=5, warmup=1)
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    bwd_lib = device_ms(torch, lambda i: torch.autograd.grad(
-        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=5, warmup=2)
+            errs, (lse, _, do, delta, _) = _hold_flash(
+                torch, fa, q, k, v, causal, seed=ss, what=f"D={d} S={ss}")
+            worst = {kern: max(worst[kern], e) for kern, e in errs.items()}
+    fwd_ms, fwd_plain, fwd_lib, dq_ms, dkv_ms, bwd_plain, bwd_lib = _time_flash(
+        torch, F, fa, q, k, v, do, lse, delta, causal=True)
     es = 2.0 if bf else 4.0
     pairs = b * h * _causal_pairs(s)
     head = es * b * s * h * d
@@ -1775,7 +1847,6 @@ def _flash_at(torch, F, fa, d, h, b, s, dtype, card):
         f"backward {bwd_lib:.4f} ms; held at S=37 and {s}, causal and not "
         f"(max |kernel - plain| K1 {worst['fwd']:.3e}, K2 {worst['dq']:.3e}, K3 "
         f"{worst['dkv']:.3e}); device times, on {card}")
-    del out, qt, kt, vt
     return result
 
 
@@ -2303,7 +2374,7 @@ def phase_serve_bf16(torch, np, fa, fd, card, params, dense, paged):
                 engine.prefill(slot, prompt, NEW_TOKENS)
             else:
                 engine.prefill(slot, prompt)
-        wall, busy, top = profile_share(torch, lambda: engine.decode(toks, pos), 10)
+        wall, busy, top, _ = profile_share(torch, lambda: engine.decode(toks, pos), 10)
         share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
         log(f"[profile] bf16 {name} decode step (8 slots, pos 300): host wall "
             f"{wall:.3f} ms, kernel time {share} on {card}")
@@ -2361,6 +2432,340 @@ def layouts_decode_bitwise(torch, params, prompt, n):
     return same, n
 
 
+# ---- the key-padding bias (K1-K3 built with HAS_BIAS) and BERT fine-tuning --
+
+#: the bias kernels are timed at bert-base's longest sequence
+BIAS_TIMED = dict(b=8, h=12, s=512, d=64)
+
+
+def padding_keep(torch, b, s, seed):
+    """[b, s] bool key mask on the card: SyntheticTextDataset lengths, then
+    rows of length 1, s and 0 (every key masked) in the last three rows."""
+    from distributeddeeplearning_tpu_torch.data.synthetic import SyntheticTextDataset
+
+    mask = next(SyntheticTextDataset(length=b, seq_len=s, vocab_size=50,
+                                     seed=seed).batches(b))["attention_mask"]
+    keep = torch.from_numpy(mask).bool()
+    keep[b - 3] = torch.arange(s) < 1
+    keep[b - 2] = True
+    keep[b - 1] = False
+    return keep.cuda()
+
+
+def _bias_check(torch, fa, dtype, d, s, causal, b=6, h=4, keep=None):
+    """K1, K2, K3 with the key-padding bias of ``keep`` ([b, s] bool;
+    default :func:`padding_keep`) at one (dtype, D, S, causal, B, H)
+    against their plain versions (:func:`_hold_flash`); a fully masked
+    row's lse equals the plain version's bit for bit, and masked keys of
+    every other row get dK = dV = 0 exactly.  Returns (worst |kernel -
+    plain| per kernel, the inputs (q, k, v, do, lse, delta, bias, keep))."""
+    what = (f"{'bf16' if dtype == torch.bfloat16 else 'f32'} bias B={b} H={h} "
+            f"D={d} S={s} causal={causal}")
+    q, k, v = qkv_views(torch, b, s, h, d, dtype, seed=s + d + causal)
+    if keep is None:
+        keep = padding_keep(torch, b, s, seed=s + d)
+    bias = fa._mask_bias(keep[:, None, None, :], b, s)
+    worst, (lse, lse_p, do, delta, got) = _hold_flash(
+        torch, fa, q, k, v, causal, seed=s + d, what=what, bias=bias)
+    dead = ~keep.any(-1)
+    if not torch.equal(lse[dead], lse_p[dead]):
+        raise AssertionError(f"fully masked rows' lse differ at {what}")
+    masked = ~keep
+    masked[dead] = False
+    if not (bool((got[1][masked] == 0).all()) and bool((got[2][masked] == 0).all())):
+        raise AssertionError(f"masked keys got nonzero dK/dV at {what}")
+    return worst, (q, k, v, do, lse, delta, bias, keep)
+
+
+def _bias_timed(torch, F, fa, dtype, card):
+    """The bias kernels in ``dtype`` at bert-base's shape (B=8, H=12,
+    S=512, D=64, non-causal, synthetic-text lengths): held against their
+    plain versions on these inputs, then kernel, plain and SDPA (same
+    boolean attn_mask) device times and bounds.  Returns ({kernel: entry},
+    worst |kernel - plain| per kernel)."""
+    from distributeddeeplearning_tpu_torch.data.synthetic import SyntheticTextDataset
+
+    b, h, s, d = (BIAS_TIMED[x] for x in ("b", "h", "s", "d"))
+    bf = dtype == torch.bfloat16
+    mask = next(SyntheticTextDataset(length=b, seq_len=s, seed=42).batches(b))[
+        "attention_mask"]
+    worst, (q, k, v, do, lse, delta, bias, keep) = _bias_check(
+        torch, fa, dtype, d, s, False, b=b, h=h,
+        keep=torch.from_numpy(mask).bool().cuda())
+    fwd_ms, fwd_plain, fwd_lib, dq_ms, dkv_ms, bwd_plain, bwd_lib = _time_flash(
+        torch, F, fa, q, k, v, do, lse, delta, causal=False, bias=bias, keep=keep)
+    # work this run's data needs: every query row against its row's
+    # visible keys (the kernels visit every key; masked ones add 0)
+    pairs = h * s * int(keep.sum().item())
+    es = 2.0 if bf else 4.0
+    head = es * b * s * h * d
+    small = 4.0 * b * h * s  # one f32 [B, H, S] (lse or delta)
+    bias_bytes = 4.0 * b * s
+    peak = BF16_FLOPS_PER_S if bf else F32_FLOPS_PER_S
+    entries = {
+        "fwd": (fwd_ms, fwd_plain, fwd_lib,
+                bound_ms(4 * head + small + bias_bytes, 4.0 * d * pairs, peak)),
+        "dq": (dq_ms, bwd_plain, bwd_lib,
+               bound_ms(5 * head + 2 * small + bias_bytes, 6.0 * d * pairs, peak)),
+        "dkv": (dkv_ms, bwd_plain, bwd_lib,
+                bound_ms(6 * head + 2 * small + bias_bytes, 8.0 * d * pairs, peak)),
+    }
+    tag = "bf16" if bf else "f32"
+    shape = (f"B={b} H={h} S={s} D={d} non-causal {tag}, synthetic-text mask "
+             f"({int(keep.sum().item())} of {b * s} keys visible; strided qkv views)")
+    log(f"[bias] {tag} at B={b} H={h} S={s} D={d}, {int(keep.sum().item())} of "
+        f"{b * s} keys visible: K1 {fwd_ms:.4f} ms (bound {entries['fwd'][3][0]:.4f}, "
+        f"{entries['fwd'][3][1]}), K2 {dq_ms:.4f} ms (bound {entries['dq'][3][0]:.4f}, "
+        f"{entries['dq'][3][1]}), K3 {dkv_ms:.4f} ms (bound "
+        f"{entries['dkv'][3][0]:.4f}, {entries['dkv'][3][1]}); plain forward "
+        f"{fwd_plain:.4f} ms, plain backward {bwd_plain:.4f} ms; sdpa with the "
+        f"boolean mask {fwd_lib:.4f} ms, its backward {bwd_lib:.4f} ms; held "
+        f"against the plain versions on these inputs (max |kernel - plain| K1 "
+        f"{worst['fwd']:.3e}, K2 {worst['dq']:.3e}, K3 {worst['dkv']:.3e}); "
+        f"device times, on {card}")
+    return ({kern: dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                        library_ms=lib_ms, shape=shape)
+             for kern, (ms, plain_ms, lib_ms, (bms, by)) in entries.items()}, worst)
+
+
+#: (B, H, S, D, causal) of the bias checks: small batches at every head dim
+#: and S, causal and not; then bert-base's own shapes (B=8, H=12, D=64,
+#: non-causal) at seq 128 and 512, with H=12 exercising the kernels'
+#: batch row = (batch x head) // H
+BIAS_CHECKS = tuple((6, 4, s, d, causal) for d in (16, 32, 64)
+                    for s in (1, 37, 128, 512) for causal in (False, True)) + (
+    (8, 12, 128, 64, False), (8, 12, 512, 64, False))
+
+
+def phase_bias(torch, F, fa, card):
+    """K1, K2, K3 with the key-padding bias against their plain versions in
+    f32 and bf16 at every shape of :data:`BIAS_CHECKS`, with a length-1
+    row, a full row and an all-masked row beside synthetic-text lengths;
+    then held and timed at bert-base's shape on a synthetic-text batch.
+    Returns {(kernel, dtype): JSON row fields}."""
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+        for b, h, s, d, causal in BIAS_CHECKS:
+            errs, _ = _bias_check(torch, fa, dtype, d, s, causal, b=b, h=h)
+            worst = {kern: max(worst[kern], e) for kern, e in errs.items()}
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        log(f"[bias] {tag} K1-K3 held at B=6 H=4 D 16/32/64, S 1/37/128/512, "
+            f"causal and not, and at B=8 H=12 D=64 S 128/512 non-causal (f32: "
+            f"K1 {K1_TOL:g}, K2/K3 {BWD_RTOL:g} of the max; bf16: hold_bf16), "
+            f"all-masked rows' lse bitwise, masked keys' dK = dV = 0 exactly; "
+            f"max |kernel - plain| K1 {worst['fwd']:.3e}, K2 {worst['dq']:.3e}, "
+            f"K3 {worst['dkv']:.3e}")
+        timed, timed_worst = _bias_timed(torch, F, fa, dtype, card)
+        for kern, entry in timed.items():
+            rows[(kern, tag)] = {**entry,
+                                 "max_abs_err": max(worst[kern], timed_worst[kern])}
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: bert-base fine-tuning at the workload's defaults (bf16, batch 8, dropout
+#: 0.1, AdamW, clip 1.0, warmup then decay): one epoch of 8 steps on a fresh
+#: batch each (64 examples), then one eval pass over min(64, 4 x 8) = 32
+#: examples, 4 batches
+BERT_RUN = dict(model="bert-base", batch_size=8, epochs=1, steps_per_epoch=8,
+                train_examples=64)
+BERT_STEPS = BERT_RUN["epochs"] * BERT_RUN["steps_per_epoch"]
+BERT_EVAL_BATCHES = 4
+#: flash vs the default attention, same seed, dropout 0: |flash - default| /
+#: default per-step loss.  f32: the two differ in summation order only;
+#: bf16: the default attention rounds its scores and weights to bf16 where
+#: flash keeps f32 scores.  PERF.md gives the readings behind each limit
+#: (scripts/bert_loss_gap.py over five seeds, with a bias-dropped control).
+BERT_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def trust_note(busy, event_ms) -> str:
+    """The profiled kernel sum beside a CUDA-event span of the same steps;
+    more than 10% apart marks the breakdown untrusted."""
+    if busy is None:
+        return "kernel sum not measured (no device time in the profile)"
+    gap = abs(event_ms - busy) / max(event_ms, 1e-9)
+    verdict = ("UNTRUSTED: the two differ by more than 10%" if gap > 0.10
+               else "trusted: within 10%")
+    return (f"kernel sum {busy:.3f} ms vs CUDA-event span {event_ms:.3f} ms of "
+            f"the same steps ({gap:.1%} apart; breakdown {verdict})")
+
+
+def _bert_run(torch, np, fa, *, seq_len, attention, dropout_rate, dtype_kw,
+              **overrides):
+    """One ``workloads.bert.main`` run with the counters zeroed just before
+    and read just after, the plain versions counted, and each train step's
+    loss and CUDA-event span (from its launch to the next step's, the last
+    to its own end) recorded
+    by wrapping the train step the workload builds; ``overrides`` replace
+    :data:`BERT_RUN`'s arguments.  Returns (state, per-step losses, per-step
+    ms, counts, plain calls, peak GB)."""
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch.train import step as tstep
+    from distributeddeeplearning_tpu_torch.workloads import bert
+
+    plain_calls = [0]
+    originals = (fa._dense_attention, fa._dense_attention_bwd, tstep.build_train_step)
+    losses, marks, ends = [], [], []
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            plain_calls[0] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def recording_build(*args, **kwargs):
+        train_step = originals[2](*args, **kwargs)
+
+        def step(state, batch):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            state, metrics = train_step(state, batch)
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+            losses.append(metrics["loss"].detach())
+            return state, metrics
+        return step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "metrics.jsonl")
+        fa._dense_attention, fa._dense_attention_bwd = map(counted, originals[:2])
+        tstep.build_train_step = recording_build
+        try:
+            for c in FA_COUNTERS:
+                setattr(fa, c, 0)
+            torch.cuda.synchronize()
+            state, _ = bert.main(seq_len=seq_len, attention=attention,
+                                 dropout_rate=dropout_rate, device="cuda",
+                                 metrics_path=path,
+                                 **{**BERT_RUN, **dtype_kw, **overrides})
+            torch.cuda.synchronize()
+            counts = {c: getattr(fa, c) for c in FA_COUNTERS}
+        finally:
+            fa._dense_attention, fa._dense_attention_bwd, tstep.build_train_step = (
+                originals)
+        with open(path) as f:
+            rows = [json.loads(line) for line in f]
+    for r in rows:
+        bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite metrics {bad} in epoch {r['epoch']}")
+    losses = [x.item() for x in losses]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"per-step losses {losses}")
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:] + ends[-1:])]
+    return (state, losses, step_ms, counts, plain_calls[0],
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_bert(torch, np, fa, card):
+    """bert-base fine-tuning at full width through ``workloads.bert.main``:
+    at the defaults (bf16, batch 8, seq 128), then seq 512, and in f32 at
+    seq 128; each with flash and with the default attention at dropout 0
+    (same seed: per-step losses within :data:`BERT_LOSS_RTOL` of the
+    dtype), and at the defaults flash at dropout 0.1 (finite losses).  Flash
+    runs must launch exactly the bias kernels of their dtype (12 K1 a
+    forward, 12 K2 and 12 K3 a train step), nothing else, and never call a
+    plain version.  Returns {(seq_len, dtype): {kernel: launches}} of the
+    flash runs at dropout 0."""
+    from distributeddeeplearning_tpu_torch.train.state import tree_leaves
+
+    layers, steps = 12, BERT_STEPS
+    launches = {}
+    for seq_len, dtype in ((128, "bfloat16"), (512, "bfloat16"), (128, "float32")):
+        sfx = "_bf16" if dtype == "bfloat16" else ""
+        dtype_kw = {} if dtype == "bfloat16" else {"compute_dtype": "float32"}
+        tag = f"[bert] seq {seq_len} {dtype}"
+        losses = {}
+        runs = [("flash", 0.0), ("default", 0.0)]
+        if (seq_len, dtype) == (128, "bfloat16"):
+            runs.append(("flash", 0.1))  # the workload's own defaults
+        for attention, rate in runs:
+            state, loss, step_ms, counts, plain, peak_gb = _bert_run(
+                torch, np, fa, seq_len=seq_len, attention=attention,
+                dropout_rate=rate, dtype_kw=dtype_kw)
+            want = {c: 0 for c in FA_COUNTERS}
+            if attention == "flash":
+                want.update({f"launches_bias{sfx}":
+                             layers * (steps + BERT_EVAL_BATCHES),
+                             f"launches_dq_bias{sfx}": layers * steps,
+                             f"launches_dkv_bias{sfx}": layers * steps})
+            if counts != want or plain:
+                raise AssertionError(f"{tag} {attention}: launches {counts}, plain "
+                                     f"calls {plain} (expected {want}, 0)")
+            losses[(attention, rate)] = loss
+            p50 = float(np.median(step_ms[1:])) / 1e3
+            b = BERT_RUN["batch_size"]
+            tokens = b * seq_len
+            n_params = sum(t.numel() for t in tree_leaves(state.params))
+            flops = 6 * n_params * tokens + 3 * 4 * b * seq_len * seq_len * 768 * layers
+            peak = BF16_FLOPS_PER_S if sfx else F32_FLOPS_PER_S
+            log(f"{tag} {attention} dropout {rate}: {n_params / 1e6:.1f} M params; "
+                f"loss by step {[round(x, 5) for x in loss]}; step p50 "
+                f"{p50 * 1e3:.2f} ms (CUDA-event span from one step's launch to "
+                f"the next; steps 1..{steps} in order: "
+                f"{[round(x, 2) for x in step_ms]}), tokens/s {tokens / p50:.1f} "
+                f"(padded positions counted), mfu {flops / p50 / peak:.4f} of "
+                f"{peak / 1e12:.1f} TFLOP/s ({flops / 1e12:.3f} TFLOP a step), peak "
+                f"memory {peak_gb:.2f} GB; launches {counts} on {card}")
+            if attention == "flash" and rate == 0.0:
+                launches[(seq_len, dtype)] = {
+                    kern: counts[f"launches{pre}_bias{sfx}"]
+                    for kern, pre in (("fwd", ""), ("dq", "_dq"), ("dkv", "_dkv"))}
+                if seq_len == 128:
+                    _profile_bert(torch, state, seq_len, dtype, card)
+            del state
+        flash, default = losses[("flash", 0.0)], losses[("default", 0.0)]
+        rel = [abs(a - c) / abs(c) for a, c in zip(flash, default)]
+        log(f"{tag}: |flash - default| / default loss by step "
+            f"{[f'{x:.2e}' for x in rel]} (tolerance {BERT_LOSS_RTOL[dtype]:g})")
+        if len(rel) != steps or max(rel) > BERT_LOSS_RTOL[dtype]:
+            raise AssertionError(f"{tag}: flash losses left the default attention's")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _profile_bert(torch, state, seq_len, dtype, card):
+    """One profiled train step of the returned state: kernel groups and the
+    kernel sum beside a CUDA-event span of the same steps."""
+    from distributeddeeplearning_tpu_torch.train.step import build_train_step
+    from distributeddeeplearning_tpu_torch.workloads import bert
+
+    sfx = "_bf16" if dtype == "bfloat16" else ""
+    step = build_train_step(state, compute_dtype=getattr(torch, dtype), rng=43)
+    batch = next(bert._batches(BERT_RUN["batch_size"], seq_len, 30522, 2, 42, 8,
+                               is_training=False))
+    wall, busy, top, event_ms = profile_share(torch, lambda: step(state, batch), 2)
+    log(f"[profile] bert step (B=8, S={seq_len}, {dtype}, flash with the bias): "
+        f"host wall {wall:.3f} ms; {trust_note(busy, event_ms)} on {card}")
+    gemms = f"{'bf16' if sfx else 'f32'} GEMMs (cuBLAS/CUTLASS)"
+    kernels = {f"K1 flash_fwd{sfx}_kernel (bias)": f"flash_fwd{sfx}_kernel",
+               f"K2 flash_bwd_dq{sfx}_kernel (bias)": f"flash_bwd_dq{sfx}_kernel",
+               f"K3 flash_bwd_dkv{sfx}_kernel (bias)": f"flash_bwd_dkv{sfx}_kernel"}
+    log_groups(top, busy, gemms, kernels)
+
+
+def log_groups(top, busy, gemms, kernels):
+    """Kernel time by group (GEMMs, the named kernels, the rest), then the
+    ten largest kernels."""
+    groups = {gemms: 0.0, **{g: 0.0 for g in kernels}, "everything else": 0.0}
+    for key, ms in top:
+        low = key.lower()
+        group = next((g for g, name in kernels.items() if name in key), None)
+        if group is None:
+            group = gemms if ("gemm" in low or "nvjet" in low or "cutlass" in low
+                              or "xmma" in low) else "everything else"
+        groups[group] += ms
+    for group, ms in groups.items():
+        log(f"[profile]   {ms:9.3f} ms  {ms / max(busy or 1e-9, 1e-9):6.1%}  {group}")
+    for key, ms in top[:10]:
+        log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
+
+
 def _fd_counts(fd):
     """The decode kernel's counters, named apart from the flash ones."""
     return {"fd_launches": fd.launches, "launches_bf16_fd": fd.launches_bf16,
@@ -2399,6 +2804,7 @@ def main() -> int:
         return 2
     try:
         resolve_device("cuda")  # TF32 off: the parity contract is f32
+        t_start = time.perf_counter()
         card = card_line()
         log(f"[card] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
         t0 = time.perf_counter()
@@ -2409,31 +2815,33 @@ def main() -> int:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {name}: {line.strip()}")
-        k1 = phase_k1(torch, F, fa, card)
-        k1_bf16 = phase_k1_bf16(torch, F, fa, card)
-        k4 = phase_k4(torch, F, fd, card)
-        k4b = phase_k4b(torch, F, fd, card)
-        k4c = phase_k4c(torch, fd, card)
-        k4v = phase_k4v(torch, F, fd, card)
-        k4_bf16, k4_int8_bf16q = phase_k4_bf16(torch, F, fd, card)
-        phase_int_mm(torch, card)
-        served, dense_engine, dense = phase_serve(torch, np, fa, fd, card)
-        paged = phase_serve_paged(torch, np, fa, fd, card, dense_engine)
-        spec = phase_serve_spec(torch, np, fa, fd, card, dense_engine.params,
-                                dense_engine, dense, paged)
-        served_bf16 = phase_serve_bf16(torch, np, fa, fd, card, dense_engine.params,
-                                       dense, paged)
+        k1 = timed(phase_k1, torch, F, fa, card)
+        k1_bf16 = timed(phase_k1_bf16, torch, F, fa, card)
+        k4 = timed(phase_k4, torch, F, fd, card)
+        k4b = timed(phase_k4b, torch, F, fd, card)
+        k4c = timed(phase_k4c, torch, fd, card)
+        k4v = timed(phase_k4v, torch, F, fd, card)
+        k4_bf16, k4_int8_bf16q = timed(phase_k4_bf16, torch, F, fd, card)
+        timed(phase_int_mm, torch, card)
+        served, dense_engine, dense = timed(phase_serve, torch, np, fa, fd, card)
+        paged = timed(phase_serve_paged, torch, np, fa, fd, card, dense_engine)
+        spec = timed(phase_serve_spec, torch, np, fa, fd, card, dense_engine.params,
+                     dense_engine, dense, paged)
+        served_bf16 = timed(phase_serve_bf16, torch, np, fa, fd, card,
+                            dense_engine.params, dense, paged)
         del dense_engine
         torch.cuda.empty_cache()
-        headdim = phase_headdim(torch, F, fa, fd, card)
-        defaults = phase_default_geometries(torch, np, fa, fd, card)
-        bwd = phase_bwd(torch, F, fa, card)
-        bwd_bf16 = phase_bwd_bf16(torch, F, fa, card)
-        phase_grad_parity(torch, np)
-        phase_grad_parity_bf16(torch, np, fa)
-        trained, f32_losses = phase_train(torch, np, fa, card)
-        trained_bf16, _ = phase_train(torch, np, fa, card, dtype="bfloat16",
-                                      f32_losses=f32_losses)
+        headdim = timed(phase_headdim, torch, F, fa, fd, card)
+        defaults = timed(phase_default_geometries, torch, np, fa, fd, card)
+        bwd = timed(phase_bwd, torch, F, fa, card)
+        bwd_bf16 = timed(phase_bwd_bf16, torch, F, fa, card)
+        timed(phase_grad_parity, torch, np)
+        timed(phase_grad_parity_bf16, torch, np, fa)
+        trained, f32_losses = timed(phase_train, torch, np, fa, card)
+        trained_bf16, _ = timed(phase_train, torch, np, fa, card, dtype="bfloat16",
+                                f32_losses=f32_losses)
+        bias = timed(phase_bias, torch, F, fa, card)
+        bert_runs = timed(phase_bert, torch, np, fa, card)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -2500,6 +2908,23 @@ def main() -> int:
              replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
              launches=served_bf16["int8_bf16q"], **k4_int8_bf16q),
     ]
+    # the key-padding-bias variants of K1-K3: held and timed in phase_bias,
+    # launched by BERT fine-tuning (bf16: the defaults at seq 128, and seq
+    # 512; f32: seq 128 in f32)
+    for kern, stem, src, line in (
+            ("fwd", "flash_attention_fwd", "flash_attention_fwd.cu", 160),
+            ("dq", "flash_attention_bwd_dq", "flash_attention_bwd.cu", 335),
+            ("dkv", "flash_attention_bwd_dkv", "flash_attention_bwd.cu", 355)):
+        for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+            by_path = {"bert_flash": bert_runs[(128, dtype)][kern]}
+            if tag == "bf16":
+                by_path["bert_flash_seq512"] = bert_runs[(512, dtype)][kern]
+            rows.append(dict(
+                name=f"{stem}_bias{'_bf16' if tag == 'bf16' else ''}", route="cuda",
+                source=f"distributeddeeplearning_tpu_torch/csrc/{src}",
+                replaces=f"distributeddeeplearning_tpu/ops/flash_attention.py:{line}",
+                launches=by_path["bert_flash"], launches_by_path=by_path,
+                **bias[(kern, tag)]))
     # each kernel at head dims 16 and 32: held and timed in phase_headdim,
     # launched on the main paths of the reference's default geometries
     # (`ddlt serve` at 16, the LM workload at 32) where one runs it
@@ -2509,6 +2934,7 @@ def main() -> int:
             for d, entry in headdim.get(row["name"], {}).items()}
     log(f"[timer] windows timed by CUDA events for want of profiler device "
         f"time: {len(EVENT_TIMED)}")
+    log(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,18 @@
 // The causal triangle (key <= query) is applied elementwise on the tiles
 // that straddle the diagonal; tiles wholly above it are never visited.
 //
+// Key-padding bias.  With a non-null `bias` ([B, S] f32, 0 or -1e30 per key,
+// shared by a batch row's heads) every kernel is built with HAS_BIAS and
+// adds bias[b, key] to the recomputed scores, as the Pallas kernels do
+// (has_bias): the dQ pass per key column of its tile, the dK/dV pass per
+// key row of its transposed tile (one value a row, held in registers).  A
+// masked key of a row that sees any key gets P = exp(-1e30...) = 0 exactly,
+// so its dK and dV come out exactly 0.  The f32 kernels work in nats and
+// take the bias times ln 2, the bf16 ones in base 2 and take it as it is;
+// either way a fully masked row recomputes P = 1 from its lse, as the
+// reference does.  Without a bias HAS_BIAS is false and the code is the
+// unbiased kernel's.
+//
 // Two passes, as on the TPU.  flash_bwd_dq_kernel owns one 64-row query
 // tile and loops over 32-key tiles, accumulating dQ in registers;
 // flash_bwd_dkv_kernel owns one 64-key tile and loops over 32-query tiles,
@@ -83,10 +95,11 @@ struct Strides {
 };
 
 // dQ pass: one block per (b*h, 64-query tile); loop over 32-key tiles.
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ v, const float* __restrict__ bias,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     Strides st, float* __restrict__ dq, int H, int S,
                     int causal, float scale) {
@@ -133,6 +146,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_tile<D>(Vs, vb, st.v_ss, k0, BC, S, tid);
     __syncthreads();
 
+    float kb_nat[2] = {0.f, 0.f};  // this lane's two keys' bias, in nats
+    if constexpr (HAS_BIAS) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = k0 + tx + 16 * j;
+        if (c < S) {
+          kb_nat[j] = __fmul_rn(bias[(long long)b * S + c], bf16mma::LN2);
+        }
+      }
+    }
+
     float s[4][2], dp[4][2];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -163,7 +187,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 2; ++j) {
         const int c = k0 + tx + 16 * j;
         const bool visible = r < S && c < S && (!causal || c <= r);
-        const float p = visible ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
+        float sv = s[i][j] * scale;
+        if constexpr (HAS_BIAS) sv += kb_nat[j];
+        const float p = visible ? expf(sv - row_lse[i]) : 0.f;
         dSs[(ty * 4 + i) * LDP + tx + 16 * j] = p * (dp[i][j] - row_delta[i]) * scale;
       }
     }
@@ -195,10 +221,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // dK/dV pass: one block per (b*h, 64-key tile); loop over 32-query tiles,
 // working on transposed [key, query] score tiles.
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ v, const float* __restrict__ bias,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      Strides st, float* __restrict__ dk, float* __restrict__ dv,
                      int H, int S, int causal, float scale) {
@@ -234,6 +261,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) { dk_acc[i][j] = 0.f; dv_acc[i][j] = 0.f; }
+  float key_bias[4] = {0.f, 0.f, 0.f, 0.f};  // this thread's keys, in nats
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = k0 + ty * 4 + i;
+      if (c < S) {
+        key_bias[i] = __fmul_rn(bias[(long long)b * S + c], bf16mma::LN2);
+      }
+    }
+  }
 
   // causal: query tiles that end before the block's first key see none of it
   const int qstart = causal ? k0 / BC : 0;
@@ -281,7 +318,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int qc = tx + 16 * j;
         const int r = q0 + qc;  // query
         const bool visible = r < S && c < S && (!causal || c <= r);
-        const float p = visible ? expf(s[i][j] * scale - Ls[qc]) : 0.f;
+        float sv = s[i][j] * scale;
+        if constexpr (HAS_BIAS) sv += key_bias[i];
+        const float p = visible ? expf(sv - Ls[qc]) : 0.f;
         Ps[(ty * 4 + i) * LDP + qc] = p;
         dSs[(ty * 4 + i) * LDP + qc] = p * (dp[i][j] - Es[qc]) * scale;
       }
@@ -339,44 +378,75 @@ Strides make_strides(const long long* s) {
                  s[6], s[7], s[8], s[9], s[10], s[11]};
 }
 
-template <int D>
-int launch_dq_f32(const float* q, const float* k, const float* v,
-                  const float* dout, const float* lse, const float* delta,
-                  const Strides& st, float* dq, int B, int H, int S,
-                  int causal, float scale, cudaStream_t stream) {
+template <int D, bool HAS_BIAS>
+int launch_dq_f32_as(const float* q, const float* k, const float* v,
+                     const float* bias, const float* dout, const float* lse,
+                     const float* delta, const Strides& st, float* dq, int B,
+                     int H, int S, int causal, float scale,
+                     cudaStream_t stream) {
   // above 48 KB a block's shared memory must be asked for explicitly
   constexpr size_t smem = dq_smem<D>();
   const cudaError_t set = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dq_kernel<D, HAS_BIAS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid((S + BR - 1) / BR, B * H);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, st, dq, H, S, causal, scale);
+  flash_bwd_dq_kernel<D, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
+      q, k, v, bias, dout, lse, delta, st, dq, H, S, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_f32(const float* q, const float* k, const float* v,
+                  const float* bias, const float* dout, const float* lse,
+                  const float* delta, const Strides& st, float* dq, int B,
+                  int H, int S, int causal, float scale, cudaStream_t stream) {
+  return bias != nullptr
+             ? launch_dq_f32_as<D, true>(q, k, v, bias, dout, lse, delta, st,
+                                         dq, B, H, S, causal, scale, stream)
+             : launch_dq_f32_as<D, false>(q, k, v, bias, dout, lse, delta, st,
+                                          dq, B, H, S, causal, scale, stream);
+}
+
+template <int D, bool HAS_BIAS>
+int launch_dkv_f32_as(const float* q, const float* k, const float* v,
+                      const float* bias, const float* dout, const float* lse,
+                      const float* delta, const Strides& st, float* dk,
+                      float* dv, int B, int H, int S, int causal, float scale,
+                      cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem<D>();
+  const cudaError_t set = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<D, HAS_BIAS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid((S + BR - 1) / BR, B * H);
+  flash_bwd_dkv_kernel<D, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
+      q, k, v, bias, dout, lse, delta, st, dk, dv, H, S, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dkv_f32(const float* q, const float* k, const float* v,
-                   const float* dout, const float* lse, const float* delta,
-                   const Strides& st, float* dk, float* dv, int B, int H,
-                   int S, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem<D>();
-  const cudaError_t set = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid((S + BR - 1) / BR, B * H);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, st, dk, dv, H, S, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+                   const float* bias, const float* dout, const float* lse,
+                   const float* delta, const Strides& st, float* dk,
+                   float* dv, int B, int H, int S, int causal, float scale,
+                   cudaStream_t stream) {
+  return bias != nullptr
+             ? launch_dkv_f32_as<D, true>(q, k, v, bias, dout, lse, delta, st,
+                                          dk, dv, B, H, S, causal, scale,
+                                          stream)
+             : launch_dkv_f32_as<D, false>(q, k, v, bias, dout, lse, delta,
+                                           st, dk, dv, B, H, S, causal, scale,
+                                           stream);
 }
 
 }  // namespace
 
-// strides: 12 values, (batch, seq, head) for q, k, v and dO in that order.
+// strides: 12 values, (batch, seq, head) for q, k, v and dO in that order;
+// bias: [B, S] f32 or null (no key-padding mask).
 extern "C" int flash_attention_bwd_dq_f32(
-    const float* q, const float* k, const float* v, const float* dout,
+    const float* q, const float* k, const float* v, const float* bias,
+    const float* dout,
     const float* lse, const float* delta, const long long* strides,
     float* dq, int B, int H, int S, int D, int causal, float scale,
     void* stream) {
@@ -384,21 +454,22 @@ extern "C" int flash_attention_bwd_dq_f32(
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_dq_f32<16>(q, k, v, dout, lse, delta, st, dq, B, H, S,
-                               causal, scale, cs);
+      return launch_dq_f32<16>(q, k, v, bias, dout, lse, delta, st, dq, B, H,
+                               S, causal, scale, cs);
     case 32:
-      return launch_dq_f32<32>(q, k, v, dout, lse, delta, st, dq, B, H, S,
-                               causal, scale, cs);
+      return launch_dq_f32<32>(q, k, v, bias, dout, lse, delta, st, dq, B, H,
+                               S, causal, scale, cs);
     case 64:
-      return launch_dq_f32<64>(q, k, v, dout, lse, delta, st, dq, B, H, S,
-                               causal, scale, cs);
+      return launch_dq_f32<64>(q, k, v, bias, dout, lse, delta, st, dq, B, H,
+                               S, causal, scale, cs);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 extern "C" int flash_attention_bwd_dkv_f32(
-    const float* q, const float* k, const float* v, const float* dout,
+    const float* q, const float* k, const float* v, const float* bias,
+    const float* dout,
     const float* lse, const float* delta, const long long* strides,
     float* dk, float* dv, int B, int H, int S, int D, int causal, float scale,
     void* stream) {
@@ -406,14 +477,14 @@ extern "C" int flash_attention_bwd_dkv_f32(
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_dkv_f32<16>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
-                                S, causal, scale, cs);
+      return launch_dkv_f32<16>(q, k, v, bias, dout, lse, delta, st, dk, dv,
+                                B, H, S, causal, scale, cs);
     case 32:
-      return launch_dkv_f32<32>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
-                                S, causal, scale, cs);
+      return launch_dkv_f32<32>(q, k, v, bias, dout, lse, delta, st, dk, dv,
+                                B, H, S, causal, scale, cs);
     case 64:
-      return launch_dkv_f32<64>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
-                                S, causal, scale, cs);
+      return launch_dkv_f32<64>(q, k, v, bias, dout, lse, delta, st, dk, dv,
+                                B, H, S, causal, scale, cs);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -459,10 +530,11 @@ constexpr int BKQ16 = 64;       // keys a tile of the dQ pass
 constexpr int BQK16 = 32;       // queries a tile of the dK/dV pass
 constexpr int THREADS16 = 128;  // 4 warps, 16 owned rows each
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS16)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
+                         const float* __restrict__ bias,
                          const bf16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, Strides st,
@@ -475,6 +547,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ __align__(16) bf16 dOs[BR16 * LDS];
   __shared__ __align__(16) bf16 Ks[BKQ16 * LDS];
   __shared__ __align__(16) bf16 Vs[BKQ16 * LDS];
+  __shared__ float Bs[HAS_BIAS ? BKQ16 : 1];  // the K tile's key bias
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -496,11 +569,16 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   m::load_tile_async<BR16, THREADS16, D>(dOs, dob, st.do_ss, q0, S, tid);
   m::cp_async_commit();
 
-  float row_lse[2], row_delta[2];  // lse in base 2
+  // lse in base 2, the product rounded (__fmul_rn: no fused multiply-add
+  // with the subtraction below), so a fully masked row's -1e30 * ln 2
+  // comes back to exactly the -1e30 its biased scores carry, as in the
+  // reference
+  float row_lse[2], row_delta[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = wrow + g + i * 8;
-    row_lse[i] = r < S ? lse[(long long)bh * S + r] * m::LOG2E : 0.f;
+    row_lse[i] =
+        r < S ? __fmul_rn(lse[(long long)bh * S + r], m::LOG2E) : 0.f;
     row_delta[i] = r < S ? delta[(long long)bh * S + r] : 0.f;
   }
   m::cp_async_wait<0>();
@@ -526,6 +604,11 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     m::load_tile_async<BKQ16, THREADS16, D>(Ks, kb, st.k_ss, k0, S, tid);
     m::load_tile_async<BKQ16, THREADS16, D>(Vs, vb, st.v_ss, k0, S, tid);
     m::cp_async_commit();
+    if constexpr (HAS_BIAS) {
+      if (tid < BKQ16) {
+        Bs[tid] = k0 + tid < S ? bias[(long long)b * S + k0 + tid] : 0.f;
+      }
+    }
     m::cp_async_wait<0>();
     __syncthreads();
     if (causal && k0 > wrow + 15) continue;  // wholly above the warp's rows
@@ -556,8 +639,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int r = wrow + g + i * 8;
         const int c = k0 + n * 8 + 2 * t + (e & 1);
         const bool visible = r < S && c < S && (!causal || c <= r);
-        const float p =
-            visible ? exp2f(s[n][e] * scale_log2 - row_lse[i]) : 0.f;
+        float sv = s[n][e] * scale_log2;
+        if constexpr (HAS_BIAS) sv += Bs[c - k0];
+        const float p = visible ? exp2f(sv - row_lse[i]) : 0.f;
         s[n][e] = p * (dp[n][e] - row_delta[i]) * scale;  // dS
       }
     }
@@ -588,10 +672,11 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS16)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
+                          const float* __restrict__ bias,
                           const bf16* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta, Strides st,
@@ -640,6 +725,14 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int n = 0; n < 2 * KD; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) { dk_acc[n][e] = 0.f; dv_acc[n][e] = 0.f; }
+  float key_bias[2] = {0.f, 0.f};  // this lane's two keys, base 2
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = wkey + g + i * 8;
+      if (key < S) key_bias[i] = bias[(long long)b * S + key];
+    }
+  }
 
   // causal: query tiles that end before the block's first key see none of it
   const int qstart = causal ? k0 / BQK16 : 0;
@@ -652,7 +745,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     m::cp_async_commit();
     if (tid < BQK16) {
       const int r = q0 + tid;
-      Ls[tid] = r < S ? lse[(long long)bh * S + r] * m::LOG2E : 0.f;
+      Ls[tid] =
+          r < S ? __fmul_rn(lse[(long long)bh * S + r], m::LOG2E) : 0.f;
       Es[tid] = r < S ? delta[(long long)bh * S + r] : 0.f;
     }
     m::cp_async_wait<0>();
@@ -685,7 +779,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         const int qc = n * 8 + 2 * t + (e & 1);
         const int r = q0 + qc;  // query
         const bool visible = r < S && key < S && (!causal || key <= r);
-        const float p = visible ? exp2f(sp[n][e] * scale_log2 - Ls[qc]) : 0.f;
+        float sv = sp[n][e] * scale_log2;
+        if constexpr (HAS_BIAS) sv += key_bias[e >> 1];
+        const float p = visible ? exp2f(sv - Ls[qc]) : 0.f;
         sp[n][e] = p;
         dsp[n][e] = p * (dsp[n][e] - Es[qc]) * scale;
       }
@@ -725,36 +821,56 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 template <int D>
 int launch_dq_bf16(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   const Strides& st, void* dq, int B, int H, int S,
-                   int causal, float scale, cudaStream_t stream) {
+                   const float* bias, const void* dout, const float* lse,
+                   const float* delta, const Strides& st, void* dq, int B,
+                   int H, int S, int causal, float scale,
+                   cudaStream_t stream) {
   const dim3 grid((S + BR16 - 1) / BR16, B * H);
-  flash_bwd_dq_bf16_kernel<D><<<grid, THREADS16, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      st, static_cast<bf16*>(dq), H, S, causal, scale);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  bf16* dqp = static_cast<bf16*>(dq);
+  if (bias != nullptr) {
+    flash_bwd_dq_bf16_kernel<D, true><<<grid, THREADS16, 0, stream>>>(
+        qp, kp, vp, bias, dop, lse, delta, st, dqp, H, S, causal, scale);
+  } else {
+    flash_bwd_dq_bf16_kernel<D, false><<<grid, THREADS16, 0, stream>>>(
+        qp, kp, vp, bias, dop, lse, delta, st, dqp, H, S, causal, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dkv_bf16(const void* q, const void* k, const void* v,
-                    const void* dout, const float* lse, const float* delta,
-                    const Strides& st, void* dk, void* dv, int B, int H,
-                    int S, int causal, float scale, cudaStream_t stream) {
+                    const float* bias, const void* dout, const float* lse,
+                    const float* delta, const Strides& st, void* dk, void* dv,
+                    int B, int H, int S, int causal, float scale,
+                    cudaStream_t stream) {
   const dim3 grid((S + BR16 - 1) / BR16, B * H);
-  flash_bwd_dkv_bf16_kernel<D><<<grid, THREADS16, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      st, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, causal,
-      scale);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  bf16* dkp = static_cast<bf16*>(dk);
+  bf16* dvp = static_cast<bf16*>(dv);
+  if (bias != nullptr) {
+    flash_bwd_dkv_bf16_kernel<D, true><<<grid, THREADS16, 0, stream>>>(
+        qp, kp, vp, bias, dop, lse, delta, st, dkp, dvp, H, S, causal, scale);
+  } else {
+    flash_bwd_dkv_bf16_kernel<D, false><<<grid, THREADS16, 0, stream>>>(
+        qp, kp, vp, bias, dop, lse, delta, st, dkp, dvp, H, S, causal, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// strides: 12 values, (batch, seq, head) for q, k, v and dO in that order.
+// strides: 12 values, (batch, seq, head) for q, k, v and dO in that order;
+// bias: [B, S] f32 or null.
 extern "C" int flash_attention_bwd_dq_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
+    const void* q, const void* k, const void* v, const float* bias,
+    const void* dout,
     const float* lse, const float* delta, const long long* strides,
     void* dq, int B, int H, int S, int D, int causal, float scale,
     void* stream) {
@@ -762,21 +878,22 @@ extern "C" int flash_attention_bwd_dq_bf16(
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_dq_bf16<16>(q, k, v, dout, lse, delta, st, dq, B, H, S,
-                                causal, scale, cs);
+      return launch_dq_bf16<16>(q, k, v, bias, dout, lse, delta, st, dq, B, H,
+                                S, causal, scale, cs);
     case 32:
-      return launch_dq_bf16<32>(q, k, v, dout, lse, delta, st, dq, B, H, S,
-                                causal, scale, cs);
+      return launch_dq_bf16<32>(q, k, v, bias, dout, lse, delta, st, dq, B, H,
+                                S, causal, scale, cs);
     case 64:
-      return launch_dq_bf16<64>(q, k, v, dout, lse, delta, st, dq, B, H, S,
-                                causal, scale, cs);
+      return launch_dq_bf16<64>(q, k, v, bias, dout, lse, delta, st, dq, B, H,
+                                S, causal, scale, cs);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 extern "C" int flash_attention_bwd_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
+    const void* q, const void* k, const void* v, const float* bias,
+    const void* dout,
     const float* lse, const float* delta, const long long* strides,
     void* dk, void* dv, int B, int H, int S, int D, int causal, float scale,
     void* stream) {
@@ -784,14 +901,14 @@ extern "C" int flash_attention_bwd_dkv_bf16(
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_dkv_bf16<16>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
-                                 S, causal, scale, cs);
+      return launch_dkv_bf16<16>(q, k, v, bias, dout, lse, delta, st, dk, dv,
+                                 B, H, S, causal, scale, cs);
     case 32:
-      return launch_dkv_bf16<32>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
-                                 S, causal, scale, cs);
+      return launch_dkv_bf16<32>(q, k, v, bias, dout, lse, delta, st, dk, dv,
+                                 B, H, S, causal, scale, cs);
     case 64:
-      return launch_dkv_bf16<64>(q, k, v, dout, lse, delta, st, dk, dv, B, H,
-                                 S, causal, scale, cs);
+      return launch_dkv_bf16<64>(q, k, v, bias, dout, lse, delta, st, dk, dv,
+                                 B, H, S, causal, scale, cs);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,8 +2,19 @@
 //
 // Replaces the Pallas TPU kernel distributeddeeplearning_tpu/ops/
 // flash_attention.py:_kernel (launched by _flash_fwd_pallas).  Computes
-//   O = softmax(Q K^T / sqrt(D) + causal) V     and     lse = log-sum-exp
+//   O = softmax(Q K^T / sqrt(D) + bias + causal) V   and   lse = log-sum-exp
 // of the scaled, masked scores in nats, per (batch, head, query row).
+//
+// Key-padding bias.  With a non-null `bias` ([B, S] f32, 0 or -1e30 per
+// key, shared by the heads of a batch row) every kernel here is built with
+// HAS_BIAS and adds bias[b, key] to each score before the running max, as
+// the Pallas kernel adds it to its base-2 scores (has_bias).  It is an
+// additive term, not a skip: a row whose keys are all masked gets the
+// uniform mean of V over its visible keys, as the reference does, where a
+// skip would leave l = 0.  Keys that are invisible by position (causal, or
+// past S) take a fill below every biased score, so they never count.
+// Without a bias (the LM and serving launches) HAS_BIAS is false and the
+// code is the unbiased kernel's.
 //
 // Layout.  q, k and v arrive as the [B, S, H, D] views that the model's
 // qkv split produces: rows of one head are D floats apart from nothing but
@@ -53,10 +64,10 @@ constexpr int BK = 32;         // keys per inner tile
 constexpr int THREADS = 256;   // 16 row groups x 16 lanes
 constexpr float NEG_BIG = -1e30f;
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v,
+                 const float* __restrict__ v, const float* __restrict__ bias,
                  long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh,
@@ -119,6 +130,19 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
+    // this lane's two keys' bias, in nats: the reference adds it to base-2
+    // scores, so a -1e30 there is -1e30 * ln 2 here
+    float kb_nat[2] = {0.f, 0.f};
+    if constexpr (HAS_BIAS) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = k0 + tx + 16 * j;
+        if (c < S) {
+          kb_nat[j] = __fmul_rn(bias[(long long)b * S + c], bf16mma::LN2);
+        }
+      }
+    }
+
     float s[4][2];
 #pragma unroll
     for (int i = 0; i < 4; ++i) { s[i][0] = 0.f; s[i][1] = 0.f; }
@@ -143,7 +167,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 2; ++j) {
         const int c = k0 + tx + 16 * j;
         const bool visible = c < S && (!causal || c <= r);
-        s[i][j] = visible ? s[i][j] * scale : NEG_BIG;
+        float sv = s[i][j] * scale;
+        if constexpr (HAS_BIAS) sv += kb_nat[j];
+        // NEG_BIG lies below every biased score (-1e30 * ln 2 at least)
+        s[i][j] = visible ? sv : NEG_BIG;
       }
       float mx = fmaxf(s[i][0], s[i][1]);
 #pragma unroll
@@ -194,22 +221,29 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch_fwd_f32(const float* q, const float* k, const float* v,
+                   const float* bias,
                    long long q_sb, long long q_ss, long long q_sh,
                    long long k_sb, long long k_ss, long long k_sh,
                    long long v_sb, long long v_ss, long long v_sh, float* o,
                    float* lse, int B, int H, int S, int causal, float scale,
                    cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D><<<grid, THREADS, 0, stream>>>(
-      q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o, lse,
-      H, S, causal, scale);
+  if (bias != nullptr) {
+    flash_fwd_kernel<D, true><<<grid, THREADS, 0, stream>>>(
+        q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+        o, lse, H, S, causal, scale);
+  } else {
+    flash_fwd_kernel<D, false><<<grid, THREADS, 0, stream>>>(
+        q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+        o, lse, H, S, causal, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int flash_attention_fwd_f32(
-    const float* q, const float* k, const float* v,
+    const float* q, const float* k, const float* v, const float* bias,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -218,17 +252,17 @@ extern "C" int flash_attention_fwd_f32(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_fwd_f32<16>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
-                                scale, st);
+      return launch_fwd_f32<16>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                k_sh, v_sb, v_ss, v_sh, o, lse, B, H, S,
+                                causal, scale, st);
     case 32:
-      return launch_fwd_f32<32>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
-                                scale, st);
+      return launch_fwd_f32<32>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                k_sh, v_sb, v_ss, v_sh, o, lse, B, H, S,
+                                causal, scale, st);
     case 64:
-      return launch_fwd_f32<64>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
-                                scale, st);
+      return launch_fwd_f32<64>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                k_sh, v_sb, v_ss, v_sh, o, lse, B, H, S,
+                                causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -248,12 +282,16 @@ extern "C" int flash_attention_fwd_f32(
 // shared memory with cp.async (V's copy overlaps the S product); S = Q K^T
 // and O += P V are mma.sync m16n8k16 bf16 products, B operands read with
 // ldmatrix (.trans for V); at D = 16, Q K^T is a single k-step and P V two
-// n-tiles.  S's accumulator is rounded in registers into
-// P's A operand, so P never touches shared memory.  Row max and row sum
-// reduce over the four lanes of a quad.  With causal masking the loop stops
-// at the block's diagonal tile, a warp skips tiles wholly above its own
-// rows, and the tiles it visits are masked elementwise with -1e30.  Keys and
-// rows past S are zero-filled by the copy (src-size 0) and masked.
+// n-tiles.  S's accumulator is rounded in registers into P's A operand, so
+// P never touches shared memory.  Row max and row sum reduce over the four
+// lanes of a quad.  With causal masking the loop stops at the block's
+// diagonal tile, a warp skips tiles wholly above its own rows, and the
+// tiles it visits are masked elementwise with -1e30.  Keys and rows past S
+// are zero-filled by the copy (src-size 0) and masked.  With HAS_BIAS each
+// K tile's 64 bias values are staged in shared memory beside it and added
+// to the base-2 scores as they are (the reference's own units); keys
+// invisible by position then take 2 * -1e30, the sum the reference's
+// additive causal term gives, below every biased score.
 //
 // Bound on the H100.  At the training shape (B=8, H=12, S=2048, D=64,
 // causal) 4 D flops per visible pair at the 989 TFLOP/s dense bf16 peak
@@ -269,10 +307,11 @@ constexpr int BQ16 = 64;        // query rows a block (16 a warp)
 constexpr int BK16 = 64;        // keys a tile
 constexpr int THREADS16 = 128;  // 4 warps
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS16)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
+                      const float* __restrict__ bias,
                       long long q_sb, long long q_ss, long long q_sh,
                       long long k_sb, long long k_ss, long long k_sh,
                       long long v_sb, long long v_ss, long long v_sh,
@@ -281,9 +320,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   namespace m = bf16mma;
   constexpr int LDS = m::Tile<D>::LDS;
   constexpr int KD = D / 16;  // k-steps of Q K^T, n-tile pairs of P V
+  constexpr float FILL = HAS_BIAS ? 2.f * NEG_BIG : NEG_BIG;
   __shared__ __align__(16) bf16 Qs[BQ16 * LDS];
   __shared__ __align__(16) bf16 Ks[BK16 * LDS];
   __shared__ __align__(16) bf16 Vs[BK16 * LDS];
+  __shared__ float Bs[HAS_BIAS ? BK16 : 1];  // the K tile's key bias
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -326,6 +367,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     m::cp_async_commit();
     m::load_tile_async<BK16, THREADS16, D>(Vs, vb, v_ss, k0, S, tid);
     m::cp_async_commit();
+    if constexpr (HAS_BIAS) {
+      if (tid < BK16) {
+        Bs[tid] = k0 + tid < S ? bias[(long long)b * S + k0 + tid] : 0.f;
+      }
+    }
     m::cp_async_wait<1>();  // K has landed; V may still be in flight
     __syncthreads();
 
@@ -354,7 +400,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int r = wrow + g + (e >> 1) * 8;
           const int c = k0 + n * 8 + 2 * t + (e & 1);
           const bool visible = c < S && (!causal || c <= r);
-          s[n][e] = visible ? s[n][e] * scale_log2 : NEG_BIG;
+          float sv = s[n][e] * scale_log2;
+          if constexpr (HAS_BIAS) sv += Bs[c - k0];
+          s[n][e] = visible ? sv : FILL;
           mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
         }
       }
@@ -419,26 +467,46 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D, bool HAS_BIAS>
+void launch_fwd_bf16_as(dim3 grid, const void* q, const void* k,
+                        const void* v, const float* bias,
+                        long long q_sb, long long q_ss, long long q_sh,
+                        long long k_sb, long long k_ss, long long k_sh,
+                        long long v_sb, long long v_ss, long long v_sh,
+                        void* o, float* lse, int H, int S, int causal,
+                        float scale, cudaStream_t stream) {
+  flash_fwd_bf16_kernel<D, HAS_BIAS><<<grid, THREADS16, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), bias, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+      v_sb, v_ss, v_sh, static_cast<bf16*>(o), lse, H, S, causal,
+      scale * bf16mma::LOG2E);
+}
+
 template <int D>
 int launch_fwd_bf16(const void* q, const void* k, const void* v,
+                    const float* bias,
                     long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh, void* o,
                     float* lse, int B, int H, int S, int causal, float scale,
                     cudaStream_t stream) {
   const dim3 grid((S + BQ16 - 1) / BQ16, B * H);
-  flash_fwd_bf16_kernel<D><<<grid, THREADS16, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-      v_ss, v_sh, static_cast<bf16*>(o), lse, H, S, causal,
-      scale * bf16mma::LOG2E);
+  if (bias != nullptr) {
+    launch_fwd_bf16_as<D, true>(grid, q, k, v, bias, q_sb, q_ss, q_sh, k_sb,
+                                k_ss, k_sh, v_sb, v_ss, v_sh, o, lse, H, S,
+                                causal, scale, stream);
+  } else {
+    launch_fwd_bf16_as<D, false>(grid, q, k, v, bias, q_sb, q_ss, q_sh, k_sb,
+                                 k_ss, k_sh, v_sb, v_ss, v_sh, o, lse, H, S,
+                                 causal, scale, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int flash_attention_fwd_bf16(
-    const void* q, const void* k, const void* v,
+    const void* q, const void* k, const void* v, const float* bias,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -447,17 +515,17 @@ extern "C" int flash_attention_fwd_bf16(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_fwd_bf16<16>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                 v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
-                                 scale, st);
+      return launch_fwd_bf16<16>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                 k_sh, v_sb, v_ss, v_sh, o, lse, B, H, S,
+                                 causal, scale, st);
     case 32:
-      return launch_fwd_bf16<32>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                 v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
-                                 scale, st);
+      return launch_fwd_bf16<32>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                 k_sh, v_sb, v_ss, v_sh, o, lse, B, H, S,
+                                 causal, scale, st);
     case 64:
-      return launch_fwd_bf16<64>(q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                 v_sb, v_ss, v_sh, o, lse, B, H, S, causal,
-                                 scale, st);
+      return launch_fwd_bf16<64>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                 k_sh, v_sb, v_ss, v_sh, o, lse, B, H, S,
+                                 causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -20,24 +20,37 @@ from the kernels only in the order of its sums.  There is no fallback
 between kernel and plain version and no switch: the tensor's device
 decides, and a CUDA tensor the kernels cannot take raises.
 
+Key padding.  :func:`flash_attention` turns a boolean ``mask`` into the
+reference's additive bias, ``bias2 = where(mask, 0, -1e30)`` as a
+contiguous [B, S] f32 shared by each batch row's heads, and every pass adds
+it to its scores (the Pallas kernels' ``has_bias``).  It is a term of the
+softmax, not a skip, so a row whose keys are all masked attends uniformly
+to the keys it can see by position, as in the reference; the bias gets no
+gradient.  The kernels take it in a variant built with ``HAS_BIAS`` and
+launch the unbiased variant when there is no mask (the LM and serving
+paths).  The Pallas kernels add it to base-2 scores; the f32 kernels and
+the plain versions work in nats and add ``bias * ln 2``, which gives the
+reference's lse bit for bit on a fully masked row too.
+
 The glue is :class:`_FlashAttention`, a ``torch.autograd.Function`` (the
 reference's ``custom_vjp`` in ``_make_core``): forward runs K1 and saves
-``(q, k, v, o, lse)``; backward computes delta = rowsum(dO * O) in f32 in
-PyTorch, outside the kernels, as the reference does in XLA, then runs the
-dQ pass and the dK/dV pass.  O and the gradients come back in the input
-dtype (the reference's ``out_dtype=x.dtype``), as contiguous [B, S, H, D]
-tensors; autograd concatenates the gradients into the qkv projection's.
+``(q, k, v, bias, o, lse)``; backward computes delta = rowsum(dO * O) in
+f32 in PyTorch, outside the kernels, as the reference does in XLA, then
+runs the dQ pass and the dK/dV pass.  O and the gradients come back in the
+input dtype (the reference's ``out_dtype=x.dtype``), as contiguous
+[B, S, H, D] tensors; autograd concatenates the gradients into the qkv
+projection's.
 
 The TPU wrapper's dense fallback for small auto-selected blocks is not
 carried over: it worked around the TPU grid, and the CUDA kernels mask
-their own ragged last tile, so every sequence length runs the kernels.  The
-key-padding mask is supported by the plain version only; on the card it
-raises until BERT, its consumer, is ported.
+their own ragged last tile, so every sequence length runs the kernels.
 
 ``launches``, ``launches_dq`` and ``launches_dkv`` count f32 kernel
 launches, ``launches_bf16``, ``launches_dq_bf16`` and ``launches_dkv_bf16``
-bf16 ones (never plain-version calls), so a run can show which kernels it
-went through.
+bf16 ones, and the same names with ``_bias`` before the dtype
+(``launches_bias``, ``launches_dq_bias_bf16``, ...) the launches of the
+bias variants; never plain-version calls.  A run can so show which kernels
+it went through.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import torch
 from distributeddeeplearning_tpu_torch.ops import _build
 
 NEG_BIG = -1e30  # finite mask fill; -inf poisons the online-softmax max
+LN2 = 0.6931471805599453  # the reference's base-2 bias in nats
 #: head dims the kernels are built for (bf16 mma.sync takes a head dim
 #: that is a multiple of its 16-deep k-step)
 HEAD_DIMS = (16, 32, 64)
@@ -66,35 +80,36 @@ launches_bf16 = 0
 launches_dq_bf16 = 0
 #: bf16 dK/dV-pass (K3) kernel launches
 launches_dkv_bf16 = 0
+#: launches of the key-padding-bias variants, pass and dtype as above
+launches_bias = 0
+launches_dq_bias = 0
+launches_dkv_bias = 0
+launches_bias_bf16 = 0
+launches_dq_bias_bf16 = 0
+launches_dkv_bias_bf16 = 0
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FWD_ARGS = [_P] * 3 + [_LL] * 9 + [_P] * 2 + [_I] * 5 + [ctypes.c_float, _P]
-_DQ_ARGS = [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]
-_DKV_ARGS = [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]
-# (pass, dtype) -> (entry point, library, argtypes, launch counter); every
-# entry point returns a cudaError_t
-_ENTRY = {
-    ("fwd", torch.float32): ("flash_attention_fwd_f32", "flash_attention_fwd",
-                             _FWD_ARGS, "launches"),
-    ("fwd", torch.bfloat16): ("flash_attention_fwd_bf16", "flash_attention_fwd",
-                              _FWD_ARGS, "launches_bf16"),
-    ("dq", torch.float32): ("flash_attention_bwd_dq_f32", "flash_attention_bwd",
-                            _DQ_ARGS, "launches_dq"),
-    ("dq", torch.bfloat16): ("flash_attention_bwd_dq_bf16", "flash_attention_bwd",
-                             _DQ_ARGS, "launches_dq_bf16"),
-    ("dkv", torch.float32): ("flash_attention_bwd_dkv_f32", "flash_attention_bwd",
-                             _DKV_ARGS, "launches_dkv"),
-    ("dkv", torch.bfloat16): ("flash_attention_bwd_dkv_bf16",
-                              "flash_attention_bwd", _DKV_ARGS,
-                              "launches_dkv_bf16"),
+_FWD_ARGS = [_P] * 4 + [_LL] * 9 + [_P] * 2 + [_I] * 5 + [ctypes.c_float, _P]
+_DQ_ARGS = [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]
+_DKV_ARGS = [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P]
+# pass -> (library, entry point prefix, argtypes, counter prefix); the
+# entry points are <prefix>_f32 and <prefix>_bf16 and return a cudaError_t
+_PASSES = {
+    "fwd": ("flash_attention_fwd", "flash_attention_fwd", _FWD_ARGS, "launches"),
+    "dq": ("flash_attention_bwd", "flash_attention_bwd_dq", _DQ_ARGS,
+           "launches_dq"),
+    "dkv": ("flash_attention_bwd", "flash_attention_bwd_dkv", _DKV_ARGS,
+            "launches_dkv"),
 }
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns = {}
 
 
 def _kernel_fn(kind: str, dtype: torch.dtype):
     """``(entry point name, ctypes function)`` of pass ``kind`` for
     ``dtype``, its library built at first use."""
-    name, lib, argtypes, _ = _ENTRY[(kind, dtype)]
+    lib, prefix, argtypes, _ = _PASSES[kind]
+    name = f"{prefix}_{_SUFFIX[dtype]}"
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(_build.load(lib), name)
@@ -104,29 +119,47 @@ def _kernel_fn(kind: str, dtype: torch.dtype):
     return name, fn
 
 
-def _count(kind: str, dtype: torch.dtype) -> None:
-    """One more launch of pass ``kind`` in ``dtype``."""
-    counter = _ENTRY[(kind, dtype)][3]
+def _count(kind: str, dtype: torch.dtype, has_bias: bool) -> None:
+    """One more launch of pass ``kind`` in ``dtype`` (bias variant or not)."""
+    counter = (_PASSES[kind][3] + ("_bias" if has_bias else "")
+               + ("_bf16" if dtype == torch.bfloat16 else ""))
     globals()[counter] += 1
 
 
-def _dense_attention(q, k, v, mask, *, causal: bool):
+def _mask_bias(mask: torch.Tensor, b: int, s: int) -> torch.Tensor:
+    """The reference's key-padding bias from a boolean ``mask``
+    broadcastable to [B, 1, 1, S]: a contiguous [B, S] f32 tensor of 0
+    (attend) or -1e30 (masked), on the mask's device (ref
+    ``flash_attention.py:511-515``)."""
+    key_mask = torch.broadcast_to(mask.bool(), (b, 1, 1, s))[:, 0, 0, :]
+    return torch.where(key_mask, 0.0, NEG_BIG).float().contiguous()
+
+
+def _scores(q, k, bias):
+    """f32 S = Q K^T / sqrt(D), [B, H, Sq, Sk], plus the key bias in nats."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
+        1.0 / q.shape[3] ** 0.5)
+    if bias is not None:
+        scores = scores + (bias * LN2)[:, None, None, :]
+    return scores
+
+
+def _dense_attention(q, k, v, bias, *, causal: bool):
     """Plain attention with the kernel's semantics, [B, S, H, D] in; returns
     ``(o [B, S, H, D] in the input dtype, lse [B, H, S] f32 in nats)``.
 
-    Key-padding ``mask`` (bool, broadcastable to [B, 1, 1, S]) and the
-    causal triangle are filled with -1e30.  It rounds where the Pallas
-    kernel rounds: S = Q K^T from the operands upcast to f32 (the kernel's
-    f32-accumulated product, exact for bf16 operands up to the order of
-    its sums); P = exp(S - max) in f32, rounded to ``v.dtype`` only as the
-    operand of P V; the row sums l of the f32 P, clamped at 1e-30;
-    O = (P V) / l rounded to the input dtype once.  For f32 operands every
-    rounding step is the identity."""
-    b, s, h, d = q.shape
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / d ** 0.5)
-    if mask is not None:
-        key_mask = torch.broadcast_to(mask, (b, 1, 1, s))
-        scores = torch.where(key_mask, scores, NEG_BIG)
+    ``bias`` is the key-padding bias of :func:`_mask_bias` ([B, S] f32 of
+    0 / -1e30, or None), added to the scores in nats (x ln 2, the
+    reference's base-2 units); the causal triangle is filled with -1e30,
+    below every biased score.  It rounds where the Pallas kernel rounds:
+    S = Q K^T from the operands upcast to f32 (the kernel's f32-accumulated
+    product, exact for bf16 operands up to the order of its sums);
+    P = exp(S - max) in f32, rounded to ``v.dtype`` only as the operand of
+    P V; the row sums l of the f32 P, clamped at 1e-30; O = (P V) / l
+    rounded to the input dtype once.  For f32 operands every rounding step
+    is the identity."""
+    s = q.shape[1]
+    scores = _scores(q, k, bias)
     if causal:
         tril = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         scores = torch.where(tril, scores, NEG_BIG)
@@ -138,19 +171,19 @@ def _dense_attention(q, k, v, mask, *, causal: bool):
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def _dense_attention_bwd(q, k, v, do, lse, delta, *, causal: bool):
+def _dense_attention_bwd(q, k, v, do, lse, delta, *, causal: bool, bias=None):
     """Plain backward with K2/K3's semantics, [B, S, H, D] in and out (the
-    input dtype): P is recomputed in f32 from f32 S = Q K^T and the saved
-    ``lse`` ([B, H, S], nats), masked entries exactly 0; dP = dO V^T in
-    f32; dS = P * (dP - delta) * scale with ``delta`` = rowsum(dO * O)
-    [B, H, S] f32.  As in the Pallas kernels, dS is rounded to the operand
-    dtype before dS K and dS^T Q, P before P^T dO, and dQ, dK, dV once at
-    the end; returns ``(dq, dk, dv)``."""
+    input dtype): P is recomputed in f32 from f32 S = Q K^T (plus ``bias``
+    in nats, as in :func:`_dense_attention`) and the saved ``lse`` ([B, H,
+    S], nats), causally masked entries exactly 0; dP = dO V^T in f32;
+    dS = P * (dP - delta) * scale with ``delta`` = rowsum(dO * O) [B, H, S]
+    f32.  As in the Pallas kernels, dS is rounded to the operand dtype
+    before dS K and dS^T Q, P before P^T dO, and dQ, dK, dV once at the
+    end; returns ``(dq, dk, dv)``."""
     s, d = q.shape[1], q.shape[3]
     scale = 1.0 / d ** 0.5
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    p = torch.exp(scores - lse[..., None])
+    p = torch.exp(_scores(q, k, bias) - lse[..., None])
     if causal:
         tril = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         p = torch.where(tril, p, 0.0)
@@ -204,11 +237,25 @@ def _check_inputs(**named) -> None:
             raise ValueError("flash_attention: operands on different devices")
 
 
-def _launch(q, k, v, *, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run K1 (f32 or bf16, q's dtype) on [B, S, H, D] views (strided in
-    place): ``(o [B, S, H, D] in q's dtype, lse [B, H, S] f32)``."""
+def _check_bias(bias, b: int, s: int, device) -> None:
+    if bias is not None and (
+        bias.dtype != torch.float32 or tuple(bias.shape) != (b, s)
+        or not bias.is_contiguous() or bias.device != device
+    ):
+        raise ValueError(
+            f"flash_attention: the key-padding bias must be contiguous f32 "
+            f"[{b}, {s}] on {device} (got {bias.dtype} {tuple(bias.shape)} "
+            f"on {bias.device})"
+        )
+
+
+def _launch(q, k, v, *, causal: bool, bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run K1 (f32 or bf16, q's dtype; the bias variant when ``bias`` is a
+    [B, S] f32 key-padding bias) on [B, S, H, D] views (strided in place):
+    ``(o [B, S, H, D] in q's dtype, lse [B, H, S] f32)``."""
     _check_inputs(q=q, k=k, v=v)
     b, s, h, d = q.shape
+    _check_bias(bias, b, s, q.device)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     name, fn = _kernel_fn("fwd", q.dtype)
@@ -216,6 +263,7 @@ def _launch(q, k, v, *, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(),
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -223,15 +271,16 @@ def _launch(q, k, v, *, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
             1.0 / d ** 0.5, stream,
         )
     _build.check(code, name)
-    _count("fwd", q.dtype)
+    _count("fwd", q.dtype, bias is not None)
     return o, lse
 
 
-def _bwd_launch(kind, q, k, v, do, lse, delta, outs, *, causal: bool):
+def _bwd_launch(kind, q, k, v, do, lse, delta, outs, *, causal: bool, bias):
     """Check the backward's operands and launch pass ``kind`` ("dq" or
     "dkv") in q's dtype, writing ``outs``."""
     _check_inputs(q=q, k=k, v=v, do=do)
     b, s, h, d = q.shape
+    _check_bias(bias, b, s, q.device)
     for label, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s) or (
             not t.is_contiguous() or t.device != q.device
@@ -246,60 +295,64 @@ def _bwd_launch(kind, q, k, v, do, lse, delta, outs, *, causal: bool):
     name, fn = _kernel_fn(kind, q.dtype)
     with torch.cuda.device(q.device):
         code = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), ctypes.addressof(strides),
             *(t.data_ptr() for t in outs), b, h, s, d, int(causal),
             1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(code, name)
-    _count(kind, q.dtype)
+    _count(kind, q.dtype, bias is not None)
 
 
-def _launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool) -> torch.Tensor:
+def _launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, bias=None) -> torch.Tensor:
     """K2, the dQ pass, on [B, S, H, D] views in one dtype (f32 or bf16);
-    ``lse`` and ``delta`` contiguous [B, H, S] f32.  Returns dQ [B, S, H,
-    D] contiguous in q's dtype."""
+    ``lse`` and ``delta`` contiguous [B, H, S] f32, ``bias`` as in
+    :func:`_launch`.  Returns dQ [B, S, H, D] contiguous in q's dtype."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), causal=causal)
+    _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), causal=causal, bias=bias)
     return dq
 
 
-def _launch_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool):
+def _launch_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, bias=None):
     """K3, the dK/dV pass, same operands; returns ``(dK, dV)``."""
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), causal=causal)
+    _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), causal=causal,
+                bias=bias)
     return dk, dv
 
 
-def _launch_bwd(q, k, v, do, lse, delta, *, causal: bool):
+def _launch_bwd(q, k, v, do, lse, delta, *, causal: bool, bias=None):
     """K2 then K3: ``(dq, dk, dv)``."""
-    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal=causal)
-    return (dq, *_launch_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal=causal, bias=bias)
+    return (dq, *_launch_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
+                                 bias=bias))
 
 
-def _forward(q, k, v, *, causal: bool):
+def _forward(q, k, v, bias, *, causal: bool):
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal=causal)
+        return _launch(q, k, v, causal=causal, bias=bias)
     if q.device.type == "cpu":
-        return _dense_attention(q, k, v, None, causal=causal)
+        return _dense_attention(q, k, v, bias, causal=causal)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward, K2/K3 backward (plain versions on CPU tensors)."""
+    """K1 forward, K2/K3 backward (plain versions on CPU tensors); the
+    key-padding bias rides along and gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        o, lse = _forward(q, k, v, causal=causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, bias, causal: bool):
+        o, lse = _forward(q, k, v, bias, causal=causal)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.causal = causal
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, bias, o, lse = ctx.saved_tensors
         # dO in the operands' dtype, as the reference's bwd casts it;
         # contiguous for e.g. the stride-0 gradient of a plain sum
         do = do.to(q.dtype).contiguous()
@@ -307,19 +360,22 @@ class _FlashAttention(torch.autograd.Function):
         # reference computes it in XLA); one O(S*D) elementwise reduce
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         if q.device.type == "cuda":
-            dq, dk, dv = _launch_bwd(q, k, v, do, lse, delta, causal=ctx.causal)
+            dq, dk, dv = _launch_bwd(q, k, v, do, lse, delta,
+                                     causal=ctx.causal, bias=bias)
         else:
             dq, dk, dv = _dense_attention_bwd(q, k, v, do, lse, delta,
-                                              causal=ctx.causal)
-        return dq, dk, dv, None
+                                              causal=ctx.causal, bias=bias)
+        return dq, dk, dv, None, None
 
 
-def flash_attention_core(q, k, v, *, causal: bool = False):
+def flash_attention_core(q, k, v, *, causal: bool = False, bias=None):
     """``(o [B, S, H, D] in the input dtype, lse [B, H, S] f32 nats)`` for
     [B, S, H, D] f32 or bf16 inputs — the CUDA kernels on CUDA tensors,
-    their plain versions on CPU ones.  Differentiable in q, k and v (lse
-    carries no gradient; the gradients come back in the input dtype)."""
-    return _FlashAttention.apply(q, k, v, causal)
+    their plain versions on CPU ones.  ``bias``: the [B, S] f32 key-padding
+    bias of :func:`_mask_bias`, or None.  Differentiable in q, k and v (lse
+    and the bias carry no gradient; the gradients come back in the input
+    dtype)."""
+    return _FlashAttention.apply(q, k, v, bias, causal)
 
 
 def flash_attention(
@@ -328,20 +384,41 @@ def flash_attention(
     v: torch.Tensor,
     mask: Optional[torch.Tensor],
     *,
+    dtype: Optional[torch.dtype] = None,
     causal: bool = False,
 ) -> torch.Tensor:
     """Drop-in attention, [B, S, H, D] in and out (the reference's
     ``flash_attention`` without its TPU block arguments).
 
-    ``mask``: bool key padding, broadcastable to [B, 1, 1, S] — plain
-    version only for now (differentiated by autograd).  ``causal=True``
-    applies the autoregressive triangle inside the kernels, skipping the
-    tiles above the diagonal in the forward and in both backward passes."""
-    if mask is not None:
-        if q.device.type == "cuda":
+    ``mask``: bool key padding, broadcastable to [B, 1, 1, S] (True =
+    attend), added to the scores as the reference's -1e30 bias in every
+    pass.  ``dtype``: the output's dtype (the reference's ``out_dtype``);
+    None keeps the inputs'.  ``causal=True`` applies the autoregressive
+    triangle inside the kernels, skipping the tiles above the diagonal in
+    the forward and in both backward passes."""
+    bias = None if mask is None else _mask_bias(mask, q.shape[0], q.shape[1])
+    o = flash_attention_core(q, k, v, causal=causal, bias=bias)[0]
+    return o if dtype is None else o.to(dtype)
+
+
+def make_flash_attention(block_q: Optional[int] = None,
+                         block_k: Optional[int] = None, mesh=None,
+                         causal: bool = False):
+    """An ``attention_fn(q, k, v, mask, *, dtype)`` for the models (ref
+    ``make_flash_attention``).  ``block_q`` and ``block_k`` size the TPU
+    grid and are ignored: the CUDA kernels pick their own tiles.  A
+    ``mesh`` of more than one device would run the kernel per shard, which
+    is data and tensor parallelism (ROADMAP A5) and raises."""
+    del block_q, block_k
+    if mesh is not None:
+        size = mesh.size() if callable(mesh.size) else mesh.size
+        if size > 1:
             raise NotImplementedError(
-                "flash_attention: the key-padding mask is not in the CUDA "
-                "kernel yet (its consumer, BERT, is port slice 6)"
+                "make_flash_attention: a mesh of more than one device is the "
+                "sharded attention of ROADMAP A5, not in the port yet"
             )
-        return _dense_attention(q, k, v, mask, causal=causal)[0]
-    return flash_attention_core(q, k, v, causal=causal)[0]
+
+    def attention_fn(q, k, v, mask, *, dtype):
+        return flash_attention(q, k, v, mask, dtype=dtype, causal=causal)
+
+    return attention_fn

@@ -12,6 +12,15 @@ so the loop decides when to sync.  Where the reference donated the state
 to a jitted step, the port updates it IN PLACE and returns the same
 object.
 
+The model is called as ``state.apply_fn(params, inputs, train=...,
+generator=..., **extras)``: ``extras`` are the batch's
+:data:`EXTRA_INPUT_KEYS` (BERT's padding mask and token types), split with
+the rows under ``accum_steps``; ``train`` is True in the train step and
+False in the eval step; ``generator`` is a ``torch.Generator`` on the
+parameters' device for dropout, seeded from ``(rng, state.step)`` (the
+reference's ``fold_in(rng, step)``), so a resumed run at step k draws
+step k's masks again.  The eval step passes ``generator=None``.
+
 One process, one device: there is no mesh.  The implicit data-parallel
 gradient all-reduce and the explicit comm-overlap schedule
 (``parallel/comms.py``) are ROADMAP item 11; their arguments raise.
@@ -21,6 +30,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from distributeddeeplearning_tpu_torch.train.schedule import Schedule
@@ -31,6 +41,10 @@ from distributeddeeplearning_tpu_torch.train.state import (
 )
 
 Metrics = Dict[str, torch.Tensor]
+
+# Batch keys forwarded to the model as keyword inputs (transformer models
+# take the padding mask alongside the token ids).
+EXTRA_INPUT_KEYS = ("attention_mask", "token_type_ids")
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -79,6 +93,22 @@ def _to_device(x, device, compute_dtype):
     return t.to(compute_dtype) if t.is_floating_point() else t
 
 
+def _extras(batch, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(batch[k], device=device)
+            for k in EXTRA_INPUT_KEYS if k in batch}
+
+
+def step_generator(rng: int, step: int, device,
+                   generator: Optional[torch.Generator] = None) -> torch.Generator:
+    """The dropout generator of train step ``step``: seeded from ``(rng,
+    step)`` through numpy's SeedSequence, on ``device``.  ``generator`` (on
+    ``device``), when given, is reseeded and returned instead of a new one."""
+    seed = int(np.random.SeedSequence([rng, step]).generate_state(1, np.uint64)[0])
+    if generator is None:
+        generator = torch.Generator(device=device)
+    return generator.manual_seed(seed)
+
+
 def _unsupported(**given) -> None:
     for name, value in given.items():
         if value:
@@ -105,6 +135,7 @@ def build_train_step(
     comm_dtype: Optional[Any] = None,
     weight_update_sharding: bool = False,
     comm_skip: bool = False,
+    rng: int = 0,
 ) -> Callable:
     """The training step: forward, loss, backward, optimizer update.
 
@@ -118,6 +149,7 @@ def build_train_step(
     update on the device when it or the loss is not finite (``state.step``
     still advances); the metrics gain ``grad_norm`` and ``anomalous``
     (0/1).  With ``schedule`` the metrics gain ``lr = schedule(step)``.
+    ``rng`` seeds the per-step dropout generators (:func:`step_generator`).
     """
     del state_example
     if accum_steps < 1:
@@ -127,8 +159,11 @@ def build_train_step(
                  weight_update_sharding=weight_update_sharding,
                  comm_skip=comm_skip)
 
-    def loss_and_grads(state, inputs, labels):
-        logits = state.apply_fn(state.params, inputs)
+    generators: Dict[torch.device, torch.Generator] = {}  # one per device, reseeded
+
+    def loss_and_grads(state, inputs, labels, extras, generator):
+        logits = state.apply_fn(state.params, inputs, train=True,
+                                generator=generator, **extras)
         loss = loss_fn(logits, labels, label_smoothing=label_smoothing)
         leaves = tree_leaves(state.params)
         grads = torch.autograd.grad(loss, leaves)
@@ -143,8 +178,12 @@ def build_train_step(
             inputs = input_transform(inputs)
         inputs = _to_device(inputs, device, compute_dtype)
         labels = _to_device(batch["label"], device, compute_dtype)
+        extras = _extras(batch, device)
+        generator = generators[device] = step_generator(
+            rng, state.step, device, generators.get(device))
         if accum_steps == 1:
-            grads, metrics = loss_and_grads(state, inputs, labels)
+            grads, metrics = loss_and_grads(state, inputs, labels, extras,
+                                            generator)
         else:
             n = inputs.shape[0]
             if n % accum_steps:
@@ -152,8 +191,10 @@ def build_train_step(
                                  f"accum_steps={accum_steps}")
             grads, stack = None, []
             for i in range(accum_steps):
-                g, m = loss_and_grads(state, inputs[i::accum_steps],
-                                      labels[i::accum_steps])
+                g, m = loss_and_grads(
+                    state, inputs[i::accum_steps], labels[i::accum_steps],
+                    {k: v[i::accum_steps] for k, v in extras.items()},
+                    generator)
                 grads = [x.float() for x in g] if grads is None else [
                     a.add_(x.float()) for a, x in zip(grads, g)]
                 stack.append(m)
@@ -209,7 +250,8 @@ def build_eval_step(
             inputs = input_transform(inputs)
         inputs = _to_device(inputs, device, compute_dtype)
         labels = _to_device(batch["label"], device, compute_dtype)
-        logits = state.apply_fn(state.params, inputs)
+        logits = state.apply_fn(state.params, inputs, train=False,
+                                generator=None, **_extras(batch, device))
         return metrics_fn(logits, labels, loss_fn(logits, labels))
 
     return step

@@ -181,7 +181,8 @@ def main(
         vocab_size=vocab_size, max_len=seq_len, device=dev,
     )
 
-    def apply_fn(p, tokens):
+    def apply_fn(p, tokens, **_):
+        # the step's train/generator keywords: the LM has no dropout
         p = tree_map(lambda a: a.to(dtype), p)  # no copy when already f32
         if loss_chunk:
             # "logits" are the per-position losses [b, s-1]; the full

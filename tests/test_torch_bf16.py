@@ -284,7 +284,7 @@ def _jax_step(jparams, attention):
 
 
 def _port_step(jparams, attention):
-    def apply_fn(p, toks):
+    def apply_fn(p, toks, **_):
         p = tstate.tree_map(lambda a: a.to(torch.bfloat16), p)
         return tpt.forward(p, toks, num_heads=CFG["num_heads"],
                            attention=attention).float()

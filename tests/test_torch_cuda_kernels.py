@@ -25,6 +25,11 @@ same bf16 inputs with no bf16 rounding: the kernel's error there may be
 at most twice the plain version's plus one bf16 ulp of the largest
 |output|.  lse is f32 on both sides and stays within 1e-4.
 
+The key-padding bias variants of K1-K3 are held the same way, with masks
+from synthetic text lengths plus a row of length 1, a full row and a row
+with every key masked (its lse, -1e30 * ln 2, equal on both sides bit for
+bit); masked keys of every other row get dK = dV = 0 exactly.
+
 Every kernel takes head dims 16, 32 and 64; the cases at 16 and 32 run
 at the same tolerances.  The decode kernel on bf16 pages (and bf16
 queries) widens every value to f32 in registers, so it is held BITWISE to
@@ -39,6 +44,7 @@ import math
 import pytest
 import torch
 
+from distributeddeeplearning_tpu_torch.data.synthetic import SyntheticTextDataset
 from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
 from distributeddeeplearning_tpu_torch.ops import flash_decode as fd
 
@@ -95,9 +101,17 @@ def test_flash_attention_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_core(q.bfloat16(), k.bfloat16(), v.bfloat16())
     q, k, v = _qkv_views(16)
-    with pytest.raises(NotImplementedError, match="mask"):
-        fa.flash_attention(q, k, v, torch.ones(1, 16, dtype=torch.bool,
-                                               device="cuda"), causal=True)
+    # a key-padding mask runs the bias variant; a bias of another shape,
+    # dtype or device is refused
+    before = (fa.launches, fa.launches_bias)
+    fa.flash_attention(q, k, v, torch.ones(1, 16, dtype=torch.bool,
+                                           device="cuda"), causal=True)
+    assert (fa.launches, fa.launches_bias) == (before[0], before[1] + 1)
+    for bad in (torch.zeros(1, 15, device="cuda"),
+                torch.zeros(1, 16, device="cuda", dtype=torch.float64),
+                torch.zeros(1, 16)):
+        with pytest.raises(ValueError, match="key-padding bias"):
+            fa.flash_attention_core(q, k, v, bias=bad)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_core(q.double(), k.double(), v.double())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -678,3 +692,108 @@ def test_int8_matmul_pads_k_and_n_on_the_card(cuda):
         got = qt.int8_matmul(a.cuda(), b.cuda())
         assert got.shape == (m, n)
         assert torch.equal(got.cpu(), qt.int8_matmul(a, b))
+
+
+# ---- the key-padding bias (K1-K3 built with HAS_BIAS) ----------------------
+
+def _padding_bias(b, s, seed):
+    """[b, s] f32 key-padding bias: synthetic-text lengths, then rows of
+    length 1, s and 0 (every key masked)."""
+    mask = next(SyntheticTextDataset(length=b, seq_len=s, vocab_size=50,
+                                     seed=seed).batches(b))["attention_mask"]
+    keep = torch.from_numpy(mask).bool()
+    keep[1] = torch.arange(s) < 1
+    keep[2] = True
+    keep[3] = False
+    return fa._mask_bias(keep.cuda()[:, None, None, :], b, s), keep.cuda()
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("s", [1, 37, 200])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bias_kernels_match_plain(cuda, dtype, d, s, causal):
+    """K1, K2, K3 with the bias against their plain versions, once each
+    through the bias counters (the unbiased ones untouched)."""
+    dt = getattr(torch, dtype)
+    b, h = 4, 128 // d
+    q, k, v = _qkv_views(s, h=h, d=d, b=b, seed=s + d)
+    if dt == torch.bfloat16:
+        q, k, v = _bf16_qkv(s, b=b, h=h, d=d, seed=s + d)
+    bias, keep = _padding_bias(b, s, seed=d + s)
+    sfx = "_bf16" if dt == torch.bfloat16 else ""
+    names = [f"launches{sfx}", f"launches_bias{sfx}", f"launches_dq{sfx}",
+             f"launches_dq_bias{sfx}", f"launches_dkv{sfx}",
+             f"launches_dkv_bias{sfx}"]
+    before = [getattr(fa, n) for n in names]
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias)
+    g = torch.Generator(device="cuda").manual_seed(d)
+    do = torch.randn(o.shape, generator=g, device="cuda").to(dt)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal, bias=bias)
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) - x for n, x in zip(names, before)] == [0, 1, 0, 1, 0, 1]
+    o_plain, lse_plain = fa._dense_attention(q, k, v, bias, causal=causal)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (lse - lse_plain).abs().max().item() <= ATOL
+    assert torch.equal(lse[3], lse_plain[3]) and (lse[3] < -6e29).all()
+    plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal,
+                                    bias=bias)
+    if dt == torch.float32:
+        assert (o - o_plain).abs().max().item() <= ATOL
+        for gt, w in zip(got, plain):
+            assert torch.isfinite(gt).all()
+            assert (gt - w).abs().max().item() <= 1e-4 * max(w.abs().max().item(), 1.0)
+    else:
+        o_ref, _ = fa._dense_attention(q.float(), k.float(), v.float(), bias,
+                                       causal=causal)
+        _hold_bf16(o, o_plain, o_ref, "o")
+        ref = fa._dense_attention_bwd(q.float(), k.float(), v.float(),
+                                      do.float(), lse, delta, causal=causal,
+                                      bias=bias)
+        for name, gt, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+            if s == 1 and name != "dv":
+                # one key: P = 1 and dS = dP - delta, exactly 0 but for the
+                # f32 rounding of two D-term sums (~D * 2^-24 of |dO||V|)
+                assert gt.abs().max().item() <= 1e-5, name
+                assert p.abs().max().item() <= 1e-5, name
+                continue
+            _hold_bf16(gt, p, r, name)
+    masked = ~keep
+    masked[3] = False
+    dk, dv = got[1], got[2]
+    assert (dk[masked] == 0).all() and (dv[masked] == 0).all()
+
+
+def test_bias_gradients_through_the_function(cuda):
+    """autograd through flash_attention with a [B, 1, 1, S] mask on a bf16
+    qkv leaf: the bias variants of K1, K2, K3 once each, a gradient held
+    against autograd through the f32 plain attention with the same bias.
+    No row is fully masked here: for such a row the kernels (and the
+    reference's Pallas backward) recompute P = exp(S - lse) = 1 from an lse
+    that has lost its log S to rounding, where autograd through the plain
+    forward differentiates P = 1/S; ``test_bias_kernels_match_plain`` pins
+    that row against the plain backward."""
+    b, s, h, d = 4, 128, 12, 64
+    _, keep = _padding_bias(b, s, seed=1)
+    keep[3] = torch.arange(s, device="cuda") < 5
+    bias = fa._mask_bias(keep[:, None, None, :], b, s)
+    base = torch.randn((b, s, 3 * h * d), generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda").bfloat16()
+
+    def grad(attn, dtype):
+        leaf = base.to(dtype).requires_grad_(True)
+        q, k, v = (t.reshape(b, s, h, d) for t in leaf.split(h * d, dim=-1))
+        (out,) = torch.autograd.grad((attn(q, k, v).float() ** 2).sum(), leaf)
+        return out
+
+    names = ("launches_bias_bf16", "launches_dq_bias_bf16", "launches_dkv_bias_bf16")
+    before = [getattr(fa, n) for n in names]
+    got = grad(lambda q, k, v: fa.flash_attention(q, k, v, keep[:, None, None, :]),
+               torch.bfloat16)
+    assert [getattr(fa, n) - x for n, x in zip(names, before)] == [1, 1, 1]
+    plain = grad(lambda q, k, v: fa._dense_attention(q, k, v, bias, causal=False)[0],
+                 torch.bfloat16)
+    ref = grad(lambda q, k, v: fa._dense_attention(q, k, v, bias, causal=False)[0],
+               torch.float32)
+    _hold_bf16(got, plain, ref, "dqkv")

@@ -221,7 +221,7 @@ def _port_train(cfg, jparams, batches):
     state = tstate.TrainState.create(
         params=tpt.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                      device="cpu"),
-        apply_fn=lambda p, toks: tpt.forward(p, toks, num_heads=heads,
+        apply_fn=lambda p, toks, **_: tpt.forward(p, toks, num_heads=heads,
                                              attention="flash"),
         tx=tx)
     step = tstep.build_train_step(

@@ -48,7 +48,7 @@ def _port_modules():
 
 def test_every_port_module_and_the_smoke_script_import_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 23, modules
+    assert len(modules) >= 27, modules
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -67,7 +67,8 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
     for name in ("serve.scheduler", "serve.kv_cache", "quant.qtensor",
                  "quant.calibrate", "spec", "spec.drafter", "spec.decode",
                  "train.schedule", "train.state",
-                 "train.step", "train.loop", "workloads.transformer"):
+                 "train.step", "train.loop", "workloads.transformer",
+                 "data", "data.synthetic", "models.bert", "workloads.bert"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
 
@@ -84,6 +85,25 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port.resolve_device()
     InferenceEngine(params, num_heads=2, batch_slots=1, max_seq=8, device="cpu")
+
+
+def test_bert_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from distributeddeeplearning_tpu_torch.models import bert
+    from distributeddeeplearning_tpu_torch.workloads import bert as bert_workload
+
+    cfg = bert.BertConfig(num_layers=1, hidden_size=16, num_heads=2,
+                          intermediate_size=32, vocab_size=11,
+                          max_position_embeddings=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bert.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bert_workload.main(epochs=1, train_examples=2, batch_size=2, seq_len=8,
+                           num_layers=1, hidden_size=16, num_heads=2,
+                           intermediate_size=32, vocab_size=11,
+                           max_position_embeddings=8)
+    assert bert.init_params(cfg, device="cpu")["head"]["kernel"].device.type == "cpu"
 
 
 def test_cpu_serving_leaves_the_launch_counters_at_zero():

@@ -264,7 +264,7 @@ def _jax_step(jparams, attention, **kw):
 def _port_step(jparams, attention, **kw):
     V = CFG["vocab_size"]
 
-    def apply_fn(p, toks):
+    def apply_fn(p, toks, **_):
         logits = tpt.forward(p, toks % V, num_heads=CFG["num_heads"],
                              attention=attention)
         return _poisoned(logits, toks, V, torch.where, float("nan"))
