@@ -8,7 +8,8 @@ script); it needs one CUDA card, the CUDA toolkit (``nvcc``) and PyTorch
 built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
 
 1. build: compile every CUDA kernel from ``csrc/`` (one ``nvcc`` per
-   source, all at once) and print the build time;
+   source, all at once) and print the build time and each kernel's
+   registers and spills;
 2. K1, the causal flash-attention forward, against its plain PyTorch
    version at the prefill shapes B=1, H=12, D=64, S in {128, 512, 576}
    (576 is a ragged tile), inputs as the model's strided qkv split;
@@ -20,7 +21,9 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    at B=1 S=512 (serving) and B=8 S=2048 (training);
 3. K4(a), decode attention, against its plain version at b=8, h=12,
    hd=64, S=576 on the strided layer views of a real [8, 12, 576, 12, 64]
-   cache, with unequal positions including 0 and S-1;
+   cache, with unequal positions including 0 and S-1; NaN written into K
+   and V past every slot's position must leave the output finite and
+   bitwise the unpoisoned one;
 4. K4(b), the same kernel with 64 queries: one chunk of chunked prefill
    (b=1, nq=64) through a scrambled 9-page table on the strided layer
    views of a [73, 12, 64, 12, 64] f32 pool, at offsets 0, 200 and 512;
@@ -145,6 +148,17 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    10% apart marks it untrusted; ``phase_train``'s breakdown says the
    same).
 
+K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
+split pass with one block per (span of 64 absolute positions, head, slot)
+that stages the span's K/V rows in shared memory once (16-byte copies,
+every row in flight, bf16 and int8 widened to f32 there) and serves every
+query of the slot from that tile, a warp a query, writing each query's
+online-softmax state (m, l, acc) to a scratch; and a merge pass that
+combines a query's spans in ascending order.  The serving profiles give
+K4's time a step with both passes under one name.  ``scripts/
+time_decode.py --root DIR`` times K4 of another checkout beside this one
+on one card.
+
 Kernel, plain and library times are device times: torch.profiler's sum
 of the CUDA work each call runs, averaged over many calls after warm-up
 (for K1 and K4 the log also gives a CUDA-event span around a launch loop,
@@ -188,6 +202,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -271,9 +286,11 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 EVENT_TIMED = []
 
 
-def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> float:
     """Mean device time per call of ``fn``: every kernel, copy and set it
-    ran, summed by torch.profiler over ``iters`` calls after warm-up.
+    ran, summed by torch.profiler over ``iters`` calls after warm-up (and,
+    into a dict ``by_kernel``, split by kernel function, template
+    arguments dropped).
     Unlike a CUDA-event span around a launch loop (:func:`cuda_ms`), it
     leaves out the gaps in which the card waits for the host to prepare
     the next launch, which dominate at the serving shapes.  The profiler
@@ -291,9 +308,16 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in cuda)
         if total > 0:
+            if by_kernel is not None:
+                for e in cuda:
+                    key = e.key.replace("(anonymous namespace)::", "")
+                    name = re.match(r"(?:void )?(?:[\w:]+::)?(\w+)", key).group(1)
+                    by_kernel[name] = (by_kernel.get(name, 0.0)
+                                       + e.self_device_time_total / 1e3 / iters)
             return total / 1e3 / iters
     ms = cuda_ms(torch, fn, iters=iters, warmup=0)
     EVENT_TIMED.append(ms)
@@ -468,6 +492,22 @@ def phase_k4(torch, F, fd, card):
             f"finite={finite}")
         if not finite or err > K4_TOL:
             raise AssertionError("K4(a) disagrees with its plain version")
+    # stale history past each slot's position, NaN in K and V, is neither
+    # read nor weighted: the output is the unpoisoned one, bit for bit
+    clean = fd.decode_attention_dense(q3, cache_k[:, 0], cache_v[:, 0], None, None,
+                                      None, None, pos)
+    poisoned = [t[:, 0].clone() for t in (cache_k, cache_v)]
+    for b, p in enumerate(pos.tolist()):
+        for t in poisoned:
+            t[b, p + 1:] = float("nan")
+    dirty = fd.decode_attention_dense(q3, *poisoned, None, None, None, None, pos)
+    torch.cuda.synchronize()
+    same = torch.equal(clean, dirty)
+    log(f"[k4] NaN K/V past every slot's position: output finite and bitwise the "
+        f"unpoisoned one: {same and bool(torch.isfinite(dirty).all())}")
+    if not same or not bool(torch.isfinite(dirty).all()):
+        raise AssertionError("K4(a) read or weighted history past a position")
+    del poisoned
     views = [(cache_k[:, i], cache_v[:, i]) for i in range(layers)]
     visible = torch.arange(s, device="cuda")[None, :] <= pos[:, None]
     mask = visible[:, None, None, :]
@@ -820,36 +860,88 @@ def profile_share(torch, fn, steps):
     return wall, (total if kernels else None), top, start.elapsed_time(end) / steps
 
 
-def phase_serve(torch, np, fa, fd, card):
+def serve_params(torch):
+    """The serving cells' f32 weights: the full-width LM of ``SERVE`` from
+    seed 0 with a tied 4x-gain embedding head: top-2 logit gaps dwarf f32
+    reassociation noise, so token equality measures the kernels, not
+    tie-breaking."""
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
-        forward, init_params,
-    )
-    from distributeddeeplearning_tpu_torch.serve import (
-        ContinuousBatchingScheduler, InferenceEngine, Request,
-        synthetic_requests,
+        init_params,
     )
 
-    t0 = time.perf_counter()
     params = init_params(torch.Generator().manual_seed(0), max_len=MAX_SEQ,
                          device="cuda", **SERVE)
-    # tied 4x-gain embedding head: top-2 logit gaps dwarf f32 reassociation
-    # noise, so token equality measures the kernels, not tie-breaking
     params["embed"] *= 4.0
     params["head"] = params["embed"].T.contiguous()
+    return params
+
+
+def serve_requests(np, layout):
+    """The serving cells' traffic: ``REQUESTS`` requests of 64..512 prompt
+    tokens on the dense layout, of 64..384 with a 128-token shared prefix
+    on the paged one."""
+    from distributeddeeplearning_tpu_torch.serve import synthetic_requests
+
+    extra = (dict(max_prompt=512) if layout == "dense"
+             else dict(max_prompt=384, shared_prefix_len=128))
+    return synthetic_requests(REQUESTS, vocab_size=SERVE["vocab_size"], min_prompt=64,
+                              rng=np.random.default_rng(0), **extra)
+
+
+def serve_engine(torch, np, params, layout, warm, seed, **kw):
+    """A serving cell's engine (``SLOTS`` slots of ``MAX_SEQ``; paged: pages
+    of ``PAGE``, chunks of ``CHUNK``) after a warm-up run of one request a
+    prompt length of ``warm``, random tokens from ``seed``; the paged
+    engine's stats and prefix cache are cleared after it."""
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, InferenceEngine, PagedInferenceEngine, Request,
+    )
+
+    if layout == "dense":
+        engine = InferenceEngine(params, num_heads=SERVE["num_heads"],
+                                 batch_slots=SLOTS, max_seq=MAX_SEQ, **kw)
+    else:
+        engine = PagedInferenceEngine(params, num_heads=SERVE["num_heads"],
+                                      batch_slots=SLOTS, max_seq=MAX_SEQ,
+                                      page_size=PAGE, prefill_chunk=CHUNK, **kw)
+    rng = np.random.default_rng(seed)
+    ContinuousBatchingScheduler(engine, max_new_tokens=2).run(
+        [Request(uid=f"warm{n}", prompt=rng.integers(1, SERVE["vocab_size"], n).tolist())
+         for n in warm])
+    if layout == "paged":
+        engine.reset_stats()
+        engine.clear_prefix_cache()
+    return engine
+
+
+def fill_slots(np, engine, rng, n=300):
+    """Every slot prefilled with ``n`` random tokens; returns the (tokens,
+    positions) of a decode step at position ``n`` for a profile."""
+    for slot in range(SLOTS):
+        prompt = rng.integers(1, SERVE["vocab_size"], n).tolist()
+        if hasattr(engine, "block_tables"):  # paged: reserve the new tokens' pages
+            engine.prefill(slot, prompt, NEW_TOKENS)
+        else:
+            engine.prefill(slot, prompt)
+    return np.arange(1, SLOTS + 1, dtype=np.int32), np.full(SLOTS, n, np.int32)
+
+
+def phase_serve(torch, np, fa, fd, card):
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import forward
+    from distributeddeeplearning_tpu_torch.serve import ContinuousBatchingScheduler
+
+    t0 = time.perf_counter()
+    params = serve_params(torch)
     n_params = sum(t.numel() for t in (params["embed"], params["pos"],
                                        params["head"],
                                        *params["blocks"].values()))
-    engine = InferenceEngine(params, num_heads=SERVE["num_heads"],
-                             batch_slots=SLOTS, max_seq=MAX_SEQ)
+    # warm-up: one request per prompt bucket
+    engine = serve_engine(torch, np, params, "dense", (64, 128, 256, 512), 1)
     log(f"[serve] {n_params / 1e6:.1f} M f32 params, KV cache "
-        f"{engine.kv_bytes() / 1e6:.1f} MB, set-up {time.perf_counter() - t0:.1f} s")
+        f"{engine.kv_bytes() / 1e6:.1f} MB, set-up and warm-up "
+        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(1)
-    warm = [Request(uid=f"warm{n}", prompt=rng.integers(1, SERVE["vocab_size"], n).tolist())
-            for n in (64, 128, 256, 512)]  # one request per prompt bucket
-    ContinuousBatchingScheduler(engine, max_new_tokens=2).run(warm)
-    requests = synthetic_requests(REQUESTS, vocab_size=SERVE["vocab_size"],
-                                  max_prompt=512, min_prompt=64,
-                                  rng=np.random.default_rng(0))
+    requests = serve_requests(np, "dense")
 
     fa.launches = fa.launches_dq = fa.launches_dkv = 0
     fd.launches = 0
@@ -914,6 +1006,7 @@ def phase_serve(torch, np, fa, fd, card):
         wall, busy, top, _ = profile_share(torch, fn, steps)
         share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
         log(f"[profile] {name}: host wall {wall:.3f} ms, kernel time {share} on {card}")
+        log_k4(top, busy)
         for key, ms in top[:6]:
             log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
     return launches, engine, served
@@ -969,30 +1062,18 @@ def phase_serve_paged(torch, np, fa, fd, card, dense_engine):
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
         forward_prefill_chunk,
     )
-    from distributeddeeplearning_tpu_torch.serve import (
-        ContinuousBatchingScheduler, PagedInferenceEngine, Request,
-        synthetic_requests,
-    )
+    from distributeddeeplearning_tpu_torch.serve import ContinuousBatchingScheduler
 
     params = dense_engine.params
     layers, vocab = SERVE["num_layers"], SERVE["vocab_size"]
-    requests = synthetic_requests(REQUESTS, vocab_size=vocab, max_prompt=384,
-                                  min_prompt=64, shared_prefix_len=128,
-                                  rng=np.random.default_rng(0))
+    requests = serve_requests(np, "paged")
     dense_res, _ = ContinuousBatchingScheduler(
         dense_engine, max_new_tokens=NEW_TOKENS).run(requests)
     dense_tokens = {r.uid: r.tokens for r in dense_res}
     rng = np.random.default_rng(3)
-    warm = [Request(uid=f"warm{n}", prompt=rng.integers(1, vocab, n).tolist())
-            for n in (72, 200)]
     runs = {}
     for name, kw in PAGED_RUNS:
-        engine = PagedInferenceEngine(
-            params, num_heads=SERVE["num_heads"], batch_slots=SLOTS,
-            max_seq=MAX_SEQ, page_size=PAGE, prefill_chunk=CHUNK, **kw)
-        ContinuousBatchingScheduler(engine, max_new_tokens=2).run(warm)
-        engine.reset_stats()
-        engine.clear_prefix_cache()
+        engine = serve_engine(torch, np, params, "paged", (72, 200), 3, **kw)
         final = {}  # prompt -> the final chunk's logits row (first token)
 
         def capture(task, step=engine.prefill_step, engine=engine, final=final):
@@ -1075,10 +1156,7 @@ def phase_serve_paged(torch, np, fa, fd, card, dense_engine):
     # where a paged step's time goes (f32 engine): 8 slots at pos 300, and
     # one 64-token chunk at offset 256
     engine = f32["engine"]
-    for slot in range(SLOTS):
-        engine.prefill(slot, rng.integers(1, vocab, 300).tolist(), NEW_TOKENS)
-    pos = np.full(SLOTS, 300, np.int32)
-    toks = np.arange(1, SLOTS + 1, dtype=np.int32)
+    toks, pos = fill_slots(np, engine, rng)
     table = torch.from_numpy(engine.block_tables[0].copy()).cuda()
     chunk = torch.from_numpy(rng.integers(1, vocab, (1, CHUNK))).cuda()
 
@@ -1095,6 +1173,7 @@ def phase_serve_paged(torch, np, fa, fd, card, dense_engine):
         decode_wall = wall if decode_wall is None else decode_wall
         share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
         log(f"[profile] {what}: host wall {wall:.3f} ms, kernel time {share} on {card}")
+        log_k4(top, busy)
         for key, ms in top[:6]:
             log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
     for slot in range(SLOTS):
@@ -1322,10 +1401,7 @@ def phase_serve_spec(torch, np, fa, fd, card, params, dense_engine, dense, paged
         if name == "spec_truncated":
             # one spec step (8 slots at pos 300, K = 4, every draft real)
             # under the profiler, beside the paged decode step's wall
-            for slot in range(SLOTS):
-                engine.prefill(slot, rng.integers(1, vocab, 300).tolist(), NEW_TOKENS)
-            pos = np.full(SLOTS, 300, np.int32)
-            toks = np.arange(1, SLOTS + 1, dtype=np.int32)
+            toks, pos = fill_slots(np, engine, rng)
             dlen = np.full(SLOTS, SPEC_K, np.int32)
             wall, busy, top, _ = profile_share(torch, lambda: sd.step(toks, pos, dlen), 10)
             share = ("not measured" if busy is None
@@ -1333,6 +1409,7 @@ def phase_serve_spec(torch, np, fa, fd, card, params, dense_engine, dense, paged
             log(f"[profile] spec step (8 slots, pos 300, K=4, M=2): host wall "
                 f"{wall:.3f} ms, kernel time {share} on {card}; the paged decode "
                 f"step's host wall was {paged['decode_profile_ms']:.3f} ms")
+            log_k4(top, busy)
             for key, ms in top[:8]:
                 log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
             for slot in range(SLOTS):
@@ -2254,29 +2331,16 @@ def phase_serve_bf16(torch, np, fa, fd, card, params, dense, paged):
     read just after."""
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import forward
     from distributeddeeplearning_tpu_torch.serve import (
-        ContinuousBatchingScheduler, InferenceEngine, PagedInferenceEngine, Request,
+        ContinuousBatchingScheduler, Request,
     )
     from distributeddeeplearning_tpu_torch.train.state import tree_map
 
-    layers, vocab = SERVE["num_layers"], SERVE["vocab_size"]
+    layers = SERVE["num_layers"]
     bparams = tree_map(lambda t: t.bfloat16(), params)
-    rng = np.random.default_rng(4)
-    warm = [Request(uid=f"warm{n}", prompt=rng.integers(1, vocab, n).tolist())
-            for n in (64, 72, 200, 512)]
     cells = {"dense": dense["requests"], "paged": paged["requests"]}
     runs = {}
     for name, layout, kw, cell in BF16_RUNS:
-        if layout == "dense":
-            engine = InferenceEngine(bparams, num_heads=SERVE["num_heads"],
-                                     batch_slots=SLOTS, max_seq=MAX_SEQ, **kw)
-        else:
-            engine = PagedInferenceEngine(bparams, num_heads=SERVE["num_heads"],
-                                          batch_slots=SLOTS, max_seq=MAX_SEQ,
-                                          page_size=PAGE, prefill_chunk=CHUNK, **kw)
-        ContinuousBatchingScheduler(engine, max_new_tokens=2).run(warm)
-        if layout == "paged":
-            engine.reset_stats()
-            engine.clear_prefix_cache()
+        engine = serve_engine(torch, np, bparams, layout, (64, 72, 200, 512), 4, **kw)
         _zero_counters(fa, fd)
         torch.cuda.synchronize()
         results, report = ContinuousBatchingScheduler(
@@ -2364,20 +2428,15 @@ def phase_serve_bf16(torch, np, fa, fd, card, params, dense, paged):
             f"tolerance {LOGIT_RTOL_BF16:g} of it)")
         if not err <= LOGIT_RTOL_BF16 * scale:
             raise AssertionError(f"{req.uid}: bf16 serving logits drift {err}")
-    pos = np.full(SLOTS, 300, np.int32)
-    toks = np.arange(1, SLOTS + 1, dtype=np.int32)
+    rng = np.random.default_rng(4)
     for name in ("dense", "paged"):
         engine = runs[name]["engine"]
-        for slot in range(SLOTS):
-            prompt = rng.integers(1, vocab, 300).tolist()
-            if name == "paged":
-                engine.prefill(slot, prompt, NEW_TOKENS)
-            else:
-                engine.prefill(slot, prompt)
+        toks, pos = fill_slots(np, engine, rng)
         wall, busy, top, _ = profile_share(torch, lambda: engine.decode(toks, pos), 10)
         share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
         log(f"[profile] bf16 {name} decode step (8 slots, pos 300): host wall "
             f"{wall:.3f} ms, kernel time {share} on {card}")
+        log_k4(top, busy)
         for key, ms in top[:6]:
             log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
         for slot in range(SLOTS):
@@ -2749,6 +2808,15 @@ def _profile_bert(torch, state, seq_len, dtype, card):
     log_groups(top, busy, gemms, kernels)
 
 
+def log_k4(top, busy):
+    """The decode kernel's share of a profiled serving step: its split and
+    merge passes (every kernel named ``flash_decode_*``) under one name."""
+    ms = sum(t for key, t in top if "flash_decode" in key)
+    share = "" if not busy else f", {ms / busy:.1%} of kernel time"
+    log(f"[profile]   K4 (split + merge passes): {ms:.4f} ms a step{share}")
+    return ms
+
+
 def log_groups(top, busy, gemms, kernels):
     """Kernel time by group (GEMMs, the named kernels, the rest), then the
     ten largest kernels."""
@@ -2812,9 +2880,13 @@ def main() -> int:
         log(f"[build] {len(times)} kernels in {time.perf_counter() - t0:.2f} s "
             f"(parallel nvcc): {times}")
         for name, text in _build.build_log.items():
+            fn = ""  # the (mangled) kernel the next ptxas lines describe
             for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {name}: {line.strip()}")
+                m = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+                if m:
+                    fn = m.group(1)
+                elif "registers" in line or "spill" in line:
+                    log(f"[build] {name}: {fn}: {line.strip()}")
         k1 = timed(phase_k1, torch, F, fa, card)
         k1_bf16 = timed(phase_k1_bf16, torch, F, fa, card)
         k4 = timed(phase_k4, torch, F, fd, card)

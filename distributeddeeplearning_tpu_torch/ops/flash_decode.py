@@ -24,6 +24,16 @@ int8 caches), and the head dim is 16, 32 or 64 (:data:`HEAD_DIMS`).  The
 kernel widens every bf16 value to f32 and computes in f32, as the Pallas
 kernel does; the output is f32.
 
+The kernel runs in two passes from one C call.  The split pass cuts each
+slot's history at absolute positions into spans of :data:`SPAN` positions
+and runs a block per (span, head, slot): it stages the span's K/V rows in
+shared memory once and serves every query of the slot from that tile,
+writing each query's online-softmax state ``(m, l, acc)`` to an f32
+scratch (:func:`scratch_shape`, sized by :func:`split_count` from the
+number of addressable positions alone).  The merge pass combines a query's
+spans in ascending order.  :func:`_split_merge_plain` models the same
+algebra in plain PyTorch for the tests.
+
 Every pool is read in place through its strides.  The paged pool's
 per-layer view ``cache["k"][:, layer]`` is [P, ps, h, hd] with page stride
 ``L*ps*h*hd``; the dense layout's per-layer view [slots, S, h, hd] is read
@@ -83,10 +93,16 @@ launches_multi_query = 0
 #: of those, launches made by the speculative-verify wrappers (nq = K+1)
 launches_verify = 0
 
+#: positions a split block stages: ``SPAN`` in ``csrc/flash_decode.cu``,
+#: mirrored here to size the scratch.  Never a function of the page size,
+#: the table width, nq, the batch or the history length.
+SPAN = 64
+
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = (
     [_P, _I] + [_L] * 3 + [_P] * 2 + [_I] + [_L] * 3 + [_P] * 2 + [_L] * 3
-    + [_P] * 2 + [_L] * 2 + [_P, _I, _I] + [_P] * 2 + [_I] * 4 + [_P]
+    + [_P] * 2 + [_L] * 2 + [_P, _I, _I] + [_P] * 2 + [_I, _P] + [_I] * 4
+    + [_P]
 )
 _fn: Optional[ctypes._CFuncPtr] = None
 _identity_tables: Dict[Tuple[int, torch.device], torch.Tensor] = {}
@@ -116,22 +132,39 @@ def _sqrt_dim(hd: int, device) -> torch.Tensor:
     return torch.sqrt(torch.tensor(float(hd), dtype=torch.float32, device=device))
 
 
-def _check_rows(name: str, t: torch.Tensor, dtypes, el: int) -> None:
-    """The kernel reads ``el`` consecutive head dims a lane (2 at head dim
-    64, else 1): the head dim contiguous, every other stride a multiple of
-    ``el`` and the base aligned to ``el`` elements."""
+def split_count(positions: int) -> int:
+    """Split blocks a slot's history of ``positions`` addressable positions
+    (``nb * page_size``) takes at :data:`SPAN` positions each: a function
+    of the positions alone, so a paged pool and the dense layout of the
+    same history get the same grid."""
+    return -(-positions // SPAN)
+
+
+def scratch_shape(b: int, nq: int, h: int, hd: int,
+                  positions: int) -> Tuple[int, ...]:
+    """The split pass's f32 scratch: ``(m, l, acc[hd])`` for every (slot,
+    query, head, split)."""
+    return (b, nq, h, split_count(positions), hd + 2)
+
+
+def _check_rows(name: str, t: torch.Tensor, dtypes, align: int) -> None:
+    """The head dim contiguous and, for ``align`` 16 (the pools, whose rows
+    the kernel copies 16 bytes a thread), every other stride and the base
+    on 16 bytes."""
     if t.dtype not in dtypes:
         raise TypeError(
             f"paged_attention: {name} is {t.dtype}, needs one of "
             f"{[str(d).replace('torch.', '') for d in dtypes]}")
-    if t.stride(-1) != 1 or any(st % el for st in t.stride()[:-1]):
+    if t.stride(-1) != 1:
         raise ValueError(
-            f"paged_attention: {name} needs a contiguous head dim and "
-            f"strides that are multiples of {el} (got {t.stride()})"
-        )
-    if t.data_ptr() % (el * t.element_size()):
+            f"paged_attention: {name} needs a contiguous head dim "
+            f"(got strides {t.stride()})")
+    if align and (any(st * t.element_size() % align for st in t.stride()[:-1])
+                  or t.data_ptr() % align):
         raise ValueError(
-            f"paged_attention: {name} is not aligned to {el} elements")
+            f"paged_attention: {name} rows must start on {align} bytes "
+            f"(strides {t.stride()} of {t.element_size()}-byte elements, "
+            f"base {t.data_ptr() % align} bytes past it)")
 
 
 def _check_index(name: str, t: torch.Tensor, shape) -> None:
@@ -168,11 +201,10 @@ def _launch(q4, k_pages, v_pages, tables, posmat, k_scale, v_scale, k_own,
         )
     _check_pair("K/V pools", k_pages, v_pages, k_pages.shape)
     int8 = k_scale is not None
-    el = 2 if hd == 64 else 1
-    _check_rows("q", q4, QUERY_DTYPES, el)
+    _check_rows("q", q4, QUERY_DTYPES, 0)
     pool_dtypes = (torch.int8,) if int8 else (torch.float32, torch.bfloat16)
-    _check_rows("k_pages", k_pages, pool_dtypes, el)
-    _check_rows("v_pages", v_pages, pool_dtypes, el)
+    _check_rows("k_pages", k_pages, pool_dtypes, 16)
+    _check_rows("v_pages", v_pages, pool_dtypes, 16)
     nb = tables.shape[1] if tables.dim() == 2 else -1
     _check_index("tables", tables, (b, nb))
     _check_index("posmat", posmat, (b, nq))
@@ -187,12 +219,14 @@ def _launch(q4, k_pages, v_pages, tables, posmat, k_scale, v_scale, k_own,
         scales = (k_scale.data_ptr(), v_scale.data_ptr(), *k_scale.stride())
         if k_own is not None:
             _check_pair("k_own/v_own", k_own, v_own, (b, h, hd))
-            _check_rows("k_own", k_own, (q4.dtype,), el)
-            _check_rows("v_own", v_own, (q4.dtype,), el)
+            _check_rows("k_own", k_own, (q4.dtype,), 0)
+            _check_rows("v_own", v_own, (q4.dtype,), 0)
             operands += [k_own, v_own]
             own = (k_own.data_ptr(), v_own.data_ptr(), *k_own.stride()[:2])
     if any(t.device != q4.device for t in operands):
         raise ValueError("paged_attention: operands on different devices")
+    part = torch.empty(scratch_shape(b, nq, h, hd, nb * k_pages.shape[1]),
+                       dtype=torch.float32, device=q4.device)
     out = torch.empty((b, nq, h, hd), dtype=torch.float32, device=q4.device)
     with torch.cuda.device(q4.device):
         code = _kernel_fn()(
@@ -200,8 +234,8 @@ def _launch(q4, k_pages, v_pages, tables, posmat, k_scale, v_scale, k_own,
             k_pages.data_ptr(), v_pages.data_ptr(),
             PAGE_DTYPES[k_pages.dtype], *k_pages.stride()[:3], *scales, *own,
             tables.data_ptr(), nb, k_pages.shape[1], posmat.data_ptr(),
-            out.data_ptr(), b, nq, h, hd,
-            torch.cuda.current_stream(q4.device).cuda_stream)
+            part.data_ptr(), part.shape[3], out.data_ptr(), b, nq, h,
+            hd, torch.cuda.current_stream(q4.device).cuda_stream)
     _build.check(code, "flash_decode")
     launches += 1
     launches_int8 += int8
@@ -280,6 +314,42 @@ def _paged_attention_plain(q4, k_pages, v_pages, tables, posmat,
     return _attend_f32(q4, *_paged_history(k_pages, v_pages, tables, posmat,
                                            k_scale, v_scale, k_own, v_own),
                        posmat)
+
+
+def _split_merge_plain(q4, k_pages, v_pages, tables, posmat, k_scale=None,
+                       v_scale=None, k_own=None, v_own=None):
+    """A plain model of the kernel's two passes, used by the tests: the
+    histories of :func:`_paged_history` widened to f32, cut at absolute
+    positions into spans of :data:`SPAN`; per (slot, query, head, span)
+    ``m`` = the max visible score, ``l`` = the sum of
+    ``exp(s - m)`` and ``acc`` = their product with V over visible
+    positions only ((-inf, 0, 0) for a span the query does not reach);
+    then the merge: ``e = exp(m - max m)`` (0 where m = -inf), ``out =
+    sum(acc e) / max(sum(l e), 1e-30)``.  Positions past a query's last
+    are excluded from V as well, as the kernel never reads them."""
+    b, nq, h, hd = q4.shape
+    k_seq, v_seq = (t.float() for t in _paged_history(
+        k_pages, v_pages, tables, posmat, k_scale, v_scale, k_own, v_own))
+    s = k_seq.shape[1]
+    ns = split_count(s)
+    pad = k_seq.new_zeros((b, ns * SPAN - s, h, hd))
+    kt = torch.cat([k_seq, pad], 1).reshape(b, ns, SPAN, h, hd)
+    vt = torch.cat([v_seq, pad], 1).reshape(b, ns, SPAN, h, hd)
+    last = posmat.long().clamp(max=s - 1)
+    cols = torch.arange(ns * SPAN, device=q4.device).reshape(ns, SPAN)
+    vis = cols[None, None] <= last[:, :, None, None]  # [b, nq, ns, span]
+    scores = torch.einsum("bqhd,bnthd->bqhnt", q4.float(), kt)
+    scores = scores / _sqrt_dim(hd, q4.device)
+    seen = vis[:, :, None]  # [b, nq, 1, ns, span]
+    scores = torch.where(seen, scores, float("-inf"))
+    m = scores.amax(-1)  # [b, nq, h, ns]
+    p = torch.where(seen, torch.exp(scores - m[..., None]), 0.0)
+    l = p.sum(-1)
+    v_seen = torch.where(vis[..., None, None], vt[:, None], 0.0)
+    acc = torch.einsum("bqhnt,bqnthd->bqhnd", p, v_seen)
+    e = torch.where(m == float("-inf"), 0.0, torch.exp(m - m.amax(-1, keepdim=True)))
+    o = (acc * e[..., None]).sum(-2)
+    return o / (l * e).sum(-1).clamp_min(1e-30)[..., None]
 
 
 def paged_attention(q4, k_pages, v_pages, tables, posmat, k_scale=None,
@@ -434,11 +504,12 @@ def verify_attention_paged(q4, k_l, v_l, block_tables, posmat, *,
                            kernel: str = "auto"):
     """Speculative-verify attention over the paged pool: ``q4`` [b, K1, h,
     hd] with per-query positions ``posmat`` [b, K1] int32 through
-    ``block_tables`` [b, nb] — the kernel at ``nq = K1``, one block per
-    (head, slot, query), so column ``j`` is computed exactly as an
-    ``nq = 1`` launch at ``posmat[:, j]`` would compute it.  f32 pools
-    only (the verify pass refuses int8 upstream).  Returns ctx [b, K1, h,
-    hd]; ``kernel="gather"`` or a CPU tensor runs the plain version."""
+    ``block_tables`` [b, nb] — the kernel at ``nq = K1``, every query of a
+    slot served from the same staged tiles by the same code, so column
+    ``j`` is computed exactly as an ``nq = 1`` launch at ``posmat[:, j]``
+    would compute it.  f32 pools only (the verify pass refuses int8
+    upstream).  Returns ctx [b, K1, h, hd]; ``kernel="gather"`` or a CPU
+    tensor runs the plain version."""
     global launches_verify
     if resolve_kernel(kernel) == "gather" or q4.device.type == "cpu":
         return _verify_dense_math(q4, *_gather_pages(k_l, v_l, block_tables),

@@ -797,3 +797,117 @@ def test_bias_gradients_through_the_function(cuda):
     ref = grad(lambda q, k, v: fa._dense_attention(q, k, v, bias, causal=False)[0],
                torch.float32)
     _hold_bf16(got, plain, ref, "dqkv")
+
+
+# ---- the split decode kernel: span boundaries, layouts, poisoned history ---
+
+SPLIT_S = 576
+
+
+def _split_history(hd, dtype, seed, b=6, h=4):
+    """Dense [b, 2, S, h, hd] K/V (int8: through quantize_kv, with scales)
+    and its layer view; the queries in the pages' query dtype."""
+    from distributeddeeplearning_tpu_torch.quant.qtensor import quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dense = {n: torch.randn((b, 2, SPLIT_S, h, hd), generator=g, device="cuda")
+             for n in ("k", "v")}
+    for n in ("k", "v"):
+        if dtype == torch.int8:
+            dense[n], dense[f"{n}_scale"] = quantize_kv(dense[n])
+        else:
+            dense[n] = dense[n].to(dtype)
+    qdt = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    qkv = torch.randn((b, 3, h, hd), generator=g, device="cuda").to(qdt)
+    return dense, qkv
+
+
+def _as_pages(dense, ps, seed):
+    """The same contents as a pool of ``ps``-position pages [P, 2, ps, ...]
+    through scrambled tables (page 0 never used)."""
+    b = dense["k"].shape[0]
+    nb = SPLIT_S // ps
+    tables = _scrambled_tables(b, nb, b * nb, seed=seed)
+    pool = {n: torch.zeros((b * nb + 1, 2, ps) + t.shape[3:], dtype=t.dtype,
+                           device="cuda") for n, t in dense.items()}
+    rows = tables.long().reshape(-1)
+    for n, t in dense.items():
+        pool[n][rows] = t.reshape(b, 2, nb, ps, *t.shape[3:]).transpose(1, 2).reshape(
+            b * nb, 2, ps, *t.shape[3:])
+    return pool, tables
+
+
+def _views(c, layer=1):
+    return [c[n][:, layer] if n in c else None for n in ("k", "v", "k_scale", "v_scale")]
+
+
+@pytest.mark.parametrize("ps", [16, 64, SPLIT_S])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8", "int8_overlay"])
+def test_split_kernel_boundaries_layouts_and_poison(cuda, pages, hd, ps):
+    """Decode at positions 0, SPAN-1, SPAN, SPAN+1, 2*SPAN and S-1 (one slot
+    each): the dense layer view and ``ps``-position pages give the same
+    bits; NaN-poisoned rows past each slot's position leave the output
+    finite and bitwise unchanged; the plain version agrees within ATOL."""
+    dtype = torch.int8 if pages.startswith("int8") else getattr(torch, pages)
+    span = fd.SPAN
+    dense, qkv = _split_history(hd, dtype, seed=hd + ps)
+    pos = torch.tensor([0, span - 1, span, span + 1, 2 * span, SPLIT_S - 1],
+                       dtype=torch.int32, device="cuda")
+    own = (qkv[:, 1], qkv[:, 2]) if pages == "int8_overlay" else (None, None)
+    q4, posmat = qkv[:, :1], pos[:, None]
+    pool, tables = _as_pages(dense, ps, seed=hd)
+    ident = torch.arange(6, dtype=torch.int32, device="cuda")[:, None]
+    dv, pv = _views(dense), _views(pool)
+    a = fd.paged_attention(q4, dv[0], dv[1], ident, posmat, dv[2], dv[3], *own)
+    p = fd.paged_attention(q4, pv[0], pv[1], tables, posmat, pv[2], pv[3], *own)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all()
+    assert torch.equal(a, p)
+    ref = fd._paged_attention_plain(q4, dv[0], dv[1], ident, posmat, dv[2], dv[3], *own)
+    assert (a - ref).abs().max().item() <= ATOL
+    poisoned = {n: t.clone() for n, t in dense.items()}
+    for bi, t in enumerate(pos.tolist()):
+        if t + 1 < SPLIT_S:
+            poisoned["k"][bi, :, t + 1:] = (
+                float("nan") if dtype != torch.int8 else 127)
+            poisoned["v"][bi, :, t + 1:] = float("nan") if dtype != torch.int8 else -127
+            if dtype == torch.int8:
+                poisoned["k_scale"][bi, :, t + 1:] = float("nan")
+                poisoned["v_scale"][bi, :, t + 1:] = float("nan")
+    xv = _views(poisoned)
+    x = fd.paged_attention(q4, xv[0], xv[1], ident, posmat, xv[2], xv[3], *own)
+    assert torch.equal(a, x)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+def test_split_kernel_folded_queries_equal_single_query_launches(cuda, pages, hd):
+    """A verify pass (b = 6, nq = 5 at pos + j) column j equals the nq = 1
+    launch at pos + j, and each query of a 64-query chunk (b = 1, positions
+    500..563) equals a decode launch at its position, bit for bit: the tile
+    is shared, each query's arithmetic is its own."""
+    dtype = getattr(torch, pages)
+    span = fd.SPAN
+    dense, _ = _split_history(hd, dtype, seed=3 * hd)
+    pool, tables = _as_pages(dense, 64, seed=hd)
+    k, v, ks, vs = _views(pool)
+    qdt = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(hd)
+    pos = torch.tensor([0, span - 3, span, 2 * span - 1, 300, SPLIT_S - 5],
+                       dtype=torch.int32, device="cuda")
+    posmat = (pos[:, None] + torch.arange(5, device="cuda")).to(torch.int32)
+    q4 = torch.randn((6, 5, 4, hd), generator=g, device="cuda").to(qdt)
+    out = fd.paged_attention(q4, k, v, tables, posmat, ks, vs)
+    for j in range(5):
+        one = fd.paged_attention(q4[:, j:j + 1], k, v, tables,
+                                 posmat[:, j:j + 1].contiguous(), ks, vs)
+        assert torch.equal(out[:, j:j + 1], one), j
+    q_c = torch.randn((64, 4, hd), generator=g, device="cuda").to(qdt)
+    posns = 500 + torch.arange(64, device="cuda")
+    out_c = fd.chunk_attention(q_c, k, v, ks, vs, tables[2], posns)
+    for i in (0, 11, 12, 13, 63):
+        one = fd.paged_attention(q_c[i][None, None], k, v, tables[2][None],
+                                 posns[i:i + 1].to(torch.int32)[None], ks, vs)
+        assert torch.equal(out_c[i][None], one[0]), i
+    assert torch.isfinite(out).all() and torch.isfinite(out_c).all()
