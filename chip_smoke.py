@@ -13,12 +13,16 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
 2. K1, the causal flash-attention forward, against its plain PyTorch
    version at the prefill shapes B=1, H=12, D=64, S in {128, 512, 576}
    (576 is a ragged tile), inputs as the model's strided qkv split;
-2a. bf16 K1 (tensor cores) at S in {1, 37, 576, 2048} (B=8 at 2048, else
+2a. bf16 K1 (tensor cores: wgmma on TMA tiles, a warp-specialised ring)
+   at S in {1, 37, 576, 2048} (B=8 at 2048, else
    2), causal and not, on strided bf16 qkv views: held against its bf16
    plain version and, with it, against the f32 result of the same bf16
    inputs (the kernel's error there at most twice the plain version's
    plus one bf16 ulp of max |o|; lse within 1e-4 of the plain one); timed
-   at B=1 S=512 (serving) and B=8 S=2048 (training);
+   at B=1 S=512 (serving) and B=8 S=2048 (training), each with its
+   TFLOP/s, its share of the bound and the query rows a block its launcher
+   took; the build lines give each bf16 K1 instance's registers, spills and
+   dynamic shared memory;
 3. K4(a), decode attention, against its plain version at b=8, h=12,
    hd=64, S=576 on the strided layer views of a real [8, 12, 576, 12, 64]
    cache, with unequal positions including 0 and S-1; NaN written into K
@@ -433,7 +437,8 @@ def phase_k1_bf16(torch, F, fa, card):
             err_lse = (lse - lse_plain).abs().max().item()
             worst = max(worst, (o.float() - o_plain.float()).abs().max().item(),
                         err_lse)
-            log(f"[k1-bf16] B={b} S={s} causal={causal}: vs f32 reference "
+            log(f"[k1-bf16] B={b} S={s} causal={causal} "
+                f"({fa.bf16_block_rows(b, h, s)}-row blocks): vs f32 reference "
                 f"kernel {err:.3e}, plain {plain_err:.3e} (limit 2x plain + 1 "
                 f"ulp = {limit:.3e}, max|o| {o_ref.abs().max().item():.3f}); "
                 f"max|dlse| vs plain {err_lse:.3e} (tolerance {LSE_TOL:g})")
@@ -453,16 +458,19 @@ def phase_k1_bf16(torch, F, fa, card):
         flops = 4.0 * b * h * d * _causal_pairs(s)
         nbytes = 2.0 * 4 * b * s * h * d + 4.0 * b * h * s  # q, k, v, o; lse
         bms, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-        log(f"[k1-bf16] B={b} H=12 S={s} D=64 causal: kernel {ms:.4f} ms, "
+        log(f"[k1-bf16] B={b} H=12 S={s} D=64 causal "
+            f"({fa.bf16_block_rows(b, h, s)}-row blocks): kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa bf16 {lib_ms:.4f} ms, bound "
             f"{bms:.4f} ms ({by}, bf16 tensor-core peak); kernel at "
-            f"{flops / ms / 1e9:.1f} TFLOP/s; device times, on {card}")
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.1%} of the bound "
+            f"(sdpa {flops / lib_ms / 1e9:.1f} TFLOP/s); device times, on {card}")
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=lib_ms,
+                    library_ms=lib_ms, tflops=flops / ms / 1e9,
                     shape=f"B={b} H=12 S={s} D=64 causal bf16 (strided qkv views)")
 
-    timed(1, 512)
+    prefill = timed(1, 512)
     row = timed(8, 2048)
+    row["serve_prefill"] = prefill
     row["max_abs_err"] = worst
     torch.cuda.empty_cache()
     return row
@@ -2570,6 +2578,12 @@ def _bias_timed(torch, F, fa, dtype, card):
                 bound_ms(6 * head + 2 * small + bias_bytes, 8.0 * d * pairs, peak)),
     }
     tag = "bf16" if bf else "f32"
+    k1_flops = 4.0 * d * pairs
+    log(f"[bias] {tag} K1 at B={b} H={h} S={s} D={d}"
+        + (f" ({fa.bf16_block_rows(b, h, s)}-row blocks)" if bf else "")
+        + f": {k1_flops / fwd_ms / 1e9:.1f} TFLOP/s, "
+        f"{entries['fwd'][3][0] / fwd_ms:.1%} of its bound (sdpa "
+        f"{k1_flops / fwd_lib / 1e9:.1f} TFLOP/s); device times, on {card}")
     shape = (f"B={b} H={h} S={s} D={d} non-causal {tag}, synthetic-text mask "
              f"({int(keep.sum().item())} of {b * s} keys visible; strided qkv views)")
     log(f"[bias] {tag} at B={b} H={h} S={s} D={d}, {int(keep.sum().item())} of "
@@ -2834,6 +2848,29 @@ def log_groups(top, busy, gemms, kernels):
         log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
 
 
+def log_k1_bf16_instances(_build):
+    """One build line per instance of the bf16 forward (head dim, bias,
+    query rows a block): its registers and spill bytes from ``ptxas -v``
+    and its dynamic shared memory from the library."""
+    lib = _build.load("flash_attention_fwd")
+    info = {}
+    fn = None
+    for line in _build.build_log.get("flash_attention_fwd", "").splitlines():
+        m = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELb([01])ELi(\d)E", line)
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = (int(m.group(1)), int(m.group(2)), 64 * int(m.group(3))) if m else None
+        elif fn is not None and "spill" in line:
+            info.setdefault(fn, {})["spill"] = line.strip()
+        elif fn is not None and "registers" in line:
+            info.setdefault(fn, {})["regs"] = re.search(r"Used (\d+) registers",
+                                                        line).group(1)
+    for (d, bias, rows), got in sorted(info.items()):
+        smem = lib.flash_attention_fwd_bf16_smem_bytes(d, bias, rows)
+        log(f"[build] bf16 K1 D={d} bias={bool(bias)} rows={rows}: "
+            f"{got.get('regs')} registers, {got.get('spill')}, {smem} bytes of "
+            f"dynamic shared memory")
+
+
 def _fd_counts(fd):
     """The decode kernel's counters, named apart from the flash ones."""
     return {"fd_launches": fd.launches, "launches_bf16_fd": fd.launches_bf16,
@@ -2887,6 +2924,7 @@ def main() -> int:
                     fn = m.group(1)
                 elif "registers" in line or "spill" in line:
                     log(f"[build] {name}: {fn}: {line.strip()}")
+        log_k1_bf16_instances(_build)
         k1 = timed(phase_k1, torch, F, fa, card)
         k1_bf16 = timed(phase_k1_bf16, torch, F, fa, card)
         k4 = timed(phase_k4, torch, F, fd, card)

@@ -1,5 +1,6 @@
-// Warp-level bf16 tensor-core helpers shared by the bf16 flash-attention
-// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu), sm_90a.
+// Warp-level bf16 tensor-core helpers of the bf16 flash-attention backward
+// (flash_attention_bwd.cu), sm_90a; the forward (flash_attention_fwd.cu,
+// built on wgmma from hopper.cuh) takes pack() and the constants.
 //
 // Products are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: a
 // 16 x 16 bf16 A tile times a 16 x 8 bf16 B tile into a 16 x 8 f32

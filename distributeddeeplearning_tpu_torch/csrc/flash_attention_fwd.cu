@@ -54,8 +54,10 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -269,217 +271,444 @@ extern "C" int flash_attention_fwd_f32(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward on the tensor cores: the same function for bf16 q, k, v (the
-// Pallas kernel's native bf16 path), with its rounding points: S = Q K^T and
-// P V accumulate in f32, P is rounded to bf16 only as the operand of P V,
-// the row sums l take the f32 P, O = acc / max(l, 1e-30) is rounded to bf16
-// once at the end, lse stays f32 in nats.  The online softmax runs in base 2
-// (exp2 of scores pre-scaled by log2 e), as the Pallas kernel does.
+// bf16 forward on Hopper's tensor cores: the same function for bf16 q, k, v
+// (the Pallas kernel's native bf16 path), with its rounding points: S = Q K^T
+// and P V accumulate in f32, P is rounded to bf16 only as the operand of
+// P V, the row sums l take the f32 P, O = acc / max(l, 1e-30) is rounded to
+// bf16 once at the end, lse stays f32 in nats.  The online softmax runs in
+// base 2 on scores scaled by scale * log2 e, as the Pallas kernel does.
+// Without a bias the row max is taken on the unscaled scores (rounding is
+// monotone, so scaling it gives the max of the scaled scores) and each
+// P = exp2(s * c - m) is one fused multiply-add into the SFU's exp2; with a
+// bias the scores are scaled and biased first.
 //
-// Design.  One block of 4 warps per (b*h, 64-row query tile); each warp owns
-// 16 query rows and keeps its Q fragments (D/16 k-steps), its 16 x D f32
-// output tile (D/8 n-tiles of 8 columns) and its rows' (m, l) in registers.  A loop over 64-key tiles stages K and V in
-// shared memory with cp.async (V's copy overlaps the S product); S = Q K^T
-// and O += P V are mma.sync m16n8k16 bf16 products, B operands read with
-// ldmatrix (.trans for V); at D = 16, Q K^T is a single k-step and P V two
-// n-tiles.  S's accumulator is rounded in registers into P's A operand, so
-// P never touches shared memory.  Row max and row sum reduce over the four
-// lanes of a quad.  With causal masking the loop stops at the block's
-// diagonal tile, a warp skips tiles wholly above its own rows, and the
-// tiles it visits are masked elementwise with -1e30.  Keys and rows past S
-// are zero-filled by the copy (src-size 0) and masked.  With HAS_BIAS each
-// K tile's 64 bias values are staged in shared memory beside it and added
-// to the base-2 scores as they are (the reference's own units); keys
-// invisible by position then take 2 * -1e30, the sum the reference's
-// additive causal term gives, below every biased score.
+// Design (warp-specialised, built from csrc/hopper.cuh).  One block per
+// (b*h, tile of BQ = 64 * NC query rows).  Warpgroup 0 is the producer: it
+// gives back registers (setmaxnreg.dec) and one thread issues TMA loads --
+// the block's Q rows once, then each 128-key tile of K and V (and, with
+// HAS_BIAS, the tile's f32 bias values) into a ring of STAGES = 2 stages,
+// each guarded by a full and an empty mbarrier.  Warpgroups 1..NC are
+// consumers (setmaxnreg.inc), each owning 64 query rows.  Per tile a
+// consumer waits on the stage's full barrier, computes S = Q K^T as wgmma
+// m64n128k16 from shared memory (Q and K K-major), masks and exponentiates
+// S in registers, rounds it pairwise into P's register A operand, runs
+// O += P V as wgmma m64nDk16 with V read MN-major through the transpose
+// bit, waits for the product to retire and releases the stage (one arrival
+// per warpgroup on the empty barrier).  (m, l, O) stay in registers; O is
+// written from them at the end.  The tensor maps span exactly the
+// [B, S, H, D] views (dims D, H, S, B, with the views' own strides, read
+// in place), and TMA writes zeros for rows past S, so nothing past row S
+// is ever read.  Tiles land in the swizzled layout wgmma reads (128-, 64-
+// or 32-byte swizzle for D = 64, 32, 16).
 //
-// Bound on the H100.  At the training shape (B=8, H=12, S=2048, D=64,
-// causal) 4 D flops per visible pair at the 989 TFLOP/s dense bf16 peak
-// take ~0.05 ms against ~0.04 ms for the bytes: bound by operations.
-// mma.sync reaches part of that peak; wgmma, TMA and a deeper pipeline are
-// later work.
+// Masks.  Only a tile that crosses the causal diagonal of the warpgroup's
+// rows or runs past S is masked elementwise (a finite fill, never -inf).
+// With causal masking the producer stops at the block's last row and a
+// warpgroup only releases the tiles wholly above its rows.  With HAS_BIAS
+// the bias is added to the base-2 scores as it is (the reference's own
+// units) and keys invisible by position take 2 * -1e30, below every biased
+// score, so a fully masked row still averages the keys it sees by
+// position.  Tiles run in ascending key order, so a row's first tile always
+// holds key 0, which it sees.
+//
+// Choices, each timed against the others in one call on an NVIDIA H100
+// 80GB HBM3 at 700 W (scripts/time_flash.py; the readings are in PERF.md): at
+// the training shape (B=8, H=12, S=2048, D=64, causal) 128-key tiles took
+// 0.150-0.157 ms against 0.171 for 64-key tiles; a third ring stage gained
+// nothing (0.157); the folded scale gained 5-10% (0.166 without);
+// overlapping a warpgroup's softmax with its own P V, with or without
+// ping-pong between two warpgroups, was slower (0.197-0.205 against
+// 0.186-0.189 for this serial order at 128-row blocks), and so was a fixed
+// rotation of the three warpgroups' products on named barriers (0.173-
+// 0.180 against 0.149-0.159); a persistent loop over tiles with a double-
+// buffered Q gained nothing there (0.149-0.150) and lost 15% on serving
+// prefill.  Block rows: 192 (NC = 3, every K/V tile shared by three
+// warpgroups) took 0.156 against 0.186 for 128 and 0.310 for 64, but
+// 0.037 against 0.027-0.029 for 128 on
+// BERT's B=8 S=512, where 288 blocks make 2.2 waves of 132 SMs; so the
+// launcher takes 192 rows when the grid gives every SM four blocks, 128
+// when it gives every SM one, else 64-row blocks (NC = 1, two an SM):
+// short sequences with few heads (serving prefill, BERT at seq 128, the
+// default geometries) spread over more SMs (fwd_bf16_block_rows).  Query
+// tiles are the grid's slow dimension, issued last tile first, so the
+// longest causal blocks start first.
+//
+// Bound on the H100.  At the training shape 4 D flops per visible pair at
+// the 989 TFLOP/s dense bf16 peak take ~0.05 ms against ~0.04 ms for the
+// bytes: bound by operations.  At D = 64 the SFU's exp2 of a score costs
+// about as long as the tensor cores' products for it, and a warpgroup's
+// softmax and products alternate; the other warpgroups of the block run
+// theirs in between.
+//
+// Registers.  ptxas reports each instance at its launch bound (128 a
+// thread with 64-row blocks, two an SM, and with 192-row blocks, 512
+// threads; 168 with 128-row blocks); the producer runs on 24 after
+// setmaxnreg.dec, the consumers on 232, 240 or 160 after .inc.  The bias
+// instances at D = 32 and 64 with 64- and 192-row blocks spill 8-40 bytes:
+// values computed before the role split, stored once and reloaded in the
+// producer's 24 registers (`-Xptxas -v`; PERF.md).
+//
+// Host side.  The launcher encodes three (with the bias four) TMA tensor
+// maps a call (cuTensorMapEncodeTiled, reached through the runtime's driver
+// entry point, so no -lcuda; ~1 us each on the host) and passes them as
+// __grid_constant__ parameters.  Each kernel instance raises its dynamic
+// shared-memory limit once per device and checks that its launch register
+// count covers the rebalanced counts (else it refuses with
+// cudaErrorInvalidConfiguration rather than wait in setmaxnreg.inc).
 
 namespace {
 
 using bf16mma::bf16;
 
-constexpr int BQ16 = 64;        // query rows a block (16 a warp)
-constexpr int BK16 = 64;        // keys a tile
-constexpr int THREADS16 = 128;  // 4 warps
+constexpr int WG = 128;     // threads of a warpgroup
+constexpr int QROWS = 64;   // query rows of a consumer warpgroup
+constexpr int BKW = 128;    // keys a K/V tile
+constexpr int STAGES = 2;   // depth of the K/V ring
+// a stage's bias window: BKW values from a 16-byte aligned start, so up
+// to 3 floats before the tile's first key (a TMA box must start on 16
+// bytes in its innermost dimension)
+constexpr int BIAS_BOX = BKW + 4;
+constexpr int BIAS_STRIDE = (BIAS_BOX * 4 + 127) / 128 * 32;  // floats
 
-template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(THREADS16)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const float* __restrict__ bias,
-                      long long q_sb, long long q_ss, long long q_sh,
-                      long long k_sb, long long k_ss, long long k_sh,
-                      long long v_sb, long long v_ss, long long v_sh,
-                      bf16* __restrict__ o, float* __restrict__ lse,
-                      int H, int S, int causal, float scale_log2) {
-  namespace m = bf16mma;
-  constexpr int LDS = m::Tile<D>::LDS;
-  constexpr int KD = D / 16;  // k-steps of Q K^T, n-tile pairs of P V
-  constexpr float FILL = HAS_BIAS ? 2.f * NEG_BIG : NEG_BIG;
-  __shared__ __align__(16) bf16 Qs[BQ16 * LDS];
-  __shared__ __align__(16) bf16 Ks[BK16 * LDS];
-  __shared__ __align__(16) bf16 Vs[BK16 * LDS];
-  __shared__ float Bs[HAS_BIAS ? BK16 : 1];  // the K tile's key bias
+template <int D, bool HAS_BIAS, int NC>
+struct FwdLayout {
+  static constexpr int ROW = D * 2;            // bytes of a head row
+  static constexpr int Q_TILE = QROWS * ROW;   // bytes of a warpgroup's Q
+  static constexpr int KV_TILE = BKW * ROW;    // bytes of a K or V tile
+  static constexpr int BIAS_TILE = HAS_BIAS ? BIAS_STRIDE * 4 : 0;
+  static constexpr int K_OFF = NC * Q_TILE;    // every tile on 1024 bytes
+  static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
+  static constexpr int BIAS_OFF = V_OFF + STAGES * KV_TILE;
+  static constexpr int BAR_OFF = BIAS_OFF + STAGES * BIAS_TILE;
+  // + slack to align the dynamic shared memory's start to 1024 bytes
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+  static constexpr int THREADS = WG * (NC + 1);
+  // per-thread registers after rebalancing; the launch count must cover
+  // them: 128 (NC = 1, two blocks an SM), 168 (NC = 2) or 128 (NC = 3)
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = NC == 1 ? 232 : NC == 2 ? 240 : 160;
+  static constexpr int POOL = WG * (PRODUCER_REGS + NC * CONSUMER_REGS);
+};
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * BQ16;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wrow = q0 + warp * 16;  // the warp's first query row
+// 2^x on the SFU; subnormal results flush to 0 (they are below any bf16 P
+// or l that matters: < 2^-126 of the row's largest term)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
-
-  m::load_tile_async<BQ16, THREADS16, D>(Qs, qb, q_ss, q0, S, tid);
-  m::cp_async_commit();
-  m::cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[KD][4];
+// S = Q K^T of one tile into sc: D / 16 k-steps, issued, not committed
+template <int ROW>
+__device__ __forceinline__ void issue_s(float (&sc)[BKW / 2], uint32_t q_addr,
+                                        uint32_t k_tile) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    m::ldsm_x4(qf[kk], m::a_addr<LDS>(Qs, warp * 16, kk * 16, lane));
-
-  float acc[2 * KD][4];
-#pragma unroll
-  for (int n = 0; n < 2 * KD; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float mrow[2] = {-INFINITY, -INFINITY};
-  float lrow[2] = {0.f, 0.f};  // this lane's share of the row sums
-
-  const int kend = causal ? min(S, q0 + BQ16) : S;
-  const int ntiles = (kend + BK16 - 1) / BK16;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK16;
-    __syncthreads();  // every warp is done with the previous K and V
-    m::load_tile_async<BK16, THREADS16, D>(Ks, kb, k_ss, k0, S, tid);
-    m::cp_async_commit();
-    m::load_tile_async<BK16, THREADS16, D>(Vs, vb, v_ss, k0, S, tid);
-    m::cp_async_commit();
-    if constexpr (HAS_BIAS) {
-      if (tid < BK16) {
-        Bs[tid] = k0 + tid < S ? bias[(long long)b * S + k0 + tid] : 0.f;
-      }
-    }
-    m::cp_async_wait<1>();  // K has landed; V may still be in flight
-    __syncthreads();
-
-    const bool active = !causal || k0 <= wrow + 15;
-    float s[8][4];
-    if (active) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bk[4];
-          m::ldsm_x4(bk, m::bt_addr<LDS>(Ks, np * 16, kk * 16, lane));
-          m::mma(s[2 * np], qf[kk], bk[0], bk[1]);
-          m::mma(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-        }
-      }
-      float mx[2] = {NEG_BIG, NEG_BIG};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = wrow + g + (e >> 1) * 8;
-          const int c = k0 + n * 8 + 2 * t + (e & 1);
-          const bool visible = c < S && (!causal || c <= r);
-          float sv = s[n][e] * scale_log2;
-          if constexpr (HAS_BIAS) sv += Bs[c - k0];
-          s[n][e] = visible ? sv : FILL;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-        }
-      }
-      float corr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(mrow[i], mx[i]);
-        corr[i] = exp2f(mrow[i] - m_new);  // 0 on the warp's first tile
-        mrow[i] = m_new;
-        lrow[i] *= corr[i];
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = exp2f(s[n][e] - mrow[e >> 1]);
-          lrow[e >> 1] += s[n][e];
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 2 * KD; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-    }
-    m::cp_async_wait<0>();
-    __syncthreads();  // V has landed
-    if (active) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t pa[4];
-        m::a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int dp = 0; dp < KD; ++dp) {
-          uint32_t bv[4];
-          m::ldsm_x4_t(bv, m::b_addr_t<LDS>(Vs, kk * 16, dp * 16, lane));
-          m::mma(acc[2 * dp], pa, bv[0], bv[1]);
-          m::mma(acc[2 * dp + 1], pa, bv[2], bv[3]);
-        }
-      }
-    }
+  for (int kk = 0; kk < ROW / 32; ++kk) {
+    hopper::WgmmaSS<BKW>::run(sc, hopper::desc_k_major<ROW>(q_addr + 32 * kk),
+                              hopper::desc_k_major<ROW>(k_tile + 32 * kk), kk);
   }
+}
 
+// O += P V of one tile: BKW / 16 k-steps, issued, not committed
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&pa)[BKW / 16][4],
+                                         uint32_t v_tile) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 1);
-    lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 2);
-    const int r = wrow + g + i * 8;
-    if (r >= S) continue;
-    const float ll = fmaxf(lrow[i], 1e-30f);  // fully-masked rows stay finite
-    bf16* orow = o + (((long long)b * S + r) * H + h) * D;
+  for (int kk = 0; kk < BKW / 16; ++kk) {
+    hopper::WgmmaRS<D>::run(
+        acc, pa[kk], hopper::desc_mn_major<D * 2>(v_tile + kk * 16 * D * 2), 1);
+  }
+}
+
+// scale, bias and mask one 64 x BKW score tile in registers
+// (EDGE: the tile crosses the causal diagonal or S) and take its row
+// maxima into mx
+template <bool HAS_BIAS, bool EDGE>
+__device__ __forceinline__ void scale_mask(float (&sc)[BKW / 2],
+                                           float (&mx)[2],
+                                           const float* bias_tile,
+                                           float scale, int k0, int row,
+                                           int t, int S, int causal) {
+  constexpr float FILL = HAS_BIAS ? 2.f * NEG_BIG : NEG_BIG;
 #pragma unroll
-    for (int n = 0; n < 2 * KD; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * i] / ll, acc[n][2 * i + 1] / ll);
-    }
-    if (t == 0) {
-      lse[((long long)b * H + h) * S + r] =
-          (mrow[i] + log2f(ll)) * bf16mma::LN2;
+  for (int j = 0; j < BKW / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * t + (e & 1);  // key within the tile
+      float sv = sc[4 * j + e] * scale;
+      if constexpr (HAS_BIAS) sv += bias_tile[c];
+      if constexpr (EDGE) {
+        const int r = row + (e >> 1) * 8;
+        if (k0 + c >= S || (causal && k0 + c > r)) sv = FILL;
+      }
+      sc[4 * j + e] = sv;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sv);
     }
   }
 }
 
-template <int D, bool HAS_BIAS>
-void launch_fwd_bf16_as(dim3 grid, const void* q, const void* k,
-                        const void* v, const float* bias,
-                        long long q_sb, long long q_ss, long long q_sh,
-                        long long k_sb, long long k_ss, long long k_sh,
-                        long long v_sb, long long v_ss, long long v_sh,
-                        void* o, float* lse, int H, int S, int causal,
-                        float scale, cudaStream_t stream) {
-  flash_fwd_bf16_kernel<D, HAS_BIAS><<<grid, THREADS16, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bias, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-      v_sb, v_ss, v_sh, static_cast<bf16*>(o), lse, H, S, causal,
-      scale * bf16mma::LOG2E);
+// The online softmax of one scored tile: new row maxima (corr rescales
+// what came before, 0 on the first tile), P = exp2(S - m) in f32 summed
+// into this lane's share of l, and P rounded pairwise into the A operand
+// of k-step j / 2 (bf16mma::a_from_c's order).  Without a bias the scores
+// stay unscaled until the fused multiply-add of each exponent.
+template <bool HAS_BIAS>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[BKW / 2], float (&mrow)[2], float (&lrow)[2],
+    float (&corr)[2], uint32_t (&pa)[BKW / 16][4], const float* bias_tile,
+    float scale_log2, int k0, int r0, int row, int t, int S, int causal) {
+  constexpr bool fold = !HAS_BIAS;
+  const float mul = fold ? 1.f : scale_log2;  // applied to S before the max
+  float mx[2] = {NEG_BIG, NEG_BIG};
+  if (k0 + BKW > S || (causal && k0 + BKW - 1 > r0)) {
+    scale_mask<HAS_BIAS, true>(sc, mx, bias_tile, mul, k0, row, t, S, causal);
+  } else if constexpr (fold) {
+#pragma unroll
+    for (int i = 0; i < BKW / 2; ++i) {
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+  } else {
+    scale_mask<HAS_BIAS, false>(sc, mx, bias_tile, mul, k0, row, t, S,
+                                causal);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    if constexpr (fold) mx[i] *= scale_log2;
+    const float m_new = fmaxf(mrow[i], mx[i]);
+    corr[i] = exp2_ftz(mrow[i] - m_new);
+    mrow[i] = m_new;
+    lrow[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < BKW / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float m = mrow[e >> 1];
+      p[e] = exp2_ftz(fold ? fmaf(sc[4 * j + e], scale_log2, -m)
+                           : sc[4 * j + e] - m);
+      lrow[e >> 1] += p[e];
+    }
+    pa[j >> 1][(j & 1) * 2] = bf16mma::pack(p[0], p[1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = bf16mma::pack(p[2], p[3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= corr[(i >> 1) & 1];
+}
+
+template <int D, bool HAS_BIAS, int NC>
+__global__ void __launch_bounds__(WG * (NC + 1), NC == 1 ? 2 : 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_bias,
+                      bf16* __restrict__ o, float* __restrict__ lse, int H,
+                      int S, int causal, float scale_log2) {
+  namespace hp = hopper;
+  using L = FwdLayout<D, HAS_BIAS, NC>;
+  constexpr int BQ = QROWS * NC;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K_OFF);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
+  float* Bs = reinterpret_cast<float*>(smem + L::BIAS_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last query tile first
+  // causal: keys past the block's last query row are never visible
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int ntiles = (kend + BKW - 1) / BKW;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], NC);
+    }
+    hp::mbar_init(qbar, 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    hp::reg_dealloc<L::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hp::prefetch_tensormap(&tm_q);
+      hp::prefetch_tensormap(&tm_k);
+      hp::prefetch_tensormap(&tm_v);
+      if constexpr (HAS_BIAS) hp::prefetch_tensormap(&tm_bias);
+      // the warpgroups' Q boxes that hold a row below S
+      const int nq = min(NC, (S - q0 + QROWS - 1) / QROWS);
+      hp::mbar_arrive_expect_tx(qbar, nq * L::Q_TILE);
+      for (int i = 0; i < nq; ++i) {
+        hp::tma_load_4d(Qs + i * QROWS * D, &tm_q, qbar, 0, h, q0 + i * QROWS,
+                        b);
+      }
+      for (int kt = 0; kt < ntiles; ++kt) {
+        const int s = kt % STAGES;
+        // the stage's previous tile released by every consumer
+        if (kt >= STAGES) hp::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(
+            &full[s], 2 * L::KV_TILE + (HAS_BIAS ? BIAS_BOX * 4 : 0));
+        hp::tma_load_4d(Ks + s * BKW * D, &tm_k, &full[s], 0, h, kt * BKW, b);
+        hp::tma_load_4d(Vs + s * BKW * D, &tm_v, &full[s], 0, h, kt * BKW, b);
+        if constexpr (HAS_BIAS) {
+          hp::tma_load_1d(Bs + s * BIAS_STRIDE, &tm_bias, &full[s],
+                          (b * S + kt * BKW) & ~3);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows a warpgroup ----
+    hp::reg_alloc<L::CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x - wg * WG;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int r0 = q0 + c * QROWS;       // the warpgroup's first row
+    const int row = r0 + warp * 16 + g;  // this thread's rows: row, row + 8
+    const uint32_t q_addr = hp::smem_u32(Qs + c * QROWS * D);
+    const uint32_t k_addr = hp::smem_u32(Ks);
+    const uint32_t v_addr = hp::smem_u32(Vs);
+    // the tiles this warpgroup computes come first: with causal masking,
+    // those that start at or before its last row; it releases the rest
+    const int nact = r0 >= S ? 0
+                     : causal ? min(ntiles, (r0 + QROWS - 1) / BKW + 1)
+                              : ntiles;
+    // this tile's bias, from its stage's 16-byte aligned window
+    auto bias_at = [&](int s, int k0) {
+      return Bs + s * BIAS_STRIDE + ((b * S + k0) & 3);
+    };
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float mrow[2] = {-INFINITY, -INFINITY};
+    float lrow[2] = {0.f, 0.f};  // this lane's share of the row sums
+    float sc[BKW / 2];
+    float corr[2];
+    uint32_t pa[BKW / 16][4];
+    if (nact > 0) hp::mbar_wait(qbar, 0);
+
+    for (int kt = 0; kt < nact; ++kt) {
+      const int s = kt % STAGES;
+      hp::mbar_wait(&full[s], (kt / STAGES) & 1);
+      hp::fence();
+      issue_s<L::ROW>(sc, q_addr, k_addr + s * L::KV_TILE);
+      hp::commit();
+      hp::wait<0>();
+      hp::fence_operand(sc);
+      softmax_tile<HAS_BIAS>(sc, mrow, lrow, corr, pa, bias_at(s, kt * BKW),
+                             scale_log2, kt * BKW, r0, row, t, S, causal);
+      rescale(acc, corr);
+      hp::fence();
+      issue_pv<D>(acc, pa, v_addr + s * L::KV_TILE);
+      hp::commit();
+      hp::wait<0>();
+      hp::fence_operand(acc);
+      hp::fence_operand(pa);
+      if (tid == 0) hp::mbar_arrive(&empty[s]);  // its products retired
+    }
+    for (int kt = nact; kt < ntiles; ++kt) {  // tiles wholly above its rows
+      const int s = kt % STAGES;
+      hp::mbar_wait(&full[s], (kt / STAGES) & 1);
+      if (tid == 0) hp::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 1);
+      lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 2);
+      const int r = row + i * 8;
+      if (r >= S) continue;
+      const float ll = fmaxf(lrow[i], 1e-30f);  // fully-masked rows stay finite
+      bf16* orow = o + (((long long)b * S + r) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] / ll,
+                                  acc[4 * j + 2 * i + 1] / ll);
+      }
+      if (t == 0) {
+        lse[((long long)b * H + h) * S + r] =
+            (mrow[i] + log2f(ll)) * bf16mma::LN2;
+      }
+    }
+  }
+}
+
+// Query rows a block: 192 when that grid gives every SM four blocks, 128
+// when it gives every SM one, else 64 (see the note above)
+int fwd_bf16_block_rows(int B, int H, int S) {
+  int dev = 0;
+  int sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 64;
+  }
+  const long long heads = (long long)B * H;
+  if (heads * ((S + 191) / 192) >= 4LL * sms) return 192;
+  return heads * ((S + 127) / 128) >= sms ? 128 : 64;
+}
+
+// A TMA map over a strided [B, S, H, D] bf16 view (strides in elements):
+// dims (D, H, S, B), boxes of `rows` rows of one head, swizzled to the row
+template <int D>
+bool encode_rows(CUtensorMap* map, const void* base, long long sb,
+                 long long ss, long long sh, int B, int H, int S, int rows) {
+  const cuuint64_t dims[4] = {D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {D, 1, (cuuint32_t)rows, 1};
+  return hopper::encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base,
+                              dims, strides, box, hopper::swizzle_for(D * 2));
+}
+
+template <int D, bool HAS_BIAS, int NC>
+int launch_fwd_bf16_as(const CUtensorMap (&maps)[4], void* o, float* lse,
+                       int B, int H, int S, int causal, float scale,
+                       cudaStream_t stream) {
+  using L = FwdLayout<D, HAS_BIAS, NC>;
+  const auto kernel = flash_fwd_bf16_kernel<D, HAS_BIAS, NC>;
+  static unsigned long long configured = 0;  // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!((configured >> dev) & 1ull)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (attr.numRegs * L::THREADS < L::POOL) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    configured |= 1ull << dev;
+  }
+  const dim3 grid(B * H, (S + QROWS * NC - 1) / (QROWS * NC));
+  kernel<<<grid, L::THREADS, L::BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(o), lse, H, S,
+      causal, scale * bf16mma::LOG2E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -490,17 +719,39 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v,
                     long long v_sb, long long v_ss, long long v_sh, void* o,
                     float* lse, int B, int H, int S, int causal, float scale,
                     cudaStream_t stream) {
-  const dim3 grid((S + BQ16 - 1) / BQ16, B * H);
+  CUtensorMap maps[4];
+  memset(&maps[3], 0, sizeof(CUtensorMap));
+  bool ok = encode_rows<D>(&maps[0], q, q_sb, q_ss, q_sh, B, H, S, QROWS) &&
+            encode_rows<D>(&maps[1], k, k_sb, k_ss, k_sh, B, H, S, BKW) &&
+            encode_rows<D>(&maps[2], v, v_sb, v_ss, v_sh, B, H, S, BKW);
   if (bias != nullptr) {
-    launch_fwd_bf16_as<D, true>(grid, q, k, v, bias, q_sb, q_ss, q_sh, k_sb,
-                                k_ss, k_sh, v_sb, v_ss, v_sh, o, lse, H, S,
-                                causal, scale, stream);
-  } else {
-    launch_fwd_bf16_as<D, false>(grid, q, k, v, bias, q_sb, q_ss, q_sh, k_sb,
-                                 k_ss, k_sh, v_sb, v_ss, v_sh, o, lse, H, S,
-                                 causal, scale, stream);
+    // the [B, S] bias as one run of B*S floats: a tile of row b starts at
+    // b*S + k0, its window 0-3 floats before; values past S belong to
+    // masked keys, past B*S read as 0
+    const cuuint64_t dims[1] = {(cuuint64_t)B * S};
+    const cuuint64_t strides[1] = {0};
+    const cuuint32_t box[1] = {BIAS_BOX};
+    ok = ok && hopper::encode_tiled(&maps[3], CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                    1, bias, dims, strides, box,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = fwd_bf16_block_rows(B, H, S);
+  const bool wide = rows == 128;
+  if (rows == 192) {
+    return bias != nullptr ? launch_fwd_bf16_as<D, true, 3>(maps, o, lse, B, H, S, causal, scale, stream)
+                           : launch_fwd_bf16_as<D, false, 3>(maps, o, lse, B, H, S, causal, scale, stream);
+  }
+  if (bias != nullptr) {
+    return wide ? launch_fwd_bf16_as<D, true, 2>(maps, o, lse, B, H, S,
+                                                 causal, scale, stream)
+                : launch_fwd_bf16_as<D, true, 1>(maps, o, lse, B, H, S,
+                                                 causal, scale, stream);
+  }
+  return wide ? launch_fwd_bf16_as<D, false, 2>(maps, o, lse, B, H, S, causal,
+                                                scale, stream)
+              : launch_fwd_bf16_as<D, false, 1>(maps, o, lse, B, H, S, causal,
+                                                scale, stream);
 }
 
 }  // namespace
@@ -529,4 +780,32 @@ extern "C" int flash_attention_fwd_bf16(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The query rows a block of the bf16 forward takes at (B, H, S) on the
+// current device: 192, 128 or 64 (see fwd_bf16_block_rows).
+extern "C" int flash_attention_fwd_bf16_block_rows(int B, int H, int S) {
+  return fwd_bf16_block_rows(B, H, S);
+}
+
+// Dynamic shared memory, in bytes, of the bf16 forward's instance for head
+// dim D, with or without the bias, at `rows` query rows a block; -1 if
+// there is no such instance.
+extern "C" int flash_attention_fwd_bf16_smem_bytes(int D, int has_bias,
+                                                   int rows) {
+  const int nc = rows / QROWS;
+  if (rows % QROWS != 0 || nc < 1 || nc > 3 || (D != 16 && D != 32 && D != 64)) {
+    return -1;
+  }
+  const int sizes[3][3][2] = {
+      {{FwdLayout<16, false, 1>::BYTES, FwdLayout<16, true, 1>::BYTES},
+       {FwdLayout<16, false, 2>::BYTES, FwdLayout<16, true, 2>::BYTES},
+       {FwdLayout<16, false, 3>::BYTES, FwdLayout<16, true, 3>::BYTES}},
+      {{FwdLayout<32, false, 1>::BYTES, FwdLayout<32, true, 1>::BYTES},
+       {FwdLayout<32, false, 2>::BYTES, FwdLayout<32, true, 2>::BYTES},
+       {FwdLayout<32, false, 3>::BYTES, FwdLayout<32, true, 3>::BYTES}},
+      {{FwdLayout<64, false, 1>::BYTES, FwdLayout<64, true, 1>::BYTES},
+       {FwdLayout<64, false, 2>::BYTES, FwdLayout<64, true, 2>::BYTES},
+       {FwdLayout<64, false, 3>::BYTES, FwdLayout<64, true, 3>::BYTES}}};
+  return sizes[D == 16 ? 0 : D == 32 ? 1 : 2][nc - 1][has_bias ? 1 : 0];
 }

@@ -64,8 +64,8 @@ from distributeddeeplearning_tpu_torch.ops import _build
 
 NEG_BIG = -1e30  # finite mask fill; -inf poisons the online-softmax max
 LN2 = 0.6931471805599453  # the reference's base-2 bias in nats
-#: head dims the kernels are built for (bf16 mma.sync takes a head dim
-#: that is a multiple of its 16-deep k-step)
+#: head dims the kernels are built for (the bf16 products, wgmma and
+#: mma.sync, take a head dim that is a multiple of their 16-deep k-step)
 HEAD_DIMS = (16, 32, 64)
 
 #: f32 forward (K1) kernel launches since the counter was last reset
@@ -117,6 +117,14 @@ def _kernel_fn(kind: str, dtype: torch.dtype):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return name, fn
+
+
+def bf16_block_rows(b: int, h: int, s: int) -> int:
+    """The query rows a block of the bf16 forward takes at (B, H, S) on
+    the current CUDA device: 192, 128 or 64, by the launcher's rule in
+    ``csrc/flash_attention_fwd.cu`` (``fwd_bf16_block_rows``)."""
+    fn = _build.load("flash_attention_fwd").flash_attention_fwd_bf16_block_rows
+    return int(fn(b, h, s))
 
 
 def _count(kind: str, dtype: torch.dtype, has_bias: bool) -> None:
@@ -211,7 +219,8 @@ def _check_operand(name: str, t: torch.Tensor, shape, dtype) -> None:
         )
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"flash_attention: {name} shape {tuple(t.shape)} != {shape}")
-    # 16-byte rows: float4 loads (f32) and cp.async / ldmatrix (bf16)
+    # 16-byte rows: float4 loads (f32), cp.async / ldmatrix (bf16 backward)
+    # and the bf16 forward's TMA tensor maps (16-byte base and strides)
     if t.stride(3) != 1 or any(st * t.element_size() % 16 for st in t.stride()[:3]):
         raise ValueError(
             f"flash_attention: {name} needs a contiguous head dim and "

@@ -31,7 +31,11 @@ with every key masked (its lse, -1e30 * ln 2, equal on both sides bit for
 bit); masked keys of every other row get dK = dV = 0 exactly.
 
 Every kernel takes head dims 16, 32 and 64; the cases at 16 and 32 run
-at the same tolerances.  The decode kernel on bf16 pages (and bf16
+at the same tolerances.  The bf16 forward (wgmma on TMA tiles) is held at
+every head dim, S in {1, 37, 64, 65, 127, 129, 576, 2048}, causal and not,
+with and without a bias, at batches that make its launcher take each of
+its block sizes (64, 128 and 192 query rows), and on views cut from a
+longer buffer whose rows past S are NaN.  The decode kernel on bf16 pages (and bf16
 queries) widens every value to f32 in registers, so it is held BITWISE to
 the same kernel on f32 copies of the same values, and to its plain
 version at 1e-4.
@@ -195,24 +199,6 @@ def _bf16_qkv(s, b=2, h=12, d=64, seed=0):
     return tuple(t.reshape(b, s, h, d) for t in (q, k, v))
 
 
-@pytest.mark.parametrize("s", [1, 37, 64, 576, 2048])
-@pytest.mark.parametrize("causal", [True, False])
-def test_bf16_forward_kernel_matches_plain(cuda, s, causal):
-    """bf16 K1 on strided qkv views against its plain version and the f32
-    reference from the same bf16 inputs; one bf16 launch, no f32 one."""
-    q, k, v = _bf16_qkv(s, seed=s)
-    before = (fa.launches, fa.launches_bf16)
-    o, lse = fa.flash_attention_core(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert (fa.launches, fa.launches_bf16) == (before[0], before[1] + 1)
-    o_plain, lse_plain = fa._dense_attention(q, k, v, None, causal=causal)
-    o_ref, lse_ref = fa._dense_attention(q.float(), k.float(), v.float(), None,
-                                         causal=causal)
-    _hold_bf16(o, o_plain, o_ref, "o")
-    assert lse.dtype == torch.float32
-    assert (lse - lse_plain).abs().max().item() <= ATOL
-
-
 @pytest.mark.parametrize("s", [37, 64, 576, 2048])
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_backward_kernels_match_plain(cuda, s, causal):
@@ -262,6 +248,128 @@ def test_bf16_gradients_through_the_function(cuda):
     ref = grad(lambda q, k, v: fa._dense_attention(q, k, v, None, causal=True)[0],
                torch.float32)
     _hold_bf16(got, plain, ref, "dqkv")
+
+
+# ---- bf16 K1 on wgmma and TMA: every shape, every block choice ------------
+
+#: sequence lengths of the bf16 forward's card tests: one row, ragged
+#: tiles, both sides of the 64-row and 128-key tile edges, a serving prompt
+#: and the training length
+BF16_K1_S = [1, 37, 64, 65, 127, 129, 576, 2048]
+
+
+def _expected_block_rows(b, h, s):
+    """The launcher's rule, restated: 192-row blocks when the grid gives
+    every SM four, 128 when it gives every SM one, else 64."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if b * h * -(-s // 192) >= 4 * sms:
+        return 192
+    return 128 if b * h * -(-s // 128) >= sms else 64
+
+
+def _batch_for_rows(rows, h, s):
+    """The smallest batch (from 2) at which the launcher takes ``rows``-row
+    blocks for (h, s) on this card."""
+    for b in range(2, 4096):
+        if fa.bf16_block_rows(b, h, s) == rows:
+            return b
+    pytest.fail(f"no batch gives {rows}-row blocks at h={h} s={s}")
+
+
+def _keep_with_dead_row(b, s, seed):
+    """[b, s] bool key mask: random keys kept, the last row fully masked."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    keep = torch.rand((b, s), generator=g, device="cuda") < 0.7
+    keep[0, 0] = True
+    keep[-1] = False
+    return keep
+
+
+def test_bf16_forward_block_rows_follow_the_rule(cuda):
+    """The launcher's block-row choice at the main path's shapes (the LM
+    training step, BERT at seq 512 and 128, bf16 serving prefill, the
+    default geometries' head dims 16 and 32) and at the edges of each
+    choice, against the rule restated here."""
+    shapes = [(8, 12, 2048), (8, 12, 512), (8, 12, 128), (1, 12, 512),
+              (4, 4, 512), (8, 8, 128), (1, 1, 1), (2, 4, 2048), (12, 4, 2048)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes += [(sms, 1, 128), (sms - 1, 1, 128), (4 * sms, 1, 192),
+               (4 * sms - 1, 1, 192)]
+    for b, h, s in shapes:
+        assert fa.bf16_block_rows(b, h, s) == _expected_block_rows(b, h, s), (b, h, s)
+    assert {fa.bf16_block_rows(b, h, s) for b, h, s in shapes} == {64, 128, 192}
+
+
+@pytest.mark.parametrize("rows", [64, 128, 192])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", BF16_K1_S)
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_bf16_forward_kernel_matches_plain(cuda, d, s, causal, bias, rows):
+    """bf16 K1 against its plain version and the f32 reference at every
+    head dim and S, causal and not, with and without a key-padding bias
+    that masks one row fully, at a batch that makes the launcher take
+    ``rows``-row blocks (64: one consumer warpgroup; 128 and 192: two and
+    three sharing each K/V tile); one launch through the right counter."""
+    h = 2 if rows == 64 else 4
+    b = _batch_for_rows(rows, h, s)
+    q, k, v = _bf16_qkv(s, b=b, h=h, d=d, seed=s + d + rows)
+    bias_t = None
+    if bias:
+        bias_t = fa._mask_bias(_keep_with_dead_row(b, s, s + d)[:, None, None, :], b, s)
+    names = ("launches_bf16", "launches_bias_bf16", "launches", "launches_bias")
+    before = [getattr(fa, n) for n in names]
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) - x for n, x in zip(names, before)] == (
+        [0, 1, 0, 0] if bias else [1, 0, 0, 0])
+    o_plain, lse_plain = fa._dense_attention(q, k, v, bias_t, causal=causal)
+    o_ref, _ = fa._dense_attention(q.float(), k.float(), v.float(), bias_t,
+                                   causal=causal)
+    _hold_bf16(o, o_plain, o_ref, "o")
+    assert lse.dtype == torch.float32 and torch.isfinite(lse).all()
+    assert (lse - lse_plain).abs().max().item() <= ATOL
+    if bias:  # the fully masked row: -1e30 * ln 2, as the plain version
+        assert torch.equal(lse[-1], lse_plain[-1]) and (lse[-1] < -6e29).all()
+
+
+@pytest.mark.parametrize("rows", [64, 192])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_bf16_forward_reads_only_its_views(cuda, d, causal, bias, rows):
+    """q, k, v cut from a longer buffer [B, S + 40, 3*H*D] (so the batch
+    stride is not S times the row stride) whose rows past S are NaN: the
+    tensor maps span the views exactly, so the output is finite and equal,
+    bit for bit, to the output on the same buffer with those rows zero,
+    and it holds to the plain version."""
+    s, h = 200, 4
+    b = _batch_for_rows(rows, h, s)
+    g = torch.Generator(device="cuda").manual_seed(d + rows)
+    buf = torch.randn((b, s + 40, 3 * h * d), generator=g, device="cuda").bfloat16()
+    bias_t = None
+    if bias:
+        bias_t = fa._mask_bias(_keep_with_dead_row(b, s, d)[:, None, None, :], b, s)
+
+    def views(t):
+        return tuple(x.reshape(b, s, h, d) for x in t[:, :s].split(h * d, dim=-1))
+
+    clean, poisoned = buf.clone(), buf.clone()
+    clean[:, s:] = 0
+    poisoned[:, s:] = float("nan")
+    q, k, v = views(poisoned)
+    assert q.stride(0) != s * q.stride(1)
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+    qc, kc, vc = views(clean)
+    o_c, lse_c = fa.flash_attention_core(qc, kc, vc, causal=causal, bias=bias_t)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+    o_plain, lse_plain = fa._dense_attention(qc, kc, vc, bias_t, causal=causal)
+    o_ref, _ = fa._dense_attention(qc.float(), kc.float(), vc.float(), bias_t,
+                                   causal=causal)
+    _hold_bf16(o, o_plain, o_ref, "o")
+    assert (lse - lse_plain).abs().max().item() <= ATOL
 
 
 def test_flash_decode_kernel_on_strided_cache_view(cuda):
