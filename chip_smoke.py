@@ -74,10 +74,14 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    their plain version at the training shape B=8, H=12, D=64, S=2048,
    causal, and at S in {37, 576} (ragged tiles), inputs as strided qkv
    views with a random dO;
-8a. bf16 K2 and K3 the same way at S in {37, 576, 2048}, causal and not,
-   with a random bf16 dO, against the bf16 plain backward and the f32
-   backward of the same inputs; timed at the training shape, with
-   autograd through bf16 SDPA as the yardstick;
+8a. bf16 K2 and K3 (tensor cores: wgmma on TMA tiles, a warp-specialised
+   ring, like bf16 K1) the same way at S in {37, 576, 2048}, causal and
+   not, with a random bf16 dO, against the bf16 plain backward and the
+   f32 backward of the same inputs; timed at the training shape on the
+   causal case's inputs, with TFLOP/s, the rows a block each launcher took
+   and autograd through bf16 SDPA as the yardstick; the build lines give
+   each bf16 K2 and K3 instance's registers, spills and dynamic shared
+   memory;
 9. gradient parity at full width: one loss and gradient of the 12-layer
    LM at batch 1, seq 2048, flash (K1 + K2/K3) against dense attention;
 9a. the same in bf16 (f32 params cast inside the loss): flash through the
@@ -288,20 +292,32 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 #: profiler windows that recorded no device time, timed by CUDA events
 #: instead (the run's last lines say how many)
 EVENT_TIMED = []
+#: profiler windows that lost some launch records (the run's last lines say
+#: how many): their kernels were timed by the launches recorded
+PARTIAL_WINDOWS = []
 
 
 def device_ms(torch, fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> float:
     """Mean device time per call of ``fn``: every kernel, copy and set it
-    ran, summed by torch.profiler over ``iters`` calls after warm-up (and,
-    into a dict ``by_kernel``, split by kernel function, template
-    arguments dropped).
+    ran, from torch.profiler over ``iters`` calls after warm-up (and, into
+    a dict ``by_kernel``, split by kernel function, template arguments
+    dropped).
     Unlike a CUDA-event span around a launch loop (:func:`cuda_ms`), it
     leaves out the gaps in which the card waits for the host to prepare
-    the next launch, which dominate at the serving shapes.  The profiler
-    now and then records no device time for a window (seen once in ~200
-    windows of one run on the H100); the window is then profiled once
-    more and, failing that, timed by a CUDA-event span (which counts the
-    launch gaps too) and recorded in :data:`EVENT_TIMED`."""
+    the next launch, which dominate at the serving shapes.  torch.profiler
+    does not record every launch of a window: late in a long process most
+    windows lose a few (17 of 20 calls of a kernel recorded, 7 of 10;
+    ``scripts/bwd_step_gap.py`` counts them), so the recorded sum over
+    ``iters`` reads low.  Each kernel is therefore timed by its mean over
+    the launches the window recorded, times the launches one call makes:
+    its recorded count over ``iters``, rounded up, which is exact while
+    fewer than ``iters`` of its launches are lost (1 to 4 seen); for a
+    window that recorded every launch this is the sum over ``iters``.
+    Windows that lost records are listed in :data:`PARTIAL_WINDOWS`.  Now
+    and then a window records no device time at all (seen once in ~200
+    windows); it is profiled once more and, failing that, timed by a
+    CUDA-event span (which counts the launch gaps too) and recorded in
+    :data:`EVENT_TIMED`."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warmup):
@@ -313,16 +329,18 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> fl
                 fn(i)
             torch.cuda.synchronize()
         cuda = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        total = sum(e.self_device_time_total for e in cuda)
-        if total > 0:
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0]
+        if sum(e.self_device_time_total for e in cuda) > 0:
+            per_call = [(e.key, e.self_device_time_total / 1e3 / e.count
+                         * math.ceil(e.count / iters)) for e in cuda]
+            if any(e.count % iters for e in cuda):
+                PARTIAL_WINDOWS.append([(e.key[:60], e.count) for e in cuda])
             if by_kernel is not None:
-                for e in cuda:
-                    key = e.key.replace("(anonymous namespace)::", "")
+                for key, ms in per_call:
+                    key = key.replace("(anonymous namespace)::", "")
                     name = re.match(r"(?:void )?(?:[\w:]+::)?(\w+)", key).group(1)
-                    by_kernel[name] = (by_kernel.get(name, 0.0)
-                                       + e.self_device_time_total / 1e3 / iters)
-            return total / 1e3 / iters
+                    by_kernel[name] = by_kernel.get(name, 0.0) + ms
+            return sum(ms for _, ms in per_call)
     ms = cuda_ms(torch, fn, iters=iters, warmup=0)
     EVENT_TIMED.append(ms)
     log(f"[timer] torch.profiler recorded no device time twice; a CUDA-event "
@@ -1517,7 +1535,8 @@ def phase_bwd_bf16(torch, F, fa, card):
     rows = {}
     for s in (37, 576, 2048):
         b = 8 if s == 2048 else 2
-        for causal in (True, False):
+        # causal last: the timing below runs on the causal case's inputs
+        for causal in (False, True):
             q, k, v = bf16_qkv(torch, b, s, seed=s + 10 * causal)
             o, lse = fa.flash_attention_core(q, k, v, causal=causal)
             g = torch.Generator(device="cuda").manual_seed(s)
@@ -1542,8 +1561,10 @@ def phase_bwd_bf16(torch, F, fa, card):
                                   (gt.float() - pl.float()).abs().max().item())
                 parts.append(f"{name} {err:.3e} (plain {plain_err:.3e}, limit "
                              f"{limit:.3e}, max {rf.abs().max().item():.3f})")
-            log(f"[bwd-bf16] B={b} S={s} causal={causal}: vs f32 reference "
-                + "; ".join(parts))
+            log(f"[bwd-bf16] B={b} S={s} causal={causal} ("
+                f"{fa.bf16_bwd_block_rows('dq', b, h, s)}/"
+                f"{fa.bf16_bwd_block_rows('dkv', b, h, s)}-row blocks): vs "
+                f"f32 reference " + "; ".join(parts))
             del plain, ref, got
         if s != 2048:
             continue
@@ -1570,10 +1591,15 @@ def phase_bwd_bf16(torch, F, fa, card):
             f"{8.0 * d * pairs / ms_dkv / 1e9:.1f} TFLOP/s), plain backward "
             f"{plain_ms:.4f} ms, sdpa bf16 backward {lib_ms:.4f} ms on {card}")
         shape = "B=8 H=12 S=2048 D=64 causal bf16 (strided qkv views)"
-        rows["dq"] = dict(ms=ms_dq, plain_ms=plain_ms, bound_ms=b_dq[0],
-                          bound_by=b_dq[1], library_ms=lib_ms, shape=shape)
-        rows["dkv"] = dict(ms=ms_dkv, plain_ms=plain_ms, bound_ms=b_dkv[0],
-                           bound_by=b_dkv[1], library_ms=lib_ms, shape=shape)
+        for kern, ms, (bms, by), per_pair in (("dq", ms_dq, b_dq, 6.0),
+                                             ("dkv", ms_dkv, b_dkv, 8.0)):
+            rows[kern] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                              library_ms=lib_ms, shape=shape,
+                              tflops=per_pair * d * pairs / ms / 1e9,
+                              block_rows=fa.bf16_bwd_block_rows(kern, b, h, s))
+        log(f"[bwd-bf16] K2+K3 {ms_dq + ms_dkv:.4f} ms against sdpa's whole "
+            f"backward {lib_ms:.4f} ms ({(ms_dq + ms_dkv) / lib_ms:.2f}x), "
+            f"{rows['dq']['block_rows']}/{rows['dkv']['block_rows']}-row blocks")
         del out, qt, kt, vt
     for kern in rows:
         rows[kern]["max_abs_err"] = worst[kern]
@@ -1901,7 +1927,8 @@ def _flash_at(torch, F, fa, d, h, b, s, dtype, card):
     peak = BF16_FLOPS_PER_S if bf else F32_FLOPS_PER_S
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     for ss in (37, s):
-        for causal in (True, False):
+        # causal last: the timing below runs on the causal case's inputs
+        for causal in (False, True):
             q, k, v = qkv_views(torch, b, ss, h, d, dtype, seed=ss + d + causal)
             errs, (lse, _, do, delta, _) = _hold_flash(
                 torch, fa, q, k, v, causal, seed=ss, what=f"D={d} S={ss}")
@@ -2848,25 +2875,32 @@ def log_groups(top, busy, gemms, kernels):
         log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
 
 
-def log_k1_bf16_instances(_build):
-    """One build line per instance of the bf16 forward (head dim, bias,
-    query rows a block): its registers and spill bytes from ``ptxas -v``
-    and its dynamic shared memory from the library."""
-    lib = _build.load("flash_attention_fwd")
+def log_bf16_instances(_build):
+    """One build line per instance of the bf16 forward (K1) and backward
+    (K2, K3) -- head dim, bias, rows a block: its registers and spill bytes
+    from ``ptxas -v`` and its dynamic shared memory from the library."""
+    fwd = _build.load("flash_attention_fwd")
+    bwd = _build.load("flash_attention_bwd")
+    pattern = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_bf16_kernelILi(\d+)ELb([01])ELi(\d)E")
     info = {}
-    fn = None
-    for line in _build.build_log.get("flash_attention_fwd", "").splitlines():
-        m = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELb([01])ELi(\d)E", line)
-        if "Compiling entry function" in line or "Function properties for" in line:
-            fn = (int(m.group(1)), int(m.group(2)), 64 * int(m.group(3))) if m else None
-        elif fn is not None and "spill" in line:
-            info.setdefault(fn, {})["spill"] = line.strip()
-        elif fn is not None and "registers" in line:
-            info.setdefault(fn, {})["regs"] = re.search(r"Used (\d+) registers",
-                                                        line).group(1)
-    for (d, bias, rows), got in sorted(info.items()):
-        smem = lib.flash_attention_fwd_bf16_smem_bytes(d, bias, rows)
-        log(f"[build] bf16 K1 D={d} bias={bool(bias)} rows={rows}: "
+    for lib in ("flash_attention_fwd", "flash_attention_bwd"):
+        fn = None
+        for line in _build.build_log.get(lib, "").splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                m = pattern.search(line)
+                fn = ((m.group(1), int(m.group(2)), int(m.group(3)), 64 * int(m.group(4)))
+                      if m else None)
+            elif fn is not None and "spill" in line:
+                info.setdefault(fn, {})["spill"] = line.strip()
+            elif fn is not None and "registers" in line:
+                info.setdefault(fn, {})["regs"] = re.search(r"Used (\d+) registers",
+                                                            line).group(1)
+    names = {"fwd": "K1", "bwd_dq": "K2", "bwd_dkv": "K3"}
+    for (kind, d, bias, rows), got in sorted(info.items()):
+        smem = (fwd.flash_attention_fwd_bf16_smem_bytes(d, bias, rows) if kind == "fwd"
+                else bwd.flash_attention_bwd_bf16_smem_bytes(int(kind == "bwd_dkv"),
+                                                             d, bias, rows))
+        log(f"[build] bf16 {names[kind]} D={d} bias={bool(bias)} rows={rows}: "
             f"{got.get('regs')} registers, {got.get('spill')}, {smem} bytes of "
             f"dynamic shared memory")
 
@@ -2924,7 +2958,7 @@ def main() -> int:
                     fn = m.group(1)
                 elif "registers" in line or "spill" in line:
                     log(f"[build] {name}: {fn}: {line.strip()}")
-        log_k1_bf16_instances(_build)
+        log_bf16_instances(_build)
         k1 = timed(phase_k1, torch, F, fa, card)
         k1_bf16 = timed(phase_k1_bf16, torch, F, fa, card)
         k4 = timed(phase_k4, torch, F, fd, card)
@@ -3043,7 +3077,8 @@ def main() -> int:
             str(d): {**entry, "launches": defaults[d].get(row["name"], 0)}
             for d, entry in headdim.get(row["name"], {}).items()}
     log(f"[timer] windows timed by CUDA events for want of profiler device "
-        f"time: {len(EVENT_TIMED)}")
+        f"time: {len(EVENT_TIMED)}; windows that lost launch records, timed by "
+        f"the launches recorded: {len(PARTIAL_WINDOWS)}")
     log(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,4 +1,5 @@
-// Flash-attention backward, float32, for Hopper (sm_90a): two kernels.
+// Flash-attention backward for Hopper (sm_90a): two kernels, in float32
+// (CUDA cores) and bfloat16 (tensor cores, below).
 //
 // Replaces the Pallas TPU kernels distributeddeeplearning_tpu/ops/
 // flash_attention.py:_bwd_dq_kernel and _bwd_dkv_kernel (launched by
@@ -38,8 +39,9 @@
 // D in {16, 32, 64}; the entry points take D and refuse any other value
 // with cudaErrorInvalidValue.  A thread of the f32 kernels owns the D/16
 // columns tx + 16 j of its rows; the bf16 kernels run D/16 k-steps over
-// the head dim and keep D/8 n-tiles of each gradient.  At D = 64 the
-// arithmetic is the one the kernels had before they took D.
+// the head dim in their score products and keep an m64nD accumulator of
+// each gradient.  At D = 64 the arithmetic is the one the kernels had
+// before they took D.
 //
 // Layout.  q, k and v arrive as the strided [B, S, H, D] views of the
 // model's qkv projection (batch, seq and head strides, last dim
@@ -53,13 +55,15 @@
 // plain FMA on CUDA cores (67 TFLOP/s f32 peak), not TF32 mma, to keep the
 // f32 parity the port is held to; the tiles live in (dynamic) shared memory
 // and each thread keeps a 4 x D/16 register block of each accumulator and
-// a 4 x 2 block of each score tile.  wgmma, TMA pipelining and bf16 are
-// later work.
+// a 4 x 2 block of each score tile.  The bf16 kernels below run on wgmma
+// with TMA-fed tiles.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -491,332 +495,599 @@ extern "C" int flash_attention_bwd_dkv_f32(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward on the tensor cores: the same two passes for bf16 q, k, v and
-// dO, with the Pallas kernels' rounding points.  S = Q K^T and dP = dO V^T
-// accumulate in f32; P = exp2(S * scale * log2 e - lse * log2 e) and
-// dS = P * (dP - delta) * scale are f32; dS is rounded to bf16 as the operand
-// of dS K and dS^T Q, P as the operand of P^T dO; dQ, dK and dV accumulate in
-// f32 and are rounded to bf16 once at the end.
+// bf16 backward on Hopper's tensor cores: the same two passes for bf16 q, k,
+// v and dO, with the Pallas kernels' rounding points.  S = Q K^T and
+// dP = dO V^T accumulate in f32; P = exp2(S * scale * log2 e + bias -
+// lse * log2 e) and dS = P * (dP - delta) * scale are f32; dS is rounded to
+// bf16 as the operand of dS K and dS^T Q, P as the operand of P^T dO; dQ, dK
+// and dV accumulate in f32 and are rounded to bf16 once at the end.  They
+// replace the bf16 forms of the Pallas _bwd_dq_kernel and _bwd_dkv_kernel;
+// an earlier version ran every product as a warp's mma.sync on cp.async
+// tiles, waited for each tile before using it and masked every element.
 //
-// Design.  Blocks of 4 warps, every product an mma.sync m16n8k16 bf16 with
-// its B operand read from shared memory by ldmatrix.  The pass's own tile
-// (its A operands) sits in registers for the whole loop; the streamed tile
-// is staged with cp.async.  A score or gradient accumulator becomes the A
-// operand of the next product in registers (a_from_c), so neither P nor dS
-// is written to shared memory.
-// - dQ pass: one block per (b*h, 64-query tile), 16 queries a warp, Q and dO
-//   fragments in registers; loop over 64-key tiles: S and dP (16 x 64 each),
-//   then dQ += bf16(dS) K (K read .trans).
-// - dK/dV pass: one block per (b*h, 64-key tile), 16 keys a warp, K and V
-//   fragments in registers; loop over 32-query tiles on transposed tiles:
-//   S^T = K Q^T and dP^T = V dO^T (16 x 32), then dV += bf16(P^T) dO and
-//   dK += bf16(dS^T) Q (dO and Q read .trans).  The 32-query tile keeps the
-//   four accumulators (S^T, dP^T, dK, dV) within the register file.
-// Causal: the dQ pass stops at its diagonal tile, the dK/dV pass starts at
-// the first query tile that reaches its keys, and a warp skips tiles wholly
-// outside its triangle; visited tiles are masked elementwise (P = 0).
+// Design (warp-specialised, built from csrc/hopper.cuh as the bf16 forward
+// is).  One block per (b*h, tile of 64 * NC owned rows: queries in the dQ
+// pass, keys in the dK/dV pass).  Warpgroup 0 is the producer: it gives
+// back registers (setmaxnreg.dec) and one thread issues TMA loads -- the
+// block's own two tiles once, then each 64-row tile of the streamed pair
+// into a ring of STAGES16 = 2 stages, each guarded by a full and an empty
+// mbarrier.  Warpgroups 1..NC are consumers (setmaxnreg.inc), each owning
+// 64 rows, with every accumulator in registers.
+// - dQ pass: owns Q and dO; streams K and V (and, with HAS_BIAS, the tile's
+//   key bias).  Per tile: S = Q K^T and dP = dO V^T as two wgmma m64n64k16
+//   products from shared memory (both K-major), in flight together before
+//   one wait; P and dS in registers, dS rounded pairwise into the register
+//   A operand; dQ += dS K as wgmma m64nDk16 with K read MN-major (the
+//   transpose bit) from the tile that fed S.  lse and delta of a thread's
+//   two rows are read once.
+// - dK/dV pass: owns K and V (and each key row's bias, in registers);
+//   streams 64-query tiles of Q and dO with the tile's 64 lse and 64 delta
+//   values.  Per tile: S^T = K Q^T and dP^T = V dO^T as two SS products;
+//   P^T and dS^T in registers, both rounded into A operands; dV += P^T dO
+//   and dK += dS^T Q as RS products with dO and Q read MN-major from the
+//   tiles that fed the first two.
+// The tensor maps span exactly the [B, S, H, D] views (read in place, any
+// strides a multiple of 16 bytes), TMA writes zeros for rows past S, and
+// stores skip rows past S.  The per-row f32 values of a streamed tile (lse,
+// delta, the bias) come as 1-D windows of WIN = 68 floats from a 16-byte
+// aligned start (a TMA box must start on 16 bytes in its innermost
+// dimension), so any S works.
+//
+// Masks.  Only a tile that crosses the causal diagonal of the warpgroup's
+// rows, or runs past S, is masked elementwise (P = 0 by a select, so an
+// inf from an unmatched lse never reaches a product); interior tiles run no
+// masking code.  A tile wholly outside a warpgroup's causal triangle is not
+// computed by it -- it waits for the tile and releases it, so the ring stays
+// in step for the others.  The dQ pass stops its stream at the block's last
+// query row; the dK/dV pass starts it at the block's first key.  Both issue
+// their heaviest blocks first: the dQ pass's last query tiles, the dK/dV
+// pass's first key tiles (the grid's slow dimension).
+//
+// Determinism.  Every output element has one owner warpgroup, which sums
+// its tiles in a fixed order: no atomics and no second reduction, so dQ, dK
+// and dV are bitwise equal from launch to launch, as the reference's two
+// Pallas passes are.  The price of two passes is that both recompute S and
+// dP: 14 D flops a visible pair against the 10 D of a single pass that adds
+// dQ with atomics.
 //
 // Bound on the H100.  At the training shape (B=8, H=12, S=2048, D=64,
 // causal) the dQ pass does 6 D flops a visible pair (S, dP, dS K) and the
-// dK/dV pass 8 D (S, dP, P^T dO, dS^T Q): ~0.08 ms and ~0.10 ms at the
-// 989 TFLOP/s dense bf16 peak, above the ~0.03 ms their bytes take.
+// dK/dV pass 8 D (S, dP, P^T dO, dS^T Q): ~0.078 ms and ~0.104 ms at the
+// 989 TFLOP/s dense bf16 peak, above the ~0.03 ms their bytes take: bound
+// by operations.  wgmma is the only way to the tensor cores' full rate; the
+// ring overlaps the copy of tile i+1 with the products of tile i; NC
+// warpgroups share each streamed tile from shared memory; at D = 64 the
+// SFU's exp2 of a score costs about what its products do, and the other
+// warpgroups of a block run their products in between.
+//
+// Choices, each timed against the others in one call on an NVIDIA H100
+// 80GB HBM3 at 700 W (scripts/time_flash.py; the readings are in PERF.md):
+// at the training shape the dQ pass took 0.190 ms with 192-row blocks
+// against 0.222 with 128 and 0.212 with 64; the dK/dV pass 0.280 with 128
+// against 0.387 with 192 (it spills there) and 0.450 with 64.  Running the
+// exponentials of S while the dP product is in flight (and dS beside the dV
+// product) gained nothing in the dQ pass and cost the dK/dV pass 14%
+// (0.320: more live registers, spills), so each tile runs serially:
+// products, wait, elementwise work, products, wait.
+//
+// Registers.  ptxas compiles a whole instance within its launch bound --
+// 128 a thread with one consumer warpgroup (two blocks an SM) and with
+// three (512 threads), 168 with two -- whatever setmaxnreg later hands the
+// consumers (232, 240 or 160; the producer keeps 24).  The dK/dV pass holds
+// S^T, dP^T, dK and dV (32 floats each at D = 64) plus both A operands: at
+// D = 64 it spills ~400 bytes under a 128 cap and none under 168, so it
+// never takes 192-row blocks and spills only in its 64-row instances (the
+// smallest grids).  Each instance checks its launch register count against
+// its setmaxnreg counts and refuses to launch (cudaError 9) rather than
+// wait in setmaxnreg.inc.  The launcher picks the rows from the grid
+// against the SM count (bwd_bf16_block_rows), per pass.
 
 namespace {
 
 using bf16mma::bf16;
+using hopper::exp2_ftz;
 
-constexpr int BR16 = 64;        // rows a block owns (queries or keys)
-constexpr int BKQ16 = 64;       // keys a tile of the dQ pass
-constexpr int BQK16 = 32;       // queries a tile of the dK/dV pass
-constexpr int THREADS16 = 128;  // 4 warps, 16 owned rows each
+constexpr int WG16 = 128;     // threads of a warpgroup
+constexpr int ROWS16 = 64;    // rows of every tile (owned or streamed)
+constexpr int STAGES16 = 2;   // depth of the ring
+// a streamed tile's per-row f32 values (lse, delta or bias): ROWS16 of them
+// from a 16-byte aligned start, so up to 3 floats before the tile's first
+constexpr int WIN = ROWS16 + 4;
+constexpr int WIN_BYTES = (WIN * 4 + 127) / 128 * 128;  // a stage's window
 
-template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(THREADS16)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const float* __restrict__ bias,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, Strides st,
-                         bf16* __restrict__ dq, int H, int S, int causal,
-                         float scale) {
-  namespace m = bf16mma;
-  constexpr int LDS = m::Tile<D>::LDS;
-  constexpr int KD = D / 16;  // k-steps over the head dim
-  __shared__ __align__(16) bf16 Qs[BR16 * LDS];
-  __shared__ __align__(16) bf16 dOs[BR16 * LDS];
-  __shared__ __align__(16) bf16 Ks[BKQ16 * LDS];
-  __shared__ __align__(16) bf16 Vs[BKQ16 * LDS];
-  __shared__ float Bs[HAS_BIAS ? BKQ16 : 1];  // the K tile's key bias
+template <int D, int NC>
+struct BwdShape {
+  static constexpr int ROW = D * 2;          // bytes of a head row
+  static constexpr int TILE = ROWS16 * ROW;  // bytes of a 64-row tile
+  static constexpr int THREADS = WG16 * (NC + 1);
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = NC == 1 ? 232 : NC == 2 ? 240 : 160;
+  static constexpr int POOL = WG16 * (PRODUCER_REGS + NC * CONSUMER_REGS);
+};
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * BR16;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wrow = q0 + warp * 16;
-  const float scale_log2 = scale * m::LOG2E;
+// dQ pass: Q tiles, dO tiles (NC each), then the K and V rings, the bias
+// windows and the barriers; every tile on 1024 bytes
+template <int D, bool HAS_BIAS, int NC>
+struct DqLayout : BwdShape<D, NC> {
+  using Base = BwdShape<D, NC>;
+  static constexpr int DO_OFF = NC * Base::TILE;
+  static constexpr int K_OFF = 2 * NC * Base::TILE;
+  static constexpr int V_OFF = K_OFF + STAGES16 * Base::TILE;
+  static constexpr int BIAS_OFF = V_OFF + STAGES16 * Base::TILE;
+  static constexpr int BAR_OFF = BIAS_OFF + (HAS_BIAS ? STAGES16 * WIN_BYTES : 0);
+  // + slack to align the dynamic shared memory's start to 1024 bytes
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES16 + 1) * 8 + 1024;
+};
 
-  const bf16* qb = q + b * st.q_sb + h * st.q_sh;
-  const bf16* kb = k + b * st.k_sb + h * st.k_sh;
-  const bf16* vb = v + b * st.v_sb + h * st.v_sh;
-  const bf16* dob = dout + b * st.do_sb + h * st.do_sh;
-  m::load_tile_async<BR16, THREADS16, D>(Qs, qb, st.q_ss, q0, S, tid);
-  m::load_tile_async<BR16, THREADS16, D>(dOs, dob, st.do_ss, q0, S, tid);
-  m::cp_async_commit();
+// dK/dV pass: K tiles, V tiles (NC each), then the Q and dO rings, the lse
+// and delta windows and the barriers
+template <int D, int NC>
+struct DkvLayout : BwdShape<D, NC> {
+  using Base = BwdShape<D, NC>;
+  static constexpr int V_OFF = NC * Base::TILE;
+  static constexpr int Q_OFF = 2 * NC * Base::TILE;
+  static constexpr int DO_OFF = Q_OFF + STAGES16 * Base::TILE;
+  static constexpr int LSE_OFF = DO_OFF + STAGES16 * Base::TILE;
+  static constexpr int DELTA_OFF = LSE_OFF + STAGES16 * WIN_BYTES;
+  static constexpr int BAR_OFF = DELTA_OFF + STAGES16 * WIN_BYTES;
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES16 + 1) * 8 + 1024;
+};
 
-  // lse in base 2, the product rounded (__fmul_rn: no fused multiply-add
-  // with the subtraction below), so a fully masked row's -1e30 * ln 2
-  // comes back to exactly the -1e30 its biased scores carry, as in the
-  // reference
-  float row_lse[2], row_delta[2];
+// dS of one 64 x 64 [query, key] tile of the dQ pass into its A operand.
+// EDGE: the tile crosses the causal diagonal or S, so each element checks
+// that its key is visible from its row; rows past S are never stored.
+template <bool HAS_BIAS, bool EDGE>
+__device__ __forceinline__ void dq_tile(const float (&sc)[32],
+                                        const float (&dp)[32],
+                                        uint32_t (&da)[4][4],
+                                        const float (&lse2)[2],
+                                        const float (&dlt)[2],
+                                        const float* bias_tile,
+                                        float scale_log2, float scale, int k0,
+                                        int row, int t, int S, int causal) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const int c = 8 * j + 2 * t + (e & 1);  // key within the tile
+      // with the bias: a fully masked row's -1e30 cancels its lse exactly
+      // (P = 1, as in the reference); without: one fused multiply-add
+      const float x = HAS_BIAS ? sc[4 * j + e] * scale_log2 + bias_tile[c] - lse2[i]
+                               : fmaf(sc[4 * j + e], scale_log2, -lse2[i]);
+      float p = exp2_ftz(x);
+      if constexpr (EDGE) {
+        const int key = k0 + c;
+        if (key >= S || (causal && key > row + 8 * i)) p = 0.f;
+      }
+      ds[e] = p * (dp[4 * j + e] - dlt[i]) * scale;
+    }
+    hopper::pack_a(da, j, ds);
+  }
+}
+
+// P^T and dS^T of one 64 x 64 [key, query] tile of the dK/dV pass into
+// their A operands; the tile's lse (nats) and delta come from its windows.
+// EDGE: the tile crosses the causal diagonal or S; key rows past S are
+// never stored.
+template <bool HAS_BIAS, bool EDGE>
+__device__ __forceinline__ void dkv_tile(const float (&st)[32],
+                                         const float (&dpt)[32],
+                                         uint32_t (&pa)[4][4],
+                                         uint32_t (&da)[4][4],
+                                         const float (&kbias)[2],
+                                         const float* lse_w,
+                                         const float* delta_w,
+                                         float scale_log2, float scale, int q0,
+                                         int key, int t, int S, int causal) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t;  // the first of this lane's two queries
+    // lse in base 2, the product rounded (__fmul_rn: never fused into the
+    // subtraction), so a fully masked row's -1e30 * ln 2 comes back to
+    // exactly the -1e30 its biased scores carry
+    const float l2[2] = {__fmul_rn(lse_w[c], bf16mma::LOG2E),
+                         __fmul_rn(lse_w[c + 1], bf16mma::LOG2E)};
+    const float dl[2] = {delta_w[c], delta_w[c + 1]};
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;  // key row key + 8 i
+      const int u = e & 1;   // query c + u
+      const float x = HAS_BIAS ? st[4 * j + e] * scale_log2 + kbias[i] - l2[u]
+                               : fmaf(st[4 * j + e], scale_log2, -l2[u]);
+      float pv = exp2_ftz(x);
+      if constexpr (EDGE) {
+        const int q = q0 + c + u;
+        if (q >= S || (causal && key + 8 * i > q)) pv = 0.f;
+      }
+      p[e] = pv;
+      ds[e] = pv * (dpt[4 * j + e] - dl[u]) * scale;
+    }
+    hopper::pack_a(pa, j, p);
+    hopper::pack_a(da, j, ds);
+  }
+}
+
+// this thread's two rows (row, row + 8) of a [B, S, H, D] bf16 output from
+// an m64nD accumulator
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2],
+                                           int b, int h, int H, int S, int row,
+                                           int t) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = wrow + g + i * 8;
-    row_lse[i] =
-        r < S ? __fmul_rn(lse[(long long)bh * S + r], m::LOG2E) : 0.f;
-    row_delta[i] = r < S ? delta[(long long)bh * S + r] : 0.f;
-  }
-  m::cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[KD][4], gf[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    m::ldsm_x4(qf[kk], m::a_addr<LDS>(Qs, warp * 16, kk * 16, lane));
-    m::ldsm_x4(gf[kk], m::a_addr<LDS>(dOs, warp * 16, kk * 16, lane));
-  }
-
-  float acc[2 * KD][4];
-#pragma unroll
-  for (int n = 0; n < 2 * KD; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int kend = causal ? min(S, q0 + BR16) : S;
-  const int ntiles = (kend + BKQ16 - 1) / BKQ16;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BKQ16;
-    __syncthreads();  // every warp is done with the previous K and V
-    m::load_tile_async<BKQ16, THREADS16, D>(Ks, kb, st.k_ss, k0, S, tid);
-    m::load_tile_async<BKQ16, THREADS16, D>(Vs, vb, st.v_ss, k0, S, tid);
-    m::cp_async_commit();
-    if constexpr (HAS_BIAS) {
-      if (tid < BKQ16) {
-        Bs[tid] = k0 + tid < S ? bias[(long long)b * S + k0 + tid] : 0.f;
-      }
-    }
-    m::cp_async_wait<0>();
-    __syncthreads();
-    if (causal && k0 > wrow + 15) continue;  // wholly above the warp's rows
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) { s[n][e] = 0.f; dp[n][e] = 0.f; }
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4], bv[4];
-        m::ldsm_x4(bk, m::bt_addr<LDS>(Ks, np * 16, kk * 16, lane));
-        m::ldsm_x4(bv, m::bt_addr<LDS>(Vs, np * 16, kk * 16, lane));
-        m::mma(s[2 * np], qf[kk], bk[0], bk[1]);
-        m::mma(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-        m::mma(dp[2 * np], gf[kk], bv[0], bv[1]);
-        m::mma(dp[2 * np + 1], gf[kk], bv[2], bv[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int r = wrow + g + i * 8;
-        const int c = k0 + n * 8 + 2 * t + (e & 1);
-        const bool visible = r < S && c < S && (!causal || c <= r);
-        float sv = s[n][e] * scale_log2;
-        if constexpr (HAS_BIAS) sv += Bs[c - k0];
-        const float p = visible ? exp2f(sv - row_lse[i]) : 0.f;
-        s[n][e] = p * (dp[n][e] - row_delta[i]) * scale;  // dS
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t da[4];
-      m::a_from_c(da, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dp2 = 0; dp2 < KD; ++dp2) {
-        uint32_t bk[4];
-        m::ldsm_x4_t(bk, m::b_addr_t<LDS>(Ks, kk * 16, dp2 * 16, lane));
-        m::mma(acc[2 * dp2], da, bk[0], bk[1]);
-        m::mma(acc[2 * dp2 + 1], da, bk[2], bk[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = wrow + g + i * 8;
+    const int r = row + 8 * i;
     if (r >= S) continue;
-    bf16* row = dq + (((long long)b * S + r) * H + h) * D;
+    bf16* orow = out + (((long long)b * S + r) * H + h) * D;
 #pragma unroll
-    for (int n = 0; n < 2 * KD; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     }
   }
 }
 
-template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(THREADS16)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const float* __restrict__ bias,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta, Strides st,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                          int S, int causal, float scale) {
-  namespace m = bf16mma;
-  constexpr int LDS = m::Tile<D>::LDS;
-  constexpr int KD = D / 16;  // k-steps over the head dim
-  __shared__ __align__(16) bf16 Ks[BR16 * LDS];
-  __shared__ __align__(16) bf16 Vs[BR16 * LDS];
-  __shared__ __align__(16) bf16 Qs[BQK16 * LDS];
-  __shared__ __align__(16) bf16 dOs[BQK16 * LDS];
-  __shared__ float Ls[BQK16];  // lse of the query tile, base 2
-  __shared__ float Es[BQK16];  // delta of the query tile
+template <int D, bool HAS_BIAS, int NC>
+__global__ void __launch_bounds__(WG16 * (NC + 1), NC == 1 ? 2 : 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_bias,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int H, int S, int causal,
+                         float scale) {
+  namespace hp = hopper;
+  using L = DqLayout<D, HAS_BIAS, NC>;
+  constexpr int BQ = ROWS16 * NC;
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int k0 = blockIdx.x * BR16;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wkey = k0 + warp * 16;  // the warp's first key
-  const float scale_log2 = scale * m::LOG2E;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hp::align_1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + L::DO_OFF);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K_OFF);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
+  float* Bs = reinterpret_cast<float*>(smem + L::BIAS_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES16;
+  uint64_t* own = empty + STAGES16;
 
-  const bf16* qb = q + b * st.q_sb + h * st.q_sh;
-  const bf16* kb = k + b * st.k_sb + h * st.k_sh;
-  const bf16* vb = v + b * st.v_sb + h * st.v_sh;
-  const bf16* dob = dout + b * st.do_sb + h * st.do_sh;
-  m::load_tile_async<BR16, THREADS16, D>(Ks, kb, st.k_ss, k0, S, tid);
-  m::load_tile_async<BR16, THREADS16, D>(Vs, vb, st.v_ss, k0, S, tid);
-  m::cp_async_commit();
-  m::cp_async_wait<0>();
-  __syncthreads();
-  uint32_t kf[KD][4], vf[KD][4];
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last query tile first
+  // causal: keys past the block's last query row are never visible
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int ntiles = (kend + ROWS16 - 1) / ROWS16;
+  const int wg = threadIdx.x / WG16;
+
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    m::ldsm_x4(kf[kk], m::a_addr<LDS>(Ks, warp * 16, kk * 16, lane));
-    m::ldsm_x4(vf[kk], m::a_addr<LDS>(Vs, warp * 16, kk * 16, lane));
+    for (int s = 0; s < STAGES16; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], NC);
+    }
+    hp::mbar_init(own, 1);
+    hp::mbar_fence_init();
   }
+  __syncthreads();
 
-  float dk_acc[2 * KD][4], dv_acc[2 * KD][4];
-#pragma unroll
-  for (int n = 0; n < 2 * KD; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) { dk_acc[n][e] = 0.f; dv_acc[n][e] = 0.f; }
-  float key_bias[2] = {0.f, 0.f};  // this lane's two keys, base 2
-  if constexpr (HAS_BIAS) {
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    hp::reg_dealloc<L::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hp::prefetch_tensormap(&tm_q);
+      hp::prefetch_tensormap(&tm_k);
+      hp::prefetch_tensormap(&tm_v);
+      hp::prefetch_tensormap(&tm_do);
+      if constexpr (HAS_BIAS) hp::prefetch_tensormap(&tm_bias);
+      // the warpgroups' Q and dO boxes that hold a row below S
+      const int nq = min(NC, (S - q0 + ROWS16 - 1) / ROWS16);
+      hp::mbar_arrive_expect_tx(own, 2 * nq * L::TILE);
+      for (int i = 0; i < nq; ++i) {
+        hp::tma_load_4d(Qs + i * ROWS16 * D, &tm_q, own, 0, h, q0 + i * ROWS16, b);
+        hp::tma_load_4d(dOs + i * ROWS16 * D, &tm_do, own, 0, h, q0 + i * ROWS16, b);
+      }
+      for (int kt = 0; kt < ntiles; ++kt) {
+        const int s = kt % STAGES16;
+        // the stage's previous tile released by every consumer
+        if (kt >= STAGES16) hp::mbar_wait(&empty[s], ((kt / STAGES16) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(&full[s], 2 * L::TILE + (HAS_BIAS ? WIN * 4 : 0));
+        hp::tma_load_4d(Ks + s * ROWS16 * D, &tm_k, &full[s], 0, h, kt * ROWS16, b);
+        hp::tma_load_4d(Vs + s * ROWS16 * D, &tm_v, &full[s], 0, h, kt * ROWS16, b);
+        if constexpr (HAS_BIAS) {
+          hp::tma_load_1d(Bs + s * (WIN_BYTES / 4), &tm_bias, &full[s],
+                          (b * S + kt * ROWS16) & ~3);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows a warpgroup ----
+    hp::reg_alloc<L::CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x - wg * WG16;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int r0 = q0 + c * ROWS16;      // the warpgroup's first row
+    const int row = r0 + warp * 16 + g;  // this thread's rows: row, row + 8
+    const uint32_t q_addr = hp::smem_u32(Qs + c * ROWS16 * D);
+    const uint32_t do_addr = hp::smem_u32(dOs + c * ROWS16 * D);
+    const uint32_t k_addr = hp::smem_u32(Ks);
+    const uint32_t v_addr = hp::smem_u32(Vs);
+    const float scale_log2 = scale * bf16mma::LOG2E;
+    // the tiles this warpgroup computes come first: with causal masking,
+    // those that start at or before its last row; it releases the rest
+    const int nact = r0 >= S ? 0
+                     : causal ? min(ntiles, (r0 + ROWS16 - 1) / ROWS16 + 1)
+                              : ntiles;
+
+    // lse in base 2, the product rounded (see dkv_tile), and delta
+    float lse2[2], dlt[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int key = wkey + g + i * 8;
-      if (key < S) key_bias[i] = bias[(long long)b * S + key];
+      const int r = row + 8 * i;
+      const long long at = (long long)blockIdx.x * S + r;
+      lse2[i] = r < S ? __fmul_rn(lse[at], bf16mma::LOG2E) : 0.f;
+      dlt[i] = r < S ? delta[at] : 0.f;
     }
-  }
 
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float sc[ROWS16 / 2], dp[ROWS16 / 2];
+    uint32_t da[ROWS16 / 16][4];
+    if (nact > 0) hp::mbar_wait(own, 0);
+
+    for (int kt = 0; kt < nact; ++kt) {
+      const int s = kt % STAGES16;
+      const int k0 = kt * ROWS16;
+      const uint32_t k_tile = k_addr + s * L::TILE;
+      hp::mbar_wait(&full[s], (kt / STAGES16) & 1);
+      hp::fence();
+      hp::ss_k_major<L::ROW, ROWS16>(sc, q_addr, k_tile);
+      hp::ss_k_major<L::ROW, ROWS16>(dp, do_addr, v_addr + s * L::TILE);
+      hp::commit();
+      hp::wait<0>();
+      hp::fence_operand(sc);
+      hp::fence_operand(dp);
+      // this tile's bias, from its stage's 16-byte aligned window
+      const float* bias_tile = Bs + s * (WIN_BYTES / 4) + ((b * S + k0) & 3);
+      if (k0 + ROWS16 > S || (causal && k0 + ROWS16 - 1 > r0)) {
+        dq_tile<HAS_BIAS, true>(sc, dp, da, lse2, dlt, bias_tile, scale_log2,
+                                scale, k0, row, t, S, causal);
+      } else {
+        dq_tile<HAS_BIAS, false>(sc, dp, da, lse2, dlt, bias_tile, scale_log2,
+                                 scale, k0, row, t, S, causal);
+      }
+      hp::fence();
+      hp::rs_mn_major<L::ROW, ROWS16>(acc, da, k_tile);
+      hp::commit();
+      hp::wait<0>();
+      hp::fence_operand(acc);
+      hp::fence_operand(da);
+      if (tid == 0) hp::mbar_arrive(&empty[s]);  // its products retired
+    }
+    for (int kt = nact; kt < ntiles; ++kt) {  // tiles wholly above its rows
+      const int s = kt % STAGES16;
+      hp::mbar_wait(&full[s], (kt / STAGES16) & 1);
+      if (tid == 0) hp::mbar_arrive(&empty[s]);
+    }
+    store_rows<D>(dq, acc, b, h, H, S, row, t);
+  }
+}
+
+template <int D, bool HAS_BIAS, int NC>
+__global__ void __launch_bounds__(WG16 * (NC + 1), NC == 1 ? 2 : 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_lse,
+                          const __grid_constant__ CUtensorMap tm_delta,
+                          const float* __restrict__ bias,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                          int S, int causal, float scale) {
+  namespace hp = hopper;
+  using L = DkvLayout<D, NC>;
+  constexpr int BK = ROWS16 * NC;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hp::align_1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + L::DO_OFF);
+  float* Ls = reinterpret_cast<float*>(smem + L::LSE_OFF);
+  float* Es = reinterpret_cast<float*>(smem + L::DELTA_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES16;
+  uint64_t* own = empty + STAGES16;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.y * BK;  // first key tile first: the longest blocks
   // causal: query tiles that end before the block's first key see none of it
-  const int qstart = causal ? k0 / BQK16 : 0;
-  const int ntiles = (S + BQK16 - 1) / BQK16;
-  for (int qt = qstart; qt < ntiles; ++qt) {
-    const int q0 = qt * BQK16;
-    __syncthreads();  // every warp is done with the previous Q, dO, Ls, Es
-    m::load_tile_async<BQK16, THREADS16, D>(Qs, qb, st.q_ss, q0, S, tid);
-    m::load_tile_async<BQK16, THREADS16, D>(dOs, dob, st.do_ss, q0, S, tid);
-    m::cp_async_commit();
-    if (tid < BQK16) {
-      const int r = q0 + tid;
-      Ls[tid] =
-          r < S ? __fmul_rn(lse[(long long)bh * S + r], m::LOG2E) : 0.f;
-      Es[tid] = r < S ? delta[(long long)bh * S + r] : 0.f;
-    }
-    m::cp_async_wait<0>();
-    __syncthreads();
-    if (causal && q0 + BQK16 - 1 < wkey) continue;  // sees none of our keys
+  const int qstart = causal ? k0 / ROWS16 : 0;
+  const int ntiles = (S + ROWS16 - 1) / ROWS16 - qstart;
+  const int wg = threadIdx.x / WG16;
 
-    float sp[4][4], dsp[4][4];  // P^T then; dP^T, then dS^T
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) { sp[n][e] = 0.f; dsp[n][e] = 0.f; }
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bq[4], bg[4];
-        m::ldsm_x4(bq, m::bt_addr<LDS>(Qs, np * 16, kk * 16, lane));
-        m::ldsm_x4(bg, m::bt_addr<LDS>(dOs, np * 16, kk * 16, lane));
-        m::mma(sp[2 * np], kf[kk], bq[0], bq[1]);
-        m::mma(sp[2 * np + 1], kf[kk], bq[2], bq[3]);
-        m::mma(dsp[2 * np], vf[kk], bg[0], bg[1]);
-        m::mma(dsp[2 * np + 1], vf[kk], bg[2], bg[3]);
-      }
+    for (int s = 0; s < STAGES16; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], NC);
     }
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = wkey + g + (e >> 1) * 8;
-        const int qc = n * 8 + 2 * t + (e & 1);
-        const int r = q0 + qc;  // query
-        const bool visible = r < S && key < S && (!causal || key <= r);
-        float sv = sp[n][e] * scale_log2;
-        if constexpr (HAS_BIAS) sv += key_bias[e >> 1];
-        const float p = visible ? exp2f(sv - Ls[qc]) : 0.f;
-        sp[n][e] = p;
-        dsp[n][e] = p * (dsp[n][e] - Es[qc]) * scale;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      uint32_t pa[4], da[4];
-      m::a_from_c(pa, sp[2 * kk], sp[2 * kk + 1]);
-      m::a_from_c(da, dsp[2 * kk], dsp[2 * kk + 1]);
-#pragma unroll
-      for (int dp2 = 0; dp2 < KD; ++dp2) {
-        uint32_t bg[4], bq[4];
-        m::ldsm_x4_t(bg, m::b_addr_t<LDS>(dOs, kk * 16, dp2 * 16, lane));
-        m::ldsm_x4_t(bq, m::b_addr_t<LDS>(Qs, kk * 16, dp2 * 16, lane));
-        m::mma(dv_acc[2 * dp2], pa, bg[0], bg[1]);
-        m::mma(dv_acc[2 * dp2 + 1], pa, bg[2], bg[3]);
-        m::mma(dk_acc[2 * dp2], da, bq[0], bq[1]);
-        m::mma(dk_acc[2 * dp2 + 1], da, bq[2], bq[3]);
-      }
-    }
+    hp::mbar_init(own, 1);
+    hp::mbar_fence_init();
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = wkey + g + i * 8;
-    if (key >= S) continue;
-    const long long off = (((long long)b * S + key) * H + h) * D;
-#pragma unroll
-    for (int n = 0; n < 2 * KD; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    hp::reg_dealloc<L::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hp::prefetch_tensormap(&tm_q);
+      hp::prefetch_tensormap(&tm_k);
+      hp::prefetch_tensormap(&tm_v);
+      hp::prefetch_tensormap(&tm_do);
+      hp::prefetch_tensormap(&tm_lse);
+      hp::prefetch_tensormap(&tm_delta);
+      // the warpgroups' K and V boxes that hold a key below S
+      const int nk = min(NC, (S - k0 + ROWS16 - 1) / ROWS16);
+      hp::mbar_arrive_expect_tx(own, 2 * nk * L::TILE);
+      for (int i = 0; i < nk; ++i) {
+        hp::tma_load_4d(Ks + i * ROWS16 * D, &tm_k, own, 0, h, k0 + i * ROWS16, b);
+        hp::tma_load_4d(Vs + i * ROWS16 * D, &tm_v, own, 0, h, k0 + i * ROWS16, b);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % STAGES16;
+        const int q0 = (qstart + it) * ROWS16;
+        if (it >= STAGES16) hp::mbar_wait(&empty[s], ((it / STAGES16) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(&full[s], 2 * L::TILE + 2 * WIN * 4);
+        hp::tma_load_4d(Qs + s * ROWS16 * D, &tm_q, &full[s], 0, h, q0, b);
+        hp::tma_load_4d(dOs + s * ROWS16 * D, &tm_do, &full[s], 0, h, q0, b);
+        const int w0 = (bh * S + q0) & ~3;
+        hp::tma_load_1d(Ls + s * (WIN_BYTES / 4), &tm_lse, &full[s], w0);
+        hp::tma_load_1d(Es + s * (WIN_BYTES / 4), &tm_delta, &full[s], w0);
+      }
     }
+  } else {
+    // ---- consumers: 64 keys a warpgroup ----
+    hp::reg_alloc<L::CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x - wg * WG16;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int kk0 = k0 + c * ROWS16;     // the warpgroup's first key
+    const int key = kk0 + warp * 16 + g; // this thread's keys: key, key + 8
+    const uint32_t k_addr = hp::smem_u32(Ks + c * ROWS16 * D);
+    const uint32_t v_addr = hp::smem_u32(Vs + c * ROWS16 * D);
+    const uint32_t q_addr = hp::smem_u32(Qs);
+    const uint32_t do_addr = hp::smem_u32(dOs);
+    const float scale_log2 = scale * bf16mma::LOG2E;
+    // with causal masking the first c tiles end before the warpgroup's
+    // first key: it releases them, then computes the rest
+    const int skip = kk0 >= S ? ntiles : causal ? c : 0;
+
+    float kbias[2] = {0.f, 0.f};  // this thread's keys' bias, base 2
+    if constexpr (HAS_BIAS) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (key + 8 * i < S) kbias[i] = bias[(long long)b * S + key + 8 * i];
+      }
+    }
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      dk_acc[i] = 0.f;
+      dv_acc[i] = 0.f;
+    }
+    float st[ROWS16 / 2], dpt[ROWS16 / 2];
+    uint32_t pa[ROWS16 / 16][4], da[ROWS16 / 16][4];
+
+    for (int it = 0; it < skip; ++it) {
+      const int s = it % STAGES16;
+      hp::mbar_wait(&full[s], (it / STAGES16) & 1);
+      if (tid == 0) hp::mbar_arrive(&empty[s]);
+    }
+    if (skip < ntiles) hp::mbar_wait(own, 0);
+    for (int it = skip; it < ntiles; ++it) {
+      const int s = it % STAGES16;
+      const int q0 = (qstart + it) * ROWS16;
+      const uint32_t q_tile = q_addr + s * L::TILE;
+      const uint32_t do_tile = do_addr + s * L::TILE;
+      hp::mbar_wait(&full[s], (it / STAGES16) & 1);
+      hp::fence();
+      hp::ss_k_major<L::ROW, ROWS16>(st, k_addr, q_tile);
+      hp::ss_k_major<L::ROW, ROWS16>(dpt, v_addr, do_tile);
+      hp::commit();
+      hp::wait<0>();
+      hp::fence_operand(st);
+      hp::fence_operand(dpt);
+      const int off = (bh * S + q0) & 3;  // the tile's start in its windows
+      const float* lse_w = Ls + s * (WIN_BYTES / 4) + off;
+      const float* delta_w = Es + s * (WIN_BYTES / 4) + off;
+      if (q0 + ROWS16 > S || (causal && q0 < kk0 + ROWS16 - 1)) {
+        dkv_tile<HAS_BIAS, true>(st, dpt, pa, da, kbias, lse_w, delta_w,
+                                 scale_log2, scale, q0, key, t, S, causal);
+      } else {
+        dkv_tile<HAS_BIAS, false>(st, dpt, pa, da, kbias, lse_w, delta_w,
+                                  scale_log2, scale, q0, key, t, S, causal);
+      }
+      hp::fence();
+      hp::rs_mn_major<L::ROW, ROWS16>(dv_acc, pa, do_tile);
+      hp::rs_mn_major<L::ROW, ROWS16>(dk_acc, da, q_tile);
+      hp::commit();
+      hp::wait<0>();
+      hp::fence_operand(dv_acc);
+      hp::fence_operand(dk_acc);
+      hp::fence_operand(pa);
+      hp::fence_operand(da);
+      if (tid == 0) hp::mbar_arrive(&empty[s]);  // its products retired
+    }
+    store_rows<D>(dk, dk_acc, b, h, H, S, key, t);
+    store_rows<D>(dv, dv_acc, b, h, H, S, key, t);
   }
+}
+
+// Rows a block owns in pass `pass` (0: dQ, 1: dK/dV): 192 (dQ only), 128
+// or 64 (see the note above)
+int bwd_bf16_block_rows(int pass, int B, int H, int S) {
+  return hopper::block_rows(B, H, S, pass == 0 ? 192 : 128);
+}
+
+// the four [B, S, H, D] maps of a call (q, k, v, dO: 64-row boxes)
+template <int D>
+bool encode_operands(CUtensorMap* maps, const void* q, const void* k,
+                     const void* v, const void* dout, const Strides& st, int B,
+                     int H, int S) {
+  using hopper::encode_rows;
+  return encode_rows<D>(&maps[0], q, st.q_sb, st.q_ss, st.q_sh, B, H, S, ROWS16) &&
+         encode_rows<D>(&maps[1], k, st.k_sb, st.k_ss, st.k_sh, B, H, S, ROWS16) &&
+         encode_rows<D>(&maps[2], v, st.v_sb, st.v_ss, st.v_sh, B, H, S, ROWS16) &&
+         encode_rows<D>(&maps[3], dout, st.do_sb, st.do_ss, st.do_sh, B, H, S,
+                        ROWS16);
+}
+
+template <int D, bool HAS_BIAS, int NC>
+int launch_dq_bf16_as(const CUtensorMap (&maps)[5], const float* lse,
+                      const float* delta, void* dq, int B, int H, int S,
+                      int causal, float scale, cudaStream_t stream) {
+  using L = DqLayout<D, HAS_BIAS, NC>;
+  const auto kernel = flash_bwd_dq_bf16_kernel<D, HAS_BIAS, NC>;
+  static unsigned long long configured = 0;  // a bit per device
+  const cudaError_t err = hopper::configure_once(kernel, L::BYTES, L::THREADS,
+                                                 L::POOL, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + ROWS16 * NC - 1) / (ROWS16 * NC));
+  kernel<<<grid, L::THREADS, L::BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], lse, delta,
+      static_cast<bf16*>(dq), H, S, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool HAS_BIAS, int NC>
+int launch_dkv_bf16_as(const CUtensorMap (&maps)[6], const float* bias,
+                       void* dk, void* dv, int B, int H, int S, int causal,
+                       float scale, cudaStream_t stream) {
+  using L = DkvLayout<D, NC>;
+  const auto kernel = flash_bwd_dkv_bf16_kernel<D, HAS_BIAS, NC>;
+  static unsigned long long configured = 0;  // a bit per device
+  const cudaError_t err = hopper::configure_once(kernel, L::BYTES, L::THREADS,
+                                                 L::POOL, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + ROWS16 * NC - 1) / (ROWS16 * NC));
+  kernel<<<grid, L::THREADS, L::BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], bias,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, causal, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -825,20 +1096,23 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const float* delta, const Strides& st, void* dq, int B,
                    int H, int S, int causal, float scale,
                    cudaStream_t stream) {
-  const dim3 grid((S + BR16 - 1) / BR16, B * H);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dop = static_cast<const bf16*>(dout);
-  bf16* dqp = static_cast<bf16*>(dq);
+  CUtensorMap maps[5];
+  memset(&maps[4], 0, sizeof(CUtensorMap));
+  bool ok = encode_operands<D>(maps, q, k, v, dout, st, B, H, S);
   if (bias != nullptr) {
-    flash_bwd_dq_bf16_kernel<D, true><<<grid, THREADS16, 0, stream>>>(
-        qp, kp, vp, bias, dop, lse, delta, st, dqp, H, S, causal, scale);
-  } else {
-    flash_bwd_dq_bf16_kernel<D, false><<<grid, THREADS16, 0, stream>>>(
-        qp, kp, vp, bias, dop, lse, delta, st, dqp, H, S, causal, scale);
+    // the [B, S] bias as one run of B*S floats: a tile of row b starts at
+    // b*S + k0, its window 0-3 floats before
+    ok = ok && hopper::encode_window(&maps[4], bias, (long long)B * S, WIN);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = bwd_bf16_block_rows(0, B, H, S) / ROWS16;
+  const bool has_bias = bias != nullptr;
+#define DQ_AS(HB, NC_) \
+  launch_dq_bf16_as<D, HB, NC_>(maps, lse, delta, dq, B, H, S, causal, scale, stream)
+  if (nc == 3) return has_bias ? DQ_AS(true, 3) : DQ_AS(false, 3);
+  if (nc == 2) return has_bias ? DQ_AS(true, 2) : DQ_AS(false, 2);
+  return has_bias ? DQ_AS(true, 1) : DQ_AS(false, 1);
+#undef DQ_AS
 }
 
 template <int D>
@@ -847,27 +1121,27 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const float* delta, const Strides& st, void* dk, void* dv,
                     int B, int H, int S, int causal, float scale,
                     cudaStream_t stream) {
-  const dim3 grid((S + BR16 - 1) / BR16, B * H);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dop = static_cast<const bf16*>(dout);
-  bf16* dkp = static_cast<bf16*>(dk);
-  bf16* dvp = static_cast<bf16*>(dv);
-  if (bias != nullptr) {
-    flash_bwd_dkv_bf16_kernel<D, true><<<grid, THREADS16, 0, stream>>>(
-        qp, kp, vp, bias, dop, lse, delta, st, dkp, dvp, H, S, causal, scale);
-  } else {
-    flash_bwd_dkv_bf16_kernel<D, false><<<grid, THREADS16, 0, stream>>>(
-        qp, kp, vp, bias, dop, lse, delta, st, dkp, dvp, H, S, causal, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap maps[6];
+  // lse and delta, [B, H, S] each, as runs of B*H*S floats: a query tile of
+  // head bh starts at bh*S + q0, its window 0-3 floats before
+  const long long n = (long long)B * H * S;
+  const bool ok = encode_operands<D>(maps, q, k, v, dout, st, B, H, S) &&
+                  hopper::encode_window(&maps[4], lse, n, WIN) &&
+                  hopper::encode_window(&maps[5], delta, n, WIN);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = bwd_bf16_block_rows(1, B, H, S) / ROWS16;
+  const bool has_bias = bias != nullptr;
+#define DKV_AS(HB, NC_) \
+  launch_dkv_bf16_as<D, HB, NC_>(maps, bias, dk, dv, B, H, S, causal, scale, stream)
+  if (nc == 2) return has_bias ? DKV_AS(true, 2) : DKV_AS(false, 2);
+  return has_bias ? DKV_AS(true, 1) : DKV_AS(false, 1);
+#undef DKV_AS
 }
 
 }  // namespace
 
 // strides: 12 values, (batch, seq, head) for q, k, v and dO in that order;
-// bias: [B, S] f32 or null.
+// bias: [B, S] f32 or null.  lse and delta: [B, H, S] f32, 16-byte aligned.
 extern "C" int flash_attention_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const float* bias,
     const void* dout,
@@ -912,4 +1186,42 @@ extern "C" int flash_attention_bwd_dkv_bf16(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The rows a block of the bf16 backward's pass `pass` (0: dQ, 1: dK/dV)
+// owns at (B, H, S) on the current device: 192, 128 or 64 (see
+// bwd_bf16_block_rows).
+extern "C" int flash_attention_bwd_bf16_block_rows(int pass, int B, int H,
+                                                   int S) {
+  return bwd_bf16_block_rows(pass, B, H, S);
+}
+
+// Dynamic shared memory, in bytes, of a bf16 backward instance: pass 0 the
+// dQ pass, 1 the dK/dV pass, head dim D, with or without the bias, at
+// `rows` owned rows a block; -1 if there is no such instance.
+extern "C" int flash_attention_bwd_bf16_smem_bytes(int pass, int D,
+                                                   int has_bias, int rows) {
+  const int nc = rows / ROWS16;
+  if (rows % ROWS16 != 0 || nc < 1 || nc > (pass == 0 ? 3 : 2) ||
+      (pass != 0 && pass != 1) || (D != 16 && D != 32 && D != 64)) {
+    return -1;
+  }
+  const int di = D == 16 ? 0 : D == 32 ? 1 : 2;
+  if (pass == 1) {
+    const int dkv[3][2] = {{DkvLayout<16, 1>::BYTES, DkvLayout<16, 2>::BYTES},
+                           {DkvLayout<32, 1>::BYTES, DkvLayout<32, 2>::BYTES},
+                           {DkvLayout<64, 1>::BYTES, DkvLayout<64, 2>::BYTES}};
+    return dkv[di][nc - 1];
+  }
+  const int dq[3][3][2] = {
+      {{DqLayout<16, false, 1>::BYTES, DqLayout<16, true, 1>::BYTES},
+       {DqLayout<16, false, 2>::BYTES, DqLayout<16, true, 2>::BYTES},
+       {DqLayout<16, false, 3>::BYTES, DqLayout<16, true, 3>::BYTES}},
+      {{DqLayout<32, false, 1>::BYTES, DqLayout<32, true, 1>::BYTES},
+       {DqLayout<32, false, 2>::BYTES, DqLayout<32, true, 2>::BYTES},
+       {DqLayout<32, false, 3>::BYTES, DqLayout<32, true, 3>::BYTES}},
+      {{DqLayout<64, false, 1>::BYTES, DqLayout<64, true, 1>::BYTES},
+       {DqLayout<64, false, 2>::BYTES, DqLayout<64, true, 2>::BYTES},
+       {DqLayout<64, false, 3>::BYTES, DqLayout<64, true, 3>::BYTES}}};
+  return dq[di][nc - 1][has_bias ? 1 : 0];
 }

@@ -390,36 +390,7 @@ struct FwdLayout {
   static constexpr int POOL = WG * (PRODUCER_REGS + NC * CONSUMER_REGS);
 };
 
-// 2^x on the SFU; subnormal results flush to 0 (they are below any bf16 P
-// or l that matters: < 2^-126 of the row's largest term)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S = Q K^T of one tile into sc: D / 16 k-steps, issued, not committed
-template <int ROW>
-__device__ __forceinline__ void issue_s(float (&sc)[BKW / 2], uint32_t q_addr,
-                                        uint32_t k_tile) {
-#pragma unroll
-  for (int kk = 0; kk < ROW / 32; ++kk) {
-    hopper::WgmmaSS<BKW>::run(sc, hopper::desc_k_major<ROW>(q_addr + 32 * kk),
-                              hopper::desc_k_major<ROW>(k_tile + 32 * kk), kk);
-  }
-}
-
-// O += P V of one tile: BKW / 16 k-steps, issued, not committed
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&pa)[BKW / 16][4],
-                                         uint32_t v_tile) {
-#pragma unroll
-  for (int kk = 0; kk < BKW / 16; ++kk) {
-    hopper::WgmmaRS<D>::run(
-        acc, pa[kk], hopper::desc_mn_major<D * 2>(v_tile + kk * 16 * D * 2), 1);
-  }
-}
+using hopper::exp2_ftz;
 
 // scale, bias and mask one 64 x BKW score tile in registers
 // (EDGE: the tile crosses the causal diagonal or S) and take its row
@@ -451,7 +422,7 @@ __device__ __forceinline__ void scale_mask(float (&sc)[BKW / 2],
 // The online softmax of one scored tile: new row maxima (corr rescales
 // what came before, 0 on the first tile), P = exp2(S - m) in f32 summed
 // into this lane's share of l, and P rounded pairwise into the A operand
-// of k-step j / 2 (bf16mma::a_from_c's order).  Without a bias the scores
+// of k-step j / 2 (the order in hopper.cuh).  Without a bias the scores
 // stay unscaled until the fused multiply-add of each exponent.
 template <bool HAS_BIAS>
 __device__ __forceinline__ void softmax_tile(
@@ -492,8 +463,7 @@ __device__ __forceinline__ void softmax_tile(
                            : sc[4 * j + e] - m);
       lrow[e >> 1] += p[e];
     }
-    pa[j >> 1][(j & 1) * 2] = bf16mma::pack(p[0], p[1]);
-    pa[j >> 1][(j & 1) * 2 + 1] = bf16mma::pack(p[2], p[3]);
+    hopper::pack_a(pa, j, p);
   }
 }
 
@@ -516,7 +486,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int BQ = QROWS * NC;
 
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* smem = hp::align_1024(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = reinterpret_cast<bf16*>(smem + L::K_OFF);
   bf16* Vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
@@ -611,7 +581,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = kt % STAGES;
       hp::mbar_wait(&full[s], (kt / STAGES) & 1);
       hp::fence();
-      issue_s<L::ROW>(sc, q_addr, k_addr + s * L::KV_TILE);
+      hp::ss_k_major<L::ROW, BKW>(sc, q_addr, k_addr + s * L::KV_TILE);
       hp::commit();
       hp::wait<0>();
       hp::fence_operand(sc);
@@ -619,7 +589,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                              scale_log2, kt * BKW, r0, row, t, S, causal);
       rescale(acc, corr);
       hp::fence();
-      issue_pv<D>(acc, pa, v_addr + s * L::KV_TILE);
+      hp::rs_mn_major<L::ROW, BKW>(acc, pa, v_addr + s * L::KV_TILE);
       hp::commit();
       hp::wait<0>();
       hp::fence_operand(acc);
@@ -654,32 +624,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// Query rows a block: 192 when that grid gives every SM four blocks, 128
-// when it gives every SM one, else 64 (see the note above)
+// Query rows a block: 192, 128 or 64 (see the note above)
 int fwd_bf16_block_rows(int B, int H, int S) {
-  int dev = 0;
-  int sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess) {
-    return 64;
-  }
-  const long long heads = (long long)B * H;
-  if (heads * ((S + 191) / 192) >= 4LL * sms) return 192;
-  return heads * ((S + 127) / 128) >= sms ? 128 : 64;
-}
-
-// A TMA map over a strided [B, S, H, D] bf16 view (strides in elements):
-// dims (D, H, S, B), boxes of `rows` rows of one head, swizzled to the row
-template <int D>
-bool encode_rows(CUtensorMap* map, const void* base, long long sb,
-                 long long ss, long long sh, int B, int H, int S, int rows) {
-  const cuuint64_t dims[4] = {D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {D, 1, (cuuint32_t)rows, 1};
-  return hopper::encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base,
-                              dims, strides, box, hopper::swizzle_for(D * 2));
+  return hopper::block_rows(B, H, S, 192);
 }
 
 template <int D, bool HAS_BIAS, int NC>
@@ -689,21 +636,9 @@ int launch_fwd_bf16_as(const CUtensorMap (&maps)[4], void* o, float* lse,
   using L = FwdLayout<D, HAS_BIAS, NC>;
   const auto kernel = flash_fwd_bf16_kernel<D, HAS_BIAS, NC>;
   static unsigned long long configured = 0;  // a bit per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = hopper::configure_once(kernel, L::BYTES, L::THREADS,
+                                                 L::POOL, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!((configured >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (attr.numRegs * L::THREADS < L::POOL) {
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-    }
-    configured |= 1ull << dev;
-  }
   const dim3 grid(B * H, (S + QROWS * NC - 1) / (QROWS * NC));
   kernel<<<grid, L::THREADS, L::BYTES, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(o), lse, H, S,
@@ -721,6 +656,7 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v,
                     cudaStream_t stream) {
   CUtensorMap maps[4];
   memset(&maps[3], 0, sizeof(CUtensorMap));
+  using hopper::encode_rows;
   bool ok = encode_rows<D>(&maps[0], q, q_sb, q_ss, q_sh, B, H, S, QROWS) &&
             encode_rows<D>(&maps[1], k, k_sb, k_ss, k_sh, B, H, S, BKW) &&
             encode_rows<D>(&maps[2], v, v_sb, v_ss, v_sh, B, H, S, BKW);
@@ -728,12 +664,7 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v,
     // the [B, S] bias as one run of B*S floats: a tile of row b starts at
     // b*S + k0, its window 0-3 floats before; values past S belong to
     // masked keys, past B*S read as 0
-    const cuuint64_t dims[1] = {(cuuint64_t)B * S};
-    const cuuint64_t strides[1] = {0};
-    const cuuint32_t box[1] = {BIAS_BOX};
-    ok = ok && hopper::encode_tiled(&maps[3], CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                                    1, bias, dims, strides, box,
-                                    CU_TENSOR_MAP_SWIZZLE_NONE);
+    ok = ok && hopper::encode_window(&maps[3], bias, (long long)B * S, BIAS_BOX);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = fwd_bf16_block_rows(B, H, S);

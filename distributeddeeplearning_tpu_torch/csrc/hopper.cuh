@@ -1,9 +1,9 @@
 // Hopper building blocks for the port's tensor-core kernels, sm_90a:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and products,
 // register rebalancing between warpgroups, and the host-side encoding of
-// TMA tensor maps.  The bf16 flash-attention forward
-// (flash_attention_fwd.cu) is built from them; the backward's redesign is
-// meant to include this header too.
+// TMA tensor maps and per-device launch set-up.  The bf16 flash-attention
+// forward (flash_attention_fwd.cu) and backward (flash_attention_bwd.cu)
+// are built from them.
 //
 // Shared-memory tiles.  A TMA tile load with a swizzle writes a box of
 // rows of ROW bytes (the head dim D in bf16: 32, 64 or 128 bytes) into
@@ -23,8 +23,10 @@
 // operand (n contiguous: V in O = P V, read with the transpose bit) the
 // step between 8-row groups along k is again 8 * ROW bytes; the N extent
 // (D) is one swizzle atom wide, so the other offset is never stepped
-// across; both are set to 8 * ROW.  A k-step of 16 keys advances the start
-// by 16 * ROW bytes.
+// across; both are set to 8 * ROW.  A k-step of 16 rows advances the start
+// by 16 * ROW bytes.  One tile of [rows][D] can so feed a K-major product
+// (contracting over D) and an MN-major one (contracting over its rows):
+// the backward reads K, Q and dO both ways.
 //
 // Accumulators.  An m64nN f32 accumulator gives each of the warpgroup's
 // 128 threads N / 2 floats: warp w holds rows 16w..16w+15 and, with
@@ -32,7 +34,8 @@
 // column 8j + 2t + (e & 1)) -- mma.sync's m16n8 C tile j.  The register A
 // operand of m64nNk16 has mma.sync's m16k16 A layout per warp, so a score
 // accumulator rounded pairwise to bf16 is the A operand of the next
-// product (bf16mma::pack, in the order of bf16mma::a_from_c).
+// product: k-step j / 2 takes bf16mma::pack of (d[4j], d[4j+1]) and of
+// (d[4j+2], d[4j+3]) into registers 2 (j & 1) and 2 (j & 1) + 1.
 //
 // Ordering.  wgmma runs asynchronously to the issuing threads: fence()
 // before a product whose accumulator or A registers were written by
@@ -47,10 +50,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
+
 namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte boundary at or after p in shared memory (swizzled
+// tiles start on one; dynamic shared memory is allocated 1024 bytes over)
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // ---- mbarriers --------------------------------------------------------------
@@ -200,6 +211,20 @@ template <int N>
 struct WgmmaRS;
 
 template <>
+struct WgmmaSS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaSS<128> {
   static __device__ __forceinline__ void run(float (&d)[64], uint64_t a,
                                              uint64_t b, int scale_d) {
@@ -257,6 +282,51 @@ struct WgmmaRS<64> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
+
+
+// d = A B^T for a 64-row A tile and an N-row B tile, both K-major [rows][D]
+// tiles of ROW-byte rows at shared addresses a and b: D / 16 k-steps,
+// issued, not committed (the first overwrites d)
+template <int ROW, int N>
+__device__ __forceinline__ void ss_k_major(float (&d)[N / 2], uint32_t a,
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < ROW / 32; ++kk) {
+    WgmmaSS<N>::run(d, desc_k_major<ROW>(a + 32 * kk),
+                    desc_k_major<ROW>(b + 32 * kk), kk);
+  }
+}
+
+// d += A B for A in registers (K / 16 k-steps of m64k16) and B a [K][D]
+// tile of ROW-byte rows at shared address b, read MN-major: issued, not
+// committed
+template <int ROW, int K>
+__device__ __forceinline__ void rs_mn_major(float (&d)[ROW / 4],
+                                            const uint32_t (&a)[K / 16][4],
+                                            uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    WgmmaRS<ROW / 2>::run(d, a[kk], desc_mn_major<ROW>(b + kk * 16 * ROW), 1);
+  }
+}
+
+// The four values x of n-tile j of an m64 f32 accumulator (d[4j..4j+3]),
+// rounded pairwise to bf16 into the register A operand of k-step j / 2
+// (the layout in the note at the top)
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K][4], int j,
+                                       const float (&x)[4]) {
+  a[j >> 1][(j & 1) * 2] = bf16mma::pack(x[0], x[1]);
+  a[j >> 1][(j & 1) * 2 + 1] = bf16mma::pack(x[2], x[3]);
+}
+
+// 2^x on the SFU; subnormal results flush to 0 (they are below any bf16
+// operand or f32 sum that matters: < 2^-126 of the row's largest term)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 
 // ---- register rebalancing between warpgroups ---------------------------------------
@@ -321,6 +391,74 @@ inline CUtensorMapSwizzle swizzle_for(int row_bytes) {
   return row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
          : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                            : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// A TMA map over a strided [B, S, H, D] bf16 view (strides in elements):
+// dims (D, H, S, B), boxes of `rows` rows of one head, swizzled to the row
+template <int D>
+inline bool encode_rows(CUtensorMap* map, const void* base, long long sb,
+                        long long ss, long long sh, int B, int H, int S,
+                        int rows) {
+  const cuuint64_t dims[4] = {D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {D, 1, (cuuint32_t)rows, 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                      strides, box, swizzle_for(D * 2));
+}
+
+// A TMA map over `n` contiguous f32 values as one run, boxes of `box`
+// values (a window: a box must start on 16 bytes, so a kernel loads the
+// box from `x & ~3` for a run starting at x, and reads from (x & 3) on;
+// values past n read as 0)
+inline bool encode_window(CUtensorMap* map, const float* base, long long n,
+                          int box) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, base, dims,
+                      strides, boxes, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// Once per device (a bit of `configured` each): raise `kernel`'s dynamic
+// shared-memory limit to `smem` bytes and check that its launch register
+// count, over `threads` threads, covers the `pool` registers its
+// setmaxnreg counts add up to -- else cudaErrorInvalidConfiguration, as
+// setmaxnreg.inc would wait forever on a short pool.
+template <typename Kernel>
+inline cudaError_t configure_once(Kernel kernel, int smem, int threads,
+                                  int pool, unsigned long long& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || ((configured >> dev) & 1ull)) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * threads < pool) return cudaErrorInvalidConfiguration;
+  configured |= 1ull << dev;
+  return cudaSuccess;
+}
+
+// Rows a block of the warp-specialised attention kernels owns (64 a
+// consumer warpgroup) over B * H heads of S rows: 192 when that grid
+// gives every SM four blocks (and max_rows allows), 128 when it gives
+// every SM one, else 64 -- more rows share each streamed tile among more
+// warpgroups, fewer spread short sequences over more SMs; 64 if the SM
+// count cannot be read.
+inline int block_rows(int B, int H, int S, int max_rows) {
+  int dev = 0;
+  int sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 64;
+  }
+  const long long heads = (long long)B * H;
+  if (max_rows >= 192 && heads * ((S + 191) / 192) >= 4LL * sms) return 192;
+  return heads * ((S + 127) / 128) >= sms ? 128 : 64;
 }
 
 }  // namespace hopper

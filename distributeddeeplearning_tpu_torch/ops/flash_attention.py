@@ -10,7 +10,8 @@ launched by ``_flash_bwd_pallas``).  Causal or not, head dim 16, 32 or 64
 geometries), any sequence length, in either of the two dtypes the Pallas
 kernels run:
 float32 (SIMT kernels, full f32 arithmetic) or bfloat16 (tensor-core
-kernels, bf16 operands with f32 accumulation).  The dtype picks the entry
+kernels on ``wgmma`` with TMA-fed tiles, bf16 operands with f32
+accumulation).  The dtype picks the entry
 point; all operands share it.  On CPU tensors the same code runs the
 kernels' plain versions: :func:`_dense_attention` (the reference's
 ``_dense_attention`` extended to return the log-sum-exp in nats) and
@@ -127,6 +128,15 @@ def bf16_block_rows(b: int, h: int, s: int) -> int:
     return int(fn(b, h, s))
 
 
+def bf16_bwd_block_rows(kind: str, b: int, h: int, s: int) -> int:
+    """The rows a block of the bf16 backward's pass ``kind`` ("dq": query
+    rows, 192, 128 or 64; "dkv": key rows, 128 or 64) owns at (B, H, S) on
+    the current CUDA device, by the launcher's rule in
+    ``csrc/flash_attention_bwd.cu`` (``bwd_bf16_block_rows``)."""
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_bf16_block_rows
+    return int(fn(("dq", "dkv").index(kind), b, h, s))
+
+
 def _count(kind: str, dtype: torch.dtype, has_bias: bool) -> None:
     """One more launch of pass ``kind`` in ``dtype`` (bias variant or not)."""
     counter = (_PASSES[kind][3] + ("_bias" if has_bias else "")
@@ -219,8 +229,8 @@ def _check_operand(name: str, t: torch.Tensor, shape, dtype) -> None:
         )
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"flash_attention: {name} shape {tuple(t.shape)} != {shape}")
-    # 16-byte rows: float4 loads (f32), cp.async / ldmatrix (bf16 backward)
-    # and the bf16 forward's TMA tensor maps (16-byte base and strides)
+    # 16-byte rows: float4 loads (f32) and the bf16 kernels' TMA tensor
+    # maps (16-byte base and strides)
     if t.stride(3) != 1 or any(st * t.element_size() % 16 for st in t.stride()[:3]):
         raise ValueError(
             f"flash_attention: {name} needs a contiguous head dim and "
@@ -290,13 +300,14 @@ def _bwd_launch(kind, q, k, v, do, lse, delta, outs, *, causal: bool, bias):
     _check_inputs(q=q, k=k, v=v, do=do)
     b, s, h, d = q.shape
     _check_bias(bias, b, s, q.device)
+    # lse and delta: the bf16 dK/dV pass loads them by TMA (16-byte base)
     for label, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s) or (
-            not t.is_contiguous() or t.device != q.device
+            not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16
         ):
             raise ValueError(
-                f"flash_attention: {label} must be contiguous f32 [{b}, {h}, "
-                f"{s}] on {q.device}"
+                f"flash_attention: {label} must be contiguous, 16-byte aligned "
+                f"f32 [{b}, {h}, {s}] on {q.device}"
             )
     strides = (ctypes.c_longlong * 12)(
         *(x.stride(i) for x in (q, k, v, do) for i in range(3))

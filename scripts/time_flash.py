@@ -1,7 +1,7 @@
 """Time the flash-attention kernels of one checkout of the PyTorch port on
 one card.
 
-    python3 scripts/time_flash.py [--root DIR] [--tag NAME]
+    python3 scripts/time_flash.py [--root DIR] [--tag NAME] [--only bf16_bwd]
 
 ``--root`` is the directory that holds ``distributeddeeplearning_tpu_torch``
 (default: the checkout this script lies in), so that two checkouts can be
@@ -22,9 +22,19 @@ interleaved (A, B, B, A) and compare only times taken together.  Rows:
   (``chip_smoke.HEADDIM_GEOMETRY``'s shapes, causal).  Where the
   checkout's forward library has it, each entry also gives
   ``block_rows``, the query rows a block its launcher picks;
+- ``bf16_bwd``: bf16 K2 (dQ) and K3 (dK/dV) at ``bf16_k1``'s shapes
+  but ``prefill`` (:data:`BWD_ROWS`), each row with ``dq_ms``,
+  ``dkv_ms``, their sum, ``delta_ms`` (the wrapper's rowsum(dO * O), so
+  that ``whole_ms`` is the port's whole backward), ``library_ms`` (autograd
+  through one SDPA call, its whole backward), both bounds
+  (``chip_smoke.bound_ms`` at 6 D and 8 D flops a visible pair), each
+  pass's TFLOP/s and, where the checkout's backward library has it,
+  ``block_rows`` (the rows a block owns, per pass);
 - ``encode_us``: the host time of one TMA tensor-map encode, three of
   which (four with the bias) the bf16 forward's launcher makes a call
   (:func:`encode_us`).
+
+``--only bf16_bwd`` times the ``bf16_bwd`` rows alone.
 
 Times are ``chip_smoke.py``'s ``device_ms``: the device time a call takes,
 summed by torch.profiler over 20 calls after 3 warm-up calls, host launch
@@ -53,6 +63,9 @@ K1_ROWS = {
     **{f"d{d}": (b, h, s, d, True, False)
        for d, (h, b, s) in cs.HEADDIM_GEOMETRY.items()},
 }
+
+#: name -> (B, H, S, D, causal, masked) of the bf16 backward rows
+BWD_ROWS = {name: K1_ROWS[name] for name in ("train", "bias512", "bias128", "d16", "d32")}
 
 
 def encode_us(torch, repeats: int = 5, n: int = 2000) -> float:
@@ -93,11 +106,13 @@ def encode_us(torch, repeats: int = 5, n: int = 2000) -> float:
     return best(lambda: enc(*args)) - best(null)
 
 
-def bf16_k1_row(torch, F, fa, name, block_rows):
-    """bf16 K1, SDPA and the bound at one row of :data:`K1_ROWS`."""
+def _row_inputs(torch, fa, row):
+    """bf16 q, k, v (strided views of one qkv tensor), the key-padding bias
+    and its boolean mask (None unless masked), and the visible (query, key)
+    pairs at one ``(B, H, S, D, causal, masked)`` row."""
     from distributeddeeplearning_tpu_torch.data.synthetic import SyntheticTextDataset
 
-    b, h, s, d, causal, masked = K1_ROWS[name]
+    b, h, s, d, causal, masked = row
     q, k, v = cs.qkv_views(torch, b, s, h, d, torch.bfloat16, seed=s + d)
     bias = keep = None
     pairs = b * h * cs._causal_pairs(s) if causal else b * h * s * s
@@ -107,6 +122,19 @@ def bf16_k1_row(torch, F, fa, name, block_rows):
         keep = torch.from_numpy(mask).bool().cuda()
         bias = fa._mask_bias(keep[:, None, None, :], b, s)
         pairs = h * s * int(keep.sum().item())  # query rows x visible keys
+    return q, k, v, bias, keep, pairs
+
+
+def _shape(row) -> str:
+    b, h, s, d, causal, masked = row
+    return (f"B={b} H={h} S={s} D={d} {'causal' if causal else 'non-causal'}"
+            + (" bias" if masked else ""))
+
+
+def bf16_k1_row(torch, F, fa, name, block_rows):
+    """bf16 K1, SDPA and the bound at one row of :data:`K1_ROWS`."""
+    b, h, s, d, causal, masked = K1_ROWS[name]
+    q, k, v, bias, keep, pairs = _row_inputs(torch, fa, K1_ROWS[name])
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     attn_mask = None if keep is None else keep[:, None, None, :]
 
@@ -117,11 +145,50 @@ def bf16_k1_row(torch, F, fa, name, block_rows):
     nbytes = 2.0 * 4 * b * s * h * d + 4.0 * b * h * s + (4.0 * b * s if masked else 0)
     bms, by = cs.bound_ms(nbytes, 4.0 * d * pairs, cs.BF16_FLOPS_PER_S)
     entry = dict(ms=ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                 tflops=4.0 * d * pairs / ms / 1e9,
-                 shape=f"B={b} H={h} S={s} D={d} {'causal' if causal else 'non-causal'}"
-                       + (" bias" if masked else ""))
+                 tflops=4.0 * d * pairs / ms / 1e9, shape=_shape(K1_ROWS[name]))
     if block_rows is not None:
         entry["block_rows"] = block_rows(b, h, s)
+    return entry
+
+
+def bf16_bwd_row(torch, F, fa, name, block_rows):
+    """bf16 K2 and K3, the wrapper's delta, autograd through SDPA and both
+    bounds at one row of :data:`BWD_ROWS`."""
+    b, h, s, d, causal, masked = BWD_ROWS[name]
+    q, k, v, bias, keep, pairs = _row_inputs(torch, fa, BWD_ROWS[name])
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
+
+    def delta_fn():  # the wrapper's delta (ops/flash_attention.py backward)
+        return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+    delta = delta_fn()
+    dq_ms = cs.device_ms(torch, lambda i: fa._launch_bwd_dq(
+        q, k, v, do, lse, delta, causal=causal, bias=bias))
+    dkv_ms = cs.device_ms(torch, lambda i: fa._launch_bwd_dkv(
+        q, k, v, do, lse, delta, causal=causal, bias=bias))
+    delta_ms = cs.device_ms(torch, lambda i: delta_fn())
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=None if keep is None else keep[:, None, None, :],
+        is_causal=causal)
+    lib_ms = cs.device_ms(torch, lambda i: torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=10)
+    head = 2.0 * b * s * h * d  # one [B, S, H, D] bf16 tensor
+    rows_in = 4 * head + 2 * 4.0 * b * h * s + (4.0 * b * s if masked else 0)
+    b_dq = cs.bound_ms(rows_in + head, 6.0 * d * pairs, cs.BF16_FLOPS_PER_S)
+    b_dkv = cs.bound_ms(rows_in + 2 * head, 8.0 * d * pairs, cs.BF16_FLOPS_PER_S)
+    entry = dict(dq_ms=dq_ms, dkv_ms=dkv_ms, sum_ms=dq_ms + dkv_ms,
+                 delta_ms=delta_ms, whole_ms=dq_ms + dkv_ms + delta_ms,
+                 library_ms=lib_ms, dq_bound_ms=b_dq[0], dq_bound_by=b_dq[1],
+                 dkv_bound_ms=b_dkv[0], dkv_bound_by=b_dkv[1],
+                 dq_tflops=6.0 * d * pairs / dq_ms / 1e9,
+                 dkv_tflops=8.0 * d * pairs / dkv_ms / 1e9,
+                 shape=_shape(BWD_ROWS[name]))
+    if block_rows is not None:  # the backward library's rule, per pass
+        entry["block_rows"] = {"dq": block_rows(0, b, h, s),
+                               "dkv": block_rows(1, b, h, s)}
     return entry
 
 
@@ -130,6 +197,8 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--only", choices=("bf16_bwd",), default=None,
+                    help="time these rows alone")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -142,7 +211,11 @@ def main() -> int:
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
 
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    bwd_rows_fn = getattr(_build.load("flash_attention_bwd"),
+                          "flash_attention_bwd_bf16_block_rows", None)
+    out["bf16_bwd"] = {name: bf16_bwd_row(torch, F, fa, name, bwd_rows_fn)
+                       for name in BWD_ROWS}
+    for dtype in (() if args.only else (torch.float32, torch.bfloat16)):
         q, k, v = cs.qkv_views(torch, B, S, H, D, dtype, seed=0)
         o, lse = fa.flash_attention_core(q, k, v, causal=True)
         g = torch.Generator(device="cuda").manual_seed(1)
@@ -156,11 +229,12 @@ def main() -> int:
         out[f"K3_{tag}"] = cs.device_ms(torch, lambda i: fa._launch_bwd_dkv(
             q, k, v, do, lse, delta, causal=True))
         del q, k, v, o, lse, do, delta
-    rows_fn = getattr(_build.load("flash_attention_fwd"),
-                      "flash_attention_fwd_bf16_block_rows", None)
-    out["bf16_k1"] = {name: bf16_k1_row(torch, F, fa, name, rows_fn)
-                      for name in K1_ROWS}
-    out["encode_us"] = encode_us(torch)
+    if not args.only:
+        rows_fn = getattr(_build.load("flash_attention_fwd"),
+                          "flash_attention_fwd_bf16_block_rows", None)
+        out["bf16_k1"] = {name: bf16_k1_row(torch, F, fa, name, rows_fn)
+                          for name in K1_ROWS}
+        out["encode_us"] = encode_us(torch)
     card = cs.card_line()
     print(card)
     print(json.dumps({"tag": args.tag, "root": args.root, "card": card,

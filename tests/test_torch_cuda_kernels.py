@@ -35,7 +35,11 @@ at the same tolerances.  The bf16 forward (wgmma on TMA tiles) is held at
 every head dim, S in {1, 37, 64, 65, 127, 129, 576, 2048}, causal and not,
 with and without a bias, at batches that make its launcher take each of
 its block sizes (64, 128 and 192 query rows), and on views cut from a
-longer buffer whose rows past S are NaN.  The decode kernel on bf16 pages (and bf16
+longer buffer whose rows past S are NaN.  The bf16 backward (K2 and K3
+on wgmma and TMA) is held the same way: every head dim, S in {37, 64,
+130, 576, 2048}, causal and not, with and without a bias that masks a row
+and a whole 64-key tile, each of its block sizes; on poisoned views; and
+two launches must agree bit for bit.  The decode kernel on bf16 pages (and bf16
 queries) widens every value to f32 in registers, so it is held BITWISE to
 the same kernel on f32 copies of the same values, and to its plain
 version at 1e-4.
@@ -267,11 +271,12 @@ def _expected_block_rows(b, h, s):
     return 128 if b * h * -(-s // 128) >= sms else 64
 
 
-def _batch_for_rows(rows, h, s):
+def _batch_for_rows(rows, h, s, rule=None):
     """The smallest batch (from 2) at which the launcher takes ``rows``-row
-    blocks for (h, s) on this card."""
+    blocks for (h, s) on this card (``rule``: the forward's by default)."""
+    rule = rule or fa.bf16_block_rows
     for b in range(2, 4096):
-        if fa.bf16_block_rows(b, h, s) == rows:
+        if rule(b, h, s) == rows:
             return b
     pytest.fail(f"no batch gives {rows}-row blocks at h={h} s={s}")
 
@@ -370,6 +375,166 @@ def test_bf16_forward_reads_only_its_views(cuda, d, causal, bias, rows):
                                    causal=causal)
     _hold_bf16(o, o_plain, o_ref, "o")
     assert (lse - lse_plain).abs().max().item() <= ATOL
+
+
+# ---- bf16 K2/K3 on wgmma and TMA: every shape, every block choice ---------
+
+#: sequence lengths of the bf16 backward's card tests: ragged tiles, S not
+#: a multiple of 4 (the 1-D lse, delta and bias windows), both sides of the
+#: 64- and 128-row edges, a serving prompt and the training length
+BF16_BWD_S = [37, 64, 130, 576, 2048]
+
+
+def _bwd_keep(b, s, seed):
+    """[b, s] bool key mask: right padding of random lengths (key 0 always
+    kept), the keys of the second 64-key tile masked in every row (a whole
+    masked tile), and the last row fully masked."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lengths = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
+    keep = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+    keep[:, 64:128] = False
+    keep[:, 0] = True
+    keep[-1] = False
+    return keep
+
+
+def _bwd_inputs(b, s, h, d, causal, bias, seed):
+    """bf16 strided q, k, v, the bf16 forward's o and lse, a random bf16 dO,
+    delta and (with ``bias``) the key-padding bias of :func:`_bwd_keep`."""
+    q, k, v = _bf16_qkv(s, b=b, h=h, d=d, seed=seed)
+    keep = bias_t = None
+    if bias:
+        keep = _bwd_keep(b, s, seed)
+        bias_t = fa._mask_bias(keep[:, None, None, :], b, s)
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+    do = torch.randn(o.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(seed + 1), device="cuda").bfloat16()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, bias_t, keep
+
+
+def _dq_rows(b, h, s):
+    return fa.bf16_bwd_block_rows("dq", b, h, s)
+
+
+def test_bf16_backward_block_rows_follow_the_rule(cuda):
+    """The backward launcher's block-row choice at the main path's shapes
+    and at the edges of each choice, against the rule restated here: the
+    dQ pass takes the forward's, the dK/dV pass the same but never 192
+    (three consumer warpgroups cap a thread at 128 registers, and the
+    dK/dV pass spills there at head dim 64)."""
+    shapes = [(8, 12, 2048), (8, 12, 512), (8, 12, 128), (4, 4, 512),
+              (8, 8, 128), (1, 1, 1), (2, 4, 2048), (12, 4, 2048)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes += [(sms, 1, 128), (sms - 1, 1, 128), (4 * sms, 1, 192),
+               (4 * sms - 1, 1, 192)]
+    for b, h, s in shapes:
+        want = _expected_block_rows(b, h, s)
+        assert _dq_rows(b, h, s) == want, (b, h, s)
+        assert fa.bf16_bwd_block_rows("dkv", b, h, s) == min(want, 128), (b, h, s)
+    assert {_dq_rows(b, h, s) for b, h, s in shapes} == {64, 128, 192}
+
+
+@pytest.mark.parametrize("rows", [64, 128, 192])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", BF16_BWD_S)
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_bf16_backward_wgmma_kernels_match_plain(cuda, d, s, causal, bias, rows):
+    """bf16 K2 and K3 against the bf16 plain backward and the f32 backward
+    of the same inputs (hold_bf16's limit) at every head dim and S, causal
+    and not, with and without a key-padding bias (a fully masked row and a
+    fully masked 64-key tile), at a batch that makes the launcher take
+    ``rows``-row blocks in the dQ pass (and with them 64-, 128- and 128-row
+    blocks in the dK/dV pass); one launch each through the right counter;
+    masked keys of every row that sees a key get dK = dV = 0 exactly."""
+    h = 2 if rows == 64 else 4
+    b = _batch_for_rows(rows, h, s, _dq_rows)
+    q, k, v, do, lse, delta, bias_t, keep = _bwd_inputs(
+        b, s, h, d, causal, bias, seed=s + d + rows)
+    names = ("launches_dq_bf16", "launches_dkv_bf16", "launches_dq_bias_bf16",
+             "launches_dkv_bias_bf16", "launches_dq", "launches_dkv")
+    before = [getattr(fa, n) for n in names]
+    got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal, bias=bias_t)
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) - x for n, x in zip(names, before)] == (
+        [0, 0, 1, 1, 0, 0] if bias else [1, 1, 0, 0, 0, 0])
+    plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal,
+                                    bias=bias_t)
+    ref = fa._dense_attention_bwd(q.float(), k.float(), v.float(), do.float(),
+                                  lse, delta, causal=causal, bias=bias_t)
+    for name, gt, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        _hold_bf16(gt, p, r, name)
+    if bias:
+        masked = ~keep
+        masked[-1] = False
+        assert (got[1][masked] == 0).all() and (got[2][masked] == 0).all()
+
+
+@pytest.mark.parametrize("rows", [64, 192])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_bf16_backward_reads_only_its_views(cuda, d, causal, bias, rows):
+    """q, k, v and dO cut from longer buffers [B, S + 40, 3*H*D] and
+    [B, S + 40, H*D] (so the batch stride is not S times the row stride)
+    whose rows past S are NaN: dQ, dK and dV are finite and equal, bit for
+    bit, to the gradients on the same buffers with those rows zero, and
+    they hold to the plain backward."""
+    s, h = 130, 4
+    b = _batch_for_rows(rows, h, s, _dq_rows)
+    g = torch.Generator(device="cuda").manual_seed(d + rows)
+    buf = torch.randn((b, s + 40, 3 * h * d), generator=g, device="cuda").bfloat16()
+    dbuf = torch.randn((b, s + 40, h * d), generator=g, device="cuda").bfloat16()
+    bias_t = None
+    if bias:
+        bias_t = fa._mask_bias(_bwd_keep(b, s, d)[:, None, None, :], b, s)
+
+    def views(t, u):
+        q, k, v = (x.reshape(b, s, h, d) for x in t[:, :s].split(h * d, dim=-1))
+        return q, k, v, u[:, :s].reshape(b, s, h, d)
+
+    grads = []
+    for fill in (0.0, float("nan")):
+        t, u = buf.clone(), dbuf.clone()
+        t[:, s:] = fill
+        u[:, s:] = fill
+        q, k, v, do = views(t, u)
+        assert q.stride(0) != s * q.stride(1) and do.stride(0) != s * do.stride(1)
+        o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        grads.append(fa._launch_bwd(q, k, v, do, lse, delta, causal=causal,
+                                    bias=bias_t))
+    torch.cuda.synchronize()
+    for clean, poisoned in zip(*grads):
+        assert torch.isfinite(poisoned).all() and torch.equal(clean, poisoned)
+    q, k, v, do = views(buf, dbuf)
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal,
+                                    bias=bias_t)
+    ref = fa._dense_attention_bwd(q.float(), k.float(), v.float(), do.float(),
+                                  lse, delta, causal=causal, bias=bias_t)
+    for name, gt, p, r in zip(("dq", "dk", "dv"), grads[0], plain, ref):
+        _hold_bf16(gt, p, r, name)
+
+
+@pytest.mark.parametrize("rows", [64, 128, 192])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_backward_is_bitwise_repeatable(cuda, causal, bias, rows):
+    """Two launches of each pass on the same inputs give bitwise equal dQ,
+    dK and dV: every output element has one owner, which sums its tiles in
+    a fixed order (no atomics)."""
+    s, h, d = 576, 4, 64
+    b = _batch_for_rows(rows, h, s, _dq_rows)
+    q, k, v, do, lse, delta, bias_t, _ = _bwd_inputs(b, s, h, d, causal, bias,
+                                                     seed=rows)
+    first = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal, bias=bias_t)
+    second = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal, bias=bias_t)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
 
 
 def test_flash_decode_kernel_on_strided_cache_view(cuda):
