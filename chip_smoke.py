@@ -70,10 +70,14 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    acceptance be 0 and its pool equal a never-drafted twin's, and one
    verify pass hold to five sequential decode steps (logits within 1e-5
    of the largest); a spec step is profiled beside a decode step;
-8. K2 and K3, the flash-attention backward (dQ pass, dK/dV pass), against
-   their plain version at the training shape B=8, H=12, D=64, S=2048,
-   causal, and at S in {37, 576} (ragged tiles), inputs as strided qkv
-   views with a random dO;
+8. K2 and K3, the f32 flash-attention backward (dQ pass, dK/dV pass; split
+   TF32 on the tensor cores: three TF32 products a product), against their
+   plain version at the training shape B=8, H=12, D=64, S=2048, causal,
+   and at S in {37, 130, 576} (ragged tiles), inputs as strided qkv views
+   with a random dO; timed at the training shape with the rows a block
+   each pass took, TFLOP/s, both bounds (split TF32 and the f32 FMA rate)
+   and K2+K3 against autograd through SDPA; the build lines give each f32
+   K2 and K3 instance's registers, spills and dynamic shared memory;
 8a. bf16 K2 and K3 (tensor cores: wgmma on TMA tiles, a warp-specialised
    ring, like bf16 K1) the same way at S in {37, 576, 2048}, causal and
    not, with a random bf16 dO, against the bf16 plain backward and the
@@ -122,8 +126,9 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    oracle and teacher-forced logits within 5e-2 of the largest; decode
    steps profiled;
 14. ``phase_headdim``: every kernel (K1, K2, K3 in f32 and bf16; K4 a, b,
-   c, verify and bf16 pages) at head dims 16 and 32 against its plain
-   version under the head-dim-64 tolerances, timed at one shape each;
+   c, verify and bf16 pages) at head dims 8, 16 and 32 against its plain
+   version under the head-dim-64 tolerances, timed at one shape each (K1-K3
+   at 8 run at 16 on zero-padded copies, K4 has an instance at 8);
 15. ``phase_default_geometries``: the dense and paged engines at `ddlt
    serve`'s geometry (2 layers, d 64, 4 heads: head dim 16, vocab 257)
    with their default flash prefill and decode kernel, f32 and int8
@@ -131,6 +136,14 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    equal to a dense oracle; then ``workloads.transformer.main(attention=
    "flash")`` at its own defaults (head dim 32, vocab 1031) in f32 and
    bf16, the loss falling; exact launch counts in every run;
+15a. ``phase_serve_d8``: head dim 8 at ``bench.py --small``'s serving
+   geometry (2 layers, d 32 over 4 heads, ff 64, vocab 509; 4 slots of 64,
+   pages and chunks of 16; 8 requests behind an 8-token shared prefix, 6
+   new tokens): the dense engine (K1 prefill, K4 decode), the paged engine
+   on f32 and int8 pages and the int8 engine through the plain read, exact
+   launch counts, f32 greedy tokens equal to a dense oracle, int8 kernel
+   tokens equal to the plain read's, teacher-forced dense and paged logits
+   within 1e-4 of the largest;
 16. ``phase_bias``: K1, K2, K3 built with the key-padding bias
    (``HAS_BIAS``) against their plain versions, f32 and bf16, head dims 16,
    32, 64, causal and not, S in {1, 37, 128, 512}, the masks synthetic-text
@@ -175,8 +188,11 @@ decode kernel cycles through the cache's 12 layers so its history is not
 served from L2.  ``bound_ms`` is the least time the card could take: the
 larger of the bytes moved (inputs read once, outputs written once) over
 3.35 TB/s and the flops over 67 TFLOP/s (the H100's f32 peak on CUDA
-cores, which is what the f32 kernels use) or, for the bf16 kernels, over
-989.4 TFLOP/s (dense bf16 on the tensor cores).  ``library_ms`` times
+cores, which is what the f32 forward and decode kernels use), for the f32
+backward over 164.9 TFLOP/s (split TF32: a third of the 494.7 TFLOP/s
+dense TF32 peak; its rows give the 67 TFLOP/s bound beside, as
+``fma_bound_ms``) or, for the bf16 kernels, over 989.4 TFLOP/s (dense bf16
+on the tensor cores).  ``library_ms`` times
 one ``scaled_dot_product_attention`` call on the same inputs (for K2/K3,
 ``torch.autograd.grad`` through it, graph built once; for K4(b), on the
 history gathered beforehand, since it cannot follow block tables), a
@@ -195,8 +211,8 @@ row's dtype; ``bert_flash_seq512`` beside it for bf16), and their bound
 counts the (query, key) pairs the run's mask leaves visible.
 
 Each row of the kernels line carries ``head_dims``: the phase-14 entry
-of the kernel at head dims 16 and 32, with the launches of the phase-15
-main path that runs it there (0 where none does).
+of the kernel at head dims 8, 16 and 32, with the launches of the phase-15
+(15a at 8) main path that runs it there (0 where none does).
 
 Output: progress lines, then one JSON line with a row per kernel, the line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
@@ -219,6 +235,9 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 on CUDA cores
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM spec sheet, dense bf16 tensor cores
+TF32_FLOPS_PER_S = 494.7e12  # H100 SXM spec sheet, dense TF32 tensor cores
+# the f32 K2/K3's route: split TF32, three TF32 products for each product
+TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 
 K1_TOL = 1e-4  # f32 rounding: sums over <= 576 terms in another order
 K4_TOL = 1e-4
@@ -821,26 +840,29 @@ def naive_greedy(torch, forward, params, prompt, n, heads=None):
     return toks[len(prompt):]
 
 
-def teacher_forced_error(torch, params, tokens, prompt_len):
+def teacher_forced_error(torch, params, tokens, prompt_len, geo=None,
+                         max_seq=MAX_SEQ):
     """Max |logit difference| between the serving path (flash prefill of
     the prompt, then one kernel decode step per token, on a cache of the
     weights' dtype) and one full dense forward over the same tokens, and
     the largest |logit| for scale.  The margin profile makes greedy
-    streams insensitive to attention; these logits are not."""
+    streams insensitive to attention; these logits are not.  ``geo``: the
+    model's geometry (default :data:`SERVE`)."""
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
         forward, forward_decode, forward_prefill,
     )
     from distributeddeeplearning_tpu_torch.serve import init_cache, insert_sequence
 
-    heads = SERVE["num_heads"]
+    geo = geo or SERVE
+    heads = geo["num_heads"]
     toks = torch.tensor([tokens], device="cuda")
     with torch.inference_mode():
         full = forward(params, toks, num_heads=heads, attention="dense")[0]
         logits, k, v = forward_prefill(params, toks[:, :prompt_len],
                                        num_heads=heads, attention="flash")
-        cache = init_cache(batch_slots=1, num_layers=SERVE["num_layers"],
-                           max_seq=MAX_SEQ, num_heads=heads,
-                           head_dim=SERVE["d_model"] // heads,
+        cache = init_cache(batch_slots=1, num_layers=geo["num_layers"],
+                           max_seq=max_seq, num_heads=heads,
+                           head_dim=geo["d_model"] // heads,
                            dtype=params["embed"].dtype, device="cuda")
         insert_sequence(cache, k, v, 0)
         got = [logits[0, prompt_len - 1]]
@@ -1038,27 +1060,31 @@ def phase_serve(torch, np, fa, fd, card):
     return launches, engine, served
 
 
-def teacher_forced_paged_error(torch, params, tokens, prompt_len):
+def teacher_forced_paged_error(torch, params, tokens, prompt_len, geo=None,
+                               max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK):
     """Max |logit difference| between the paged serving path (the prompt in
-    64-token chunks through forward_prefill_chunk, then one paged decode
-    step per token, f32 pool, reversed block table) and one full dense
-    forward over the same tokens, and the largest |logit|."""
+    ``chunk``-token chunks through forward_prefill_chunk, then one paged
+    decode step per token, f32 pool of ``page``-position pages, reversed
+    block table) and one full dense forward over the same tokens, and the
+    largest |logit|.  ``geo``: the model's geometry (default
+    :data:`SERVE`)."""
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
         forward, forward_decode_paged, forward_prefill_chunk,
     )
     from distributeddeeplearning_tpu_torch.serve import init_paged_cache
 
-    heads, nb = SERVE["num_heads"], MAX_SEQ // PAGE
-    cache = init_paged_cache(num_pages=nb, num_layers=SERVE["num_layers"],
-                             page_size=PAGE, num_heads=heads, head_dim=64,
-                             device="cuda")
+    geo = geo or SERVE
+    heads, nb = geo["num_heads"], max_seq // page
+    cache = init_paged_cache(num_pages=nb, num_layers=geo["num_layers"],
+                             page_size=page, num_heads=heads,
+                             head_dim=geo["d_model"] // heads, device="cuda")
     table = torch.arange(nb, 0, -1, dtype=torch.int32, device="cuda")
     toks = torch.tensor([tokens], device="cuda")
     got = []
     with torch.inference_mode():
         full = forward(params, toks, num_heads=heads, attention="dense")[0]
-        for off in range(0, prompt_len, CHUNK):
-            real = min(CHUNK, prompt_len - off)
+        for off in range(0, prompt_len, chunk):
+            real = min(chunk, prompt_len - off)
             logits, _ = forward_prefill_chunk(
                 params, toks[:, off:off + real], cache, table, off, num_heads=heads)
             got.append(logits[0, :real])
@@ -1452,12 +1478,15 @@ def _causal_pairs(s: int) -> int:
 
 
 def phase_bwd(torch, F, fa, card):
-    """K2 and K3 against the plain backward; returns their JSON rows
-    (timed at the training shape S=2048)."""
+    """K2 and K3 (f32: split TF32 on the tensor cores) against the plain
+    backward at S 37, 130 (ragged tiles), 576 and 2048; returns their JSON
+    rows (timed at the training shape S=2048, with the rows a block each
+    pass took, TFLOP/s, the bound at the split-TF32 rate and the one at the
+    CUDA cores' f32 FMA rate, and K2+K3 against SDPA's backward)."""
     b, h, d = 8, 12, 64
     worst = {"dq": 0.0, "dkv": 0.0}
     rows = {}
-    for s in (37, 576, 2048):
+    for s in (37, 130, 576, 2048):
         g = torch.Generator(device="cuda").manual_seed(s)
         qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda")
         q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
@@ -1501,23 +1530,36 @@ def phase_bwd(torch, F, fa, card):
         head = 4.0 * b * s * h * d  # one [B, S, H, D] f32 tensor
         rows_in = 4 * head + 2 * 4.0 * b * h * s  # q, k, v, dO; lse, delta
         # the function each kernel computes: dQ needs S, dP and dS K
-        # (6 D flops a pair); dK, dV need S, dP, P^T dO and dS^T Q (8 D)
-        b_dq = bound_ms(rows_in + head, 6.0 * d * pairs)
-        b_dkv = bound_ms(rows_in + 2 * head, 8.0 * d * pairs)
-        whole = bound_ms(rows_in + 3 * head, 10.0 * d * pairs)
-        log(f"[bwd] S=2048 B=8 H=12 D=64 causal: K2 {ms_dq:.4f} ms (bound "
-            f"{b_dq[0]:.4f} ms, {b_dq[1]}), K3 {ms_dkv:.4f} ms (bound "
-            f"{b_dkv[0]:.4f} ms, {b_dkv[1]}), plain backward {plain_ms:.4f} ms, "
-            f"sdpa backward {lib_ms:.4f} ms on {card}")
-        log(f"[bwd] whole backward: K2+K3 {ms_dq + ms_dkv:.4f} ms against "
-            f"{whole[0]:.4f} ms for the 5 products (10 D flops a pair, "
-            f"{whole[1]}); the two-pass design recomputes S and dP "
-            f"(4 D more a pair, {4.0 * d * pairs / 1e9:.1f} GFLOP)")
+        # (6 D flops a pair); dK, dV need S, dP, P^T dO and dS^T Q (8 D);
+        # bound at the rate of the kernels' route (split TF32: a third of
+        # the dense TF32 peak) and, beside it, at the f32 FMA rate
+        b_dq = bound_ms(rows_in + head, 6.0 * d * pairs, TF32X3_FLOPS_PER_S)
+        b_dkv = bound_ms(rows_in + 2 * head, 8.0 * d * pairs, TF32X3_FLOPS_PER_S)
+        fma_dq = bound_ms(rows_in + head, 6.0 * d * pairs)
+        fma_dkv = bound_ms(rows_in + 2 * head, 8.0 * d * pairs)
+        whole = bound_ms(rows_in + 3 * head, 10.0 * d * pairs, TF32X3_FLOPS_PER_S)
+        block_rows = {kind: fa.f32_bwd_block_rows(kind, b, h, s) for kind in ("dq", "dkv")}
+        tflops = {"dq": 6.0 * d * pairs / ms_dq / 1e9, "dkv": 8.0 * d * pairs / ms_dkv / 1e9}
+        log(f"[bwd] S=2048 B=8 H=12 D=64 causal: K2 {ms_dq:.4f} ms "
+            f"({block_rows['dq']}-row blocks, {tflops['dq']:.1f} TFLOP/s; bound "
+            f"{b_dq[0]:.4f} ms at split TF32, {b_dq[1]}, {b_dq[0] / ms_dq:.1%}; "
+            f"{fma_dq[0]:.4f} ms at the f32 FMA rate), K3 {ms_dkv:.4f} ms "
+            f"({block_rows['dkv']}-row blocks, {tflops['dkv']:.1f} TFLOP/s; bound "
+            f"{b_dkv[0]:.4f} ms, {b_dkv[1]}, {b_dkv[0] / ms_dkv:.1%}; {fma_dkv[0]:.4f} "
+            f"ms at the FMA rate), plain backward {plain_ms:.4f} ms, sdpa "
+            f"backward {lib_ms:.4f} ms on {card}")
+        log(f"[bwd] whole backward: K2+K3 {ms_dq + ms_dkv:.4f} ms, "
+            f"{(ms_dq + ms_dkv) / lib_ms:.2f}x SDPA's backward ({lib_ms:.4f} ms), "
+            f"against {whole[0]:.4f} ms for the 5 products at split TF32 (10 D "
+            f"flops a pair, {whole[1]}); the two-pass design recomputes S and "
+            f"dP (4 D more a pair, {4.0 * d * pairs / 1e9:.1f} GFLOP)")
         shape = "B=8 H=12 S=2048 D=64 causal f32 (strided qkv views)"
-        rows["dq"] = dict(ms=ms_dq, plain_ms=plain_ms, bound_ms=b_dq[0],
-                          bound_by=b_dq[1], library_ms=lib_ms, shape=shape)
-        rows["dkv"] = dict(ms=ms_dkv, plain_ms=plain_ms, bound_ms=b_dkv[0],
-                           bound_by=b_dkv[1], library_ms=lib_ms, shape=shape)
+        for kind, ms, (bms, by), fma in (("dq", ms_dq, b_dq, fma_dq),
+                                         ("dkv", ms_dkv, b_dkv, fma_dkv)):
+            rows[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                              library_ms=lib_ms, fma_bound_ms=fma[0],
+                              tflops=tflops[kind], block_rows=block_rows[kind],
+                              shape=shape)
         del out, qt, kt, vt
     for kern in rows:
         rows[kern]["max_abs_err"] = worst[kern]
@@ -1812,22 +1854,25 @@ def phase_train(torch, np, fa, card, dtype="float32", f32_losses=None):
     log(f"[profile] train step (B=8, S=2048, {dtype}, flash): host wall "
         f"{wall:.3f} ms, kernel time {share}; {trust_note(busy, event_ms)} on {card}")
     gemms = f"{'bf16' if bf16 else 'f32'} GEMMs (cuBLAS/CUTLASS)"
+    bsfx = sfx or "_f32"  # the f32 backward's kernels are named so
     kernels = {f"K1 flash_fwd{sfx}_kernel": f"flash_fwd{sfx}_kernel",
-               f"K2 flash_bwd_dq{sfx}_kernel": f"flash_bwd_dq{sfx}_kernel",
-               f"K3 flash_bwd_dkv{sfx}_kernel": f"flash_bwd_dkv{sfx}_kernel"}
+               f"K2 flash_bwd_dq{bsfx}_kernel": f"flash_bwd_dq{bsfx}_kernel",
+               f"K3 flash_bwd_dkv{bsfx}_kernel": f"flash_bwd_dkv{bsfx}_kernel"}
     log_groups(top, busy, gemms, kernels)
     del state, step
     torch.cuda.empty_cache()
     return launches, losses
 
 
-# ---- head dims 16 and 32 (the reference's serve and trainer geometries) ----
+# ---- head dims 8, 16 and 32 (the reference's small serve and trainer
+# geometries) ----
 
 #: head dim -> (heads, batch, sequence) at which every flash kernel is held
-#: and timed: `ddlt serve`'s d 64 over 4 heads with 4 slots of a 512-token
-#: prompt bucket, and the LM trainer's d 256 over 8 heads at its batch 8,
-#: seq 128 (workloads/transformer.py defaults)
-HEADDIM_GEOMETRY = {16: (4, 4, 512), 32: (8, 8, 128)}
+#: and timed: `bench.py --small`'s d 32 over 4 heads with its 4 slots of 64
+#: positions (bench.py:2574-2578), `ddlt serve`'s d 64 over 4 heads with 4
+#: slots of a 512-token prompt bucket, and the LM trainer's d 256 over 8
+#: heads at its batch 8, seq 128 (workloads/transformer.py defaults)
+HEADDIM_GEOMETRY = {8: (4, 4, 64), 16: (4, 4, 512), 32: (8, 8, 128)}
 
 
 def qkv_views(torch, b, s, h, d, dtype, seed):
@@ -1940,12 +1985,14 @@ def _flash_at(torch, F, fa, d, h, b, s, dtype, card):
     head = es * b * s * h * d
     rows_in = 4 * head + 2 * 4.0 * b * h * s
     shape = f"B={b} H={h} S={s} D={d} causal {'bf16' if bf else 'f32'} (strided qkv views)"
+    bwd_peak = BF16_FLOPS_PER_S if bf else TF32X3_FLOPS_PER_S  # f32: split TF32
     entries = {
         "fwd": (fwd_ms, fwd_plain, fwd_lib,
                 bound_ms(4 * head + 4.0 * b * h * s, 4.0 * d * pairs, peak)),
-        "dq": (dq_ms, bwd_plain, bwd_lib, bound_ms(rows_in + head, 6.0 * d * pairs, peak)),
+        "dq": (dq_ms, bwd_plain, bwd_lib,
+               bound_ms(rows_in + head, 6.0 * d * pairs, bwd_peak)),
         "dkv": (dkv_ms, bwd_plain, bwd_lib,
-                bound_ms(rows_in + 2 * head, 8.0 * d * pairs, peak)),
+                bound_ms(rows_in + 2 * head, 8.0 * d * pairs, bwd_peak)),
     }
     result = {}
     for kern, (ms, plain_ms, lib_ms, (bms, by)) in entries.items():
@@ -2088,8 +2135,9 @@ def _decode_at(torch, F, fd, d, h, card):
 
 
 def phase_headdim(torch, F, fa, fd, card):
-    """Every kernel at head dims 16 and 32 against its plain version under
-    the head-dim-64 tolerances, timed at one shape each.  Returns
+    """Every kernel at head dims 8, 16 and 32 against its plain version
+    under the head-dim-64 tolerances, timed at one shape each (K1-K3 at 8
+    run at 16 on zero-padded copies; K4 has an instance at 8).  Returns
     {row name: {d: entry}}."""
     out = {}
     for d, (h, b, s) in HEADDIM_GEOMETRY.items():
@@ -2336,6 +2384,112 @@ def phase_default_geometries(torch, np, fa, fd, card):
                        ("flash_attention_bwd_dq", "launches_dq"),
                        ("flash_attention_bwd_dkv", "launches_dkv")):
             launches[32][key + sfx] = counts[c + sfx]
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: `bench.py --small`'s serving run (bench.py:2574-2597): 2 layers, d 32
+#: over 4 heads (head dim 8), ff 64, vocab 509; 4 slots of 64 positions,
+#: pages and prefill chunks of 16 positions; 8 requests of up to 24 tokens
+#: behind an 8-token shared prefix, 6 new tokens each
+SMALL_SERVE = dict(num_layers=2, d_model=32, num_heads=4, d_ff=64, vocab_size=509)
+SMALL_SLOTS, SMALL_MAX_SEQ, SMALL_PAGE = 4, 64, 16
+SMALL_REQUESTS, SMALL_PROMPT, SMALL_PREFIX, SMALL_NEW = 8, 24, 8, 6
+SMALL_RUNS = (  # name, paged, engine options
+    ("dense", False, {}),
+    ("paged", True, {}),
+    ("paged_int8", True, {"cache_dtype": "int8"}),
+    ("paged_int8_gather", True, {"cache_dtype": "int8", "decode_kernel": "gather"}),
+)
+
+
+def phase_serve_d8(torch, np, fa, fd, card):
+    """Head dim 8 end to end at `bench.py --small`'s serving geometry: the
+    dense engine (prefill through K1 on zero-padded copies, decode through
+    K4's instance at 8), the paged engine on f32 pages and on int8 pages
+    (8-byte rows; chunked prefill and decode through K4), and the int8
+    engine through the plain read, each with the counters zeroed just
+    before it and read just after.  Greedy tokens of the f32 engines equal
+    a dense full-forward oracle's, int8 kernel tokens the int8 plain read's;
+    teacher-forced logits of the dense and paged paths hold to one dense
+    forward within LOGIT_RTOL of the largest |logit|.  Returns the
+    launches by kernel row name."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        forward, init_params,
+    )
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, InferenceEngine, PagedInferenceEngine,
+        synthetic_requests,
+    )
+
+    geo, heads = SMALL_SERVE, SMALL_SERVE["num_heads"]
+    layers = geo["num_layers"]
+    params = init_params(torch.Generator().manual_seed(0), max_len=SMALL_MAX_SEQ,
+                         device="cuda", **geo)
+    params["embed"] *= 4.0  # the tied 4x head: greedy measures the kernels
+    params["head"] = params["embed"].T.contiguous()
+    requests = synthetic_requests(SMALL_REQUESTS, vocab_size=geo["vocab_size"],
+                                  max_prompt=SMALL_PROMPT,
+                                  shared_prefix_len=SMALL_PREFIX,
+                                  rng=np.random.default_rng(0))
+    oracle = {r.uid: naive_greedy(torch, forward, params, r.prompt, SMALL_NEW,
+                                  heads=heads) for r in requests}
+    tokens, launches = {}, {}
+    for name, paged, opts in SMALL_RUNS:
+        kw = dict(num_heads=heads, batch_slots=SMALL_SLOTS, max_seq=SMALL_MAX_SEQ)
+        if paged:
+            engine = PagedInferenceEngine(params, page_size=SMALL_PAGE,
+                                          prefill_chunk=SMALL_PAGE, **kw, **opts)
+        else:
+            engine = InferenceEngine(params, **kw)
+        _zero_counters(fa, fd)
+        torch.cuda.synchronize()
+        results, report = ContinuousBatchingScheduler(
+            engine, max_new_tokens=SMALL_NEW).run(requests)
+        torch.cuda.synchronize()
+        counts = {**_fa_counts(fa), **_fd_counts(fd)}
+        steps = report.decode_steps
+        chunks = engine.chunks_run if paged else 0
+        kernel = opts.get("decode_kernel") != "gather"
+        int8 = opts.get("cache_dtype") == "int8"
+        want = {c: 0 for c in counts}
+        want.update({"launches": 0 if paged else layers * SMALL_REQUESTS,
+                     "fd_launches": layers * (chunks + steps) * kernel,
+                     "launches_multi_query": layers * chunks * kernel,
+                     "launches_int8": layers * (chunks + steps) * kernel * int8})
+        tokens[name] = {r.uid: r.tokens for r in results}
+        ref = tokens["paged_int8"] if name == "paged_int8_gather" else (
+            None if int8 else oracle)
+        log(f"[d8] bench.py --small geometry (D=8), {name}: launches {counts} "
+            f"(expected {want}); {steps} decode steps, {chunks} chunks; tokens "
+            + ("== the int8 kernel run's" if name == "paged_int8_gather" else
+               "== the dense oracle" if ref is oracle else "(held by the plain read)")
+            + f": {ref is None or tokens[name] == ref}; kv_dtype {report.kv_dtype} "
+            f"on {card}")
+        if counts != want or (ref is not None and tokens[name] != ref):
+            raise AssertionError(f"head dim 8 serving {name} failed")
+        if kernel:
+            launches["flash_attention_fwd"] = (launches.get("flash_attention_fwd", 0)
+                                               + counts["launches"])
+            key = "flash_decode_int8" if int8 else "flash_decode"
+            launches[key] = launches.get(key, 0) + counts["fd_launches"] - (
+                0 if int8 else counts["launches_multi_query"])
+            if not int8:
+                launches["flash_decode_chunk"] = (launches.get("flash_decode_chunk", 0)
+                                                  + counts["launches_multi_query"])
+        del engine
+    r = max(requests, key=lambda x: len(x.prompt))
+    seq = list(r.prompt) + oracle[r.uid]
+    for path, fn in (("dense", teacher_forced_error),
+                     ("paged", teacher_forced_paged_error)):
+        extra = {"page": SMALL_PAGE, "chunk": SMALL_PAGE} if path == "paged" else {}
+        err, top = fn(torch, params, seq, len(r.prompt), geo=geo,
+                      max_seq=SMALL_MAX_SEQ, **extra)
+        log(f"[d8] teacher-forced {path} path over {len(seq)} tokens: max |logit "
+            f"- dense forward| {err:.3e} of max |logit| {top:.3f} (tolerance "
+            f"{LOGIT_RTOL:g} of the max) on {card}")
+        if not err <= LOGIT_RTOL * top:
+            raise AssertionError(f"head dim 8 teacher-forced {path} logits: {err}")
     torch.cuda.empty_cache()
     return launches
 
@@ -2596,13 +2750,14 @@ def _bias_timed(torch, F, fa, dtype, card):
     small = 4.0 * b * h * s  # one f32 [B, H, S] (lse or delta)
     bias_bytes = 4.0 * b * s
     peak = BF16_FLOPS_PER_S if bf else F32_FLOPS_PER_S
+    bwd_peak = BF16_FLOPS_PER_S if bf else TF32X3_FLOPS_PER_S  # f32: split TF32
     entries = {
         "fwd": (fwd_ms, fwd_plain, fwd_lib,
                 bound_ms(4 * head + small + bias_bytes, 4.0 * d * pairs, peak)),
         "dq": (dq_ms, bwd_plain, bwd_lib,
-               bound_ms(5 * head + 2 * small + bias_bytes, 6.0 * d * pairs, peak)),
+               bound_ms(5 * head + 2 * small + bias_bytes, 6.0 * d * pairs, bwd_peak)),
         "dkv": (dkv_ms, bwd_plain, bwd_lib,
-                bound_ms(6 * head + 2 * small + bias_bytes, 8.0 * d * pairs, peak)),
+                bound_ms(6 * head + 2 * small + bias_bytes, 8.0 * d * pairs, bwd_peak)),
     }
     tag = "bf16" if bf else "f32"
     k1_flops = 4.0 * d * pairs
@@ -2613,6 +2768,13 @@ def _bias_timed(torch, F, fa, dtype, card):
         f"{k1_flops / fwd_lib / 1e9:.1f} TFLOP/s); device times, on {card}")
     shape = (f"B={b} H={h} S={s} D={d} non-causal {tag}, synthetic-text mask "
              f"({int(keep.sum().item())} of {b * s} keys visible; strided qkv views)")
+    if not bf:
+        rows = {kind: fa.f32_bwd_block_rows(kind, b, h, s) for kind in ("dq", "dkv")}
+        log(f"[bias] f32 K2/K3 at B={b} H={h} S={s} D={d}: {rows['dq']}/"
+            f"{rows['dkv']}-row blocks, {6.0 * d * pairs / dq_ms / 1e9:.1f} / "
+            f"{8.0 * d * pairs / dkv_ms / 1e9:.1f} TFLOP/s; K2+K3 {dq_ms + dkv_ms:.4f} "
+            f"ms, {(dq_ms + dkv_ms) / bwd_lib:.2f}x SDPA's backward; device "
+            f"times, on {card}")
     log(f"[bias] {tag} at B={b} H={h} S={s} D={d}, {int(keep.sum().item())} of "
         f"{b * s} keys visible: K1 {fwd_ms:.4f} ms (bound {entries['fwd'][3][0]:.4f}, "
         f"{entries['fwd'][3][1]}), K2 {dq_ms:.4f} ms (bound {entries['dq'][3][0]:.4f}, "
@@ -2843,9 +3005,10 @@ def _profile_bert(torch, state, seq_len, dtype, card):
     log(f"[profile] bert step (B=8, S={seq_len}, {dtype}, flash with the bias): "
         f"host wall {wall:.3f} ms; {trust_note(busy, event_ms)} on {card}")
     gemms = f"{'bf16' if sfx else 'f32'} GEMMs (cuBLAS/CUTLASS)"
+    bsfx = sfx or "_f32"  # the f32 backward's kernels are named so
     kernels = {f"K1 flash_fwd{sfx}_kernel (bias)": f"flash_fwd{sfx}_kernel",
-               f"K2 flash_bwd_dq{sfx}_kernel (bias)": f"flash_bwd_dq{sfx}_kernel",
-               f"K3 flash_bwd_dkv{sfx}_kernel (bias)": f"flash_bwd_dkv{sfx}_kernel"}
+               f"K2 flash_bwd_dq{bsfx}_kernel (bias)": f"flash_bwd_dq{bsfx}_kernel",
+               f"K3 flash_bwd_dkv{bsfx}_kernel (bias)": f"flash_bwd_dkv{bsfx}_kernel"}
     log_groups(top, busy, gemms, kernels)
 
 
@@ -2875,20 +3038,25 @@ def log_groups(top, busy, gemms, kernels):
         log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
 
 
-def log_bf16_instances(_build):
+def log_instances(_build):
     """One build line per instance of the bf16 forward (K1) and backward
-    (K2, K3) -- head dim, bias, rows a block: its registers and spill bytes
-    from ``ptxas -v`` and its dynamic shared memory from the library."""
+    (K2, K3) and of the f32 backward (K2, K3 on split TF32) -- head dim,
+    bias, rows a block: its registers and spill bytes from ``ptxas -v`` and
+    its dynamic shared memory from the library."""
     fwd = _build.load("flash_attention_fwd")
     bwd = _build.load("flash_attention_bwd")
-    pattern = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_bf16_kernelILi(\d+)ELb([01])ELi(\d)E")
+    # bf16: <D, bias, 64-row consumer warpgroups>; f32: <D, bias, 16-row
+    # warps, streamed rows>
+    pattern = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_(bf16|f32)_kernelILi(\d+)ELb([01])"
+                         r"ELi(\d)E")
     info = {}
     for lib in ("flash_attention_fwd", "flash_attention_bwd"):
         fn = None
         for line in _build.build_log.get(lib, "").splitlines():
             if "Compiling entry function" in line or "Function properties for" in line:
                 m = pattern.search(line)
-                fn = ((m.group(1), int(m.group(2)), int(m.group(3)), 64 * int(m.group(4)))
+                fn = ((m.group(1), m.group(2), int(m.group(3)), int(m.group(4)),
+                       (64 if m.group(2) == "bf16" else 16) * int(m.group(5)))
                       if m else None)
             elif fn is not None and "spill" in line:
                 info.setdefault(fn, {})["spill"] = line.strip()
@@ -2896,11 +3064,15 @@ def log_bf16_instances(_build):
                 info.setdefault(fn, {})["regs"] = re.search(r"Used (\d+) registers",
                                                             line).group(1)
     names = {"fwd": "K1", "bwd_dq": "K2", "bwd_dkv": "K3"}
-    for (kind, d, bias, rows), got in sorted(info.items()):
-        smem = (fwd.flash_attention_fwd_bf16_smem_bytes(d, bias, rows) if kind == "fwd"
-                else bwd.flash_attention_bwd_bf16_smem_bytes(int(kind == "bwd_dkv"),
-                                                             d, bias, rows))
-        log(f"[build] bf16 {names[kind]} D={d} bias={bool(bias)} rows={rows}: "
+    for (kind, dtype, d, bias, rows), got in sorted(info.items()):
+        if dtype == "f32":
+            smem = bwd.flash_attention_bwd_f32_smem_bytes(int(kind == "bwd_dkv"), d, rows)
+        elif kind == "fwd":
+            smem = fwd.flash_attention_fwd_bf16_smem_bytes(d, bias, rows)
+        else:
+            smem = bwd.flash_attention_bwd_bf16_smem_bytes(int(kind == "bwd_dkv"),
+                                                           d, bias, rows)
+        log(f"[build] {dtype} {names[kind]} D={d} bias={bool(bias)} rows={rows}: "
             f"{got.get('regs')} registers, {got.get('spill')}, {smem} bytes of "
             f"dynamic shared memory")
 
@@ -2958,7 +3130,7 @@ def main() -> int:
                     fn = m.group(1)
                 elif "registers" in line or "spill" in line:
                     log(f"[build] {name}: {fn}: {line.strip()}")
-        log_bf16_instances(_build)
+        log_instances(_build)
         k1 = timed(phase_k1, torch, F, fa, card)
         k1_bf16 = timed(phase_k1_bf16, torch, F, fa, card)
         k4 = timed(phase_k4, torch, F, fd, card)
@@ -2977,6 +3149,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         headdim = timed(phase_headdim, torch, F, fa, fd, card)
         defaults = timed(phase_default_geometries, torch, np, fa, fd, card)
+        defaults[8] = timed(phase_serve_d8, torch, np, fa, fd, card)
         bwd = timed(phase_bwd, torch, F, fa, card)
         bwd_bf16 = timed(phase_bwd_bf16, torch, F, fa, card)
         timed(phase_grad_parity, torch, np)

@@ -1,12 +1,13 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels, in float32
-// (CUDA cores) and bfloat16 (tensor cores, below).
+// and bfloat16 (below), both on the tensor cores.
 //
 // Replaces the Pallas TPU kernels distributeddeeplearning_tpu/ops/
 // flash_attention.py:_bwd_dq_kernel and _bwd_dkv_kernel (launched by
 // _flash_bwd_pallas).  Given the forward's inputs, its output's gradient dO,
 // the saved log-sum-exp lse (nats, [B, H, S]) and delta = rowsum(dO * O)
 // ([B, H, S], computed by the wrapper in PyTorch, as the TPU path computes
-// it in XLA), with scale = 1/sqrt(D):
+// it in XLA), with scale = 1/sqrt(D) (the caller's: a head dim of 8 runs
+// here at 16 on zero-padded copies with scale 1/sqrt(8)):
 //   P  = exp(Q K^T * scale - lse)          (recomputed, never stored)
 //   dS = P * (dO V^T - delta) * scale
 //   dQ = dS K          dK = dS^T Q          dV = P^T dO
@@ -17,31 +18,27 @@
 // shared by a batch row's heads) every kernel is built with HAS_BIAS and
 // adds bias[b, key] to the recomputed scores, as the Pallas kernels do
 // (has_bias): the dQ pass per key column of its tile, the dK/dV pass per
-// key row of its transposed tile (one value a row, held in registers).  A
-// masked key of a row that sees any key gets P = exp(-1e30...) = 0 exactly,
-// so its dK and dV come out exactly 0.  The f32 kernels work in nats and
-// take the bias times ln 2, the bf16 ones in base 2 and take it as it is;
-// either way a fully masked row recomputes P = 1 from its lse, as the
+// key row (one value a row, held in registers).  A masked key of a row that
+// sees any key gets P = exp(-1e30...) = 0 exactly, so its dK and dV come
+// out exactly 0.  The f32 kernels work in nats and take the bias times
+// ln 2 (__fmul_rn: never fused), the bf16 ones in base 2 and take it as it
+// is; either way a fully masked row recomputes P = 1 from its lse, as the
 // reference does.  Without a bias HAS_BIAS is false and the code is the
 // unbiased kernel's.
 //
-// Two passes, as on the TPU.  flash_bwd_dq_kernel owns one 64-row query
-// tile and loops over 32-key tiles, accumulating dQ in registers;
-// flash_bwd_dkv_kernel owns one 64-key tile and loops over 32-query tiles,
-// accumulating dK and dV in registers.  Every output tile has exactly one
-// owner block, so the result needs no atomics and is bitwise repeatable
-// from run to run (FlashAttention-2's single pass would add dQ with
-// atomicAdd in an order that changes between runs).  The price is that
-// both passes recompute S = Q K^T and dP = dO V^T: 14 D operations per
-// visible (query, key) pair instead of the 10 D of the five products.
+// Two passes, as on the TPU.  The dQ pass owns a tile of query rows and
+// streams key tiles, accumulating dQ in registers; the dK/dV pass owns a
+// tile of key rows and streams query tiles, accumulating dK and dV.  Every
+// output element has exactly one owner, which sums its tiles in a fixed
+// order, so the result needs no atomics and is bitwise repeatable from
+// run to run (FlashAttention-2's single pass would add dQ with atomicAdd
+// in an order that changes between runs).  The price is that both passes
+// recompute S = Q K^T and dP = dO V^T: 14 D operations per visible
+// (query, key) pair instead of the 10 D of the five products.
 //
 // Head dim.  Every kernel here is a template on the head dim D, built for
 // D in {16, 32, 64}; the entry points take D and refuse any other value
-// with cudaErrorInvalidValue.  A thread of the f32 kernels owns the D/16
-// columns tx + 16 j of its rows; the bf16 kernels run D/16 k-steps over
-// the head dim in their score products and keep an m64nD accumulator of
-// each gradient.  At D = 64 the arithmetic is the one the kernels had
-// before they took D.
+// with cudaErrorInvalidValue.
 //
 // Layout.  q, k and v arrive as the strided [B, S, H, D] views of the
 // model's qkv projection (batch, seq and head strides, last dim
@@ -49,14 +46,56 @@
 // written [B, S, H, D] contiguous.  Rows and keys past S (the ragged last
 // tile) are zero-filled on load and masked, so any S works.
 //
+// ---------------------------------------------------------------------------
+// f32 backward: split TF32 ("3xTF32") on mma.sync.
+//
 // Bound on the H100.  At the training shape (B=8, H=12, S=2048, D=64,
-// causal) the two passes read ~50 MB and write ~38 MB but do ~2.9e11
-// flops (14 D per visible pair): they are bound by operations.  They use
-// plain FMA on CUDA cores (67 TFLOP/s f32 peak), not TF32 mma, to keep the
-// f32 parity the port is held to; the tiles live in (dynamic) shared memory
-// and each thread keeps a 4 x D/16 register block of each accumulator and
-// a 4 x 2 block of each score tile.  The bf16 kernels below run on wgmma
-// with TMA-fed tiles.
+// causal) the two passes read ~50 MB and write ~38 MB but do ~1.8e11
+// flops (6 D a visible pair in the dQ pass, 8 D in the dK/dV pass): they
+// are bound by operations.  On CUDA cores (67 TFLOP/s of f32 FMA) that is
+// 1.15 + 1.54 ms; the tensor cores run TF32 at 494.7 TFLOP/s dense, but a
+// TF32 product keeps 11 significant bits, far from the f32 parity the
+// port is held to.  So every product runs as three TF32 products: each f32
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi) (tf32(): keep
+// 10 explicit mantissa bits, round the 13 dropped ones to nearest, ties
+// away from zero), and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi accumulated
+// in f32 (the dropped a_lo b_lo is ~2^-22 of the product): f32 accuracy at
+// a third of the TF32 rate, 165 TFLOP/s, 2.5x the FMA peak.  On an NVIDIA
+// H100 80GB HBM3 at 700 W the passes take 1.33 + 1.67 ms there, 35-38% of
+// that bound and 0.71x SDPA's f32 backward (scripts/time_flash.py; PERF.md).
+//
+// Design.  One block of NW warps (NW * 16 owned rows) per (b*h, row tile);
+// each warp owns 16 rows and keeps its accumulators in registers as
+// m16n8k8 C fragments.  The owned tiles (Q and dO in the dQ pass, K and V
+// in the dK/dV pass) are copied to shared memory once; the streamed pair
+// (K and V, or Q and dO with their lse and delta) goes through a
+// two-stage cp.async ring of BN-row tiles.  After the first barrier of a
+// tile it is visible and every warp is done with the previous one, whose
+// stage then takes the next tile while this one is computed; the block
+// splits the tile into its TF32 parts (a hi and a lo tile), and after the
+// second barrier every warp reads the parts.  Tiles keep rows of D + 4
+// values (conflict-free for both fragment layouts below).  What counts
+// here is instructions: each product costs ~4 integer and float
+// instructions a split value beside its 3 HMMAs, so a streamed value is
+// split once a block, not once for each warp and product that uses it
+// (the owned rows, one warp's own, are split as their fragments load).
+// - S = Q K^T and dP = dO V^T (S^T = K Q^T and dP^T = V dO^T in the dK/dV
+//   pass): A fragments of the owned rows and B fragments of the streamed
+//   parts both come from row-major tiles through ldmatrix (an 8 x 4 f32
+//   block is an 8 x 8 b16 matrix, and ldmatrix's lane layout is then the
+//   tf32 fragment layout).
+// - dS (and P) feed the next product straight from their C fragments: the
+//   thread holding columns 2t and 2t + 1 of a row uses them as A columns t
+//   and t + 4, and the B fragment takes the streamed tile's rows 2t and
+//   2t + 1 to match (a permutation of the sum's terms, no shuffles).
+// - The dQ pass runs its query tiles heaviest first (the last tiles of the
+//   causal triangle; the grid's slow dimension); the dK/dV pass starts
+//   with its first key tiles, which see the most queries.  A warp skips
+//   the tiles wholly outside its rows' triangle (it still keeps the ring
+//   in step), and only tiles that cross its diagonal or run past S run the
+//   elementwise masks.
+// Block sizes: the launcher picks the owned rows by the grid against the
+// SM count (bwd_f32_block_rows, exported for the tests); BN is F32_BN.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,30 +106,6 @@
 
 namespace {
 
-constexpr int BR = 64;         // rows owned by a block (queries or keys)
-constexpr int BC = 32;         // rows of the streamed tile
-constexpr int THREADS = 256;   // 16 row groups x 16 lanes
-constexpr int LDP = BC + 1;
-
-// Load rows [r0, r0 + rows) of a strided [S, D] head slice into smem rows
-// of D + 1 floats (padded: conflict-free column reads) with float4 reads;
-// rows past S are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long stride, int r0, int rows,
-                                          int S, int tid) {
-  for (int f = tid; f < rows * (D / 4); f += THREADS) {
-    const int r = f / (D / 4);
-    const int c = (f % (D / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) {
-      x = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * stride + c);
-    }
-    float* row = dst + r * (D + 1) + c;
-    row[0] = x.x; row[1] = x.y; row[2] = x.z; row[3] = x.w;
-  }
-}
-
 struct Strides {
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -98,305 +113,573 @@ struct Strides {
   long long do_sb, do_ss, do_sh;
 };
 
-// dQ pass: one block per (b*h, 64-query tile); loop over 32-key tiles.
-template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ bias,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    Strides st, float* __restrict__ dq, int H, int S,
-                    int causal, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;  // output columns a thread owns
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [BR][LD]
-  float* dOs = Qs + BR * LD;        // [BR][LD]
-  float* Ks = dOs + BR * LD;        // [BC][LD]
-  float* Vs = Ks + BC * LD;         // [BC][LD]
-  float* dSs = Vs + BC * LD;        // [BR][LDP]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * BR;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-
-  const float* qb = q + b * st.q_sb + h * st.q_sh;
-  const float* kb = k + b * st.k_sb + h * st.k_sh;
-  const float* vb = v + b * st.v_sb + h * st.v_sh;
-  const float* dob = dout + b * st.do_sb + h * st.do_sh;
-  load_tile<D>(Qs, qb, st.q_ss, q0, BR, S, tid);
-  load_tile<D>(dOs, dob, st.do_ss, q0, BR, S, tid);
-
-  float row_lse[4], row_delta[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    row_lse[i] = r < S ? lse[(long long)bh * S + r] : 0.f;
-    row_delta[i] = r < S ? delta[(long long)bh * S + r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int kend = causal ? min(S, q0 + BR) : S;
-  const int ntiles = (kend + BC - 1) / BC;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BC;
-    __syncthreads();  // previous tile consumed (and Q, dO staged)
-    load_tile<D>(Ks, kb, st.k_ss, k0, BC, S, tid);
-    load_tile<D>(Vs, vb, st.v_ss, k0, BC, S, tid);
-    __syncthreads();
-
-    float kb_nat[2] = {0.f, 0.f};  // this lane's two keys' bias, in nats
-    if constexpr (HAS_BIAS) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = k0 + tx + 16 * j;
-        if (c < S) {
-          kb_nat[j] = __fmul_rn(bias[(long long)b * S + c], bf16mma::LN2);
-        }
-      }
-    }
-
-    float s[4][2], dp[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * LD + d];
-        gv[i] = dOs[(ty * 4 + i) * LD + d];
-      }
-      const float k0v = Ks[tx * LD + d], k1v = Ks[(tx + 16) * LD + d];
-      const float v0v = Vs[tx * LD + d], v1v = Vs[(tx + 16) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(qv[i], k0v, s[i][0]);
-        s[i][1] = fmaf(qv[i], k1v, s[i][1]);
-        dp[i][0] = fmaf(gv[i], v0v, dp[i][0]);
-        dp[i][1] = fmaf(gv[i], v1v, dp[i][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const bool visible = r < S && c < S && (!causal || c <= r);
-        float sv = s[i][j] * scale;
-        if constexpr (HAS_BIAS) sv += kb_nat[j];
-        const float p = visible ? expf(sv - row_lse[i]) : 0.f;
-        dSs[(ty * 4 + i) * LDP + tx + 16 * j] = p * (dp[i][j] - row_delta[i]) * scale;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BC; ++c) {
-      float ds[4], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty * 4 + i) * LDP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = Ks[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(ds[i], kv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= S) continue;
-    float* row = dq + (((long long)b * S + r) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = acc[i][j];
-  }
-}
-
-// dK/dV pass: one block per (b*h, 64-key tile); loop over 32-query tiles,
-// working on transposed [key, query] score tiles.
-template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ bias,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     Strides st, float* __restrict__ dk, float* __restrict__ dv,
-                     int H, int S, int causal, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;  // output columns a thread owns
-  extern __shared__ float smem[];
-  float* Ks = smem;                 // [BR][LD]
-  float* Vs = Ks + BR * LD;         // [BR][LD]
-  float* Qs = Vs + BR * LD;         // [BC][LD]
-  float* dOs = Qs + BC * LD;        // [BC][LD]
-  float* Ps = dOs + BC * LD;        // [BR][LDP]  P^T tile
-  float* dSs = Ps + BR * LDP;       // [BR][LDP]  dS^T tile
-  float* Ls = dSs + BR * LDP;       // [BC] lse of the query tile
-  float* Es = Ls + BC;              // [BC] delta of the query tile
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int k0 = blockIdx.x * BR;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-
-  const float* qb = q + b * st.q_sb + h * st.q_sh;
-  const float* kb = k + b * st.k_sb + h * st.k_sh;
-  const float* vb = v + b * st.v_sb + h * st.v_sh;
-  const float* dob = dout + b * st.do_sb + h * st.do_sh;
-  load_tile<D>(Ks, kb, st.k_ss, k0, BR, S, tid);
-  load_tile<D>(Vs, vb, st.v_ss, k0, BR, S, tid);
-
-  float dk_acc[4][DJ], dv_acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) { dk_acc[i][j] = 0.f; dv_acc[i][j] = 0.f; }
-  float key_bias[4] = {0.f, 0.f, 0.f, 0.f};  // this thread's keys, in nats
-  if constexpr (HAS_BIAS) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = k0 + ty * 4 + i;
-      if (c < S) {
-        key_bias[i] = __fmul_rn(bias[(long long)b * S + c], bf16mma::LN2);
-      }
-    }
-  }
-
-  // causal: query tiles that end before the block's first key see none of it
-  const int qstart = causal ? k0 / BC : 0;
-  const int ntiles = (S + BC - 1) / BC;
-  for (int qt = qstart; qt < ntiles; ++qt) {
-    const int q0 = qt * BC;
-    __syncthreads();  // previous tile consumed (and K, V staged)
-    load_tile<D>(Qs, qb, st.q_ss, q0, BC, S, tid);
-    load_tile<D>(dOs, dob, st.do_ss, q0, BC, S, tid);
-    if (tid < BC) {
-      const int r = q0 + tid;
-      Ls[tid] = r < S ? lse[(long long)bh * S + r] : 0.f;
-      Es[tid] = r < S ? delta[(long long)bh * S + r] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][2], dp[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = Ks[(ty * 4 + i) * LD + d];
-        vv[i] = Vs[(ty * 4 + i) * LD + d];
-      }
-      const float q0v = Qs[tx * LD + d], q1v = Qs[(tx + 16) * LD + d];
-      const float g0v = dOs[tx * LD + d], g1v = dOs[(tx + 16) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(kv[i], q0v, s[i][0]);
-        s[i][1] = fmaf(kv[i], q1v, s[i][1]);
-        dp[i][0] = fmaf(vv[i], g0v, dp[i][0]);
-        dp[i][1] = fmaf(vv[i], g1v, dp[i][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = k0 + ty * 4 + i;  // key
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int qc = tx + 16 * j;
-        const int r = q0 + qc;  // query
-        const bool visible = r < S && c < S && (!causal || c <= r);
-        float sv = s[i][j] * scale;
-        if constexpr (HAS_BIAS) sv += key_bias[i];
-        const float p = visible ? expf(sv - Ls[qc]) : 0.f;
-        Ps[(ty * 4 + i) * LDP + qc] = p;
-        dSs[(ty * 4 + i) * LDP + qc] = p * (dp[i][j] - Es[qc]) * scale;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BC; ++c) {
-      float pv[4], dsv[4], gv[DJ], qv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[(ty * 4 + i) * LDP + c];
-        dsv[i] = dSs[(ty * 4 + i) * LDP + c];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        gv[j] = dOs[c * LD + tx + 16 * j];
-        qv[j] = Qs[c * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dv_acc[i][j] = fmaf(pv[i], gv[j], dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(dsv[i], qv[j], dk_acc[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty * 4 + i;
-    if (c >= S) continue;
-    const long long off = (((long long)b * S + c) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[off + tx + 16 * j] = dk_acc[i][j];
-      dv[off + tx + 16 * j] = dv_acc[i][j];
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * BR * (D + 1) + 2 * BC * (D + 1) + BR * LDP);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(float) *
-         (2 * BR * (D + 1) + 2 * BC * (D + 1) + 2 * BR * LDP + 2 * BC);
-}
-
 Strides make_strides(const long long* s) {
   return Strides{s[0], s[1], s[2], s[3], s[4], s[5],
                  s[6], s[7], s[8], s[9], s[10], s[11]};
 }
 
-template <int D, bool HAS_BIAS>
+constexpr int F32_STAGES = 2;  // depth of the streamed ring
+// rows of a streamed tile (keys in the dQ pass, queries in the dK/dV pass):
+// 32 took 8-11% longer at the training shape (NVIDIA H100, PERF.md)
+constexpr int F32_BN = 64;
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it: the 13 low mantissa bits
+// dropped, to nearest, ties away from zero (adding half their range to the
+// sign-magnitude pattern carries into bit 13 exactly when they are >= half)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));  // exact difference, then rounded
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&raw)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(__uint_as_float(raw[i]), hi[i], lo[i]);
+}
+
+// c (m16n8, f32) += a (m16k8) b (k8n8), TF32 operands
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b to f32 accuracy from split operands: the two small terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// Four 8 x 4 f32 blocks (as 8 x 8 b16 matrices), lane l giving the row
+// address of block l / 8, row l % 8: lane (g, t) receives element [g][t]
+// of each block, the tf32 fragment layout.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hopper::smem_u32(p))
+               : "memory");
+}
+
+// 4-byte async copy global -> shared; when !valid nothing is read and the
+// word is zero-filled
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Shared memory of an f32 instance, in floats: the owned pair, the
+// streamed pair's ring, two per-row windows (the dQ pass's key bias; the
+// dK/dV pass's lse and delta) for each stage, and the current streamed
+// pair split into TF32 parts (hi and lo of each tile).
+template <int D, int NW, int BN>
+struct F32Layout {
+  static constexpr int LD = D + 4;  // floats a tile row
+  static constexpr int BR = 16 * NW;
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int OWN = BR * LD;
+  static constexpr int TILE = BN * LD;
+  static constexpr int RING = 2 * OWN;                        // streamed A
+  static constexpr int RING2 = RING + F32_STAGES * TILE;      // streamed B
+  static constexpr int WIN = RING2 + F32_STAGES * TILE;       // windows
+  static constexpr int SPLIT = WIN + 2 * F32_STAGES * BN;     // A hi, lo, B hi, lo
+  static constexpr int BYTES = 4 * (SPLIT + 4 * TILE);
+};
+
+// rows [r0, r0 + ROWS) of a strided [S, D] head slice into rows of D + 4
+// floats, 16 bytes a cp.async; rows past S are zero-filled, never read
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          long long stride, int r0, int S,
+                                          int tid) {
+  constexpr int CH = D / 4;
+#pragma unroll
+  for (int f = tid; f < ROWS * CH; f += THREADS) {
+    const int r = f / CH;
+    const int c = (f % CH) * 4;
+    const bool ok = r0 + r < S;
+    bf16mma::cp_async16(dst + r * (D + 4) + c,
+                        src + (ok ? (long long)(r0 + r) * stride + c : 0), ok);
+  }
+}
+
+// values [x0, x0 + N) of a run of S floats (past S: zero)
+template <int N, int THREADS>
+__device__ __forceinline__ void copy_window(float* dst, const float* src,
+                                            int x0, int S, int tid) {
+  for (int i = tid; i < N; i += THREADS) {
+    const bool ok = x0 + i < S;
+    cp_async4(dst + i, src + (ok ? x0 + i : 0), ok);
+  }
+}
+
+// A streamed tile's BN rows of f32 values split into TF32 parts, hi and lo
+// in tiles of the same layout, 16 bytes a thread at a time; the block's
+// warps then load the parts instead of each splitting every value it uses.
+template <int D, int BN, int THREADS>
+__device__ __forceinline__ void split_tile(uint32_t* hi, uint32_t* lo,
+                                           const float* raw, int tid) {
+  constexpr int CH = D / 4;
+#pragma unroll
+  for (int f = tid; f < BN * CH; f += THREADS) {
+    const int at = (f / CH) * (D + 4) + (f % CH) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(raw + at);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + at) = h;
+    *reinterpret_cast<uint4*>(lo + at) = l;
+  }
+}
+
+// S1 = A1 B1^T and S2 = A2 B2^T for a warp's 16 owned rows (A1, A2: their
+// first row, f32, split here) against the BN rows of a streamed tile
+// (B1, B2: its TF32 parts), D deep; each C fragment j covers streamed rows
+// 8j .. 8j + 7.
+template <int D, int BN>
+__device__ __forceinline__ void two_products(float (&s1)[BN / 8][4],
+                                             float (&s2)[BN / 8][4],
+                                             const float* A1, const float* A2,
+                                             const uint32_t* B1h,
+                                             const uint32_t* B1l,
+                                             const uint32_t* B2h,
+                                             const uint32_t* B2l, int lane) {
+  constexpr int LD = D + 4;
+  const int mi = lane >> 3;  // the ldmatrix block this lane addresses
+  const int ri = lane & 7;   // and its row there
+  // A: blocks (rows 0-7 | 8-15) x (k 0-3 | 4-7) -> a0, a1, a2, a3
+  const int a_off = (ri + 8 * (mi & 1)) * LD + 4 * (mi >> 1);
+  // B: blocks (k 0-3 | 4-7) x (rows 0-7 | 8-15) -> b0, b1 of two C tiles
+  const int b_off = (ri + 8 * (mi >> 1)) * LD + 4 * (mi & 1);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s1[j][e] = s2[j][e] = 0.f;
+  }
+#pragma unroll
+  for (int kc = 0; kc < D / 8; ++kc) {
+    uint32_t raw[4], a1h[4], a1l[4], a2h[4], a2l[4];
+    ldsm4(raw, A1 + a_off + 8 * kc);
+    split_tf32(raw, a1h, a1l);
+    ldsm4(raw, A2 + a_off + 8 * kc);
+    split_tf32(raw, a2h, a2l);
+#pragma unroll
+    for (int np = 0; np < BN / 16; ++np) {
+      const int at = b_off + 16 * np * LD + 8 * kc;
+      uint32_t bh[4], bl[4];
+      ldsm4(bh, B1h + at);
+      ldsm4(bl, B1l + at);
+      mma3(s1[2 * np], a1h, a1l, bh[0], bh[1], bl[0], bl[1]);
+      mma3(s1[2 * np + 1], a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
+      ldsm4(bh, B2h + at);
+      ldsm4(bl, B2l + at);
+      mma3(s2[2 * np], a2h, a2l, bh[0], bh[1], bl[0], bl[1]);
+      mma3(s2[2 * np + 1], a2h, a2l, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// acc (16 rows x D) += X T for X = the 16 x BN C fragments x (the warp's
+// rows against the streamed rows) and T the streamed tile (BN x D, its TF32
+// parts Th, Tl): x's C tile j is the A operand of k-step j, its columns 2t,
+// 2t + 1 standing for k = t, t + 4, and the B operand takes T's rows
+// 8j + 2t, 8j + 2t + 1.
+// The tile's products are summed in a fresh accumulator and added to acc
+// once: the tensor cores' f32 accumulation rounds its sums toward zero, a
+// bias that would grow with the number of streamed tiles in one chain of
+// products, while an f32 addition a tile rounds to nearest.
+template <int D, int BN>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const float (&x)[BN / 8][4],
+                                           const uint32_t* Th,
+                                           const uint32_t* Tl, int g, int t) {
+  constexpr int LD = D + 4;
+  float part[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+  }
+  const int col = 2 * t * LD + g;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(x[j][0], ah[0], al[0]);  // row g,     k = t     (col 2t)
+    split_tf32(x[j][2], ah[1], al[1]);  // row g + 8, k = t
+    split_tf32(x[j][1], ah[2], al[2]);  // row g,     k = t + 4 (col 2t + 1)
+    split_tf32(x[j][3], ah[3], al[3]);  // row g + 8, k = t + 4
+    const int row = col + 8 * j * LD;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      mma3(part[n], ah, al, Th[row + 8 * n], Th[row + LD + 8 * n],
+           Tl[row + 8 * n], Tl[row + LD + 8 * n]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+  }
+}
+
+// dS of the dQ pass's [16 rows x BN keys] tile, in place of S.  lse, dlt:
+// the thread's rows row and row + 8; bias_t: the tile's raw key bias.
+// EDGE: the tile crosses the warp's diagonal or S, so each element checks
+// that its key is visible from its row.
+template <bool HAS_BIAS, bool EDGE, int BN>
+__device__ __forceinline__ void dq_scores_to_ds(float (&sc)[BN / 8][4],
+                                                const float (&dp)[BN / 8][4],
+                                                const float (&lse)[2],
+                                                const float (&dlt)[2],
+                                                const float* bias_t,
+                                                float scale, int k0, int row,
+                                                int t, int S, int causal) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const int c = 8 * j + 2 * t + (e & 1);  // key within the tile
+      // with the bias: a fully masked row's -1e30 ln 2 absorbs the score
+      // and cancels its lse exactly (P = 1, as in the reference)
+      const float x =
+          HAS_BIAS ? fmaf(sc[j][e], scale, __fmul_rn(bias_t[c], bf16mma::LN2)) - lse[i]
+                   : fmaf(sc[j][e], scale, -lse[i]);
+      float p = hopper::exp2_ftz(x * bf16mma::LOG2E);
+      if constexpr (EDGE) {
+        const int key = k0 + c;
+        if (key >= S || (causal && key > row + 8 * i)) p = 0.f;
+      }
+      sc[j][e] = p * (dp[j][e] - dlt[i]) * scale;
+    }
+  }
+}
+
+// P^T and dS^T of the dK/dV pass's [16 keys x BN queries] tile, in place of
+// S^T and dP^T.  kbias: the thread's keys' bias in nats; lse_t, dlt_t: the
+// tile's query windows.  EDGE: the tile crosses the warp's diagonal or S.
+template <bool HAS_BIAS, bool EDGE, int BN>
+__device__ __forceinline__ void dkv_scores_to_p_ds(float (&st)[BN / 8][4],
+                                                   float (&dpt)[BN / 8][4],
+                                                   const float (&kbias)[2],
+                                                   const float* lse_t,
+                                                   const float* dlt_t,
+                                                   float scale, int q0,
+                                                   int key, int t, int S,
+                                                   int causal) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;                   // key row key + 8 i
+      const int c = 8 * j + 2 * t + (e & 1);  // query within the tile
+      const float x = HAS_BIAS ? fmaf(st[j][e], scale, kbias[i]) - lse_t[c]
+                               : fmaf(st[j][e], scale, -lse_t[c]);
+      float p = hopper::exp2_ftz(x * bf16mma::LOG2E);
+      if constexpr (EDGE) {
+        const int qr = q0 + c;
+        const int kr = key + 8 * i;
+        if (qr >= S || kr >= S || (causal && kr > qr)) p = 0.f;
+      }
+      st[j][e] = p;
+      dpt[j][e] = p * (dpt[j][e] - dlt_t[c]) * scale;
+    }
+  }
+}
+
+// this thread's two rows (row, row + 8) of a [B, S, H, D] f32 output
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* out,
+                                               const float (&acc)[D / 8][4],
+                                               int b, int h, int H, int S,
+                                               int row, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    if (r >= S) continue;
+    float* orow = out + (((long long)b * S + r) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+    }
+  }
+}
+
+// dQ pass: one block per (b*h, tile of 16 NW query rows, last tile first);
+// streams key tiles of BN keys.
+template <int D, bool HAS_BIAS, int NW, int BN>
+__global__ void __launch_bounds__(32 * NW, NW == 4 ? 2 : 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ bias,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, Strides st,
+                        float* __restrict__ dq, int H, int S, int causal,
+                        float scale) {
+  using L = F32Layout<D, NW, BN>;
+  constexpr int LD = L::LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                // [BR][LD]
+  float* dOs = smem + L::OWN;      // [BR][LD]
+  float* Ks = smem + L::RING;      // [STAGES][BN][LD]
+  float* Vs = smem + L::RING2;     // [STAGES][BN][LD]
+  float* Bs = smem + L::WIN;       // [STAGES][BN] raw key bias
+  uint32_t* Kh = reinterpret_cast<uint32_t*>(smem + L::SPLIT);  // [BN][LD]
+  uint32_t* Kl = Kh + L::TILE;
+  uint32_t* Vh = Kl + L::TILE;
+  uint32_t* Vl = Vh + L::TILE;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::BR;  // last tile first
+  // causal: keys past the block's last query row are never visible
+  const int kend = causal ? min(S, q0 + L::BR) : S;
+  const int ntiles = (kend + BN - 1) / BN;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  const float* qb = q + b * st.q_sb + h * st.q_sh;
+  const float* kb = k + b * st.k_sb + h * st.k_sh;
+  const float* vb = v + b * st.v_sb + h * st.v_sh;
+  const float* dob = dout + b * st.do_sb + h * st.do_sh;
+  const float* biasb = HAS_BIAS ? bias + (long long)b * S : nullptr;
+  auto load_tile = [&](int kt) {
+    const int s = kt % F32_STAGES;
+    copy_rows<D, BN, L::THREADS>(Ks + s * L::TILE, kb, st.k_ss, kt * BN, S, tid);
+    copy_rows<D, BN, L::THREADS>(Vs + s * L::TILE, vb, st.v_ss, kt * BN, S, tid);
+    if constexpr (HAS_BIAS) {
+      copy_window<BN, L::THREADS>(Bs + s * BN, biasb, kt * BN, S, tid);
+    }
+    bf16mma::cp_async_commit();
+  };
+  copy_rows<D, L::BR, L::THREADS>(Qs, qb, st.q_ss, q0, S, tid);
+  copy_rows<D, L::BR, L::THREADS>(dOs, dob, st.do_ss, q0, S, tid);
+  load_tile(0);  // one group: Q, dO and the first tile
+
+  const int r0 = q0 + 16 * warp;  // the warp's first row
+  const int row = r0 + g;         // this thread's rows: row, row + 8
+  // the tiles this warp computes: with causal masking, those that start at
+  // or before its last row
+  const int nact = r0 >= S ? 0
+                   : causal ? min(ntiles, (r0 + 15) / BN + 1)
+                            : ntiles;
+  float lse_r[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    const long long at = (long long)bh * S + r;
+    lse_r[i] = r < S ? lse[at] : 0.f;
+    dlt[i] = r < S ? delta[at] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int s = kt % F32_STAGES;
+    bf16mma::cp_async_wait<0>();
+    __syncthreads();  // tile kt visible; every warp is done with tile kt - 1
+    if (kt + 1 < ntiles) load_tile(kt + 1);
+    split_tile<D, BN, L::THREADS>(Kh, Kl, Ks + s * L::TILE, tid);
+    split_tile<D, BN, L::THREADS>(Vh, Vl, Vs + s * L::TILE, tid);
+    __syncthreads();  // the tile's TF32 parts visible
+    if (kt >= nact) continue;  // warp-uniform: above the warp's rows
+    const int k0 = kt * BN;
+    float sc[BN / 8][4], dp[BN / 8][4];
+    two_products<D, BN>(sc, dp, Qs + 16 * warp * LD, dOs + 16 * warp * LD, Kh,
+                        Kl, Vh, Vl, lane);
+    if (k0 + BN > S || (causal && k0 + BN - 1 > r0)) {
+      dq_scores_to_ds<HAS_BIAS, true, BN>(sc, dp, lse_r, dlt, Bs + s * BN,
+                                          scale, k0, row, t, S, causal);
+    } else {
+      dq_scores_to_ds<HAS_BIAS, false, BN>(sc, dp, lse_r, dlt, Bs + s * BN,
+                                           scale, k0, row, t, S, causal);
+    }
+    accumulate<D, BN>(acc, sc, Kh, Kl, g, t);
+  }
+  store_rows_f32<D>(dq, acc, b, h, H, S, row, t);
+}
+
+// dK/dV pass: one block per (b*h, tile of 16 NW key rows, first tile first);
+// streams query tiles of BN queries with their lse and delta.
+template <int D, bool HAS_BIAS, int NW, int BN>
+__global__ void __launch_bounds__(32 * NW, NW == 4 ? 2 : 1)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ bias,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, Strides st,
+                         float* __restrict__ dk, float* __restrict__ dv, int H,
+                         int S, int causal, float scale) {
+  using L = F32Layout<D, NW, BN>;
+  constexpr int LD = L::LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                        // [BR][LD]
+  float* Vs = smem + L::OWN;               // [BR][LD]
+  float* Qs = smem + L::RING;              // [STAGES][BN][LD]
+  float* dOs = smem + L::RING2;            // [STAGES][BN][LD]
+  float* Ls = smem + L::WIN;               // [STAGES][BN] lse
+  float* Es = Ls + F32_STAGES * BN;        // [STAGES][BN] delta
+  uint32_t* Qh = reinterpret_cast<uint32_t*>(smem + L::SPLIT);  // [BN][LD]
+  uint32_t* Ql = Qh + L::TILE;
+  uint32_t* Gh = Ql + L::TILE;  // dO
+  uint32_t* Gl = Gh + L::TILE;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.y * L::BR;  // first key tile first: the longest
+  // causal: query tiles that end before the block's first key see none of it
+  const int qstart = causal ? k0 / BN : 0;
+  const int ntiles = (S + BN - 1) / BN - qstart;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  const float* qb = q + b * st.q_sb + h * st.q_sh;
+  const float* kb = k + b * st.k_sb + h * st.k_sh;
+  const float* vb = v + b * st.v_sb + h * st.v_sh;
+  const float* dob = dout + b * st.do_sb + h * st.do_sh;
+  const float* lseb = lse + (long long)bh * S;
+  const float* deltab = delta + (long long)bh * S;
+  auto load_tile = [&](int it) {
+    const int s = it % F32_STAGES;
+    const int q0 = (qstart + it) * BN;
+    copy_rows<D, BN, L::THREADS>(Qs + s * L::TILE, qb, st.q_ss, q0, S, tid);
+    copy_rows<D, BN, L::THREADS>(dOs + s * L::TILE, dob, st.do_ss, q0, S, tid);
+    copy_window<BN, L::THREADS>(Ls + s * BN, lseb, q0, S, tid);
+    copy_window<BN, L::THREADS>(Es + s * BN, deltab, q0, S, tid);
+    bf16mma::cp_async_commit();
+  };
+  copy_rows<D, L::BR, L::THREADS>(Ks, kb, st.k_ss, k0, S, tid);
+  copy_rows<D, L::BR, L::THREADS>(Vs, vb, st.v_ss, k0, S, tid);
+  load_tile(0);  // one group: K, V and the first tile
+
+  const int kw0 = k0 + 16 * warp;  // the warp's first key
+  const int key = kw0 + g;         // this thread's keys: key, key + 8
+  // with causal masking the tiles that end before the warp's first key see
+  // none of its keys: it skips them
+  const int skip = kw0 >= S ? ntiles : causal ? kw0 / BN - qstart : 0;
+  float kbias[2] = {0.f, 0.f};  // this thread's keys' bias, in nats
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (key + 8 * i < S) {
+        kbias[i] = __fmul_rn(bias[(long long)b * S + key + 8 * i], bf16mma::LN2);
+      }
+    }
+  }
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % F32_STAGES;
+    bf16mma::cp_async_wait<0>();
+    __syncthreads();  // tile it visible; every warp is done with tile it - 1
+    if (it + 1 < ntiles) load_tile(it + 1);
+    split_tile<D, BN, L::THREADS>(Qh, Ql, Qs + s * L::TILE, tid);
+    split_tile<D, BN, L::THREADS>(Gh, Gl, dOs + s * L::TILE, tid);
+    __syncthreads();  // the tile's TF32 parts visible
+    if (it < skip) continue;  // warp-uniform: before the warp's keys
+    const int q0 = (qstart + it) * BN;
+    float pt[BN / 8][4], dst[BN / 8][4];
+    two_products<D, BN>(pt, dst, Ks + 16 * warp * LD, Vs + 16 * warp * LD, Qh,
+                        Ql, Gh, Gl, lane);
+    if (q0 + BN > S || kw0 + 16 > S || (causal && q0 < kw0 + 15)) {
+      dkv_scores_to_p_ds<HAS_BIAS, true, BN>(pt, dst, kbias, Ls + s * BN,
+                                             Es + s * BN, scale, q0, key, t, S,
+                                             causal);
+    } else {
+      dkv_scores_to_p_ds<HAS_BIAS, false, BN>(pt, dst, kbias, Ls + s * BN,
+                                              Es + s * BN, scale, q0, key, t,
+                                              S, causal);
+    }
+    accumulate<D, BN>(dv_acc, pt, Gh, Gl, g, t);
+    accumulate<D, BN>(dk_acc, dst, Qh, Ql, g, t);
+  }
+  store_rows_f32<D>(dk, dk_acc, b, h, H, S, key, t);
+  store_rows_f32<D>(dv, dv_acc, b, h, H, S, key, t);
+}
+
+// Rows a block owns in the f32 pass `pass` (0: dQ, 1: dK/dV) over B * H
+// heads of S rows: 128 when that grid covers at least half the SMs, else
+// 64 (more warps share each streamed tile; fewer rows spread a short grid
+// over more SMs); 64 if the SM count cannot be read.  At D = 64 one block
+// (of 8 warps or of 4) takes most of an SM's shared memory.
+int bwd_f32_block_rows(int pass, int B, int H, int S) {
+  (void)pass;
+  int dev = 0;
+  int sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 64;
+  }
+  return 2LL * B * H * ((S + 127) / 128) >= sms ? 128 : 64;
+}
+
+template <int D, bool HAS_BIAS, int NW>
 int launch_dq_f32_as(const float* q, const float* k, const float* v,
                      const float* bias, const float* dout, const float* lse,
                      const float* delta, const Strides& st, float* dq, int B,
                      int H, int S, int causal, float scale,
                      cudaStream_t stream) {
-  // above 48 KB a block's shared memory must be asked for explicitly
-  constexpr size_t smem = dq_smem<D>();
-  const cudaError_t set = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D, HAS_BIAS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid((S + BR - 1) / BR, B * H);
-  flash_bwd_dq_kernel<D, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
+  using L = F32Layout<D, NW, F32_BN>;
+  const auto kernel = flash_bwd_dq_f32_kernel<D, HAS_BIAS, NW, F32_BN>;
+  static unsigned long long configured = 0;  // a bit per device
+  const cudaError_t err =
+      hopper::configure_once(kernel, L::BYTES, L::THREADS, 0, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + L::BR - 1) / L::BR);
+  kernel<<<grid, L::THREADS, L::BYTES, stream>>>(
       q, k, v, bias, dout, lse, delta, st, dq, H, S, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool HAS_BIAS, int NW>
+int launch_dkv_f32_as(const float* q, const float* k, const float* v,
+                      const float* bias, const float* dout, const float* lse,
+                      const float* delta, const Strides& st, float* dk,
+                      float* dv, int B, int H, int S, int causal, float scale,
+                      cudaStream_t stream) {
+  using L = F32Layout<D, NW, F32_BN>;
+  const auto kernel = flash_bwd_dkv_f32_kernel<D, HAS_BIAS, NW, F32_BN>;
+  static unsigned long long configured = 0;  // a bit per device
+  const cudaError_t err =
+      hopper::configure_once(kernel, L::BYTES, L::THREADS, 0, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + L::BR - 1) / L::BR);
+  kernel<<<grid, L::THREADS, L::BYTES, stream>>>(
+      q, k, v, bias, dout, lse, delta, st, dk, dv, H, S, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -405,28 +688,13 @@ int launch_dq_f32(const float* q, const float* k, const float* v,
                   const float* bias, const float* dout, const float* lse,
                   const float* delta, const Strides& st, float* dq, int B,
                   int H, int S, int causal, float scale, cudaStream_t stream) {
-  return bias != nullptr
-             ? launch_dq_f32_as<D, true>(q, k, v, bias, dout, lse, delta, st,
-                                         dq, B, H, S, causal, scale, stream)
-             : launch_dq_f32_as<D, false>(q, k, v, bias, dout, lse, delta, st,
-                                          dq, B, H, S, causal, scale, stream);
-}
-
-template <int D, bool HAS_BIAS>
-int launch_dkv_f32_as(const float* q, const float* k, const float* v,
-                      const float* bias, const float* dout, const float* lse,
-                      const float* delta, const Strides& st, float* dk,
-                      float* dv, int B, int H, int S, int causal, float scale,
-                      cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem<D>();
-  const cudaError_t set = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, HAS_BIAS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid((S + BR - 1) / BR, B * H);
-  flash_bwd_dkv_kernel<D, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
-      q, k, v, bias, dout, lse, delta, st, dk, dv, H, S, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const bool wide = bwd_f32_block_rows(0, B, H, S) == 128;
+#define DQ_AS(HB, NW_)                                                        \
+  launch_dq_f32_as<D, HB, NW_>(q, k, v, bias, dout, lse, delta, st, dq, B, H, \
+                               S, causal, scale, stream)
+  if (bias != nullptr) return wide ? DQ_AS(true, 8) : DQ_AS(true, 4);
+  return wide ? DQ_AS(false, 8) : DQ_AS(false, 4);
+#undef DQ_AS
 }
 
 template <int D>
@@ -435,13 +703,13 @@ int launch_dkv_f32(const float* q, const float* k, const float* v,
                    const float* delta, const Strides& st, float* dk,
                    float* dv, int B, int H, int S, int causal, float scale,
                    cudaStream_t stream) {
-  return bias != nullptr
-             ? launch_dkv_f32_as<D, true>(q, k, v, bias, dout, lse, delta, st,
-                                          dk, dv, B, H, S, causal, scale,
-                                          stream)
-             : launch_dkv_f32_as<D, false>(q, k, v, bias, dout, lse, delta,
-                                           st, dk, dv, B, H, S, causal, scale,
-                                           stream);
+  const bool wide = bwd_f32_block_rows(1, B, H, S) == 128;
+#define DKV_AS(HB, NW_)                                                      \
+  launch_dkv_f32_as<D, HB, NW_>(q, k, v, bias, dout, lse, delta, st, dk, dv, \
+                                B, H, S, causal, scale, stream)
+  if (bias != nullptr) return wide ? DKV_AS(true, 8) : DKV_AS(true, 4);
+  return wide ? DKV_AS(false, 8) : DKV_AS(false, 4);
+#undef DKV_AS
 }
 
 }  // namespace
@@ -492,6 +760,25 @@ extern "C" int flash_attention_bwd_dkv_f32(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The rows a block of the f32 backward's pass `pass` (0: dQ, 1: dK/dV)
+// owns at (B, H, S) on the current device: 128 or 64 (bwd_f32_block_rows).
+extern "C" int flash_attention_bwd_f32_block_rows(int pass, int B, int H,
+                                                  int S) {
+  return bwd_f32_block_rows(pass, B, H, S);
+}
+
+// Dynamic shared memory, in bytes, of an f32 backward instance (pass 0 the
+// dQ pass, 1 the dK/dV pass; head dim D; `rows` owned rows a block); -1 if
+// there is no such instance.  The bias does not change it.
+extern "C" int flash_attention_bwd_f32_smem_bytes(int pass, int D, int rows) {
+  if ((pass != 0 && pass != 1) || (rows != 64 && rows != 128) ||
+      (D != 16 && D != 32 && D != 64)) {
+    return -1;
+  }
+  return 4 * ((2 * rows + (2 * F32_STAGES + 4) * F32_BN) * (D + 4) +
+              2 * F32_STAGES * F32_BN);
 }
 
 // ---------------------------------------------------------------------------

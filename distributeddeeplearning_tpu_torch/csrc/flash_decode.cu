@@ -14,7 +14,7 @@
 //       chunked prefill passes no overlay);
 // with queries (and the overlay's own K/V) in f32 or bf16 and pages in
 // f32, bf16 or int8 -- every pair an engine makes, bf16 weights over an
-// int8 cache included -- and head dim hd in {16, 32, 64}.  Every value is
+// int8 cache included -- and head dim hd in {8, 16, 32, 64}.  Every value is
 // widened to f32 before any product (the Pallas kernel's k.astype(f32)),
 // so a bf16 pool gives the bits an f32 pool holding the same values
 // gives.  For every slot b, query qi and head h it computes
@@ -32,7 +32,8 @@
 // pool [P, L, page_size, h, hd] (page stride L*page_size*h*hd) or of the
 // dense cache [slots, L, S, h, hd] (one page of S per slot, identity
 // tables) be read in place -- no pool is ever copied.  Page rows must
-// start on 16 bytes (the wrapper checks it).  posmat is [b, nq] (int32,
+// start on 16 bytes, or on their own size where a row is shorter (an int8
+// row at hd 8 is 8 bytes; the wrapper checks it).  posmat is [b, nq] (int32,
 // >= 0); the overlay's k_own/v_own are [b, h, hd] in q's type (strided);
 // part is the f32 scratch [b, nq, h, nsplit, hd + 2]; out is [b, nq, h,
 // hd] f32, contiguous.
@@ -53,7 +54,8 @@
 // K and V rows of the span, up to the block's largest visible position and
 // no further, go to shared memory 16 bytes a thread, every row in flight
 // at once: f32 rows by cp.async straight into the f32 tile; bf16 and int8
-// rows by 16-byte loads into registers, all issued before any is used,
+// rows by 16-byte loads (8-byte for an int8 row at hd 8) into registers,
+// all issued before any is used,
 // then widened (int8: times the row's scale, one rounding, the Pallas
 // order) into the f32 tile, the overlay's own K/V replacing the row at its
 // position.  The tile's rows are padded to hd + 4 floats so that lanes
@@ -172,10 +174,10 @@ struct Smem {
   }
 };
 
-// 16 bytes of a bf16 or int8 row, widened to f32 (int8 times its scale)
-// into dst.
-__device__ __forceinline__ void widen16(const uint4& w, float* dst, float,
-                                        const bf16*) {
+// A chunk of a bf16 or int8 row (16 bytes; 8 for an int8 row at hd 8),
+// widened to f32 (int8 times its scale) into dst.
+__device__ __forceinline__ void widen_chunk(const uint4& w, float* dst, float,
+                                            const bf16*) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
   float4* d = reinterpret_cast<float4*>(dst);
 #pragma unroll
@@ -185,18 +187,30 @@ __device__ __forceinline__ void widen16(const uint4& w, float* dst, float,
     d[i] = make_float4(lo.x, lo.y, hi.x, hi.y);
   }
 }
-__device__ __forceinline__ void widen16(const uint4& w, float* dst,
-                                        float scale, const signed char*) {
+template <typename W>
+__device__ __forceinline__ void widen_chunk(const W& w, float* dst,
+                                            float scale, const signed char*) {
   const signed char* c = reinterpret_cast<const signed char*>(&w);
   float4* d = reinterpret_cast<float4*>(dst);
   // widen, then scale: the Pallas order k.astype(f32) * scale
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < static_cast<int>(sizeof(W)) / 4; ++i)
     d[i] = make_float4(__fmul_rn(static_cast<float>(c[4 * i]), scale),
                        __fmul_rn(static_cast<float>(c[4 * i + 1]), scale),
                        __fmul_rn(static_cast<float>(c[4 * i + 2]), scale),
                        __fmul_rn(static_cast<float>(c[4 * i + 3]), scale));
 }
+
+// The register chunk a lane loads of a narrow row: 16 bytes, or 8 where the
+// whole row is 8 bytes (int8 at hd 8).
+template <int BYTES>
+struct Chunk {
+  using type = uint4;
+};
+template <>
+struct Chunk<8> {
+  using type = uint2;
+};
 
 // A lane's EL consecutive dims of a tile row (8-byte aligned at EL 2).
 __device__ __forceinline__ void load_dims(const float* p, float (&x)[2]) {
@@ -225,8 +239,12 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   using L = Smem<PT, HD>;
   constexpr bool INT8 = sizeof(PT) == 1;
   constexpr int LD = L::LD;
-  constexpr int EPC = 16 / sizeof(PT);  // elements a 16-byte chunk
-  constexpr int CH = HD / EPC;          // chunks a row
+  // bytes a copy chunk: 16, or the whole row where it is shorter
+  constexpr int CHUNK = HD * static_cast<int>(sizeof(PT)) < 16
+                            ? HD * static_cast<int>(sizeof(PT)) : 16;
+  constexpr int EPC = CHUNK / sizeof(PT);  // elements a chunk
+  constexpr int CH = HD / EPC;             // chunks a row
+  using W = typename Chunk<CHUNK>::type;
   constexpr int PER = SPAN / 32;        // positions a lane scores
   constexpr int EL = HD >= 32 ? HD / 32 : 1;  // dims a lane accumulates
   constexpr int LANES = HD / EL;              // lanes that hold any
@@ -296,7 +314,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     // bf16 and int8 rows through registers: every load issued, then each
     // widened into the f32 tile; the overlay replaces its own row here
     constexpr int PERT = (SPAN * CH + MIN_WARPS * 32 - 1) / (MIN_WARPS * 32);
-    uint4 kw[PERT], vw[PERT];
+    W kw[PERT], vw[PERT];
     float ks[PERT], vs[PERT];
 #pragma unroll
     for (int u = 0; u < PERT; ++u) {
@@ -305,8 +323,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
       if (i < nrows * CH) {
         const int r = i / CH;
         const int c = (i % CH) * EPC;
-        kw[u] = *reinterpret_cast<const uint4*>(kp + rows[r] + c);
-        vw[u] = *reinterpret_cast<const uint4*>(vp + rows[r] + c);
+        kw[u] = *reinterpret_cast<const W*>(kp + rows[r] + c);
+        vw[u] = *reinterpret_cast<const W*>(vp + rows[r] + c);
         if constexpr (INT8) {
           ks[u] = a.k_scale[srows[r]];
           vs[u] = a.v_scale[srows[r]];
@@ -330,8 +348,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
             vd[e] = widen1(static_cast<const QT*>(a.v_own) + o + e);
           }
         } else {
-          widen16(kw[u], kd, ks[u], kp);
-          widen16(vw[u], vd, vs[u], vp);
+          widen_chunk(kw[u], kd, ks[u], kp);
+          widen_chunk(vw[u], vd, vs[u], vp);
         }
       }
     }
@@ -507,6 +525,8 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 template <typename QT, typename PT, bool OVERLAY>
 int launch_hd(const Args& a, int B, int HD, cudaStream_t stream) {
   switch (HD) {
+    case 8:
+      return launch<QT, PT, OVERLAY, 8>(a, B, stream);
     case 16:
       return launch<QT, PT, OVERLAY, 16>(a, B, stream);
     case 32:
@@ -540,7 +560,7 @@ int launch_pages(const Args& a, int page_type, int B, int HD,
 // q_type: 0 f32, 1 bf16 (the overlay's k_own/v_own share it); page_type:
 // 0 f32, 1 bf16, 2 int8 (k_scale/v_scale then give the f32 scale pools;
 // k_own == nullptr launches it without the overlay, which the wrapper
-// allows at NQ == 1 only); hd: 16, 32 or 64; nsplit = ceil(nb *
+// allows at NQ == 1 only); hd: 8, 16, 32 or 64; nsplit = ceil(nb *
 // page_size / SPAN), the scratch part's fourth dim (the wrapper's SPAN
 // mirrors this file's).
 // Launches the split pass, then the merge pass.  Returns a cudaError_t.

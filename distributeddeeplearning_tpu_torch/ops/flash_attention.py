@@ -5,16 +5,21 @@ On CUDA tensors :func:`flash_attention_core` launches hand-written kernels:
 Pallas ``_kernel`` launched by ``_flash_fwd_pallas``) and, when a gradient
 is taken, ``csrc/flash_attention_bwd.cu`` for the backward (the dQ pass and
 the dK/dV pass, counterparts of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
-launched by ``_flash_bwd_pallas``).  Causal or not, head dim 16, 32 or 64
-(:data:`HEAD_DIMS`: the reference's serve, trainer and benchmark
+launched by ``_flash_bwd_pallas``).  Causal or not, head dim 8, 16, 32 or
+64 (:data:`HEAD_DIMS`: the reference's serve, trainer and benchmark
 geometries), any sequence length, in either of the two dtypes the Pallas
-kernels run:
-float32 (SIMT kernels, full f32 arithmetic) or bfloat16 (tensor-core
-kernels on ``wgmma`` with TMA-fed tiles, bf16 operands with f32
-accumulation).  The dtype picks the entry
-point; all operands share it.  On CPU tensors the same code runs the
-kernels' plain versions: :func:`_dense_attention` (the reference's
-``_dense_attention`` extended to return the log-sum-exp in nats) and
+kernels run: float32 (the forward on CUDA cores; the backward on the
+tensor cores in split TF32, three TF32 products a product, which keeps
+f32 accuracy) or bfloat16 (tensor-core kernels on ``wgmma`` with TMA-fed
+tiles, bf16 operands with f32 accumulation).  The dtype picks the entry
+point; all operands share it.  The kernels are built for head dims 16, 32
+and 64 (:data:`KERNEL_HEAD_DIMS`); a head dim of 8 runs them at 16 on
+zero-padded copies (:func:`pad_head_dim`, :func:`strip_head_dim`), which
+is exact -- zero columns add nothing to Q K^T and give zero output
+columns -- with the scale 1/sqrt(8) of the caller's head dim.  On CPU
+tensors the same code runs the kernels' plain versions:
+:func:`_dense_attention` (the reference's ``_dense_attention`` extended to
+return the log-sum-exp in nats) and
 :func:`_dense_attention_bwd` (the backward recomputed from the saved lse).
 Both round where the Pallas kernels round, so a bf16 plain version differs
 from the kernels only in the order of its sums.  There is no fallback
@@ -65,9 +70,13 @@ from distributeddeeplearning_tpu_torch.ops import _build
 
 NEG_BIG = -1e30  # finite mask fill; -inf poisons the online-softmax max
 LN2 = 0.6931471805599453  # the reference's base-2 bias in nats
-#: head dims the kernels are built for (the bf16 products, wgmma and
-#: mma.sync, take a head dim that is a multiple of their 16-deep k-step)
-HEAD_DIMS = (16, 32, 64)
+#: head dims the kernels are built for (the bf16 wgmma products take a head
+#: dim that is a multiple of their 16-deep k-step)
+KERNEL_HEAD_DIMS = (16, 32, 64)
+#: head dims the wrappers take: the kernels' own, and 8 through padding
+HEAD_DIMS = (8,) + KERNEL_HEAD_DIMS
+#: the kernel head dim a padded head dim runs at
+PADDED_HEAD_DIM = {8: 16}
 
 #: f32 forward (K1) kernel launches since the counter was last reset
 launches = 0
@@ -128,6 +137,30 @@ def bf16_block_rows(b: int, h: int, s: int) -> int:
     return int(fn(b, h, s))
 
 
+def f32_bwd_block_rows(kind: str, b: int, h: int, s: int) -> int:
+    """The rows a block of the f32 backward's pass ``kind`` ("dq": query
+    rows, "dkv": key rows; 128 or 64) owns at (B, H, S) on the current
+    CUDA device, by the launcher's rule in ``csrc/flash_attention_bwd.cu``
+    (``bwd_f32_block_rows``)."""
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_f32_block_rows
+    return int(fn(("dq", "dkv").index(kind), b, h, s))
+
+
+def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """A [..., D] tensor the kernels can take: a contiguous copy zero-padded
+    to :data:`PADDED_HEAD_DIM` at a padded head dim, else ``t`` itself."""
+    d = t.shape[-1]
+    if d not in PADDED_HEAD_DIM:
+        return t
+    return torch.nn.functional.pad(t, (0, PADDED_HEAD_DIM[d] - d))
+
+
+def strip_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """The first ``d`` columns of a [..., D] kernel output, contiguous (the
+    inverse of :func:`pad_head_dim` on its outputs)."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def bf16_bwd_block_rows(kind: str, b: int, h: int, s: int) -> int:
     """The rows a block of the bf16 backward's pass ``kind`` ("dq": query
     rows, 192, 128 or 64; "dkv": key rows, 128 or 64) owns at (B, H, S) on
@@ -153,16 +186,21 @@ def _mask_bias(mask: torch.Tensor, b: int, s: int) -> torch.Tensor:
     return torch.where(key_mask, 0.0, NEG_BIG).float().contiguous()
 
 
-def _scores(q, k, bias):
-    """f32 S = Q K^T / sqrt(D), [B, H, Sq, Sk], plus the key bias in nats."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
-        1.0 / q.shape[3] ** 0.5)
+def _scale(d: int, scale: Optional[float]) -> float:
+    return 1.0 / d ** 0.5 if scale is None else scale
+
+
+def _scores(q, k, bias, scale=None):
+    """f32 S = Q K^T * scale (default 1/sqrt(D)), [B, H, Sq, Sk], plus the
+    key bias in nats."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(
+        q.shape[3], scale)
     if bias is not None:
         scores = scores + (bias * LN2)[:, None, None, :]
     return scores
 
 
-def _dense_attention(q, k, v, bias, *, causal: bool):
+def _dense_attention(q, k, v, bias, *, causal: bool, scale=None):
     """Plain attention with the kernel's semantics, [B, S, H, D] in; returns
     ``(o [B, S, H, D] in the input dtype, lse [B, H, S] f32 in nats)``.
 
@@ -175,9 +213,10 @@ def _dense_attention(q, k, v, bias, *, causal: bool):
     P = exp(S - max) in f32, rounded to ``v.dtype`` only as the operand of
     P V; the row sums l of the f32 P, clamped at 1e-30; O = (P V) / l
     rounded to the input dtype once.  For f32 operands every rounding step
-    is the identity."""
+    is the identity.  ``scale`` replaces 1/sqrt(D) (a padded head dim
+    keeps its own)."""
     s = q.shape[1]
-    scores = _scores(q, k, bias)
+    scores = _scores(q, k, bias, scale)
     if causal:
         tril = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         scores = torch.where(tril, scores, NEG_BIG)
@@ -189,7 +228,8 @@ def _dense_attention(q, k, v, bias, *, causal: bool):
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def _dense_attention_bwd(q, k, v, do, lse, delta, *, causal: bool, bias=None):
+def _dense_attention_bwd(q, k, v, do, lse, delta, *, causal: bool, bias=None,
+                         scale=None):
     """Plain backward with K2/K3's semantics, [B, S, H, D] in and out (the
     input dtype): P is recomputed in f32 from f32 S = Q K^T (plus ``bias``
     in nats, as in :func:`_dense_attention`) and the saved ``lse`` ([B, H,
@@ -197,11 +237,11 @@ def _dense_attention_bwd(q, k, v, do, lse, delta, *, causal: bool, bias=None):
     dS = P * (dP - delta) * scale with ``delta`` = rowsum(dO * O) [B, H, S]
     f32.  As in the Pallas kernels, dS is rounded to the operand dtype
     before dS K and dS^T Q, P before P^T dO, and dQ, dK, dV once at the
-    end; returns ``(dq, dk, dv)``."""
-    s, d = q.shape[1], q.shape[3]
-    scale = 1.0 / d ** 0.5
+    end; returns ``(dq, dk, dv)``.  ``scale`` replaces 1/sqrt(D)."""
+    s = q.shape[1]
+    scale = _scale(q.shape[3], scale)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-    p = torch.exp(_scores(q, k, bias) - lse[..., None])
+    p = torch.exp(_scores(q, k, bias, scale) - lse[..., None])
     if causal:
         tril = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         p = torch.where(tril, p, 0.0)
@@ -216,7 +256,8 @@ def _dense_attention_bwd(q, k, v, do, lse, delta, *, causal: bool, bias=None):
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_operand(name: str, t: torch.Tensor, shape, dtype) -> None:
+def _check_operand(name: str, t: torch.Tensor, shape, dtype,
+                   layout: bool = True) -> None:
     if t.dtype not in KERNEL_DTYPES:
         raise TypeError(
             f"flash_attention: {name} is {t.dtype}; the CUDA kernels take "
@@ -229,6 +270,8 @@ def _check_operand(name: str, t: torch.Tensor, shape, dtype) -> None:
         )
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"flash_attention: {name} shape {tuple(t.shape)} != {shape}")
+    if not layout:
+        return
     # 16-byte rows: float4 loads (f32) and the bf16 kernels' TMA tensor
     # maps (16-byte base and strides)
     if t.stride(3) != 1 or any(st * t.element_size() % 16 for st in t.stride()[:3]):
@@ -241,19 +284,27 @@ def _check_operand(name: str, t: torch.Tensor, shape, dtype) -> None:
         raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
 
 
-def _check_inputs(**named) -> None:
-    """Shape, type, layout and device checks shared by the kernels."""
+def _check_inputs(**named):
+    """Shape, type, layout and device checks shared by the kernels; returns
+    the operands as the kernels take them: zero-padded copies at a padded
+    head dim, else the views themselves, checked for layout."""
     q = named["q"]
     b, s, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(
-            f"flash_attention: the CUDA kernels take head dims {HEAD_DIMS}, "
-            f"got {d}"
+            f"flash_attention: the CUDA kernels take head dims {HEAD_DIMS} "
+            f"(8 on copies zero-padded to 16), got {d}"
         )
+    out = []
     for name, t in named.items():
-        _check_operand(name, t, (b, s, h, d), q.dtype)
         if t.device != q.device:
             raise ValueError("flash_attention: operands on different devices")
+        # a padded copy is a fresh contiguous tensor: only views need the
+        # layout check
+        _check_operand(name, t, (b, s, h, d), q.dtype,
+                       layout=d not in PADDED_HEAD_DIM)
+        out.append(pad_head_dim(t))
+    return out
 
 
 def _check_bias(bias, b: int, s: int, device) -> None:
@@ -270,12 +321,14 @@ def _check_bias(bias, b: int, s: int, device) -> None:
 
 def _launch(q, k, v, *, causal: bool, bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run K1 (f32 or bf16, q's dtype; the bias variant when ``bias`` is a
-    [B, S] f32 key-padding bias) on [B, S, H, D] views (strided in place):
+    [B, S] f32 key-padding bias) on [B, S, H, D] views (strided in place;
+    zero-padded copies at head dim 8):
     ``(o [B, S, H, D] in q's dtype, lse [B, H, S] f32)``."""
-    _check_inputs(q=q, k=k, v=v)
     b, s, h, d = q.shape
+    scale = 1.0 / d ** 0.5  # the caller's head dim, before any padding
+    q, k, v = _check_inputs(q=q, k=k, v=v)
     _check_bias(bias, b, s, q.device)
-    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     name, fn = _kernel_fn("fwd", q.dtype)
     with torch.cuda.device(q.device):
@@ -286,19 +339,22 @@ def _launch(q, k, v, *, causal: bool, bias=None) -> Tuple[torch.Tensor, torch.Te
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            o.data_ptr(), lse.data_ptr(), b, h, s, d, int(causal),
-            1.0 / d ** 0.5, stream,
+            o.data_ptr(), lse.data_ptr(), b, h, s, q.shape[3], int(causal),
+            scale, stream,
         )
     _build.check(code, name)
     _count("fwd", q.dtype, bias is not None)
-    return o, lse
+    return strip_head_dim(o, d), lse
 
 
-def _bwd_launch(kind, q, k, v, do, lse, delta, outs, *, causal: bool, bias):
+def _bwd_launch(kind, q, k, v, do, lse, delta, *, causal: bool, bias):
     """Check the backward's operands and launch pass ``kind`` ("dq" or
-    "dkv") in q's dtype, writing ``outs``."""
-    _check_inputs(q=q, k=k, v=v, do=do)
+    "dkv") in q's dtype; returns its outputs (dQ, or dK and dV) as
+    contiguous [B, S, H, D] tensors (at head dim 8 the kernels run on
+    zero-padded copies and the padding is stripped)."""
     b, s, h, d = q.shape
+    scale = 1.0 / d ** 0.5  # the caller's head dim, before any padding
+    q, k, v, do = _check_inputs(q=q, k=k, v=v, do=do)
     _check_bias(bias, b, s, q.device)
     # lse and delta: the bf16 dK/dV pass loads them by TMA (16-byte base)
     for label, t in (("lse", lse), ("delta", delta)):
@@ -312,35 +368,34 @@ def _bwd_launch(kind, q, k, v, do, lse, delta, outs, *, causal: bool, bias):
     strides = (ctypes.c_longlong * 12)(
         *(x.stride(i) for x in (q, k, v, do) for i in range(3))
     )
+    outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            for _ in range(1 if kind == "dq" else 2)]
     name, fn = _kernel_fn(kind, q.dtype)
     with torch.cuda.device(q.device):
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), ctypes.addressof(strides),
-            *(t.data_ptr() for t in outs), b, h, s, d, int(causal),
-            1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream,
+            *(t.data_ptr() for t in outs), b, h, s, q.shape[3], int(causal),
+            scale, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(code, name)
     _count(kind, q.dtype, bias is not None)
+    return [strip_head_dim(t, d) for t in outs]
 
 
 def _launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, bias=None) -> torch.Tensor:
     """K2, the dQ pass, on [B, S, H, D] views in one dtype (f32 or bf16);
     ``lse`` and ``delta`` contiguous [B, H, S] f32, ``bias`` as in
     :func:`_launch`.  Returns dQ [B, S, H, D] contiguous in q's dtype."""
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), causal=causal, bias=bias)
-    return dq
+    return _bwd_launch("dq", q, k, v, do, lse, delta, causal=causal,
+                       bias=bias)[0]
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, bias=None):
     """K3, the dK/dV pass, same operands; returns ``(dK, dV)``."""
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), causal=causal,
-                bias=bias)
-    return dk, dv
+    return tuple(_bwd_launch("dkv", q, k, v, do, lse, delta, causal=causal,
+                             bias=bias))
 
 
 def _launch_bwd(q, k, v, do, lse, delta, *, causal: bool, bias=None):

@@ -20,7 +20,9 @@ per-query visibility ``posmat [b, nq]`` — in these variants:
 
 Queries (and the overlay's K/V) are f32 or bf16, pages f32, bf16 or int8,
 in every pairing (the engines serve f32 or bf16 weights over f32, bf16 or
-int8 caches), and the head dim is 16, 32 or 64 (:data:`HEAD_DIMS`).  The
+int8 caches), and the head dim is 8, 16, 32 or 64 (:data:`HEAD_DIMS`;
+the reference serves at 8 in its ``bench.py --small`` geometry, where an
+int8 page row is 8 bytes and the kernel copies it whole).  The
 kernel widens every bf16 value to f32 and computes in f32, as the Pallas
 kernel does; the output is f32.
 
@@ -71,7 +73,7 @@ from distributeddeeplearning_tpu_torch.quant.qtensor import dequantize_kv
 
 NEG_BIG = -1e30  # finite mask fill, matching the gather reference
 #: head dims the kernel is built for
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (8, 16, 32, 64)
 #: the kernel's query (and overlay) dtypes, and its page dtypes by code
 QUERY_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -150,7 +152,8 @@ def scratch_shape(b: int, nq: int, h: int, hd: int,
 def _check_rows(name: str, t: torch.Tensor, dtypes, align: int) -> None:
     """The head dim contiguous and, for ``align`` 16 (the pools, whose rows
     the kernel copies 16 bytes a thread), every other stride and the base
-    on 16 bytes."""
+    on 16 bytes -- or on the row's own size where a row is shorter (an
+    int8 row at head dim 8, which the kernel copies whole)."""
     if t.dtype not in dtypes:
         raise TypeError(
             f"paged_attention: {name} is {t.dtype}, needs one of "
@@ -159,6 +162,8 @@ def _check_rows(name: str, t: torch.Tensor, dtypes, align: int) -> None:
         raise ValueError(
             f"paged_attention: {name} needs a contiguous head dim "
             f"(got strides {t.stride()})")
+    if align:
+        align = min(align, t.shape[-1] * t.element_size())
     if align and (any(st * t.element_size() % align for st in t.stride()[:-1])
                   or t.data_ptr() % align):
         raise ValueError(

@@ -1,7 +1,7 @@
 """Time the flash-attention kernels of one checkout of the PyTorch port on
 one card.
 
-    python3 scripts/time_flash.py [--root DIR] [--tag NAME] [--only bf16_bwd]
+    python3 scripts/time_flash.py [--root DIR] [--tag NAME] [--only bf16_bwd|f32_bwd]
 
 ``--root`` is the directory that holds ``distributeddeeplearning_tpu_torch``
 (default: the checkout this script lies in), so that two checkouts can be
@@ -18,8 +18,8 @@ interleaved (A, B, B, A) and compare only times taken together.  Rows:
   causal: the bf16 serving prompt pass), ``bias512`` and ``bias128``
   (B=8, H=12, D=64, non-causal, the key-padding bias of a
   ``SyntheticTextDataset`` batch's mask, seed 42: BERT fine-tuning at seq
-  512 and 128; SDPA gets the same boolean mask), ``d16`` and ``d32``
-  (``chip_smoke.HEADDIM_GEOMETRY``'s shapes, causal).  Where the
+  512 and 128; SDPA gets the same boolean mask), ``d8``, ``d16`` and
+  ``d32`` (``chip_smoke.HEADDIM_GEOMETRY``'s shapes, causal).  Where the
   checkout's forward library has it, each entry also gives
   ``block_rows``, the query rows a block its launcher picks;
 - ``bf16_bwd``: bf16 K2 (dQ) and K3 (dK/dV) at ``bf16_k1``'s shapes
@@ -30,11 +30,21 @@ interleaved (A, B, B, A) and compare only times taken together.  Rows:
   (``chip_smoke.bound_ms`` at 6 D and 8 D flops a visible pair), each
   pass's TFLOP/s and, where the checkout's backward library has it,
   ``block_rows`` (the rows a block owns, per pass);
+- ``f32_bwd``: the same for the f32 K2 and K3 (split TF32 on the tensor
+  cores) at the same rows, f32 inputs, with both
+  bounds at the split-TF32 rate (a third of the dense TF32 peak,
+  ``chip_smoke.TF32X3_FLOPS_PER_S``) and at the f32 FMA rate of the CUDA
+  cores (``*_fma_bound_ms``), ``block_rows`` from the checkout's
+  ``flash_attention_bwd_f32_block_rows`` where it has one, and
+  ``*_event_ms``: K2, K3 and SDPA's backward timed again by CUDA events
+  around back-to-back calls (``chip_smoke.cuda_ms``), a cross-check of the
+  profiler's times; every backward row also names the kernels SDPA's
+  backward ran (``library_kernels``, ms a call each);
 - ``encode_us``: the host time of one TMA tensor-map encode, three of
   which (four with the bias) the bf16 forward's launcher makes a call
   (:func:`encode_us`).
 
-``--only bf16_bwd`` times the ``bf16_bwd`` rows alone.
+``--only bf16_bwd`` (``--only f32_bwd``) times those rows alone.
 
 Times are ``chip_smoke.py``'s ``device_ms``: the device time a call takes,
 summed by torch.profiler over 20 calls after 3 warm-up calls, host launch
@@ -64,8 +74,9 @@ K1_ROWS = {
        for d, (h, b, s) in cs.HEADDIM_GEOMETRY.items()},
 }
 
-#: name -> (B, H, S, D, causal, masked) of the bf16 backward rows
-BWD_ROWS = {name: K1_ROWS[name] for name in ("train", "bias512", "bias128", "d16", "d32")}
+#: name -> (B, H, S, D, causal, masked) of the backward rows (bf16 and
+#: f32): every K1 row but the serving prompt pass, which takes no gradient
+BWD_ROWS = {name: row for name, row in K1_ROWS.items() if name != "prefill"}
 
 
 def encode_us(torch, repeats: int = 5, n: int = 2000) -> float:
@@ -106,14 +117,15 @@ def encode_us(torch, repeats: int = 5, n: int = 2000) -> float:
     return best(lambda: enc(*args)) - best(null)
 
 
-def _row_inputs(torch, fa, row):
-    """bf16 q, k, v (strided views of one qkv tensor), the key-padding bias
-    and its boolean mask (None unless masked), and the visible (query, key)
-    pairs at one ``(B, H, S, D, causal, masked)`` row."""
+def _row_inputs(torch, fa, row, dtype=None):
+    """q, k, v in ``dtype`` (default bf16; strided views of one qkv tensor),
+    the key-padding bias and its boolean mask (None unless masked), and the
+    visible (query, key) pairs at one ``(B, H, S, D, causal, masked)``
+    row."""
     from distributeddeeplearning_tpu_torch.data.synthetic import SyntheticTextDataset
 
     b, h, s, d, causal, masked = row
-    q, k, v = cs.qkv_views(torch, b, s, h, d, torch.bfloat16, seed=s + d)
+    q, k, v = cs.qkv_views(torch, b, s, h, d, dtype or torch.bfloat16, seed=s + d)
     bias = keep = None
     pairs = b * h * cs._causal_pairs(s) if causal else b * h * s * s
     if masked:
@@ -151,14 +163,16 @@ def bf16_k1_row(torch, F, fa, name, block_rows):
     return entry
 
 
-def bf16_bwd_row(torch, F, fa, name, block_rows):
-    """bf16 K2 and K3, the wrapper's delta, autograd through SDPA and both
-    bounds at one row of :data:`BWD_ROWS`."""
-    b, h, s, d, causal, masked = BWD_ROWS[name]
-    q, k, v, bias, keep, pairs = _row_inputs(torch, fa, BWD_ROWS[name])
+def bwd_row(torch, F, fa, row, block_rows, dtype):
+    """K2 and K3 in ``dtype``, the wrapper's delta, autograd through SDPA
+    and both bounds at one ``(B, H, S, D, causal, masked)`` row (f32: at
+    the split-TF32 rate, and at the FMA rate beside it)."""
+    f32 = dtype == torch.float32
+    b, h, s, d, causal, masked = row
+    q, k, v, bias, keep, pairs = _row_inputs(torch, fa, row, dtype)
     o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias)
     g = torch.Generator(device="cuda").manual_seed(1)
-    do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
+    do = torch.randn(o.shape, generator=g, device="cuda").to(dtype)
 
     def delta_fn():  # the wrapper's delta (ops/flash_attention.py backward)
         return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -173,19 +187,36 @@ def bf16_bwd_row(torch, F, fa, name, block_rows):
     out = F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=None if keep is None else keep[:, None, None, :],
         is_causal=causal)
+    lib_kernels = {}  # the library backward's kernels by name, ms a call
     lib_ms = cs.device_ms(torch, lambda i: torch.autograd.grad(
-        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=10)
-    head = 2.0 * b * s * h * d  # one [B, S, H, D] bf16 tensor
+        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=10,
+        by_kernel=lib_kernels)
+    head = (4.0 if f32 else 2.0) * b * s * h * d  # one [B, S, H, D] tensor
     rows_in = 4 * head + 2 * 4.0 * b * h * s + (4.0 * b * s if masked else 0)
-    b_dq = cs.bound_ms(rows_in + head, 6.0 * d * pairs, cs.BF16_FLOPS_PER_S)
-    b_dkv = cs.bound_ms(rows_in + 2 * head, 8.0 * d * pairs, cs.BF16_FLOPS_PER_S)
+    peak = cs.TF32X3_FLOPS_PER_S if f32 else cs.BF16_FLOPS_PER_S
+    b_dq = cs.bound_ms(rows_in + head, 6.0 * d * pairs, peak)
+    b_dkv = cs.bound_ms(rows_in + 2 * head, 8.0 * d * pairs, peak)
     entry = dict(dq_ms=dq_ms, dkv_ms=dkv_ms, sum_ms=dq_ms + dkv_ms,
                  delta_ms=delta_ms, whole_ms=dq_ms + dkv_ms + delta_ms,
                  library_ms=lib_ms, dq_bound_ms=b_dq[0], dq_bound_by=b_dq[1],
                  dkv_bound_ms=b_dkv[0], dkv_bound_by=b_dkv[1],
                  dq_tflops=6.0 * d * pairs / dq_ms / 1e9,
                  dkv_tflops=8.0 * d * pairs / dkv_ms / 1e9,
-                 shape=_shape(BWD_ROWS[name]))
+                 library_kernels=lib_kernels, shape=_shape(row))
+    if f32:
+        # a cross-check of the profiler's times: CUDA events around 20
+        # back-to-back calls (launch gaps included)
+        entry["dq_event_ms"] = cs.cuda_ms(torch, lambda i: fa._launch_bwd_dq(
+            q, k, v, do, lse, delta, causal=causal, bias=bias), iters=20)
+        entry["dkv_event_ms"] = cs.cuda_ms(torch, lambda i: fa._launch_bwd_dkv(
+            q, k, v, do, lse, delta, causal=causal, bias=bias), iters=20)
+        entry["library_event_ms"] = cs.cuda_ms(torch, lambda i: torch.autograd.grad(
+            out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=10)
+        # the CUDA cores' FMA rate, the route of the earlier kernels
+        for kind, flops in (("dq", 6.0), ("dkv", 8.0)):
+            fma = cs.bound_ms(rows_in + (1 if kind == "dq" else 2) * head,
+                              flops * d * pairs)
+            entry[f"{kind}_fma_bound_ms"], entry[f"{kind}_fma_bound_by"] = fma
     if block_rows is not None:  # the backward library's rule, per pass
         entry["block_rows"] = {"dq": block_rows(0, b, h, s),
                                "dkv": block_rows(1, b, h, s)}
@@ -197,7 +228,7 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", choices=("bf16_bwd",), default=None,
+    ap.add_argument("--only", choices=("bf16_bwd", "f32_bwd"), default=None,
                     help="time these rows alone")
     args = ap.parse_args()
     import torch
@@ -211,10 +242,16 @@ def main() -> int:
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
 
     out = {}
-    bwd_rows_fn = getattr(_build.load("flash_attention_bwd"),
-                          "flash_attention_bwd_bf16_block_rows", None)
-    out["bf16_bwd"] = {name: bf16_bwd_row(torch, F, fa, name, bwd_rows_fn)
-                       for name in BWD_ROWS}
+    bwd_lib = _build.load("flash_attention_bwd")
+    # a head dim the checkout's wrappers do not take (8 before they padded
+    # it) is left out
+    takes = lambda row: row[3] in fa.HEAD_DIMS  # noqa: E731
+    for key, dtype in (("bf16_bwd", torch.bfloat16), ("f32_bwd", torch.float32)):
+        if args.only in (None, key):
+            name = f"flash_attention_bwd_{key.split('_')[0]}_block_rows"
+            rows_fn = getattr(bwd_lib, name, None)
+            out[key] = {name: bwd_row(torch, F, fa, row, rows_fn, dtype)
+                        for name, row in BWD_ROWS.items() if takes(row)}
     for dtype in (() if args.only else (torch.float32, torch.bfloat16)):
         q, k, v = cs.qkv_views(torch, B, S, H, D, dtype, seed=0)
         o, lse = fa.flash_attention_core(q, k, v, causal=True)
@@ -233,7 +270,7 @@ def main() -> int:
         rows_fn = getattr(_build.load("flash_attention_fwd"),
                           "flash_attention_fwd_bf16_block_rows", None)
         out["bf16_k1"] = {name: bf16_k1_row(torch, F, fa, name, rows_fn)
-                          for name in K1_ROWS}
+                          for name, row in K1_ROWS.items() if takes(row)}
         out["encode_us"] = encode_us(torch)
     card = cs.card_line()
     print(card)

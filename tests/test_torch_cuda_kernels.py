@@ -30,8 +30,13 @@ from synthetic text lengths plus a row of length 1, a full row and a row
 with every key masked (its lse, -1e30 * ln 2, equal on both sides bit for
 bit); masked keys of every other row get dK = dV = 0 exactly.
 
-Every kernel takes head dims 16, 32 and 64; the cases at 16 and 32 run
-at the same tolerances.  The bf16 forward (wgmma on TMA tiles) is held at
+Every kernel takes head dims 8, 16, 32 and 64 (K1-K3 at 8 on copies
+zero-padded to 16); the cases at 8, 16 and 32 run at the same
+tolerances.  The f32 backward (K2 and K3 on split-TF32 `mma.sync`) is
+held to the plain backward at 1e-4 of the largest |gradient| at every
+head dim, S in {37, 64, 130, 576, 2048}, causal and not, with and without
+a bias that masks a row and a whole 64-key tile, at both of its block
+sizes; on poisoned views; and two launches must agree bit for bit.  The bf16 forward (wgmma on TMA tiles) is held at
 every head dim, S in {1, 37, 64, 65, 127, 129, 576, 2048}, causal and not,
 with and without a bias, at batches that make its launcher take each of
 its block sizes (64, 128 and 192 query rows), and on views cut from a
@@ -93,21 +98,24 @@ def test_flash_attention_kernel_matches_plain(cuda, s, causal):
 
 
 def test_flash_attention_kernel_rejects_what_it_cannot_take(cuda):
-    # head dim 32 runs (against its plain version); 40 is no multiple of
-    # the bf16 product's 16-deep k-step and is refused in either dtype
-    q, k, v = _qkv_views(16, h=2, d=32)
-    before = fa.launches
-    o, lse = fa.flash_attention_core(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    assert fa.launches == before + 1
-    o_ref, lse_ref = fa._dense_attention(q, k, v, None, causal=True)
-    assert (o - o_ref).abs().max().item() <= ATOL
-    assert (lse - lse_ref).abs().max().item() <= ATOL
-    q, k, v = _qkv_views(16, h=2, d=40)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_core(q, k, v, causal=True)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_core(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    # head dims 32 and 8 (the latter on copies padded to 16) run against
+    # their plain versions; 40 and 24 are no head dim the kernels are built
+    # for or padded to and are refused in either dtype
+    for d in (32, 8):
+        q, k, v = _qkv_views(16, h=2, d=d)
+        before = fa.launches
+        o, lse = fa.flash_attention_core(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1 and o.shape == q.shape
+        o_ref, lse_ref = fa._dense_attention(q, k, v, None, causal=True)
+        assert (o - o_ref).abs().max().item() <= ATOL
+        assert (lse - lse_ref).abs().max().item() <= ATOL
+    for d in (40, 24):
+        q, k, v = _qkv_views(16, h=2, d=d)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention_core(q, k, v, causal=True)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention_core(q.bfloat16(), k.bfloat16(), v.bfloat16())
     q, k, v = _qkv_views(16)
     # a key-padding mask runs the bias variant; a bias of another shape,
     # dtype or device is refused
@@ -537,6 +545,155 @@ def test_bf16_backward_is_bitwise_repeatable(cuda, causal, bias, rows):
         assert torch.equal(a, c)
 
 
+# ---- f32 K2/K3 on split TF32: every shape, head dim and block choice -----
+
+#: head dims of the f32 backward's card tests: the kernels' three and 8,
+#: which runs them at 16 on zero-padded copies
+F32_BWD_D = [8, 16, 32, 64]
+#: the f32 backward's tolerance: of the largest |plain gradient| (at least
+#: 1), as chip_smoke.py's BWD_RTOL
+F32_BWD_RTOL = 1e-4
+
+
+def _f32_rows(kind):
+    return lambda b, h, s: fa.f32_bwd_block_rows(kind, b, h, s)
+
+
+def _f32_bwd_inputs(b, s, h, d, causal, bias, seed):
+    """f32 strided q, k, v, the f32 forward's o and lse, a random dO,
+    delta and (with ``bias``) the key-padding bias of :func:`_bwd_keep`."""
+    q, k, v = _qkv_views(s, h=h, d=d, b=b, seed=seed)
+    keep = bias_t = None
+    if bias:
+        keep = _bwd_keep(b, s, seed)
+        bias_t = fa._mask_bias(keep[:, None, None, :], b, s)
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+    do = torch.randn(o.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(seed + 1), device="cuda")
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, bias_t, keep
+
+
+def _hold_f32(got, want, what):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), (what, name)
+        err = (g - w).abs().max().item()
+        assert err <= F32_BWD_RTOL * max(w.abs().max().item(), 1.0), (what, name, err)
+
+
+def test_f32_backward_block_rows_follow_the_rule(cuda):
+    """The f32 backward launcher's block-row choice, per pass, at the main
+    path's shapes and at the edges, against the rule restated here: 128
+    owned rows when the grid at 128 covers at least half the SMs, else
+    64."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    half = -(-sms // 2)
+    shapes = [(8, 12, 2048), (8, 12, 512), (8, 12, 128), (4, 4, 512),
+              (8, 8, 128), (4, 4, 64), (1, 1, 1), (half, 1, 128),
+              (half - 1, 1, 128), (1, half, 1), (1, 1, 128 * (half - 1))]
+    for b, h, s in shapes:
+        want = 128 if 2 * b * h * -(-s // 128) >= sms else 64
+        for kind in ("dq", "dkv"):
+            assert fa.f32_bwd_block_rows(kind, b, h, s) == want, (kind, b, h, s)
+    assert {fa.f32_bwd_block_rows("dq", *x) for x in shapes} == {64, 128}
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", BF16_BWD_S)
+@pytest.mark.parametrize("d", F32_BWD_D)
+def test_f32_backward_tf32_kernels_match_plain(cuda, d, s, causal, bias, rows):
+    """f32 K2 and K3 (split TF32 on mma.sync) against the plain backward at
+    every head dim and S, causal and not, with and without a key-padding
+    bias (a fully masked row and a fully masked 64-key tile), at a batch
+    that makes the launcher take ``rows``-row blocks in both passes; one
+    launch each through the right counter; masked keys of every row that
+    sees a key get dK = dV = 0 exactly."""
+    h = 1 if rows == 64 else 4
+    b = _batch_for_rows(rows, h, s, _f32_rows("dq"))
+    assert fa.f32_bwd_block_rows("dkv", b, h, s) == rows
+    q, k, v, do, lse, delta, bias_t, keep = _f32_bwd_inputs(
+        b, s, h, d, causal, bias, seed=s + d + rows)
+    names = ("launches_dq", "launches_dkv", "launches_dq_bias",
+             "launches_dkv_bias", "launches_dq_bf16", "launches_dkv_bf16")
+    before = [getattr(fa, n) for n in names]
+    got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal, bias=bias_t)
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) - x for n, x in zip(names, before)] == (
+        [0, 0, 1, 1, 0, 0] if bias else [1, 1, 0, 0, 0, 0])
+    assert all(g.shape == q.shape and g.is_contiguous() for g in got)
+    want = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal,
+                                   bias=bias_t)
+    _hold_f32(got, want, (d, s, causal, bias, rows))
+    if bias:
+        masked = ~keep
+        masked[-1] = False
+        assert (got[1][masked] == 0).all() and (got[2][masked] == 0).all()
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", F32_BWD_D)
+def test_f32_backward_reads_only_its_views(cuda, d, causal, bias, rows):
+    """f32 q, k, v and dO cut from longer buffers [B, S + 40, 3*H*D] and
+    [B, S + 40, H*D] whose rows past S are NaN: dQ, dK and dV are finite
+    and equal, bit for bit, to the gradients on the same buffers with those
+    rows zero, and they hold to the plain backward."""
+    s, h = 130, 4
+    b = _batch_for_rows(rows, h, s, _f32_rows("dq"))
+    g = torch.Generator(device="cuda").manual_seed(d + rows)
+    buf = torch.randn((b, s + 40, 3 * h * d), generator=g, device="cuda")
+    dbuf = torch.randn((b, s + 40, h * d), generator=g, device="cuda")
+    bias_t = None
+    if bias:
+        bias_t = fa._mask_bias(_bwd_keep(b, s, d)[:, None, None, :], b, s)
+
+    def views(t, u):
+        q, k, v = (x.reshape(b, s, h, d) for x in t[:, :s].split(h * d, dim=-1))
+        return q, k, v, u[:, :s].reshape(b, s, h, d)
+
+    grads = []
+    for fill in (0.0, float("nan")):
+        t, u = buf.clone(), dbuf.clone()
+        t[:, s:] = fill
+        u[:, s:] = fill
+        q, k, v, do = views(t, u)
+        assert q.stride(0) != s * q.stride(1) and do.stride(0) != s * do.stride(1)
+        o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+        grads.append(fa._launch_bwd(q, k, v, do, lse, delta, causal=causal,
+                                    bias=bias_t))
+    torch.cuda.synchronize()
+    for clean, poisoned in zip(*grads):
+        assert torch.isfinite(poisoned).all() and torch.equal(clean, poisoned)
+    q, k, v, do = views(buf, dbuf)
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    want = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal,
+                                   bias=bias_t)
+    _hold_f32(grads[0], want, (d, causal, bias, rows))
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_backward_is_bitwise_repeatable(cuda, causal, bias, rows):
+    """Two launches of each f32 pass on the same inputs give bitwise equal
+    dQ, dK and dV: one owner per output element, a fixed order, no
+    atomics."""
+    s, h, d = 576, 4, 64
+    b = _batch_for_rows(rows, h, s, _f32_rows("dq"))
+    q, k, v, do, lse, delta, bias_t, _ = _f32_bwd_inputs(b, s, h, d, causal,
+                                                         bias, seed=rows)
+    first = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal, bias=bias_t)
+    second = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal, bias=bias_t)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
 def test_flash_decode_kernel_on_strided_cache_view(cuda):
     """K4(a) at the serve shapes on the strided layer view of a real
     [slots, L, S, h, hd] cache, unequal positions including 0 and S-1, and
@@ -792,12 +949,13 @@ def test_int8_matmul_exact_and_qdot_rescale(cuda, rows, k, n):
 
 # ---- head dims 16 and 32 -------------------------------------------------
 
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [8, 16, 32])
 @pytest.mark.parametrize("s", [37, 576])
 @pytest.mark.parametrize("causal", [True, False])
 def test_f32_kernels_at_small_head_dims(cuda, d, s, causal):
-    """f32 K1, K2, K3 at head dims 16 and 32 on strided qkv views (the
-    reference's serve and trainer geometries: 4 and 8 heads)."""
+    """f32 K1, K2, K3 at head dims 8, 16 and 32 on strided qkv views (the
+    reference's serve and trainer geometries: 4 and 8 heads; 8 runs the
+    kernels at 16 on zero-padded copies)."""
     h = 64 // d * 2
     q, k, v = _qkv_views(s, h=h, d=d, b=2, seed=s + d)
     o, lse = fa.flash_attention_core(q, k, v, causal=causal)
@@ -817,12 +975,13 @@ def test_f32_kernels_at_small_head_dims(cuda, d, s, causal):
         assert (g - w).abs().max().item() <= 1e-4 * max(w.abs().max().item(), 1.0)
 
 
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [8, 16, 32])
 @pytest.mark.parametrize("s", [37, 576])
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_kernels_at_small_head_dims(cuda, d, s, causal):
-    """bf16 K1, K2, K3 at head dims 16 and 32: bf16 rows of 32 and 64
-    bytes, read with cp.async and ldmatrix from a qkv row of 3*h*d."""
+    """bf16 K1, K2, K3 at head dims 8, 16 and 32: bf16 rows of 32 and 64
+    bytes read by TMA from a qkv row of 3*h*d (8: zero-padded copies of
+    32-byte rows)."""
     h = 64 // d * 2
     q, k, v = _bf16_qkv(s, h=h, d=d, seed=s + d)
     before = fa.launches_bf16
@@ -845,7 +1004,7 @@ def test_bf16_kernels_at_small_head_dims(cuda, d, s, causal):
         _hold_bf16(g, p, r, name)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
 @pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("query", ["float32", "bfloat16"])
 def test_decode_kernel_every_query_page_pair(cuda, hd, pages, query):
@@ -889,7 +1048,7 @@ def test_decode_kernel_every_query_page_pair(cuda, hd, pages, query):
         assert torch.equal(out, f32) and torch.equal(out_c, f32_c)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_paged_equals_dense_and_verify_column_bitwise_every_head_dim(cuda, hd, dtype):
     """At every head dim and page dtype: the same K/V read as 64-position
@@ -938,12 +1097,24 @@ def test_paged_equals_dense_and_verify_column_bitwise_every_head_dim(cuda, hd, d
 
 
 def test_decode_kernel_refuses_other_head_dims_and_dtypes(cuda):
-    pool = _pool(1, 4, 8, 2, 48, torch.float32, seed=0)
     tables = _scrambled_tables(1, 2, 4, seed=0)
     pos = torch.tensor([9], dtype=torch.int32, device="cuda")
-    q = torch.randn((1, 1, 2, 48), device="cuda")
-    with pytest.raises(ValueError, match="head dims"):
-        fd.paged_attention(q, pool["k"][:, 0], pool["v"][:, 0], tables, pos[:, None])
+    # the kernel takes head dims 8, 16, 32 and 64; 48 and 24 are refused
+    for hd in (48, 24):
+        pool = _pool(1, 4, 8, 2, hd, torch.float32, seed=0)
+        q = torch.randn((1, 1, 2, hd), device="cuda")
+        with pytest.raises(ValueError, match="head dims"):
+            fd.paged_attention(q, pool["k"][:, 0], pool["v"][:, 0], tables,
+                               pos[:, None])
+    pool = _pool(1, 4, 8, 2, 8, torch.int8, seed=0)
+    q = torch.randn((1, 1, 2, 8), device="cuda")
+    out = fd.paged_attention(q, pool["k"][:, 0], pool["v"][:, 0], tables,
+                             pos[:, None], pool["k_scale"][:, 0],
+                             pool["v_scale"][:, 0])
+    ref = fd._paged_attention_plain(q, pool["k"][:, 0], pool["v"][:, 0], tables,
+                                    pos[:, None], pool["k_scale"][:, 0],
+                                    pool["v_scale"][:, 0])
+    assert (out - ref).abs().max().item() <= ATOL
     pool = _pool(1, 4, 8, 2, 32, torch.float16, seed=0)
     with pytest.raises(TypeError, match="k_pages"):
         fd.paged_attention(torch.randn((1, 1, 2, 32), device="cuda"),
@@ -1115,7 +1286,7 @@ def _views(c, layer=1):
 
 
 @pytest.mark.parametrize("ps", [16, 64, SPLIT_S])
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
 @pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8", "int8_overlay"])
 def test_split_kernel_boundaries_layouts_and_poison(cuda, pages, hd, ps):
     """Decode at positions 0, SPAN-1, SPAN, SPAN+1, 2*SPAN and S-1 (one slot
@@ -1153,7 +1324,7 @@ def test_split_kernel_boundaries_layouts_and_poison(cuda, pages, hd, ps):
     assert torch.equal(a, x)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
 @pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
 def test_split_kernel_folded_queries_equal_single_query_launches(cuda, pages, hd):
     """A verify pass (b = 6, nq = 5 at pos + j) column j equals the nq = 1

@@ -1,12 +1,18 @@
-"""The port's kernels' plain versions at head dims 16 and 32, against the
-JAX package, on the CPU; and the int8 product's padding.
+"""The port's kernels' plain versions at head dims 8, 16 and 32, against
+the JAX package, on the CPU; the head-dim padding; and the int8 product's
+padding.
 
 The reference's own default geometries put its kernels at head dims other
-than 64: ``ddlt serve`` runs d 64 over 4 heads (head dim 16) and the LM
-trainer d 256 over 8 (head dim 32).  The port's CUDA kernels take 16, 32
-and 64; here their plain versions (CPU tensors) are held to the Pallas
-kernels in interpret mode at 16 and 32, and a 2-step f32 train step with
-flash attention to the reference's ``build_train_step`` at both.
+than 64: ``ddlt serve`` runs d 64 over 4 heads (head dim 16), the LM
+trainer d 256 over 8 (head dim 32), and ``bench.py --small`` and the obs
+attribution run d 32 over 4 (head dim 8).  The port's CUDA kernels take 16,
+32 and 64, and head dim 8: the flash wrappers run K1-K3 at 16 on
+zero-padded copies with the scale 1/sqrt(8), the decode kernel has an
+instance at 8.  Here their plain versions (CPU tensors) are held to the
+Pallas kernels in interpret mode at 8, 16 and 32, a 2-step f32 train step
+with flash attention to the reference's ``build_train_step`` at all
+three, and the padding step (pad to 16, plain version at 16 with the
+scale of 8, strip) to the plain version at 8.
 
 Tolerances, as the head-dim-64 tests of the same functions state them
 (``tests/test_torch_flash_attention_bwd.py``, ``tests/test_torch_bf16.py``,
@@ -53,8 +59,11 @@ jfd = importlib.import_module("distributeddeeplearning_tpu.ops.flash_decode")
 
 torch.set_num_threads(2)  # the suite runs six workers on eight cores
 
-HEAD_DIMS = (16, 32)
+HEAD_DIMS = (8, 16, 32)
 ATOL = 1e-5
+#: pad -> plain at 16 -> strip against plain at 8: zero columns add exact
+#: zeros, so only the einsum's summation path can differ
+PAD_ATOL = 1e-6
 
 
 def _ulp(x: np.ndarray) -> float:
@@ -137,6 +146,45 @@ def test_plain_flash_backward_matches_pallas_at_head_dim(d, causal):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padding_to_the_kernel_head_dim_is_exact(causal, bias):
+    """The wrapper's step for head dim 8: zero-pad q, k, v (and dO) to 16,
+    run at 16 with the scale of 8, strip the padding.  O, lse and the
+    gradients equal the plain version at 8 within 1e-6 (the padded columns
+    of every output are exactly 0), and the lse needs no change."""
+    b, s, h, d = 3, 37, 2, 8
+    q, k, v, do = (_t(x) for x in _inputs(b, s, h, d, seed=8 + causal, n=4))
+    mask = None
+    if bias:
+        keep = torch.from_numpy(np.random.default_rng(1).random((b, s)) < 0.7)
+        keep[-1] = False  # a fully masked row
+        mask = tfa._mask_bias(keep[:, None, None, :], b, s)
+    o, lse = tfa._dense_attention(q, k, v, mask, causal=causal)
+    qp, kp, vp, dop = (tfa.pad_head_dim(t) for t in (q, k, v, do))
+    assert qp.shape[-1] == tfa.PADDED_HEAD_DIM[d] and qp.is_contiguous()
+    assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
+    o16, lse16 = tfa._dense_attention(qp, kp, vp, mask, causal=causal,
+                                      scale=1.0 / d ** 0.5)
+    assert not o16[..., d:].any()
+    np.testing.assert_allclose(tfa.strip_head_dim(o16, d).numpy(), o.numpy(),
+                               atol=PAD_ATOL, rtol=0)
+    np.testing.assert_allclose(lse16.numpy(), lse.numpy(), atol=PAD_ATOL, rtol=0)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    want = tfa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal,
+                                    bias=mask)
+    got = tfa._dense_attention_bwd(qp, kp, vp, dop, lse, delta, causal=causal,
+                                   bias=mask, scale=1.0 / d ** 0.5)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert not g[..., d:].any(), name
+        stripped = tfa.strip_head_dim(g, d)
+        assert stripped.shape == w.shape and stripped.is_contiguous()
+        np.testing.assert_allclose(stripped.numpy(), w.numpy(), atol=PAD_ATOL,
+                                   rtol=0, err_msg=name)
+    # kernel head dims pass through untouched
+    assert tfa.pad_head_dim(o16) is o16 and tfa.strip_head_dim(o16, 16) is o16
+
+
 # ---- K4: the paged decode kernel -------------------------------------------
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
@@ -180,7 +228,8 @@ STEPS, BATCH, SEQ, PEAK_LR = 2, 2, 32, 1e-2
 
 
 def _train_cfg(d):
-    """2 layers of width 64 with head dim ``d`` (4 heads at 16, 2 at 32)."""
+    """2 layers of width 64 with head dim ``d`` (8 heads at 8, 4 at 16, 2
+    at 32)."""
     return dict(num_layers=2, d_model=64, num_heads=64 // d, d_ff=128,
                 vocab_size=97)
 

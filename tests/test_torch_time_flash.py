@@ -1,8 +1,9 @@
 """``scripts/time_flash.py`` times bf16 K1 at the shapes that ``chip_smoke.py``
 reports for it: the LM training step, the serving prompt pass, BERT at its
-timed shape, the default geometries' head dims; and bf16 K2/K3 at the same
-shapes but the prompt pass (which takes no gradient).  Both scripts need a
-card to run; these checks read their shape tables only, on the CPU."""
+timed shape, the default geometries' head dims; and bf16 and f32 K2/K3 at
+the same shapes but the prompt pass (which takes no gradient).  Both
+scripts need a card to run; these checks read their shape tables only, on
+the CPU."""
 
 from __future__ import annotations
 
@@ -56,3 +57,26 @@ def test_backward_rows_are_the_forward_rows_that_take_a_gradient():
     t = cs.TRAIN
     assert tf.BWD_ROWS["train"][:4] == (t["batch_size"], t["num_heads"], t["seq_len"],
                                         t["d_model"] // t["num_heads"])
+
+
+def test_backward_rows_cover_the_f32_cells_and_head_dim_8():
+    # the backward rows, timed in bf16 and f32: the training cell (train),
+    # BERT at seq 512 and 128 with the key-padding bias, and the head dims
+    # 8 (bench.py --small), 16 and 32
+    assert set(tf.BWD_ROWS) == {"train", "bias512", "bias128", "d8", "d16", "d32"}
+    assert tf.BWD_ROWS["d8"] == (*(cs.HEADDIM_GEOMETRY[8][i] for i in (1, 0, 2)),
+                                 8, True, False)
+    assert [row[5] for row in tf.BWD_ROWS.values()].count(True) == 2
+    # the bounds of the f32 rows are at the split-TF32 rate: a third of the
+    # dense TF32 peak, 2.5x the f32 FMA rate of the CUDA cores
+    assert cs.TF32X3_FLOPS_PER_S == cs.TF32_FLOPS_PER_S / 3
+    assert 2.4 < cs.TF32X3_FLOPS_PER_S / cs.F32_FLOPS_PER_S < 2.5
+    t = cs.TRAIN
+    b, h, s, d = t["batch_size"], t["num_heads"], t["seq_len"], t["d_model"] // t["num_heads"]
+    pairs = b * h * cs._causal_pairs(s)
+    head = 4.0 * b * s * h * d
+    rows_in = 4 * head + 2 * 4.0 * b * h * s
+    dq, by = cs.bound_ms(rows_in + head, 6.0 * d * pairs, cs.TF32X3_FLOPS_PER_S)
+    dkv, _ = cs.bound_ms(rows_in + 2 * head, 8.0 * d * pairs, cs.TF32X3_FLOPS_PER_S)
+    assert by == "operations"
+    assert abs(dq - 0.469) < 5e-4 and abs(dkv - 0.6253) < 5e-4
