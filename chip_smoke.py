@@ -10,9 +10,15 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
 1. build: compile every CUDA kernel from ``csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time and each kernel's
    registers and spills;
-2. K1, the causal flash-attention forward, against its plain PyTorch
-   version at the prefill shapes B=1, H=12, D=64, S in {128, 512, 576}
-   (576 is a ragged tile), inputs as the model's strided qkv split;
+2. K1, the causal flash-attention forward (f32: split TF32 on the
+   tensor cores, three TF32 products a product), against its plain
+   PyTorch version at the prefill shapes B=1, H=12, D=64, S in {128, 512,
+   576} (576 is a ragged tile) and at the training shape B=8, S=2048,
+   inputs as the model's strided qkv split; timed at B=1 S=512 and at the
+   training shape, each with its TFLOP/s, both bounds (split TF32 and the
+   f32 FMA rate), SDPA beside it and the query rows a block its launcher
+   took; the build lines give each f32 K1 instance's registers, spills
+   and dynamic shared memory;
 2a. bf16 K1 (tensor cores: wgmma on TMA tiles, a warp-specialised ring)
    at S in {1, 37, 576, 2048} (B=8 at 2048, else
    2), causal and not, on strided bf16 qkv views: held against its bf16
@@ -127,8 +133,9 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    steps profiled;
 14. ``phase_headdim``: every kernel (K1, K2, K3 in f32 and bf16; K4 a, b,
    c, verify and bf16 pages) at head dims 8, 16 and 32 against its plain
-   version under the head-dim-64 tolerances, timed at one shape each (K1-K3
-   at 8 run at 16 on zero-padded copies, K4 has an instance at 8);
+   version under the head-dim-64 tolerances, timed at one shape each (f32
+   K1 and K4 have instances at 8; K2, K3 and bf16 K1 at 8 run at 16 on
+   zero-padded copies);
 15. ``phase_default_geometries``: the dense and paged engines at `ddlt
    serve`'s geometry (2 layers, d 64, 4 heads: head dim 16, vocab 257)
    with their default flash prefill and decode kernel, f32 and int8
@@ -188,9 +195,9 @@ decode kernel cycles through the cache's 12 layers so its history is not
 served from L2.  ``bound_ms`` is the least time the card could take: the
 larger of the bytes moved (inputs read once, outputs written once) over
 3.35 TB/s and the flops over 67 TFLOP/s (the H100's f32 peak on CUDA
-cores, which is what the f32 forward and decode kernels use), for the f32
+cores, which is what the f32 decode kernel uses), for the f32 forward and
 backward over 164.9 TFLOP/s (split TF32: a third of the 494.7 TFLOP/s
-dense TF32 peak; its rows give the 67 TFLOP/s bound beside, as
+dense TF32 peak; their rows give the 67 TFLOP/s bound beside, as
 ``fma_bound_ms``) or, for the bf16 kernels, over 989.4 TFLOP/s (dense bf16
 on the tensor cores).  ``library_ms`` times
 one ``scaled_dot_product_attention`` call on the same inputs (for K2/K3,
@@ -314,6 +321,9 @@ EVENT_TIMED = []
 #: profiler windows that lost some launch records (the run's last lines say
 #: how many): their kernels were timed by the launches recorded
 PARTIAL_WINDOWS = []
+#: the port's kernel instances the run's profiles saw, by the name a
+#: profile group matches them on (``flash_fwd_f32_kernel``, ``flash_decode``)
+PROFILED = {}
 
 
 def device_ms(torch, fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> float:
@@ -410,13 +420,47 @@ def bf16_qkv(torch, b, s, h=12, d=64, seed=0):
     return tuple(t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
 
 
+def _k1_timed(torch, F, fa, q, k, v, card):
+    """f32 K1 on causal (q, k, v) beside its plain version and SDPA: device
+    times, a CUDA-event span, TFLOP/s, the bound at the split-TF32 rate of
+    the kernel's route and the one at the CUDA cores' f32 FMA rate, and the
+    query rows a block its launcher took; logged and returned as a row."""
+    b, s, h, d = q.shape
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    run = lambda i: fa.flash_attention_core(q, k, v, causal=True)  # noqa: E731
+    big = s > 1024  # the training shape: fewer calls of the slow ones
+    ms = device_ms(torch, run, iters=20 if big else 50)
+    loop_ms = cuda_ms(torch, run, iters=20 if big else 50)
+    plain_ms = device_ms(torch, lambda i: fa._dense_attention(q, k, v, None, causal=True),
+                         iters=3 if big else 20, warmup=1 if big else 3)
+    lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=20 if big else 50)
+    flops = 4.0 * d * b * h * _causal_pairs(s)
+    nbytes = 4.0 * (4 * b * s * h * d + b * h * s)  # q, k, v in; o, lse out
+    bms, by = bound_ms(nbytes, flops, TF32X3_FLOPS_PER_S)
+    fma, _ = bound_ms(nbytes, flops)
+    rows = fa.f32_block_rows(b, h, s)
+    shape = f"B={b} H={h} S={s} D={d} causal f32"
+    log(f"[k1] {shape}: kernel {ms:.4f} ms ({loop_ms:.4f} ms a launch in an "
+        f"event-timed loop; {rows}-row blocks, {flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), "
+        f"bound {bms:.4f} ms at split TF32 ({by}, {bms / ms:.1%}), {fma:.4f} ms "
+        f"at the f32 FMA rate; device times, on {card}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, fma_bound_ms=fma, event_ms=loop_ms,
+                tflops=flops / ms / 1e9, block_rows=rows, shape=shape)
+
+
 def phase_k1(torch, F, fa, card):
-    """K1 vs its plain version; returns the JSON row (timed at S=512, the
-    largest prompt bucket of the serving run)."""
-    b, h, d = 1, 12, 64
+    """f32 K1 (split TF32 on the tensor cores) vs its plain version at the
+    prefill shapes B=1, H=12, D=64, S in {128, 512, 576} and at the
+    training shape B=8, S=2048; returns the JSON row (timed at S=512, the
+    largest prompt bucket of the serving run, with the training shape's
+    entry under ``train``)."""
+    h, d = 12, 64
     worst_o = worst_lse = 0.0
     row = None
-    for s in (128, 512, 576):
+    for b, s in ((1, 128), (1, 512), (1, 576), (8, 2048)):
         g = torch.Generator(device="cuda").manual_seed(s)
         qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda")
         q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
@@ -427,26 +471,17 @@ def phase_k1(torch, F, fa, card):
         err_lse = (lse - lse_ref).abs().max().item()
         finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
         worst_o, worst_lse = max(worst_o, err_o), max(worst_lse, err_lse)
-        log(f"[k1] S={s}: max|dO|={err_o:.3e} max|dlse|={err_lse:.3e} "
+        log(f"[k1] B={b} S={s}: max|dO|={err_o:.3e} max|dlse|={err_lse:.3e} "
             f"(tolerance {K1_TOL:g}) finite={finite}")
         if not finite or err_o > K1_TOL or err_lse > K1_TOL:
             raise AssertionError(f"K1 disagrees with its plain version at S={s}")
-        if s != 512:
-            continue
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        run = lambda i: fa.flash_attention_core(q, k, v, causal=True)  # noqa: E731
-        ms, loop_ms = device_ms(torch, run, iters=50), cuda_ms(torch, run)
-        plain_ms = device_ms(torch, lambda i: fa._dense_attention(q, k, v, None, causal=True))
-        lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), iters=50)
-        pairs = s * (s + 1) // 2  # visible (query, key) pairs, causal
-        flops = 4.0 * b * h * d * pairs
-        nbytes = 4.0 * (4 * b * s * h * d + b * h * s)  # q, k, v in; o, lse out
-        bms, by = bound_ms(nbytes, flops)
-        log(f"[k1] S=512 kernel {ms:.4f} ms ({loop_ms:.4f} ms a launch in an "
-            f"event-timed loop), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}); device times, on {card}")
-        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   library_ms=lib_ms, shape=f"B=1 H=12 S=512 D=64 causal f32")
+        del o_ref, lse_ref
+        if s == 512:
+            row = _k1_timed(torch, F, fa, q, k, v, card)
+        elif s == 2048:
+            row["train"] = _k1_timed(torch, F, fa, q, k, v, card)
+        del q, k, v, qkv
+        torch.cuda.empty_cache()
     row["max_abs_err"] = max(worst_o, worst_lse)
     return row
 
@@ -1854,8 +1889,8 @@ def phase_train(torch, np, fa, card, dtype="float32", f32_losses=None):
     log(f"[profile] train step (B=8, S=2048, {dtype}, flash): host wall "
         f"{wall:.3f} ms, kernel time {share}; {trust_note(busy, event_ms)} on {card}")
     gemms = f"{'bf16' if bf16 else 'f32'} GEMMs (cuBLAS/CUTLASS)"
-    bsfx = sfx or "_f32"  # the f32 backward's kernels are named so
-    kernels = {f"K1 flash_fwd{sfx}_kernel": f"flash_fwd{sfx}_kernel",
+    bsfx = sfx or "_f32"  # the f32 kernels are named so
+    kernels = {f"K1 flash_fwd{bsfx}_kernel": f"flash_fwd{bsfx}_kernel",
                f"K2 flash_bwd_dq{bsfx}_kernel": f"flash_bwd_dq{bsfx}_kernel",
                f"K3 flash_bwd_dkv{bsfx}_kernel": f"flash_bwd_dkv{bsfx}_kernel"}
     log_groups(top, busy, gemms, kernels)
@@ -1969,7 +2004,7 @@ def _flash_at(torch, F, fa, d, h, b, s, dtype, card):
     same inputs, hold_bf16) at S in {37, s}, causal and not; timed at
     (b, s) causal.  Returns {kernel: entry}."""
     bf = dtype == torch.bfloat16
-    peak = BF16_FLOPS_PER_S if bf else F32_FLOPS_PER_S
+    peak = BF16_FLOPS_PER_S if bf else TF32X3_FLOPS_PER_S  # f32: split TF32
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     for ss in (37, s):
         # causal last: the timing below runs on the causal case's inputs
@@ -1985,14 +2020,13 @@ def _flash_at(torch, F, fa, d, h, b, s, dtype, card):
     head = es * b * s * h * d
     rows_in = 4 * head + 2 * 4.0 * b * h * s
     shape = f"B={b} H={h} S={s} D={d} causal {'bf16' if bf else 'f32'} (strided qkv views)"
-    bwd_peak = BF16_FLOPS_PER_S if bf else TF32X3_FLOPS_PER_S  # f32: split TF32
     entries = {
         "fwd": (fwd_ms, fwd_plain, fwd_lib,
                 bound_ms(4 * head + 4.0 * b * h * s, 4.0 * d * pairs, peak)),
         "dq": (dq_ms, bwd_plain, bwd_lib,
-               bound_ms(rows_in + head, 6.0 * d * pairs, bwd_peak)),
+               bound_ms(rows_in + head, 6.0 * d * pairs, peak)),
         "dkv": (dkv_ms, bwd_plain, bwd_lib,
-                bound_ms(rows_in + 2 * head, 8.0 * d * pairs, bwd_peak)),
+                bound_ms(rows_in + 2 * head, 8.0 * d * pairs, peak)),
     }
     result = {}
     for kern, (ms, plain_ms, lib_ms, (bms, by)) in entries.items():
@@ -2136,8 +2170,9 @@ def _decode_at(torch, F, fd, d, h, card):
 
 def phase_headdim(torch, F, fa, fd, card):
     """Every kernel at head dims 8, 16 and 32 against its plain version
-    under the head-dim-64 tolerances, timed at one shape each (K1-K3 at 8
-    run at 16 on zero-padded copies; K4 has an instance at 8).  Returns
+    under the head-dim-64 tolerances, timed at one shape each (f32 K1 and
+    K4 have instances at 8; K2, K3 and bf16 K1 at 8 run at 16 on
+    zero-padded copies).  Returns
     {row name: {d: entry}}."""
     out = {}
     for d, (h, b, s) in HEADDIM_GEOMETRY.items():
@@ -2405,7 +2440,7 @@ SMALL_RUNS = (  # name, paged, engine options
 
 def phase_serve_d8(torch, np, fa, fd, card):
     """Head dim 8 end to end at `bench.py --small`'s serving geometry: the
-    dense engine (prefill through K1 on zero-padded copies, decode through
+    dense engine (prefill through the f32 K1's instance at 8, decode through
     K4's instance at 8), the paged engine on f32 pages and on int8 pages
     (8-byte rows; chunked prefill and decode through K4), and the int8
     engine through the plain read, each with the counters zeroed just
@@ -2749,15 +2784,14 @@ def _bias_timed(torch, F, fa, dtype, card):
     head = es * b * s * h * d
     small = 4.0 * b * h * s  # one f32 [B, H, S] (lse or delta)
     bias_bytes = 4.0 * b * s
-    peak = BF16_FLOPS_PER_S if bf else F32_FLOPS_PER_S
-    bwd_peak = BF16_FLOPS_PER_S if bf else TF32X3_FLOPS_PER_S  # f32: split TF32
+    peak = BF16_FLOPS_PER_S if bf else TF32X3_FLOPS_PER_S  # f32: split TF32
     entries = {
         "fwd": (fwd_ms, fwd_plain, fwd_lib,
                 bound_ms(4 * head + small + bias_bytes, 4.0 * d * pairs, peak)),
         "dq": (dq_ms, bwd_plain, bwd_lib,
-               bound_ms(5 * head + 2 * small + bias_bytes, 6.0 * d * pairs, bwd_peak)),
+               bound_ms(5 * head + 2 * small + bias_bytes, 6.0 * d * pairs, peak)),
         "dkv": (dkv_ms, bwd_plain, bwd_lib,
-                bound_ms(6 * head + 2 * small + bias_bytes, 8.0 * d * pairs, bwd_peak)),
+                bound_ms(6 * head + 2 * small + bias_bytes, 8.0 * d * pairs, peak)),
     }
     tag = "bf16" if bf else "f32"
     k1_flops = 4.0 * d * pairs
@@ -3005,8 +3039,8 @@ def _profile_bert(torch, state, seq_len, dtype, card):
     log(f"[profile] bert step (B=8, S={seq_len}, {dtype}, flash with the bias): "
         f"host wall {wall:.3f} ms; {trust_note(busy, event_ms)} on {card}")
     gemms = f"{'bf16' if sfx else 'f32'} GEMMs (cuBLAS/CUTLASS)"
-    bsfx = sfx or "_f32"  # the f32 backward's kernels are named so
-    kernels = {f"K1 flash_fwd{sfx}_kernel (bias)": f"flash_fwd{sfx}_kernel",
+    bsfx = sfx or "_f32"  # the f32 kernels are named so
+    kernels = {f"K1 flash_fwd{bsfx}_kernel (bias)": f"flash_fwd{bsfx}_kernel",
                f"K2 flash_bwd_dq{bsfx}_kernel (bias)": f"flash_bwd_dq{bsfx}_kernel",
                f"K3 flash_bwd_dkv{bsfx}_kernel (bias)": f"flash_bwd_dkv{bsfx}_kernel"}
     log_groups(top, busy, gemms, kernels)
@@ -3016,6 +3050,7 @@ def log_k4(top, busy):
     """The decode kernel's share of a profiled serving step: its split and
     merge passes (every kernel named ``flash_decode_*``) under one name."""
     ms = sum(t for key, t in top if "flash_decode" in key)
+    note_profiled(top, ["flash_decode"])
     share = "" if not busy else f", {ms / busy:.1%} of kernel time"
     log(f"[profile]   K4 (split + merge passes): {ms:.4f} ms a step{share}")
     return ms
@@ -3032,17 +3067,44 @@ def log_groups(top, busy, gemms, kernels):
             group = gemms if ("gemm" in low or "nvjet" in low or "cutlass" in low
                               or "xmma" in low) else "everything else"
         groups[group] += ms
+    note_profiled(top, kernels.values())
     for group, ms in groups.items():
         log(f"[profile]   {ms:9.3f} ms  {ms / max(busy or 1e-9, 1e-9):6.1%}  {group}")
     for key, ms in top[:10]:
         log(f"[profile]   {ms:8.4f} ms  {key[:90]}")
 
 
+def note_profiled(top, names):
+    """Adds to PROFILED each kernel instance of a profile (``top``) whose
+    name holds one of ``names``, under that name."""
+    for key, _ in top:
+        for name in names:
+            if name in key:
+                m = re.search(r"\w+_kernel<[^>]*>", key)
+                PROFILED.setdefault(name, set()).add(m.group(0) if m else key)
+
+
+def profiled_kernels(row_name):
+    """The instances of the CUDA kernel a kernels-line row's wrapper
+    launches, as the run's profiles named them: flash_attention_<pass>
+    [_bias][_bf16] launches flash_<pass>_<f32 or bf16>_kernel (a row lists
+    its instances with and without the bias); the flash_decode* wrappers
+    share the flash_decode split and merge kernels (each row lists all
+    their instances)."""
+    if row_name.startswith("flash_decode"):
+        name = "flash_decode"
+    else:
+        dtype = "_bf16" if row_name.endswith("_bf16") else "_f32"
+        stem = row_name.replace("_bias", "").replace("_bf16", "")
+        name = stem.replace("flash_attention_", "flash_") + dtype + "_kernel"
+    return sorted(PROFILED.get(name, ()))
+
+
 def log_instances(_build):
     """One build line per instance of the bf16 forward (K1) and backward
-    (K2, K3) and of the f32 backward (K2, K3 on split TF32) -- head dim,
-    bias, rows a block: its registers and spill bytes from ``ptxas -v`` and
-    its dynamic shared memory from the library."""
+    (K2, K3) and of the f32 forward and backward (K1, K2, K3 on split
+    TF32) -- head dim, bias, rows a block: its registers and spill bytes
+    from ``ptxas -v`` and its dynamic shared memory from the library."""
     fwd = _build.load("flash_attention_fwd")
     bwd = _build.load("flash_attention_bwd")
     # bf16: <D, bias, 64-row consumer warpgroups>; f32: <D, bias, 16-row
@@ -3065,7 +3127,9 @@ def log_instances(_build):
                                                             line).group(1)
     names = {"fwd": "K1", "bwd_dq": "K2", "bwd_dkv": "K3"}
     for (kind, dtype, d, bias, rows), got in sorted(info.items()):
-        if dtype == "f32":
+        if dtype == "f32" and kind == "fwd":
+            smem = fwd.flash_attention_fwd_f32_smem_bytes(d, rows)
+        elif dtype == "f32":
             smem = bwd.flash_attention_bwd_f32_smem_bytes(int(kind == "bwd_dkv"), d, rows)
         elif kind == "fwd":
             smem = fwd.flash_attention_fwd_bf16_smem_bytes(d, bias, rows)
@@ -3249,6 +3313,8 @@ def main() -> int:
         row["head_dims"] = {
             str(d): {**entry, "launches": defaults[d].get(row["name"], 0)}
             for d, entry in headdim.get(row["name"], {}).items()}
+    for row in rows:
+        row["kernel"] = profiled_kernels(row["name"])
     log(f"[timer] windows timed by CUDA events for want of profiler device "
         f"time: {len(EVENT_TIMED)}; windows that lost launch records, timed by "
         f"the launches recorded: {len(PARTIAL_WINDOWS)}")

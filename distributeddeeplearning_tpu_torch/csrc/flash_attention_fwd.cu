@@ -1,14 +1,16 @@
-// Causal flash-attention forward, float32, for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), in float32 and bfloat16
+// (below), both on the tensor cores.
 //
 // Replaces the Pallas TPU kernel distributeddeeplearning_tpu/ops/
 // flash_attention.py:_kernel (launched by _flash_fwd_pallas).  Computes
-//   O = softmax(Q K^T / sqrt(D) + bias + causal) V   and   lse = log-sum-exp
-// of the scaled, masked scores in nats, per (batch, head, query row).
+//   O = softmax(Q K^T * scale + bias + causal) V   and   lse = log-sum-exp
+// of the scaled, masked scores in nats, per (batch, head, query row), with
+// scale = 1/sqrt(D) from the caller.
 //
 // Key-padding bias.  With a non-null `bias` ([B, S] f32, 0 or -1e30 per
 // key, shared by the heads of a batch row) every kernel here is built with
-// HAS_BIAS and adds bias[b, key] to each score before the running max, as
-// the Pallas kernel adds it to its base-2 scores (has_bias).  It is an
+// HAS_BIAS and adds the bias to each score before the running max, as the
+// Pallas kernel adds it to its base-2 scores (has_bias).  It is an
 // additive term, not a skip: a row whose keys are all masked gets the
 // uniform mean of V over its visible keys, as the reference does, where a
 // skip would leave l = 0.  Keys that are invisible by position (causal, or
@@ -17,40 +19,88 @@
 // code is the unbiased kernel's.
 //
 // Layout.  q, k and v arrive as the [B, S, H, D] views that the model's
-// qkv split produces: rows of one head are D floats apart from nothing but
-// their own stride, so the kernel takes (batch, seq, head) strides and
-// reads the views in place -- there is no copy in the wrapper.  The last
+// qkv split produces: rows of one head are D values apart from nothing but
+// their own stride, so the kernels take (batch, seq, head) strides and read
+// the views in place -- there is no copy in the wrapper.  The last
 // dimension must be contiguous.  O is written [B, S, H, D] contiguous (the
 // model reshapes it to [B, S, H*D] for free); lse is [B, H, S].
 //
-// Head dim.  Every kernel here is a template on the head dim D, built for
-// D in {16, 32, 64} (the reference's defaults: `ddlt serve`'s d 64 over 4
-// heads, the LM trainer's d 256 over 8, the serve and train benchmarks'
-// d 768 over 12); the entry points take D and refuse any other value with
-// cudaErrorInvalidValue, as the wrapper refuses it first.  At D = 64 the
-// arithmetic is the one the kernels had before they took D, operation for
-// operation.
+// ---------------------------------------------------------------------------
+// f32 forward: split TF32 ("3xTF32") on mma.sync, from csrc/tf32x3.cuh,
+// the building blocks of the f32 backward's dQ pass, whose shape it has.
 //
-// Design.  One thread block per (b*h, 64-row query tile); a loop over
-// 32-key tiles inside the block takes the place of the TPU grid's
-// sequential k axis.  Q, K and V tiles are staged in shared memory, the
-// running (m, l, acc) live in registers (each of the 256 threads owns 4
-// query rows x D/16 output columns -- columns tx + 16 j -- and 4 x 2
-// scores of each tile).  With
-// causal masking the loop stops at the tile holding the block's last
-// query row (the whole-tile skip above the diagonal); the tiles it does
-// visit are masked elementwise with the finite -1e30 fill, never -inf, as
-// the reference does.  Rows and keys past S (the ragged last tile) are
-// zero-filled on load and masked, so any S works.  The online softmax runs
-// in natural base; only the nats interface of lse matters.
+// Bound on the H100.  At the LM training shape (B=8, H=12, S=2048, D=64,
+// causal) the kernel reads ~150 MB and writes ~50 MB but does 4 D flops a
+// visible (query, key) pair, 5.2e10 flops: bound by operations.  On the
+// CUDA cores (67 TFLOP/s of f32 FMA) that is 0.77 ms; a single TF32 product
+// on the tensor cores keeps 11 significant bits, far from the f32 parity
+// the port is held to.  So every product runs as three TF32 products on
+// split operands (tf32x3.cuh): f32 accuracy at a third of the dense TF32
+// rate, 165 TFLOP/s, a 0.31 ms bound.  On an NVIDIA H100 80GB HBM3 at
+// 700 W the kernel takes ~1.03 ms there against the scalar kernel's ~2.24
+// and SDPA's f32 ~1.69 (scripts/time_flash.py --only f32_k1; PERF.md).
 //
-// Bound on the H100.  At the serve shapes (B=1, H=12, D=64, S <= 576)
-// the kernel moves ~3.5 MB and does ~0.9 GFLOP: it is bound by operations.
-// It uses plain FMA on CUDA cores (67 TFLOP/s peak in f32), not TF32 mma,
-// because TF32 would break the float32 parity the port is held to.  The
-// tiling re-reads each K/V tile once per query tile from shared memory
-// rather than global memory; making it fast (wgmma in bf16, deeper
-// pipelining) is later work.
+// Design.  One block of NW warps owns 16 NW query rows of one (b, h); each
+// warp owns 16 rows and keeps (m, l, O) in registers, O as m16n8k8 C
+// fragments.  Query tiles are the grid's slow dimension, issued last tile
+// first, so the longest causal blocks start first.
+// - Q, the one owned operand, is loop-invariant: the block copies its rows
+//   once (into the lo tiles, before any K/V tile is split there) and each
+//   warp loads its 16 rows as A fragments through ldmatrix and splits them
+//   into TF32 parts once, kept in registers (D of them a thread).
+// - K and V (and, with HAS_BIAS, the tile's key bias) stream through a
+//   two-stage cp.async ring of BN = 64-row tiles, rows of D + 4 floats.
+//   After the first barrier of a tile it is visible and every warp is done
+//   with the previous one, whose stage then takes the next tile while this
+//   one is computed; the block splits the K and V tiles into TF32 parts
+//   once, in place (a stage keeps the hi parts, the lo parts go to one lo
+//   tile each), and after the second barrier every warp reads the parts.
+//   At D = 64 that is 105 kB of shared memory, where separate hi tiles and
+//   Q's parts in shared memory took 210 kB; a thread then holds 233-235
+//   registers.
+// - S = Q K^T is three TF32 products a k-step of 8 (mma3), B fragments
+//   from the split tiles through ldmatrix; S stays in C fragments: a
+//   thread holds rows g and g + 8, keys 2t and 2t + 1 of each 8-key tile.
+// - The online softmax runs on the fragments: the row max over the
+//   thread's values, then over the quad (__shfl_xor 1 and 2); P = exp(S -
+//   m) in f32, its row sums l from that f32 P (a lane's share, summed over
+//   the quad at the end); O rescaled by exp(m_old - m).  Without a bias
+//   the max is taken on the unscaled scores (rounding is monotone) and each
+//   exponent is one fused multiply-add into the SFU's exp2, in base 2;
+//   with one, the scores are scaled and biased in nats first (bias * ln 2
+//   by __fmul_rn, never fused, so that a fully masked row's lse is the
+//   plain version's bit for bit).  Only a tile that crosses the warp's
+//   causal diagonal or S is masked elementwise, with the finite -1e30,
+//   never -inf.
+// - O += P V (accumulate): P feeds the product from its C fragments --
+//   columns 2t and 2t + 1 stand for k = t and t + 4, and the B fragment
+//   takes V's rows 2t and 2t + 1 to match.  Each tile's products are
+//   summed in a fresh accumulator and added to O in f32: the tensor cores
+//   round their f32 sums toward zero, a bias that would grow with the
+//   number of tiles in one chain of products.
+// - A warp skips the tiles wholly above its rows' diagonal but keeps the
+//   ring in step; the block's stream stops at its last row's tile.
+// - O = acc / max(l, 1e-30) (fully masked rows stay finite) and lse =
+//   m + log(l) are written at the end.
+// Block sizes: the launcher picks 128 or 64 query rows a block by the grid
+// against the SM count (fwd_f32_block_rows, exported for the tests).
+//
+// Choices, each timed against the others in one call on an NVIDIA H100
+// 80GB HBM3 at 700 W (scripts/time_flash.py --only f32_k1; PERF.md): at
+// the training shape Q's parts and separate hi tiles in shared memory took
+// 1.10 ms against 1.03 for this layout, 64-row blocks (two an SM) 1.07
+// against 1.03 for 128 (one); 32-row blocks were slower wherever the grid
+// is short (serving prefill 0.042 against 0.034 ms, D 16 0.019 against
+// 0.016, D 32 0.010 against 0.009) and equal at D 8.  Left out one at a
+// time in copies of the kernel, the P V products cost 0.29 ms there, the
+// Q K^T products 0.21 and the split of the K/V tiles 0.16.
+//
+// Head dim.  Built for D in {8, 16, 32, 64} (the reference's defaults:
+// `bench.py --small`'s d 32 over 4 heads, `ddlt serve`'s d 64 over 4, the
+// LM trainer's d 256 over 8, the serve and train benchmarks' d 768 over
+// 12): at D = 8, Q K^T is one k-step and P V one n-tile, and a row of
+// D + 4 = 12 floats keeps ldmatrix and cp.async on 16 bytes.  The entry
+// point refuses any other D with cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,167 +108,296 @@
 
 #include "bf16_mma.cuh"
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 32;         // keys per inner tile
-constexpr int THREADS = 256;   // 16 row groups x 16 lanes
+using namespace tf32x3;
+
 constexpr float NEG_BIG = -1e30f;
+constexpr int FWD_F32_BN = 64;  // keys a streamed K/V tile
 
-template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
-                 long long q_sb, long long q_ss, long long q_sh,
-                 long long k_sb, long long k_ss, long long k_sh,
-                 long long v_sb, long long v_ss, long long v_sh,
-                 float* __restrict__ o, float* __restrict__ lse,
-                 int H, int S, int causal, float scale) {
-  constexpr int DJ = D / 16;  // output columns a thread owns
-  __shared__ float Qs[BQ][D + 1];
-  __shared__ float Ks[BK][D + 1];
-  __shared__ __align__(16) float Vs[BK][D];
-  __shared__ float Ps[BQ][BK + 1];
+// Shared memory of an f32 forward instance, in floats: the K and V ring
+// (a stage holds a tile's raw rows, then, split in place, their hi parts),
+// the key-bias window of each stage, and the lo parts of the current K and
+// V tiles (before the first tile: the block's raw Q rows).
+template <int D, int NW, int BN>
+struct FwdF32Layout {
+  static constexpr int LD = D + 4;  // floats a tile row
+  static constexpr int BR = 16 * NW;
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int TILE = BN * LD;
+  static constexpr int RING2 = F32_STAGES * TILE;      // V; K at 0
+  static constexpr int WIN = 2 * F32_STAGES * TILE;    // key bias
+  static constexpr int LO = WIN + F32_STAGES * BN;     // K lo, V lo
+  static constexpr int BYTES = 4 * (LO + 2 * TILE);
+  static_assert(BR <= 2 * BN, "the raw Q rows must fit the lo tiles");
+};
 
-  const int bh = blockIdx.y;
+// A warp's 16 rows of Q (Qw: its first row, f32 rows of D + 4) as the A
+// fragments of every k-step, split into TF32 parts
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t (&qh)[D / 8][4],
+                                       uint32_t (&ql)[D / 8][4],
+                                       const float* Qw, int lane) {
+  const int a_off = a_frag_offset<D>(lane);
+#pragma unroll
+  for (int kc = 0; kc < D / 8; ++kc) {
+    uint32_t raw[4];
+    ldsm4(raw, Qw + a_off + 8 * kc);
+    split_tf32(raw, qh[kc], ql[kc]);
+  }
+}
+
+// S = Q K^T for a warp's 16 rows (qh, ql: load_q's fragments) against the
+// BN keys of a streamed tile (Kh, Kl: its TF32 parts), D deep; C tile j
+// covers keys 8j .. 8j + 7.
+template <int D, int BN>
+__device__ __forceinline__ void qk_scores(float (&s)[BN / 8][4],
+                                          const uint32_t (&qh)[D / 8][4],
+                                          const uint32_t (&ql)[D / 8][4],
+                                          const uint32_t* Kh,
+                                          const uint32_t* Kl, int lane) {
+  constexpr int LD = D + 4;
+  const int b_off = b_frag_offset<D>(lane);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  }
+#pragma unroll
+  for (int kc = 0; kc < D / 8; ++kc) {
+#pragma unroll
+    for (int np = 0; np < BN / 16; ++np) {
+      const int at = b_off + 16 * np * LD + 8 * kc;
+      uint32_t bh[4], bl[4];
+      ldsm4(bh, Kh + at);
+      ldsm4(bl, Kl + at);
+      mma3(s[2 * np], qh[kc], ql[kc], bh[0], bh[1], bl[0], bl[1]);
+      mma3(s[2 * np + 1], qh[kc], ql[kc], bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// The online softmax of a warp's [16 rows x BN keys] score tile, in place:
+// sc becomes P (f32), m (mrow: the thread's rows row and row + 8) and the
+// lane's share of l (lrow) move on, corr rescales what came before (0 on
+// a row's first tile).  Without HAS_BIAS, m is in base 2 (scores times
+// scale_log2); with it, in nats (scores times scale plus the bias in
+// nats).  EDGE: the tile crosses the warp's diagonal or S, so each
+// element checks that its key is visible from its row.
+template <bool HAS_BIAS, bool EDGE, int BN>
+__device__ __forceinline__ void softmax_tile_f32(float (&sc)[BN / 8][4],
+                                                 float (&mrow)[2],
+                                                 float (&lrow)[2],
+                                                 float (&corr)[2],
+                                                 const float* bias_t,
+                                                 float scale, float scale_log2,
+                                                 int k0, int row, int t, int S,
+                                                 int causal) {
+  float mx[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * t + (e & 1);  // key within the tile
+      float x = sc[j][e];
+      // a fully masked row's -1e30 ln 2 absorbs its scores: they tie
+      if constexpr (HAS_BIAS) x = fmaf(x, scale, __fmul_rn(bias_t[c], bf16mma::LN2));
+      if constexpr (EDGE) {
+        const int key = k0 + c;
+        // NEG_BIG lies below every biased score (-1e30 ln 2 at least)
+        if (key >= S || (causal && key > row + 8 * (e >> 1))) x = NEG_BIG;
+      }
+      sc[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    if constexpr (!HAS_BIAS) mx[i] *= scale_log2;
+    const float m_new = fmaxf(mrow[i], mx[i]);
+    corr[i] = HAS_BIAS ? hopper::exp2_ftz((mrow[i] - m_new) * bf16mma::LOG2E)
+                       : hopper::exp2_ftz(mrow[i] - m_new);
+    mrow[i] = m_new;
+    lrow[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float m = mrow[e >> 1];
+      const float p =
+          HAS_BIAS ? hopper::exp2_ftz((sc[j][e] - m) * bf16mma::LOG2E)
+                   : hopper::exp2_ftz(fmaf(sc[j][e], scale_log2, -m));
+      lrow[e >> 1] += p;
+      sc[j][e] = p;
+    }
+  }
+}
+
+// One block per (b*h, tile of 16 NW query rows, last tile first); streams
+// K/V tiles of BN keys.
+template <int D, bool HAS_BIAS, int NW, int BN>
+__global__ void __launch_bounds__(32 * NW)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ bias,
+                     long long q_sb, long long q_ss, long long q_sh,
+                     long long k_sb, long long k_ss, long long k_sh,
+                     long long v_sb, long long v_ss, long long v_sh,
+                     float* __restrict__ o, float* __restrict__ lse, int H,
+                     int S, int causal, float scale) {
+  using L = FwdF32Layout<D, NW, BN>;
+  constexpr int LD = L::LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;              // [STAGES][BN][LD], raw, then hi
+  float* Vs = smem + L::RING2;   // [STAGES][BN][LD], raw, then hi
+  float* Bs = smem + L::WIN;     // [STAGES][BN] raw key bias
+  uint32_t* Kl = reinterpret_cast<uint32_t*>(smem + L::LO);  // [BN][LD]
+  uint32_t* Vl = Kl + L::TILE;                               // [BN][LD]
+  float* Qraw = smem + L::LO;  // [BR][LD], until every warp has split its rows
+
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::BR;  // last tile first
+  // causal: keys past the block's last query row are never visible
+  const int kend = causal ? min(S, q0 + L::BR) : S;
+  const int ntiles = (kend + BN - 1) / BN;
   const int tid = threadIdx.x;
-  const int ty = tid / 16;  // row group: rows ty*4 .. ty*4+3
-  const int tx = tid % 16;  // lane in the row group
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
 
   const float* qb = q + b * q_sb + h * q_sh;
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
-
-  for (int f = tid; f < BQ * (D / 4); f += THREADS) {
-    const int r = f / (D / 4);
-    const int c = (f % (D / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < S) {
-      x = *reinterpret_cast<const float4*>(qb + (long long)(q0 + r) * q_ss + c);
-    }
-    Qs[r][c] = x.x; Qs[r][c + 1] = x.y; Qs[r][c + 2] = x.z; Qs[r][c + 3] = x.w;
-  }
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  // causal: keys past the block's last query row are never visible
-  const int kend = causal ? min(S, q0 + BQ) : S;
-  const int ntiles = (kend + BK - 1) / BK;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile fully consumed (and Q staged)
-    for (int f = tid; f < BK * (D / 4); f += THREADS) {
-      const int r = f / (D / 4);
-      const int c = (f % (D / 4)) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (k0 + r < S) {
-        kx = *reinterpret_cast<const float4*>(kb + (long long)(k0 + r) * k_ss + c);
-        vx = *reinterpret_cast<const float4*>(vb + (long long)(k0 + r) * v_ss + c);
-      }
-      Ks[r][c] = kx.x; Ks[r][c + 1] = kx.y; Ks[r][c + 2] = kx.z; Ks[r][c + 3] = kx.w;
-      *reinterpret_cast<float4*>(&Vs[r][c]) = vx;
-    }
-    __syncthreads();
-
-    // this lane's two keys' bias, in nats: the reference adds it to base-2
-    // scores, so a -1e30 there is -1e30 * ln 2 here
-    float kb_nat[2] = {0.f, 0.f};
+  const float* biasb = HAS_BIAS ? bias + (long long)b * S : nullptr;
+  auto load_tile = [&](int kt) {
+    const int s = kt % F32_STAGES;
+    copy_rows<D, BN, L::THREADS>(Ks + s * L::TILE, kb, k_ss, kt * BN, S, tid);
+    copy_rows<D, BN, L::THREADS>(Vs + s * L::TILE, vb, v_ss, kt * BN, S, tid);
     if constexpr (HAS_BIAS) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = k0 + tx + 16 * j;
-        if (c < S) {
-          kb_nat[j] = __fmul_rn(bias[(long long)b * S + c], bf16mma::LN2);
-        }
-      }
+      copy_window<BN, L::THREADS>(Bs + s * BN, biasb, kt * BN, S, tid);
     }
+    bf16mma::cp_async_commit();
+  };
+  copy_rows<D, L::BR, L::THREADS>(Qraw, qb, q_ss, q0, S, tid);
+  load_tile(0);  // one group: Q and the first tile
+  bf16mma::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qh[D / 8][4], ql[D / 8][4];  // Q split once, kept in registers
+  load_q<D>(qh, ql, Qraw + 16 * warp * LD, lane);
 
-    float s[4][2];
+  const int r0 = q0 + 16 * warp;  // the warp's first row
+  const int row = r0 + g;         // this thread's rows: row, row + 8
+  // the tiles this warp computes: with causal masking, those that start at
+  // or before its last row
+  const int nact = r0 >= S ? 0
+                   : causal ? min(ntiles, (r0 + 15) / BN + 1)
+                            : ntiles;
+  const float scale_log2 = scale * bf16mma::LOG2E;
+  float acc[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) { s[i][0] = 0.f; s[i][1] = 0.f; }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4];
+  for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[ty * 4 + i][d];
-      const float k0v = Ks[tx][d];
-      const float k1v = Ks[tx + 16][d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(qv[i], k0v, s[i][0]);
-        s[i][1] = fmaf(qv[i], k1v, s[i][1]);
-      }
-    }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+  float mrow[2] = {-INFINITY, -INFINITY};
+  float lrow[2] = {0.f, 0.f};  // this lane's share of the row sums
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const bool visible = c < S && (!causal || c <= r);
-        float sv = s[i][j] * scale;
-        if constexpr (HAS_BIAS) sv += kb_nat[j];
-        // NEG_BIG lies below every biased score (-1e30 * ln 2 at least)
-        s[i][j] = visible ? sv : NEG_BIG;
-      }
-      float mx = fmaxf(s[i][0], s[i][1]);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);  // 0 on the first tile
-      const float p0 = expf(s[i][0] - m_new);
-      const float p1 = expf(s[i][1] - m_new);
-      float rs = p0 + p1;
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-      m[i] = m_new;
-      Ps[ty * 4 + i][tx] = p0;
-      Ps[ty * 4 + i][tx + 16] = p1;
-    }
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int s = kt % F32_STAGES;
+    bf16mma::cp_async_wait<0>();
+    // tile kt visible; every warp is done with tile kt - 1 (and, at kt = 0,
+    // with Q's rows in the lo tiles)
     __syncthreads();
+    if (kt + 1 < ntiles) load_tile(kt + 1);
+    // split in place: the stage keeps the hi parts, the lo tiles the rest
+    uint32_t* Kh = reinterpret_cast<uint32_t*>(Ks + s * L::TILE);
+    uint32_t* Vh = reinterpret_cast<uint32_t*>(Vs + s * L::TILE);
+    split_tile<D, BN, L::THREADS>(Kh, Kl, Ks + s * L::TILE, tid);
+    split_tile<D, BN, L::THREADS>(Vh, Vl, Vs + s * L::TILE, tid);
+    __syncthreads();  // the tile's TF32 parts visible
+    if (kt >= nact) continue;  // warp-uniform: above the warp's rows
+    const int k0 = kt * BN;
+    float sc[BN / 8][4], corr[2];
+    qk_scores<D, BN>(sc, qh, ql, Kh, Kl, lane);
+    if (k0 + BN > S || (causal && k0 + BN - 1 > r0)) {
+      softmax_tile_f32<HAS_BIAS, true, BN>(sc, mrow, lrow, corr, Bs + s * BN,
+                                       scale, scale_log2, k0, row, t, S,
+                                       causal);
+    } else {
+      softmax_tile_f32<HAS_BIAS, false, BN>(sc, mrow, lrow, corr, Bs + s * BN,
+                                        scale, scale_log2, k0, row, t, S,
+                                        causal);
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+    }
+    accumulate<D, BN>(acc, sc, Vh, Vl, g, t);
+  }
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4], vv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[ty * 4 + i][c];
+  for (int i = 0; i < 2; ++i) {
+    float l = lrow[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float ll = fmaxf(l, 1e-30f);  // fully masked rows stay finite
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][2 * i] /= ll;
+      acc[n][2 * i + 1] /= ll;
+    }
+    const int r = row + 8 * i;
+    if (t == 0 && r < S) {
+      lse[(long long)bh * S + r] = HAS_BIAS ? mrow[i] + logf(ll)
+                                            : (mrow[i] + log2f(ll)) * bf16mma::LN2;
     }
   }
+  store_rows_f32<D>(o, acc, b, h, H, S, row, t);
+}
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= S) continue;
-    const float ll = fmaxf(l[i], 1e-30f);  // fully-masked rows stay finite
-    float* orow = o + (((long long)b * S + r) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[i][j] / ll;
-    if (tx == 0) lse[((long long)b * H + h) * S + r] = m[i] + logf(ll);
+// Query rows a block of the f32 forward owns over B * H heads of S rows:
+// 128 when S > 64 and that grid covers at least half the SMs (eight warps
+// share each streamed tile), else 64 (more blocks spread a short grid over
+// more SMs); 64 if the SM count cannot be read.  32-row blocks were slower
+// at every shape timed (PERF.md).
+int fwd_f32_block_rows(int B, int H, int S) {
+  int dev = 0;
+  int sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 64;
   }
+  return S > 64 && 2LL * B * H * ((S + 127) / 128) >= sms ? 128 : 64;
+}
+
+template <int D, bool HAS_BIAS, int NW>
+int launch_fwd_f32_as(const float* q, const float* k, const float* v,
+                      const float* bias,
+                      long long q_sb, long long q_ss, long long q_sh,
+                      long long k_sb, long long k_ss, long long k_sh,
+                      long long v_sb, long long v_ss, long long v_sh, float* o,
+                      float* lse, int B, int H, int S, int causal, float scale,
+                      cudaStream_t stream) {
+  using L = FwdF32Layout<D, NW, FWD_F32_BN>;
+  const auto kernel = flash_fwd_f32_kernel<D, HAS_BIAS, NW, FWD_F32_BN>;
+  static unsigned long long configured = 0;  // a bit per device
+  const cudaError_t err =
+      hopper::configure_once(kernel, L::BYTES, L::THREADS, 0, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + L::BR - 1) / L::BR);
+  kernel<<<grid, L::THREADS, L::BYTES, stream>>>(
+      q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o,
+      lse, H, S, causal, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -229,17 +408,14 @@ int launch_fwd_f32(const float* q, const float* k, const float* v,
                    long long v_sb, long long v_ss, long long v_sh, float* o,
                    float* lse, int B, int H, int S, int causal, float scale,
                    cudaStream_t stream) {
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  if (bias != nullptr) {
-    flash_fwd_kernel<D, true><<<grid, THREADS, 0, stream>>>(
-        q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-        o, lse, H, S, causal, scale);
-  } else {
-    flash_fwd_kernel<D, false><<<grid, THREADS, 0, stream>>>(
-        q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-        o, lse, H, S, causal, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int rows = fwd_f32_block_rows(B, H, S);
+#define FWD_AS(HB, NW_)                                                    \
+  launch_fwd_f32_as<D, HB, NW_>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb,     \
+                                k_ss, k_sh, v_sb, v_ss, v_sh, o, lse, B, H, \
+                                S, causal, scale, stream)
+  if (bias != nullptr) return rows == 128 ? FWD_AS(true, 8) : FWD_AS(true, 4);
+  return rows == 128 ? FWD_AS(false, 8) : FWD_AS(false, 4);
+#undef FWD_AS
 }
 
 }  // namespace
@@ -252,22 +428,40 @@ extern "C" int flash_attention_fwd_f32(
     float* o, float* lse, int B, int H, int S, int D, int causal, float scale,
     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FWD_D(D_)                                                          \
+  launch_fwd_f32<D_>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,    \
+                     v_sb, v_ss, v_sh, o, lse, B, H, S, causal, scale, st)
   switch (D) {
+    case 8:
+      return FWD_D(8);
     case 16:
-      return launch_fwd_f32<16>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss,
-                                k_sh, v_sb, v_ss, v_sh, o, lse, B, H, S,
-                                causal, scale, st);
+      return FWD_D(16);
     case 32:
-      return launch_fwd_f32<32>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss,
-                                k_sh, v_sb, v_ss, v_sh, o, lse, B, H, S,
-                                causal, scale, st);
+      return FWD_D(32);
     case 64:
-      return launch_fwd_f32<64>(q, k, v, bias, q_sb, q_ss, q_sh, k_sb, k_ss,
-                                k_sh, v_sb, v_ss, v_sh, o, lse, B, H, S,
-                                causal, scale, st);
+      return FWD_D(64);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FWD_D
+}
+
+// The query rows a block of the f32 forward takes at (B, H, S) on the
+// current device: 128 or 64 (see fwd_f32_block_rows).
+extern "C" int flash_attention_fwd_f32_block_rows(int B, int H, int S) {
+  return fwd_f32_block_rows(B, H, S);
+}
+
+// Dynamic shared memory, in bytes, of the f32 forward's instance for head
+// dim D at `rows` query rows a block; -1 if there is no such instance.
+// Neither the rows nor the bias change it.
+extern "C" int flash_attention_fwd_f32_smem_bytes(int D, int rows) {
+  if ((rows != 64 && rows != 128) ||
+      (D != 8 && D != 16 && D != 32 && D != 64)) {
+    return -1;
+  }
+  return 4 * ((2 * F32_STAGES + 2) * FWD_F32_BN * (D + 4) +
+              F32_STAGES * FWD_F32_BN);
 }
 
 // ---------------------------------------------------------------------------

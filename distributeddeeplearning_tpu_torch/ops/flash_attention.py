@@ -8,15 +8,17 @@ the dK/dV pass, counterparts of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
 launched by ``_flash_bwd_pallas``).  Causal or not, head dim 8, 16, 32 or
 64 (:data:`HEAD_DIMS`: the reference's serve, trainer and benchmark
 geometries), any sequence length, in either of the two dtypes the Pallas
-kernels run: float32 (the forward on CUDA cores; the backward on the
-tensor cores in split TF32, three TF32 products a product, which keeps
-f32 accuracy) or bfloat16 (tensor-core kernels on ``wgmma`` with TMA-fed
-tiles, bf16 operands with f32 accumulation).  The dtype picks the entry
-point; all operands share it.  The kernels are built for head dims 16, 32
-and 64 (:data:`KERNEL_HEAD_DIMS`); a head dim of 8 runs them at 16 on
-zero-padded copies (:func:`pad_head_dim`, :func:`strip_head_dim`), which
-is exact -- zero columns add nothing to Q K^T and give zero output
-columns -- with the scale 1/sqrt(8) of the caller's head dim.  On CPU
+kernels run: float32 (tensor-core kernels on ``mma.sync`` in split TF32,
+three TF32 products a product, which keeps f32 accuracy) or bfloat16
+(tensor-core kernels on ``wgmma`` with TMA-fed tiles, bf16 operands with
+f32 accumulation).  The dtype picks the entry point; all operands share
+it.  The f32 forward is built for head dims 8, 16, 32 and 64; the f32
+backward and every bf16 kernel for 16, 32 and 64
+(:data:`KERNEL_HEAD_DIMS`: bf16 ``wgmma`` steps k by 16), and a head dim
+of 8 runs them at 16 on zero-padded copies (:func:`pad_head_dim`,
+:func:`strip_head_dim`), which is exact -- zero columns add nothing to
+Q K^T and give zero output columns -- with the scale 1/sqrt(8) of the
+caller's head dim.  On CPU
 tensors the same code runs the kernels' plain versions:
 :func:`_dense_attention` (the reference's ``_dense_attention`` extended to
 return the log-sum-exp in nats) and
@@ -70,12 +72,13 @@ from distributeddeeplearning_tpu_torch.ops import _build
 
 NEG_BIG = -1e30  # finite mask fill; -inf poisons the online-softmax max
 LN2 = 0.6931471805599453  # the reference's base-2 bias in nats
-#: head dims the kernels are built for (the bf16 wgmma products take a head
+#: head dims every kernel is built for (the bf16 wgmma products take a head
 #: dim that is a multiple of their 16-deep k-step)
 KERNEL_HEAD_DIMS = (16, 32, 64)
-#: head dims the wrappers take: the kernels' own, and 8 through padding
+#: head dims the wrappers take: the kernels' own, and 8 (natively in the
+#: f32 forward, through padding in the other kernels)
 HEAD_DIMS = (8,) + KERNEL_HEAD_DIMS
-#: the kernel head dim a padded head dim runs at
+#: the kernel head dim a padded head dim runs at (all but the f32 forward)
 PADDED_HEAD_DIM = {8: 16}
 
 #: f32 forward (K1) kernel launches since the counter was last reset
@@ -134,6 +137,14 @@ def bf16_block_rows(b: int, h: int, s: int) -> int:
     the current CUDA device: 192, 128 or 64, by the launcher's rule in
     ``csrc/flash_attention_fwd.cu`` (``fwd_bf16_block_rows``)."""
     fn = _build.load("flash_attention_fwd").flash_attention_fwd_bf16_block_rows
+    return int(fn(b, h, s))
+
+
+def f32_block_rows(b: int, h: int, s: int) -> int:
+    """The query rows a block of the f32 forward takes at (B, H, S) on the
+    current CUDA device: 128 or 64, by the launcher's rule in
+    ``csrc/flash_attention_fwd.cu`` (``fwd_f32_block_rows``)."""
+    fn = _build.load("flash_attention_fwd").flash_attention_fwd_f32_block_rows
     return int(fn(b, h, s))
 
 
@@ -284,16 +295,18 @@ def _check_operand(name: str, t: torch.Tensor, shape, dtype,
         raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
 
 
-def _check_inputs(**named):
+def _check_inputs(pad: bool = True, **named):
     """Shape, type, layout and device checks shared by the kernels; returns
     the operands as the kernels take them: zero-padded copies at a padded
-    head dim, else the views themselves, checked for layout."""
+    head dim when ``pad`` (every kernel but the f32 forward), else the
+    views themselves, checked for layout."""
     q = named["q"]
     b, s, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(
             f"flash_attention: the CUDA kernels take head dims {HEAD_DIMS} "
-            f"(8 on copies zero-padded to 16), got {d}"
+            f"(8 in the f32 forward, elsewhere on copies zero-padded to 16), "
+            f"got {d}"
         )
     out = []
     for name, t in named.items():
@@ -301,9 +314,9 @@ def _check_inputs(**named):
             raise ValueError("flash_attention: operands on different devices")
         # a padded copy is a fresh contiguous tensor: only views need the
         # layout check
-        _check_operand(name, t, (b, s, h, d), q.dtype,
-                       layout=d not in PADDED_HEAD_DIM)
-        out.append(pad_head_dim(t))
+        padded = pad and d in PADDED_HEAD_DIM
+        _check_operand(name, t, (b, s, h, d), q.dtype, layout=not padded)
+        out.append(pad_head_dim(t) if padded else t)
     return out
 
 
@@ -322,11 +335,11 @@ def _check_bias(bias, b: int, s: int, device) -> None:
 def _launch(q, k, v, *, causal: bool, bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run K1 (f32 or bf16, q's dtype; the bias variant when ``bias`` is a
     [B, S] f32 key-padding bias) on [B, S, H, D] views (strided in place;
-    zero-padded copies at head dim 8):
-    ``(o [B, S, H, D] in q's dtype, lse [B, H, S] f32)``."""
+    in bf16, zero-padded copies at head dim 8, which the f32 kernel takes
+    as it is): ``(o [B, S, H, D] in q's dtype, lse [B, H, S] f32)``."""
     b, s, h, d = q.shape
     scale = 1.0 / d ** 0.5  # the caller's head dim, before any padding
-    q, k, v = _check_inputs(q=q, k=k, v=v)
+    q, k, v = _check_inputs(pad=q.dtype != torch.float32, q=q, k=k, v=v)
     _check_bias(bias, b, s, q.device)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)

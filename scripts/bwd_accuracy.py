@@ -1,4 +1,5 @@
-"""Error of the f32 flash-attention backward against float64, on one card.
+"""Error of the f32 flash-attention backward (and forward) against float64,
+on one card.
 
     python3 scripts/bwd_accuracy.py [--root DIR] [--tag NAME]
 
@@ -7,10 +8,15 @@ v as strided views of one qkv tensor, a random dO, the f32 forward's lse
 and delta = rowsum(dO O)), prints per gradient: the kernels' (K2, K3)
 largest error over the largest |gradient| of a float64 backward from the
 same inputs, lse and delta; the plain f32 backward's (cuBLAS, TF32 off)
-the same way; and the kernels against the plain version as the card tests
-hold them (of max(|plain|, 1)).  ``--root``: the directory that holds the
-port's package (default this checkout), so that two versions can be read
-in one call.  Prints one JSON line."""
+and autograd through f32 SDPA's the same way; and the kernels against the
+plain version as the card tests hold them (of max(|plain|, 1)).  For the
+forward: O of K1, of the plain version and of f32 SDPA over the largest
+|O| of a float64 forward, and lse's largest error (K1, plain).  A single
+TF32 product keeps 11 bits (errors near 1e-3 of the max), split TF32 or
+f32 FMA near 1e-6, so SDPA's error tells which it computes in.
+``--root``: the directory that holds the port's package (default this
+checkout), so that two versions can be read in one call.  Prints one JSON
+line."""
 
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ ROWS = ((576, 4, True), (2048, 2, True), (2048, 2, False), (4096, 1, True))
 
 
 def row_errors(torch, fa, s, b, causal, h=12, d=64):
+    import torch.nn.functional as F
+
     g = torch.Generator(device="cuda").manual_seed(s)
     qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda")
     q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
@@ -32,23 +40,41 @@ def row_errors(torch, fa, s, b, causal, h=12, d=64):
     delta = (do * o).sum(-1).transpose(1, 2).contiguous()
     got = fa._launch_bwd(q, k, v, do, lse, delta, causal=causal)
     plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    sdpa = [t.transpose(1, 2) for t in torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), do.transpose(1, 2))]
     qd, kd, vd, dod = (t.double() for t in (q, k, v, do))
+    tril = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+    x = torch.einsum("bqhd,bkhd->bhqk", qd, kd) / d ** 0.5
+    if causal:
+        x = torch.where(tril, x, float("-inf"))
+    lse64 = torch.logsumexp(x, -1)
+    o64 = torch.einsum("bhqk,bkhd->bqhd", torch.exp(x - lse64[..., None]), vd)
+    o_plain, lse_plain = fa._dense_attention(q, k, v, None, causal=causal)
+    top = o64.abs().max().item()
+    out = {"o": {"kernel_vs_f64": (o.double() - o64).abs().max().item() / top,
+                 "plain_vs_f64": (o_plain.double() - o64).abs().max().item() / top,
+                 "sdpa_vs_f64": (o_sdpa.detach().transpose(1, 2).double() - o64)
+                 .abs().max().item() / top},
+           "lse": {"kernel_vs_f64": (lse.double() - lse64).abs().max().item(),
+                   "plain_vs_f64": (lse_plain.double() - lse64).abs().max().item()}}
+    del x, o64, o_plain
     p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qd, kd) / d ** 0.5
                   - lse.double()[..., None])
     if causal:
-        p = torch.where(torch.ones((s, s), dtype=torch.bool, device="cuda").tril(),
-                        p, 0.0)
+        p = torch.where(tril, p, 0.0)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dod, vd)
               - delta.double()[..., None]) / d ** 0.5
     ref = (torch.einsum("bhqk,bkhd->bqhd", ds, kd),
            torch.einsum("bhqk,bqhd->bkhd", ds, qd),
            torch.einsum("bhqk,bqhd->bkhd", p, dod))
-    out = {}
-    for name, gt, pl, rf in zip(("dq", "dk", "dv"), got, plain, ref):
+    for name, gt, pl, sd, rf in zip(("dq", "dk", "dv"), got, plain, sdpa, ref):
         top = rf.abs().max().item()
         out[name] = {
             "kernel_vs_f64": (gt.double() - rf).abs().max().item() / top,
             "plain_vs_f64": (pl.double() - rf).abs().max().item() / top,
+            "sdpa_vs_f64": (sd.double() - rf).abs().max().item() / top,
             "kernel_vs_plain": (gt - pl).abs().max().item()
             / max(pl.abs().max().item(), 1.0)}
     return out

@@ -1,7 +1,7 @@
 """Time the flash-attention kernels of one checkout of the PyTorch port on
 one card.
 
-    python3 scripts/time_flash.py [--root DIR] [--tag NAME] [--only bf16_bwd|f32_bwd]
+    python3 scripts/time_flash.py [--root DIR] [--tag NAME] [--only f32_k1|bf16_bwd|f32_bwd]
 
 ``--root`` is the directory that holds ``distributeddeeplearning_tpu_torch``
 (default: the checkout this script lies in), so that two checkouts can be
@@ -22,6 +22,14 @@ interleaved (A, B, B, A) and compare only times taken together.  Rows:
   ``d32`` (``chip_smoke.HEADDIM_GEOMETRY``'s shapes, causal).  Where the
   checkout's forward library has it, each entry also gives
   ``block_rows``, the query rows a block its launcher picks;
+- ``f32_k1``: the f32 K1 (split TF32 on the tensor cores) at the same
+  rows, f32 inputs, beside one f32 SDPA call (``library_ms``, and the
+  kernels it ran, ms a call each, under ``library_kernels``), with bounds
+  at the split-TF32 rate (``bound_ms``) and at the f32 FMA rate of the
+  CUDA cores (``fma_bound_ms``), ``event_ms`` and ``library_event_ms``
+  (CUDA events around back-to-back calls, ``chip_smoke.cuda_ms``: a
+  cross-check of the profiler's times) and ``block_rows`` where the
+  checkout's forward library has ``flash_attention_fwd_f32_block_rows``;
 - ``bf16_bwd``: bf16 K2 (dQ) and K3 (dK/dV) at ``bf16_k1``'s shapes
   but ``prefill`` (:data:`BWD_ROWS`), each row with ``dq_ms``,
   ``dkv_ms``, their sum, ``delta_ms`` (the wrapper's rowsum(dO * O), so
@@ -44,7 +52,12 @@ interleaved (A, B, B, A) and compare only times taken together.  Rows:
   which (four with the bias) the bf16 forward's launcher makes a call
   (:func:`encode_us`).
 
-``--only bf16_bwd`` (``--only f32_bwd``) times those rows alone.
+``--only f32_k1`` (``bf16_bwd``, ``f32_bwd``) times those rows alone.
+``--digest`` times nothing: it prints, for each backward row, the sha256
+of the f32 K2 and K3 outputs on inputs that do not depend on the
+checkout's kernels (lse and O from the plain forward, a seeded dO), and of
+those inputs, so that two checkouts' f32 backward kernels can be shown
+bitwise equal.
 
 Times are ``chip_smoke.py``'s ``device_ms``: the device time a call takes,
 summed by torch.profiler over 20 calls after 3 warm-up calls, host launch
@@ -64,7 +77,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
 B, H, S, D = 8, 12, 2048, 64
-#: name -> (B, H, S, D, causal, masked) of the bf16 K1 rows
+#: name -> (B, H, S, D, causal, masked) of the K1 rows (bf16 and f32)
 K1_ROWS = {
     "train": (B, H, S, D, True, False),
     "prefill": (1, 12, 512, 64, True, False),
@@ -143,21 +156,39 @@ def _shape(row) -> str:
             + (" bias" if masked else ""))
 
 
-def bf16_k1_row(torch, F, fa, name, block_rows):
-    """bf16 K1, SDPA and the bound at one row of :data:`K1_ROWS`."""
+def k1_row(torch, F, fa, name, block_rows, dtype):
+    """K1 in ``dtype``, SDPA and the bound at one row of :data:`K1_ROWS`
+    (f32: at the split-TF32 rate, and at the FMA rate beside it)."""
+    f32 = dtype == torch.float32
     b, h, s, d, causal, masked = K1_ROWS[name]
-    q, k, v, bias, keep, pairs = _row_inputs(torch, fa, K1_ROWS[name])
+    q, k, v, bias, keep, pairs = _row_inputs(torch, fa, K1_ROWS[name], dtype)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     attn_mask = None if keep is None else keep[:, None, None, :]
 
-    ms = cs.device_ms(torch, lambda i: fa.flash_attention_core(
-        q, k, v, causal=causal, bias=bias))
-    lib_ms = cs.device_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=attn_mask, is_causal=causal))
-    nbytes = 2.0 * 4 * b * s * h * d + 4.0 * b * h * s + (4.0 * b * s if masked else 0)
-    bms, by = cs.bound_ms(nbytes, 4.0 * d * pairs, cs.BF16_FLOPS_PER_S)
+    def run(i):
+        return fa.flash_attention_core(q, k, v, causal=causal, bias=bias)
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask,
+                                              is_causal=causal)
+
+    ms = cs.device_ms(torch, run)
+    lib_kernels = {}  # the library call's kernels by name, ms a call
+    lib_ms = cs.device_ms(torch, sdpa, by_kernel=lib_kernels)
+    es = 4.0 if f32 else 2.0
+    nbytes = es * 4 * b * s * h * d + 4.0 * b * h * s + (4.0 * b * s if masked else 0)
+    flops = 4.0 * d * pairs
+    bms, by = cs.bound_ms(nbytes, flops, cs.TF32X3_FLOPS_PER_S if f32
+                          else cs.BF16_FLOPS_PER_S)
     entry = dict(ms=ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                 tflops=4.0 * d * pairs / ms / 1e9, shape=_shape(K1_ROWS[name]))
+                 tflops=flops / ms / 1e9, shape=_shape(K1_ROWS[name]))
+    if f32:
+        # the CUDA cores' FMA rate, the route of the earlier kernel; CUDA
+        # events around 20 back-to-back calls (launch gaps included)
+        entry["fma_bound_ms"], entry["fma_bound_by"] = cs.bound_ms(nbytes, flops)
+        entry["event_ms"] = cs.cuda_ms(torch, run, iters=20)
+        entry["library_event_ms"] = cs.cuda_ms(torch, sdpa, iters=20)
+        entry["library_kernels"] = lib_kernels
     if block_rows is not None:
         entry["block_rows"] = block_rows(b, h, s)
     return entry
@@ -223,13 +254,34 @@ def bwd_row(torch, F, fa, row, block_rows, dtype):
     return entry
 
 
+def bwd_digests(torch, fa, row):
+    """sha256 of the f32 K2 and K3 outputs at one backward row, with lse
+    and delta from the plain forward on the card, and of lse and delta."""
+    import hashlib
+
+    b, h, s, d, causal, masked = row
+    q, k, v, bias, _, _ = _row_inputs(torch, fa, row, torch.float32)
+    o, lse = fa._dense_attention(q, k, v, bias, causal=causal)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    do = torch.randn(o.shape, generator=g, device="cuda")
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, causal=causal, bias=bias)
+    dk, dv = fa._launch_bwd_dkv(q, k, v, do, lse, delta, causal=causal, bias=bias)
+    torch.cuda.synchronize()
+    return {name: hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+            for name, t in (("lse", lse), ("delta", delta), ("dq", dq), ("dk", dk),
+                            ("dv", dv))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", choices=("bf16_bwd", "f32_bwd"), default=None,
+    ap.add_argument("--only", choices=("f32_k1", "bf16_bwd", "f32_bwd"), default=None,
                     help="time these rows alone")
+    ap.add_argument("--digest", action="store_true",
+                    help="print digests of the f32 K2/K3 outputs instead of times")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -241,11 +293,21 @@ def main() -> int:
     from distributeddeeplearning_tpu_torch.ops import _build
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
 
+    if args.digest:
+        print(json.dumps({"tag": args.tag, "root": args.root, "digests": {
+            name: bwd_digests(torch, fa, row) for name, row in BWD_ROWS.items()
+            if row[3] in fa.HEAD_DIMS}}))
+        return 0
     out = {}
+    fwd_lib = _build.load("flash_attention_fwd")
     bwd_lib = _build.load("flash_attention_bwd")
     # a head dim the checkout's wrappers do not take (8 before they padded
     # it) is left out
     takes = lambda row: row[3] in fa.HEAD_DIMS  # noqa: E731
+    if args.only in (None, "f32_k1"):
+        rows_fn = getattr(fwd_lib, "flash_attention_fwd_f32_block_rows", None)
+        out["f32_k1"] = {name: k1_row(torch, F, fa, name, rows_fn, torch.float32)
+                         for name, row in K1_ROWS.items() if takes(row)}
     for key, dtype in (("bf16_bwd", torch.bfloat16), ("f32_bwd", torch.float32)):
         if args.only in (None, key):
             name = f"flash_attention_bwd_{key.split('_')[0]}_block_rows"
@@ -267,9 +329,8 @@ def main() -> int:
             q, k, v, do, lse, delta, causal=True))
         del q, k, v, o, lse, do, delta
     if not args.only:
-        rows_fn = getattr(_build.load("flash_attention_fwd"),
-                          "flash_attention_fwd_bf16_block_rows", None)
-        out["bf16_k1"] = {name: bf16_k1_row(torch, F, fa, name, rows_fn)
+        rows_fn = getattr(fwd_lib, "flash_attention_fwd_bf16_block_rows", None)
+        out["bf16_k1"] = {name: k1_row(torch, F, fa, name, rows_fn, torch.bfloat16)
                           for name, row in K1_ROWS.items() if takes(row)}
         out["encode_us"] = encode_us(torch)
     card = cs.card_line()

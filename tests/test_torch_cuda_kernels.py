@@ -30,9 +30,14 @@ from synthetic text lengths plus a row of length 1, a full row and a row
 with every key masked (its lse, -1e30 * ln 2, equal on both sides bit for
 bit); masked keys of every other row get dK = dV = 0 exactly.
 
-Every kernel takes head dims 8, 16, 32 and 64 (K1-K3 at 8 on copies
-zero-padded to 16); the cases at 8, 16 and 32 run at the same
-tolerances.  The f32 backward (K2 and K3 on split-TF32 `mma.sync`) is
+Every kernel takes head dims 8, 16, 32 and 64 (the f32 K1 at 8 natively,
+the other flash kernels on copies zero-padded to 16); the cases at 8, 16
+and 32 run at the same tolerances.  The f32 forward (K1 on split-TF32
+`mma.sync`) is held to its plain version at 1e-4 at every head dim, S in
+{1, 37, 64, 130, 576, 2048}, causal and not, with and without a bias that
+masks a row and a whole 64-key tile, at each of its block sizes; on
+poisoned views; two launches must agree bit for bit; and at head dim 8
+the wrapper makes no padding copy for it.  The f32 backward (K2 and K3 on split-TF32 `mma.sync`) is
 held to the plain backward at 1e-4 of the largest |gradient| at every
 head dim, S in {37, 64, 130, 576, 2048}, causal and not, with and without
 a bias that masks a row and a whole 64-key tile, at both of its block
@@ -98,7 +103,7 @@ def test_flash_attention_kernel_matches_plain(cuda, s, causal):
 
 
 def test_flash_attention_kernel_rejects_what_it_cannot_take(cuda):
-    # head dims 32 and 8 (the latter on copies padded to 16) run against
+    # head dims 32 and 8 (the f32 forward's own instance) run against
     # their plain versions; 40 and 24 are no head dim the kernels are built
     # for or padded to and are refused in either dtype
     for d in (32, 8):
@@ -692,6 +697,158 @@ def test_f32_backward_is_bitwise_repeatable(cuda, causal, bias, rows):
     torch.cuda.synchronize()
     for a, c in zip(first, second):
         assert torch.equal(a, c)
+
+
+# ---- f32 K1 on split TF32: every head dim, shape and block choice ---------
+
+#: sequence lengths of the f32 forward's card tests: one row, ragged tiles
+#: (37, 130: S not a multiple of 4 either), one whole 64-key tile, a
+#: serving prompt and the training length
+F32_K1_S = [1, 37, 64, 130, 576, 2048]
+#: (S, block rows) of those tests: every block size the launcher takes at
+#: each S (128 only above 64)
+F32_K1_CASES = [(s, rows) for s in F32_K1_S for rows in (64, 128)
+                if rows == 64 or s > 64]
+
+
+def test_f32_forward_block_rows_follow_the_rule(cuda):
+    """The f32 forward launcher's block-row choice at the main path's
+    shapes (the LM training step, BERT at seq 512 and 128, serving
+    prefill, the default geometries' head dims 8, 16 and 32) and at the
+    edges, against the rule restated here: 128 query rows when S > 64 and
+    the grid at 128 covers at least half the SMs, else 64."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    half = -(-sms // 2)
+    shapes = [(8, 12, 2048), (8, 12, 512), (8, 12, 128), (1, 12, 512),
+              (4, 4, 64), (4, 4, 512), (8, 8, 128), (1, 1, 1),
+              (half, 1, 128), (half - 1, 1, 128), (half, 1, 64),
+              (half, 1, 65), (1, 1, 128 * half), (1, 1, 128 * (half - 1))]
+    for b, h, s in shapes:
+        want = 128 if s > 64 and 2 * b * h * -(-s // 128) >= sms else 64
+        assert fa.f32_block_rows(b, h, s) == want, (b, h, s)
+    assert {fa.f32_block_rows(*x) for x in shapes} == {64, 128}
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,rows", F32_K1_CASES)
+@pytest.mark.parametrize("d", F32_BWD_D)
+def test_f32_forward_tf32_kernel_matches_plain(cuda, d, s, rows, causal, bias):
+    """f32 K1 (split TF32 on mma.sync) against its plain version at every
+    head dim (8 natively) and S, causal and not, with and without a
+    key-padding bias (a fully masked row, whose lse is the plain version's
+    bit for bit, and a fully masked 64-key tile), at a batch that makes the
+    launcher take ``rows``-row blocks; one launch through the right
+    counter."""
+    h = 4 if rows == 128 else 1
+    b = _batch_for_rows(rows, h, s, fa.f32_block_rows)
+    q, k, v = _qkv_views(s, h=h, d=d, b=b, seed=s + d + rows)
+    keep = bias_t = None
+    if bias:
+        keep = _bwd_keep(b, s, s + d)
+        bias_t = fa._mask_bias(keep[:, None, None, :], b, s)
+    names = ("launches", "launches_bias", "launches_bf16", "launches_bias_bf16")
+    before = [getattr(fa, n) for n in names]
+    o, lse = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) - x for n, x in zip(names, before)] == (
+        [0, 1, 0, 0] if bias else [1, 0, 0, 0])
+    assert o.shape == q.shape and o.is_contiguous() and lse.shape == (b, h, s)
+    o_plain, lse_plain = fa._dense_attention(q, k, v, bias_t, causal=causal)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (o - o_plain).abs().max().item() <= ATOL
+    assert (lse - lse_plain).abs().max().item() <= ATOL
+    if bias:  # the fully masked row: -1e30 * ln 2, as the plain version
+        assert torch.equal(lse[-1], lse_plain[-1]) and (lse[-1] < -6e29).all()
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", F32_BWD_D)
+def test_f32_forward_reads_only_its_views(cuda, d, causal, bias, rows):
+    """f32 q, k, v cut from a longer buffer [B, S + 40, 3*H*D] (so the
+    batch stride is not S times the row stride) whose rows past S are NaN:
+    the output is finite and equal, bit for bit, to the output on the same
+    buffer with those rows zero, and it holds to the plain version."""
+    s, h = 130, 4 if rows == 128 else 1
+    b = _batch_for_rows(rows, h, s, fa.f32_block_rows)
+    g = torch.Generator(device="cuda").manual_seed(d + rows)
+    buf = torch.randn((b, s + 40, 3 * h * d), generator=g, device="cuda")
+    bias_t = None
+    if bias:
+        bias_t = fa._mask_bias(_bwd_keep(b, s, d)[:, None, None, :], b, s)
+
+    def views(t):
+        return tuple(x.reshape(b, s, h, d) for x in t[:, :s].split(h * d, dim=-1))
+
+    outs = []
+    for fill in (0.0, float("nan")):
+        t = buf.clone()
+        t[:, s:] = fill
+        q, k, v = views(t)
+        assert q.stride(0) != s * q.stride(1)
+        outs.append(fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t))
+    torch.cuda.synchronize()
+    for clean, poisoned in zip(*outs):
+        assert torch.isfinite(poisoned).all() and torch.equal(clean, poisoned)
+    q, k, v = views(buf)
+    o_plain, lse_plain = fa._dense_attention(q, k, v, bias_t, causal=causal)
+    assert (outs[0][0] - o_plain).abs().max().item() <= ATOL
+    assert (outs[0][1] - lse_plain).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_forward_is_bitwise_repeatable(cuda, causal, bias, rows):
+    """Two launches of the f32 forward on the same inputs give bitwise
+    equal O and lse: one owner warp per query row, a fixed order, no
+    atomics."""
+    s, d = 576, 64
+    h = 4 if rows == 128 else 1
+    b = _batch_for_rows(rows, h, s, fa.f32_block_rows)
+    q, k, v = _qkv_views(s, h=h, d=d, b=b, seed=rows)
+    bias_t = None
+    if bias:
+        bias_t = fa._mask_bias(_bwd_keep(b, s, rows)[:, None, None, :], b, s)
+    first = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+    second = fa.flash_attention_core(q, k, v, causal=causal, bias=bias_t)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+def test_f32_forward_takes_head_dim_8_without_padding_copies(cuda, monkeypatch):
+    """At head dim 8 the f32 forward runs its own instance on the views
+    themselves: the wrapper makes no zero-padded copy (the f32 backward
+    and the bf16 forward still pad each operand to 16)."""
+    copies = []
+    pad = fa.pad_head_dim
+
+    def counting_pad(t):
+        out = pad(t)
+        if out is not t:
+            copies.append(tuple(out.shape))
+        return out
+
+    monkeypatch.setattr(fa, "pad_head_dim", counting_pad)
+    b, s, h, d = 2, 130, 4, 8
+    q, k, v = _qkv_views(s, h=h, d=d, b=b, seed=8)
+    o, lse = fa.flash_attention_core(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert copies == [] and o.shape == (b, s, h, d)
+    o_plain, lse_plain = fa._dense_attention(q, k, v, None, causal=True)
+    assert (o - o_plain).abs().max().item() <= ATOL
+    assert (lse - lse_plain).abs().max().item() <= ATOL
+    do = torch.randn(o.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(9), device="cuda")
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    fa._launch_bwd(q, k, v, do, lse, delta, causal=True)
+    assert copies == [(b, s, h, 16)] * 8  # q, k, v, dO for each pass
+    copies.clear()
+    fa.flash_attention_core(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=True)
+    assert copies == [(b, s, h, 16)] * 3
 
 
 def test_flash_decode_kernel_on_strided_cache_view(cuda):

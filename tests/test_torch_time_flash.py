@@ -80,3 +80,19 @@ def test_backward_rows_cover_the_f32_cells_and_head_dim_8():
     dkv, _ = cs.bound_ms(rows_in + 2 * head, 8.0 * d * pairs, cs.TF32X3_FLOPS_PER_S)
     assert by == "operations"
     assert abs(dq - 0.469) < 5e-4 and abs(dkv - 0.6253) < 5e-4
+
+
+def test_f32_forward_bounds_at_the_training_shape():
+    # the f32 K1 rows (``--only f32_k1``) take the forward rows; their bound
+    # is at the split-TF32 rate of the kernel's route (4 D flops a visible
+    # pair), with the f32 FMA rate of the CUDA cores beside it
+    t = cs.TRAIN
+    b, h, s, d = t["batch_size"], t["num_heads"], t["seq_len"], t["d_model"] // t["num_heads"]
+    assert tf.K1_ROWS["train"][:4] == (b, h, s, d)
+    flops = 4.0 * d * b * h * cs._causal_pairs(s)
+    assert abs(flops - 5.157e10) < 1e7
+    nbytes = 4.0 * 4 * b * s * h * d + 4.0 * b * h * s
+    split, by = cs.bound_ms(nbytes, flops, cs.TF32X3_FLOPS_PER_S)
+    fma, fma_by = cs.bound_ms(nbytes, flops)
+    assert by == fma_by == "operations"
+    assert abs(split - 0.3128) < 5e-4 and abs(fma - 0.7697) < 5e-4
