@@ -1,1 +1,2 @@
-"""Input pipelines of the port: the synthetic text set (``synthetic``)."""
+"""Input pipelines of the port: the synthetic image and text sets
+(``synthetic``)."""

@@ -1,9 +1,13 @@
-"""Models of the port: the stacked causal LM (``pipelined_transformer``) and
-the BERT encoder (``bert``).
+"""Models of the port: the stacked causal LM (``pipelined_transformer``),
+the BERT encoder (``bert``) and the image models (``resnet``,
+``inception``, ``vgg``).
 
 ``get_model(name, **kwargs)`` is the by-name factory of the reference's
-``models/__init__.py``; the port registers ``bert-base``, ``bert_base`` and
-``bert-large`` (the image models come with the ResNet slice).
+``models/__init__.py``; the port registers ``bert-base``, ``bert_base``,
+``bert-large``, ``resnet18`` ... ``resnet200``, ``inceptionv3``,
+``inception_v3``, ``vgg11``, ``vgg16``, ``vgg19`` and ``alexnet``.  The
+reference's ViT (``vit``) and mixture-of-experts layers (``moe``) are not
+in the port yet (ROADMAP A3).
 """
 
 from typing import Any, Callable, Dict
@@ -19,10 +23,19 @@ def register(name: str):
     return deco
 
 
+def _load() -> None:
+    # import for registration side effects
+    from distributeddeeplearning_tpu_torch.models import (  # noqa: F401
+        bert,
+        inception,
+        resnet,
+        vgg,
+    )
+
+
 def get_model(name: str, **kwargs):
     """Instantiate a registered model by name."""
-    from distributeddeeplearning_tpu_torch.models import bert  # noqa: F401
-
+    _load()
     key = name.lower()
     if key not in _REGISTRY:
         raise ValueError(f"Unknown model {name!r}. Available: {sorted(_REGISTRY)}")
@@ -30,6 +43,5 @@ def get_model(name: str, **kwargs):
 
 
 def available_models():
-    from distributeddeeplearning_tpu_torch.models import bert  # noqa: F401
-
+    _load()
     return sorted(_REGISTRY)

@@ -15,8 +15,12 @@ learning rate and applies to every leaf, and global-norm clipping is
 ``where(norm < max, g, g / norm * max)``.  The count is a 0-d tensor on
 the parameters' device.
 
-Params are a nested dict of tensors (the model's layout); there are no BN
-batch statistics in the port yet (the ResNet is slice 6).
+Params are a nested dict of tensors (the model's layout).  BatchNorm
+running statistics live apart in ``TrainState.batch_stats`` (``{}`` for a
+model without them): they take no gradient and no weight decay, and a
+train step replaces them with the model's new ones together with the
+update (kept where the update is skipped).  :func:`create_train_state`
+builds the state of an image model from its ``init``.
 """
 
 from __future__ import annotations
@@ -167,7 +171,8 @@ def adamw(schedule: Schedule, *, weight_decay: float = 0.01, b1: float = 0.9,
 
 @dataclasses.dataclass
 class TrainState:
-    """Params, optimizer state, step and the model function.
+    """Params, optimizer state, step, the model function and the BatchNorm
+    running statistics.
 
     ``step`` is a host int (the count of train-step calls, skipped updates
     included); the optimizer keeps its own count on the device.  Floating
@@ -178,6 +183,7 @@ class TrainState:
     opt_state: Any
     apply_fn: Callable
     tx: Any
+    batch_stats: Params = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         for leaf in tree_leaves(self.params):
@@ -185,13 +191,31 @@ class TrainState:
                 leaf.requires_grad_(True)
 
     @classmethod
-    def create(cls, *, params: Params, apply_fn: Callable, tx) -> "TrainState":
+    def create(cls, *, params: Params, apply_fn: Callable, tx,
+               batch_stats: Optional[Params] = None) -> "TrainState":
         return cls(step=0, params=params, opt_state=tx.init(params),
-                   apply_fn=apply_fn, tx=tx)
+                   apply_fn=apply_fn, tx=tx, batch_stats=batch_stats or {})
 
-    def apply_gradients(self, grads: Params, ok=None) -> "TrainState":
-        """Update in place (skipped where ``ok`` is False); step advances
-        either way."""
+    def apply_gradients(self, grads: Params, ok=None,
+                        batch_stats: Optional[Params] = None) -> "TrainState":
+        """Update in place (skipped where ``ok`` is False), and take
+        ``batch_stats`` as the new running statistics under the same
+        condition; step advances either way."""
         self.tx.apply(self.params, grads, self.opt_state, ok)
+        if batch_stats is not None:
+            with torch.no_grad():
+                for old, new in tree_zip(self.batch_stats, batch_stats):
+                    _commit(old, new, ok)
         self.step += 1
         return self
+
+
+def create_train_state(generator: Optional[torch.Generator], model, input_shape,
+                       tx, *, device=None) -> TrainState:
+    """The state of an image model (``models.resnet``, ``inception``,
+    ``vgg``): ``model.init(generator, input_shape, device=device)`` gives
+    f32 params and BatchNorm statistics (``{}`` without BatchNorm), ``tx``
+    its optimizer state, and ``model`` itself is the model function."""
+    variables = model.init(generator, input_shape, device=device)
+    return TrainState.create(params=variables["params"], apply_fn=model, tx=tx,
+                             batch_stats=variables.get("batch_stats", {}))

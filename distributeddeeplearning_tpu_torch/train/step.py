@@ -21,6 +21,15 @@ parameters' device for dropout, seeded from ``(rng, state.step)`` (the
 reference's ``fold_in(rng, step)``), so a resumed run at step k draws
 step k's masks again.  The eval step passes ``generator=None``.
 
+A model with BatchNorm statistics (``state.batch_stats`` not empty) is
+also given ``batch_stats=``: in the train step it returns ``(outputs,
+new_batch_stats)``, which the state takes with the update (under
+``accum_steps`` > 1 threaded through the microbatches in order; a skipped
+non-finite update keeps the old ones too), and the eval step reads the
+running statistics.  ``outputs`` may be a ``(main, aux)`` tuple (an
+aux-head model in training): ``loss_fn`` takes it whole and the metrics
+read the main head.  Nothing in a step reads a device value on the host.
+
 One process, one device: there is no mesh.  The implicit data-parallel
 gradient all-reduce and the explicit comm-overlap schedule
 (``parallel/comms.py``) are ROADMAP item 11; their arguments raise.
@@ -93,6 +102,26 @@ def _to_device(x, device, compute_dtype):
     return t.to(compute_dtype) if t.is_floating_point() else t
 
 
+def _forward(state: TrainState, params, inputs, *, train: bool, generator,
+             extras, batch_stats=None):
+    """(outputs, new batch_stats) of the model; ``batch_stats`` overrides
+    the state's (microbatches thread the ones earlier microbatches
+    made).  A model without statistics is called as before and its
+    (empty) statistics come back unchanged."""
+    stats = state.batch_stats if batch_stats is None else batch_stats
+    if not tree_leaves(stats):
+        return state.apply_fn(params, inputs, train=train, generator=generator,
+                              **extras), stats
+    out = state.apply_fn(params, inputs, train=train, generator=generator,
+                         batch_stats=stats, **extras)
+    return out if train else (out, stats)
+
+
+def _main_head(outputs):
+    """The main head of an aux-head model's ``(main, aux)`` outputs."""
+    return outputs[0] if isinstance(outputs, tuple) else outputs
+
+
 def _extras(batch, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(batch[k], device=device)
             for k in EXTRA_INPUT_KEYS if k in batch}
@@ -161,15 +190,16 @@ def build_train_step(
 
     generators: Dict[torch.device, torch.Generator] = {}  # one per device, reseeded
 
-    def loss_and_grads(state, inputs, labels, extras, generator):
-        logits = state.apply_fn(state.params, inputs, train=True,
-                                generator=generator, **extras)
-        loss = loss_fn(logits, labels, label_smoothing=label_smoothing)
+    def loss_and_grads(state, stats, inputs, labels, extras, generator):
+        outputs, new_stats = _forward(state, state.params, inputs, train=True,
+                                      generator=generator, extras=extras,
+                                      batch_stats=stats)
+        loss = loss_fn(outputs, labels, label_smoothing=label_smoothing)
         leaves = tree_leaves(state.params)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
-            metrics = metrics_fn(logits.detach(), labels, loss.detach())
-        return list(grads), metrics
+            metrics = metrics_fn(_main_head(outputs).detach(), labels, loss.detach())
+        return list(grads), metrics, new_stats
 
     def step(state: TrainState, batch) -> tuple:
         device = _device_of(state)
@@ -182,17 +212,18 @@ def build_train_step(
         generator = generators[device] = step_generator(
             rng, state.step, device, generators.get(device))
         if accum_steps == 1:
-            grads, metrics = loss_and_grads(state, inputs, labels, extras,
-                                            generator)
+            grads, metrics, stats = loss_and_grads(state, state.batch_stats,
+                                                   inputs, labels, extras,
+                                                   generator)
         else:
             n = inputs.shape[0]
             if n % accum_steps:
                 raise ValueError(f"global batch {n} not divisible by "
                                  f"accum_steps={accum_steps}")
-            grads, stack = None, []
+            grads, stack, stats = None, [], state.batch_stats
             for i in range(accum_steps):
-                g, m = loss_and_grads(
-                    state, inputs[i::accum_steps], labels[i::accum_steps],
+                g, m, stats = loss_and_grads(
+                    state, stats, inputs[i::accum_steps], labels[i::accum_steps],
                     {k: v[i::accum_steps] for k, v in extras.items()},
                     generator)
                 grads = [x.float() for x in g] if grads is None else [
@@ -210,10 +241,12 @@ def build_train_step(
             ok = torch.isfinite(metrics["loss"]) & torch.isfinite(norm)
             metrics["grad_norm"] = norm.float()
             metrics["anomalous"] = 1.0 - ok.float()
-        state.apply_gradients(_as_tree(state.params, grads), ok)
+        state.apply_gradients(_as_tree(state.params, grads), ok,
+                              batch_stats=stats if tree_leaves(stats) else None)
         if schedule is not None:
-            metrics["lr"] = torch.as_tensor(schedule(lr_step),
-                                            dtype=torch.float32, device=device)
+            # a fill, not a host-to-device copy: no sync
+            metrics["lr"] = torch.full((), schedule(lr_step),
+                                       dtype=torch.float32, device=device)
         return state, metrics
 
     return step
@@ -239,7 +272,8 @@ def build_eval_step(
     metrics_fn: Callable = classification_metrics,
     input_transform: Optional[Callable] = None,
 ) -> Callable:
-    """Forward + loss + metrics, no gradient, no state change."""
+    """Forward + loss + metrics, no gradient, no state change (BatchNorm
+    reads the running statistics)."""
     del state_example
 
     @torch.no_grad()
@@ -250,8 +284,8 @@ def build_eval_step(
             inputs = input_transform(inputs)
         inputs = _to_device(inputs, device, compute_dtype)
         labels = _to_device(batch["label"], device, compute_dtype)
-        logits = state.apply_fn(state.params, inputs, train=False,
-                                generator=None, **_extras(batch, device))
+        logits, _ = _forward(state, state.params, inputs, train=False,
+                             generator=None, extras=_extras(batch, device))
         return metrics_fn(logits, labels, loss_fn(logits, labels))
 
     return step

@@ -68,7 +68,10 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
                  "quant.calibrate", "spec", "spec.drafter", "spec.decode",
                  "train.schedule", "train.state",
                  "train.step", "train.loop", "workloads.transformer",
-                 "data", "data.synthetic", "models.bert", "workloads.bert"):
+                 "data", "data.synthetic", "models.bert", "workloads.bert",
+                 "models.resnet", "models.inception", "models.vgg",
+                 "models._convnet", "train.benchmark", "workloads.benchmark",
+                 "workloads._runner"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
 
@@ -104,6 +107,28 @@ def test_bert_entry_points_need_a_card_unless_asked_for_the_cpu():
                            intermediate_size=32, vocab_size=11,
                            max_position_embeddings=8)
     assert bert.init_params(cfg, device="cpu")["head"]["kernel"].device.type == "cpu"
+
+
+def test_image_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.train.state import (
+        create_train_state,
+        sgd_momentum,
+    )
+    from distributeddeeplearning_tpu_torch.workloads import benchmark
+
+    model = get_model("resnet18", num_classes=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(input_shape=(1, 32, 32, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(None, model, (1, 32, 32, 3), sgd_momentum(lambda s: 0.1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        benchmark.main(model="resnet18", batch_size=2, image_size=32, num_classes=3,
+                       num_iters=1, num_batches_per_iter=1, num_warmup_batches=0)
+    v = model.init(input_shape=(1, 32, 32, 3), device="cpu")
+    assert v["params"]["head"]["kernel"].device.type == "cpu"
 
 
 def test_cpu_serving_leaves_the_launch_counters_at_zero():
