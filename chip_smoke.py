@@ -200,7 +200,33 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    reading finite;
 20. ``phase_image_short``: inceptionv3 (bf16, 299 px) and vgg16 and
    resnet50 (f32, 224 px) at batch 64 through the same ``main``, 3 warmup
-   batches and 3 windows of 5: img/s, step p50, peak memory and mfu.
+   batches and 3 windows of 5: img/s, step p50, peak memory and mfu;
+21. ``phase_vit``: ViT-B/16 through ``workloads.benchmark.main(model=
+   "vit-b16")`` at the reference defaults (bf16, batch 64, 224 px; 10
+   warmup batches, 10 windows of 10), as ``python -m`` in a fresh process
+   and here: img/s, step p50, peak memory, mfu (``forward_macs`` counts the
+   two attention products, 17.56 G multiply-adds an image) and a profiled
+   step's split (GEMMs, attention, LayerNorm/GELU, elementwise, SGD); then
+   a shortened vit-l16 run;
+22. ``phase_vit_flash``: the bf16 K1, K2, K3 at ViT-B/16's attention shape
+   (B 64, H 12, S 197, D 64, non-causal, no bias) and at S 1 and 37 against
+   their plain versions, timed beside SDPA; exact launches a ViT-B/16
+   flash train step (12 K1, 12 K2, 12 K3; 24 K1 under remat ``dots`` and
+   ``full``); flash losses within 1e-2 of the default attention's; the
+   card's ViT forward against the CPU's in float64 and f32;
+23. ``phase_resume``: ViT-B/16 with flash through the ``Trainer``, 6 steps
+   with a generation every 3, twice (bitwise equal, else again under
+   ``cudnn.deterministic``), then stopped before step 4 and resumed by a
+   fresh ``Trainer`` and ``Checkpointer``: params, momentum and per-step
+   losses bit-identical to the uninterrupted fit; the newest generation
+   corrupted, ``restore`` falls back to step 3; the save, snapshot and
+   verify walls;
+24. ``phase_moe_bert``: bert-base with 8 experts in every second layer
+   through ``workloads.bert.main(num_experts=8, attention="flash")`` at its
+   defaults, 8 batches: finite losses, the load-balance term, the share of
+   token-slots dropped over capacity, step p50, peak memory, exact bias
+   kernel launches; the f32 forward on the card against the CPU's with the
+   expert choices compared first.
 
 K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
 split pass with one block per (span of 64 absolute positions, head, slot)
@@ -242,6 +268,11 @@ The six bias rows (``flash_attention_fwd_bias``, ``..._bwd_dq_bias``,
 ``phase_bert``'s flash runs at dropout 0 (``bert_flash``: seq 128 in the
 row's dtype; ``bert_flash_seq512`` beside it for bf16), and their bound
 counts the (query, key) pairs the run's mask leaves visible.
+
+The bf16 K1, K2 and K3 rows carry ``vit``: their entry at ViT-B/16's
+attention shape (phase 22), with the launches of one ViT train step; their
+``launches_by_path`` adds ``vit_train_step`` and ``vit_fit`` (phase 23's
+uninterrupted fit of 6 steps).
 
 Each row of the kernels line carries ``head_dims``: the phase-14 entry
 of the kernel at head dims 8, 16 and 32, with the launches of the phase-15
@@ -3190,12 +3221,14 @@ def _conv_group(key: str) -> str:
     return "everything else"
 
 
-def _profile_image_step(torch, step, state, batch, tag, card, step_p50):
+def _profile_image_step(torch, step, state, batch, tag, card, step_p50,
+                        group=_conv_group):
     """One train step under torch.profiler and
     ``torch.cuda.set_sync_debug_mode("error")`` (any host sync inside it
-    raises): kernel time by group, the optimizer's own share (its
-    elementwise kernels, under a ``record_function`` range), the busy share
-    and the kernel sum beside a CUDA-event span of the same step."""
+    raises): kernel time by ``group`` (a kernel name to its group; the
+    optimizer's elementwise kernels taken out of the "elementwise" group),
+    the optimizer's own share (under a ``record_function`` range), the busy
+    share and the kernel sum beside a CUDA-event span of the same step."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     tx_apply = state.tx.apply
@@ -3243,45 +3276,47 @@ def _profile_image_step(torch, step, state, batch, tag, card, step_p50):
         f"a device span of {opt_span} ms on {card}")
     groups = {}
     for key, ms in top:
-        g = _conv_group(key)
+        g = group(key)
         groups[g] = groups.get(g, 0.0) + ms
     groups["elementwise"] = groups.get("elementwise", 0.0) - opt
     groups["optimizer (SGD momentum, elementwise)"] = opt
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"[profile]   {ms:9.3f} ms  {ms / max(busy or 1e-9, 1e-9):6.1%}  {g}")
     for key, ms in top[:25]:
-        log(f"[profile]   {ms:8.4f} ms  {_conv_group(key)[:12]:12}  {key[:110]}")
+        log(f"[profile]   {ms:8.4f} ms  {group(key)[:12]:12}  {key[:110]}")
     return groups, busy, event_ms
 
 
-def _fresh_process_benchmark(card):
+def _fresh_process_benchmark(card, model=None, tag="resnet"):
     """The reference benchmark as a user launches it, ``python -m
-    distributeddeeplearning_tpu_torch.workloads.benchmark`` with no flags,
-    in a process of its own: a host-bound step runs slower after a
-    torch.profiler window in the same process (``scripts/
-    profiler_overhead.py``: +23%, measured on one H100), and this script
-    has opened many.  Logs its img/s line; returns the mean."""
+    distributeddeeplearning_tpu_torch.workloads.benchmark`` with no flags
+    but ``--model`` when ``model`` is given, in a process of its own: a
+    host-bound step runs slower after a torch.profiler window in the same
+    process (``scripts/profiler_overhead.py``: +23%, measured on one H100),
+    and this script has opened many.  Logs its img/s line; returns the
+    mean."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "bench.jsonl")
+        flags = [] if model is None else ["--model", model]
         proc = subprocess.run(
             [sys.executable, "-m", "distributeddeeplearning_tpu_torch.workloads.benchmark",
-             "--metrics_path", path],
+             *flags, "--metrics_path", path],
             capture_output=True, text=True, timeout=600,
             cwd=os.path.dirname(os.path.abspath(__file__)))
         if proc.returncode != 0:
-            raise AssertionError(f"[resnet] python -m ...workloads.benchmark failed: "
+            raise AssertionError(f"[{tag}] python -m ...workloads.benchmark failed: "
                                  f"{proc.stderr[-2000:]}")
         with open(path) as f:
             row = json.loads(f.read().splitlines()[-1])
     line = next((ln for ln in proc.stderr.splitlines() if "Img/sec per chip" in ln), "")
-    log(f"[resnet] fresh process (python -m distributeddeeplearning_tpu_torch."
-        f"workloads.benchmark, reference defaults): "
+    log(f"[{tag}] fresh process (python -m distributeddeeplearning_tpu_torch."
+        f"workloads.benchmark {' '.join(flags)}, reference defaults): "
         f"{line.split('Img/sec per chip:')[-1].strip()} "
         f"img/s a chip (mean +-1.96 sigma); metrics row {row} on {card}")
     if not (math.isfinite(row["img_sec_per_chip"]) and row["img_sec_per_chip"] > 0):
-        raise AssertionError(f"[resnet] fresh-process img/s {row}")
+        raise AssertionError(f"[{tag}] fresh-process img/s {row}")
     return row["img_sec_per_chip"]
 
 
@@ -3490,6 +3525,498 @@ def phase_image_short(torch, np, card):
     return out
 
 
+# ---- ViT-B/16 and MoE BERT on the card; checkpoints and bit-exact resume
+
+#: the ViT-B/16 attention at the benchmark's batch: 196 patches + CLS
+VIT_ATTN = dict(b=64, h=12, s=197, d=64)
+#: flash vs the default attention, bf16, same weights and batch: per-step
+#: loss, relative (BERT's bf16 rule)
+VIT_LOSS_RTOL = 1e-2
+#: card against CPU: ViT-B/16 at 64 px (16 patches), batch 4
+VIT_PARITY = dict(size=64, batch=4)
+#: the resumed fit: ViT-B/16, flash, bf16, batch 64 at 224 px, one epoch of
+#: 6 steps, a generation every 3; the interrupted run stops before step 4
+RESUME = dict(batch=64, steps=6, every=3, stop_before=4)
+#: MoE BERT: bert-base with a mixture of experts in every second layer
+MOE_EXPERTS = 8
+#: MoE BERT f32 forward, card against CPU on the rows no routing flip
+#: reaches: of the largest |logit| (f32 through 12 layers, two paths)
+MOE_LOGIT_RTOL = 1e-4
+
+
+def _zero_fa(fa):
+    for c in FA_COUNTERS:
+        setattr(fa, c, 0)
+
+
+def _vit_group(key: str) -> str:
+    """The group of a kernel in a ViT train step, by name."""
+    low = key.lower()
+    if "flash_" in low or "softmax" in low:
+        return "attention (flash kernels; the default attention's softmax)"
+    if "layer_norm" in low or "gelu" in low:
+        return "LayerNorm / GELU"
+    if "gemm" in low or "nvjet" in low or "cutlass" in low or "xmma" in low:
+        return "GEMMs (cuBLAS/CUTLASS; with the default attention its products too)"
+    if "conv" in low or "wgrad" in low or "dgrad" in low or "fprop" in low:
+        return "patch embedding (cuDNN conv)"
+    if "elementwise" in low or "functor" in low or "reduce" in low:
+        return "elementwise"
+    return "everything else"
+
+
+def phase_vit(torch, np, card):
+    """ViT-B/16 through ``workloads.benchmark.main(model="vit-b16")`` at the
+    reference defaults (bf16, batch 64, 224 px, 1001 classes; 10 warmup
+    batches, 10 windows of 10), first as ``python -m`` in a fresh process,
+    then here with each step bracketed by CUDA events: img/s, step p50,
+    peak memory and mfu from ``forward_macs`` (the attention products
+    counted), one profiled step's split (GEMMs, attention, LayerNorm/GELU,
+    elementwise, SGD); then a shortened vit-l16 run (3 warmup batches, 3
+    windows of 5)."""
+    from distributeddeeplearning_tpu_torch.models import get_model
+
+    fresh = _fresh_process_benchmark(card, model="vit-b16", tag="vit")
+    result, step_ms, (step, state, batch), peak_gb = _image_bench(torch, np,
+                                                                 model="vit-b16")
+    if not (result.model == "vit-b16" and result.batch_size_per_chip == 64
+            and len(step_ms) == 10 + 12 * 10):
+        raise AssertionError(f"[vit] not the reference defaults: {result}, "
+                             f"{len(step_ms)} steps")
+    p50 = _image_line(np, "vit", result, step_ms, 10, peak_gb, card, "bfloat16", 224)
+    macs = get_model("vit-b16").forward_macs(224)
+    flops = 3 * 2 * macs * 64
+    log(f"[vit] FLOP reckoning (forward_macs, attention products counted): "
+        f"{macs / 1e9:.4f} G multiply-adds a forward, {flops / 1e12:.4f} TFLOP a "
+        f"batch-64 step; compute bound {flops / BF16_FLOPS_PER_S * 1e3:.3f} ms at "
+        f"989.4 TFLOP/s, {flops / BF16_FLOPS_PER_S * 1e3 / p50:.1%} of the step p50")
+    if not all(math.isfinite(float(v)) for v in step(state, batch)[1].values()):
+        raise AssertionError("[vit] non-finite metrics after the run")
+    _profile_image_step(torch, step, state, batch, "vit-b16 bf16 B=64 224px", card,
+                        p50, group=_vit_group)
+    del step, state, batch
+    torch.cuda.empty_cache()
+    large, step_ms, _, peak_gb = _image_bench(torch, np, model="vit-l16", **SHORT)
+    n = SHORT["num_warmup_batches"] + (SHORT["num_iters"] + 2) * SHORT[
+        "num_batches_per_iter"]
+    if len(step_ms) != n:
+        raise AssertionError(f"[vit-l16] {len(step_ms)} steps, not {n}")
+    p50_l = _image_line(np, "vit-l16 bfloat16 224px", large, step_ms,
+                        SHORT["num_warmup_batches"], peak_gb, card, "bfloat16", 224)
+    torch.cuda.empty_cache()
+    return {"img_s": result.img_sec_per_chip_mean, "p50_ms": p50,
+            "fresh_img_s": fresh, "l16_p50_ms": p50_l}
+
+
+def _vit_state(torch, host, attention_fn=None, remat="none"):
+    """A bf16 ViT-B/16 train state on the card from the host params
+    ``host`` (copied), SGD momentum under the Goyal schedule."""
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.train.schedule import goyal_lr_schedule
+    from distributeddeeplearning_tpu_torch.train.state import (
+        TrainState,
+        sgd_momentum,
+        tree_map,
+    )
+
+    kw = {"remat": remat}
+    if attention_fn is not None:
+        kw["attention_fn"] = attention_fn
+    model = get_model("vit-b16", **kw)
+    sched = goyal_lr_schedule(0.0125, 1, 5004)
+    return TrainState.create(params=tree_map(lambda t: t.to("cuda", copy=True), host),
+                             apply_fn=model, tx=sgd_momentum(sched)), sched
+
+
+def phase_vit_flash(torch, np, F, fa, card):
+    """The bf16 K1, K2 and K3 at ViT-B/16's attention shape (B 64, H 12,
+    S 197, D 64, non-causal, no bias) and at S 1 and 37 (B 2) against their
+    plain versions (the bf16 rule); timed at the ViT shape beside SDPA with
+    the block rows and how full S = 197 leaves them; exact launches a train
+    step (12 K1, 12 K2, 12 K3; under remat ``dots`` and ``full`` K1 again
+    where each block is recomputed); the flash ViT's losses within
+    VIT_LOSS_RTOL of the default attention's over three steps; then the f32
+    forward on the card against the port on the CPU (float64 and f32, as
+    ``phase_resnet_parity``).  Returns the kernels-line entries."""
+    from distributeddeeplearning_tpu_torch.data.synthetic import synthetic_batch
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.train.step import build_train_step
+
+    b, h, s, d = (VIT_ATTN[k] for k in ("b", "h", "s", "d"))
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for bb, ss in ((2, 1), (2, 37), (b, s)):
+        q, k, v = qkv_views(torch, bb, ss, h, d, torch.bfloat16, seed=ss + 5)
+        errs, (lse, _, do, delta, _) = _hold_flash(
+            torch, fa, q, k, v, False, seed=ss, what=f"ViT B={bb} S={ss}")
+        worst = {kern: max(worst[kern], e) for kern, e in errs.items()}
+        log(f"[vit-flash] bf16 B={bb} H={h} S={ss} D={d} non-causal, no bias: held "
+            f"against the plain versions (bf16 rule); max |kernel - plain| K1 "
+            f"{errs['fwd']:.3e}, K2 {errs['dq']:.3e}, K3 {errs['dkv']:.3e}")
+    fwd_ms, fwd_plain, fwd_lib, dq_ms, dkv_ms, bwd_plain, bwd_lib = _time_flash(
+        torch, F, fa, q, k, v, do, lse, delta, causal=False)
+    pairs = b * h * s * s
+    head = 2.0 * b * s * h * d
+    rows_in = 4 * head + 2 * 4.0 * b * h * s
+    rows = {"fwd": fa.bf16_block_rows(b, h, s),
+            "dq": fa.bf16_bwd_block_rows("dq", b, h, s),
+            "dkv": fa.bf16_bwd_block_rows("dkv", b, h, s)}
+    shape = f"B={b} H={h} S={s} D={d} non-causal bf16 (strided qkv views)"
+    entries = {}
+    for kern, ms, plain_ms, lib_ms, nbytes, per_pair in (
+            ("fwd", fwd_ms, fwd_plain, fwd_lib, 4 * head + 4.0 * b * h * s, 4.0),
+            ("dq", dq_ms, bwd_plain, bwd_lib, rows_in + head, 6.0),
+            ("dkv", dkv_ms, bwd_plain, bwd_lib, rows_in + 2 * head, 8.0)):
+        bms, by = bound_ms(nbytes, per_pair * d * pairs, BF16_FLOPS_PER_S)
+        entries[kern] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             library_ms=lib_ms, max_abs_err=worst[kern], shape=shape,
+                             block_rows=rows[kern],
+                             tflops=per_pair * d * pairs / ms / 1e9)
+    qfill = s / (-(-s // rows["fwd"]) * rows["fwd"])
+    kfill = s / (-(-s // 128) * 128)
+    log(f"[vit-flash] {shape}: K1 {fwd_ms:.4f} ms (plain {fwd_plain:.4f}, sdpa "
+        f"{fwd_lib:.4f}, {fwd_ms / fwd_lib:.2f}x; bound {entries['fwd']['bound_ms']:.4f} "
+        f"ms, {entries['fwd']['bound_by']}), K2 {dq_ms:.4f} ms (bound "
+        f"{entries['dq']['bound_ms']:.4f}), K3 {dkv_ms:.4f} ms (bound "
+        f"{entries['dkv']['bound_ms']:.4f}); K2+K3 {dq_ms + dkv_ms:.4f} ms against "
+        f"sdpa's whole backward {bwd_lib:.4f} ms ({(dq_ms + dkv_ms) / bwd_lib:.2f}x), "
+        f"plain backward {bwd_plain:.4f} ms; block rows K1/K2/K3 "
+        f"{rows['fwd']}/{rows['dq']}/{rows['dkv']}: S = 197 fills the query blocks "
+        f"{qfill:.0%} and the 128-key tiles {kfill:.0%}; device times, on {card}")
+    del q, k, v, do, lse, delta
+    torch.cuda.empty_cache()
+
+    # exact launches a train step, and the loss against the default attention
+    host = get_model("vit-b16").init(torch.Generator().manual_seed(0),
+                                     (1, 224, 224, 3), device="cpu")["params"]
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_batch(b, (224, 224, 3), 1001, seed=3).items()}
+    losses = {}
+    for name, remat in (("flash", "none"), ("flash", "dots"), ("flash", "full"),
+                        ("default", "none")):
+        attention_fn = fa.make_flash_attention() if name == "flash" else None
+        state, sched = _vit_state(torch, host, attention_fn, remat)
+        step = build_train_step(state, schedule=sched, compute_dtype=torch.bfloat16)
+        run = []
+        for i in range(3 if remat == "none" else 1):
+            _zero_fa(fa)
+            torch.cuda.synchronize()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            counts = _fa_counts(fa)
+            run.append(metrics["loss"].item())
+            want = {c: 0 for c in FA_COUNTERS}
+            if name == "flash":
+                want.update({"launches_bf16": 12 * (1 if remat == "none" else 2),
+                             "launches_dq_bf16": 12, "launches_dkv_bf16": 12})
+            if counts != want:
+                raise AssertionError(f"[vit-flash] {name} remat={remat} step {i + 1}: "
+                                     f"launches {counts}, expected {want}")
+        log(f"[vit-flash] ViT-B/16 bf16 B=64 train step, {name} attention, remat "
+            f"{remat}: launches a step K1 {counts['launches_bf16']}, K2 "
+            f"{counts['launches_dq_bf16']}, K3 {counts['launches_dkv_bf16']} "
+            f"(every other counter 0); losses {[round(x, 6) for x in run]}")
+        losses[name, remat] = run
+        del state, step
+        torch.cuda.empty_cache()
+    rel = [abs(a - c) / abs(c) for a, c in zip(losses["flash", "none"],
+                                                losses["default", "none"])]
+    log(f"[vit-flash] |flash - default| / default loss by step "
+        f"{[f'{x:.2e}' for x in rel]} (tolerance {VIT_LOSS_RTOL:g}); remat dots / "
+        f"full first loss {losses['flash', 'dots'][0]:.6f} / "
+        f"{losses['flash', 'full'][0]:.6f} against {losses['flash', 'none'][0]:.6f}")
+    if not all(math.isfinite(x) for x in rel) or max(rel) > VIT_LOSS_RTOL:
+        raise AssertionError("[vit-flash] flash losses left the default attention's")
+    if not (losses["flash", "dots"][0] == losses["flash", "full"][0]
+            == losses["flash", "none"][0]):
+        raise AssertionError("[vit-flash] remat changed the first step's loss")
+    for kern in entries:
+        entries[kern]["launches"] = 12
+    _vit_parity(torch, np, fa, card)
+    return entries
+
+
+def _vit_parity(torch, np, fa, card):
+    """ViT-B/16's forward (eval) on the card against the port on the CPU from
+    the same weights (the port's init at 64 px: the position embeddings
+    follow the patch count) and a 64 px batch of 4: float64 within F64_TOL's
+    forward limit, and f32 (default attention, and flash: the f32 kernel on
+    split TF32) no further from the CPU's float64 logits than F32_FACTOR
+    times the CPU's f32 logits are, plus F32_FLOOR."""
+    from distributeddeeplearning_tpu_torch.data.synthetic import synthetic_batch
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.train.state import tree_map
+
+    size, bsz = VIT_PARITY["size"], VIT_PARITY["batch"]
+    host = get_model("vit-b16").init(torch.Generator().manual_seed(2),
+                                     (1, size, size, 3), device="cpu")["params"]
+    images = synthetic_batch(bsz, (size, size, 3), 1001, seed=4)["image"]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for name, dtype, attn in (("f64", torch.float64, None),
+                                  ("f32", torch.float32, None),
+                                  ("f32 flash", torch.float32, "flash")):
+            if attn and dev == "cpu":
+                continue
+            kw = {"dtype": dtype}
+            if attn:
+                kw["attention_fn"] = fa.make_flash_attention()
+            params = tree_map(lambda t: t.to(dev, dtype, copy=True), host)
+            with torch.no_grad():
+                logits = get_model("vit-b16", **kw)(
+                    params, torch.as_tensor(images, device=dev), train=False)
+            out[dev, name] = logits.double().cpu().numpy()
+    ref = out["cpu", "f64"]
+
+    def err(a):
+        return float(np.abs(a - ref).max() / np.abs(ref).max())
+
+    spread = err(out["cpu", "f32"])
+    limit32 = F32_FACTOR * spread + F32_FLOOR
+    got = {name: err(out["cuda", name]) for name in ("f64", "f32", "f32 flash")}
+    log(f"[vit-parity] ViT-B/16 {size} px batch {bsz} eval logits, card against the "
+        f"CPU's float64: f64 {got['f64']:.3e} (limit {F64_TOL['forward']:g}), f32 "
+        f"{got['f32']:.3e}, f32 flash {got['f32 flash']:.3e} (limit {limit32:.3e}: "
+        f"the CPU's f32 is {spread:.3e} off) on {card}")
+    bad = [n for n, e in got.items()
+           if not math.isfinite(e) or e > (F64_TOL["forward"] if n == "f64" else limit32)]
+    if bad:
+        raise AssertionError(f"[vit-parity] the card left the CPU: {bad}")
+
+
+def phase_resume(torch, np, fa, card):
+    """ViT-B/16 with flash attention (bf16, batch 64, 224 px, SGD momentum)
+    through the ``Trainer``: one epoch of RESUME["steps"] steps with a
+    generation every RESUME["every"] steps through a step-indexed batch
+    factory, twice (the two runs must agree bitwise; if they do not, the
+    phase names the differing leaves and runs both again with
+    ``torch.backends.cudnn.deterministic``, in this phase only); then a run
+    whose stream stops before step RESUME["stop_before"], and a fresh
+    ``Trainer`` and ``Checkpointer`` that resume it from its last
+    generation and finish: the resumed run's params, momentum and per-step
+    losses must equal the uninterrupted run's bit for bit.  Last, the
+    newest generation of the resumed run's store is corrupted (``flip``)
+    and ``restore`` must fall back to step RESUME["every"].  Logs the
+    checkpointer's save, snapshot and verify walls and the launches of the
+    uninterrupted fit (the counters zeroed just before it)."""
+    import shutil
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch.data.synthetic import synthetic_batch
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.train.checkpoint import (
+        Checkpointer,
+        corrupt_generation,
+        flatten,
+    )
+    from distributeddeeplearning_tpu_torch.train.loop import Trainer, TrainerConfig
+    from distributeddeeplearning_tpu_torch.train.step import build_train_step
+
+    b, steps, every = RESUME["batch"], RESUME["steps"], RESUME["every"]
+    host = get_model("vit-b16").init(torch.Generator().manual_seed(1),
+                                     (1, 224, 224, 3), device="cpu")["params"]
+    data = [synthetic_batch(b, (224, 224, 3), 1001, seed=100 + i) for i in range(steps)]
+
+    class Stopped(Exception):
+        pass
+
+    def fit(directory, stop_before=None):
+        state, sched = _vit_state(torch, host, fa.make_flash_attention())
+        step = build_train_step(state, schedule=sched, compute_dtype=torch.bfloat16)
+        losses = {}
+
+        def recording(state, batch):
+            state, metrics = step(state, batch)
+            losses[state.step] = metrics["loss"].detach()
+            return state, metrics
+
+        def factory(start):
+            for i in range(start, steps):
+                if stop_before is not None and i + 1 == stop_before:
+                    raise Stopped(i + 1)
+                yield data[i]
+
+        trainer = Trainer(recording, config=TrainerConfig(
+            epochs=1, steps_per_epoch=steps, global_batch_size=b,
+            checkpoint_dir=directory, checkpoint_every_steps=every))
+        try:
+            state, _ = trainer.fit(state, factory)
+        except Stopped:
+            state = None
+        return state, {k: v.item() for k, v in losses.items()}, trainer.checkpointer
+
+    def leaves(state):
+        return flatten({"params": state.params, "trace": state.opt_state["trace"]})
+
+    def differing(a, b):
+        return [k for (k, x), (_, y) in zip(leaves(a), leaves(b)) if not torch.equal(x, y)]
+
+    root = tempfile.mkdtemp(prefix="vit-resume-")
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for attempt in range(2):
+            _zero_fa(fa)
+            torch.cuda.synchronize()
+            a, losses_a, ckpt_a = fit(os.path.join(root, f"a{attempt}"))
+            torch.cuda.synchronize()
+            counts = _fa_counts(fa)
+            b_state, losses_b, _ = fit(os.path.join(root, f"b{attempt}"))
+            diff = differing(a, b_state)
+            log(f"[resume] two uninterrupted fits of {steps} steps (cudnn.deterministic "
+                f"{torch.backends.cudnn.deterministic}): losses {losses_a} and "
+                f"{losses_b}; {len(diff)} of {len(leaves(a))} params/momentum leaves "
+                f"differ {diff[:6]}")
+            del b_state
+            if not diff and losses_a == losses_b:
+                break
+            if attempt == 1:
+                raise AssertionError("[resume] two uninterrupted fits differ with "
+                                     "cudnn.deterministic too")
+            torch.backends.cudnn.deterministic = True
+        want = {c: 0 for c in FA_COUNTERS}
+        want.update({"launches_bf16": 12 * steps, "launches_dq_bf16": 12 * steps,
+                     "launches_dkv_bf16": 12 * steps})
+        if counts != want:
+            raise AssertionError(f"[resume] launches {counts}, expected {want}")
+        log(f"[resume] checkpointer of the uninterrupted fit ({len(ckpt_a.all_steps())} "
+            f"generations {ckpt_a.all_steps()}, ViT-B/16 params + momentum "
+            f"{sum(t.numel() for _, t in leaves(a)) * 4 / 1e9:.3f} GB): save wall "
+            f"{ckpt_a.save_wall_s:.3f} s (snapshot to host {ckpt_a.snapshot_wall_s:.3f} "
+            f"s), verify wall {ckpt_a.verify_wall_s:.3f} s, waits for the data to "
+            f"land {ckpt_a.write_wait_s:.3f} s, background checksums "
+            f"{ckpt_a.verify_cpu_s:.3f} s; launches {counts} on {card}")
+        resumed_dir = os.path.join(root, "resumed")
+        _, losses_c, ckpt_c = fit(resumed_dir, stop_before=RESUME["stop_before"])
+        if ckpt_c.all_steps() != [every]:
+            raise AssertionError(f"[resume] the stopped run left {ckpt_c.all_steps()}")
+        t0 = time.perf_counter()
+        d, losses_d, ckpt_d = fit(resumed_dir)
+        diff = differing(a, d)
+        same_losses = all(losses_d[k] == losses_a[k] for k in losses_d)
+        log(f"[resume] stopped before step {RESUME['stop_before']} (losses "
+            f"{losses_c}), resumed by a fresh Trainer and Checkpointer from step "
+            f"{every}: steps {sorted(losses_d)} losses {losses_d} (uninterrupted "
+            f"{[losses_a[k] for k in sorted(losses_d)]}); {len(diff)} params/momentum "
+            f"leaves differ; {time.perf_counter() - t0:.1f} s")
+        if sorted(losses_d) != list(range(every + 1, steps + 1)) or diff or not same_losses:
+            raise AssertionError(f"[resume] the resumed fit is not bit-identical: "
+                                 f"{diff[:6]}, losses {losses_d} vs {losses_a}")
+        newest = max(ckpt_d.all_steps())
+        what = corrupt_generation(os.path.join(resumed_dir, str(newest)), "flip")
+        template, _ = _vit_state(torch, host, fa.make_flash_attention())
+        checker = Checkpointer(resumed_dir)
+        restored, step_no = checker.restore(template)
+        log(f"[resume] corrupted generation {newest} ({what}); restore fell back to "
+            f"step {step_no} (state step {restored.step}), verify wall "
+            f"{checker.verify_wall_s:.3f} s; generations left {checker.all_steps()}")
+        if step_no != every or restored.step != every or newest in checker.all_steps():
+            raise AssertionError(f"[resume] restore did not fall back to {every}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"deterministic_switch": attempt == 1, "launches": counts}
+
+
+def phase_moe_bert(torch, np, fa, card):
+    """bert-base with a mixture of MOE_EXPERTS experts in every second layer
+    through ``workloads.bert.main(num_experts=8, attention="flash")`` at its
+    defaults (bf16, batch 8, seq 128, dropout 0.1), cut to 8 batches: the
+    loss finite, the load-balance term and the share of token-slots dropped
+    over capacity (from the router's own counts), step p50 and peak memory,
+    exact launches of the bias kernels; then the f32 forward (eval, flash)
+    on the card against the port on the CPU from the same weights: each MoE
+    layer's expert choices compared first (flips reported), then the logits
+    of the rows no flip reaches within MOE_LOGIT_RTOL."""
+    from distributeddeeplearning_tpu_torch.models import bert as tbert
+    from distributeddeeplearning_tpu_torch.models import moe
+    from distributeddeeplearning_tpu_torch.train.state import tree_leaves, tree_map
+    from distributeddeeplearning_tpu_torch.workloads import bert as wbert
+
+    aux, kept, slots, gates = [], [], [], []
+    real_mlp, real_route = moe.moe_mlp, moe.route
+
+    def recording_mlp(*args, **kwargs):
+        y, term = real_mlp(*args, **kwargs)
+        if term is not None:
+            aux.append(term.detach())
+        return y, term
+
+    def recording_route(kernel, xf, e, k, cap):
+        r = real_route(kernel, xf, e, k, cap)
+        kept.append(r.kept.sum())
+        slots.append(k * xf.shape[0])
+        gates.append(r.gate_idx)
+        return r
+
+    moe.moe_mlp, moe.route = recording_mlp, recording_route
+    try:
+        state, losses, step_ms, counts, plain, peak_gb = _bert_run(
+            torch, np, fa, seq_len=128, attention="flash", dropout_rate=0.1,
+            dtype_kw={}, num_experts=MOE_EXPERTS)
+        layers, steps = 12, BERT_STEPS
+        want = {c: 0 for c in FA_COUNTERS}
+        want.update({"launches_bias_bf16": layers * (steps + BERT_EVAL_BATCHES),
+                     "launches_dq_bias_bf16": layers * steps,
+                     "launches_dkv_bias_bf16": layers * steps})
+        if counts != want or plain:
+            raise AssertionError(f"[moe-bert] launches {counts}, plain calls {plain} "
+                                 f"(expected {want}, 0)")
+        n_moe = sum(tbert.uses_moe(tbert.BertConfig(num_experts=MOE_EXPERTS), i)
+                    for i in range(layers))
+        terms = torch.stack(aux).float().cpu()
+        if len(aux) != n_moe * steps or not torch.isfinite(terms).all():
+            raise AssertionError(f"[moe-bert] {len(aux)} load-balance terms, "
+                                 f"expected {n_moe * steps}")
+        dropped = 1.0 - float(torch.stack(kept).sum().item()) / sum(slots)
+        p50 = float(np.median(step_ms[1:]))
+        n_params = sum(t.numel() for t in tree_leaves(state.params))
+        log(f"[moe-bert] bert-base, {MOE_EXPERTS} experts in {n_moe} of {layers} "
+            f"layers, bf16 B=8 S=128 flash dropout 0.1: {n_params / 1e6:.1f} M params; "
+            f"loss by step {[round(x, 5) for x in losses]}; load-balance term by step "
+            f"(mean over the MoE layers) "
+            f"{[round(float(x), 5) for x in terms.view(steps, n_moe).mean(1)]}; "
+            f"token-slots dropped over capacity {dropped:.2%} (train and eval "
+            f"passes); step p50 {p50:.2f} ms (CUDA-event spans, steps 2..{steps}), "
+            f"peak memory {peak_gb:.2f} GB; launches {counts} on {card}")
+        del state
+        torch.cuda.empty_cache()
+
+        # f32, card against CPU, routing compared first
+        cfg = tbert.BertConfig(num_experts=MOE_EXPERTS, dropout_rate=0.0)
+        host = tbert.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+        batch = next(wbert._batches(8, 128, cfg.vocab_size, cfg.num_classes, 42, 8,
+                                    is_training=False))
+        out, routes = {}, {}
+        for dev in ("cpu", "cuda"):
+            gates.clear()
+            params = tree_map(lambda t: t.to(dev, copy=True), host)
+            with torch.no_grad():
+                logits = tbert.forward(
+                    params, torch.as_tensor(batch["input"], device=dev), config=cfg,
+                    dtype=torch.float32, attention_fn=fa.make_flash_attention(),
+                    train=False,
+                    attention_mask=torch.as_tensor(batch["attention_mask"], device=dev))
+            out[dev] = logits.double().cpu().numpy()
+            routes[dev] = [g.cpu() for g in gates]
+    finally:
+        moe.moe_mlp, moe.route = real_mlp, real_route
+    flips = [(a != c).any(-1) for a, c in zip(routes["cpu"], routes["cuda"])]
+    flipped_rows = set()
+    for f in flips:
+        flipped_rows |= set((f.nonzero().flatten() // 128).tolist())
+    rows = [r for r in range(8) if r not in flipped_rows]
+    ref = out["cpu"]
+    err = (float(np.abs(out["cuda"][rows] - ref[rows]).max() / np.abs(ref).max())
+           if rows else float("nan"))
+    log(f"[moe-bert] f32 eval forward (flash), card against CPU: expert choices "
+        f"flipped for {[int(f.sum()) for f in flips]} of {8 * 128} tokens in each MoE "
+        f"layer (rows reached {sorted(flipped_rows)}); logits of the other rows "
+        f"{err:.3e} of the largest |logit| (limit {MOE_LOGIT_RTOL:g}) on {card}")
+    if len(flips) != n_moe or not rows or not err <= MOE_LOGIT_RTOL:
+        raise AssertionError("[moe-bert] the card's f32 MoE forward left the CPU's")
+    return {"p50_ms": p50, "dropped": dropped}
+
+
 def log_k4(top, busy):
     """The decode kernel's share of a profiled serving step: its split and
     merge passes (every kernel named ``flash_decode_*``) under one name."""
@@ -3594,8 +4121,7 @@ def _fd_counts(fd):
 
 
 def _zero_counters(fa, fd):
-    for c in FA_COUNTERS:
-        setattr(fa, c, 0)
+    _zero_fa(fa)
     fd.launches = fd.launches_bf16 = fd.launches_int8 = 0
     fd.launches_multi_query = fd.launches_verify = 0
 
@@ -3670,6 +4196,10 @@ def main() -> int:
         timed(phase_resnet, torch, np, card)
         timed(phase_resnet_parity, torch, np, card)
         timed(phase_image_short, torch, np, card)
+        timed(phase_vit, torch, np, card)
+        vit = timed(phase_vit_flash, torch, np, F, fa, card)
+        resumed = timed(phase_resume, torch, np, fa, card)
+        timed(phase_moe_bert, torch, np, fa, card)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -3760,6 +4290,19 @@ def main() -> int:
         row["head_dims"] = {
             str(d): {**entry, "launches": defaults[d].get(row["name"], 0)}
             for d, entry in headdim.get(row["name"], {}).items()}
+    # the bf16 K1-K3 at ViT-B/16's shape (S 197, non-causal, no bias): held
+    # and timed in phase_vit_flash, launched a ViT train step and by the
+    # resumed fit of phase_resume
+    for row in rows:
+        kern = {"flash_attention_fwd_bf16": "fwd", "flash_attention_bwd_dq_bf16": "dq",
+                "flash_attention_bwd_dkv_bf16": "dkv"}.get(row["name"])
+        if kern is not None:
+            row["vit"] = vit[kern]
+            row["launches_by_path"] = {
+                **row.get("launches_by_path", {}), "vit_train_step": vit[kern]["launches"],
+                "vit_fit": resumed["launches"][
+                    {"fwd": "launches_bf16", "dq": "launches_dq_bf16",
+                     "dkv": "launches_dkv_bf16"}[kern]]}
     for row in rows:
         row["kernel"] = profiled_kernels(row["name"])
     log(f"[timer] windows timed by CUDA events for want of profiler device "

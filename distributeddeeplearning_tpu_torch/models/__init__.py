@@ -1,13 +1,13 @@
 """Models of the port: the stacked causal LM (``pipelined_transformer``),
-the BERT encoder (``bert``) and the image models (``resnet``,
-``inception``, ``vgg``).
+the BERT encoder (``bert``, with mixture-of-experts layers from ``moe``),
+the image models (``resnet``, ``inception``, ``vgg``) and the Vision
+Transformer (``vit``).
 
 ``get_model(name, **kwargs)`` is the by-name factory of the reference's
 ``models/__init__.py``; the port registers ``bert-base``, ``bert_base``,
 ``bert-large``, ``resnet18`` ... ``resnet200``, ``inceptionv3``,
-``inception_v3``, ``vgg11``, ``vgg16``, ``vgg19`` and ``alexnet``.  The
-reference's ViT (``vit``) and mixture-of-experts layers (``moe``) are not
-in the port yet (ROADMAP A3).
+``inception_v3``, ``vgg11``, ``vgg16``, ``vgg19``, ``alexnet``,
+``vit-b16``, ``vit_b16``, ``vit-l16`` and ``vit_l16``.
 """
 
 from typing import Any, Callable, Dict
@@ -30,6 +30,7 @@ def _load() -> None:
         inception,
         resnet,
         vgg,
+        vit,
     )
 
 

@@ -211,7 +211,9 @@ class ImageModel:
     def forward_macs(self, image_size: int) -> int:
         """Multiply-adds of one example's forward at ``image_size`` x
         ``image_size`` RGB, from the shapes of its convs and Dense layers
-        (the pools, BatchNorms and elementwise work are not counted)."""
+        (a Dense once a row of its input) and whatever products a model
+        adds itself (a ViT's attention); the pools, BatchNorms and
+        elementwise work are not counted."""
         return self._abstract((1, image_size, image_size, 3),
                               lambda shape, init: None)[1]
 
@@ -340,7 +342,7 @@ def dense(s: Scope, x, features: int, *, init: Init = lecun_normal) -> torch.Ten
     """flax ``nn.Dense`` at the scope's dtype."""
     w = s.param("kernel", (x.shape[-1], features), init)
     b = s.param("bias", (features,), zeros)
-    s.run.macs += x.shape[-1] * features
+    s.run.macs += x.numel() // x.shape[0] // x.shape[-1] * x.shape[-1] * features
     return torch.matmul(x.to(s.dtype), w.to(s.dtype)) + b.to(s.dtype)
 
 

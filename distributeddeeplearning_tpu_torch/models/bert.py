@@ -24,24 +24,40 @@ layer runs under ``torch.utils.checkpoint``, and the generator is rewound
 to the layer's start when backward recomputes it, so the recomputed masks
 are the forward's.
 
+``remat="dots"`` runs each layer under ``torch.utils.checkpoint`` with a
+selective policy (:func:`remat`): the outputs of the matrix products
+(``mm``, ``bmm``, ``addmm``, ``baddbmm``) are saved and everything else is
+recomputed in the backward, as ``jax.checkpoint_policies.checkpoint_dots``
+does; the flash ``autograd.Function`` is recomputed, as the Pallas call is
+under that policy.  Dropout masks are rewound as under ``"full"``.
+
+With ``num_experts`` > 0, layer i's FFN is the mixture of experts of
+:mod:`.moe` (params ``layer{i}/moe_mlp``) where ``(i + 1) % moe_every_n ==
+0``; in training each such layer hands its load-balance term to
+:func:`.moe.sow`, which the train step collects.
+
 ``attention_fn`` is :func:`dot_product_attention` (the reference's default,
 bf16 scores) or ``ops.flash_attention.make_flash_attention()``, whose
-kernels take the padding mask as their key-padding bias.  ``remat="dots"``
-and mixture-of-experts layers are not in the port yet (ROADMAP A7).
+kernels take the padding mask as their key-padding bias.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from distributeddeeplearning_tpu_torch._device import DeviceLike, resolve_device
-from distributeddeeplearning_tpu_torch.models import register
+from distributeddeeplearning_tpu_torch.models import moe, register
 from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
     params_from_numpy as _tree_from_numpy,
 )
@@ -74,22 +90,49 @@ BERT_LARGE = BertConfig(
 )
 
 
+REMAT_POLICIES = ("none", "full", "dots")
+
+#: the ops whose outputs ``remat="dots"`` keeps: the matrix products
+#: (``jax.checkpoint_policies.checkpoint_dots`` keeps every dot_general)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def check_remat(policy: str) -> None:
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {policy!r}")
+
+
+def remat(policy: str, fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under the rematerialisation ``policy``:
+    ``"none"`` runs it; ``"full"`` saves only its inputs and recomputes it
+    in the backward; ``"dots"`` also saves the outputs of its matrix
+    products (a selective ``torch.utils.checkpoint`` policy)."""
+    if policy == "none":
+        return fn(*args, **kwargs)
+    extra = {}
+    if policy == "dots":
+        extra["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
+
+
 def _check_config(cfg: BertConfig) -> None:
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "BERT: mixture-of-experts layers (num_experts > 0) are ROADMAP A7 "
-            "(models/moe.py itself is A3), not in the port yet"
-        )
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "BERT: remat='dots' (save only matmul outputs) is ROADMAP A7; the "
-            "port takes 'none' and 'full'"
-        )
-    if cfg.remat not in ("none", "full"):
-        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {cfg.remat!r}")
+    check_remat(cfg.remat)
     if cfg.hidden_size % cfg.num_heads:
         raise ValueError(f"hidden_size {cfg.hidden_size} not divisible by "
                          f"num_heads {cfg.num_heads}")
+
+
+def uses_moe(cfg: BertConfig, i: int) -> bool:
+    """Whether layer ``i``'s FFN is a mixture of experts (ref
+    ``models/bert.py:261-265``)."""
+    return cfg.num_experts > 0 and (i + 1) % max(cfg.moe_every_n, 1) == 0
 
 
 def dot_product_attention(q, k, v, mask, *, dtype):
@@ -157,13 +200,15 @@ def init_params(
                for name in ("query", "key", "value")}
         qkv["out"] = {"kernel": nrm(c.num_heads, hd, c.hidden_size),
                       "bias": zeros(c.hidden_size)}
-        params[f"layer{i}"] = {
-            "attention": qkv,
-            "attention_ln": ln(),
-            "mlp_in": dense(c.hidden_size, c.intermediate_size),
-            "mlp_out": dense(c.intermediate_size, c.hidden_size),
-            "mlp_ln": ln(),
-        }
+        layer = {"attention": qkv, "attention_ln": ln()}
+        if uses_moe(c, i):
+            layer["moe_mlp"] = moe.init_params(c.hidden_size, c.intermediate_size,
+                                               c.num_experts, nrm)
+        else:
+            layer["mlp_in"] = dense(c.hidden_size, c.intermediate_size)
+            layer["mlp_out"] = dense(c.intermediate_size, c.hidden_size)
+        layer["mlp_ln"] = ln()
+        params[f"layer{i}"] = layer
     params["pooler"] = dense(c.hidden_size, c.hidden_size)
     params["head"] = {"kernel": nrm(c.hidden_size, c.num_classes,
                                     std=c.hidden_size ** -0.5),
@@ -220,18 +265,26 @@ def _self_attention(p, x, mask, *, config: BertConfig, dtype, attention_fn):
 
 def encoder_layer(p, x, mask, *, config: BertConfig, dtype, attention_fn,
                   train: bool, generator=None):
-    """One post-LN encoder layer (the reference's ``EncoderLayer``)."""
+    """One post-LN encoder layer (the reference's ``EncoderLayer``):
+    ``(x, aux)``, ``aux`` the MoE load-balance term of a mixture-of-experts
+    layer in training, else None."""
     drop = train and config.dropout_rate > 0
     attn = _self_attention(p["attention"], x, mask, config=config, dtype=dtype,
                            attention_fn=attention_fn)
     if drop:
         attn = _dropout(attn, config.dropout_rate, generator)
     x = _layer_norm(p["attention_ln"], x + attn, config.layer_norm_eps, dtype)
-    h = F.gelu(_dense(p["mlp_in"], x, dtype), approximate="none")
-    h = _dense(p["mlp_out"], h, dtype)
+    aux = None
+    if "moe_mlp" in p:
+        h, aux = moe.moe_mlp(p["moe_mlp"], x, num_experts=config.num_experts,
+                             capacity_factor=config.moe_capacity_factor,
+                             dtype=dtype, train=train)
+    else:
+        h = F.gelu(_dense(p["mlp_in"], x, dtype), approximate="none")
+        h = _dense(p["mlp_out"], h, dtype)
     if drop:
         h = _dropout(h, config.dropout_rate, generator)
-    return _layer_norm(p["mlp_ln"], x + h, config.layer_norm_eps, dtype)
+    return _layer_norm(p["mlp_ln"], x + h, config.layer_norm_eps, dtype), aux
 
 
 def _remat_layer(p, x, mask, state, *, generator, **kw):
@@ -259,7 +312,8 @@ def forward(
     ``BertEncoder.__call__``).  ``attention_mask`` [B, S] (1 = attend)
     becomes the [B, 1, 1, S] boolean mask every layer's attention takes;
     dropout runs when ``train`` and the rate is above 0, drawing from
-    ``generator``."""
+    ``generator``.  Mixture-of-experts layers hand their load-balance
+    terms to :func:`.moe.sow` in training."""
     _check_config(config)
     ids = input_ids.long()
     s = ids.shape[1]
@@ -280,12 +334,11 @@ def forward(
     layer_gen = generator if drop else None
     for i in range(config.num_layers):
         p = params[f"layer{i}"]
-        if config.remat == "full":
-            state = layer_gen.get_state() if layer_gen is not None else None
-            x = checkpoint(_remat_layer, p, x, mask, state, generator=layer_gen,
-                           use_reentrant=False, **kw)
-        else:
-            x = encoder_layer(p, x, mask, generator=layer_gen, **kw)
+        state = layer_gen.get_state() if layer_gen is not None else None
+        x, aux = remat(config.remat, _remat_layer, p, x, mask, state,
+                       generator=layer_gen, **kw)
+        if aux is not None:
+            moe.sow(aux)
     pooled = torch.tanh(_dense(params["pooler"], x[:, 0], dtype))
     return _dense(params["head"], pooled, dtype).float()
 

@@ -7,10 +7,23 @@ per step); the host synchronises only every ``log_every`` steps and at the
 end of each epoch, because a per-step readback would make the host wait
 for the card every step and stop it from queueing the next one.
 
-Checkpointing and resume, TensorBoard, the profiler window, the preemption
-guard, the anomaly detector, the step watchdog, registry snapshots and the
-goodput ledger are ROADMAP item 12's remainder: asking for any of them
-raises ``NotImplementedError``.
+With ``checkpoint_dir`` the trainer owns a :class:`..train.checkpoint.
+Checkpointer` (``max_to_keep`` generations): it saves at every epoch end
+and, with ``checkpoint_every_steps``, after every such true step, and
+drains the background writes when the fit ends or raises.  With
+``resume`` (the default) a fit first restores the newest verified
+generation and continues from its step, mid-epoch included.  ``fit``
+takes a batch iterator or a step-indexed factory ``f(start_step) ->
+Iterator`` whose first batch is the one of true step ``start_step``: the
+factory form makes a resumed run see exactly the batches an uninterrupted
+one would, and with the per-step dropout generators of ``train.step``
+(seeded from the step) a resumed run is bit-identical to one that never
+stopped.
+
+TensorBoard, the profiler window, the preemption guard, the anomaly
+detector and rollback, the step watchdog, registry snapshots and the
+goodput ledger are ROADMAP A4's remainder: asking for any of them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,13 +37,14 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
+from distributeddeeplearning_tpu_torch.train.checkpoint import Checkpointer
+
 logger = logging.getLogger("ddlt.train")
 
-# fields of the reference's TrainerConfig that belong to item 12's remainder
-_NOT_YET = ("checkpoint_dir", "checkpoint_every_steps", "tensorboard_dir",
-            "profile_dir", "preemption_guard", "anomaly_max_consecutive",
-            "anomaly_rollback", "step_deadline_s", "obs_metrics_path",
-            "goodput_path")
+# fields of the reference's TrainerConfig that belong to A4's remainder
+_NOT_YET = ("tensorboard_dir", "profile_dir", "preemption_guard",
+            "anomaly_max_consecutive", "anomaly_rollback", "step_deadline_s",
+            "obs_metrics_path", "goodput_path")
 
 
 @dataclasses.dataclass
@@ -41,11 +55,13 @@ class TrainerConfig:
     global_batch_size: int = 0
     log_every: int = 100
     metrics_path: Optional[str] = None  # per-epoch JSONL rows
+    checkpoint_dir: Optional[str] = None
+    # save after every N true steps too (besides each epoch end)
+    checkpoint_every_steps: Optional[int] = None
     # resume only matters with a checkpoint_dir, as in the reference
     resume: bool = True
-    # -- ROADMAP item 12's remainder: raise when set --
-    checkpoint_dir: Optional[str] = None
-    checkpoint_every_steps: Optional[int] = None
+    max_to_keep: int = 5
+    # -- ROADMAP A4's remainder: raise when set --
     tensorboard_dir: Optional[str] = None
     profile_dir: Optional[str] = None
     preemption_guard: Optional[bool] = None
@@ -109,27 +125,60 @@ class Trainer:
         for name in _NOT_YET:
             if getattr(config, name) not in (None, False):
                 raise NotImplementedError(
-                    f"TrainerConfig.{name}: checkpoints, TensorBoard, the "
-                    "profiler window and the resilience/goodput layer are "
-                    "ROADMAP item 12's remainder, not in the port yet"
+                    f"TrainerConfig.{name}: TensorBoard, the profiler window "
+                    "and the resilience/goodput layer are ROADMAP A4's "
+                    "remainder, not in the port yet"
                 )
         self.train_step = train_step
         self.eval_step = eval_step
         self.config = config
         self.metrics_log = MetricsLog(config.metrics_path)
+        self.checkpointer = (
+            Checkpointer(config.checkpoint_dir, max_to_keep=config.max_to_keep)
+            if config.checkpoint_dir else None)
 
-    def fit(self, state, train_batches: Iterator,
+    def fit(self, state, train_batches,
             eval_batches_factory: Optional[Callable[[], Iterator]] = None):
-        """Run the epoch loop; returns ``(state, FitResult)``."""
+        """Run the epoch loop; returns ``(state, FitResult)``.
+        ``train_batches`` is an iterator, or a factory ``f(start_step)`` of
+        the stream from true step ``start_step`` on (module docstring)."""
         cfg = self.config
+        factory = (train_batches if callable(train_batches)
+                   and not hasattr(train_batches, "__next__") else None)
+        restored = None
+        if self.checkpointer is not None and cfg.resume:
+            state, restored = self.checkpointer.restore(state)
+            if restored is not None:
+                logger.info("resuming from step %d (epoch %d, step %d within it)",
+                            restored, restored // cfg.steps_per_epoch,
+                            restored % cfg.steps_per_epoch)
+        start = int(restored or 0)
+        batches = factory(start) if factory is not None else train_batches
+        try:
+            return self._fit(state, batches, eval_batches_factory, start)
+        finally:
+            if self.checkpointer is not None:
+                # the snapshots are on the host already: land them, and
+                # certify them, whatever happened in the loop
+                self.checkpointer.wait()
+
+    def _save(self, step: int, state) -> None:
+        if self.checkpointer is not None:
+            self.checkpointer.save(step, state)
+
+    def _fit(self, state, train_batches: Iterator, eval_batches_factory,
+             start: int):
+        cfg = self.config
+        start_epoch, first_step = divmod(start, cfg.steps_per_epoch)
         train_t0 = time.monotonic()
         total_images = 0
         train_metrics: Dict[str, float] = {}
         eval_metrics: Optional[Dict[str, float]] = None
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
             acc = None
             epoch_t0 = log_t0 = time.monotonic()
-            for step_i in range(cfg.steps_per_epoch):
+            first = first_step if epoch == start_epoch else 0
+            for step_i in range(first, cfg.steps_per_epoch):
                 state, metrics = self.train_step(state, next(train_batches))
                 acc = metrics if acc is None else {
                     k: acc[k] + v for k, v in metrics.items()}
@@ -140,8 +189,13 @@ class Trainer:
                     logger.info("examples/sec: %.2f", cfg.global_batch_size
                                 * cfg.log_every / max(now - log_t0, 1e-9))
                     log_t0 = now
-            train_metrics = {k: float(v) / cfg.steps_per_epoch
-                             for k, v in acc.items()}
+                true_step = epoch * cfg.steps_per_epoch + step_i + 1
+                if (cfg.checkpoint_every_steps
+                        and true_step % cfg.checkpoint_every_steps == 0):
+                    self._save(true_step, state)
+            steps_this_epoch = cfg.steps_per_epoch - first
+            train_metrics = ({k: float(v) / steps_this_epoch for k, v in acc.items()}
+                             if acc is not None else {})
             epoch_train_wall = time.monotonic() - epoch_t0
             logger.info("epoch %d/%d: %s", epoch + 1, cfg.epochs,
                         {k: round(v, 4) for k, v in train_metrics.items()})
@@ -154,13 +208,14 @@ class Trainer:
             if eval_metrics:
                 row.update({f"val_{k}": v for k, v in eval_metrics.items()})
             row["images_per_second"] = (
-                cfg.steps_per_epoch * cfg.global_batch_size
+                steps_this_epoch * cfg.global_batch_size
             ) / max(epoch_train_wall, 1e-9)
-            if epoch == 0:
+            if epoch == start_epoch:
                 # the first epoch's wall includes the kernel builds and the
                 # first-call warm-up of the CUDA libraries
                 row["includes_compile"] = True
             self.metrics_log.append(row)
+            self._save((epoch + 1) * cfg.steps_per_epoch, state)
         result = FitResult(
             epochs_run=cfg.epochs,
             final_train_metrics=train_metrics,

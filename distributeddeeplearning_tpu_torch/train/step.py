@@ -30,6 +30,13 @@ running statistics.  ``outputs`` may be a ``(main, aux)`` tuple (an
 aux-head model in training): ``loss_fn`` takes it whole and the metrics
 read the main head.  Nothing in a step reads a device value on the host.
 
+Mixture-of-experts layers (:mod:`..models.moe`) hand their load-balance
+terms to ``moe.sow`` in training; the train step collects them around
+each forward (the reference's ``moe_losses`` collection) and adds
+``moe_aux_weight`` (default 0.01, Switch Transformer's alpha) times their
+sum to the loss it differentiates and reports.  The eval step adds
+nothing.
+
 One process, one device: there is no mesh.  The implicit data-parallel
 gradient all-reduce and the explicit comm-overlap schedule
 (``parallel/comms.py``) are ROADMAP item 11; their arguments raise.
@@ -42,6 +49,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from distributeddeeplearning_tpu_torch.models import moe
 from distributeddeeplearning_tpu_torch.train.schedule import Schedule
 from distributeddeeplearning_tpu_torch.train.state import (
     TrainState,
@@ -104,17 +112,26 @@ def _to_device(x, device, compute_dtype):
 
 def _forward(state: TrainState, params, inputs, *, train: bool, generator,
              extras, batch_stats=None):
-    """(outputs, new batch_stats) of the model; ``batch_stats`` overrides
-    the state's (microbatches thread the ones earlier microbatches
-    made).  A model without statistics is called as before and its
-    (empty) statistics come back unchanged."""
+    """(outputs, new batch_stats, aux) of the model; ``batch_stats``
+    overrides the state's (microbatches thread the ones earlier
+    microbatches made).  A model without statistics is called as before
+    and its (empty) statistics come back unchanged.  ``aux`` is the sum of
+    the load-balance terms the model's mixture-of-experts layers sowed in
+    training, an f32 tensor, or 0.0 when none did (ref ``train/step.py::
+    _forward``)."""
     stats = state.batch_stats if batch_stats is None else batch_stats
-    if not tree_leaves(stats):
-        return state.apply_fn(params, inputs, train=train, generator=generator,
-                              **extras), stats
-    out = state.apply_fn(params, inputs, train=train, generator=generator,
-                         batch_stats=stats, **extras)
-    return out if train else (out, stats)
+    with moe.collect_losses() as terms:
+        if not tree_leaves(stats):
+            out = state.apply_fn(params, inputs, train=train, generator=generator,
+                                 **extras), stats
+        else:
+            out = state.apply_fn(params, inputs, train=train, generator=generator,
+                                 batch_stats=stats, **extras)
+            out = out if train else (out, stats)
+    aux = 0.0
+    for term in terms:
+        aux = aux + term.float()
+    return (*out, aux)
 
 
 def _main_head(outputs):
@@ -165,6 +182,7 @@ def build_train_step(
     weight_update_sharding: bool = False,
     comm_skip: bool = False,
     rng: int = 0,
+    moe_aux_weight: float = 0.01,
 ) -> Callable:
     """The training step: forward, loss, backward, optimizer update.
 
@@ -179,6 +197,8 @@ def build_train_step(
     still advances); the metrics gain ``grad_norm`` and ``anomalous``
     (0/1).  With ``schedule`` the metrics gain ``lr = schedule(step)``.
     ``rng`` seeds the per-step dropout generators (:func:`step_generator`).
+    ``moe_aux_weight`` weights the mixture-of-experts load-balance terms
+    added to the loss.
     """
     del state_example
     if accum_steps < 1:
@@ -191,10 +211,12 @@ def build_train_step(
     generators: Dict[torch.device, torch.Generator] = {}  # one per device, reseeded
 
     def loss_and_grads(state, stats, inputs, labels, extras, generator):
-        outputs, new_stats = _forward(state, state.params, inputs, train=True,
-                                      generator=generator, extras=extras,
-                                      batch_stats=stats)
+        outputs, new_stats, aux = _forward(state, state.params, inputs, train=True,
+                                           generator=generator, extras=extras,
+                                           batch_stats=stats)
         loss = loss_fn(outputs, labels, label_smoothing=label_smoothing)
+        if isinstance(aux, torch.Tensor):
+            loss = loss + moe_aux_weight * aux
         leaves = tree_leaves(state.params)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
@@ -284,8 +306,8 @@ def build_eval_step(
             inputs = input_transform(inputs)
         inputs = _to_device(inputs, device, compute_dtype)
         labels = _to_device(batch["label"], device, compute_dtype)
-        logits, _ = _forward(state, state.params, inputs, train=False,
-                             generator=None, extras=_extras(batch, device))
+        logits, _, _ = _forward(state, state.params, inputs, train=False,
+                                generator=None, extras=_extras(batch, device))
         return metrics_fn(logits, labels, loss_fn(logits, labels))
 
     return step

@@ -9,7 +9,11 @@ linear warmup then linear decay, through the port's train step and
 geometry.  ``attention="flash"`` runs every layer's attention through the
 hand-written flash kernels with the padding mask as their key-padding
 bias, forward and backward; ``"default"`` (and ``"auto"``, as at ``seq=1``
-in the reference) the reference's plain attention.
+in the reference) the reference's plain attention.  ``num_experts`` > 0
+makes every second layer's FFN a mixture of experts (:mod:`..models.moe`),
+whose load-balance term the train step adds to the loss at weight 0.01;
+``save_filepath`` checkpoints (each epoch end) and resumes through the
+trainer's :class:`..train.checkpoint.Checkpointer`.
 
 Arguments keep the reference's names and defaults, plus ``device``
 (``"cuda"`` unless asked for the CPU).  What the slice does not take
@@ -35,8 +39,8 @@ def _refuse(**given) -> None:
         "fsdp": "FSDP parameter sharding (ROADMAP A5)",
         "tensor": "tensor parallelism (ROADMAP A5)",
         "seq": "sequence parallelism (ROADMAP A7)",
-        "expert": "expert parallelism with MoE BERT (ROADMAP A7)",
-        "num_experts": "MoE BERT (ROADMAP A7)",
+        "expert": "expert parallelism, MoE BERT's experts sharded over a "
+                  "mesh axis (ROADMAP A5)",
         "num_slices": "multi-slice data parallelism (ROADMAP A5)",
         "distributed": "multi-process training (ROADMAP A5)",
         "sp_block_k": "ring attention's blocked loop (ROADMAP A7)",
@@ -143,8 +147,7 @@ def main(
     _refuse(tfrecords=data_format == "tfrecords",
             attention=attention in ("ring", "ulysses", "ulysses-flash"),
             fsdp=fsdp != 1, tensor=tensor != 1, seq=seq != 1,
-            expert=expert != 1, num_experts=num_experts != 0,
-            num_slices=num_slices != 1, distributed=bool(distributed),
+            expert=expert != 1, num_slices=num_slices != 1, distributed=bool(distributed),
             sp_block_k=sp_block_k is not None)
     if attention == "auto":
         attention = "default"  # the reference's choice at seq = 1
@@ -165,7 +168,7 @@ def main(
 
     model_kwargs = dict(num_classes=num_classes, vocab_size=vocab_size,
                         dropout_rate=dropout_rate, dtype=dtype, remat=remat,
-                        attention_fn=attention_fn)
+                        attention_fn=attention_fn, num_experts=num_experts)
     for key, value in (
         ("num_layers", num_layers),
         ("hidden_size", hidden_size),

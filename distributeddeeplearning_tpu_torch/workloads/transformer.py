@@ -13,8 +13,9 @@ Arguments keep the reference's names and defaults, plus ``device``
 (``"cuda"`` unless asked for the CPU).  What the slice does not take
 raises, naming where it comes: the parallel geometries and the gradient
 comms (ROADMAP item 11), sequence-parallel attention (slice 8),
-checkpoints, TensorBoard, profiling and the resilience knobs (item 12's
-remainder).  Weights are drawn from ``torch.Generator().manual_seed(seed)``
+TensorBoard, profiling and the resilience knobs (ROADMAP A4's remainder).
+``save_filepath`` and ``checkpoint_every_steps`` checkpoint and resume
+through the trainer's :class:`..train.checkpoint.Checkpointer`.  Weights are drawn from ``torch.Generator().manual_seed(seed)``
 and so differ from the reference's ``jax.random`` draws.
 """
 

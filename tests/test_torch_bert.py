@@ -261,13 +261,13 @@ def test_registry_builds_the_reference_configs():
         assert getattr(tbert.BERT_LARGE, f.name) == getattr(jbert.BERT_LARGE, f.name)
         assert getattr(tbert.BERT_BASE, f.name) == getattr(jbert.BERT_BASE, f.name)
     with pytest.raises(ValueError, match="Unknown model"):
-        tmodels.get_model("vit_b16")  # the reference's ViT: not in the port yet
+        tmodels.get_model("vit_s16")  # a name the reference has not either
 
 
-@pytest.mark.parametrize("kw,what", [({"num_experts": 4}, "A7"),
-                                     ({"remat": "dots"}, "A7")])
+@pytest.mark.parametrize("kw,what", [({"remat": "partial"}, "remat"),
+                                     ({"num_heads": 5}, "divisible")])
 def test_what_the_model_does_not_take_raises(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(ValueError, match=what):
         tbert.bert_base(**kw)
 
 
@@ -452,9 +452,9 @@ def test_workload_main_at_its_default_dtype_with_dropout(tmp_path):
     ({"fsdp": 2}, "A5"),
     ({"tensor": 2}, "A5"),
     ({"seq": 2}, "A7"),
-    ({"expert": 2}, "A7"),
+    ({"expert": 2}, "A5"),
     ({"num_slices": 2}, "A5"),
-    ({"num_experts": 4}, "A7"),
+    ({"num_experts": 4, "expert": 2}, "A5"),
 ])
 def test_workload_refuses_what_the_slice_does_not_take(kw, what):
     with pytest.raises(NotImplementedError, match=what):

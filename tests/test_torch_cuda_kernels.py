@@ -49,7 +49,10 @@ longer buffer whose rows past S are NaN.  The bf16 backward (K2 and K3
 on wgmma and TMA) is held the same way: every head dim, S in {37, 64,
 130, 576, 2048}, causal and not, with and without a bias that masks a row
 and a whole 64-key tile, each of its block sizes; on poisoned views; and
-two launches must agree bit for bit.  The decode kernel on bf16 pages (and bf16
+two launches must agree bit for bit.  At ViT-B/16's attention shape (S 197, 196 patches and the CLS token,
+ragged against every block size; B 2 and the benchmark's 64; non-causal,
+no bias) K1-K3 are held the same way in f32 and bf16, and the flash
+``attention_fn``'s gradients through autograd.  The decode kernel on bf16 pages (and bf16
 queries) widens every value to f32 in registers, so it is held BITWISE to
 the same kernel on f32 copies of the same values, and to its plain
 version at 1e-4.
@@ -1512,3 +1515,70 @@ def test_split_kernel_folded_queries_equal_single_query_launches(cuda, pages, hd
                                  posns[i:i + 1].to(torch.int32)[None], ks, vs)
         assert torch.equal(out_c[i][None], one[0]), i
     assert torch.isfinite(out).all() and torch.isfinite(out_c).all()
+
+
+# ---- the ViT shape: S = 197 (196 patches and the CLS token), non-causal,
+# no bias; ragged against every query-block size and the 64/128-key tiles
+
+VIT_S, VIT_H, VIT_D = 197, 12, 64
+
+
+@pytest.mark.parametrize("b", [2, 64])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_flash_kernels_at_the_vit_shape(cuda, dtype, b):
+    """K1, K2 and K3 at ViT-B/16's attention shape (B = 64 is the
+    benchmark's batch), non-causal, unbiased, on strided qkv views: f32
+    within ATOL (K1) and 1e-4 of the largest |gradient| (K2, K3) of the
+    plain versions; bf16 by the bf16 rule against the f32 result of the
+    same inputs; lse within ATOL; one launch of each unbiased kernel of
+    the dtype."""
+    q, k, v = (_bf16_qkv(VIT_S, b=b, h=VIT_H, d=VIT_D, seed=b) if dtype == "bf16"
+               else _qkv_views(VIT_S, h=VIT_H, d=VIT_D, b=b, seed=b))
+    sfx = "_bf16" if dtype == "bf16" else ""
+    names = [f"launches{sfx}", f"launches_dq{sfx}", f"launches_dkv{sfx}"]
+    before = [getattr(fa, n) for n in names]
+    o, lse = fa.flash_attention_core(q, k, v, causal=False)
+    do = torch.randn(o.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(b + 1), device="cuda").to(q.dtype)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa._launch_bwd(q, k, v, do, lse, delta, causal=False)
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) - x for n, x in zip(names, before)] == [1, 1, 1]
+    o_plain, lse_plain = fa._dense_attention(q, k, v, None, causal=False)
+    plain = fa._dense_attention_bwd(q, k, v, do, lse, delta, causal=False)
+    assert (lse - lse_plain).abs().max().item() <= ATOL
+    if dtype == "f32":
+        assert (o - o_plain).abs().max().item() <= ATOL
+        for name, g, p in zip(("dq", "dk", "dv"), got, plain):
+            assert torch.isfinite(g).all(), name
+            assert (g - p).abs().max().item() <= ATOL * max(p.abs().max().item(), 1.0)
+        return
+    qf, kf, vf = q.float(), k.float(), v.float()
+    _hold_bf16(o, o_plain, fa._dense_attention(qf, kf, vf, None, causal=False)[0], "o")
+    ref = fa._dense_attention_bwd(qf, kf, vf, do.float(), lse, delta, causal=False)
+    for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        _hold_bf16(g, p, r, name)
+
+
+def test_vit_attention_gradients_through_the_function(cuda):
+    """The flash ``attention_fn`` at the ViT shape in bf16, forward and
+    backward through autograd, against autograd through the f32 plain
+    attention of the same bf16 inputs (bf16 rule against that f32
+    result, with the bf16 plain backward as the yardstick)."""
+    b = 8
+    q, k, v = (t.detach().requires_grad_(True)
+               for t in _bf16_qkv(VIT_S, b=b, h=VIT_H, d=VIT_D, seed=5))
+    attention = fa.make_flash_attention()
+    o = attention(q, k, v, None, dtype=torch.bfloat16)
+    do = torch.randn(o.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(6), device="cuda").bfloat16()
+    got = torch.autograd.grad(o, (q, k, v), do)
+    _, lse = fa._dense_attention(q.detach(), k.detach(), v.detach(), None,
+                                 causal=False)
+    delta = (do.float() * o.detach().float()).sum(-1).transpose(1, 2).contiguous()
+    plain = fa._dense_attention_bwd(q.detach(), k.detach(), v.detach(), do, lse,
+                                    delta, causal=False)
+    ref = fa._dense_attention_bwd(*(t.detach().float() for t in (q, k, v)),
+                                  do.float(), lse, delta, causal=False)
+    for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        _hold_bf16(g, p, r, name)

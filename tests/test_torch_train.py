@@ -401,8 +401,7 @@ def test_workload_main_options_run(tmp_path):
     {"distributed": True}, {"comm_overlap": True},
     {"weight_update_sharding": True}, {"comm_dtype": "bf16"},
     {"sp_block_k": 8}, {"scan_unroll": 2}, {"attention": "ring"},
-    {"save_filepath": "ckpt"}, {"tensorboard_dir": "tb"},
-    {"profile_dir": "prof"}, {"checkpoint_every_steps": 5},
+    {"tensorboard_dir": "tb"}, {"profile_dir": "prof"},
     {"anomaly_max_consecutive": 2}, {"anomaly_rollback": True},
     {"step_deadline_s": 10.0},
 ], ids=lambda kw: next(iter(kw)))
