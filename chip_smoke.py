@@ -226,7 +226,25 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    defaults, 8 batches: finite losses, the load-balance term, the share of
    token-slots dropped over capacity, step p50, peak memory, exact bias
    kernel launches; the f32 forward on the card against the CPU's with the
-   expert choices compared first.
+   expert choices compared first;
+25. ``phase_resilience`` (after 23): the trainer's resilience layer on
+   phase 23's ViT-B/16 flash fit (``skip_nonfinite=True``, prefetch on):
+   a clean fit with exact launches (12 K1, K2, K3 a step); an anomaly
+   rollback (``nan_loss@4,nan_loss@5``, detector 2 in a row, a generation
+   every 3) and a preempted fit restarted by ``supervise`` both bitwise
+   the clean fit (params, momentum, per-step losses), an isolated NaN step
+   leaving the state of the step before; the emergency checkpoint's wall;
+   the preempted run's goodput ledger (categories, recovery seconds,
+   goodput share; residual within 2%, no redone step; the rollback's 2
+   redone steps); ``io_error@p=0.3:seed=7`` bitwise with its retries
+   counted; ``restore`` falling back past a torn and a truncated
+   generation; prefetch off bitwise on, with each one's step p50 and a
+   detector-on fit's; a profiler window naming K1-K3 and the
+   ``train/step`` ranges, the tracer's export with the ``train/*`` spans and the rollback event; the
+   LM workload as ``python -m`` at TRAIN's geometry (flash, bf16) exiting
+   75 on ``preempt@3`` with a generation at 3, then resuming from it to
+   exit 0, and at its defaults exiting 70 with the stacks when an injected
+   data stall outlasts ``--step_deadline_s``.
 
 K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
 split pass with one block per (span of 64 absolute positions, head, slot)
@@ -271,8 +289,9 @@ counts the (query, key) pairs the run's mask leaves visible.
 
 The bf16 K1, K2 and K3 rows carry ``vit``: their entry at ViT-B/16's
 attention shape (phase 22), with the launches of one ViT train step; their
-``launches_by_path`` adds ``vit_train_step`` and ``vit_fit`` (phase 23's
-uninterrupted fit of 6 steps).
+``launches_by_path`` adds ``vit_train_step``, ``vit_fit`` (phase 23's
+uninterrupted fit of 6 steps) and ``vit_resilience_fit`` (phase 25's
+clean fit, through the prefetching ``Trainer``).
 
 Each row of the kernels line carries ``head_dims``: the phase-14 entry
 of the kernel at head dims 8, 16 and 32, with the launches of the phase-15
@@ -3917,6 +3936,351 @@ def phase_resume(torch, np, fa, card):
     return {"deterministic_switch": attempt == 1, "launches": counts}
 
 
+#: the resilience phase: the RESUME fit's model, batch and steps; an LM
+#: subprocess at TRAIN's geometry preempted at LM_PREEMPT of LM_STEPS; the
+#: watchdog subprocess at the LM workload's defaults, its deadline and the
+#: injected stall
+LM_STEPS, LM_PREEMPT = 6, 3
+WATCHDOG = dict(deadline_s=2, stall_at=3, stall_s=6)
+
+
+def _lm_workload(env_faults, argv, timeout=600):
+    """``python -m ...workloads.transformer argv`` in a fresh process with
+    ``DDLT_FAULTS=env_faults``: (exit code, stdout, stderr, seconds)."""
+    env = dict(os.environ, DDLT_FAULTS=env_faults)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributeddeeplearning_tpu_torch.workloads.transformer",
+         *argv], capture_output=True, text=True, cwd=root, env=env, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
+
+
+def phase_resilience(torch, np, fa, card):
+    """The trainer's resilience layer on ViT-B/16 with flash (bf16, the
+    RESUME batch and steps, SGD momentum, ``skip_nonfinite=True``) through
+    the ``Trainer`` and a step-indexed factory, each sub-run with a fresh
+    state, trainer and checkpointer and its own faults armed by
+    ``install_plan`` (disarmed after): a clean fit (the launch counters
+    zeroed just before it), then (1) ``nan_loss@4,nan_loss@5`` with the
+    detector (2 in a row) and rollback, a generation every 3 steps: one
+    rollback to 3, 2 anomalous steps, params, momentum and per-step losses
+    bitwise the clean fit's, 2 redone steps in its goodput ledger; an
+    isolated ``nan_loss@4`` without the detector leaves the state after
+    step 4 bitwise the state after step 3; (2) ``preempt@4`` under
+    ``supervise(max_restarts=1)``: an emergency generation at 4,
+    ``PreemptionError`` in attempt 0, resume from 4, bitwise the clean fit;
+    (3) its goodput ledger through ``stitch`` / ``summarize_ledger``: the
+    categories within RESIDUAL_LIMIT_PCT of the wall, no redone step; (4)
+    ``io_error@p=0.3:seed=7`` bitwise the clean fit with the retries
+    counted, ``ckpt_torn@2`` (a generation every 3) and
+    ``ckpt_corrupt@3:mode=truncate`` (every 2): ``restore`` falls back to
+    the newest generation that verifies; (5) ``prefetch=0`` bitwise the
+    clean fit (``prefetch=2``), each one's step p50 (CUDA events from one
+    step's launch to the next), and a fit with the detector on (one host
+    sync a step); (6) a profiler window over steps 3-4 with
+    the tracer on: the chrome trace names K1, K2, K3 and ``train/step``
+    (recorded launches logged, not gated), the tracer's export the
+    ``train/*`` spans and the rollback event; (7) the LM workload in
+    subprocesses at TRAIN's geometry (flash, bf16, LM_STEPS steps)
+    preempted at LM_PREEMPT: exit 75 and a generation at LM_PREEMPT, then
+    rerun without faults: resumes from it and exits 0; at its defaults
+    with ``--step_deadline_s`` and an injected data stall: exit 70 with
+    the stacks on stderr.  Returns the clean fit's launches."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch.data.synthetic import synthetic_batch
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.obs import goodput, trace
+    from distributeddeeplearning_tpu_torch.obs.recorder import get_recorder
+    from distributeddeeplearning_tpu_torch.obs.registry import get_registry
+    from distributeddeeplearning_tpu_torch.train.checkpoint import (
+        Checkpointer,
+        flatten,
+        load_manifest,
+    )
+    from distributeddeeplearning_tpu_torch.train.loop import Trainer, TrainerConfig
+    from distributeddeeplearning_tpu_torch.train.resilience import supervise
+    from distributeddeeplearning_tpu_torch.train.step import build_train_step
+    from distributeddeeplearning_tpu_torch.utils import faults
+
+    b, steps, every = RESUME["batch"], RESUME["steps"], RESUME["every"]
+    host = get_model("vit-b16").init(torch.Generator().manual_seed(1),
+                                     (1, 224, 224, 3), device="cpu")["params"]
+    data = [synthetic_batch(b, (224, 224, 3), 1001, seed=100 + i) for i in range(steps)]
+
+    def factory(start):
+        for i in range(start, steps):
+            yield data[i]
+
+    def leaves(state):
+        return flatten({"params": state.params, "trace": state.opt_state["trace"]})
+
+    def differing(a, b):
+        return [k for (k, x), (_, y) in zip(leaves(a), leaves(b)) if not torch.equal(x, y)]
+
+    def fit(spec="", directory=None, every=every, attempts=None, snap=(), **cfg):
+        """One fit (a fresh state, Trainer and Checkpointer an attempt,
+        ``spec`` armed for the whole fit); returns (state, result, [(step,
+        loss)], [trainer of each attempt], restarts, {step: leaves},
+        [step-start events])."""
+        losses, trainers, snaps, starts = [], [], {}, []
+
+        def attempt(_):
+            state, sched = _vit_state(torch, host, fa.make_flash_attention())
+            step = build_train_step(state, schedule=sched, compute_dtype=torch.bfloat16,
+                                    skip_nonfinite=True)
+
+            def recording(state, batch):
+                starts.append(torch.cuda.Event(enable_timing=True))
+                starts[-1].record()
+                state, metrics = step(state, batch)
+                losses.append((state.step, metrics["loss"].detach()))
+                if state.step in snap:
+                    snaps[state.step] = [t.clone() for _, t in leaves(state)]
+                return state, metrics
+
+            trainer = Trainer(recording, config=TrainerConfig(
+                epochs=1, steps_per_epoch=steps, global_batch_size=b,
+                checkpoint_dir=directory,
+                checkpoint_every_steps=every if directory else None, **cfg))
+            trainers.append(trainer)
+            return trainer.fit(state, factory)
+
+        faults.install_plan(spec)
+        try:
+            (state, result), restarts = supervise(
+                attempt, max_restarts=attempts or 0,
+                ledger_path=cfg.get("goodput_path"))
+        finally:
+            faults.install_plan("")
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        spans = [a.elapsed_time(z) for a, z in zip(starts, starts[1:] + [end])]
+        return (state, result, [(s, v.item()) for s, v in losses], trainers, restarts,
+                snaps, spans)
+
+    def same_losses(got, want):
+        return all(a == b for a, b in zip(got, want)) and len(got) == len(want)
+
+    root = tempfile.mkdtemp(prefix="vit-resilience-")
+    out = {}
+    try:
+        # the clean fit: prefetch on (the default), no checkpoint
+        _zero_fa(fa)
+        torch.cuda.synchronize()
+        clean, res_c, losses_c, _, _, _, spans_c = fit()
+        torch.cuda.synchronize()
+        counts = _fa_counts(fa)
+        want = {c: 0 for c in FA_COUNTERS}
+        want.update({"launches_bf16": 12 * steps, "launches_dq_bf16": 12 * steps,
+                     "launches_dkv_bf16": 12 * steps})
+        if counts != want:
+            raise AssertionError(f"[resilience] launches {counts}, expected {want}")
+        clean_losses = dict(losses_c)
+        log(f"[resilience] clean ViT-B/16 flash fit of {steps} steps (bf16, batch {b}, "
+            f"prefetch 2): losses {clean_losses}; launches {counts} on {card}")
+
+        # (1) anomaly rollback (the tracer on), and an isolated NaN without
+        # the detector
+        tracer_rb = trace.configure(enabled=True)
+        gp1 = os.path.join(root, "rollback.goodput.jsonl")
+        st1, res1, losses1, _, _, _, _ = fit(
+            "nan_loss@4,nan_loss@5", os.path.join(root, "rollback"),
+            anomaly_max_consecutive=2, anomaly_rollback=True, goodput_path=gp1)
+        tracer_rb.disable()
+        diff = differing(st1, clean)
+        replay = dict(losses1)
+        led1 = goodput.summarize_ledger(goodput.stitch(gp1))
+        log(f"[resilience] rollback: nan_loss@4,nan_loss@5, detector 2 in a row: steps "
+            f"{[s for s, _ in losses1]}, {res1.anomalous_steps} anomalous, "
+            f"{res1.rollbacks} rollback(s); {len(diff)} params/momentum leaves differ "
+            f"from the clean fit; replayed losses {[replay[k] for k in (4, 5, 6)]}; "
+            f"ledger redone steps {led1['counts']['steps_redone']}, segments "
+            f"{led1['counts']['segments']} on {card}")
+        if ([s for s, _ in losses1] != [1, 2, 3, 4, 5, 4, 5, 6] or res1.rollbacks != 1
+                or res1.anomalous_steps != 2 or diff or replay != clean_losses
+                or not all(math.isnan(v) for _, v in losses1[3:5])
+                or led1["counts"]["steps_redone"] != 2):
+            raise AssertionError(f"[resilience] the rolled-back fit is not the clean "
+                                 f"fit: {diff[:6]}, {losses1}, {led1['counts']}")
+        _, res_n, losses_n, _, _, snaps, _ = fit("nan_loss@4", snap=(3, 4))
+        same = all(torch.equal(x, y) for x, y in zip(snaps[3], snaps[4]))
+        log(f"[resilience] isolated nan_loss@4 without the detector: loss at 4 "
+            f"{dict(losses_n)[4]}, params and momentum after step 4 bitwise those "
+            f"after step 3: {same} on {card}")
+        if not same or not math.isnan(dict(losses_n)[4]):
+            raise AssertionError("[resilience] the NaN step's update was not skipped")
+        del snaps
+
+        # (2) preemption, supervised restart, (3) its goodput ledger
+        gp2 = os.path.join(root, "preempt.goodput.jsonl")
+        pre_dir = os.path.join(root, "preempt")
+        t0 = time.perf_counter()
+        st2, _, losses2, _, restarts, _, _ = fit(
+            "preempt@4", pre_dir, attempts=1, goodput_path=gp2)
+        wall2 = time.perf_counter() - t0
+        diff = differing(st2, clean)
+        # the emergency checkpoint's span, from the flight recorder (on
+        # while the tracer is off)
+        emergency = [e["dur_us"] / 1e6 for e in get_recorder().entries()
+                     if e["name"] == "train/emergency_checkpoint"][-1]
+        gens = Checkpointer(pre_dir).all_steps()
+        rows = goodput.read_rows(gp2)
+        reasons = [r.get("reason") for r in rows if r["kind"] == "segment"]
+        gb = sum(t.numel() * t.element_size() for _, t in leaves(st2)) / 1e9
+        log(f"[resilience] preempt@4 under supervise(max_restarts=1): {restarts} "
+            f"restart, segments {reasons}, steps {[s for s, _ in losses2]}, "
+            f"generations {gens}; {len(diff)} params/momentum leaves differ from the "
+            f"clean fit; emergency checkpoint (save + wait, {gb:.3f} GB of params and "
+            f"momentum) {emergency:.3f} s; {wall2:.2f} s in all on {card}")
+        if (restarts != 1 or reasons != ["PreemptionError", "completed"] or diff
+                or [s for s, _ in losses2] != list(range(1, steps + 1))
+                or dict(losses2) != clean_losses or 4 not in gens):
+            raise AssertionError(f"[resilience] the preempted fit is not the clean "
+                                 f"fit: {diff[:6]}, {losses2}, {gens}, {reasons}")
+        led2 = goodput.summarize_ledger(goodput.stitch(gp2))
+        secs = {k: round(v, 4) for k, v in led2["seconds"].items()}
+        log(f"[resilience] goodput of the preempted run: total {led2['total_wall_s']} s, "
+            f"categories {secs}, recovery {secs['recovery']} s, goodput share "
+            f"{led2['goodput_fraction']}, unaccounted {led2['unaccounted_pct']}% (limit "
+            f"{goodput.RESIDUAL_LIMIT_PCT}%), counts {led2['counts']}, notes "
+            f"{led2['notes']} on {card}")
+        if (not led2["residual_under_limit"] or led2["counts"]["steps_redone"] != 0
+                or led2["counts"]["restarts"] != 1):
+            raise AssertionError(f"[resilience] goodput ledger: {led2}")
+        out.update(emergency_s=emergency, goodput=led2)
+
+        # (4) storage faults
+        reg = get_registry()
+
+        def retries():
+            return sum(c.value for n, c in reg._counters.items()
+                       if n.startswith("retry.attempts."))
+
+        r0 = retries()
+        st4, _, losses4, trainers4, _, _, _ = fit(
+            "io_error@p=0.3:seed=7", os.path.join(root, "io"), every=1,
+            metrics_path=os.path.join(root, "io.metrics.jsonl"),
+            goodput_path=os.path.join(root, "io.goodput.jsonl"))
+        n_retries = retries() - r0
+        diff = differing(st4, clean)
+        log(f"[resilience] io_error@p=0.3:seed=7 (a generation every step): "
+            f"{n_retries} retries counted, generations "
+            f"{trainers4[0].checkpointer.all_steps()}; {len(diff)} leaves differ from "
+            f"the clean fit on {card}")
+        if diff or dict(losses4) != clean_losses or n_retries < 1:
+            raise AssertionError("[resilience] the io_error fit is not the clean fit")
+        for spec, gen_every, newest, want_step in (
+                ("ckpt_torn@2", every, steps, every),
+                ("ckpt_corrupt@3:mode=truncate", 2, steps, steps - 2)):
+            directory = os.path.join(root, spec.split("@")[0])
+            fit(spec, directory, every=gen_every)
+            torn = load_manifest(os.path.join(directory, str(newest))) is None
+            template, _ = _vit_state(torch, host, fa.make_flash_attention())
+            checker = Checkpointer(directory)
+            restored, step_no = checker.restore(template)
+            log(f"[resilience] {spec} (a generation every {gen_every}): generation "
+                f"{newest} {'has no manifest' if torn else 'has its manifest'}; restore "
+                f"fell back to step {step_no}, generations left {checker.all_steps()} "
+                f"on {card}")
+            if (step_no != want_step or restored.step != want_step
+                    or newest in checker.all_steps()
+                    or torn != spec.startswith("ckpt_torn")):
+                raise AssertionError(f"[resilience] {spec}: restore landed on {step_no}")
+            del template, restored
+
+        # (5) prefetch off against on (on: the clean fit, and once more after)
+        del st1, st2, st4
+        st5, _, losses5, _, _, _, spans_0 = fit(prefetch=0)
+        diff = differing(st5, clean)
+        del st5
+        _, _, _, _, _, _, spans_2 = fit(prefetch=2)
+        _, _, _, _, _, _, spans_d = fit(anomaly_max_consecutive=2)
+        p50 = {name: float(np.median(spans[1:])) for name, spans in (
+            ("on, first", spans_c), ("off", spans_0), ("on, again", spans_2),
+            ("on, detector", spans_d))}
+        log(f"[resilience] prefetch=0 against prefetch=2: {len(diff)} leaves differ, "
+            f"losses equal {dict(losses5) == clean_losses}; step p50 (CUDA events, "
+            f"launch to launch, steps 2-{steps}) "
+            f"{ {k: round(v, 2) for k, v in p50.items()} } ms on {card}")
+        if diff or dict(losses5) != clean_losses:
+            raise AssertionError("[resilience] prefetch changed the fit")
+        out.update(p50_ms=p50)
+
+        # (6) the profiler window and the tracer
+        prof_dir = os.path.join(root, "profile")
+        trace.configure(enabled=True)
+        fit(profile_dir=prof_dir, profile_start=2, profile_steps=2)
+        trace.configure(enabled=False)
+        paths = [os.path.join(prof_dir, n) for n in os.listdir(prof_dir)]
+        events = _json.load(open(paths[0]))["traceEvents"]
+        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        recorded = {k: sum(k in n for n in kernels)
+                    for k in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")}
+        step_spans = sum(e.get("name") == "train/step" for e in events)
+        exported = os.path.join(root, "tracer.json")
+        tracer_rb.export(exported)
+        host_names = {e["name"] for e in _json.load(open(exported))["traceEvents"]}
+        log(f"[resilience] profiler window steps 3-4 ({os.path.basename(paths[0])}): "
+            f"recorded launches {recorded} (24 each made; not gated: the profiler "
+            f"drops records), train/step ranges {step_spans}; the tracer's export "
+            f"holds {sorted(n for n in host_names if '/' in n)} on {card}")
+        if (len(paths) != 1 or not all(recorded.values()) or step_spans < 2
+                or not {"train/data_wait", "train/step", "train/checkpoint",
+                        "resilience/rollback"} <= host_names):
+            raise AssertionError("[resilience] the profile or the tracer export lacks "
+                                 "the flash kernels or the train spans")
+    finally:
+        trace.configure(enabled=False)
+        faults.install_plan("")
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    # (7) exit codes of the LM workload in subprocesses
+    lm_dir = tempfile.mkdtemp(prefix="lm-preempt-")
+    try:
+        argv = [f"--{k}={v}" for k, v in TRAIN.items()] + [
+            "--attention=flash", "--compute_dtype=bfloat16", "--epochs=1",
+            f"--steps_per_epoch={LM_STEPS}", f"--train_examples={LM_STEPS * TRAIN['batch_size']}",
+            f"--save_filepath={lm_dir}"]
+        rc, _, err, secs = _lm_workload(f"preempt@{LM_PREEMPT}", argv)
+        gens = Checkpointer(lm_dir).all_steps()
+        log(f"[resilience] LM workload ({TRAIN['num_layers']} layers, d "
+            f"{TRAIN['d_model']}, seq {TRAIN['seq_len']}, batch {TRAIN['batch_size']}, "
+            f"flash, bf16, {LM_STEPS} steps) with DDLT_FAULTS=preempt@{LM_PREEMPT}: "
+            f"exit {rc}, generations "
+            f"{gens}, {secs:.1f} s on {card}")
+        if rc != 75 or gens != [LM_PREEMPT]:
+            raise AssertionError(f"[resilience] preempted LM: exit {rc}, {gens}\n{err[-3000:]}")
+        rc, _, err, secs = _lm_workload("", argv)
+        gens = Checkpointer(lm_dir).all_steps()
+        resumed = f"resuming from step {LM_PREEMPT}" in err
+        log(f"[resilience] rerun without faults: exit {rc}, resumed from "
+            f"{LM_PREEMPT}: {resumed}, generations {gens}, {secs:.1f} s on {card}")
+        if rc != 0 or not resumed or LM_STEPS not in gens:
+            raise AssertionError(f"[resilience] resumed LM: exit {rc}, {gens}\n{err[-3000:]}")
+    finally:
+        shutil.rmtree(lm_dir, ignore_errors=True)
+    rc, _, err, secs = _lm_workload(
+        f"data_stall@{WATCHDOG['stall_at']}:secs={WATCHDOG['stall_s']}",
+        [f"--step_deadline_s={WATCHDOG['deadline_s']}", "--epochs=1",
+         "--steps_per_epoch=8"], timeout=300)
+    stacks = "ddlt watchdog: no step progress" in err and "File " in err
+    log(f"[resilience] LM workload at its defaults with --step_deadline_s "
+        f"{WATCHDOG['deadline_s']} and DDLT_FAULTS=data_stall@{WATCHDOG['stall_at']}:"
+        f"secs={WATCHDOG['stall_s']}: exit {rc}, stacks on stderr {stacks}, "
+        f"{secs:.1f} s on {card}")
+    if rc != 70 or not stacks:
+        raise AssertionError(f"[resilience] watchdog: exit {rc}\n{err[-3000:]}")
+    out["launches"] = counts
+    return out
+
+
 def phase_moe_bert(torch, np, fa, card):
     """bert-base with a mixture of MOE_EXPERTS experts in every second layer
     through ``workloads.bert.main(num_experts=8, attention="flash")`` at its
@@ -4199,6 +4563,7 @@ def main() -> int:
         timed(phase_vit, torch, np, card)
         vit = timed(phase_vit_flash, torch, np, F, fa, card)
         resumed = timed(phase_resume, torch, np, fa, card)
+        resilient = timed(phase_resilience, torch, np, fa, card)
         timed(phase_moe_bert, torch, np, fa, card)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
@@ -4297,12 +4662,13 @@ def main() -> int:
         kern = {"flash_attention_fwd_bf16": "fwd", "flash_attention_bwd_dq_bf16": "dq",
                 "flash_attention_bwd_dkv_bf16": "dkv"}.get(row["name"])
         if kern is not None:
+            counter = {"fwd": "launches_bf16", "dq": "launches_dq_bf16",
+                       "dkv": "launches_dkv_bf16"}[kern]
             row["vit"] = vit[kern]
             row["launches_by_path"] = {
                 **row.get("launches_by_path", {}), "vit_train_step": vit[kern]["launches"],
-                "vit_fit": resumed["launches"][
-                    {"fwd": "launches_bf16", "dq": "launches_dq_bf16",
-                     "dkv": "launches_dkv_bf16"}[kern]]}
+                "vit_fit": resumed["launches"][counter],
+                "vit_resilience_fit": resilient["launches"][counter]}
     for row in rows:
         row["kernel"] = profiled_kernels(row["name"])
     log(f"[timer] windows timed by CUDA events for want of profiler device "

@@ -1,3 +1,4 @@
 """Training of the port: schedules, optimizers and state, the train/eval
-steps and the single-process loop (``schedule``, ``state``, ``step``,
-``loop``)."""
+steps, the single-process loop, checkpoints and the resilience layer
+(``schedule``, ``state``, ``step``, ``loop``, ``checkpoint``,
+``resilience``)."""

@@ -37,15 +37,23 @@ Storage is not trusted:
 - :func:`corrupt_generation` (flip, truncate, unlink, manifest) and
   :func:`latest_verified_step_in_dir` for tests and chaos runs.
 
-Transient write failures are retried with :func:`..utils.retry.retry_call`'s
-bounded backoff.  The walls ``save_wall_s`` (what ``save`` blocks, the
+Transient failures are retried with :func:`..utils.retry.retry_call`'s
+bounded backoff: the background write, and the synchronous halves of
+:meth:`Checkpointer.save` and :meth:`Checkpointer.wait`, which take
+``deadline_s`` (the emergency checkpoint passes what is left of the
+preemption grace window, so no backoff sleeps past the kill).  The
+``DDLT_FAULTS`` sites (:mod:`..utils.faults`) are the reference's:
+``io_error`` at ``checkpoint.save`` and ``checkpoint.wait``; ``ckpt_torn``
+at a generation's commit (its largest ``data.bin`` truncated, no manifest
+written); ``ckpt_corrupt:mode=flip|truncate|unlink|manifest`` right after
+a generation's manifest lands (:func:`corrupt_generation`).  The walls ``save_wall_s`` (what ``save`` blocks, the
 drain of the previous write included), ``snapshot_wall_s`` (the host copy,
 inside it), ``verify_wall_s`` (waits for a generation's checksums at
 commit, and the checks at restore), ``write_wait_s`` (waits for its data
 to land, after its checksums) and ``verify_cpu_s`` (the background
-checksum work) accumulate per checkpointer.  There are no
-fault-injection hooks (the reference's ``ckpt_*`` fault kinds live in
-``utils/faults.py``, not in the port) and no pre-manifest legacy layout.
+checksum work) accumulate per checkpointer, and the process goodput
+ledger gets ``ckpt_save_block_s`` / ``ckpt_wait_block_s`` notes.  There
+is no pre-manifest legacy layout.
 """
 
 from __future__ import annotations
@@ -65,6 +73,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from distributeddeeplearning_tpu_torch.obs import goodput as _goodput
+from distributeddeeplearning_tpu_torch.obs.trace import get_tracer
+from distributeddeeplearning_tpu_torch.utils import faults as faults_mod
 from distributeddeeplearning_tpu_torch.utils.retry import retry_call
 
 logger = logging.getLogger("ddlt.checkpoint")
@@ -328,18 +339,21 @@ class _PendingGeneration:
     """One generation being checksummed and written in the background from
     its host snapshot."""
 
-    def __init__(self, directory: Path, step: int, snapshot: Dict[str, Leaves]):
+    def __init__(self, directory: Path, step: int, snapshot: Dict[str, Leaves],
+                 deadline_s: Optional[float] = None):
         self.step = step
         self.manifest: Optional[Dict[str, Any]] = None
         self.error: Optional[BaseException] = None
         self.cpu_s = 0.0
+        self.joined = False
         self.checksummed = threading.Event()
         self._thread = threading.Thread(
-            target=self._run, args=(directory, step, snapshot),
+            target=self._run, args=(directory, step, snapshot, deadline_s),
             name=f"ddlt-ckpt-{step}", daemon=True)
         self._thread.start()
 
-    def _run(self, directory: Path, step: int, snapshot: Dict[str, Leaves]) -> None:
+    def _run(self, directory: Path, step: int, snapshot: Dict[str, Leaves],
+             deadline_s: Optional[float]) -> None:
         try:
             t0 = time.perf_counter()
             try:
@@ -362,7 +376,8 @@ class _PendingGeneration:
                     shutil.rmtree(tmp, ignore_errors=True)
 
             retry_call(write, retries=2, base_delay=0.2, max_delay=2.0,
-                       description=f"checkpoint write (step {step})")
+                       description=f"checkpoint write (step {step})",
+                       deadline_s=deadline_s)
             self.manifest = manifest
         except Exception as exc:  # noqa: BLE001 — raised again at commit
             self.error = exc
@@ -407,62 +422,114 @@ class Checkpointer:
     def all_steps(self) -> List[int]:
         return sorted(set(_step_dirs(self.directory)) | set(self._pending))
 
-    def save(self, step: int, state) -> bool:
+    def save(self, step: int, state, *, deadline_s: Optional[float] = None) -> bool:
         """Snapshot ``state`` to host memory and write it in the background
         as generation ``step``; returns False (and saves nothing) for a
         step at or below the newest one saved (an epoch end that a
         ``checkpoint_every_steps`` save already took).  The previous
-        generation is drained and its manifest committed first."""
+        generation is drained and its manifest committed first.  Transient
+        failures of the snapshot-and-start retry, bounded by
+        ``deadline_s`` on the wall clock (the background write takes the
+        same bound)."""
         latest = self.latest_step()
         if latest is not None and step <= latest:
             return False
         t0 = time.perf_counter()
-        self._commit()  # one write in flight at a time
-        v0 = time.perf_counter()
-        snapshot = {name: _snapshot(tree)
-                    for name, tree in self._state_items(state).items()}
-        self.snapshot_wall_s += time.perf_counter() - v0
-        self._pending[step] = _PendingGeneration(self.directory, step, snapshot)
-        self.save_wall_s += time.perf_counter() - t0
+        with get_tracer().span("ckpt/save", step=step):
+            self._commit()  # one write in flight at a time
+
+            def start() -> None:
+                faults_mod.get_plan().maybe_io_error("checkpoint.save")
+                v0 = time.perf_counter()
+                snapshot = {name: _snapshot(tree)
+                            for name, tree in self._state_items(state).items()}
+                self.snapshot_wall_s += time.perf_counter() - v0
+                self._pending[step] = _PendingGeneration(
+                    self.directory, step, snapshot, deadline_s)
+
+            retry_call(start, retries=2, base_delay=0.2, max_delay=2.0,
+                       description=f"checkpoint save (step {step})",
+                       deadline_s=deadline_s)
+        blocked = time.perf_counter() - t0
+        self.save_wall_s += blocked
+        # detail under the trainer's checkpoint_blocking marks, never part
+        # of the ledger's wall sum
+        _goodput.get_ledger().note("ckpt_save_block_s", blocked)
         logger.info("checkpoint step %d -> %s (writing in the background)",
                     step, self.directory)
         return True
 
-    def _commit(self) -> None:
-        """Join every pending write and commit the manifests of those that
-        landed; then evict past ``max_to_keep``.  A write that failed
-        after its retries raises here."""
-        failed = None
+    def _join(self) -> None:
+        """Wait for every pending write (idempotent: a retried wait does
+        not count a generation's walls twice)."""
         for step in sorted(self._pending):
-            pending = self._pending.pop(step)
+            pending = self._pending[step]
+            if pending.joined:
+                continue
             v0 = time.perf_counter()
             pending.checksummed.wait()
             w0 = time.perf_counter()
             pending.join()
+            pending.joined = True
             self.verify_wall_s += w0 - v0
             self.write_wait_s += time.perf_counter() - w0
             self.verify_cpu_s += pending.cpu_s
+
+    def _finalize(self) -> None:
+        """Commit the manifests of the joined writes that landed, firing the
+        ``ckpt_torn`` / ``ckpt_corrupt`` faults there; then evict past
+        ``max_to_keep``.  A write that failed after its retries raises
+        here."""
+        plan = faults_mod.get_plan()
+        failed = None
+        for step in sorted(self._pending):
+            pending = self._pending.pop(step)
             if pending.error is not None:
                 logger.error("checkpoint step %d was not written: %s", step,
                              pending.error)
                 failed = failed or pending.error
                 continue
-            _atomic_write_json(self._step_dir(step) / MANIFEST_NAME, pending.manifest)
+            step_dir = self._step_dir(step)
+            if plan and plan.take_ckpt_torn():
+                # the writer "died" mid-generation: data torn, no manifest
+                logger.warning("ckpt_torn: generation %d — %s", step,
+                               corrupt_generation(step_dir, "truncate"))
+                continue
+            _atomic_write_json(step_dir / MANIFEST_NAME, pending.manifest)
             marker = self.directory / DURABLE_MARKER
             if not marker.exists():
                 _atomic_write_json(marker, {"manifest_format": MANIFEST_FORMAT})
+            options = plan.take_ckpt_corrupt() if plan else None
+            if options is not None:
+                logger.warning("ckpt_corrupt: generation %d — %s", step,
+                               corrupt_generation(step_dir,
+                                                  str(options.get("mode", "flip"))))
         self._evict_old()
         if failed is not None:
             raise failed
+
+    def _commit(self) -> None:
+        self._join()
+        self._finalize()
 
     def _evict_old(self) -> None:
         committed = [s for s in _step_dirs(self.directory) if s not in self._pending]
         for step in committed[:max(len(committed) - self.max_to_keep, 0)]:
             shutil.rmtree(self._step_dir(step), ignore_errors=True)
 
-    def wait(self) -> None:
-        """Drain the pending writes and commit their manifests."""
-        self._commit()
+    def wait(self, *, deadline_s: Optional[float] = None) -> None:
+        """Drain the pending writes and commit their manifests; transient
+        failures of the drain retry, bounded by ``deadline_s``."""
+
+        def drain() -> None:
+            faults_mod.get_plan().maybe_io_error("checkpoint.wait")
+            self._join()
+
+        t0 = time.perf_counter()
+        retry_call(drain, retries=2, base_delay=0.2, max_delay=2.0,
+                   description="checkpoint wait", deadline_s=deadline_s)
+        self._finalize()
+        _goodput.get_ledger().note("ckpt_wait_block_s", time.perf_counter() - t0)
 
     def close(self) -> None:
         self.wait()

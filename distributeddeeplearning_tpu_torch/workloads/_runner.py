@@ -7,9 +7,10 @@ by literal parsing for ``None``-defaulted params), so
 
     python -m distributeddeeplearning_tpu_torch.workloads.benchmark --model resnet50
 
-is a workload's launch contract.  The reference's resumable exit code 75
-for a preempted run belongs with the port of ``train/resilience.py``
-(ROADMAP A4); until then an exception leaves as it is.
+is a workload's launch contract.  A run that was preempted and landed
+its emergency checkpoint exits ``RESUMABLE_EXIT_CODE`` (75, EX_TEMPFAIL,
+``train/resilience.py``): the code a supervisor restarts on, as opposed to
+a real failure's 1.
 """
 
 from __future__ import annotations
@@ -83,6 +84,18 @@ def coerce_flags(main_fn: Callable, raw_kwargs: Dict[str, str]) -> Dict[str, Any
 
 
 def run_from_argv(main_fn: Callable, argv: Optional[List[str]] = None) -> Any:
-    """Parse flags against ``main_fn``'s signature and call it."""
+    """Parse flags against ``main_fn``'s signature and call it; a
+    ``PreemptionError`` leaves as ``SystemExit(75)``."""
+    from distributeddeeplearning_tpu_torch.train.resilience import (
+        RESUMABLE_EXIT_CODE,
+        PreemptionError,
+    )
+
     argv = sys.argv[1:] if argv is None else argv
-    return main_fn(**coerce_flags(main_fn, parse_flags(argv)))
+    kwargs = coerce_flags(main_fn, parse_flags(argv))
+    try:
+        return main_fn(**kwargs)
+    except PreemptionError as exc:
+        print(f"preempted: {exc} — exiting {RESUMABLE_EXIT_CODE} (resumable)",
+              file=sys.stderr)
+        raise SystemExit(RESUMABLE_EXIT_CODE)

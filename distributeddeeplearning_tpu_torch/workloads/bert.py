@@ -13,7 +13,9 @@ in the reference) the reference's plain attention.  ``num_experts`` > 0
 makes every second layer's FFN a mixture of experts (:mod:`..models.moe`),
 whose load-balance term the train step adds to the loss at weight 0.01;
 ``save_filepath`` checkpoints (each epoch end) and resumes through the
-trainer's :class:`..train.checkpoint.Checkpointer`.
+trainer's :class:`..train.checkpoint.Checkpointer`, with the preemption
+guard on (exit 75 under ``python -m``); ``tensorboard_dir`` and
+``profile_dir`` reach the :class:`..train.loop.Trainer`.
 
 Arguments keep the reference's names and defaults, plus ``device``
 (``"cuda"`` unless asked for the CPU).  What the slice does not take
@@ -218,3 +220,10 @@ def main(
         ),
     )
     return trainer.fit(state, train_iter, eval_factory)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    from distributeddeeplearning_tpu_torch.workloads._runner import run_from_argv
+
+    run_from_argv(main)

@@ -12,11 +12,18 @@ kernels.
 Arguments keep the reference's names and defaults, plus ``device``
 (``"cuda"`` unless asked for the CPU).  What the slice does not take
 raises, naming where it comes: the parallel geometries and the gradient
-comms (ROADMAP item 11), sequence-parallel attention (slice 8),
-TensorBoard, profiling and the resilience knobs (ROADMAP A4's remainder).
+comms (ROADMAP item 11), sequence-parallel attention (slice 8).
 ``save_filepath`` and ``checkpoint_every_steps`` checkpoint and resume
-through the trainer's :class:`..train.checkpoint.Checkpointer`.  Weights are drawn from ``torch.Generator().manual_seed(seed)``
-and so differ from the reference's ``jax.random`` draws.
+through the trainer's :class:`..train.checkpoint.Checkpointer` (with a
+``save_filepath`` the preemption guard is on: SIGTERM or an injected
+``preempt`` writes an emergency checkpoint and the run exits 75);
+``tensorboard_dir``, ``profile_dir``, ``skip_nonfinite``,
+``anomaly_max_consecutive``, ``anomaly_rollback`` and ``step_deadline_s``
+reach the :class:`..train.loop.Trainer` as in the reference.  Weights are
+drawn from ``torch.Generator().manual_seed(seed)`` and so differ from the
+reference's ``jax.random`` draws.
+
+    python -m distributeddeeplearning_tpu_torch.workloads.transformer --epochs 1
 """
 
 from __future__ import annotations
@@ -254,3 +261,10 @@ def main(
         ),
     )
     return trainer.fit(state, train_iter, eval_factory)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    from distributeddeeplearning_tpu_torch.workloads._runner import run_from_argv
+
+    run_from_argv(main)

@@ -11,9 +11,11 @@
 ``phase_vit`` (ViT-B/16's benchmark, a shortened ViT-L/16 run),
 ``phase_vit_flash`` (the bf16 flash kernels at ViT's shape, launches a
 step, flash against default, the card against the CPU), ``phase_resume``
-(checkpoints and bit-exact resume of a ViT-B/16 fit) and
-``phase_moe_bert`` (bert-base with experts), each as ``chip_smoke.py``
-runs it, after the card's ``nvidia-smi`` name and power limit.  Exits
+(checkpoints and bit-exact resume of a ViT-B/16 fit), ``phase_resilience``
+(the trainer's resilience layer on that fit, and the LM workload's exit
+codes) and ``phase_moe_bert`` (bert-base with experts), each as
+``chip_smoke.py`` runs it, after the card's ``nvidia-smi`` name and power
+limit.  Exits
 nonzero if a phase fails.  Run from the repository's root; needs a CUDA
 card and imports no jax.
 """
@@ -26,7 +28,7 @@ import sys
 import traceback
 
 PHASES = ("phase_resnet", "phase_resnet_parity", "phase_image_short", "phase_vit",
-          "phase_vit_flash", "phase_resume", "phase_moe_bert")
+          "phase_vit_flash", "phase_resume", "phase_resilience", "phase_moe_bert")
 
 
 def main(argv) -> int:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import random
 
 import flax.linen as nn
@@ -354,10 +355,21 @@ def test_a_finished_run_resumes_to_nothing_left(tmp_path):
     ("tensorboard_dir", "tb"), ("profile_dir", "prof"), ("preemption_guard", True),
     ("anomaly_max_consecutive", 2), ("anomaly_rollback", True),
     ("step_deadline_s", 1.0), ("obs_metrics_path", "m"), ("goodput_path", "g")])
-def test_the_trainer_refuses_a4s_remainder(field, value):
-    with pytest.raises(NotImplementedError, match="A4"):
-        tloop.Trainer(lambda s, b: (s, {}), config=tloop.TrainerConfig(
-            epochs=1, steps_per_epoch=1, **{field: value}))
+def test_the_trainer_refuses_a4s_remainder(tmp_path, field, value):
+    """The fields the trainer held back until the resilience layer came
+    are taken now: a one-step fit runs with each, and a path field leaves
+    its file or directory."""
+    if isinstance(value, str):
+        value = str(tmp_path / value)
+    st = _bert_state()
+    step = tstep.build_train_step(st, compute_dtype=torch.float32,
+                                  skip_nonfinite=True)
+    trainer = tloop.Trainer(step, config=tloop.TrainerConfig(
+        epochs=1, steps_per_epoch=1, global_batch_size=BATCH, **{field: value}))
+    st, result = trainer.fit(st, _text_batches(1))
+    assert st.step == 1 and result.total_images == BATCH
+    if isinstance(value, str):
+        assert os.path.exists(value), field
 
 
 def test_the_lm_workload_checkpoints_and_resumes(tmp_path):

@@ -71,7 +71,10 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
                  "data", "data.synthetic", "models.bert", "workloads.bert",
                  "models.resnet", "models.inception", "models.vgg",
                  "models._convnet", "train.benchmark", "workloads.benchmark",
-                 "workloads._runner"):
+                 "workloads._runner", "train.checkpoint", "train.resilience",
+                 "utils.faults", "utils.prefetch", "utils.retry",
+                 "utils.throughput", "obs.goodput", "obs.trace", "obs.recorder",
+                 "obs.registry"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
 

@@ -401,10 +401,28 @@ def test_workload_main_options_run(tmp_path):
     {"distributed": True}, {"comm_overlap": True},
     {"weight_update_sharding": True}, {"comm_dtype": "bf16"},
     {"sp_block_k": 8}, {"scan_unroll": 2}, {"attention": "ring"},
-    {"tensorboard_dir": "tb"}, {"profile_dir": "prof"},
-    {"anomaly_max_consecutive": 2}, {"anomaly_rollback": True},
-    {"step_deadline_s": 10.0},
 ], ids=lambda kw: next(iter(kw)))
 def test_workload_main_refuses_what_the_slice_does_not_take(kw):
     with pytest.raises(NotImplementedError):
         tw.main(epochs=1, steps_per_epoch=1, train_examples=4, **{**TINY, **kw})
+
+
+@pytest.mark.parametrize("kw", [
+    {"tensorboard_dir": "tb"}, {"profile_dir": "prof"},
+    {"anomaly_max_consecutive": 2}, {"anomaly_rollback": True},
+    {"step_deadline_s": 10.0},
+], ids=lambda kw: next(iter(kw)))
+def test_workload_main_takes_the_resilience_flags(tmp_path, kw):
+    """The trainer flags the LM workload passes on: a run with each one
+    trains to the end; the directory flags leave their files."""
+    kw = {k: str(tmp_path / v) if isinstance(v, str) else v for k, v in kw.items()}
+    state, result = tw.main(epochs=1, steps_per_epoch=2, train_examples=8,
+                            skip_nonfinite=True, **{**TINY, **kw})
+    assert state.step == 2 and result.anomalous_steps == 0
+    assert np.isfinite(result.final_train_metrics["loss"])
+    if "tensorboard_dir" in kw:
+        rows = [json.loads(x) for x in open(tmp_path / "tb" / tloop.SCALARS_NAME)]
+        assert {r["tag"] for r in rows} >= {"train/loss", "val/loss"}
+    if "profile_dir" in kw:
+        assert [p.name for p in (tmp_path / "prof").iterdir()] == [
+            "trace_steps_1_2.json"]
