@@ -244,7 +244,31 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    LM workload as ``python -m`` at TRAIN's geometry (flash, bf16) exiting
    75 on ``preempt@3`` with a generation at 3, then resuming from it to
    exit 0, and at its defaults exiting 70 with the stacks when an injected
-   data stall outlasts ``--step_deadline_s``.
+   data stall outlasts ``--step_deadline_s``;
+26. ``phase_data_parallel`` (last): data-parallel training, one process a
+   device, in three parts.  (a) NCCL at a world of 1: the LM workload at
+   TRAIN's full width (bf16, flash) with ``distributed=True`` for 3 steps,
+   once through the ``comm_overlap`` step (bf16 wire with error feedback,
+   weight-update sharding, ``accum_steps=2``, no clip) and once through
+   the implicit step, exact K1-K3 launch counts each, per-step losses
+   within ``DP_LOSS_RTOL`` of each other, no operation staged through the
+   host (NCCL runs reduce-scatter, all-to-all and all-gather itself);
+   (b) a world of 2 over gloo, both processes on the one card (spawned,
+   each with its own time limit): the same LM on the same 3 global
+   batches of 8 rows, 4 a rank, through the ``comm_overlap`` step with the
+   f32 wire and then the bf16 wire with weight-update sharding, each held
+   against a one-process implicit fit of those batches on the card
+   (per-step losses within ``DP_LOSS_RTOL``, params after the last step
+   within ``DP_PARAM_TOL`` of the summed learning rates); every rank's
+   K1, K2 and K3 counters count 12 launches a step each at B = 4, and the
+   plain versions 0; the operations gloo staged through host memory are
+   printed; the three kernels are then held and timed at that per-rank
+   shape (B=4, H=12, S=2048, D=64, causal, bf16); (c) ``workloads.benchmark.main(distributed=True)``, the
+   reference's flagship (ResNet-50, batch 64 a rank, 224 px, bf16), over
+   2 gloo ranks sharing the card with a short geometry, img/s per rank and
+   in total ("two ranks share one card: not a scaling figure").  Each part
+   prints its wall time, the wire bytes of ``wire_bytes()`` and the peak
+   memory of each rank.
 
 K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
 split pass with one block per (span of 64 absolute positions, head, slot)
@@ -292,6 +316,11 @@ attention shape (phase 22), with the launches of one ViT train step; their
 ``launches_by_path`` adds ``vit_train_step``, ``vit_fit`` (phase 23's
 uninterrupted fit of 6 steps) and ``vit_resilience_fit`` (phase 25's
 clean fit, through the prefetching ``Trainer``).
+
+The bf16 K1, K2 and K3 rows also carry ``data_parallel``: their entry at
+the per-rank shape of phase 26(b) (B=4, S 2048, causal) with the launches
+a rank a step; their ``launches_by_path`` adds each phase-26 run's counts
+(``dp_nccl_*`` at a world of 1, ``dp_gloo_rank{r}_*`` each rank's).
 
 Each row of the kernels line carries ``head_dims``: the phase-14 entry
 of the kernel at head dims 8, 16 and 32, with the launches of the phase-15
@@ -4381,6 +4410,468 @@ def phase_moe_bert(torch, np, fa, card):
     return {"p50_ms": p50, "dropped": dropped}
 
 
+# ---- data parallelism (phase 26) --------------------------------------------
+
+DP_STEPS = 3  # global batches of TRAIN's 8 rows, the same in every run
+DP_SEED = 42  # the LM workload's seed: weights and token streams
+DP_PEAK_LR = 3e-4  # the LM workload's base_lr
+# per-step losses of two data-parallel runs of the same batches, relative:
+# another summation order of the gradient (and the bf16 wire's rounding,
+# fed back) moves the params by a fraction of a bf16-compute step
+DP_LOSS_RTOL = 1e-2
+# params after the last step, of the summed learning rates: an AdamW
+# update is at most ~lr an element a step, and a gradient near 0 whose
+# sign differs between two summation orders moves its element by up to
+# that much; the median element must sit far closer
+DP_PARAM_TOL = 2.0
+DP_PARAM_MEDIAN_TOL = 1e-2
+DP_BENCH = dict(model="resnet50", batch_size=64, image_size=224,
+                num_warmup_batches=2, num_iters=2, num_batches_per_iter=2)
+DP_WORKER_TIMEOUT = 420  # seconds a spawned rank may take
+
+
+def _dp_batches(np):
+    """DP_STEPS global batches of TRAIN's rows: the LM workload's token
+    stream (seed DP_SEED)."""
+    from distributeddeeplearning_tpu_torch.workloads import transformer
+
+    b = TRAIN["batch_size"]
+    return list(transformer._token_batches(b, TRAIN["seq_len"], TRAIN["vocab_size"],
+                                           DP_SEED, b * DP_STEPS, repeat=False))
+
+
+def _dp_lm_fit(torch, mesh, dev, batches, **kw):
+    """The LM workload's model, optimizer and schedule (TRAIN's width, bf16,
+    flash, AdamW without a clip) trained on ``batches`` (global: each rank
+    takes its rows) through ``build_train_step(mesh=mesh, **kw)``.
+    Returns (state, per-step losses, per-step CUDA-event ms, the step)."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        forward,
+        init_params,
+        next_token_loss,
+    )
+    from distributeddeeplearning_tpu_torch.ops.flash_attention import (
+        make_flash_attention,
+    )
+    from distributeddeeplearning_tpu_torch.parallel import shard_batch
+    from distributeddeeplearning_tpu_torch.train.schedule import (
+        warmup_linear_decay_schedule,
+    )
+    from distributeddeeplearning_tpu_torch.train.state import TrainState, adamw, tree_map
+    from distributeddeeplearning_tpu_torch.train.step import build_train_step
+
+    width = {k: TRAIN[k] for k in ("num_layers", "d_model", "num_heads", "d_ff",
+                                   "vocab_size")}
+    params = init_params(torch.Generator().manual_seed(DP_SEED),
+                         max_len=TRAIN["seq_len"], device=dev, **width)
+    attention_fn = make_flash_attention(mesh=mesh, causal=True)
+
+    def apply_fn(p, tokens, **_):
+        p = tree_map(lambda a: a.to(torch.bfloat16), p)
+        return forward(p, tokens, num_heads=TRAIN["num_heads"],
+                       attention_fn=attention_fn).float()
+
+    schedule = warmup_linear_decay_schedule(DP_PEAK_LR, len(batches))
+    state = TrainState.create(params=params, apply_fn=apply_fn,
+                              tx=adamw(schedule, grad_clip_norm=0.0))
+    step = build_train_step(
+        state, mesh=mesh, schedule=schedule, compute_dtype=torch.bfloat16,
+        loss_fn=lambda lg, lb, label_smoothing=0.0: next_token_loss(lg, lb),
+        metrics_fn=lambda lg, lb, loss: {"loss": loss}, **kw)
+    if kw.get("comm_overlap"):
+        state = step.prepare_state(state)
+    losses, marks = [], []
+    for batch in batches:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        state, metrics = step(state, shard_batch(mesh, batch))
+        losses.append(metrics["loss"].detach())
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return state, [x.item() for x in losses], step_ms, step
+
+
+def _param_gap(torch, params, ref):
+    """(max |p - ref|, median |p - ref|) over every element of the LM's
+    params (nested dicts of tensors, ``ref`` on any device)."""
+    from distributeddeeplearning_tpu_torch.train.state import tree_zip
+
+    diffs = [(a.detach().float() - b.to(a.device).float()).abs().reshape(-1)
+             for a, b in tree_zip(params, ref)]
+    whole = torch.cat(diffs)
+    return whole.max().item(), whole.median().item()
+
+
+class _LaunchShapes:
+    """Records the batch size of every K1, K2 and K3 launch and counts the
+    plain versions' calls, by wrapping the flash module's launchers."""
+
+    def __init__(self, fa):
+        self.fa, self.batches, self.plain = fa, [], 0
+        self._orig = (fa._launch, fa._bwd_launch, fa._dense_attention,
+                      fa._dense_attention_bwd)
+
+    def __enter__(self):
+        fa, (launch, bwd, dense, dense_bwd) = self.fa, self._orig
+
+        def launch_w(q, *a, **k):
+            self.batches.append(("fwd", q.shape[0]))
+            return launch(q, *a, **k)
+
+        def bwd_w(kind, q, *a, **k):
+            self.batches.append((kind, q.shape[0]))
+            return bwd(kind, q, *a, **k)
+
+        def plain(fn):
+            def wrapper(*a, **k):
+                self.plain += 1
+                return fn(*a, **k)
+            return wrapper
+
+        fa._launch, fa._bwd_launch = launch_w, bwd_w
+        fa._dense_attention, fa._dense_attention_bwd = plain(dense), plain(dense_bwd)
+        return self
+
+    def __exit__(self, *exc):
+        (self.fa._launch, self.fa._bwd_launch, self.fa._dense_attention,
+         self.fa._dense_attention_bwd) = self._orig
+
+
+def _dp_lm_rank(torch, np, rank, world, ref_path):
+    """Rank ``rank`` of phase 26(b): the f32 wire, then the bf16 wire with
+    weight-update sharding, on its 4 rows of each global batch."""
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.parallel import collectives, create_mesh
+
+    mesh = create_mesh()
+    ref = torch.load(ref_path, map_location="cpu")
+    batches = _dp_batches(np)
+    out, f32_params = {}, None
+    for name, kw in DP_WIRES:
+        for c in FA_COUNTERS:
+            setattr(fa, c, 0)
+        collectives.reset_staged()
+        torch.cuda.reset_peak_memory_stats()
+        with _LaunchShapes(fa) as shapes:
+            state, losses, step_ms, step = _dp_lm_fit(torch, mesh, "cuda:0", batches,
+                                                      comm_overlap=True, **kw)
+        gap = _param_gap(torch, state.params, ref)
+        entry = {
+            "losses": losses, "step_ms": step_ms, "gap": gap,
+            "counts": {c: getattr(fa, c) for c in FA_COUNTERS},
+            "launch_batches": sorted(set(shapes.batches)), "plain": shapes.plain,
+            "staged": collectives.staged_ops(), "wire": step.wire_bytes(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        if f32_params is None:
+            f32_params = _detached_copy(torch, state.params)
+        else:
+            entry["vs_f32_wire"] = _param_gap(torch, state.params, f32_params)
+        out[name] = entry
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _detached_copy(torch, tree, device=None):
+    """A private copy of a nested dict of tensors (on ``device``)."""
+    if isinstance(tree, dict):
+        return {k: _detached_copy(torch, v, device) for k, v in tree.items()}
+    return tree.detach().to(device or tree.device, copy=True)
+
+
+DP_WIRES = (("f32-wire", {}),
+            ("bf16-wire-wus", {"comm_dtype": "bf16", "weight_update_sharding": True}))
+
+
+def _dp_bench_rank(torch, np, rank, world):
+    """Rank ``rank`` of phase 26(c): the reference's synthetic benchmark
+    with ``distributed=True``."""
+    from distributeddeeplearning_tpu_torch.workloads import benchmark
+
+    torch.cuda.reset_peak_memory_stats()
+    result = benchmark.main(distributed=True, device="cuda:0", **DP_BENCH)
+    return {"per_rank": result.img_sec_per_chip_mean, "ci": result.img_sec_per_chip_ci95,
+            "total": result.img_sec_total, "num_devices": result.num_devices,
+            "iter_s": result.iter_times_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _dp_worker(job, rank, world, port, args, results):
+    """One spawned rank: joins a gloo group of ``world`` on localhost with
+    the card's device 0 (the ranks share it) and runs ``job``."""
+    try:
+        import numpy as np
+        import torch
+
+        from distributeddeeplearning_tpu_torch.parallel import distributed
+
+        distributed.initialize(force=True, coordinator_address=f"127.0.0.1:{port}",
+                               num_processes=world, process_id=rank, backend="gloo",
+                               device="cuda:0")
+        try:
+            out = globals()[job](torch, np, rank, world, *args)
+        finally:
+            distributed.shutdown()
+        results.put((rank, "ok", out))
+    except BaseException:  # the parent fails the phase with it
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def run_ranks(job: str, world: int, *args, timeout: float = DP_WORKER_TIMEOUT):
+    """``job`` of this module in ``world`` processes started by
+    ``torch.multiprocessing`` spawn; each rank's result, in rank order.  A
+    rank that fails or outlives ``timeout`` seconds fails the call, and
+    every rank is stopped before it returns."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    from distributeddeeplearning_tpu_torch.parallel.distributed import free_port
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_dp_worker, args=(job, r, world, port, args, results),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(got) < world:
+            try:
+                rank, status, out = results.get(
+                    timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                raise TimeoutError(f"{job}: ranks {sorted(set(range(world)) - set(got))}"
+                                   f" outlived {timeout} s") from None
+            if status != "ok":
+                raise RuntimeError(f"{job}: rank {rank} failed:\n{out}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(world)]
+
+
+class _Recorded:
+    """A train step that keeps each step's loss (a device tensor) in
+    ``losses``; the step's other attributes (``prepare_state``,
+    ``wire_bytes``, ...) pass through."""
+
+    def __init__(self, step):
+        self.step, self.losses = step, []
+
+    def __call__(self, state, batch):
+        state, metrics = self.step(state, batch)
+        self.losses.append(metrics["loss"].detach())
+        return state, metrics
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
+def _recording_build(tstep, built):
+    """A ``build_train_step`` that appends each step it builds, as a
+    :class:`_Recorded`, to ``built``."""
+    original = tstep.build_train_step
+
+    def build(*args, **kwargs):
+        built.append(_Recorded(original(*args, **kwargs)))
+        return built[-1]
+    return build
+
+
+def phase_data_parallel(torch, np, F, fa, card):
+    """Phase 26 (module docstring): NCCL at a world of 1, a world of 2 over
+    gloo on the one card, and the distributed flagship benchmark.  Returns
+    (the K1-K3 launch counts of its runs, the bf16 K1-K3 entries at the
+    per-rank shape B=4)."""
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch.parallel import (
+        collectives,
+        create_mesh,
+        distributed,
+    )
+    from distributeddeeplearning_tpu_torch.train import step as tstep
+    from distributeddeeplearning_tpu_torch.workloads import transformer
+
+    layers = TRAIN["num_layers"]
+    bf16 = {"fwd": "launches_bf16", "dq": "launches_dq_bf16", "dkv": "launches_dkv_bf16"}
+    launches = {}
+    # (a) NCCL at a world of 1 -------------------------------------------
+    t0 = time.perf_counter()
+    address = f"127.0.0.1:{distributed.free_port()}"
+    ctx = distributed.initialize(force=True, num_processes=1, process_id=0,
+                                 coordinator_address=address, device="cuda")
+    if ctx.backend != "nccl":
+        raise AssertionError(f"expected an NCCL group on the card, got {ctx.backend}")
+    runs = {}
+    configs = (("comm-bf16-wus-accum2", dict(comm_overlap=True, comm_dtype="bf16",
+                                              weight_update_sharding=True,
+                                              accum_steps=2)),
+               ("implicit", {}))
+    try:
+        for name, kw in configs:
+            built = []
+            original = tstep.build_train_step
+            tstep.build_train_step = _recording_build(tstep, built)
+            try:
+                for c in FA_COUNTERS:
+                    setattr(fa, c, 0)
+                collectives.reset_staged()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                r0 = time.perf_counter()
+                # one repeated batch, one eval batch an epoch
+                state, result = transformer.main(
+                    epochs=DP_STEPS, steps_per_epoch=1,
+                    train_examples=TRAIN["batch_size"], attention="flash",
+                    grad_clip_norm=0.0, distributed=True, device="cuda", **TRAIN,
+                    **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - r0
+                counts = {c: getattr(fa, c) for c in FA_COUNTERS}
+            finally:
+                tstep.build_train_step = original
+            micro = kw.get("accum_steps", 1)
+            want = {c: 0 for c in FA_COUNTERS}
+            want.update({bf16["fwd"]: layers * (micro + 1) * DP_STEPS,
+                         bf16["dq"]: layers * micro * DP_STEPS,
+                         bf16["dkv"]: layers * micro * DP_STEPS})
+            if counts != want:
+                raise AssertionError(f"[dp-nccl] {name}: launches {counts}, "
+                                     f"expected {want}")
+            step = built[0]
+            losses = [x.item() for x in step.losses]
+            wire = (step.wire_bytes() if kw.get("comm_overlap")
+                    else "implicit: one all-reduce of the gradient tree a step")
+            staged = collectives.staged_ops()
+            if staged:
+                raise AssertionError(f"[dp-nccl] NCCL staged {staged} through the host")
+            log(f"[dp-nccl] {name}: world 1, backend nccl, losses by step "
+                f"{[round(x, 5) for x in losses]}, launches {counts} (12 a "
+                f"forward: {micro} microbatch(es) a step + 1 eval), wall "
+                f"{wall:.2f} s, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+                f" GB; wire bytes a step {wire}; staged through the host: none")
+            runs[name] = losses
+            launches[f"dp_nccl_{name}"] = {k: counts[v] for k, v in bf16.items()}
+            del state, result
+        a, b = runs["comm-bf16-wus-accum2"], runs["implicit"]
+        rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+        log(f"[dp-nccl] comm_overlap (bf16 wire, WUS, accum 2) vs implicit: "
+            f"|dloss| / loss by step {[f'{x:.2e}' for x in rel]} (tolerance "
+            f"{DP_LOSS_RTOL:g})")
+        if len(a) != DP_STEPS or len(b) != DP_STEPS or max(rel) > DP_LOSS_RTOL:
+            raise AssertionError("[dp-nccl] the two paths' losses parted")
+        log(f"[time] phase_data_parallel (a): {time.perf_counter() - t0:.1f} s")
+
+        # the one-process implicit fit (b) is held to, on the NCCL mesh
+        t0 = time.perf_counter()
+        batches = _dp_batches(np)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, ref_losses, ref_ms, _ = _dp_lm_fit(torch, create_mesh(), ctx.device,
+                                                  batches)
+        ref_params = _detached_copy(torch, state.params, "cpu")
+        ref_peak = torch.cuda.max_memory_allocated() / 1e9
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+    lr_sum = _lr_sum(DP_STEPS)
+    log(f"[dp-gloo] one-process implicit fit (B=8, world 1): losses "
+        f"{[round(x, 5) for x in ref_losses]}, step ms {[round(x, 1) for x in ref_ms]}, "
+        f"peak memory {ref_peak:.2f} GB on {card}")
+
+    # (b) a world of 2 over gloo on the one card -------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref_params.pt")
+        torch.save(ref_params, ref_path)
+        ranks = run_ranks("_dp_lm_rank", 2, ref_path)
+    for rank, out in enumerate(ranks):
+        for name, entry in out.items():
+            want = {c: 0 for c in FA_COUNTERS}
+            want.update({v: layers * DP_STEPS for v in bf16.values()})
+            if entry["counts"] != want or entry["plain"]:
+                raise AssertionError(f"[dp-gloo] rank {rank} {name}: launches "
+                                     f"{entry['counts']}, plain calls {entry['plain']}")
+            if entry["launch_batches"] != [("dkv", 4), ("dq", 4), ("fwd", 4)]:
+                raise AssertionError(f"[dp-gloo] rank {rank} {name}: launches at "
+                                     f"batch sizes {entry['launch_batches']}, not 4")
+            rel = [abs(x - y) / abs(y) for x, y in zip(entry["losses"], ref_losses)]
+            gap_max, gap_med = entry["gap"]
+            p50 = float(np.median(entry["step_ms"][1:]))
+            log(f"[dp-gloo] rank {rank} {name}: losses "
+                f"{[round(x, 5) for x in entry['losses']]} (|dloss| / loss vs the "
+                f"one-process fit {[f'{x:.2e}' for x in rel]}, tolerance "
+                f"{DP_LOSS_RTOL:g}); params vs it: max {gap_max:.3e}, median "
+                f"{gap_med:.3e} (summed lr {lr_sum:.3e}); step ms "
+                f"{[round(x, 1) for x in entry['step_ms']]}, p50 (steps 2..) "
+                f"{p50:.1f} against {float(np.median(ref_ms[1:])):.1f} for the "
+                f"one-process step at B=8; K1/K2/K3 launches "
+                f"{[entry['counts'][v] for v in bf16.values()]} at B=4, plain 0; "
+                f"staged through the host by gloo: {entry['staged']}; wire bytes "
+                f"a step {entry['wire']}; peak memory {entry['peak_gb']:.2f} GB on "
+                f"{card}")
+            if "vs_f32_wire" in entry:
+                log(f"[dp-gloo] rank {rank}: the bf16 wire's params after "
+                    f"{DP_STEPS} steps vs the f32 wire's: max "
+                    f"{entry['vs_f32_wire'][0]:.3e}, median {entry['vs_f32_wire'][1]:.3e}")
+            if (len(rel) != DP_STEPS or max(rel) > DP_LOSS_RTOL
+                    or gap_max > DP_PARAM_TOL * lr_sum
+                    or gap_med > DP_PARAM_MEDIAN_TOL * lr_sum):
+                raise AssertionError(f"[dp-gloo] rank {rank} {name} left the "
+                                     "one-process fit")
+            launches[f"dp_gloo_rank{rank}_{name}"] = {
+                k: entry["counts"][v] for k, v in bf16.items()}
+    # the kernels at the per-rank shape the ranks launched them at
+    per_rank = _flash_at(torch, F, fa, TRAIN["d_model"] // TRAIN["num_heads"],
+                         TRAIN["num_heads"], TRAIN["batch_size"] // 2,
+                         TRAIN["seq_len"], torch.bfloat16, card)
+    for kern, entry in per_rank.items():
+        entry["launches_a_rank_a_step"] = layers
+    log(f"[dp-gloo] the bf16 K1, K2, K3 at the per-rank shape (B=4, as each "
+        f"rank launched them, 12 each a step): "
+        f"{ {k: round(e['ms'], 4) for k, e in per_rank.items()} } ms, bounds "
+        f"{ {k: round(e['bound_ms'], 4) for k, e in per_rank.items()} } ms on {card}")
+    log(f"[time] phase_data_parallel (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) the flagship benchmark over 2 gloo ranks on the one card ------
+    t0 = time.perf_counter()
+    bench = run_ranks("_dp_bench_rank", 2)
+    for rank, out in enumerate(bench):
+        if out["num_devices"] != 2 or not out["per_rank"] > 0:
+            raise AssertionError(f"[dp-bench] rank {rank}: {out}")
+        log(f"[dp-bench] rank {rank}: {DP_BENCH['model']} bf16 batch "
+            f"{DP_BENCH['batch_size']} a rank, {DP_BENCH['image_size']} px: "
+            f"{out['per_rank']:.1f} +-{out['ci']:.1f} img/s a rank, "
+            f"{out['total']:.1f} img/s in total over 2 ranks (windows "
+            f"{[round(x, 3) for x in out['iter_s']]} s), peak memory "
+            f"{out['peak_gb']:.2f} GB on {card}")
+    log("[dp-bench] two ranks share one card: not a scaling figure")
+    log(f"[time] phase_data_parallel (c): {time.perf_counter() - t0:.1f} s")
+    return launches, per_rank
+
+
+def _lr_sum(steps: int) -> float:
+    """The summed learning rates of :func:`_dp_lm_fit`'s schedule."""
+    from distributeddeeplearning_tpu_torch.train.schedule import (
+        warmup_linear_decay_schedule,
+    )
+
+    sched = warmup_linear_decay_schedule(DP_PEAK_LR, steps)
+    return sum(float(sched(i)) for i in range(steps))
+
+
 def log_k4(top, busy):
     """The decode kernel's share of a profiled serving step: its split and
     merge passes (every kernel named ``flash_decode_*``) under one name."""
@@ -4565,6 +5056,7 @@ def main() -> int:
         resumed = timed(phase_resume, torch, np, fa, card)
         resilient = timed(phase_resilience, torch, np, fa, card)
         timed(phase_moe_bert, torch, np, fa, card)
+        data_parallel, dp_shape = timed(phase_data_parallel, torch, np, F, fa, card)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -4669,6 +5161,15 @@ def main() -> int:
                 **row.get("launches_by_path", {}), "vit_train_step": vit[kern]["launches"],
                 "vit_fit": resumed["launches"][counter],
                 "vit_resilience_fit": resilient["launches"][counter]}
+    # the bf16 K1-K3 under data parallelism: phase 26's runs, each rank's
+    # launches at its own rows (per rank per run)
+    for row in rows:
+        kern = {"flash_attention_fwd_bf16": "fwd", "flash_attention_bwd_dq_bf16": "dq",
+                "flash_attention_bwd_dkv_bf16": "dkv"}.get(row["name"])
+        if kern is not None:
+            row["launches_by_path"].update(
+                {path: counts[kern] for path, counts in data_parallel.items()})
+            row["data_parallel"] = dp_shape[kern]
     for row in rows:
         row["kernel"] = profiled_kernels(row["name"])
     log(f"[timer] windows timed by CUDA events for want of profiler device "

@@ -41,6 +41,7 @@ rate), ``where(keep, x / (1 - rate), 0)``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
@@ -316,10 +317,51 @@ def conv(s: Scope, x, features: int, kernel, *, stride=1,
     return y
 
 
+#: the process group train-mode BatchNorm takes its moments over (None:
+#: this process's batch alone); set by :func:`global_batch_moments`
+_MOMENTS_GROUP: list = [None]
+
+
+@contextlib.contextmanager
+def global_batch_moments(group):
+    """Within the block, train-mode BatchNorm normalises with the moments
+    of the GLOBAL batch: every rank's ``[sum x, sum x^2, count]`` summed
+    over ``group`` by an all-reduce autograd flows through (the
+    reference's implicit data-parallel path, where GSPMD sees one global
+    array).  ``group=None`` leaves the per-process moments."""
+    prev = _MOMENTS_GROUP[0]
+    _MOMENTS_GROUP[0] = group
+    try:
+        yield
+    finally:
+        _MOMENTS_GROUP[0] = prev
+
+
+def _global_batch_norm(x, scale, bias, eps: float, group):
+    """(y, batch mean, biased batch variance) with the moments summed over
+    ``group``: flax's formula, ``var = max(E[x^2] - E[x]^2, 0)``, in f32 or
+    wider, the output rounded once to x's dtype."""
+    from torch.distributed.nn import functional as dist_fn
+
+    c = x.shape[1]
+    xf = x.to(_at_least_f32(x.dtype))
+    count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
+    local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count])
+    total = dist_fn.all_reduce(local, group=group)
+    n = total[2 * c]
+    b_mean = total[:c] / n
+    b_var = (total[c:2 * c] / n - b_mean * b_mean).clamp_min(0)
+    mul = torch.rsqrt(b_var + eps) * scale
+    y = (xf - b_mean.view(1, c, 1, 1)) * mul.view(1, c, 1, 1) + bias.view(1, c, 1, 1)
+    return y.to(x.dtype), b_mean, b_var
+
+
 def batch_norm(s: Scope, x, *, momentum: float, eps: float,
                scale_init: Init = ones) -> torch.Tensor:
     """flax ``nn.BatchNorm`` over N, H, W (params ``scale``, ``bias``;
-    statistics ``mean``, ``var``)."""
+    statistics ``mean``, ``var``).  In training the moments are this
+    process's batch's, or the global batch's inside
+    :func:`global_batch_moments`."""
     c = x.shape[1]
     scale = s.param("scale", (c,), scale_init)
     bias = s.param("bias", (c,), zeros)
@@ -327,6 +369,12 @@ def batch_norm(s: Scope, x, *, momentum: float, eps: float,
     var = s.stat("var", (c,), ones)
     if not s.run.train:
         return F.batch_norm(x, mean, var, scale, bias, False, 0.0, eps)
+    if _MOMENTS_GROUP[0] is not None:
+        y, b_mean, b_var = _global_batch_norm(x, scale, bias, eps, _MOMENTS_GROUP[0])
+        with torch.no_grad():
+            s.new_stats["mean"] = momentum * mean + (1 - momentum) * b_mean.to(mean.dtype)
+            s.new_stats["var"] = momentum * var + (1 - momentum) * b_var.to(var.dtype)
+        return y
     # the op that normalises also gives the batch mean and 1/sqrt(var + eps)
     # (biased variance), in f32 or wider: no second pass over x for them
     y, b_mean, b_invstd = torch.native_batch_norm(x, scale, bias, None, None, True,

@@ -131,19 +131,26 @@ def _mlp(p, x):
 
 
 def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
-                attention: str = "dense", return_kv: bool = False):
+                attention: str = "dense", return_kv: bool = False,
+                attention_fn=None):
     """One pre-LN transformer block; ``p`` leaves are per-layer (no L).
 
     ``attention``: ``"dense"`` materializes the [b,h,s,s] scores with a
     tril mask; ``"flash"`` runs the causal flash kernel (its plain version
-    on the CPU).  ``return_kv=True`` also returns this layer's ``(k, v)``
-    in [b, s, h, hd] — views into the qkv projection, no copy."""
+    on the CPU).  ``attention_fn`` overrides both: a causal ``(q, k, v,
+    mask, *, dtype)`` (e.g. ``make_flash_attention(mesh=..., causal=
+    True)``), called with ``mask=None``.  ``return_kv=True`` also returns
+    this layer's ``(k, v)`` in [b, s, h, hd] — views into the qkv
+    projection, no copy."""
     b, s, d = x.shape
     hd = d // num_heads
     h = _layer_norm(x, p["ln1"])
     q, k, v = _mm(h, p["qkv"]).split(d, dim=-1)  # strided [b, s, d] views
     split4 = lambda t: t.reshape(b, s, num_heads, hd)  # noqa: E731
-    if attention == "flash":
+    if attention_fn is not None:
+        ctx = attention_fn(split4(q), split4(k), split4(v), None,
+                           dtype=x.dtype).reshape(b, s, d).to(x.dtype)
+    elif attention == "flash":
         ctx = _fa.flash_attention(
             split4(q), split4(k), split4(v), None, causal=True
         ).reshape(b, s, d)
@@ -178,7 +185,7 @@ def _embed(params, tokens):
 
 
 def _stack(blocks: Params, x, *, num_heads: int, attention: str = "dense",
-           remat: bool = False):
+           remat: bool = False, attention_fn=None):
     """The layer loop (the reference's ``_stack_scan``).
 
     ``remat=True`` runs each layer under ``torch.utils.checkpoint``, so
@@ -190,20 +197,22 @@ def _stack(blocks: Params, x, *, num_heads: int, attention: str = "dense",
         p = _layer(blocks, i)
         if remat:
             x = checkpoint(block_apply, p, x, num_heads=num_heads,
-                           attention=attention, use_reentrant=False)
+                           attention=attention, attention_fn=attention_fn,
+                           use_reentrant=False)
         else:
-            x = block_apply(p, x, num_heads=num_heads, attention=attention)
+            x = block_apply(p, x, num_heads=num_heads, attention=attention,
+                            attention_fn=attention_fn)
     return x
 
 
 def forward(params, tokens, *, num_heads: int, attention: str = "dense",
-            remat: bool = False):
+            remat: bool = False, attention_fn=None):
     """Next-token logits [b, s, vocab] for int tokens [b, s].
 
     ``remat=True`` rematerializes each layer in backward (see
-    :func:`_stack`)."""
+    :func:`_stack`); ``attention_fn`` as in :func:`block_apply`."""
     x = _stack(params["blocks"], _embed(params, tokens), num_heads=num_heads,
-               attention=attention, remat=remat)
+               attention=attention, remat=remat, attention_fn=attention_fn)
     return _mm(x, params["head"])
 
 
@@ -510,7 +519,8 @@ def forward_verify_paged(params, tokens, cache, pos, draft_len, block_tables,
 
 
 def per_token_loss(params, tokens, *, num_heads: int, attention: str = "dense",
-                   remat: bool = False, loss_chunk: Optional[int] = None):
+                   remat: bool = False, loss_chunk: Optional[int] = None,
+                   attention_fn=None):
     """Per-position next-token cross-entropy [b, s-1], f32.
 
     Same math as ``next_token_loss(forward(...), tokens)`` per position.
@@ -524,7 +534,7 @@ def per_token_loss(params, tokens, *, num_heads: int, attention: str = "dense",
     if s < 2:
         raise ValueError(f"next-token loss needs sequence length >= 2, got {s}")
     x = _stack(params["blocks"], _embed(params, tokens), num_heads=num_heads,
-               attention=attention, remat=remat)
+               attention=attention, remat=remat, attention_fn=attention_fn)
     h = x[:, :-1]  # position t predicts token t+1
     labels = tokens[:, 1:].long()
     n = s - 1

@@ -494,17 +494,20 @@ def make_flash_attention(block_q: Optional[int] = None,
                          causal: bool = False):
     """An ``attention_fn(q, k, v, mask, *, dtype)`` for the models (ref
     ``make_flash_attention``).  ``block_q`` and ``block_k`` size the TPU
-    grid and are ignored: the CUDA kernels pick their own tiles.  A
-    ``mesh`` of more than one device would run the kernel per shard, which
-    is data and tensor parallelism (ROADMAP A5) and raises."""
+    grid and are ignored: the CUDA kernels pick their own tiles.
+
+    With a data-parallel ``mesh`` (``data * fsdp`` > 1) each rank runs
+    K1-K3 on its own rows: one process per device holds only its shard of
+    the batch, so there is nothing to shard (the reference ``shard_map``s
+    the kernels over the batch).  ``mask=None`` stays None, so the kernels
+    run without a bias.  A ``tensor`` axis above 1 (heads over ranks) is
+    ROADMAP A6 and raises."""
     del block_q, block_k
-    if mesh is not None:
-        size = mesh.size() if callable(mesh.size) else mesh.size
-        if size > 1:
-            raise NotImplementedError(
-                "make_flash_attention: a mesh of more than one device is the "
-                "sharded attention of ROADMAP A5, not in the port yet"
-            )
+    if mesh is not None and mesh.shape.get("tensor", 1) > 1:
+        raise NotImplementedError(
+            "make_flash_attention: tensor > 1 shards the heads over ranks, "
+            "the tensor-parallel attention of ROADMAP A6, not in the port yet"
+        )
 
     def attention_fn(q, k, v, mask, *, dtype):
         return flash_attention(q, k, v, mask, dtype=dtype, causal=causal)

@@ -23,7 +23,11 @@ launches, as the rule says; its loss is read at the end to drain the
 device.  The step count is ``num_warmup_batches + (num_iters + 2) *
 num_batches_per_iter``, one window more than the reference's.
 
-The port runs one process on one device: ``num_devices`` defaults to 1.
+Under data parallelism (one process per device) every rank runs the
+loop on its rows; the step's gradient all-reduce keeps the ranks in
+lockstep, so each rank's windows time the world's step, and
+``num_devices`` (the world, by default the process group's size) turns
+the per-device rate into the total.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import dataclasses
 import statistics
 import time
 from typing import Callable, List, Optional
+
+from distributeddeeplearning_tpu_torch.parallel.distributed import process_count
 
 
 @dataclasses.dataclass
@@ -147,7 +153,7 @@ def run_benchmark(
         lambda: batch,
         model_name=model_name,
         batch_size_per_chip=batch_size_per_chip,
-        num_devices=num_devices or 1,
+        num_devices=num_devices or process_count(),
         num_warmup_batches=num_warmup_batches,
         num_iters=num_iters,
         num_batches_per_iter=num_batches_per_iter,
@@ -180,7 +186,7 @@ def run_data_benchmark(
         lambda: next(it),
         model_name=model_name,
         batch_size_per_chip=batch_size_per_chip,
-        num_devices=num_devices or 1,
+        num_devices=num_devices or process_count(),
         num_warmup_batches=num_warmup_batches,
         num_iters=num_iters,
         num_batches_per_iter=num_batches_per_iter,

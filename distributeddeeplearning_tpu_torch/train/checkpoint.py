@@ -54,6 +54,19 @@ to land, after its checksums) and ``verify_cpu_s`` (the background
 checksum work) accumulate per checkpointer, and the process goodput
 ledger gets ``ckpt_save_block_s`` / ``ckpt_wait_block_s`` notes.  There
 is no pre-manifest legacy layout.
+
+Data parallelism (``mesh=`` a process mesh of more than one rank): every
+rank calls ``save``, ``wait`` and ``restore`` together.  Rank 0 decides
+whether a step is saved and writes the generation; the other ranks write
+nothing.  A state in the comm layout (``parallel/comms.py``) holds
+per-rank blocks (:class:`..parallel.comms.RankShards`: weight-update
+shards and error-feedback residuals) that differ from rank to rank: a
+save all-gathers them to their global vectors (the reference's global
+arrays) and records their world as ``state/['comm_world']``; a restore
+on the same world size hands each rank its own block; a restore on
+another world size raises (the reference re-lays-out through orbax;
+ROADMAP A5).  ``wait`` ends with a barrier, so a restore reads landed
+generations, and only rank 0 evicts, after every rank has read.
 """
 
 from __future__ import annotations
@@ -75,6 +88,9 @@ import torch
 
 from distributeddeeplearning_tpu_torch.obs import goodput as _goodput
 from distributeddeeplearning_tpu_torch.obs.trace import get_tracer
+from distributeddeeplearning_tpu_torch.parallel import collectives
+from distributeddeeplearning_tpu_torch.parallel.comms import RankShards
+from distributeddeeplearning_tpu_torch.train.state import is_sequence_node
 from distributeddeeplearning_tpu_torch.utils import faults as faults_mod
 from distributeddeeplearning_tpu_torch.utils.retry import retry_call
 
@@ -97,6 +113,39 @@ class CheckpointCorruptionError(RuntimeError):
     """Generations exist but none verifies: nothing left to fall back to."""
 
 
+class _Block:
+    """A restore template's rank block: ``tensor`` is block ``rank`` of a
+    global vector of ``world`` blocks."""
+
+    def __init__(self, tensor: torch.Tensor, rank: int, world: int):
+        self.tensor, self.rank, self.world = tensor, rank, world
+        self.shape = torch.Size([tensor.shape[0] * world])
+        self.dtype = tensor.dtype
+
+    def part(self, whole: torch.Tensor) -> torch.Tensor:
+        n = self.tensor.shape[0]
+        return whole[self.rank * n:(self.rank + 1) * n]
+
+
+def _rank_blocks(tree, fn):
+    """``tree`` with every :class:`..parallel.comms.RankShards` mapped by
+    ``fn`` (dicts, tuples and lists rebuilt around them)."""
+    if isinstance(tree, RankShards):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _rank_blocks(v, fn) for k, v in tree.items()}
+    if is_sequence_node(tree):
+        return tuple(_rank_blocks(v, fn) for v in tree)
+    return tree
+
+
+def _comm_world(tree) -> Optional[int]:
+    """The world of the tree's rank blocks (None when it has none)."""
+    worlds = []
+    _rank_blocks(tree, lambda shards: worlds.append(shards.world) or shards)
+    return worlds[0] if worlds else None
+
+
 # -- leaves -------------------------------------------------------------------
 
 def keystr(path) -> str:
@@ -113,11 +162,14 @@ def _path(key: str) -> List[str]:
 
 def flatten(tree, path=()) -> Leaves:
     """``(keystr, tensor)`` of every leaf, dict keys sorted as jax flattens
-    them; a Python int or float leaf becomes a 0-d tensor (int32 for an
-    int, as the reference's step)."""
+    them, tuple and list entries in order (``[0]``); a Python int or float
+    leaf becomes a 0-d tensor (int32 for an int, as the reference's step).
+    A :class:`_Block` (restore's view of a rank's block) stays as it is."""
     if isinstance(tree, dict):
         return [kv for k in sorted(tree) for kv in flatten(tree[k], path + (k,))]
-    if not isinstance(tree, torch.Tensor):
+    if is_sequence_node(tree):
+        return [kv for i, v in enumerate(tree) for kv in flatten(v, path + (i,))]
+    if not isinstance(tree, (torch.Tensor, _Block)):
         tree = torch.tensor(tree, dtype=torch.int32 if isinstance(tree, int)
                             else torch.float32)
     return [(keystr(path), tree)]
@@ -391,10 +443,13 @@ class Checkpointer:
     docstring).  ``restore`` copies into the template's tensors: the
     optimizer, the model function and the devices come from the template."""
 
-    def __init__(self, directory: str, *, max_to_keep: int = 5):
+    def __init__(self, directory: str, *, max_to_keep: int = 5, mesh=None):
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
+        # the group every rank saves and restores with (module docstring)
+        self.group = None if mesh is None else mesh.group
+        self.primary = mesh is None or mesh.rank == 0
         self._pending: Dict[int, _PendingGeneration] = {}
         self.save_wall_s = 0.0
         self.snapshot_wall_s = 0.0
@@ -403,10 +458,32 @@ class Checkpointer:
         self.write_wait_s = 0.0
 
     @staticmethod
-    def _state_items(state) -> Dict[str, Any]:
-        return {"params": state.params,
-                "state": {"step": int(state.step), "opt_state": state.opt_state,
-                          "batch_stats": state.batch_stats}}
+    def _state_items(state, blocks=None) -> Dict[str, Any]:
+        """The two items of ``state``; ``blocks`` maps its rank blocks
+        (all-gathered to global vectors for a save, :class:`_Block`
+        views for a restore)."""
+        opt = state.opt_state
+        world = _comm_world(opt)
+        out = {"step": int(state.step), "opt_state": opt,
+               "batch_stats": state.batch_stats}
+        if world is not None:
+            out["opt_state"] = _rank_blocks(opt, blocks) if blocks else opt
+            out["comm_world"] = world
+        return {"params": state.params, "state": out}
+
+    def _gathered_items(self, state) -> Dict[str, Any]:
+        return self._state_items(state, lambda shards: tuple(
+            collectives.all_gather(t.detach(), shards.group) for t in shards))
+
+    def _agree(self, value):
+        """Rank 0's ``value`` on every rank."""
+        if self.group is None:
+            return value
+        return collectives.broadcast_object(value, 0, self.group)
+
+    def _barrier(self) -> None:
+        if self.group is not None:
+            collectives.barrier(self.group)
 
     def _step_dir(self, step: int) -> Path:
         return self.directory / str(step)
@@ -432,17 +509,21 @@ class Checkpointer:
         ``deadline_s`` on the wall clock (the background write takes the
         same bound)."""
         latest = self.latest_step()
-        if latest is not None and step <= latest:
+        if not self._agree(latest is None or step > latest):
             return False
         t0 = time.perf_counter()
         with get_tracer().span("ckpt/save", step=step):
+            # every rank joins the gather of the rank blocks; rank 0 writes
+            items = (self._gathered_items(state) if _comm_world(state.opt_state)
+                     else self._state_items(state))
+            if not self.primary:
+                return True
             self._commit()  # one write in flight at a time
 
             def start() -> None:
                 faults_mod.get_plan().maybe_io_error("checkpoint.save")
                 v0 = time.perf_counter()
-                snapshot = {name: _snapshot(tree)
-                            for name, tree in self._state_items(state).items()}
+                snapshot = {name: _snapshot(tree) for name, tree in items.items()}
                 self.snapshot_wall_s += time.perf_counter() - v0
                 self._pending[step] = _PendingGeneration(
                     self.directory, step, snapshot, deadline_s)
@@ -526,9 +607,13 @@ class Checkpointer:
             self._join()
 
         t0 = time.perf_counter()
-        retry_call(drain, retries=2, base_delay=0.2, max_delay=2.0,
-                   description="checkpoint wait", deadline_s=deadline_s)
-        self._finalize()
+        try:
+            if self.primary:
+                retry_call(drain, retries=2, base_delay=0.2, max_delay=2.0,
+                           description="checkpoint wait", deadline_s=deadline_s)
+                self._finalize()
+        finally:
+            self._barrier()  # the other ranks read what rank 0 landed
         _goodput.get_ledger().note("ckpt_wait_block_s", time.perf_counter() - t0)
 
     def close(self) -> None:
@@ -598,24 +683,53 @@ class Checkpointer:
         candidates, rejected = self._candidates()
         if not candidates and not rejected:
             return state_template, None
-        if evict_failed:
-            for step in rejected:
-                self._evict(step)
-        want = self._state_items(state_template)
-        for step in candidates:
-            items = self._read_verified(step, ITEMS)
-            pairs = None if items is None else self._match(step, want, items)
-            if pairs is None:
-                if evict_failed:
-                    self._evict(step)
-                continue
-            with torch.no_grad():
-                for dst, src in pairs:
-                    dst.copy_(src)
-            state_template.step = int(items["state"]["['step']"])
-            logger.info("restored checkpoint step %d from %s", step, self.directory)
-            return state_template, step
-        raise self._corruption_error(sorted(candidates + rejected))
+        doomed = list(rejected)
+        want = self._state_items(state_template, lambda shards: tuple(
+            _Block(t, shards.rank, shards.world) for t in shards))
+        try:
+            for step in candidates:
+                items = self._read_verified(step, ITEMS)
+                if items is not None:
+                    self._check_world(step, want, items)
+                pairs = None if items is None else self._match(step, want, items)
+                if pairs is None:
+                    doomed.append(step)
+                    continue
+                with torch.no_grad():
+                    for dst, src in pairs:
+                        if isinstance(dst, _Block):
+                            dst.tensor.copy_(dst.part(src))
+                        else:
+                            dst.copy_(src)
+                state_template.step = int(items["state"]["['step']"])
+                if self._agree(step) != step:
+                    raise RuntimeError(f"this rank restored generation {step} "
+                                       "and rank 0 another: the checkpoint "
+                                       "directory differs between ranks")
+                logger.info("restored checkpoint step %d from %s", step,
+                            self.directory)
+                return state_template, step
+            raise self._corruption_error(sorted(candidates + rejected))
+        finally:
+            if evict_failed:
+                self._barrier()  # every rank has read before rank 0 evicts
+                if self.primary:
+                    for step in doomed:
+                        self._evict(step)
+
+    @staticmethod
+    def _check_world(step: int, want, items) -> None:
+        """Raise when the generation's rank blocks come from another world
+        than the template's (never a fall-back: the data is good)."""
+        have = items["state"].get("['comm_world']")
+        have = None if have is None else int(have)
+        mine = want["state"].get("comm_world")
+        if have != mine:
+            raise ValueError(
+                f"checkpoint generation {step} holds the comm layout of a world "
+                f"of {have} ranks and this state that of {mine}: restoring on "
+                "another world size is not supported in the port (the "
+                "reference re-lays-out through orbax; ROADMAP A5)")
 
     def _match(self, step: int, want, items):
         """(template tensor, read tensor) pairs, or None when a leaf is
@@ -624,7 +738,7 @@ class Checkpointer:
         for name, tree in want.items():
             for key, dst in flatten(tree):
                 src = items[name].get(key)
-                if key == "['step']":
+                if key in ("['step']", "['comm_world']"):
                     continue
                 if src is None or src.shape != dst.shape or src.dtype != dst.dtype:
                     self._note_failure(step, f"leaf {name}/{key} does not fit the "

@@ -32,6 +32,16 @@ verified generation, the step watchdog (stacks, then exit 70), the
 and ``train/emergency_checkpoint``, a per-epoch registry rollup
 (``obs_metrics_path``), the goodput ledger (``goodput_path``), a
 ``torch.profiler`` window (``profile_dir``) and TensorBoard's scalars.
+Data parallelism (``mesh=`` a process mesh, one process per device, as
+the reference's multi-host trainer): every rank runs the loop over its
+own batches; only the primary rank (rank 0) writes the metrics rows,
+TensorBoard's scalars, the registry snapshot and the profile, and logs
+the epoch lines; ``global_batch_size`` is the world's, so images/s are
+totals over the world; checkpoints are the checkpointer's collective
+saves; :meth:`Trainer.evaluate` drains at most ``eval_buffer_batches``
+batches, agrees on the smallest count over the ranks with one
+all-gather and weights each batch by its rows.
+
 Two departures from the reference: the scalars go to
 ``<tensorboard_dir>/scalars.jsonl`` as ``{"tag", "value", "step"}`` rows
 (tensorboard is not installed where the port runs), and the goodput
@@ -54,6 +64,8 @@ from distributeddeeplearning_tpu_torch.obs import goodput as goodput_mod
 from distributeddeeplearning_tpu_torch.obs.goodput import GoodputLedger
 from distributeddeeplearning_tpu_torch.obs.registry import get_registry
 from distributeddeeplearning_tpu_torch.obs.trace import get_tracer
+from distributeddeeplearning_tpu_torch.parallel import collectives
+from distributeddeeplearning_tpu_torch.parallel.distributed import is_primary
 from distributeddeeplearning_tpu_torch.train.checkpoint import Checkpointer
 from distributeddeeplearning_tpu_torch.train.resilience import (
     AnomalyDetector,
@@ -99,7 +111,7 @@ class TrainerConfig:
     # (utils/prefetch.py); 0 fetches synchronously
     prefetch: int = 2
     # caps the eval batches a multi-process eval buffers to agree on a
-    # common count; read only by multi-process eval (ROADMAP A5)
+    # common count; read only by multi-process eval
     eval_buffer_batches: int = 4096
     # ---- resilience (train/resilience.py) ----
     # SIGTERM/SIGINT set a flag the loop checks each step; at the next
@@ -139,11 +151,12 @@ class MetricsLog:
     training."""
 
     def __init__(self, path: Optional[str]):
-        self.path = path
+        # rank 0 only, as the reference's
+        self.path = path if (path and is_primary()) else None
         self.dropped_rows = 0
         self._drop_warn = RateLimitedLogger(logger.warning, min_interval_s=60.0)
-        if path:
-            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if self.path:
+            os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
 
     def _write(self, line: str) -> None:
         faults_mod.get_plan().maybe_io_error("metrics")
@@ -170,6 +183,7 @@ class TensorBoardLogger:
     reference's tags, values and steps; module docstring)."""
 
     def __init__(self, logdir: Optional[str]):
+        logdir = logdir if is_primary() else None  # rank 0 only
         self.path = os.path.join(logdir, SCALARS_NAME) if logdir else None
         if logdir:
             os.makedirs(logdir, exist_ok=True)
@@ -239,18 +253,41 @@ class _ProfileWindow:
         logger.info("profiler trace written to %s", path)
 
 
+def _drain_bounded(batches: Iterator, limit: Optional[int], cap: int) -> list:
+    """Buffer up to ``limit`` batches, refusing to exceed ``cap`` — the
+    multi-process eval drain's RAM guard (an eval split larger than
+    expected must fail loudly, not swap the host)."""
+    local: list = []
+    for batch in batches:
+        local.append(batch)
+        if limit is not None and len(local) >= limit:
+            break
+        if len(local) > cap:
+            raise RuntimeError(
+                f"multi-host eval buffered more than eval_buffer_batches="
+                f"{cap} batches on this host; set TrainerConfig.eval_steps "
+                "to bound the eval pass, or raise eval_buffer_batches if "
+                "the host has RAM for a larger eval split"
+            )
+    return local
+
+
 class Trainer:
     def __init__(self, train_step: Callable, *,
-                 eval_step: Optional[Callable] = None, config: TrainerConfig):
+                 eval_step: Optional[Callable] = None, config: TrainerConfig,
+                 mesh=None):
         if config.steps_per_epoch <= 0:
             raise ValueError("steps_per_epoch must be positive")
         self.train_step = train_step
         self.eval_step = eval_step
         self.config = config
+        self.mesh = mesh
+        self.primary = is_primary()
         self.tb = TensorBoardLogger(config.tensorboard_dir)
         self.metrics_log = MetricsLog(config.metrics_path)
         self.checkpointer = (
-            Checkpointer(config.checkpoint_dir, max_to_keep=config.max_to_keep)
+            Checkpointer(config.checkpoint_dir, max_to_keep=config.max_to_keep,
+                         mesh=mesh)
             if config.checkpoint_dir else None)
         # no-op marks unless goodput_path is set; one segment per fit attempt
         self.goodput = GoodputLedger(config.goodput_path)
@@ -300,10 +337,10 @@ class Trainer:
                     self.goodput.fresh_start()
                 else:
                     self.goodput.set_resumed_step(int(restored))
-                    logger.info("resuming from step %d (epoch %d, step %d "
-                                "within it)", restored,
-                                restored // cfg.steps_per_epoch,
-                                restored % cfg.steps_per_epoch)
+                    self._log("resuming from step %d (epoch %d, step %d "
+                              "within it)", restored,
+                              restored // cfg.steps_per_epoch,
+                              restored % cfg.steps_per_epoch)
                 start = int(restored or 0)
                 batches = factory(start) if factory is not None else stream
                 if plan:
@@ -373,6 +410,11 @@ class Trainer:
             if prev_ledger is not None:
                 goodput_mod.set_ledger(prev_ledger)
 
+    def _log(self, *args) -> None:
+        """``logger.info`` on the primary rank only."""
+        if self.primary:
+            logger.info(*args)
+
     def _emergency_stop(self, step: int, state, watchdog, guard) -> None:
         """Preemption noticed at a step boundary: synchronous emergency
         checkpoint, then PreemptionError (exit 75 under the runner)."""
@@ -409,14 +451,14 @@ class Trainer:
         self.goodput.mark("recovery")
         tracker = ExamplesPerSecondTracker(global_batch_size=cfg.global_batch_size,
                                            every_n_steps=cfg.log_every,
-                                           report=logger.info)
+                                           report=self._log)
         tracker.begin()
         train_t0 = time.monotonic()
         total_images = 0
         train_metrics: Dict[str, float] = {}
         eval_metrics: Optional[Dict[str, float]] = None
         window = None
-        profile_pending = cfg.profile_dir is not None
+        profile_pending = cfg.profile_dir is not None and self.primary
         total_steps = (cfg.epochs - start_epoch) * cfg.steps_per_epoch - start_step_in_epoch
         profile_start = cfg.profile_start
         if profile_pending and total_steps <= cfg.profile_start:
@@ -515,16 +557,16 @@ class Trainer:
             # this epoch's train wall (the reads above synced): eval and the
             # checkpoint below are left out
             epoch_train_wall = time.monotonic() - epoch_t0
-            logger.info("epoch %d/%d: %s", epoch + 1, cfg.epochs,
-                        {k: round(v, 4) for k, v in train_metrics.items()})
+            self._log("epoch %d/%d: %s", epoch + 1, cfg.epochs,
+                      {k: round(v, 4) for k, v in train_metrics.items()})
             self.tb.scalars("train", train_metrics, epoch)
             self.goodput.mark("other")
             if self.eval_step is not None and eval_batches_factory is not None:
                 with trace.span("train/eval", epoch=epoch + 1):
                     eval_metrics = self.evaluate(state, eval_batches_factory())
                 self.goodput.mark("eval")
-                logger.info("epoch %d validation: %s", epoch + 1,
-                            {k: round(v, 4) for k, v in eval_metrics.items()})
+                self._log("epoch %d validation: %s", epoch + 1,
+                          {k: round(v, 4) for k, v in eval_metrics.items()})
                 self.tb.scalars("val", eval_metrics, epoch)
             row: Dict[str, Any] = {"epoch": epoch + 1}
             row.update({f"train_{k}": v for k, v in train_metrics.items()})
@@ -547,7 +589,7 @@ class Trainer:
             if "loss" in train_metrics:
                 reg.gauge("train.loss").set(train_metrics["loss"])
             reg.histogram("train.epoch_train_wall_s").record(epoch_train_wall)
-            if cfg.obs_metrics_path:
+            if cfg.obs_metrics_path and self.primary:
                 reg.write_snapshot(cfg.obs_metrics_path, epoch=epoch + 1)
             if self.checkpointer is not None:
                 self.goodput.mark("other")
@@ -568,20 +610,39 @@ class Trainer:
             anomalous_steps=anomalous_total,
         )
         if total_images:
-            logger.info("total images/sec: %.2f", result.images_per_second)
-            logger.info("batch size: %d (global)", cfg.global_batch_size)
+            self._log("total images/sec: %.2f", result.images_per_second)
+            self._log("batch size: %d (global)", cfg.global_batch_size)
         return state, result
 
     def evaluate(self, state, eval_batches: Iterator) -> Dict[str, float]:
         """Size-weighted mean of the eval metrics over the batches (at most
-        ``eval_steps``); sums stay on the device until the final read."""
+        ``eval_steps``); sums stay on the device until the final read.
+
+        Over several ranks each rank's eval stream may yield another
+        number of batches, and a rank with extra batches would enter the
+        eval step's collectives alone and hang: the ranks agree ONCE a pass
+        on a common count (each drains at most ``eval_buffer_batches``
+        batches, one all-gather takes the minimum) and each runs exactly
+        that many.  A batch weighs its rows over the world (the eval
+        step's metrics are the global batch's means)."""
         limit = self.config.eval_steps
+        group = None if self.mesh is None else self.mesh.group
+        rows = None
+        if group is not None:
+            local = _drain_bounded(eval_batches, limit,
+                                   self.config.eval_buffer_batches)
+            counts = collectives.all_gather_object(
+                [len(next(iter(b.values()))) for b in local], group)
+            limit = min(len(c) for c in counts)
+            rows = [sum(c[i] for c in counts) for i in range(limit)]
+            eval_batches = iter(local[:limit])
         sums: Dict[str, torch.Tensor] = {}
         total_weight = steps = 0
         for batch in eval_batches:
             if limit is not None and steps >= limit:
                 break
-            size = len(next(iter(batch.values())))
+            size = (len(next(iter(batch.values()))) if rows is None
+                    else rows[steps])
             for k, v in self.eval_step(state, batch).items():
                 sums[k] = v * size if k not in sums else sums[k] + v * size
             total_weight += size

@@ -35,25 +35,46 @@ from distributeddeeplearning_tpu_torch.train.schedule import Schedule
 Params = Dict[str, Any]
 
 
+class TreeTuple(tuple):
+    """A tuple the tree helpers descend into although it is a subclass
+    (plain tuples and lists are nodes; other tuple subclasses, such as
+    ``torch.Size``, are leaves)."""
+
+
+def is_sequence_node(tree) -> bool:
+    return type(tree) in (tuple, list) or isinstance(tree, TreeTuple)
+
+
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """Leaves of a nested dict, in insertion order."""
+    """Leaves of a nested dict (insertion order) of tuples and lists (in
+    order; see :class:`TreeTuple`): a tuple of flat buckets is a tree too."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if is_sequence_node(tree):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
 def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if is_sequence_node(tree):
+        kind = tuple if isinstance(tree, tuple) else list
+        return kind(tree_map(fn, v, *(r[i] for r in rest))
+                    for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_zip(tree, *rest):
     """Tuples of corresponding leaves, matched by key along ``tree``'s
-    order (the others may have their keys in another order)."""
+    order (the others may have their keys in another order); tuples and
+    lists pair by position."""
     if isinstance(tree, dict):
         return [z for k, v in tree.items()
                 for z in tree_zip(v, *(r[k] for r in rest))]
+    if is_sequence_node(tree):
+        return [z for i, v in enumerate(tree)
+                for z in tree_zip(v, *(r[i] for r in rest))]
     return [(tree, *rest)]
 
 

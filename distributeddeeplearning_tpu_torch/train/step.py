@@ -37,9 +37,27 @@ each forward (the reference's ``moe_losses`` collection) and adds
 sum to the loss it differentiates and reports.  The eval step adds
 nothing.
 
-One process, one device: there is no mesh.  The implicit data-parallel
-gradient all-reduce and the explicit comm-overlap schedule
-(``parallel/comms.py``) are ROADMAP item 11; their arguments raise.
+Data parallelism (``mesh=`` a :class:`..parallel.mesh.Mesh` of the
+process group, one process per device, each step given this rank's rows):
+
+- the implicit path (``comm_overlap=False``) gives the reference's GSPMD
+  result: train-mode BatchNorm normalises with the GLOBAL batch's moments
+  (``models._convnet.global_batch_moments``: an all-reduce of ``[sum x,
+  sum x^2, count]`` autograd flows through), the gradient is the
+  global-batch mean through one explicit all-reduce of the gradient tree,
+  and the metrics are averaged over the ranks;
+- the ``comm_overlap`` path (:class:`CommOverlapStep`) is the reference's
+  explicit schedule of ``parallel/comms.py``: each microbatch's bucketed
+  reduce-scatter is issued as soon as its gradients exist and waited on
+  before it is accumulated, so it overlaps the next microbatch's
+  backward; ZeRO weight-update sharding updates this rank's flat shards
+  and all-gathers the parameters; the bf16 wire carries error feedback;
+  one ``pmean`` carries the metrics and (per-rank BatchNorm, the
+  reference's semantics on this path) the statistics.  Its dropout
+  generators are seeded from ``(rng, step, microbatch, rank)``, held to
+  within-port determinism only.
+
+Without a mesh the step is one process on one device, as before.
 """
 
 from __future__ import annotations
@@ -49,15 +67,25 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from distributeddeeplearning_tpu_torch.models import moe
+from distributeddeeplearning_tpu_torch.models import _convnet, moe
+from distributeddeeplearning_tpu_torch.parallel import collectives, comms
+from distributeddeeplearning_tpu_torch.parallel.mesh import (
+    create_mesh,
+    data_parallel_size,
+)
 from distributeddeeplearning_tpu_torch.train.schedule import Schedule
 from distributeddeeplearning_tpu_torch.train.state import (
     TrainState,
+    _commit,
     global_norm,
     tree_leaves,
+    tree_zip,
 )
 
 Metrics = Dict[str, torch.Tensor]
+
+COMM_DTYPES = {None: None, "f32": None, "float32": None,
+               "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
 # Batch keys forwarded to the model as keyword inputs (transformer models
 # take the padding mask alongside the token ids).
@@ -145,29 +173,38 @@ def _extras(batch, device) -> Dict[str, torch.Tensor]:
 
 
 def step_generator(rng: int, step: int, device,
-                   generator: Optional[torch.Generator] = None) -> torch.Generator:
+                   generator: Optional[torch.Generator] = None,
+                   salt: tuple = ()) -> torch.Generator:
     """The dropout generator of train step ``step``: seeded from ``(rng,
-    step)`` through numpy's SeedSequence, on ``device``.  ``generator`` (on
-    ``device``), when given, is reseeded and returned instead of a new one."""
-    seed = int(np.random.SeedSequence([rng, step]).generate_state(1, np.uint64)[0])
+    step, *salt)`` through numpy's SeedSequence, on ``device``.
+    ``generator`` (on ``device``), when given, is reseeded and returned
+    instead of a new one.  A data-parallel step salts with the rank (and
+    the comm-overlap step with the microbatch)."""
+    seed = int(np.random.SeedSequence([rng, step, *salt])
+               .generate_state(1, np.uint64)[0])
     if generator is None:
         generator = torch.Generator(device=device)
     return generator.manual_seed(seed)
 
 
-def _unsupported(**given) -> None:
-    for name, value in given.items():
-        if value:
-            raise NotImplementedError(
-                f"build_train_step: {name} is the explicit gradient-comms "
-                "schedule (parallel/comms.py), ROADMAP item 11; the port's "
-                "step is one process on one device"
-            )
+@torch.no_grad()
+def _all_reduce_mean(grads, group, world: int):
+    """The gradient leaves summed over ``group`` through ONE all-reduce of
+    their f32 concatenation, divided by ``world``, in their dtypes."""
+    flat = collectives.all_reduce(torch.cat([g.float().reshape(-1) for g in grads]),
+                                  group)
+    flat.mul_(1.0 / world)
+    out, offset = [], 0
+    for g in grads:
+        out.append(flat[offset:offset + g.numel()].view(g.shape).to(g.dtype))
+        offset += g.numel()
+    return out
 
 
 def build_train_step(
     state_example: Optional[TrainState] = None,
     *,
+    mesh=None,
     compute_dtype: torch.dtype = torch.bfloat16,
     label_smoothing: float = 0.0,
     schedule: Optional[Schedule] = None,
@@ -186,9 +223,16 @@ def build_train_step(
 ) -> Callable:
     """The training step: forward, loss, backward, optimizer update.
 
-    ``state_example`` is accepted for signature parity and not needed (the
-    port compiles nothing); ``bucket_mb``, as in the reference, only
-    matters with ``comm_overlap``, which raises.  ``accum_steps`` > 1 splits the batch into
+    ``state_example`` is needed by the ``comm_overlap`` step (its params
+    make the bucket layout) and otherwise only accepted for signature
+    parity; ``bucket_mb``, as in the reference, only matters with
+    ``comm_overlap``.  ``mesh`` makes the step data-parallel (module
+    docstring); the batch it is given is this rank's rows.
+    ``comm_overlap``, ``bucket_mb``, ``comm_dtype`` (``COMM_DTYPES``),
+    ``weight_update_sharding`` and ``comm_skip`` (timing only: the
+    collectives are left out and the numbers are garbage) are the
+    reference's; the three last raise without ``comm_overlap``.
+    ``accum_steps`` > 1 splits the batch into
     microbatches the reference's way, INTERLEAVED (row r goes to microbatch
     r % accum_steps), sums their gradients in f32, scales by
     1/accum_steps and makes one update; metrics are the microbatch means.
@@ -200,20 +244,43 @@ def build_train_step(
     ``moe_aux_weight`` weights the mixture-of-experts load-balance terms
     added to the loss.
     """
-    del state_example
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    _unsupported(comm_overlap=comm_overlap,
-                 comm_dtype=comm_dtype not in (None, "f32", "float32"),
-                 weight_update_sharding=weight_update_sharding,
-                 comm_skip=comm_skip)
+    if comm_overlap:
+        if comm_dtype not in COMM_DTYPES and comm_dtype is not torch.bfloat16:
+            raise ValueError(
+                f"comm_dtype must be one of "
+                f"{sorted(k for k in COMM_DTYPES if k)} or None, "
+                f"got {comm_dtype!r}"
+            )
+        return _build_comm_overlap_step(
+            mesh, state_example, compute_dtype=compute_dtype,
+            label_smoothing=label_smoothing, schedule=schedule, loss_fn=loss_fn,
+            metrics_fn=metrics_fn, rng=rng, moe_aux_weight=moe_aux_weight,
+            accum_steps=accum_steps, input_transform=input_transform,
+            skip_nonfinite=skip_nonfinite, bucket_mb=bucket_mb,
+            comm_dtype=(torch.bfloat16 if comm_dtype is torch.bfloat16
+                        else COMM_DTYPES[comm_dtype]),
+            weight_update_sharding=weight_update_sharding, comm_skip=comm_skip)
+    if weight_update_sharding or comm_skip or comm_dtype not in (
+            None, "f32", "float32"):
+        # silently dropping these would let an A/B run believe it measured
+        # the explicit schedule while running the implicit one
+        raise ValueError(
+            "weight_update_sharding/comm_skip/comm_dtype require "
+            "comm_overlap=True"
+        )
+    group = None if mesh is None else mesh.group  # None: no collectives
+    world = mesh.size if mesh is not None else 1
+    salt = () if group is None else (mesh.rank,)
 
     generators: Dict[torch.device, torch.Generator] = {}  # one per device, reseeded
 
     def loss_and_grads(state, stats, inputs, labels, extras, generator):
-        outputs, new_stats, aux = _forward(state, state.params, inputs, train=True,
-                                           generator=generator, extras=extras,
-                                           batch_stats=stats)
+        with _convnet.global_batch_moments(group):
+            outputs, new_stats, aux = _forward(state, state.params, inputs,
+                                               train=True, generator=generator,
+                                               extras=extras, batch_stats=stats)
         loss = loss_fn(outputs, labels, label_smoothing=label_smoothing)
         if isinstance(aux, torch.Tensor):
             loss = loss + moe_aux_weight * aux
@@ -232,7 +299,7 @@ def build_train_step(
         labels = _to_device(batch["label"], device, compute_dtype)
         extras = _extras(batch, device)
         generator = generators[device] = step_generator(
-            rng, state.step, device, generators.get(device))
+            rng, state.step, device, generators.get(device), salt)
         if accum_steps == 1:
             grads, metrics, stats = loss_and_grads(state, state.batch_stats,
                                                    inputs, labels, extras,
@@ -256,6 +323,10 @@ def build_train_step(
                      for g, p in zip(grads, tree_leaves(state.params))]
             metrics = {k: torch.stack([m[k] for m in stack]).mean()
                        for k in stack[0]}
+        if group is not None:
+            # the global-batch mean gradient and metrics (equal rows a rank)
+            grads = _all_reduce_mean(grads, group, world)
+            metrics = collectives.pmean(metrics, group)
         lr_step = state.step
         ok = None
         if skip_nonfinite:
@@ -286,17 +357,208 @@ def _as_tree(params, leaves):
     return build(params)
 
 
+class CommOverlapStep:
+    """The ``comm_overlap`` train step: callable as ``step(state, batch)``
+    like the implicit one, plus the comm-layout plumbing callers need:
+    :meth:`prepare_state` turns a fresh ``TrainState`` into the layout this
+    step trains and checkpoints (call it once before the first step; the
+    prepared state is the restore template), and :meth:`wire_bytes` is the
+    analytic bytes-on-wire model."""
+
+    def __init__(self, fn, mesh, layout, *, comm_dtype, weight_update_sharding,
+                 accum_steps):
+        self._fn = fn
+        self.mesh = mesh
+        self.layout = layout
+        self.comm_dtype = comm_dtype
+        self.weight_update_sharding = weight_update_sharding
+        self.accum_steps = accum_steps
+        self.comm_overlap = True
+
+    def __call__(self, state, batch):
+        return self._fn(state, batch)
+
+    def prepare_state(self, state):
+        return comms.prepare_comm_state(
+            self.mesh, state, self.layout,
+            weight_update_sharding=self.weight_update_sharding,
+            comm_dtype=self.comm_dtype)
+
+    def wire_bytes(self) -> Dict[str, int]:
+        return comms.ring_wire_bytes(
+            self.layout, comm_dtype=self.comm_dtype,
+            weight_update_sharding=self.weight_update_sharding,
+            accum_steps=self.accum_steps)
+
+
+def _build_comm_overlap_step(mesh, state_example, *, compute_dtype,
+                             label_smoothing, schedule, loss_fn, metrics_fn, rng,
+                             moe_aux_weight, accum_steps, input_transform,
+                             skip_nonfinite, bucket_mb, comm_dtype,
+                             weight_update_sharding, comm_skip) -> CommOverlapStep:
+    """The explicit-comms train step (ref ``_build_comm_overlap_step``);
+    ``build_train_step``'s docstring and the module docstring say what it
+    does."""
+    if state_example is None:
+        raise ValueError("comm_overlap needs state_example: its params make "
+                         "the bucket layout")
+    mesh = mesh if mesh is not None else create_mesh()
+    n_shards = data_parallel_size(mesh)
+    group, rank = mesh.group, mesh.rank
+    layout = comms.BucketLayout.for_tree(
+        state_example.params, bucket_bytes=max(int(bucket_mb * 2**20), 4),
+        shards=n_shards)
+    generators: Dict[torch.device, torch.Generator] = {}
+
+    def scatter(grad_tree, res):
+        """Handles of this microbatch's reduce-scattered shards (in
+        flight), and the new residuals."""
+        buckets = layout.to_buckets(grad_tree)
+        if comm_skip:  # timing only: no collective, garbage numbers
+            return [collectives.Pending(None, layout.shard_slice(b, rank), b.device)
+                    for b in buckets], res
+        if comm_dtype is None:
+            return comms.reduce_scatter_buckets(buckets, group, async_op=True)[0], res
+        return comms.reduce_scatter_buckets(
+            buckets, group, comm_dtype=comm_dtype, residuals=res,
+            shards=n_shards, async_op=True)
+
+    def gather(shards):
+        if comm_skip:
+            return torch.cat([s.repeat(n_shards) for s in shards])
+        return comms.gather_flat(shards, group)
+
+    def step(state: TrainState, batch) -> tuple:
+        opt = state.opt_state
+        if not comms.is_prepared(opt):
+            raise ValueError("the comm_overlap step trains the comm layout: "
+                             "state = step.prepare_state(state) first")
+        device = _device_of(state)
+        inputs = batch.get("image", batch.get("input"))
+        if input_transform is not None:
+            inputs = input_transform(inputs)
+        inputs = _to_device(inputs, device, compute_dtype)
+        labels = _to_device(batch["label"], device, compute_dtype)
+        extras = _extras(batch, device)
+        local = inputs.shape[0]
+        if local % accum_steps:
+            raise ValueError(
+                f"global batch {local * n_shards} not divisible by "
+                f"data shards x accum_steps = {n_shards} x {accum_steps}")
+        params = state.params
+        leaves = tree_leaves(params)
+        has_stats = bool(tree_leaves(state.batch_stats))
+        opt_base, residuals = opt["base"], opt["residual"]
+
+        def loss_and_grads(stats, mb_inputs, mb_labels, mb_extras, generator):
+            outputs, new_stats, aux = _forward(state, params, mb_inputs, train=True,
+                                               generator=generator,
+                                               extras=mb_extras, batch_stats=stats)
+            loss = loss_fn(outputs, mb_labels, label_smoothing=label_smoothing)
+            if isinstance(aux, torch.Tensor):
+                # sown aux terms are global sums in the implicit path: the
+                # local partial scales by the shard count
+                loss = loss + moe_aux_weight * aux * n_shards
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                metrics = metrics_fn(_main_head(outputs).detach(), mb_labels,
+                                     loss.detach())
+            return _as_tree(params, grads), metrics, new_stats
+
+        acc, pending, stack = None, None, []
+        stats, res = state.batch_stats, residuals
+        for i in range(accum_steps):
+            # the strided split of the LOCAL rows (row l -> microbatch
+            # l % accum): the global strided microbatches, rank by rank
+            rows = slice(i, None, accum_steps) if accum_steps > 1 else slice(None)
+            generator = generators[device] = step_generator(
+                rng, state.step, device, generators.get(device), (i, rank))
+            g, m, stats = loss_and_grads(stats, inputs[rows], labels[rows],
+                                         {k: v[rows] for k, v in extras.items()},
+                                         generator)
+            stack.append(m)
+            # the previous microbatch's reduce-scatter ran under this one's
+            # backward; it lands before it is accumulated
+            if pending is not None:
+                acc = _accumulate(acc, pending)
+            with torch.no_grad():
+                pending, res = scatter(g, res)
+        acc = _accumulate(acc, pending)
+        scale = 1.0 / (n_shards * accum_steps)
+        g_shards = tuple(s * scale for s in acc)
+        local_metrics = (stack[0] if accum_steps == 1 else
+                         {k: torch.stack([m[k] for m in stack]).mean()
+                          for k in stack[0]})
+
+        # ONE collective for the metrics and the per-rank BatchNorm
+        # statistics (the reference's per-GPU BN on this path)
+        payload = {"metrics": local_metrics}
+        if has_stats:
+            payload["stats"] = stats
+        reduced = payload if comm_skip else collectives.pmean(payload, group)
+        metrics = dict(reduced["metrics"])
+        out_stats = reduced["stats"] if has_stats else None
+
+        ok = None
+        if skip_nonfinite:
+            sq = sum(torch.sum(torch.square(x)).float() for x in g_shards)
+            if not comm_skip:
+                sq = collectives.all_reduce(sq.clone(), group)
+            grad_norm = torch.sqrt(sq)
+            ok = torch.isfinite(metrics["loss"]) & torch.isfinite(grad_norm)
+            metrics["grad_norm"] = grad_norm.float()
+            metrics["anomalous"] = 1.0 - ok.float()
+
+        tx = state.tx
+        with torch.no_grad():
+            if weight_update_sharding:
+                # ZeRO: this rank updates its 1/N flat parameter shard (the
+                # optimizer's buffers are flat shards too), then gathers
+                p_shards = tuple(layout.shard_slice(b, rank)
+                                 for b in layout.to_buckets(params))
+                tx.apply(p_shards, g_shards, opt_base, ok)
+                layout.write_flat(params, gather(p_shards))
+            else:
+                tx.apply(params, layout.from_flat(gather(g_shards)), opt_base, ok)
+            if comm_dtype is not None:
+                for old, new in zip(residuals, res):
+                    _commit(old, new, ok)
+            if has_stats:
+                for old, new in tree_zip(state.batch_stats, out_stats):
+                    _commit(old, new, ok)
+        lr_step = state.step
+        state.step += 1
+        if schedule is not None:
+            metrics["lr"] = torch.full((), schedule(lr_step), dtype=torch.float32,
+                                       device=device)
+        return state, metrics
+
+    return CommOverlapStep(step, mesh, layout, comm_dtype=comm_dtype,
+                           weight_update_sharding=weight_update_sharding,
+                           accum_steps=accum_steps)
+
+
+def _accumulate(acc, pending):
+    """``acc + shards`` (the shards of ``pending`` waited on here)."""
+    shards = [p.wait() for p in pending]
+    return shards if acc is None else [a + s for a, s in zip(acc, shards)]
+
+
 def build_eval_step(
     state_example: Optional[TrainState] = None,
     *,
+    mesh=None,
     compute_dtype: torch.dtype = torch.bfloat16,
     loss_fn: Callable = cross_entropy_loss,
     metrics_fn: Callable = classification_metrics,
     input_transform: Optional[Callable] = None,
 ) -> Callable:
     """Forward + loss + metrics, no gradient, no state change (BatchNorm
-    reads the running statistics)."""
+    reads the running statistics).  With a ``mesh`` each rank evaluates
+    its rows and the metrics are the global batch's means (each rank's
+    weighted by its rows)."""
     del state_example
+    group = None if mesh is None else mesh.group
 
     @torch.no_grad()
     def step(state: TrainState, batch) -> Metrics:
@@ -308,6 +570,14 @@ def build_eval_step(
         labels = _to_device(batch["label"], device, compute_dtype)
         logits, _, _ = _forward(state, state.params, inputs, train=False,
                                 generator=None, extras=_extras(batch, device))
-        return metrics_fn(logits, labels, loss_fn(logits, labels))
+        metrics = metrics_fn(logits, labels, loss_fn(logits, labels))
+        if group is None:
+            return metrics
+        rows = float(inputs.shape[0])
+        summed = collectives.psum(
+            {"m": {k: v.float() * rows for k, v in metrics.items()},
+             "rows": torch.full((), rows, dtype=torch.float32, device=device)},
+            group)
+        return {k: v / summed["rows"] for k, v in summed["m"].items()}
 
     return step

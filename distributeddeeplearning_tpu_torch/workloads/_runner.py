@@ -7,7 +7,18 @@ by literal parsing for ``None``-defaulted params), so
 
     python -m distributeddeeplearning_tpu_torch.workloads.benchmark --model resnet50
 
-is a workload's launch contract.  A run that was preempted and landed
+is a workload's launch contract.  Data-parallel runs start one process
+per device under ``torchrun``, which sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` for
+:func:`..parallel.distributed.initialize`:
+
+    # on the CPU, two processes over gloo
+    torchrun --nproc_per_node=2 -m \
+        distributeddeeplearning_tpu_torch.workloads.transformer \
+        --distributed --device cpu --num_layers 1 --d_model 16 ...
+    # on a host with N cards, one process a card over NCCL
+    torchrun --nproc_per_node=N -m \
+        distributeddeeplearning_tpu_torch.workloads.benchmark --distributed  A run that was preempted and landed
 its emergency checkpoint exits ``RESUMABLE_EXIT_CODE`` (75, EX_TEMPFAIL,
 ``train/resilience.py``): the code a supervisor restarts on, as opposed to
 a real failure's 1.
@@ -43,7 +54,10 @@ def _coerce(raw: str, default: Any) -> Any:
 
 
 def parse_flags(argv: List[str]) -> Dict[str, str]:
-    """``--key value`` / ``--key=value`` argv -> raw-string kwargs."""
+    """``--key value`` / ``--key=value`` argv -> raw-string kwargs; a bare
+    ``--key`` (last, or followed by another flag) maps to None, which
+    :func:`coerce_flags` takes as True for a boolean parameter, so
+    ``--distributed`` switches it on."""
     kwargs: Dict[str, str] = {}
     i = 0
     while i < len(argv):
@@ -53,9 +67,9 @@ def parse_flags(argv: List[str]) -> Dict[str, str]:
         token = token[2:]
         if "=" in token:
             key, raw = token.split("=", 1)
+        elif i + 1 >= len(argv) or argv[i + 1].startswith("--"):
+            key, raw = token, None
         else:
-            if i + 1 >= len(argv):
-                raise SystemExit(f"flag --{token} expects a value")
             key, raw = token, argv[i + 1]
             i += 1
         kwargs[key.replace("-", "_")] = raw
@@ -73,9 +87,15 @@ def coerce_flags(main_fn: Callable, raw_kwargs: Dict[str, str]) -> Dict[str, Any
                 f"unknown flag --{key}; valid: "
                 + ", ".join(f"--{p}" for p in sig.parameters)
             )
-        default = sig.parameters[key].default
+        param = sig.parameters[key]
+        default = param.default
         if default is inspect.Parameter.empty:
             default = None
+        if raw is None:
+            if not (isinstance(default, bool) or "bool" in str(param.annotation)):
+                raise SystemExit(f"flag --{key} expects a value")
+            kwargs[key] = True
+            continue
         try:
             kwargs[key] = _coerce(raw, default)
         except ValueError as exc:

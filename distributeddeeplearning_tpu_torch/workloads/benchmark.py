@@ -12,9 +12,16 @@ with weight decay 5e-5 under the Goyal schedule from base lr 0.0125
     python -m distributeddeeplearning_tpu_torch.workloads.benchmark --model resnet50
 
 Arguments keep the reference's names and defaults, plus ``device``
-(``cuda`` unless asked for the CPU; without a card it raises).  One
-process, one device: ``distributed=True`` and data formats other than
-synthetic raise (ROADMAP A5).  Weights are drawn from
+(``cuda`` unless asked for the CPU; without a card it raises).
+``distributed=True`` runs data-parallel over the processes of a
+``torch.distributed`` group, one per device (``torchrun``; see
+:mod:`._runner`): the global batch is ``batch_size x world``, the Goyal
+schedule scales with the world, each rank trains its rows of the
+reference's global batch through the implicit data-parallel step
+(global-batch BatchNorm moments, one gradient all-reduce), the result
+carries the world's total img/s and only rank 0 logs and writes the
+metrics row.  Data formats other than synthetic raise (the ImageNet
+readers are ROADMAP A5's second half).  Weights are drawn from
 ``torch.Generator().manual_seed(0)`` and the batch from the reference's
 ``synthetic_batch`` (numpy seed 0), so the batch is the reference's bit
 for bit and the weights are not.
@@ -52,16 +59,17 @@ def main(
             f"the benchmark workload is synthetic-only (data_format "
             f"{data_format!r}); fed data is ROADMAP A5"
         )
-    if distributed:
-        raise NotImplementedError(
-            "benchmark workload: distributed=True is multi-process data "
-            "parallelism, ROADMAP A5; the port's benchmark runs one device"
-        )
     import torch
 
-    from distributeddeeplearning_tpu_torch._device import resolve_device
     from distributeddeeplearning_tpu_torch.data.synthetic import synthetic_batch
     from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.parallel import (
+        MeshSpec,
+        create_mesh,
+        initialize,
+        replicate_params,
+        shard_batch,
+    )
     from distributeddeeplearning_tpu_torch.train.benchmark import run_benchmark
     from distributeddeeplearning_tpu_torch.train.loop import MetricsLog
     from distributeddeeplearning_tpu_torch.train.schedule import goyal_lr_schedule
@@ -71,8 +79,11 @@ def main(
     )
     from distributeddeeplearning_tpu_torch.train.step import build_train_step
 
-    dev = resolve_device(device)
-    n_dev = 1
+    ctx = initialize(force=distributed, device=device)
+    dev = ctx.device
+    mesh = create_mesh(MeshSpec())
+    n_dev = mesh.size
+    global_batch = batch_size * n_dev
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
     img_shape = (image_size, image_size, 3)
 
@@ -81,9 +92,11 @@ def main(
     state = create_train_state(torch.Generator().manual_seed(0), net,
                                (batch_size, *img_shape), sgd_momentum(sched),
                                device=dev)
-    step = build_train_step(state, schedule=sched, compute_dtype=dtype)
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in
-             synthetic_batch(batch_size * n_dev, img_shape, num_classes).items()}
+    replicate_params(mesh, state)
+    step = build_train_step(state, mesh=mesh if mesh.group is not None else None,
+                            schedule=sched, compute_dtype=dtype)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in shard_batch(
+        mesh, synthetic_batch(global_batch, img_shape, num_classes)).items()}
     result = run_benchmark(
         step,
         state,
@@ -94,7 +107,7 @@ def main(
         num_warmup_batches=num_warmup_batches,
         num_iters=num_iters,
         num_batches_per_iter=num_batches_per_iter,
-        log=logger.info,
+        log=logger.info if ctx.is_primary else (lambda *_: None),
     )
     MetricsLog(metrics_path).append({
         "model": model,

@@ -5,8 +5,12 @@ synthetic tokenized text (:class:`..data.synthetic.SyntheticTextDataset`:
 random ids, a random length per example, the rest padding, so every batch
 carries a real key-padding mask) with AdamW, global-norm clipping and a
 linear warmup then linear decay, through the port's train step and
-:class:`Trainer`, on one device: the reference's ``fsdp = tensor = seq = 1``
-geometry.  ``attention="flash"`` runs every layer's attention through the
+:class:`Trainer`: the reference's ``fsdp = tensor = seq = 1`` geometry, on
+one device or data-parallel over the processes of a ``torch.distributed``
+group (``distributed=True``, one process per device, the implicit
+data-parallel step; ``batch_size`` is per data shard and rank r reads the
+reference's synthetic stream of seed ``seed + 1000 r``, as its host r
+does).  ``attention="flash"`` runs every layer's attention through the
 hand-written flash kernels with the padding mask as their key-padding
 bias, forward and backward; ``"default"`` (and ``"auto"``, as at ``seq=1``
 in the reference) the reference's plain attention.  ``num_experts`` > 0
@@ -38,20 +42,19 @@ def _refuse(**given) -> None:
     where = {
         "tfrecords": "the TFRecord text reader and data/text.py (ROADMAP A7)",
         "attention": "sequence-parallel attention, ring and ulysses (ROADMAP A7)",
-        "fsdp": "FSDP parameter sharding (ROADMAP A5)",
-        "tensor": "tensor parallelism (ROADMAP A5)",
+        "fsdp": "FSDP parameter sharding (ROADMAP A5 follow-up)",
+        "tensor": "tensor parallelism (ROADMAP A6)",
         "seq": "sequence parallelism (ROADMAP A7)",
         "expert": "expert parallelism, MoE BERT's experts sharded over a "
                   "mesh axis (ROADMAP A5)",
-        "num_slices": "multi-slice data parallelism (ROADMAP A5)",
-        "distributed": "multi-process training (ROADMAP A5)",
+        "num_slices": "multi-slice data parallelism (ROADMAP A5 follow-up)",
         "sp_block_k": "ring attention's blocked loop (ROADMAP A7)",
     }
     for name, bad in given.items():
         if bad:
             raise NotImplementedError(
                 f"bert workload: {name} is not taken by the port's "
-                f"single-device slice; it belongs to {where[name]}"
+                f"data-parallel slice; it belongs to {where[name]}"
             )
 
 
@@ -128,11 +131,17 @@ def main(
     """Fine-tune; returns ``(state, FitResult)``."""
     import torch
 
-    from distributeddeeplearning_tpu_torch._device import resolve_device
     from distributeddeeplearning_tpu_torch.models import get_model
     from distributeddeeplearning_tpu_torch.models.bert import dot_product_attention
     from distributeddeeplearning_tpu_torch.ops.flash_attention import (
         make_flash_attention,
+    )
+    from distributeddeeplearning_tpu_torch.parallel import (
+        MeshSpec,
+        create_mesh,
+        data_parallel_size,
+        initialize,
+        replicate_params,
     )
     from distributeddeeplearning_tpu_torch.train.loop import Trainer, TrainerConfig
     from distributeddeeplearning_tpu_torch.train.schedule import (
@@ -149,24 +158,30 @@ def main(
     _refuse(tfrecords=data_format == "tfrecords",
             attention=attention in ("ring", "ulysses", "ulysses-flash"),
             fsdp=fsdp != 1, tensor=tensor != 1, seq=seq != 1,
-            expert=expert != 1, num_slices=num_slices != 1, distributed=bool(distributed),
+            expert=expert != 1, num_slices=num_slices != 1,
             sp_block_k=sp_block_k is not None)
+    ctx = initialize(force=distributed, device=device)
+    dev = ctx.device
+    mesh = create_mesh(MeshSpec())
+    dp_mesh = mesh if mesh.group is not None else None
     if attention == "auto":
         attention = "default"  # the reference's choice at seq = 1
     if attention == "flash":
-        attention_fn = make_flash_attention()
+        attention_fn = make_flash_attention(mesh=dp_mesh)
     elif attention == "default":
         attention_fn = dot_product_attention
     else:
         raise ValueError(f"unknown attention mode {attention!r}")
-    dev = resolve_device(device)
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
-    global_batch = batch_size
+    global_batch = batch_size * data_parallel_size(mesh)
+    per_host_batch = global_batch // ctx.process_count
     n_train = train_examples or 25_000
     spe = steps_per_epoch or max(n_train // global_batch, 1)
     total_steps = spe * epochs
-    logger.info("fine-tuning %s on %s: batch %d, %d steps/epoch, %d epochs, "
-                "attention %s", model, dev, global_batch, spe, epochs, attention)
+    if ctx.is_primary:
+        logger.info("fine-tuning %s on %s: %d ranks, global batch %d, %d "
+                    "steps/epoch, %d epochs, attention %s", model, dev,
+                    mesh.size, global_batch, spe, epochs, attention)
 
     model_kwargs = dict(num_classes=num_classes, vocab_size=vocab_size,
                         dropout_rate=dropout_rate, dtype=dtype, remat=remat,
@@ -195,15 +210,19 @@ def main(
         tx=adamw(schedule, weight_decay=weight_decay,
                  grad_clip_norm=grad_clip_norm),
     )
-    train_step = build_train_step(state, schedule=schedule, compute_dtype=dtype,
-                                  accum_steps=accum_steps, rng=seed + 1)
-    eval_step = build_eval_step(state, compute_dtype=dtype)
-    train_iter = _batches(global_batch, seq_len, vocab_size, num_classes, seed,
-                          n_train, is_training=True)
+    replicate_params(mesh, state)
+    train_step = build_train_step(state, mesh=dp_mesh, schedule=schedule,
+                                  compute_dtype=dtype, accum_steps=accum_steps,
+                                  rng=seed + 1)
+    eval_step = build_eval_step(state, mesh=dp_mesh, compute_dtype=dtype)
+    data_seed = seed + 1000 * ctx.process_index
+    train_iter = _batches(per_host_batch, seq_len, vocab_size, num_classes,
+                          data_seed, n_train, is_training=True)
 
     def eval_factory():
-        return _batches(global_batch, seq_len, vocab_size, num_classes, seed,
-                        min(n_train, 4 * global_batch), is_training=False)
+        return _batches(per_host_batch, seq_len, vocab_size, num_classes,
+                        data_seed, min(n_train, 4 * global_batch),
+                        is_training=False)
 
     trainer = Trainer(
         train_step,
@@ -218,6 +237,7 @@ def main(
             profile_dir=profile_dir,
             metrics_path=metrics_path,
         ),
+        mesh=dp_mesh,
     )
     return trainer.fit(state, train_iter, eval_factory)
 

@@ -3,16 +3,27 @@
 ``main()`` trains :mod:`..models.pipelined_transformer` on synthetic
 next-token batches (fixed-seed random tokens; the loss is the shifted
 cross-entropy) with AdamW, global-norm clipping and a warmup + linear
-decay schedule, through the port's train step and :class:`Trainer`, on
-one device: the reference's ``pipe = seq = fsdp = tensor = 1`` geometry,
-its single-chip LM trainer.  With ``attention="flash"`` every layer runs
-the hand-written flash forward kernel and, in backward, the dQ and dK/dV
-kernels.
+decay schedule, through the port's train step and :class:`Trainer`: the
+reference's ``pipe = seq = fsdp = tensor = 1`` geometry, on one device or
+data-parallel over the processes of a ``torch.distributed`` group
+(``distributed=True``, one process per device; see
+:mod:`._runner` for the ``torchrun`` launch).  With ``attention="flash"``
+every layer runs the hand-written flash forward kernel and, in backward,
+the dQ and dK/dV kernels, each rank on its own rows
+(``make_flash_attention(mesh=..., causal=True)``).
+
+As in the reference, ``batch_size`` is per data shard: the global batch
+is ``batch_size x data shards``, each rank takes ``batch_size`` rows a
+step from its own stream (seeded ``seed + rank``), and the implicit path
+or the explicit gradient comms (``comm_overlap``, ``bucket_mb``,
+``comm_dtype``, ``weight_update_sharding``; weight-update sharding with a
+global-norm clip is refused as in the reference) carry the gradients.
 
 Arguments keep the reference's names and defaults, plus ``device``
 (``"cuda"`` unless asked for the CPU).  What the slice does not take
-raises, naming where it comes: the parallel geometries and the gradient
-comms (ROADMAP item 11), sequence-parallel attention (slice 8).
+raises, naming where it comes: FSDP (ROADMAP A5), tensor parallelism
+(A6), pipeline and sequence parallelism and ring attention (A7),
+multi-slice meshes (A5).
 ``save_filepath`` and ``checkpoint_every_steps`` checkpoint and resume
 through the trainer's :class:`..train.checkpoint.Checkpointer` (with a
 ``save_filepath`` the preemption guard is on: SIGTERM or an injected
@@ -64,16 +75,12 @@ def _token_batches(
 def _refuse(**given) -> None:
     """Raise for each argument the single-device slice does not take."""
     where = {
-        "pipe": "pipeline parallelism (slice 8)",
-        "seq": "sequence parallelism (slice 8)",
-        "fsdp": "FSDP parameter sharding (ROADMAP item 11)",
-        "tensor": "tensor parallelism (slice 7)",
-        "num_slices": "multi-slice data parallelism (ROADMAP item 11)",
-        "distributed": "multi-process training (ROADMAP item 11)",
-        "comm_overlap": "the gradient-comms schedule (ROADMAP item 11)",
-        "weight_update_sharding": "the gradient-comms schedule (ROADMAP item 11)",
-        "comm_dtype": "the gradient-comms schedule (ROADMAP item 11)",
-        "sp_block_k": "ring attention (slice 8)",
+        "pipe": "pipeline parallelism (ROADMAP A7)",
+        "seq": "sequence parallelism (ROADMAP A7)",
+        "fsdp": "FSDP parameter sharding (ROADMAP A5 follow-up)",
+        "tensor": "tensor parallelism (ROADMAP A6)",
+        "num_slices": "multi-slice data parallelism (ROADMAP A5 follow-up)",
+        "sp_block_k": "ring attention (ROADMAP A7)",
         "scan_unroll": "nothing: it is an XLA scan-unroll compile hint with "
                        "no eager counterpart",
     }
@@ -81,7 +88,7 @@ def _refuse(**given) -> None:
         if bad:
             raise NotImplementedError(
                 f"transformer workload: {name} is not taken by the port's "
-                f"single-device slice; it belongs to {where[name]}"
+                f"data-parallel slice; it belongs to {where[name]}"
             )
 
 
@@ -134,13 +141,22 @@ def main(
     device: str = "cuda",
 ):
     """Train; returns ``(state, FitResult)``."""
-    from distributeddeeplearning_tpu_torch._device import resolve_device
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
         ATTENTIONS,
         forward,
         init_params,
         next_token_loss,
         per_token_loss,
+    )
+    from distributeddeeplearning_tpu_torch.ops.flash_attention import (
+        make_flash_attention,
+    )
+    from distributeddeeplearning_tpu_torch.parallel import (
+        MeshSpec,
+        create_mesh,
+        data_parallel_size,
+        initialize,
+        replicate_params,
     )
     from distributeddeeplearning_tpu_torch.train.loop import (
         Trainer,
@@ -163,25 +179,44 @@ def main(
     if data_format != "synthetic":
         raise ValueError("the transformer LM workload is synthetic-data only "
                          f"(got data_format={data_format!r})")
+    if comm_overlap:
+        if pipe > 1 or seq > 1 or fsdp > 1 or tensor > 1:
+            raise ValueError(
+                "comm_overlap is the explicit replicated-params DP "
+                "schedule; it does not compose with pipe/seq/fsdp/tensor"
+            )
+        if weight_update_sharding and grad_clip_norm:
+            raise ValueError(
+                "weight_update_sharding applies the optimizer per gradient "
+                "shard, so optax.clip_by_global_norm would clip by the "
+                "SHARD norm — pass --grad_clip_norm 0 with "
+                "--weight_update_sharding"
+            )
     _refuse(pipe=pipe != 1, seq=seq != 1, fsdp=fsdp != 1, tensor=tensor != 1,
-            num_slices=num_slices != 1, distributed=bool(distributed),
-            comm_overlap=comm_overlap,
-            weight_update_sharding=weight_update_sharding,
-            comm_dtype=comm_dtype not in (None, "f32", "float32"),
-            sp_block_k=sp_block_k is not None, scan_unroll=scan_unroll != 1)
+            num_slices=num_slices != 1, sp_block_k=sp_block_k is not None,
+            scan_unroll=scan_unroll != 1)
     if attention not in ATTENTIONS:
         raise NotImplementedError(
             f"attention={attention!r}: the port takes {ATTENTIONS}; ring and "
-            "ulysses sequence-parallel attention are slice 8"
+            "ulysses sequence-parallel attention are ROADMAP A7"
         )
-    dev = resolve_device(device)
+    ctx = initialize(force=distributed, device=device)
+    dev = ctx.device
+    mesh = create_mesh(MeshSpec())
+    dp_mesh = mesh if mesh.group is not None else None
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
-    global_batch = batch_size
+    data_shards = data_parallel_size(mesh)
+    global_batch = batch_size * data_shards
+    per_host_batch = global_batch // ctx.process_count
     n_train = train_examples or 25_000
     spe = steps_per_epoch or max(n_train // global_batch, 1)
     total_steps = spe * epochs
-    logger.info("training %d-layer LM on %s: batch %d, %d steps/epoch, "
-                "%d epochs", num_layers, dev, global_batch, spe, epochs)
+    if ctx.is_primary:
+        logger.info("training %d-layer LM on %s: %d ranks, global batch %d, "
+                    "%d steps/epoch, %d epochs", num_layers, dev, mesh.size,
+                    global_batch, spe, epochs)
+    attention_fn = (make_flash_attention(mesh=mesh, causal=True)
+                    if attention == "flash" and dp_mesh is not None else None)
 
     params = init_params(
         torch.Generator().manual_seed(seed), num_layers=num_layers,
@@ -197,9 +232,10 @@ def main(
             # [b, s, vocab] logits never exist
             return per_token_loss(p, tokens, num_heads=num_heads,
                                   attention=attention, remat=remat,
-                                  loss_chunk=loss_chunk)
+                                  loss_chunk=loss_chunk,
+                                  attention_fn=attention_fn)
         return forward(p, tokens, num_heads=num_heads, attention=attention,
-                       remat=remat).float()
+                       remat=remat, attention_fn=attention_fn).float()
 
     schedule = warmup_linear_decay_schedule(
         base_lr, total_steps, warmup_fraction=warmup_fraction)
@@ -208,6 +244,7 @@ def main(
         tx=adamw(schedule, weight_decay=weight_decay,
                  grad_clip_norm=grad_clip_norm),
     )
+    replicate_params(mesh, state)  # rank 0's weights everywhere
 
     if loss_chunk:
         def lm_loss(losses, labels, *, label_smoothing: float = 0.0):
@@ -229,17 +266,23 @@ def main(
                     "perplexity": torch.exp(loss).float()}
 
     train_step = build_train_step(
-        state, schedule=schedule, compute_dtype=dtype, loss_fn=lm_loss,
-        metrics_fn=lm_metrics, accum_steps=accum_steps,
-        skip_nonfinite=skip_nonfinite, bucket_mb=bucket_mb,
+        state, mesh=dp_mesh, schedule=schedule, compute_dtype=dtype,
+        loss_fn=lm_loss, metrics_fn=lm_metrics, accum_steps=accum_steps,
+        skip_nonfinite=skip_nonfinite, comm_overlap=comm_overlap,
+        bucket_mb=bucket_mb, comm_dtype=comm_dtype,
+        weight_update_sharding=weight_update_sharding,
     )
-    eval_step = build_eval_step(state, compute_dtype=dtype, loss_fn=lm_loss,
-                                metrics_fn=lm_metrics)
-    train_iter = _token_batches(global_batch, seq_len, vocab_size, seed,
-                                n_train, repeat=True)
+    if comm_overlap:
+        # the prepared state doubles as the checkpoint restore template
+        state = train_step.prepare_state(state)
+    eval_step = build_eval_step(state, mesh=dp_mesh, compute_dtype=dtype,
+                                loss_fn=lm_loss, metrics_fn=lm_metrics)
+    train_iter = _token_batches(per_host_batch, seq_len, vocab_size,
+                                seed + ctx.process_index, n_train, repeat=True)
 
     def eval_factory():
-        return _token_batches(global_batch, seq_len, vocab_size, seed + 7000,
+        return _token_batches(per_host_batch, seq_len, vocab_size,
+                              seed + 7000 + ctx.process_index,
                               min(n_train, 4 * global_batch), repeat=False)
 
     trainer = Trainer(
@@ -259,6 +302,7 @@ def main(
             anomaly_rollback=anomaly_rollback,
             step_deadline_s=step_deadline_s,
         ),
+        mesh=dp_mesh,
     )
     return trainer.fit(state, train_iter, eval_factory)
 

@@ -13,7 +13,9 @@
 step, flash against default, the card against the CPU), ``phase_resume``
 (checkpoints and bit-exact resume of a ViT-B/16 fit), ``phase_resilience``
 (the trainer's resilience layer on that fit, and the LM workload's exit
-codes) and ``phase_moe_bert`` (bert-base with experts), each as
+codes), ``phase_moe_bert`` (bert-base with experts) and
+``phase_data_parallel`` (data-parallel training: NCCL at a world of 1,
+two gloo ranks sharing the card, the distributed flagship benchmark), each as
 ``chip_smoke.py`` runs it, after the card's ``nvidia-smi`` name and power
 limit.  Exits
 nonzero if a phase fails.  Run from the repository's root; needs a CUDA
@@ -28,7 +30,8 @@ import sys
 import traceback
 
 PHASES = ("phase_resnet", "phase_resnet_parity", "phase_image_short", "phase_vit",
-          "phase_vit_flash", "phase_resume", "phase_resilience", "phase_moe_bert")
+          "phase_vit_flash", "phase_resume", "phase_resilience", "phase_moe_bert",
+          "phase_data_parallel")
 
 
 def main(argv) -> int:

@@ -415,8 +415,13 @@ def test_workload_main_runs_on_the_cpu(tmp_path):
     assert bf16.img_sec_per_chip_mean > 0
 
 
-@pytest.mark.parametrize("kw,exc", [({"distributed": True}, NotImplementedError),
-                                    ({"data_format": "tfrecords"}, ValueError)])
-def test_workload_refuses_what_the_slice_does_not_take(kw, exc):
-    with pytest.raises(exc, match="ROADMAP A5"):
+@pytest.mark.parametrize("kw,exc,match", [
+    # distributed=True takes a rendezvous (torchrun's environment or an
+    # address), as the reference's jax.distributed.initialize does
+    pytest.param({"distributed": True}, ValueError, "MASTER_ADDR",
+                 id="kw0-ValueError"),
+    pytest.param({"data_format": "tfrecords"}, ValueError, "ROADMAP A5",
+                 id="kw1-ValueError")])
+def test_workload_refuses_what_the_slice_does_not_take(kw, exc, match):
+    with pytest.raises(exc, match=match):
         twork.main(device="cpu", **kw)

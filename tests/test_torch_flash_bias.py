@@ -259,11 +259,15 @@ def test_make_flash_attention_binds_causal_and_refuses_a_mesh():
 
     class Mesh:
         size = 2
+        shape = {"data": 2, "fsdp": 1, "tensor": 1}
 
-    with pytest.raises(NotImplementedError, match="A5"):
+    # a data mesh: each rank runs the kernels on its own rows
+    on_mesh = tfa.make_flash_attention(mesh=Mesh(), causal=True)
+    assert torch.equal(on_mesh(*t, keep, dtype=torch.float32),
+                       tfa.flash_attention(*t, keep, causal=True))
+    Mesh.shape = {"data": 1, "fsdp": 1, "tensor": 2}
+    with pytest.raises(NotImplementedError, match="A6"):
         tfa.make_flash_attention(mesh=Mesh())
-    Mesh.size = 1
-    tfa.make_flash_attention(mesh=Mesh())
 
 
 def test_cpu_tensors_with_a_mask_never_launch_a_kernel():

@@ -74,7 +74,9 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
                  "workloads._runner", "train.checkpoint", "train.resilience",
                  "utils.faults", "utils.prefetch", "utils.retry",
                  "utils.throughput", "obs.goodput", "obs.trace", "obs.recorder",
-                 "obs.registry"):
+                 "obs.registry", "parallel", "parallel.mesh",
+                 "parallel.distributed", "parallel.collectives",
+                 "parallel.sharding", "parallel.comms"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
 
@@ -132,6 +134,28 @@ def test_image_entry_points_need_a_card_unless_asked_for_the_cpu():
                        num_iters=1, num_batches_per_iter=1, num_warmup_batches=0)
     v = model.init(input_shape=(1, 32, 32, 3), device="cpu")
     assert v["params"]["head"]["kernel"].device.type == "cpu"
+
+
+def test_data_parallel_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """``parallel.initialize`` resolves the entry point's device (cuda by
+    default, raising without a card) and chooses the backend from it: gloo
+    on the CPU; the switch on without a rendezvous raises instead of
+    running alone."""
+    from distributeddeeplearning_tpu_torch.parallel import distributed
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    for name in ("DISTRIBUTED", "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed.initialize()
+    ctx = distributed.initialize(device="cpu")
+    assert (ctx.process_count, ctx.distributed, ctx.backend) == (1, False, None)
+    assert ctx.device.type == "cpu" and ctx.is_primary
+    monkeypatch.setenv("DISTRIBUTED", "1")
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
+        distributed.initialize(device="cpu")
+    assert distributed.process_count() == 1 and distributed.is_primary()
 
 
 def test_cpu_serving_leaves_the_launch_counters_at_zero():

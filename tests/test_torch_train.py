@@ -337,10 +337,17 @@ def test_skipped_update_leaves_params_unchanged(jparams):
 
 
 def test_comm_arguments_raise():
-    for kw in ({"comm_overlap": True}, {"weight_update_sharding": True},
-               {"comm_dtype": "bf16"}, {"comm_skip": True}):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    """The reference's argument errors: the comm knobs need comm_overlap,
+    comm_dtype is one of COMM_DTYPES, and the comm step needs the state
+    whose params make its bucket layout."""
+    for kw in ({"weight_update_sharding": True}, {"comm_dtype": "bf16"},
+               {"comm_skip": True}):
+        with pytest.raises(ValueError, match="require comm_overlap"):
             tstep.build_train_step(None, **kw)
+    with pytest.raises(ValueError, match="comm_dtype"):
+        tstep.build_train_step(None, comm_overlap=True, comm_dtype="fp8")
+    with pytest.raises(ValueError, match="state_example"):
+        tstep.build_train_step(None, comm_overlap=True)
 
 
 # ---- loop and workload -----------------------------------------------------
@@ -396,14 +403,25 @@ def test_workload_main_options_run(tmp_path):
     assert all(np.isfinite(v) for v in result.final_train_metrics.values())
 
 
+# the data-parallel slice takes distributed and the comm knobs; what it
+# still refuses of them are the reference's argument errors (a rendezvous
+# for distributed=True, weight-update sharding with the global-norm clip,
+# the comm knobs without comm_overlap)
+ARG_ERRORS = {"distributed": (ValueError, "MASTER_ADDR"),
+              "comm_overlap": (ValueError, "SHARD norm"),
+              "weight_update_sharding": (ValueError, "require comm_overlap"),
+              "comm_dtype": (ValueError, "require comm_overlap")}
+
+
 @pytest.mark.parametrize("kw", [
     {"pipe": 2}, {"seq": 2}, {"fsdp": 2}, {"tensor": 2}, {"num_slices": 2},
-    {"distributed": True}, {"comm_overlap": True},
+    {"distributed": True}, {"comm_overlap": True, "weight_update_sharding": True},
     {"weight_update_sharding": True}, {"comm_dtype": "bf16"},
     {"sp_block_k": 8}, {"scan_unroll": 2}, {"attention": "ring"},
 ], ids=lambda kw: next(iter(kw)))
 def test_workload_main_refuses_what_the_slice_does_not_take(kw):
-    with pytest.raises(NotImplementedError):
+    exc, match = ARG_ERRORS.get(next(iter(kw)), (NotImplementedError, None))
+    with pytest.raises(exc, match=match):
         tw.main(epochs=1, steps_per_epoch=1, train_examples=4, **{**TINY, **kw})
 
 

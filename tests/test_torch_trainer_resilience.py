@@ -31,6 +31,7 @@ from distributeddeeplearning_tpu.data import synthetic as jsynth
 from distributeddeeplearning_tpu.models import get_model as jget_model
 from distributeddeeplearning_tpu.obs import goodput as jgood
 from distributeddeeplearning_tpu.obs import recorder as jrec
+from distributeddeeplearning_tpu.obs import trace as jtrace
 from distributeddeeplearning_tpu.parallel import create_mesh
 from distributeddeeplearning_tpu.train import loop as jloop
 from distributeddeeplearning_tpu.train import resilience as jres
@@ -194,16 +195,27 @@ def test_both_trainers_react_alike(variables, tmp_path, case):
     for name, fit, faults, res, rec in (("port", _port_fit, tfaults, tres, trec),
                                         ("ref", _jax_fit, jfaults, jres, jrec)):
         prev = rec.get_recorder()
+        prev_tracers = ttrace.get_tracer(), jtrace.get_tracer()
         faults.install_plan(c["spec"])
         recorder = rec.set_recorder(rec.FlightRecorder(capacity=4096))
+        # the events reach the recorder through the process tracer: bind a
+        # fresh one on both packages (a disabled tracer another test left
+        # installed may have no recorder at all)
+        ttrace.configure(enabled=False)
+        jtrace.configure(enabled=False)
         directory = str(tmp_path / name) if c["checkpoint"] else None
-        # a dead data stream is restartable by the supervisor's choice, as
-        # `ddlt train --max-restarts` treats it
-        state, result, losses, trainers, restarts = fit(
-            variables, directory, supervise=c.get("supervise", 0),
-            restart_on=(res.RestartableError, faults.DataStreamDeath), **c["cfg"])
-        faults.install_plan("")
-        rec.set_recorder(prev)
+        try:
+            # a dead data stream is restartable by the supervisor's choice,
+            # as `ddlt train --max-restarts` treats it
+            state, result, losses, trainers, restarts = fit(
+                variables, directory, supervise=c.get("supervise", 0),
+                restart_on=(res.RestartableError, faults.DataStreamDeath),
+                **c["cfg"])
+        finally:
+            faults.install_plan("")
+            rec.set_recorder(prev)
+            ttrace.set_tracer(prev_tracers[0])
+            jtrace.set_tracer(prev_tracers[1])
         flagged = [e["args"]["step"] for e in recorder.entries()
                    if e["name"] == "resilience/anomalous_step"]
         if name == "port":
@@ -234,13 +246,14 @@ def clean(variables):
 
 def test_a_rolled_back_fit_is_bitwise_the_clean_fit(variables, clean, tmp_path):
     tfaults.install_plan("nan_loss@4,nan_loss@5")
+    prev_tracer = ttrace.get_tracer()
     tracer = ttrace.configure(enabled=True)
     try:
         state, result, losses, (trainer,), _ = _port_fit(
             variables, str(tmp_path / "ck"), anomaly_max_consecutive=2,
             anomaly_rollback=True, goodput_path=str(tmp_path / "g.jsonl"))
     finally:
-        ttrace.configure(enabled=False)
+        ttrace.set_tracer(prev_tracer)
     assert result.anomalous_steps == 2 and result.rollbacks == 1
     assert [s for s, _ in losses] == [1, 2, 3, 4, 5, 4, 5, 6]
     assert all(np.isnan(v) for _, v in losses[3:5])
