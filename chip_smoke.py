@@ -269,6 +269,42 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    in total ("two ranks share one card: not a scaling figure").  Each part
    prints its wall time, the wire bytes of ``wire_bytes()`` and the peak
    memory of each rank.
+27. ``phase_tensor_parallel`` (after 26): tensor-parallel serving.  The
+   serve model (SERVE's full width, seed 0, the tied 4x head) through
+   ``tensor_parallel_engine(tp=2)`` over 2 gloo ranks sharing the card
+   (spawned, ``cuda:0`` passed explicitly, their own time limit), each
+   rank holding its slice of the weights and its 6 of the 12 heads of the
+   cache, in five runs held against the same run on the one-process
+   engine (tp=1, first, in this process): (a) dense f32, the dense
+   serving cell's requests; (b) paged f32 on the paged cell's
+   shared-prefix requests (page 64, chunk 64, 72 pages); (c) paged with
+   an int8 cache; (d) dense with bf16 weights and cache; (e) dense with
+   int8 weights.  Every run, with every counter zeroed just before and
+   read just after: both ranks' streams are equal, and equal tp=1's in
+   (a), (b), (c) and (e); in (d) bf16 greedy meets exact ties (tp=1's own
+   top-2 logits 0 or one bf16 ulp apart, where another order of the
+   row-parallel sums may take the other token), so there the tp=2
+   engine's teacher-forced logits over tp=1's streams are held to tp=1's
+   by ``hold_bf16`` against the f32 logits of the same weights, and a
+   stream may leave tp=1's only at a token whose tp=1 logit is within
+   that limit of the row's top; the paged runs'
+   prefix hit rate equals tp=1's and is above 0; each rank launches K4
+   12 times a decode step and a chunk, each over 6 heads, K1 12 times a
+   dense prefill over 6 heads, no plain version; each rank runs exactly
+   2 L + 1 = 25 all-reduces and one all-gather a forward pass (24
+   all-reduces with MAX more under int8 weights), and gloo stages the
+   all-gather through the host.  It prints the per-rank param and KV
+   bytes against tp=1, the per-rank decode step p50, TTFT p50, tokens/s,
+   peak memory, and where a dense f32 decode step's time goes on a rank
+   (host wall, the host time inside the collectives' calls, and the
+   kernels' device time in a profiled window).  Then, alone on the
+   card: K4(d), K4 over a rank's 6 heads of the dense [8, 12, 576, 12,
+   64] cache (f32, bf16 and int8 pages), held against its plain version
+   and bitwise against the all-heads launch's rows, timed beside SDPA over
+   the local heads and its bound; and K1-K3 through
+   ``make_flash_attention(mesh)`` over a rank's 6 heads at the prefill
+   shape (B=1, S=512, f32 and bf16), held against the plain versions and
+   the all-heads kernels' rows (output and gradients), and timed.
 
 K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
 split pass with one block per (span of 64 absolute positions, head, slot)
@@ -321,6 +357,14 @@ The bf16 K1, K2 and K3 rows also carry ``data_parallel``: their entry at
 the per-rank shape of phase 26(b) (B=4, S 2048, causal) with the launches
 a rank a step; their ``launches_by_path`` adds each phase-26 run's counts
 (``dp_nccl_*`` at a world of 1, ``dp_gloo_rank{r}_*`` each rank's).
+
+The ``flash_decode_tp`` row is K4(d): its entry is phase 27's, at a
+rank's shape (6 heads, f32 pages; the bf16 and int8 times beside), and
+its launches each rank's on the five tensor-parallel runs.  The f32 and
+bf16 K1, K2 and K3 rows carry ``tensor_parallel``: phase 27's entry over a
+rank's heads, with each rank's launches on the tensor-parallel runs that
+run the kernel (K1 on the dense runs' prefills; K2 and K3 on none: the
+port trains data-parallel only).
 
 Each row of the kernels line carries ``head_dims``: the phase-14 entry
 of the kernel at head dims 8, 16 and 32, with the launches of the phase-15
@@ -4862,6 +4906,584 @@ def phase_data_parallel(torch, np, F, fa, card):
     return launches, per_rank
 
 
+# ---- tensor-parallel serving (phase 27) ------------------------------------
+
+TP_DEGREE = 2
+TP_LOCAL_HEADS = SERVE["num_heads"] // TP_DEGREE
+TP_WORKER_TIMEOUT = 420  # seconds a spawned TP rank may take (five runs)
+TP_RUNS = (  # name, KV layout, weights, engine options: phase 27 (a)-(e)
+    ("dense_f32", "dense", "f32", {}),
+    ("paged_f32", "paged", "f32", {}),
+    ("paged_int8", "paged", "f32", {"cache_dtype": "int8"}),
+    ("dense_bf16", "dense", "bf16", {}),
+    ("dense_int8_weights", "dense", "int8", {}),
+)
+TP_PROFILE_STEPS = 10  # decode steps of the dense f32 run's breakdown
+#: prefill shape of K1-K3 over the local heads: one 512-token prompt
+TP_FLASH = dict(b=1, s=512, d=64)
+
+
+def _tp_params(torch, weights):
+    """The serving cells' weights (``serve_params``) as f32, bf16 (every
+    leaf cast) or int8 (``quantize_params``: int8 matmul weights)."""
+    from distributeddeeplearning_tpu_torch.quant.calibrate import quantize_params
+    from distributeddeeplearning_tpu_torch.train.state import tree_map
+
+    params = serve_params(torch)
+    if weights == "bf16":
+        return tree_map(lambda t: t.to(torch.bfloat16), params)
+    if weights == "int8":
+        return quantize_params(params)
+    return params
+
+
+def _tree_bytes(tree) -> int:
+    from distributeddeeplearning_tpu_torch.parallel.sharding import named_leaves
+
+    return sum(t.numel() * t.element_size() for _, t in named_leaves(tree))
+
+
+class _TPLaunches:
+    """Records (heads, queries) of every K4 launch and the heads of every
+    K1 launch, and counts the plain versions' calls, by wrapping the
+    launchers of the decode and flash modules."""
+
+    def __init__(self, fa, fd):
+        self.fa, self.fd, self.k4, self.k1, self.plain = fa, fd, [], [], 0
+        self._orig = (fd._launch, fa._launch, fd._paged_attention_plain, fd._attend,
+                      fa._dense_attention)
+
+    def __enter__(self):
+        k4_launch, k1_launch = self._orig[:2]
+
+        def k4(q4, *a, **k):
+            self.k4.append((q4.shape[2], q4.shape[1]))
+            return k4_launch(q4, *a, **k)
+
+        def k1(q, *a, **k):
+            self.k1.append(q.shape[2])
+            return k1_launch(q, *a, **k)
+
+        def plain(fn):
+            def wrapper(*a, **k):
+                self.plain += 1
+                return fn(*a, **k)
+            return wrapper
+
+        self.fd._launch, self.fa._launch = k4, k1
+        (self.fd._paged_attention_plain, self.fd._attend,
+         self.fa._dense_attention) = (plain(f) for f in self._orig[2:])
+        return self
+
+    def __exit__(self, *exc):
+        (self.fd._launch, self.fa._launch, self.fd._paged_attention_plain,
+         self.fd._attend, self.fa._dense_attention) = self._orig
+
+
+def _tp_step_profile(torch, np, engine):
+    """Where a decode step's time goes (every slot prefilled with 300
+    tokens, ``TP_PROFILE_STEPS`` steps at position 300), ms a step: the
+    host wall and the host time inside the collectives (a host clock
+    around each call of ``parallel.collectives``: a synchronous gloo
+    collective waits for the card, stages through host memory and waits
+    for the other rank), then, in a second window, the device's kernel
+    time from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributeddeeplearning_tpu_torch.parallel import collectives
+
+    toks, pos = fill_slots(np, engine, np.random.default_rng(5))
+    engine.decode(toks, pos)
+    torch.cuda.synchronize()
+    spent = [0.0]
+    originals = {n: getattr(collectives, n)
+                 for n in ("all_reduce", "all_reduce_max", "all_gather")}
+
+    def clocked(fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t
+        return call
+
+    for n, fn in originals.items():
+        setattr(collectives, n, clocked(fn))
+    try:
+        t0 = time.perf_counter()
+        for _ in range(TP_PROFILE_STEPS):
+            engine.decode(toks, pos)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / TP_PROFILE_STEPS
+    finally:
+        for n, fn in originals.items():
+            setattr(collectives, n, fn)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TP_PROFILE_STEPS):
+            engine.decode(toks, pos)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    kernels = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(((e.key, e.self_device_time_total / 1e3 / TP_PROFILE_STEPS)
+                  for e in events), key=lambda kv: -kv[1])[:4]
+    return {"wall_ms": wall, "collective_host_ms": spent[0] * 1e3 / TP_PROFILE_STEPS,
+            "kernel_ms": kernels / TP_PROFILE_STEPS if kernels else None,
+            "top": [(k[:60], ms) for k, ms in top]}
+
+
+def _forced_logits(torch, engine, prompts, streams):
+    """Teacher-forced logits of ``engine``'s prefill path (its weights, its
+    mesh: ``forward_prefill`` with flash attention) over each prompt and
+    the given stream: the rows that chose each generated token, per uid,
+    in the weights' dtype."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        forward_prefill,
+    )
+
+    out = {}
+    with torch.inference_mode():
+        for uid, prompt in prompts.items():
+            seq = list(prompt) + streams[uid][:-1]
+            logits, _, _ = forward_prefill(
+                engine.params, torch.tensor([seq], device="cuda:0"),
+                num_heads=SERVE["num_heads"], attention="flash", mesh=engine.mesh)
+            out[uid] = logits[0, len(prompt) - 1:]
+    return out
+
+
+def _tp_run(torch, np, fa, fd, run, tp, forced=None):
+    """One run of phase 27 on ``tensor_parallel_engine(tp=tp)`` on cuda:0
+    (``tp=1``: the plain engine): a warm-up as ``serve_engine``'s, then the
+    serving cell's requests with every counter zeroed just before and read
+    just after; with ``forced`` (tp=1's streams), the engine's
+    teacher-forced logits over them too (as int16 bit patterns of the
+    bf16 values).  Returns plain values."""
+    from distributeddeeplearning_tpu_torch.parallel import collectives
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, Request, tensor_parallel_engine,
+    )
+
+    name, layout, weights, kw = run
+    opts = dict(kv_layout=layout, num_heads=SERVE["num_heads"], batch_slots=SLOTS,
+                max_seq=MAX_SEQ, device="cuda:0", **kw)
+    if layout == "paged":
+        opts.update(page_size=PAGE, prefill_chunk=CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    params = _tp_params(torch, weights)
+    full_bytes = _tree_bytes(params)
+    engine, mesh = tensor_parallel_engine(params, tp=tp, **opts)
+    del params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(1 if layout == "dense" else 3)
+    warm = (64, 128, 256, 512) if layout == "dense" else (72, 200)
+    ContinuousBatchingScheduler(engine, max_new_tokens=2).run(
+        [Request(uid=f"warm{n}", prompt=rng.integers(1, SERVE["vocab_size"], n).tolist())
+         for n in warm])
+    if layout == "paged":
+        engine.reset_stats()
+        engine.clear_prefix_cache()
+    requests = serve_requests(np, layout)
+    collectives.reset_counts()
+    collectives.reset_staged()
+    torch.cuda.synchronize()
+    with _TPLaunches(fa, fd) as launched:
+        results, report = ContinuousBatchingScheduler(
+            engine, max_new_tokens=NEW_TOKENS).run(requests)
+        torch.cuda.synchronize()
+    out = {
+        "tokens": {r.uid: r.tokens for r in results}, "finish": report.finish_reasons,
+        "hit_rate": report.prefix_hit_rate, "tp": report.tp,
+        "layout_rules": report.layout_rules, "decode_steps": report.decode_steps,
+        "prefills": engine.chunks_run if layout == "paged" else len(requests),
+        "decode_p50_ms": report.decode_step_s["p50"] * 1e3,
+        "ttft_p50_ms": report.ttft_s["p50"] * 1e3, "tokens_per_s": report.tokens_per_sec,
+        "counts": collectives.counts(), "staged": collectives.staged_ops(),
+        "k4": sorted(set(launched.k4)), "k4_launches": len(launched.k4),
+        "k4_multi_query": sum(nq > 1 for _, nq in launched.k4),
+        "k1": sorted(set(launched.k1)), "k1_launches": len(launched.k1),
+        "plain": launched.plain, "param_bytes": _tree_bytes(engine.params),
+        "full_param_bytes": full_bytes, "kv_bytes": engine.kv_bytes(),
+        "kv_heads": engine.cache["k"].shape[3], "mesh": mesh is not None,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if name == "dense_f32":
+        out["profile"] = _tp_step_profile(torch, np, engine)
+    if forced is not None:
+        prompts = {r.uid: r.prompt for r in requests}
+        out["forced"] = {uid: t.view(torch.int16).cpu().numpy() for uid, t in
+                         _forced_logits(torch, engine, prompts, forced).items()}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(torch, np, rank, world, runs, forced):
+    """Rank ``rank`` of phase 27: every run of ``runs`` at ``tp=world``
+    (``forced``: tp=1's streams of the bf16 runs, by run)."""
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.ops import flash_decode as fd
+
+    out = {run[0]: _tp_run(torch, np, fa, fd, run, world, forced.get(run[0]))
+           for run in runs}
+    out["jax_loaded"] = any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    return out
+
+
+def _tp_mesh(rank):
+    """Rank ``rank``'s mesh of ``tensor=TP_DEGREE``, built without a
+    process group: the attention wrappers take its shape and rank only."""
+    from distributeddeeplearning_tpu_torch.parallel.mesh import AXIS_ORDER, Mesh
+
+    shape = dict.fromkeys(AXIS_ORDER, 1)
+    shape["tensor"] = TP_DEGREE
+    return Mesh(shape=shape, size=TP_DEGREE, rank=rank)
+
+
+def _local(t, rank, dim):
+    """Rank ``rank``'s heads of ``t`` along ``dim``, contiguous (as a rank
+    allocates its own cache)."""
+    per = t.shape[dim] // TP_DEGREE
+    return t.narrow(dim, rank * per, per).contiguous()
+
+
+def _k4d(torch, F, fd, card):
+    """K4(d): K4 over each rank's 6 heads of the dense [8, 12, 576, 12, 64]
+    cache (f32, bf16 and int8 pages; bf16 q on bf16 pages as the bf16
+    engine runs it, the int8 own-token overlay), through the wrappers'
+    ``mesh=``: held against its plain version (K4_TOL; bf16 by hold_bf16
+    too) and bitwise against the all-heads launch's rows for those heads;
+    the f32 run timed beside its plain version, SDPA over the local heads
+    and its bound, and the bf16 and int8 runs beside their bounds.
+    Returns the JSON row's entry."""
+    from distributeddeeplearning_tpu_torch.quant.qtensor import quantize_kv
+
+    slots, layers, s, h, hd = SLOTS, SERVE["num_layers"], MAX_SEQ, SERVE["num_heads"], 64
+    g = torch.Generator(device="cuda").manual_seed(27)
+    cache = {"k": torch.randn((slots, layers, s, h, hd), generator=g, device="cuda"),
+             "v": torch.randn((slots, layers, s, h, hd), generator=g, device="cuda")}
+    pos = torch.tensor([0, 575, 17, 300, 64, 511, 128, 450], dtype=torch.int32,
+                       device="cuda")
+    qkv = torch.randn((slots, 3, h, hd), generator=g, device="cuda")
+    variants = {}
+    for pages in ("f32", "bf16", "int8"):
+        if pages == "int8":
+            kq, ks = quantize_kv(cache["k"])
+            vq, vs = quantize_kv(cache["v"])
+            full = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+            q3, k_t, v_t = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+        else:
+            dt = torch.bfloat16 if pages == "bf16" else torch.float32
+            full = {n: t.to(dt) for n, t in cache.items()}
+            q3, k_t, v_t = (qkv[:, i].to(dt) for i in range(3))
+        variants[pages] = (full, q3, k_t, v_t)
+    worst, bitwise, views = 0.0, True, {}
+    for pages, (full, q3, k_t, v_t) in variants.items():
+        int8 = pages == "int8"
+        own = (k_t, v_t) if int8 else (None, None)
+        local = [{n: _local(t, r, 3) for n, t in full.items()} for r in range(TP_DEGREE)]
+        views[pages] = [
+            [tuple(loc[n][:, i] if n in loc else None
+                   for n in ("k", "v", "k_scale", "v_scale")) for i in range(layers)]
+            for loc in local]
+        for layer in (0, layers - 1):
+            lv = tuple(full[n][:, layer] if n in full else None
+                       for n in ("k", "v", "k_scale", "v_scale"))
+            all_heads = fd.decode_attention_dense(q3, *lv, *own, pos)
+            for r in range(TP_DEGREE):
+                q_r = _local(q3, r, 1)
+                own_r = tuple(None if t is None else _local(t, r, 1) for t in own)
+                got = fd.decode_attention_dense(q_r, *views[pages][r][layer], *own_r,
+                                                pos, mesh=_tp_mesh(r))
+                posmat = pos.reshape(-1, 1)
+                plain = fd._attend_f32(q_r[:, None], *fd._dense_history(
+                    *views[pages][r][layer], *own_r, posmat), posmat)[:, 0]
+                torch.cuda.synchronize()
+                err = (got - plain).abs().max().item()
+                same = torch.equal(got, all_heads[:, r * TP_LOCAL_HEADS:
+                                                  (r + 1) * TP_LOCAL_HEADS])
+                if pages == "bf16":
+                    hold_bf16(got, plain, plain.float(), f"K4(d) bf16 rank {r}")
+                log(f"[k4d] {pages} pages layer {layer} rank {r} (heads "
+                    f"{r * TP_LOCAL_HEADS}..{(r + 1) * TP_LOCAL_HEADS - 1}): max|kernel "
+                    f"- plain| {err:.3e} (tolerance {K4_TOL:g}); bitwise the all-heads "
+                    f"launch's rows: {same}")
+                worst, bitwise = max(worst, err), bitwise and same
+                if not bool(torch.isfinite(got).all()) or err > K4_TOL or not same:
+                    raise AssertionError(f"K4(d) {pages} rank {r} disagrees")
+    # timed on rank 0's heads, alone on the card, cycling through the layers
+    q0 = {p: _local(v[1], 0, 1) for p, v in variants.items()}
+    own0 = {p: (_local(v[2], 0, 1), _local(v[3], 0, 1)) if p == "int8" else (None, None)
+            for p, v in variants.items()}
+    mesh0 = _tp_mesh(0)
+
+    def run(pages):
+        return lambda i: fd.decode_attention_dense(
+            q0[pages], *views[pages][0][i % layers], *own0[pages], pos, mesh=mesh0)
+
+    ms = {p: device_ms(torch, run(p), iters=120) for p in views}
+    loop_ms = cuda_ms(torch, run("f32"), iters=120)
+    plain_ms = device_ms(torch, lambda i: fd._gather_decode_dense(
+        q0["f32"], *views["f32"][0][i % layers], None, None, pos), iters=60)
+    mask = (torch.arange(s, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+    lib = {p: [(k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
+               for k, v, _, _ in views[p][0]] for p in ("f32", "bf16")}
+    lib_ms = {p: device_ms(torch, lambda i, p=p: F.scaled_dot_product_attention(
+        q0[p][:, :, None], *lib[p][i % layers], attn_mask=mask), iters=60)
+        for p in lib}
+    hist = float((pos.long() + 1).sum().item())
+    hl = TP_LOCAL_HEADS
+    io = slots * hl * hd  # one query and one output row a slot and head
+    bounds = {
+        "f32": bound_ms(4.0 * (2 * hist * hl * hd + 2 * io) + 4.0 * 2 * slots,
+                        4.0 * hist * hl * hd),
+        "bf16": bound_ms(2.0 * 2 * hist * hl * hd + 2.0 * io + 4.0 * io + 4.0 * slots,
+                         4.0 * hist * hl * hd),
+        "int8": bound_ms(2 * hist * hl * (hd + 4) + 4.0 * 3 * io + 4.0 * io + 4.0 * slots,
+                         4.0 * hist * hl * hd),
+    }
+    log(f"[k4d] per-rank shape b=8 h={hl} hd=64 S=576 (rank 0's heads): f32 pages "
+        f"{ms['f32']:.4f} ms ({loop_ms:.4f} ms a launch in an event-timed loop), plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms['f32']:.4f} ms, bound {bounds['f32'][0]:.4f} "
+        f"ms ({bounds['f32'][1]}); bf16 pages {ms['bf16']:.4f} ms (sdpa bf16 "
+        f"{lib_ms['bf16']:.4f}, bound {bounds['bf16'][0]:.4f}); int8 pages + overlay "
+        f"{ms['int8']:.4f} ms (bound {bounds['int8'][0]:.4f}); all-heads rows bitwise: "
+        f"{bitwise}; device times, alone on {card}")
+    del cache, variants, views, lib
+    torch.cuda.empty_cache()
+    return dict(ms=ms["f32"], plain_ms=plain_ms, bound_ms=bounds["f32"][0],
+                bound_by=bounds["f32"][1], library_ms=lib_ms["f32"], max_abs_err=worst,
+                bf16_ms=ms["bf16"], bf16_bound_ms=bounds["bf16"][0],
+                bf16_library_ms=lib_ms["bf16"], int8_ms=ms["int8"],
+                int8_bound_ms=bounds["int8"][0], bitwise_all_heads=bitwise,
+                shape=f"b=8 nq=1 h={hl} (a rank's heads of 12) hd=64 S=576 dense "
+                      "layer views, pos 0..575; f32, bf16 (bf16 q) and int8 pages")
+
+
+def _flash_bounds(b, h, s, d, bf):
+    """(K1, K2, K3) bounds at a causal [b, s, h, d] shape: the bytes read
+    and written once and the products of the visible pairs over the split
+    TF32 rate (f32) or the dense bf16 rate."""
+    peak = BF16_FLOPS_PER_S if bf else TF32X3_FLOPS_PER_S
+    es = 2.0 if bf else 4.0
+    pairs = b * h * _causal_pairs(s)
+    head = es * b * s * h * d
+    rows_in = 4 * head + 2 * 4.0 * b * h * s
+    return {"fwd": bound_ms(4 * head + 4.0 * b * h * s, 4.0 * d * pairs, peak),
+            "dq": bound_ms(rows_in + head, 6.0 * d * pairs, peak),
+            "dkv": bound_ms(rows_in + 2 * head, 8.0 * d * pairs, peak)}
+
+
+def _flash_tp(torch, F, fa, card):
+    """K1-K3 through ``make_flash_attention(mesh)`` over each rank's 6
+    heads at the prefill shape (B=1, S=512, D=64, causal; f32 and bf16),
+    the local q, k, v strided views of the rank's own qkv projection:
+    held against their plain versions (``_hold_flash``) and against the
+    all-heads kernels' rows for those heads (output and gradients), then
+    timed on rank 0's heads beside the plain versions, SDPA and the
+    bounds.  Returns {dtype: {kernel: entry}}."""
+    b, s, d = TP_FLASH["b"], TP_FLASH["s"], TP_FLASH["d"]
+    h, hl = SERVE["num_heads"], TP_LOCAL_HEADS
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = dtype == torch.bfloat16
+        g = torch.Generator(device="cuda").manual_seed(28)
+        qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda").to(dtype)
+        do = torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
+        full = qkv.clone().requires_grad_(True)
+        q, k, v = (t.reshape(b, s, h, d) for t in full.split(h * d, dim=-1))
+        o_all = fa.flash_attention(q, k, v, None, causal=True)
+        (o_all.float() * do.float()).sum().backward()
+        worst, same = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}, True
+        for r in range(TP_DEGREE):
+            cols = [j * h * d + r * hl * d for j in range(3)]
+            mine = torch.cat([qkv[..., c:c + hl * d] for c in cols], -1)
+            mine = mine.clone().requires_grad_(True)
+            ql, kl, vl = (t.reshape(b, s, hl, d) for t in mine.split(hl * d, dim=-1))
+            fn = fa.make_flash_attention(mesh=_tp_mesh(r), causal=True)
+            o = fn(ql, kl, vl, None, dtype=dtype)
+            (o.float() * _local(do, r, 2).float()).sum().backward()
+            grad_all = torch.cat([full.grad[..., c:c + hl * d] for c in cols], -1)
+            torch.cuda.synchronize()
+            rows = (torch.equal(o, o_all[:, :, r * hl:(r + 1) * hl]),
+                    torch.equal(mine.grad, grad_all))
+            errs, (lse, _, do_r, delta, _) = _hold_flash(
+                torch, fa, ql.detach(), kl.detach(), vl.detach(), True, seed=29 + r,
+                what=f"{'bf16' if bf else 'f32'} local heads rank {r}")
+            worst = {kern: max(worst[kern], e) for kern, e in errs.items()}
+            same = same and all(rows)
+            log(f"[flash-tp] {'bf16' if bf else 'f32'} rank {r}: K1-K3 over heads "
+                f"{r * hl}..{(r + 1) * hl - 1} held against the plain versions (max "
+                f"|kernel - plain| K1 {errs['fwd']:.3e}, K2 {errs['dq']:.3e}, K3 "
+                f"{errs['dkv']:.3e}); bitwise the all-heads kernels' rows: output "
+                f"{rows[0]}, gradients {rows[1]}")
+            if not all(rows):
+                # tolerated only within the plain versions' limits: another
+                # grid over fewer heads may take another block shape
+                err = (o.float() - o_all[:, :, r * hl:(r + 1) * hl].float()).abs().max()
+                if err.item() > (bf16_ulp(o_all.float()) if bf else K1_TOL):
+                    raise AssertionError(f"K1 over local heads rank {r}: {err.item()}")
+            if r == 0:
+                times = _time_flash(torch, F, fa, ql.detach(), kl.detach(), vl.detach(),
+                                    do_r, lse, delta, causal=True)
+        bounds = _flash_bounds(b, hl, s, d, bf)
+        fwd_ms, fwd_plain, fwd_lib, dq_ms, dkv_ms, bwd_plain, bwd_lib = times
+        shape = (f"B={b} H={hl} (a rank's heads of {h}) S={s} D={d} causal "
+                 f"{'bf16' if bf else 'f32'}, strided views of the rank's qkv")
+        out["bf16" if bf else "f32"] = {
+            kern: dict(ms=ms, plain_ms=pl, bound_ms=bounds[kern][0],
+                       bound_by=bounds[kern][1], library_ms=lib,
+                       max_abs_err=worst[kern], bitwise_all_heads=same, shape=shape)
+            for kern, ms, pl, lib in (("fwd", fwd_ms, fwd_plain, fwd_lib),
+                                      ("dq", dq_ms, bwd_plain, bwd_lib),
+                                      ("dkv", dkv_ms, bwd_plain, bwd_lib))}
+        log(f"[flash-tp] {'bf16' if bf else 'f32'} B={b} H={hl} S={s} causal: K1 "
+            f"{fwd_ms:.4f} ms (plain {fwd_plain:.4f}, sdpa {fwd_lib:.4f}, bound "
+            f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}), K2 {dq_ms:.4f} ms (bound "
+            f"{bounds['dq'][0]:.4f}), K3 {dkv_ms:.4f} ms (bound {bounds['dkv'][0]:.4f}),"
+            f" plain backward {bwd_plain:.4f}, sdpa backward {bwd_lib:.4f}; device "
+            f"times, alone on {card}")
+    return out
+
+
+def _hold_bf16_streams(torch, np, name, one, got):
+    """Run (d)'s check (module docstring, phase 27).  bf16 greedy decoding
+    meets exact ties: tp=1's own logits hold top-2 gaps of 0 and of one
+    bf16 ulp, where any other order of the row-parallel sums may pick the
+    other token.  So the tp=2 path's teacher-forced logits over tp=1's
+    streams are held to tp=1's by the bf16 rule (``hold_bf16``: against
+    the f32 logits of the same weights, at most twice tp=1's error plus
+    one ulp), and a tp=2 stream may leave tp=1's only at a token whose tp=1
+    logit lies within that rule's limit of the row's largest.  Returns
+    (worst error, its limit, the divergences)."""
+    from distributeddeeplearning_tpu_torch.serve import tensor_parallel_engine
+    from distributeddeeplearning_tpu_torch.train.state import tree_map
+
+    prompts = {r.uid: r.prompt for r in serve_requests(np, "dense")}
+    params = _tp_params(torch, "bf16")
+    engine, _ = tensor_parallel_engine(params, tp=1, num_heads=SERVE["num_heads"],
+                                       batch_slots=SLOTS, max_seq=MAX_SEQ,
+                                       device="cuda:0")
+    plain = _forced_logits(torch, engine, prompts, one["tokens"])
+    engine.params = tree_map(lambda t: t.float(), engine.params)
+    ref = _forced_logits(torch, engine, prompts, one["tokens"])
+    del engine, params
+    worst, where = (0.0, 0.0), []
+    for uid, want in one["tokens"].items():
+        tp2 = torch.from_numpy(got["forced"][uid]).view(torch.bfloat16).to("cuda:0")
+        err, _, limit = hold_bf16(tp2, plain[uid], ref[uid].float(),
+                                  f"tensor-parallel {name} {uid} logits")
+        worst = max(worst, (err, limit))
+        have = got["tokens"][uid]
+        if have != want:
+            i = next(j for j, (a, b) in enumerate(zip(want, have)) if a != b)
+            row = plain[uid][i].float()
+            gap = (row.max() - row[have[i]]).item()
+            where.append((uid, i, want[i], have[i], gap))
+            if gap > limit:
+                raise AssertionError(
+                    f"tensor-parallel {name} {uid}: the stream leaves tp=1's at "
+                    f"position {i} ({want[i]} -> {have[i]}) where tp=1's top logit "
+                    f"leads by {gap}, beyond the bf16 limit {limit}")
+    return worst, where
+
+
+def phase_tensor_parallel(torch, np, F, fa, fd, card, runs=TP_RUNS):
+    """Phase 27 (module docstring): the serve model over two gloo ranks
+    sharing the card through ``tensor_parallel_engine(tp=2)``, held to the
+    one-process engine run for run; then K4(d) and K1-K3 over local heads
+    alone on the card.  Returns (the runs' per-rank results, the K4(d)
+    entry, the K1-K3 entries)."""
+    layers = SERVE["num_layers"]
+    t0 = time.perf_counter()
+    single = {run[0]: _tp_run(torch, np, fa, fd, run, 1) for run in runs}
+    forced = {name: single[name]["tokens"] for name, _, weights, _ in runs
+              if weights == "bf16"}
+    t1 = time.perf_counter()
+    ranks = run_ranks("_tp_rank", TP_DEGREE, runs, forced, timeout=TP_WORKER_TIMEOUT)
+    t2 = time.perf_counter()
+    log(f"[tp] tp=1 runs {t1 - t0:.1f} s in this process; tp={TP_DEGREE} over "
+        f"{TP_DEGREE} spawned gloo ranks on cuda:0 {t2 - t1:.1f} s (two ranks share "
+        f"one card: not a scaling figure)")
+    if any(out["jax_loaded"] for out in ranks):
+        raise AssertionError("a TP rank loaded jax")
+    for name, layout, weights, _ in runs:
+        one, got = single[name], [out[name] for out in ranks]
+        forwards = got[0]["prefills"] + got[0]["decode_steps"]
+        want_counts = {"all_reduce": (2 * layers + 1) * forwards, "all_gather": forwards}
+        if weights == "int8":
+            want_counts["all_reduce_max"] = 2 * layers * forwards
+        k4_want = layers * forwards if layout == "paged" else layers * got[0]["decode_steps"]
+        k1_want = 0 if layout == "paged" else layers * got[0]["prefills"]
+        for r, run in enumerate(got):
+            checks = {
+                "tokens == tp=1": weights == "bf16" or run["tokens"] == one["tokens"],
+                "finish": run["finish"] == {"length": REQUESTS},
+                "report tp": run["tp"] == TP_DEGREE and run["mesh"],
+                f"KV heads {TP_LOCAL_HEADS}": run["kv_heads"] == TP_LOCAL_HEADS,
+                "K4 launches": run["k4_launches"] == k4_want,
+                f"K4 over {TP_LOCAL_HEADS} heads": {hd for hd, _ in run["k4"]}
+                <= {TP_LOCAL_HEADS},
+                "K4 chunks": run["k4_multi_query"] == (
+                    layers * run["prefills"] if layout == "paged" else 0),
+                "K1 launches": run["k1_launches"] == k1_want and set(run["k1"]) <= {
+                    TP_LOCAL_HEADS},
+                "no plain version": run["plain"] == 0,
+                "collectives": run["counts"] == want_counts,
+                "staged": run["staged"] == {"all_gather": forwards},
+                "same forwards": (run["prefills"], run["decode_steps"]) == (
+                    got[0]["prefills"], got[0]["decode_steps"]),
+            }
+            if layout == "paged":
+                checks["hit rate == tp=1, > 0"] = (run["hit_rate"] == one["hit_rate"]
+                                                   and run["hit_rate"] > 0)
+            log(f"[tp] {name} rank {r}: {forwards} forwards ({run['prefills']} "
+                f"{'chunks' if layout == 'paged' else 'prefills'}, {run['decode_steps']} "
+                f"decode steps); K4 {run['k4_launches']} launches {run['k4']} (heads, "
+                f"queries), K1 {run['k1_launches']}, plain {run['plain']}; collectives "
+                f"{run['counts']} (expected {want_counts}), staged through the host "
+                f"{run['staged']}; a forward: "
+                f"{ {op: n / forwards for op, n in run['counts'].items()} }")
+            failed = [what for what, ok in checks.items() if not ok]
+            if failed:
+                raise AssertionError(f"tensor-parallel {name} rank {r}: {failed}")
+        if got[0]["tokens"] != got[1]["tokens"]:
+            raise AssertionError(f"{name}: the ranks' streams differ")
+        if weights == "bf16":
+            (err, limit), where = _hold_bf16_streams(torch, np, name, one, got[0])
+            log(f"[tp] {name}: teacher-forced logits over tp=1's streams within the "
+                f"bf16 rule (worst {err:.4f}, limit {limit:.4f}); "
+                f"{sum(got[0]['tokens'][u] == t for u, t in one['tokens'].items())} of "
+                f"{REQUESTS} streams == tp=1's, the others leave it only where tp=1's "
+                f"top logit leads the tp=2 token by no more than the limit: (uid, "
+                f"position, tp=1 token, tp=2 token, lead) {where}")
+        log(f"[tp] {name}: tokens of both ranks {'vs' if weights == 'bf16' else '=='} "
+            f"tp=1's ({REQUESTS} requests x {NEW_TOKENS}); prefix hit rate {got[0]['hit_rate']} (tp=1 "
+            f"{one['hit_rate']}); params a rank {got[0]['param_bytes'] / 1e6:.1f} MB of "
+            f"{one['param_bytes'] / 1e6:.1f} MB at tp=1, KV a rank "
+            f"{got[0]['kv_bytes'] / 1e6:.1f} MB of {one['kv_bytes'] / 1e6:.1f} MB; "
+            f"decode step p50 {got[0]['decode_p50_ms']:.2f} / {got[1]['decode_p50_ms']:.2f}"
+            f" ms a rank (tp=1 {one['decode_p50_ms']:.2f}), TTFT p50 "
+            f"{got[0]['ttft_p50_ms']:.2f} / {got[1]['ttft_p50_ms']:.2f} ms (tp=1 "
+            f"{one['ttft_p50_ms']:.2f}), tokens/s {got[0]['tokens_per_s']} / "
+            f"{got[1]['tokens_per_s']} (tp=1 {one['tokens_per_s']}); peak memory "
+            f"{got[0]['peak_gb']:.2f} / {got[1]['peak_gb']:.2f} GB a rank (tp=1 "
+            f"{one['peak_gb']:.2f}, the full weights built first included) on {card}")
+    for r, out in enumerate(ranks + [single]):
+        p = out.get("dense_f32", {}).get("profile")
+        if p is not None:
+            log(f"[tp] dense f32 decode step (8 slots, pos 300) "
+                f"{f'rank {r}' if r < len(ranks) else 'at tp=1'}: host wall "
+                f"{p['wall_ms']:.3f} ms, of it inside collectives "
+                f"{p['collective_host_ms']:.3f} ms; kernels {p['kernel_ms']} ms (a "
+                f"profiled window); top kernels {p['top']} on {card}")
+    k4d = _k4d(torch, F, fd, card)
+    flash = _flash_tp(torch, F, fa, card)
+    return ranks, k4d, flash
+
+
 def _lr_sum(steps: int) -> float:
     """The summed learning rates of :func:`_dp_lm_fit`'s schedule."""
     from distributeddeeplearning_tpu_torch.train.schedule import (
@@ -5057,6 +5679,7 @@ def main() -> int:
         resilient = timed(phase_resilience, torch, np, fa, card)
         timed(phase_moe_bert, torch, np, fa, card)
         data_parallel, dp_shape = timed(phase_data_parallel, torch, np, F, fa, card)
+        tp_ranks, k4d, flash_tp = timed(phase_tensor_parallel, torch, np, F, fa, fd, card)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -5170,6 +5793,32 @@ def main() -> int:
             row["launches_by_path"].update(
                 {path: counts[kern] for path, counts in data_parallel.items()})
             row["data_parallel"] = dp_shape[kern]
+    # phase 27: K4 over a rank's heads under tensor parallelism (K4(d)), and
+    # K1-K3 over a rank's heads (B10's tensor half): each rank's launches on
+    # the tensor-parallel serving runs
+    tp_k4 = {f"serve_tp_{run[0]}_rank{r}": out[run[0]]["k4_launches"]
+             for r, out in enumerate(tp_ranks) for run in TP_RUNS}
+    rows.append(dict(name="flash_decode_tp", route="cuda",
+                     source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
+                     replaces="distributeddeeplearning_tpu/ops/flash_decode.py:311",
+                     launches=sum(out[run[0]]["k4_launches"] for out in tp_ranks[:1]
+                                  for run in TP_RUNS),
+                     launches_by_path=tp_k4, **k4d))
+    for row in rows:
+        kern, dtype = {"flash_attention_fwd": ("fwd", "f32"),
+                       "flash_attention_bwd_dq": ("dq", "f32"),
+                       "flash_attention_bwd_dkv": ("dkv", "f32"),
+                       "flash_attention_fwd_bf16": ("fwd", "bf16"),
+                       "flash_attention_bwd_dq_bf16": ("dq", "bf16"),
+                       "flash_attention_bwd_dkv_bf16": ("dkv", "bf16")}.get(
+                           row["name"], (None, None))
+        if kern is None:
+            continue
+        runs = (("dense_f32", "dense_int8_weights") if dtype == "f32" else ("dense_bf16",))
+        launched = {f"serve_tp_{name}_rank{r}": out[name]["k1_launches"] if kern == "fwd"
+                    else 0 for r, out in enumerate(tp_ranks) for name in runs}
+        row["tensor_parallel"] = {**flash_tp[dtype][kern], "launches": launched}
+        row.setdefault("launches_by_path", {}).update(launched)
     for row in rows:
         row["kernel"] = profiled_kernels(row["name"])
     log(f"[timer] windows timed by CUDA events for want of profiler device "

@@ -23,6 +23,26 @@ over the sequence so the full logits never exist) and
 flash backward kernels.  The reference's ``unroll`` (an XLA scan-unroll
 compile hint) has no eager counterpart and is not taken.
 
+Tensor parallelism (``mesh=`` with a ``tensor`` axis above 1; the serving
+entry points): each rank holds its slice of the weights
+(``parallel.sharding.shard_params``) and of the cache (its ``h / tp``
+heads) and issues the collectives that GSPMD inserts for the reference,
+Megatron's placement done by hand.  Per block: ln1 replicated; ``qkv``
+column-parallel over the rank's heads; attention over the local heads
+with no collective (the flash kernel through ``make_flash_attention(mesh
+=...)``, the decode kernel under its ``mesh=``); ``proj`` row-parallel and
+an all-reduce of the partial sums; ln2 replicated; ``w_in``
+column-parallel, GELU; ``w_out`` row-parallel and an all-reduce.  The
+embedding is vocab-parallel: a rank looks up the tokens of its
+vocabulary slice, zero rows for the others, and the all-reduce of those
+rows is exact.  The head is vocab-parallel: each rank's logit columns,
+then an all-gather gives every rank the same full logits, so every rank
+samples the same tokens.  That is ``2 L + 1`` all-reduces and one
+all-gather a forward pass, plus ``2 L`` all-reduces with MAX under int8
+weights (``quant.qtensor.qdot``'s row-parallel absmax).  Row-parallel
+partial sums are taken in f32 (bf16 weights too) and rounded once to the
+stream's dtype after the sum; int8 ones sum their int32 accumulators.
+
 Pipeline parallelism and sequence-parallel attention wait for later
 slices.
 """
@@ -39,8 +59,11 @@ from torch.utils.checkpoint import checkpoint
 from distributeddeeplearning_tpu_torch._device import DeviceLike, resolve_device
 from distributeddeeplearning_tpu_torch.ops import flash_attention as _fa
 from distributeddeeplearning_tpu_torch.ops import flash_decode as _fd
+from distributeddeeplearning_tpu_torch.parallel import collectives as _col
+from distributeddeeplearning_tpu_torch.parallel.mesh import tensor_parallel_size
 from distributeddeeplearning_tpu_torch.quant.qtensor import (
     QTensor,
+    qdot,
     qmatmul as _mm,
     quantize_kv,
     quantized_cache,
@@ -125,14 +148,71 @@ def _layer(blocks: Params, i: int) -> Params:
     return {k: v[i] for k, v in blocks.items()}
 
 
-def _mlp(p, x):
+class _TensorAxis:
+    """A mesh's ``tensor`` axis as the TP path uses it: its process
+    ``group``, this rank's ``index`` along it and its ``size``."""
+
+    __slots__ = ("group", "index", "size")
+
+    def __init__(self, mesh):
+        self.size = tensor_parallel_size(mesh)
+        self.index = mesh.axis_index("tensor")
+        self.group = mesh.axis_group("tensor")
+        if self.group is None:
+            raise ValueError(
+                f"tensor={self.size} needs the mesh's tensor process group "
+                "(parallel.create_mesh inside torch.distributed)")
+
+
+def _tensor_axis(mesh) -> Optional[_TensorAxis]:
+    """The tensor axis of ``mesh``; None without one above 1."""
+    return _TensorAxis(mesh) if tensor_parallel_size(mesh) > 1 else None
+
+
+def _row_parallel(x, w, tp: Optional[_TensorAxis]):
+    """``x @ w`` where this rank holds rows of ``w`` and the matching
+    columns of ``x``: the partial products summed over the tensor group,
+    in f32 and rounded once to ``x``'s dtype (int8: the int32
+    accumulators, :func:`~..quant.qtensor.qdot`)."""
+    if tp is None:
+        return _mm(x, w)
+    if isinstance(w, QTensor):
+        return qdot(x, w, group=tp.group)
+    return _col.all_reduce(x.float() @ w.float(), tp.group).to(x.dtype)
+
+
+def _token_rows(embed, tokens, tp: Optional[_TensorAxis]):
+    """``embed[tokens]``.  Vocab-parallel: this rank holds rows ``[i V/tp,
+    (i+1) V/tp)``; it looks up the tokens that fall there, zero rows for
+    the others, and the all-reduce (in f32) of those rows is exact."""
+    if tp is None:
+        return embed[tokens.long()]
+    rows = embed.shape[0]
+    local = tokens.long() - tp.index * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], embed[local.clamp(0, rows - 1)].float(), 0.0)
+    return _col.all_reduce(x, tp.group).to(embed.dtype)
+
+
+def _logits(x, head, tp: Optional[_TensorAxis]):
+    """``x @ head``.  Vocab-parallel: this rank's logit columns, then an
+    all-gather gives every rank the whole row, in vocabulary order."""
+    out = _mm(x, head)
+    if tp is None:
+        return out
+    parts = _col.all_gather(out, tp.group, tiled=False)  # [tp, ..., V/tp]
+    return parts.movedim(0, -2).reshape(*out.shape[:-1], -1)
+
+
+def _mlp(p, x, tp: Optional[_TensorAxis] = None):
     h = _layer_norm(x, p["ln2"])
-    return x + _mm(F.gelu(_mm(h, p["w_in"]), approximate="none"), p["w_out"])
+    return x + _row_parallel(F.gelu(_mm(h, p["w_in"]), approximate="none"),
+                             p["w_out"], tp)
 
 
 def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
                 attention: str = "dense", return_kv: bool = False,
-                attention_fn=None):
+                attention_fn=None, tp: Optional[_TensorAxis] = None):
     """One pre-LN transformer block; ``p`` leaves are per-layer (no L).
 
     ``attention``: ``"dense"`` materializes the [b,h,s,s] scores with a
@@ -141,19 +221,22 @@ def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
     mask, *, dtype)`` (e.g. ``make_flash_attention(mesh=..., causal=
     True)``), called with ``mask=None``.  ``return_kv=True`` also returns
     this layer's ``(k, v)`` in [b, s, h, hd] — views into the qkv
-    projection, no copy."""
+    projection, no copy.  ``tp``: the tensor axis of a TP mesh (module
+    docstring); ``p`` is then this rank's slice and h its local heads."""
     b, s, d = x.shape
     hd = d // num_heads
+    width = p["qkv"].shape[-1] // 3  # the local heads' width under TP
+    heads = width // hd
     h = _layer_norm(x, p["ln1"])
-    q, k, v = _mm(h, p["qkv"]).split(d, dim=-1)  # strided [b, s, d] views
-    split4 = lambda t: t.reshape(b, s, num_heads, hd)  # noqa: E731
+    q, k, v = _mm(h, p["qkv"]).split(width, dim=-1)  # strided views
+    split4 = lambda t: t.reshape(b, s, heads, hd)  # noqa: E731
     if attention_fn is not None:
         ctx = attention_fn(split4(q), split4(k), split4(v), None,
-                           dtype=x.dtype).reshape(b, s, d).to(x.dtype)
+                           dtype=x.dtype).reshape(b, s, width).to(x.dtype)
     elif attention == "flash":
         ctx = _fa.flash_attention(
             split4(q), split4(k), split4(v), None, causal=True
-        ).reshape(b, s, d)
+        ).reshape(b, s, width)
     elif attention == "dense":
         qh, kh, vh = (split4(t).transpose(1, 2) for t in (q, k, v))
         # the product in the stream dtype, then promoted to f32 by the f32
@@ -166,22 +249,23 @@ def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
         scores = torch.where(causal, scores, -1e30)
         attn = torch.softmax(scores, dim=-1).to(vh.dtype)
         ctx = torch.einsum("bhqk,bhkd->bhqd", attn, vh)
-        ctx = ctx.transpose(1, 2).reshape(b, s, d).to(x.dtype)
+        ctx = ctx.transpose(1, 2).reshape(b, s, width).to(x.dtype)
     else:
         raise ValueError(f"unknown attention {attention!r} (choices: {ATTENTIONS})")
-    x = _mlp(p, x + _mm(ctx, p["proj"]))
+    x = _mlp(p, x + _row_parallel(ctx, p["proj"], tp), tp)
     if return_kv:
         return x, (split4(k), split4(v))
     return x
 
 
-def _embed(params, tokens):
+def _embed(params, tokens, tp: Optional[_TensorAxis] = None):
     max_len = params["pos"].shape[0]
     if tokens.shape[1] > max_len:
         raise ValueError(
             f"sequence length {tokens.shape[1]} exceeds max_len {max_len}"
         )
-    return params["embed"][tokens.long()] + params["pos"][: tokens.shape[1]][None]
+    return (_token_rows(params["embed"], tokens, tp)
+            + params["pos"][: tokens.shape[1]][None])
 
 
 def _stack(blocks: Params, x, *, num_heads: int, attention: str = "dense",
@@ -216,19 +300,26 @@ def forward(params, tokens, *, num_heads: int, attention: str = "dense",
     return _mm(x, params["head"])
 
 
-def forward_prefill(params, tokens, *, num_heads: int, attention: str = "dense"):
+def forward_prefill(params, tokens, *, num_heads: int, attention: str = "dense",
+                    mesh=None):
     """Prompt pass for the serving engine: ``(logits [b, s, vocab], k, v)``
     with k/v in the cache layout [b, L, s, h, hd] — :func:`forward` plus
-    each layer's key/value projections."""
-    x = _embed(params, tokens)
+    each layer's key/value projections.  ``mesh``: tensor-parallel (module
+    docstring); k/v then hold the rank's heads, the logits are whole, and
+    ``attention="flash"`` runs K1 through ``make_flash_attention(mesh)``."""
+    tp = _tensor_axis(mesh)
+    attention_fn = (_fa.make_flash_attention(mesh=mesh, causal=True)
+                    if tp is not None and attention == "flash" else None)
+    x = _embed(params, tokens, tp)
     ks, vs = [], []
     for i in range(params["blocks"]["qkv"].shape[0]):
         x, (k, v) = block_apply(_layer(params["blocks"], i), x,
                                 num_heads=num_heads, attention=attention,
-                                return_kv=True)
+                                return_kv=True, attention_fn=attention_fn, tp=tp)
         ks.append(k)
         vs.append(v)
-    return _mm(x, params["head"]), torch.stack(ks, dim=1), torch.stack(vs, dim=1)
+    return (_logits(x, params["head"], tp), torch.stack(ks, dim=1),
+            torch.stack(vs, dim=1))
 
 
 def _write_kv(k_l, v_l, k_s, v_s, idx, k_new, v_new) -> None:
@@ -259,15 +350,17 @@ def _layer_cache(cache, i: int):
 
 def _qkv_rows(p, x, num_heads: int):
     """Pre-LN qkv projection of ``x`` [n, d]: q, k, v each [n, h, hd]
-    (strided views of one projection)."""
+    (strided views of one projection; h the local heads of a TP slice)."""
     n, d = x.shape
+    hd = d // num_heads
+    width = p["qkv"].shape[-1] // 3
     h = _layer_norm(x, p["ln1"])
-    q, k, v = _mm(h, p["qkv"]).split(d, dim=-1)
-    return tuple(t.reshape(n, num_heads, d // num_heads) for t in (q, k, v))
+    q, k, v = _mm(h, p["qkv"]).split(width, dim=-1)
+    return tuple(t.reshape(n, width // hd, hd) for t in (q, k, v))
 
 
 def _block_decode(p, x, k_l, v_l, pos, *, num_heads: int, k_s=None, v_s=None,
-                  kernel: str = "auto"):
+                  kernel: str = "auto", mesh=None, tp=None):
     """One block's single-token decode against its cache layer.
 
     ``x``: [B, d] residual stream; ``k_l``/``v_l``: [B, S, h, hd] views of
@@ -281,13 +374,13 @@ def _block_decode(p, x, k_l, v_l, pos, *, num_heads: int, k_s=None, v_s=None,
     rows = torch.arange(b, device=x.device)
     _write_kv(k_l, v_l, k_s, v_s, (rows, pos.long()), k_t, v_t)
     ctx = _fd.decode_attention_dense(
-        q, k_l, v_l, k_s, v_s, k_t, v_t, pos, kernel=kernel
-    ).reshape(b, d).to(x.dtype)
-    return _mlp(p, x + _mm(ctx, p["proj"]))
+        q, k_l, v_l, k_s, v_s, k_t, v_t, pos, kernel=kernel, mesh=mesh,
+    ).reshape(b, -1).to(x.dtype)
+    return _mlp(p, x + _row_parallel(ctx, p["proj"], tp), tp)
 
 
 def forward_decode(params, token, cache, pos, *, num_heads: int,
-                   kernel: str = "auto"):
+                   kernel: str = "auto", mesh=None):
     """Single-token decode step: next-token logits from the KV cache.
 
     ``token``/``pos``: [B] int — each slot's current token and the position
@@ -295,21 +388,25 @@ def forward_decode(params, token, cache, pos, *, num_heads: int,
     ``{"k_scale", "v_scale"}`` [B, L, S, h] under the int8 layout
     (:mod:`..serve.kv_cache`).  The token's K/V are written into ``cache``
     at ``pos`` in every layer, in place; positions ``> pos`` are masked, so
-    stale K/V of a previous occupant never reach attention.
+    stale K/V of a previous occupant never reach attention.  ``mesh``:
+    tensor-parallel (module docstring): params and cache are the rank's
+    slices, the logits whole.
 
     Returns ``(logits [B, vocab], cache)`` — the same, updated, cache."""
-    x = params["embed"][token.long()] + params["pos"][pos.long()]
+    tp = _tensor_axis(mesh)
+    x = _token_rows(params["embed"], token, tp) + params["pos"][pos.long()]
     for i in range(params["blocks"]["qkv"].shape[0]):
         k_l, v_l, k_s, v_s = _layer_cache(cache, i)
         x = _block_decode(
             _layer(params["blocks"], i), x, k_l, v_l, pos,
-            num_heads=num_heads, k_s=k_s, v_s=v_s, kernel=kernel,
+            num_heads=num_heads, k_s=k_s, v_s=v_s, kernel=kernel, mesh=mesh, tp=tp,
         )
-    return _mm(x, params["head"]), cache
+    return _logits(x, params["head"], tp), cache
 
 
 def _block_decode_paged(p, x, k_l, v_l, pos, block_tables, *, num_heads: int,
-                        k_s=None, v_s=None, kernel: str = "auto"):
+                        k_s=None, v_s=None, kernel: str = "auto", mesh=None,
+                        tp=None):
     """One block's single-token decode against a PAGED cache layer.
 
     ``k_l``/``v_l``: [pages, page_size, h, hd] — this layer's view of the
@@ -329,12 +426,13 @@ def _block_decode_paged(p, x, k_l, v_l, pos, block_tables, *, num_heads: int,
     _write_kv(k_l, v_l, k_s, v_s, (page, pos_l % page_size), k_t, v_t)
     ctx = _fd.decode_attention_paged(
         q, k_l, v_l, k_s, v_s, k_t, v_t, pos, block_tables, kernel=kernel,
-    ).reshape(b, d).to(x.dtype)
-    return _mlp(p, x + _mm(ctx, p["proj"]))
+        mesh=mesh,
+    ).reshape(b, -1).to(x.dtype)
+    return _mlp(p, x + _row_parallel(ctx, p["proj"], tp), tp)
 
 
 def forward_decode_paged(params, token, cache, pos, block_tables, *,
-                         num_heads: int, kernel: str = "auto"):
+                         num_heads: int, kernel: str = "auto", mesh=None):
     """Single-token decode step over the PAGED cache layout.
 
     Same contract as :func:`forward_decode`, but ``cache`` is the page
@@ -342,20 +440,21 @@ def forward_decode_paged(params, token, cache, pos, block_tables, *,
     pools) and ``block_tables`` ([B, nb] int32) maps each slot's logical
     pages to physical ones.  The gathered page view is the dense key
     sequence, padded with masked positions up to ``nb * page_size``, so
-    the math is the dense path's.  Returns ``(logits [B, vocab], cache)``,
-    the pool updated in place."""
-    x = params["embed"][token.long()] + params["pos"][pos.long()]
+    the math is the dense path's.  ``mesh``: as :func:`forward_decode`'s.
+    Returns ``(logits [B, vocab], cache)``, the pool updated in place."""
+    tp = _tensor_axis(mesh)
+    x = _token_rows(params["embed"], token, tp) + params["pos"][pos.long()]
     for i in range(params["blocks"]["qkv"].shape[0]):
         k_l, v_l, k_s, v_s = _layer_cache(cache, i)
         x = _block_decode_paged(
             _layer(params["blocks"], i), x, k_l, v_l, pos, block_tables,
-            num_heads=num_heads, k_s=k_s, v_s=v_s, kernel=kernel,
+            num_heads=num_heads, k_s=k_s, v_s=v_s, kernel=kernel, mesh=mesh, tp=tp,
         )
-    return _mm(x, params["head"]), cache
+    return _logits(x, params["head"], tp), cache
 
 
 def forward_prefill_chunk(params, tokens, cache, block_table, offset: int, *,
-                          num_heads: int, kernel: str = "auto"):
+                          num_heads: int, kernel: str = "auto", mesh=None):
     """One CHUNK of a prompt prefilled against the paged cache.
 
     ``tokens`` [1, C] occupy logical positions ``[offset, offset + C)`` of
@@ -370,8 +469,9 @@ def forward_prefill_chunk(params, tokens, cache, block_table, offset: int, *,
 
     Positions past the block table (final-chunk padding) go to the scratch
     page and the position index is clamped to the table; their outputs
-    are garbage that the caller ignores.  Returns ``(logits [1, C, vocab],
-    cache)``, the pool updated in place."""
+    are garbage that the caller ignores.  ``mesh``: as
+    :func:`forward_decode`'s.  Returns ``(logits [1, C, vocab], cache)``,
+    the pool updated in place."""
     b, C = tokens.shape
     if b != 1:
         raise ValueError(f"chunked prefill is per-sequence, got batch {b}")
@@ -387,19 +487,19 @@ def forward_prefill_chunk(params, tokens, cache, block_table, offset: int, *,
     )
     idx = (pages, posns % page_size)
     max_len = params["pos"].shape[0]
-    x = (params["embed"][tokens[0].long()]
+    tp = _tensor_axis(mesh)
+    x = (_token_rows(params["embed"], tokens[0], tp)
          + params["pos"][posns.clamp(max=max_len - 1)])  # [C, d]
-    d = x.shape[-1]
     for i in range(params["blocks"]["qkv"].shape[0]):
         p = _layer(params["blocks"], i)
         k_l, v_l, k_s, v_s = _layer_cache(cache, i)
         q, k_c, v_c = _qkv_rows(p, x, num_heads)
         _write_kv(k_l, v_l, k_s, v_s, idx, k_c, v_c)
         ctx = _fd.chunk_attention(
-            q, k_l, v_l, k_s, v_s, block_table, posns, kernel=kernel,
-        ).reshape(C, d).to(x.dtype)
-        x = _mlp(p, x + _mm(ctx, p["proj"]))
-    return _mm(x, params["head"])[None], cache
+            q, k_l, v_l, k_s, v_s, block_table, posns, kernel=kernel, mesh=mesh,
+        ).reshape(C, -1).to(x.dtype)
+        x = _mlp(p, x + _row_parallel(ctx, p["proj"], tp), tp)
+    return _logits(x, params["head"], tp)[None], cache
 
 
 _F32_ONLY = (

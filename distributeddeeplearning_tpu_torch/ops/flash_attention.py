@@ -496,18 +496,16 @@ def make_flash_attention(block_q: Optional[int] = None,
     ``make_flash_attention``).  ``block_q`` and ``block_k`` size the TPU
     grid and are ignored: the CUDA kernels pick their own tiles.
 
-    With a data-parallel ``mesh`` (``data * fsdp`` > 1) each rank runs
-    K1-K3 on its own rows: one process per device holds only its shard of
-    the batch, so there is nothing to shard (the reference ``shard_map``s
-    the kernels over the batch).  ``mask=None`` stays None, so the kernels
-    run without a bias.  A ``tensor`` axis above 1 (heads over ranks) is
-    ROADMAP A6 and raises."""
+    With a ``mesh`` each rank runs K1 (and K2/K3 in the backward) on what
+    it holds: one process per device holds only its shard, so there is
+    nothing to shard (the reference ``shard_map``s the kernels, batch over
+    the data axes and heads over ``tensor``).  Over ``data * fsdp`` > 1
+    that is the rank's own rows; over ``tensor`` > 1 its own heads, ``H =
+    heads / tp`` of ``[B, S, H, D]`` q, k and v (the column-parallel qkv
+    projection's slice), with the key-padding mask, which has no head dim,
+    whole.  Heads are independent, so no collective runs.  ``mask=None``
+    stays None, so the kernels run without a bias."""
     del block_q, block_k
-    if mesh is not None and mesh.shape.get("tensor", 1) > 1:
-        raise NotImplementedError(
-            "make_flash_attention: tensor > 1 shards the heads over ranks, "
-            "the tensor-parallel attention of ROADMAP A6, not in the port yet"
-        )
 
     def attention_fn(q, k, v, mask, *, dtype):
         return flash_attention(q, k, v, mask, dtype=dtype, causal=causal)

@@ -59,6 +59,19 @@ wrappers' launches.
 Positions past a query's ``posmat`` are masked in both versions, never
 judged by content: an engine leaves a previous occupant's stale K/V (and a
 quarantined slot's NaN) behind that mask.
+
+(d) Tensor parallelism (the reference's ``_pallas_tp``): with a ``mesh``
+whose ``tensor`` axis is above 1, :func:`decode_attention_dense`,
+:func:`decode_attention_paged` and :func:`chunk_attention` take THIS
+RANK's heads: q, the pools, their scales and the own-token rows hold
+``h / tp`` heads, the block tables and positions are whole (the ``attn/``
+rules of ``parallel.sharding.LAYOUT_RULES``, resolved by
+:func:`attention_partition_specs`).  Heads are independent in attention,
+so each rank launches the same kernel over its local heads and no
+collective runs; where the reference's ``shard_map`` assembles the global
+output, the port's caller keeps the local one (the row-parallel
+projection after it sums over ranks).  The operands' head counts are
+checked against each other under the mesh.
 """
 
 from __future__ import annotations
@@ -394,6 +407,43 @@ def paged_attention(q4, k_pages, v_pages, tables, posmat, k_scale=None,
     raise ValueError(f"paged_attention: unsupported device {q4.device}")
 
 
+def attention_partition_specs(operands, *, mesh):
+    """The specs of the kernel's operands under a tensor-parallel mesh,
+    resolved through the ``attn/`` rules of the layout table.
+    ``operands``: name -> tensor (None entries, absent kernel slots, are
+    skipped).  Returns ``(names, in_specs, out_spec)``."""
+    from distributeddeeplearning_tpu_torch.parallel import sharding as layout
+
+    names = [k for k, v in operands.items() if v is not None]
+    in_specs = tuple(layout.spec_for(f"attn/{k}", shape=tuple(operands[k].shape),
+                                     mesh=mesh) for k in names)
+    out_spec = layout.spec_for("attn/out", shape=tuple(operands["q"].shape), mesh=mesh)
+    return names, in_specs, out_spec
+
+
+def _check_local_heads(mesh, **operands) -> None:
+    """Under ``tensor > 1``: every operand the ``attn/`` rules split over
+    ``tensor`` holds as many heads as q (this rank's ``h / tp``); tables
+    and positions are whole.  ``operands`` are named as the rules name
+    them (``q``, ``k_pages``, ``k_scale``, ``k_own``, ...)."""
+    from distributeddeeplearning_tpu_torch.parallel.mesh import tensor_parallel_size
+
+    tp = tensor_parallel_size(mesh)
+    if tp <= 1:
+        return
+    # without a mesh the specs are the rules' own entries (no divisibility
+    # drop), which locate each operand's head dim
+    names, specs, _ = attention_partition_specs(operands, mesh=None)
+    heads = {name: operands[name].shape[dim]
+             for name, spec in zip(names, specs)
+             for dim, entry in enumerate(spec) if entry == "tensor"}
+    if len(set(heads.values())) > 1:
+        raise ValueError(
+            f"attention under tensor={tp}: the operands' local head counts "
+            f"differ ({heads}); each rank passes its own h/tp heads of q, the "
+            "pools, their scales and the own-token rows")
+
+
 def _dense_as_pages(k_l: torch.Tensor) -> torch.Tensor:
     """Identity block tables [b, 1] that make each slot row of a dense
     [b, S, h, hd] cache layer one page of S positions — the pool IS the
@@ -413,8 +463,14 @@ def _own(k_s, k_t, v_t):
     return (k_t, v_t) if k_s is not None else (None, None)
 
 
+def _own_operands(k_s, k_t, v_t):
+    """The overlay's operands by their ``attn/`` rule names."""
+    k_own, v_own = _own(k_s, k_t, v_t)
+    return {"k_own": k_own, "v_own": v_own}
+
+
 def decode_attention_dense(
-    q3, k_l, v_l, k_s, v_s, k_t, v_t, pos, *, kernel: str = "auto",
+    q3, k_l, v_l, k_s, v_s, k_t, v_t, pos, *, kernel: str = "auto", mesh=None,
 ):
     """Single-token decode attention over the dense [b, S, h, hd] cache
     layer (the reference's contract: ``q3``/``k_t``/``v_t`` [b, h, hd],
@@ -425,7 +481,10 @@ def decode_attention_dense(
 
     ``kernel``: ``"auto"``/``"flash"`` run :func:`paged_attention` over the
     zero-copy page view (its plain version on the dense layout on the
-    CPU); ``"gather"`` the legacy read."""
+    CPU); ``"gather"`` the legacy read.  ``mesh``: under ``tensor > 1``
+    every head operand is this rank's slice (module docstring, (d))."""
+    _check_local_heads(mesh, q=q3[:, None], k_pages=k_l, v_pages=v_l,
+                       k_scale=k_s, v_scale=v_s, **_own_operands(k_s, k_t, v_t))
     if resolve_kernel(kernel) == "gather":
         return _gather_decode_dense(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos)
     if q3.device.type == "cpu":
@@ -457,7 +516,7 @@ def _gather_decode_dense(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos):
 
 def decode_attention_paged(
     q3, k_l, v_l, k_s, v_s, k_t, v_t, pos, block_tables, *,
-    kernel: str = "auto",
+    kernel: str = "auto", mesh=None,
 ):
     """Single-token decode attention over the paged pool.
 
@@ -465,7 +524,9 @@ def decode_attention_paged(
     token); ``k_l``/``v_l``: [P, ps, h, hd] this layer's pool view, already
     holding the current token's write; ``k_s``/``v_s``: [P, ps, h] f32 or
     None; ``pos``: [b]; ``block_tables``: [b, nb] int32.  Returns ctx
-    [b, h, hd]."""
+    [b, h, hd].  ``mesh``: as :func:`decode_attention_dense`'s."""
+    _check_local_heads(mesh, q=q3[:, None], k_pages=k_l, v_pages=v_l,
+                       k_scale=k_s, v_scale=v_s, **_own_operands(k_s, k_t, v_t))
     if resolve_kernel(kernel) == "gather":
         return _gather_decode_paged(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos,
                                     block_tables)
@@ -486,12 +547,15 @@ def _gather_decode_paged(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos, block_tables):
 
 
 def chunk_attention(q_c, k_l, v_l, k_s, v_s, block_table, posns, *,
-                    kernel: str = "auto"):
+                    kernel: str = "auto", mesh=None):
     """Chunked-prefill history attention: ``q_c`` [C, h, hd] at logical
     positions ``posns`` [C] against ONE sequence's pages (``block_table``
     [nb] int32).  No own-token overlay on int8 pools: prefill attends the
     cache-roundtripped values, so quantized prefill does not depend on
-    where the chunk boundaries fall.  Returns ctx [C, h, hd]."""
+    where the chunk boundaries fall.  Returns ctx [C, h, hd].  ``mesh``:
+    as :func:`decode_attention_dense`'s."""
+    _check_local_heads(mesh, q=q_c[None], k_pages=k_l, v_pages=v_l,
+                       k_scale=k_s, v_scale=v_s)
     if resolve_kernel(kernel) == "gather":
         return _gather_chunk(q_c, k_l, v_l, k_s, v_s, block_table, posns)
     return paged_attention(q_c[None], k_l, v_l, block_table[None],

@@ -13,8 +13,11 @@ operation on CUDA tensors; gloo runs only ``all_reduce`` and
 it is staged through host memory: the tensor is copied to the CPU, the
 collective runs there and the result is copied back.  Each staging is
 counted by operation (:func:`staged_ops`), so a run can say what it
-staged.  With no process group (one process) every collective is the
-identity of a world of 1.
+staged.  Every collective that runs on a process group is counted by
+operation too (:func:`counts`): a run that resets the count before a
+tensor-parallel forward and reads it after sees exactly the collectives
+it issued.  With no process group (one process) every collective is the
+identity of a world of 1, and nothing is counted.
 
 ``ring_permute`` waits for sequence parallelism (ROADMAP A7).
 """
@@ -34,6 +37,7 @@ Tree = Any
 GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast"})
 
 _staged: Dict[str, int] = {}
+_counts: Dict[str, int] = {}
 
 
 def staged_ops() -> Dict[str, int]:
@@ -44,6 +48,20 @@ def staged_ops() -> Dict[str, int]:
 
 def reset_staged() -> None:
     _staged.clear()
+
+
+def counts() -> Dict[str, int]:
+    """``{operation: collectives run}`` since the last :func:`reset_counts`
+    (``all_reduce``, ``all_reduce_max``, ``all_gather``, ...)."""
+    return dict(_counts)
+
+
+def reset_counts() -> None:
+    _counts.clear()
+
+
+def _count(op: str) -> None:
+    _counts[op] = _counts.get(op, 0) + 1
 
 
 def active(group=None) -> bool:
@@ -87,15 +105,27 @@ class Pending:
 def all_reduce(t: torch.Tensor, group=None, *, async_op: bool = False):
     """Sum ``t`` over the group IN PLACE; returns ``t`` (or a
     :class:`Pending` with ``async_op``)."""
-    work = (dist.all_reduce(t, group=group, async_op=async_op)
-            if active(group) else None)
+    work = None
+    if active(group):
+        _count("all_reduce")
+        work = dist.all_reduce(t, group=group, async_op=async_op)
     pending = Pending(work if async_op else None, t, t.device)
     return pending if async_op else t
+
+
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``t`` over the group, IN PLACE; returns
+    ``t``."""
+    if active(group):
+        _count("all_reduce_max")
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
 
 
 def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """Overwrite ``t`` with ``src``'s, in place (group rank ``src``)."""
     if active(group):
+        _count("broadcast")
         dist.broadcast(t, dist.get_global_rank(group, src) if group is not None
                        else src, group=group)
     return t
@@ -109,6 +139,7 @@ def reduce_scatter(t: torch.Tensor, group=None, *, async_op: bool = False):
     if not active(group):
         out = t.clone()
         return Pending(None, out, t.device) if async_op else out
+    _count("reduce_scatter")
     src = t.cpu() if _host_staged("reduce_scatter", t, group) else t
     out = src.new_empty(src.shape[0] // n)
     work = dist.reduce_scatter_tensor(out, src.contiguous(), group=group,
@@ -123,6 +154,7 @@ def all_to_all(t: torch.Tensor, group=None, *, async_op: bool = False):
     if not active(group):
         out = t.clone()
         return Pending(None, out, t.device) if async_op else out
+    _count("all_to_all")
     src = t.cpu() if _host_staged("all_to_all", t, group) else t
     src = src.contiguous()
     out = torch.empty_like(src)
@@ -137,6 +169,7 @@ def all_gather(x: torch.Tensor, group=None, *, tiled: bool = True) -> torch.Tens
     n = group_size(group)
     if not active(group):
         return x.clone() if tiled else x[None].clone()
+    _count("all_gather")
     src = x.cpu() if _host_staged("all_gather", x, group) else x
     src = src.contiguous().reshape((-1,) + tuple(x.shape[1:]))
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))

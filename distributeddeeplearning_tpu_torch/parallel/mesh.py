@@ -5,14 +5,23 @@ world of ``torch.distributed`` as the data-parallel communicator.  A
 :class:`Mesh` is a logical description of the ranks: its ``shape`` names
 the size of every axis of :data:`AXIS_ORDER`, ``size`` is the world, and
 ``rank`` and ``group`` say who this process is and which process group
-its collectives run over.  :class:`MeshSpec` infers the axis sizes exactly
-as the reference does (``MeshSpec()`` on N processes is pure data
-parallelism over N).
+its data-parallel collectives run over.  :class:`MeshSpec` infers the axis
+sizes exactly as the reference does (``MeshSpec()`` on N processes is pure
+data parallelism over N).
 
-Only the data axis is taken: ``fsdp``, ``tensor``, ``seq``, ``pipe`` and
+Ranks lie on the mesh row-major in :data:`AXIS_ORDER`, as the reference
+lays devices out, so ``tensor`` (the innermost axis) neighbours are
+consecutive ranks.  ``groups`` holds one process group per axis of more
+than one rank: the group of the ranks that differ from this one along
+that axis alone (the reference's named-axis collectives, ``psum(x,
+"tensor")``).  :meth:`Mesh.axis_index` is this rank's coordinate.
+
+The data and tensor axes are taken.  ``fsdp``, ``seq``, ``pipe`` and
 ``expert`` greater than 1 raise in :func:`create_mesh`, naming the ROADMAP
-item that brings them (FSDP: A5's follow-up; tensor: A6; seq and pipe:
-A7; expert: A5's MoE follow-up).  Multi-slice meshes (the reference's
+item that brings them (FSDP: A5's follow-up; seq and pipe: A7; expert:
+A5's MoE follow-up).  A tensor axis serves (``serve.engine.
+tensor_parallel_engine``); the trainer refuses it (:func:`require_data_only`,
+A5's FSDP / ``param_shardings`` item).  Multi-slice meshes (the reference's
 ``num_slices`` and ``_slice_groups``) wait with FSDP.
 """
 
@@ -30,10 +39,9 @@ AXIS_ORDER: Tuple[str, ...] = ("pipe", "data", "fsdp", "expert", "seq", "tensor"
 
 DATA_AXES: Tuple[str, ...] = ("data", "fsdp")  # batch is sharded over both
 
-#: where each axis but ``data`` comes in the port
+#: where each axis but ``data`` and ``tensor`` comes in the port
 _NOT_YET = {
     "fsdp": "FSDP parameter sharding (ROADMAP A5 follow-up)",
-    "tensor": "tensor parallelism (ROADMAP A6)",
     "seq": "sequence parallelism (ROADMAP A7)",
     "pipe": "pipeline parallelism (ROADMAP A7)",
     "expert": "expert parallelism (ROADMAP A5's MoE follow-up)",
@@ -78,13 +86,26 @@ class MeshSpec:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The ranks as a mesh: ``shape`` (axis -> size), ``size`` (the
-    world), this process's ``rank`` and the ``group`` its collectives run
-    over (None without a process group)."""
+    world), this process's ``rank``, the ``group`` its data-parallel
+    collectives run over (None without a process group) and ``groups``,
+    one process group per axis of more than one rank (module docstring)."""
 
     shape: Dict[str, int]
     size: int
     rank: int = 0
     group: Any = None
+    groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (row-major ranks)."""
+        inner = math.prod(self.shape[a] for a in
+                          AXIS_ORDER[AXIS_ORDER.index(axis) + 1:])
+        return (self.rank // inner) % self.shape[axis]
+
+    def axis_group(self, axis: str):
+        """The process group of ``axis``: None for an axis of one rank
+        (no collective runs over it)."""
+        return self.groups.get(axis)
 
 
 def _world(group) -> Tuple[int, int]:
@@ -94,11 +115,37 @@ def _world(group) -> Tuple[int, int]:
     return dist.get_world_size(group), dist.get_rank(group)
 
 
+def _axis_groups(sizes: Dict[str, int], world: int, rank: int, group) -> Dict[str, Any]:
+    """One process group per axis of more than one rank: the group of
+    this rank's neighbours along it.  Every rank calls ``new_group`` for
+    every group, in the same order, as ``torch.distributed`` requires; an
+    axis that spans the whole world takes ``group`` itself."""
+    groups: Dict[str, Any] = {}
+    for axis in AXIS_ORDER:
+        n = sizes[axis]
+        if n == 1:
+            continue
+        if n == world:
+            groups[axis] = group
+            continue
+        inner = math.prod(sizes[a] for a in AXIS_ORDER[AXIS_ORDER.index(axis) + 1:])
+        for base in range(world):
+            if (base // inner) % n:
+                continue  # not the first rank of its group along the axis
+            members = [base + i * inner for i in range(n)]
+            made = dist.new_group(
+                members if group is dist.group.WORLD
+                else [dist.get_global_rank(group, m) for m in members])
+            if rank in members:
+                groups[axis] = made
+    return groups
+
+
 def create_mesh(spec: Optional[MeshSpec] = None, *, group=None) -> Mesh:
     """The mesh of ``spec`` over the processes of ``group`` (the default
     group; one process and no group when ``torch.distributed`` is not
     initialised) — the reference's ``hvd.init()`` world.  Axes other than
-    ``data`` greater than 1 raise (module docstring)."""
+    ``data`` and ``tensor`` greater than 1 raise (module docstring)."""
     spec = spec or MeshSpec()
     world, rank = _world(group)
     if group is None and world > 1:
@@ -108,9 +155,25 @@ def create_mesh(spec: Optional[MeshSpec] = None, *, group=None) -> Mesh:
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"create_mesh: {axis}={sizes[axis]} is {where}; the port's "
-                "mesh takes the data axis only"
+                "mesh takes the data and tensor axes only"
             )
-    return Mesh(shape=sizes, size=world, rank=rank, group=group)
+    return Mesh(shape=sizes, size=world, rank=rank, group=group,
+                groups=_axis_groups(sizes, world, rank, group))
+
+
+def require_data_only(mesh: Optional[Mesh], what: str) -> None:
+    """Refuse a mesh with a model axis above 1 where only data
+    parallelism is ported (``what`` names the caller): tensor-parallel
+    training is ROADMAP A5's FSDP / ``param_shardings`` item."""
+    if mesh is None:
+        return
+    model = {a: n for a, n in mesh.shape.items() if a not in DATA_AXES and n > 1}
+    if model:
+        raise NotImplementedError(
+            f"{what}: a mesh with {model} shards the model; tensor-parallel "
+            "training is ROADMAP A5's FSDP / param_shardings item, and the "
+            "port trains data-parallel only"
+        )
 
 
 def world_size(mesh: Optional[Mesh] = None) -> int:
@@ -118,6 +181,11 @@ def world_size(mesh: Optional[Mesh] = None) -> int:
     if mesh is None:
         return _world(None)[0]
     return mesh.size
+
+
+def tensor_parallel_size(mesh: Optional[Mesh]) -> int:
+    """Size of the ``tensor`` axis (1 for no mesh — unsharded serving)."""
+    return int(mesh.shape["tensor"]) if mesh is not None else 1
 
 
 def data_parallel_size(mesh: Mesh) -> int:

@@ -180,21 +180,38 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b)
 
 
-def qdot(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def qdot(x: torch.Tensor, qt: QTensor, *, group=None) -> torch.Tensor:
     """``x [..., K] @ qt [K, N] -> [..., N]`` with int8 compute.
 
     Per-row activation scales (absmax over K), an int8 x int8 product
     accumulated in int32, then ``(acc * a_scale) * w_scale`` in f32.
     Non-2-D, block-quantized or other-axis weights take the dequantize
-    path — the reference's condition, and its only one."""
+    path — the reference's condition, and its only one.
+
+    ``group``: a row-parallel product, whose K is split over the ranks of
+    the process group (``x`` and ``qt`` hold this rank's part of K, the
+    weight's scales are whole).  A row's absmax is then the max over the
+    WHOLE K, so the local one is all-reduced with MAX before quantizing
+    (a rank's own absmax would put its codes on another grid), and the
+    int32 partial accumulators are summed exactly over the group before
+    the rescale — what GSPMD computes for the reference's sharded
+    contraction, and bit for bit the unsplit product's result."""
+    from distributeddeeplearning_tpu_torch.parallel import collectives
+
     if qt.values.dim() != 2 or qt.axis != -2 or qt.block is not None:
-        return x @ dequantize(qt, x.dtype)
+        out = x @ dequantize(qt, x.dtype)
+        return out if group is None else collectives.all_reduce(out.contiguous(), group)
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        collectives.all_reduce_max(amax, group)
     a_scale = torch.clamp(amax, min=EPS) / QMAX  # [..., 1]
     xq = torch.clamp(torch.round(xf / a_scale), -QMAX, QMAX).to(torch.int8)
     K, N = qt.values.shape
-    acc = int8_matmul(xq.reshape(-1, K), qt.values).reshape(*x.shape[:-1], N)
+    acc = int8_matmul(xq.reshape(-1, K), qt.values)
+    if group is not None:
+        acc = collectives.all_reduce(acc.contiguous(), group)
+    acc = acc.reshape(*x.shape[:-1], N)
     w_scale = qt.scales.reshape(-1)  # [N] (keepdims [1, N] flattened)
     return (acc.to(torch.float32) * a_scale * w_scale).to(x.dtype)
 

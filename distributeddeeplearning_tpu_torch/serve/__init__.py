@@ -1,5 +1,6 @@
-"""Serving stack of the port: dense and paged KV caches, the engines and
-continuous batching with chunked prefill."""
+"""Serving stack of the port: dense and paged KV caches, the engines
+(tensor-parallel over processes too) and continuous batching with chunked
+prefill."""
 
 from distributeddeeplearning_tpu_torch.serve.engine import (
     InferenceEngine,
@@ -7,12 +8,14 @@ from distributeddeeplearning_tpu_torch.serve.engine import (
     PrefillTask,
     prompt_bucket,
     sample_logits,
+    tensor_parallel_engine,
 )
 from distributeddeeplearning_tpu_torch.serve.kv_cache import (
     SCRATCH_PAGE,
     OutOfPages,
     PageAllocator,
     cache_bytes,
+    cache_sharding,
     init_cache,
     init_paged_cache,
     insert_pages,
@@ -40,6 +43,7 @@ __all__ = [
     "Request",
     "ServeReport",
     "cache_bytes",
+    "cache_sharding",
     "init_cache",
     "init_paged_cache",
     "insert_pages",
@@ -49,4 +53,5 @@ __all__ = [
     "prompt_bucket",
     "sample_logits",
     "synthetic_requests",
+    "tensor_parallel_engine",
 ]

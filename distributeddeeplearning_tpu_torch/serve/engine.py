@@ -31,13 +31,27 @@ rule).  Temperature sampling draws from a ``torch.Generator`` seeded from
 ``(seed, step)``, so a run is reproducible from the seed and request order
 within the port; ``jax.random``'s streams are not reproduced.
 
-Not in this slice: meshes and tensor parallelism, the HBM ledger and
+Tensor parallelism: with a ``mesh`` whose ``tensor`` axis is above 1
+(:func:`tensor_parallel_engine`), every process of the group is one rank
+of it and runs the same engine over the same requests: each keeps its
+slice of the full parameter tree it is given
+(``parallel.sharding.shard_params``: Megatron's column-parallel ``qkv``
+and ``w_in``, row-parallel ``proj`` and ``w_out``, vocab-parallel
+``embed`` and ``head``) and its ``h / tp`` heads of the cache
+(``kv_cache.cache_sharding``), and the model issues the collectives
+(``models.pipelined_transformer``).  Every rank gets the same full
+logits and samples the same tokens, so the schedulers never diverge.
+``tp`` and ``layout_rules`` (the rule table's tag) ride every report.
+
+Not in this slice: ``data_parallel_engine`` (a data mesh over processes
+needs slot ownership and token exchange: ROADMAP A6), the HBM ledger and
 compile tracking, live weight reload, the host page tier and the
 logit-capture probe.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Optional, Sequence
 
 import numpy as np
@@ -52,6 +66,11 @@ from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
     forward_prefill_chunk,
 )
 from distributeddeeplearning_tpu_torch.ops.flash_decode import resolve_kernel
+from distributeddeeplearning_tpu_torch.parallel import sharding as layout
+from distributeddeeplearning_tpu_torch.parallel.mesh import (
+    data_parallel_size,
+    tensor_parallel_size,
+)
 from distributeddeeplearning_tpu_torch.quant.calibrate import params_dtype
 from distributeddeeplearning_tpu_torch.serve.kv_cache import (
     CACHE_DTYPES,
@@ -128,6 +147,40 @@ def _validate_model_dims(params, *, num_heads: int, max_seq: int, top_k):
     return d_model, params["blocks"]["qkv"].shape[0], d_model // num_heads
 
 
+#: the Megatron leaves the TP path splits (their int8 scales aside)
+_MEGATRON = re.compile(r"(^|/)(qkv|proj|w_in|w_out|embed|head)(/values)?$")
+
+
+def _check_mesh(params, mesh, *, num_heads: int, kv_layout: str) -> int:
+    """The reference's refusals of a serving mesh, and the port's own;
+    returns the tensor-parallel degree (1: no mesh, or one rank)."""
+    if mesh is None or mesh.size == 1:
+        return 1
+    tp = tensor_parallel_size(mesh)
+    if data_parallel_size(mesh) != 1:
+        if kv_layout == "paged" and tp > 1:
+            raise ValueError(
+                "paged engine meshes must be tensor-only (data×fsdp "
+                f"== 1): the page pool never shards; got {dict(mesh.shape)}")
+        raise NotImplementedError(
+            f"a serving mesh with data axes {dict(mesh.shape)}: slots over "
+            "processes are data_parallel_engine (ROADMAP A6), not in the "
+            "port yet; tensor_parallel_engine serves a data=1 mesh")
+    if num_heads % tp:
+        raise ValueError(
+            f"num_heads {num_heads} not divisible by the mesh's "
+            f"tensor axis ({tp}) — TP shards attention heads")
+    specs = layout.match_partition_rules(params, prefix="params", mesh=mesh)
+    whole = [name for name, spec in specs.items()
+             if _MEGATRON.search(name) and "tensor" not in spec]
+    if whole:
+        raise ValueError(
+            f"{whole} do not split over tensor={tp} (a vocabulary or d_ff "
+            "that does not divide): the port's TP path splits every Megatron "
+            "leaf, where the reference would replicate these")
+    return tp
+
+
 def _to_device(tree, device: torch.device):
     """Every leaf on ``device``; a QTensor moves its values and scales."""
     if isinstance(tree, dict):
@@ -155,15 +208,52 @@ def _kv_dtype(cache_dtype, weights: torch.dtype) -> torch.dtype:
     return dtype
 
 
+def tensor_parallel_engine(params, *, tp: int, num_heads: int, batch_slots: int,
+                           max_seq: int, kv_layout: str = "dense", **engine_kw):
+    """An engine with its weights and cache tensor-parallel over ``tp``
+    processes (the reference's ``tensor_parallel_engine``, with processes
+    for its devices).
+
+    Every process of the ``torch.distributed`` group calls it with the
+    same FULL ``params`` and arguments; it builds a ``data=1 x
+    tensor=tp`` mesh over the group (one process group for the tensor
+    axis) and hands it to the layout's engine, which keeps the rank's
+    slice.  ``kv_layout``: ``"dense"`` or ``"paged"``; ``engine_kw`` go to
+    the engine (``device``: ranks that share one card pass
+    ``"cuda:0"``).  ``tp=1`` returns the plain engine, in any process.
+    Returns ``(engine, mesh)``; ``mesh`` is None for ``tp=1``."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    mesh = None
+    if tp > 1:
+        from distributeddeeplearning_tpu_torch.parallel import (
+            MeshSpec,
+            create_mesh,
+            process_count,
+        )
+
+        world = process_count()
+        if tp > world:
+            raise ValueError(f"tp={tp} exceeds the {world} processes of the "
+                             "torch.distributed group")
+        mesh = create_mesh(MeshSpec(data=1, tensor=tp))
+    cls = PagedInferenceEngine if kv_layout == "paged" else InferenceEngine
+    engine = cls(params, num_heads=num_heads, batch_slots=batch_slots,
+                 max_seq=max_seq, mesh=mesh, **engine_kw)
+    return engine, mesh
+
+
 class _EngineCore:
     """What both cache layouts share: device, weights, sampling and the
     decode step's one host readback."""
 
     def _setup(self, params, *, num_heads: int, batch_slots: int,
                max_seq: int, temperature: float, top_k, seed: int,
-               pad_id: int, decode_kernel: str, cache_dtype, device):
-        """Validate and store the common state; returns ``(num_layers,
-        head_dim, cache dtype)``."""
+               pad_id: int, decode_kernel: str, cache_dtype, device, mesh,
+               kv_layout: str):
+        """Validate and store the common state (the rank's slice of the
+        weights under a TP mesh); returns ``(num_layers, head_dim, cache
+        dtype)``."""
         self.device = resolve_device(device)
         self.decode_kernel = resolve_kernel(decode_kernel)
         _, num_layers, head_dim = _validate_model_dims(
@@ -176,17 +266,24 @@ class _EngineCore:
                 f" not {params['embed'].dtype}"
             )
         dtype = _kv_dtype(cache_dtype, params["embed"].dtype)
+        self.vocab_size = params["head"].shape[1]
+        self.weights_dtype = params_dtype(params)
+        self.tp = _check_mesh(params, mesh, num_heads=num_heads,
+                              kv_layout=kv_layout)
+        self.layout_rules = layout.layout_rules_provenance()
+        # the mesh the model and the cache take: None unless tensor-parallel
+        self.mesh = mesh if self.tp > 1 else None
+        if self.mesh is not None:
+            params = layout.shard_params(params, mesh)
         self.params = _to_device(params, self.device)
         self.num_heads = num_heads
         self.batch_slots = batch_slots
         self.max_seq = max_seq
         self.pad_id = pad_id
-        self.vocab_size = params["head"].shape[1]
         self.temperature = float(temperature)
         self.top_k = top_k
         self.seed = seed
         self.kv_dtype = str(dtype).replace("torch.", "")
-        self.weights_dtype = params_dtype(params)
         self.prefill_compiles = 0
         self._sample_step = 0
         # per-slot logit-finiteness verdict of the LAST decode step; read
@@ -247,7 +344,8 @@ class InferenceEngine(_EngineCore):
     pass through the causal flash kernel; ``decode_kernel="auto"`` runs
     decode attention through the decode kernel; ``cache_dtype`` (a
     ``torch.dtype`` or its name) defaults to the embedding's dtype, and
-    ``"int8"`` stores K/V quantized.
+    ``"int8"`` stores K/V quantized.  ``mesh``: a tensor-parallel mesh
+    (module docstring; :func:`tensor_parallel_engine` builds one).
     """
 
     def __init__(
@@ -265,6 +363,7 @@ class InferenceEngine(_EngineCore):
         pad_id: int = 0,
         decode_kernel: str = "auto",
         device: DeviceLike = None,
+        mesh=None,
     ):
         if prefill_attention not in ATTENTIONS:
             raise ValueError(
@@ -275,7 +374,7 @@ class InferenceEngine(_EngineCore):
             params, num_heads=num_heads, batch_slots=batch_slots,
             max_seq=max_seq, temperature=temperature, top_k=top_k, seed=seed,
             pad_id=pad_id, decode_kernel=decode_kernel,
-            cache_dtype=cache_dtype, device=device,
+            cache_dtype=cache_dtype, device=device, mesh=mesh, kv_layout="dense",
         )
         self.kv_layout = "dense"
         self.chunked_prefill = False
@@ -284,7 +383,7 @@ class InferenceEngine(_EngineCore):
         self._cache = init_cache(
             batch_slots=batch_slots, num_layers=num_layers, max_seq=max_seq,
             num_heads=num_heads, head_dim=head_dim, dtype=dtype,
-            device=self.device,
+            device=self.device, mesh=self.mesh,
         )
 
     def kv_bytes_peak(self) -> int:
@@ -327,6 +426,7 @@ class InferenceEngine(_EngineCore):
         logits, k, v = forward_prefill(
             self.params, torch.from_numpy(tokens).to(self.device),
             num_heads=self.num_heads, attention=self.prefill_attention,
+            mesh=self.mesh,
         )
         insert_sequence(self._cache, k, v, slot)
         # the last REAL position, not the padding
@@ -343,7 +443,7 @@ class InferenceEngine(_EngineCore):
         p = torch.from_numpy(np.asarray(pos, np.int32)).to(self.device)
         logits, _ = forward_decode(
             self.params, tok, self._cache, p, num_heads=self.num_heads,
-            kernel=self.decode_kernel,
+            kernel=self.decode_kernel, mesh=self.mesh,
         )
         return self._readback(logits)
 
@@ -408,7 +508,8 @@ class PagedInferenceEngine(_EngineCore):
     engine's math; with the kernel the sums run in the same order too.
     ``device`` defaults to ``cuda``; ``cache_dtype`` defaults to the
     embedding's dtype, and ``"int8"`` (or ``torch.int8``) makes the pool
-    int8 with f32 scale pools.
+    int8 with f32 scale pools.  ``mesh``: as the dense engine's; the page
+    axis never splits, so a paged mesh is tensor-only.
     """
 
     def __init__(
@@ -429,6 +530,7 @@ class PagedInferenceEngine(_EngineCore):
         prefix_cache: bool = True,
         decode_kernel: str = "auto",
         device: DeviceLike = None,
+        mesh=None,
     ):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -438,7 +540,7 @@ class PagedInferenceEngine(_EngineCore):
             params, num_heads=num_heads, batch_slots=batch_slots,
             max_seq=max_seq, temperature=temperature, top_k=top_k, seed=seed,
             pad_id=pad_id, decode_kernel=decode_kernel,
-            cache_dtype=cache_dtype, device=device,
+            cache_dtype=cache_dtype, device=device, mesh=mesh, kv_layout="paged",
         )
         self.kv_layout = "paged"
         self.chunked_prefill = True
@@ -456,7 +558,7 @@ class PagedInferenceEngine(_EngineCore):
         self._cache = init_paged_cache(
             num_pages=num_pages, num_layers=num_layers, page_size=page_size,
             num_heads=num_heads, head_dim=head_dim, dtype=dtype,
-            device=self.device,
+            device=self.device, mesh=self.mesh,
         )
         self._page_bytes = page_bytes(self._cache)
         # host-side block tables, one row per slot; scratch-filled rows
@@ -631,6 +733,7 @@ class PagedInferenceEngine(_EngineCore):
             self.params, torch.from_numpy(tokens).to(self.device),
             self._cache, torch.from_numpy(table).to(self.device), task.offset,
             num_heads=self.num_heads, kernel=self.decode_kernel,
+            mesh=self.mesh,
         )
         self.chunks_run += 1
         chunk_start = task.offset
@@ -678,6 +781,7 @@ class PagedInferenceEngine(_EngineCore):
         logits, _ = forward_decode_paged(
             self.params, tok, self._cache, p, self.device_tables(),
             num_heads=self.num_heads, kernel=self.decode_kernel,
+            mesh=self.mesh,
         )
         return self._readback(logits)
 

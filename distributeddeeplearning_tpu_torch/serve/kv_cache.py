@@ -21,6 +21,13 @@ dtype) or int8: values int8 plus f32 scale leaves ``{"k_scale",
 stored K/V vector (:mod:`..quant.qtensor`), so every write quantizes on
 its own and nothing is ever requantized.  Writes cast to the cache's
 dtype.
+
+Under tensor parallelism (``mesh=`` with a ``tensor`` axis above 1) each
+rank allocates its slice of the layout :func:`cache_sharding` resolves
+through the rule table: its ``h / tp`` heads of the dense ``[slots, L,
+S, h, hd]`` or paged ``[pages + 1, L, page_size, h, hd]`` leaves, and of
+the int8 scale leaves to match.  The page axis never splits: every rank
+holds every page, and the host's block tables address all of them.
 """
 
 from __future__ import annotations
@@ -48,16 +55,39 @@ SCRATCH_PAGE = 0
 CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
-def _zeros(shape, dtype: torch.dtype, dev: torch.device) -> Cache:
+def cache_sharding(mesh, *, quantized: bool = False, layout: str = "dense"):
+    """``{leaf: spec}`` of a cache under ``mesh``, resolved through the
+    partition-rule layout table (``parallel.sharding.LAYOUT_RULES``).
+    Dense: slots over the data axes, heads over ``tensor``; paged: the
+    page axis stays whole and only heads split.  The int8 layouts' scale
+    leaves split alike (the same dims without the head dim)."""
+    from distributeddeeplearning_tpu_torch.parallel import sharding
+
+    if layout not in ("dense", "paged"):
+        raise ValueError(f"unknown cache layout {layout!r}")
+    names = dict.fromkeys(("k", "v", "k_scale", "v_scale") if quantized
+                          else ("k", "v"))
+    specs = sharding.match_partition_rules(names, prefix=f"kv_{layout}", mesh=mesh)
+    return {name.split("/", 1)[1]: spec for name, spec in specs.items()}
+
+
+def _zeros(shape, dtype: torch.dtype, dev: torch.device, mesh=None,
+           layout: str = "dense") -> Cache:
     if dtype not in CACHE_DTYPES:
         raise ValueError(
             f"KV cache dtype {dtype}: float32, bfloat16 or int8")
-    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    shapes = {"k": shape, "v": shape}
     if dtype == torch.int8:
-        cache["k_scale"] = torch.zeros(shape[:-1], device=dev)
-        cache["v_scale"] = torch.zeros(shape[:-1], device=dev)
-    return cache
+        shapes.update(k_scale=shape[:-1], v_scale=shape[:-1])
+    if mesh is not None:
+        from distributeddeeplearning_tpu_torch.parallel import sharding
+
+        specs = cache_sharding(mesh, quantized=dtype == torch.int8, layout=layout)
+        shapes = {name: sharding.local_shape(full, specs[name], mesh)
+                  for name, full in shapes.items()}
+    return {name: torch.zeros(s, dtype=torch.float32 if name.endswith("_scale")
+                              else dtype, device=dev)
+            for name, s in shapes.items()}
 
 
 def init_cache(
@@ -69,15 +99,16 @@ def init_cache(
     head_dim: int,
     dtype: torch.dtype = torch.float32,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Cache:
     """Zero-filled dense cache ``{"k", "v"}``, each [slots, L, S, h, hd]
     in ``dtype`` (plus ``{"k_scale", "v_scale"}`` [slots, L, S, h] f32 for
-    int8).
+    int8); with a ``mesh``, this rank's slice of it (module docstring).
     Zeros are never read: the decode position mask hides every position
     above a slot's length, and admission overwrites from 0."""
     dev = resolve_device(device)
     return _zeros((batch_slots, num_layers, max_seq, num_heads, head_dim),
-                  dtype, dev)
+                  dtype, dev, mesh, "dense")
 
 
 def insert_sequence(cache: Cache, k: torch.Tensor, v: torch.Tensor,
@@ -116,10 +147,12 @@ def init_paged_cache(
     head_dim: int,
     dtype: torch.dtype = torch.float32,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Cache:
     """Zero-filled page pool ``{"k", "v"}``, each [pages, L, page_size, h,
     hd] in ``dtype`` (plus ``{"k_scale", "v_scale"}`` [pages, L, page_size,
-    h] f32 for int8).  ``num_pages`` counts USABLE pages; the scratch page (id 0) is
+    h] f32 for int8); with a ``mesh``, this rank's heads of it.
+    ``num_pages`` counts USABLE pages; the scratch page (id 0) is
     prepended.  Page-major, so a page is one leading-dim slice."""
     if num_pages < 1:
         raise ValueError(f"num_pages must be >= 1, got {num_pages}")
@@ -127,7 +160,7 @@ def init_paged_cache(
         raise ValueError(f"page_size must be >= 1, got {page_size}")
     dev = resolve_device(device)
     return _zeros((num_pages + 1, num_layers, page_size, num_heads, head_dim),
-                  dtype, dev)
+                  dtype, dev, mesh, "paged")
 
 
 def page_bytes(cache: Cache) -> int:

@@ -110,6 +110,11 @@ class ServeReport:
     kv_layout: str = "dense"
     kv_dtype: str = "float32"
     weights_dtype: str = "float32"
+    # layout provenance: the tensor-parallel degree the engine served at
+    # and the partition-rule table that laid it out (count + digest,
+    # ``parallel.sharding.layout_rules_provenance``)
+    tp: int = 1
+    layout_rules: str = ""
     decode_kernel: str = "flash"
     kv_bytes: int = 0
     kv_bytes_peak: int = 0
@@ -536,6 +541,8 @@ class ContinuousBatchingScheduler:
             kv_layout=engine.kv_layout,
             kv_dtype=engine.kv_dtype,
             weights_dtype=engine.weights_dtype,
+            tp=engine.tp,
+            layout_rules=engine.layout_rules,
             decode_kernel=engine.decode_kernel,
             kv_bytes=engine.kv_bytes(),
             kv_bytes_peak=engine.kv_bytes_peak(),

@@ -23,8 +23,8 @@ serving engine's cache:
 Greedy only (the rule compares argmaxes) and f32 KV cache only (verify
 extends the decode == full-forward pin, which the int8 grid breaks);
 int8 WEIGHTS are fine — they are what :class:`~.drafter.Int8Drafter`
-drafts with.  The reference's mesh guard has no counterpart: the port has
-no mesh.
+drafts with.  Single mesh only: an engine served tensor-parallel is
+refused with the reference's message.
 
 Not in this slice: the reference's program-cost rows (``tracked_jit``)
 for verify and rollback, the HBM-ledger entry for the drafter's weights
@@ -103,6 +103,10 @@ class SpeculativeDecoder:
                 "acceptance rule compares argmaxes, and sampled tokens "
                 "would silently stop being equivalent to the non-"
                 "speculative distribution")
+        if getattr(engine, "tp", 1) > 1:
+            raise ValueError(
+                "speculative decoding is single-mesh for now (the "
+                "verify/rollback programs carry no sharding annotations)")
         self.engine = engine
         self.draft_tokens = draft_tokens
         if isinstance(drafter, Drafter):

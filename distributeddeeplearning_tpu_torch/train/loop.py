@@ -66,6 +66,7 @@ from distributeddeeplearning_tpu_torch.obs.registry import get_registry
 from distributeddeeplearning_tpu_torch.obs.trace import get_tracer
 from distributeddeeplearning_tpu_torch.parallel import collectives
 from distributeddeeplearning_tpu_torch.parallel.distributed import is_primary
+from distributeddeeplearning_tpu_torch.parallel.mesh import require_data_only
 from distributeddeeplearning_tpu_torch.train.checkpoint import Checkpointer
 from distributeddeeplearning_tpu_torch.train.resilience import (
     AnomalyDetector,
@@ -278,6 +279,7 @@ class Trainer:
                  mesh=None):
         if config.steps_per_epoch <= 0:
             raise ValueError("steps_per_epoch must be positive")
+        require_data_only(mesh, "Trainer")
         self.train_step = train_step
         self.eval_step = eval_step
         self.config = config

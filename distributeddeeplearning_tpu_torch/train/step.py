@@ -72,6 +72,7 @@ from distributeddeeplearning_tpu_torch.parallel import collectives, comms
 from distributeddeeplearning_tpu_torch.parallel.mesh import (
     create_mesh,
     data_parallel_size,
+    require_data_only,
 )
 from distributeddeeplearning_tpu_torch.train.schedule import Schedule
 from distributeddeeplearning_tpu_torch.train.state import (
@@ -244,6 +245,7 @@ def build_train_step(
     ``moe_aux_weight`` weights the mixture-of-experts load-balance terms
     added to the loss.
     """
+    require_data_only(mesh, "build_train_step")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if comm_overlap:
@@ -557,6 +559,7 @@ def build_eval_step(
     reads the running statistics).  With a ``mesh`` each rank evaluates
     its rows and the metrics are the global batch's means (each rank's
     weighted by its rows)."""
+    require_data_only(mesh, "build_eval_step")
     del state_example
     group = None if mesh is None else mesh.group
 

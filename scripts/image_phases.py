@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run only ``chip_smoke.py``'s image, ViT and MoE phases on one NVIDIA GPU.
+"""Run only ``chip_smoke.py``'s image, ViT, MoE and parallelism phases on one NVIDIA GPU.
 
     python3 scripts/image_phases.py                      # all of them
     python3 scripts/image_phases.py phase_resnet         # or any of them
@@ -15,7 +15,9 @@ step, flash against default, the card against the CPU), ``phase_resume``
 (the trainer's resilience layer on that fit, and the LM workload's exit
 codes), ``phase_moe_bert`` (bert-base with experts) and
 ``phase_data_parallel`` (data-parallel training: NCCL at a world of 1,
-two gloo ranks sharing the card, the distributed flagship benchmark), each as
+two gloo ranks sharing the card, the distributed flagship benchmark) and
+``phase_tensor_parallel`` (tensor-parallel serving over two gloo ranks
+sharing the card, K4(d) and K1-K3 over a rank's heads), each as
 ``chip_smoke.py`` runs it, after the card's ``nvidia-smi`` name and power
 limit.  Exits
 nonzero if a phase fails.  Run from the repository's root; needs a CUDA
@@ -31,7 +33,7 @@ import traceback
 
 PHASES = ("phase_resnet", "phase_resnet_parity", "phase_image_short", "phase_vit",
           "phase_vit_flash", "phase_resume", "phase_resilience", "phase_moe_bert",
-          "phase_data_parallel")
+          "phase_data_parallel", "phase_tensor_parallel")
 
 
 def main(argv) -> int:
@@ -44,19 +46,22 @@ def main(argv) -> int:
     from distributeddeeplearning_tpu_torch import resolve_device
     from distributeddeeplearning_tpu_torch.ops import _build
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.ops import flash_decode as fd
 
     resolve_device("cuda")
     card = chip_smoke.card_line()
     chip_smoke.log(f"[card] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
     chip_smoke.log(f"[build] {_build.build_all()}")
-    args = {"torch": torch, "np": np, "F": F, "fa": fa, "card": card}
+    args = {"torch": torch, "np": np, "F": F, "fa": fa, "fd": fd, "card": card}
     rc = 0
     for name in argv or PHASES:
         if name not in PHASES:
             raise SystemExit(f"unknown phase {name!r}; one of {PHASES}")
         phase = getattr(chip_smoke, name)
         try:
-            chip_smoke.timed(phase, *(args[p] for p in inspect.signature(phase).parameters))
+            chip_smoke.timed(phase, *(args[p] for p, v in
+                                      inspect.signature(phase).parameters.items()
+                                      if v.default is inspect.Parameter.empty))
         except Exception:  # noqa: BLE001 — report every phase, fail at the end
             traceback.print_exc()
             rc = 1

@@ -10,8 +10,10 @@ they run live here, in a module without jax, and take numpy inputs.
 
 The rank functions build the tiny models of the tests: the BERT of
 ``tests/test_comms.py`` (1 layer, hidden 32, 2 heads, vocabulary 50, 3
-classes, SGD momentum at lr 0.05), a tiny causal LM (AdamW, no clip) and
-ResNet-18 in float64 for the global-batch BatchNorm check.
+classes, SGD momentum at lr 0.05), a tiny causal LM (AdamW, no clip),
+ResNet-18 in float64 for the global-batch BatchNorm check, and the
+tensor-parallel serving cases of ``tests/test_torch_tp_serve.py``
+(:func:`tp_serve`, which runs in-process at ``tp=1`` too).
 """
 
 from __future__ import annotations
@@ -317,16 +319,29 @@ def resume_is_bitwise(rank, world, params_np, batches, directory, split):
 
 def mesh_refusals(rank, world, axes):
     """``{axis: (exception name, message)}`` of ``create_mesh`` with the
-    axis at 2."""
-    from distributeddeeplearning_tpu_torch.parallel import MeshSpec, create_mesh
+    axis at 2; for a mesh that builds, ``("ok", what it holds)``: its
+    shape, whether the axis has a process group, the ranks in it,
+    ``tensor_parallel_size`` and this rank's coordinate on the axis."""
+    import torch.distributed as dist
+
+    from distributeddeeplearning_tpu_torch.parallel import (
+        MeshSpec,
+        create_mesh,
+        tensor_parallel_size,
+    )
 
     out = {}
     for axis in axes:
         try:
-            create_mesh(MeshSpec(**{"data": 1, axis: 2}))
-            out[axis] = ("ok", "")
+            mesh = create_mesh(MeshSpec(**{"data": 1, axis: 2}))
         except Exception as exc:  # noqa: BLE001 — the outcome is the result
             out[axis] = (type(exc).__name__, str(exc))
+            continue
+        group = mesh.axis_group(axis)
+        out[axis] = ("ok", {"shape": dict(mesh.shape), "group": group is not None,
+                            "group_size": dist.get_world_size(group),
+                            "tensor_parallel_size": tensor_parallel_size(mesh),
+                            "index": mesh.axis_index(axis)})
     return out
 
 
@@ -452,3 +467,119 @@ def card_lm_fit(rank, world, params_np, batches, kw):
     return {"losses": losses, "params": np_tree(
         tstate.tree_map(lambda t: t.detach().cpu(), state.params)),
             "launches": [tfa.launches_bf16, tfa.launches_dq_bf16, tfa.launches_dkv_bf16]}
+
+
+# -- tensor-parallel serving ----------------------------------------------------
+
+def tp_params(params_np, weights: str):
+    """The port's parameter tree from the JAX package's numpy one, in
+    ``weights``: ``"f32"``, ``"bf16"`` (every leaf cast, as ``astype``
+    casts the reference's) or ``"int8"`` (the port's ``quantize_params``,
+    bitwise the reference's codes and scales)."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        params_from_numpy,
+    )
+    from distributeddeeplearning_tpu_torch.quant.calibrate import quantize_params
+    from distributeddeeplearning_tpu_torch.train.state import tree_map
+
+    params = params_from_numpy(params_np, device="cpu")
+    if weights == "bf16":
+        return tree_map(lambda t: t.to(torch.bfloat16), params)
+    if weights == "int8":
+        return quantize_params(params)
+    return params
+
+
+def tp_serve_case(params_np, case, tp: int):
+    """One serving case on ``tensor_parallel_engine(tp=tp)``: the streams,
+    the report's provenance, the prefix hit rate, the collectives the run
+    issued and the forward passes it ran."""
+    from distributeddeeplearning_tpu_torch.parallel import collectives
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        Request,
+        tensor_parallel_engine,
+    )
+
+    kw = dict(tp=tp, num_heads=case["num_heads"], batch_slots=2, max_seq=32,
+              device="cpu", temperature=case.get("temperature", 0.0))
+    if case.get("cache_dtype"):
+        kw["cache_dtype"] = case["cache_dtype"]
+    if case["layout"] == "paged":
+        kw.update(kv_layout="paged", page_size=4, prefill_chunk=8)
+    engine, mesh = tensor_parallel_engine(tp_params(params_np, case["weights"]), **kw)
+    collectives.reset_counts()
+    requests = [Request(uid=uid, prompt=list(prompt)) for uid, prompt in case["requests"]]
+    results, report = ContinuousBatchingScheduler(
+        engine, max_new_tokens=case["max_new"]).run(requests)
+    out = {"tokens": {r.uid: r.tokens for r in results}, "tp": report.tp,
+           "layout_rules": report.layout_rules, "hit_rate": report.prefix_hit_rate,
+           "counts": collectives.counts(), "decode_steps": report.decode_steps,
+           "prefills": (engine.chunks_run if case["layout"] == "paged"
+                        else len(requests)),
+           "mesh": None if mesh is None else dict(mesh.shape),
+           "kv_heads": engine.cache["k"].shape[3]}
+    if case["layout"] == "paged":
+        engine.allocator.check()
+    return out
+
+
+def tp_logits(params_np, tokens, num_heads: int, tp: int):
+    """``forward_prefill`` logits (flash attention: its plain version) of
+    ``tokens`` under f32 and bf16 weights, on a ``tensor=tp`` mesh of the
+    group (no mesh at ``tp=1``)."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
+        forward_prefill,
+    )
+    from distributeddeeplearning_tpu_torch.parallel import (
+        MeshSpec,
+        create_mesh,
+        shard_params,
+    )
+
+    mesh = create_mesh(MeshSpec(data=1, tensor=tp)) if tp > 1 else None
+    out = {}
+    for weights in ("f32", "bf16"):
+        params = tp_params(params_np, weights)
+        if mesh is not None:
+            params = shard_params(params, mesh)
+        with torch.inference_mode():
+            logits, k, _ = forward_prefill(params, torch.from_numpy(tokens),
+                                           num_heads=num_heads, attention="flash",
+                                           mesh=mesh)
+        out[weights] = (logits.float().numpy(), k.float().numpy())
+    return out
+
+
+def tp_serve(rank, world, params_np, cases, tokens):
+    """Every case of ``cases`` on this rank of a ``tensor=world`` engine
+    (in-process at ``world=1``), the logits of :func:`tp_logits`, and
+    whether anything loaded jax."""
+    import sys
+
+    out = {case["name"]: tp_serve_case(params_np, case, world) for case in cases}
+    out["logits"] = tp_logits(params_np, tokens, cases[0]["num_heads"], world)
+    out["jax_loaded"] = any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    return out
+
+
+def row_parallel_qdot(rank, world, x, w):
+    """``qdot`` of this rank's half of K (``x`` columns, ``w`` rows, whole
+    scales) over the group, and the same product quantized on the rank's
+    own absmax."""
+    from distributeddeeplearning_tpu_torch.parallel import collectives
+    from distributeddeeplearning_tpu_torch.parallel.mesh import create_mesh
+    from distributeddeeplearning_tpu_torch.quant.qtensor import QTensor, qdot, quantize
+
+    group = create_mesh().group
+    qt = quantize(torch.from_numpy(w))
+    per = w.shape[0] // world
+    rows = slice(rank * per, (rank + 1) * per)
+    mine = QTensor(qt.values[rows].contiguous(), qt.scales, qt.axis, qt.block)
+    xs = torch.from_numpy(x[:, rows].copy())
+    collectives.reset_counts()
+    split = qdot(xs, mine, group=group).numpy()
+    counts = collectives.counts()
+    local = qdot(xs, mine)
+    return {"split": split, "counts": counts,
+            "local_absmax": collectives.all_reduce(local, group).numpy()}

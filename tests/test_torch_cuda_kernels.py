@@ -56,6 +56,13 @@ no bias) K1-K3 are held the same way in f32 and bf16, and the flash
 queries) widens every value to f32 in registers, so it is held BITWISE to
 the same kernel on f32 copies of the same values, and to its plain
 version at 1e-4.
+
+Under tensor parallelism (K4(d), and K1-K3 through
+``make_flash_attention(mesh)``) each rank runs the same kernels over its
+6 of the serve model's 12 heads, as contiguous copies of its slice (as a
+rank allocates its cache and projects its qkv): held to the plain version
+at 1e-4 (bf16 by the rule above) and to the all-heads launch's rows for
+those heads, bitwise for K4, whose blocks each serve one head.
 """
 
 from __future__ import annotations
@@ -1582,3 +1589,147 @@ def test_vit_attention_gradients_through_the_function(cuda):
                                   do.float(), lse, delta, causal=False)
     for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
         _hold_bf16(g, p, r, name)
+
+
+# -- tensor parallelism: the kernels over a rank's heads ------------------------
+
+TP_H, TP_LOCAL = 12, 6
+
+
+def _tp_mesh(rank):
+    from distributeddeeplearning_tpu_torch.parallel.mesh import AXIS_ORDER, Mesh
+
+    shape = dict.fromkeys(AXIS_ORDER, 1)
+    shape["tensor"] = TP_H // TP_LOCAL
+    return Mesh(shape=shape, size=shape["tensor"], rank=rank)
+
+
+def _rank_heads(t, rank, dim):
+    return t.narrow(dim, rank * TP_LOCAL, TP_LOCAL).contiguous()
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("pages", ["f32", "bf16", "int8"])
+def test_k4d_over_local_heads(cuda, layout, pages):
+    """K4(d) at the per-rank decode shape (b=8, 6 heads, hd=64, S=576; int8
+    with the own-token overlay, bf16 under bf16 queries): each rank's
+    launch against the plain version and bitwise against the all-heads
+    launch's rows."""
+    b, s, hd, ps = 8, 576, 64, 64
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[pages]
+    qt = torch.bfloat16 if pages == "bf16" else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(31)
+    qkv = torch.randn((b, 3, TP_H, hd), generator=g, device="cuda").to(qt)
+    own = (qkv[:, 1], qkv[:, 2]) if pages == "int8" else (None, None)
+    pos = torch.tensor([0, 575, 17, 300, 64, 511, 128, 450], dtype=torch.int32,
+                       device="cuda")
+    if layout == "dense":
+        cache = _pool(1, b - 1, s, TP_H, hd, dtype, seed=32)  # [b, 1, S, h, hd]
+        tables = None
+    else:
+        cache = _pool(1, b * (s // ps), ps, TP_H, hd, dtype, seed=32)
+        tables = _scrambled_tables(b, s // ps, b * (s // ps), seed=33)
+    names = ("k", "v", "k_scale", "v_scale")
+
+    def attend(q, leaves, own, mesh=None):
+        views = [leaves[n][:, 0] if n in leaves else None for n in names]
+        if tables is None:
+            return fd.decode_attention_dense(q, *views, *own, pos, mesh=mesh)
+        return fd.decode_attention_paged(q, *views, *own, pos, tables, mesh=mesh)
+
+    full = attend(qkv[:, 0], cache, own)
+    for r in range(TP_H // TP_LOCAL):
+        local = {n: _rank_heads(t, r, 3) for n, t in cache.items()}
+        q = _rank_heads(qkv[:, 0], r, 1)
+        own_r = tuple(None if t is None else _rank_heads(t, r, 1) for t in own)
+        got = attend(q, local, own_r, _tp_mesh(r))
+        views = [local[n][:, 0] if n in local else None for n in names]
+        tab = tables if tables is not None else torch.arange(
+            b, dtype=torch.int32, device="cuda")[:, None]
+        plain = fd._paged_attention_plain(q[:, None], views[0], views[1], tab,
+                                          pos[:, None], views[2], views[3],
+                                          *own_r)[:, 0]
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert (got - plain).abs().max().item() <= ATOL
+        assert torch.equal(got, full[:, r * TP_LOCAL:(r + 1) * TP_LOCAL])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_k4d_chunk_over_local_heads(cuda, int8):
+    """A 64-query chunk over a rank's 6 heads of a scrambled pool: plain
+    version at 1e-4, the all-heads launch's rows bitwise."""
+    ps, nb, c = 64, 9, 64
+    pool = _pool(1, 73, ps, TP_H, 64, torch.int8 if int8 else torch.float32, seed=34)
+    table = _scrambled_tables(1, nb, 73, seed=35)[0]
+    posns = 512 + torch.arange(c, device="cuda")
+    q = torch.randn((c, TP_H, 64), generator=torch.Generator(device="cuda").manual_seed(36),
+                    device="cuda")
+    names = ("k", "v", "k_scale", "v_scale")
+    leaves = lambda p: [p[n][:, 0] if n in p else None for n in names]  # noqa: E731
+    full = fd.chunk_attention(q, *leaves(pool), table, posns)
+    for r in range(TP_H // TP_LOCAL):
+        local = {n: _rank_heads(t, r, 3) for n, t in pool.items()}
+        q_r = _rank_heads(q, r, 1)
+        got = fd.chunk_attention(q_r, *leaves(local), table, posns, mesh=_tp_mesh(r))
+        lv = leaves(local)
+        plain = fd._paged_attention_plain(q_r[None], lv[0], lv[1], table[None],
+                                          posns.to(torch.int32)[None], lv[2], lv[3])[0]
+        torch.cuda.synchronize()
+        assert (got - plain).abs().max().item() <= ATOL
+        assert torch.equal(got, full[:, r * TP_LOCAL:(r + 1) * TP_LOCAL])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernels_over_local_heads(cuda, dtype):
+    """K1, and K2/K3 in its backward, through ``make_flash_attention(mesh)``
+    over a rank's 6 heads (B=1, S=512, causal; q, k, v strided views of
+    the rank's own qkv projection): output and gradients against the
+    plain versions (f32 1e-4; bf16 the rule above against the f32
+    reference) and against the all-heads kernels' rows."""
+    b, s, d = 1, 512, 64
+    g = torch.Generator(device="cuda").manual_seed(37)
+    qkv = torch.randn((b, s, 3 * TP_H * d), generator=g, device="cuda").to(dtype)
+    do = torch.randn((b, s, TP_H, d), generator=g, device="cuda").to(dtype)
+    full = qkv.clone().requires_grad_(True)
+    o_all = fa.flash_attention(*(t.reshape(b, s, TP_H, d)
+                                 for t in full.split(TP_H * d, -1)), None, causal=True)
+    (o_all.float() * do.float()).sum().backward()
+    for r in range(TP_H // TP_LOCAL):
+        cols = [j * TP_H * d + r * TP_LOCAL * d for j in range(3)]
+        mine = torch.cat([qkv[..., c:c + TP_LOCAL * d] for c in cols], -1)
+        mine.requires_grad_(True)
+        q, k, v = (t.reshape(b, s, TP_LOCAL, d) for t in mine.split(TP_LOCAL * d, -1))
+        fn = fa.make_flash_attention(mesh=_tp_mesh(r), causal=True)
+        o = fn(q, k, v, None, dtype=dtype)
+        do_r = _rank_heads(do, r, 2)
+        (o.float() * do_r.float()).sum().backward()
+        grads = [mine.grad[..., c:c + TP_LOCAL * d] for c in (0, TP_LOCAL * d,
+                                                             2 * TP_LOCAL * d)]
+        grad_all = [full.grad[..., c:c + TP_LOCAL * d] for c in cols]
+        o_p, lse = fa._dense_attention(q.detach(), k.detach(), v.detach(), None,
+                                       causal=True)
+        delta = (do_r.float() * o.detach().float()).sum(-1).transpose(1, 2).contiguous()
+        plain = fa._dense_attention_bwd(q.detach(), k.detach(), v.detach(), do_r, lse,
+                                        delta, causal=True)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            assert (o - o_p).abs().max().item() <= ATOL
+            for gt, pl in zip(grads, plain):
+                pl = pl.reshape(b, s, TP_LOCAL * d)
+                assert (gt - pl).abs().max().item() <= ATOL * max(pl.abs().max().item(), 1)
+        else:
+            qf, kf, vf = (t.detach().float() for t in (q, k, v))
+            ref = fa._dense_attention(qf, kf, vf, None, causal=True)[0]
+            err, plain_err = ((x.float() - ref).abs().max().item() for x in (o, o_p))
+            top = ref.abs().max().item()
+            assert err <= 2 * plain_err + 2.0 ** (math.floor(math.log2(top)) - 7)
+        o_rows = o_all[:, :, r * TP_LOCAL:(r + 1) * TP_LOCAL]
+        if not torch.equal(o, o_rows):  # fewer heads may take another block shape
+            tol = ATOL if dtype == torch.float32 else 2.0 ** (
+                math.floor(math.log2(o_rows.abs().max().item())) - 7)
+            assert (o.float() - o_rows.float()).abs().max().item() <= tol
+        for gt, ga in zip(grads, grad_all):
+            scale = max(ga.abs().max().item(), 1.0)
+            tol = ATOL * scale if dtype == torch.float32 else scale * 2.0 ** -7
+            assert (gt.float() - ga.float()).abs().max().item() <= tol

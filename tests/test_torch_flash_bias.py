@@ -265,9 +265,13 @@ def test_make_flash_attention_binds_causal_and_refuses_a_mesh():
     on_mesh = tfa.make_flash_attention(mesh=Mesh(), causal=True)
     assert torch.equal(on_mesh(*t, keep, dtype=torch.float32),
                        tfa.flash_attention(*t, keep, causal=True))
+    # a tensor mesh: each rank runs the kernels on its own heads (here the
+    # first of the two), the mask whole
     Mesh.shape = {"data": 1, "fsdp": 1, "tensor": 2}
-    with pytest.raises(NotImplementedError, match="A6"):
-        tfa.make_flash_attention(mesh=Mesh())
+    local = [x[:, :, :1].contiguous() for x in t]
+    on_heads = tfa.make_flash_attention(mesh=Mesh(), causal=True)
+    torch.testing.assert_close(on_heads(*local, keep, dtype=torch.float32),
+                               tfa.flash_attention(*t, keep, causal=True)[:, :, :1])
 
 
 def test_cpu_tensors_with_a_mask_never_launch_a_kernel():

@@ -2,8 +2,8 @@
 
 - ``MeshSpec.sizes``: the same axis sizes, and the same errors, over a
   grid of specs and device counts (``tests/test_mesh.py``'s rule);
-- ``create_mesh`` refuses every axis but ``data`` above 1, naming its
-  ROADMAP item, and ``shard_batch`` gives each rank the rows the
+- ``create_mesh`` refuses every axis but ``data`` and ``tensor`` above 1,
+  naming its ROADMAP item, and ``shard_batch`` gives each rank the rows the
   reference's batch sharding puts on its device;
 - ``BucketLayout``: bucket bounds, ``to_buckets`` values (bitwise) and the
   round trip on the trees of ``tests/test_comms.py``, and on a tree whose
@@ -193,9 +193,18 @@ def refusals():
 
 @pytest.mark.parametrize("axis", list(AXIS_ITEMS))
 def test_create_mesh_refuses_the_other_axes(refusals, axis):
-    """Over 2 ranks the sizes are legal and the axis is refused by name."""
-    for out in refusals:
+    """Over 2 ranks the sizes are legal and the axis is refused by name;
+    a tensor axis (tensor-parallel serving) builds, with its process group
+    and ``tensor_parallel_size``."""
+    for rank, out in enumerate(refusals):
         kind, message = out[axis]
+        if axis == "tensor":
+            assert kind == "ok", message
+            assert message["shape"]["tensor"] == 2 and message["shape"]["data"] == 1
+            assert message["group"] and message["group_size"] == 2
+            assert message["tensor_parallel_size"] == 2
+            assert message["index"] == rank
+            continue
         assert kind == "NotImplementedError"
         assert AXIS_ITEMS[axis] in message and axis in message
 
