@@ -245,7 +245,7 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    75 on ``preempt@3`` with a generation at 3, then resuming from it to
    exit 0, and at its defaults exiting 70 with the stacks when an injected
    data stall outlasts ``--step_deadline_s``;
-26. ``phase_data_parallel`` (last): data-parallel training, one process a
+26. ``phase_data_parallel`` (after 25): data-parallel training, one process a
    device, in three parts.  (a) NCCL at a world of 1: the LM workload at
    TRAIN's full width (bf16, flash) with ``distributed=True`` for 3 steps,
    once through the ``comm_overlap`` step (bf16 wire with error feedback,
@@ -274,7 +274,9 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    ``tensor_parallel_engine(tp=2)`` over 2 gloo ranks sharing the card
    (spawned, ``cuda:0`` passed explicitly, their own time limit), each
    rank holding its slice of the weights and its 6 of the 12 heads of the
-   cache, in five runs held against the same run on the one-process
+   cache, in five runs of 16 new tokens a request (``TP_NEW_TOKENS``,
+   half the serving cells': the script's depth cut) held against the
+   same run on the one-process
    engine (tp=1, first, in this process): (a) dense f32, the dense
    serving cell's requests; (b) paged f32 on the paged cell's
    shared-prefix requests (page 64, chunk 64, 72 pages); (c) paged with
@@ -305,6 +307,45 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    ``make_flash_attention(mesh)`` over a rank's 6 heads at the prefill
    shape (B=1, S=512, f32 and bf16), held against the plain versions and
    the all-heads kernels' rows (output and gradients), and timed.
+
+28. ``phase_serve_robust`` (last): robust serving at SERVE's full width
+   (seed 0, the tied 4x head; page 64, chunk 64), each run with every
+   counter zeroed just before and read just after and held to exact
+   launches (K4 12 a chunk and a decode step, K1 12 a dense prefill, the
+   plain versions 0).  (a) Overload: the reference's three tenants
+   (premium 1.5 rps, standard 1.0, best_effort 1.0, Poisson, prompts of
+   2..16 tokens, 16 new) for 8 s with the burst fault
+   ``burst@1:tenant=best_effort:rps=40:secs=4:at=0.5``, replayed in real
+   time through ``poll_source`` into one paged engine of 8 slots and 7
+   pages (2.5 of every 3 slots' worst case) with ``shed_policy="shed"``,
+   ``preempt_budget=2`` and an explicit ledger capacity of the engine's
+   committed bytes plus 3 requests' pages, so the forecast gates
+   admission; it prints per-class TTFT and TPOT p50/p99, sheds,
+   preemptions and the retry hints, and holds that only best_effort is
+   shed, every request ends once, every page returns, and each preempted
+   stream equals the same request served alone (or leaves it at a tie
+   within ``LOGIT_RTOL``, counted).  (b) The host tier: the reference's
+   TIER recipe at page 64 (24 sessions over 4-page prefixes, pages for two
+   sequences, 100 host pages, 3 rounds after a seed round), f32 and int8,
+   tiered and untiered: tiered tokens equal untiered (and, in f32, the
+   dense engine's) bitwise, spill-then-restore runs equal never-spilled
+   runs, the tier raises the hit rate; the per-page D2H and H2D times and
+   GB/s by CUDA events beside the PCIe link nvidia-smi reports.  (c) Live
+   reload: ``request_reload`` at the first decode step, dense and paged;
+   the requests admitted after the barrier equal a fresh engine of the new
+   weights, those before it the old weights'.  (d) Faults on a paged
+   engine: ``decode_nan`` fails only its victim and leaves no NaN in the
+   pool, ``decode_stall`` fires the watchdog (``watchdog_on_timeout``)
+   that stays quiet without it, ``reject_admit@1`` sheds one request, a
+   raised decode exception requeues the batch once, ``should_drain``
+   returns the queue ``preempted``.  (e) int8-KV fidelity: the
+   reference's teacher-forced per-position greedy agreement against f32
+   through ``capture_logits`` over the paged cell's 16 prompts, beside its
+   0.99 gate.  (f) The process ledger's reconciled frame after (a) and (b)
+   (owners, committed bytes, the host owner outside the forecast, the
+   residual against ``torch.cuda.memory_allocated()`` beside 5%).  The
+   kernels line's K4 and K1 rows add each run's launches as
+   ``serve_robust <run>``.
 
 K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
 split pass with one block per (span of 64 absolute positions, head, slot)
@@ -1092,16 +1133,16 @@ def profile_share(torch, fn, steps):
     return wall, (total if kernels else None), top, start.elapsed_time(end) / steps
 
 
-def serve_params(torch):
+def serve_params(torch, seed=0):
     """The serving cells' f32 weights: the full-width LM of ``SERVE`` from
-    seed 0 with a tied 4x-gain embedding head: top-2 logit gaps dwarf f32
-    reassociation noise, so token equality measures the kernels, not
-    tie-breaking."""
+    ``seed`` (0 unless another weight set is wanted) with a tied 4x-gain
+    embedding head: top-2 logit gaps dwarf f32 reassociation noise, so
+    token equality measures the kernels, not tie-breaking."""
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
         init_params,
     )
 
-    params = init_params(torch.Generator().manual_seed(0), max_len=MAX_SEQ,
+    params = init_params(torch.Generator().manual_seed(seed), max_len=MAX_SEQ,
                          device="cuda", **SERVE)
     params["embed"] *= 4.0
     params["head"] = params["embed"].T.contiguous()
@@ -4919,6 +4960,9 @@ TP_RUNS = (  # name, KV layout, weights, engine options: phase 27 (a)-(e)
     ("dense_int8_weights", "dense", "int8", {}),
 )
 TP_PROFILE_STEPS = 10  # decode steps of the dense f32 run's breakdown
+# the TP runs' token budget: half the serving cells', since every decode
+# step pays the ranks' gloo round trips (the script's depth cut)
+TP_NEW_TOKENS = NEW_TOKENS // 2
 #: prefill shape of K1-K3 over the local heads: one 512-token prompt
 TP_FLASH = dict(b=1, s=512, d=64)
 
@@ -5091,7 +5135,7 @@ def _tp_run(torch, np, fa, fd, run, tp, forced=None):
     torch.cuda.synchronize()
     with _TPLaunches(fa, fd) as launched:
         results, report = ContinuousBatchingScheduler(
-            engine, max_new_tokens=NEW_TOKENS).run(requests)
+            engine, max_new_tokens=TP_NEW_TOKENS).run(requests)
         torch.cuda.synchronize()
     out = {
         "tokens": {r.uid: r.tokens for r in results}, "finish": report.finish_reasons,
@@ -5460,7 +5504,7 @@ def phase_tensor_parallel(torch, np, F, fa, fd, card, runs=TP_RUNS):
                 f"top logit leads the tp=2 token by no more than the limit: (uid, "
                 f"position, tp=1 token, tp=2 token, lead) {where}")
         log(f"[tp] {name}: tokens of both ranks {'vs' if weights == 'bf16' else '=='} "
-            f"tp=1's ({REQUESTS} requests x {NEW_TOKENS}); prefix hit rate {got[0]['hit_rate']} (tp=1 "
+            f"tp=1's ({REQUESTS} requests x {TP_NEW_TOKENS}); prefix hit rate {got[0]['hit_rate']} (tp=1 "
             f"{one['hit_rate']}); params a rank {got[0]['param_bytes'] / 1e6:.1f} MB of "
             f"{one['param_bytes'] / 1e6:.1f} MB at tp=1, KV a rank "
             f"{got[0]['kv_bytes'] / 1e6:.1f} MB of {one['kv_bytes'] / 1e6:.1f} MB; "
@@ -5482,6 +5526,657 @@ def phase_tensor_parallel(torch, np, F, fa, fd, card, runs=TP_RUNS):
     k4d = _k4d(torch, F, fd, card)
     flash = _flash_tp(torch, F, fa, card)
     return ranks, k4d, flash
+
+
+# -- phase 28: robust serving --------------------------------------------------
+
+#: (a) the reference's overload traffic (bench.py:3052-3057) and burst
+#: (OVERLOAD_r19.json's spec), replayed in real time
+ROBUST_TENANTS = (("premium", 1.5), ("standard", 1.0), ("best_effort", 1.0))
+ROBUST_BURST = "burst@1:tenant=best_effort:rps=40:secs=4:at=0.5"
+ROBUST_SECS = 8.0  # bench.py --overload's schedule length
+ROBUST_PROMPT, ROBUST_NEW = 16, 16  # its longest prompt and its token budget
+ROBUST_SLOTS = 8
+# pages for 2.5 of every 3 slots' worst case (a request's prompt and budget
+# fit one 64-position page), as the reference sizes its scarce pool
+ROBUST_PAGES = -(-ROBUST_SLOTS * 5 // 6)
+# the explicit ledger capacity: the engine's committed bytes at rest plus
+# this many requests' worst-case pages — the forecast gates admission
+ROBUST_FORECAST_REQUESTS = 3
+#: (b) the reference's TIER recipe (bench.py:3300-3345) at page 64
+TIER_SESSIONS, TIER_ROUNDS, TIER_PREFIX_PAGES, TIER_NEW = 24, 3, 4, 4
+TIER_TIMED_PAGES = 16  # pages a transfer time is averaged over
+#: (d) the watchdog's deadline and the injected stall
+ROBUST_WATCHDOG_S, ROBUST_STALL_S = 0.4, 1.0
+#: (e) the reference's gate on int8-KV teacher-forced agreement
+INT8_AGREEMENT_GATE = 0.99
+
+
+#: every phase-28 run's launches, by run, for the kernels line
+ROBUST_LAUNCHES = {}
+
+
+def _robust_counts(fa, fd, engine, run):
+    """Run ``run()`` with every counter zeroed just before and read just
+    after; returns ``(its value, counts)``: K4 launches (all, int8,
+    multi-query), K1 launches, the plain versions' calls, and the chunks
+    the engine ran."""
+    import torch
+
+    _zero_counters(fa, fd)
+    chunks0 = getattr(engine, "chunks_run", 0)
+    torch.cuda.synchronize()
+    with _TPLaunches(fa, fd) as rec:
+        out = run()
+        torch.cuda.synchronize()
+    return out, {"k4": fd.launches, "k4_int8": fd.launches_int8,
+                 "k4_multi_query": fd.launches_multi_query, "k1": fa.launches,
+                 "plain": rec.plain,
+                 "chunks": getattr(engine, "chunks_run", 0) - chunks0}
+
+
+def _hold_counts(name, counts, *, steps, prefills=0, int8=False):
+    """Exact launches of a serving run: K4 a layer for every chunk and
+    every decode step (multi-query: the chunks), K1 a layer for every
+    dense prefill, the plain versions never."""
+    layers = SERVE["num_layers"]
+    want = {"k4": layers * (counts["chunks"] + steps),
+            "k4_int8": layers * (counts["chunks"] + steps) if int8 else 0,
+            "k4_multi_query": layers * counts["chunks"], "k1": layers * prefills,
+            "plain": 0}
+    got = {k: counts[k] for k in want}
+    ROBUST_LAUNCHES[name] = got
+    log(f"[robust] {name}: launches {got} (expected {want}: {counts['chunks']} "
+        f"chunks, {steps} decode steps, {prefills} dense prefills)")
+    if got != want:
+        raise AssertionError(f"{name}: unexpected launch counts {got}")
+
+
+def _tie_or_raise(torch, params, prompt, got, want, what):
+    """A resumed stream that leaves the uninterrupted one: held to a tie
+    within the f32 rule at the first differing token — the two tokens'
+    logits from one dense forward over the common history within
+    ``LOGIT_RTOL`` of the largest |logit| — else a failure."""
+    from distributeddeeplearning_tpu_torch.models.pipelined_transformer import forward
+
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    toks = torch.tensor([list(prompt) + list(want[:i])], device="cuda")
+    with torch.inference_mode():
+        row = forward(params, toks, num_heads=SERVE["num_heads"],
+                      attention="dense")[0, -1].float()
+    gap = (row[got[i]] - row[want[i]]).abs().item()
+    scale = row.abs().max().item()
+    log(f"[robust] {what}: leaves the uninterrupted stream at token {i} "
+        f"({got[i]} for {want[i]}): logit gap {gap:.3e}, largest |logit| "
+        f"{scale:.3f}, tie rule {LOGIT_RTOL:g} of it")
+    if not gap <= LOGIT_RTOL * scale:
+        raise AssertionError(f"{what}: departure at token {i} is not a tie")
+
+
+def _hold_streams(torch, params, prompts, got, want, what):
+    """Each stream of ``got`` equals ``want``'s, or leaves it at a tie;
+    returns how many left."""
+    ties = 0
+    for uid, toks in got.items():
+        if toks != want[uid]:
+            _tie_or_raise(torch, params, prompts[uid], toks, want[uid], f"{what} {uid}")
+            ties += 1
+    return ties
+
+
+def _ledger_frame(torch, tag, extra_ledger=None):
+    """The process ledger's reconciled frame, printed: owners, committed
+    bytes, the host owners outside the forecast and the residual against
+    ``torch.cuda.memory_allocated()`` beside the reference's 5% limit."""
+    import gc
+
+    from distributeddeeplearning_tpu_torch.obs.ledger import get_ledger
+
+    gc.collect()
+    snap = get_ledger().snapshot()
+    owners = {k: (v["bytes"], v["committed_bytes"]) for k, v in snap["owners"].items()}
+    verdict = {True: "within", False: "over", None: "not measured"}[
+        snap["residual_under_limit"]]
+    log(f"[ledger] {tag}: owners (bytes, committed) {owners}; committed "
+        f"{snap['committed_total_bytes']} of {snap['total_bytes']}; host owners "
+        f"{snap['host_owners']} (outside the forecast); allocated "
+        f"{snap['live_bytes']}, unaccounted {snap['unaccounted_bytes']} = "
+        f"{snap['unaccounted_pct']}% (the reference's limit "
+        f"{snap['residual_limit_pct']}%: {verdict}; allocated bytes include "
+        f"every tensor of the process, the owners' or not)")
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None and snap["live_bytes"] is not None:
+        # cuBLAS's workspaces come from the caching allocator and no owner
+        # claims them: how much of the residual they are
+        clear()
+        again = get_ledger().snapshot()
+        log(f"[ledger] {tag}: with cuBLAS's workspaces freed: allocated "
+            f"{again['live_bytes']}, unaccounted {again['unaccounted_bytes']} = "
+            f"{again['unaccounted_pct']}%")
+    if extra_ledger is not None:
+        forecast = extra_ledger.forecast(0)
+        log(f"[ledger] {tag}: the run's explicit ledger: capacity "
+            f"{forecast['capacity_bytes']}, committed {forecast['committed_bytes']}, "
+            f"headroom {forecast['headroom_bytes']}, peak committed "
+            f"{extra_ledger.peak_committed_bytes}")
+    return snap
+
+
+def _robust_overload(torch, np, fa, fd, card, params):
+    """(a) overload: three tenants in real time, a best-effort burst, the
+    forecast as the binding constraint."""
+    from distributeddeeplearning_tpu_torch.obs.ledger import HBMLedger
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, PagedInferenceEngine, Request, TenantSpec,
+        TrafficGenerator, poll_source,
+    )
+    from distributeddeeplearning_tpu_torch.serve.engine import _register_engine_owners
+    from distributeddeeplearning_tpu_torch.utils import faults
+
+    max_seq = ROBUST_PROMPT + ROBUST_NEW
+    engine = PagedInferenceEngine(params, num_heads=SERVE["num_heads"],
+                                  batch_slots=ROBUST_SLOTS, max_seq=max_seq,
+                                  page_size=PAGE, num_pages=ROBUST_PAGES,
+                                  prefill_chunk=CHUNK)
+    rng = np.random.default_rng(5)
+    ContinuousBatchingScheduler(engine, max_new_tokens=2).run(  # warm-up
+        [Request(uid=f"w{n}", prompt=rng.integers(1, SERVE["vocab_size"], n).tolist())
+         for n in (5, 12, 20, 31)])
+    engine.reset_stats()
+    engine.clear_prefix_cache()
+    ledger = HBMLedger()
+    _register_engine_owners(engine, ledger=ledger)
+    ledger.set_capacity(ledger.committed_bytes()
+                        + ROBUST_FORECAST_REQUESTS * engine.admit_bytes(ROBUST_PROMPT,
+                                                                        ROBUST_NEW))
+    tenants = tuple(TenantSpec(name=n, priority=n, rate_rps=r, arrival="poisson",
+                               prompt_min=2, prompt_max=ROBUST_PROMPT)
+                    for n, r in ROBUST_TENANTS)
+    plan = faults.install_plan(ROBUST_BURST)
+    try:
+        schedule = TrafficGenerator(tenants, vocab_size=SERVE["vocab_size"],
+                                    seed=0).schedule(ROBUST_SECS)
+        if [e.kind for e in plan.events] != ["burst"]:
+            raise AssertionError("the burst spec never fired")
+    finally:
+        faults.install_plan("")
+    offered = {}
+    for tr in schedule:
+        offered[tr.request.priority] = offered.get(tr.request.priority, 0) + 1
+    log(f"[robust] (a) overload: {len(schedule)} requests over {ROBUST_SECS} s "
+        f"{offered} ({ROBUST_BURST}), {ROBUST_SLOTS} slots, {ROBUST_PAGES} pages of "
+        f"{PAGE}, ledger capacity = committed + {ROBUST_FORECAST_REQUESTS} "
+        f"requests' pages ({ledger.capacity_bytes} bytes)")
+    sched = ContinuousBatchingScheduler(engine, max_new_tokens=ROBUST_NEW,
+                                        shed_policy="shed", preempt_budget=2,
+                                        hbm_ledger=ledger)
+    (results, report), counts = _robust_counts(
+        fa, fd, engine, lambda: sched.run([], poll=poll_source(schedule)))
+    _hold_counts("(a) overload", counts, steps=report.decode_steps)
+    if sorted(r.uid for r in results) != sorted(tr.request.uid for tr in schedule):
+        raise AssertionError("(a): a request reached no terminal state, or two")
+    bad = {r.finish_reason for r in results} - {"length", "eos", "shed", "preempted"}
+    if bad:
+        raise AssertionError(f"(a): unexpected finish reasons {bad}")
+    for cls, row in sorted(report.per_class.items()):
+        log(f"[robust] (a) {cls}: {row['requests']} requests, finish "
+            f"{row['finish_reasons']}, TTFT p50 {row['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+            f"{row['ttft_s']['p99'] * 1e3:.1f} ms, TPOT p50 "
+            f"{row['tpot_s']['p50'] * 1e3:.2f} ms p99 {row['tpot_s']['p99'] * 1e3:.2f} ms,"
+            f" sheds {row['shed']}, preemptions {row['preemptions']} on {card}")
+    hints = [r.retry_after_s for r in results if r.finish_reason == "shed"]
+    log(f"[robust] (a) sheds {len(hints)}, preemptions {report.preemptions}, "
+        f"retry_after_s min {min(hints, default=None)} max {max(hints, default=None)}"
+        f"; decode step p50 {report.decode_step_s['p50'] * 1e3:.3f} ms, "
+        f"{report.decode_steps} steps, wall {report.wall_s} s")
+    if any(r.finish_reason == "shed" and r.priority != "best_effort" for r in results):
+        raise AssertionError("(a): a class above best_effort was shed")
+    if any(h is None or h <= 0 for h in hints):
+        raise AssertionError("(a): a shed came without a retry hint")
+    engine.allocator.check()
+    if engine.allocator.pages_in_use:
+        raise AssertionError("(a): pages leaked")
+    # each preempted stream against the same request served alone
+    resumed = [r for r in results if r.preemptions and r.finish_reason == "length"]
+    by_uid = {tr.request.uid: tr.request for tr in schedule}
+    alone = {}
+    for r in resumed:
+        res, _ = ContinuousBatchingScheduler(engine, max_new_tokens=ROBUST_NEW).run(
+            [Request(uid=r.uid, prompt=list(by_uid[r.uid].prompt))])
+        alone[r.uid] = res[0].tokens
+    ties = _hold_streams(torch, params, {u: by_uid[u].prompt for u in alone},
+                         {r.uid: r.tokens for r in resumed}, alone, "(a) resumed")
+    log(f"[robust] (a) {len(resumed)} resumed streams (each cut at least once), "
+        f"{len(resumed) - ties} equal to the request served alone, {ties} at a tie")
+    frame = _ledger_frame(torch, "(a)", ledger)
+    out = {"counts": counts, "report": report, "resumed": len(resumed), "ties": ties,
+           "ledger": frame}
+    del engine, sched
+    return out
+
+
+def _tier_transfer_ms(torch, dtype):
+    """Per-page D2H (spill) and H2D (restore + pool write) times by CUDA
+    events on a standalone pool of the serving geometry."""
+    from distributeddeeplearning_tpu_torch.serve import HostPageTier, init_paged_cache
+
+    heads = SERVE["num_heads"]
+    pool = init_paged_cache(num_pages=TIER_TIMED_PAGES, num_layers=SERVE["num_layers"],
+                            page_size=PAGE, num_heads=heads,
+                            head_dim=SERVE["d_model"] // heads, dtype=dtype,
+                            device="cuda")
+    tier = HostPageTier(pool, TIER_TIMED_PAGES)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    tier.spill_in(pool, "warm", 1)
+    tier.dispatch_restore("warm")
+    tier.drain()
+    torch.cuda.synchronize()
+    ev[0].record()
+    for p in range(1, TIER_TIMED_PAGES + 1):
+        tier.spill_in(pool, p, p)
+    ev[1].record()
+    ev[2].record()
+    for p in range(1, TIER_TIMED_PAGES + 1):
+        for name, t in tier.dispatch_restore(p).items():
+            pool[name][p].copy_(t)
+    ev[3].record()
+    ev[3].synchronize()
+    tier.drain()
+    tier.check()
+    d2h = ev[0].elapsed_time(ev[1]) / TIER_TIMED_PAGES
+    h2d = ev[2].elapsed_time(ev[3]) / TIER_TIMED_PAGES
+    nbytes = tier.page_host_bytes
+    return {"page_bytes": nbytes, "d2h_ms": d2h, "h2d_ms": h2d,
+            "d2h_gb_s": nbytes / d2h / 1e6, "h2d_gb_s": nbytes / h2d / 1e6}
+
+
+def _robust_tier(torch, np, fa, fd, card, params):
+    """(b) the host tier: the reference's TIER recipe at page 64, f32 and
+    int8, tiered and untiered."""
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, InferenceEngine, PagedInferenceEngine, Request,
+    )
+
+    vocab, heads = SERVE["vocab_size"], SERVE["num_heads"]
+    prefix_len = TIER_PREFIX_PAGES * PAGE
+    prompt_len = prefix_len + 1
+    max_seq = prompt_len + 16 + PAGE  # the recipe's fits_tokens 16 + a page
+    req_pages = -(-(prompt_len + TIER_NEW) // PAGE)
+    num_pages = 2 * req_pages + 1  # barely two concurrent sequences
+    host_pages = TIER_SESSIONS * TIER_PREFIX_PAGES + 4
+
+    def paged(dtype, tiered, pages=num_pages):
+        return PagedInferenceEngine(
+            params, num_heads=heads, batch_slots=2, max_seq=max_seq, page_size=PAGE,
+            num_pages=pages, prefill_chunk=CHUNK, cache_dtype=dtype,
+            host_pages=host_pages if tiered else 0)
+
+    def run(engine, reqs, name):
+        (res, rep), counts = _robust_counts(fa, fd, engine, lambda: ContinuousBatchingScheduler(
+            engine, max_new_tokens=TIER_NEW).run(
+                [Request(uid=u, prompt=list(p)) for u, p in reqs]))
+        _hold_counts(name, counts, steps=rep.decode_steps,
+                     prefills=0 if engine.kv_layout == "paged" else len(reqs),
+                     int8=engine.kv_dtype == "int8")
+        return {r.uid: r.tokens for r in res}, rep, counts
+
+    rng = np.random.default_rng(7)
+    base = rng.integers(1, vocab, 2 * PAGE).tolist()
+    # ends mid-chunk and mid-page (152, 216) and one past a page (257)
+    bit_reqs = [(f"bit{i}", base + rng.integers(1, vocab, n - 2 * PAGE).tolist())
+                for i, n in enumerate((152, 216, prompt_len))]
+    prefixes = [rng.integers(1, vocab, prefix_len).tolist() for _ in range(TIER_SESSIONS)]
+
+    def round_requests(r):
+        return [(f"s{s}r{r}", prefixes[s] + [1 + (7 * s + 13 * r) % (vocab - 2)])
+                for s in range(TIER_SESSIONS)]
+
+    out = {"counts": {}}
+    dense = InferenceEngine(params, num_heads=heads, batch_slots=2, max_seq=max_seq)
+    dense_tokens, _, out["counts"]["dense"] = run(dense, bit_reqs, "(b) dense")
+    del dense
+    for dtype in ("float32", "int8"):
+        tag = "f32" if dtype == "float32" else "int8"
+        never, _, _ = run(paged(dtype, False, pages=24), bit_reqs, f"(b) {tag} never")
+        eng = paged(dtype, True, pages=24)
+        seeded, _, _ = run(eng, bit_reqs, f"(b) {tag} seeded")
+        spilled = eng.spill_cold_pages(10**6)
+        restored, rep, _ = run(eng, bit_reqs, f"(b) {tag} restored")
+        eng.allocator.check()
+        eng.tier.check()
+        ok = seeded == never and restored == never and spilled > 0 \
+            and rep.tier_restored_pages > 0
+        if tag == "f32":
+            ok = ok and never == dense_tokens
+        log(f"[robust] (b) {tag} bit identity: spilled {spilled}, restored "
+            f"{rep.tier_restored_pages}, tiered == untiered"
+            f"{' == dense' if tag == 'f32' else ''}: {ok}")
+        if not ok:
+            raise AssertionError(f"(b) {tag}: tiered tokens differ")
+        del eng
+        runs = {}
+        for tiered in (False, True):
+            eng = paged(dtype, tiered)
+            name = f"(b) {tag} {'tiered' if tiered else 'untiered'}"
+            tokens, _, _ = run(eng, round_requests(0), f"{name} seed round")
+            eng.reset_stats()
+            spilled = restored = 0
+            for r in range(1, TIER_ROUNDS + 1):
+                toks, rep, counts = run(eng, round_requests(r), f"{name} round {r}")
+                tokens.update(toks)
+                spilled += rep.tier_spilled_pages
+                restored += rep.tier_restored_pages
+            eng.allocator.check()
+            if eng.tier is not None:
+                eng.tier.check()
+            runs[tiered] = dict(tokens=tokens, hit=round(eng.prefix_hit_rate(), 4),
+                                host=eng.prefix_hit_tokens_host, spilled=spilled,
+                                restored=restored, counts=counts)
+            if tiered:  # (f): the frame while the tiered engine holds host pages
+                out[f"ledger_{tag}"] = _ledger_frame(torch, f"(b) {tag} tiered")
+            log(f"[robust] {name}: {TIER_SESSIONS} sessions x {TIER_PREFIX_PAGES} prefix "
+                f"pages over {num_pages} pool pages, host pool {host_pages} pages: "
+                f"hit rate {runs[tiered]['hit']}, host hit tokens {runs[tiered]['host']},"
+                f" spilled {spilled}, restored {restored} in {TIER_ROUNDS} rounds")
+            del eng
+        if runs[True]["tokens"] != runs[False]["tokens"]:
+            raise AssertionError(f"(b) {tag}: tiered session tokens != untiered")
+        if not runs[True]["hit"] > runs[False]["hit"]:
+            raise AssertionError(f"(b) {tag}: the tier raised no hit rate")
+        xfer = _tier_transfer_ms(torch, getattr(torch, dtype))
+        log(f"[robust] (b) {tag} page transfers ({xfer['page_bytes']} bytes a page, "
+            f"{TIER_TIMED_PAGES} pages, CUDA events): spill D2H {xfer['d2h_ms']:.4f} ms "
+            f"({xfer['d2h_gb_s']:.2f} GB/s), restore H2D + pool write "
+            f"{xfer['h2d_ms']:.4f} ms ({xfer['h2d_gb_s']:.2f} GB/s) on {card}; "
+            f"link {_pcie_link()}")
+        out[tag] = dict(bit=ok, runs=runs, xfer=xfer)
+    return out
+
+
+def _pcie_link() -> str:
+    """The card's PCIe link as ``nvidia-smi -q`` reports it: the
+    generation and width entries of its "GPU Link Info" block."""
+    try:
+        text = subprocess.run(["nvidia-smi", "-q"], capture_output=True, text=True,
+                              timeout=60, check=True).stdout
+    except Exception as exc:  # noqa: BLE001 — the link is context, not a check
+        return f"not read ({exc})"
+    lines = text.splitlines()
+    start = next((i for i, line in enumerate(lines) if "GPU Link Info" in line), None)
+    if start is None:
+        return "no GPU Link Info in nvidia-smi -q"
+    depth = len(lines[start]) - len(lines[start].lstrip())
+    out, head = [], ""
+    for line in lines[start + 1:]:
+        if line.strip() and len(line) - len(line.lstrip()) <= depth:
+            break
+        if ":" not in line:
+            head = line.strip()
+        elif head in ("PCIe Generation", "Link Width"):
+            key, value = (x.strip() for x in line.split(":", 1))
+            out.append(f"{head} {key} {value}")
+    return "; ".join(out) or "no generation or width in nvidia-smi -q"
+
+
+def _robust_reload(torch, np, fa, fd, card, params, params_new):
+    """(c) live reload mid-run, dense and paged: requests admitted after
+    the barrier equal a fresh engine built from the new weights."""
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, InferenceEngine, PagedInferenceEngine, Request,
+    )
+
+    heads = SERVE["num_heads"]
+    rng = np.random.default_rng(11)
+    reqs = [Request(uid=f"rl{i}", prompt=rng.integers(
+        1, SERVE["vocab_size"], int(n)).tolist()) for i, n in
+        enumerate(rng.integers(64, 160, 6))]
+    prompts = {r.uid: r.prompt for r in reqs}
+
+    def build(layout, weights):
+        kw = dict(num_heads=heads, batch_slots=2, max_seq=256)
+        if layout == "dense":
+            return InferenceEngine(weights, **kw)
+        return PagedInferenceEngine(weights, page_size=PAGE, prefill_chunk=CHUNK, **kw)
+
+    def serve(engine, subset):
+        res, _ = ContinuousBatchingScheduler(engine, max_new_tokens=NEW_TOKENS // 2).run(
+            [Request(uid=r.uid, prompt=list(r.prompt)) for r in subset])
+        return {r.uid: r.tokens for r in res}
+
+    out = {}
+    for layout in ("dense", "paged"):
+        engine = build(layout, params)
+        sched = ContinuousBatchingScheduler(engine, max_new_tokens=NEW_TOKENS // 2)
+        done, before = [], []
+
+        def apply_reload(engine=engine, done=done, before=before):
+            before.extend(done)  # every request admitted so far has finished
+            engine.reload_params(params_new)
+
+        def on_step(step, sched=sched):
+            if step == 1:
+                sched.request_reload(apply_reload)
+
+        prefills = [0]
+        if layout == "dense":
+            real = engine.prefill
+
+            def counted(*a, real=real, **k):
+                prefills[0] += 1
+                return real(*a, **k)
+
+            engine.prefill = counted
+        (results, report), counts = _robust_counts(
+            fa, fd, engine, lambda: sched.run(
+                [Request(uid=r.uid, prompt=list(r.prompt)) for r in reqs],
+                on_step=on_step, on_complete=lambda r: done.append(r.uid)))
+        _hold_counts(f"(c) {layout}", counts, steps=report.decode_steps,
+                     prefills=prefills[0])
+        got = {r.uid: r.tokens for r in results}
+        old_set = [r for r in reqs if r.uid in before]
+        new_set = [r for r in reqs if r.uid not in before]
+        if not old_set or not new_set or sched.has_pending_reload:
+            raise AssertionError(f"(c) {layout}: the reload was no barrier mid-run "
+                                 f"({len(old_set)} before, {len(new_set)} after)")
+        fresh = serve(build(layout, params_new), new_set)
+        old = serve(build(layout, params), old_set)
+        ties = _hold_streams(torch, params_new, prompts,
+                             {u: got[u] for u in fresh}, fresh, f"(c) {layout} after")
+        ties += _hold_streams(torch, params, prompts, {u: got[u] for u in old}, old,
+                              f"(c) {layout} before")
+        first = new_set[0].uid
+        changed = fresh[first] != serve(build(layout, params), new_set[:1])[first]
+        log(f"[robust] (c) {layout}: reload applied after {len(old_set)} requests; "
+            f"{len(new_set)} admitted after it equal a fresh engine of the new "
+            f"weights, the {len(old_set)} before it the old weights' ({ties} at a "
+            f"tie); the new weights change {first}'s stream: {changed}")
+        if not changed:
+            raise AssertionError(f"(c) {layout}: the reload changed nothing")
+        out[layout] = counts
+        del engine, sched
+    return out
+
+
+class _RaisingDecode:
+    """An engine whose ``decode`` raises a RuntimeError on the calls
+    numbered in ``fail_at`` (a Python exception, not a CUDA fault)."""
+
+    def __init__(self, engine, fail_at):
+        self._engine, self._fail_at, self._calls = engine, set(fail_at), 0
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def decode(self, tokens, pos):
+        self._calls += 1
+        if self._calls in self._fail_at:
+            raise RuntimeError(f"injected decode failure at call {self._calls}")
+        return self._engine.decode(tokens, pos)
+
+
+def _robust_faults(torch, np, fa, fd, card, params):
+    """(d) the serve faults on the paged engine at full width."""
+    import threading
+
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, PagedInferenceEngine, Request,
+    )
+    from distributeddeeplearning_tpu_torch.utils import faults
+
+    engine = PagedInferenceEngine(params, num_heads=SERVE["num_heads"], batch_slots=4,
+                                  max_seq=256, page_size=PAGE, prefill_chunk=CHUNK)
+    rng = np.random.default_rng(13)
+    reqs = [Request(uid=f"f{i}", prompt=rng.integers(1, SERVE["vocab_size"], int(n)).tolist())
+            for i, n in enumerate(rng.integers(40, 110, 6))]
+    prompts = {r.uid: r.prompt for r in reqs}
+    new = NEW_TOKENS // 2
+
+    def run(name, spec="", wrap=None, **kw):
+        faults.install_plan(spec)
+        try:
+            eng = wrap(engine) if wrap is not None else engine
+            sched = ContinuousBatchingScheduler(eng, max_new_tokens=new, **{
+                k: v for k, v in kw.items() if k != "run_kw"})
+            (res, rep), counts = _robust_counts(fa, fd, engine, lambda: sched.run(
+                [Request(uid=r.uid, prompt=list(r.prompt)) for r in reqs],
+                **kw.get("run_kw", {})))
+        finally:
+            faults.install_plan("")
+        _hold_counts(f"(d) {name}", counts, steps=rep.decode_steps)
+        engine.allocator.check()
+        if engine.allocator.pages_in_use:
+            raise AssertionError(f"(d) {name}: pages leaked")
+        return {r.uid: r for r in res}, rep
+
+    clean, _ = run("clean")
+    clean_tokens = {u: r.tokens for u, r in clean.items()}
+    out = {}
+    got, rep = run("decode_nan@3", "decode_nan@3")
+    failed = [u for u, r in got.items() if r.finish_reason == "error"]
+    nan_left = any(torch.isnan(leaf.float()).any().item() for leaf in engine.cache.values())
+    ok = (rep.quarantined == 1 and len(failed) == 1
+          and "non-finite" in got[failed[0]].error
+          and got[failed[0]].tokens == clean_tokens[failed[0]][:len(got[failed[0]].tokens)]
+          and all(r.tokens == clean_tokens[u] for u, r in got.items() if u not in failed)
+          and not nan_left)
+    log(f"[robust] (d) decode_nan: quarantined {rep.quarantined}, failed {failed}, the "
+        f"rest equal the clean run, no NaN left in the pool (slot scrubbed): {ok}")
+    if not ok:
+        raise AssertionError("(d) decode_nan")
+    fired = {}
+    for name, spec in (("decode_stall", f"decode_stall@3:secs={ROBUST_STALL_S}"),
+                       ("no stall", "")):
+        event = threading.Event()
+        run(name, spec, watchdog_deadline_s=ROBUST_WATCHDOG_S,
+            watchdog_on_timeout=event.set)
+        fired[name] = event.is_set()
+    log(f"[robust] (d) watchdog at {ROBUST_WATCHDOG_S} s: fires on a "
+        f"{ROBUST_STALL_S} s decode stall: {fired['decode_stall']}, quiet without: "
+        f"{not fired['no stall']}")
+    if not fired["decode_stall"] or fired["no stall"]:
+        raise AssertionError(f"(d) watchdog {fired}")
+    got, rep = run("reject_admit@1", "reject_admit@1")
+    shed = [u for u, r in got.items() if r.finish_reason == "shed"]
+    log(f"[robust] (d) reject_admit@1: shed {shed}, finish {rep.finish_reasons}")
+    if len(shed) != 1 or got[shed[0]].tokens or rep.finish_reasons.get("length") != 5:
+        raise AssertionError("(d) reject_admit")
+    got, rep = run("decode exception", wrap=lambda e: _RaisingDecode(e, {3}))
+    ties = _hold_streams(torch, params, prompts, {u: r.tokens for u, r in got.items()},
+                         clean_tokens, "(d) requeued")
+    log(f"[robust] (d) decode exception at call 3: {rep.decode_retries} requests "
+        f"requeued once, finish {rep.finish_reasons}, streams equal the clean run "
+        f"({ties} at a tie)")
+    if rep.decode_retries < 1 or rep.finish_reasons != {"length": len(reqs)}:
+        raise AssertionError("(d) decode exception requeue")
+    out["ties"] = ties
+    steps = []
+    got, rep = run("should_drain", run_kw=dict(
+        should_drain=lambda: len(steps) >= 2, on_step=steps.append))
+    preempted = [u for u, r in got.items() if r.finish_reason == "preempted"]
+    log(f"[robust] (d) should_drain after 2 steps: drained {rep.drained}, finish "
+        f"{rep.finish_reasons}")
+    if (not rep.drained or not preempted
+            or any(got[u].tokens for u in preempted)
+            or set(rep.finish_reasons) - {"length", "preempted"}):
+        raise AssertionError("(d) drain")
+    del engine
+    return out
+
+
+def _robust_int8_fidelity(torch, np, fa, fd, card, params):
+    """(e) the reference's teacher-forced per-position agreement of int8 KV
+    against f32 (bench.py:1100-1200), through ``capture_logits``."""
+    from distributeddeeplearning_tpu_torch.serve import PagedInferenceEngine
+
+    prompts = [list(r.prompt) for r in serve_requests(np, "paged")]
+    engines = {dtype: PagedInferenceEngine(
+        params, num_heads=SERVE["num_heads"], batch_slots=SLOTS, max_seq=MAX_SEQ,
+        page_size=PAGE, prefill_chunk=CHUNK, cache_dtype=dtype, capture_logits=True)
+        for dtype in ("float32", "int8")}
+
+    def stream(engine, prompt, teacher=None):
+        steps = min(NEW_TOKENS - 1, MAX_SEQ - len(prompt) - 1)
+        engine.prefill(0, prompt, max_new_tokens=steps + 1)
+        logits = [engine.last_prefill_logits]
+        tok, pos = np.zeros(SLOTS, np.int32), np.zeros(SLOTS, np.int32)
+        for i in range(steps):
+            tok[0] = int(np.argmax((logits if teacher is None else teacher)[i]))
+            pos[0] = len(prompt) + i
+            engine.decode(tok, pos)
+            logits.append(engine.last_logits[0])
+        engine.release(0)
+        return logits
+
+    counts = {}
+    refs, counts["float32"] = _robust_counts(
+        fa, fd, engines["float32"], lambda: [stream(engines["float32"], p) for p in prompts])
+    q, counts["int8"] = _robust_counts(
+        fa, fd, engines["int8"], lambda: [stream(engines["int8"], p, ref)
+                                          for p, ref in zip(prompts, refs)])
+    for dtype, c in counts.items():
+        steps = sum(len(r) - 1 for r in refs)
+        _hold_counts(f"(e) {dtype}", c, steps=steps, int8=dtype == "int8")
+    agree = n = 0
+    maes = []
+    for ref, got in zip(refs, q):
+        for lr, lq in zip(ref, got):
+            maes.append(float(np.abs(lr - lq).mean()))
+            agree += int(np.argmax(lr) == np.argmax(lq))
+            n += 1
+    rate = agree / n
+    log(f"[robust] (e) int8 KV vs f32, teacher-forced over {len(prompts)} prompts: "
+        f"per-position greedy agreement {rate:.4f} over {n} positions (the "
+        f"reference's gate {INT8_AGREEMENT_GATE}: "
+        f"{'met' if rate >= INT8_AGREEMENT_GATE else 'NOT met'}), logit MAE mean "
+        f"{np.mean(maes):.3e} max {np.max(maes):.3e} on {card}")
+    return {"agreement": rate, "positions": n, "counts": counts}
+
+
+def phase_serve_robust(torch, np, fa, fd, card):
+    """Robust serving at the serving geometry: (a) overload with priority
+    classes, shedding and lossless preemption; (b) the host page tier;
+    (c) live reload; (d) the serve faults; (e) int8-KV fidelity through
+    ``capture_logits``; (f) ledger frames after (a) and (b)."""
+    t0 = time.perf_counter()
+    params = serve_params(torch)
+    out = {"overload": _robust_overload(torch, np, fa, fd, card, params)}
+    log(f"[time] (a) {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    out["tier"] = _robust_tier(torch, np, fa, fd, card, params)
+    log(f"[time] (b) {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    params_new = serve_params(torch, seed=1)
+    out["reload"] = _robust_reload(torch, np, fa, fd, card, params, params_new)
+    del params_new
+    log(f"[time] (c) {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["faults"] = _robust_faults(torch, np, fa, fd, card, params)
+    log(f"[time] (d) {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["int8"] = _robust_int8_fidelity(torch, np, fa, fd, card, params)
+    log(f"[time] (e) {time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    return out
 
 
 def _lr_sum(steps: int) -> float:
@@ -5680,6 +6375,7 @@ def main() -> int:
         timed(phase_moe_bert, torch, np, fa, card)
         data_parallel, dp_shape = timed(phase_data_parallel, torch, np, F, fa, card)
         tp_ranks, k4d, flash_tp = timed(phase_tensor_parallel, torch, np, F, fa, fd, card)
+        timed(phase_serve_robust, torch, np, fa, fd, card)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -5819,6 +6515,19 @@ def main() -> int:
                     else 0 for r, out in enumerate(tp_ranks) for name in runs}
         row["tensor_parallel"] = {**flash_tp[dtype][kern], "launches": launched}
         row.setdefault("launches_by_path", {}).update(launched)
+    # phase 28: each robust-serving run's launches of the kernels it runs
+    # (f32 K4 decode and chunks, int8 K4, f32 K1 on the dense prefills)
+    robust_rows = {
+        "flash_decode": lambda c: 0 if c["k4_int8"] else c["k4"] - c["k4_multi_query"],
+        "flash_decode_chunk": lambda c: 0 if c["k4_int8"] else c["k4_multi_query"],
+        "flash_decode_int8": lambda c: c["k4_int8"],
+        "flash_attention_fwd": lambda c: c["k1"]}
+    for row in rows:
+        pick = robust_rows.get(row["name"])
+        if pick is not None:
+            row.setdefault("launches_by_path", {}).update(
+                {f"serve_robust {run}": pick(c) for run, c in ROBUST_LAUNCHES.items()
+                 if pick(c)})
     for row in rows:
         row["kernel"] = profiled_kernels(row["name"])
     log(f"[timer] windows timed by CUDA events for want of profiler device "

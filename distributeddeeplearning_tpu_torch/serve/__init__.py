@@ -1,6 +1,8 @@
-"""Serving stack of the port: dense and paged KV caches, the engines
-(tensor-parallel over processes too) and continuous batching with chunked
-prefill."""
+"""Serving stack of the port: dense and paged KV caches, the host page
+tier beneath the paged pool, the engines (tensor-parallel over processes
+too), continuous batching with chunked prefill, priority classes,
+shedding, lossless preemption and live reload, and synthetic
+multi-tenant traffic."""
 
 from distributeddeeplearning_tpu_torch.serve.engine import (
     InferenceEngine,
@@ -23,18 +25,32 @@ from distributeddeeplearning_tpu_torch.serve.kv_cache import (
     page_bytes,
     pages_for,
 )
+from distributeddeeplearning_tpu_torch.serve.kv_tier import (
+    TIER_POLICIES,
+    HostPageTier,
+)
 from distributeddeeplearning_tpu_torch.serve.scheduler import (
+    FINISH_REASONS,
     CompletedRequest,
     ContinuousBatchingScheduler,
     Request,
     ServeReport,
     synthetic_requests,
 )
+from distributeddeeplearning_tpu_torch.serve.traffic import (
+    TenantSpec,
+    TimedRequest,
+    TrafficGenerator,
+    poll_source,
+)
 
 __all__ = [
+    "FINISH_REASONS",
     "SCRATCH_PAGE",
+    "TIER_POLICIES",
     "CompletedRequest",
     "ContinuousBatchingScheduler",
+    "HostPageTier",
     "InferenceEngine",
     "OutOfPages",
     "PageAllocator",
@@ -42,6 +58,9 @@ __all__ = [
     "PrefillTask",
     "Request",
     "ServeReport",
+    "TenantSpec",
+    "TimedRequest",
+    "TrafficGenerator",
     "cache_bytes",
     "cache_sharding",
     "init_cache",
@@ -50,6 +69,7 @@ __all__ = [
     "insert_sequence",
     "page_bytes",
     "pages_for",
+    "poll_source",
     "prompt_bucket",
     "sample_logits",
     "synthetic_requests",

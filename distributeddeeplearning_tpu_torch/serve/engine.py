@@ -43,10 +43,22 @@ and ``w_in``, row-parallel ``proj`` and ``w_out``, vocab-parallel
 logits and samples the same tokens, so the schedulers never diverge.
 ``tp`` and ``layout_rules`` (the rule table's tag) ride every report.
 
+Both engines put their device state on the process ledger
+(``obs/ledger.py``) by owner — ``params``, ``kv_pages``, ``kv_scales``
+(int8) and, with a host tier, the host owner ``kv_host_pages`` — and
+take a live weight reload (``reload_params``: same tree, shapes and
+dtypes; the paged engine refuses live slots and drops its prefix table
+and host tier, whose pages hold the old weights' K/V).  The paged engine
+adds the host page tier (``host_pages``, ``tier_policy``;
+``serve/kv_tier.py``): reclaimable prefix pages spill to pinned host
+memory under pressure instead of being forgotten, and a prefix hit on a
+host key restores the page by an asynchronous copy; and the fidelity
+probe ``capture_logits``, which keeps the last decode step's logits and
+the last prefill's logits row on the host.
+
 Not in this slice: ``data_parallel_engine`` (a data mesh over processes
-needs slot ownership and token exchange: ROADMAP A6), the HBM ledger and
-compile tracking, live weight reload, the host page tier and the
-logit-capture probe.
+needs slot ownership and token exchange: ROADMAP A6, beside the fleet)
+and compile tracking.
 """
 
 from __future__ import annotations
@@ -58,6 +70,8 @@ import numpy as np
 import torch
 
 from distributeddeeplearning_tpu_torch._device import DeviceLike, resolve_device
+from distributeddeeplearning_tpu_torch.obs.ledger import get_ledger
+from distributeddeeplearning_tpu_torch.obs.trace import get_tracer
 from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
     ATTENTIONS,
     forward_decode,
@@ -84,11 +98,81 @@ from distributeddeeplearning_tpu_torch.serve.kv_cache import (
     page_bytes,
     pages_for,
 )
+from distributeddeeplearning_tpu_torch.serve.kv_tier import HostPageTier
 
 NEG_BIG = -1e30
 
 # odd 64-bit multiplier that spreads (seed, step) over the generator's seed
 _SEED_MIX = 0x9E3779B97F4A7C15
+
+
+# -- ledger providers (module-level: the ledger holds the ENGINE weakly and
+# calls these with it, so no closure pins a dead engine's cache) ----------
+
+def _ledger_params(engine):
+    return engine.params
+
+
+def _ledger_kv_values(engine):
+    return {k: v for k, v in engine._cache.items() if not k.endswith("_scale")}
+
+
+def _ledger_kv_scales(engine):
+    return {k: v for k, v in engine._cache.items() if k.endswith("_scale")}
+
+
+def _leaf_subset_page_bytes(cache, *, scales: bool) -> int:
+    """Bytes a page of just the value (or just the scale) leaves — the
+    committed-bytes granule of the paged pool's owners."""
+    return sum(t.numel() // t.shape[0] * t.element_size()
+               for key, t in cache.items() if key.endswith("_scale") == scales)
+
+
+def _ledger_host_tier_bytes(engine):
+    tier = getattr(engine, "tier", None)
+    return 0 if tier is None else tier.used_bytes()
+
+
+def _register_engine_owners(engine, ledger=None) -> None:
+    """Put the engine's device state on the ledger (default: the
+    process's) by owner: weights under ``params``, K/V under ``kv_pages``,
+    the int8 layout's scales under ``kv_scales``.  A paged engine's owners
+    report COMMITTED bytes (pages in use times bytes a page), so the
+    admission forecast prices demand, not the reservation; a host tier
+    registers its pool as the HOST owner ``kv_host_pages``."""
+    if ledger is None:
+        ledger = get_ledger()
+    ledger.register("params", engine, _ledger_params)
+    paged = engine.kv_layout == "paged"
+    for owner, provider, scales in (("kv_pages", _ledger_kv_values, False),
+                                    ("kv_scales", _ledger_kv_scales, True)):
+        if scales and "k_scale" not in engine._cache:
+            continue
+        committed = None
+        if paged:
+            pb = _leaf_subset_page_bytes(engine._cache, scales=scales)
+            committed = lambda e, pb=pb: e.allocator.pages_in_use * pb  # noqa: E731
+        ledger.register(owner, engine, provider, committed=committed)
+    if getattr(engine, "tier", None) is not None:
+        ledger.register_host("kv_host_pages", engine, _ledger_host_tier_bytes)
+
+
+def _check_reload_tree(old, new) -> None:
+    """A live reload must be drop-in: the same leaves (a QTensor's values
+    and scales among them) with the same shapes and dtypes — anything else
+    would change the model mid-serve; refuse loudly instead."""
+    old_items, new_items = layout.named_leaves(old), layout.named_leaves(new)
+    if [n for n, _ in old_items] != [n for n, _ in new_items]:
+        raise ValueError(
+            "reload_params: new params tree structure differs from the "
+            "engine's (different model family / quantization state?) — a "
+            "live reload must be weight-value-only")
+    for (name, a), (_, b) in zip(old_items, new_items):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(
+                f"reload_params: leaf {name} changed aval ({tuple(a.shape)}/"
+                f"{a.dtype} -> {tuple(b.shape)}/{b.dtype}) — same-shape weight "
+                "sets only")
 
 
 def sample_logits(
@@ -300,6 +384,19 @@ class _EngineCore:
         """Total KV bytes the layout reserves, scale leaves included."""
         return cache_bytes(self._cache)
 
+    def reload_params(self, params) -> None:
+        """Swap the weight set IN PLACE — the live-reload verb: the same
+        tree, shapes and dtypes only (:func:`_check_reload_tree`); the
+        cache stays.  The scheduler applies a reload only at an idle
+        barrier (``request_reload``), so no request sees two weight sets.
+        Under a TP mesh every rank passes the same FULL tree and keeps its
+        slice."""
+        if self.mesh is not None:
+            params = layout.shard_params(params, self.mesh)
+        params = _to_device(params, self.device)
+        _check_reload_tree(self.params, params)
+        self.params = params
+
     def _next_step(self) -> int:
         step = self._sample_step
         self._sample_step += 1
@@ -385,6 +482,7 @@ class InferenceEngine(_EngineCore):
             num_heads=num_heads, head_dim=head_dim, dtype=dtype,
             device=self.device, mesh=self.mesh,
         )
+        _register_engine_owners(self)
 
     def kv_bytes_peak(self) -> int:
         """Dense slots commit their whole reservation up front."""
@@ -423,12 +521,13 @@ class InferenceEngine(_EngineCore):
             self.prefill_compiles += 1
         tokens = np.full((1, bucket), self.pad_id, np.int64)
         tokens[0, :length] = np.asarray(prompt, np.int64)
-        logits, k, v = forward_prefill(
-            self.params, torch.from_numpy(tokens).to(self.device),
-            num_heads=self.num_heads, attention=self.prefill_attention,
-            mesh=self.mesh,
-        )
-        insert_sequence(self._cache, k, v, slot)
+        with get_tracer().span("serve/engine.prefill_dispatch", bucket=bucket):
+            logits, k, v = forward_prefill(
+                self.params, torch.from_numpy(tokens).to(self.device),
+                num_heads=self.num_heads, attention=self.prefill_attention,
+                mesh=self.mesh,
+            )
+            insert_sequence(self._cache, k, v, slot)
         # the last REAL position, not the padding
         return self._sample_first(logits[:, length - 1])
 
@@ -441,10 +540,13 @@ class InferenceEngine(_EngineCore):
         ONE copy — the step's one sync."""
         tok = torch.from_numpy(np.asarray(tokens, np.int32)).to(self.device)
         p = torch.from_numpy(np.asarray(pos, np.int32)).to(self.device)
-        logits, _ = forward_decode(
-            self.params, tok, self._cache, p, num_heads=self.num_heads,
-            kernel=self.decode_kernel, mesh=self.mesh,
-        )
+        # the dispatch span apart from the readback: on a timeline the gap
+        # between them is the step's host-sync share
+        with get_tracer().span("serve/engine.decode_dispatch"):
+            logits, _ = forward_decode(
+                self.params, tok, self._cache, p, num_heads=self.num_heads,
+                kernel=self.decode_kernel, mesh=self.mesh,
+            )
         return self._readback(logits)
 
     # -- fault injection / quarantine hooks --------------------------------
@@ -528,7 +630,10 @@ class PagedInferenceEngine(_EngineCore):
         seed: int = 0,
         pad_id: int = 0,
         prefix_cache: bool = True,
+        capture_logits: bool = False,
         decode_kernel: str = "auto",
+        host_pages: int = 0,
+        tier_policy: str = "lru",
         device: DeviceLike = None,
         mesh=None,
     ):
@@ -561,6 +666,13 @@ class PagedInferenceEngine(_EngineCore):
             device=self.device, mesh=self.mesh,
         )
         self._page_bytes = page_bytes(self._cache)
+        # host page tier: host_pages = 0 disables it; otherwise evictions
+        # under alloc pressure demote to host, and the prefix walk restores
+        # host hits by an asynchronous copy
+        self.tier: Optional[HostPageTier] = None
+        if host_pages:
+            self.tier = HostPageTier(self._cache, host_pages, policy=tier_policy)
+            self.allocator.set_evict_hook(self._tier_evict_hook)
         # host-side block tables, one row per slot; scratch-filled rows
         # make released, empty and mid-prefill slots write into page 0
         self._block_tables = np.full(
@@ -574,9 +686,17 @@ class PagedInferenceEngine(_EngineCore):
         self.prompt_tokens_seen = 0
         self.pages_peak = 0
         self.chunks_run = 0
-        # the final chunk's logits row the last first token was sampled
-        # from (on the device, no copy)
-        self.last_prefill_logits: Optional[torch.Tensor] = None
+        # prompt tokens answered by a host-tier restore (a subset of
+        # prefix_hit_tokens)
+        self.prefix_hit_tokens_host = 0
+        # the fidelity probe: with capture_logits the last decode step's
+        # logits ([slots, vocab]) and the last prefill's logits row come
+        # to the host (one extra copy a step); without it
+        # last_prefill_logits is the row on the device, no copy
+        self.capture_logits = capture_logits
+        self.last_logits: Optional[np.ndarray] = None
+        self.last_prefill_logits = None
+        _register_engine_owners(self)
 
     # -- accounting --------------------------------------------------------
     @property
@@ -596,6 +716,12 @@ class PagedInferenceEngine(_EngineCore):
         (the pay-per-token number the paged layout is for)."""
         return self.pages_peak * self._page_bytes
 
+    @property
+    def page_bytes_each(self) -> int:
+        """Bytes of one pool page over every leaf — the granule
+        ``admit_bytes`` multiplies and the spill pump prices headroom in."""
+        return self._page_bytes
+
     def prefix_hit_rate(self) -> float:
         if not self.prompt_tokens_seen:
             return 0.0
@@ -609,9 +735,14 @@ class PagedInferenceEngine(_EngineCore):
         self.prompt_tokens_seen = 0
         self.pages_peak = 0
         self.chunks_run = 0
+        self.prefix_hit_tokens_host = 0
+        if self.tier is not None:
+            self.tier.reset_stats()
 
     def clear_prefix_cache(self) -> None:
         self.allocator.clear_prefix()
+        if self.tier is not None:
+            self.tier.clear()
 
     def _chunk_width(self, rem: int) -> int:
         # full chunks, then a power-of-two bucket for the remainder
@@ -680,11 +811,20 @@ class PagedInferenceEngine(_EngineCore):
         n_total = self.required_pages(length, max_new_tokens)
         # prefix reuse: walk the chain of FULL prompt pages, capped at
         # length-1 tokens so the last prompt token always runs through
-        # prefill — its logits seed the first sampled token
+        # prefill — its logits seed the first sampled token.  The table
+        # answers in either tier: a resident hit maps the page, a host hit
+        # allocates a fresh page and restores it (the chunk pass that reads
+        # it is ordered after the copy on the device, no host wait)
         shared: list = []
+        restored = 0
         if self._prefix_enabled:
             for i in range((length - 1) // ps):
-                page = self.allocator.lookup_prefix(self._prefix_key(prompt, i + 1))
+                key = self._prefix_key(prompt, i + 1)
+                page = self.allocator.lookup_prefix(key)
+                if (page is None and self.tier is not None
+                        and self.allocator.tier_state(key) == "host"):
+                    page = self._prefetch_page(key)
+                    restored += page is not None
                 if page is None:
                     break
                 shared.append(page)
@@ -708,6 +848,7 @@ class PagedInferenceEngine(_EngineCore):
         offset = len(shared) * ps
         self.prompt_tokens_seen += length
         self.prefix_hit_tokens += offset
+        self.prefix_hit_tokens_host += restored * ps
         return PrefillTask(slot, prompt, pages, offset, offset)
 
     @torch.inference_mode()
@@ -729,12 +870,14 @@ class PagedInferenceEngine(_EngineCore):
         # the task-local block table (see prefill_begin)
         table = np.full(self.blocks_per_slot, SCRATCH_PAGE, np.int32)
         table[: len(task.pages)] = task.pages
-        logits, _ = forward_prefill_chunk(
-            self.params, torch.from_numpy(tokens).to(self.device),
-            self._cache, torch.from_numpy(table).to(self.device), task.offset,
-            num_heads=self.num_heads, kernel=self.decode_kernel,
-            mesh=self.mesh,
-        )
+        with get_tracer().span("serve/engine.chunk_dispatch", chunk=C,
+                               offset=task.offset):
+            logits, _ = forward_prefill_chunk(
+                self.params, torch.from_numpy(tokens).to(self.device),
+                self._cache, torch.from_numpy(table).to(self.device),
+                task.offset, num_heads=self.num_heads,
+                kernel=self.decode_kernel, mesh=self.mesh,
+            )
         self.chunks_run += 1
         chunk_start = task.offset
         task.offset += real
@@ -743,8 +886,15 @@ class PagedInferenceEngine(_EngineCore):
         if self._prefix_enabled:
             for i in range(chunk_start // self.page_size,
                            min(task.offset, length) // self.page_size):
-                self.allocator.register_prefix(
-                    self._prefix_key(task.prompt, i + 1), task.pages[i])
+                key = self._prefix_key(task.prompt, i + 1)
+                if (self.tier is not None
+                        and self.allocator.tier_state(key) == "host"):
+                    # this chunk just recomputed the page (the walk stops
+                    # before the final prompt page): the fresh resident
+                    # page supersedes the identical host copy
+                    self.tier.drop(key)
+                    self.allocator.drop_host(key)
+                self.allocator.register_prefix(key, task.pages[i])
         if not task.done:
             return None
         # prompt fully written: NOW the slot's decode row may see the pages
@@ -752,7 +902,9 @@ class PagedInferenceEngine(_EngineCore):
         self._block_tables[task.slot, : len(task.pages)] = task.pages
         self._tables_dev = None
         # the last REAL position of the final chunk
-        self.last_prefill_logits = logits[0, real - 1]
+        last = logits[0, real - 1]
+        self.last_prefill_logits = (last.float().cpu().numpy()
+                                    if self.capture_logits else last)
         return self._sample_first(logits[:, real - 1])
 
     def prefill(self, slot: int, prompt: Sequence[int],
@@ -778,11 +930,15 @@ class PagedInferenceEngine(_EngineCore):
         harmless."""
         tok = torch.from_numpy(np.asarray(tokens, np.int32)).to(self.device)
         p = torch.from_numpy(np.asarray(pos, np.int32)).to(self.device)
-        logits, _ = forward_decode_paged(
-            self.params, tok, self._cache, p, self.device_tables(),
-            num_heads=self.num_heads, kernel=self.decode_kernel,
-            mesh=self.mesh,
-        )
+        with get_tracer().span("serve/engine.decode_dispatch"):
+            logits, _ = forward_decode_paged(
+                self.params, tok, self._cache, p, self.device_tables(),
+                num_heads=self.num_heads, kernel=self.decode_kernel,
+                mesh=self.mesh,
+            )
+        # the probe's readback OUTSIDE the dispatch span, like the tokens'
+        if self.capture_logits:
+            self.last_logits = logits.float().cpu().numpy()
         return self._readback(logits)
 
     # -- fault injection / quarantine hooks --------------------------------
@@ -831,3 +987,106 @@ class PagedInferenceEngine(_EngineCore):
             self.allocator.decref(page)
         self._block_tables[slot] = SCRATCH_PAGE
         self._tables_dev = None
+
+    # -- host page tier ----------------------------------------------------
+    def _tier_evict_hook(self, key, page: int) -> bool:
+        """Alloc-pressure demotion (installed on the allocator): copy the
+        page about to be recycled to the host so its key keeps answering
+        prefix hits.  False (the key is forgotten) only when the host pool
+        can take nothing now."""
+        evicted = self.tier.spill_in(self._cache, key, page)
+        if evicted is None:
+            return False
+        for k in evicted:
+            self.allocator.drop_host(k)
+        return True
+
+    def _prefetch_page(self, key):
+        """Restore a host key into a fresh pool page: allocate, dispatch
+        the copy, write the page on the compute stream (ordered after the
+        copy by the tier's event) and hand the page to the prefix table
+        (refcount 0, reclaimable; the caller's incref takes the slot's
+        reference).  None when the pool has no page: the walk stops and
+        the tail re-prefills."""
+        try:
+            (page,) = self.allocator.alloc(1)
+        except OutOfPages:
+            return None
+        for name, t in self.tier.dispatch_restore(key).items():
+            self._cache[name][page].copy_(t)
+        self.allocator.restore_prefix(key, page)
+        self.allocator.decref(page)
+        return page
+
+    def spill_cold_pages(self, max_pages: int) -> int:
+        """The spill pump's primitive: demote up to ``max_pages`` least
+        recently used reclaimable prefix pages to the host tier, their
+        pool pages back to the free list.  Returns the pages spilled.
+        Only refcount-0 pages are candidates: a live page is never
+        spilled."""
+        if self.tier is None or max_pages <= 0:
+            return 0
+        spilled = 0
+        for key, page in self.allocator.coldest_reclaimable(max_pages):
+            evicted = self.tier.spill_in(self._cache, key, page)
+            if evicted is None:
+                break
+            for k in evicted:
+                self.allocator.drop_host(k)
+            self.allocator.spill_prefix(key)
+            spilled += 1
+        return spilled
+
+    def spill_slot_pages(self, slot: int, tokens: Sequence[int]) -> int:
+        """The preemption path: demote the slot's PRIVATE full pages to
+        the host tier keyed by their token history (``tokens`` = prompt +
+        generated so far), so the resumed request's prefix walk restores
+        them instead of re-prefilling.  Pages answering in either tier
+        already (shared prefixes) are skipped.  Call BEFORE ``release``:
+        the copies need the pages mapped and not yet recycled."""
+        if self.tier is None:
+            return 0
+        pages = self._slot_pages.get(slot, [])
+        n_full = min(len(tokens) // self.page_size, len(pages))
+        spilled = 0
+        for i in range(n_full):
+            key = self._prefix_key(tokens, i + 1)
+            if (self.allocator.tier_state(key) is not None
+                    or self.allocator.is_shared(pages[i])):
+                continue
+            evicted = self.tier.spill_in(self._cache, key, pages[i])
+            if evicted is None:
+                break
+            for k in evicted:
+                self.allocator.drop_host(k)
+            self.allocator.host_prefix(key)
+            spilled += 1
+        return spilled
+
+    def tier_inflight(self) -> int:
+        """Retire landed restores; how many are still in flight (the
+        scheduler's admission gate polls this)."""
+        return 0 if self.tier is None else self.tier.poll()
+
+    def drain_tier(self) -> None:
+        """Fence every in-flight restore (blocking) — the admission gate's
+        last resort before it would preempt a victim."""
+        if self.tier is not None:
+            self.tier.drain()
+
+    # -- live weight reload ------------------------------------------------
+    def reload_params(self, params) -> None:
+        """Swap the weight set IN PLACE (the dense engine's contract).
+        Refuses while any slot holds pages (a slot spanning the swap would
+        decode new-weight queries against old-weight K/V), and drops the
+        prefix table and the host tier: their pages hold K/V of the OLD
+        weights, and a hit on one would break the fresh-engine equality."""
+        if self._slot_pages:
+            raise ValueError(
+                f"reload_params with live slots {sorted(self._slot_pages)} — "
+                "reload is a barrier between requests; drain the slots first "
+                "(the scheduler's request_reload does)")
+        super().reload_params(params)
+        self.allocator.clear_prefix()
+        if self.tier is not None:
+            self.tier.clear()

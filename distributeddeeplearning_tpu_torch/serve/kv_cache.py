@@ -196,6 +196,13 @@ class PageAllocator:
     (the engine uses ``tuple(prompt[: (i + 1) * page_size])``), so a hit
     holds exactly the K/V prefill would compute for those tokens.
 
+    With a host tier (``serve/kv_tier.py``) a key may also live in host
+    memory only: ``tier_state(key)`` is ``"resident"`` (an HBM page, live
+    or reclaimable), ``"host"`` or None.  The evict hook
+    (:meth:`set_evict_hook`) demotes a page ``alloc`` recycles instead of
+    forgetting it; ``spill_prefix`` / ``host_prefix`` / ``restore_prefix``
+    / ``drop_host`` move keys between the tiers.
+
     The same sequence of calls hands out the same page ids as the
     reference's allocator.
     """
@@ -210,6 +217,12 @@ class PageAllocator:
         self._prefix: Dict[Any, int] = {}
         self._page_key: Dict[int, Any] = {}
         self._reclaim: "OrderedDict[int, None]" = OrderedDict()
+        # keys answered from the host tier only (no HBM page)
+        self._host: "OrderedDict[Any, None]" = OrderedDict()
+        # alloc-pressure demotion hook: hook(key, page) is called BEFORE
+        # an evicted reclaimable page is handed out (its bytes are still
+        # valid); True keeps the key answerable from the host tier
+        self._evict_hook = None
 
     @property
     def available(self) -> int:
@@ -220,6 +233,18 @@ class PageAllocator:
     def pages_in_use(self) -> int:
         """Live pages (refcount >= 1)."""
         return self.num_pages - self.available
+
+    @property
+    def free_pages(self) -> int:
+        """Pages on the free list proper — the spill pump's cushion: when
+        it runs low the next alloc evicts reclaimable prefix pages."""
+        return len(self._free)
+
+    @property
+    def reclaimable_pages(self) -> int:
+        """Refcount-0 pages still answering prefix hits — the spill pump's
+        candidates."""
+        return len(self._reclaim)
 
     def alloc(self, n: int) -> List[int]:
         """Hand out ``n`` pages at refcount 1, evicting LRU reclaimable
@@ -238,10 +263,19 @@ class PageAllocator:
                 page = self._free.pop()
             else:  # evict the least recently used cached prefix page
                 page, _ = self._reclaim.popitem(last=False)
-                del self._prefix[self._page_key.pop(page)]
+                key = self._page_key.pop(page)
+                del self._prefix[key]
+                # demote instead of forget when a host tier is attached:
+                # the page's bytes stay valid until its new owner writes
+                if self._evict_hook is not None and self._evict_hook(key, page):
+                    self._host[key] = None
             self._rc[page] = 1
             out.append(page)
         return out
+
+    def set_evict_hook(self, hook) -> None:
+        """Install the alloc-pressure demotion hook; None detaches it."""
+        self._evict_hook = hook
 
     def incref(self, page: int) -> None:
         rc = self._rc.get(page, 0)
@@ -303,10 +337,79 @@ class PageAllocator:
         self._reclaim.clear()
         for page in list(self._page_key):  # live pages: unregister only
             del self._prefix[self._page_key.pop(page)]
+        # host keys too: the caller releases their host slots
+        # (HostPageTier.clear)
+        self._host.clear()
 
     @property
     def prefix_entries(self) -> int:
         return len(self._prefix)
+
+    # -- host tier ---------------------------------------------------------
+    def tier_state(self, key) -> Optional[str]:
+        """``"resident"`` (an HBM page, live or reclaimable), ``"host"``
+        (host pool only) or None (prefill must recompute it)."""
+        if key in self._prefix:
+            return "resident"
+        if key in self._host:
+            return "host"
+        return None
+
+    def spill_prefix(self, key) -> int:
+        """Demote a RECLAIMABLE prefix page to the host tier: the page
+        returns to the free list and the key is answered from host.
+        Returns the freed page id.  The caller has already copied the
+        page's leaves to the host.  Only refcount-0 pages spill: a live
+        page is mapped by a block table a decode step may read."""
+        page = self._prefix.get(key)
+        if page is None:
+            raise ValueError(f"spill of unregistered prefix key {key!r}")
+        if page not in self._reclaim:
+            raise ValueError(
+                f"page {page} is live (rc={self._rc.get(page, 0)}); "
+                "only reclaimable pages may spill")
+        del self._reclaim[page]
+        del self._prefix[key]
+        del self._page_key[page]
+        self._free.append(page)
+        self._host[key] = None
+        return page
+
+    def host_prefix(self, key) -> None:
+        """Record ``key`` as host-resident without it ever having been in
+        the prefix table (a preempted slot's private pages)."""
+        if key in self._prefix:
+            raise ValueError(f"key {key!r} already resident")
+        self._host[key] = None
+
+    def restore_prefix(self, key, page: int) -> None:
+        """Promote a host key back to resident into ``page``, a live page
+        the caller has filled with the key's host bytes."""
+        if key not in self._host:
+            raise ValueError(f"restore of non-host key {key!r}")
+        if self._rc.get(page, 0) < 1:
+            raise ValueError(f"cannot restore into non-live page {page}")
+        del self._host[key]
+        self.register_prefix(key, page)
+
+    def drop_host(self, key) -> None:
+        """Forget a host key (the host pool dropped its bytes)."""
+        del self._host[key]
+
+    def coldest_reclaimable(self, n: int) -> List[tuple]:
+        """Up to ``n`` least-recently-used ``(key, page)`` spill
+        candidates: refcount-0 pages still named by the prefix table, the
+        set whose bytes are stable.  Live pages never appear."""
+        out: List[tuple] = []
+        for page in self._reclaim:
+            if len(out) >= n:
+                break
+            out.append((self._page_key[page], page))
+        return out
+
+    @property
+    def host_entries(self) -> int:
+        return len(self._host)
 
     def check(self) -> None:
         """Assert the allocator's invariants (a test hook)."""
@@ -328,6 +431,10 @@ class PageAllocator:
         assert not (prefix_pages & free), "prefix entry names a freed page"
         assert prefix_pages <= live | reclaim, \
             "prefix entry names an untracked page"
+        # a key answered from both tiers would let restore and resident
+        # reads race
+        assert not (set(self._host) & set(self._prefix)), \
+            "prefix key both resident and host"
 
 
 def insert_pages(cache: Cache, k: torch.Tensor, v: torch.Tensor,

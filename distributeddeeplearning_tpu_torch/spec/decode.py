@@ -26,10 +26,14 @@ int8 WEIGHTS are fine — they are what :class:`~.drafter.Int8Drafter`
 drafts with.  Single mesh only: an engine served tensor-parallel is
 refused with the reference's message.
 
+The drafter's weight tree is on the process ledger under
+``drafter_weights`` (``obs/ledger.py``).  The truncated drafter's blocks
+are views of the engine's weights, so its owner is charged no byte twice:
+the ledger counts a storage once, and the engine's ``params`` claimed it
+first.
+
 Not in this slice: the reference's program-cost rows (``tracked_jit``)
-for verify and rollback, the HBM-ledger entry for the drafter's weights
-(``get_ledger().register``) and the draft/verify trace spans — the port's
-observability slice adds them where the comments below mark.
+for verify and rollback and the draft/verify trace spans.
 """
 
 from __future__ import annotations
@@ -45,8 +49,13 @@ from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
     forward_verify,
     forward_verify_paged,
 )
+from distributeddeeplearning_tpu_torch.obs.ledger import get_ledger
 from distributeddeeplearning_tpu_torch.serve.kv_cache import SCRATCH_PAGE
 from distributeddeeplearning_tpu_torch.spec.drafter import Drafter, build_drafter
+
+
+def _ledger_drafter_params(drafter):
+    return getattr(drafter, "_dparams", None)
 
 
 @dataclasses.dataclass
@@ -119,8 +128,8 @@ class SpeculativeDecoder:
         self.drafter.bind(engine)
         self.drafter_name = self.drafter.name
         self._paged = engine.kv_layout == "paged"
-        # observability slice: cost rows for verify/rollback and the
-        # drafter's weights on the HBM ledger register here
+        get_ledger().register("drafter_weights", self.drafter,
+                              _ledger_drafter_params)
 
     def _upload(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.asarray(arr, np.int32)).to(self.engine.device)

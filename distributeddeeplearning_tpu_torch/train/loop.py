@@ -321,6 +321,12 @@ class Trainer:
                     if cfg.step_deadline_s else None)
         rollbacks = 0
         anomalous_before = 0  # in attempts a rollback abandoned
+        # the train state on the process ledger by owner (params, optimizer
+        # state, batch stats), read through ``self._obs_state``, which the
+        # loop re-points at the live state every step; the ledger holds
+        # the Trainer weakly
+        self._obs_state = state
+        self._register_hbm_owners()
         # the process ledger for the fit, so the checkpointer's notes land
         # in this fit's segments; restored in the outer finally
         prev_ledger = None
@@ -417,6 +423,20 @@ class Trainer:
         if self.primary:
             logger.info(*args)
 
+    def _register_hbm_owners(self) -> None:
+        """Register the train state's leaves on the process ledger
+        (``obs/ledger.py``) under ``params`` / ``opt_state`` /
+        ``batch_stats``; once per Trainer."""
+        if getattr(self, "_hbm_registered", False):
+            return
+        self._hbm_registered = True
+        from distributeddeeplearning_tpu_torch.obs.ledger import get_ledger
+
+        ledger = get_ledger()
+        for owner in ("params", "opt_state", "batch_stats"):
+            ledger.register(owner, self, lambda trainer, attr=owner: getattr(
+                getattr(trainer, "_obs_state", None), attr, None))
+
     def _emergency_stop(self, step: int, state, watchdog, guard) -> None:
         """Preemption noticed at a step boundary: synchronous emergency
         checkpoint, then PreemptionError (exit 75 under the runner)."""
@@ -490,6 +510,7 @@ class Trainer:
                     batch = plan.poison_batch(true_step, batch)
                 with trace.span("train/step", step=true_step):
                     state, metrics = self.train_step(state, batch)
+                self._obs_state = state  # one attribute store, no walk
                 anomalous = False
                 if detector is not None:
                     # one host sync a step: the price of reacting to a

@@ -42,11 +42,35 @@ metrics log, registry snapshots and goodput ledger):
                  never writes its manifest: never restore-eligible.
 
 The ``ckpt_*`` ``@N`` is generation-opportunity keyed, like
-``io_error@N``.  Serve kinds (``replica_death``, ``decode_nan``,
-``decode_stall``, ``reject_admit``) and traffic kinds (``burst``,
-``slow_tenant``) parse here, so a spec string means the same in both
-packages; their consumers come with the port's serving robustness
-(ROADMAP A6).
+``io_error@N``.
+
+Serve kinds (consumed by ``serve/scheduler.py``; their ``@N`` is the
+scheduler's **decode step**, 1-based, matched at-or-after: the first
+decode step ``>= N``):
+
+- ``decode_nan``   one active request's K history is poisoned with NaN at
+                 the first decode step >= N with an eligible victim (a slot
+                 that has decoded at least one token, so the poison lands
+                 in a private page): the quarantine must fail ONLY it;
+- ``decode_stall`` the decode dispatch sleeps ``secs`` (default 1.0) at
+                 the first decode step >= N — scheduler-watchdog fodder;
+- ``reject_admit`` admission rejects the request with probability ``p``
+                 (or once at the Nth admission opportunity): it finishes
+                 ``"shed"``.
+
+Traffic kinds (consumed by ``serve/traffic.py`` at schedule build; their
+``@N`` is the Nth matching build opportunity, one per tenant per
+``schedule`` call; a ``tenant=`` option restricts matching to that
+tenant):
+
+- ``burst``       splice an extra poisson burst into the tenant's schedule
+                  (``rps=``, default 4x its rate; ``secs=``, default 1.0;
+                  ``at=``, default 0.0);
+- ``slow_tenant`` multiply the tenant's prompt lengths (and its token
+                  budget, when set) by ``factor=`` (default 4.0).
+
+``replica_death`` parses here, so a spec string means the same in both
+packages; its consumer comes with the port's fleet (ROADMAP A6).
 
 Step numbering for the train/data kinds is the **true step**: the step
 whose completion sets ``state.step == N`` (the numbering checkpoints
@@ -208,6 +232,17 @@ class FaultPlan:
                 return spec
         return None
 
+    def _take_at_or_after(self, kind: str, step: int) -> Optional[FaultSpec]:
+        """Consume the one-shot ``kind`` fault armed for any step <=
+        ``step`` (the serve decode-step kinds' matching)."""
+        for spec in self.specs:
+            if (spec.kind == kind and spec.step is not None
+                    and spec.step <= step and not spec.fired):
+                spec.fired = True
+                self._record(spec, step, kind)
+                return spec
+        return None
+
     def _prob_fires(self, spec: FaultSpec, site: str) -> bool:
         rng = self._rngs.setdefault(
             id(spec), random.Random(int(spec.options.get("seed", 0)))
@@ -288,6 +323,76 @@ class FaultPlan:
                 yield batch
 
         return wrapped()
+
+    # -- hook: serve scheduler -------------------------------------------
+
+    def take_decode_stall(self, step: int) -> Optional[float]:
+        """``decode_stall``: seconds to sleep before this decode step's
+        dispatch, or None."""
+        spec = self._take_at_or_after("decode_stall", step)
+        if spec is None:
+            return None
+        return float(spec.options.get("secs", 1.0))
+
+    def has_decode_nan(self, step: int) -> bool:
+        """Non-consuming peek: a ``decode_nan`` is armed for step <= N.
+        The scheduler peeks first because the fault needs an eligible
+        victim; with none active the fault stays armed for the next
+        step instead of being burned on a no-op."""
+        return any(s.kind == "decode_nan" and s.step is not None
+                   and s.step <= step and not s.fired for s in self.specs)
+
+    def take_decode_nan(self, step: int) -> bool:
+        """Consume the armed ``decode_nan`` (call only with a victim)."""
+        return self._take_at_or_after("decode_nan", step) is not None
+
+    def maybe_reject_admit(self) -> bool:
+        """``reject_admit``: True when THIS admission opportunity must be
+        rejected (``@p=``, seeded, or once at the Nth opportunity)."""
+        for spec in self.specs:
+            if spec.kind != "reject_admit":
+                continue
+            if spec.prob is not None:
+                if self._prob_fires(spec, "reject_admit"):
+                    return True
+            elif not spec.fired:
+                n = self._io_opportunities.get(id(spec), 0) + 1
+                self._io_opportunities[id(spec)] = n
+                if n >= (spec.step or 1):
+                    spec.fired = True
+                    self._record(spec, spec.step, "reject_admit")
+                    return True
+        return False
+
+    # -- hook: traffic generation (serve/traffic.py) ---------------------
+
+    def _take_tenant_keyed(self, kind: str, tenant: str) -> Optional[Dict[str, Any]]:
+        """Consume a one-shot ``kind`` fault at its Nth MATCHING
+        schedule-build opportunity; a ``tenant=`` option restricts the
+        matching (and the counting) to that tenant's builds."""
+        for spec in self.specs:
+            if spec.kind != kind or spec.fired:
+                continue
+            want = spec.options.get("tenant")
+            if want is not None and str(want) != tenant:
+                continue
+            n = self._io_opportunities.get(id(spec), 0) + 1
+            self._io_opportunities[id(spec)] = n
+            if n >= (spec.step or 1):
+                spec.fired = True
+                self._record(spec, spec.step, f"{kind}:{tenant}")
+                return dict(spec.options)
+        return None
+
+    def take_burst(self, tenant: str) -> Optional[Dict[str, Any]]:
+        """``burst``: options (``rps`` / ``secs`` / ``at``) for THIS
+        tenant's schedule build, else None."""
+        return self._take_tenant_keyed("burst", tenant)
+
+    def take_slow_tenant(self, tenant: str) -> Optional[Dict[str, Any]]:
+        """``slow_tenant``: options (``factor``) for THIS tenant's
+        schedule build, else None."""
+        return self._take_tenant_keyed("slow_tenant", tenant)
 
     # -- hook: storage paths ---------------------------------------------
 

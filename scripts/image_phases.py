@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run only ``chip_smoke.py``'s image, ViT, MoE and parallelism phases on one NVIDIA GPU.
+"""Run only ``chip_smoke.py``'s image, ViT, MoE, parallelism and robust-serving phases
+on one NVIDIA GPU.
 
     python3 scripts/image_phases.py                      # all of them
     python3 scripts/image_phases.py phase_resnet         # or any of them
@@ -17,7 +18,10 @@ codes), ``phase_moe_bert`` (bert-base with experts) and
 ``phase_data_parallel`` (data-parallel training: NCCL at a world of 1,
 two gloo ranks sharing the card, the distributed flagship benchmark) and
 ``phase_tensor_parallel`` (tensor-parallel serving over two gloo ranks
-sharing the card, K4(d) and K1-K3 over a rank's heads), each as
+sharing the card, K4(d) and K1-K3 over a rank's heads) and
+``phase_serve_robust`` (overload with priority classes, the host page
+tier, live reload, the serve faults, int8-KV fidelity and the ledger's
+frames at the serving geometry), each as
 ``chip_smoke.py`` runs it, after the card's ``nvidia-smi`` name and power
 limit.  Exits
 nonzero if a phase fails.  Run from the repository's root; needs a CUDA
@@ -33,7 +37,7 @@ import traceback
 
 PHASES = ("phase_resnet", "phase_resnet_parity", "phase_image_short", "phase_vit",
           "phase_vit_flash", "phase_resume", "phase_resilience", "phase_moe_bert",
-          "phase_data_parallel", "phase_tensor_parallel")
+          "phase_data_parallel", "phase_tensor_parallel", "phase_serve_robust")
 
 
 def main(argv) -> int:

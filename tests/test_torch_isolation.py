@@ -64,7 +64,8 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert not bad, f"the port pulled in {bad[:10]}"
-    for name in ("serve.scheduler", "serve.kv_cache", "quant.qtensor",
+    for name in ("serve.scheduler", "serve.kv_cache", "serve.kv_tier",
+                 "serve.traffic", "obs.ledger", "quant.qtensor",
                  "quant.calibrate", "spec", "spec.drafter", "spec.decode",
                  "train.schedule", "train.state",
                  "train.step", "train.loop", "workloads.transformer",
@@ -77,6 +78,31 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
                  "obs.registry", "parallel", "parallel.mesh",
                  "parallel.distributed", "parallel.collectives",
                  "parallel.sharding", "parallel.comms"):
+        assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
+
+
+def test_serve_and_obs_packages_load_no_jax():
+    """``import distributeddeeplearning_tpu_torch.serve, .obs`` alone (the
+    scheduler, the host tier, the traffic generator and the ledger) loads
+    no jax and nothing of the JAX package."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import distributeddeeplearning_tpu_torch.serve\n"
+        "import distributeddeeplearning_tpu_torch.obs\n"
+        "from distributeddeeplearning_tpu_torch.serve import (HostPageTier,\n"
+        "    TrafficGenerator, poll_source)\n"
+        "from distributeddeeplearning_tpu_torch.obs import HBMLedger, get_ledger\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=REPO, timeout=240, check=True,
+    )
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
+    assert not bad, f"serve/obs pulled in {bad[:10]}"
+    for name in ("serve.kv_tier", "serve.traffic", "obs.ledger"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
 
