@@ -275,8 +275,9 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    (spawned, ``cuda:0`` passed explicitly, their own time limit), each
    rank holding its slice of the weights and its 6 of the 12 heads of the
    cache, in five runs of 16 new tokens a request (``TP_NEW_TOKENS``,
-   half the serving cells': the script's depth cut) held against the
-   same run on the one-process
+   half the serving cells') at 12 layers in (a) and the first 6 layers of
+   the same weights in (b)-(e) (``tp_layers``; both the script's depth
+   cut) held against the same run on the one-process
    engine (tp=1, first, in this process): (a) dense f32, the dense
    serving cell's requests; (b) paged f32 on the paged cell's
    shared-prefix requests (page 64, chunk 64, 72 pages); (c) paged with
@@ -291,10 +292,11 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    stream may leave tp=1's only at a token whose tp=1 logit is within
    that limit of the row's top; the paged runs'
    prefix hit rate equals tp=1's and is above 0; each rank launches K4
-   12 times a decode step and a chunk, each over 6 heads, K1 12 times a
-   dense prefill over 6 heads, no plain version; each rank runs exactly
-   2 L + 1 = 25 all-reduces and one all-gather a forward pass (24
-   all-reduces with MAX more under int8 weights), and gloo stages the
+   L times (the run's layers) a decode step and a chunk, each over 6
+   heads, K1 L times a dense prefill over 6 heads, no plain version; each
+   rank runs exactly 2 L + 1 all-reduces and one all-gather a forward
+   pass (2 L all-reduces with MAX more under int8 weights), and gloo
+   stages the
    all-gather through the host.  It prints the per-rank param and KV
    bytes against tp=1, the per-rank decode step p50, TTFT p50, tokens/s,
    peak memory, and where a dense f32 decode step's time goes on a rank
@@ -308,7 +310,7 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    shape (B=1, S=512, f32 and bf16), held against the plain versions and
    the all-heads kernels' rows (output and gradients), and timed.
 
-28. ``phase_serve_robust`` (last): robust serving at SERVE's full width
+28. ``phase_serve_robust`` (after 27): robust serving at SERVE's full width
    (seed 0, the tied 4x head; page 64, chunk 64), each run with every
    counter zeroed just before and read just after and held to exact
    launches (K4 12 a chunk and a decode step, K1 12 a dense prefill, the
@@ -346,6 +348,40 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    residual against ``torch.cuda.memory_allocated()`` beside 5%).  The
    kernels line's K4 and K1 rows add each run's launches as
    ``serve_robust <run>``.
+
+29. ``phase_fleet`` (last): the supervised serving fleet (``serve/fleet.py``)
+   at SERVE's full width: the seed-0 weights (the tied 4x head) saved once
+   with the port's ``Checkpointer`` and served through ``checkpoint_dir``
+   by replica workers the router spawns, two sharing the card (paged f32,
+   page 64, chunk 64, 8 slots each), the dense cell's 16 requests of
+   64..512 tokens, greedy, 16 new tokens each; the router builds the
+   kernels before it spawns and the workers only load them.  (a) A clean
+   fleet: tokens equal the one-process paged engine's request for request;
+   ``reload`` to a second checkpoint (seed 1) acked by both replicas, then
+   8 requests on the same processes equal a fresh engine of the new
+   weights; a drain ends both workers cleanly.  (b) The reference's fault
+   matrix ``replica_death@3,decode_nan@5,decode_stall@8:secs=0.2`` with
+   ``max_restarts=1``, ``max_redeliveries=2`` and tracing on, both
+   replicas ready before the requests: one death, one restart (waited for
+   until ready), no lost request, exactly one ``"error"`` finish and it
+   non-finite, every survivor's tokens equal (a)'s; the merged fleet
+   trace has a requeued request whose failover chain passes
+   ``check_failover_chain``.  (c) One dense replica built through
+   ``data_parallel_engine`` (flash prefill: K1) equals the one-process
+   dense engine on 8 requests.  (b)'s and (c)'s workers spawn while (a)
+   reloads and drains, and (c) serves while (b)'s restart comes up; once
+   every worker has exited, the card's free memory
+   (``torch.cuda.mem_get_info``) is within 1 GB of where it was before
+   the fleets.  In every run each worker that exited
+   cleanly never loaded jax and its shipped launch counters are exact: K4
+   12 a decode step and 12 a prefill chunk (its exit report's counts), K1
+   12 a request on the dense replica and 0 on the paged ones.  (d) It prints each worker's
+   spawn-to-ready seconds (the restart's too), the time to the first
+   streamed token, the merged TTFT and TPOT p50/p99 from the bucket-merged
+   worker histograms, the per-replica HBM peak from the shipped ledger
+   gauges, and the launches per worker; the kernels line's K4 and K1 rows
+   add each worker's launches as ``fleet <run> replicaK`` (a restart:
+   ``fleet <run> replicaK restartN``).
 
 K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
 split pass with one block per (span of 64 absolute positions, head, slot)
@@ -1133,17 +1169,26 @@ def profile_share(torch, fn, steps):
     return wall, (total if kernels else None), top, start.elapsed_time(end) / steps
 
 
+#: serve_params' host draws by seed: a process draws each weight set once
+#: (about 2 s of CPU normals) and every call copies it to the card anew
+_SERVE_HOST = {}
+
+
 def serve_params(torch, seed=0):
     """The serving cells' f32 weights: the full-width LM of ``SERVE`` from
     ``seed`` (0 unless another weight set is wanted) with a tied 4x-gain
     embedding head: top-2 logit gaps dwarf f32 reassociation noise, so
-    token equality measures the kernels, not tie-breaking."""
+    token equality measures the kernels, not tie-breaking.  Each call
+    returns a fresh copy on the card."""
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
         init_params,
     )
+    from distributeddeeplearning_tpu_torch.train.state import tree_map
 
-    params = init_params(torch.Generator().manual_seed(seed), max_len=MAX_SEQ,
-                         device="cuda", **SERVE)
+    if seed not in _SERVE_HOST:
+        _SERVE_HOST[seed] = init_params(torch.Generator().manual_seed(seed),
+                                        max_len=MAX_SEQ, device="cpu", **SERVE)
+    params = tree_map(lambda t: t.to("cuda"), _SERVE_HOST[seed])
     params["embed"] *= 4.0
     params["head"] = params["embed"].T.contiguous()
     return params
@@ -4963,17 +5008,28 @@ TP_PROFILE_STEPS = 10  # decode steps of the dense f32 run's breakdown
 # the TP runs' token budget: half the serving cells', since every decode
 # step pays the ranks' gloo round trips (the script's depth cut)
 TP_NEW_TOKENS = NEW_TOKENS // 2
+
+
+def tp_layers(name: str) -> int:
+    """A TP run's depth: (a) at the serving cells' 12 layers, (b)-(e) at
+    the first 6 layers of the same weights (the script's depth cut: a
+    forward pays 2 L + 1 gloo all-reduces a rank)."""
+    return SERVE["num_layers"] // (1 if name == "dense_f32" else 2)
+
+
 #: prefill shape of K1-K3 over the local heads: one 512-token prompt
 TP_FLASH = dict(b=1, s=512, d=64)
 
 
-def _tp_params(torch, weights):
-    """The serving cells' weights (``serve_params``) as f32, bf16 (every
-    leaf cast) or int8 (``quantize_params``: int8 matmul weights)."""
+def _tp_params(torch, weights, layers=SERVE["num_layers"]):
+    """The serving cells' weights (``serve_params``), their first
+    ``layers`` blocks, as f32, bf16 (every leaf cast) or int8
+    (``quantize_params``: int8 matmul weights)."""
     from distributeddeeplearning_tpu_torch.quant.calibrate import quantize_params
     from distributeddeeplearning_tpu_torch.train.state import tree_map
 
     params = serve_params(torch)
+    params["blocks"] = {k: v[:layers].contiguous() for k, v in params["blocks"].items()}
     if weights == "bf16":
         return tree_map(lambda t: t.to(torch.bfloat16), params)
     if weights == "int8":
@@ -5116,7 +5172,7 @@ def _tp_run(torch, np, fa, fd, run, tp, forced=None):
     if layout == "paged":
         opts.update(page_size=PAGE, prefill_chunk=CHUNK)
     torch.cuda.reset_peak_memory_stats()
-    params = _tp_params(torch, weights)
+    params = _tp_params(torch, weights, tp_layers(name))
     full_bytes = _tree_bytes(params)
     engine, mesh = tensor_parallel_engine(params, tp=tp, **opts)
     del params
@@ -5406,7 +5462,7 @@ def _hold_bf16_streams(torch, np, name, one, got):
     from distributeddeeplearning_tpu_torch.train.state import tree_map
 
     prompts = {r.uid: r.prompt for r in serve_requests(np, "dense")}
-    params = _tp_params(torch, "bf16")
+    params = _tp_params(torch, "bf16", tp_layers(name))
     engine, _ = tensor_parallel_engine(params, tp=1, num_heads=SERVE["num_heads"],
                                        batch_slots=SLOTS, max_seq=MAX_SEQ,
                                        device="cuda:0")
@@ -5440,7 +5496,6 @@ def phase_tensor_parallel(torch, np, F, fa, fd, card, runs=TP_RUNS):
     one-process engine run for run; then K4(d) and K1-K3 over local heads
     alone on the card.  Returns (the runs' per-rank results, the K4(d)
     entry, the K1-K3 entries)."""
-    layers = SERVE["num_layers"]
     t0 = time.perf_counter()
     single = {run[0]: _tp_run(torch, np, fa, fd, run, 1) for run in runs}
     forced = {name: single[name]["tokens"] for name, _, weights, _ in runs
@@ -5455,6 +5510,7 @@ def phase_tensor_parallel(torch, np, F, fa, fd, card, runs=TP_RUNS):
         raise AssertionError("a TP rank loaded jax")
     for name, layout, weights, _ in runs:
         one, got = single[name], [out[name] for out in ranks]
+        layers = tp_layers(name)
         forwards = got[0]["prefills"] + got[0]["decode_steps"]
         want_counts = {"all_reduce": (2 * layers + 1) * forwards, "all_gather": forwards}
         if weights == "int8":
@@ -5483,7 +5539,8 @@ def phase_tensor_parallel(torch, np, F, fa, fd, card, runs=TP_RUNS):
             if layout == "paged":
                 checks["hit rate == tp=1, > 0"] = (run["hit_rate"] == one["hit_rate"]
                                                    and run["hit_rate"] > 0)
-            log(f"[tp] {name} rank {r}: {forwards} forwards ({run['prefills']} "
+            log(f"[tp] {name} rank {r}: {layers} layers, {forwards} forwards "
+                f"({run['prefills']} "
                 f"{'chunks' if layout == 'paged' else 'prefills'}, {run['decode_steps']} "
                 f"decode steps); K4 {run['k4_launches']} launches {run['k4']} (heads, "
                 f"queries), K1 {run['k1_launches']}, plain {run['plain']}; collectives "
@@ -6179,6 +6236,265 @@ def phase_serve_robust(torch, np, fa, fd, card):
     return out
 
 
+# -- phase 29: the supervised serving fleet ------------------------------------
+
+#: the fleet's replicas (two sharing the card), their token budget and the
+#: fault matrix of the reference's failover test
+FLEET_REPLICAS, FLEET_NEW = 2, 16
+FLEET_FAULTS = "replica_death@3,decode_nan@5,decode_stall@8:secs=0.2"
+#: requests served again after the live reload, and by the dense replica
+FLEET_AFTER_RELOAD = FLEET_DENSE = 8
+#: the card's free memory after the fault run, within this of before it
+FLEET_MEM_SLACK = 1 << 30
+#: every fleet phase-29 run's per-worker launches, for the kernels line
+FLEET_LAUNCHES = {}
+
+
+def _fleet_ckpt(params, directory):
+    """``params`` saved once with the port's ``Checkpointer`` (generation 1)."""
+    import types
+
+    from distributeddeeplearning_tpu_torch.train.checkpoint import Checkpointer
+
+    ckpt = Checkpointer(directory)
+    ckpt.save(1, types.SimpleNamespace(step=1, params=params, opt_state={},
+                                       batch_stats={}))
+    ckpt.close()
+    return directory
+
+
+def _one_process_tokens(params, requests, layout):
+    """Greedy tokens of the one-process engine of the fleet's spec."""
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, InferenceEngine, PagedInferenceEngine, Request,
+    )
+
+    kw = dict(num_heads=SERVE["num_heads"], batch_slots=SLOTS, max_seq=MAX_SEQ)
+    engine = (PagedInferenceEngine(params, page_size=PAGE, prefill_chunk=CHUNK, **kw)
+              if layout == "paged" else InferenceEngine(params, **kw))
+    results, _ = ContinuousBatchingScheduler(engine, max_new_tokens=FLEET_NEW).run(
+        [Request(uid=r.uid, prompt=list(r.prompt)) for r in requests])
+    return {r.uid: list(r.tokens) for r in results}
+
+
+def _fleet_workers(run, report, *, dense=False):
+    """Per worker incarnation of a run's final report: its kernels.*
+    launch counters, held exactly where its exit report shows what it
+    served (K4 a layer for every decode step and prefill chunk, K1 a
+    layer for every dense prefill); every worker ready never loaded jax.
+    A worker is named by its replica and, for a restart, its incarnation
+    (``replica0``, ``replica0 restart1``), so a path keeps its name from
+    run to run."""
+    layers = SERVE["num_layers"]
+    exits = {rep["pid"]: rep for rep in report.replica_reports if rep}
+    names, spawned = {}, {}
+    for info in report.worker_info.values():  # in spawn order
+        k = spawned[info["replica"]] = spawned.get(info["replica"], 0) + 1
+        names[info["pid"]] = f"replica{info['replica']}" + (
+            f" restart{k - 1}" if k > 1 else "")
+    out = {}
+    for state in report.replica_metric_states:
+        c = state.get("counters", {})
+        key = names[state.get("pid")]
+        got = {"k4": c.get("kernels.flash_decode.launches", 0),
+               "k4_multi_query": c.get("kernels.flash_decode.launches_multi_query", 0),
+               "k4_int8": c.get("kernels.flash_decode.launches_int8", 0),
+               "k1": c.get("kernels.flash_attention.launches", 0)}
+        out[key] = got
+        rep = exits.get(state.get("pid"))  # a worker that exited cleanly
+        if rep is not None:
+            steps, served = rep["decode_steps"], rep["requests"]
+            chunks = rep["chunks_run"]
+            ok = (got["k4"] - got["k4_multi_query"] == layers * steps
+                  and got["k4_int8"] == 0
+                  and got["k4_multi_query"] == layers * chunks
+                  and (got["k1"] == layers * served and chunks == 0
+                       if dense else got["k1"] == 0 and (chunks > 0) == (served > 0)))
+            log(f"[fleet] {run} {key}: launches {got} ({steps} decode steps, "
+                f"{chunks} prefill chunks, {served} requests served; K4 {layers} "
+                f"a decode step and a chunk"
+                f"{', K1 ' + str(layers) + ' a prefill' if dense else ''})")
+            if not ok or rep.get("jax_loaded"):
+                raise AssertionError(f"[fleet] {run} {key}: launches {got} or jax")
+    for key, info in report.worker_info.items():
+        if info.get("jax_loaded"):
+            raise AssertionError(f"[fleet] {run} {key} loaded jax")
+    FLEET_LAUNCHES.update({f"fleet {run} {k}": v for k, v in out.items()})
+    return out
+
+
+def _fleet_figures(run, report, card):
+    """Phase 29 (d)'s printed figures of one run's final report."""
+    lat = report.fleet_latency
+    ready = {k: i.get("spawn_to_ready_s", "not ready") for k, i in
+             report.worker_info.items()}
+    hbm = {k: round(v.get("hbm.peak_total_bytes", 0.0) / 1e9, 4)
+           for k, v in report.hbm_watermarks.items()}
+    log(f"[fleet] {run}: spawn to ready {ready} s; merged TTFT p50 "
+        f"{lat['ttft_s'].get('p50')} p99 {lat['ttft_s'].get('p99')} s, TPOT p50 "
+        f"{lat['tpot_s'].get('p50')} p99 {lat['tpot_s'].get('p99')} s "
+        f"({lat['ttft_samples']} / {lat['tpot_samples']} samples); HBM peak a "
+        f"replica {hbm} GB on {card}")
+
+
+def phase_fleet(torch, np, card):
+    """Phase 29 (module docstring): the supervised serving fleet at the
+    serving geometry, two replicas sharing the card.  The fault run's and
+    the dense run's workers spawn while (a) reloads and drains, and the
+    restart comes up while (c) serves: a spawn is ~12 s of the phase."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch.obs import fleet as obs_fleet
+    from distributeddeeplearning_tpu_torch.obs import trace as trace_mod
+    from distributeddeeplearning_tpu_torch.serve import FleetRouter, ReplicaSpec, Request
+
+    root = tempfile.mkdtemp(prefix="fleet-")
+    requests = serve_requests(np, "dense")
+    routers = []
+    prior_tracer = trace_mod.get_tracer()
+    try:
+        t0 = time.perf_counter()
+        params = serve_params(torch)
+        ckpt_a = _fleet_ckpt(params, os.path.join(root, "a"))
+        want_a = _one_process_tokens(params, requests, "paged")
+        want_dense = _one_process_tokens(params, requests[:FLEET_DENSE], "dense")
+        del params
+        params_b = serve_params(torch, seed=1)
+        ckpt_b = _fleet_ckpt(params_b, os.path.join(root, "b"))
+        after = [Request(uid=f"post{i}", prompt=list(r.prompt))
+                 for i, r in enumerate(requests[:FLEET_AFTER_RELOAD])]
+        want_b = _one_process_tokens(params_b, after, "paged")
+        del params_b
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+        log(f"[time] (setup: two checkpoints, three one-process runs) "
+            f"{time.perf_counter() - t0:.1f} s")
+        spec = ReplicaSpec(checkpoint_dir=ckpt_a, num_heads=SERVE["num_heads"],
+                           batch_slots=SLOTS, max_seq=MAX_SEQ, kv_layout="paged",
+                           page_size=PAGE, prefill_chunk=CHUNK,
+                           max_new_tokens=FLEET_NEW, device="cuda")
+        # the fault run traces: the router's tracer is this process's
+        trace_dir = os.path.join(root, "trace")
+        os.makedirs(trace_dir)
+        tracer = trace_mod.set_tracer(trace_mod.Tracer(
+            enabled=True, annotate=False, process_name="router",
+            recorder=trace_mod.PROCESS_RECORDER))
+
+        # (a) the clean fleet from a cold start, a live reload on the same
+        # router, a drain
+        t1 = time.perf_counter()
+        clean = FleetRouter(spec, replicas=FLEET_REPLICAS, faults="")
+        faulty = FleetRouter(dataclasses.replace(spec, trace_dir=trace_dir),
+                             replicas=FLEET_REPLICAS, max_restarts=1,
+                             max_redeliveries=2, faults=FLEET_FAULTS)
+        dense = FleetRouter(dataclasses.replace(spec, kv_layout="dense"), replicas=1,
+                            faults="")
+        routers += [clean, faulty, dense]
+        res, rep = clean.serve(requests, shutdown=False)
+        first_token_s = rep.warmup_s
+        got = {r.uid: list(r.tokens) for r in res}
+        if got != want_a or rep.finish_reasons != {"length": REQUESTS}:
+            raise AssertionError(f"[fleet] clean fleet != the one-process engine: "
+                                 f"{rep.finish_reasons}")
+        faulty.serve([], shutdown=False)  # spawn (b)'s and (c)'s workers now
+        dense.serve([], shutdown=False)
+        acks = clean.reload(ckpt_b, timeout_s=120)
+        if sorted(acks) != list(range(FLEET_REPLICAS)) or not all(
+                a.get("ok") for a in acks.values()):
+            raise AssertionError(f"[fleet] reload acks {acks}")
+        res_b, rep_b = clean.serve(after, shutdown=False)
+        if {r.uid: list(r.tokens) for r in res_b} != want_b or rep_b.reloads != 1:
+            raise AssertionError("[fleet] tokens after the reload barrier != a "
+                                 "fresh engine of the new weights")
+        clean.drain()
+        _, rep_end = clean.serve([])
+        if not rep_end.drained or any(r is None for r in rep_end.replica_reports):
+            raise AssertionError("[fleet] the drain did not end both replicas cleanly")
+        log(f"[fleet] (a) {REQUESTS} requests x {FLEET_NEW} over {FLEET_REPLICAS} "
+            f"replicas (paged f32, page {PAGE}, chunk {CHUNK}, {SLOTS} slots each): "
+            f"tokens == the one-process engine's; first streamed token "
+            f"{first_token_s:.3f} s after serve() (spawn included); reload acks "
+            f"{acks}; {FLEET_AFTER_RELOAD} requests after the barrier == a fresh "
+            f"engine of the new weights; drained; workers jax-free")
+        _fleet_workers("clean", rep_end)
+        _fleet_figures("clean", rep_end, card)
+        log(f"[time] (a) {time.perf_counter() - t1:.1f} s")
+
+        # (b) the fault matrix, traced, both replicas ready first (a death
+        # dealt to a replica that took no request would never fire)
+        t1 = time.perf_counter()
+        if not faulty.wait_ready():
+            raise AssertionError("[fleet] the fault run's replicas did not come up")
+        res, rep = faulty.serve(requests, shutdown=False)
+        errors = [r for r in res if r.finish_reason == "error"]
+        checks = {
+            "one death": rep.replica_deaths == 1, "one restart": rep.restarts == 1,
+            "no lost request": rep.lost_requests == 0,
+            "one non-finite error": len(errors) == 1 and "non-finite" in (
+                errors[0].error or ""),
+            "every request once": sorted(r.uid for r in res) == sorted(
+                r.uid for r in requests),
+            "survivors == (a)": all(list(r.tokens) == want_a[r.uid] for r in res
+                                    if r.finish_reason == "length"),
+        }
+
+        # (c) one dense replica through data_parallel_engine (K1 and K4(a)),
+        # served while (b)'s restart comes up
+        t2 = time.perf_counter()
+        if not dense.wait_ready():
+            raise AssertionError("[fleet] the dense replica did not come up")
+        res_c, rep_c = dense.serve(requests[:FLEET_DENSE])
+        if {r.uid: list(r.tokens) for r in res_c} != want_dense:
+            raise AssertionError("[fleet] dense replica != the one-process dense engine")
+        log(f"[fleet] (c) one dense replica (data_parallel_engine, flash prefill): "
+            f"{FLEET_DENSE} requests x {FLEET_NEW} == the one-process dense engine's")
+        _fleet_workers("dense", rep_c, dense=True)
+        _fleet_figures("dense", rep_c, card)
+        log(f"[time] (c) {time.perf_counter() - t2:.1f} s")
+
+        checks["restart ready"] = faulty.wait_ready()
+        _, rep_end = faulty.serve([])
+        trace_mod.set_tracer(prior_tracer)
+        merged = obs_fleet.merge_fleet_trace(
+            tracer.to_chrome_trace(), obs_fleet.load_trace_shards(trace_dir),
+            offsets_us=faulty.clock_offsets_us)
+        requeued = sorted({(e.get("args") or {}).get("trace") for e in tracer.events
+                           if e.get("name") == "fleet/request_requeued"} - {None})
+        chains = {t: obs_fleet.check_failover_chain(c) for t, c in
+                  obs_fleet.failover_chains(merged, requeued).items()}
+        checks["a failover chain passes"] = any(c["ok"] for c in chains.values())
+        free1 = free0
+        for _ in range(100):  # a dead worker's context is freed as it is reaped
+            free1 = torch.cuda.mem_get_info()[0]
+            if free1 >= free0 - FLEET_MEM_SLACK:
+                break
+            time.sleep(0.1)
+        checks["card memory back"] = free1 >= free0 - FLEET_MEM_SLACK
+        log(f"[fleet] (b) {FLEET_FAULTS}, max_restarts 1, max_redeliveries 2: deaths "
+            f"{rep.replica_deaths}, restarts {rep.restarts}, redeliveries "
+            f"{rep.redeliveries}, lost {rep.lost_requests}, finish {rep.finish_reasons}, "
+            f"error {[e.error for e in errors]}; survivors == (a)'s; failover chains "
+            f"{sum(c['ok'] for c in chains.values())} of {len(chains)} requeued pass "
+            f"check_failover_chain; the card's free memory {free0 / 1e9:.3f} GB "
+            f"before the fleets, {free1 / 1e9:.3f} GB after them")
+        failed = [what for what, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"[fleet] fault run: {failed}")
+        _fleet_workers("faults", rep_end)
+        _fleet_figures("faults", rep_end, card)
+        log(f"[time] (b) with (c) {time.perf_counter() - t1:.1f} s")
+    finally:
+        trace_mod.set_tracer(prior_tracer)
+        for router in routers:
+            router.terminate()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return FLEET_LAUNCHES
+
+
 def _lr_sum(steps: int) -> float:
     """The summed learning rates of :func:`_dp_lm_fit`'s schedule."""
     from distributeddeeplearning_tpu_torch.train.schedule import (
@@ -6376,6 +6692,7 @@ def main() -> int:
         data_parallel, dp_shape = timed(phase_data_parallel, torch, np, F, fa, card)
         tp_ranks, k4d, flash_tp = timed(phase_tensor_parallel, torch, np, F, fa, fd, card)
         timed(phase_serve_robust, torch, np, fa, fd, card)
+        timed(phase_fleet, torch, np, card)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -6528,6 +6845,17 @@ def main() -> int:
             row.setdefault("launches_by_path", {}).update(
                 {f"serve_robust {run}": pick(c) for run, c in ROBUST_LAUNCHES.items()
                  if pick(c)})
+    # phase 29: each fleet worker's launches, from the states it shipped
+    # (paged replicas: K4 decode and chunks; the dense replica: K4 and K1)
+    fleet_rows = {
+        "flash_decode": lambda c: c["k4"] - c["k4_multi_query"],
+        "flash_decode_chunk": lambda c: c["k4_multi_query"],
+        "flash_attention_fwd": lambda c: c["k1"]}
+    for row in rows:
+        pick = fleet_rows.get(row["name"])
+        if pick is not None:
+            row.setdefault("launches_by_path", {}).update(
+                {path: pick(c) for path, c in FLEET_LAUNCHES.items() if pick(c)})
     for row in rows:
         row["kernel"] = profiled_kernels(row["name"])
     log(f"[timer] windows timed by CUDA events for want of profiler device "

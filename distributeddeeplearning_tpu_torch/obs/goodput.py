@@ -43,6 +43,7 @@ __all__ = [
     "read_rows",
     "stitch",
     "summarize_ledger",
+    "post_warmup_tokens_per_sec",
     "get_ledger",
     "set_ledger",
 ]
@@ -423,6 +424,21 @@ def summarize_ledger(
         "mfu_omitted_reason": mfu_reason,
     }
     return summary
+
+
+def post_warmup_tokens_per_sec(
+    tokens: int, wall_s: float, warmup_s: float = 0.0
+) -> float:
+    """Tokens/sec over the post-warmup window: the fleet report's goodput,
+    which would otherwise be dominated by replica spawn, torch import and
+    engine build rather than serving.  ``warmup_s`` is clamped into
+    ``[0, wall_s)``; a degenerate window falls back to the whole wall."""
+    if wall_s <= 0:
+        return 0.0
+    window = wall_s - min(max(warmup_s, 0.0), wall_s)
+    if window <= 0:
+        window = wall_s
+    return round(tokens / window, 2)
 
 
 # -- process-global ledger (disabled by default) ---------------------------

@@ -275,6 +275,16 @@ class MetricsRegistry:
         self.snapshots_written = 0
         self.snapshots_dropped = 0
 
+    def set_identity(self, *, replica_id: Optional[int] = None,
+                     process_name: Optional[str] = None) -> "MetricsRegistry":
+        """Stamp this process's identity (a fleet worker calls it once at
+        startup) onto every later snapshot row and shipped state."""
+        if replica_id is not None:
+            self.replica_id = replica_id
+        if process_name is not None:
+            self.process_name = process_name
+        return self
+
     def counter(self, name: str) -> Counter:
         with self._lock:
             if name not in self._counters:

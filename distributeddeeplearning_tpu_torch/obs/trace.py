@@ -106,7 +106,8 @@ class _Span:
         tracer._depth_local.depth = depth - 1
         if self._annotation is not None:
             self._annotation.__exit__(*exc)
-        args = dict(self._args)
+        ctx = tracer._context
+        args = {**ctx, **self._args} if ctx else dict(self._args)
         args["depth"] = depth - 1  # 0 = top-level
         tracer._events.append({
             "ph": "X",
@@ -148,6 +149,9 @@ class Tracer:
         self._record_function = None
         self.pid = int(pid) if pid is not None else os.getpid()
         self.process_name = process_name if process_name is not None else "ddlt-host"
+        # default args stamped onto every span and event (a fleet worker
+        # sets replica=k so every scheduler span carries its identity)
+        self._context: Dict[str, Any] = {}
         self._recorder = recorder
         self._events: List[Dict[str, Any]] = []
         self._depth_local = threading.local()
@@ -171,6 +175,12 @@ class Tracer:
     def enabled(self) -> bool:
         return self._enabled
 
+    @property
+    def epoch_unix_s(self) -> float:
+        """Wall-clock time of this tracer's perf_counter epoch: the anchor
+        the fleet trace merge aligns worker clocks with."""
+        return self._epoch_wall
+
     def enable(self) -> "Tracer":
         self._enabled = True
         self._resolve_annotation()
@@ -178,6 +188,20 @@ class Tracer:
 
     def disable(self) -> "Tracer":
         self._enabled = False
+        return self
+
+    def clear(self) -> None:
+        self._events = []
+
+    def set_context(self, **args: Any) -> "Tracer":
+        """Merge default args stamped onto every later span and event."""
+        self._context.update(args)
+        return self
+
+    def attach_recorder(self, recorder: Optional[FlightRecorder]) -> "Tracer":
+        """Attach (or detach with None) a flight recorder: spans and events
+        then land in its ring even while the tracer is disabled."""
+        self._recorder = recorder
         return self
 
     # -- recording --------------------------------------------------------
@@ -202,6 +226,7 @@ class Tracer:
             rec.record_event(name, cat, args)
         if not self._enabled:
             return
+        ctx = self._context
         self._events.append({
             "ph": "i",
             "s": "t",  # thread-scoped instant
@@ -210,7 +235,7 @@ class Tracer:
             "pid": self.pid,
             "tid": threading.get_ident() & 0xFFFFFFFF,
             "ts": (time.perf_counter() - self._epoch_perf) * 1e6,
-            "args": dict(args),
+            "args": {**ctx, **args} if ctx else dict(args),
         })
 
     # -- export -----------------------------------------------------------

@@ -2,15 +2,22 @@
 tier beneath the paged pool, the engines (tensor-parallel over processes
 too), continuous batching with chunked prefill, priority classes,
 shedding, lossless preemption and live reload, and synthetic
-multi-tenant traffic."""
+multi-tenant traffic, and the supervised multi-replica fleet."""
 
 from distributeddeeplearning_tpu_torch.serve.engine import (
     InferenceEngine,
     PagedInferenceEngine,
     PrefillTask,
+    data_parallel_engine,
     prompt_bucket,
     sample_logits,
     tensor_parallel_engine,
+)
+from distributeddeeplearning_tpu_torch.serve.fleet import (
+    FleetReport,
+    FleetRouter,
+    ReplicaSpec,
+    serve_fleet,
 )
 from distributeddeeplearning_tpu_torch.serve.kv_cache import (
     SCRATCH_PAGE,
@@ -50,12 +57,15 @@ __all__ = [
     "TIER_POLICIES",
     "CompletedRequest",
     "ContinuousBatchingScheduler",
+    "FleetReport",
+    "FleetRouter",
     "HostPageTier",
     "InferenceEngine",
     "OutOfPages",
     "PageAllocator",
     "PagedInferenceEngine",
     "PrefillTask",
+    "ReplicaSpec",
     "Request",
     "ServeReport",
     "TenantSpec",
@@ -63,6 +73,7 @@ __all__ = [
     "TrafficGenerator",
     "cache_bytes",
     "cache_sharding",
+    "data_parallel_engine",
     "init_cache",
     "init_paged_cache",
     "insert_pages",
@@ -72,6 +83,7 @@ __all__ = [
     "poll_source",
     "prompt_bucket",
     "sample_logits",
+    "serve_fleet",
     "synthetic_requests",
     "tensor_parallel_engine",
 ]

@@ -56,9 +56,13 @@ host key restores the page by an asynchronous copy; and the fidelity
 probe ``capture_logits``, which keeps the last decode step's logits and
 the last prefill's logits row on the host.
 
-Not in this slice: ``data_parallel_engine`` (a data mesh over processes
-needs slot ownership and token exchange: ROADMAP A6, beside the fleet)
-and compile tracking.
+:func:`data_parallel_engine` keeps the reference's mesh-gating rule over
+the cards one process may use: one card (or slots that do not divide)
+gives the single-device dense engine, the only case any machine so far
+has; sharding slots over two or more cards in one process raises
+(ROADMAP A6).  Data parallelism across processes is the fleet's
+(``serve/fleet.py``: one engine a replica worker).  Compile tracking is
+not ported: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -247,9 +251,11 @@ def _check_mesh(params, mesh, *, num_heads: int, kv_layout: str) -> int:
                 "paged engine meshes must be tensor-only (data×fsdp "
                 f"== 1): the page pool never shards; got {dict(mesh.shape)}")
         raise NotImplementedError(
-            f"a serving mesh with data axes {dict(mesh.shape)}: slots over "
-            "processes are data_parallel_engine (ROADMAP A6), not in the "
-            "port yet; tensor_parallel_engine serves a data=1 mesh")
+            f"a serving mesh with data axes {dict(mesh.shape)}: "
+            "data_parallel_engine serves one card a process and slot "
+            "sharding over a data mesh waits for ROADMAP A6 (serve.fleet "
+            "runs one engine a process); tensor_parallel_engine serves a "
+            "data=1 mesh")
     if num_heads % tp:
         raise ValueError(
             f"num_heads {num_heads} not divisible by the mesh's "
@@ -290,6 +296,31 @@ def _kv_dtype(cache_dtype, weights: torch.dtype) -> torch.dtype:
             f"cache_dtype {cache_dtype!r}: one of {sorted(_KV_DTYPES)}"
         )
     return dtype
+
+
+def data_parallel_engine(params, *, num_heads: int, batch_slots: int,
+                         max_seq: int, **engine_kw):
+    """The dense engine over the devices one process may use, by the
+    reference's rule: slots shard over them when there are two or more and
+    ``batch_slots`` divides by their count, else the single-device engine.
+    Devices: ``torch.cuda.device_count()`` for an engine on ``"cuda"``,
+    1 for one pinned to a card (``"cuda:N"``, as a fleet worker's is) or
+    on the CPU.  Returns ``(engine, mesh)``; ``mesh`` is None in the single
+    case, the only one the port serves: slot sharding over several cards
+    in one process raises ``NotImplementedError`` (ROADMAP A6)."""
+    device = resolve_device(engine_kw.get("device"))
+    unpinned = device.type == "cuda" and device.index is None
+    n_dev = torch.cuda.device_count() if unpinned else 1
+    if n_dev > 1 and batch_slots % n_dev == 0:
+        raise NotImplementedError(
+            f"data_parallel_engine: {batch_slots} slots would shard over "
+            f"{n_dev} cards in one process, which waits for a machine with "
+            "two or more cards (ROADMAP A6); serve one engine a process "
+            "through serve.fleet instead")
+    engine = InferenceEngine(params, num_heads=num_heads,
+                             batch_slots=batch_slots, max_seq=max_seq,
+                             **engine_kw)
+    return engine, None
 
 
 def tensor_parallel_engine(params, *, tp: int, num_heads: int, batch_slots: int,
@@ -814,7 +845,10 @@ class PagedInferenceEngine(_EngineCore):
         # prefill — its logits seed the first sampled token.  The table
         # answers in either tier: a resident hit maps the page, a host hit
         # allocates a fresh page and restores it (the chunk pass that reads
-        # it is ordered after the copy on the device, no host wait)
+        # it is ordered after the copy on the device, no host wait).  Each
+        # page is held from the moment the walk finds it: a later host
+        # hit's alloc may otherwise evict a page this walk already mapped
+        # (ROADMAP C5)
         shared: list = []
         restored = 0
         if self._prefix_enabled:
@@ -827,9 +861,8 @@ class PagedInferenceEngine(_EngineCore):
                     restored += page is not None
                 if page is None:
                     break
+                self.allocator.incref(page)
                 shared.append(page)
-        for p in shared:
-            self.allocator.incref(p)
         try:
             fresh = self.allocator.alloc(n_total - len(shared))
         except OutOfPages:
@@ -1006,11 +1039,15 @@ class PagedInferenceEngine(_EngineCore):
         the copy, write the page on the compute stream (ordered after the
         copy by the tier's event) and hand the page to the prefix table
         (refcount 0, reclaimable; the caller's incref takes the slot's
-        reference).  None when the pool has no page: the walk stops and
-        the tail re-prefills."""
+        reference).  None when the pool has no page, or when that alloc's
+        eviction dropped ``key`` itself from a full host pool (ROADMAP
+        C6): the walk stops and the tail re-prefills."""
         try:
             (page,) = self.allocator.alloc(1)
         except OutOfPages:
+            return None
+        if self.allocator.tier_state(key) != "host":
+            self.allocator.decref(page)
             return None
         for name, t in self.tier.dispatch_restore(key).items():
             self._cache[name][page].copy_(t)

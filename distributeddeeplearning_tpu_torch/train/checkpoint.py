@@ -747,16 +747,32 @@ class Checkpointer:
                 pairs.append((dst, src))
         return pairs
 
-    def restore_params(self):
+    def restore_params(self, *, quantize_weights: Optional[str] = None):
         """``(params, step)`` of the newest verified generation's ``params``
         item alone, as CPU tensors; ``(None, None)`` when there is none.
         Falls back as :meth:`restore` does, but never evicts: serving reads
-        a store some trainer owns."""
+        a store some trainer owns.
+
+        ``quantize_weights="int8"`` returns the int8-weight serving tree
+        (``quant.calibrate.quantize_params``), quantized after the f32
+        leaves verified: quantizing corrupt weights would only launder the
+        corruption into plausible scales."""
+        if quantize_weights not in (None, "int8"):
+            raise ValueError(f"unsupported quantize_weights {quantize_weights!r} "
+                             "(only 'int8')")
         candidates, rejected = self._candidates()
         if not candidates and not rejected:
             return None, None
         for step in candidates:
             items = self._read_verified(step, ("params",))
-            if items is not None:
-                return unflatten(items["params"]), step
+            if items is None:
+                continue
+            params = unflatten(items["params"])
+            if quantize_weights is not None:
+                from distributeddeeplearning_tpu_torch.quant.calibrate import (
+                    quantize_params,
+                )
+
+                params = quantize_params(params)
+            return params, step
         raise self._corruption_error(sorted(candidates + rejected))

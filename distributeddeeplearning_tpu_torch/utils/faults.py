@@ -44,10 +44,15 @@ metrics log, registry snapshots and goodput ledger):
 The ``ckpt_*`` ``@N`` is generation-opportunity keyed, like
 ``io_error@N``.
 
-Serve kinds (consumed by ``serve/scheduler.py``; their ``@N`` is the
-scheduler's **decode step**, 1-based, matched at-or-after: the first
-decode step ``>= N``):
+Serve kinds (consumed by ``serve/scheduler.py`` and the fleet worker in
+``serve/fleet.py``; their ``@N`` is the scheduler's **decode step**,
+1-based per worker process, matched at-or-after: the first decode step
+``>= N``):
 
+- ``replica_death`` the fleet worker hard-exits (``os._exit``) at the
+                 first decode step >= N: no drain, no goodbye; the router
+                 detects the death, restarts the replica and requeues its
+                 in-flight requests onto survivors;
 - ``decode_nan``   one active request's K history is poisoned with NaN at
                  the first decode step >= N with an eligible victim (a slot
                  that has decoded at least one token, so the poison lands
@@ -69,8 +74,9 @@ tenant):
 - ``slow_tenant`` multiply the tenant's prompt lengths (and its token
                   budget, when set) by ``factor=`` (default 4.0).
 
-``replica_death`` parses here, so a spec string means the same in both
-packages; its consumer comes with the port's fleet (ROADMAP A6).
+The fleet router deals the serve kinds across its replica workers
+(:func:`deal_serve_faults`) and strips ``replica_death`` from a restarted
+replica's slice (:func:`strip_kinds`).
 
 Step numbering for the train/data kinds is the **true step**: the step
 whose completion sets ``state.step == N`` (the numbering checkpoints
@@ -101,6 +107,10 @@ KINDS = (
     "replica_death", "decode_nan", "decode_stall", "reject_admit",
     "ckpt_corrupt", "ckpt_torn", "burst", "slow_tenant",
 )
+
+#: kinds the serving stack consumes: the fleet router deals these across
+#: its replica workers instead of letting every worker fire all of them
+SERVE_KINDS = ("replica_death", "decode_nan", "decode_stall", "reject_admit")
 
 class InjectedIOError(IOError):
     """A storage failure injected by an ``io_error`` fault."""
@@ -324,7 +334,12 @@ class FaultPlan:
 
         return wrapped()
 
-    # -- hook: serve scheduler -------------------------------------------
+    # -- hook: serve scheduler / fleet worker ----------------------------
+
+    def take_replica_death(self, step: int) -> bool:
+        """``replica_death``: True when the worker should hard-exit now
+        (first decode step >= the armed step)."""
+        return self._take_at_or_after("replica_death", step) is not None
 
     def take_decode_stall(self, step: int) -> Optional[float]:
         """``decode_stall``: seconds to sleep before this decode step's
@@ -460,6 +475,44 @@ class FaultPlan:
             {"kind": e.kind, "step": e.step, "site": e.site}
             for e in self.events
         ]
+
+
+# -- fleet helpers: dealing a spec across replica workers -----------------
+
+
+def deal_serve_faults(text: str, n_replicas: int) -> List[str]:
+    """Split a ``DDLT_FAULTS`` spec into one spec string per replica.
+
+    Serve-side entries (:data:`SERVE_KINDS`) go to exactly one replica: an
+    explicit ``:replica=k`` option wins, otherwise they are dealt
+    round-robin in spec order, since without dealing ``replica_death@3``
+    would kill every replica at its own step 3 and leave no survivor.
+    Every other entry replicates to all workers.
+    """
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    dealt: List[List[str]] = [[] for _ in range(n_replicas)]
+    serve_i = 0
+    for spec in parse_spec(text or ""):
+        if spec.kind in SERVE_KINDS:
+            if "replica" in spec.options:
+                target = int(spec.options["replica"]) % n_replicas
+            else:
+                target = serve_i % n_replicas
+                serve_i += 1
+            dealt[target].append(spec.describe())
+        else:
+            for entries in dealt:
+                entries.append(spec.describe())
+    return [",".join(entries) for entries in dealt]
+
+
+def strip_kinds(text: str, kinds) -> str:
+    """Drop every entry of the given kinds from a spec string: the fleet
+    router strips ``replica_death`` from a restarted replica's slice so an
+    injected death is not replayed forever."""
+    kept = [s.describe() for s in parse_spec(text or "") if s.kind not in kinds]
+    return ",".join(kept)
 
 
 # -- process-level plan (one-shot across in-process restarts) ------------

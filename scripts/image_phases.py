@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run only ``chip_smoke.py``'s image, ViT, MoE, parallelism and robust-serving phases
+"""Run only ``chip_smoke.py``'s image, ViT, MoE, parallelism, robust-serving and fleet phases
 on one NVIDIA GPU.
 
     python3 scripts/image_phases.py                      # all of them
@@ -21,7 +21,8 @@ two gloo ranks sharing the card, the distributed flagship benchmark) and
 sharing the card, K4(d) and K1-K3 over a rank's heads) and
 ``phase_serve_robust`` (overload with priority classes, the host page
 tier, live reload, the serve faults, int8-KV fidelity and the ledger's
-frames at the serving geometry), each as
+frames at the serving geometry) and ``phase_fleet`` (the supervised serving
+fleet: replica workers, failover, reload, drain, a dense replica), each as
 ``chip_smoke.py`` runs it, after the card's ``nvidia-smi`` name and power
 limit.  Exits
 nonzero if a phase fails.  Run from the repository's root; needs a CUDA
@@ -37,7 +38,8 @@ import traceback
 
 PHASES = ("phase_resnet", "phase_resnet_parity", "phase_image_short", "phase_vit",
           "phase_vit_flash", "phase_resume", "phase_resilience", "phase_moe_bert",
-          "phase_data_parallel", "phase_tensor_parallel", "phase_serve_robust")
+          "phase_data_parallel", "phase_tensor_parallel", "phase_serve_robust",
+          "phase_fleet")
 
 
 def main(argv) -> int:

@@ -8,11 +8,16 @@ tests/test_torch_cuda_serve.py``; skips without a card).
   the tier's copy stream held busy, ``poll`` keeps it in flight, a spill
   into the full pool finds no slot, and ``drain`` retires it;
 - a tiered paged run (spill, then restore on a prefix hit) launches K4 and
-  never the plain version, and its tokens equal the untiered run's.
+  never the plain version, and its tokens equal the untiered run's;
+- a two-replica paged fleet (``serve/fleet.py``: worker processes sharing
+  the card, kernels built by the router before it spawns) serves tokens
+  equal to the one-process engine's, each worker launching K4 and never
+  loading jax.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -127,3 +132,35 @@ def test_tiered_paged_run_launches_k4_and_never_the_plain_version(card, monkeypa
     assert tiered == untiered
     engine.allocator.check()
     engine.tier.check()
+
+
+@pytest.mark.timeout(280)
+def test_two_replica_paged_fleet_equals_the_one_process_engine(card):
+    from distributeddeeplearning_tpu_torch.models import pipelined_transformer as tpt
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, FleetRouter, PagedInferenceEngine, ReplicaSpec,
+        Request, synthetic_requests,
+    )
+
+    kw = dict(num_heads=CFG["num_heads"], batch_slots=2, max_seq=64, page_size=16,
+              prefill_chunk=16)
+    reqs = synthetic_requests(6, vocab_size=CFG["vocab_size"], max_prompt=24,
+                              rng=np.random.default_rng(0))
+    router = FleetRouter(ReplicaSpec(model=dict(CFG), seed=0, kv_layout="paged",
+                                     max_new_tokens=8, device="cuda", **kw),
+                         replicas=2, faults="")
+    try:
+        results, report = router.serve(reqs)
+    finally:
+        router.terminate()
+    params = tpt.init_params(torch.Generator().manual_seed(0), device=card, **CFG)
+    want, _ = ContinuousBatchingScheduler(
+        PagedInferenceEngine(params, device=card, **kw), max_new_tokens=8).run(
+        [Request(uid=r.uid, prompt=list(r.prompt)) for r in reqs])
+    assert {r.uid: r.tokens for r in results} == {r.uid: r.tokens for r in want}
+    assert report.completed_ok == len(reqs) and report.lost_requests == 0
+    for info in report.worker_info.values():
+        assert info["device"].startswith("cuda") and info["jax_loaded"] is False
+    counters = report.fleet_metrics["counters"]
+    assert counters["kernels.flash_decode.launches"] > 0
+    assert counters["kernels.flash_attention.launches"] == 0

@@ -65,7 +65,8 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert not bad, f"the port pulled in {bad[:10]}"
     for name in ("serve.scheduler", "serve.kv_cache", "serve.kv_tier",
-                 "serve.traffic", "obs.ledger", "quant.qtensor",
+                 "serve.traffic", "serve.fleet", "obs.fleet", "obs.ledger",
+                 "quant.qtensor",
                  "quant.calibrate", "spec", "spec.drafter", "spec.decode",
                  "train.schedule", "train.state",
                  "train.step", "train.loop", "workloads.transformer",
@@ -83,8 +84,9 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
 
 def test_serve_and_obs_packages_load_no_jax():
     """``import distributeddeeplearning_tpu_torch.serve, .obs`` alone (the
-    scheduler, the host tier, the traffic generator and the ledger) loads
-    no jax and nothing of the JAX package."""
+    scheduler, the host tier, the traffic generator, the fleet and the
+    ledger) and ``obs.fleet`` load no jax and nothing of the JAX
+    package."""
     code = (
         "import json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -93,6 +95,8 @@ def test_serve_and_obs_packages_load_no_jax():
         "from distributeddeeplearning_tpu_torch.serve import (HostPageTier,\n"
         "    TrafficGenerator, poll_source)\n"
         "from distributeddeeplearning_tpu_torch.obs import HBMLedger, get_ledger\n"
+        "from distributeddeeplearning_tpu_torch.serve import FleetRouter, serve_fleet\n"
+        "import distributeddeeplearning_tpu_torch.obs.fleet\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
@@ -102,7 +106,8 @@ def test_serve_and_obs_packages_load_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert not bad, f"serve/obs pulled in {bad[:10]}"
-    for name in ("serve.kv_tier", "serve.traffic", "obs.ledger"):
+    for name in ("serve.kv_tier", "serve.traffic", "serve.fleet", "obs.fleet",
+                 "obs.ledger"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
 
