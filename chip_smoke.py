@@ -202,10 +202,11 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    resnet50 (f32, 224 px) at batch 64 through the same ``main``, 3 warmup
    batches and 3 windows of 5: img/s, step p50, peak memory and mfu;
 21. ``phase_vit``: ViT-B/16 through ``workloads.benchmark.main(model=
-   "vit-b16")`` at the reference defaults (bf16, batch 64, 224 px; 10
-   warmup batches, 10 windows of 10), as ``python -m`` in a fresh process
-   and here: img/s, step p50, peak memory, mfu (``forward_macs`` counts the
-   two attention products, 17.56 G multiply-adds an image) and a profiled
+   "vit-b16")`` (bf16, batch 64, 224 px) at the reference defaults (10
+   warmup batches, 10 windows of 10) as ``python -m`` in a fresh process,
+   and here shortened (3 warmup batches, 3 windows of 5):
+   img/s, step p50, peak memory, mfu (``forward_macs`` counts the two
+   attention products, 17.56 G multiply-adds an image) and a profiled
    step's split (GEMMs, attention, LayerNorm/GELU, elementwise, SGD); then
    a shortened vit-l16 run;
 22. ``phase_vit_flash``: the bf16 K1, K2, K3 at ViT-B/16's attention shape
@@ -243,8 +244,9 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    ``train/step`` ranges, the tracer's export with the ``train/*`` spans and the rollback event; the
    LM workload as ``python -m`` at TRAIN's geometry (flash, bf16) exiting
    75 on ``preempt@3`` with a generation at 3, then resuming from it to
-   exit 0, and at its defaults exiting 70 with the stacks when an injected
-   data stall outlasts ``--step_deadline_s``;
+   exit 0, and at its defaults (beside those two) exiting 70
+   with the stacks when an injected data stall outlasts
+   ``--step_deadline_s``;
 26. ``phase_data_parallel`` (after 25): data-parallel training, one process a
    device, in three parts.  (a) NCCL at a world of 1: the LM workload at
    TRAIN's full width (bf16, flash) with ``distributed=True`` for 3 steps,
@@ -349,7 +351,7 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    kernels line's K4 and K1 rows add each run's launches as
    ``serve_robust <run>``.
 
-29. ``phase_fleet`` (last): the supervised serving fleet (``serve/fleet.py``)
+29. ``phase_fleet``: the supervised serving fleet (``serve/fleet.py``)
    at SERVE's full width: the seed-0 weights (the tied 4x head) saved once
    with the port's ``Checkpointer`` and served through ``checkpoint_dir``
    by replica workers the router spawns, two sharing the card (paged f32,
@@ -382,6 +384,29 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    gauges, and the launches per worker; the kernels line's K4 and K1 rows
    add each worker's launches as ``fleet <run> replicaK`` (a restart:
    ``fleet <run> replicaK restartN``).
+
+30. ``phase_imagenet`` (last): the ImageNet data plane and the
+   ``imagenet`` workload at the reference's flagship settings (ResNet-50,
+   224 px, batch 64, bf16, 1001 classes), with no TensorFlow.  (a) Seeded
+   ILSVRC-size JPEG shards (``data.bench_data``: train 1024 in 8 shards,
+   validation 256 in 2); the C record reader (``data/csrc/ddlt_records.c``)
+   must build with the host compiler; the C JPEG decoder needs libjpeg and
+   may not build, and then PIL decodes; both are printed.  (b) Each
+   pipeline alone on the host (the tf recipe, native, raw; 8 batches of
+   64): img/s beside the host's cores.  (c) ``train.benchmark``'s
+   ``run_data_benchmark`` over the native and raw pipelines (prefetched
+   to the card; raw crosses as uint8 and ``uint8_normalizer`` runs on the
+   card) against ``run_benchmark`` on one resident batch of the same step,
+   3 windows of 5: fed img/s, resident img/s, their ratio; the raw batch
+   normalized on the card is within 0.5 + 1e-4 of the native float batch
+   of the same records.  (d) ``python -m
+   distributeddeeplearning_tpu_torch.workloads.imagenet
+   --data_format=tfrecords`` (the tf recipe), 4 steps and eval over the 256
+   validation images, in a fresh process: finite loss, eval metrics, no
+   import of jax or tensorflow in its ``-X importtime`` log.  (e) A raw
+   fit stopped at step 2 (checkpoint) and resumed to step 4 draws the
+   unstopped stream's batches 2 and 3.  No kernel of the port runs here
+   (cuDNN's convolutions), so the kernels line gains no row.
 
 K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
 split pass with one block per (span of 64 absolute positions, head, slot)
@@ -456,6 +481,8 @@ beside it, the script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import hashlib
+import itertools
 import json
 import math
 import os
@@ -3744,10 +3771,11 @@ def _vit_group(key: str) -> str:
 
 
 def phase_vit(torch, np, card):
-    """ViT-B/16 through ``workloads.benchmark.main(model="vit-b16")`` at the
-    reference defaults (bf16, batch 64, 224 px, 1001 classes; 10 warmup
-    batches, 10 windows of 10), first as ``python -m`` in a fresh process,
-    then here with each step bracketed by CUDA events: img/s, step p50,
+    """ViT-B/16 through ``workloads.benchmark.main(model="vit-b16")`` (bf16,
+    batch 64, 224 px, 1001 classes), first as ``python -m`` in a fresh
+    process at the reference defaults (10 warmup batches, 10 windows of
+    10), then here shortened (SHORT: 3 warmup batches, 3 windows of 5)
+    with each step bracketed by CUDA events: img/s, step p50,
     peak memory and mfu from ``forward_macs`` (the attention products
     counted), one profiled step's split (GEMMs, attention, LayerNorm/GELU,
     elementwise, SGD); then a shortened vit-l16 run (3 warmup batches, 3
@@ -3755,13 +3783,16 @@ def phase_vit(torch, np, card):
     from distributeddeeplearning_tpu_torch.models import get_model
 
     fresh = _fresh_process_benchmark(card, model="vit-b16", tag="vit")
-    result, step_ms, (step, state, batch), peak_gb = _image_bench(torch, np,
-                                                                 model="vit-b16")
+    result, step_ms, (step, state, batch), peak_gb = _image_bench(
+        torch, np, model="vit-b16", **SHORT)
+    n = SHORT["num_warmup_batches"] + (SHORT["num_iters"] + 2) * SHORT[
+        "num_batches_per_iter"]
     if not (result.model == "vit-b16" and result.batch_size_per_chip == 64
-            and len(step_ms) == 10 + 12 * 10):
-        raise AssertionError(f"[vit] not the reference defaults: {result}, "
-                             f"{len(step_ms)} steps")
-    p50 = _image_line(np, "vit", result, step_ms, 10, peak_gb, card, "bfloat16", 224)
+            and len(step_ms) == n):
+        raise AssertionError(f"[vit] not the reference model and batch, or not "
+                             f"SHORT: {result}, {len(step_ms)} steps")
+    p50 = _image_line(np, "vit", result, step_ms, SHORT["num_warmup_batches"],
+                      peak_gb, card, "bfloat16", 224)
     macs = get_model("vit-b16").forward_macs(224)
     flops = 3 * 2 * macs * 64
     log(f"[vit] FLOP reckoning (forward_macs, attention products counted): "
@@ -4103,17 +4134,35 @@ LM_STEPS, LM_PREEMPT = 6, 3
 WATCHDOG = dict(deadline_s=2, stall_at=3, stall_s=6)
 
 
-def _lm_workload(env_faults, argv, timeout=600):
-    """``python -m ...workloads.transformer argv`` in a fresh process with
-    ``DDLT_FAULTS=env_faults``: (exit code, stdout, stderr, seconds)."""
+def _lm_workload_start(env_faults, argv):
+    """Start ``python -m ...workloads.transformer argv`` in a fresh process
+    with ``DDLT_FAULTS=env_faults``; :func:`_lm_workload_wait` collects it."""
     env = dict(os.environ, DDLT_FAULTS=env_faults)
     root = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "distributeddeeplearning_tpu_torch.workloads.transformer",
-         *argv], capture_output=True, text=True, cwd=root, env=env, timeout=timeout)
-    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
+         *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
+        env=env)
+    return proc, time.perf_counter()
+
+
+def _lm_workload_wait(started, timeout=600):
+    """(exit code, stdout, stderr, seconds) of a started LM process; killed
+    at ``timeout``."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def _lm_workload(env_faults, argv, timeout=600):
+    """``python -m ...workloads.transformer argv`` in a fresh process with
+    ``DDLT_FAULTS=env_faults``: (exit code, stdout, stderr, seconds)."""
+    return _lm_workload_wait(_lm_workload_start(env_faults, argv), timeout)
 
 
 def phase_resilience(torch, np, fa, card):
@@ -4145,8 +4194,9 @@ def phase_resilience(torch, np, fa, card):
     subprocesses at TRAIN's geometry (flash, bf16, LM_STEPS steps)
     preempted at LM_PREEMPT: exit 75 and a generation at LM_PREEMPT, then
     rerun without faults: resumes from it and exits 0; at its defaults
-    with ``--step_deadline_s`` and an injected data stall: exit 70 with
-    the stacks on stderr.  Returns the clean fit's launches."""
+    with ``--step_deadline_s`` and an injected data stall (a process run
+    beside those two): exit 70 with the stacks on stderr.  Returns the
+    clean fit's launches."""
     import json as _json
     import shutil
     import tempfile
@@ -4400,7 +4450,12 @@ def phase_resilience(torch, np, fa, card):
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
 
-    # (7) exit codes of the LM workload in subprocesses
+    # (7) exit codes of the LM workload in subprocesses; the watchdog's
+    # runs beside the preempted one and its rerun
+    watchdog = _lm_workload_start(
+        f"data_stall@{WATCHDOG['stall_at']}:secs={WATCHDOG['stall_s']}",
+        [f"--step_deadline_s={WATCHDOG['deadline_s']}", "--epochs=1",
+         "--steps_per_epoch=8"])
     lm_dir = tempfile.mkdtemp(prefix="lm-preempt-")
     try:
         argv = [f"--{k}={v}" for k, v in TRAIN.items()] + [
@@ -4425,10 +4480,7 @@ def phase_resilience(torch, np, fa, card):
             raise AssertionError(f"[resilience] resumed LM: exit {rc}, {gens}\n{err[-3000:]}")
     finally:
         shutil.rmtree(lm_dir, ignore_errors=True)
-    rc, _, err, secs = _lm_workload(
-        f"data_stall@{WATCHDOG['stall_at']}:secs={WATCHDOG['stall_s']}",
-        [f"--step_deadline_s={WATCHDOG['deadline_s']}", "--epochs=1",
-         "--steps_per_epoch=8"], timeout=300)
+        rc, _, err, secs = _lm_workload_wait(watchdog, timeout=300)
     stacks = "ddlt watchdog: no step progress" in err and "File " in err
     log(f"[resilience] LM workload at its defaults with --step_deadline_s "
         f"{WATCHDOG['deadline_s']} and DDLT_FAULTS=data_stall@{WATCHDOG['stall_at']}:"
@@ -6614,6 +6666,289 @@ def _zero_counters(fa, fd):
     fd.launches_multi_query = fd.launches_verify = 0
 
 
+IMAGENET = dict(model="resnet50", batch=64, image_size=224, num_classes=1001,
+                train_images=1024, train_shards=8, val_images=256, val_shards=2,
+                host_seconds=3.0, host_batches=8,
+                fed=dict(num_warmup_batches=8, num_iters=5, num_batches_per_iter=10))
+U8_TOL = 0.5 + 1e-4  # uint8 rounding of the decoder's float pixels
+
+
+def _host_rate(make):
+    """``make()``'s batches on the host alone: one warm-up batch (the
+    pool's start-up) untimed, then at least ``host_batches`` batches and
+    ``host_seconds`` timed.  Returns img/s, the timed seconds and batches,
+    the warm-up's seconds and the batches' shapes."""
+    t0 = time.perf_counter()
+    it = make()
+    batch = next(it)
+    warm = time.perf_counter() - t0
+    shapes = {(batch["image"].shape, str(batch["image"].dtype))}
+    images = batches = 0
+    dt = 0.0
+    t1 = time.perf_counter()
+    while batches < IMAGENET["host_batches"] or dt < IMAGENET["host_seconds"]:
+        batch = next(it)
+        shapes.add((batch["image"].shape, str(batch["image"].dtype)))
+        if len(batch["label"]) != IMAGENET["batch"]:
+            raise AssertionError(f"[imagenet] a host batch of {len(batch['label'])}")
+        images += len(batch["label"])
+        batches += 1
+        dt = time.perf_counter() - t1
+    it.close()
+    return dict(img_s=images / dt, s=dt, batches=batches, warmup_s=warm,
+                shapes=sorted(map(str, shapes)))
+
+
+def phase_imagenet(torch, np, card):
+    """The ImageNet data plane and the ``imagenet`` workload at the
+    reference's flagship settings (ResNet-50, 224 px, batch 64, bf16, 1001
+    classes), no TensorFlow anywhere.  (a) Seeded ILSVRC-size JPEG shards
+    from ``data.bench_data`` in a temporary directory: train 1024 images in
+    8 shards, validation 256 in 2; the record reader's C library
+    (``ddlt_records.c``) must build with the host compiler (it fails the
+    phase if it does not); the JPEG decoder's (``ddlt_image.c``, libjpeg)
+    may not, and then PIL decodes: the built libraries and the decoder
+    that ran are printed.  (b) Host rates, each pipeline alone with no
+    device: the tf recipe (``data.tfrecords``), the native pipeline and the
+    raw cache (built first, its build timed), batches of 64 timed after
+    one warm-up batch for at least 3 s and 8 batches, img/s beside
+    ``os.cpu_count()``.  (c) Fed against resident: one bf16 ResNet-50
+    train step through ``train.benchmark.run_benchmark`` on one resident
+    batch and through ``run_data_benchmark`` over the native and raw
+    pipelines staged by ``prefetch_to_device`` (raw: uint8 across PCIe,
+    ``uint8_normalizer`` on the card as the step's ``input_transform``),
+    5 windows of 10 after 8 warmup batches each: fed img/s, resident
+    img/s, their ratio; and on the card ``uint8_normalizer`` of the raw
+    validation batch is within 0.5 + 1e-4 of the native float batch of the
+    same records.  (d) The workload as users run it: ``python -m
+    distributeddeeplearning_tpu_torch.workloads.imagenet
+    --data_format=tfrecords`` with the default ``--input_pipeline=tf``, one
+    epoch of 4 steps and validation over the 256 images, in a fresh
+    process under ``-X importtime``: the loss is finite, the eval metrics
+    exist, and no import of jax or tensorflow is in its import log.  (e)
+    Replay-free resume: ``imagenet.main(input_pipeline="raw")`` for 2
+    steps with a checkpoint, then resumed to 4: the batches the resumed
+    run drew from step 2 on equal an unstopped stream's batches 2 and 3
+    (labels and pixels).  No kernel of the port is on this path (cuDNN's
+    convolutions)."""
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch.data import (
+        _native,
+        _native_build,
+        _native_image,
+        native_pipeline,
+        raw_cache,
+        tfrecords,
+    )
+    from distributeddeeplearning_tpu_torch.data.bench_data import (
+        generate_bench_shards,
+    )
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.train.benchmark import (
+        run_benchmark,
+        run_data_benchmark,
+    )
+    from distributeddeeplearning_tpu_torch.train.schedule import goyal_lr_schedule
+    from distributeddeeplearning_tpu_torch.train.state import (
+        create_train_state,
+        sgd_momentum,
+    )
+    from distributeddeeplearning_tpu_torch.train.step import build_train_step
+    from distributeddeeplearning_tpu_torch.utils.prefetch import prefetch_to_device
+    from distributeddeeplearning_tpu_torch.workloads import imagenet
+
+    cfg = IMAGENET
+    b, size = cfg["batch"], cfg["image_size"]
+    out = {"cpu_count": os.cpu_count()}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "shards")
+        # (a) the shards and the C libraries
+        t0 = time.perf_counter()
+        train_m = generate_bench_shards(data, num_images=cfg["train_images"],
+                                        num_shards=cfg["train_shards"], seed=0)
+        val_m = generate_bench_shards(data, num_images=cfg["val_images"],
+                                      num_shards=cfg["val_shards"], seed=1,
+                                      split="validation")
+        gen_s = time.perf_counter() - t0
+        records_c = _native.native_available()
+        image_c = _native_image.native_available()
+        log(f"[imagenet] (a) shards: train {cfg['train_images']} in "
+            f"{cfg['train_shards']}, validation {cfg['val_images']} in "
+            f"{cfg['val_shards']}, mean JPEG {train_m['mean_jpeg_bytes']} / "
+            f"{val_m['mean_jpeg_bytes']} bytes, written in {gen_s:.1f} s")
+        log(f"[imagenet] (a) C libraries: {json.dumps(_native_build.build_log)}")
+        log(f"[imagenet] (a) record reader: {'C' if records_c else 'Python'}; "
+            f"JPEG decoder of the native pipeline: "
+            f"{'C (libjpeg)' if image_c else 'PIL (ddlt_image.c did not build)'}")
+        if not records_c:
+            raise AssertionError("[imagenet] the C record reader did not build: "
+                                 f"{_native_build.build_log.get('ddlt_records')}")
+        out.update(record_reader="C" if records_c else "Python",
+                   decoder="C" if image_c else "PIL")
+
+        # (b) host rates, no device
+        native_pipeline.decoded.update(c=0, pil=0)
+        rates = {"tf": _host_rate(lambda: tfrecords.input_fn(
+            data, True, b, image_size=size, seed=0))}
+        rates["native"] = _host_rate(lambda: native_pipeline.native_input_fn(
+            data, True, b, image_size=size, seed=0))
+        t0 = time.perf_counter()
+        cache = raw_cache.cache_path_for(data, True, size)
+        raw_cache.build_raw_cache(data, cache, True, image_size=size)
+        build_s = time.perf_counter() - t0
+        rates["raw"] = _host_rate(lambda: raw_cache.raw_cache_input_fn(
+            cache, True, b, seed=0))
+        for name, r in rates.items():
+            log(f"[imagenet] (b) host {name}: {r['img_s']:.1f} img/s "
+                f"({r['batches']} batches of {b} at {size} px in {r['s']:.3f} s "
+                f"after a {r['warmup_s']:.3f} s warm-up batch; {r['shapes']}) on "
+                f"{os.cpu_count()} host cores")
+        log(f"[imagenet] (b) raw cache build: {cfg['train_images']} images in "
+            f"{build_s:.2f} s ({cfg['train_images'] / build_s:.1f} img/s, "
+            f"{cfg['train_images'] * size * size * 3 / 1e6:.1f} MB); images "
+            f"decoded by C / PIL so far: {native_pipeline.decoded}")
+        out["host_img_s"] = {k: v["img_s"] for k, v in rates.items()}
+
+        # (c) fed against resident, one step
+        dev = torch.device("cuda")
+        net = get_model(cfg["model"], num_classes=cfg["num_classes"],
+                        dtype=torch.bfloat16)
+        sched = goyal_lr_schedule(0.0125, 1, steps_per_epoch=5004)
+        state = create_train_state(torch.Generator().manual_seed(0), net,
+                                   (b, size, size, 3), sgd_momentum(sched),
+                                   device=dev)
+        step = build_train_step(state, schedule=sched, compute_dtype=torch.bfloat16)
+        step_u8 = build_train_step(state, schedule=sched, compute_dtype=torch.bfloat16,
+                                   input_transform=raw_cache.uint8_normalizer())
+        resident = next(native_pipeline.native_input_fn(data, True, b, image_size=size,
+                                                        seed=1))
+        resident = {k: torch.as_tensor(v, device=dev) for k, v in resident.items()}
+        fed = cfg["fed"]
+        kw = dict(model_name=cfg["model"], batch_size_per_chip=b, num_devices=1, **fed)
+        res = run_benchmark(step, state, resident, **kw)
+        fed_rates = {}
+        for name, fn, make in (
+                ("native", step, lambda: native_pipeline.native_input_fn(
+                    data, True, b, image_size=size, seed=2)),
+                ("raw", step_u8, lambda: raw_cache.raw_cache_input_fn(
+                    cache, True, b, seed=2))):
+            staged = prefetch_to_device(make(), dev)
+            try:
+                fed_rates[name] = run_data_benchmark(fn, state, staged, **kw)
+            finally:
+                staged.close()
+        synth = res.img_sec_per_chip_mean
+        log(f"[imagenet] (c) resident batch: {synth:.1f} +-"
+            f"{res.img_sec_per_chip_ci95:.1f} img/s ({cfg['model']} bf16 B={b} "
+            f"{size} px, {fed['num_iters']} windows of "
+            f"{fed['num_batches_per_iter']}) on {card}")
+        for name, r in fed_rates.items():
+            log(f"[imagenet] (c) fed {name}: {r.img_sec_per_chip_mean:.1f} +-"
+                f"{r.img_sec_per_chip_ci95:.1f} img/s, {r.img_sec_per_chip_mean / synth:.3f}"
+                f" of resident; host alone {out['host_img_s'][name]:.1f} img/s")
+        out["resident_img_s"] = synth
+        out["fed_img_s"] = {k: v.img_sec_per_chip_mean for k, v in fed_rates.items()}
+        del state, step, step_u8, resident
+        torch.cuda.empty_cache()
+        val_cache = raw_cache.cache_path_for(data, False, size)
+        raw_cache.build_raw_cache(data, val_cache, False, image_size=size)
+        u8 = next(raw_cache.raw_cache_input_fn(val_cache, False, b))
+        flt = next(native_pipeline.native_input_fn(data, False, b, image_size=size))
+        if not np.array_equal(u8["label"], flt["label"]):
+            raise AssertionError("[imagenet] raw and native eval order differ")
+        on_card = raw_cache.uint8_normalizer(device=dev)(u8["image"])
+        err = (on_card - torch.as_tensor(flt["image"], device=dev)).abs().max().item()
+        log(f"[imagenet] (c) uint8_normalizer on the card vs the native float "
+            f"batch of the same {b} records: max |diff| {err:.6f} (limit {U8_TOL})")
+        if not (on_card.device.type == "cuda" and err <= U8_TOL):
+            raise AssertionError(f"[imagenet] raw vs native {err} > {U8_TOL}")
+
+        # (d) the workload through python -m, tf recipe, 4 steps + eval
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m",
+             "distributeddeeplearning_tpu_torch.workloads.imagenet",
+             "--data_format=tfrecords", f"--training_data_path={data}",
+             f"--validation_data_path={data}", "--epochs=1", "--steps_per_epoch=4",
+             f"--train_images={cfg['train_images']}", f"--metrics_path={metrics}"],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[imagenet] python -m ...workloads.imagenet failed: "
+                                 f"{proc.stderr[-3000:]}")
+        imported = {ln.split("|")[-1].strip().split(".")[0]
+                    for ln in proc.stderr.splitlines() if ln.startswith("import time:")}
+        with open(metrics) as f:
+            row = json.loads(f.read().splitlines()[-1])
+        log(f"[imagenet] (d) python -m ...workloads.imagenet --data_format="
+            f"tfrecords (input_pipeline tf, resnet50 bf16 B={b} {size} px, 4 steps, "
+            f"eval over {cfg['val_images']}): {wall:.1f} s; row {row}; modules "
+            f"imported: {len(imported)} top-level, jax {'jax' in imported}, "
+            f"tensorflow {'tensorflow' in imported}")
+        if "jax" in imported or "tensorflow" in imported or not imported:
+            raise AssertionError(f"[imagenet] the workload imported jax or "
+                                 f"tensorflow (or logged no imports): {sorted(imported)[:40]}")
+        if not (math.isfinite(row["train_loss"]) and "val_top1" in row
+                and math.isfinite(row["val_loss"])):
+            raise AssertionError(f"[imagenet] bad metrics row {row}")
+        out["workload"] = {"wall_s": wall, "train_loss": row["train_loss"],
+                           "val_top1": row["val_top1"]}
+
+        # (e) replay-free resume over the raw cache
+        drawn = {}
+        original = imagenet._batches
+
+        def recording(*args, **kw2):
+            it = original(*args, **kw2)
+            if not args[2]:  # eval
+                return it
+            key = kw2.get("start_batch", 0)
+            seen = drawn.setdefault(key, [])
+
+            def gen():
+                for batch in it:
+                    seen.append((batch["label"].copy(),
+                                 hashlib.sha256(batch["image"].tobytes()).digest()))
+                    yield batch
+            return gen()
+
+        ckpt = os.path.join(tmp, "ckpt")
+        run = dict(model=cfg["model"], data_format="tfrecords", input_pipeline="raw",
+                   training_data_path=data, steps_per_epoch=2,
+                   train_images=cfg["train_images"])
+        imagenet._batches = recording
+        t0 = time.perf_counter()
+        try:
+            first, _ = imagenet.main(epochs=1, save_filepath=ckpt, **run)
+            resumed, fit = imagenet.main(epochs=2, save_filepath=ckpt, **run)
+        finally:
+            imagenet._batches = original
+        resume_s = time.perf_counter() - t0
+        stream = list(itertools.islice(original(
+            "tfrecords", data, True, b, size, cfg["num_classes"], 42,
+            input_pipeline="raw"), 4))
+        want = [(x["label"], hashlib.sha256(x["image"].tobytes()).digest())
+                for x in stream[2:4]]
+        got = drawn.get(2, [])[:2]
+        same = len(got) == 2 and all(np.array_equal(g[0], w[0]) and g[1] == w[1]
+                                     for g, w in zip(got, want))
+        log(f"[imagenet] (e) raw fit stopped at step {first.step}, resumed to "
+            f"{resumed.step} (epochs run {fit.epochs_run}, loss "
+            f"{fit.final_train_metrics.get('loss')}): factory calls from steps "
+            f"{sorted(drawn)}; batches 2-3 == the unstopped stream's: {same}; "
+            f"{resume_s:.1f} s")
+        if not (first.step == 2 and resumed.step == 4 and 0 in drawn and same
+                and math.isfinite(fit.final_train_metrics["loss"])):
+            raise AssertionError("[imagenet] the resumed raw fit did not continue "
+                                 "the unstopped stream")
+        del first, resumed
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -6693,6 +7028,7 @@ def main() -> int:
         tp_ranks, k4d, flash_tp = timed(phase_tensor_parallel, torch, np, F, fa, fd, card)
         timed(phase_serve_robust, torch, np, fa, fd, card)
         timed(phase_fleet, torch, np, card)
+        timed(phase_imagenet, torch, np, card)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1

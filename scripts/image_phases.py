@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run only ``chip_smoke.py``'s image, ViT, MoE, parallelism, robust-serving and fleet phases
-on one NVIDIA GPU.
+"""Run only ``chip_smoke.py``'s image, ViT, MoE, parallelism, robust-serving, fleet and
+ImageNet-data phases on one NVIDIA GPU.
 
     python3 scripts/image_phases.py                      # all of them
     python3 scripts/image_phases.py phase_resnet         # or any of them
@@ -22,7 +22,10 @@ sharing the card, K4(d) and K1-K3 over a rank's heads) and
 ``phase_serve_robust`` (overload with priority classes, the host page
 tier, live reload, the serve faults, int8-KV fidelity and the ledger's
 frames at the serving geometry) and ``phase_fleet`` (the supervised serving
-fleet: replica workers, failover, reload, drain, a dense replica), each as
+fleet: replica workers, failover, reload, drain, a dense replica) and
+``phase_imagenet`` (the ImageNet readers' host rates, fed against
+resident img/s, the workload through ``python -m`` and a replay-free
+raw-cache resume), each as
 ``chip_smoke.py`` runs it, after the card's ``nvidia-smi`` name and power
 limit.  Exits
 nonzero if a phase fails.  Run from the repository's root; needs a CUDA
@@ -39,7 +42,7 @@ import traceback
 PHASES = ("phase_resnet", "phase_resnet_parity", "phase_image_short", "phase_vit",
           "phase_vit_flash", "phase_resume", "phase_resilience", "phase_moe_bert",
           "phase_data_parallel", "phase_tensor_parallel", "phase_serve_robust",
-          "phase_fleet")
+          "phase_fleet", "phase_imagenet")
 
 
 def main(argv) -> int:

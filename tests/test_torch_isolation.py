@@ -1,6 +1,6 @@
-"""The port stands alone: it imports neither jax nor anything of the JAX
-package, runs on the card unless asked for the CPU, and never counts a
-plain-version call as a kernel launch.
+"""The port stands alone: it imports neither jax, nor tensorflow, nor
+anything of the JAX package, runs on the card unless asked for the CPU,
+and never counts a plain-version call as a kernel launch.
 
 Import checks run in a fresh interpreter, because this test process has
 jax loaded (``tests/conftest.py``).  Module names are compared by whole
@@ -36,7 +36,7 @@ from distributeddeeplearning_tpu_torch.spec import SpeculativeDecoder
 torch.set_num_threads(2)  # T5: the suite runs six workers on eight cores
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "distributeddeeplearning_tpu")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "tensorflow", "distributeddeeplearning_tpu")
 
 
 def _port_modules():
@@ -48,7 +48,7 @@ def _port_modules():
 
 def test_every_port_module_and_the_smoke_script_import_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 27, modules
+    assert len(modules) >= 42, modules
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -76,6 +76,12 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
                  "workloads._runner", "train.checkpoint", "train.resilience",
                  "utils.faults", "utils.prefetch", "utils.retry",
                  "utils.throughput", "obs.goodput", "obs.trace", "obs.recorder",
+                 "data._native_build", "data._native", "data._native_image",
+                 "data.proto", "data.preprocessing", "data.tfrecords",
+                 "data.images", "data.native_pipeline", "data.raw_cache",
+                 "data.class_index", "data.val_maps", "data.prepare_imagenet",
+                 "data.convert_tfrecords", "data.bench_data",
+                 "workloads.imagenet",
                  "obs.registry", "parallel", "parallel.mesh",
                  "parallel.distributed", "parallel.collectives",
                  "parallel.sharding", "parallel.comms"):
@@ -163,6 +169,11 @@ def test_image_entry_points_need_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         benchmark.main(model="resnet18", batch_size=2, image_size=32, num_classes=3,
                        num_iters=1, num_batches_per_iter=1, num_warmup_batches=0)
+    from distributeddeeplearning_tpu_torch.workloads import imagenet
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imagenet.main(model="resnet18", batch_size=2, image_size=32, num_classes=3,
+                      epochs=1, steps_per_epoch=1)
     v = model.init(input_shape=(1, 32, 32, 3), device="cpu")
     assert v["params"]["head"]["kernel"].device.type == "cpu"
 
