@@ -267,17 +267,18 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    printed; the three kernels are then held and timed at that per-rank
    shape (B=4, H=12, S=2048, D=64, causal, bf16); (c) ``workloads.benchmark.main(distributed=True)``, the
    reference's flagship (ResNet-50, batch 64 a rank, 224 px, bf16), over
-   2 gloo ranks sharing the card with a short geometry, img/s per rank and
-   in total ("two ranks share one card: not a scaling figure").  Each part
-   prints its wall time, the wire bytes of ``wire_bytes()`` and the peak
-   memory of each rank.
+   the same 2 gloo ranks after (b) (one spawn for both) with a short
+   geometry, img/s per rank and in total ("two ranks share one card: not
+   a scaling figure").  It prints the wall time of (a) and of (b) with
+   (c), the wire bytes of ``wire_bytes()`` and the peak memory of each
+   rank.
 27. ``phase_tensor_parallel`` (after 26): tensor-parallel serving.  The
    serve model (SERVE's full width, seed 0, the tied 4x head) through
    ``tensor_parallel_engine(tp=2)`` over 2 gloo ranks sharing the card
    (spawned, ``cuda:0`` passed explicitly, their own time limit), each
    rank holding its slice of the weights and its 6 of the 12 heads of the
    cache, in five runs of 16 new tokens a request (``TP_NEW_TOKENS``,
-   half the serving cells') at 12 layers in (a) and the first 6 layers of
+   half the serving cells') at 12 layers in (a) and the first 3 layers of
    the same weights in (b)-(e) (``tp_layers``; both the script's depth
    cut) held against the same run on the one-process
    engine (tp=1, first, in this process): (a) dense f32, the dense
@@ -385,7 +386,7 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    add each worker's launches as ``fleet <run> replicaK`` (a restart:
    ``fleet <run> replicaK restartN``).
 
-30. ``phase_imagenet`` (last): the ImageNet data plane and the
+30. ``phase_imagenet``: the ImageNet data plane and the
    ``imagenet`` workload at the reference's flagship settings (ResNet-50,
    224 px, batch 64, bf16, 1001 classes), with no TensorFlow.  (a) Seeded
    ILSVRC-size JPEG shards (``data.bench_data``: train 1024 in 8 shards,
@@ -407,6 +408,33 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    fit stopped at step 2 (checkpoint) and resumed to step 4 draws the
    unstopped stream's batches 2 and 3.  No kernel of the port runs here
    (cuDNN's convolutions), so the kernels line gains no row.
+
+31. ``phase_model_parallel_train`` (last): tensor-parallel and FSDP
+   training of the LM over four gloo ranks sharing the card (spawned,
+   ``cuda:0`` each, one time limit).  (a) ``workloads.transformer.main(
+   tensor=2, fsdp=2, attention="flash", compute_dtype="bfloat16")`` at
+   TRAIN's full width (12 layers, d 768, 12 heads, ff 3072, vocab 32768,
+   seq 2048), 2 rows a data shard, 3 steps and one eval pass of 2 batches,
+   checkpointed, then resumed from that generation for one more step.
+   Checks on every rank: the losses finite and bitwise rank 0's; the
+   replicated leaves (``pos``, ``ln1``, ``ln2``) bitwise rank 0's after
+   every step; bf16 K1, K2 and K3 launched exactly 12 times a step each
+   (K1 also 12 an eval batch), every launch at B=2 H=6 (a rank's rows and
+   heads), no plain version and no f32 launch; each step's collectives
+   exactly ``MP_STEP_COLLECTIVES``, written down before the first run (4 L
+   + 4 all-reduces, 2 all-gathers, 2 reduce-scatters); the parameter and
+   optimizer bytes the sum of the rank's shards of TRAIN's global shapes;
+   the restored parameters and moments bitwise the saved ones.  It prints
+   the step p50 a rank (CUDA events), the host seconds inside collectives,
+   what gloo staged and the peak memory a rank, beside a one-process run
+   of the same global batch (B=4) in this process.  (b) Parity: the LM at
+   full width cut to 2 layers, seq 512, f32, flash, through
+   ``build_train_step`` with the LM's rules on ``tensor=2 x fsdp=2``,
+   ``fsdp=4`` and ``data=2 x tensor=2``, 2 steps over the same 4-row
+   global batches, AdamW's clip at half the first step's unclipped norm,
+   each held to one process on the card (the tolerances and their reasons
+   in the phase's docstring).  Then the bf16 K1-K3 held and timed at a
+   rank's shape (B=2, H=6, S=2048, D=64, causal).
 
 K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
 split pass with one block per (span of 64 absolute positions, head, slot)
@@ -465,8 +493,12 @@ rank's shape (6 heads, f32 pages; the bf16 and int8 times beside), and
 its launches each rank's on the five tensor-parallel runs.  The f32 and
 bf16 K1, K2 and K3 rows carry ``tensor_parallel``: phase 27's entry over a
 rank's heads, with each rank's launches on the tensor-parallel runs that
-run the kernel (K1 on the dense runs' prefills; K2 and K3 on none: the
-port trains data-parallel only).
+run the kernel (K1 on the dense runs' prefills; K2 and K3 on none: serving
+runs no backward).  The bf16 K1, K2 and K3 rows also carry
+``model_parallel``: phase 31's entry at a rank's training shape (B=2, H=6
+of 12, S 2048), with each rank's launches in (a) and its resume
+(``mp_train_rank{r}``, ``mp_resume_rank{r}``); the f32 rows'
+``launches_by_path`` add (b)'s parity runs (``mp_parity_<mesh>_rank{r}``).
 
 Each row of the kernels line carries ``head_dims``: the phase-14 entry
 of the kernel at head dims 8, 16 and 32, with the launches of the phase-15
@@ -4687,11 +4719,12 @@ def _param_gap(torch, params, ref):
 
 
 class _LaunchShapes:
-    """Records the batch size of every K1, K2 and K3 launch and counts the
-    plain versions' calls, by wrapping the flash module's launchers."""
+    """Records the batch size (``batches``) and the batch size and heads
+    (``shapes``) of every K1, K2 and K3 launch and counts the plain
+    versions' calls, by wrapping the flash module's launchers."""
 
     def __init__(self, fa):
-        self.fa, self.batches, self.plain = fa, [], 0
+        self.fa, self.batches, self.shapes, self.plain = fa, [], [], 0
         self._orig = (fa._launch, fa._bwd_launch, fa._dense_attention,
                       fa._dense_attention_bwd)
 
@@ -4700,10 +4733,12 @@ class _LaunchShapes:
 
         def launch_w(q, *a, **k):
             self.batches.append(("fwd", q.shape[0]))
+            self.shapes.append(("fwd", q.shape[0], q.shape[2]))
             return launch(q, *a, **k)
 
         def bwd_w(kind, q, *a, **k):
             self.batches.append((kind, q.shape[0]))
+            self.shapes.append((kind, q.shape[0], q.shape[2]))
             return bwd(kind, q, *a, **k)
 
         def plain(fn):
@@ -4766,6 +4801,13 @@ def _detached_copy(torch, tree, device=None):
 
 DP_WIRES = (("f32-wire", {}),
             ("bf16-wire-wus", {"comm_dtype": "bf16", "weight_update_sharding": True}))
+
+
+def _dp_lm_bench_rank(torch, np, rank, world, ref_path):
+    """Rank ``rank`` of phase 26 (b), then of (c), in one spawn."""
+    lm = _dp_lm_rank(torch, np, rank, world, ref_path)
+    torch.cuda.empty_cache()
+    return {"lm": lm, "bench": _dp_bench_rank(torch, np, rank, world)}
 
 
 def _dp_bench_rank(torch, np, rank, world):
@@ -4978,7 +5020,9 @@ def phase_data_parallel(torch, np, F, fa, card):
     with tempfile.TemporaryDirectory() as tmp:
         ref_path = os.path.join(tmp, "ref_params.pt")
         torch.save(ref_params, ref_path)
-        ranks = run_ranks("_dp_lm_rank", 2, ref_path)
+        # (c)'s benchmark runs on the same two ranks after (b): one spawn
+        both = run_ranks("_dp_lm_bench_rank", 2, ref_path)
+    ranks, bench = [b["lm"] for b in both], [b["bench"] for b in both]
     for rank, out in enumerate(ranks):
         for name, entry in out.items():
             want = {c: 0 for c in FA_COUNTERS}
@@ -5025,11 +5069,8 @@ def phase_data_parallel(torch, np, F, fa, card):
         f"rank launched them, 12 each a step): "
         f"{ {k: round(e['ms'], 4) for k, e in per_rank.items()} } ms, bounds "
         f"{ {k: round(e['bound_ms'], 4) for k, e in per_rank.items()} } ms on {card}")
-    log(f"[time] phase_data_parallel (b): {time.perf_counter() - t0:.1f} s")
 
     # (c) the flagship benchmark over 2 gloo ranks on the one card ------
-    t0 = time.perf_counter()
-    bench = run_ranks("_dp_bench_rank", 2)
     for rank, out in enumerate(bench):
         if out["num_devices"] != 2 or not out["per_rank"] > 0:
             raise AssertionError(f"[dp-bench] rank {rank}: {out}")
@@ -5040,7 +5081,7 @@ def phase_data_parallel(torch, np, F, fa, card):
             f"{[round(x, 3) for x in out['iter_s']]} s), peak memory "
             f"{out['peak_gb']:.2f} GB on {card}")
     log("[dp-bench] two ranks share one card: not a scaling figure")
-    log(f"[time] phase_data_parallel (c): {time.perf_counter() - t0:.1f} s")
+    log(f"[time] phase_data_parallel (b) and (c): {time.perf_counter() - t0:.1f} s")
     return launches, per_rank
 
 
@@ -5064,9 +5105,9 @@ TP_NEW_TOKENS = NEW_TOKENS // 2
 
 def tp_layers(name: str) -> int:
     """A TP run's depth: (a) at the serving cells' 12 layers, (b)-(e) at
-    the first 6 layers of the same weights (the script's depth cut: a
+    the first 3 layers of the same weights (the script's depth cut: a
     forward pays 2 L + 1 gloo all-reduces a rank)."""
-    return SERVE["num_layers"] // (1 if name == "dense_f32" else 2)
+    return SERVE["num_layers"] // (1 if name == "dense_f32" else 4)
 
 
 #: prefill shape of K1-K3 over the local heads: one 512-token prompt
@@ -6949,6 +6990,469 @@ def phase_imagenet(torch, np, card):
     return out
 
 
+# ---- tensor-parallel and FSDP training (phase 31) ---------------------------
+
+MP_RANKS = 4
+MP_MESHES = (("tensor2-fsdp2", {"tensor": 2, "fsdp": 2}), ("fsdp4", {"fsdp": 4}),
+             ("data2-tensor2", {"data": 2, "tensor": 2}))
+MP_WIDTH = {k: TRAIN[k] for k in ("num_layers", "d_model", "num_heads", "d_ff",
+                                  "vocab_size", "seq_len")}
+MP_BATCH = 2  # rows a data shard: (a)'s global batch is 2 x 2 data shards
+MP_STEPS = 3
+MP_EVAL_BATCHES = 2  # a rank's eval pass: min(train_examples, 4 x global) / 2
+# (b): f32 at full width, cut to 2 layers at seq 512; 4 global rows, 2 steps
+MP_PARITY = dict(num_layers=2, seq_len=512, rows=4, steps=2)
+MP_LOSS_RTOL = 1e-5
+MP_GRAD_TOL = 1e-5  # of each leaf's largest |g|
+MP_NORM_RTOL = 1e-6
+MP_REPLICATED = ("pos", "blocks/ln1", "blocks/ln2")
+# the collectives of one train step on a rank of tensor=2 x fsdp=2 (data 1),
+# written down before the first run on the card: 2 all-reduces a layer
+# forward (Megatron's g after proj and w_out) and 2 backward (f's gradient
+# at the qkv and w_in inputs), one of the replicated and tensor-split
+# gradients over the data axes (the fsdp group here), one of the metrics,
+# two of the clip norm (the fsdp-split class over fsdp, the tensor-split
+# class over tensor); the embedding and the head gathered over fsdp
+# forward and their gradients reduce-scattered backward
+MP_STEP_COLLECTIVES = {"all_reduce": 4 * TRAIN["num_layers"] + 4,
+                       "all_gather": 2, "reduce_scatter": 2}
+
+
+class _SpyAdamW:
+    """AdamW (the port's), keeping the gradient tree and the clip norm of
+    its first update: phase 31(b)'s view into the step."""
+
+    def __init__(self, torch, schedule, clip):
+        from distributeddeeplearning_tpu_torch.train.state import adamw, global_norm, tree_leaves
+
+        self.inner = adamw(schedule, grad_clip_norm=clip)
+        self.grad_clip_norm = clip
+        self.seen, self.norms = None, []
+        self._norm = lambda g: global_norm(tree_leaves(g))
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def apply(self, params, grads, opt_state, ok=None, *, grad_norm=None):
+        norm = grad_norm if grad_norm is not None else self._norm(grads)
+        self.norms.append(norm.detach().clone())
+        if self.seen is None:
+            self.seen = grads
+        self.inner.apply(params, grads, opt_state, ok, grad_norm=grad_norm)
+
+
+def _mp_batches(np, rows, seq, steps):
+    from distributeddeeplearning_tpu_torch.workloads import transformer
+
+    return list(transformer._token_batches(rows, seq, TRAIN["vocab_size"], DP_SEED,
+                                           rows * steps, repeat=False))
+
+
+def _mp_parity_fit(torch, np, mesh, clip):
+    """Phase 31(b): the LM at full width, 2 layers, f32, flash, through
+    ``build_train_step`` with the LM's rules on ``mesh`` (None: one
+    process), AdamW's clip at ``clip``, over MP_PARITY's global batches.
+    Returns (losses, the first step's global gradients on the CPU by
+    name, the clip norms by step, the f32 K1-K3 launch counts)."""
+    from distributeddeeplearning_tpu_torch.models import pipelined_transformer as pt
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.parallel import ParamLayout, shard_batch
+    from distributeddeeplearning_tpu_torch.parallel.sharding import named_leaves
+    from distributeddeeplearning_tpu_torch.train.schedule import constant_schedule
+    from distributeddeeplearning_tpu_torch.train.state import TrainState, shard_state
+    from distributeddeeplearning_tpu_torch.train.step import build_train_step
+
+    geo = dict(MP_WIDTH, num_layers=MP_PARITY["num_layers"])
+    seq = MP_PARITY["seq_len"]
+    del geo["seq_len"]
+    params = pt.init_params(torch.Generator().manual_seed(DP_SEED), max_len=seq,
+                            device="cuda:0", **geo)
+
+    sharded = mesh is not None and mesh.size > 1
+    # the layout the state is laid out by, which the model reads its splits from
+    layout = (ParamLayout.from_rules(mesh, params, pt.train_rules(mesh.shape["tensor"]),
+                                     pt.LOGICAL_AXES) if sharded else None)
+
+    def apply_fn(p, tokens, **_):
+        return pt.forward(p, tokens, num_heads=TRAIN["num_heads"], attention="flash",
+                          layout=layout)
+
+    tx = _SpyAdamW(torch, constant_schedule(DP_PEAK_LR), clip)
+    state = TrainState.create(params=params, apply_fn=apply_fn, tx=tx)
+    if sharded:
+        shard_state(state, layout)
+    step = build_train_step(
+        state, mesh=mesh if sharded else None, compute_dtype=torch.float32,
+        loss_fn=lambda lg, lb, label_smoothing=0.0: pt.next_token_loss(lg, lb),
+        metrics_fn=lambda lg, lb, loss: {"loss": loss})
+    for c in FA_COUNTERS:
+        setattr(fa, c, 0)
+    losses = []
+    for batch in _mp_batches(np, MP_PARITY["rows"], seq, MP_PARITY["steps"]):
+        state, m = step(state, shard_batch(mesh, batch) if sharded else batch)
+        losses.append(m["loss"].detach())
+    grads = tx.seen if state.layout is None else state.layout.gather(tx.seen)
+    named = {k: g.detach().float().cpu() for k, g in named_leaves(grads)}
+    return ([x.item() for x in losses], named, [x.item() for x in tx.norms],
+            {c: getattr(fa, c) for c in ("launches", "launches_dq", "launches_dkv")})
+
+
+class _MPRecorded:
+    """A train step that keeps, each step: the loss, the host and CUDA-event
+    times, the host time inside collectives (``_ClockedCollectives.active``),
+    the collectives it issued and staged (the counts zeroed around it) and
+    a digest of this rank's replicated leaves after it."""
+
+    def __init__(self, torch, step):
+        self.torch, self.step = torch, step
+        self.losses, self.wall_ms, self.marks, self.inside_ms = [], [], [], []
+        self.collectives, self.staged, self.digests = [], [], []
+
+    def __call__(self, state, batch):
+        from distributeddeeplearning_tpu_torch.parallel import collectives
+        from distributeddeeplearning_tpu_torch.parallel.sharding import named_leaves
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        collectives.reset_counts()
+        collectives.reset_staged()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        clock = _ClockedCollectives.active
+        inside = clock.s if clock else 0.0
+        t0 = time.perf_counter()
+        a.record()
+        state, metrics = self.step(state, batch)
+        b.record()
+        torch.cuda.synchronize()
+        self.wall_ms.append((time.perf_counter() - t0) * 1e3)
+        self.inside_ms.append(((clock.s if clock else 0.0) - inside) * 1e3)
+        self.marks.append((a, b))
+        self.collectives.append(collectives.counts())
+        self.staged.append(collectives.staged_ops())
+        self.losses.append(metrics["loss"].item())
+        named = dict(named_leaves(state.params))
+        self.digests.append({k: hashlib.sha256(
+            named[k].detach().cpu().contiguous().view(torch.uint8).numpy()
+        ).hexdigest() for k in MP_REPLICATED})
+        return state, metrics
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def event_ms(self):
+        return [a.elapsed_time(b) for a, b in self.marks]
+
+
+class _ClockedCollectives:
+    """Adds the host seconds spent inside each call of ``parallel.
+    collectives``' all-reduce, all-gather and reduce-scatter to ``s``."""
+
+    NAMES = ("all_reduce", "all_gather", "reduce_scatter")
+    active = None  # the clock running now, if any
+
+    def __init__(self):
+        from distributeddeeplearning_tpu_torch.parallel import collectives
+
+        self.col, self.s = collectives, 0.0
+        self._orig = {n: getattr(collectives, n) for n in self.NAMES}
+
+    def __enter__(self):
+        def clocked(fn):
+            def call(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.s += time.perf_counter() - t
+            return call
+        for n, fn in self._orig.items():
+            setattr(self.col, n, clocked(fn))
+        _ClockedCollectives.active = self
+        return self
+
+    def __exit__(self, *exc):
+        _ClockedCollectives.active = None
+        for n, fn in self._orig.items():
+            setattr(self.col, n, fn)
+
+
+def _mp_main(torch, fa, built, **kw):
+    """``workloads.transformer.main`` at TRAIN's width, bf16, flash, with
+    every train step it builds recorded (``built``) and the K1-K3 counters
+    zeroed just before; returns (state, fit, counts, launch shapes, plain
+    calls, host seconds inside collectives, peak GB)."""
+    from distributeddeeplearning_tpu_torch.train import step as tstep
+    from distributeddeeplearning_tpu_torch.workloads import transformer
+
+    original = tstep.build_train_step
+
+    def build(*a, **k):
+        built.append(_MPRecorded(torch, original(*a, **k)))
+        return built[-1]
+
+    tstep.build_train_step = build
+    try:
+        for c in FA_COUNTERS:
+            setattr(fa, c, 0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _LaunchShapes(fa) as shapes, _ClockedCollectives() as clock:
+            state, fit = transformer.main(
+                epochs=1, attention="flash", compute_dtype="bfloat16",
+                train_examples=2 * MP_BATCH, **MP_WIDTH, **kw)
+        counts = {c: getattr(fa, c) for c in FA_COUNTERS}
+    finally:
+        tstep.build_train_step = original
+    return (state, fit, counts, sorted(set(shapes.shapes)), shapes.plain, clock.s,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _mp_expected_bytes(torch, mesh, layout):
+    """This rank's parameter bytes as the sum of its shards' sizes: each
+    leaf's global shape (TRAIN's) cut by its spec."""
+    from distributeddeeplearning_tpu_torch.parallel.sharding import local_shape
+
+    L, d, f, v, s = (TRAIN[k] for k in ("num_layers", "d_model", "d_ff", "vocab_size",
+                                        "seq_len"))
+    shapes = {"embed": (v, d), "pos": (s, d), "head": (d, v), "blocks/qkv": (L, d, 3 * d),
+              "blocks/proj": (L, d, d), "blocks/w_in": (L, d, f),
+              "blocks/w_out": (L, f, d), "blocks/ln1": (L, d), "blocks/ln2": (L, d)}
+    return sum(4 * math.prod(local_shape(shape, layout.specs[k], mesh))
+               for k, shape in shapes.items())
+
+
+def _mp_rank(torch, np, rank, world, ref_path, clip, save_dir):
+    """Rank ``rank`` of phase 31: (b)'s three meshes against the
+    one-process reference in ``ref_path``, then (a), the workload at
+    tensor=2 x fsdp=2 checkpointed into ``save_dir`` and resumed."""
+    from distributeddeeplearning_tpu_torch.parallel import MeshSpec, create_mesh
+    from distributeddeeplearning_tpu_torch.parallel.sharding import named_leaves
+    from distributeddeeplearning_tpu_torch.train import checkpoint as tckpt
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+
+    ref = torch.load(ref_path, map_location="cpu")
+    out = {"parity": {}}
+    t0 = time.perf_counter()
+    for name, spec in MP_MESHES:
+        mesh = create_mesh(MeshSpec(**spec))
+        losses, grads, norms, counts = _mp_parity_fit(torch, np, mesh, clip)
+        gaps = {k: ((g - ref["grads"][k]).abs().max() / ref["grads"][k].abs().max()).item()
+                for k, g in grads.items()}
+        worst = max(gaps, key=gaps.get)
+        out["parity"][name] = {
+            "losses": losses, "norms": norms, "counts": counts,
+            "loss_rel": [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])],
+            "norm_rel": [abs(a - b) / abs(b) for a, b in zip(norms, ref["norms"])],
+            "grad_gap": gaps[worst], "grad_worst": worst,
+            "grad_keys": sorted(grads) == sorted(ref["grads"])}
+        del grads
+        torch.cuda.empty_cache()
+    out["parity_s"] = time.perf_counter() - t0
+
+    # (a) the workload at tensor=2 x fsdp=2 -----------------------------------
+    t0 = time.perf_counter()
+    built = []
+    state, fit, counts, shapes, plain, coll_s, peak = _mp_main(
+        torch, fa, built, tensor=2, fsdp=2, steps_per_epoch=MP_STEPS,
+        batch_size=MP_BATCH, save_filepath=save_dir, distributed=True, device="cuda:0")
+    step = built[0]
+    layout = state.layout
+    mesh = layout.mesh
+    saved = {k: t.detach().cpu().clone() for k, t in named_leaves(
+        {"params": state.params, "mu": state.opt_state["mu"],
+         "nu": state.opt_state["nu"]})}
+    out["a"] = {
+        "losses": step.losses, "wall_ms": step.wall_ms, "event_ms": step.event_ms(),
+        "inside_ms": step.inside_ms,
+        "collectives": step.collectives, "staged": step.staged,
+        "digests": step.digests, "counts": counts, "shapes": shapes, "plain": plain,
+        "collective_host_s": coll_s, "peak_gb": peak,
+        "eval": fit.final_eval_metrics, "step": state.step,
+        "param_bytes": _tree_bytes(state.params),
+        "opt_bytes": _tree_bytes({k: state.opt_state[k] for k in ("mu", "nu")}),
+        "count_bytes": state.opt_state["count"].numel() * 4,
+        "expected_bytes": _mp_expected_bytes(torch, mesh, layout),
+        "data_index": mesh.data_index(), "tensor_index": mesh.axis_index("tensor"),
+        "wall_s": time.perf_counter() - t0}
+    del state, fit, built, step
+    torch.cuda.empty_cache()
+
+    # ... resumed from the generation for one more step -------------------
+    t0 = time.perf_counter()
+    restored = {}
+    original = tckpt.Checkpointer.restore
+
+    def restore(self, template, **kw):
+        template, got = original(self, template, **kw)
+        restored.update({k: t.detach().cpu().clone() for k, t in named_leaves(
+            {"params": template.params, "mu": template.opt_state["mu"],
+             "nu": template.opt_state["nu"]})})
+        restored["step"] = got
+        return template, got
+
+    tckpt.Checkpointer.restore = restore
+    built = []
+    try:
+        state, fit, counts2, _, _, _, _ = _mp_main(
+            torch, fa, built, tensor=2, fsdp=2, steps_per_epoch=MP_STEPS + 1,
+            batch_size=MP_BATCH, save_filepath=save_dir, distributed=True,
+            device="cuda:0")
+    finally:
+        tckpt.Checkpointer.restore = original
+    out["resume"] = {
+        "restored_step": restored.pop("step", None), "step": state.step,
+        "bitwise": sorted(restored) == sorted(saved) and all(
+            torch.equal(restored[k], saved[k]) for k in saved),
+        "losses": built[0].losses, "counts": counts2,
+        "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def phase_model_parallel_train(torch, np, F, fa, card):
+    """Phase 31 (module docstring): tensor-parallel and FSDP training over
+    four gloo ranks sharing the card.  Tolerances of (b), f32, each mesh
+    against one process on the card: the sharded step sums the same
+    products in another order (row-parallel partial sums over the tensor
+    group added in f32, gradients reduce-scattered over fsdp and summed
+    over the data axes, the loss a mean of shard means), which moves f32
+    results by a few ulps (the CPU tests measure 2.3e-7 relative on the
+    losses and 4.9e-7 of a leaf's largest |g|); attention is the same
+    kernels over fewer heads and rows, bitwise the all-heads rows (phase
+    27).  So: losses within MP_LOSS_RTOL (1e-5) relative, each leaf's
+    first-step gradient within MP_GRAD_TOL (1e-5) of its largest |g|, and
+    the clip norm (set at half the unclipped first-step norm, so the
+    mixed-tree norm decides the update) within MP_NORM_RTOL (1e-6)
+    relative.  Returns (the bf16 K1-K3 launches a path, the f32 ones, the
+    bf16 entries at the per-rank shape)."""
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa_mod
+
+    layers = TRAIN["num_layers"]
+    heads = TRAIN["num_heads"] // 2
+    bf16 = {"fwd": "launches_bf16", "dq": "launches_dq_bf16", "dkv": "launches_dkv_bf16"}
+    f32 = {"fwd": "launches", "dq": "launches_dq", "dkv": "launches_dkv"}
+    t0 = time.perf_counter()
+    # (b)'s one-process reference on the card, its clip at half the norm
+    norm = _mp_parity_fit(torch, np, None, 1e30)[2][0]
+    clip = norm / 2
+    ref_losses, ref_grads, ref_norms, _ = _mp_parity_fit(torch, np, None, clip)
+    log(f"[mp-parity] one process: f32, {MP_PARITY['num_layers']} layers at full "
+        f"width, seq {MP_PARITY['seq_len']}, {MP_PARITY['rows']} rows: losses "
+        f"{[round(x, 6) for x in ref_losses]}, unclipped first-step norm {norm:.6f}, "
+        f"clip {clip:.6f}")
+    # (a)'s one-process run at the same global batch (2 shards x 2 rows)
+    built = []
+    _, one_fit, one_counts, _, _, _, one_peak = _mp_main(
+        torch, fa, built, steps_per_epoch=MP_STEPS, batch_size=2 * MP_BATCH,
+        device="cuda")
+    one = built[0]
+    one_p50 = float(np.median(one.event_ms()[1:]))
+    log(f"[mp-train] one process, B=4 (the sharded run's global batch): losses "
+        f"{[round(x, 5) for x in one.losses]}, step ms (CUDA events) "
+        f"{[round(x, 1) for x in one.event_ms()]}, p50 {one_p50:.1f}, peak memory "
+        f"{one_peak:.2f} GB on {card}")
+    del one_fit, built, one
+    torch.cuda.empty_cache()
+    log(f"[time] phase_model_parallel_train (one process): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"losses": ref_losses, "grads": ref_grads, "norms": ref_norms}, ref_path)
+        del ref_grads
+        ranks = run_ranks("_mp_rank", MP_RANKS, ref_path, clip,
+                          os.path.join(tmp, "ckpt"))
+    log(f"[time] phase_model_parallel_train (ranks): {time.perf_counter() - t0:.1f} s")
+
+    launches_bf16, launches_f32 = {}, {}
+    # (b) --------------------------------------------------------------------
+    for rank, out in enumerate(ranks):
+        for name, got in out["parity"].items():
+            want = {c: 0 for c in ("launches", "launches_dq", "launches_dkv")}
+            per = MP_PARITY["num_layers"] * MP_PARITY["steps"]
+            want.update({c: per for c in want})
+            log(f"[mp-parity] rank {rank} {name}: losses {[round(x, 6) for x in got['losses']]}"
+                f" (|dloss| / loss vs one process {[f'{x:.2e}' for x in got['loss_rel']]},"
+                f" tolerance {MP_LOSS_RTOL:g}); first-step gradient: worst leaf "
+                f"{got['grad_worst']} at {got['grad_gap']:.2e} of its largest |g| "
+                f"(tolerance {MP_GRAD_TOL:g}); clip norms {[round(x, 6) for x in got['norms']]}"
+                f" (relative {[f'{x:.2e}' for x in got['norm_rel']]}, tolerance "
+                f"{MP_NORM_RTOL:g}); f32 K1/K2/K3 launches {list(got['counts'].values())}")
+            if (not got["grad_keys"] or max(got["loss_rel"]) > MP_LOSS_RTOL
+                    or got["grad_gap"] > MP_GRAD_TOL or got["norm_rel"][0] > MP_NORM_RTOL
+                    or len(got["losses"]) != MP_PARITY["steps"]):
+                raise AssertionError(f"[mp-parity] rank {rank} {name} left one process")
+            if got["counts"] != want:
+                raise AssertionError(f"[mp-parity] rank {rank} {name}: f32 launches "
+                                     f"{got['counts']}, expected {want}")
+            launches_f32[f"mp_parity_{name}_rank{rank}"] = {
+                k: got["counts"][v] for k, v in f32.items()}
+    # (a) --------------------------------------------------------------------
+    a0 = ranks[0]["a"]
+    for rank, out in enumerate(ranks):
+        a, res = out["a"], out["resume"]
+        want = {c: 0 for c in FA_COUNTERS}
+        want.update({bf16["fwd"]: layers * (MP_STEPS + MP_EVAL_BATCHES),
+                     bf16["dq"]: layers * MP_STEPS, bf16["dkv"]: layers * MP_STEPS})
+        if a["counts"] != want or a["plain"]:
+            raise AssertionError(f"[mp-train] rank {rank}: launches {a['counts']}, plain "
+                                 f"{a['plain']}; expected {want}")
+        if a["shapes"] != [("dkv", MP_BATCH, heads), ("dq", MP_BATCH, heads),
+                           ("fwd", MP_BATCH, heads)]:
+            raise AssertionError(f"[mp-train] rank {rank}: launch shapes {a['shapes']}")
+        if a["losses"] != a0["losses"] or not all(math.isfinite(x) for x in a["losses"]):
+            raise AssertionError(f"[mp-train] rank {rank}: losses {a['losses']} vs rank 0's "
+                                 f"{a0['losses']}")
+        if a["digests"] != a0["digests"]:
+            raise AssertionError(f"[mp-train] rank {rank}: replicated leaves differ "
+                                 "from rank 0's")
+        if any(c != MP_STEP_COLLECTIVES for c in a["collectives"]):
+            raise AssertionError(f"[mp-train] rank {rank}: collectives a step "
+                                 f"{a['collectives']}, predicted {MP_STEP_COLLECTIVES}")
+        if (a["param_bytes"] != a["expected_bytes"]
+                or a["opt_bytes"] != 2 * a["expected_bytes"]):
+            raise AssertionError(f"[mp-train] rank {rank}: param/optimizer bytes "
+                                 f"{a['param_bytes']}/{a['opt_bytes']}, shards sum to "
+                                 f"{a['expected_bytes']}")
+        if not res["bitwise"] or res["restored_step"] != MP_STEPS or \
+                res["step"] != MP_STEPS + 1 or not all(math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"[mp-train] rank {rank}: resume {res}")
+        p50 = float(np.median(a["event_ms"][1:]))
+        log(f"[mp-train] rank {rank} (data shard {a['data_index']}, tensor "
+            f"{a['tensor_index']}) tensor=2 x fsdp=2, bf16, flash: losses "
+            f"{[round(x, 5) for x in a['losses']]} (bitwise rank 0's), eval "
+            f"{ {k: round(v, 5) for k, v in (a['eval'] or {}).items()} }; step ms "
+            f"(CUDA events) {[round(x, 1) for x in a['event_ms']]}, p50 {p50:.1f} "
+            f"against {one_p50:.1f} for one process at B=4; host wall a step "
+            f"{[round(x, 1) for x in a['wall_ms']]} ms, of it inside collectives "
+            f"{[round(x, 1) for x in a['inside_ms']]} ms "
+            f"({a['collective_host_s']:.2f} s over the run, eval and checkpoint in); "
+            f"collectives a step {a['collectives'][0]} (predicted "
+            f"{MP_STEP_COLLECTIVES}), staged through the host by gloo "
+            f"{a['staged'][0]}; K1/K2/K3 launches {[a['counts'][v] for v in bf16.values()]}"
+            f" at B={MP_BATCH} H={heads}; params {a['param_bytes'] / 1e9:.4f} GB, "
+            f"optimizer {(a['opt_bytes'] + a['count_bytes']) / 1e9:.4f} GB (the shards' "
+            f"sum); peak memory {a['peak_gb']:.2f} GB against {one_peak:.2f} for one "
+            f"process; wall {a['wall_s']:.1f} s; resumed from step "
+            f"{res['restored_step']} bitwise ({res['wall_s']:.1f} s), step "
+            f"{MP_STEPS + 1} loss {res['losses'][0]:.5f}; on {card}")
+        launches_bf16[f"mp_train_rank{rank}"] = {k: a["counts"][v] for k, v in bf16.items()}
+        launches_bf16[f"mp_resume_rank{rank}"] = {k: res["counts"][v]
+                                                  for k, v in bf16.items()}
+    log(f"[mp-parity] (b) on the ranks: {ranks[0]['parity_s']:.1f} s")
+    per_rank = _flash_at(torch, F, fa_mod, TRAIN["d_model"] // TRAIN["num_heads"],
+                         heads, MP_BATCH, TRAIN["seq_len"], torch.bfloat16, card)
+    for entry in per_rank.values():
+        entry["launches_a_rank_a_step"] = layers
+    log(f"[mp-train] the bf16 K1, K2, K3 at a rank's shape (B={MP_BATCH}, H={heads} "
+        f"of {TRAIN['num_heads']}, S {TRAIN['seq_len']}, 12 each a step): "
+        f"{ {k: round(e['ms'], 4) for k, e in per_rank.items()} } ms, SDPA "
+        f"{ {k: round(e['library_ms'], 4) for k, e in per_rank.items()} }, bounds "
+        f"{ {k: round(e['bound_ms'], 4) for k, e in per_rank.items()} } ms on {card}")
+    return launches_bf16, launches_f32, per_rank
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -7029,6 +7533,8 @@ def main() -> int:
         timed(phase_serve_robust, torch, np, fa, fd, card)
         timed(phase_fleet, torch, np, card)
         timed(phase_imagenet, torch, np, card)
+        mp_bf16, mp_f32, mp_shape = timed(phase_model_parallel_train, torch, np, F, fa,
+                                          card)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -7192,6 +7698,24 @@ def main() -> int:
         if pick is not None:
             row.setdefault("launches_by_path", {}).update(
                 {path: pick(c) for path, c in FLEET_LAUNCHES.items() if pick(c)})
+    # phase 31: K1-K3 over a rank's heads and rows in tensor-parallel and
+    # FSDP training (bf16: (a)'s run and its resume, each rank's; f32: (b)'s
+    # parity runs on the three meshes)
+    for row in rows:
+        kern, dtype = {"flash_attention_fwd": ("fwd", "f32"),
+                       "flash_attention_bwd_dq": ("dq", "f32"),
+                       "flash_attention_bwd_dkv": ("dkv", "f32"),
+                       "flash_attention_fwd_bf16": ("fwd", "bf16"),
+                       "flash_attention_bwd_dq_bf16": ("dq", "bf16"),
+                       "flash_attention_bwd_dkv_bf16": ("dkv", "bf16")}.get(
+                           row["name"], (None, None))
+        if kern is None:
+            continue
+        launched = {path: c[kern] for path, c in
+                    (mp_bf16 if dtype == "bf16" else mp_f32).items()}
+        row.setdefault("launches_by_path", {}).update(launched)
+        if dtype == "bf16":
+            row["model_parallel"] = {**mp_shape[kern], "launches": launched}
     for row in rows:
         row["kernel"] = profiled_kernels(row["name"])
     log(f"[timer] windows timed by CUDA events for want of profiler device "

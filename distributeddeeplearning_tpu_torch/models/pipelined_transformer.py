@@ -43,6 +43,37 @@ weights (``quant.qtensor.qdot``'s row-parallel absmax).  Row-parallel
 partial sums are taken in f32 (bf16 weights too) and rounded once to the
 stream's dtype after the sum; int8 ones sum their int32 accumulators.
 
+Tensor-parallel and FSDP training (``layout=`` on :func:`forward`,
+:func:`_stack` and :func:`per_token_loss`: the
+``parallel.sharding.ParamLayout`` the train state was laid out by, whose
+``mesh`` is the mesh).  The model reads every split from that layout, so
+the weights it gathers are the ones the step stored in shards.  The LM's
+training layout is the reference workload's, not serving's:
+:data:`LOGICAL_AXES` under :func:`train_rules` (``layers`` over pipe,
+``vocab`` over fsdp, ``width`` over tensor when ``tensor`` > 1, else over
+fsdp):
+
+- a leaf split over ``fsdp`` (``embed`` [V, D] and ``head`` [D, V] along
+  their vocabulary; under ``tensor`` = 1 the block matrices' width dims
+  too) is a storage shard, gathered whole before use
+  (``collectives.gather_from_group``, whose backward reduce-scatters the
+  gradient: ZeRO-3), block leaves layer by layer, and again in backward
+  inside a layer under ``remat`` (ZeRO-3's regather).  So the training
+  forward never takes serving's vocab-parallel lookup and logits;
+- a split over ``tensor`` is Megatron's and only Megatron's: ``qkv``
+  (head-aligned per third) and ``w_in`` column-parallel, ``proj`` and
+  ``w_out`` row-parallel, the four together or none.  Megatron's *f*
+  (``collectives.copy_to_group``) sits at each column-parallel input and
+  *g* (``collectives.reduce_from_group``, partial sums in f32, rounded
+  once) after each row-parallel product, serving's path too; attention
+  runs over the rank's ``h / tp`` heads (K1 forward, K2 and K3 backward,
+  through ``make_flash_attention(mesh=...)``).
+
+A layout that splits anything else, or over another axis, is refused.
+Every rank of a data shard computes the same replicated stream, so the
+gradients of the replicated leaves (``ln1``, ``ln2``, ``pos``) are the
+same on every tensor rank.
+
 Pipeline parallelism and sequence-parallel attention wait for later
 slices.
 """
@@ -72,6 +103,28 @@ from distributeddeeplearning_tpu_torch.quant.qtensor import (
 Params = Dict[str, Any]
 
 ATTENTIONS = ("dense", "flash")
+
+#: the logical axes of the LM's parameters (ref ``workloads/transformer.py``)
+LOGICAL_AXES = {
+    "embed": ("vocab", None),           # [V, D]
+    "pos": None,
+    "head": (None, "vocab"),            # [D, V]
+    "blocks": {
+        "qkv": ("layers", None, "width"),    # [L, D, 3D]
+        "proj": ("layers", "width", None),   # [L, D, D]
+        "w_in": ("layers", None, "width"),   # [L, D, FF]
+        "w_out": ("layers", "width", None),  # [L, FF, D]
+        "ln1": ("layers", None),
+        "ln2": ("layers", None),
+    },
+}
+
+
+def train_rules(tensor: int):
+    """The LM's training rules: ``width`` over ``tensor`` when it is above
+    1 (Megatron), else over ``fsdp`` (ZeRO-3); ``vocab`` over ``fsdp``."""
+    return [("layers", "pipe"), ("vocab", "fsdp"),
+            ("width", "tensor" if tensor > 1 else "fsdp")]
 
 
 def init_params(
@@ -169,16 +222,23 @@ def _tensor_axis(mesh) -> Optional[_TensorAxis]:
     return _TensorAxis(mesh) if tensor_parallel_size(mesh) > 1 else None
 
 
+def _column_input(h, tp: Optional[_TensorAxis]):
+    """``h`` at the input of a column-parallel product: Megatron's *f*
+    (itself forward, its gradient summed over the tensor group)."""
+    return h if tp is None else _col.copy_to_group(h, tp.group)
+
+
 def _row_parallel(x, w, tp: Optional[_TensorAxis]):
     """``x @ w`` where this rank holds rows of ``w`` and the matching
     columns of ``x``: the partial products summed over the tensor group,
     in f32 and rounded once to ``x``'s dtype (int8: the int32
-    accumulators, :func:`~..quant.qtensor.qdot`)."""
+    accumulators, :func:`~..quant.qtensor.qdot`), through Megatron's
+    *g*."""
     if tp is None:
         return _mm(x, w)
     if isinstance(w, QTensor):
         return qdot(x, w, group=tp.group)
-    return _col.all_reduce(x.float() @ w.float(), tp.group).to(x.dtype)
+    return _col.reduce_from_group(x.float() @ w.float(), tp.group).to(x.dtype)
 
 
 def _token_rows(embed, tokens, tp: Optional[_TensorAxis]):
@@ -205,7 +265,7 @@ def _logits(x, head, tp: Optional[_TensorAxis]):
 
 
 def _mlp(p, x, tp: Optional[_TensorAxis] = None):
-    h = _layer_norm(x, p["ln2"])
+    h = _column_input(_layer_norm(x, p["ln2"]), tp)
     return x + _row_parallel(F.gelu(_mm(h, p["w_in"]), approximate="none"),
                              p["w_out"], tp)
 
@@ -227,7 +287,7 @@ def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
     hd = d // num_heads
     width = p["qkv"].shape[-1] // 3  # the local heads' width under TP
     heads = width // hd
-    h = _layer_norm(x, p["ln1"])
+    h = _column_input(_layer_norm(x, p["ln1"]), tp)
     q, k, v = _mm(h, p["qkv"]).split(width, dim=-1)  # strided views
     split4 = lambda t: t.reshape(b, s, heads, hd)  # noqa: E731
     if attention_fn is not None:
@@ -268,36 +328,110 @@ def _embed(params, tokens, tp: Optional[_TensorAxis] = None):
             + params["pos"][: tokens.shape[1]][None])
 
 
+#: the splits over ``tensor`` the training forward takes (Megatron's):
+#: leaf -> its split dim ([L] first)
+_MEGATRON = {"blocks/qkv": 2, "blocks/proj": 1, "blocks/w_in": 2,
+             "blocks/w_out": 1}
+
+
+class _TrainShards:
+    """How the training forward reaches this rank's slices under a
+    ``ParamLayout`` (module docstring): ``tp``, the tensor axis when the
+    block matrices are split over it (Megatron's *f* and *g*), and the
+    leaves stored in ``fsdp`` blocks with the dim each is gathered along
+    (a block leaf's within one layer)."""
+
+    def __init__(self, layout):
+        self.fsdp = layout.mesh.axis_group("fsdp")
+        self.dims: Dict[str, int] = {}
+        tensor: Dict[str, int] = {}
+        for name, spec in layout.specs.items():
+            block = name.startswith("blocks/")
+            for axis in layout.axes(name):
+                dims = [i for i, e in enumerate(spec) if e in (axis, (axis,))]
+                if axis == "fsdp" and dims and dims[0] >= block:
+                    self.dims[name.rsplit("/", 1)[-1]] = dims[0] - block
+                elif axis == "tensor" and dims:
+                    tensor[name] = dims[0]
+                else:
+                    tensor[name] = -1  # refused below
+        if tensor and tensor != _MEGATRON:
+            raise ValueError(
+                "the LM's training forward takes fsdp splits of any leaf but "
+                "the layer dim, and over tensor only Megatron's "
+                f"{_MEGATRON}; the layout splits {layout.specs}")
+        self.tp = _TensorAxis(layout.mesh) if tensor else None
+
+    def param(self, t, name: str):
+        """Leaf (or one layer of) ``name`` whole: gathered over fsdp when
+        stored in blocks (its gradient reduce-scattered back)."""
+        dim = self.dims.get(name)
+        return t if dim is None else _col.gather_from_group(t, dim, self.fsdp)
+
+    def block(self, p, x, **kw):
+        """One layer from this rank's slices of it: its fsdp leaves
+        gathered (inside a checkpointed layer, again in backward)."""
+        return block_apply({k: self.param(v, k) for k, v in p.items()}, x,
+                           tp=self.tp, **kw)
+
+
+def _train_shards(layout) -> Optional[_TrainShards]:
+    """The training forward's view of ``layout``; None when it splits
+    nothing (data parallelism: replicated weights)."""
+    return None if layout is None or not layout.sharded else _TrainShards(layout)
+
+
 def _stack(blocks: Params, x, *, num_heads: int, attention: str = "dense",
-           remat: bool = False, attention_fn=None):
+           remat: bool = False, attention_fn=None, layout=None):
     """The layer loop (the reference's ``_stack_scan``).
 
     ``remat=True`` runs each layer under ``torch.utils.checkpoint``, so
     backward recomputes the layer from its input instead of keeping its
     activations: activation memory O(1) in depth, at the price of a second
     forward per layer (the flash forward kernel then launches twice per
-    layer and step)."""
+    layer and step).  ``layout``: the training layout (module docstring);
+    ``blocks`` are this rank's slices."""
+    shards = _train_shards(layout)
+    fn = block_apply if shards is None else shards.block
+    if shards is not None and attention == "flash" and attention_fn is None:
+        attention_fn = _fa.make_flash_attention(mesh=layout.mesh, causal=True)
     for i in range(blocks["qkv"].shape[0]):
         p = _layer(blocks, i)
         if remat:
-            x = checkpoint(block_apply, p, x, num_heads=num_heads,
-                           attention=attention, attention_fn=attention_fn,
-                           use_reentrant=False)
+            x = checkpoint(fn, p, x, num_heads=num_heads, attention=attention,
+                           attention_fn=attention_fn, use_reentrant=False)
         else:
-            x = block_apply(p, x, num_heads=num_heads, attention=attention,
-                            attention_fn=attention_fn)
+            x = fn(p, x, num_heads=num_heads, attention=attention,
+                   attention_fn=attention_fn)
     return x
 
 
+def _train_embed(params, tokens, shards: Optional[_TrainShards]):
+    """The input stream: the (gathered) embedding rows plus positions."""
+    if shards is None:
+        return _embed(params, tokens)
+    return _embed({k: shards.param(params[k], k) for k in ("embed", "pos")},
+                  tokens)
+
+
+def _train_head(params, shards: Optional[_TrainShards]):
+    return params["head"] if shards is None else shards.param(params["head"], "head")
+
+
 def forward(params, tokens, *, num_heads: int, attention: str = "dense",
-            remat: bool = False, attention_fn=None):
+            remat: bool = False, attention_fn=None, layout=None):
     """Next-token logits [b, s, vocab] for int tokens [b, s].
 
     ``remat=True`` rematerializes each layer in backward (see
-    :func:`_stack`); ``attention_fn`` as in :func:`block_apply`."""
-    x = _stack(params["blocks"], _embed(params, tokens), num_heads=num_heads,
-               attention=attention, remat=remat, attention_fn=attention_fn)
-    return _mm(x, params["head"])
+    :func:`_stack`); ``attention_fn`` as in :func:`block_apply`.
+    ``layout``: tensor-parallel and FSDP training (module docstring), the
+    train state's ``ParamLayout``: ``params`` are this rank's slices, the
+    logits whole on every rank."""
+    shards = _train_shards(layout)
+    x = _stack(params["blocks"], _train_embed(params, tokens, shards),
+               num_heads=num_heads, attention=attention, remat=remat,
+               attention_fn=attention_fn, layout=layout)
+    return _mm(x, _train_head(params, shards))
 
 
 def forward_prefill(params, tokens, *, num_heads: int, attention: str = "dense",
@@ -620,7 +754,7 @@ def forward_verify_paged(params, tokens, cache, pos, draft_len, block_tables,
 
 def per_token_loss(params, tokens, *, num_heads: int, attention: str = "dense",
                    remat: bool = False, loss_chunk: Optional[int] = None,
-                   attention_fn=None):
+                   attention_fn=None, layout=None):
     """Per-position next-token cross-entropy [b, s-1], f32.
 
     Same math as ``next_token_loss(forward(...), tokens)`` per position.
@@ -629,16 +763,18 @@ def per_token_loss(params, tokens, *, num_heads: int, attention: str = "dense",
     target gather run under ``torch.utils.checkpoint``, so backward
     recomputes the chunk's logits instead of keeping them and the full
     [b, s, vocab] logits never exist.  ``None`` (or a chunk >= s-1) is the
-    one-shot head matmul."""
+    one-shot head matmul.  ``layout`` as in :func:`forward`."""
     s = tokens.shape[1]
     if s < 2:
         raise ValueError(f"next-token loss needs sequence length >= 2, got {s}")
-    x = _stack(params["blocks"], _embed(params, tokens), num_heads=num_heads,
-               attention=attention, remat=remat, attention_fn=attention_fn)
+    shards = _train_shards(layout)
+    x = _stack(params["blocks"], _train_embed(params, tokens, shards),
+               num_heads=num_heads, attention=attention, remat=remat,
+               attention_fn=attention_fn, layout=layout)
     h = x[:, :-1]  # position t predicts token t+1
     labels = tokens[:, 1:].long()
     n = s - 1
-    head = params["head"]
+    head = _train_head(params, shards)
 
     def chunk_ce(hc, lc):
         logits = (hc @ head).float()

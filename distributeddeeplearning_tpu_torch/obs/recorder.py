@@ -8,9 +8,8 @@ chose to profile.  This module keeps them: a **bounded ring buffer**
 metric deltas that stays ON while the tracer is off, and is frozen into a
 dump when something goes wrong.  In the port the trainer's
 :class:`~..train.resilience.StepWatchdog` dumps it before its stack dump,
-and every injected fault (:mod:`..utils.faults`) lands in it; the serve
-side's quarantine, replica-death and worker-crash dumps come with ROADMAP
-A6.
+and every injected fault (:mod:`..utils.faults`) lands in it, as do the
+serve side's quarantine, replica-death and worker-crash dumps.
 
 - **zero-sync**: entries are host timestamps and host scalars by
   contract, nothing on the record path reads a tensor;

@@ -1,7 +1,8 @@
 """Parallelism for the port: the process mesh, process-group start-up,
 collectives, the partition-rule layout table, batch layout and the
-explicit gradient comms.  Data parallelism trains (ROADMAP A5); a tensor
-axis serves (``serve.engine.tensor_parallel_engine``).  One process drives
+explicit gradient comms, and the logical-axis rules of training.  Data,
+fsdp (ZeRO-3) and tensor (Megatron) parallelism train; a tensor axis also
+serves (``serve.engine.tensor_parallel_engine``).  One process drives
 one device, as under Horovod; the communicator is a ``torch.distributed``
 process group (NCCL on the card, gloo on the CPU)."""
 
@@ -19,14 +20,21 @@ from distributeddeeplearning_tpu_torch.parallel.mesh import (
     create_mesh,
     data_parallel_size,
     local_device_count,
-    require_data_only,
+    require_ported,
     tensor_parallel_size,
     world_size,
 )
 from distributeddeeplearning_tpu_torch.parallel.sharding import (
     LAYOUT_RULES,
+    RULES_DP,
+    RULES_EP,
+    RULES_FSDP,
+    RULES_TP,
+    ParamLayout,
     layout_rules_provenance,
+    logical_to_spec,
     match_partition_rules,
+    param_shardings,
     replicate_params,
     shard_batch,
     shard_params,
@@ -39,12 +47,19 @@ __all__ = [
     "create_mesh",
     "data_parallel_size",
     "local_device_count",
-    "require_data_only",
+    "require_ported",
     "tensor_parallel_size",
     "world_size",
     "LAYOUT_RULES",
+    "RULES_DP",
+    "RULES_EP",
+    "RULES_FSDP",
+    "RULES_TP",
+    "ParamLayout",
     "layout_rules_provenance",
+    "logical_to_spec",
     "match_partition_rules",
+    "param_shardings",
     "replicate_params",
     "shard_batch",
     "shard_params",

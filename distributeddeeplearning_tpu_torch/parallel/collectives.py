@@ -19,16 +19,27 @@ tensor-parallel forward and reads it after sees exactly the collectives
 it issued.  With no process group (one process) every collective is the
 identity of a world of 1, and nothing is counted.
 
+Training over model axes needs collectives that autograd sees, so three
+``torch.autograd.Function`` classes wrap them (:func:`copy_to_group`,
+:func:`reduce_from_group`, :func:`gather_from_group`): Megatron's *f*
+and *g* around a tensor-parallel block, and ZeRO-3's gather of a
+parameter stored in shards.  (``torch.distributed.nn.functional.
+all_reduce`` is not *g*: its backward is a second all-reduce.)
+:func:`sharded_global_norm` is the L2 norm of a tree whose leaves are
+split over different axes: each leaf's squares are summed over the axes
+it is split on, and a replicated leaf counts once.
+
 ``ring_permute`` waits for sequence parallelism (ROADMAP A7).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from distributeddeeplearning_tpu_torch.parallel.mesh import AXIS_ORDER
 from distributeddeeplearning_tpu_torch.train.state import tree_leaves, tree_map
 
 Tree = Any
@@ -243,3 +254,112 @@ def global_norm(tree: Tree, group=None) -> torch.Tensor:
     if group is not None and active(group):
         sq = all_reduce(sq.clone(), group)
     return torch.sqrt(sq)
+
+
+# -- collectives autograd sees (module docstring) ----------------------------
+
+def gather_dim(t: torch.Tensor, dim: int, group, *,
+               head_aligned: bool = False) -> torch.Tensor:
+    """The blocks of ``t`` along ``dim`` of every rank of ``group``,
+    joined in rank order (``head_aligned``: each rank's q, k and v thirds
+    joined third by third, the inverse of the tensor-parallel ``qkv``
+    cut).  No gradient (see :func:`gather_from_group`)."""
+    parts = all_gather(t.movedim(dim, 0).contiguous(), group,
+                       tiled=False)  # [n, t.shape[dim], ...]
+    n, m, rest = parts.shape[0], parts.shape[1], tuple(parts.shape[2:])
+    if head_aligned:
+        parts = parts.reshape(n, 3, m // 3, *rest).transpose(0, 1)
+    return parts.reshape(n * m, *rest).movedim(0, dim)
+
+
+def scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``t``, of which this rank
+    keeps its block along ``dim`` (a tiled reduce-scatter), summed in
+    f32 and returned in ``t``'s dtype."""
+    n = group_size(group)
+    moved = t.movedim(dim, 0).to(torch.float32).contiguous()
+    out = reduce_scatter(moved.reshape(-1), group)
+    return out.view(moved.shape[0] // n, *moved.shape[1:]).movedim(0, dim).to(t.dtype)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's *f*: the identity forward, the gradient summed over the
+    group backward (in f32, rounded once)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.to(torch.float32, copy=True), ctx.group).to(g.dtype), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's *g*: the sum over the group forward (in place), the
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.mark_dirty(x)
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """ZeRO-3's gather: the blocks of every rank along ``dim`` forward,
+    the gradient reduce-scattered back to this rank's block backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *f* at the input of a column-parallel product: ``x``
+    forward, its gradient all-reduced over ``group`` backward."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *g* after a row-parallel product: ``x`` summed over
+    ``group`` IN PLACE forward (pass the fresh product; take the partial
+    sums in f32 and round once after), the gradient as it is backward."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """ZeRO-3's gather of a parameter stored in blocks along ``dim`` over
+    ``group``: the whole parameter forward, the gradient's sum over the
+    group reduce-scattered to this rank's block backward (in f32)."""
+    return _GatherFromGroup.apply(x, dim, group)
+
+
+def sharded_global_norm(pairs: Sequence[Tuple[torch.Tensor, Sequence[str]]],
+                        mesh) -> torch.Tensor:
+    """The L2 norm, in f32, of a tree given as ``(leaf, axes)`` pairs:
+    ``axes`` are the mesh axes of more than one rank the leaf is split
+    over.  The squares of the leaves split over the same axes are summed
+    and all-reduced over those axes' groups; a replicated leaf counts
+    once.  Every rank gets the same value when the leaves are the same
+    across the axes they are not split over."""
+    classes: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for leaf, axes in pairs:
+        key = tuple(a for a in AXIS_ORDER if a in axes)
+        sq = torch.sum(leaf.float() ** 2)
+        classes[key] = sq if key not in classes else classes[key] + sq
+    total = None
+    for key, sq in classes.items():
+        for ax in key:
+            sq = all_reduce(sq.clone(), mesh.axis_group(ax))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)

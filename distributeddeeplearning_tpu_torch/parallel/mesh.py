@@ -5,9 +5,9 @@ world of ``torch.distributed`` as the data-parallel communicator.  A
 :class:`Mesh` is a logical description of the ranks: its ``shape`` names
 the size of every axis of :data:`AXIS_ORDER`, ``size`` is the world, and
 ``rank`` and ``group`` say who this process is and which process group
-its data-parallel collectives run over.  :class:`MeshSpec` infers the axis
-sizes exactly as the reference does (``MeshSpec()`` on N processes is pure
-data parallelism over N).
+its world collectives run over (barriers, agreement, checkpoints).
+:class:`MeshSpec` infers the axis sizes exactly as the reference does
+(``MeshSpec()`` on N processes is pure data parallelism over N).
 
 Ranks lie on the mesh row-major in :data:`AXIS_ORDER`, as the reference
 lays devices out, so ``tensor`` (the innermost axis) neighbours are
@@ -16,13 +16,22 @@ than one rank: the group of the ranks that differ from this one along
 that axis alone (the reference's named-axis collectives, ``psum(x,
 "tensor")``).  :meth:`Mesh.axis_index` is this rank's coordinate.
 
-The data and tensor axes are taken.  ``fsdp``, ``seq``, ``pipe`` and
-``expert`` greater than 1 raise in :func:`create_mesh`, naming the ROADMAP
-item that brings them (FSDP: A5's follow-up; seq and pipe: A7; expert:
-A5's MoE follow-up).  A tensor axis serves (``serve.engine.
-tensor_parallel_engine``); the trainer refuses it (:func:`require_data_only`,
-A5's FSDP / ``param_shardings`` item).  Multi-slice meshes (the reference's
-``num_slices`` and ``_slice_groups``) wait with FSDP.
+``data_group`` is the group of the ranks that share every coordinate
+but the data axes' (``data`` and ``fsdp`` jointly): the ranks that hold
+different rows of the global batch and the same slice of the model.
+Every data-parallel reduction (the gradient mean, averaged metrics, the
+eval reduction, global-batch BatchNorm) runs over it, never over the
+world: on a ``data=2 x tensor=2`` mesh a mean over the world would
+average different tensor shards together.  :meth:`Mesh.data_index` is
+this rank's coordinate over the data axes (its batch shard).
+
+The data, fsdp and tensor axes are taken: a tensor axis serves
+(``serve.engine.tensor_parallel_engine``) and trains (Megatron), fsdp
+trains (ZeRO-3).  ``seq``, ``pipe`` and ``expert`` greater than 1 raise
+in :func:`create_mesh`, naming the ROADMAP item that brings them (seq and
+pipe: A7; expert: A5.2), and so does a model that meets them in
+:func:`require_ported`.  Multi-slice meshes (the reference's
+``num_slices`` and ``_slice_groups``) are A5.3.
 """
 
 from __future__ import annotations
@@ -39,12 +48,11 @@ AXIS_ORDER: Tuple[str, ...] = ("pipe", "data", "fsdp", "expert", "seq", "tensor"
 
 DATA_AXES: Tuple[str, ...] = ("data", "fsdp")  # batch is sharded over both
 
-#: where each axis but ``data`` and ``tensor`` comes in the port
+#: where each axis the port does not take yet comes in
 _NOT_YET = {
-    "fsdp": "FSDP parameter sharding (ROADMAP A5 follow-up)",
     "seq": "sequence parallelism (ROADMAP A7)",
     "pipe": "pipeline parallelism (ROADMAP A7)",
-    "expert": "expert parallelism (ROADMAP A5's MoE follow-up)",
+    "expert": "expert parallelism (ROADMAP A5.2)",
 }
 
 
@@ -85,22 +93,28 @@ class MeshSpec:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The ranks as a mesh: ``shape`` (axis -> size), ``size`` (the
-    world), this process's ``rank``, the ``group`` its data-parallel
-    collectives run over (None without a process group) and ``groups``,
-    one process group per axis of more than one rank (module docstring)."""
+    """The ranks as a mesh: ``shape`` (axis -> size; an axis left out is
+    1), ``size`` (the world), this process's ``rank``, the world ``group``
+    (None without a process group), ``groups``, one process group per
+    axis of more than one rank, and ``data_group``, the data axes' group
+    (None where it is one rank; module docstring)."""
 
     shape: Dict[str, int]
     size: int
     rank: int = 0
     group: Any = None
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    data_group: Any = None
 
     def axis_index(self, axis: str) -> int:
         """This rank's coordinate along ``axis`` (row-major ranks)."""
-        inner = math.prod(self.shape[a] for a in
-                          AXIS_ORDER[AXIS_ORDER.index(axis) + 1:])
-        return (self.rank // inner) % self.shape[axis]
+        return (self.rank // _inner_size(self.shape, axis)) % self.shape.get(axis, 1)
+
+    def data_index(self) -> int:
+        """This rank's batch shard: its row-major coordinate over the data
+        axes jointly (``data`` outer, ``fsdp`` inner).  The ranks outside the data
+        axes (``tensor``) that share it hold the same rows."""
+        return (self.rank // _inner_size(self.shape, "fsdp")) % data_parallel_size(self)
 
     def axis_group(self, axis: str):
         """The process group of ``axis``: None for an axis of one rank
@@ -115,37 +129,54 @@ def _world(group) -> Tuple[int, int]:
     return dist.get_world_size(group), dist.get_rank(group)
 
 
+def _inner_size(sizes: Dict[str, int], axis: str) -> int:
+    """The ranks between two neighbours along ``axis`` (row-major)."""
+    return math.prod(sizes.get(a, 1) for a in AXIS_ORDER[AXIS_ORDER.index(axis) + 1:])
+
+
+def _rank_group(n: int, inner: int, world: int, rank: int, group):
+    """The group of ``n`` ranks ``inner`` apart that holds ``rank``.  Every
+    rank calls ``new_group`` for every such group, in the same order, as
+    ``torch.distributed`` requires; a group of the whole world is
+    ``group`` itself."""
+    if n == world:
+        return group
+    mine = None
+    for base in range(world):
+        if (base // inner) % n:
+            continue  # not the first rank of its group
+        members = [base + i * inner for i in range(n)]
+        made = dist.new_group(
+            members if group is dist.group.WORLD
+            else [dist.get_global_rank(group, m) for m in members])
+        if rank in members:
+            mine = made
+    return mine
+
+
 def _axis_groups(sizes: Dict[str, int], world: int, rank: int, group) -> Dict[str, Any]:
     """One process group per axis of more than one rank: the group of
-    this rank's neighbours along it.  Every rank calls ``new_group`` for
-    every group, in the same order, as ``torch.distributed`` requires; an
-    axis that spans the whole world takes ``group`` itself."""
-    groups: Dict[str, Any] = {}
-    for axis in AXIS_ORDER:
-        n = sizes[axis]
-        if n == 1:
-            continue
-        if n == world:
-            groups[axis] = group
-            continue
-        inner = math.prod(sizes[a] for a in AXIS_ORDER[AXIS_ORDER.index(axis) + 1:])
-        for base in range(world):
-            if (base // inner) % n:
-                continue  # not the first rank of its group along the axis
-            members = [base + i * inner for i in range(n)]
-            made = dist.new_group(
-                members if group is dist.group.WORLD
-                else [dist.get_global_rank(group, m) for m in members])
-            if rank in members:
-                groups[axis] = made
-    return groups
+    this rank's neighbours along it."""
+    return {axis: _rank_group(sizes[axis], _inner_size(sizes, axis), world, rank, group)
+            for axis in AXIS_ORDER if sizes[axis] > 1}
+
+
+def _data_group(sizes: Dict[str, int], world: int, rank: int, group):
+    """The group of the ranks that share this rank's coordinates off the
+    data axes (module docstring); None where that is one rank.  ``data``
+    and ``fsdp`` neighbour each other in ``AXIS_ORDER``, so these ranks
+    lie as one axis's do."""
+    n = math.prod(sizes[a] for a in DATA_AXES)
+    if n == 1:
+        return None
+    return _rank_group(n, _inner_size(sizes, "fsdp"), world, rank, group)
 
 
 def create_mesh(spec: Optional[MeshSpec] = None, *, group=None) -> Mesh:
     """The mesh of ``spec`` over the processes of ``group`` (the default
     group; one process and no group when ``torch.distributed`` is not
-    initialised) — the reference's ``hvd.init()`` world.  Axes other than
-    ``data`` and ``tensor`` greater than 1 raise (module docstring)."""
+    initialised) — the reference's ``hvd.init()`` world.  ``seq``,
+    ``pipe`` and ``expert`` greater than 1 raise (module docstring)."""
     spec = spec or MeshSpec()
     world, rank = _world(group)
     if group is None and world > 1:
@@ -155,25 +186,24 @@ def create_mesh(spec: Optional[MeshSpec] = None, *, group=None) -> Mesh:
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"create_mesh: {axis}={sizes[axis]} is {where}; the port's "
-                "mesh takes the data and tensor axes only"
+                "mesh takes the data, fsdp and tensor axes only"
             )
-    return Mesh(shape=sizes, size=world, rank=rank, group=group,
-                groups=_axis_groups(sizes, world, rank, group))
+    groups = _axis_groups(sizes, world, rank, group)
+    return Mesh(shape=sizes, size=world, rank=rank, group=group, groups=groups,
+                data_group=_data_group(sizes, world, rank, group))
 
 
-def require_data_only(mesh: Optional[Mesh], what: str) -> None:
-    """Refuse a mesh with a model axis above 1 where only data
-    parallelism is ported (``what`` names the caller): tensor-parallel
-    training is ROADMAP A5's FSDP / ``param_shardings`` item."""
+def require_ported(mesh: Optional[Mesh], what: str) -> None:
+    """Refuse a mesh with an axis the port does not take yet (``seq``,
+    ``pipe``, ``expert`` above 1; ``what`` names the caller).  A mesh
+    built by :func:`create_mesh` never has one; a hand-made one may."""
     if mesh is None:
         return
-    model = {a: n for a, n in mesh.shape.items() if a not in DATA_AXES and n > 1}
-    if model:
-        raise NotImplementedError(
-            f"{what}: a mesh with {model} shards the model; tensor-parallel "
-            "training is ROADMAP A5's FSDP / param_shardings item, and the "
-            "port trains data-parallel only"
-        )
+    for axis, where in _NOT_YET.items():
+        if mesh.shape.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"{what}: {axis}={mesh.shape[axis]} is {where}; the port "
+                "trains over the data, fsdp and tensor axes only")
 
 
 def world_size(mesh: Optional[Mesh] = None) -> int:
@@ -185,12 +215,15 @@ def world_size(mesh: Optional[Mesh] = None) -> int:
 
 def tensor_parallel_size(mesh: Optional[Mesh]) -> int:
     """Size of the ``tensor`` axis (1 for no mesh — unsharded serving)."""
-    return int(mesh.shape["tensor"]) if mesh is not None else 1
+    return int(mesh.shape.get("tensor", 1)) if mesh is not None else 1
 
 
 def data_parallel_size(mesh: Mesh) -> int:
-    """Number of data-parallel replicas (batch shards): data x fsdp."""
-    return int(math.prod(mesh.shape[a] for a in DATA_AXES))
+    """Number of data-parallel replicas (batch shards): data x fsdp, the
+    world over the other axes (an axis a hand-made mesh leaves out is
+    1)."""
+    return mesh.size // math.prod(n for a, n in mesh.shape.items()
+                                  if a not in DATA_AXES)
 
 
 def local_device_count() -> int:

@@ -40,14 +40,29 @@ tp)``: the layout a rank of the reference's ``shard_map`` attention sees.
 are head-major (the attention output's ``reshape(b, d)`` puts heads
 first), so a rank's ``proj`` rows are exactly its heads' outputs.
 
-``logical_to_spec`` and ``param_shardings`` wait for FSDP (ROADMAP A5).
+The logical-axis rules of training.  :data:`RULES_DP`, :data:`RULES_FSDP`,
+:data:`RULES_TP` and :data:`RULES_EP` are the reference's rule sets, and
+:func:`logical_to_spec` / :func:`param_shardings` map a tree's logical
+axis names through them exactly as the reference does (first matching
+rule wins, a mesh axis is used once per leaf, a mapping is dropped where
+the dim does not divide by the axis size), giving the reference's
+``PartitionSpec`` as a plain tuple, one entry a dim.  A
+:class:`ParamLayout` holds those specs for one parameter tree on one mesh:
+:meth:`ParamLayout.shard` gives this rank its slice of a global tree
+(every rank holds the same global tree first), :meth:`ParamLayout.gather`
+gives every rank the global arrays back (the checkpoint's layout), and
+:meth:`ParamLayout.axes` says which mesh axes a leaf is split over (the
+train step's gradient reductions and the clip norm read it).  A ``qkv``
+leaf split over ``tensor`` is head-aligned as above; split over any other
+axis (``fsdp``, storage only: the model gathers it before use) its blocks
+are contiguous.
 """
 
 from __future__ import annotations
 
 import hashlib
 import re
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +71,7 @@ from distributeddeeplearning_tpu_torch.parallel import collectives
 from distributeddeeplearning_tpu_torch.parallel.mesh import (
     DATA_AXES,
     Mesh,
+    data_parallel_size,
     tensor_parallel_size,  # noqa: F401 — the reference's home of it
 )
 from distributeddeeplearning_tpu_torch.quant.qtensor import QTensor
@@ -77,12 +93,16 @@ def batch_spec(ndim: int) -> Tuple:
 
 
 def local_rows(mesh: Mesh, n: int) -> slice:
-    """This rank's rows of a global batch of ``n``."""
-    if n % mesh.size:
-        raise ValueError(f"global batch {n} not divisible by the {mesh.size} "
-                         "data-parallel ranks")
-    per = n // mesh.size
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    """This rank's rows of a global batch of ``n``: block ``data_index``
+    of the data-parallel shards (the ranks of one shard, which differ only
+    off the data axes, hold the same rows)."""
+    shards = data_parallel_size(mesh)
+    if n % shards:
+        raise ValueError(f"global batch {n} not divisible by the {shards} "
+                         "data-parallel shards")
+    per = n // shards
+    i = mesh.data_index()
+    return slice(i * per, (i + 1) * per)
 
 
 def shard_batch(mesh: Mesh, batch):
@@ -99,7 +119,9 @@ def shard_batch(mesh: Mesh, batch):
 @torch.no_grad()
 def replicate_params(mesh: Mesh, state):
     """Overwrite this rank's parameters, BatchNorm statistics and optimizer
-    state with rank 0's, in place; returns ``state``."""
+    state with rank 0's, in place; returns ``state``.  Replicated
+    parameters only (a sharded state draws the global tree on every rank
+    and keeps its slice: ``ParamLayout.shard``)."""
     if mesh.group is None:
         return state
     for leaf in tree_leaves([state.params, state.batch_stats, state.opt_state]):
@@ -320,3 +342,163 @@ def shard_params(params, mesh: Mesh):
                            head_aligned=bool(_HEAD_ALIGNED.search(name))).contiguous()
 
     return take(params, "params")
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis rules (the reference's flax partitioning convention)
+# ---------------------------------------------------------------------------
+
+Rules = Sequence[Tuple[str, Optional[str]]]
+
+#: pure data parallelism: every parameter replicated (Horovod semantics)
+RULES_DP: Rules = []
+
+#: ZeRO-3: the widest axes of embeddings, MLPs and heads over fsdp
+RULES_FSDP: Rules = [
+    ("embed", "fsdp"),
+    ("mlp", "fsdp"),
+    ("heads", "fsdp"),
+    ("conv_out", "fsdp"),
+]
+
+#: Megatron: column-parallel then row-parallel projections over tensor
+RULES_TP: Rules = [
+    ("mlp", "tensor"),
+    ("heads", "tensor"),
+    ("kv", "tensor"),
+    ("embed", "fsdp"),
+]
+
+#: expert parallelism: stacked expert weights [E, ...] over expert
+RULES_EP: Rules = [
+    ("expert", "expert"),
+]
+
+
+def logical_to_spec(logical_axes: Tuple[Optional[str], ...], rules: Rules, *,
+                    mesh: Optional[Mesh] = None,
+                    shape: Optional[Tuple[int, ...]] = None) -> Spec:
+    """A tuple of logical axis names -> a spec, one entry a dim (the
+    reference's ``PartitionSpec``): the first matching rule wins, a mesh
+    axis is used at most once, unmatched names replicate, and with
+    ``mesh`` and ``shape`` a mapping whose dim does not divide by the axis
+    size is dropped (replicated)."""
+    taken: set = set()
+    out: List[Optional[str]] = []
+    for i, name in enumerate(logical_axes):
+        mapped = None
+        if name is not None:
+            for logical, mesh_axis in rules:
+                if logical == name and mesh_axis is not None and mesh_axis not in taken:
+                    if (mesh is not None and shape is not None
+                            and shape[i] % mesh.shape.get(mesh_axis, 1) != 0):
+                        continue
+                    mapped = mesh_axis
+                    taken.add(mesh_axis)
+                    break
+        out.append(mapped)
+    return tuple(out)
+
+
+def param_shardings(mesh: Mesh, params, rules: Rules = RULES_DP,
+                    logical_axes=None):
+    """The spec of every parameter leaf, as a tree shaped like ``params``:
+    ``()`` (replicated) for every leaf without ``logical_axes`` or where a
+    leaf's axes are None, else :func:`logical_to_spec` of its axes, the
+    leaf's shape deciding the divisibility drop."""
+    def walk(p, axes):
+        if isinstance(p, dict):
+            return {k: walk(v, None if axes is None else axes.get(k))
+                    for k, v in p.items()}
+        if axes is None:
+            return ()
+        return logical_to_spec(tuple(axes), rules, mesh=mesh,
+                               shape=tuple(p.shape))
+    return walk(params, logical_axes if logical_axes is not None else None)
+
+
+def _split_axes(spec: Spec, mesh: Mesh) -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that ``spec`` splits over."""
+    return tuple(ax for entry in spec for ax in _entry_axes(entry)
+                 if mesh.shape.get(ax, 1) > 1)
+
+
+def _tensor_head_aligned(name: str, spec: Spec) -> bool:
+    """Whether a leaf's last-dim split is head-aligned (module docstring):
+    ``qkv`` split over ``tensor``."""
+    return (bool(_HEAD_ALIGNED.search(name)) and len(spec) > 0
+            and "tensor" in _entry_axes(spec[-1]))
+
+
+class ParamLayout:
+    """Where each leaf of a parameter tree lives on ``mesh``: ``specs``
+    maps each leaf's name (``named_leaves``, e.g. ``blocks/qkv``) to its
+    spec (module docstring)."""
+
+    def __init__(self, mesh: Mesh, specs: Dict[str, Spec]):
+        self.mesh = mesh
+        self.specs = dict(specs)
+
+    @classmethod
+    def from_rules(cls, mesh: Mesh, params, rules: Rules = RULES_DP,
+                   logical_axes=None) -> "ParamLayout":
+        """The layout of a GLOBAL ``params`` tree under ``rules``."""
+        return cls(mesh, dict(_spec_leaves(param_shardings(
+            mesh, params, rules, logical_axes))))
+
+    @property
+    def sharded(self) -> bool:
+        """Whether any leaf is split over an axis of more than one rank."""
+        return any(self.axes(n) for n in self.specs)
+
+    def head_aligned(self, name: str) -> bool:
+        """Whether leaf ``name``'s last-dim split is head-aligned."""
+        return _tensor_head_aligned(name, self.specs[name])
+
+    def axes(self, name: str) -> Tuple[str, ...]:
+        """The mesh axes of more than one rank leaf ``name`` is split over."""
+        return _split_axes(self.specs[name], self.mesh)
+
+    def shard(self, tree):
+        """This rank's slice of the global ``tree`` (contiguous copies; a
+        leaf split over nothing comes back as it is)."""
+        def take(node, name):
+            if isinstance(node, dict):
+                return {k: take(v, f"{name}/{k}" if name else k)
+                        for k, v in node.items()}
+            spec = self.specs[name]
+            if not _split_axes(spec, self.mesh):
+                return node
+            return local_slice(node, spec, self.mesh,
+                               head_aligned=_tensor_head_aligned(name, spec)
+                               ).contiguous()
+        return take(tree, "")
+
+    def gather(self, tree):
+        """The global arrays of this rank's ``tree`` (a collective over the
+        split axes' groups: every rank calls it, in the same order)."""
+        def join(node, name):
+            if isinstance(node, dict):
+                return {k: join(v, f"{name}/{k}" if name else k)
+                        for k, v in node.items()}
+            return self.gather_leaf(node, name)
+        return join(tree, "")
+
+    def gather_leaf(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        spec = self.specs[name]
+        t = t.detach()
+        for i, entry in enumerate(spec):
+            for ax in reversed(_entry_axes(entry)):  # innermost block first
+                if self.mesh.shape.get(ax, 1) > 1:
+                    t = collectives.gather_dim(t, i, self.mesh.axis_group(ax),
+                                   head_aligned=_tensor_head_aligned(name, spec)
+                                   and i == len(spec) - 1)
+        return t
+
+
+def _spec_leaves(tree, prefix: str = "") -> List[Tuple[str, Spec]]:
+    """``(name, spec)`` of a spec tree (specs are tuples: the leaves)."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in _spec_leaves(v, f"{prefix}/{k}" if prefix else k)]
+    return [(prefix, tree)]

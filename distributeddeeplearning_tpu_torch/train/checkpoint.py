@@ -65,8 +65,16 @@ save all-gathers them to their global vectors (the reference's global
 arrays) and records their world as ``state/['comm_world']``; a restore
 on the same world size hands each rank its own block; a restore on
 another world size raises (the reference re-lays-out through orbax;
-ROADMAP A5).  ``wait`` ends with a barrier, so a restore reads landed
-generations, and only rank 0 evicts, after every rank has read.
+ROADMAP A5.4).  A state laid out over model axes (``TrainState.layout``,
+fsdp and tensor slices of the params and of the optimizer moments that
+mirror them) is saved the same way: a save gathers each split leaf to
+its global array, in the reference's layout (``qkv``'s columns in its
+q, k, v order), and records the mesh's axis sizes as
+``state/['mesh']``, so the generation holds the arrays a one-process fit
+would; a restore on the same mesh hands each rank its slice, and one on
+another mesh raises (A5.4).  ``wait`` ends with a barrier, so a restore
+reads landed generations, and only rank 0 evicts, after every rank has
+read.
 """
 
 from __future__ import annotations
@@ -89,7 +97,13 @@ import torch
 from distributeddeeplearning_tpu_torch.obs import goodput as _goodput
 from distributeddeeplearning_tpu_torch.obs.trace import get_tracer
 from distributeddeeplearning_tpu_torch.parallel import collectives
-from distributeddeeplearning_tpu_torch.parallel.comms import RankShards
+from distributeddeeplearning_tpu_torch.parallel.comms import (
+    RankShards,
+    map_params_subtrees,
+    tree_structure,
+)
+from distributeddeeplearning_tpu_torch.parallel.mesh import AXIS_ORDER
+from distributeddeeplearning_tpu_torch.parallel.sharding import local_slice
 from distributeddeeplearning_tpu_torch.train.state import is_sequence_node
 from distributeddeeplearning_tpu_torch.utils import faults as faults_mod
 from distributeddeeplearning_tpu_torch.utils.retry import retry_call
@@ -125,6 +139,39 @@ class _Block:
     def part(self, whole: torch.Tensor) -> torch.Tensor:
         n = self.tensor.shape[0]
         return whole[self.rank * n:(self.rank + 1) * n]
+
+
+class _Slice(_Block):
+    """A restore template's slice of a leaf laid out by a ``ParamLayout``:
+    ``tensor`` is this rank's slice of a global array of ``shape``."""
+
+    def __init__(self, tensor: torch.Tensor, name: str, layout):
+        self.tensor, self.name, self.layout = tensor, name, layout
+        self.spec = layout.specs[name]
+        self.head_aligned = layout.head_aligned(name)
+        shape = list(tensor.shape)
+        for i, entry in enumerate(self.spec):
+            for ax in (() if entry is None else (entry,) if isinstance(entry, str)
+                       else entry):
+                shape[i] *= layout.mesh.shape.get(ax, 1)
+        self.shape = torch.Size(shape)
+        self.dtype = tensor.dtype
+
+    def part(self, whole: torch.Tensor) -> torch.Tensor:
+        return local_slice(whole, self.spec, self.layout.mesh,
+                           head_aligned=self.head_aligned)
+
+
+def _layout(state):
+    """The state's ``ParamLayout`` when it splits a leaf, else None."""
+    layout = getattr(state, "layout", None)
+    return layout if layout is not None and layout.sharded else None
+
+
+def _mesh_record(layout) -> torch.Tensor:
+    """The mesh's axis sizes in ``AXIS_ORDER``, as a checkpoint leaf."""
+    return torch.tensor([layout.mesh.shape.get(a, 1) for a in AXIS_ORDER],
+                        dtype=torch.int32)
 
 
 def _rank_blocks(tree, fn):
@@ -458,22 +505,35 @@ class Checkpointer:
         self.write_wait_s = 0.0
 
     @staticmethod
-    def _state_items(state, blocks=None) -> Dict[str, Any]:
+    def _state_items(state, blocks=None, leaves=None) -> Dict[str, Any]:
         """The two items of ``state``; ``blocks`` maps its rank blocks
         (all-gathered to global vectors for a save, :class:`_Block`
-        views for a restore)."""
+        views for a restore) and ``leaves(tree)`` its param-shaped trees
+        under a sharded layout (gathered to global arrays for a save,
+        :class:`_Slice` views for a restore)."""
         opt = state.opt_state
         world = _comm_world(opt)
+        params = state.params
         out = {"step": int(state.step), "opt_state": opt,
                "batch_stats": state.batch_stats}
         if world is not None:
             out["opt_state"] = _rank_blocks(opt, blocks) if blocks else opt
             out["comm_world"] = world
-        return {"params": state.params, "state": out}
+        layout = _layout(state)
+        if layout is not None:
+            if leaves is not None:
+                params = leaves(params)
+                out["opt_state"] = map_params_subtrees(
+                    opt, tree_structure(state.params), leaves, lambda leaf: leaf)
+            out["mesh"] = _mesh_record(layout)
+        return {"params": params, "state": out}
 
     def _gathered_items(self, state) -> Dict[str, Any]:
-        return self._state_items(state, lambda shards: tuple(
-            collectives.all_gather(t.detach(), shards.group) for t in shards))
+        layout = _layout(state)
+        return self._state_items(
+            state, lambda shards: tuple(
+                collectives.all_gather(t.detach(), shards.group) for t in shards),
+            None if layout is None else layout.gather)
 
     def _agree(self, value):
         """Rank 0's ``value`` on every rank."""
@@ -514,7 +574,8 @@ class Checkpointer:
         t0 = time.perf_counter()
         with get_tracer().span("ckpt/save", step=step):
             # every rank joins the gather of the rank blocks; rank 0 writes
-            items = (self._gathered_items(state) if _comm_world(state.opt_state)
+            items = (self._gathered_items(state)
+                     if _comm_world(state.opt_state) or _layout(state)
                      else self._state_items(state))
             if not self.primary:
                 return True
@@ -684,8 +745,19 @@ class Checkpointer:
         if not candidates and not rejected:
             return state_template, None
         doomed = list(rejected)
-        want = self._state_items(state_template, lambda shards: tuple(
-            _Block(t, shards.rank, shards.world) for t in shards))
+        layout = _layout(state_template)
+
+        def slices(tree, name=""):
+            """The :class:`_Slice` of every leaf of a params-shaped tree."""
+            if isinstance(tree, dict):
+                return {k: slices(v, f"{name}/{k}" if name else k)
+                        for k, v in tree.items()}
+            return _Slice(tree, name, layout)
+
+        want = self._state_items(
+            state_template, lambda shards: tuple(
+                _Block(t, shards.rank, shards.world) for t in shards),
+            None if layout is None else slices)
         try:
             for step in candidates:
                 items = self._read_verified(step, ITEMS)
@@ -719,8 +791,9 @@ class Checkpointer:
 
     @staticmethod
     def _check_world(step: int, want, items) -> None:
-        """Raise when the generation's rank blocks come from another world
-        than the template's (never a fall-back: the data is good)."""
+        """Raise when the generation's rank blocks come from another world,
+        or its slices from another mesh, than the template's (never a
+        fall-back: the data is good)."""
         have = items["state"].get("['comm_world']")
         have = None if have is None else int(have)
         mine = want["state"].get("comm_world")
@@ -729,7 +802,17 @@ class Checkpointer:
                 f"checkpoint generation {step} holds the comm layout of a world "
                 f"of {have} ranks and this state that of {mine}: restoring on "
                 "another world size is not supported in the port (the "
-                "reference re-lays-out through orbax; ROADMAP A5)")
+                "reference re-lays-out through orbax; ROADMAP A5.4)")
+        have = items["state"].get("['mesh']")
+        have = None if have is None else dict(zip(AXIS_ORDER, have.tolist()))
+        mine = want["state"].get("mesh")
+        mine = None if mine is None else dict(zip(AXIS_ORDER, mine.tolist()))
+        if have != mine:
+            raise ValueError(
+                f"checkpoint generation {step} was saved sharded over the mesh "
+                f"{have} and this state is laid out over {mine}: restoring on "
+                "another mesh is not supported in the port (the reference "
+                "re-lays-out through orbax; ROADMAP A5.4)")
 
     def _match(self, step: int, want, items):
         """(template tensor, read tensor) pairs, or None when a leaf is
@@ -738,7 +821,7 @@ class Checkpointer:
         for name, tree in want.items():
             for key, dst in flatten(tree):
                 src = items[name].get(key)
-                if key in ("['step']", "['comm_world']"):
+                if key in ("['step']", "['comm_world']", "['mesh']"):
                     continue
                 if src is None or src.shape != dst.shape or src.dtype != dst.dtype:
                     self._note_failure(step, f"leaf {name}/{key} does not fit the "

@@ -34,13 +34,16 @@ and ``train/emergency_checkpoint``, a per-epoch registry rollup
 ``torch.profiler`` window (``profile_dir``) and TensorBoard's scalars.
 Data parallelism (``mesh=`` a process mesh, one process per device, as
 the reference's multi-host trainer): every rank runs the loop over its
-own batches; only the primary rank (rank 0) writes the metrics rows,
+own batches; only the primary rank (world rank 0) writes the metrics rows,
 TensorBoard's scalars, the registry snapshot and the profile, and logs
 the epoch lines; ``global_batch_size`` is the world's, so images/s are
 totals over the world; checkpoints are the checkpointer's collective
 saves; :meth:`Trainer.evaluate` drains at most ``eval_buffer_batches``
 batches, agrees on the smallest count over the ranks with one
-all-gather and weights each batch by its rows.
+all-gather and weights each batch by its rows.  A mesh with model axes
+(fsdp, tensor) trains the same way: the ranks of one data shard see the
+same batches, and a checkpoint holds the global arrays
+(:mod:`.checkpoint`).
 
 Two departures from the reference: the scalars go to
 ``<tensorboard_dir>/scalars.jsonl`` as ``{"tag", "value", "step"}`` rows
@@ -66,7 +69,10 @@ from distributeddeeplearning_tpu_torch.obs.registry import get_registry
 from distributeddeeplearning_tpu_torch.obs.trace import get_tracer
 from distributeddeeplearning_tpu_torch.parallel import collectives
 from distributeddeeplearning_tpu_torch.parallel.distributed import is_primary
-from distributeddeeplearning_tpu_torch.parallel.mesh import require_data_only
+from distributeddeeplearning_tpu_torch.parallel.mesh import (
+    data_parallel_size,
+    require_ported,
+)
 from distributeddeeplearning_tpu_torch.train.checkpoint import Checkpointer
 from distributeddeeplearning_tpu_torch.train.resilience import (
     AnomalyDetector,
@@ -279,7 +285,7 @@ class Trainer:
                  mesh=None):
         if config.steps_per_epoch <= 0:
             raise ValueError("steps_per_epoch must be positive")
-        require_data_only(mesh, "Trainer")
+        require_ported(mesh, "Trainer")
         self.train_step = train_step
         self.eval_step = eval_step
         self.config = config
@@ -646,8 +652,9 @@ class Trainer:
         eval step's collectives alone and hang: the ranks agree ONCE a pass
         on a common count (each drains at most ``eval_buffer_batches``
         batches, one all-gather takes the minimum) and each runs exactly
-        that many.  A batch weighs its rows over the world (the eval
-        step's metrics are the global batch's means)."""
+        that many.  A batch weighs its rows over the data shards (the
+        eval step's metrics are the global batch's means; the ranks of one
+        shard hold the same rows and are counted once)."""
         limit = self.config.eval_steps
         group = None if self.mesh is None else self.mesh.group
         rows = None
@@ -657,7 +664,8 @@ class Trainer:
             counts = collectives.all_gather_object(
                 [len(next(iter(b.values()))) for b in local], group)
             limit = min(len(c) for c in counts)
-            rows = [sum(c[i] for c in counts) for i in range(limit)]
+            copies = self.mesh.size // data_parallel_size(self.mesh)
+            rows = [sum(c[i] for c in counts) // copies for i in range(limit)]
             eval_batches = iter(local[:limit])
         sums: Dict[str, torch.Tensor] = {}
         total_weight = steps = 0

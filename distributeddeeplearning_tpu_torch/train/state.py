@@ -21,6 +21,13 @@ model without them): they take no gradient and no weight decay, and a
 train step replaces them with the model's new ones together with the
 update (kept where the update is skipped).  :func:`create_train_state`
 builds the state of an image model from its ``init``.
+
+Sharded training (``TrainState.layout``, a ``parallel.sharding.
+ParamLayout``): the params are this rank's slices, and the optimizers
+work on them unchanged, so AdamW's ``mu`` and ``nu`` and SGD's ``trace``
+take each shard's shape (ZeRO's contract).  Clipping then needs the norm
+of the whole tree, not of this rank's slice: the train step computes it
+(``collectives.sharded_global_norm``) and passes it as ``grad_norm``.
 """
 
 from __future__ import annotations
@@ -122,10 +129,15 @@ class AdamW(_Optimizer):
                 "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def apply(self, params: Params, grads: Params, opt_state, ok=None) -> None:
+    def apply(self, params: Params, grads: Params, opt_state, ok=None, *,
+              grad_norm: Optional[torch.Tensor] = None) -> None:
+        """``grad_norm``: the global norm the clip divides by, when
+        ``grads`` are slices of a sharded tree (module docstring); None
+        computes it from ``grads``."""
         b1, b2 = self.b1, self.b2
-        g_all = tree_leaves(grads)
-        norm = global_norm(g_all) if self.grad_clip_norm else None
+        norm = None
+        if self.grad_clip_norm:
+            norm = global_norm(tree_leaves(grads)) if grad_norm is None else grad_norm
         count = opt_state["count"]
         count_inc = count + 1
         lr = self._lr(count)  # read before the increment, as optax does
@@ -162,7 +174,9 @@ class SGDMomentum(_Optimizer):
                 "trace": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def apply(self, params: Params, grads: Params, opt_state, ok=None) -> None:
+    def apply(self, params: Params, grads: Params, opt_state, ok=None, *,
+              grad_norm: Optional[torch.Tensor] = None) -> None:
+        del grad_norm  # no clip
         count = opt_state["count"]
         lr = self._lr(count)
         for p, g, t in tree_zip(params, grads, opt_state["trace"]):
@@ -197,7 +211,9 @@ class TrainState:
 
     ``step`` is a host int (the count of train-step calls, skipped updates
     included); the optimizer keeps its own count on the device.  Floating
-    param leaves are set to require grad on construction."""
+    param leaves are set to require grad on construction.  ``layout``: the
+    ``parallel.sharding.ParamLayout`` of sharded params (module
+    docstring), None for replicated ones."""
 
     step: int
     params: Params
@@ -205,6 +221,7 @@ class TrainState:
     apply_fn: Callable
     tx: Any
     batch_stats: Params = dataclasses.field(default_factory=dict)
+    layout: Any = None
 
     def __post_init__(self):
         for leaf in tree_leaves(self.params):
@@ -218,11 +235,13 @@ class TrainState:
                    apply_fn=apply_fn, tx=tx, batch_stats=batch_stats or {})
 
     def apply_gradients(self, grads: Params, ok=None,
-                        batch_stats: Optional[Params] = None) -> "TrainState":
+                        batch_stats: Optional[Params] = None,
+                        grad_norm: Optional[torch.Tensor] = None) -> "TrainState":
         """Update in place (skipped where ``ok`` is False), and take
         ``batch_stats`` as the new running statistics under the same
-        condition; step advances either way."""
-        self.tx.apply(self.params, grads, self.opt_state, ok)
+        condition; step advances either way.  ``grad_norm``: the clip's
+        global norm of sharded gradients (module docstring)."""
+        self.tx.apply(self.params, grads, self.opt_state, ok, grad_norm=grad_norm)
         if batch_stats is not None:
             with torch.no_grad():
                 for old, new in tree_zip(self.batch_stats, batch_stats):
@@ -240,3 +259,28 @@ def create_train_state(generator: Optional[torch.Generator], model, input_shape,
     variables = model.init(generator, input_shape, device=device)
     return TrainState.create(params=variables["params"], apply_fn=model, tx=tx,
                              batch_stats=variables.get("batch_stats", {}))
+
+
+def shard_state(state: TrainState, layout) -> TrainState:
+    """Lay ``state`` out by ``layout`` (a ``parallel.sharding.ParamLayout``)
+    IN PLACE: its global params become this rank's slices and the
+    optimizer state is made anew on them (its moments take the shards'
+    shapes); returns ``state``.  A fresh state only (step 0): a trained
+    one restores from a checkpoint instead.  Laying a state out again by
+    the same specs does nothing; by others raises."""
+    if state.layout is not None:
+        if state.layout.specs != layout.specs or state.layout.mesh.shape != layout.mesh.shape:
+            raise ValueError("the state is already laid out otherwise")
+        return state
+    if state.step != 0:
+        raise ValueError("shard_state lays out a fresh state (step 0); a "
+                         "trained one restores from a checkpoint")
+    with torch.no_grad():
+        params = layout.shard(tree_map(lambda t: t.detach(), state.params))
+    state.params = params
+    for leaf in tree_leaves(params):
+        if leaf.is_floating_point():
+            leaf.requires_grad_(True)
+    state.opt_state = state.tx.init(params)
+    state.layout = layout
+    return state

@@ -57,6 +57,24 @@ process group, one process per device, each step given this rank's rows):
   generators are seeded from ``(rng, step, microbatch, rank)``, held to
   within-port determinism only.
 
+Model axes (``mesh`` with ``fsdp`` or ``tensor`` above 1, and the
+reference's ``rules=`` and ``logical_axes=``): the builders lay the
+example state out by :class:`..parallel.sharding.ParamLayout` (its params
+become this rank's slices, its optimizer moments the slices' shapes;
+``train.state.shard_state``), and the model runs its own collectives on
+those slices (``models.pipelined_transformer``'s ``layout=``).  Every
+data-parallel reduction runs over the mesh's ``data_group``, the ranks
+that hold the same slice of the model; the ranks of one data shard (its
+``tensor`` ranks) see the same rows.  Gradients: a leaf split over
+``fsdp`` arrives summed over fsdp (the reduce-scatter of the model's
+gather) and is summed over ``data``; every other leaf is summed over the
+data axes; tensor-split leaves take no reduction over ``tensor``; all are
+divided by the data shards.  The clip norm and ``skip_nonfinite``'s
+norm are the whole tree's (``collectives.sharded_global_norm``: each
+leaf's squares summed over the axes it is split on, a replicated leaf
+counted once).  ``comm_overlap`` with a model axis is refused, as in the
+reference.
+
 Without a mesh the step is one process on one device, as before.
 """
 
@@ -72,13 +90,20 @@ from distributeddeeplearning_tpu_torch.parallel import collectives, comms
 from distributeddeeplearning_tpu_torch.parallel.mesh import (
     create_mesh,
     data_parallel_size,
-    require_data_only,
+    require_ported,
+    tensor_parallel_size,
+)
+from distributeddeeplearning_tpu_torch.parallel.sharding import (
+    RULES_DP,
+    ParamLayout,
+    named_leaves,
 )
 from distributeddeeplearning_tpu_torch.train.schedule import Schedule
 from distributeddeeplearning_tpu_torch.train.state import (
     TrainState,
     _commit,
     global_norm,
+    shard_state,
     tree_leaves,
     tree_zip,
 )
@@ -202,10 +227,35 @@ def _all_reduce_mean(grads, group, world: int):
     return out
 
 
+def _model_axes(mesh) -> bool:
+    """Whether ``mesh`` shards the model (fsdp or tensor above 1)."""
+    return mesh is not None and (tensor_parallel_size(mesh) > 1
+                                 or mesh.shape.get("fsdp", 1) > 1)
+
+
+def _lay_out(state_example, mesh, rules, logical_axes, what: str):
+    """The example state's :class:`ParamLayout` under ``rules`` and
+    ``logical_axes``, laying a fresh state out first (module docstring;
+    a state already laid out keeps its layout, the one its model reads);
+    None for replicated params."""
+    if rules is None and logical_axes is None:
+        return None if state_example is None else state_example.layout
+    if state_example is None or mesh is None:
+        raise ValueError(f"{what}: rules/logical_axes need the mesh and the "
+                         "example state they lay out")
+    if state_example.layout is None:
+        shard_state(state_example, ParamLayout.from_rules(
+            mesh, state_example.params, RULES_DP if rules is None else rules,
+            logical_axes))
+    return state_example.layout
+
+
 def build_train_step(
     state_example: Optional[TrainState] = None,
     *,
     mesh=None,
+    rules=None,
+    logical_axes=None,
     compute_dtype: torch.dtype = torch.bfloat16,
     label_smoothing: float = 0.0,
     schedule: Optional[Schedule] = None,
@@ -228,7 +278,10 @@ def build_train_step(
     make the bucket layout) and otherwise only accepted for signature
     parity; ``bucket_mb``, as in the reference, only matters with
     ``comm_overlap``.  ``mesh`` makes the step data-parallel (module
-    docstring); the batch it is given is this rank's rows.
+    docstring); the batch it is given is this rank's rows.  ``rules`` and
+    ``logical_axes`` (the reference's) shard the model over the mesh's
+    fsdp and tensor axes: ``state_example`` is then laid out in place
+    (module docstring) and is the state to train.
     ``comm_overlap``, ``bucket_mb``, ``comm_dtype`` (``COMM_DTYPES``),
     ``weight_update_sharding`` and ``comm_skip`` (timing only: the
     collectives are left out and the numbers are garbage) are the
@@ -245,9 +298,13 @@ def build_train_step(
     ``moe_aux_weight`` weights the mixture-of-experts load-balance terms
     added to the loss.
     """
-    require_data_only(mesh, "build_train_step")
+    require_ported(mesh, "build_train_step")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if comm_overlap and _model_axes(mesh):
+        raise ValueError(
+            "comm_overlap is the explicit replicated-params DP schedule; it "
+            "does not compose with pipe/seq/fsdp/tensor")
     if comm_overlap:
         if comm_dtype not in COMM_DTYPES and comm_dtype is not torch.bfloat16:
             raise ValueError(
@@ -272,9 +329,20 @@ def build_train_step(
             "weight_update_sharding/comm_skip/comm_dtype require "
             "comm_overlap=True"
         )
-    group = None if mesh is None else mesh.group  # None: no collectives
-    world = mesh.size if mesh is not None else 1
-    salt = () if group is None else (mesh.rank,)
+    layout = _lay_out(state_example, mesh, rules, logical_axes, "build_train_step")
+    # the data-parallel reductions' group (None: one data shard, nothing to
+    # reduce) and the data shards; dropout seeds by the shard, so the
+    # ranks of one shard draw the same masks
+    group = None if mesh is None else mesh.data_group
+    world = 1 if mesh is None else data_parallel_size(mesh)
+    salt = () if mesh is None or mesh.group is None else (mesh.data_index(),)
+    sharded = layout is not None and layout.sharded
+    if sharded:
+        axes = [layout.axes(n) for n, _ in named_leaves(state_example.params)]
+        # leaves gathered over fsdp by the model come back summed over fsdp
+        over_fsdp = [i for i, a in enumerate(axes) if "fsdp" in a]
+        rest = [i for i, a in enumerate(axes) if "fsdp" not in a]
+        data_only = mesh.axis_group("data")
 
     generators: Dict[torch.device, torch.Generator] = {}  # one per device, reseeded
 
@@ -326,18 +394,27 @@ def build_train_step(
             metrics = {k: torch.stack([m[k] for m in stack]).mean()
                        for k in stack[0]}
         if group is not None:
-            # the global-batch mean gradient and metrics (equal rows a rank)
-            grads = _all_reduce_mean(grads, group, world)
+            # the global-batch mean gradient and metrics (equal rows a shard)
+            if sharded:
+                grads = _reduce_sharded(grads, over_fsdp, rest, group, data_only,
+                                        world)
+            else:
+                grads = _all_reduce_mean(grads, group, world)
             metrics = collectives.pmean(metrics, group)
         lr_step = state.step
         ok = None
+        norm = None
+        if sharded and (skip_nonfinite or getattr(state.tx, "grad_clip_norm", 0)):
+            norm = collectives.sharded_global_norm(list(zip(grads, axes)), mesh)
         if skip_nonfinite:
-            norm = global_norm(grads)
+            if norm is None:
+                norm = global_norm(grads)
             ok = torch.isfinite(metrics["loss"]) & torch.isfinite(norm)
             metrics["grad_norm"] = norm.float()
             metrics["anomalous"] = 1.0 - ok.float()
         state.apply_gradients(_as_tree(state.params, grads), ok,
-                              batch_stats=stats if tree_leaves(stats) else None)
+                              batch_stats=stats if tree_leaves(stats) else None,
+                              grad_norm=norm if sharded else None)
         if schedule is not None:
             # a fill, not a host-to-device copy: no sync
             metrics["lr"] = torch.full((), schedule(lr_step),
@@ -345,6 +422,25 @@ def build_train_step(
         return state, metrics
 
     return step
+
+
+def _reduce_sharded(grads, over_fsdp, rest, group, data_only, world):
+    """The data-parallel mean of a sharded tree's gradients (module
+    docstring): the fsdp-split leaves, already summed over fsdp, summed
+    over ``data`` (``data_only``, None for one rank); the rest summed over
+    the data axes (``group``); all divided by the ``world`` data shards."""
+    out = list(grads)
+    if rest:
+        for i, g in zip(rest, _all_reduce_mean([grads[i] for i in rest], group,
+                                               world)):
+            out[i] = g
+    if over_fsdp:
+        part = [grads[i] for i in over_fsdp]
+        part = (_all_reduce_mean(part, data_only, world) if data_only is not None
+                else [(g.float() * (1.0 / world)).to(g.dtype) for g in part])
+        for i, g in zip(over_fsdp, part):
+            out[i] = g
+    return out
 
 
 def _as_tree(params, leaves):
@@ -550,6 +646,8 @@ def build_eval_step(
     state_example: Optional[TrainState] = None,
     *,
     mesh=None,
+    rules=None,
+    logical_axes=None,
     compute_dtype: torch.dtype = torch.bfloat16,
     loss_fn: Callable = cross_entropy_loss,
     metrics_fn: Callable = classification_metrics,
@@ -557,11 +655,12 @@ def build_eval_step(
 ) -> Callable:
     """Forward + loss + metrics, no gradient, no state change (BatchNorm
     reads the running statistics).  With a ``mesh`` each rank evaluates
-    its rows and the metrics are the global batch's means (each rank's
-    weighted by its rows)."""
-    require_data_only(mesh, "build_eval_step")
-    del state_example
-    group = None if mesh is None else mesh.group
+    its rows and the metrics are the global batch's means (each data
+    shard's weighted by its rows).  ``rules`` and ``logical_axes`` as in
+    :func:`build_train_step`."""
+    require_ported(mesh, "build_eval_step")
+    _lay_out(state_example, mesh, rules, logical_axes, "build_eval_step")
+    group = None if mesh is None else mesh.data_group
 
     @torch.no_grad()
     def step(state: TrainState, batch) -> Metrics:

@@ -20,8 +20,8 @@ schedule scales with the world, each rank trains its rows of the
 reference's global batch through the implicit data-parallel step
 (global-batch BatchNorm moments, one gradient all-reduce), the result
 carries the world's total img/s and only rank 0 logs and writes the
-metrics row.  Data formats other than synthetic raise (the ImageNet
-readers are ROADMAP A5's second half).  Weights are drawn from
+metrics row.  The benchmark is synthetic-only, as the reference's is;
+fed training is ``workloads/imagenet.py``.  Weights are drawn from
 ``torch.Generator().manual_seed(0)`` and the batch from the reference's
 ``synthetic_batch`` (numpy seed 0), so the batch is the reference's bit
 for bit and the weights are not.
@@ -57,7 +57,7 @@ def main(
     if data_format != "synthetic":
         raise ValueError(
             f"the benchmark workload is synthetic-only (data_format "
-            f"{data_format!r}); fed data is ROADMAP A5"
+            f"{data_format!r}); fed training is workloads/imagenet.py"
         )
     import torch
 

@@ -42,19 +42,19 @@ def _refuse(**given) -> None:
     where = {
         "tfrecords": "the TFRecord text reader and data/text.py (ROADMAP A7)",
         "attention": "sequence-parallel attention, ring and ulysses (ROADMAP A7)",
-        "fsdp": "FSDP parameter sharding (ROADMAP A5 follow-up)",
-        "tensor": "tensor parallelism (ROADMAP A6)",
+        "fsdp": "BERT's FSDP parameter sharding (ROADMAP A5.1b)",
+        "tensor": "BERT's tensor-parallel training (ROADMAP A5.1b)",
         "seq": "sequence parallelism (ROADMAP A7)",
         "expert": "expert parallelism, MoE BERT's experts sharded over a "
-                  "mesh axis (ROADMAP A5)",
-        "num_slices": "multi-slice data parallelism (ROADMAP A5 follow-up)",
+                  "mesh axis (ROADMAP A5.2)",
+        "num_slices": "multi-slice data parallelism (ROADMAP A5.3)",
         "sp_block_k": "ring attention's blocked loop (ROADMAP A7)",
     }
     for name, bad in given.items():
         if bad:
             raise NotImplementedError(
-                f"bert workload: {name} is not taken by the port's "
-                f"data-parallel slice; it belongs to {where[name]}"
+                f"bert workload: {name} is not taken by the port yet; it "
+                f"belongs to {where[name]}"
             )
 
 

@@ -4,26 +4,35 @@
 next-token batches (fixed-seed random tokens; the loss is the shifted
 cross-entropy) with AdamW, global-norm clipping and a warmup + linear
 decay schedule, through the port's train step and :class:`Trainer`: the
-reference's ``pipe = seq = fsdp = tensor = 1`` geometry, on one device or
-data-parallel over the processes of a ``torch.distributed`` group
-(``distributed=True``, one process per device; see
-:mod:`._runner` for the ``torchrun`` launch).  With ``attention="flash"``
-every layer runs the hand-written flash forward kernel and, in backward,
-the dQ and dK/dV kernels, each rank on its own rows
+reference's ``pipe = seq = 1`` geometries, on one device or over the
+processes of a ``torch.distributed`` group (``distributed=True``, one
+process per device; see :mod:`._runner` for the ``torchrun`` launch):
+data-parallel, ZeRO-3 over ``fsdp`` and Megatron over ``tensor``, the
+two composed as the reference composes them (its rules and logical axes:
+``models.pipelined_transformer.LOGICAL_AXES`` under ``train_rules``;
+the vocabulary over fsdp, the block widths over tensor when ``tensor`` >
+1, else over fsdp).  With ``attention="flash"`` every layer runs the
+hand-written flash forward kernel and, in backward, the dQ and dK/dV
+kernels, each rank on its own rows and, under ``tensor``, its own heads
 (``make_flash_attention(mesh=..., causal=True)``).
 
 As in the reference, ``batch_size`` is per data shard: the global batch
-is ``batch_size x data shards``, each rank takes ``batch_size`` rows a
-step from its own stream (seeded ``seed + rank``), and the implicit path
-or the explicit gradient comms (``comm_overlap``, ``bucket_mb``,
-``comm_dtype``, ``weight_update_sharding``; weight-update sharding with a
-global-norm clip is refused as in the reference) carry the gradients.
+is ``batch_size x data shards`` (``data x fsdp``), each rank takes
+``batch_size`` rows a step from its data shard's stream, and the
+implicit path or the explicit gradient comms (``comm_overlap``,
+``bucket_mb``, ``comm_dtype``, ``weight_update_sharding``; pure data
+parallelism only, and weight-update sharding with a global-norm clip is
+refused, as in the reference) carry the gradients.  One departure: the
+reference seeds each process's stream ``seed + process_index``; here the
+stream is seeded ``seed + data shard`` (``Mesh.data_index``), so the
+tensor ranks of one shard see the same rows.  Under pure data
+parallelism that is ``seed + rank``, as before.  Every rank draws the
+same global weights and keeps its slice.
 
 Arguments keep the reference's names and defaults, plus ``device``
 (``"cuda"`` unless asked for the CPU).  What the slice does not take
-raises, naming where it comes: FSDP (ROADMAP A5), tensor parallelism
-(A6), pipeline and sequence parallelism and ring attention (A7),
-multi-slice meshes (A5).
+raises, naming where it comes: pipeline and sequence parallelism and
+ring attention (A7), multi-slice meshes (A5.3).
 ``save_filepath`` and ``checkpoint_every_steps`` checkpoint and resume
 through the trainer's :class:`..train.checkpoint.Checkpointer` (with a
 ``save_filepath`` the preemption guard is on: SIGTERM or an injected
@@ -77,9 +86,7 @@ def _refuse(**given) -> None:
     where = {
         "pipe": "pipeline parallelism (ROADMAP A7)",
         "seq": "sequence parallelism (ROADMAP A7)",
-        "fsdp": "FSDP parameter sharding (ROADMAP A5 follow-up)",
-        "tensor": "tensor parallelism (ROADMAP A6)",
-        "num_slices": "multi-slice data parallelism (ROADMAP A5 follow-up)",
+        "num_slices": "multi-slice data parallelism (ROADMAP A5.3)",
         "sp_block_k": "ring attention (ROADMAP A7)",
         "scan_unroll": "nothing: it is an XLA scan-unroll compile hint with "
                        "no eager counterpart",
@@ -87,8 +94,8 @@ def _refuse(**given) -> None:
     for name, bad in given.items():
         if bad:
             raise NotImplementedError(
-                f"transformer workload: {name} is not taken by the port's "
-                f"data-parallel slice; it belongs to {where[name]}"
+                f"transformer workload: {name} is not taken by the port "
+                f"yet; it belongs to {where[name]}"
             )
 
 
@@ -143,20 +150,22 @@ def main(
     """Train; returns ``(state, FitResult)``."""
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
         ATTENTIONS,
+        LOGICAL_AXES,
         forward,
         init_params,
         next_token_loss,
         per_token_loss,
+        train_rules,
     )
     from distributeddeeplearning_tpu_torch.ops.flash_attention import (
         make_flash_attention,
     )
     from distributeddeeplearning_tpu_torch.parallel import (
         MeshSpec,
+        ParamLayout,
         create_mesh,
         data_parallel_size,
         initialize,
-        replicate_params,
     )
     from distributeddeeplearning_tpu_torch.train.loop import (
         Trainer,
@@ -168,6 +177,7 @@ def main(
     from distributeddeeplearning_tpu_torch.train.state import (
         TrainState,
         adamw,
+        shard_state,
         tree_map,
     )
     from distributeddeeplearning_tpu_torch.train.step import (
@@ -179,6 +189,16 @@ def main(
     if data_format != "synthetic":
         raise ValueError("the transformer LM workload is synthetic-data only "
                          f"(got data_format={data_format!r})")
+    if fsdp > 1 and (vocab_size % fsdp or d_model % fsdp or d_ff % fsdp):
+        raise ValueError(
+            f"fsdp={fsdp} must divide vocab_size ({vocab_size}), "
+            f"d_model ({d_model}) and d_ff ({d_ff})"
+        )
+    if tensor > 1 and (d_model % tensor or d_ff % tensor or num_heads % tensor):
+        raise ValueError(
+            f"tensor={tensor} must divide d_model ({d_model}), "
+            f"d_ff ({d_ff}) and num_heads ({num_heads})"
+        )
     if comm_overlap:
         if pipe > 1 or seq > 1 or fsdp > 1 or tensor > 1:
             raise ValueError(
@@ -192,8 +212,7 @@ def main(
                 "SHARD norm — pass --grad_clip_norm 0 with "
                 "--weight_update_sharding"
             )
-    _refuse(pipe=pipe != 1, seq=seq != 1, fsdp=fsdp != 1, tensor=tensor != 1,
-            num_slices=num_slices != 1, sp_block_k=sp_block_k is not None,
+    _refuse(pipe=pipe != 1, seq=seq != 1, num_slices=num_slices != 1, sp_block_k=sp_block_k is not None,
             scan_unroll=scan_unroll != 1)
     if attention not in ATTENTIONS:
         raise NotImplementedError(
@@ -202,19 +221,20 @@ def main(
         )
     ctx = initialize(force=distributed, device=device)
     dev = ctx.device
-    mesh = create_mesh(MeshSpec())
+    mesh = create_mesh(MeshSpec(fsdp=fsdp, tensor=tensor))
     dp_mesh = mesh if mesh.group is not None else None
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
     data_shards = data_parallel_size(mesh)
     global_batch = batch_size * data_shards
-    per_host_batch = global_batch // ctx.process_count
+    shard = mesh.data_index()  # this rank's data shard: its stream's seed
     n_train = train_examples or 25_000
     spe = steps_per_epoch or max(n_train // global_batch, 1)
     total_steps = spe * epochs
     if ctx.is_primary:
-        logger.info("training %d-layer LM on %s: %d ranks, global batch %d, "
-                    "%d steps/epoch, %d epochs", num_layers, dev, mesh.size,
-                    global_batch, spe, epochs)
+        logger.info("training %d-layer LM on %s: %d ranks (data=%d fsdp=%d "
+                    "tensor=%d), global batch %d, %d steps/epoch, %d epochs",
+                    num_layers, dev, mesh.size, mesh.shape["data"], fsdp,
+                    tensor, global_batch, spe, epochs)
     attention_fn = (make_flash_attention(mesh=mesh, causal=True)
                     if attention == "flash" and dp_mesh is not None else None)
 
@@ -223,6 +243,13 @@ def main(
         d_model=d_model, num_heads=num_heads, d_ff=d_ff,
         vocab_size=vocab_size, max_len=seq_len, device=dev,
     )
+
+    # every rank drew the same global weights and keeps its slice of the
+    # LM's training layout, which the model reads its splits from
+    # (comm_overlap is replicated-params only: the rules exist for the
+    # fsdp/tensor geometries it excludes)
+    layout = (None if comm_overlap or dp_mesh is None else ParamLayout.from_rules(
+        dp_mesh, params, train_rules(tensor), LOGICAL_AXES))
 
     def apply_fn(p, tokens, **_):
         # the step's train/generator keywords: the LM has no dropout
@@ -233,9 +260,10 @@ def main(
             return per_token_loss(p, tokens, num_heads=num_heads,
                                   attention=attention, remat=remat,
                                   loss_chunk=loss_chunk,
-                                  attention_fn=attention_fn)
+                                  attention_fn=attention_fn, layout=layout)
         return forward(p, tokens, num_heads=num_heads, attention=attention,
-                       remat=remat, attention_fn=attention_fn).float()
+                       remat=remat, attention_fn=attention_fn,
+                       layout=layout).float()
 
     schedule = warmup_linear_decay_schedule(
         base_lr, total_steps, warmup_fraction=warmup_fraction)
@@ -244,7 +272,8 @@ def main(
         tx=adamw(schedule, weight_decay=weight_decay,
                  grad_clip_norm=grad_clip_norm),
     )
-    replicate_params(mesh, state)  # rank 0's weights everywhere
+    if layout is not None:
+        shard_state(state, layout)
 
     if loss_chunk:
         def lm_loss(losses, labels, *, label_smoothing: float = 0.0):
@@ -277,12 +306,12 @@ def main(
         state = train_step.prepare_state(state)
     eval_step = build_eval_step(state, mesh=dp_mesh, compute_dtype=dtype,
                                 loss_fn=lm_loss, metrics_fn=lm_metrics)
-    train_iter = _token_batches(per_host_batch, seq_len, vocab_size,
-                                seed + ctx.process_index, n_train, repeat=True)
+    train_iter = _token_batches(batch_size, seq_len, vocab_size, seed + shard,
+                                n_train, repeat=True)
 
     def eval_factory():
-        return _token_batches(per_host_batch, seq_len, vocab_size,
-                              seed + 7000 + ctx.process_index,
+        return _token_batches(batch_size, seq_len, vocab_size,
+                              seed + 7000 + shard,
                               min(n_train, 4 * global_batch), repeat=False)
 
     trainer = Trainer(

@@ -25,7 +25,8 @@ frames at the serving geometry) and ``phase_fleet`` (the supervised serving
 fleet: replica workers, failover, reload, drain, a dense replica) and
 ``phase_imagenet`` (the ImageNet readers' host rates, fed against
 resident img/s, the workload through ``python -m`` and a replay-free
-raw-cache resume), each as
+raw-cache resume) and ``phase_model_parallel_train`` (tensor-parallel and
+FSDP training of the LM over four gloo ranks sharing the card), each as
 ``chip_smoke.py`` runs it, after the card's ``nvidia-smi`` name and power
 limit.  Exits
 nonzero if a phase fails.  Run from the repository's root; needs a CUDA
@@ -42,7 +43,7 @@ import traceback
 PHASES = ("phase_resnet", "phase_resnet_parity", "phase_image_short", "phase_vit",
           "phase_vit_flash", "phase_resume", "phase_resilience", "phase_moe_bert",
           "phase_data_parallel", "phase_tensor_parallel", "phase_serve_robust",
-          "phase_fleet", "phase_imagenet")
+          "phase_fleet", "phase_imagenet", "phase_model_parallel_train")
 
 
 def main(argv) -> int:

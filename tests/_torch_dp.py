@@ -583,3 +583,224 @@ def row_parallel_qdot(rank, world, x, w):
     local = qdot(xs, mine)
     return {"split": split, "counts": counts,
             "local_absmax": collectives.all_reduce(local, group).numpy()}
+
+
+# -- tensor-parallel and FSDP training -------------------------------------------
+
+#: the reference's TINY LM (``tests/test_transformer_workload.py``)
+MP_LM = dict(num_layers=4, d_model=32, num_heads=2, d_ff=64, vocab_size=64)
+MP_LR = 1e-2
+#: the model leaves the tensor ranks of a data shard hold whole
+MP_REPLICATED = ("pos", "blocks/ln1", "blocks/ln2")
+
+
+class _SpyAdamW:
+    """The port's AdamW, keeping the gradients and the clip norm of every
+    update it makes (``seen``)."""
+
+    def __init__(self, clip):
+        from distributeddeeplearning_tpu_torch.train import schedule as tsched
+        from distributeddeeplearning_tpu_torch.train import state as tstate
+
+        self.inner = tstate.adamw(tsched.constant_schedule(MP_LR), weight_decay=0.01,
+                                  grad_clip_norm=clip)
+        self.grad_clip_norm = clip
+        self.seen = []
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def apply(self, params, grads, opt_state, ok=None, *, grad_norm=None):
+        from distributeddeeplearning_tpu_torch.train import state as tstate
+
+        norm = grad_norm if grad_norm is not None else tstate.global_norm(
+            tstate.tree_leaves(grads))
+        self.seen.append(({k: v.detach().clone() for k, v in _named(grads).items()},
+                          float(norm)))
+        self.inner.apply(params, grads, opt_state, ok, grad_norm=grad_norm)
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_named(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def mp_state(params_np, mesh, clip, attention, device="cpu"):
+    """A fresh LM state from the JAX package's numpy weights and its
+    step, built with the LM's rules and logical axes on ``mesh`` (None:
+    one process)."""
+    from distributeddeeplearning_tpu_torch.models import pipelined_transformer as tpt
+    from distributeddeeplearning_tpu_torch.parallel import ParamLayout
+    from distributeddeeplearning_tpu_torch.train import state as tstate
+    from distributeddeeplearning_tpu_torch.train import step as tstep
+
+    params = tpt.params_from_numpy(params_np, device=device)
+    sharded = mesh is not None and (mesh.shape["tensor"] > 1 or mesh.shape["fsdp"] > 1)
+    rules = tpt.train_rules(mesh.shape["tensor"]) if sharded else None
+    # the model reads its splits from the layout the step lays the state
+    # out by (the builder's rules= and logical_axes= find it laid out)
+    layout = (ParamLayout.from_rules(mesh, params, rules, tpt.LOGICAL_AXES)
+              if sharded else None)
+
+    def apply_fn(p, toks, **_):
+        return tpt.forward(p, toks, num_heads=MP_LM["num_heads"], attention=attention,
+                           layout=layout)
+
+    tx = _SpyAdamW(clip)
+    state = tstate.TrainState.create(params=params, apply_fn=apply_fn, tx=tx)
+    loss_fn, metrics_fn = lm_hooks()
+    kw = {}
+    if sharded:
+        tstate.shard_state(state, layout)
+        kw = dict(rules=rules, logical_axes=tpt.LOGICAL_AXES)
+    step = tstep.build_train_step(state, mesh=mesh, compute_dtype=torch.float32,
+                                  loss_fn=loss_fn, metrics_fn=metrics_fn,
+                                  skip_nonfinite=True, **kw)
+    return state, step, tx
+
+
+def _global(state, tree):
+    """The global arrays of a params-shaped tree of ``state`` (numpy)."""
+    if state.layout is not None and state.layout.sharded:
+        tree = state.layout.gather(tree)
+    return {k: v.detach().cpu().numpy().copy() for k, v in _named(tree).items()}
+
+
+def mp_fit(mesh, params_np, batches, clip, attention, directory=None):
+    """Train the TINY LM on ``mesh`` (None: one process) over the global
+    ``batches``; what the tests hold (``tests/test_torch_model_parallel_train``)."""
+    from distributeddeeplearning_tpu_torch.parallel import collectives as col
+    from distributeddeeplearning_tpu_torch.parallel import shard_batch
+    from distributeddeeplearning_tpu_torch.train import checkpoint as tckpt
+    from distributeddeeplearning_tpu_torch.train import state as tstate
+
+    state, step, tx = mp_state(params_np, mesh, clip, attention)
+    out = {"losses": [], "replicated": [], "norms": []}
+    for i, batch in enumerate(batches):
+        state, m = step(state, shard_batch(mesh, batch) if mesh else batch)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(tx.seen[-1][1])
+        local = _named(state.params)
+        out["replicated"].append({k: local[k].detach().numpy().tobytes()
+                                  for k in MP_REPLICATED})
+        if i == 0:
+            grads = tx.seen[0][0]
+            out["grads"] = _global(state, tstate.tree_map(lambda g: g, _nest(grads)))
+            out["params1"] = _global(state, state.params)
+            if mesh is not None:
+                # the norm a world all-reduce of every leaf's squares gives:
+                # it counts each replicated leaf once a rank
+                out["naive_norm"] = float(col.global_norm(list(grads.values()),
+                                                          mesh.group))
+    out["params"] = _global(state, state.params)
+    out["moments"] = {k: _global(state, state.opt_state[k]) for k in ("mu", "nu")}
+    out["shapes"] = {
+        "params": {k: tuple(v.shape) for k, v in _named(state.params).items()},
+        "mu": {k: tuple(v.shape) for k, v in _named(state.opt_state["mu"]).items()},
+        "nu": {k: tuple(v.shape) for k, v in _named(state.opt_state["nu"]).items()}}
+    if directory is not None:
+        ckpt = tckpt.Checkpointer(directory, mesh=mesh)
+        ckpt.save(state.step, state)
+        ckpt.wait()
+        fresh, _, _ = mp_state(params_np, mesh, clip, attention)
+        fresh, restored = ckpt.restore(fresh)
+        out["restored_step"] = restored
+        out["restored_bitwise"] = all(
+            torch.equal(a, b) for a, b in tstate.tree_zip(
+                [state.params, state.opt_state], [fresh.params, fresh.opt_state]))
+        # one more step from the restored state and from the trained one
+        s1, m1 = step(state, shard_batch(mesh, batches[0]) if mesh else batches[0])
+        step2 = mp_state(params_np, mesh, clip, attention)[1]
+        s2, m2 = step2(fresh, shard_batch(mesh, batches[0]) if mesh else batches[0])
+        out["resumed_bitwise"] = all(torch.equal(a, b) for a, b in tstate.tree_zip(
+            s1.params, s2.params)) and float(m1["loss"]) == float(m2["loss"])
+    return out
+
+
+def _nest(flat):
+    out = {}
+    for name, leaf in flat.items():
+        *head, last = name.split("/")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+def model_parallel(rank, world, params_np, batches, clip, attention, cases, directory):
+    """Every mesh of ``cases`` (``MeshSpec`` keywords) in turn over these
+    ranks: :func:`mp_fit`'s results, keyed by the case's name, with this
+    rank's data shard and tensor coordinate; the first case checkpoints
+    into ``directory``.  Then the refusal of restoring that generation on
+    the next case's mesh."""
+    import os
+
+    from distributeddeeplearning_tpu_torch.parallel import MeshSpec, create_mesh
+    from distributeddeeplearning_tpu_torch.train import checkpoint as tckpt
+
+    out = {}
+    meshes = {}
+    for i, (name, spec) in enumerate(cases):
+        mesh = meshes[name] = create_mesh(MeshSpec(**spec))
+        got = mp_fit(mesh, params_np, batches, clip, attention,
+                     os.path.join(directory, name) if i == 0 else None)
+        got.update(shard=mesh.data_index(), tensor_index=mesh.axis_index("tensor"))
+        out[name] = got
+    first, second = cases[0][0], cases[1][0]
+    fresh, _, _ = mp_state(params_np, meshes[second], clip, attention)
+    try:
+        tckpt.Checkpointer(os.path.join(directory, first),
+                           mesh=meshes[second]).restore(fresh)
+        out["other_mesh"] = None
+    except ValueError as exc:
+        out["other_mesh"] = str(exc)
+    return out
+
+
+#: the LM workload's geometry in the model-parallel tests (the reference's
+#: TINY; ``batch_size`` per data shard)
+MP_MAIN = dict(batch_size=2, seq_len=16, vocab_size=64, num_layers=4, d_model=32,
+               num_heads=2, d_ff=64, train_examples=64, compute_dtype="float32",
+               attention="flash", seed=42, device="cpu", distributed=True)
+
+
+def workloads_mp(directory, geometries):
+    """``workloads.transformer.main`` over this process group at each of
+    ``geometries`` (``fsdp`` / ``tensor`` keywords): one step, then a
+    checkpointed epoch of 2 steps resumed into a second epoch."""
+    import os
+
+    from distributeddeeplearning_tpu_torch.workloads import transformer as tw
+
+    out = {}
+    for name, geo in geometries:
+        _, first = tw.main(epochs=1, steps_per_epoch=1, **geo, **MP_MAIN)
+        path = os.path.join(directory, f"main-{name}")
+        state, fit = tw.main(epochs=1, steps_per_epoch=2, save_filepath=path,
+                             metrics_path=os.path.join(directory, f"{name}.jsonl"),
+                             **geo, **MP_MAIN)
+        resumed, _ = tw.main(epochs=2, steps_per_epoch=2, save_filepath=path, **geo,
+                             **MP_MAIN)
+        out[name] = {"first_loss": first.final_train_metrics["loss"],
+                     "loss": fit.final_train_metrics["loss"],
+                     "eval": fit.final_eval_metrics["loss"],
+                     "step": state.step, "resumed_step": resumed.step,
+                     "images": fit.total_images,
+                     "layout": None if state.layout is None else dict(state.layout.specs)}
+    return out
+
+
+def model_parallel_all(rank, world, params_np, batches, clip, attention, cases,
+                       directory, geometries):
+    """:func:`model_parallel` then :func:`workloads_mp`, in one spawn."""
+    import os
+
+    out = model_parallel(rank, world, params_np, batches, clip, attention, cases,
+                         os.path.join(directory, "steps"))
+    out["main"] = workloads_mp(directory, geometries)
+    return out

@@ -420,7 +420,8 @@ def test_workload_main_runs_on_the_cpu(tmp_path):
     # address), as the reference's jax.distributed.initialize does
     pytest.param({"distributed": True}, ValueError, "MASTER_ADDR",
                  id="kw0-ValueError"),
-    pytest.param({"data_format": "tfrecords"}, ValueError, "ROADMAP A5",
+    pytest.param({"data_format": "tfrecords"}, ValueError,
+                 "synthetic-only.*fed training is workloads/imagenet.py",
                  id="kw1-ValueError")])
 def test_workload_refuses_what_the_slice_does_not_take(kw, exc, match):
     with pytest.raises(exc, match=match):

@@ -450,7 +450,7 @@ def test_workload_main_at_its_default_dtype_with_dropout(tmp_path):
     ({"attention": "ulysses"}, "A7"),
     ({"attention": "ulysses-flash"}, "A7"),
     ({"fsdp": 2}, "A5"),
-    ({"tensor": 2}, "A6"),
+    ({"tensor": 2}, "A5"),
     ({"seq": 2}, "A7"),
     ({"expert": 2}, "A5"),
     ({"num_slices": 2}, "A5"),

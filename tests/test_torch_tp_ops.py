@@ -16,7 +16,8 @@ JAX package's on the CPU.
 - int8 ``qdot`` split over K: the row-parallel product over two gloo
   ranks equals the unsplit one bit for bit;
 - the refusals, by message: the engines', the spec decoder's and the
-  trainer's.
+  trainer's (which takes a tensor axis since tensor-parallel training
+  and refuses the axes still to port).
 
 No process group is needed for the layout, attention and refusal tests:
 a rank's ``Mesh`` is built by hand.  Tolerances are those of
@@ -386,14 +387,22 @@ def test_a_tp_engine_keeps_its_slice_and_the_spec_decoder_refuses_it(jparams):
 
 
 def test_the_trainer_refuses_a_tensor_axis_naming_a5():
+    """A5.1 brought tensor-parallel training: the builders and the
+    Trainer take a tensor axis; what they refuse now is an axis still to
+    port (here ``seq``, A7), by name."""
     from distributeddeeplearning_tpu_torch.train import loop, step
     from distributeddeeplearning_tpu_torch.train.state import TrainState, sgd_momentum
 
     state = TrainState.create(params={"w": torch.zeros(2)}, apply_fn=None,
                               tx=sgd_momentum(lambda s: 0.1))
+    seq = _mesh(0)
+    seq = Mesh(shape={**seq.shape, "tensor": 1, "seq": TP}, size=TP, rank=0)
     for build in (step.build_train_step, step.build_eval_step):
-        with pytest.raises(NotImplementedError, match="A5.*param_shardings"):
-            build(state, mesh=_mesh(0))
-    with pytest.raises(NotImplementedError, match="Trainer.*A5"):
-        loop.Trainer(lambda s, b: (s, {}), config=loop.TrainerConfig(steps_per_epoch=1),
-                     mesh=_mesh(0))
+        assert callable(build(state, mesh=_mesh(0)))
+        with pytest.raises(NotImplementedError, match="seq=2.*A7"):
+            build(state, mesh=seq)
+    config = loop.TrainerConfig(steps_per_epoch=1)
+    assert loop.Trainer(lambda s, b: (s, {}), config=config, mesh=_mesh(0)).mesh.shape[
+        "tensor"] == TP
+    with pytest.raises(NotImplementedError, match="Trainer.*A7"):
+        loop.Trainer(lambda s, b: (s, {}), config=config, mesh=seq)

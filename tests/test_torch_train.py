@@ -403,11 +403,14 @@ def test_workload_main_options_run(tmp_path):
     assert all(np.isfinite(v) for v in result.final_train_metrics.values())
 
 
-# the data-parallel slice takes distributed and the comm knobs; what it
+# the port takes distributed, the comm knobs, fsdp and tensor; what it
 # still refuses of them are the reference's argument errors (a rendezvous
 # for distributed=True, weight-update sharding with the global-norm clip,
-# the comm knobs without comm_overlap)
+# the comm knobs without comm_overlap, fsdp not dividing the vocabulary)
+# and, at a world of one, a mesh of two ranks
 ARG_ERRORS = {"distributed": (ValueError, "MASTER_ADDR"),
+              "fsdp": (ValueError, "fsdp=2 must divide vocab_size"),
+              "tensor": (ValueError, "not divisible by fixed axes product 2"),
               "comm_overlap": (ValueError, "SHARD norm"),
               "weight_update_sharding": (ValueError, "require comm_overlap"),
               "comm_dtype": (ValueError, "require comm_overlap")}
