@@ -9,7 +9,9 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
 
 1. build: compile every CUDA kernel from ``csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time and each kernel's
-   registers and spills;
+   registers and spills; beside it, phase 30's shards are written and its
+   ``python -m`` run starts on them (``_ImagenetEarly``; waited for before
+   phase 2);
 2. K1, the causal flash-attention forward (f32: split TF32 on the
    tensor cores, three TF32 products a product), against its plain
    PyTorch version at the prefill shapes B=1, H=12, D=64, S in {128, 512,
@@ -67,8 +69,8 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    tokens, and a teacher-forced check holds chunked prefill + paged
    decode to the dense forward;
 7a. speculative serving (K = 4): the paged f32 engine with the truncated
-   drafter (the first 2 layers), the int8-weight drafter and a
-   forced-rejection drafter (first 4 requests), and the dense engine with
+   drafter (the first 2 layers), the int8-weight drafter (first 8
+   requests) and a forced-rejection drafter (first 4), and the dense engine with
    the truncated drafter, on the paged and dense runs' requests; each run
    with the counters zeroed just before and read just after: verify
    launches = 12 a spec step, draft launches = K x M a step, chunks 12
@@ -162,7 +164,7 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    mask) beside the plain versions and SDPA with the same boolean
    ``attn_mask``;
 17. ``phase_bert``: ``workloads.bert.main`` at bert-base's full width
-   (109.5 M params), one epoch of 8 steps and one eval pass, at its
+   (109.5 M params), one epoch of 4 steps and one eval pass, at its
    defaults (bf16, batch 8, seq 128), at seq 512 and in f32 at seq 128:
    flash and the default attention at dropout 0 with the same seed
    (per-step losses within 1e-2 relative in bf16, 1e-5 in f32), and at
@@ -179,9 +181,11 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    ``workloads.benchmark.main()`` at its defaults (resnet50, bf16, batch
    64, 224 px, 1001 classes, SGD momentum under the Goyal schedule; 10
    warmup batches, then 10 measured windows of 10 between an unmeasured
-   priming window and a trailing one), first as ``python -m`` in a fresh
+   priming window and a trailing one), as ``python -m`` in a fresh
    process (its img/s: earlier profiler windows slow a host-bound step in
-   this one), then here: img/s a chip mean +-ci95 and the windows, step p50 (CUDA events), peak memory and mfu over 989.4 TFLOP/s
+   this one), then here shortened (3 warmup batches, 3 windows of 5): img/s
+   a chip mean +-ci95 and the windows, step p50 (CUDA events), peak memory
+   and mfu over 989.4 TFLOP/s
    from the FLOP reckoning (``ImageModel.forward_macs``: 3 x the forward's
    multiply-adds x 2 a trained image), on one ``[resnet]`` line; then one
    step profiled under ``torch.cuda.set_sync_debug_mode("error")`` (a host
@@ -199,16 +203,15 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    first bf16 step at 224 px, batch 64, within 1e-2 of the f32 one; every
    reading finite;
 20. ``phase_image_short``: inceptionv3 (bf16, 299 px) and vgg16 and
-   resnet50 (f32, 224 px) at batch 64 through the same ``main``, 3 warmup
-   batches and 3 windows of 5: img/s, step p50, peak memory and mfu;
+   resnet50 (f32, 224 px) at batch 64 through the same ``main``, 2 warmup
+   batches and 2 windows of 3: img/s, step p50, peak memory and mfu;
 21. ``phase_vit``: ViT-B/16 through ``workloads.benchmark.main(model=
-   "vit-b16")`` (bf16, batch 64, 224 px) at the reference defaults (10
-   warmup batches, 10 windows of 10) as ``python -m`` in a fresh process,
-   and here shortened (3 warmup batches, 3 windows of 5):
+   "vit-b16")`` (bf16, batch 64, 224 px) shortened (3 warmup batches, 3
+   windows of 5):
    img/s, step p50, peak memory, mfu (``forward_macs`` counts the two
    attention products, 17.56 G multiply-adds an image) and a profiled
    step's split (GEMMs, attention, LayerNorm/GELU, elementwise, SGD); then
-   a shortened vit-l16 run;
+   a shortened vit-l16 run (2 warmup batches, 2 windows of 3);
 22. ``phase_vit_flash``: the bf16 K1, K2, K3 at ViT-B/16's attention shape
    (B 64, H 12, S 197, D 64, non-causal, no bias) and at S 1 and 37 against
    their plain versions, timed beside SDPA; exact launches a ViT-B/16
@@ -224,7 +227,7 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    verify walls;
 24. ``phase_moe_bert``: bert-base with 8 experts in every second layer
    through ``workloads.bert.main(num_experts=8, attention="flash")`` at its
-   defaults, 8 batches: finite losses, the load-balance term, the share of
+   defaults, 4 batches: finite losses, the load-balance term, the share of
    token-slots dropped over capacity, step p50, peak memory, exact bias
    kernel launches; the f32 forward on the card against the CPU's with the
    expert choices compared first;
@@ -242,9 +245,10 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    generation; prefetch off bitwise on, with each one's step p50 and a
    detector-on fit's; a profiler window naming K1-K3 and the
    ``train/step`` ranges, the tracer's export with the ``train/*`` spans and the rollback event; the
-   LM workload as ``python -m`` at TRAIN's geometry (flash, bf16) exiting
-   75 on ``preempt@3`` with a generation at 3, then resuming from it to
-   exit 0, and at its defaults (beside those two) exiting 70
+   LM workload as ``python -m`` at TRAIN's width cut to 2 layers (flash,
+   bf16; started with the phase, beside its fits) exiting 75 on
+   ``preempt@3`` with a generation at 3, then resuming from it to exit 0,
+   and at its defaults (also beside) exiting 70
    with the stacks when an injected data stall outlasts
    ``--step_deadline_s``;
 26. ``phase_data_parallel`` (after 25): data-parallel training, one process a
@@ -256,13 +260,14 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    within ``DP_LOSS_RTOL`` of each other, no operation staged through the
    host (NCCL runs reduce-scatter, all-to-all and all-gather itself);
    (b) a world of 2 over gloo, both processes on the one card (spawned,
-   each with its own time limit): the same LM on the same 3 global
-   batches of 8 rows, 4 a rank, through the ``comm_overlap`` step with the
+   each with its own time limit): the same LM cut to 4 layers
+   (``DP_LAYERS``) on the same 3 global batches of 8 rows, 4 a rank,
+   through the ``comm_overlap`` step with the
    f32 wire and then the bf16 wire with weight-update sharding, each held
    against a one-process implicit fit of those batches on the card
    (per-step losses within ``DP_LOSS_RTOL``, params after the last step
    within ``DP_PARAM_TOL`` of the summed learning rates); every rank's
-   K1, K2 and K3 counters count 12 launches a step each at B = 4, and the
+   K1, K2 and K3 counters count 4 launches a step each at B = 4, and the
    plain versions 0; the operations gloo staged through host memory are
    printed; the three kernels are then held and timed at that per-rank
    shape (B=4, H=12, S=2048, D=64, causal, bf16); (c) ``workloads.benchmark.main(distributed=True)``, the
@@ -277,10 +282,10 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    ``tensor_parallel_engine(tp=2)`` over 2 gloo ranks sharing the card
    (spawned, ``cuda:0`` passed explicitly, their own time limit), each
    rank holding its slice of the weights and its 6 of the 12 heads of the
-   cache, in five runs of 16 new tokens a request (``TP_NEW_TOKENS``,
-   half the serving cells') at 12 layers in (a) and the first 3 layers of
-   the same weights in (b)-(e) (``tp_layers``; both the script's depth
-   cut) held against the same run on the one-process
+   cache, in five runs of 8 new tokens a request (``TP_NEW_TOKENS``, a
+   quarter of the serving cells') at the first 3 of the 12 layers of the same
+   weights (``tp_layers``; the script's depth cut) held against the same
+   run on the one-process
    engine (tp=1, first, in this process): (a) dense f32, the dense
    serving cell's requests; (b) paged f32 on the paged cell's
    shared-prefix requests (page 64, chunk 64, 72 pages); (c) paged with
@@ -390,7 +395,7 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    ``imagenet`` workload at the reference's flagship settings (ResNet-50,
    224 px, batch 64, bf16, 1001 classes), with no TensorFlow.  (a) Seeded
    ILSVRC-size JPEG shards (``data.bench_data``: train 1024 in 8 shards,
-   validation 256 in 2); the C record reader (``data/csrc/ddlt_records.c``)
+   validation 256 in 2; written beside the build); the C record reader (``data/csrc/ddlt_records.c``)
    must build with the host compiler; the C JPEG decoder needs libjpeg and
    may not build, and then PIL decodes; both are printed.  (b) Each
    pipeline alone on the host (the tf recipe, native, raw; 8 batches of
@@ -403,27 +408,29 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    of the same records.  (d) ``python -m
    distributeddeeplearning_tpu_torch.workloads.imagenet
    --data_format=tfrecords`` (the tf recipe), 4 steps and eval over the 256
-   validation images, in a fresh process: finite loss, eval metrics, no
-   import of jax or tensorflow in its ``-X importtime`` log.  (e) A raw
+   validation images, in a fresh process started beside the build:
+   finite loss, eval metrics, no import of jax or tensorflow in its ``-X
+   importtime`` log.  (e) A raw
    fit stopped at step 2 (checkpoint) and resumed to step 4 draws the
    unstopped stream's batches 2 and 3.  No kernel of the port runs here
    (cuDNN's convolutions), so the kernels line gains no row.
 
-31. ``phase_model_parallel_train`` (last): tensor-parallel and FSDP
+31. ``phase_model_parallel_train``: tensor-parallel and FSDP
    training of the LM over four gloo ranks sharing the card (spawned,
    ``cuda:0`` each, one time limit).  (a) ``workloads.transformer.main(
    tensor=2, fsdp=2, attention="flash", compute_dtype="bfloat16")`` at
-   TRAIN's full width (12 layers, d 768, 12 heads, ff 3072, vocab 32768,
-   seq 2048), 2 rows a data shard, 3 steps and one eval pass of 2 batches,
-   checkpointed, then resumed from that generation for one more step.
-   Checks on every rank: the losses finite and bitwise rank 0's; the
-   replicated leaves (``pos``, ``ln1``, ``ln2``) bitwise rank 0's after
-   every step; bf16 K1, K2 and K3 launched exactly 12 times a step each
-   (K1 also 12 an eval batch), every launch at B=2 H=6 (a rank's rows and
+   TRAIN's full width (d 768, 12 heads, ff 3072, vocab 32768, seq 2048)
+   cut to 4 layers (``MP_WIDTH``), 2 rows a data shard, 3 steps and one
+   eval pass of 2 batches, checkpointed, then resumed from that
+   generation for one more step.  Checks on every rank: the losses finite
+   and bitwise rank 0's; the replicated leaves (``pos``, ``ln1``, ``ln2``)
+   bitwise rank 0's after every step; bf16 K1, K2 and K3 launched exactly
+   4 times a step each (a layer's; K1 also 4 an eval batch), every launch
+   at B=2 H=6 (a rank's rows and
    heads), no plain version and no f32 launch; each step's collectives
    exactly ``MP_STEP_COLLECTIVES``, written down before the first run (4 L
    + 4 all-reduces, 2 all-gathers, 2 reduce-scatters); the parameter and
-   optimizer bytes the sum of the rank's shards of TRAIN's global shapes;
+   optimizer bytes the sum of the rank's shards of MP_WIDTH's global shapes;
    the restored parameters and moments bitwise the saved ones.  It prints
    the step p50 a rank (CUDA events), the host seconds inside collectives,
    what gloo staged and the peak memory a rank, beside a one-process run
@@ -435,6 +442,36 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    each held to one process on the card (the tolerances and their reasons
    in the phase's docstring).  Then the bf16 K1-K3 held and timed at a
    rank's shape (B=2, H=6, S=2048, D=64, causal).
+
+32. ``phase_bert_model_parallel`` (last): BERT and MoE BERT over the
+   fsdp, tensor and expert axes on four gloo ranks sharing the card (one
+   spawn).  (a) ``workloads.bert.main(tensor=2, fsdp=2)`` at bert-base's
+   defaults (12 layers, d 768, 12 heads, ff 3072, vocab 30522, bf16, 8
+   rows a data shard, seq 128, dropout 0.1, flash), 3 steps, one eval
+   pass of 2 batches, checkpointed, then resumed for one more step.  On
+   every rank: the bf16 bias K1, K2, K3 launched exactly 12 times a step
+   (K1 also 12 an eval batch), every launch at B=8 H=6, no plain version;
+   each step's collectives exactly ``BMP_STEP_COLLECTIVES`` (derived
+   beside it); the losses bitwise rank 0's; the leaves a data shard's
+   ranks hold alike (``BMP_REPLICATED``) bitwise equal across them after
+   every step, dropout on; parameter and optimizer bytes the sum of the
+   rank's shards; the restore bitwise.  It prints the step p50 a rank, the
+   share of the host wall inside collectives, the bytes and the peak
+   memory a rank beside one process at the same global batch (B=16).  (b)
+   MoE bert-base (8 experts, top-2, capacity 1.25, every second layer) at
+   ``expert=2 x fsdp=2``, 3 steps and eval: each rank holds 4 experts'
+   ``w_in`` and ``w_out``, each step's collectives exactly
+   ``BMP_MOE_COLLECTIVES`` (the combine's all-reduces over expert among
+   them), the dropped share of token-slots and the load-balance term
+   printed.  (c) f32 parity at bert-base's width cut to 2 layers, seq 128,
+   4 rows, 2 steps: BERT on ``tensor=2 x fsdp=2``, ``fsdp=4`` and
+   ``data=2 x tensor=2``, MoE BERT on ``data=2 x expert=2`` (the global
+   batch's routing) and ``expert=2 x tensor=2``, each against one process
+   on the card, expert choices compared first (tolerances in the phase's
+   docstring).  (d) The bf16 bias K1-K3 at a tensor rank's shape (B=8,
+   H=6 of 12, S=128, D=64, BERT's mask): held against their plain
+   versions, bitwise the all-heads launch's rows, timed beside SDPA with
+   the bool mask and its backward.
 
 K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
 split pass with one block per (span of 64 absolute positions, head, slot)
@@ -475,7 +512,14 @@ The six bias rows (``flash_attention_fwd_bias``, ``..._bwd_dq_bias``,
 ``..._bwd_dkv_bias``, each in f32 and ``_bf16``) take their launches from
 ``phase_bert``'s flash runs at dropout 0 (``bert_flash``: seq 128 in the
 row's dtype; ``bert_flash_seq512`` beside it for bf16), and their bound
-counts the (query, key) pairs the run's mask leaves visible.
+counts the (query, key) pairs the run's mask leaves visible.  The bf16
+ones carry ``model_parallel``: phase 32's entry at a tensor rank's shape
+(B=8, H=6 of 12, S 128), with each rank's launches in (a), its resume and
+(b) (``bert_mp_train_rank{r}``, ``bert_mp_resume_rank{r}``,
+``moe_mp_train_rank{r}``); the f32 ones' ``launches_by_path`` add (c)'s
+parity runs (``bert_mp_parity_<mesh>_rank{r}``).  The same entry also
+stands as three rows of its own, ``flash_attention_{fwd,bwd_dq,bwd_dkv}_
+local_heads_bias_bf16``, whose ``launches`` are rank 0's in (a).
 
 The bf16 K1, K2 and K3 rows carry ``vit``: their entry at ViT-B/16's
 attention shape (phase 22), with the launches of one ViT train step; their
@@ -1642,10 +1686,14 @@ def verify_vs_decode(torch, np, engine):
     return out
 
 
+SPEC_INT8_REQUESTS = 8  # the int8 drafter's run: the paged cell's first 8
+
+
 def phase_serve_spec(torch, np, fa, fd, card, params, dense_engine, dense, paged):
     """Speculative greedy serving at full width: the paged f32 engine (page
-    64, chunk 64, 8 slots) with the truncated (M = 2), int8-weight and
-    forced-rejection drafters on the paged cell's traffic, and the dense
+    64, chunk 64, 8 slots) with the truncated (M = 2), int8-weight (its
+    first SPEC_INT8_REQUESTS requests) and forced-rejection (its first 4)
+    drafters on the paged cell's traffic, and the dense
     engine with the truncated drafter on the dense cell's; K = 4.  Each run
     with the counters zeroed just before it and read just after; tokens
     equal the non-speculative run's exactly."""
@@ -1657,14 +1705,14 @@ def phase_serve_spec(torch, np, fa, fd, card, params, dense_engine, dense, paged
     )
 
     layers, vocab = SERVE["num_layers"], SERVE["vocab_size"]
-    first4 = paged["requests"][:4]
+    first4, first8 = paged["requests"][:4], paged["requests"][:SPEC_INT8_REQUESTS]
     seen = {t for r in first4 for t in paged["f32_tokens"][r.uid]}
     garbage = min(set(range(vocab)) - seen)
     runs = (  # name, layout, drafter, draft depth, requests, baseline tokens
         ("spec_truncated", "paged", lambda: TruncatedDrafter(DRAFT_LAYERS),
          DRAFT_LAYERS, paged["requests"], paged["f32_tokens"]),
-        ("spec_int8", "paged", lambda: "int8", layers, paged["requests"],
-         paged["f32_tokens"]),
+        ("spec_int8", "paged", lambda: "int8", layers, first8,
+         {r.uid: paged["f32_tokens"][r.uid] for r in first8}),
         ("spec_reject", "paged",
          lambda: _garbage_drafter(torch, Drafter, TruncatedDrafter, garbage),
          DRAFT_LAYERS, first4, {r.uid: paged["f32_tokens"][r.uid] for r in first4}),
@@ -1711,7 +1759,7 @@ def phase_serve_spec(torch, np, fa, fd, card, params, dense_engine, dense, paged
             f"step; {chunks} chunks, {steps} spec steps)")
         if counts != want:
             raise AssertionError(f"{name}: unexpected launch counts {counts}")
-        if layout == "paged" and name != "spec_reject" and chunks != paged["f32_chunks"]:
+        if name == "spec_truncated" and chunks != paged["f32_chunks"]:
             raise AssertionError(f"{name}: {chunks} chunks, the f32 run had "
                                  f"{paged['f32_chunks']}")
         tokens = {r.uid: r.tokens for r in results}
@@ -3155,11 +3203,11 @@ def phase_bias(torch, F, fa, card):
 
 
 #: bert-base fine-tuning at the workload's defaults (bf16, batch 8, dropout
-#: 0.1, AdamW, clip 1.0, warmup then decay): one epoch of 8 steps on a fresh
-#: batch each (64 examples), then one eval pass over min(64, 4 x 8) = 32
+#: 0.1, AdamW, clip 1.0, warmup then decay): one epoch of 4 steps on a fresh
+#: batch each (32 examples), then one eval pass over min(32, 4 x 8) = 32
 #: examples, 4 batches
-BERT_RUN = dict(model="bert-base", batch_size=8, epochs=1, steps_per_epoch=8,
-                train_examples=64)
+BERT_RUN = dict(model="bert-base", batch_size=8, epochs=1, steps_per_epoch=4,
+                train_examples=32)
 BERT_STEPS = BERT_RUN["epochs"] * BERT_RUN["steps_per_epoch"]
 BERT_EVAL_BATCHES = 4
 #: flash vs the default attention, same seed, dropout 0: |flash - default| /
@@ -3346,6 +3394,9 @@ def _profile_bert(torch, state, seq_len, dtype, card):
 
 #: shortened runs at full width: 3 warmup batches, then 3 windows of 5
 SHORT = dict(num_warmup_batches=3, num_iters=3, num_batches_per_iter=5)
+#: the shortest image runs (phase_image_short, ViT-L/16 in phase_vit): 2
+#: warm-up batches, 2 windows of 3
+L16_WINDOWS = dict(num_warmup_batches=2, num_iters=2, num_batches_per_iter=3)
 SHORT_RUNS = (("inceptionv3", "bfloat16", 299), ("vgg16", "float32", 224),
               ("resnet50", "float32", 224))
 #: the card against the CPU: resnet50 at 64 px, batch 4, two train steps
@@ -3524,55 +3575,57 @@ def _profile_image_step(torch, step, state, batch, tag, card, step_p50,
     return groups, busy, event_ms
 
 
-def _fresh_process_benchmark(card, model=None, tag="resnet"):
+def _fresh_process_benchmark(card):
     """The reference benchmark as a user launches it, ``python -m
-    distributeddeeplearning_tpu_torch.workloads.benchmark`` with no flags
-    but ``--model`` when ``model`` is given, in a process of its own: a
-    host-bound step runs slower after a torch.profiler window in the same
-    process (``scripts/profiler_overhead.py``: +23%, measured on one H100),
-    and this script has opened many.  Logs its img/s line; returns the
-    mean."""
+    distributeddeeplearning_tpu_torch.workloads.benchmark`` with no flags,
+    in a process of its own: a host-bound step runs slower after a
+    torch.profiler window in the same process (``scripts/
+    profiler_overhead.py``: +23%, measured on one H100), and this script
+    has opened many.  Logs its img/s line; returns the mean."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "bench.jsonl")
-        flags = [] if model is None else ["--model", model]
         proc = subprocess.run(
             [sys.executable, "-m", "distributeddeeplearning_tpu_torch.workloads.benchmark",
-             *flags, "--metrics_path", path],
+             "--metrics_path", path],
             capture_output=True, text=True, timeout=600,
             cwd=os.path.dirname(os.path.abspath(__file__)))
         if proc.returncode != 0:
-            raise AssertionError(f"[{tag}] python -m ...workloads.benchmark failed: "
+            raise AssertionError(f"[resnet] python -m ...workloads.benchmark failed: "
                                  f"{proc.stderr[-2000:]}")
         with open(path) as f:
             row = json.loads(f.read().splitlines()[-1])
     line = next((ln for ln in proc.stderr.splitlines() if "Img/sec per chip" in ln), "")
-    log(f"[{tag}] fresh process (python -m distributeddeeplearning_tpu_torch."
-        f"workloads.benchmark {' '.join(flags)}, reference defaults): "
+    log(f"[resnet] fresh process (python -m distributeddeeplearning_tpu_torch."
+        f"workloads.benchmark, reference defaults): "
         f"{line.split('Img/sec per chip:')[-1].strip()} "
         f"img/s a chip (mean +-1.96 sigma); metrics row {row} on {card}")
     if not (math.isfinite(row["img_sec_per_chip"]) and row["img_sec_per_chip"] > 0):
-        raise AssertionError(f"[{tag}] fresh-process img/s {row}")
+        raise AssertionError(f"[resnet] fresh-process img/s {row}")
     return row["img_sec_per_chip"]
 
 
 def phase_resnet(torch, np, card):
     """``workloads.benchmark.main()`` at the reference defaults (resnet50,
     bf16, batch 64, 224 px, 1001 classes, 10 warmup batches then 10 windows
-    of 10): first through ``python -m`` in a fresh process (img/s), then in
-    this process with each step bracketed by CUDA events: img/s, step p50,
+    of 10) through ``python -m`` in a fresh process (img/s), then in this
+    process shortened (SHORT: 3 warmup batches, 3 windows of 5) with each
+    step bracketed by CUDA events: img/s, step p50,
     peak memory and mfu from the FLOP reckoning, then one profiled step
     under sync debug mode 'error'."""
     from distributeddeeplearning_tpu_torch.models import get_model
 
     fresh = _fresh_process_benchmark(card)
-    result, step_ms, (step, state, batch), peak_gb = _image_bench(torch, np)
+    result, step_ms, (step, state, batch), peak_gb = _image_bench(torch, np, **SHORT)
+    n = SHORT["num_warmup_batches"] + (SHORT["num_iters"] + 2) * SHORT[
+        "num_batches_per_iter"]
     if not (result.model == "resnet50" and result.batch_size_per_chip == 64
-            and len(step_ms) == 10 + 12 * 10):
-        raise AssertionError(f"[resnet] not the reference defaults: {result}, "
-                             f"{len(step_ms)} steps")
-    p50 = _image_line(np, "resnet", result, step_ms, 10, peak_gb, card, "bfloat16", 224)
+            and len(step_ms) == n):
+        raise AssertionError(f"[resnet] not the reference model and batch, or not "
+                             f"SHORT: {result}, {len(step_ms)} steps")
+    p50 = _image_line(np, "resnet", result, step_ms, SHORT["num_warmup_batches"],
+                      peak_gb, card, "bfloat16", 224)
     macs = get_model("resnet50").forward_macs(224)
     flops = 3 * 2 * macs * 64
     log(f"[resnet] FLOP reckoning (ImageModel.forward_macs): {macs / 1e9:.4f} G "
@@ -3745,18 +3798,18 @@ def phase_resnet_parity(torch, np, card):
 
 def phase_image_short(torch, np, card):
     """Shortened runs at full width through ``workloads.benchmark.main``
-    (3 warmup batches, 3 windows of 5): inceptionv3 bf16 at 299 px and
-    vgg16 and resnet50 in f32 at 224 px, batch 64 each."""
+    (L16_WINDOWS: 2 warmup batches, 2 windows of 3): inceptionv3 bf16 at
+    299 px and vgg16 and resnet50 in f32 at 224 px, batch 64 each."""
     out = {}
+    w = L16_WINDOWS
     for model, dtype, size in SHORT_RUNS:
         result, step_ms, _, peak_gb = _image_bench(
-            torch, np, model=model, compute_dtype=dtype, image_size=size, **SHORT)
-        n = SHORT["num_warmup_batches"] + (SHORT["num_iters"] + 2) * SHORT[
-            "num_batches_per_iter"]
+            torch, np, model=model, compute_dtype=dtype, image_size=size, **w)
+        n = w["num_warmup_batches"] + (w["num_iters"] + 2) * w["num_batches_per_iter"]
         if len(step_ms) != n:
             raise AssertionError(f"[{model}] {len(step_ms)} steps, not {n}")
         out[model, dtype] = _image_line(np, f"{model} {dtype} {size}px", result, step_ms,
-                                        SHORT["num_warmup_batches"], peak_gb, card,
+                                        w["num_warmup_batches"], peak_gb, card,
                                         dtype, size)
     torch.cuda.empty_cache()
     return out
@@ -3804,17 +3857,14 @@ def _vit_group(key: str) -> str:
 
 def phase_vit(torch, np, card):
     """ViT-B/16 through ``workloads.benchmark.main(model="vit-b16")`` (bf16,
-    batch 64, 224 px, 1001 classes), first as ``python -m`` in a fresh
-    process at the reference defaults (10 warmup batches, 10 windows of
-    10), then here shortened (SHORT: 3 warmup batches, 3 windows of 5)
-    with each step bracketed by CUDA events: img/s, step p50,
+    batch 64, 224 px, 1001 classes), shortened (SHORT: 3 warmup batches,
+    3 windows of 5) with each step bracketed by CUDA events: img/s, step p50,
     peak memory and mfu from ``forward_macs`` (the attention products
     counted), one profiled step's split (GEMMs, attention, LayerNorm/GELU,
-    elementwise, SGD); then a shortened vit-l16 run (3 warmup batches, 3
-    windows of 5)."""
+    elementwise, SGD); then a shortened vit-l16 run (L16_WINDOWS: 2 warmup
+    batches, 2 windows of 3)."""
     from distributeddeeplearning_tpu_torch.models import get_model
 
-    fresh = _fresh_process_benchmark(card, model="vit-b16", tag="vit")
     result, step_ms, (step, state, batch), peak_gb = _image_bench(
         torch, np, model="vit-b16", **SHORT)
     n = SHORT["num_warmup_batches"] + (SHORT["num_iters"] + 2) * SHORT[
@@ -3837,16 +3887,17 @@ def phase_vit(torch, np, card):
                         p50, group=_vit_group)
     del step, state, batch
     torch.cuda.empty_cache()
-    large, step_ms, _, peak_gb = _image_bench(torch, np, model="vit-l16", **SHORT)
-    n = SHORT["num_warmup_batches"] + (SHORT["num_iters"] + 2) * SHORT[
+    large, step_ms, _, peak_gb = _image_bench(torch, np, model="vit-l16", **L16_WINDOWS)
+    n = L16_WINDOWS["num_warmup_batches"] + (L16_WINDOWS["num_iters"] + 2) * L16_WINDOWS[
         "num_batches_per_iter"]
     if len(step_ms) != n:
         raise AssertionError(f"[vit-l16] {len(step_ms)} steps, not {n}")
     p50_l = _image_line(np, "vit-l16 bfloat16 224px", large, step_ms,
-                        SHORT["num_warmup_batches"], peak_gb, card, "bfloat16", 224)
+                        L16_WINDOWS["num_warmup_batches"], peak_gb, card, "bfloat16",
+                        224)
     torch.cuda.empty_cache()
     return {"img_s": result.img_sec_per_chip_mean, "p50_ms": p50,
-            "fresh_img_s": fresh, "l16_p50_ms": p50_l}
+            "l16_p50_ms": p50_l}
 
 
 def _vit_state(torch, host, attention_fn=None, remat="none"):
@@ -4159,10 +4210,12 @@ def phase_resume(torch, np, fa, card):
 
 
 #: the resilience phase: the RESUME fit's model, batch and steps; an LM
-#: subprocess at TRAIN's geometry preempted at LM_PREEMPT of LM_STEPS; the
+#: subprocess at TRAIN's width and batch (LM_LAYERS_PREEMPT layers)
+#: preempted at LM_PREEMPT of LM_STEPS; the
 #: watchdog subprocess at the LM workload's defaults, its deadline and the
 #: injected stall
 LM_STEPS, LM_PREEMPT = 6, 3
+LM_LAYERS_PREEMPT = 2  # (7)'s LM runs: TRAIN's width and batch, cut to 2 layers
 WATCHDOG = dict(deadline_s=2, stall_at=3, stall_s=6)
 
 
@@ -4223,12 +4276,13 @@ def phase_resilience(torch, np, fa, card):
     the tracer on: the chrome trace names K1, K2, K3 and ``train/step``
     (recorded launches logged, not gated), the tracer's export the
     ``train/*`` spans and the rollback event; (7) the LM workload in
-    subprocesses at TRAIN's geometry (flash, bf16, LM_STEPS steps)
-    preempted at LM_PREEMPT: exit 75 and a generation at LM_PREEMPT, then
-    rerun without faults: resumes from it and exits 0; at its defaults
-    with ``--step_deadline_s`` and an injected data stall (a process run
-    beside those two): exit 70 with the stacks on stderr.  Returns the
-    clean fit's launches."""
+    subprocesses at TRAIN's width and batch cut to LM_LAYERS_PREEMPT
+    layers (flash, bf16, LM_STEPS steps) preempted at LM_PREEMPT, started
+    with the phase and run beside (1)-(6): exit 75 and a generation at
+    LM_PREEMPT, then rerun without faults: resumes from it and exits 0; at
+    its defaults with ``--step_deadline_s`` and an injected data stall (a
+    process also started with the phase): exit 70 with the stacks on
+    stderr.  Returns the clean fit's launches."""
     import json as _json
     import shutil
     import tempfile
@@ -4310,6 +4364,20 @@ def phase_resilience(torch, np, fa, card):
 
     root = tempfile.mkdtemp(prefix="vit-resilience-")
     out = {}
+    # (7)'s preempted LM run and the watchdog's run start now, in processes
+    # of their own, and run beside (1)-(6) (their exit codes are checked;
+    # the steps they time are not theirs)
+    watchdog = _lm_workload_start(
+        f"data_stall@{WATCHDOG['stall_at']}:secs={WATCHDOG['stall_s']}",
+        [f"--step_deadline_s={WATCHDOG['deadline_s']}", "--epochs=1",
+         "--steps_per_epoch=8"])
+    lm_dir = tempfile.mkdtemp(prefix="lm-preempt-")
+    lm_geo = {**TRAIN, "num_layers": LM_LAYERS_PREEMPT}
+    argv = [f"--{k}={v}" for k, v in lm_geo.items()] + [
+        "--attention=flash", "--compute_dtype=bfloat16", "--epochs=1",
+        f"--steps_per_epoch={LM_STEPS}", f"--train_examples={LM_STEPS * TRAIN['batch_size']}",
+        f"--save_filepath={lm_dir}"]
+    preempted = _lm_workload_start(f"preempt@{LM_PREEMPT}", argv)
     try:
         # the clean fit: prefetch on (the default), no checkpoint
         _zero_fa(fa)
@@ -4476,27 +4544,24 @@ def phase_resilience(torch, np, fa, card):
                         "resilience/rollback"} <= host_names):
             raise AssertionError("[resilience] the profile or the tracer export lacks "
                                  "the flash kernels or the train spans")
+    except BaseException:
+        for proc, _ in (watchdog, preempted):  # every process it starts stops
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(lm_dir, ignore_errors=True)
+        raise
     finally:
         trace.configure(enabled=False)
         faults.install_plan("")
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
 
-    # (7) exit codes of the LM workload in subprocesses; the watchdog's
-    # runs beside the preempted one and its rerun
-    watchdog = _lm_workload_start(
-        f"data_stall@{WATCHDOG['stall_at']}:secs={WATCHDOG['stall_s']}",
-        [f"--step_deadline_s={WATCHDOG['deadline_s']}", "--epochs=1",
-         "--steps_per_epoch=8"])
-    lm_dir = tempfile.mkdtemp(prefix="lm-preempt-")
+    # (7) exit codes of the LM workload in subprocesses: the preempted run
+    # and the watchdog's (started with the phase), then the rerun
     try:
-        argv = [f"--{k}={v}" for k, v in TRAIN.items()] + [
-            "--attention=flash", "--compute_dtype=bfloat16", "--epochs=1",
-            f"--steps_per_epoch={LM_STEPS}", f"--train_examples={LM_STEPS * TRAIN['batch_size']}",
-            f"--save_filepath={lm_dir}"]
-        rc, _, err, secs = _lm_workload(f"preempt@{LM_PREEMPT}", argv)
+        rc, _, err, secs = _lm_workload_wait(preempted)
         gens = Checkpointer(lm_dir).all_steps()
-        log(f"[resilience] LM workload ({TRAIN['num_layers']} layers, d "
+        log(f"[resilience] LM workload ({LM_LAYERS_PREEMPT} layers, d "
             f"{TRAIN['d_model']}, seq {TRAIN['seq_len']}, batch {TRAIN['batch_size']}, "
             f"flash, bf16, {LM_STEPS} steps) with DDLT_FAULTS=preempt@{LM_PREEMPT}: "
             f"exit {rc}, generations "
@@ -4527,7 +4592,7 @@ def phase_resilience(torch, np, fa, card):
 def phase_moe_bert(torch, np, fa, card):
     """bert-base with a mixture of MOE_EXPERTS experts in every second layer
     through ``workloads.bert.main(num_experts=8, attention="flash")`` at its
-    defaults (bf16, batch 8, seq 128, dropout 0.1), cut to 8 batches: the
+    defaults (bf16, batch 8, seq 128, dropout 0.1), cut to 4 batches: the
     loss finite, the load-balance term and the share of token-slots dropped
     over capacity (from the router's own counts), step p50 and peak memory,
     exact launches of the bias kernels; then the f32 forward (eval, flash)
@@ -4548,10 +4613,10 @@ def phase_moe_bert(torch, np, fa, card):
             aux.append(term.detach())
         return y, term
 
-    def recording_route(kernel, xf, e, k, cap):
-        r = real_route(kernel, xf, e, k, cap)
+    def recording_route(*args, **kwargs):
+        r = real_route(*args, **kwargs)
         kept.append(r.kept.sum())
-        slots.append(k * xf.shape[0])
+        slots.append(r.gate_idx.shape[1] * r.n)
         gates.append(r.gate_idx)
         return r
 
@@ -4627,6 +4692,7 @@ def phase_moe_bert(torch, np, fa, card):
 # ---- data parallelism (phase 26) --------------------------------------------
 
 DP_STEPS = 3  # global batches of TRAIN's 8 rows, the same in every run
+DP_LAYERS = 4  # (b)'s LM: TRAIN's width cut to 4 layers (the script's depth cut)
 DP_SEED = 42  # the LM workload's seed: weights and token streams
 DP_PEAK_LR = 3e-4  # the LM workload's base_lr
 # per-step losses of two data-parallel runs of the same batches, relative:
@@ -4655,8 +4721,9 @@ def _dp_batches(np):
 
 
 def _dp_lm_fit(torch, mesh, dev, batches, **kw):
-    """The LM workload's model, optimizer and schedule (TRAIN's width, bf16,
-    flash, AdamW without a clip) trained on ``batches`` (global: each rank
+    """The LM workload's model, optimizer and schedule (TRAIN's width cut to
+    DP_LAYERS layers, bf16, flash, AdamW without a clip) trained on
+    ``batches`` (global: each rank
     takes its rows) through ``build_train_step(mesh=mesh, **kw)``.
     Returns (state, per-step losses, per-step CUDA-event ms, the step)."""
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
@@ -4674,8 +4741,8 @@ def _dp_lm_fit(torch, mesh, dev, batches, **kw):
     from distributeddeeplearning_tpu_torch.train.state import TrainState, adamw, tree_map
     from distributeddeeplearning_tpu_torch.train.step import build_train_step
 
-    width = {k: TRAIN[k] for k in ("num_layers", "d_model", "num_heads", "d_ff",
-                                   "vocab_size")}
+    width = {**{k: TRAIN[k] for k in ("d_model", "num_heads", "d_ff", "vocab_size")},
+             "num_layers": DP_LAYERS}
     params = init_params(torch.Generator().manual_seed(DP_SEED),
                          max_len=TRAIN["seq_len"], device=dev, **width)
     attention_fn = make_flash_attention(mesh=mesh, causal=True)
@@ -5026,7 +5093,7 @@ def phase_data_parallel(torch, np, F, fa, card):
     for rank, out in enumerate(ranks):
         for name, entry in out.items():
             want = {c: 0 for c in FA_COUNTERS}
-            want.update({v: layers * DP_STEPS for v in bf16.values()})
+            want.update({v: DP_LAYERS * DP_STEPS for v in bf16.values()})
             if entry["counts"] != want or entry["plain"]:
                 raise AssertionError(f"[dp-gloo] rank {rank} {name}: launches "
                                      f"{entry['counts']}, plain calls {entry['plain']}")
@@ -5064,9 +5131,9 @@ def phase_data_parallel(torch, np, F, fa, card):
                          TRAIN["num_heads"], TRAIN["batch_size"] // 2,
                          TRAIN["seq_len"], torch.bfloat16, card)
     for kern, entry in per_rank.items():
-        entry["launches_a_rank_a_step"] = layers
+        entry["launches_a_rank_a_step"] = DP_LAYERS
     log(f"[dp-gloo] the bf16 K1, K2, K3 at the per-rank shape (B=4, as each "
-        f"rank launched them, 12 each a step): "
+        f"rank launched them, {DP_LAYERS} each a step): "
         f"{ {k: round(e['ms'], 4) for k, e in per_rank.items()} } ms, bounds "
         f"{ {k: round(e['bound_ms'], 4) for k, e in per_rank.items()} } ms on {card}")
 
@@ -5098,16 +5165,17 @@ TP_RUNS = (  # name, KV layout, weights, engine options: phase 27 (a)-(e)
     ("dense_int8_weights", "dense", "int8", {}),
 )
 TP_PROFILE_STEPS = 10  # decode steps of the dense f32 run's breakdown
-# the TP runs' token budget: half the serving cells', since every decode
-# step pays the ranks' gloo round trips (the script's depth cut)
-TP_NEW_TOKENS = NEW_TOKENS // 2
+# the TP runs' token budget: a quarter of the serving cells', since every
+# decode step pays the ranks' gloo round trips (the script's depth cut)
+TP_NEW_TOKENS = NEW_TOKENS // 4
 
 
 def tp_layers(name: str) -> int:
-    """A TP run's depth: (a) at the serving cells' 12 layers, (b)-(e) at
-    the first 3 layers of the same weights (the script's depth cut: a
-    forward pays 2 L + 1 gloo all-reduces a rank)."""
-    return SERVE["num_layers"] // (1 if name == "dense_f32" else 4)
+    """A TP run's depth: every run at the first 3 of the serving cells' 12
+    layers of the same weights (the script's depth cut: a forward pays 2 L
+    + 1 gloo all-reduces a rank)."""
+    del name
+    return SERVE["num_layers"] // 4
 
 
 #: prefill shape of K1-K3 over the local heads: one 512-token prompt
@@ -5694,7 +5762,10 @@ ROBUST_PAGES = -(-ROBUST_SLOTS * 5 // 6)
 # this many requests' worst-case pages — the forecast gates admission
 ROBUST_FORECAST_REQUESTS = 3
 #: (b) the reference's TIER recipe (bench.py:3300-3345) at page 64
-TIER_SESSIONS, TIER_ROUNDS, TIER_PREFIX_PAGES, TIER_NEW = 24, 3, 4, 4
+# the reference's TIER recipe at one measured round after the seed round
+# (the recipe's 3 cut to 1: the script's time budget)
+TIER_SESSIONS, TIER_ROUNDS, TIER_PREFIX_PAGES, TIER_NEW = 24, 1, 4, 4
+FIDELITY_PROMPTS = 8  # (e): the first 8 of the paged cell's 16 prompts
 TIER_TIMED_PAGES = 16  # pages a transfer time is averaged over
 #: (d) the watchdog's deadline and the injected stall
 ROBUST_WATCHDOG_S, ROBUST_STALL_S = 0.4, 1.0
@@ -6258,7 +6329,7 @@ def _robust_int8_fidelity(torch, np, fa, fd, card, params):
     against f32 (bench.py:1100-1200), through ``capture_logits``."""
     from distributeddeeplearning_tpu_torch.serve import PagedInferenceEngine
 
-    prompts = [list(r.prompt) for r in serve_requests(np, "paged")]
+    prompts = [list(r.prompt) for r in serve_requests(np, "paged")][:FIDELITY_PROMPTS]
     engines = {dtype: PagedInferenceEngine(
         params, num_heads=SERVE["num_heads"], batch_slots=SLOTS, max_seq=MAX_SEQ,
         page_size=PAGE, prefill_chunk=CHUNK, cache_dtype=dtype, capture_logits=True)
@@ -6639,15 +6710,17 @@ def note_profiled(top, names):
 def profiled_kernels(row_name):
     """The instances of the CUDA kernel a kernels-line row's wrapper
     launches, as the run's profiles named them: flash_attention_<pass>
-    [_bias][_bf16] launches flash_<pass>_<f32 or bf16>_kernel (a row lists
-    its instances with and without the bias); the flash_decode* wrappers
+    [_local_heads][_bias][_bf16] launches flash_<pass>_<f32 or bf16>_kernel
+    (a row lists its instances with and without the bias); the
+    flash_decode* wrappers
     share the flash_decode split and merge kernels (each row lists all
     their instances)."""
     if row_name.startswith("flash_decode"):
         name = "flash_decode"
     else:
         dtype = "_bf16" if row_name.endswith("_bf16") else "_f32"
-        stem = row_name.replace("_bias", "").replace("_bf16", "")
+        stem = (row_name.replace("_local_heads", "").replace("_bias", "")
+                .replace("_bf16", ""))
         name = stem.replace("flash_attention_", "flash_") + dtype + "_kernel"
     return sorted(PROFILED.get(name, ()))
 
@@ -6709,9 +6782,90 @@ def _zero_counters(fa, fd):
 
 IMAGENET = dict(model="resnet50", batch=64, image_size=224, num_classes=1001,
                 train_images=1024, train_shards=8, val_images=256, val_shards=2,
-                host_seconds=3.0, host_batches=8,
-                fed=dict(num_warmup_batches=8, num_iters=5, num_batches_per_iter=10))
+                host_seconds=1.5, host_batches=8,
+                fed=dict(num_warmup_batches=4, num_iters=3, num_batches_per_iter=5))
 U8_TOL = 0.5 + 1e-4  # uint8 rounding of the decoder's float pixels
+
+
+class _ImagenetEarly:
+    """Phase 30's shards and its ``python -m`` workload run (d), started
+    with the script: a thread writes the shards (host work, beside the
+    kernels' ``nvcc`` build), then starts (d) on them in a process of its
+    own (cuDNN only: it needs none of the port's kernels).  ``main``
+    waits for it before the first timed phase; the phase collects the
+    shards and (d)'s result; ``close`` stops the process and removes the
+    files."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        self.tmp = tempfile.mkdtemp(prefix="imagenet-")
+        self.data = os.path.join(self.tmp, "shards")
+        self.metrics = os.path.join(self.tmp, "metrics.jsonl")
+        self.proc = self.error = self.meta = None
+        self.gen_s = self.started = 0.0
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        from distributeddeeplearning_tpu_torch.data.bench_data import (
+            generate_bench_shards,
+        )
+
+        try:
+            cfg = IMAGENET
+            t0 = time.perf_counter()
+            self.meta = (
+                generate_bench_shards(self.data, num_images=cfg["train_images"],
+                                      num_shards=cfg["train_shards"], seed=0),
+                generate_bench_shards(self.data, num_images=cfg["val_images"],
+                                      num_shards=cfg["val_shards"], seed=1,
+                                      split="validation"))
+            self.gen_s = time.perf_counter() - t0
+            # stderr to a file: -X importtime writes more than a pipe holds
+            self.started = time.perf_counter()
+            self.proc = subprocess.Popen(
+                [sys.executable, "-X", "importtime", "-m",
+                 "distributeddeeplearning_tpu_torch.workloads.imagenet",
+                 "--data_format=tfrecords", f"--training_data_path={self.data}",
+                 f"--validation_data_path={self.data}", "--epochs=1",
+                 "--steps_per_epoch=4", f"--train_images={cfg['train_images']}",
+                 f"--metrics_path={self.metrics}"],
+                stdout=subprocess.DEVNULL,
+                stderr=open(os.path.join(self.tmp, "workload.err"), "w"),
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        except BaseException as exc:  # noqa: BLE001 — raised where collected
+            self.error = exc
+
+    def shards(self):
+        """(shard directory, (train, validation) manifests, seconds)."""
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.data, self.meta, self.gen_s
+
+    def workload(self, timeout=600):
+        """(d)'s (exit code, stderr, seconds from its start to its
+        collection: at most its run time, metrics path)."""
+        self.shards()
+        try:
+            rc = self.proc.wait(timeout=max(timeout - (time.perf_counter()
+                                                       - self.started), 1))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        with open(os.path.join(self.tmp, "workload.err")) as f:
+            return rc, f.read(), time.perf_counter() - self.started, self.metrics
+
+    def close(self):
+        import shutil
+
+        self._thread.join()
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def _host_rate(make):
@@ -6740,32 +6894,35 @@ def _host_rate(make):
                 shapes=sorted(map(str, shapes)))
 
 
-def phase_imagenet(torch, np, card):
+def phase_imagenet(torch, np, card, early=None):
     """The ImageNet data plane and the ``imagenet`` workload at the
     reference's flagship settings (ResNet-50, 224 px, batch 64, bf16, 1001
     classes), no TensorFlow anywhere.  (a) Seeded ILSVRC-size JPEG shards
-    from ``data.bench_data`` in a temporary directory: train 1024 images in
-    8 shards, validation 256 in 2; the record reader's C library
+    from ``data.bench_data`` in a temporary directory, written from the
+    script's start beside the kernels' build (``_ImagenetEarly``): train
+    1024 images in 8 shards, validation 256 in 2; the record reader's C library
     (``ddlt_records.c``) must build with the host compiler (it fails the
     phase if it does not); the JPEG decoder's (``ddlt_image.c``, libjpeg)
     may not, and then PIL decodes: the built libraries and the decoder
     that ran are printed.  (b) Host rates, each pipeline alone with no
     device: the tf recipe (``data.tfrecords``), the native pipeline and the
     raw cache (built first, its build timed), batches of 64 timed after
-    one warm-up batch for at least 3 s and 8 batches, img/s beside
+    one warm-up batch for at least 1.5 s and 8 batches, img/s beside
     ``os.cpu_count()``.  (c) Fed against resident: one bf16 ResNet-50
     train step through ``train.benchmark.run_benchmark`` on one resident
     batch and through ``run_data_benchmark`` over the native and raw
     pipelines staged by ``prefetch_to_device`` (raw: uint8 across PCIe,
     ``uint8_normalizer`` on the card as the step's ``input_transform``),
-    5 windows of 10 after 8 warmup batches each: fed img/s, resident
+    3 windows of 5 after 4 warmup batches each: fed img/s, resident
     img/s, their ratio; and on the card ``uint8_normalizer`` of the raw
     validation batch is within 0.5 + 1e-4 of the native float batch of the
     same records.  (d) The workload as users run it: ``python -m
     distributeddeeplearning_tpu_torch.workloads.imagenet
     --data_format=tfrecords`` with the default ``--input_pipeline=tf``, one
     epoch of 4 steps and validation over the 256 images, in a fresh
-    process under ``-X importtime``: the loss is finite, the eval metrics
+    process under ``-X importtime`` started on the shards as soon as they
+    are written (beside the build; ``main`` waits for it before the first
+    timed phase): the loss is finite, the eval metrics
     exist, and no import of jax or tensorflow is in its import log.  (e)
     Replay-free resume: ``imagenet.main(input_pipeline="raw")`` for 2
     steps with a checkpoint, then resumed to 4: the batches the resumed
@@ -6781,9 +6938,6 @@ def phase_imagenet(torch, np, card):
         native_pipeline,
         raw_cache,
         tfrecords,
-    )
-    from distributeddeeplearning_tpu_torch.data.bench_data import (
-        generate_bench_shards,
     )
     from distributeddeeplearning_tpu_torch.models import get_model
     from distributeddeeplearning_tpu_torch.train.benchmark import (
@@ -6802,16 +6956,10 @@ def phase_imagenet(torch, np, card):
     cfg = IMAGENET
     b, size = cfg["batch"], cfg["image_size"]
     out = {"cpu_count": os.cpu_count()}
+    early = early or _ImagenetEarly()
     with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "shards")
-        # (a) the shards and the C libraries
-        t0 = time.perf_counter()
-        train_m = generate_bench_shards(data, num_images=cfg["train_images"],
-                                        num_shards=cfg["train_shards"], seed=0)
-        val_m = generate_bench_shards(data, num_images=cfg["val_images"],
-                                      num_shards=cfg["val_shards"], seed=1,
-                                      split="validation")
-        gen_s = time.perf_counter() - t0
+        # (a) the shards (written from the script's start) and the C libraries
+        data, (train_m, val_m), gen_s = early.shards()
         records_c = _native.native_available()
         image_c = _native_image.native_available()
         log(f"[imagenet] (a) shards: train {cfg['train_images']} in "
@@ -6905,28 +7053,20 @@ def phase_imagenet(torch, np, card):
         if not (on_card.device.type == "cuda" and err <= U8_TOL):
             raise AssertionError(f"[imagenet] raw vs native {err} > {U8_TOL}")
 
-        # (d) the workload through python -m, tf recipe, 4 steps + eval
-        metrics = os.path.join(tmp, "metrics.jsonl")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-X", "importtime", "-m",
-             "distributeddeeplearning_tpu_torch.workloads.imagenet",
-             "--data_format=tfrecords", f"--training_data_path={data}",
-             f"--validation_data_path={data}", "--epochs=1", "--steps_per_epoch=4",
-             f"--train_images={cfg['train_images']}", f"--metrics_path={metrics}"],
-            capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
+        # (d) the workload through python -m, tf recipe, 4 steps + eval: the
+        # process started on the shards from the script's start
+        rc, stderr, wall, metrics = early.workload()
+        if rc != 0:
             raise AssertionError(f"[imagenet] python -m ...workloads.imagenet failed: "
-                                 f"{proc.stderr[-3000:]}")
+                                 f"{stderr[-3000:]}")
         imported = {ln.split("|")[-1].strip().split(".")[0]
-                    for ln in proc.stderr.splitlines() if ln.startswith("import time:")}
+                    for ln in stderr.splitlines() if ln.startswith("import time:")}
         with open(metrics) as f:
             row = json.loads(f.read().splitlines()[-1])
         log(f"[imagenet] (d) python -m ...workloads.imagenet --data_format="
             f"tfrecords (input_pipeline tf, resnet50 bf16 B={b} {size} px, 4 steps, "
-            f"eval over {cfg['val_images']}): {wall:.1f} s; row {row}; modules "
+            f"eval over {cfg['val_images']}; started with the script, beside the "
+            f"kernels' build): exit 0 within {wall:.1f} s; row {row}; modules "
             f"imported: {len(imported)} top-level, jax {'jax' in imported}, "
             f"tensorflow {'tensorflow' in imported}")
         if "jax" in imported or "tensorflow" in imported or not imported:
@@ -6995,8 +7135,10 @@ def phase_imagenet(torch, np, card):
 MP_RANKS = 4
 MP_MESHES = (("tensor2-fsdp2", {"tensor": 2, "fsdp": 2}), ("fsdp4", {"fsdp": 4}),
              ("data2-tensor2", {"data": 2, "tensor": 2}))
-MP_WIDTH = {k: TRAIN[k] for k in ("num_layers", "d_model", "num_heads", "d_ff",
-                                  "vocab_size", "seq_len")}
+#: (a) at TRAIN's width and sequence, cut to 4 layers (the script's depth
+#: cut: a layer's step pays 4 gloo all-reduces of the activations)
+MP_WIDTH = {**{k: TRAIN[k] for k in ("d_model", "num_heads", "d_ff", "vocab_size",
+                                     "seq_len")}, "num_layers": 4}
 MP_BATCH = 2  # rows a data shard: (a)'s global batch is 2 x 2 data shards
 MP_STEPS = 3
 MP_EVAL_BATCHES = 2  # a rank's eval pass: min(train_examples, 4 x global) / 2
@@ -7014,7 +7156,7 @@ MP_REPLICATED = ("pos", "blocks/ln1", "blocks/ln2")
 # two of the clip norm (the fsdp-split class over fsdp, the tensor-split
 # class over tensor); the embedding and the head gathered over fsdp
 # forward and their gradients reduce-scattered backward
-MP_STEP_COLLECTIVES = {"all_reduce": 4 * TRAIN["num_layers"] + 4,
+MP_STEP_COLLECTIVES = {"all_reduce": 4 * MP_WIDTH["num_layers"] + 4,
                        "all_gather": 2, "reduce_scatter": 2}
 
 
@@ -7103,8 +7245,8 @@ class _MPRecorded:
     the collectives it issued and staged (the counts zeroed around it) and
     a digest of this rank's replicated leaves after it."""
 
-    def __init__(self, torch, step):
-        self.torch, self.step = torch, step
+    def __init__(self, torch, step, replicated=MP_REPLICATED):
+        self.torch, self.step, self.replicated = torch, step, replicated
         self.losses, self.wall_ms, self.marks, self.inside_ms = [], [], [], []
         self.collectives, self.staged, self.digests = [], [], []
 
@@ -7133,7 +7275,7 @@ class _MPRecorded:
         named = dict(named_leaves(state.params))
         self.digests.append({k: hashlib.sha256(
             named[k].detach().cpu().contiguous().view(torch.uint8).numpy()
-        ).hexdigest() for k in MP_REPLICATED})
+        ).hexdigest() for k in self.replicated})
         return state, metrics
 
     def __getattr__(self, name):
@@ -7212,8 +7354,8 @@ def _mp_expected_bytes(torch, mesh, layout):
     leaf's global shape (TRAIN's) cut by its spec."""
     from distributeddeeplearning_tpu_torch.parallel.sharding import local_shape
 
-    L, d, f, v, s = (TRAIN[k] for k in ("num_layers", "d_model", "d_ff", "vocab_size",
-                                        "seq_len"))
+    L, d, f, v, s = (MP_WIDTH[k] for k in ("num_layers", "d_model", "d_ff",
+                                           "vocab_size", "seq_len"))
     shapes = {"embed": (v, d), "pos": (s, d), "head": (d, v), "blocks/qkv": (L, d, 3 * d),
               "blocks/proj": (L, d, d), "blocks/w_in": (L, d, f),
               "blocks/w_out": (L, f, d), "blocks/ln1": (L, d), "blocks/ln2": (L, d)}
@@ -7326,12 +7468,19 @@ def phase_model_parallel_train(torch, np, F, fa, card):
     bf16 entries at the per-rank shape)."""
     import tempfile
 
-    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa_mod
+    refs = _mp_references(torch, np, fa, card)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks("_mp_rank", MP_RANKS, *_mp_rank_args(torch, refs, tmp))
+    log(f"[time] phase_model_parallel_train (ranks): {time.perf_counter() - t0:.1f} s")
+    return _mp_checks(torch, np, F, fa, card, ranks, refs)
 
-    layers = TRAIN["num_layers"]
-    heads = TRAIN["num_heads"] // 2
-    bf16 = {"fwd": "launches_bf16", "dq": "launches_dq_bf16", "dkv": "launches_dkv_bf16"}
-    f32 = {"fwd": "launches", "dq": "launches_dq", "dkv": "launches_dkv"}
+
+def _mp_references(torch, np, fa, card):
+    """Phase 31's one-process references on the card: (b)'s losses,
+    gradients and norms with the clip at half the unclipped first-step
+    norm, and (a)'s one-process step p50 and peak at the same global
+    batch."""
     t0 = time.perf_counter()
     # (b)'s one-process reference on the card, its clip at half the norm
     norm = _mp_parity_fit(torch, np, None, 1e30)[2][0]
@@ -7355,16 +7504,29 @@ def phase_model_parallel_train(torch, np, F, fa, card):
     del one_fit, built, one
     torch.cuda.empty_cache()
     log(f"[time] phase_model_parallel_train (one process): {time.perf_counter() - t0:.1f} s")
+    return {"clip": clip, "ref": {"losses": ref_losses, "grads": ref_grads,
+                                  "norms": ref_norms},
+            "one_p50": one_p50, "one_peak": one_peak}
 
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ref_path = os.path.join(tmp, "ref.pt")
-        torch.save({"losses": ref_losses, "grads": ref_grads, "norms": ref_norms}, ref_path)
-        del ref_grads
-        ranks = run_ranks("_mp_rank", MP_RANKS, ref_path, clip,
-                          os.path.join(tmp, "ckpt"))
-    log(f"[time] phase_model_parallel_train (ranks): {time.perf_counter() - t0:.1f} s")
 
+def _mp_rank_args(torch, refs, tmp):
+    """``_mp_rank``'s arguments: the references saved under ``tmp`` (the
+    ranks load them), the clip and the checkpoint directory."""
+    ref_path = os.path.join(tmp, "mp-ref.pt")
+    torch.save(refs.pop("ref"), ref_path)
+    return ref_path, refs["clip"], os.path.join(tmp, "mp-ckpt")
+
+
+def _mp_checks(torch, np, F, fa, card, ranks, refs):
+    """Phase 31's checks of the ranks' results (its docstring), then the
+    bf16 K1-K3 at a rank's shape; returns what the phase returns."""
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa_mod
+
+    layers = MP_WIDTH["num_layers"]
+    heads = TRAIN["num_heads"] // 2
+    bf16 = {"fwd": "launches_bf16", "dq": "launches_dq_bf16", "dkv": "launches_dkv_bf16"}
+    f32 = {"fwd": "launches", "dq": "launches_dq", "dkv": "launches_dkv"}
+    one_p50, one_peak = refs["one_p50"], refs["one_peak"]
     launches_bf16, launches_f32 = {}, {}
     # (b) --------------------------------------------------------------------
     for rank, out in enumerate(ranks):
@@ -7446,11 +7608,694 @@ def phase_model_parallel_train(torch, np, F, fa, card):
     for entry in per_rank.values():
         entry["launches_a_rank_a_step"] = layers
     log(f"[mp-train] the bf16 K1, K2, K3 at a rank's shape (B={MP_BATCH}, H={heads} "
-        f"of {TRAIN['num_heads']}, S {TRAIN['seq_len']}, 12 each a step): "
+        f"of {TRAIN['num_heads']}, S {TRAIN['seq_len']}, {layers} each a step): "
         f"{ {k: round(e['ms'], 4) for k, e in per_rank.items()} } ms, SDPA "
         f"{ {k: round(e['library_ms'], 4) for k, e in per_rank.items()} }, bounds "
         f"{ {k: round(e['bound_ms'], 4) for k, e in per_rank.items()} } ms on {card}")
     return launches_bf16, launches_f32, per_rank
+
+
+# ---- BERT and MoE BERT over fsdp, tensor and expert (phase 32) ---------------
+
+BMP_RANKS = 4
+#: (a) and (b): bert-base at the workload's defaults (bf16, batch 8 a data
+#: shard, seq 128, dropout 0.1), flash; 3 steps over 2 distinct batches a
+#: shard, then one eval pass of min(16, 4 x global) / 8 = 2 batches a rank
+BMP_MAIN = dict(model="bert-base", batch_size=8, seq_len=128, attention="flash",
+                compute_dtype="bfloat16", dropout_rate=0.1, epochs=1,
+                train_examples=16, seed=42)
+BMP_STEPS = 3
+BMP_EVAL_BATCHES = 2
+BMP_LAYERS = 12
+BMP_HEADS = 6  # a tensor rank's heads of 12
+BMP_EXPERTS = 8  # (b): 8 experts, top-2, capacity 1.25, every second layer
+#: (c): f32, bert-base's width cut to 2 layers, seq 128, 4 global rows, 2 steps
+BMP_PARITY = dict(num_layers=2, seq_len=128, rows=4, steps=2)
+BMP_PARITY_MESHES = (("tensor2-fsdp2", {"tensor": 2, "fsdp": 2}, 0),
+                     ("fsdp4", {"fsdp": 4}, 0), ("data2-tensor2", {"data": 2, "tensor": 2}, 0),
+                     ("data2-expert2", {"data": 2, "expert": 2}, BMP_EXPERTS),
+                     ("expert2-tensor2", {"expert": 2, "tensor": 2}, BMP_EXPERTS))
+#: a leaf's gradient gap over its largest |g|, floored at this share of the
+#: tree's largest: the key biases' gradient is 0 (softmax does not see a
+#: constant a row) and reads f32 summation noise on both sides, 4.3e-10 of
+#: the tree's largest |g| apart on the card (the CPU tests floor it at 1e-6)
+BMP_GRAD_FLOOR = 1e-4
+#: the leaves a data shard's ranks hold alike after every step under (a)'s
+#: tensor=2 x fsdp=2: LayerNorms and the head whole, the embedding's and the
+#: pooler bias's fsdp blocks (the same block on both tensor ranks)
+BMP_REPLICATED = ("embed_ln/scale", "layer0/attention_ln/scale", "layer11/mlp_ln/bias",
+                  "head/kernel", "pooler/bias", "token_embed/embedding")
+# The collectives of one train step on a rank, written down before the
+# first run on the card.  (a) tensor=2 x fsdp=2 (data 1), RULES_TP: a
+# layer's forward makes 2 all-reduces (Megatron's g after the attention's
+# out and after mlp_out) and its backward 2 (f's gradient at the q/k/v and
+# mlp_in inputs): 4 x 12; one all-reduce of the gradients of the leaves
+# not split over fsdp over the data axes (the fsdp group), one of the
+# metrics, and four of the clip norm (the fsdp class over fsdp, the tensor
+# class over tensor, the fsdp x tensor class over both); the leaves split
+# over fsdp are gathered forward and reduce-scattered backward: a layer's
+# q, k, v and out kernels, the out bias, the mlp_in and mlp_out kernels
+# and the mlp_out bias (8 x 12), the two embeddings and the pooler kernel.
+BMP_STEP_COLLECTIVES = {"all_reduce": 4 * BMP_LAYERS + 1 + 1 + 4,
+                        "all_gather": 8 * BMP_LAYERS + 3,
+                        "reduce_scatter": 8 * BMP_LAYERS + 3}
+# (b) expert=2 x fsdp=2 (data 1), RULES_FSDP + RULES_EP, MoE in layers 1,
+# 3, .., 11: each MoE layer's combine is summed over the expert group
+# forward (g) and its input's gradient backward (f): 2 x 6; one gradient
+# all-reduce over the data axes, one of the metrics, three of the clip norm
+# (the fsdp class over fsdp, the fsdp x expert class over both).  Gathered
+# over fsdp: a dense layer's q, k, v kernels and biases, out kernel and
+# bias, mlp_in and mlp_out kernels and biases (12 x 6), a MoE layer's 8
+# attention leaves, its router over fsdp and over expert and w_in, b_in,
+# w_out, b_out (14 x 6), the embeddings and the pooler kernel (3); and a
+# MoE layer's routing all-gathers the choice counts of the 2 data shards
+# (6, C8: the global batch's routing).
+BMP_MOE_COLLECTIVES = {"all_reduce": 2 * 6 + 1 + 1 + 3,
+                       "all_gather": 12 * 6 + 14 * 6 + 3 + 6,
+                       "reduce_scatter": 12 * 6 + 14 * 6 + 3}
+
+
+def _bmp_batches(np, rows, seq, steps):
+    from distributeddeeplearning_tpu_torch.data.synthetic import SyntheticTextDataset
+
+    return list(SyntheticTextDataset(length=rows * steps, seq_len=seq,
+                                     seed=DP_SEED).batches(rows))
+
+
+def _bmp_parity_fit(torch, np, mesh, clip, experts):
+    """Phase 32(c): bert-base's width at 2 layers (MoE BERT: layer 1 a
+    mixture of ``experts``), f32, flash, through ``build_train_step`` with
+    the reference workload's rules on ``mesh`` (None: one process), AdamW's
+    clip at ``clip``.  Returns (losses, the first step's global gradients
+    on the CPU by name, clip norms, f32 bias K1-K3 launches, the first
+    step's expert choices a MoE layer on this rank's rows)."""
+    from distributeddeeplearning_tpu_torch.models import bert as tbert
+    from distributeddeeplearning_tpu_torch.models import moe
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.parallel import (
+        RULES_DP, RULES_EP, RULES_FSDP, RULES_TP, ParamLayout, shard_batch)
+    from distributeddeeplearning_tpu_torch.parallel.sharding import named_leaves
+    from distributeddeeplearning_tpu_torch.train.schedule import constant_schedule
+    from distributeddeeplearning_tpu_torch.train.state import TrainState, shard_state
+    from distributeddeeplearning_tpu_torch.train.step import build_train_step
+
+    cfg = tbert.BertConfig(num_layers=BMP_PARITY["num_layers"], dropout_rate=0.0,
+                           num_experts=experts)
+    params = tbert.init_params(cfg, torch.Generator().manual_seed(DP_SEED),
+                               device="cuda:0")
+    sharded = mesh is not None and mesh.size > 1
+    kw, layout = {}, None
+    if sharded:
+        rules = (RULES_TP if mesh.shape["tensor"] > 1 else
+                 RULES_FSDP if mesh.shape["fsdp"] > 1 else RULES_DP)
+        rules = list(rules) + (list(RULES_EP) if experts else [])
+        axes = tbert.logical_axes(cfg)
+        layout = ParamLayout.from_rules(mesh, params, rules, axes)
+        kw = dict(rules=rules, logical_axes=axes)
+    attention = fa.make_flash_attention(mesh=mesh if sharded else None)
+
+    def apply_fn(p, ids, *, train, generator=None, attention_mask=None,
+                 token_type_ids=None):
+        return tbert.forward(p, ids, config=cfg, dtype=torch.float32,
+                             attention_fn=attention, train=train,
+                             attention_mask=attention_mask, generator=generator,
+                             layout=layout)
+
+    tx = _SpyAdamW(torch, constant_schedule(DP_PEAK_LR), clip)
+    state = TrainState.create(params=params, apply_fn=apply_fn, tx=tx)
+    if sharded:
+        shard_state(state, layout)
+    step = build_train_step(state, mesh=mesh if sharded else None,
+                            compute_dtype=torch.float32, **kw)
+    for c in FA_COUNTERS:
+        setattr(fa, c, 0)
+    losses, choices = [], []
+    real_route = moe.route
+
+    def route(*a, **k):
+        r = real_route(*a, **k)
+        if len(losses) == 0:
+            choices.append(r.gate_idx.cpu())
+        return r
+
+    moe.route = route
+    try:
+        for batch in _bmp_batches(np, BMP_PARITY["rows"], BMP_PARITY["seq_len"],
+                                  BMP_PARITY["steps"]):
+            state, m = step(state, shard_batch(mesh, batch) if sharded else batch)
+            losses.append(m["loss"].detach())
+    finally:
+        moe.route = real_route
+    grads = tx.seen if state.layout is None else state.layout.gather(tx.seen)
+    named = {k: g.detach().float().cpu() for k, g in named_leaves(grads)}
+    return ([x.item() for x in losses], named, [x.item() for x in tx.norms],
+            {c: getattr(fa, c) for c in ("launches_bias", "launches_dq_bias",
+                                         "launches_dkv_bias")}, choices)
+
+
+class _MoeLog:
+    """The kept token-slots, the token-slots routed and the load-balance
+    terms of every MoE layer call, by wrapping ``models.moe``'s ``route``
+    and ``moe_mlp`` (kept and routed over the global batch)."""
+
+    def __init__(self):
+        from distributeddeeplearning_tpu_torch.models import moe
+
+        self.moe, self.kept, self.slots, self.aux = moe, [], [], []
+        self._orig = (moe.route, moe.moe_mlp)
+
+    def __enter__(self):
+        route, mlp = self._orig
+
+        def rec_route(*a, **k):
+            r = route(*a, **k)
+            self.kept.append(r.kept.sum())
+            self.slots.append(r.gate_idx.shape[1] * r.n)
+            return r
+
+        def rec_mlp(*a, **k):
+            y, aux = mlp(*a, **k)
+            if aux is not None:
+                self.aux.append(aux.detach())
+            return y, aux
+
+        self.moe.route, self.moe.moe_mlp = rec_route, rec_mlp
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.moe_mlp = self._orig
+
+
+def _bmp_main(torch, fa, built, replicated=BMP_REPLICATED, **kw):
+    """``workloads.bert.main`` at BMP_MAIN with every train step it builds
+    recorded (``built``) and the K1-K3 counters zeroed just before;
+    returns (state, fit, counts, launch shapes, plain calls, host seconds
+    inside collectives, peak GB)."""
+    from distributeddeeplearning_tpu_torch.train import step as tstep
+    from distributeddeeplearning_tpu_torch.workloads import bert
+
+    original = tstep.build_train_step
+
+    def build(*a, **k):
+        built.append(_MPRecorded(torch, original(*a, **k), replicated))
+        return built[-1]
+
+    tstep.build_train_step = build
+    try:
+        for c in FA_COUNTERS:
+            setattr(fa, c, 0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _LaunchShapes(fa) as shapes, _ClockedCollectives() as clock:
+            state, fit = bert.main(**{**BMP_MAIN, **kw})
+        counts = {c: getattr(fa, c) for c in FA_COUNTERS}
+    finally:
+        tstep.build_train_step = original
+    return (state, fit, counts, sorted(set(shapes.shapes)), shapes.plain, clock.s,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _bert_base_shapes():
+    """Every leaf's global shape in bert-base's tree, from its widths."""
+    v, p, h, n, i, c = 30522, 512, 768, 12, 3072, 2
+    shapes = {"token_embed/embedding": (v, h), "position_embed/embedding": (p, h),
+              "embed_ln/scale": (h,), "embed_ln/bias": (h,), "pooler/kernel": (h, h),
+              "pooler/bias": (h,), "head/kernel": (h, c), "head/bias": (c,)}
+    for layer in range(BMP_LAYERS):
+        pre = f"layer{layer}/"
+        for name in ("query", "key", "value"):
+            shapes[f"{pre}attention/{name}/kernel"] = (h, n, h // n)
+            shapes[f"{pre}attention/{name}/bias"] = (n, h // n)
+        shapes.update({f"{pre}attention/out/kernel": (n, h // n, h),
+                       f"{pre}attention/out/bias": (h,), f"{pre}mlp_in/kernel": (h, i),
+                       f"{pre}mlp_in/bias": (i,), f"{pre}mlp_out/kernel": (i, h),
+                       f"{pre}mlp_out/bias": (h,)})
+        for ln in ("attention_ln", "mlp_ln"):
+            shapes[f"{pre}{ln}/scale"] = shapes[f"{pre}{ln}/bias"] = (h,)
+    return shapes
+
+
+def _bmp_expected_bytes(torch, state):
+    """This rank's parameter bytes as the sum of its shards' sizes: each
+    leaf's global shape (bert-base's) cut by its spec."""
+    from distributeddeeplearning_tpu_torch.parallel.sharding import local_shape
+
+    shapes = _bert_base_shapes()
+    layout = state.layout
+    return sum(4 * math.prod(local_shape(shape, layout.specs[k], layout.mesh))
+               for k, shape in shapes.items())
+
+
+def _bmp_rank(torch, np, rank, world, ref_path, clips, save_dir):
+    """Rank ``rank`` of phase 32: (c)'s meshes against the one-process
+    references in ``ref_path``, then (a), the workload at tensor=2 x fsdp=2
+    checkpointed into ``save_dir`` and resumed, then (b), MoE bert-base at
+    expert=2 x fsdp=2."""
+    from distributeddeeplearning_tpu_torch.parallel import MeshSpec, create_mesh
+    from distributeddeeplearning_tpu_torch.parallel.sharding import named_leaves
+    from distributeddeeplearning_tpu_torch.train import checkpoint as tckpt
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+
+    ref = torch.load(ref_path, map_location="cpu")
+    out = {"parity": {}}
+    t0 = time.perf_counter()
+    for name, spec, experts in BMP_PARITY_MESHES:
+        mesh = create_mesh(MeshSpec(**spec))
+        want = ref[experts]
+        losses, grads, norms, counts, choices = _bmp_parity_fit(
+            torch, np, mesh, clips[experts], experts)
+        rows = len(choices[0]) if choices else 0
+        shard = mesh.data_index()
+        flips = [int((c != w[shard * rows:(shard + 1) * rows]).any(-1).sum())
+                 for c, w in zip(choices, want["choices"])]
+        top = max(g.abs().max().item() for g in want["grads"].values())
+        gaps = {k: ((g - want["grads"][k]).abs().max()
+                    / max(want["grads"][k].abs().max().item(), BMP_GRAD_FLOOR * top)).item()
+                for k, g in grads.items()}
+        worst = max(gaps, key=gaps.get)
+        out["parity"][name] = {
+            "losses": losses, "norms": norms, "counts": counts, "flips": flips,
+            "loss_rel": [abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])],
+            "norm_rel": [abs(a - b) / abs(b) for a, b in zip(norms, want["norms"])],
+            "grad_gap": gaps[worst], "grad_worst": worst,
+            "grad_keys": sorted(grads) == sorted(want["grads"])}
+        del grads
+        torch.cuda.empty_cache()
+    out["parity_s"] = time.perf_counter() - t0
+
+    # (a) bert-base at tensor=2 x fsdp=2 --------------------------------------
+    t0 = time.perf_counter()
+    built = []
+    state, fit, counts, shapes, plain, coll_s, peak = _bmp_main(
+        torch, fa, built, tensor=2, fsdp=2, steps_per_epoch=BMP_STEPS,
+        save_filepath=save_dir, distributed=True, device="cuda:0")
+    step = built[0]
+    mesh = state.layout.mesh
+    saved = {k: t.detach().cpu().clone() for k, t in named_leaves(
+        {"params": state.params, "mu": state.opt_state["mu"],
+         "nu": state.opt_state["nu"]})}
+    out["a"] = {
+        "losses": step.losses, "wall_ms": step.wall_ms, "event_ms": step.event_ms(),
+        "inside_ms": step.inside_ms, "collectives": step.collectives,
+        "staged": step.staged, "digests": step.digests, "counts": counts,
+        "shapes": shapes, "plain": plain, "collective_host_s": coll_s, "peak_gb": peak,
+        "eval": fit.final_eval_metrics, "step": state.step,
+        "param_bytes": _tree_bytes(state.params),
+        "opt_bytes": _tree_bytes({k: state.opt_state[k] for k in ("mu", "nu")}),
+        "count_bytes": state.opt_state["count"].numel() * 4,
+        "expected_bytes": _bmp_expected_bytes(torch, state),
+        "data_index": mesh.data_index(), "tensor_index": mesh.axis_index("tensor"),
+        "wall_s": time.perf_counter() - t0}
+    del state, fit, built, step
+    torch.cuda.empty_cache()
+
+    # ... resumed from the generation for one more step -------------------
+    t0 = time.perf_counter()
+    restored = {}
+    original = tckpt.Checkpointer.restore
+
+    def restore(self, template, **kw):
+        template, got = original(self, template, **kw)
+        restored.update({k: t.detach().cpu().clone() for k, t in named_leaves(
+            {"params": template.params, "mu": template.opt_state["mu"],
+             "nu": template.opt_state["nu"]})})
+        restored["step"] = got
+        return template, got
+
+    tckpt.Checkpointer.restore = restore
+    built = []
+    try:
+        state, fit, counts2, _, _, _, _ = _bmp_main(
+            torch, fa, built, tensor=2, fsdp=2, steps_per_epoch=BMP_STEPS + 1,
+            save_filepath=save_dir, distributed=True, device="cuda:0")
+    finally:
+        tckpt.Checkpointer.restore = original
+    out["resume"] = {
+        "restored_step": restored.pop("step", None), "step": state.step,
+        "bitwise": sorted(restored) == sorted(saved) and all(
+            torch.equal(restored[k], saved[k]) for k in saved),
+        "losses": built[0].losses, "counts": counts2,
+        "wall_s": time.perf_counter() - t0}
+    del state, fit, built, saved, restored
+    torch.cuda.empty_cache()
+
+    # (b) MoE bert-base at expert=2 x fsdp=2 ----------------------------------
+    t0 = time.perf_counter()
+    built = []
+    with _MoeLog() as moe_log:
+        state, fit, counts, shapes, plain, coll_s, peak = _bmp_main(
+            torch, fa, built, replicated=("embed_ln/scale", "head/kernel"),
+            expert=2, fsdp=2, num_experts=BMP_EXPERTS, steps_per_epoch=BMP_STEPS,
+            distributed=True, device="cuda:0")
+    step = built[0]
+    local = dict(named_leaves(state.params))
+    out["b"] = {
+        "losses": step.losses, "event_ms": step.event_ms(), "wall_ms": step.wall_ms,
+        "inside_ms": step.inside_ms, "collectives": step.collectives,
+        "digests": step.digests, "counts": counts, "shapes": shapes, "plain": plain,
+        "peak_gb": peak, "eval": fit.final_eval_metrics,
+        "experts_held": {k: tuple(t.shape) for k, t in local.items()
+                         if k.endswith(("moe_mlp/w_in", "moe_mlp/w_out"))},
+        "dropped": 1.0 - float(torch.stack(moe_log.kept).sum().item())
+        / sum(moe_log.slots),
+        "aux": [float(x) for x in moe_log.aux],
+        "param_bytes": _tree_bytes(state.params),
+        "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def _bias_local_heads(torch, F, fa, card):
+    """Phase 32(d): the bf16 bias K1, K2, K3 at a tensor rank's training
+    shape (B=8, H=6 of 12, S=128, D=64, non-causal, a synthetic-text
+    batch's mask), the local q, k, v strided views of each rank's own
+    q/k/v projection: held against their plain versions
+    (``_hold_flash``), bitwise against the all-heads launch's rows (output
+    and gradients), then timed on rank 0's heads beside the plain
+    versions, SDPA (bool mask) and its backward, with the bounds of the
+    pairs the mask leaves visible.  Returns {kernel: entry}."""
+    from distributeddeeplearning_tpu_torch.data.synthetic import SyntheticTextDataset
+
+    b, s, d, h, hl = 8, BMP_MAIN["seq_len"], 64, 12, BMP_HEADS
+    mask = next(SyntheticTextDataset(length=b, seq_len=s, seed=DP_SEED).batches(b))[
+        "attention_mask"]
+    keep = torch.from_numpy(mask).bool().cuda()
+    g = torch.Generator(device="cuda").manual_seed(32)
+    qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda").bfloat16()
+    do = torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16()
+    full = qkv.clone().requires_grad_(True)
+    q, k, v = (t.reshape(b, s, h, d) for t in full.split(h * d, dim=-1))
+    o_all = fa.flash_attention(q, k, v, keep[:, None, None, :])
+    (o_all.float() * do.float()).sum().backward()
+    bias = fa._mask_bias(keep[:, None, None, :], b, s)
+    worst, same = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}, True
+    for r in range(2):
+        cols = [j * h * d + r * hl * d for j in range(3)]
+        mine = torch.cat([qkv[..., c:c + hl * d] for c in cols], -1)
+        mine = mine.clone().requires_grad_(True)
+        ql, kl, vl = (t.reshape(b, s, hl, d) for t in mine.split(hl * d, dim=-1))
+        fn = fa.make_flash_attention(mesh=_tp_mesh(r))
+        o = fn(ql, kl, vl, keep[:, None, None, :], dtype=torch.bfloat16)
+        (o.float() * _local(do, r, 2).float()).sum().backward()
+        grad_all = torch.cat([full.grad[..., c:c + hl * d] for c in cols], -1)
+        torch.cuda.synchronize()
+        rows = (torch.equal(o, o_all[:, :, r * hl:(r + 1) * hl]),
+                torch.equal(mine.grad, grad_all))
+        errs, (lse, _, do_r, delta, _) = _hold_flash(
+            torch, fa, ql.detach(), kl.detach(), vl.detach(), False, seed=33 + r,
+            what=f"bf16 bias local heads rank {r}", bias=bias)
+        worst = {kern: max(worst[kern], e) for kern, e in errs.items()}
+        same = same and all(rows)
+        log(f"[bert-mp] bf16 bias K1-K3 over heads {r * hl}..{(r + 1) * hl - 1} "
+            f"(B={b} S={s}, BERT's mask): held against the plain versions (max "
+            f"|kernel - plain| K1 {errs['fwd']:.3e}, K2 {errs['dq']:.3e}, K3 "
+            f"{errs['dkv']:.3e}); bitwise the all-heads launch's rows: output "
+            f"{rows[0]}, gradients {rows[1]}")
+        if not all(rows):
+            raise AssertionError(f"[bert-mp] bias K1-K3 over rank {r}'s heads differ "
+                                 "from the all-heads launch's rows")
+        if r == 0:
+            times = _time_flash(torch, F, fa, ql.detach(), kl.detach(), vl.detach(),
+                                do_r, lse, delta, causal=False, bias=bias, keep=keep)
+    fwd_ms, fwd_plain, fwd_lib, dq_ms, dkv_ms, bwd_plain, bwd_lib = times
+    # the work this batch's mask needs: every query row against its row's
+    # visible keys (as phase_bias counts it)
+    pairs = hl * s * int(keep.sum().item())
+    head = 2.0 * b * s * hl * d
+    small, bias_bytes = 4.0 * b * hl * s, 4.0 * b * s
+    bounds = {"fwd": bound_ms(4 * head + small + bias_bytes, 4.0 * d * pairs,
+                              BF16_FLOPS_PER_S),
+              "dq": bound_ms(5 * head + 2 * small + bias_bytes, 6.0 * d * pairs,
+                             BF16_FLOPS_PER_S),
+              "dkv": bound_ms(6 * head + 2 * small + bias_bytes, 8.0 * d * pairs,
+                              BF16_FLOPS_PER_S)}
+    shape = (f"B={b} H={hl} (a tensor rank's heads of {h}) S={s} D={d} non-causal "
+             f"bf16, BERT's mask ({int(keep.sum().item())} of {b * s} keys visible), "
+             "strided views of the rank's q/k/v projection")
+    log(f"[bert-mp] bf16 bias at B={b} H={hl} S={s} D={d}: K1 {fwd_ms:.4f} ms (plain "
+        f"{fwd_plain:.4f}, sdpa {fwd_lib:.4f}, bound {bounds['fwd'][0]:.4f} "
+        f"{bounds['fwd'][1]}), K2 {dq_ms:.4f} ms (bound {bounds['dq'][0]:.4f} "
+        f"{bounds['dq'][1]}), K3 {dkv_ms:.4f} ms (bound {bounds['dkv'][0]:.4f} "
+        f"{bounds['dkv'][1]}), plain backward {bwd_plain:.4f}, sdpa backward "
+        f"{bwd_lib:.4f}; device times, on {card}")
+    return {kern: dict(ms=ms, plain_ms=pl, bound_ms=bounds[kern][0],
+                       bound_by=bounds[kern][1], library_ms=lib,
+                       max_abs_err=worst[kern], bitwise_all_heads=same, shape=shape,
+                       launches_a_rank_a_step=BMP_LAYERS)
+            for kern, ms, pl, lib in (("fwd", fwd_ms, fwd_plain, fwd_lib),
+                                      ("dq", dq_ms, bwd_plain, bwd_lib),
+                                      ("dkv", dkv_ms, bwd_plain, bwd_lib))}
+
+
+def phase_bert_model_parallel(torch, np, F, fa, card):
+    """Phase 32 (module docstring): BERT and MoE BERT over the fsdp, tensor
+    and expert axes on four gloo ranks sharing the card.  Tolerances of
+    (c), f32, each mesh against one process on the card, as phase 31's:
+    the sharded step sums the same products in other orders (partial sums
+    over the tensor and expert groups added in f32, gradients
+    reduce-scattered over fsdp, the loss a mean of shard means); the CPU
+    tests (``tests/test_torch_bert_parallel.py``) measure 1.1e-7 relative
+    on the losses and 4.3e-7 of a leaf's largest |g| on the gradients.  So:
+    losses within MP_LOSS_RTOL (1e-5), each leaf's first-step gradient
+    within MP_GRAD_TOL (1e-5) of its largest |g| floored at BMP_GRAD_FLOOR
+    of the tree's (the key biases' exact-zero gradient), the clip norm (at
+    half the unclipped first-step norm) within MP_NORM_RTOL (1e-6); MoE
+    BERT's expert choices compared first, each rank's rows against one
+    process's, no flip allowed.  Returns (the bf16 bias K1-K3 launches a
+    path, the f32 ones, the entries at the per-rank shape)."""
+    import tempfile
+
+    refs = _bmp_references(torch, np, fa, card)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks("_bmp_rank", BMP_RANKS, *_bmp_rank_args(torch, refs, tmp))
+    _log_bmp_ranks(ranks, t0)
+    return _bmp_checks(torch, np, F, fa, card, ranks, refs)
+
+
+def _bmp_references(torch, np, fa, card):
+    """Phase 32's one-process references on the card: (c)'s losses,
+    gradients, norms and expert choices (BERT and MoE BERT) with the clip
+    at half the unclipped first-step norm, and (a)'s one process at the
+    same global batch."""
+    t0 = time.perf_counter()
+    refs, clips = {}, {}
+    for experts in (0, BMP_EXPERTS):
+        norm = _bmp_parity_fit(torch, np, None, 1e30, experts)[2][0]
+        clips[experts] = norm / 2
+        losses, grads, norms, _, choices = _bmp_parity_fit(torch, np, None, norm / 2,
+                                                           experts)
+        refs[experts] = {"losses": losses, "grads": grads, "norms": norms,
+                         "choices": choices}
+        log(f"[bert-mp-parity] one process, {'MoE ' if experts else ''}bert-base "
+            f"width, f32, {BMP_PARITY['num_layers']} layers, seq "
+            f"{BMP_PARITY['seq_len']}, {BMP_PARITY['rows']} rows: losses "
+            f"{[round(x, 6) for x in losses]}, unclipped first-step norm {norm:.6f}")
+    # (a)'s one process at the same global batch (2 data shards x 8 rows)
+    built = []
+    state, _, _, _, _, _, one_peak = _bmp_main(
+        torch, fa, built, batch_size=2 * BMP_MAIN["batch_size"],
+        steps_per_epoch=BMP_STEPS, device="cuda")
+    one = built[0]
+    one_p50 = float(np.median(one.event_ms()[1:]))
+    one_bytes = (_tree_bytes(state.params),
+                 _tree_bytes({k: state.opt_state[k] for k in ("mu", "nu")}))
+    log(f"[bert-mp] one process, B=16 (the sharded run's global batch): losses "
+        f"{[round(x, 5) for x in one.losses]}, step ms (CUDA events) "
+        f"{[round(x, 1) for x in one.event_ms()]}, p50 {one_p50:.1f}, params "
+        f"{one_bytes[0] / 1e9:.4f} GB, optimizer {one_bytes[1] / 1e9:.4f} GB, peak "
+        f"memory {one_peak:.2f} GB on {card}")
+    del state, built, one
+    torch.cuda.empty_cache()
+    log(f"[time] phase_bert_model_parallel (one process): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"ref": refs, "clips": clips, "one_p50": one_p50, "one_peak": one_peak,
+            "one_bytes": one_bytes}
+
+
+def _bmp_rank_args(torch, refs, tmp):
+    """``_bmp_rank``'s arguments: the references saved under ``tmp``, the
+    clips and the checkpoint directory."""
+    ref_path = os.path.join(tmp, "bmp-ref.pt")
+    torch.save(refs.pop("ref"), ref_path)
+    return ref_path, refs["clips"], os.path.join(tmp, "bmp-ckpt")
+
+
+def _log_bmp_ranks(ranks, t0):
+    log(f"[time] phase_bert_model_parallel (ranks): {time.perf_counter() - t0:.1f} s: "
+        f"(c) {ranks[0]['parity_s']:.1f} s, (a) {ranks[0]['a']['wall_s']:.1f} s, its "
+        f"resume {ranks[0]['resume']['wall_s']:.1f} s, (b) {ranks[0]['b']['wall_s']:.1f} s "
+        "on rank 0")
+
+
+def _bmp_checks(torch, np, F, fa, card, ranks, refs):
+    """Phase 32's checks of the ranks' results (its docstring), then (d);
+    returns what the phase returns."""
+    bf16 = {"fwd": "launches_bias_bf16", "dq": "launches_dq_bias_bf16",
+            "dkv": "launches_dkv_bias_bf16"}
+    f32 = {"fwd": "launches_bias", "dq": "launches_dq_bias", "dkv": "launches_dkv_bias"}
+    one_p50, one_peak, one_bytes = refs["one_p50"], refs["one_peak"], refs["one_bytes"]
+    launches_bf16, launches_f32 = {}, {}
+    problems = []  # every failed check, raised after all are logged
+    # (c) --------------------------------------------------------------------
+    for rank, out in enumerate(ranks):
+        for name, got in out["parity"].items():
+            per = BMP_PARITY["num_layers"] * BMP_PARITY["steps"]
+            want = {c: per for c in f32.values()}
+            log(f"[bert-mp-parity] rank {rank} {name}: expert choices flipped "
+                f"{got['flips']} (tokens a MoE layer, compared first); losses "
+                f"{[round(x, 6) for x in got['losses']]} (|dloss| / loss vs one process "
+                f"{[f'{x:.2e}' for x in got['loss_rel']]}, tolerance {MP_LOSS_RTOL:g}); "
+                f"first-step gradient: worst leaf {got['grad_worst']} at "
+                f"{got['grad_gap']:.2e} of its scale (tolerance {MP_GRAD_TOL:g}); clip "
+                f"norms relative {[f'{x:.2e}' for x in got['norm_rel']]} (tolerance "
+                f"{MP_NORM_RTOL:g}); f32 bias K1/K2/K3 launches "
+                f"{list(got['counts'].values())}")
+            if any(got["flips"]):
+                problems.append(f"[bert-mp-parity] rank {rank} {name}: expert "
+                                f"choices flipped {got['flips']}")
+            if (not got["grad_keys"] or max(got["loss_rel"]) > MP_LOSS_RTOL
+                    or got["grad_gap"] > MP_GRAD_TOL or got["norm_rel"][0] > MP_NORM_RTOL
+                    or len(got["losses"]) != BMP_PARITY["steps"]):
+                problems.append(f"[bert-mp-parity] rank {rank} {name} left one "
+                                "process")
+            if got["counts"] != want:
+                problems.append(f"[bert-mp-parity] rank {rank} {name}: f32 bias "
+                                f"launches {got['counts']}, expected {want}")
+            launches_f32[f"bert_mp_parity_{name}_rank{rank}"] = {
+                k: got["counts"][v] for k, v in f32.items()}
+    # (a) --------------------------------------------------------------------
+    a0 = ranks[0]["a"]
+    for rank, out in enumerate(ranks):
+        a, res = out["a"], out["resume"]
+        want = {c: 0 for c in FA_COUNTERS}
+        want.update({bf16["fwd"]: BMP_LAYERS * (BMP_STEPS + BMP_EVAL_BATCHES),
+                     bf16["dq"]: BMP_LAYERS * BMP_STEPS,
+                     bf16["dkv"]: BMP_LAYERS * BMP_STEPS})
+        b = BMP_MAIN["batch_size"]
+        if a["counts"] != want or a["plain"]:
+            problems.append(f"[bert-mp] rank {rank}: launches {a['counts']}, plain "
+                            f"{a['plain']}; expected {want}")
+        if a["shapes"] != [("dkv", b, BMP_HEADS), ("dq", b, BMP_HEADS),
+                           ("fwd", b, BMP_HEADS)]:
+            problems.append(f"[bert-mp] rank {rank}: launch shapes {a['shapes']}")
+        if a["losses"] != a0["losses"] or not all(math.isfinite(x) for x in a["losses"]):
+            problems.append(f"[bert-mp] rank {rank}: losses {a['losses']} vs rank "
+                            f"0's {a0['losses']}")
+        same_shard = [o["a"] for o in ranks if o["a"]["data_index"] == a["data_index"]]
+        if any(o["digests"] != a["digests"] for o in same_shard):
+            problems.append(f"[bert-mp] rank {rank}: the leaves its shard's ranks "
+                            "hold alike differ")
+        if any(c != BMP_STEP_COLLECTIVES for c in a["collectives"]):
+            problems.append(f"[bert-mp] rank {rank}: collectives a step "
+                            f"{a['collectives']}, predicted {BMP_STEP_COLLECTIVES}")
+        if (a["param_bytes"] != a["expected_bytes"]
+                or a["opt_bytes"] != 2 * a["expected_bytes"]):
+            problems.append(f"[bert-mp] rank {rank}: param/optimizer bytes "
+                            f"{a['param_bytes']}/{a['opt_bytes']}, shards sum to "
+                            f"{a['expected_bytes']}")
+        if not res["bitwise"] or res["restored_step"] != BMP_STEPS or \
+                res["step"] != BMP_STEPS + 1 or not all(math.isfinite(x)
+                                                        for x in res["losses"]):
+            problems.append(f"[bert-mp] rank {rank}: resume {res}")
+        p50 = float(np.median(a["event_ms"][1:]))
+        share = sum(a["inside_ms"][1:]) / max(sum(a["wall_ms"][1:]), 1e-9)
+        log(f"[bert-mp] rank {rank} (data shard {a['data_index']}, tensor "
+            f"{a['tensor_index']}) bert-base tensor=2 x fsdp=2, bf16, flash, dropout "
+            f"0.1: losses {[round(x, 5) for x in a['losses']]} (bitwise rank 0's), eval "
+            f"{ {k: round(v, 5) for k, v in (a['eval'] or {}).items()} }; step ms (CUDA "
+            f"events) {[round(x, 1) for x in a['event_ms']]}, p50 {p50:.1f} against "
+            f"{one_p50:.1f} for one process at B=16; host wall a step "
+            f"{[round(x, 1) for x in a['wall_ms']]} ms, inside collectives "
+            f"{[round(x, 1) for x in a['inside_ms']]} ms ({share:.1%} of steps 2..); "
+            f"collectives a step {a['collectives'][0]} (predicted "
+            f"{BMP_STEP_COLLECTIVES}), staged through the host by gloo "
+            f"{a['staged'][0]}; bf16 bias K1/K2/K3 launches "
+            f"{[a['counts'][v] for v in bf16.values()]} at B={b} H={BMP_HEADS}; params "
+            f"{a['param_bytes'] / 1e9:.4f} GB, optimizer "
+            f"{(a['opt_bytes'] + a['count_bytes']) / 1e9:.4f} GB (the shards' sum) "
+            f"against {one_bytes[0] / 1e9:.4f} / {one_bytes[1] / 1e9:.4f} for one "
+            f"process; peak memory {a['peak_gb']:.2f} GB against {one_peak:.2f}; wall "
+            f"{a['wall_s']:.1f} s; resumed from step {res['restored_step']} bitwise "
+            f"({res['wall_s']:.1f} s), step {BMP_STEPS + 1} loss {res['losses'][0]:.5f}; "
+            f"on {card}")
+        launches_bf16[f"bert_mp_train_rank{rank}"] = {k: a["counts"][v]
+                                                      for k, v in bf16.items()}
+        launches_bf16[f"bert_mp_resume_rank{rank}"] = {k: res["counts"][v]
+                                                       for k, v in bf16.items()}
+    # (b) --------------------------------------------------------------------
+    b0 = ranks[0]["b"]
+    n_moe = BMP_LAYERS // 2
+    for rank, out in enumerate(ranks):
+        mb = out["b"]
+        want = {c: 0 for c in FA_COUNTERS}
+        want.update({bf16["fwd"]: BMP_LAYERS * (BMP_STEPS + BMP_EVAL_BATCHES),
+                     bf16["dq"]: BMP_LAYERS * BMP_STEPS,
+                     bf16["dkv"]: BMP_LAYERS * BMP_STEPS})
+        held = set(mb["experts_held"].values())
+        if mb["counts"] != want or mb["plain"] or mb["shapes"] != [
+                ("dkv", 8, 12), ("dq", 8, 12), ("fwd", 8, 12)]:
+            problems.append(f"[moe-mp] rank {rank}: launches {mb['counts']} at "
+                            f"{mb['shapes']}, plain {mb['plain']}; expected {want}")
+        if len(mb["experts_held"]) != 2 * n_moe or {s[0] for s in held} != {
+                BMP_EXPERTS // 2}:
+            problems.append(f"[moe-mp] rank {rank}: expert weights held "
+                            f"{mb['experts_held']}")
+        if any(c != BMP_MOE_COLLECTIVES for c in mb["collectives"]):
+            problems.append(f"[moe-mp] rank {rank}: collectives a step "
+                            f"{mb['collectives']}, predicted {BMP_MOE_COLLECTIVES}")
+        if mb["losses"] != b0["losses"] or not all(math.isfinite(x) for x in mb["losses"]) \
+                or any(o["b"]["digests"] != mb["digests"] for o in ranks):
+            problems.append(f"[moe-mp] rank {rank}: losses {mb['losses']} or the "
+                            "whole leaves differ from rank 0's")
+        aux = [sum(mb["aux"][i * n_moe:(i + 1) * n_moe]) / n_moe for i in range(BMP_STEPS)]
+        log(f"[moe-mp] rank {rank} MoE bert-base ({BMP_EXPERTS} experts, top-2, capacity "
+            f"1.25, every second layer) expert=2 x fsdp=2, bf16, flash: losses "
+            f"{[round(x, 5) for x in mb['losses']]} (bitwise rank 0's); experts held "
+            f"{sorted(held)} (w_in, w_out in each of {n_moe} MoE layers); load-balance "
+            f"term a step (mean over the MoE layers) {[round(x, 5) for x in aux]}; "
+            f"token-slots dropped over capacity {mb['dropped']:.2%} (global batch, "
+            f"train and eval passes); collectives a step {mb['collectives'][0]} "
+            f"(predicted {BMP_MOE_COLLECTIVES}: 6 forward and 6 backward all-reduces "
+            f"over expert, 6 routing all-gathers over the data shards); step ms "
+            f"{[round(x, 1) for x in mb['event_ms']]}, host inside collectives "
+            f"{[round(x, 1) for x in mb['inside_ms']]} ms; params "
+            f"{mb['param_bytes'] / 1e9:.4f} GB, peak {mb['peak_gb']:.2f} GB; wall "
+            f"{mb['wall_s']:.1f} s on {card}")
+        launches_bf16[f"moe_mp_train_rank{rank}"] = {k: mb["counts"][v]
+                                                     for k, v in bf16.items()}
+    per_rank = _bias_local_heads(torch, F, fa, card)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches_bf16, launches_f32, per_rank
+
+
+def _model_axes_rank(torch, np, rank, world, mp_args, bmp_args):
+    """Phases 31 and 32 on one rank of one spawn: ``_mp_rank`` then
+    ``_bmp_rank``."""
+    lm = _mp_rank(torch, np, rank, world, *mp_args)
+    torch.cuda.empty_cache()
+    return {"lm": lm, "bert": _bmp_rank(torch, np, rank, world, *bmp_args)}
+
+
+def phase_model_axes(torch, np, F, fa, card):
+    """Phases 31 and 32 with their rank work in one spawn of four gloo
+    ranks (one start-up of four processes saved): both phases'
+    one-process references, then the ranks (31's work, then 32's), then
+    each phase's checks.  Returns (phase 31's results, phase 32's)."""
+    import tempfile
+
+    mp_refs = _mp_references(torch, np, fa, card)
+    bmp_refs = _bmp_references(torch, np, fa, card)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks("_model_axes_rank", MP_RANKS,
+                          _mp_rank_args(torch, mp_refs, tmp),
+                          _bmp_rank_args(torch, bmp_refs, tmp))
+    log(f"[time] phase_model_axes (ranks, phases 31 and 32): "
+        f"{time.perf_counter() - t0:.1f} s")
+    _log_bmp_ranks([r["bert"] for r in ranks], t0)
+    return (_mp_checks(torch, np, F, fa, card, [r["lm"] for r in ranks], mp_refs),
+            _bmp_checks(torch, np, F, fa, card, [r["bert"] for r in ranks], bmp_refs))
 
 
 def main() -> int:
@@ -7474,15 +8319,24 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not beside this script: {exc}",
               file=sys.stderr)
         return 2
+    early = None
     try:
         resolve_device("cuda")  # TF32 off: the parity contract is f32
         t_start = time.perf_counter()
         card = card_line()
         log(f"[card] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
+        # phase 30's shards and its python -m run go beside the build
+        early = _ImagenetEarly()
         t0 = time.perf_counter()
         times = _build.build_all()
         log(f"[build] {len(times)} kernels in {time.perf_counter() - t0:.2f} s "
             f"(parallel nvcc): {times}")
+        t0 = time.perf_counter()
+        early.shards()
+        if early.proc is not None:
+            early.proc.wait(timeout=600)  # nothing timed shares the card with it
+        log(f"[build] phase 30's shards ({early.gen_s:.1f} s) and python -m run "
+            f"beside the build; waited {time.perf_counter() - t0:.1f} s more for them")
         for name, text in _build.build_log.items():
             fn = ""  # the (mangled) kernel the next ptxas lines describe
             for line in text.splitlines():
@@ -7532,12 +8386,16 @@ def main() -> int:
         tp_ranks, k4d, flash_tp = timed(phase_tensor_parallel, torch, np, F, fa, fd, card)
         timed(phase_serve_robust, torch, np, fa, fd, card)
         timed(phase_fleet, torch, np, card)
-        timed(phase_imagenet, torch, np, card)
-        mp_bf16, mp_f32, mp_shape = timed(phase_model_parallel_train, torch, np, F, fa,
-                                          card)
+        timed(phase_imagenet, torch, np, card, early)
+        # phases 31 and 32, their ranks in one spawn
+        (mp_bf16, mp_f32, mp_shape), (bmp_bf16, bmp_f32, bmp_shape) = timed(
+            phase_model_axes, torch, np, F, fa, card)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
+    finally:
+        if early is not None:
+            early.close()
     rows = [
         dict(name="flash_attention_fwd", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -7716,6 +8574,40 @@ def main() -> int:
         row.setdefault("launches_by_path", {}).update(launched)
         if dtype == "bf16":
             row["model_parallel"] = {**mp_shape[kern], "launches": launched}
+    # phase 32: the bias K1-K3 over a rank's heads and rows in BERT's and MoE
+    # BERT's training over model axes (bf16: (a), its resume and (b), each
+    # rank's; f32: (c)'s parity runs on the five meshes)
+    for row in rows:
+        kern, dtype = {"flash_attention_fwd_bias": ("fwd", "f32"),
+                       "flash_attention_bwd_dq_bias": ("dq", "f32"),
+                       "flash_attention_bwd_dkv_bias": ("dkv", "f32"),
+                       "flash_attention_fwd_bias_bf16": ("fwd", "bf16"),
+                       "flash_attention_bwd_dq_bias_bf16": ("dq", "bf16"),
+                       "flash_attention_bwd_dkv_bias_bf16": ("dkv", "bf16")}.get(
+                           row["name"], (None, None))
+        if kern is None:
+            continue
+        launched = {path: c[kern] for path, c in
+                    (bmp_bf16 if dtype == "bf16" else bmp_f32).items()}
+        row.setdefault("launches_by_path", {}).update(launched)
+        if dtype == "bf16":
+            row["model_parallel"] = {**bmp_shape[kern], "launches": launched}
+    # ... and the same three kernels as rows of their own at a tensor rank's
+    # shape, launched by rank 0 in (a) (bert-base, tensor=2 x fsdp=2)
+    for kern, stem, src, line in (
+            ("fwd", "flash_attention_fwd", "flash_attention_fwd.cu", 160),
+            ("dq", "flash_attention_bwd_dq", "flash_attention_bwd.cu", 335),
+            ("dkv", "flash_attention_bwd_dkv", "flash_attention_bwd.cu", 355)):
+        entry = bmp_shape[kern]
+        rows.append(dict(
+            name=f"{stem}_local_heads_bias_bf16", route="cuda",
+            source=f"distributeddeeplearning_tpu_torch/csrc/{src}",
+            replaces=f"distributeddeeplearning_tpu/ops/flash_attention.py:{line}",
+            launches=bmp_bf16["bert_mp_train_rank0"][kern],
+            launches_by_path={path: c[kern] for path, c in bmp_bf16.items()},
+            **{k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "shape",
+                                     "bitwise_all_heads")}))
     for row in rows:
         row["kernel"] = profiled_kernels(row["name"])
     log(f"[timer] windows timed by CUDA events for want of profiler device "

@@ -39,6 +39,37 @@ With ``num_experts`` > 0, layer i's FFN is the mixture of experts of
 ``attention_fn`` is :func:`dot_product_attention` (the reference's default,
 bf16 scores) or ``ops.flash_attention.make_flash_attention()``, whose
 kernels take the padding mask as their key-padding bias.
+
+Model axes (``layout=`` on :func:`forward`: the train state's
+``parallel.sharding.ParamLayout``, whose ``mesh`` is the mesh).  Each
+leaf carries the reference's logical axes (:func:`logical_axes`, ref
+``models/bert.py`` and ``models/moe.py``), the reference workload's rules
+map them to mesh axes, and the model reads every split from the layout
+(never from rules of its own), refusing one it cannot run:
+
+- a leaf split over ``fsdp`` (embeddings, kernels and biases over their
+  ``embed``, ``mlp`` or ``heads`` dim, the pooler, the router) is a
+  storage shard, gathered whole before use by
+  ``collectives.gather_from_group`` (its backward reduce-scatters the
+  gradient: ZeRO-3), a layer's leaves inside that layer (again in the
+  backward under ``remat``);
+- a split over ``tensor`` is Megatron's and only Megatron's: the query,
+  key and value kernels and biases column-parallel by heads (*f*,
+  ``collectives.copy_to_group``, once at their shared input; attention
+  over the rank's heads), the out kernel row-parallel (*g*,
+  ``collectives.reduce_from_group``, partial sums in f32, rounded once,
+  the bias added after), ``mlp_in`` column- and ``mlp_out`` row-parallel
+  likewise, and an expert FFN's ``w_in``/``b_in`` and ``w_out`` the same
+  way (:mod:`.moe`);
+- a split over ``expert`` is the expert FFN's own: ``w_in``, ``b_in``,
+  ``w_out``, ``b_out`` by expert, the router kernel by its expert columns
+  (gathered whole: every rank routes whole), :mod:`.moe`'s expert path.
+
+LayerNorms and the head stay replicated.  Every rank of a data shard
+computes the same replicated stream, so its dropout masks (drawn from
+the shard's generator on activations every such rank holds whole: after
+each *g*) and the gradients of its replicated leaves are the same on
+every tensor and expert rank.
 """
 
 from __future__ import annotations
@@ -58,9 +89,8 @@ from torch.utils.checkpoint import (
 
 from distributeddeeplearning_tpu_torch._device import DeviceLike, resolve_device
 from distributeddeeplearning_tpu_torch.models import moe, register
-from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
-    params_from_numpy as _tree_from_numpy,
-)
+from distributeddeeplearning_tpu_torch.models import pipelined_transformer as _pt
+from distributeddeeplearning_tpu_torch.parallel import collectives as _col
 
 Params = Dict[str, Any]
 AttentionFn = Callable[..., torch.Tensor]
@@ -219,7 +249,117 @@ def init_params(
 def params_from_numpy(tree, device: DeviceLike = None) -> Params:
     """The JAX package's BERT parameters (unboxed, ``jax.tree.map(np.asarray,
     ...)``) as the port's, key for key, on ``device``."""
-    return _tree_from_numpy(tree, device)
+    return _pt.params_from_numpy(tree, device)
+
+
+def logical_axes(config: BertConfig = BERT_BASE, *, token_types: bool = False):
+    """The logical axes of every leaf of :func:`init_params`' tree, as the
+    reference's flax modules declare them (ref ``models/bert.py``: the
+    embeddings ``("vocab", "embed")`` and ``(None, "embed")``, q/k/v
+    ``("embed", "heads", "kv")`` and their biases ``("heads", "kv")``, the
+    out kernel ``("heads", "kv", "embed")``, the MLP ``("embed", "mlp")``
+    and ``("mlp", "embed")``, the pooler ``("embed", "embed_out")``;
+    ``models/moe.py``: :data:`.moe.LOGICAL_AXES`); ``()`` for a leaf the
+    reference leaves unannotated (LayerNorms, the head, ``type_embed``)."""
+    ln = {"scale": (), "bias": ()}
+
+    def dense(kernel):
+        return {"kernel": kernel, "bias": kernel[-1:]}
+
+    axes: Dict[str, Any] = {"token_embed": {"embedding": ("vocab", "embed")},
+                            "position_embed": {"embedding": (None, "embed")}}
+    if token_types:
+        axes["type_embed"] = {"embedding": ()}
+    axes["embed_ln"] = dict(ln)
+    for i in range(config.num_layers):
+        att = {name: {"kernel": ("embed", "heads", "kv"), "bias": ("heads", "kv")}
+               for name in ("query", "key", "value")}
+        att["out"] = {"kernel": ("heads", "kv", "embed"), "bias": ("embed",)}
+        layer: Dict[str, Any] = {"attention": att, "attention_ln": dict(ln)}
+        if uses_moe(config, i):
+            layer["moe_mlp"] = {k: (dict(v) if isinstance(v, dict) else v)
+                                for k, v in moe.LOGICAL_AXES.items()}
+        else:
+            layer["mlp_in"] = dense(("embed", "mlp"))
+            layer["mlp_out"] = dense(("mlp", "embed"))
+        layer["mlp_ln"] = dict(ln)
+        axes[f"layer{i}"] = layer
+    axes["pooler"] = dense(("embed", "embed_out"))
+    axes["head"] = {"kernel": (), "bias": ()}
+    return axes
+
+
+#: the splits over ``tensor`` the model runs (Megatron's): leaf name within
+#: a layer -> its split dim
+_MEGATRON = {
+    **{f"attention/{n}/kernel": 1 for n in ("query", "key", "value")},
+    **{f"attention/{n}/bias": 0 for n in ("query", "key", "value")},
+    "attention/out/kernel": 0, "mlp_in/kernel": 1, "mlp_in/bias": 0,
+    "mlp_out/kernel": 0, "moe_mlp/w_in": 2, "moe_mlp/b_in": 1, "moe_mlp/w_out": 1,
+}
+#: the splits over ``expert``: the expert weights by expert, the router by
+#: its expert columns (gathered whole)
+_EXPERT = {"moe_mlp/w_in": 0, "moe_mlp/b_in": 0, "moe_mlp/w_out": 0,
+           "moe_mlp/b_out": 0, "moe_mlp/router/kernel": 1}
+
+
+class _Shards:
+    """How the forward reaches this rank's slices under a ``ParamLayout``
+    (module docstring): ``gathers`` maps a leaf to the ``(dim, group)``
+    pairs it is gathered along (fsdp, and the router's expert columns),
+    ``tp`` and ``ep`` the tensor and expert axes when the layout splits
+    over them."""
+
+    def __init__(self, layout):
+        mesh = layout.mesh
+        self.gathers: Dict[str, list] = {}
+        split = {"tensor": {}, "expert": {}}
+        refused = []
+        for name, spec in layout.specs.items():
+            within = name.split("/", 1)[1] if name.startswith("layer") else name
+            for axis in layout.axes(name):
+                dims = [i for i, e in enumerate(spec) if e in (axis, (axis,))]
+                if axis == "fsdp" and dims:
+                    self.gathers.setdefault(name, []).append(
+                        (dims[0], mesh.axis_group("fsdp")))
+                elif axis in split and dims and {"tensor": _MEGATRON,
+                                                 "expert": _EXPERT}[axis].get(
+                                                     within) == dims[0]:
+                    split[axis][name] = within
+                    if within == "moe_mlp/router/kernel":
+                        self.gathers.setdefault(name, []).append(
+                            (dims[0], mesh.axis_group("expert")))
+                else:
+                    refused.append((name, axis))
+        for axis, table in (("tensor", _MEGATRON), ("expert", _EXPERT)):
+            # all of the layers' splits over the axis, or none
+            want = {n for n in layout.specs if n.startswith("layer")
+                    and n.split("/", 1)[1] in table} if split[axis] else set()
+            if set(split[axis]) != want:
+                refused.append((sorted(want - set(split[axis])), axis))
+        if refused:
+            raise ValueError(
+                "BERT's forward takes fsdp splits of any leaf, over tensor only "
+                f"Megatron's {sorted(_MEGATRON)} and over expert only "
+                f"{sorted(_EXPERT)}, each in every layer; the layout splits "
+                f"{refused} otherwise")
+        self.tp = _pt._MeshAxis(mesh, "tensor") if split["tensor"] else None
+        self.ep = _pt._MeshAxis(mesh, "expert") if split["expert"] else None
+
+    def gather(self, tree, prefix: str):
+        """``tree`` (the leaves under ``prefix``) with every stored shard
+        gathered whole (its gradient reduce-scattered back)."""
+        if isinstance(tree, dict):
+            return {k: self.gather(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in tree.items()}
+        for dim, group in self.gathers.get(prefix, ()):
+            tree = _col.gather_from_group(tree, dim, group)
+        return tree
+
+
+def _shards(layout) -> Optional[_Shards]:
+    """The forward's view of ``layout``; None when it splits nothing."""
+    return None if layout is None or not layout.sharded else _Shards(layout)
 
 
 def _dense(p, x, dtype):
@@ -247,10 +387,21 @@ def _dropout(x, rate: float, generator: Optional[torch.Generator]):
                                                            device=x.device))
 
 
-def _self_attention(p, x, mask, *, config: BertConfig, dtype, attention_fn):
+def _row_parallel(p, x, dtype, tp):
+    """flax Dense where this rank holds rows of the kernel and the
+    matching columns of ``x`` (``tp``): the LM's row-parallel product
+    (partial sums over the tensor group in f32, rounded once: Megatron's
+    *g*), the bias added after the sum."""
+    y = _pt._row_parallel(x.to(dtype), p["kernel"].to(dtype), tp)
+    return y + p["bias"].to(dtype)
+
+
+def _self_attention(p, x, mask, *, config: BertConfig, dtype, attention_fn,
+                    tp=None):
     b, s, _ = x.shape
-    h = config.num_heads
-    hd = config.hidden_size // h
+    hd = config.hidden_size // config.num_heads
+    h = p["query"]["kernel"].shape[1]  # this rank's heads under tensor
+    x = _pt._column_input(x, tp)
 
     def proj(name):
         w = p[name]["kernel"].reshape(config.hidden_size, h * hd)
@@ -259,18 +410,23 @@ def _self_attention(p, x, mask, *, config: BertConfig, dtype, attention_fn):
 
     attn = attention_fn(proj("query"), proj("key"), proj("value"), mask, dtype=dtype)
     out = p["out"]
-    return _dense({"kernel": out["kernel"].reshape(h * hd, config.hidden_size),
-                   "bias": out["bias"]}, attn.reshape(b, s, h * hd), dtype)
+    return _row_parallel({"kernel": out["kernel"].reshape(h * hd, config.hidden_size),
+                          "bias": out["bias"]}, attn.reshape(b, s, h * hd), dtype, tp)
 
 
 def encoder_layer(p, x, mask, *, config: BertConfig, dtype, attention_fn,
-                  train: bool, generator=None):
+                  train: bool, generator=None, shards: Optional[_Shards] = None,
+                  prefix: str = ""):
     """One post-LN encoder layer (the reference's ``EncoderLayer``):
     ``(x, aux)``, ``aux`` the MoE load-balance term of a mixture-of-experts
-    layer in training, else None."""
+    layer in training, else None.  ``shards``: the layout's view (module
+    docstring); ``p`` is then this rank's slices of layer ``prefix``."""
+    tp = ep = None
+    if shards is not None:
+        p, tp, ep = shards.gather(p, prefix), shards.tp, shards.ep
     drop = train and config.dropout_rate > 0
     attn = _self_attention(p["attention"], x, mask, config=config, dtype=dtype,
-                           attention_fn=attention_fn)
+                           attention_fn=attention_fn, tp=tp)
     if drop:
         attn = _dropout(attn, config.dropout_rate, generator)
     x = _layer_norm(p["attention_ln"], x + attn, config.layer_norm_eps, dtype)
@@ -278,10 +434,11 @@ def encoder_layer(p, x, mask, *, config: BertConfig, dtype, attention_fn,
     if "moe_mlp" in p:
         h, aux = moe.moe_mlp(p["moe_mlp"], x, num_experts=config.num_experts,
                              capacity_factor=config.moe_capacity_factor,
-                             dtype=dtype, train=train)
+                             dtype=dtype, train=train, expert=ep, tensor=tp)
     else:
-        h = F.gelu(_dense(p["mlp_in"], x, dtype), approximate="none")
-        h = _dense(p["mlp_out"], h, dtype)
+        h = F.gelu(_dense(p["mlp_in"], _pt._column_input(x, tp), dtype),
+                   approximate="none")
+        h = _row_parallel(p["mlp_out"], h, dtype, tp)
     if drop:
         h = _dropout(h, config.dropout_rate, generator)
     return _layer_norm(p["mlp_ln"], x + h, config.layer_norm_eps, dtype), aux
@@ -307,40 +464,48 @@ def forward(
     attention_mask: Optional[torch.Tensor] = None,
     token_type_ids: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    layout=None,
 ) -> torch.Tensor:
     """Classification logits [B, num_classes] in f32 (the reference's
     ``BertEncoder.__call__``).  ``attention_mask`` [B, S] (1 = attend)
     becomes the [B, 1, 1, S] boolean mask every layer's attention takes;
     dropout runs when ``train`` and the rate is above 0, drawing from
     ``generator``.  Mixture-of-experts layers hand their load-balance
-    terms to :func:`.moe.sow` in training."""
+    terms to :func:`.moe.sow` in training.  ``layout``: the train state's
+    ``ParamLayout`` under model axes (module docstring): ``params`` are
+    this rank's slices, the logits whole on every rank."""
     _check_config(config)
+    shards = _shards(layout)
     ids = input_ids.long()
     s = ids.shape[1]
     drop = train and config.dropout_rate > 0
-    x = F.embedding(ids, params["token_embed"]["embedding"].to(dtype))
-    pos = params["position_embed"]["embedding"].to(dtype)[:s][None]
+    top = {k: v for k, v in params.items() if not k.startswith("layer")}
+    if shards is not None:
+        top = shards.gather(top, "")
+    x = F.embedding(ids, top["token_embed"]["embedding"].to(dtype))
+    pos = top["position_embed"]["embedding"].to(dtype)[:s][None]
     x = x + pos
     if token_type_ids is not None:
         x = x + F.embedding(token_type_ids.long(),
-                            params["type_embed"]["embedding"].to(dtype))
-    x = _layer_norm(params["embed_ln"], x, config.layer_norm_eps, dtype)
+                            top["type_embed"]["embedding"].to(dtype))
+    x = _layer_norm(top["embed_ln"], x, config.layer_norm_eps, dtype)
     if drop:
         x = _dropout(x, config.dropout_rate, generator)
     mask = None
     if attention_mask is not None:
         mask = attention_mask[:, None, None, :].bool()
-    kw = dict(config=config, dtype=dtype, attention_fn=attention_fn, train=train)
+    kw = dict(config=config, dtype=dtype, attention_fn=attention_fn, train=train,
+              shards=shards)
     layer_gen = generator if drop else None
     for i in range(config.num_layers):
         p = params[f"layer{i}"]
         state = layer_gen.get_state() if layer_gen is not None else None
         x, aux = remat(config.remat, _remat_layer, p, x, mask, state,
-                       generator=layer_gen, **kw)
+                       generator=layer_gen, prefix=f"layer{i}", **kw)
         if aux is not None:
             moe.sow(aux)
-    pooled = torch.tanh(_dense(params["pooler"], x[:, 0], dtype))
-    return _dense(params["head"], pooled, dtype).float()
+    pooled = torch.tanh(_dense(top["pooler"], x[:, 0], dtype))
+    return _dense(top["head"], pooled, dtype).float()
 
 
 @dataclasses.dataclass
@@ -362,11 +527,13 @@ class BertEncoder:
                            token_types=token_types)
 
     def __call__(self, params, input_ids, train: bool = True,
-                 attention_mask=None, token_type_ids=None, generator=None):
+                 attention_mask=None, token_type_ids=None, generator=None,
+                 layout=None):
         return forward(params, input_ids, config=self.config, dtype=self.dtype,
                        attention_fn=self.attention_fn, train=train,
                        attention_mask=attention_mask,
-                       token_type_ids=token_type_ids, generator=generator)
+                       token_type_ids=token_type_ids, generator=generator,
+                       layout=layout)
 
 
 def _build(base: BertConfig, kwargs) -> BertEncoder:

@@ -201,34 +201,35 @@ def _layer(blocks: Params, i: int) -> Params:
     return {k: v[i] for k, v in blocks.items()}
 
 
-class _TensorAxis:
-    """A mesh's ``tensor`` axis as the TP path uses it: its process
-    ``group``, this rank's ``index`` along it and its ``size``."""
+class _MeshAxis:
+    """A mesh axis as the model-parallel paths use it (``tensor`` by
+    default): its process ``group``, this rank's ``index`` along it and
+    its ``size``."""
 
     __slots__ = ("group", "index", "size")
 
-    def __init__(self, mesh):
-        self.size = tensor_parallel_size(mesh)
-        self.index = mesh.axis_index("tensor")
-        self.group = mesh.axis_group("tensor")
+    def __init__(self, mesh, axis: str = "tensor"):
+        self.size = int(mesh.shape.get(axis, 1))
+        self.index = mesh.axis_index(axis)
+        self.group = mesh.axis_group(axis)
         if self.group is None:
             raise ValueError(
-                f"tensor={self.size} needs the mesh's tensor process group "
+                f"{axis}={self.size} needs the mesh's {axis} process group "
                 "(parallel.create_mesh inside torch.distributed)")
 
 
-def _tensor_axis(mesh) -> Optional[_TensorAxis]:
+def _tensor_axis(mesh) -> Optional[_MeshAxis]:
     """The tensor axis of ``mesh``; None without one above 1."""
-    return _TensorAxis(mesh) if tensor_parallel_size(mesh) > 1 else None
+    return _MeshAxis(mesh) if tensor_parallel_size(mesh) > 1 else None
 
 
-def _column_input(h, tp: Optional[_TensorAxis]):
+def _column_input(h, tp: Optional[_MeshAxis]):
     """``h`` at the input of a column-parallel product: Megatron's *f*
     (itself forward, its gradient summed over the tensor group)."""
     return h if tp is None else _col.copy_to_group(h, tp.group)
 
 
-def _row_parallel(x, w, tp: Optional[_TensorAxis]):
+def _row_parallel(x, w, tp: Optional[_MeshAxis]):
     """``x @ w`` where this rank holds rows of ``w`` and the matching
     columns of ``x``: the partial products summed over the tensor group,
     in f32 and rounded once to ``x``'s dtype (int8: the int32
@@ -241,7 +242,7 @@ def _row_parallel(x, w, tp: Optional[_TensorAxis]):
     return _col.reduce_from_group(x.float() @ w.float(), tp.group).to(x.dtype)
 
 
-def _token_rows(embed, tokens, tp: Optional[_TensorAxis]):
+def _token_rows(embed, tokens, tp: Optional[_MeshAxis]):
     """``embed[tokens]``.  Vocab-parallel: this rank holds rows ``[i V/tp,
     (i+1) V/tp)``; it looks up the tokens that fall there, zero rows for
     the others, and the all-reduce (in f32) of those rows is exact."""
@@ -254,7 +255,7 @@ def _token_rows(embed, tokens, tp: Optional[_TensorAxis]):
     return _col.all_reduce(x, tp.group).to(embed.dtype)
 
 
-def _logits(x, head, tp: Optional[_TensorAxis]):
+def _logits(x, head, tp: Optional[_MeshAxis]):
     """``x @ head``.  Vocab-parallel: this rank's logit columns, then an
     all-gather gives every rank the whole row, in vocabulary order."""
     out = _mm(x, head)
@@ -264,7 +265,7 @@ def _logits(x, head, tp: Optional[_TensorAxis]):
     return parts.movedim(0, -2).reshape(*out.shape[:-1], -1)
 
 
-def _mlp(p, x, tp: Optional[_TensorAxis] = None):
+def _mlp(p, x, tp: Optional[_MeshAxis] = None):
     h = _column_input(_layer_norm(x, p["ln2"]), tp)
     return x + _row_parallel(F.gelu(_mm(h, p["w_in"]), approximate="none"),
                              p["w_out"], tp)
@@ -272,7 +273,7 @@ def _mlp(p, x, tp: Optional[_TensorAxis] = None):
 
 def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
                 attention: str = "dense", return_kv: bool = False,
-                attention_fn=None, tp: Optional[_TensorAxis] = None):
+                attention_fn=None, tp: Optional[_MeshAxis] = None):
     """One pre-LN transformer block; ``p`` leaves are per-layer (no L).
 
     ``attention``: ``"dense"`` materializes the [b,h,s,s] scores with a
@@ -318,7 +319,7 @@ def block_apply(p: Params, x: torch.Tensor, *, num_heads: int,
     return x
 
 
-def _embed(params, tokens, tp: Optional[_TensorAxis] = None):
+def _embed(params, tokens, tp: Optional[_MeshAxis] = None):
     max_len = params["pos"].shape[0]
     if tokens.shape[1] > max_len:
         raise ValueError(
@@ -360,7 +361,7 @@ class _TrainShards:
                 "the LM's training forward takes fsdp splits of any leaf but "
                 "the layer dim, and over tensor only Megatron's "
                 f"{_MEGATRON}; the layout splits {layout.specs}")
-        self.tp = _TensorAxis(layout.mesh) if tensor else None
+        self.tp = _MeshAxis(layout.mesh) if tensor else None
 
     def param(self, t, name: str):
         """Leaf (or one layer of) ``name`` whole: gathered over fsdp when

@@ -87,6 +87,12 @@ def group_size(group=None) -> int:
             if dist.is_available() and dist.is_initialized() else 1)
 
 
+def group_rank(group=None) -> int:
+    """This process's rank in ``group`` (0 without a process group)."""
+    return (dist.get_rank(group)
+            if dist.is_available() and dist.is_initialized() else 0)
+
+
 def _host_staged(op: str, t: torch.Tensor, group) -> bool:
     if t.device.type == "cpu" or op in GLOO_CUDA_OPS:
         return False

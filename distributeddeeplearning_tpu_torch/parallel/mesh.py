@@ -19,18 +19,20 @@ that axis alone (the reference's named-axis collectives, ``psum(x,
 ``data_group`` is the group of the ranks that share every coordinate
 but the data axes' (``data`` and ``fsdp`` jointly): the ranks that hold
 different rows of the global batch and the same slice of the model.
+The ranks along ``tensor`` and ``expert`` share a batch (the reference
+shards the batch over ``data x fsdp`` only).
 Every data-parallel reduction (the gradient mean, averaged metrics, the
 eval reduction, global-batch BatchNorm) runs over it, never over the
 world: on a ``data=2 x tensor=2`` mesh a mean over the world would
 average different tensor shards together.  :meth:`Mesh.data_index` is
 this rank's coordinate over the data axes (its batch shard).
 
-The data, fsdp and tensor axes are taken: a tensor axis serves
+The data, fsdp, expert and tensor axes are taken: a tensor axis serves
 (``serve.engine.tensor_parallel_engine``) and trains (Megatron), fsdp
-trains (ZeRO-3).  ``seq``, ``pipe`` and ``expert`` greater than 1 raise
-in :func:`create_mesh`, naming the ROADMAP item that brings them (seq and
-pipe: A7; expert: A5.2), and so does a model that meets them in
-:func:`require_ported`.  Multi-slice meshes (the reference's
+trains (ZeRO-3), expert splits a mixture of experts' expert weights
+(``models.moe``).  ``seq`` and ``pipe`` greater than 1 raise in
+:func:`create_mesh`, naming the ROADMAP item that brings them (A7d), and
+so does a model that meets them in :func:`require_ported`.  Multi-slice meshes (the reference's
 ``num_slices`` and ``_slice_groups``) are A5.3.
 """
 
@@ -50,9 +52,8 @@ DATA_AXES: Tuple[str, ...] = ("data", "fsdp")  # batch is sharded over both
 
 #: where each axis the port does not take yet comes in
 _NOT_YET = {
-    "seq": "sequence parallelism (ROADMAP A7)",
-    "pipe": "pipeline parallelism (ROADMAP A7)",
-    "expert": "expert parallelism (ROADMAP A5.2)",
+    "seq": "sequence parallelism (ROADMAP A7d)",
+    "pipe": "pipeline parallelism (ROADMAP A7d)",
 }
 
 
@@ -175,8 +176,8 @@ def _data_group(sizes: Dict[str, int], world: int, rank: int, group):
 def create_mesh(spec: Optional[MeshSpec] = None, *, group=None) -> Mesh:
     """The mesh of ``spec`` over the processes of ``group`` (the default
     group; one process and no group when ``torch.distributed`` is not
-    initialised) — the reference's ``hvd.init()`` world.  ``seq``,
-    ``pipe`` and ``expert`` greater than 1 raise (module docstring)."""
+    initialised) — the reference's ``hvd.init()`` world.  ``seq`` and
+    ``pipe`` greater than 1 raise (module docstring)."""
     spec = spec or MeshSpec()
     world, rank = _world(group)
     if group is None and world > 1:
@@ -186,7 +187,7 @@ def create_mesh(spec: Optional[MeshSpec] = None, *, group=None) -> Mesh:
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"create_mesh: {axis}={sizes[axis]} is {where}; the port's "
-                "mesh takes the data, fsdp and tensor axes only"
+                "mesh takes the data, fsdp, expert and tensor axes only"
             )
     groups = _axis_groups(sizes, world, rank, group)
     return Mesh(shape=sizes, size=world, rank=rank, group=group, groups=groups,
@@ -195,7 +196,7 @@ def create_mesh(spec: Optional[MeshSpec] = None, *, group=None) -> Mesh:
 
 def require_ported(mesh: Optional[Mesh], what: str) -> None:
     """Refuse a mesh with an axis the port does not take yet (``seq``,
-    ``pipe``, ``expert`` above 1; ``what`` names the caller).  A mesh
+    ``pipe`` above 1; ``what`` names the caller).  A mesh
     built by :func:`create_mesh` never has one; a hand-made one may."""
     if mesh is None:
         return
@@ -203,7 +204,7 @@ def require_ported(mesh: Optional[Mesh], what: str) -> None:
         if mesh.shape.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"{what}: {axis}={mesh.shape[axis]} is {where}; the port "
-                "trains over the data, fsdp and tensor axes only")
+                "trains over the data, fsdp, expert and tensor axes only")
 
 
 def world_size(mesh: Optional[Mesh] = None) -> int:

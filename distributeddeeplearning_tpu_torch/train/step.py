@@ -43,9 +43,12 @@ process group, one process per device, each step given this rank's rows):
 - the implicit path (``comm_overlap=False``) gives the reference's GSPMD
   result: train-mode BatchNorm normalises with the GLOBAL batch's moments
   (``models._convnet.global_batch_moments``: an all-reduce of ``[sum x,
-  sum x^2, count]`` autograd flows through), the gradient is the
-  global-batch mean through one explicit all-reduce of the gradient tree,
-  and the metrics are averaged over the ranks;
+  sum x^2, count]`` autograd flows through), a mixture of experts routes
+  the GLOBAL batch (``models.moe.routing_over``: capacity, slot positions
+  and the load-balance term of the global batch, in the train and the
+  eval step), the gradient is the global-batch mean through one explicit
+  all-reduce of the gradient tree, and the metrics are averaged over the
+  ranks;
 - the ``comm_overlap`` path (:class:`CommOverlapStep`) is the reference's
   explicit schedule of ``parallel/comms.py``: each microbatch's bucketed
   reduce-scatter is issued as soon as its gradients exist and waited on
@@ -57,19 +60,20 @@ process group, one process per device, each step given this rank's rows):
   generators are seeded from ``(rng, step, microbatch, rank)``, held to
   within-port determinism only.
 
-Model axes (``mesh`` with ``fsdp`` or ``tensor`` above 1, and the
+Model axes (``mesh`` with ``fsdp``, ``tensor`` or ``expert`` above 1, and the
 reference's ``rules=`` and ``logical_axes=``): the builders lay the
 example state out by :class:`..parallel.sharding.ParamLayout` (its params
 become this rank's slices, its optimizer moments the slices' shapes;
 ``train.state.shard_state``), and the model runs its own collectives on
-those slices (``models.pipelined_transformer``'s ``layout=``).  Every
-data-parallel reduction runs over the mesh's ``data_group``, the ranks
-that hold the same slice of the model; the ranks of one data shard (its
-``tensor`` ranks) see the same rows.  Gradients: a leaf split over
+those slices (``models.pipelined_transformer``'s and ``models.bert``'s
+``layout=``).  Every data-parallel reduction runs over the mesh's
+``data_group``, the ranks that hold the same slice of the model; the
+ranks of one data shard (its ``tensor`` and ``expert`` ranks) see the
+same rows.  Gradients: a leaf split over
 ``fsdp`` arrives summed over fsdp (the reduce-scatter of the model's
 gather) and is summed over ``data``; every other leaf is summed over the
-data axes; tensor-split leaves take no reduction over ``tensor``; all are
-divided by the data shards.  The clip norm and ``skip_nonfinite``'s
+data axes; tensor- and expert-split leaves take no reduction over their
+axes; all are divided by the data shards.  The clip norm and ``skip_nonfinite``'s
 norm are the whole tree's (``collectives.sharded_global_norm``: each
 leaf's squares summed over the axes it is split on, a replicated leaf
 counted once).  ``comm_overlap`` with a model axis is refused, as in the
@@ -228,9 +232,10 @@ def _all_reduce_mean(grads, group, world: int):
 
 
 def _model_axes(mesh) -> bool:
-    """Whether ``mesh`` shards the model (fsdp or tensor above 1)."""
+    """Whether ``mesh`` shards the model (fsdp, tensor or expert above 1)."""
     return mesh is not None and (tensor_parallel_size(mesh) > 1
-                                 or mesh.shape.get("fsdp", 1) > 1)
+                                 or mesh.shape.get("fsdp", 1) > 1
+                                 or mesh.shape.get("expert", 1) > 1)
 
 
 def _lay_out(state_example, mesh, rules, logical_axes, what: str):
@@ -304,7 +309,7 @@ def build_train_step(
     if comm_overlap and _model_axes(mesh):
         raise ValueError(
             "comm_overlap is the explicit replicated-params DP schedule; it "
-            "does not compose with pipe/seq/fsdp/tensor")
+            "does not compose with pipe/seq/fsdp/tensor/expert")
     if comm_overlap:
         if comm_dtype not in COMM_DTYPES and comm_dtype is not torch.bfloat16:
             raise ValueError(
@@ -347,15 +352,17 @@ def build_train_step(
     generators: Dict[torch.device, torch.Generator] = {}  # one per device, reseeded
 
     def loss_and_grads(state, stats, inputs, labels, extras, generator):
-        with _convnet.global_batch_moments(group):
+        # the global batch's moments and routing, in the backward's
+        # recomputation of a checkpointed layer too
+        with _convnet.global_batch_moments(group), moe.routing_over(group):
             outputs, new_stats, aux = _forward(state, state.params, inputs,
                                                train=True, generator=generator,
                                                extras=extras, batch_stats=stats)
-        loss = loss_fn(outputs, labels, label_smoothing=label_smoothing)
-        if isinstance(aux, torch.Tensor):
-            loss = loss + moe_aux_weight * aux
-        leaves = tree_leaves(state.params)
-        grads = torch.autograd.grad(loss, leaves)
+            loss = loss_fn(outputs, labels, label_smoothing=label_smoothing)
+            if isinstance(aux, torch.Tensor):
+                loss = loss + moe_aux_weight * aux
+            leaves = tree_leaves(state.params)
+            grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
             metrics = metrics_fn(_main_head(outputs).detach(), labels, loss.detach())
         return list(grads), metrics, new_stats
@@ -670,8 +677,9 @@ def build_eval_step(
             inputs = input_transform(inputs)
         inputs = _to_device(inputs, device, compute_dtype)
         labels = _to_device(batch["label"], device, compute_dtype)
-        logits, _, _ = _forward(state, state.params, inputs, train=False,
-                                generator=None, extras=_extras(batch, device))
+        with moe.routing_over(group):
+            logits, _, _ = _forward(state, state.params, inputs, train=False,
+                                    generator=None, extras=_extras(batch, device))
         metrics = metrics_fn(logits, labels, loss_fn(logits, labels))
         if group is None:
             return metrics

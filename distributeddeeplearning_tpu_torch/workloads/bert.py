@@ -5,12 +5,18 @@ synthetic tokenized text (:class:`..data.synthetic.SyntheticTextDataset`:
 random ids, a random length per example, the rest padding, so every batch
 carries a real key-padding mask) with AdamW, global-norm clipping and a
 linear warmup then linear decay, through the port's train step and
-:class:`Trainer`: the reference's ``fsdp = tensor = seq = 1`` geometry, on
-one device or data-parallel over the processes of a ``torch.distributed``
-group (``distributed=True``, one process per device, the implicit
-data-parallel step; ``batch_size`` is per data shard and rank r reads the
-reference's synthetic stream of seed ``seed + 1000 r``, as its host r
-does).  ``attention="flash"`` runs every layer's attention through the
+:class:`Trainer`, on one device or over the processes of a
+``torch.distributed`` group (``distributed=True``, one process per
+device, the implicit step): data-parallel, and over the reference's model
+axes ``fsdp``, ``tensor`` and ``expert`` with its mesh, its rule choice
+(``RULES_TP`` when ``tensor`` > 1, else ``RULES_FSDP`` when ``fsdp`` > 1,
+else ``RULES_DP``; ``RULES_EP`` appended with experts) and its batch of
+``batch_size`` rows a data shard (``data x fsdp`` shards).  Every rank
+draws the same global weights and keeps its slice of that layout, which
+the model reads its splits from (``models.bert``'s ``layout=``).  The
+ranks of data shard d read the reference's synthetic stream of seed
+``seed + 1000 d`` (under pure data parallelism d is the process index,
+the reference's host r's stream).  ``attention="flash"`` runs every layer's attention through the
 hand-written flash kernels with the padding mask as their key-padding
 bias, forward and backward; ``"default"`` (and ``"auto"``, as at ``seq=1``
 in the reference) the reference's plain attention.  ``num_experts`` > 0
@@ -38,17 +44,13 @@ logger = logging.getLogger("ddlt.workloads.bert")
 
 
 def _refuse(**given) -> None:
-    """Raise for each argument the single-device slice does not take."""
+    """Raise for each argument the port does not take yet."""
     where = {
-        "tfrecords": "the TFRecord text reader and data/text.py (ROADMAP A7)",
-        "attention": "sequence-parallel attention, ring and ulysses (ROADMAP A7)",
-        "fsdp": "BERT's FSDP parameter sharding (ROADMAP A5.1b)",
-        "tensor": "BERT's tensor-parallel training (ROADMAP A5.1b)",
-        "seq": "sequence parallelism (ROADMAP A7)",
-        "expert": "expert parallelism, MoE BERT's experts sharded over a "
-                  "mesh axis (ROADMAP A5.2)",
+        "tfrecords": "the TFRecord text reader and data/text.py (ROADMAP A7e)",
+        "attention": "sequence-parallel attention, ring and ulysses (ROADMAP A7d)",
+        "seq": "sequence parallelism (ROADMAP A7d)",
         "num_slices": "multi-slice data parallelism (ROADMAP A5.3)",
-        "sp_block_k": "ring attention's blocked loop (ROADMAP A7)",
+        "sp_block_k": "ring attention's blocked loop (ROADMAP A7d)",
     }
     for name, bad in given.items():
         if bad:
@@ -132,12 +134,20 @@ def main(
     import torch
 
     from distributeddeeplearning_tpu_torch.models import get_model
-    from distributeddeeplearning_tpu_torch.models.bert import dot_product_attention
+    from distributeddeeplearning_tpu_torch.models.bert import (
+        dot_product_attention,
+        logical_axes,
+    )
     from distributeddeeplearning_tpu_torch.ops.flash_attention import (
         make_flash_attention,
     )
     from distributeddeeplearning_tpu_torch.parallel import (
+        RULES_DP,
+        RULES_EP,
+        RULES_FSDP,
+        RULES_TP,
         MeshSpec,
+        ParamLayout,
         create_mesh,
         data_parallel_size,
         initialize,
@@ -147,7 +157,11 @@ def main(
     from distributeddeeplearning_tpu_torch.train.schedule import (
         warmup_linear_decay_schedule,
     )
-    from distributeddeeplearning_tpu_torch.train.state import TrainState, adamw
+    from distributeddeeplearning_tpu_torch.train.state import (
+        TrainState,
+        adamw,
+        shard_state,
+    )
     from distributeddeeplearning_tpu_torch.train.step import (
         build_eval_step,
         build_train_step,
@@ -157,13 +171,19 @@ def main(
         raise ValueError(f"unknown data_format {data_format!r}")
     _refuse(tfrecords=data_format == "tfrecords",
             attention=attention in ("ring", "ulysses", "ulysses-flash"),
-            fsdp=fsdp != 1, tensor=tensor != 1, seq=seq != 1,
-            expert=expert != 1, num_slices=num_slices != 1,
+            seq=seq != 1, num_slices=num_slices != 1,
             sp_block_k=sp_block_k is not None)
+    # the reference's checks and words (ref workloads/bert.py:150-155)
+    if expert > 1 and num_experts == 0:
+        raise ValueError("expert-axis sharding needs --num_experts > 0")
+    if num_experts and expert > 1 and num_experts % expert != 0:
+        raise ValueError(
+            f"num_experts {num_experts} not divisible by expert axis {expert}")
     ctx = initialize(force=distributed, device=device)
     dev = ctx.device
-    mesh = create_mesh(MeshSpec())
+    mesh = create_mesh(MeshSpec(fsdp=fsdp, tensor=tensor, expert=expert))
     dp_mesh = mesh if mesh.group is not None else None
+    model_axes = fsdp > 1 or tensor > 1 or expert > 1
     if attention == "auto":
         attention = "default"  # the reference's choice at seq = 1
     if attention == "flash":
@@ -173,15 +193,16 @@ def main(
     else:
         raise ValueError(f"unknown attention mode {attention!r}")
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
-    global_batch = batch_size * data_parallel_size(mesh)
-    per_host_batch = global_batch // ctx.process_count
+    global_batch = batch_size * data_parallel_size(mesh)  # data x fsdp shards
+    shard = mesh.data_index()  # this rank's data shard: its stream's seed
     n_train = train_examples or 25_000
     spe = steps_per_epoch or max(n_train // global_batch, 1)
     total_steps = spe * epochs
     if ctx.is_primary:
-        logger.info("fine-tuning %s on %s: %d ranks, global batch %d, %d "
-                    "steps/epoch, %d epochs, attention %s", model, dev,
-                    mesh.size, global_batch, spe, epochs, attention)
+        logger.info("fine-tuning %s on %s: %d ranks (data=%d fsdp=%d tensor=%d "
+                    "expert=%d), global batch %d, %d steps/epoch, %d epochs, "
+                    "attention %s", model, dev, mesh.size, mesh.shape["data"],
+                    fsdp, tensor, expert, global_batch, spe, epochs, attention)
 
     model_kwargs = dict(num_classes=num_classes, vocab_size=vocab_size,
                         dropout_rate=dropout_rate, dtype=dtype, remat=remat,
@@ -197,11 +218,19 @@ def main(
             model_kwargs[key] = value
     net = get_model(model, **model_kwargs)
     params = net.init_params(torch.Generator().manual_seed(seed), device=dev)
+    layout = None
+    if model_axes:
+        rules = RULES_TP if tensor > 1 else RULES_FSDP if fsdp > 1 else RULES_DP
+        if num_experts:
+            # expert weights [E, ...] over the expert axis (none at size 1)
+            rules = list(rules) + list(RULES_EP)
+        layout = ParamLayout.from_rules(mesh, params, rules, logical_axes(net.config))
 
     def apply_fn(p, ids, *, train, generator=None, attention_mask=None,
                  token_type_ids=None):
         return net(p, ids, train=train, attention_mask=attention_mask,
-                   token_type_ids=token_type_ids, generator=generator)
+                   token_type_ids=token_type_ids, generator=generator,
+                   layout=layout)
 
     schedule = warmup_linear_decay_schedule(
         base_lr, total_steps, warmup_fraction=warmup_fraction)
@@ -210,17 +239,20 @@ def main(
         tx=adamw(schedule, weight_decay=weight_decay,
                  grad_clip_norm=grad_clip_norm),
     )
-    replicate_params(mesh, state)
+    if layout is not None:
+        shard_state(state, layout)  # every rank drew the same global weights
+    else:
+        replicate_params(mesh, state)
     train_step = build_train_step(state, mesh=dp_mesh, schedule=schedule,
                                   compute_dtype=dtype, accum_steps=accum_steps,
                                   rng=seed + 1)
     eval_step = build_eval_step(state, mesh=dp_mesh, compute_dtype=dtype)
-    data_seed = seed + 1000 * ctx.process_index
-    train_iter = _batches(per_host_batch, seq_len, vocab_size, num_classes,
+    data_seed = seed + 1000 * shard
+    train_iter = _batches(batch_size, seq_len, vocab_size, num_classes,
                           data_seed, n_train, is_training=True)
 
     def eval_factory():
-        return _batches(per_host_batch, seq_len, vocab_size, num_classes,
+        return _batches(batch_size, seq_len, vocab_size, num_classes,
                         data_seed, min(n_train, 4 * global_batch),
                         is_training=False)
 

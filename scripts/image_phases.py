@@ -26,7 +26,10 @@ fleet: replica workers, failover, reload, drain, a dense replica) and
 ``phase_imagenet`` (the ImageNet readers' host rates, fed against
 resident img/s, the workload through ``python -m`` and a replay-free
 raw-cache resume) and ``phase_model_parallel_train`` (tensor-parallel and
-FSDP training of the LM over four gloo ranks sharing the card), each as
+FSDP training of the LM over four gloo ranks sharing the card) and
+``phase_bert_model_parallel`` (BERT and MoE BERT over the fsdp, tensor
+and expert axes on four gloo ranks sharing the card) and
+``phase_model_axes`` (the last two with their ranks in one spawn), each as
 ``chip_smoke.py`` runs it, after the card's ``nvidia-smi`` name and power
 limit.  Exits
 nonzero if a phase fails.  Run from the repository's root; needs a CUDA
@@ -43,7 +46,8 @@ import traceback
 PHASES = ("phase_resnet", "phase_resnet_parity", "phase_image_short", "phase_vit",
           "phase_vit_flash", "phase_resume", "phase_resilience", "phase_moe_bert",
           "phase_data_parallel", "phase_tensor_parallel", "phase_serve_robust",
-          "phase_fleet", "phase_imagenet", "phase_model_parallel_train")
+          "phase_fleet", "phase_imagenet", "phase_model_parallel_train",
+          "phase_bert_model_parallel", "phase_model_axes")
 
 
 def main(argv) -> int:

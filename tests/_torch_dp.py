@@ -804,3 +804,229 @@ def model_parallel_all(rank, world, params_np, batches, clip, attention, cases,
                          os.path.join(directory, "steps"))
     out["main"] = workloads_mp(directory, geometries)
     return out
+
+
+# -- BERT and MoE BERT over fsdp, tensor and expert ---------------------------------
+
+#: the reference's TINY BERT (``tests/test_bert_workload.py``) as model keywords
+MP_BERT = dict(num_layers=2, hidden_size=32, num_heads=4, intermediate_size=64,
+               vocab_size=101, num_classes=3, max_position_embeddings=16,
+               dropout_rate=0.0)
+#: the leaves every rank of a data shard holds whole (never split)
+BERT_REPLICATED = ("embed_ln/scale", "layer0/attention_ln/bias", "layer1/mlp_ln/scale",
+                   "head/kernel", "head/bias")
+
+
+def bert_rules(sizes, experts):
+    """The reference workload's rule choice (ref ``workloads/bert.py``)."""
+    from distributeddeeplearning_tpu_torch.parallel import sharding as tsh
+
+    rules = (tsh.RULES_TP if sizes.get("tensor", 1) > 1
+             else tsh.RULES_FSDP if sizes.get("fsdp", 1) > 1 else tsh.RULES_DP)
+    return list(rules) + (list(tsh.RULES_EP) if experts else [])
+
+
+def bert_mp_state(params_np, mesh, clip, experts, capacity_factor=1.25):
+    """A fresh TINY (MoE) BERT state from numpy weights and its implicit
+    step on ``mesh`` (None: one process), laid out by the reference
+    workload's rules over BERT's logical axes when the mesh has a model
+    axis; flash attention, f32, AdamW under :class:`_SpyAdamW`."""
+    import dataclasses
+
+    from distributeddeeplearning_tpu_torch.models import bert as tbert
+    from distributeddeeplearning_tpu_torch.ops.flash_attention import make_flash_attention
+    from distributeddeeplearning_tpu_torch.parallel import ParamLayout
+    from distributeddeeplearning_tpu_torch.train import state as tstate
+    from distributeddeeplearning_tpu_torch.train import step as tstep
+
+    cfg = dataclasses.replace(tbert.BERT_BASE, **MP_BERT, num_experts=experts,
+                              moe_capacity_factor=capacity_factor)
+    params = tbert.params_from_numpy(params_np, device="cpu")
+    sharded = mesh is not None and any(mesh.shape.get(a, 1) > 1
+                                       for a in ("fsdp", "tensor", "expert"))
+    rules = bert_rules(mesh.shape, experts) if sharded else None
+    axes = tbert.logical_axes(cfg)
+    layout = ParamLayout.from_rules(mesh, params, rules, axes) if sharded else None
+    attention = make_flash_attention(mesh=mesh)
+
+    def apply_fn(p, ids, *, train, generator=None, attention_mask=None,
+                 token_type_ids=None):
+        return tbert.forward(p, ids, config=cfg, dtype=torch.float32,
+                             attention_fn=attention, train=train,
+                             attention_mask=attention_mask, generator=generator,
+                             layout=layout)
+
+    tx = _SpyAdamW(clip)
+    state = tstate.TrainState.create(params=params, apply_fn=apply_fn, tx=tx)
+    kw = {}
+    if sharded:
+        tstate.shard_state(state, layout)
+        kw = dict(rules=rules, logical_axes=axes)
+    step = tstep.build_train_step(state, mesh=mesh, compute_dtype=torch.float32,
+                                  skip_nonfinite=True, **kw)
+    return state, step, tx
+
+
+class _RouteLog:
+    """Records what every MoE layer's routing decided (its choices on this
+    rank's rows and the kept counts) and the load-balance terms, by
+    wrapping ``models.moe``'s ``route`` and ``moe_mlp``."""
+
+    def __init__(self):
+        from distributeddeeplearning_tpu_torch.models import moe as tmoe
+
+        self.moe, self.routes, self.aux = tmoe, [], []
+        self._orig = (tmoe.route, tmoe.moe_mlp)
+
+    def __enter__(self):
+        route, mlp = self._orig
+
+        def rec_route(*a, **k):
+            r = route(*a, **k)
+            self.routes.append((r.gate_idx.numpy().copy(), r.kept.numpy().copy()))
+            return r
+
+        def rec_mlp(*a, **k):
+            y, aux = mlp(*a, **k)
+            if aux is not None:
+                self.aux.append(float(aux.detach()))
+            return y, aux
+
+        self.moe.route, self.moe.moe_mlp = rec_route, rec_mlp
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.moe_mlp = self._orig
+
+
+def bert_mp_fit(mesh, params_np, batches, clip, experts, directory=None):
+    """Train TINY (MoE) BERT on ``mesh`` (None: one process) over the global
+    ``batches``; what ``tests/test_torch_bert_parallel.py`` holds."""
+    from distributeddeeplearning_tpu_torch.parallel import shard_batch
+    from distributeddeeplearning_tpu_torch.train import checkpoint as tckpt
+    from distributeddeeplearning_tpu_torch.train import state as tstate
+
+    state, step, tx = bert_mp_state(params_np, mesh, clip, experts)
+    out = {"losses": [], "replicated": [], "norms": []}
+    for i, batch in enumerate(batches):
+        with _RouteLog() as log:
+            state, m = step(state, shard_batch(mesh, batch) if mesh else batch)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(tx.seen[-1][1])
+        local = _named(state.params)
+        out["replicated"].append({k: local[k].detach().numpy().tobytes()
+                                  for k in BERT_REPLICATED})
+        if i == 0:
+            out["routes"], out["aux"] = log.routes, log.aux
+            grads = tx.seen[0][0]
+            out["grads"] = _global(state, tstate.tree_map(lambda g: g, _nest(grads)))
+            out["params1"] = _global(state, state.params)
+    out["params"] = _global(state, state.params)
+    out["moments"] = {k: _global(state, state.opt_state[k]) for k in ("mu", "nu")}
+    out["shapes"] = {
+        "params": {k: tuple(v.shape) for k, v in _named(state.params).items()},
+        "mu": {k: tuple(v.shape) for k, v in _named(state.opt_state["mu"]).items()}}
+    if directory is not None:
+        ckpt = tckpt.Checkpointer(directory, mesh=mesh)
+        ckpt.save(state.step, state)
+        ckpt.wait()
+        fresh, _, _ = bert_mp_state(params_np, mesh, clip, experts)
+        fresh, out["restored_step"] = ckpt.restore(fresh)
+        out["restored_bitwise"] = all(
+            torch.equal(a, b) for a, b in tstate.tree_zip(
+                [state.params, state.opt_state], [fresh.params, fresh.opt_state]))
+        s1, m1 = step(state, shard_batch(mesh, batches[0]) if mesh else batches[0])
+        step2 = bert_mp_state(params_np, mesh, clip, experts)[1]
+        s2, m2 = step2(fresh, shard_batch(mesh, batches[0]) if mesh else batches[0])
+        out["resumed_bitwise"] = all(torch.equal(a, b) for a, b in tstate.tree_zip(
+            s1.params, s2.params)) and float(m1["loss"]) == float(m2["loss"])
+    return out
+
+
+#: ``workloads.bert.main`` in the model-axis tests: the reference's TINY at
+#: f32 with flash, ``batch_size`` rows a data shard
+BERT_MAIN = dict(batch_size=2, seq_len=16, num_classes=3, vocab_size=101,
+                 train_examples=32, num_layers=2, hidden_size=32, num_heads=4,
+                 intermediate_size=64, max_position_embeddings=16,
+                 compute_dtype="float32", dropout_rate=0.0, attention="flash",
+                 seed=42, device="cpu", distributed=True)
+
+
+def bert_workloads_mp(directory, geometries):
+    """``workloads.bert.main`` at each of ``geometries``: one step, then a
+    checkpointed epoch of 2 steps resumed into a second."""
+    import os
+
+    from distributeddeeplearning_tpu_torch.workloads import bert as twbert
+
+    out = {}
+    for name, geo in geometries:
+        _, first = twbert.main(epochs=1, steps_per_epoch=1, **geo, **BERT_MAIN)
+        path = os.path.join(directory, f"bert-{name}")
+        state, fit = twbert.main(epochs=1, steps_per_epoch=2, save_filepath=path,
+                                 **geo, **BERT_MAIN)
+        resumed, _ = twbert.main(epochs=2, steps_per_epoch=2, save_filepath=path,
+                                 **geo, **BERT_MAIN)
+        out[name] = {"first_loss": first.final_train_metrics["loss"],
+                     "loss": fit.final_train_metrics["loss"],
+                     "eval": fit.final_eval_metrics["loss"],
+                     "step": state.step, "resumed_step": resumed.step,
+                     "layout": dict(state.layout.specs)}
+    return out
+
+
+def bert_model_parallel(rank, world, bert_np, moe_np, batches, clips, cases, directory,
+                        geometries):
+    """Every case ``(name, MeshSpec keywords, experts)`` in turn over these
+    ranks: :func:`bert_mp_fit`'s results by name, with this rank's data
+    shard; the first case checkpoints into ``directory``.  Then
+    :func:`bert_workloads_mp`."""
+    import os
+
+    from distributeddeeplearning_tpu_torch.parallel import MeshSpec, create_mesh
+
+    out = {}
+    for i, (name, spec, experts) in enumerate(cases):
+        mesh = create_mesh(MeshSpec(**spec))
+        got = bert_mp_fit(mesh, moe_np if experts else bert_np, batches,
+                          clips[bool(experts)], experts,
+                          os.path.join(directory, "steps", name) if i == 0 else None)
+        got.update(shard=mesh.data_index(), expert_index=mesh.axis_index("expert"))
+        out[name] = got
+    out["main"] = bert_workloads_mp(directory, geometries)
+    return out
+
+
+def moe_dp_routing(rank, world, params_np, batches, capacity_factor):
+    """TINY MoE BERT's implicit data-parallel step over this group (pure
+    data parallelism), at ``capacity_factor``: each step's loss and, for the
+    first, every MoE layer's choices on this rank's rows, kept counts and
+    load-balance term."""
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.models import bert as tbert
+    from distributeddeeplearning_tpu_torch.parallel import shard_batch
+    from distributeddeeplearning_tpu_torch.train import schedule as tsched
+    from distributeddeeplearning_tpu_torch.train import state as tstate
+    from distributeddeeplearning_tpu_torch.train import step as tstep
+
+    mesh = _mesh()
+    net = get_model("bert-base", dtype=torch.float32, num_experts=4,
+                    moe_capacity_factor=capacity_factor, **MP_BERT)
+
+    def apply_fn(p, ids, *, train, generator=None, attention_mask=None,
+                 token_type_ids=None):
+        return net(p, ids, train=train, attention_mask=attention_mask,
+                   token_type_ids=token_type_ids, generator=generator)
+
+    state = tstate.TrainState.create(
+        params=tbert.params_from_numpy(params_np, device="cpu"), apply_fn=apply_fn,
+        tx=tstate.adamw(tsched.constant_schedule(MP_LR), weight_decay=0.01))
+    step = tstep.build_train_step(state, mesh=mesh, compute_dtype=torch.float32)
+    out = {"losses": []}
+    for i, batch in enumerate(batches):
+        with _RouteLog() as log:
+            state, m = step(state, shard_batch(mesh, batch))
+        out["losses"].append(float(m["loss"]))
+        if i == 0:
+            out["routes"], out["aux"] = log.routes, log.aux
+    return out

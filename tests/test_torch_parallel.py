@@ -194,12 +194,12 @@ def refusals():
 @pytest.mark.parametrize("axis", list(AXIS_ITEMS))
 def test_create_mesh_refuses_the_other_axes(refusals, axis):
     """Over 2 ranks the sizes are legal and the axis is refused by name;
-    a tensor axis (tensor-parallel serving and training) and an fsdp axis
-    (ZeRO-3 training) build, with their process groups and
-    ``tensor_parallel_size``."""
+    a tensor axis (tensor-parallel serving and training), an fsdp axis
+    (ZeRO-3 training) and an expert axis (MoE BERT's experts) build, with
+    their process groups and ``tensor_parallel_size``."""
     for rank, out in enumerate(refusals):
         kind, message = out[axis]
-        if axis in ("tensor", "fsdp"):
+        if axis in ("tensor", "fsdp", "expert"):
             assert kind == "ok", message
             assert message["shape"][axis] == 2 and message["shape"]["data"] == 1
             assert message["group"] and message["group_size"] == 2
