@@ -112,8 +112,8 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
 11. the same training run at the reference's default, ``compute_dtype``
    left to bf16: the bf16 counters must count as K1-K3 did in f32 and
    the f32 counters 0; each step's loss must lie within 1e-2 relative of
-   the f32 run's (same seed, same batch); mfu is over 989.4 TFLOP/s, the
-   spec-sheet dense bf16 peak;
+   the f32 run's (same seed, same batch); mfu is over the card's dense
+   bf16 peak (``utils/hardware.PEAKS``);
 12. ``phase_k4_bf16`` (after 5a): K4 on bf16 pages under bf16 queries at
    the decode shape (b=8, nq=1, hd=64, S=576) and the chunk shape (nq=64),
    and on int8 pages under bf16 queries with the bf16 overlay, each held
@@ -185,7 +185,7 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    process (its img/s: earlier profiler windows slow a host-bound step in
    this one), then here shortened (3 warmup batches, 3 windows of 5): img/s
    a chip mean +-ci95 and the windows, step p50 (CUDA events), peak memory
-   and mfu over 989.4 TFLOP/s
+   and mfu over the card's dense bf16 peak
    from the FLOP reckoning (``ImageModel.forward_macs``: 3 x the forward's
    multiply-adds x 2 a trained image), on one ``[resnet]`` line; then one
    step profiled under ``torch.cuda.set_sync_debug_mode("error")`` (a host
@@ -491,12 +491,12 @@ which at these small shapes counts the host's launch gaps too); the
 decode kernel cycles through the cache's 12 layers so its history is not
 served from L2.  ``bound_ms`` is the least time the card could take: the
 larger of the bytes moved (inputs read once, outputs written once) over
-3.35 TB/s and the flops over 67 TFLOP/s (the H100's f32 peak on CUDA
-cores, which is what the f32 decode kernel uses), for the f32 forward and
-backward over 164.9 TFLOP/s (split TF32: a third of the 494.7 TFLOP/s
-dense TF32 peak; their rows give the 67 TFLOP/s bound beside, as
-``fma_bound_ms``) or, for the bf16 kernels, over 989.4 TFLOP/s (dense bf16
-on the tensor cores).  ``library_ms`` times
+the card's HBM rate and the flops over its f32 peak on the CUDA cores
+(what the f32 decode kernel uses), for the f32 forward and backward over
+a third of its dense TF32 peak (split TF32; their rows give the f32
+bound beside, as ``fma_bound_ms``) or, for the bf16 kernels, over its
+dense bf16 peak; every rate is the card's row of the port's table,
+``utils/hardware.PEAKS``.  ``library_ms`` times
 one ``scaled_dot_product_attention`` call on the same inputs (for K2/K3,
 ``torch.autograd.grad`` through it, graph built once; for K4(b), on the
 history gathered beforehand, since it cannot follow block tables), a
@@ -567,13 +567,37 @@ import subprocess
 import sys
 import time
 import traceback
+from typing import Optional
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 on CUDA cores
-BF16_FLOPS_PER_S = 989.4e12  # H100 SXM spec sheet, dense bf16 tensor cores
-TF32_FLOPS_PER_S = 494.7e12  # H100 SXM spec sheet, dense TF32 tensor cores
-# the f32 K2/K3's route: split TF32, three TF32 products for each product
-TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
+# the card's peak rates, set from the port's table (utils/hardware.PEAKS)
+# by set_peaks() before any phase: HBM bytes/s, f32 on the CUDA cores,
+# dense bf16 and TF32 on the tensor cores, and the f32 K1-K3's route,
+# split TF32 (three TF32 products for each product)
+HBM_BYTES_PER_S = F32_FLOPS_PER_S = BF16_FLOPS_PER_S = None
+TF32_FLOPS_PER_S = TF32X3_FLOPS_PER_S = None
+
+
+def set_peaks(torch, name=None) -> None:
+    """The peak rates of card ``name`` (default: this process's card) from
+    ``utils/hardware.PEAKS``; raises for a card the table does not know
+    (no bound or mfu without its peaks)."""
+    global HBM_BYTES_PER_S, F32_FLOPS_PER_S, BF16_FLOPS_PER_S
+    global TF32_FLOPS_PER_S, TF32X3_FLOPS_PER_S
+    from distributeddeeplearning_tpu_torch.utils import hardware
+
+    name = name or torch.cuda.get_device_name(0)
+    peaks = hardware.PEAKS.get(name)
+    if peaks is None:
+        raise RuntimeError(f"no peak rates for {name!r} in utils/hardware.PEAKS")
+    HBM_BYTES_PER_S = peaks["hbm_gbps"] * 1e9
+    F32_FLOPS_PER_S = peaks["f32_flops"]
+    BF16_FLOPS_PER_S = peaks["bf16_flops"]
+    TF32_FLOPS_PER_S = peaks["tf32_flops"]
+    TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
+
+
+def tflops(rate: float) -> str:
+    return f"{rate / 1e12:.1f} TFLOP/s"
 
 K1_TOL = 1e-4  # f32 rounding: sums over <= 576 terms in another order
 K4_TOL = 1e-4
@@ -714,9 +738,11 @@ def timed(phase, *args, **kwargs):
     return out
 
 
-def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
+def bound_ms(nbytes: float, flops: float, flops_per_s: Optional[float] = None):
+    """(the least ms, what bounds it): bytes over the HBM rate, or flops
+    over ``flops_per_s`` (default the f32 CUDA-core peak)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
+    t_ops = flops / (flops_per_s or F32_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1242,12 +1268,13 @@ def teacher_forced_error(torch, params, tokens, prompt_len, geo=None,
     return err, want.float().abs().max().item()
 
 
-def profile_share(torch, fn, steps):
+def profile_share(torch, fn, steps, trace_path=None):
     """(host wall ms per step, CUDA kernel ms per step, top kernels, CUDA-event
     span ms per step) from torch.profiler over ``steps`` calls of ``fn``;
     kernel ms is None when the profiler records no device time.  The span
     covers the same calls on the device (first launch to last, idle gaps
-    included)."""
+    included).  ``trace_path``: the same profile exported there as a
+    chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1269,6 +1296,8 @@ def profile_share(torch, fn, steps):
     ]
     total = sum(ms for _, ms in kernels)
     top = sorted(kernels, key=lambda kv: -kv[1])
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     return wall, (total if kernels else None), top, start.elapsed_time(end) / steps
 
 
@@ -2210,8 +2239,8 @@ def phase_train(torch, np, fa, card, dtype="float32", f32_losses=None):
                                        *state.params["blocks"].values()))
     b, s, d = TRAIN["batch_size"], TRAIN["seq_len"], TRAIN["d_model"]
     flops = 6 * n_params * tokens + 3 * (2 * b * s * s * d) * layers
-    peak, peak_name = ((BF16_FLOPS_PER_S, "989.4 TFLOP/s, the spec-sheet dense bf16 peak")
-                       if bf16 else (F32_FLOPS_PER_S, "67 TFLOP/s f32"))
+    peak, peak_name = ((BF16_FLOPS_PER_S, f"{tflops(BF16_FLOPS_PER_S)}, the dense bf16 peak")
+                       if bf16 else (F32_FLOPS_PER_S, f"{tflops(F32_FLOPS_PER_S)} f32"))
     mfu = flops / p50 / peak
     log(f"[{tag}] {n_params / 1e6:.1f} M params; step p50 {p50 * 1e3:.1f} ms "
         f"(steps 2..{steps}: {[round(x * 1e3, 1) for x in step_s]} ms), "
@@ -2226,10 +2255,14 @@ def phase_train(torch, np, fa, card, dtype="float32", f32_losses=None):
         metrics_fn=lambda lg, lb, loss: {"loss": loss})
     batch = next(transformer._token_batches(b, s, TRAIN["vocab_size"], 42,
                                             b, repeat=False))
-    wall, busy, top, event_ms = profile_share(torch, lambda: step(state, batch), 2)
-    share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
-    log(f"[profile] train step (B=8, S=2048, {dtype}, flash): host wall "
-        f"{wall:.3f} ms, kernel time {share}; {trust_note(busy, event_ms)} on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "train.trace.json")
+        wall, busy, top, event_ms = profile_share(torch, lambda: step(state, batch), 2,
+                                                  trace_path)
+        share = "not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} busy)"
+        log(f"[profile] train step (B=8, S=2048, {dtype}, flash): host wall "
+            f"{wall:.3f} ms, kernel time {share}; {trust_note(busy, event_ms)} on {card}")
+        _roofline_check(trace_path, busy, f"{tag} step", b, card)
     gemms = f"{'bf16' if bf16 else 'f32'} GEMMs (cuBLAS/CUTLASS)"
     bsfx = sfx or "_f32"  # the f32 kernels are named so
     kernels = {f"K1 flash_fwd{bsfx}_kernel": f"flash_fwd{bsfx}_kernel",
@@ -2239,6 +2272,35 @@ def phase_train(torch, np, fa, card, dtype="float32", f32_losses=None):
     del state, step
     torch.cuda.empty_cache()
     return launches, losses
+
+
+#: the port's roofline reader against the profiler's own sums: its
+#: device time a step within this share of key_averages()'s kernel time
+#: (both read the same profile; the reader rounds ms to 2 decimals)
+ROOFLINE_RTOL = 0.01
+
+
+def _roofline_check(trace_path, kernel_ms, what, batch, card):
+    """The port's ``utils.roofline.analyze_trace`` on a torch.profiler
+    chrome trace of 2 steps: its device time a step against the
+    ``key_averages()`` kernel time of the same profile (``kernel_ms``),
+    within ROOFLINE_RTOL; its categories logged."""
+    from distributeddeeplearning_tpu_torch.utils.roofline import analyze_trace
+
+    r = analyze_trace(trace_path, steps=2, global_batch=batch)
+    got = r["device_ms_per_step"]
+    if kernel_ms is None or abs(got - kernel_ms) > ROOFLINE_RTOL * kernel_ms:
+        raise AssertionError(f"[roofline] {what}: analyze_trace {got} ms a step, "
+                             f"key_averages {kernel_ms} ms")
+    cats = {k: (v["time_ms_per_step"], v["time_fraction"])
+            for k, v in r["categories"].items()}
+    log(f"[roofline] {what}: utils.roofline.analyze_trace over the exported trace: "
+        f"device {got} ms a step against key_averages' {kernel_ms:.3f} "
+        f"({abs(got - kernel_ms) / kernel_ms:.2e} apart, tolerance {ROOFLINE_RTOL:g}); "
+        f"{r['device_lanes_in_trace']} device lane(s), busiest share "
+        f"{r['busiest_lane_share']}; categories (ms a step, share) {cats}; HBM GB a "
+        f"step {r['hbm_gb_per_step']} (kernels carry no byte counts), peaks "
+        f"{r['peak_tflops']} TFLOP/s, {r['peak_hbm_gbps']} GB/s on {card}")
 
 
 # ---- head dims 8, 16 and 32 (the reference's small serve and trainer
@@ -3471,9 +3533,9 @@ def _image_line(np, tag, result, step_ms, warmup, peak_gb, card, dtype, image_si
     p50 = float(np.median(step_ms[warmup:]))
     macs = get_model(result.model).forward_macs(image_size)
     flops = 3 * 2 * macs * result.batch_size_per_chip
-    peak, peak_name = ((BF16_FLOPS_PER_S, "989.4 TFLOP/s dense bf16")
+    peak, peak_name = ((BF16_FLOPS_PER_S, f"{tflops(BF16_FLOPS_PER_S)} dense bf16")
                        if dtype == "bfloat16" else
-                       (F32_FLOPS_PER_S, "67 TFLOP/s f32, TF32 off"))
+                       (F32_FLOPS_PER_S, f"{tflops(F32_FLOPS_PER_S)} f32, TF32 off"))
     log(f"[{tag}] img/s a chip {result.img_sec_per_chip_mean:.1f} "
         f"+-{result.img_sec_per_chip_ci95:.1f} (mean +-1.96 sigma over "
         f"{len(result.iter_times_s)} windows; window s "
@@ -3631,7 +3693,7 @@ def phase_resnet(torch, np, card):
     log(f"[resnet] FLOP reckoning (ImageModel.forward_macs): {macs / 1e9:.4f} G "
         f"multiply-adds a forward, {3 * 2 * macs / 1e9:.3f} GFLOP a trained "
         f"image, {flops / 1e12:.4f} TFLOP a batch-64 step; compute bound "
-        f"{flops / BF16_FLOPS_PER_S * 1e3:.3f} ms at 989.4 TFLOP/s; the mean "
+        f"{flops / BF16_FLOPS_PER_S * 1e3:.3f} ms at {tflops(BF16_FLOPS_PER_S)}; the mean "
         f"img/s is mfu {result.img_sec_per_chip_mean * 6 * macs / BF16_FLOPS_PER_S:.4f}")
     if not all(math.isfinite(float(v)) for v in step(state, batch)[1].values()):
         raise AssertionError("[resnet] non-finite metrics after the run")
@@ -3880,7 +3942,7 @@ def phase_vit(torch, np, card):
     log(f"[vit] FLOP reckoning (forward_macs, attention products counted): "
         f"{macs / 1e9:.4f} G multiply-adds a forward, {flops / 1e12:.4f} TFLOP a "
         f"batch-64 step; compute bound {flops / BF16_FLOPS_PER_S * 1e3:.3f} ms at "
-        f"989.4 TFLOP/s, {flops / BF16_FLOPS_PER_S * 1e3 / p50:.1%} of the step p50")
+        f"{tflops(BF16_FLOPS_PER_S)}, {flops / BF16_FLOPS_PER_S * 1e3 / p50:.1%} of the step p50")
     if not all(math.isfinite(float(v)) for v in step(state, batch)[1].values()):
         raise AssertionError("[vit] non-finite metrics after the run")
     _profile_image_step(torch, step, state, batch, "vit-b16 bf16 B=64 224px", card,
@@ -4250,6 +4312,12 @@ def _lm_workload(env_faults, argv, timeout=600):
     return _lm_workload_wait(_lm_workload_start(env_faults, argv), timeout)
 
 
+#: the resilience fit's step FLOPs, the Trainer's probe against the
+#: script's reckoning: both count ViT-B/16's convolution, matrix products
+#: and attention products by their shapes (the CPU tests find them equal)
+MFU_FLOPS_RTOL = 1e-9
+
+
 def phase_resilience(torch, np, fa, card):
     """The trainer's resilience layer on ViT-B/16 with flash (bf16, the
     RESUME batch and steps, SGD momentum, ``skip_nonfinite=True``) through
@@ -4265,7 +4333,10 @@ def phase_resilience(torch, np, fa, card):
     ``supervise(max_restarts=1)``: an emergency generation at 4,
     ``PreemptionError`` in attempt 0, resume from 4, bitwise the clean fit;
     (3) its goodput ledger through ``stitch`` / ``summarize_ledger``: the
-    categories within RESIDUAL_LIMIT_PCT of the wall, no redone step; (4)
+    categories within RESIDUAL_LIMIT_PCT of the wall, no redone step, and
+    its mfu non-null and the script's recomputation from the ledger's
+    FLOPs, steps and wall over ``utils/hardware``'s bf16 peak, the FLOPs
+    the script's own reckoning within MFU_FLOPS_RTOL; (4)
     ``io_error@p=0.3:seed=7`` bitwise the clean fit with the retries
     counted, ``ckpt_torn@2`` (a generation every 3) and
     ``ckpt_corrupt@3:mode=truncate`` (every 2): ``restore`` falls back to
@@ -4300,7 +4371,7 @@ def phase_resilience(torch, np, fa, card):
     from distributeddeeplearning_tpu_torch.train.loop import Trainer, TrainerConfig
     from distributeddeeplearning_tpu_torch.train.resilience import supervise
     from distributeddeeplearning_tpu_torch.train.step import build_train_step
-    from distributeddeeplearning_tpu_torch.utils import faults
+    from distributeddeeplearning_tpu_torch.utils import faults, hardware
 
     b, steps, every = RESUME["batch"], RESUME["steps"], RESUME["every"]
     host = get_model("vit-b16").init(torch.Generator().manual_seed(1),
@@ -4462,6 +4533,25 @@ def phase_resilience(torch, np, fa, card):
         if (not led2["residual_under_limit"] or led2["counts"]["steps_redone"] != 0
                 or led2["counts"]["restarts"] != 1):
             raise AssertionError(f"[resilience] goodput ledger: {led2}")
+        # (3) its MFU: the Trainer's probe (utils.hardware.step_flops) over
+        # the card's peak from utils/hardware.PEAKS, recomputed here
+        merged2 = goodput.stitch(gp2)
+        port_flops = merged2["flops_per_step"]
+        script_flops = 3 * 2 * get_model("vit-b16").forward_macs(224) * b
+        peak = hardware.peak_bf16_flops()
+        want_mfu = (None if not port_flops else port_flops * led2["counts"]["steps"]
+                    / merged2["total_wall_s"] / (peak * 1))
+        log(f"[resilience] mfu of the preempted run: {led2['mfu']} (the ledger's) against "
+            f"{want_mfu} = flops_per_step x {led2['counts']['steps']} steps / "
+            f"{merged2['total_wall_s']:.4f} s / ({tflops(peak)} x 1 card); "
+            f"step_flops (FlopCounterMode on meta, 3 x the forward) {port_flops} against "
+            f"the script's 3 x 2 x forward_macs x {b} = {script_flops} (tolerance "
+            f"{MFU_FLOPS_RTOL:g} relative: both count the same products by shape) on {card}")
+        if (led2["mfu"] is None or want_mfu is None
+                or abs(led2["mfu"] - want_mfu) > 1e-9 * want_mfu
+                or abs(port_flops - script_flops) > MFU_FLOPS_RTOL * script_flops):
+            raise AssertionError(f"[resilience] mfu {led2['mfu']} vs {want_mfu}; "
+                                 f"flops {port_flops} vs {script_flops}")
         out.update(emergency_s=emergency, goodput=led2)
 
         # (4) storage faults
@@ -4902,6 +4992,7 @@ def _dp_worker(job, rank, world, port, args, results):
         distributed.initialize(force=True, coordinator_address=f"127.0.0.1:{port}",
                                num_processes=world, process_id=rank, backend="gloo",
                                device="cuda:0")
+        set_peaks(torch)
         try:
             out = globals()[job](torch, np, rank, world, *args)
         finally:
@@ -7146,6 +7237,15 @@ MP_EVAL_BATCHES = 2  # a rank's eval pass: min(train_examples, 4 x global) / 2
 MP_PARITY = dict(num_layers=2, seq_len=512, rows=4, steps=2)
 MP_LOSS_RTOL = 1e-5
 MP_GRAD_TOL = 1e-5  # of each leaf's largest |g|
+#: (d): (b) on data=2 x tensor=2 over two slices, rank r reporting node
+#: MP_SLICE_NODES[r] (torchrun's GROUP_RANK): ranks 0 and 2 on node 0
+MP_SLICE_NAME = "data2-tensor2-slices"
+MP_SLICE_NODES = (0, 1, 0, 1)
+#: (c): the bf16 step after a restore on fsdp=4 against one process's
+#: after a restore of the same generation, on the same global batch: the
+#: same bf16 products over 1 row a rank instead of 4 in one GEMM, which
+#: cuBLAS may sum in another order (a bf16 ulp is 2^-8 of the value)
+MP_RESHARD_LOSS_RTOL = 1e-2
 MP_NORM_RTOL = 1e-6
 MP_REPLICATED = ("pos", "blocks/ln1", "blocks/ln2")
 # the collectives of one train step on a rank of tensor=2 x fsdp=2 (data 1),
@@ -7363,6 +7463,103 @@ def _mp_expected_bytes(torch, mesh, layout):
                for k, shape in shapes.items())
 
 
+def _mp_parity_entry(torch, np, mesh, clip, ref):
+    """(b) on ``mesh`` against the one-process reference ``ref``: losses,
+    norms, f32 K1-K3 launches, their gaps to ``ref`` and the worst
+    gradient leaf's."""
+    losses, grads, norms, counts = _mp_parity_fit(torch, np, mesh, clip)
+    gaps = {k: ((g - ref["grads"][k]).abs().max() / ref["grads"][k].abs().max()).item()
+            for k, g in grads.items()}
+    worst = max(gaps, key=gaps.get)
+    entry = {
+        "losses": losses, "norms": norms, "counts": counts,
+        "loss_rel": [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])],
+        "norm_rel": [abs(a - b) / abs(b) for a, b in zip(norms, ref["norms"])],
+        "grad_gap": gaps[worst], "grad_worst": worst,
+        "grad_keys": sorted(grads) == sorted(ref["grads"])}
+    del grads
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _mp_restored_step(torch, np, mesh, save_dir):
+    """Phase 31(c): a fresh LM at MP_WIDTH laid out on ``mesh`` (None: one
+    process) restored from ``save_dir``'s newest generation, which (a)
+    saved over ``tensor=2 x fsdp=2``, then one bf16 flash step on the
+    first global batch of 2 x MP_BATCH rows.  Returns the restored step,
+    whether the gathered params and AdamW moments are bitwise the
+    generation's global arrays, the step's bf16 K1-K3 launches and their
+    shapes, its loss, and the restore and step walls."""
+    from distributeddeeplearning_tpu_torch.models import pipelined_transformer as pt
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.parallel import ParamLayout, shard_batch
+    from distributeddeeplearning_tpu_torch.parallel.sharding import named_leaves
+    from distributeddeeplearning_tpu_torch.train import checkpoint as tckpt
+    from distributeddeeplearning_tpu_torch.train.schedule import constant_schedule
+    from distributeddeeplearning_tpu_torch.train.state import (
+        TrainState, adamw, shard_state, tree_map)
+    from distributeddeeplearning_tpu_torch.train.step import build_train_step
+
+    geo = dict(MP_WIDTH)
+    seq = geo.pop("seq_len")
+    params = pt.init_params(torch.Generator().manual_seed(DP_SEED + 1), max_len=seq,
+                            device="cuda:0", **geo)
+    sharded = mesh is not None and mesh.size > 1
+    layout = (ParamLayout.from_rules(mesh, params, pt.train_rules(mesh.shape["tensor"]),
+                                     pt.LOGICAL_AXES) if sharded else None)
+    attention_fn = fa.make_flash_attention(mesh=mesh, causal=True) if sharded else None
+
+    def apply_fn(p, tokens, **_):
+        p = tree_map(lambda a: a.to(torch.bfloat16), p)
+        return pt.forward(p, tokens, num_heads=TRAIN["num_heads"], attention="flash",
+                          attention_fn=attention_fn, layout=layout).float()
+
+    state = TrainState.create(params=params, apply_fn=apply_fn,
+                              tx=adamw(constant_schedule(DP_PEAK_LR)))
+    kw = {}
+    if sharded:
+        shard_state(state, layout)
+        kw = dict(rules=pt.train_rules(mesh.shape["tensor"]), logical_axes=pt.LOGICAL_AXES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, at = tckpt.Checkpointer(save_dir, mesh=mesh if sharded else None).restore(state)
+    restore_s = time.perf_counter() - t0
+    trees = {"params": state.params, "mu": state.opt_state["mu"],
+             "nu": state.opt_state["nu"]}
+    got = dict(named_leaves({k: layout.gather(v) for k, v in trees.items()}
+                            if sharded else trees))
+    item = {k: tckpt.read_item(os.path.join(save_dir, str(at), k))
+            for k in ("params", "state")}
+
+    def saved(name):
+        top, rest = name.split("/", 1)
+        key = "".join(f"['{p}']" for p in rest.split("/"))
+        return (item["params"][key] if top == "params"
+                else item["state"][f"['opt_state']['{top}']{key}"])
+
+    bitwise = all(torch.equal(t.detach().cpu(), saved(k)) for k, t in got.items())
+    del got
+    step = build_train_step(
+        state, mesh=mesh if sharded else None, compute_dtype=torch.bfloat16,
+        loss_fn=lambda lg, lb, label_smoothing=0.0: pt.next_token_loss(lg, lb),
+        metrics_fn=lambda lg, lb, loss: {"loss": loss}, **kw)
+    batch = _mp_batches(np, 2 * MP_BATCH, seq, 1)[0]
+    for c in FA_COUNTERS:
+        setattr(fa, c, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _LaunchShapes(fa) as shapes:
+        state, m = step(state, shard_batch(mesh, batch) if sharded else batch)
+        loss = m["loss"].item()
+    step_s = time.perf_counter() - t0
+    counts = {c: getattr(fa, c) for c in FA_COUNTERS}
+    del state, step
+    torch.cuda.empty_cache()
+    return {"step": at, "bitwise": bitwise, "counts": counts, "plain": shapes.plain,
+            "shapes": sorted(set(shapes.shapes)), "loss": loss, "restore_s": restore_s,
+            "step_s": step_s, "leaves": len(item["params"])}
+
+
 def _mp_rank(torch, np, rank, world, ref_path, clip, save_dir):
     """Rank ``rank`` of phase 31: (b)'s three meshes against the
     one-process reference in ``ref_path``, then (a), the workload at
@@ -7376,19 +7573,21 @@ def _mp_rank(torch, np, rank, world, ref_path, clip, save_dir):
     out = {"parity": {}}
     t0 = time.perf_counter()
     for name, spec in MP_MESHES:
-        mesh = create_mesh(MeshSpec(**spec))
-        losses, grads, norms, counts = _mp_parity_fit(torch, np, mesh, clip)
-        gaps = {k: ((g - ref["grads"][k]).abs().max() / ref["grads"][k].abs().max()).item()
-                for k, g in grads.items()}
-        worst = max(gaps, key=gaps.get)
-        out["parity"][name] = {
-            "losses": losses, "norms": norms, "counts": counts,
-            "loss_rel": [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])],
-            "norm_rel": [abs(a - b) / abs(b) for a, b in zip(norms, ref["norms"])],
-            "grad_gap": gaps[worst], "grad_worst": worst,
-            "grad_keys": sorted(grads) == sorted(ref["grads"])}
-        del grads
-        torch.cuda.empty_cache()
+        out["parity"][name] = _mp_parity_entry(
+            torch, np, create_mesh(MeshSpec(**spec)), clip, ref)
+    # (d) data=2 x tensor=2 over two slices, the nodes reported 0, 1, 0, 1
+    os.environ["GROUP_RANK"] = str(MP_SLICE_NODES[rank])
+    try:
+        mesh = create_mesh(MeshSpec(data=2, tensor=2), num_slices=2)
+    finally:
+        del os.environ["GROUP_RANK"]
+    with _LaunchShapes(fa) as shapes:
+        entry = _mp_parity_entry(torch, np, mesh, clip, ref)
+    entry.update(shapes=sorted(set(shapes.shapes)), plain=shapes.plain,
+                 order=mesh.order, data_index=mesh.data_index(),
+                 tensor_nodes=[MP_SLICE_NODES[r] for r in mesh.axis_ranks("tensor")],
+                 data_nodes=[MP_SLICE_NODES[r] for r in mesh.axis_ranks("data_group")])
+    out["parity"][MP_SLICE_NAME] = entry
     out["parity_s"] = time.perf_counter() - t0
 
     # (a) the workload at tensor=2 x fsdp=2 -----------------------------------
@@ -7447,6 +7646,10 @@ def _mp_rank(torch, np, rank, world, ref_path, clip, save_dir):
             torch.equal(restored[k], saved[k]) for k in saved),
         "losses": built[0].losses, "counts": counts2,
         "wall_s": time.perf_counter() - t0}
+    del state, fit, built
+    torch.cuda.empty_cache()
+    # (c) the generation restored on fsdp=4, then one step there
+    out["reshard"] = _mp_restored_step(torch, np, create_mesh(MeshSpec(fsdp=4)), save_dir)
     return out
 
 
@@ -7472,8 +7675,9 @@ def phase_model_parallel_train(torch, np, F, fa, card):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ranks = run_ranks("_mp_rank", MP_RANKS, *_mp_rank_args(torch, refs, tmp))
+        one_restore = _mp_restored_step(torch, np, None, os.path.join(tmp, "mp-ckpt"))
     log(f"[time] phase_model_parallel_train (ranks): {time.perf_counter() - t0:.1f} s")
-    return _mp_checks(torch, np, F, fa, card, ranks, refs)
+    return _mp_checks(torch, np, F, fa, card, ranks, refs, one_restore)
 
 
 def _mp_references(torch, np, fa, card):
@@ -7517,9 +7721,34 @@ def _mp_rank_args(torch, refs, tmp):
     return ref_path, refs["clip"], os.path.join(tmp, "mp-ckpt")
 
 
-def _mp_checks(torch, np, F, fa, card, ranks, refs):
-    """Phase 31's checks of the ranks' results (its docstring), then the
-    bf16 K1-K3 at a rank's shape; returns what the phase returns."""
+def _mp_reshard_check(got, one, where, rows, card):
+    """(c)'s checks of one restore-then-step: the generation's step, its
+    arrays bitwise, bf16 K1-K3 launched once a layer at ``rows`` rows and
+    all 12 heads, and the loss within MP_RESHARD_LOSS_RTOL of one
+    process's from the same generation on the same global batch."""
+    layers = MP_WIDTH["num_layers"]
+    want = {c: 0 for c in FA_COUNTERS}
+    want.update({"launches_bf16": layers, "launches_dq_bf16": layers,
+                 "launches_dkv_bf16": layers})
+    rel = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+    log(f"[mp-reshard] {where}: restored generation {got['step']} (saved on tensor=2 x "
+        f"fsdp=2), {got['leaves']} params leaves and their moments bitwise: "
+        f"{got['bitwise']}; restore {got['restore_s']:.2f} s; one step {got['step_s']:.2f} s, "
+        f"loss {got['loss']:.5f} against one process's {one['loss']:.5f} (|d| / loss "
+        f"{rel:.2e}, tolerance {MP_RESHARD_LOSS_RTOL:g}); bf16 K1/K2/K3 launches "
+        f"{[got['counts'][c] for c in ('launches_bf16', 'launches_dq_bf16', 'launches_dkv_bf16')]}"
+        f" at {got['shapes']} (B, H) on {card}")
+    if (not got["bitwise"] or got["step"] != MP_STEPS + 1 or got["counts"] != want
+            or got["plain"] or rel > MP_RESHARD_LOSS_RTOL or not math.isfinite(got["loss"])
+            or got["shapes"] != [(k, rows, TRAIN["num_heads"]) for k in ("dkv", "dq", "fwd")]):
+        raise AssertionError(f"[mp-reshard] {where}: {got}")
+
+
+def _mp_checks(torch, np, F, fa, card, ranks, refs, one_restore):
+    """Phase 31's checks of the ranks' results (its docstring), with
+    ``one_restore``, (c)'s restore of the same generation in one process;
+    then the bf16 K1-K3 at a rank's shape; returns what the phase
+    returns."""
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa_mod
 
     layers = MP_WIDTH["num_layers"]
@@ -7550,6 +7779,17 @@ def _mp_checks(torch, np, F, fa, card, ranks, refs):
                                      f"{got['counts']}, expected {want}")
             launches_f32[f"mp_parity_{name}_rank{rank}"] = {
                 k: got["counts"][v] for k, v in f32.items()}
+        # (d): the slice boundary outermost on data, K1-K3 at a rank's shape
+        got = out["parity"][MP_SLICE_NAME]
+        rows = MP_PARITY["rows"] // 2
+        log(f"[mp-slices] rank {rank} on node {MP_SLICE_NODES[rank]}: data=2 x tensor=2 "
+            f"over 2 slices, mesh order {got['order']}, data shard {got['data_index']}; "
+            f"its tensor group's nodes {got['tensor_nodes']}, its data group's "
+            f"{got['data_nodes']}; f32 K1-K3 launch shapes {got['shapes']} (B, H) on {card}")
+        if (len(set(got["tensor_nodes"])) != 1 or set(got["data_nodes"]) != {0, 1}
+                or tuple(got["order"] or ()) != (0, 2, 1, 3) or got["plain"]
+                or got["shapes"] != [(k, rows, heads) for k in ("dkv", "dq", "fwd")]):
+            raise AssertionError(f"[mp-slices] rank {rank}: {got}")
     # (a) --------------------------------------------------------------------
     a0 = ranks[0]["a"]
     for rank, out in enumerate(ranks):
@@ -7602,6 +7842,14 @@ def _mp_checks(torch, np, F, fa, card, ranks, refs):
         launches_bf16[f"mp_train_rank{rank}"] = {k: a["counts"][v] for k, v in bf16.items()}
         launches_bf16[f"mp_resume_rank{rank}"] = {k: res["counts"][v]
                                                   for k, v in bf16.items()}
+        # (c): the generation restored on fsdp=4 and one step there
+        rs = out["reshard"]
+        _mp_reshard_check(rs, one_restore, f"rank {rank} on fsdp=4", MP_BATCH // 2, card)
+        launches_bf16[f"mp_reshard_rank{rank}"] = {k: rs["counts"][v]
+                                                   for k, v in bf16.items()}
+    _mp_reshard_check(one_restore, one_restore, "one process", 2 * MP_BATCH, card)
+    launches_bf16["mp_reshard_one_process"] = {k: one_restore["counts"][v]
+                                               for k, v in bf16.items()}
     log(f"[mp-parity] (b) on the ranks: {ranks[0]['parity_s']:.1f} s")
     per_rank = _flash_at(torch, F, fa_mod, TRAIN["d_model"] // TRAIN["num_heads"],
                          heads, MP_BATCH, TRAIN["seq_len"], torch.bfloat16, card)
@@ -8112,6 +8360,83 @@ def _bmp_references(torch, np, fa, card):
             "one_bytes": one_bytes}
 
 
+def _bmp_restored_eval(torch, np, save_dir):
+    """Phase 32(e): bert-base as (a)'s workload builds it, in one process,
+    restored from ``save_dir``'s newest generation (saved over ``tensor=2 x
+    fsdp=2`` by (a)'s resume), then one eval batch of the workload's eval
+    stream (data shard 0's 8 rows) through ``build_eval_step`` at bf16 with
+    flash.  Returns the restored step, whether the params and AdamW
+    moments are bitwise the generation's, the metrics, the bias K1
+    launches and shapes, and the restore wall."""
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.parallel.sharding import named_leaves
+    from distributeddeeplearning_tpu_torch.train import checkpoint as tckpt
+    from distributeddeeplearning_tpu_torch.train.schedule import constant_schedule
+    from distributeddeeplearning_tpu_torch.train.state import TrainState, adamw
+    from distributeddeeplearning_tpu_torch.train.step import build_eval_step
+    from distributeddeeplearning_tpu_torch.workloads import bert
+
+    net = get_model("bert-base", num_classes=2, vocab_size=30522,
+                    dropout_rate=BMP_MAIN["dropout_rate"], dtype=torch.bfloat16,
+                    attention_fn=fa.make_flash_attention(), num_experts=0)
+
+    def apply_fn(p, ids, *, train, generator=None, attention_mask=None,
+                 token_type_ids=None):
+        return net(p, ids, train=train, attention_mask=attention_mask,
+                   token_type_ids=token_type_ids, generator=generator)
+
+    state = TrainState.create(
+        params=net.init_params(torch.Generator().manual_seed(DP_SEED + 1), device="cuda:0"),
+        apply_fn=apply_fn, tx=adamw(constant_schedule(1e-5)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, at = tckpt.Checkpointer(save_dir).restore(state)
+    restore_s = time.perf_counter() - t0
+    item = {k: tckpt.read_item(os.path.join(save_dir, str(at), k))
+            for k in ("params", "state")}
+    got = dict(named_leaves({"params": state.params, "mu": state.opt_state["mu"],
+                             "nu": state.opt_state["nu"]}))
+
+    def saved(name):
+        top, rest = name.split("/", 1)
+        key = "".join(f"['{p}']" for p in rest.split("/"))
+        return (item["params"][key] if top == "params"
+                else item["state"][f"['opt_state']['{top}']{key}"])
+
+    bitwise = all(torch.equal(t.detach().cpu(), saved(k)) for k, t in got.items())
+    step = build_eval_step(state, compute_dtype=torch.bfloat16)
+    batch = next(bert._batches(BMP_MAIN["batch_size"], BMP_MAIN["seq_len"], 30522, 2,
+                               BMP_MAIN["seed"], BMP_MAIN["train_examples"],
+                               is_training=False))
+    for c in FA_COUNTERS:
+        setattr(fa, c, 0)
+    with _LaunchShapes(fa) as shapes:
+        metrics = {k: float(v) for k, v in step(state, batch).items()}
+    counts = {c: getattr(fa, c) for c in FA_COUNTERS}
+    del state, step
+    torch.cuda.empty_cache()
+    return {"step": at, "bitwise": bitwise, "leaves": len(item["params"]),
+            "metrics": metrics, "counts": counts, "shapes": sorted(set(shapes.shapes)),
+            "plain": shapes.plain, "restore_s": restore_s}
+
+
+def _bmp_restore_check(got, card):
+    """(e)'s checks: the generation's step, its arrays bitwise, finite
+    metrics, the bf16 bias K1 once a layer at 8 rows and 12 heads."""
+    want = {c: 0 for c in FA_COUNTERS}
+    want["launches_bias_bf16"] = BMP_LAYERS
+    log(f"[bert-reshard] one process: restored generation {got['step']} (saved on "
+        f"tensor=2 x fsdp=2), {got['leaves']} params leaves and their moments bitwise: "
+        f"{got['bitwise']}; restore {got['restore_s']:.2f} s; one eval batch "
+        f"{ {k: round(v, 5) for k, v in got['metrics'].items()} }; bias K1 launches "
+        f"{got['counts']['launches_bias_bf16']} at {got['shapes']} (B, H) on {card}")
+    if (not got["bitwise"] or got["step"] != BMP_STEPS + 1 or got["counts"] != want
+            or got["plain"] or not all(math.isfinite(v) for v in got["metrics"].values())
+            or got["shapes"] != [("fwd", BMP_MAIN["batch_size"], 2 * BMP_HEADS)]):
+        raise AssertionError(f"[bert-reshard] {got}")
+
+
 def _bmp_rank_args(torch, refs, tmp):
     """``_bmp_rank``'s arguments: the references saved under ``tmp``, the
     clips and the checkpoint directory."""
@@ -8291,10 +8616,18 @@ def phase_model_axes(torch, np, F, fa, card):
         ranks = run_ranks("_model_axes_rank", MP_RANKS,
                           _mp_rank_args(torch, mp_refs, tmp),
                           _bmp_rank_args(torch, bmp_refs, tmp))
-    log(f"[time] phase_model_axes (ranks, phases 31 and 32): "
-        f"{time.perf_counter() - t0:.1f} s")
+        log(f"[time] phase_model_axes (ranks, phases 31 and 32): "
+            f"{time.perf_counter() - t0:.1f} s")
+        # the ranks' generations restored in this process: 31(c), 32(e)
+        t1 = time.perf_counter()
+        one_restore = _mp_restored_step(torch, np, None, os.path.join(tmp, "mp-ckpt"))
+        bert_restore = _bmp_restored_eval(torch, np, os.path.join(tmp, "bmp-ckpt"))
+        log(f"[time] phase_model_axes (one-process restores): "
+            f"{time.perf_counter() - t1:.1f} s")
     _log_bmp_ranks([r["bert"] for r in ranks], t0)
-    return (_mp_checks(torch, np, F, fa, card, [r["lm"] for r in ranks], mp_refs),
+    _bmp_restore_check(bert_restore, card)
+    return (_mp_checks(torch, np, F, fa, card, [r["lm"] for r in ranks], mp_refs,
+                       one_restore),
             _bmp_checks(torch, np, F, fa, card, [r["bert"] for r in ranks], bmp_refs))
 
 
@@ -8322,6 +8655,7 @@ def main() -> int:
     early = None
     try:
         resolve_device("cuda")  # TF32 off: the parity contract is f32
+        set_peaks(torch)
         t_start = time.perf_counter()
         card = card_line()
         log(f"[card] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")

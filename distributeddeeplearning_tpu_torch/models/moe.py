@@ -141,16 +141,19 @@ class Routing(NamedTuple):
 
 
 @contextlib.contextmanager
-def routing_over(group):
+def routing_over(group, index: Optional[int] = None):
     """Route every layer inside the context over the global batch of the
     data-parallel ``group`` (module docstring); None routes this rank's
-    rows alone.  Contexts nest, the innermost holds."""
-    outer = getattr(_LOCAL, "group", None)
-    _LOCAL.group = group
+    rows alone.  ``index`` is this rank's place in the global batch's row
+    order (``Mesh.data_index``; None: its rank in ``group``, which a
+    multi-slice mesh may order otherwise).  Contexts nest, the innermost
+    holds."""
+    outer = getattr(_LOCAL, "group", None), getattr(_LOCAL, "index", None)
+    _LOCAL.group, _LOCAL.index = group, index
     try:
         yield
     finally:
-        _LOCAL.group = outer
+        _LOCAL.group, _LOCAL.index = outer
 
 
 def routing_group():
@@ -170,7 +173,7 @@ def _choices(gate_idx, num_experts: int) -> torch.Tensor:
 
 def route(router_kernel: torch.Tensor, xf: torch.Tensor, num_experts: int,
           k: int, cap: Optional[int] = None, *, capacity_factor: float = 1.25,
-          group=None) -> Routing:
+          group=None, index: Optional[int] = None) -> Routing:
     """The router and the slot assignment of ``xf`` [N, H] (ref
     ``models/moe.py:60-92``): slot by slot, each in token order, an expert
     keeping the first ``cap`` tokens of its queue (``cap`` None: the
@@ -178,24 +181,27 @@ def route(router_kernel: torch.Tensor, xf: torch.Tensor, num_experts: int,
     Over ``group`` (:func:`routing_over`) the tokens routed are the global
     batch's: one all-gather brings every rank's ``[k, E]`` choice counts,
     token count and probability sums (float64: the counts stay exact),
-    this rank's tokens queue after those of earlier ranks, and the
-    capacity and the counts are the global batch's."""
+    this rank's tokens queue after those of the ranks before ``index``
+    in the global batch's row order (None: ranks before this one in
+    ``group``), and the capacity and the counts are the global batch's."""
     probs = torch.softmax(torch.matmul(xf.float(), router_kernel.float()), dim=-1)
     gate_vals, gate_idx = top_k(probs, k)
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
     mine = _choices(gate_idx, num_experts)
     n, earlier, total, probs_sum = xf.shape[0], torch.zeros_like(mine), mine, None
     if group is not None:
+        if index is None:
+            index = collectives.group_rank(group)
         payload = torch.cat([mine.reshape(-1).double(),
-                             torch.full((1,), float(n), dtype=torch.float64,
-                                        device=xf.device),
+                             torch.tensor([float(n), float(index)], dtype=torch.float64,
+                                          device=xf.device),
                              probs.detach().sum(0).double()])
-        every = collectives.all_gather(payload, group, tiled=False)  # [R, kE + 1 + E]
+        every = collectives.all_gather(payload, group, tiled=False)  # [R, kE + 2 + E]
         ke = k * num_experts
         counts = every[:, :ke].round().long().view(-1, k, num_experts)
-        earlier = counts[:collectives.group_rank(group)].sum(0)
+        earlier = counts[every[:, ke + 1] < index].sum(0)
         total, n = counts.sum(0), int(every[:, ke].sum().item())
-        probs_sum = every[:, ke + 1:].sum(0).float()
+        probs_sum = every[:, ke + 2:].sum(0).float()
     if cap is None:
         cap = capacity(n, num_experts, k, capacity_factor)
     combine = torch.zeros((xf.shape[0], num_experts, cap), dtype=torch.float32,
@@ -247,7 +253,7 @@ def moe_mlp(p: Params, x: torch.Tensor, *, num_experts: int,
     if expert is not None:
         xf = collectives.copy_to_group(xf, expert.group)
     r = route(p["router"]["kernel"], xf, e, k, capacity_factor=capacity_factor,
-              group=routing_group())
+              group=routing_group(), index=getattr(_LOCAL, "index", None))
     mine = p["w_in"].shape[0]
     first = 0 if expert is None else expert.index * mine
     combine = r.combine[:, first:first + mine]

@@ -25,7 +25,11 @@ second of a training run.
 - **the residual is a gate**: ``total_wall - sum(categories)`` must stay
   under :data:`RESIDUAL_LIMIT_PCT` (2%): an accounting bug surfaces as a
   red gate, never as silently optimistic goodput;
-- **no MFU column**: see :func:`summarize_ledger`.
+- **run-level MFU**: the Trainer probes a step's model FLOPs once
+  (``utils.hardware.step_flops``) into :meth:`GoodputLedger.set_flops_per_step`,
+  and :func:`summarize_ledger` divides them by the card's peak
+  (``utils.hardware``); omitted, with its reason, off the card or where
+  the FLOPs are unknown.
 """
 
 from __future__ import annotations
@@ -173,6 +177,12 @@ class GoodputLedger:
         self._resumed_step = int(step)
         if self._last_step < step:
             self._last_step = int(step)
+
+    def set_flops_per_step(self, flops: Optional[float]) -> None:
+        """Model FLOPs of one train step (``utils.hardware.step_flops`` or
+        an analytic count): the numerator of run-level MFU.  None = MFU
+        omitted."""
+        self._flops_per_step = flops
 
     # -- the hot path ------------------------------------------------------
     def mark(self, category: str, *, step: Optional[int] = None) -> None:
@@ -385,13 +395,17 @@ def _sum_notes(segments: Iterable[Dict[str, Any]]) -> Dict[str, float]:
 def summarize_ledger(
     merged: Dict[str, Any],
     *,
+    flops_per_step: Optional[float] = None,
+    device=None,
+    n_chips: Optional[int] = None,
     residual_limit_pct: float = RESIDUAL_LIMIT_PCT,
 ) -> Dict[str, Any]:
-    """Category seconds and shares, the goodput fraction and the residual
-    gate verdict of a stitched ledger.  MFU is left out (``None`` and a
-    reason), as the reference leaves it out wherever it knows no peak
-    rate: the port has no peak-rate table (``utils/hardware.py``, ROADMAP
-    A7), and its steps have no cost model to read FLOPs from."""
+    """Category seconds and shares, the goodput fraction, the residual
+    gate verdict of a stitched ledger, and run-level MFU (ref
+    ``summarize_ledger``): ``flops_per_step`` (default: the ledger's)
+    times the steps over the whole wall, over the card's peak
+    (``utils.hardware.mfu``; ``device`` and ``n_chips`` as there), or
+    the reason it was omitted."""
     total = float(merged["total_wall_s"])
     seconds = {c: round(float(merged["seconds"].get(c, 0.0)), 6)
                for c in CATEGORIES}
@@ -401,9 +415,17 @@ def summarize_ledger(
     counts = dict(merged.get("counts", {}))
     counts["segments"] = int(merged.get("segments", 1))
     counts["restarts"] = int(merged.get("restarts", 0))
-    mfu_reason = ("no peak-rate table in the port (utils/hardware.py, "
-                  "ROADMAP A7) — MFU omitted" if merged.get("flops_per_step")
-                  else "flops_per_step unknown")
+    flops = flops_per_step if flops_per_step is not None else merged.get(
+        "flops_per_step")
+    mfu_value: Optional[float] = None
+    mfu_reason: Optional[str] = "flops_per_step unknown"
+    if flops and total > 0 and counts.get("steps", 0) > 0:
+        from distributeddeeplearning_tpu_torch.utils.hardware import mfu as _mfu
+
+        mfu_value = _mfu(float(flops), counts["steps"], total, device=device,
+                         n_chips=n_chips)
+        mfu_reason = (None if mfu_value is not None else
+                      "no card with a known peak (utils/hardware.PEAKS) — MFU omitted")
     summary = {
         "total_wall_s": round(total, 4),
         "seconds": seconds,
@@ -419,10 +441,11 @@ def summarize_ledger(
         "unaccounted_pct": round(unaccounted_pct, 4),
         "residual_limit_pct": residual_limit_pct,
         "residual_under_limit": unaccounted_pct <= residual_limit_pct,
-        "mfu": None,
+        "mfu": mfu_value,
         "notes": merged.get("notes", {}),
-        "mfu_omitted_reason": mfu_reason,
     }
+    if mfu_value is None:
+        summary["mfu_omitted_reason"] = mfu_reason
     return summary
 
 

@@ -24,7 +24,9 @@ tensors the same code runs the kernels' plain versions:
 return the log-sum-exp in nats) and
 :func:`_dense_attention_bwd` (the backward recomputed from the saved lse).
 Both round where the Pallas kernels round, so a bf16 plain version differs
-from the kernels only in the order of its sums.  There is no fallback
+from the kernels only in the order of its sums.  ``meta`` tensors (shapes
+only: ``utils.hardware.step_flops`` counts a model's FLOPs on them) take
+the plain forward too.  There is no fallback
 between kernel and plain version and no switch: the tensor's device
 decides, and a CUDA tensor the kernels cannot take raises.
 
@@ -421,7 +423,7 @@ def _launch_bwd(q, k, v, do, lse, delta, *, causal: bool, bias=None):
 def _forward(q, k, v, bias, *, causal: bool):
     if q.device.type == "cuda":
         return _launch(q, k, v, causal=causal, bias=bias)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: shapes only (utils.hardware)
         return _dense_attention(q, k, v, bias, causal=causal)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 

@@ -58,23 +58,33 @@ is no pre-manifest legacy layout.
 Data parallelism (``mesh=`` a process mesh of more than one rank): every
 rank calls ``save``, ``wait`` and ``restore`` together.  Rank 0 decides
 whether a step is saved and writes the generation; the other ranks write
-nothing.  A state in the comm layout (``parallel/comms.py``) holds
-per-rank blocks (:class:`..parallel.comms.RankShards`: weight-update
-shards and error-feedback residuals) that differ from rank to rank: a
-save all-gathers them to their global vectors (the reference's global
-arrays) and records their world as ``state/['comm_world']``; a restore
-on the same world size hands each rank its own block; a restore on
-another world size raises (the reference re-lays-out through orbax;
-ROADMAP A5.4).  A state laid out over model axes (``TrainState.layout``,
-fsdp and tensor slices of the params and of the optimizer moments that
-mirror them) is saved the same way: a save gathers each split leaf to
-its global array, in the reference's layout (``qkv``'s columns in its
-q, k, v order), and records the mesh's axis sizes as
+nothing.  A state laid out over model axes (``TrainState.layout``,
+fsdp, tensor and expert slices of the params and of the optimizer
+moments that mirror them) is saved as global arrays: a save gathers each
+split leaf to its global array, in the reference's layout (``qkv``'s
+columns in its q, k, v order), and records the mesh's axis sizes as
 ``state/['mesh']``, so the generation holds the arrays a one-process fit
-would; a restore on the same mesh hands each rank its slice, and one on
-another mesh raises (A5.4).  ``wait`` ends with a barrier, so a restore
-reads landed generations, and only rank 0 evicts, after every rank has
-read.
+would.  A restore hands each rank the slice of each global array that
+the template's ``ParamLayout`` asks for, whatever mesh or world saved it
+(the reference restores into the template's shardings through orbax):
+another mesh of the same world, another world, or one process, and a
+sharded template from a one-process generation.
+
+A state in the comm layout (``parallel/comms.py``) holds per-rank blocks
+(:class:`..parallel.comms.RankShards`: weight-update shards and
+error-feedback residuals) that differ from rank to rank: a save
+all-gathers them to their global vectors (the reference's global
+arrays) and records their world as ``state/['comm_world']``.  A restore
+hands each rank its block of each global vector for the template's
+world, which re-blocks it on another world where the global vectors
+keep their lengths: weight-update shards whose buckets pad to the same
+length on both worlds.  Where a length differs, the reference's orbax
+read fails and it deletes the generation; the port refuses (a
+``ValueError`` that names the padded length, or the residuals' world:
+an error-feedback residual is ``world`` blocks of a bucket) and keeps
+the generation, whose data is good.  ``wait`` ends with a barrier, so a
+restore reads landed generations, and only rank 0 evicts, after every
+rank has read.
 """
 
 from __future__ import annotations
@@ -791,28 +801,40 @@ class Checkpointer:
 
     @staticmethod
     def _check_world(step: int, want, items) -> None:
-        """Raise when the generation's rank blocks come from another world,
-        or its slices from another mesh, than the template's (never a
-        fall-back: the data is good)."""
+        """Raise where the generation's rank blocks cannot be re-blocked
+        for the template's world (module docstring; never a fall-back:
+        the data is good).  Slices over model axes restore on any mesh."""
         have = items["state"].get("['comm_world']")
         have = None if have is None else int(have)
         mine = want["state"].get("comm_world")
-        if have != mine:
+        if have == mine:
+            return
+        if have is None or mine is None:
             raise ValueError(
-                f"checkpoint generation {step} holds the comm layout of a world "
-                f"of {have} ranks and this state that of {mine}: restoring on "
-                "another world size is not supported in the port (the "
-                "reference re-lays-out through orbax; ROADMAP A5.4)")
-        have = items["state"].get("['mesh']")
-        have = None if have is None else dict(zip(AXIS_ORDER, have.tolist()))
-        mine = want["state"].get("mesh")
-        mine = None if mine is None else dict(zip(AXIS_ORDER, mine.tolist()))
-        if have != mine:
-            raise ValueError(
-                f"checkpoint generation {step} was saved sharded over the mesh "
-                f"{have} and this state is laid out over {mine}: restoring on "
-                "another mesh is not supported in the port (the reference "
-                "re-lays-out through orbax; ROADMAP A5.4)")
+                f"checkpoint generation {step} "
+                + ("holds no comm layout" if have is None else
+                   f"holds the comm layout of a world of {have} ranks")
+                + " and this state "
+                + ("is in none" if mine is None else
+                   f"is in the comm layout of a world of {mine}")
+                + ": the optimizer state's trees differ")
+        for name, tree in want.items():
+            for key, dst in flatten(tree):
+                src = items[name].get(key)
+                if not isinstance(dst, _Block) or src is None or src.shape == dst.shape:
+                    continue
+                if key.startswith("['opt_state']['residual']"):
+                    raise ValueError(
+                        f"checkpoint generation {step} holds error-feedback "
+                        f"residuals of a world of {have} ranks ({key}: "
+                        f"{src.shape[0]} elements) and this state's world of {mine} "
+                        f"needs {dst.shape[0]}: a residual is one block a rank, "
+                        "which another world cannot take")
+                raise ValueError(
+                    f"checkpoint generation {step} holds weight-update shards "
+                    f"padded to {src.shape[0]} elements on a world of {have} ranks "
+                    f"({key}) and this state's buckets pad to {dst.shape[0]} on a "
+                    f"world of {mine}: buckets pad to a multiple of the world")
 
     def _match(self, step: int, want, items):
         """(template tensor, read tensor) pairs, or None when a leaf is

@@ -45,10 +45,12 @@ all-gather and weights each batch by its rows.  A mesh with model axes
 same batches, and a checkpoint holds the global arrays
 (:mod:`.checkpoint`).
 
-Two departures from the reference: the scalars go to
-``<tensorboard_dir>/scalars.jsonl`` as ``{"tag", "value", "step"}`` rows
-(tensorboard is not installed where the port runs), and the goodput
-ledger has no MFU column (:func:`..obs.goodput.summarize_ledger`).
+The scalars go to ``<tensorboard_dir>/scalars.jsonl`` as ``{"tag",
+"value", "step"}`` rows (tensorboard is not installed where the port
+runs: a departure from the reference).  With the goodput ledger on and a
+card of known peak, the first step's model FLOPs are counted once
+(``utils.hardware.step_flops``, as the reference's ``.lower()`` probe)
+for the ledger's MFU column.
 """
 
 from __future__ import annotations
@@ -299,6 +301,32 @@ class Trainer:
             if config.checkpoint_dir else None)
         # no-op marks unless goodput_path is set; one segment per fit attempt
         self.goodput = GoodputLedger(config.goodput_path)
+        self._flops_probed = False
+
+    def _maybe_measure_flops(self, state, batch) -> None:
+        """The MFU numerator, once (ref ``_maybe_measure_flops``): the
+        model FLOPs of one step of the global batch (this rank's count
+        times the data shards), fed into the goodput ledger.  Only tried
+        with the ledger on and a card of known peak; any failure (a
+        forward with collectives over model axes cannot be counted on
+        ``meta``) leaves MFU omitted, never a crash."""
+        if self._flops_probed or not self.goodput.enabled:
+            return
+        self._flops_probed = True
+        try:
+            from distributeddeeplearning_tpu_torch.utils.hardware import (
+                peak_bf16_flops,
+                step_flops,
+            )
+
+            if peak_bf16_flops() is None:
+                return
+            flops = step_flops(state, batch)
+            if flops is not None and self.mesh is not None:
+                flops *= data_parallel_size(self.mesh)
+            self.goodput.set_flops_per_step(flops)
+        except Exception:  # noqa: BLE001 — MFU is an optional column
+            pass
 
     def fit(self, state, train_batches,
             eval_batches_factory: Optional[Callable[[], Iterator]] = None):
@@ -515,6 +543,8 @@ class Trainer:
                 if plan:
                     batch = plan.poison_batch(true_step, batch)
                 with trace.span("train/step", step=true_step):
+                    if global_step == 0:
+                        self._maybe_measure_flops(state, batch)
                     state, metrics = self.train_step(state, batch)
                 self._obs_state = state  # one attribute store, no walk
                 anomalous = False

@@ -111,6 +111,7 @@ from distributeddeeplearning_tpu_torch.train.state import (
     tree_leaves,
     tree_zip,
 )
+from distributeddeeplearning_tpu_torch.utils import metrics as _metrics
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -142,11 +143,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
 
 
 def topk_correct(logits: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Tensor:
-    """Fraction of rows whose label is among the top-k logits."""
-    k = min(k, logits.shape[-1])
-    top = torch.topk(logits.float(), k, dim=-1).indices
-    labels = torch.as_tensor(labels, device=logits.device).long()
-    return (top == labels[:, None]).any(dim=-1).float().mean()
+    """Fraction of rows whose label is among the top-k logits (ref
+    ``train/step.py``): ``utils.metrics.topk_correct``'s count over the
+    rows."""
+    return _metrics.topk_correct(logits, labels, k) / logits.shape[0]
 
 
 def classification_metrics(logits, labels, loss) -> Metrics:
@@ -341,6 +341,7 @@ def build_train_step(
     group = None if mesh is None else mesh.data_group
     world = 1 if mesh is None else data_parallel_size(mesh)
     salt = () if mesh is None or mesh.group is None else (mesh.data_index(),)
+    index = None if mesh is None else mesh.data_index()  # this rank's rows' place
     sharded = layout is not None and layout.sharded
     if sharded:
         axes = [layout.axes(n) for n, _ in named_leaves(state_example.params)]
@@ -354,7 +355,7 @@ def build_train_step(
     def loss_and_grads(state, stats, inputs, labels, extras, generator):
         # the global batch's moments and routing, in the backward's
         # recomputation of a checkpointed layer too
-        with _convnet.global_batch_moments(group), moe.routing_over(group):
+        with _convnet.global_batch_moments(group), moe.routing_over(group, index):
             outputs, new_stats, aux = _forward(state, state.params, inputs,
                                                train=True, generator=generator,
                                                extras=extras, batch_stats=stats)
@@ -668,6 +669,7 @@ def build_eval_step(
     require_ported(mesh, "build_eval_step")
     _lay_out(state_example, mesh, rules, logical_axes, "build_eval_step")
     group = None if mesh is None else mesh.data_group
+    index = None if mesh is None else mesh.data_index()
 
     @torch.no_grad()
     def step(state: TrainState, batch) -> Metrics:
@@ -677,7 +679,7 @@ def build_eval_step(
             inputs = input_transform(inputs)
         inputs = _to_device(inputs, device, compute_dtype)
         labels = _to_device(batch["label"], device, compute_dtype)
-        with moe.routing_over(group):
+        with moe.routing_over(group, index):
             logits, _, _ = _forward(state, state.params, inputs, train=False,
                                     generator=None, extras=_extras(batch, device))
         metrics = metrics_fn(logits, labels, loss_fn(logits, labels))

@@ -49,7 +49,6 @@ def _refuse(**given) -> None:
         "tfrecords": "the TFRecord text reader and data/text.py (ROADMAP A7e)",
         "attention": "sequence-parallel attention, ring and ulysses (ROADMAP A7d)",
         "seq": "sequence parallelism (ROADMAP A7d)",
-        "num_slices": "multi-slice data parallelism (ROADMAP A5.3)",
         "sp_block_k": "ring attention's blocked loop (ROADMAP A7d)",
     }
     for name, bad in given.items():
@@ -171,8 +170,7 @@ def main(
         raise ValueError(f"unknown data_format {data_format!r}")
     _refuse(tfrecords=data_format == "tfrecords",
             attention=attention in ("ring", "ulysses", "ulysses-flash"),
-            seq=seq != 1, num_slices=num_slices != 1,
-            sp_block_k=sp_block_k is not None)
+            seq=seq != 1, sp_block_k=sp_block_k is not None)
     # the reference's checks and words (ref workloads/bert.py:150-155)
     if expert > 1 and num_experts == 0:
         raise ValueError("expert-axis sharding needs --num_experts > 0")
@@ -181,7 +179,8 @@ def main(
             f"num_experts {num_experts} not divisible by expert axis {expert}")
     ctx = initialize(force=distributed, device=device)
     dev = ctx.device
-    mesh = create_mesh(MeshSpec(fsdp=fsdp, tensor=tensor, expert=expert))
+    mesh = create_mesh(MeshSpec(fsdp=fsdp, tensor=tensor, expert=expert),
+                       num_slices=num_slices)
     dp_mesh = mesh if mesh.group is not None else None
     model_axes = fsdp > 1 or tensor > 1 or expert > 1
     if attention == "auto":

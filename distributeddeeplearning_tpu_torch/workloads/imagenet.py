@@ -25,10 +25,10 @@ batches cross to the card as uint8 and are normalized there
 the Trainer a step-indexed factory, so a resumed fit continues the stream
 from its step without replaying it.  ``distributed=True`` trains
 data-parallel over a ``torch.distributed`` group, one process a device
-(each process reads its own host shard of the files); ``num_slices`` > 1
-raises (ROADMAP A5).  Weights are drawn from
-``torch.Generator().manual_seed(seed)``, so they differ from the
-reference's ``jax.random`` draws.
+(each process reads its own host shard of the files), over
+``num_slices`` nodes with ``num_slices`` > 1 (``parallel.mesh``).
+Weights are drawn from ``torch.Generator().manual_seed(seed)``, so they
+differ from the reference's ``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -219,14 +219,9 @@ def main(
         build_train_step,
     )
 
-    if num_slices != 1:
-        raise NotImplementedError(
-            "imagenet workload: num_slices > 1 (multi-slice data "
-            "parallelism) is not ported yet; it belongs to ROADMAP A5"
-        )
     ctx = initialize(force=distributed, device=device)
     dev = ctx.device
-    mesh = create_mesh(MeshSpec())
+    mesh = create_mesh(MeshSpec(), num_slices=num_slices)
     dp_mesh = mesh if mesh.group is not None else None
     world = mesh.size
     global_batch = batch_size * world

@@ -32,7 +32,8 @@ same global weights and keeps its slice.
 Arguments keep the reference's names and defaults, plus ``device``
 (``"cuda"`` unless asked for the CPU).  What the slice does not take
 raises, naming where it comes: pipeline and sequence parallelism and
-ring attention (A7), multi-slice meshes (A5.3).
+ring attention (A7).  ``num_slices`` builds a multi-slice mesh
+(``parallel.mesh.create_mesh``: the data axis spans the nodes).
 ``save_filepath`` and ``checkpoint_every_steps`` checkpoint and resume
 through the trainer's :class:`..train.checkpoint.Checkpointer` (with a
 ``save_filepath`` the preemption guard is on: SIGTERM or an injected
@@ -86,7 +87,6 @@ def _refuse(**given) -> None:
     where = {
         "pipe": "pipeline parallelism (ROADMAP A7)",
         "seq": "sequence parallelism (ROADMAP A7)",
-        "num_slices": "multi-slice data parallelism (ROADMAP A5.3)",
         "sp_block_k": "ring attention (ROADMAP A7)",
         "scan_unroll": "nothing: it is an XLA scan-unroll compile hint with "
                        "no eager counterpart",
@@ -212,7 +212,7 @@ def main(
                 "SHARD norm — pass --grad_clip_norm 0 with "
                 "--weight_update_sharding"
             )
-    _refuse(pipe=pipe != 1, seq=seq != 1, num_slices=num_slices != 1, sp_block_k=sp_block_k is not None,
+    _refuse(pipe=pipe != 1, seq=seq != 1, sp_block_k=sp_block_k is not None,
             scan_unroll=scan_unroll != 1)
     if attention not in ATTENTIONS:
         raise NotImplementedError(
@@ -221,7 +221,7 @@ def main(
         )
     ctx = initialize(force=distributed, device=device)
     dev = ctx.device
-    mesh = create_mesh(MeshSpec(fsdp=fsdp, tensor=tensor))
+    mesh = create_mesh(MeshSpec(fsdp=fsdp, tensor=tensor), num_slices=num_slices)
     dp_mesh = mesh if mesh.group is not None else None
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
     data_shards = data_parallel_size(mesh)

@@ -41,6 +41,7 @@ def main() -> int:
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
 
     resolve_device("cuda")
+    cs.set_peaks(torch)  # bounds and mfu over the card's peaks
     make = fa.make_flash_attention
 
     def make_unmasked(*a, **k):

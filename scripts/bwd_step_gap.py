@@ -101,6 +101,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bwd_step_gap: no CUDA device", file=sys.stderr)
         return 1
+    cs.set_peaks(torch)  # bounds over the card's peaks (utils/hardware.PEAKS)
     sys.path.insert(0, os.path.abspath(args.root))
     from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
         next_token_loss,

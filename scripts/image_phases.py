@@ -29,7 +29,9 @@ raw-cache resume) and ``phase_model_parallel_train`` (tensor-parallel and
 FSDP training of the LM over four gloo ranks sharing the card) and
 ``phase_bert_model_parallel`` (BERT and MoE BERT over the fsdp, tensor
 and expert axes on four gloo ranks sharing the card) and
-``phase_model_axes`` (the last two with their ranks in one spawn), each as
+``phase_model_axes`` (the last two with their ranks in one spawn) and
+``phase_train`` (the LM at the reference configuration in f32, its
+profiled step's roofline through ``utils.roofline``), each as
 ``chip_smoke.py`` runs it, after the card's ``nvidia-smi`` name and power
 limit.  Exits
 nonzero if a phase fails.  Run from the repository's root; needs a CUDA
@@ -47,7 +49,7 @@ PHASES = ("phase_resnet", "phase_resnet_parity", "phase_image_short", "phase_vit
           "phase_vit_flash", "phase_resume", "phase_resilience", "phase_moe_bert",
           "phase_data_parallel", "phase_tensor_parallel", "phase_serve_robust",
           "phase_fleet", "phase_imagenet", "phase_model_parallel_train",
-          "phase_bert_model_parallel", "phase_model_axes")
+          "phase_bert_model_parallel", "phase_model_axes", "phase_train")
 
 
 def main(argv) -> int:
@@ -63,6 +65,7 @@ def main(argv) -> int:
     from distributeddeeplearning_tpu_torch.ops import flash_decode as fd
 
     resolve_device("cuda")
+    chip_smoke.set_peaks(torch)  # bounds and mfu over the card's peaks
     card = chip_smoke.card_line()
     chip_smoke.log(f"[card] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
     chip_smoke.log(f"[build] {_build.build_all()}")

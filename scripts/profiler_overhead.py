@@ -32,6 +32,7 @@ def main() -> int:
     from distributeddeeplearning_tpu_torch import resolve_device
 
     resolve_device("cuda")
+    cs.set_peaks(torch)  # bounds and mfu over the card's peaks
     card = cs.card_line()
     kw = dict(model=args.model, num_warmup_batches=3, num_iters=5,
               num_batches_per_iter=10)

@@ -163,6 +163,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_decode: no CUDA device", file=sys.stderr)
         return 1
+    cs.set_peaks(torch)  # bounds over the card's peaks (utils/hardware.PEAKS)
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, os.path.abspath(args.root))
     from distributeddeeplearning_tpu_torch.ops import flash_decode as fd

@@ -289,6 +289,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_flash: no CUDA device", file=sys.stderr)
         return 1
+    cs.set_peaks(torch)  # bounds over the card's peaks (utils/hardware.PEAKS)
     sys.path.insert(0, os.path.abspath(args.root))
     from distributeddeeplearning_tpu_torch.ops import _build
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa

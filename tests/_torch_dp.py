@@ -362,7 +362,12 @@ def collectives_probe(rank, world):
         [adj], group, comm_dtype=torch.bfloat16, residuals=[torch.zeros(8)],
         shards=world)
     pending = col.reduce_scatter(x, group, async_op=True)
+    from distributeddeeplearning_tpu_torch.utils.metrics import pmean_metrics
+
+    metrics = pmean_metrics({"loss": torch.tensor(1.0 + rank),
+                             "top1": torch.tensor(0.25 * (rank + 1))}, group)
     return {
+        "pmean_metrics": {k: float(v) for k, v in metrics.items()},
         "psum": {"a": summed["a"].numpy(), "n": float(summed["n"])},
         "pmean": {"a": mean["a"].numpy(), "t": [float(v) for v in mean["t"]]},
         "gather": col.all_gather(x, group).numpy(),
@@ -732,16 +737,50 @@ def _nest(flat):
     return out
 
 
-def model_parallel(rank, world, params_np, batches, clip, attention, cases, directory):
-    """Every mesh of ``cases`` (``MeshSpec`` keywords) in turn over these
-    ranks: :func:`mp_fit`'s results, keyed by the case's name, with this
-    rank's data shard and tensor coordinate; the first case checkpoints
-    into ``directory``.  Then the refusal of restoring that generation on
-    the next case's mesh."""
+def restore_then_step(mesh, params_np, batches, clip, attention, ckpt_dir):
+    """A fresh LM template on ``mesh`` (None: one process) restored from
+    ``ckpt_dir``'s newest generation, whatever mesh saved it: the global
+    arrays it holds then (params, moments, count), and one step on
+    ``batches[0]`` from it (loss, global params after)."""
+    from distributeddeeplearning_tpu_torch.parallel import shard_batch
+    from distributeddeeplearning_tpu_torch.train import checkpoint as tckpt
+
+    state, step, _ = mp_state(params_np, mesh, clip, attention)
+    state, at = tckpt.Checkpointer(ckpt_dir, mesh=mesh).restore(state)
+    out = {"step": at, "state_step": state.step, "params": _global(state, state.params),
+           "moments": {k: _global(state, state.opt_state[k]) for k in ("mu", "nu")},
+           "count": int(state.opt_state["count"])}
+    state, m = step(state, shard_batch(mesh, batches[0]) if mesh else batches[0])
+    out.update(loss=float(m["loss"]), params1=_global(state, state.params))
+    return out
+
+
+def slice_mesh(rank, spec, num_slices, nodes):
+    """``create_mesh(MeshSpec(**spec), num_slices=)`` with this rank's node
+    reported as ``nodes[rank]`` (torchrun's ``GROUP_RANK``)."""
     import os
 
     from distributeddeeplearning_tpu_torch.parallel import MeshSpec, create_mesh
-    from distributeddeeplearning_tpu_torch.train import checkpoint as tckpt
+
+    os.environ["GROUP_RANK"] = str(nodes[rank])
+    try:
+        return create_mesh(MeshSpec(**spec), num_slices=num_slices)
+    finally:
+        del os.environ["GROUP_RANK"]
+
+
+def model_parallel(rank, world, params_np, batches, clip, attention, cases, directory,
+                   one_dir=None):
+    """Every mesh of ``cases`` (``MeshSpec`` keywords) in turn over these
+    ranks: :func:`mp_fit`'s results, keyed by the case's name, with this
+    rank's data shard and tensor coordinate; the first case checkpoints
+    into ``directory``.  Then that generation restored and stepped on the
+    other cases' meshes, the one-process generation in ``one_dir`` on the
+    first case's, and :func:`mp_fit` on ``data=2 x tensor=2`` over two
+    slices with the nodes reported 0, 1, 0, 1."""
+    import os
+
+    from distributeddeeplearning_tpu_torch.parallel import MeshSpec, create_mesh
 
     out = {}
     meshes = {}
@@ -751,14 +790,63 @@ def model_parallel(rank, world, params_np, batches, clip, attention, cases, dire
                      os.path.join(directory, name) if i == 0 else None)
         got.update(shard=mesh.data_index(), tensor_index=mesh.axis_index("tensor"))
         out[name] = got
-    first, second = cases[0][0], cases[1][0]
-    fresh, _, _ = mp_state(params_np, meshes[second], clip, attention)
-    try:
-        tckpt.Checkpointer(os.path.join(directory, first),
-                           mesh=meshes[second]).restore(fresh)
-        out["other_mesh"] = None
-    except ValueError as exc:
-        out["other_mesh"] = str(exc)
+    first = cases[0][0]
+    out["restores"] = {
+        name: restore_then_step(meshes[name], params_np, batches, clip, attention,
+                                os.path.join(directory, first))
+        for name, _ in cases[1:]}
+    if one_dir is not None:
+        out["restores"]["from-one-process"] = restore_then_step(
+            meshes[first], params_np, batches, clip, attention, one_dir)
+    mesh = slice_mesh(rank, {"data": 2, "tensor": 2}, 2, (0, 1, 0, 1))
+    got = mp_fit(mesh, params_np, batches, clip, attention)
+    got.update(shard=mesh.data_index(), tensor_index=mesh.axis_index("tensor"),
+               order=mesh.order, tensor_ranks=mesh.axis_ranks("tensor"),
+               data_ranks=mesh.axis_ranks("data_group"))
+    out["slices"] = got
+    out["comm"] = comm_saves(params_np, batches, os.path.join(directory, "comm"))
+    return out
+
+
+#: the comm layouts saved on four ranks for a restore in one process: the
+#: tiny LM's 37632 parameters in buckets of 4096 elements (a multiple of
+#: 4: the padded length is the same on one rank), of 4097 (padded to 4100
+#: on four ranks, not on one), and the bf16 wire (a residual a rank)
+COMM_SAVES = {"wus": dict(weight_update_sharding=True, bucket_mb=4096 * 4 / 2 ** 20),
+              "wus-ragged": dict(weight_update_sharding=True, bucket_mb=4097 * 4 / 2 ** 20),
+              "bf16": dict(comm_dtype="bf16", bucket_mb=4096 * 4 / 2 ** 20)}
+
+
+def comm_state(params_np, mesh, kw):
+    """The tiny LM's state in the comm layout of ``kw`` on ``mesh``, and
+    its ``comm_overlap`` step."""
+    from distributeddeeplearning_tpu_torch.train import step as tstep
+
+    state = lm_state(params_np)
+    loss_fn, metrics_fn = lm_hooks()
+    step = tstep.build_train_step(state, mesh=mesh, compute_dtype=torch.float32,
+                                  comm_overlap=True, loss_fn=loss_fn,
+                                  metrics_fn=metrics_fn, **kw)
+    return step.prepare_state(state), step
+
+
+def comm_saves(params_np, batches, directory):
+    """One step of each of :data:`COMM_SAVES` over this group (pure data
+    parallelism), saved under ``directory/<name>``."""
+    import os
+
+    from distributeddeeplearning_tpu_torch.parallel import shard_batch
+    from distributeddeeplearning_tpu_torch.train import checkpoint as tckpt
+
+    mesh = _mesh()
+    out = {}
+    for name, kw in COMM_SAVES.items():
+        state, step = comm_state(params_np, mesh, kw)
+        state, _ = step(state, shard_batch(mesh, batches[0]))
+        ckpt = tckpt.Checkpointer(os.path.join(directory, name), mesh=mesh)
+        ckpt.save(state.step, state)
+        ckpt.wait()
+        out[name] = step.layout.bucket_bounds
     return out
 
 
@@ -792,16 +880,20 @@ def workloads_mp(directory, geometries):
                      "step": state.step, "resumed_step": resumed.step,
                      "images": fit.total_images,
                      "layout": None if state.layout is None else dict(state.layout.specs)}
+    # two slices split contiguously (no node reported): the mesh of
+    # data=2 x tensor=2, so the first step's loss is that geometry's
+    _, sliced = tw.main(epochs=1, steps_per_epoch=1, tensor=2, num_slices=2, **MP_MAIN)
+    out["slices"] = {"first_loss": sliced.final_train_metrics["loss"]}
     return out
 
 
 def model_parallel_all(rank, world, params_np, batches, clip, attention, cases,
-                       directory, geometries):
+                       directory, geometries, one_dir=None):
     """:func:`model_parallel` then :func:`workloads_mp`, in one spawn."""
     import os
 
     out = model_parallel(rank, world, params_np, batches, clip, attention, cases,
-                         os.path.join(directory, "steps"))
+                         os.path.join(directory, "steps"), one_dir)
     out["main"] = workloads_mp(directory, geometries)
     return out
 
@@ -972,15 +1064,22 @@ def bert_workloads_mp(directory, geometries):
                      "eval": fit.final_eval_metrics["loss"],
                      "step": state.step, "resumed_step": resumed.step,
                      "layout": dict(state.layout.specs)}
+    # over two slices split contiguously, and over one: the same mesh
+    out["slices"] = {
+        n: twbert.main(epochs=1, steps_per_epoch=1, tensor=2, num_slices=n,
+                       **BERT_MAIN)[1].final_train_metrics["loss"] for n in (1, 2)}
     return out
 
 
 def bert_model_parallel(rank, world, bert_np, moe_np, batches, clips, cases, directory,
-                        geometries):
+                        geometries, slices_capacity=None):
     """Every case ``(name, MeshSpec keywords, experts)`` in turn over these
     ranks: :func:`bert_mp_fit`'s results by name, with this rank's data
     shard; the first case checkpoints into ``directory``.  Then
-    :func:`bert_workloads_mp`."""
+    :func:`bert_workloads_mp`, and with ``slices_capacity``
+    :func:`moe_dp_routing` at that capacity on ``data=4`` over two slices
+    with the nodes reported 0, 1, 0, 1 (data shards 0, 2, 1, 3 on ranks
+    0..3)."""
     import os
 
     from distributeddeeplearning_tpu_torch.parallel import MeshSpec, create_mesh
@@ -994,14 +1093,18 @@ def bert_model_parallel(rank, world, bert_np, moe_np, batches, clips, cases, dir
         got.update(shard=mesh.data_index(), expert_index=mesh.axis_index("expert"))
         out[name] = got
     out["main"] = bert_workloads_mp(directory, geometries)
+    if slices_capacity is not None:
+        out["slices"] = moe_dp_routing(rank, world, moe_np, batches, slices_capacity,
+                                       mesh=slice_mesh(rank, {"data": 4}, 2, (0, 1, 0, 1)))
     return out
 
 
-def moe_dp_routing(rank, world, params_np, batches, capacity_factor):
+def moe_dp_routing(rank, world, params_np, batches, capacity_factor, mesh=None):
     """TINY MoE BERT's implicit data-parallel step over this group (pure
-    data parallelism), at ``capacity_factor``: each step's loss and, for the
-    first, every MoE layer's choices on this rank's rows, kept counts and
-    load-balance term."""
+    data parallelism; ``mesh``, default the world's), at
+    ``capacity_factor``: each step's loss and, for the first, every MoE
+    layer's choices on this rank's rows, kept counts and load-balance
+    term, and this rank's data shard."""
     from distributeddeeplearning_tpu_torch.models import get_model
     from distributeddeeplearning_tpu_torch.models import bert as tbert
     from distributeddeeplearning_tpu_torch.parallel import shard_batch
@@ -1009,7 +1112,7 @@ def moe_dp_routing(rank, world, params_np, batches, capacity_factor):
     from distributeddeeplearning_tpu_torch.train import state as tstate
     from distributeddeeplearning_tpu_torch.train import step as tstep
 
-    mesh = _mesh()
+    mesh = mesh or _mesh()
     net = get_model("bert-base", dtype=torch.float32, num_experts=4,
                     moe_capacity_factor=capacity_factor, **MP_BERT)
 
@@ -1022,7 +1125,7 @@ def moe_dp_routing(rank, world, params_np, batches, capacity_factor):
         params=tbert.params_from_numpy(params_np, device="cpu"), apply_fn=apply_fn,
         tx=tstate.adamw(tsched.constant_schedule(MP_LR), weight_decay=0.01))
     step = tstep.build_train_step(state, mesh=mesh, compute_dtype=torch.float32)
-    out = {"losses": []}
+    out = {"losses": [], "shard": mesh.data_index()}
     for i, batch in enumerate(batches):
         with _RouteLog() as log:
             state, m = step(state, shard_batch(mesh, batch))

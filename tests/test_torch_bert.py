@@ -444,9 +444,10 @@ def test_workload_main_at_its_default_dtype_with_dropout(tmp_path):
     assert state.params["layer0"]["attention_ln"]["scale"].dtype == torch.float32
 
 
-# the port takes fsdp, tensor and expert: at a world of one they raise the
-# mesh's error (two ranks asked of one), and expert without experts the
-# reference's ValueError; what it still refuses names its ROADMAP item
+# the port takes fsdp, tensor, expert and num_slices: at a world of one
+# they raise the mesh's error (two ranks asked of one, a data axis of one
+# over two slices), and expert without experts the reference's
+# ValueError; what it still refuses names its ROADMAP item
 MESH_OF_TWO = "not divisible by fixed axes product 2"
 
 
@@ -459,7 +460,7 @@ MESH_OF_TWO = "not divisible by fixed axes product 2"
     ({"tensor": 2}, MESH_OF_TWO),
     ({"seq": 2}, "A7"),
     ({"expert": 2}, "num_experts"),
-    ({"num_slices": 2}, "A5"),
+    ({"num_slices": 2}, "data axis 1 not divisible by num_slices 2"),
     ({"num_experts": 4, "expert": 2}, MESH_OF_TWO),
 ])
 def test_workload_refuses_what_the_slice_does_not_take(kw, what):

@@ -226,7 +226,7 @@ def ranks(reference, tmp_path_factory):
     clips = {False: reference[0]["clip"], True: reference[EXPERTS]["clip"]}
     out = _torch_dp.run_ranks(_torch_dp.bert_model_parallel, 4, _params_np(0),
                               _params_np(EXPERTS), _batches(), clips, CASES,
-                              str(directory), GEOMETRIES, timeout=240)
+                              str(directory), GEOMETRIES, C8_CAPACITY, timeout=240)
     return {"ranks": out, "dir": directory}
 
 
@@ -360,7 +360,7 @@ def test_the_forward_reads_its_splits_from_the_layout(sizes, rules, experts, mat
     ({"seq": 2}, NotImplementedError, "A7d"),
     ({"attention": "ring"}, NotImplementedError, "A7d"),
     ({"sp_block_k": 4}, NotImplementedError, "A7d"),
-    ({"num_slices": 2}, NotImplementedError, "A5.3"),
+    ({"num_slices": 2}, ValueError, "data axis 1 not divisible by num_slices 2"),
 ])
 def test_the_workload_checks_its_axes_as_the_reference(kw, exc, match):
     """Before any process group: the reference's expert checks in its
@@ -369,7 +369,10 @@ def test_the_workload_checks_its_axes_as_the_reference(kw, exc, match):
     base = dict(epochs=1, steps_per_epoch=1, batch_size=1, seq_len=16, device="cpu")
     with pytest.raises(exc, match=match):
         tw.main(**{**base, **kw})
-    if exc is ValueError:
+    if "num_slices" in kw:  # the reference's words on one device
+        with pytest.raises(ValueError, match=match):
+            jcreate_mesh(JMeshSpec(), devices=jax.devices()[:1], num_slices=2)
+    elif exc is ValueError:
         with pytest.raises(ValueError, match=match):
             jwork.main(**{k: v for k, v in {**base, **kw}.items() if k != "device"})
 
@@ -438,6 +441,47 @@ def test_moe_routing_under_data_parallelism_is_the_global_batchs(c8_reference):
         assert _rel(got["aux"][0], ref["aux"]) <= REF_LOSS_RTOL
         for g, w in zip(got["losses"], ref["losses"]):
             assert _rel(g, w) <= REF_LOSS_RTOL, (got["losses"], ref["losses"])
+
+
+def test_moe_routing_on_a_permuted_multi_slice_mesh_is_the_global_batchs(
+        ranks, c8_reference):
+    """C8 on ``data=4`` over two slices, the nodes reported 0, 1, 0, 1: the
+    mesh puts ranks 0..3 on data shards 0, 2, 1, 3 (not their ranks'
+    order), and each rank's tokens still queue after those of the shards
+    before it: its choices are its shard's rows of the reference's global
+    choices, its kept counts, load-balance term and losses the
+    reference's (its implicit step on its own multi-slice mesh gives the
+    same losses)."""
+    ref = c8_reference
+    mesh = jcreate_mesh(JMeshSpec(), num_slices=2)
+    state = _jstate(_jnet(EXPERTS, moe_capacity_factor=C8_CAPACITY), _params_np(EXPERTS),
+                    jstate.adamw(optax.constant_schedule(_torch_dp.MP_LR),
+                                 weight_decay=0.01))
+    step = jstep.build_train_step(mesh, state, compute_dtype=jnp.float32)
+    losses = []
+    for batch in _batches():
+        state, m = step(state, jshard_batch(mesh, batch))
+        losses.append(float(m["loss"]))
+    rows = ROWS * SEQ // 4
+    for rank, got in enumerate(ranks["ranks"]):
+        case = got["slices"]
+        shard = (0, 2, 1, 3)[rank]
+        assert case["shard"] == shard
+        (gate_idx, kept), = case["routes"]
+        np.testing.assert_array_equal(gate_idx, ref["gate_idx"][shard * rows:(shard + 1) * rows])
+        np.testing.assert_array_equal(kept, ref["kept"])
+        assert _rel(case["aux"][0], ref["aux"]) <= REF_LOSS_RTOL
+        for g, w, v in zip(case["losses"], ref["losses"], losses):
+            assert _rel(g, w) <= REF_LOSS_RTOL and _rel(g, v) <= REF_LOSS_RTOL
+
+
+def test_the_workload_takes_num_slices(ranks):
+    """``workloads.bert.main(tensor=2, num_slices=2)`` on the four ranks:
+    two slices split contiguously (no node reported) are the one-slice
+    mesh, so the first step's loss is bitwise the same."""
+    for got in ranks["ranks"]:
+        sl = got["main"]["slices"]
+        assert np.isfinite(sl[2]) and sl[2] == sl[1]
 
 
 # -- four ranks --------------------------------------------------------------------------

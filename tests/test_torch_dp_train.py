@@ -229,7 +229,8 @@ def test_a_two_rank_comm_state_resumes_bitwise(tmp_path):
     # the ranks' blocks differ (they are shards), the params do not
     assert any(a.tobytes() != b.tobytes() for a, b in zip(
         ranks[0]["whole"]["residual"], ranks[1]["whole"]["residual"]))
-    # restoring the 2-rank layout into a 1-rank one raises, naming the worlds
+    # restoring the 2-rank layout into a 1-rank one raises, naming the
+    # residuals' world and the template's (a residual is one block a rank)
     state = _torch_dp.lm_state(params)
     loss_fn, metrics_fn = _torch_dp.lm_hooks()
     step = tstep.build_train_step(state, compute_dtype=torch.float32,
@@ -239,7 +240,8 @@ def test_a_two_rank_comm_state_resumes_bitwise(tmp_path):
     template = step.prepare_state(state)
     ck = tckpt.Checkpointer(str(tmp_path / "ck"))
     steps = ck.all_steps()
-    with pytest.raises(ValueError, match="world of 2 ranks and this state that of 1"):
+    with pytest.raises(ValueError, match="error-feedback residuals of a world of 2 "
+                                         r"ranks .* this state's world of 1"):
         ck.restore(template)
     assert ck.all_steps() == steps  # nothing evicted
 

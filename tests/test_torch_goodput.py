@@ -120,6 +120,49 @@ def test_each_stitch_reads_the_other_packages_file(tmp_path, monkeypatch):
     assert strip(a) == strip(b)
 
 
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+@pytest.mark.parametrize("flops_in", ["ledger", "argument"])
+def test_summarize_ledger_gives_the_references_mfu(tmp_path, monkeypatch, flops_in):
+    """With a step's FLOPs (set on the ledger with ``set_flops_per_step``,
+    or passed in) and a card of known peak, the port's summary carries the
+    reference's MFU for the same merged ledger: the same formula, over
+    each package's own H100 peak (the port's 989.4 TFLOP/s from its
+    table, the reference's 989), so the two differ by that ratio alone.
+    Off the card it is omitted, with a reason."""
+    from types import SimpleNamespace
+
+    flops = 3.2e12
+    clock = FakeClock()
+    monkeypatch.setattr(tgood, "time", clock)
+    for module in (tgood,):
+        ledger = module.GoodputLedger(str(tmp_path / "g.jsonl"))
+        ledger.begin()
+        ledger.fresh_start()
+        if flops_in == "ledger":
+            ledger.set_flops_per_step(flops)
+        for step in (1, 2, 3, 4):
+            clock.tick(0.5)
+            ledger.mark_step(step)
+        ledger.end("completed")
+    merged = tgood.stitch(str(tmp_path / "g.jsonl"))
+    assert merged["flops_per_step"] == (flops if flops_in == "ledger" else None)
+    kw = {} if flops_in == "ledger" else {"flops_per_step": flops}
+    got = tgood.summarize_ledger(merged, device=H100, n_chips=1, **kw)
+    want = jgood.summarize_ledger(merged, flops_per_step=flops, n_chips=1,
+                                  device=SimpleNamespace(device_kind=H100))
+    assert want["mfu"] is not None and got["mfu"] is not None
+    assert got["mfu"] * 989.4e12 == pytest.approx(want["mfu"] * 989e12, rel=1e-12)
+    assert got["mfu"] == pytest.approx(flops * 4 / merged["total_wall_s"] / 989.4e12,
+                                       rel=1e-12)
+    assert "mfu_omitted_reason" not in got
+    strip = lambda m: {k: v for k, v in m.items() if k != "mfu"}  # noqa: E731
+    assert strip(got) == strip(want)
+    off = tgood.summarize_ledger(merged, flops_per_step=flops, n_chips=1)
+    assert off["mfu"] is None and "no card" in off["mfu_omitted_reason"]
+
+
 def test_a_fresh_run_on_a_reused_file_is_a_new_lineage(tmp_path, monkeypatch):
     path = tmp_path / "g.jsonl"
     clock = FakeClock()

@@ -16,8 +16,9 @@
 - a raw-pipeline fit stopped at step 2 (its checkpoint) and resumed to
   step 4 ends with parameters and BatchNorm statistics bitwise equal to an
   unstopped 4-step fit: the cache's step-indexed factory replays nothing;
-- unsupported combinations raise as the reference's do; ``num_slices`` > 1
-  names ROADMAP A5.
+- unsupported combinations raise as the reference's do; ``num_slices=2``
+  in one process raises the reference's mesh error (a data axis of one
+  cannot span two slices).
 """
 
 from __future__ import annotations
@@ -205,7 +206,8 @@ def test_python_m_runs_without_jax_or_tensorflow(shards, tmp_path):
 
 
 def test_refusals(shards):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    # two slices of a data axis of one: the reference's mesh error
+    with pytest.raises(ValueError, match="data axis 1 not divisible by num_slices 2"):
         t_imagenet.main(**TINY, num_slices=2)
     for bad in (dict(input_pipeline="native", data_format="images"),
                 dict(input_pipeline="bogus", data_format="tfrecords")):

@@ -84,7 +84,9 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
                  "workloads.imagenet",
                  "obs.registry", "parallel", "parallel.mesh",
                  "parallel.distributed", "parallel.collectives",
-                 "parallel.sharding", "parallel.comms"):
+                 "parallel.sharding", "parallel.comms", "utils",
+                 "utils.hardware", "utils.timer", "utils.metrics",
+                 "utils.logging_utils", "utils.roofline"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
 

@@ -9,6 +9,13 @@
   round trip on the trees of ``tests/test_comms.py``, and on a tree whose
   keys were inserted out of order (the layout takes leaves by key);
 - ``ring_wire_bytes``: the reference's numbers;
+- multi-slice meshes (ref ``tests/test_mesh.py:60-126``): ``_slice_groups``
+  groups the ranks by their reported node as the reference groups devices
+  by ``slice_index`` (contiguous splits where none reports one), the
+  slice boundary is outermost on ``data`` (the reference's device layout
+  of the same spec), an indivisible data axis and a contradicting node
+  report raise the reference's errors, and a 0, 1, 0, 1 report permutes
+  the mesh: coordinates and groups come from positions;
 - the collectives over 2 gloo ranks (spawned processes):
   psum / pmean / all_gather / global_norm / reduce-scatter / all-to-all
   against numpy, and the compressed bucket reduce-scatter's error
@@ -16,6 +23,8 @@
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +66,93 @@ def test_mesh_spec_sizes_and_errors_equal_the_reference(spec, devices):
     assert tmesh.DATA_AXES == jmesh.DATA_AXES
     want = _outcome(lambda: jmesh.MeshSpec(**spec).sizes(devices))
     assert _outcome(lambda: tmesh.MeshSpec(**spec).sizes(devices)) == want
+
+
+def _fake_devices(nodes):
+    return [SimpleNamespace(id=i) if n is None else SimpleNamespace(id=i, slice_index=n)
+            for i, n in enumerate(nodes)]
+
+
+@pytest.mark.parametrize("nodes,slices", [
+    ((0, 1, 0, 1), 2), ((1, 1, 0, 0), 2), ((None,) * 4, 2), ((None,) * 8, 4),
+    ((3, 0, 3, 0, 1, 1, 2, 2), 4), ((0, 1, 0, 1), 3), ((0, 0, 0, 0), 2),
+    ((None,) * 6, 4)])
+def test_slice_groups_equal_the_references(nodes, slices):
+    """The ranks grouped by node as the reference groups devices by
+    ``slice_index``; a node count that contradicts ``num_slices``, and
+    ranks that do not split evenly, raise the reference's errors."""
+    want = _outcome(lambda: [[d.id for d in g] for g in
+                             jmesh._slice_groups(_fake_devices(nodes), slices)])
+    got = _outcome(lambda: tmesh._slice_groups(list(nodes), slices))
+    if want[0] == "ok":
+        assert got == want
+    else:
+        assert got[0] == want[0] == "ValueError"
+        assert got[1].replace("ranks report", "devices report").replace(
+            " (GROUP_RANK)", "").replace("node(s)", "physical slice(s)") == want[1]
+
+
+def test_a_partial_node_report_raises():
+    """Where some ranks report a node and others do not, the port raises
+    (the reference would split contiguously: a departure, never a silent
+    fall-back)."""
+    with pytest.raises(ValueError, match="2 of 4 ranks report a node"):
+        tmesh._slice_groups([0, None, 1, None], 2)
+
+
+@pytest.mark.parametrize("spec", [{"tensor": 2}, {"fsdp": 2}, {"data": None},
+                                  {"tensor": 2, "fsdp": 2}, {"expert": 2}])
+@pytest.mark.parametrize("slices", [2, 4])
+def test_the_slice_boundary_is_outermost_on_data(spec, slices):
+    """Without a node report, the port's multi-slice mesh is the
+    reference's device layout of the same spec over 8 devices, rank for
+    device: each slice holds a contiguous block of the data axis, and the
+    other axes stay inside it."""
+    jm = _outcome(lambda: jcreate_mesh(jmesh.MeshSpec(**spec), num_slices=slices))
+    got = _outcome(lambda: tmesh.slice_order(tmesh.MeshSpec(**spec), [None] * 8, slices))
+    if jm[0] != "ok":
+        assert got == jm
+        return
+    want = [d.id for d in jm[1].devices.flatten()]
+    assert (list(range(8)) if got[1] is None else list(got[1])) == want
+    sizes = dict(zip(tmesh.AXIS_ORDER, tmesh.MeshSpec(**spec).sizes(8)))
+    for rank in range(8):
+        m = tmesh.Mesh(shape=sizes, size=8, rank=rank, order=got[1])
+        per = sizes["data"] // slices
+        assert m.axis_index("data") // per == rank // (8 // slices)  # its slice
+        for axis in ("fsdp", "expert", "tensor"):
+            assert {r // (8 // slices) for r in m.axis_ranks(axis)} == {rank // (8 // slices)}
+
+
+def test_an_indivisible_data_axis_raises_the_references_error():
+    want = _outcome(lambda: jcreate_mesh(jmesh.MeshSpec(tensor=2), num_slices=3))
+    assert want[0] == "ValueError"
+    assert _outcome(lambda: tmesh.slice_order(tmesh.MeshSpec(tensor=2), [None] * 8, 3)) == want
+    with pytest.raises(ValueError, match="data axis 1 not divisible by num_slices 2"):
+        tmesh.create_mesh(num_slices=2)  # one process
+
+
+def test_interleaved_nodes_permute_the_mesh():
+    """Nodes 0, 1, 0, 1 on ``data=2 x tensor=2``: the reference's
+    ``_slice_groups`` puts devices 0 and 2 in slice 0, so ranks 0 and 2
+    hold data shard 0 and form a tensor group; every coordinate and group
+    comes from the position, not the rank."""
+    nodes = (0, 1, 0, 1)
+    groups = [[d.id for d in g] for g in jmesh._slice_groups(_fake_devices(nodes), 2)]
+    order = tmesh.slice_order(tmesh.MeshSpec(tensor=2), list(nodes), 2)
+    assert list(order) == [r for g in groups for r in g] == [0, 2, 1, 3]
+    sizes = dict(zip(tmesh.AXIS_ORDER, tmesh.MeshSpec(tensor=2).sizes(4)))
+    want = {0: (0, 0, [0, 2], [0, 1]), 1: (1, 0, [1, 3], [0, 1]),
+            2: (0, 1, [0, 2], [2, 3]), 3: (1, 1, [1, 3], [2, 3])}
+    for rank, (shard, t, tensor_ranks, data_ranks) in want.items():
+        m = tmesh.Mesh(shape=sizes, size=4, rank=rank, order=order)
+        assert (m.data_index(), m.axis_index("tensor")) == (shard, t)
+        assert m.axis_ranks("tensor") == tensor_ranks
+        assert m.axis_ranks("data_group") == m.axis_ranks("data") == data_ranks
+        assert len({nodes[r] for r in tensor_ranks}) == 1
+        assert {nodes[r] for r in data_ranks} == {0, 1}
+        rows = tsharding.local_rows(m, 8)
+        assert (rows.start, rows.stop) == (4 * shard, 4 * shard + 4)
 
 
 def test_a_mesh_without_a_process_group_is_one_rank():
@@ -235,3 +331,5 @@ def test_collectives_over_two_gloo_ranks():
                                       (wire[0] + wire[1])[r * 4:(r + 1) * 4])
         np.testing.assert_array_equal(got["bf16_residual"], adj[r] - wire[r])
         assert got["staged"] == {}
+        # utils.metrics.pmean_metrics: the metrics dict's mean over the ranks
+        assert got["pmean_metrics"] == {"loss": 1.5, "top1": 0.375}

@@ -10,12 +10,25 @@ from __future__ import annotations
 import importlib.util
 import pathlib
 
+import pytest
+import torch
+
 import chip_smoke as cs
 
 _PATH = pathlib.Path(__file__).resolve().parent.parent / "scripts" / "time_flash.py"
 _spec = importlib.util.spec_from_file_location("time_flash", _PATH)
 tf = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(tf)
+
+
+@pytest.fixture(autouse=True)
+def h100_peaks():
+    """The bounds are the H100 SXM's: ``chip_smoke.py`` reads the card's
+    peaks from ``utils/hardware.PEAKS`` at run time (``set_peaks``)."""
+    cs.set_peaks(torch, "NVIDIA H100 80GB HBM3")
+    yield
+    cs.HBM_BYTES_PER_S = cs.F32_FLOPS_PER_S = cs.BF16_FLOPS_PER_S = None
+    cs.TF32_FLOPS_PER_S = cs.TF32X3_FLOPS_PER_S = None
 
 
 def test_training_row_is_the_training_cell():
