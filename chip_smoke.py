@@ -472,6 +472,39 @@ built for CUDA, and imports nothing of jax or of the JAX package.  Phases:
    H=6 of 12, S=128, D=64, BERT's mask): held against their plain
    versions, bitwise the all-heads launch's rows, timed beside SDPA with
    the bool mask and its backward.
+33. ``phase_obs_attrib`` (after 13, while phase 6's dense engine lives):
+   per-program cost attribution (``obs/attrib.py``) and the profiling
+   harness (``obs/profile.py``) at SERVE's full width.  A paged f32 and an
+   int8 engine over phase 6's weights and a truncated drafter (K 4, 2
+   layers) serve the paged cell's first 4 requests.  (i) ``build_report``
+   over the process registry: a row with FLOPs for every program of the
+   reference's ``self_check`` set and the int8 engine's, no kernel
+   launched and the live pool's bits unchanged by the collection, the
+   owners' card bytes within 1% of ``memory_allocated()`` (cuBLAS's
+   workspaces freed first) and the residual under its limit; the dense
+   decode row's FLOPs equal to the analytic count for 8 slots exactly.
+   (ii) the tracked wrapper's cost a decode call, against 1% of the step
+   or 20 us: a no-op tracked program's host time a call (gated), and
+   ``engine.decode`` with the tracked program and with its bare callable,
+   A B B A call by call in 200 quads, the mean difference with its 95%
+   interval (fails if the interval lies above the limit; on the card's
+   shared host it is wider than the limit, and the log says
+   "unresolved").  (iii) ``decode_phase_breakdown`` over the full-width pools (8
+   slots of 536 tokens, position 574), f32, int8 and with the drafter:
+   K4 launched 12 times a call of the attention phase and of the decode
+   step (int8: every launch int8; the drafter's runs add its drafts and
+   verify passes; each part's counts read when it starts and ends),
+   ``attention_kernel + mlp_other == decode_step_ms``,
+   and ``attribute_regression`` names the phase int8 decode's extra time
+   lands in.  (iv) 2 requests (4 new tokens) on the f32 engine inside
+   ``profile_and_merge``: aligned on a shared span name, every kernel
+   inside the host's ``profile/window`` span (10 ms slack), device events
+   in the digest, ``flash_decode`` and ``gemm`` in ``device_analysis``,
+   whose device total is within 1% of ``key_averages()``.  (v), inside
+   phase 10 (f32): the ``train.step.implicit`` row of the step phase 10
+   profiles equals ``utils.hardware.step_flops`` plus half the attention
+   forward (the row counts the whole step; the plain backward recomputes
+   the scores) exactly.
 
 K4 (``csrc/flash_decode.cu``) runs in two passes from one C call: a
 split pass with one block per (span of 64 absolute positions, head, slot)
@@ -505,7 +538,14 @@ takes int8 K/V).  The int8 bound counts 2*(hd + 4) bytes per visible
 position and head.  ``launches`` is the count in the path that runs the
 kernel: training for K1, K2, K3; dense serving for K4(a); the f32 paged
 run's chunks for K4(b), the int8 paged run for K4(c) and the four
-speculative runs for the verify row.  The verify row's bound counts each
+speculative runs for the verify row.  Phase 33 adds to ``launches_by_path``
+its decode phase breakdowns' K4 launches, each part's read from the
+counters when it starts and ends (``obs_breakdown_attention_*``,
+``obs_breakdown_decode_steps_*``: f32 and with the drafter on the K4(a)
+row, int8 on K4(c)'s; the drafter run's spec steps add
+``obs_breakdown_spec_drafts_f32_spec`` to K4(a) and
+``obs_breakdown_spec_verify_f32_spec`` to the verify row) and its
+profiled window's (``obs_profiled_window``, K4(a) and K4(b)).  The verify row's bound counts each
 (slot, head)'s visible history once for all K+1 queries.
 
 The six bias rows (``flash_attention_fwd_bias``, ``..._bwd_dq_bias``,
@@ -2269,6 +2309,8 @@ def phase_train(torch, np, fa, card, dtype="float32", f32_losses=None):
                f"K2 flash_bwd_dq{bsfx}_kernel": f"flash_bwd_dq{bsfx}_kernel",
                f"K3 flash_bwd_dkv{bsfx}_kernel": f"flash_bwd_dkv{bsfx}_kernel"}
     log_groups(top, busy, gemms, kernels)
+    if not bf16:
+        _obs_train_step(torch, card, state, batch)  # `step` alive: its row
     del state, step
     torch.cuda.empty_cache()
     return launches, losses
@@ -3076,6 +3118,387 @@ def phase_serve_bf16(torch, np, fa, fd, card, params, dense, paged):
     del runs
     torch.cuda.empty_cache()
     return out
+
+
+# ---- phase 33: per-program cost attribution, the decode phase breakdown
+# and the merged serving timeline (obs/attrib.py, obs/profile.py) ----
+
+OBS_REQUESTS, OBS_NEW_TOKENS = 4, 8  # the paged cell's first 4 requests
+#: the profiled window's: its trace (host ops and kernels) is written,
+#: merged and read back, so it is kept to a few steps
+OBS_WINDOW_REQUESTS, OBS_WINDOW_TOKENS = 2, 4
+OBS_DECODE_QUADS = 200  # (ii)'s A B B A quads of engine.decode calls
+#: the tracked wrapper's cost a decode call: at most this share of the
+#: step, or this many microseconds, whichever is larger
+OBS_WRAPPER_SHARE, OBS_WRAPPER_US = 0.01, 20.0
+OBS_ITERS, OBS_WARMUP = 10, 2  # decode_phase_breakdown's (the reference's)
+#: the reference's owner-totals match tolerance, % of the live bytes
+OBS_MATCH_PCT = 1.0
+#: device events may fall this far outside the host's profile/window span:
+#: the profiler maps the card's clock onto the host's, and that mapping
+#: was off by more than 1 ms in a whole-script run
+OBS_WINDOW_SLACK_US = 10000.0
+#: phase 33's expected programs: the reference's self_check set, plus the
+#: int8 paged engine's
+OBS_PROGRAMS = ("serve.dense.float32.prefill", "serve.dense.float32.decode",
+                "serve.paged.float32.prefill_chunk", "serve.paged.float32.decode",
+                "spec.paged.verify", "serve.paged.int8.prefill_chunk",
+                "serve.paged.int8.decode")
+
+
+def _obs_decode_flops(slots):
+    """The dense decode program's matrix-product FLOPs at SERVE's width: 2 x
+    the products' weights (qkv, proj, the two FF matrices a layer, the
+    head) a slot, plus QK and PV over the whole MAX_SEQ window a layer."""
+    d, ff, v, h, layers = (SERVE[k] for k in ("d_model", "d_ff", "vocab_size",
+                                              "num_heads", "num_layers"))
+    weights = layers * (4 * d * d + 2 * d * ff) + d * v
+    return slots * (2 * weights + layers * 2 * 2 * h * MAX_SEQ * (d // h))
+
+
+def _obs_decode_quads(np, engine, arms, quads):
+    """``quads`` A B B A quads of ``engine.decode`` calls (each ends in its
+    own token readback) at mid-window in every slot, the engine's decode
+    program taken from ``arms`` call by call, after 5 untimed quads.
+    Returns each quad's wall difference A minus B (the mean of each arm's
+    two calls: drift in the host's pace falls on both arms of a quad
+    alike) and B's walls."""
+    tokens, pos = np.ones(SLOTS, np.int32), np.full(SLOTS, MAX_SEQ // 2, np.int32)
+    a, b = arms.values()
+    walls = np.empty((5 + quads, 4))
+    for q in range(5 + quads):
+        for i, prog in enumerate((a, b, b, a)):
+            engine._decode_prog = prog
+            t0 = time.perf_counter()
+            engine.decode(tokens, pos)
+            walls[q, i] = time.perf_counter() - t0
+    walls = walls[5:]
+    return (walls[:, 0] + walls[:, 3] - walls[:, 1] - walls[:, 2]) / 2, walls[:, 1:3].ravel()
+
+
+def _obs_bits(torch, cache):
+    """A digest of a cache's bits (int64 sums of each leaf's words)."""
+    return {k: int(v.view(torch.int32).sum(dtype=torch.int64)) for k, v in cache.items()}
+
+
+def _obs_report(torch, np, fa, fd, card, dense_engine, engines):
+    """(i): the process registry's report at full width."""
+    import gc
+
+    from distributeddeeplearning_tpu_torch.obs import attrib
+
+    f32, int8 = engines
+    measured = {"serve.dense.float32.decode": attrib._time_decode(dense_engine),
+                "serve.paged.float32.decode": attrib._time_decode(f32),
+                "serve.paged.int8.decode": attrib._time_decode(int8)}
+    peak_tflops, peak_gbps, source = attrib.reference_peaks()
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:  # cuBLAS's workspaces: the allocator's, no owner's
+        clear()
+    bits = _obs_bits(torch, f32.cache)
+    _zero_counters(fa, fd)
+    t0 = time.perf_counter()
+    report = attrib.build_report(memory=True, measured_step_s=measured,
+                                 peak_tflops=peak_tflops, peak_hbm_gbps=peak_gbps,
+                                 match_tolerance_pct=OBS_MATCH_PCT)
+    collect_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = {**_fa_counts(fa), **_fd_counts(fd)}
+    if any(counts.values()) or _obs_bits(torch, f32.cache) != bits:
+        raise AssertionError(f"[attrib] collect launched kernels {counts} or wrote "
+                             "the live cache")
+    programs = report["programs"]
+    for name, row in programs.items():
+        roof = row.get("roofline", {})
+        log(f"[attrib] {name}: {row['signatures']} signature(s), {row['flops']:.6g} "
+            f"FLOP, {row['bytes_accessed']:.6g} B accessed (unfused), arguments "
+            f"{row['argument_bytes']} B, outputs {row['output_bytes']} B, in place "
+            f"{row['alias_bytes']} B, temp {row['temp_bytes']} B"
+            + (f"; measured {roof['measured_s'] * 1e3:.3f} ms: "
+               f"{roof['achieved_tflops']} TFLOP/s, {roof['achieved_gbps']} GB/s, "
+               f"{roof.get('pct_of_compute_roofline')} of the compute and "
+               f"{roof.get('pct_of_bandwidth_roofline')} of the bandwidth roofline, "
+               f"{roof.get('bound')}" if roof else "") + f" on {card}")
+    ledger = report["ledger"]
+    log(f"[attrib] collect + report {collect_s:.2f} s (no launch, live cache "
+        f"unchanged); peaks: {source}; ledger owners "
+        f"{ {k: v['bytes'] for k, v in ledger['owners'].items()} }, live "
+        f"{ledger['live_bytes']} B, owners' match {report['owner_match_pct']}% "
+        f"(tolerance {OBS_MATCH_PCT}%), unaccounted {report['unaccounted_hbm_pct']}% "
+        f"(limit {ledger['residual_limit_pct']}%); gates {report['gates']} on {card}")
+    missing = sorted(set(OBS_PROGRAMS) - set(programs))
+    if missing or not all(report["gates"].values()):
+        raise AssertionError(f"[attrib] missing {missing}, gates {report['gates']}")
+    got, want = programs["serve.dense.float32.decode"]["flops"], _obs_decode_flops(SLOTS)
+    log(f"[attrib] serve.dense.float32.decode: {got:.0f} FLOP against the analytic "
+        f"{want} for {SLOTS} slots (exact: both count the matrix products over "
+        f"the {MAX_SEQ}-position window)")
+    if got != want:
+        raise AssertionError(f"[attrib] dense decode FLOPs {got} != {want}")
+    return report
+
+
+def _obs_wrapper_cost(torch, np, card, engine):
+    """(ii): engine.decode with the tracked program and with its bare
+    callable, A B B A call by call, on the same engine, and the wrapper
+    alone on the host."""
+    from distributeddeeplearning_tpu_torch.obs import attrib
+
+    tracked = engine._decode_prog
+    try:
+        diffs, bare = _obs_decode_quads(np, engine, {"tracked": tracked,
+                                                     "bare": tracked._fn},
+                                        OBS_DECODE_QUADS)
+    finally:
+        engine._decode_prog = tracked
+    step = float(np.median(bare))
+    limit = max(OBS_WRAPPER_SHARE * step, OBS_WRAPPER_US * 1e-6)
+    diff = float(diffs.mean())
+    half = 1.96 * float(diffs.std(ddof=1)) / np.sqrt(diffs.size)
+    verdict = ("under the limit at 95%" if diff + half <= limit else
+               "above the limit at 95%" if diff - half > limit else
+               "unresolved: the interval is wider than the limit")
+    # the wrapper alone on the host: its key and one set lookup a call
+    params, cache = engine.params, engine.cache
+    tok = torch.ones(SLOTS, dtype=torch.int32, device=engine.device)
+    kw = dict(num_heads=engine.num_heads, kernel=engine.decode_kernel, mesh=None)
+    noop = attrib.TrackedProgram("noop", lambda *a, **k: None)
+    noop(params, tok, cache, tok, **kw)  # records its one signature
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        noop(params, tok, cache, tok, **kw)
+    alone_us = (time.perf_counter() - t0) / 10000 * 1e6
+    log(f"[attrib] wrapper cost: alone on the host {alone_us:.3f} us a call (a no-op "
+        f"program, the decode arguments); end to end, {OBS_DECODE_QUADS} A B B A quads "
+        f"of decode calls, tracked minus bare {diff * 1e6:.1f} +- {half * 1e6:.1f} us "
+        f"(95%), {verdict}; bare p50 {step * 1e3:.4f} ms; limit {limit * 1e6:.2f} us "
+        f"({OBS_WRAPPER_SHARE:.0%} of the step or {OBS_WRAPPER_US:g} us) on {card}")
+    if alone_us > limit * 1e6 or diff - half > limit:
+        raise AssertionError(f"[attrib] the tracked wrapper costs {alone_us:.2f} us "
+                             f"alone, {diff * 1e6:.1f} +- {half * 1e6:.1f} us end to end; "
+                             f"limit {limit * 1e6:.2f} us")
+    return {"diff_us": diff * 1e6, "ci_us": half * 1e6, "step_ms": step * 1e3,
+            "alone_us": alone_us}
+
+
+def _obs_breakdowns(torch, np, fa, fd, card, f32, int8, spec):
+    """(iii): the decode phase breakdown over the live full-width pools, f32,
+    int8 and with the speculative decoder; returns (the breakdowns, K4
+    launches by path)."""
+    from distributeddeeplearning_tpu_torch.obs import profile
+
+    layers, n = SERVE["num_layers"], OBS_ITERS + OBS_WARMUP
+    history = MAX_SEQ - NEW_TOKENS - 8  # every slot's history all but full
+    rng = np.random.default_rng(33)
+    for engine in (f32, int8):
+        fill_slots(np, engine, rng, history)
+    runs, parts = {}, {}
+    for name, engine, sd in (("f32", f32, None), ("int8", int8, None),
+                             ("f32_spec", f32, spec)):
+        _zero_counters(fa, fd)
+        torch.cuda.synchronize()
+        # the counters (host-side, bumped at each launch) when the decode
+        # steps and the spec steps start: the first engine.decode and the
+        # first spec step end the part before them
+        marks = {}
+
+        def marked(part, fn):
+            def first(*args, **kwargs):
+                marks.setdefault(part, _fd_counts(fd))
+                return fn(*args, **kwargs)
+            return first
+
+        engine.decode = marked("decode_steps", engine.decode)
+        if sd is not None:
+            sd.step = marked("spec_steps", sd.step)
+        try:
+            out = profile.decode_phase_breakdown(engine, iters=OBS_ITERS,
+                                                 warmup=OBS_WARMUP, spec_decoder=sd)
+        finally:
+            del engine.decode
+            if sd is not None:
+                del sd.step
+        torch.cuda.synchronize()
+        flash, end = _fa_counts(fa), _fd_counts(fd)
+        bounds = [("attention", {c: 0 for c in end}), ("decode_steps", marks["decode_steps"]),
+                  ("spec_steps", marks.get("spec_steps", end)), (None, end)]
+        got = {part: {c: hi[c] - lo[c] for c in end}
+               for (part, lo), (_, hi) in zip(bounds, bounds[1:])}
+        # the attention phase and the decode steps: `layers` launches a
+        # call; the spec steps K drafts of DRAFT_LAYERS and one verify of
+        # all layers
+        one = dict({c: 0 for c in end}, fd_launches=layers * n,
+                   launches_int8=layers * n if name == "int8" else 0)
+        want = {"attention": one, "decode_steps": one,
+                "spec_steps": {c: 0 for c in end}}
+        if sd is not None:
+            want["spec_steps"].update(
+                fd_launches=(SPEC_K * DRAFT_LAYERS + layers) * n,
+                launches_multi_query=layers * n, launches_verify=layers * n)
+        ph = out["phases_ms"]
+        log(f"[breakdown] {name}: {json.dumps(out)} on {card}")
+        log(f"[breakdown] {name}: K4 launches by part {got} (expected {want}: "
+            f"{layers} x {n} calls in each of the attention phase and the decode "
+            f"steps" + (", the spec steps' drafts and verify passes" if sd else "")
+            + f"); K1-K3 {flash}")
+        if got != want or any(flash.values()):
+            raise AssertionError(f"[breakdown] {name}: launches {got}, K1-K3 {flash}; "
+                                 f"expected {want}")
+        if abs(ph["attention_kernel"] + ph["mlp_other"] - out["decode_step_ms"]) > 2e-3:
+            raise AssertionError(f"[breakdown] {name}: attention {ph['attention_kernel']}"
+                                 f" + rest {ph['mlp_other']} != {out['decode_step_ms']}")
+        if name != "int8" and ph["scale_dequant"] != 0.0:
+            raise AssertionError(f"[breakdown] {name}: scale_dequant {ph['scale_dequant']}")
+        runs[name] = out
+        parts[name] = got
+    regression = profile.attribute_regression(runs["f32"], runs["int8"])
+    log(f"[breakdown] int8 against f32 pages (attribute_regression): "
+        f"{json.dumps(regression)}; hottest phase {regression['hottest_phase']} "
+        f"(+{regression['hottest_phase_delta_ms']} ms, "
+        f"{regression['hottest_phase_share_of_step_time']:.1%} of the int8 step) "
+        f"on {card}; these times are read against each other, not against "
+        "phase 6's or 7's p50 (other engines, positions and cache history)")
+    for engine in (f32, int8):
+        for slot in range(SLOTS):
+            engine.release(slot)
+    spec_steps = parts["f32_spec"]["spec_steps"]
+    launches = {
+        "flash_decode": {
+            **{f"obs_breakdown_{part}_{run}": parts[run][part]["fd_launches"]
+               for run in ("f32", "f32_spec") for part in ("attention", "decode_steps")},
+            "obs_breakdown_spec_drafts_f32_spec":
+                spec_steps["fd_launches"] - spec_steps["launches_multi_query"]},
+        "flash_decode_int8": {f"obs_breakdown_{part}_int8": parts["int8"][part]["launches_int8"]
+                              for part in ("attention", "decode_steps")},
+        "flash_decode_verify": {"obs_breakdown_spec_verify_f32_spec":
+                                spec_steps["launches_verify"]}}
+    return runs, regression, launches
+
+
+def _obs_window(torch, np, fa, fd, card, engine, requests):
+    """(iv): a few scheduler steps of the full-width paged engine in
+    ``profile_and_merge``: the merged timeline and the roofline table."""
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch.obs import profile
+    from distributeddeeplearning_tpu_torch.obs.trace import get_tracer
+    from distributeddeeplearning_tpu_torch.serve import ContinuousBatchingScheduler
+
+    tracer = get_tracer()
+    tracer.clear()
+    kept = []
+    _zero_counters(fa, fd)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        (_, report), _, merged, path = profile.profile_and_merge(
+            lambda: ContinuousBatchingScheduler(
+                engine, max_new_tokens=OBS_WINDOW_TOKENS).run(requests),
+            trace_dir=tmp, tracer=tracer, keep=kept)
+        counts = _fd_counts(fd)
+        size = os.path.getsize(path)
+        analysis = profile.device_analysis(tmp, steps=1)
+    tracer.clear()
+    meta = merged["metadata"]
+    # the tracer's spans ride the device timeline too (record_function's
+    # GPU annotations): they are not kernels
+    spans = {e["name"] for e in merged["traceEvents"] if e.get("pid") in meta["host_pids"]}
+    kernel_ms = sum(e.self_device_time_total for e in kept[0].key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.key not in spans) / 1e3
+    (window,) = [e for e in merged["traceEvents"] if e.get("name") == "profile/window"
+                 and e.get("pid") in meta["host_pids"]]
+    kernels = [e for e in merged["traceEvents"] if e.get("cat") == "kernel"]
+    lo, hi = window["ts"] - OBS_WINDOW_SLACK_US, window["ts"] + window["dur"] + OBS_WINDOW_SLACK_US
+    outside = [e for e in kernels if not (lo <= e["ts"] and e["ts"] + e["dur"] <= hi)]
+    # how far the kernels reach before and after the host span, us
+    end = window["ts"] + window["dur"]
+    early = window["ts"] - min((e["ts"] for e in kernels), default=window["ts"])
+    late = max((e["ts"] + e["dur"] for e in kernels), default=end) - end
+    digest = profile.summarize_timeline(merged)
+    cats = analysis.get("categories", {})
+    device_ms = analysis.get("device_ms_per_step")
+    log(f"[timeline] {report.decode_steps} decode steps, "
+        f"{counts['launches_multi_query'] // SERVE['num_layers']} chunks profiled: merged {meta['device_trace']}, clock offset "
+        f"{meta['clock_offset_us']:.1f} us from a shared span name"
+        f"{' (' + meta['clock_alignment'] + ')' if 'clock_alignment' in meta else ''}; "
+        f"{len(kernels)} kernels, {len(outside)} outside the host window "
+        f"{window['dur'] / 1e3:.3f} ms (slack {OBS_WINDOW_SLACK_US:g} us; the first "
+        f"starts {early:.1f} us before it opens, the last ends {late:.1f} us after it "
+        f"closes); digest "
+        f"{digest['event_counts']}; merged file {size} B; K4 launches {counts} on {card}")
+    log(f"[timeline] device_analysis: {device_ms} ms of kernels against "
+        f"key_averages' {kernel_ms:.3f} ms (tolerance {ROOFLINE_RTOL:g}); categories "
+        f"(ms, share) { {k: (v['time_ms_per_step'], v['time_fraction']) for k, v in cats.items()} }"
+        f" on {card}")
+    if (meta["device_trace"] != "merged" or "clock_alignment" in meta or outside
+            or not digest["event_counts"]["device_events"]
+            or not {"flash_decode", "gemm"} <= set(cats) or not kernel_ms
+            or abs(device_ms - kernel_ms) > ROOFLINE_RTOL * kernel_ms):
+        raise AssertionError("[timeline] the merged serving window failed its checks")
+    return {"k4": counts["fd_launches"] - counts["launches_multi_query"],
+            "chunks": counts["launches_multi_query"]}
+
+
+def phase_obs_attrib(torch, np, fa, fd, card, dense_engine, paged):
+    """Phase 33 (module docstring): (i) the attribution report at full
+    width, (ii) the tracked wrapper's cost a decode call, (iii) the decode
+    phase breakdown over f32 and int8 pools and with a drafter, (iv) a
+    profiled serving window merged with the host spans.  Returns the K4
+    launches of (iii) and (iv) by path."""
+    from distributeddeeplearning_tpu_torch.serve import (
+        ContinuousBatchingScheduler, Request,
+    )
+    from distributeddeeplearning_tpu_torch.spec import SpeculativeDecoder
+
+    params = dense_engine.params
+
+    def requests():
+        return [Request(uid=r.uid, prompt=list(r.prompt))
+                for r in paged["requests"][:OBS_REQUESTS]]
+
+    f32 = serve_engine(torch, np, params, "paged", (64,), 33)
+    int8 = serve_engine(torch, np, params, "paged", (64,), 33, cache_dtype="int8")
+    spec = SpeculativeDecoder(f32, drafter="truncated", draft_tokens=SPEC_K,
+                              draft_layers=DRAFT_LAYERS)
+    for engine, sd in ((f32, None), (int8, None), (f32, spec)):
+        ContinuousBatchingScheduler(engine, max_new_tokens=OBS_NEW_TOKENS,
+                                    spec_decoder=sd).run(requests())
+    _obs_report(torch, np, fa, fd, card, dense_engine, (f32, int8))
+    _obs_wrapper_cost(torch, np, card, dense_engine)
+    _, _, launches = _obs_breakdowns(torch, np, fa, fd, card, f32, int8, spec)
+    window = _obs_window(torch, np, fa, fd, card, f32,
+                         requests()[:OBS_WINDOW_REQUESTS])
+    del f32, int8, spec
+    torch.cuda.empty_cache()
+    return {"breakdown": launches, "window": window}
+
+
+def _obs_train_step(torch, card, state, batch):
+    """Phase 33 (v), inside phase 10: the process registry's
+    ``train.step.implicit`` row for the full-width LM step (the tracked
+    step phase 10 profiles, alive in the caller) against ``utils.hardware.step_flops``
+    on the same state and batch.  The row counts the whole step on meta
+    (forward and backward products); ``step_flops`` is 3 x the forward, so
+    the two differ by the plain backward's recomputed score product: half
+    the attention forward's QK and PV."""
+    from distributeddeeplearning_tpu_torch.obs.attrib import get_programs
+    from distributeddeeplearning_tpu_torch.utils.hardware import step_flops
+
+    t0 = time.perf_counter()
+    rows = get_programs().collect(memory=True)["train.step.implicit"]
+    collect_s = time.perf_counter() - t0
+    b, s, d, h = (TRAIN[k] for k in ("batch_size", "seq_len", "d_model", "num_heads"))
+    attention = TRAIN["num_layers"] * 2 * 2 * b * h * s * s * (d // h)
+    want = step_flops(state, batch, compute_dtype=torch.float32) + 0.5 * attention
+    row = max(rows, key=lambda r: r.flops or 0.0)
+    log(f"[attrib] train.step.implicit (phase 33 (v)): {row.flops:.6g} FLOP a step "
+        f"(the whole step: forward + backward products), step_flops {want - 0.5 * attention:.6g}"
+        f" (3 x the forward) + half the attention forward {0.5 * attention:.6g} = "
+        f"{want:.6g}; {row.bytes_accessed:.6g} B accessed (unfused), in place "
+        f"{row.alias_bytes} B, temp {row.temp_bytes} B; collect {collect_s:.2f} s on {card}")
+    if row.flops != want:
+        raise AssertionError(f"[attrib] train step FLOPs {row.flops} != {want}")
 
 
 def layouts_decode_bitwise(torch, params, prompt, n):
@@ -8694,6 +9117,7 @@ def main() -> int:
                      dense_engine, dense, paged)
         served_bf16 = timed(phase_serve_bf16, torch, np, fa, fd, card,
                             dense_engine.params, dense, paged)
+        obs = timed(phase_obs_attrib, torch, np, fa, fd, card, dense_engine, paged)
         del dense_engine
         torch.cuda.empty_cache()
         headdim = timed(phase_headdim, torch, F, fa, fd, card)
@@ -8744,21 +9168,28 @@ def main() -> int:
              launches_by_path={"serve_dense": served["flash_decode"],
                                "serve_paged_f32": paged["decode_f32"],
                                **{f"{name}_draft": run["draft"]
-                                  for name, run in spec.items()}}, **k4),
+                                  for name, run in spec.items()},
+                               **obs["breakdown"]["flash_decode"],
+                               "obs_profiled_window": obs["window"]["k4"]}, **k4),
         dict(name="flash_decode_chunk", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
-             launches=paged["chunk_f32"], **k4b),
+             launches=paged["chunk_f32"],
+             launches_by_path={"serve_paged_f32": paged["chunk_f32"],
+                               "obs_profiled_window": obs["window"]["chunks"]}, **k4b),
         dict(name="flash_decode_int8", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
-             launches=paged["int8"], **k4c),
+             launches=paged["int8"],
+             launches_by_path={"serve_paged_int8": paged["int8"],
+                               **obs["breakdown"]["flash_decode_int8"]}, **k4c),
         dict(name="flash_decode_verify", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_decode.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_decode.py:271",
              launches=sum(run["counts"]["verify"] for run in spec.values()),
-             launches_by_path={name: run["counts"]["verify"]
-                               for name, run in spec.items()}, **k4v),
+             launches_by_path={**{name: run["counts"]["verify"]
+                                  for name, run in spec.items()},
+                               **obs["breakdown"]["flash_decode_verify"]}, **k4v),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="distributeddeeplearning_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="distributeddeeplearning_tpu/ops/flash_attention.py:335",

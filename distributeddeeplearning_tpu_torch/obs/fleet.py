@@ -23,7 +23,9 @@ is the router-side merge layer:
   report, per priority class too (:func:`evaluate_class_slos`).
 
 :func:`observe_fleet` is the one choreography that runs a traced fleet and
-assembles that view.  Host-side only: nothing here touches the card.
+assembles that view; its timeline digest is :mod:`.profile`'s
+``summarize_timeline`` (re-exported here, as the reference does).
+Host-side only: nothing here touches the card.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import json
 import os
 from typing import Any, Dict, List, Optional, Sequence
 
+from distributeddeeplearning_tpu_torch.obs.profile import summarize_timeline
 from distributeddeeplearning_tpu_torch.obs.registry import MetricsRegistry
 
 __all__ = [
@@ -438,47 +441,6 @@ def evaluate_class_slos(
     return {
         "per_class": per,
         "pass": all(r["pass"] for r in per.values()),
-    }
-
-
-def summarize_timeline(merged: Dict[str, Any], *, limit: int = 120) -> Dict[str, Any]:
-    """Artifact-sized digest of a merged timeline: event counts, total
-    duration per host span name, the instant events and the ``limit``
-    longest events in time order (the reference's
-    ``obs.profile.summarize_timeline``; the port has no device lanes in
-    these traces, so every span is a host span)."""
-    events = merged.get("traceEvents", [])
-    host_pids = set(merged.get("metadata", {}).get("host_pids") or [1])
-    host = [e for e in events if e.get("ph") == "X" and e.get("pid") in host_pids]
-    device = [e for e in events
-              if e.get("ph") == "X" and e.get("pid") not in host_pids]
-    instants = [e for e in events if e.get("ph") == "i"]
-    by_name_ms: Dict[str, float] = {}
-    for e in host:
-        name = str(e.get("name"))
-        by_name_ms[name] = by_name_ms.get(name, 0.0) + float(e.get("dur", 0.0)) / 1e3
-    top = sorted(host + device, key=lambda e: -float(e.get("dur", 0.0)))[:limit]
-    top.sort(key=lambda e: float(e.get("ts", 0.0)))
-    return {
-        "event_counts": {"host_spans": len(host), "device_events": len(device),
-                         "instant_events": len(instants)},
-        "host_span_total_ms": {
-            name: round(ms, 3)
-            for name, ms in sorted(by_name_ms.items(), key=lambda kv: -kv[1])
-        },
-        "instant_events": [
-            {"name": str(e.get("name")),
-             "ts_ms": round(float(e.get("ts", 0.0)) / 1e3, 3),
-             "args": e.get("args", {})}
-            for e in instants[:limit]
-        ],
-        "events": [
-            {"name": str(e.get("name"))[:80],
-             "source": "host" if e.get("pid") in host_pids else "device",
-             "ts_ms": round(float(e.get("ts", 0.0)) / 1e3, 3),
-             "dur_ms": round(float(e.get("dur", 0.0)) / 1e3, 3)}
-            for e in top
-        ],
     }
 
 

@@ -401,7 +401,7 @@ def paged_attention(q4, k_pages, v_pages, tables, posmat, k_scale=None,
     if q4.device.type == "cuda":
         return _launch(q4, k_pages, v_pages, tables, posmat, k_scale,
                        v_scale, k_own, v_own)
-    if q4.device.type == "cpu":
+    if q4.device.type in ("cpu", "meta"):  # meta: shapes only (obs.attrib)
         return _paged_attention_plain(q4, k_pages, v_pages, tables, posmat,
                                       k_scale, v_scale, k_own, v_own)
     raise ValueError(f"paged_attention: unsupported device {q4.device}")
@@ -487,7 +487,7 @@ def decode_attention_dense(
                        k_scale=k_s, v_scale=v_s, **_own_operands(k_s, k_t, v_t))
     if resolve_kernel(kernel) == "gather":
         return _gather_decode_dense(q3, k_l, v_l, k_s, v_s, k_t, v_t, pos)
-    if q3.device.type == "cpu":
+    if q3.device.type in ("cpu", "meta"):
         posmat = pos.reshape(-1, 1)
         return _attend_f32(q3[:, None], *_dense_history(
             k_l, v_l, k_s, v_s, k_t, v_t, posmat), posmat)[:, 0]
@@ -580,7 +580,7 @@ def verify_attention_paged(q4, k_l, v_l, block_tables, posmat, *,
     upstream).  Returns ctx [b, K1, h, hd]; ``kernel="gather"`` or a CPU
     tensor runs the plain version."""
     global launches_verify
-    if resolve_kernel(kernel) == "gather" or q4.device.type == "cpu":
+    if resolve_kernel(kernel) == "gather" or q4.device.type in ("cpu", "meta"):
         return _verify_dense_math(q4, *_gather_pages(k_l, v_l, block_tables),
                                   posmat)
     out = paged_attention(q4, k_l, v_l, block_tables, posmat)
@@ -594,7 +594,7 @@ def verify_attention_dense(q4, k_l, v_l, posmat, *, kernel: str = "auto"):
     card; a query whose ``posmat`` passes ``S - 1`` sees the whole row, as
     in the plain version.  Returns ctx [b, K1, h, hd]."""
     global launches_verify
-    if resolve_kernel(kernel) == "gather" or q4.device.type == "cpu":
+    if resolve_kernel(kernel) == "gather" or q4.device.type in ("cpu", "meta"):
         return _verify_dense_math(q4, k_l, v_l, posmat)
     out = paged_attention(q4, k_l, v_l, _dense_as_pages(k_l), posmat)
     launches_verify += 1

@@ -24,7 +24,11 @@ widens bf16 pages and dequantizes int8 ones in its tile.
 
 PyTorch runs eagerly, so there are no compiled programs;
 ``prefill_compiles`` still counts the distinct prompt buckets (dense) or
-chunk widths (paged) a run meets, as the reference's report does.
+chunk widths (paged) a run meets, as the reference's report does.  Each
+program an engine dispatches (dense: ``prefill``, ``insert``, ``decode``,
+``scrub``; paged: ``prefill_chunk``, ``decode``, ``scrub``) goes through
+the attribution registry (``obs/attrib.py``) under the reference's name
+``serve.{dense,paged}.{kv_dtype}.<program>``.
 
 Sampling: greedy is argmax with ties to the lowest index (``jnp.argmax``'s
 rule).  Temperature sampling draws from a ``torch.Generator`` seeded from
@@ -74,6 +78,7 @@ import numpy as np
 import torch
 
 from distributeddeeplearning_tpu_torch._device import DeviceLike, resolve_device
+from distributeddeeplearning_tpu_torch.obs.attrib import tracked_jit
 from distributeddeeplearning_tpu_torch.obs.ledger import get_ledger
 from distributeddeeplearning_tpu_torch.obs.trace import get_tracer
 from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
@@ -135,6 +140,22 @@ def _leaf_subset_page_bytes(cache, *, scales: bool) -> int:
 def _ledger_host_tier_bytes(engine):
     tier = getattr(engine, "tier", None)
     return 0 if tier is None else tier.used_bytes()
+
+
+# -- the cache scrubs (module-level programs: obs.attrib tracks them) ------
+
+def _scrub_rows(cache, *, slot: int, from_pos: int) -> None:
+    """Zero dense ``slot``'s positions ``>= from_pos``, every leaf, in
+    place."""
+    for leaf in cache.values():
+        leaf[slot, :, from_pos:] = 0
+
+
+def _scrub_pages(cache, *, pages, offsets) -> None:
+    """Zero each of ``pages`` from its offset on, every leaf, in place."""
+    for page, off in zip(pages, offsets):
+        for leaf in cache.values():
+            leaf[page, :, off:] = 0
 
 
 def _register_engine_owners(engine, ledger=None) -> None:
@@ -513,6 +534,16 @@ class InferenceEngine(_EngineCore):
             num_heads=num_heads, head_dim=head_dim, dtype=dtype,
             device=self.device, mesh=self.mesh,
         )
+        # every program in the attribution registry (obs/attrib.py) under
+        # the reference's name: layout + cache dtype, so f32 and int8
+        # engines report distinguishable cost rows
+        tag = f"serve.dense.{self.kv_dtype}"
+        self._prefill_prog = tracked_jit(f"{tag}.prefill", forward_prefill)
+        self._insert_prog = tracked_jit(f"{tag}.insert", insert_sequence,
+                                        dynamic=("slot",))
+        self._decode_prog = tracked_jit(f"{tag}.decode", forward_decode)
+        self._scrub_prog = tracked_jit(f"{tag}.scrub", _scrub_rows,
+                                       dynamic=("slot", "from_pos"))
         _register_engine_owners(self)
 
     def kv_bytes_peak(self) -> int:
@@ -553,12 +584,12 @@ class InferenceEngine(_EngineCore):
         tokens = np.full((1, bucket), self.pad_id, np.int64)
         tokens[0, :length] = np.asarray(prompt, np.int64)
         with get_tracer().span("serve/engine.prefill_dispatch", bucket=bucket):
-            logits, k, v = forward_prefill(
+            logits, k, v = self._prefill_prog(
                 self.params, torch.from_numpy(tokens).to(self.device),
                 num_heads=self.num_heads, attention=self.prefill_attention,
                 mesh=self.mesh,
             )
-            insert_sequence(self._cache, k, v, slot)
+            self._insert_prog(self._cache, k, v, slot=slot)
         # the last REAL position, not the padding
         return self._sample_first(logits[:, length - 1])
 
@@ -574,7 +605,7 @@ class InferenceEngine(_EngineCore):
         # the dispatch span apart from the readback: on a timeline the gap
         # between them is the step's host-sync share
         with get_tracer().span("serve/engine.decode_dispatch"):
-            logits, _ = forward_decode(
+            logits, _ = self._decode_prog(
                 self.params, tok, self._cache, p, num_heads=self.num_heads,
                 kernel=self.decode_kernel, mesh=self.mesh,
             )
@@ -593,8 +624,7 @@ class InferenceEngine(_EngineCore):
     def scrub_slot(self, slot: int, from_pos: int = 0) -> None:
         """Zero the slot's cache row (every leaf) from position
         ``from_pos`` on, in place; positions below it are untouched."""
-        for leaf in self._cache.values():
-            leaf[slot, :, from_pos:] = 0
+        self._scrub_prog(self._cache, slot=slot, from_pos=from_pos)
 
 
 class PrefillTask:
@@ -723,10 +753,20 @@ class PagedInferenceEngine(_EngineCore):
         # the fidelity probe: with capture_logits the last decode step's
         # logits ([slots, vocab]) and the last prefill's logits row come
         # to the host (one extra copy a step); without it
-        # last_prefill_logits is the row on the device, no copy
+        # last_prefill_logits is the row copied on the device (a view would
+        # keep the chunk's whole [C, vocab] logits alive, bytes no ledger
+        # owner claims)
         self.capture_logits = capture_logits
         self.last_logits: Optional[np.ndarray] = None
         self.last_prefill_logits = None
+        # the attribution registry's programs (see the dense engine): one
+        # row per chunk width under prefill_chunk
+        tag = f"serve.paged.{self.kv_dtype}"
+        self._chunk_prog = tracked_jit(f"{tag}.prefill_chunk",
+                                       forward_prefill_chunk, dynamic=("offset",))
+        self._decode_prog = tracked_jit(f"{tag}.decode", forward_decode_paged)
+        self._scrub_prog = tracked_jit(f"{tag}.scrub", _scrub_pages,
+                                       dynamic=("pages", "offsets"))
         _register_engine_owners(self)
 
     # -- accounting --------------------------------------------------------
@@ -905,10 +945,10 @@ class PagedInferenceEngine(_EngineCore):
         table[: len(task.pages)] = task.pages
         with get_tracer().span("serve/engine.chunk_dispatch", chunk=C,
                                offset=task.offset):
-            logits, _ = forward_prefill_chunk(
+            logits, _ = self._chunk_prog(
                 self.params, torch.from_numpy(tokens).to(self.device),
                 self._cache, torch.from_numpy(table).to(self.device),
-                task.offset, num_heads=self.num_heads,
+                offset=task.offset, num_heads=self.num_heads,
                 kernel=self.decode_kernel, mesh=self.mesh,
             )
         self.chunks_run += 1
@@ -937,7 +977,7 @@ class PagedInferenceEngine(_EngineCore):
         # the last REAL position of the final chunk
         last = logits[0, real - 1]
         self.last_prefill_logits = (last.float().cpu().numpy()
-                                    if self.capture_logits else last)
+                                    if self.capture_logits else last.clone())
         return self._sample_first(logits[:, real - 1])
 
     def prefill(self, slot: int, prompt: Sequence[int],
@@ -964,7 +1004,7 @@ class PagedInferenceEngine(_EngineCore):
         tok = torch.from_numpy(np.asarray(tokens, np.int32)).to(self.device)
         p = torch.from_numpy(np.asarray(pos, np.int32)).to(self.device)
         with get_tracer().span("serve/engine.decode_dispatch"):
-            logits, _ = forward_decode_paged(
+            logits, _ = self._decode_prog(
                 self.params, tok, self._cache, p, self.device_tables(),
                 num_heads=self.num_heads, kernel=self.decode_kernel,
                 mesh=self.mesh,
@@ -1007,10 +1047,9 @@ class PagedInferenceEngine(_EngineCore):
                 f"prefix-shared page(s) {shared} — shared pages are "
                 "immutable; scrub only from the private region on"
             )
-        for idx in range(start, len(pages)):
-            off = max(0, from_pos - idx * ps)
-            for leaf in self._cache.values():
-                leaf[pages[idx], :, off:] = 0
+        self._scrub_prog(self._cache, pages=pages[start:],
+                         offsets=[max(0, from_pos - idx * ps)
+                                  for idx in range(start, len(pages))])
 
     def release(self, slot: int) -> None:
         """Return the slot's pages to the pool: prefix-registered pages

@@ -30,10 +30,12 @@ The drafter's weight tree is on the process ledger under
 ``drafter_weights`` (``obs/ledger.py``).  The truncated drafter's blocks
 are views of the engine's weights, so its owner is charged no byte twice:
 the ledger counts a storage once, and the engine's ``params`` claimed it
-first.
-
-Not in this slice: the reference's program-cost rows (``tracked_jit``)
-for verify and rollback and the draft/verify trace spans.
+first.  The verify pass (with the acceptance rule) and the rollback are
+programs of the attribution registry (``obs/attrib.py``) under the
+reference's names ``spec.{dense,paged}.verify`` and ``.rollback``, and a
+step opens the reference's spans ``serve/spec.draft_dispatch`` (with
+``k=``) around the draft chain and ``serve/spec.verify_dispatch`` around
+the verify pass (the readback after it, as the reference's).
 """
 
 from __future__ import annotations
@@ -49,7 +51,9 @@ from distributeddeeplearning_tpu_torch.models.pipelined_transformer import (
     forward_verify,
     forward_verify_paged,
 )
+from distributeddeeplearning_tpu_torch.obs.attrib import tracked_jit
 from distributeddeeplearning_tpu_torch.obs.ledger import get_ledger
+from distributeddeeplearning_tpu_torch.obs.trace import get_tracer
 from distributeddeeplearning_tpu_torch.serve.kv_cache import SCRATCH_PAGE
 from distributeddeeplearning_tpu_torch.spec.drafter import Drafter, build_drafter
 
@@ -85,6 +89,52 @@ def _accept(logits: torch.Tensor, tokens: torch.Tensor, dlen: torch.Tensor):
     emit = cols[None] <= accepted[:, None]
     finite = torch.where(emit, torch.isfinite(lg).all(dim=-1), True).all(dim=1)
     return greedy, accepted.to(torch.int32), finite
+
+
+def _verify_paged(params, mat, cache, pos, dlen, tables, *, num_heads, kernel):
+    """The paged verify program: the K+1-column pass and the acceptance
+    rule, ``(greedy, accepted, finite)`` on the device."""
+    logits, _ = forward_verify_paged(params, mat, cache, pos, dlen, tables,
+                                     num_heads=num_heads, kernel=kernel)
+    return _accept(logits, mat, dlen)
+
+
+def _verify_dense(params, mat, cache, pos, dlen, *, num_heads, kernel):
+    """The dense verify program (as :func:`_verify_paged`)."""
+    logits, _ = forward_verify(params, mat, cache, pos, dlen,
+                               num_heads=num_heads, kernel=kernel)
+    return _accept(logits, mat, dlen)
+
+
+def _rollback_paged(cache, pos, keep, tables, *, draft_tokens, page_size):
+    """Zero positions ``pos + m``, ``m`` in ``[keep, K]``, through the
+    block tables (:meth:`SpeculativeDecoder.rollback`)."""
+    m = torch.arange(1, draft_tokens + 1, device=pos.device)
+    wpos = pos.long()[:, None] + m[None]  # [B, K]
+    zero = m[None] >= keep[:, None]
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    nb = tables.shape[1]
+    pidx = wpos // page_size
+    inb = zero & (pidx < nb)
+    pages = torch.where(inb, tables.long()[rows, pidx.clamp(max=nb - 1)],
+                        SCRATCH_PAGE)
+    offs = torch.where(inb, wpos % page_size, 0)
+    for leaf in cache.values():
+        leaf[pages, :, offs] = 0
+
+
+def _rollback_dense(cache, pos, keep, *, draft_tokens, max_seq):
+    """The dense rollback (as :func:`_rollback_paged`)."""
+    m = torch.arange(1, draft_tokens + 1, device=pos.device)
+    wpos = pos.long()[:, None] + m[None]  # [B, K]
+    zero = m[None] >= keep[:, None]
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    idx = (rows, slice(None), wpos % max_seq)
+    drop = ~(zero & (wpos < max_seq))
+    for leaf in cache.values():
+        # [B, K, L, ...]: the advanced indices' dims come first
+        mask = drop.reshape(*drop.shape, *([1] * (leaf.dim() - 2)))
+        leaf[idx] = torch.where(mask, leaf[idx], 0)
 
 
 class SpeculativeDecoder:
@@ -128,6 +178,12 @@ class SpeculativeDecoder:
         self.drafter.bind(engine)
         self.drafter_name = self.drafter.name
         self._paged = engine.kv_layout == "paged"
+        # the verify and rollback programs in the attribution registry
+        tag = "spec.paged" if self._paged else "spec.dense"
+        self._verify_prog = tracked_jit(
+            f"{tag}.verify", _verify_paged if self._paged else _verify_dense)
+        self._rollback_prog = tracked_jit(
+            f"{tag}.rollback", _rollback_paged if self._paged else _rollback_dense)
         get_ledger().register("drafter_weights", self.drafter,
                               _ledger_drafter_params)
 
@@ -148,26 +204,22 @@ class SpeculativeDecoder:
         # from here to the readback nothing waits on the card
         t_dev, pos_dev, dlen_dev = (self._upload(a) for a in (tokens, pos, draft_len))
         tables = engine.device_tables() if self._paged else None
+        trace = get_tracer()
         t0 = time.perf_counter()
         cols = [t_dev]
         cur = t_dev
-        # observability slice: the draft-chain span opens here
-        for j in range(self.draft_tokens):
-            pos_j = pos_dev + torch.clamp(dlen_dev, max=j)
-            cur, _ = self.drafter.propose(engine._cache, cur, pos_j)
-            cols.append(cur)
+        with trace.span("serve/spec.draft_dispatch", k=self.draft_tokens):
+            for j in range(self.draft_tokens):
+                pos_j = pos_dev + torch.clamp(dlen_dev, max=j)
+                cur, _ = self.drafter.propose(engine._cache, cur, pos_j)
+                cols.append(cur)
         t1 = time.perf_counter()
         mat = torch.stack(cols, dim=1)  # [B, K1]
-        # observability slice: the verify span opens here
-        if self._paged:
-            logits, _ = forward_verify_paged(
-                engine.params, mat, engine._cache, pos_dev, dlen_dev, tables,
-                num_heads=engine.num_heads, kernel=engine.decode_kernel)
-        else:
-            logits, _ = forward_verify(
+        with trace.span("serve/spec.verify_dispatch"):
+            greedy, accepted, finite = self._verify_prog(
                 engine.params, mat, engine._cache, pos_dev, dlen_dev,
+                *(() if tables is None else (tables,)),
                 num_heads=engine.num_heads, kernel=engine.decode_kernel)
-        greedy, accepted, finite = _accept(logits, mat, dlen_dev)
         # THE one designed sync of the spec step: tokens, accepted counts
         # and verdicts in one copy
         out = torch.cat([greedy, accepted[:, None],
@@ -191,25 +243,12 @@ class SpeculativeDecoder:
         and a zero write)."""
         engine = self.engine
         pos_dev, keep_dev = self._upload(pos), self._upload(keep)
-        m = torch.arange(1, self.draft_tokens + 1, device=pos_dev.device)
-        wpos = pos_dev.long()[:, None] + m[None]  # [B, K]
-        zero = m[None] >= keep_dev[:, None]
-        rows = torch.arange(pos_dev.shape[0], device=pos_dev.device)[:, None]
         if self._paged:
-            ps, nb = engine.page_size, engine.blocks_per_slot
-            pidx = wpos // ps
-            inb = zero & (pidx < nb)
-            tables = engine.device_tables().long()
-            pages = torch.where(inb, tables[rows, pidx.clamp(max=nb - 1)],
-                                SCRATCH_PAGE)
-            offs = torch.where(inb, wpos % ps, 0)
-            for leaf in engine._cache.values():
-                leaf[pages, :, offs] = 0
+            self._rollback_prog(engine._cache, pos_dev, keep_dev,
+                                engine.device_tables(),
+                                draft_tokens=self.draft_tokens,
+                                page_size=engine.page_size)
         else:
-            S = engine.max_seq
-            idx = (rows, slice(None), wpos % S)
-            drop = ~(zero & (wpos < S))
-            for leaf in engine._cache.values():
-                # [B, K, L, ...]: the advanced indices' dims come first
-                mask = drop.reshape(*drop.shape, *([1] * (leaf.dim() - 2)))
-                leaf[idx] = torch.where(mask, leaf[idx], 0)
+            self._rollback_prog(engine._cache, pos_dev, keep_dev,
+                                draft_tokens=self.draft_tokens,
+                                max_seq=engine.max_seq)

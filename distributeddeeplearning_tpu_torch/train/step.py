@@ -80,6 +80,11 @@ counted once).  ``comm_overlap`` with a model axis is refused, as in the
 reference.
 
 Without a mesh the step is one process on one device, as before.
+
+The step that ``build_train_step`` or ``build_eval_step`` returns is a
+program of the attribution registry (``obs/attrib.py``) under the
+reference's name: ``train.step.implicit``, ``train.step.comm_overlap`` or
+``train.step.eval``.
 """
 
 from __future__ import annotations
@@ -90,6 +95,7 @@ import numpy as np
 import torch
 
 from distributeddeeplearning_tpu_torch.models import _convnet, moe
+from distributeddeeplearning_tpu_torch.obs.attrib import tracked_jit
 from distributeddeeplearning_tpu_torch.parallel import collectives, comms
 from distributeddeeplearning_tpu_torch.parallel.mesh import (
     create_mesh,
@@ -209,7 +215,10 @@ def step_generator(rng: int, step: int, device,
     step, *salt)`` through numpy's SeedSequence, on ``device``.
     ``generator`` (on ``device``), when given, is reseeded and returned
     instead of a new one.  A data-parallel step salts with the rank (and
-    the comm-overlap step with the microbatch)."""
+    the comm-overlap step with the microbatch).  On ``meta`` (a cost count,
+    ``obs.attrib``) there is no generator: None."""
+    if torch.device(device).type == "meta":
+        return None
     seed = int(np.random.SeedSequence([rng, step, *salt])
                .generate_state(1, np.uint64)[0])
     if generator is None:
@@ -429,7 +438,9 @@ def build_train_step(
                                        dtype=torch.float32, device=device)
         return state, metrics
 
-    return step
+    # attribution (obs/attrib.py): the step's cost row under the
+    # reference's name, recorded at the first call of each batch shape
+    return tracked_jit("train.step.implicit", step)
 
 
 def _reduce_sharded(grads, over_fsdp, rest, group, data_only, world):
@@ -639,7 +650,8 @@ def _build_comm_overlap_step(mesh, state_example, *, compute_dtype,
                                        device=device)
         return state, metrics
 
-    return CommOverlapStep(step, mesh, layout, comm_dtype=comm_dtype,
+    return CommOverlapStep(tracked_jit("train.step.comm_overlap", step), mesh,
+                           layout, comm_dtype=comm_dtype,
                            weight_update_sharding=weight_update_sharding,
                            accum_steps=accum_steps)
 
@@ -692,4 +704,4 @@ def build_eval_step(
             group)
         return {k: v / summed["rows"] for k, v in summed["m"].items()}
 
-    return step
+    return tracked_jit("train.step.eval", step)

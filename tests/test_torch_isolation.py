@@ -86,14 +86,16 @@ def test_every_port_module_and_the_smoke_script_import_without_jax():
                  "parallel.distributed", "parallel.collectives",
                  "parallel.sharding", "parallel.comms", "utils",
                  "utils.hardware", "utils.timer", "utils.metrics",
-                 "utils.logging_utils", "utils.roofline"):
+                 "utils.logging_utils", "utils.roofline", "obs.attrib",
+                 "obs.profile", "obs.schema", "obs.history"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
 
 def test_serve_and_obs_packages_load_no_jax():
     """``import distributeddeeplearning_tpu_torch.serve, .obs`` alone (the
     scheduler, the host tier, the traffic generator, the fleet and the
-    ledger) and ``obs.fleet`` load no jax and nothing of the JAX
+    ledger), ``obs.fleet`` and ``obs.attrib``, ``obs.profile``,
+    ``obs.schema`` and ``obs.history`` load no jax and nothing of the JAX
     package."""
     code = (
         "import json, sys\n"
@@ -105,6 +107,10 @@ def test_serve_and_obs_packages_load_no_jax():
         "from distributeddeeplearning_tpu_torch.obs import HBMLedger, get_ledger\n"
         "from distributeddeeplearning_tpu_torch.serve import FleetRouter, serve_fleet\n"
         "import distributeddeeplearning_tpu_torch.obs.fleet\n"
+        "import distributeddeeplearning_tpu_torch.obs.attrib\n"
+        "import distributeddeeplearning_tpu_torch.obs.profile\n"
+        "import distributeddeeplearning_tpu_torch.obs.schema\n"
+        "import distributeddeeplearning_tpu_torch.obs.history\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
@@ -115,7 +121,8 @@ def test_serve_and_obs_packages_load_no_jax():
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert not bad, f"serve/obs pulled in {bad[:10]}"
     for name in ("serve.kv_tier", "serve.traffic", "serve.fleet", "obs.fleet",
-                 "obs.ledger"):
+                 "obs.ledger", "obs.attrib", "obs.profile", "obs.schema",
+                 "obs.history"):
         assert f"distributeddeeplearning_tpu_torch.{name}" in loaded, name
 
 
